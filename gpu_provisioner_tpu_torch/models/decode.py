@@ -1,0 +1,414 @@
+"""KV-cache inference: prefill, cached forward, sampling and generate.
+
+Twin of ``gpu_provisioner_tpu/models/decode.py`` for the dense family: one
+cached forward serves prefill (S tokens) and decode (S = 1); the cache is
+head-major ``[L, B, Hkv, max_len, Dh]`` with a length that is one int for
+every row or a ``[B]`` tensor (per-row, as the serving engine's slots are);
+ragged batches serve left-padded, pads masked out of attention and RoPE
+counted from each row's first real token; an int8 cache stores per-token,
+per-head f32 scales. Under ``attn_impl="flash"`` attention dispatches to
+the decode kernel (short query blocks) or the cached-prefill kernel exactly
+where the JAX package does, and to the dense masked sweep elsewhere.
+
+Deliberate differences from the JAX module:
+
+- **in-place cache update**: ``cached_forward`` writes the new keys and
+  values into the cache tensors it is given (the JAX code returns a new
+  cache from ``dynamic_update_slice``) and returns the same tensors with
+  the new length; a caller that needs the old contents clones first;
+- the fresh ``prefill`` writes into the (empty) cache it is given rather
+  than building a padded one;
+- an eager Python loop over layers and decode steps in place of
+  ``lax.scan``/``jit``;
+- ``torch.Generator`` in place of ``jax.random`` keys for sampling, drawn by
+  Gumbel-max (sampled streams cannot match across the two RNGs);
+- the dense family only: ``family_fns`` raises for anything but a
+  ``LlamaConfig`` until the MoE slice; no ``prefill_chunked`` and no
+  ``kv_cache_specs`` yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import torch
+
+from ..device import resolve_device
+from ..ops.flash_attention import (_start_vector, cached_flash_supported,
+                                   decode_flash_supported,
+                                   flash_attention_cached,
+                                   flash_attention_decode)
+from .llama import (LlamaConfig, _logits, _mlp_half, _project_qkv, _rmsnorm,
+                    layer_params, resolve_attn as _resolve_attn)
+
+NEG_INF = -1.0e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # [L, B, Hkv, max_len, Dh] head-major
+    v: torch.Tensor     # [L, B, Hkv, max_len, Dh]
+    length: Union[int, torch.Tensor]   # tokens written: int, or [B] int32
+    # int8 mode only: per-token-per-head scales [L, B, Hkv, max_len, 1] f32
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _kv_int8(cfg: LlamaConfig) -> bool:
+    """Validated kv_cache_dtype dispatch: unknown values raise."""
+    if cfg.kv_cache_dtype not in ("auto", "int8"):
+        raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}; "
+                         "expected 'auto'|'int8'")
+    return cfg.kv_cache_dtype == "int8"
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device=None) -> KVCache:
+    """Zeroed cache on ``device`` (default cuda) per cfg.kv_cache_dtype:
+    "auto" stores the act dtype, "int8" int8 values plus f32 scales."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    if _kv_int8(cfg):
+        sshape = shape[:-1] + (1,)
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                       length=0,
+                       k_scale=torch.zeros(sshape, device=dev),
+                       v_scale=torch.zeros(sshape, device=dev))
+    return KVCache(k=torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
+                   length=0)
+
+
+def _quantize_kv(x):
+    """Per-token-per-head symmetric int8: [..., Dh] → (int8 values, f32
+    scales [..., 1]). torch.round, like jnp.round, rounds half to even."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scl = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scl), -127, 127).to(torch.int8)
+    return q, scl
+
+
+def _is_per_row(start) -> bool:
+    return isinstance(start, torch.Tensor) and start.ndim == 1
+
+
+def _cached_attention(q, k_cache, v_cache, start, scale, impl="dense",
+                      pad_lens=None, k_scale=None, v_scale=None,
+                      window=None, sinks=0):
+    """q [B, S, Hq, Dh] against one layer's head-major cache [B, Hkv,
+    max_len, Dh]: key p is attendable iff p <= start + query index, with
+    pads, window and sinks. ``impl="flash"`` takes the decode kernel for
+    short blocks and the cached kernel for tiling prefill blocks at a
+    scalar start; everything else is the dense masked sweep, whose
+    pad-QUERY rows are a uniform V-average (the kernels emit zero there;
+    only real positions are read)."""
+    B, S, Hq, Dh = q.shape
+    Hkv, max_len = k_cache.shape[1], k_cache.shape[2]
+    kw = dict(scale=scale, k_scale=k_scale, v_scale=v_scale,
+              pad_lens=pad_lens, window=window, sinks=sinks)
+    if impl == "flash":
+        if decode_flash_supported(max_len, Hq, Hkv, S=S):
+            return flash_attention_decode(q, k_cache, v_cache, start, **kw)
+        if not _is_per_row(start) and cached_flash_supported(
+                S, max_len, Hq, Hkv):
+            return flash_attention_cached(q, k_cache, v_cache, start, **kw)
+    kf = k_cache.float()
+    vf = v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale
+        vf = vf * v_scale
+    group = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, group, Dh)
+    s = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), kf) * scale
+    key_pos = torch.arange(max_len, device=q.device)[None, None, :]  # [1,1,K]
+    q_pos = (_start_vector(start, B, q.device)[:, None]
+             + torch.arange(S, device=q.device))[:, :, None]      # [B,S,1]
+    mask = key_pos <= q_pos                                        # [B,S,K]
+    if window is not None:
+        in_win = key_pos > q_pos - window
+        if sinks and pad_lens is None:
+            in_win = in_win | (key_pos < sinks)
+        mask = mask & in_win
+    if pad_lens is not None:
+        pads = pad_lens.long()[:, None, None]
+        live = key_pos >= pads
+        mask = mask & live
+        if window is not None and sinks:
+            sink = key_pos < pads + sinks
+            mask = mask | ((key_pos <= q_pos) & live & sink)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bqhgd", p, vf)
+    return o.reshape(B, S, Hq, Dh).to(q.dtype)
+
+
+def _writer(start, S: int, max_len: int, B: int, device):
+    """write(buf, new): new tokens [B, S, H, D'] into the head-major buffer
+    [B, H, max_len, D'] at each row's offset, in place. The offset is
+    clamped to [0, max_len - S], as lax.dynamic_update_slice clamps, so a
+    parked row's write stays in bounds."""
+    if _is_per_row(start):
+        w0 = torch.clamp(start.long(), 0, max_len - S)
+        rows = torch.arange(B, device=device)[:, None]
+        cols = w0[:, None] + torch.arange(S, device=device)       # [B, S]
+
+        def write(buf, new):
+            buf[rows, :, cols] = new     # advanced dims first: [B, S, H, D']
+        return write
+    w0 = min(max(int(start), 0), max_len - S)
+
+    def write(buf, new):
+        buf[:, :, w0:w0 + S] = new.transpose(1, 2)
+    return write
+
+
+@torch.no_grad()
+def cached_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig,
+                   pad_lens=None):
+    """Forward over ``tokens`` [B, S] starting at cache.length; returns
+    (logits [B, S, V] f32, cache). The cache tensors are updated IN PLACE
+    and come back with length + S.
+
+    ``pad_lens`` [B]: left-pad counts for ragged batches (keys below are
+    masked; RoPE positions count from the first real token, pad positions
+    clip to 0). Precondition, owned by the caller: length + S <= max_len."""
+    _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
+    ad = cfg.act_dtype
+    B, S = tokens.shape
+    dev = tokens.device
+    start = cache.length
+    per_row = _is_per_row(start)
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = (start.to(torch.int32)[:, None] + ar) if per_row else ar + start
+    if pad_lens is not None:
+        if not per_row:
+            positions = positions[None, :]
+        positions = torch.clamp(positions - pad_lens[:, None], min=0)
+    scale = cfg.head_dim ** -0.5
+    int8 = _kv_int8(cfg)
+    if int8 != (cache.k_scale is not None):
+        raise ValueError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} but the cache was "
+            f"built {'WITH' if cache.k_scale is not None else 'without'} "
+            "int8 scales — cfg and init_kv_cache(cfg, ...) must agree")
+    write = _writer(start, S, cache.k.shape[3], B, dev)
+
+    x = params["embed"][tokens].to(ad)
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
+        q, k, v = _project_qkv(a, lp, cfg, positions)
+        k_cache, v_cache = cache.k[layer], cache.v[layer]
+        k_scl = v_scl = None
+        if int8:
+            kq, ks_ = _quantize_kv(k)
+            vq, vs_ = _quantize_kv(v)
+            k_scl, v_scl = cache.k_scale[layer], cache.v_scale[layer]
+            write(k_cache, kq)
+            write(v_cache, vq)
+            write(k_scl, ks_)
+            write(v_scl, vs_)
+        else:
+            write(k_cache, k)
+            write(v_cache, v)
+        o = _cached_attention(q, k_cache, v_cache, start, scale,
+                              impl=cfg.attn_impl, pad_lens=pad_lens,
+                              k_scale=k_scl, v_scale=v_scl,
+                              window=cfg.sliding_window, sinks=cfg.attn_sinks)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+            @ lp["wo"].to(ad)
+        x = _mlp_half(x, lp, cfg)
+    return _logits(x, params, cfg), cache._replace(length=start + S)
+
+
+@torch.no_grad()
+def _prefill_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig):
+    """Prefill of an EMPTY cache: plain causal self-attention over the
+    prompt (flash-kernel eligible via cfg.attn_impl) instead of the S×max_len
+    cached sweep; each layer's k/v is stored once at offset 0 (int8
+    quantisation at the store, so the prompt attended full-precision k/v)."""
+    if cfg.sliding_window is not None:
+        raise ValueError("the fresh fast path has no window mask — prefill() "
+                         "routes sliding-window configs to cached_forward")
+    ad = cfg.act_dtype
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    attn = _resolve_attn(cfg.attn_impl)
+    int8 = _kv_int8(cfg)
+
+    x = params["embed"][tokens].to(ad)
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
+        q, k, v = _project_qkv(a, lp, cfg, positions)
+        o = attn(q, k, v)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+            @ lp["wo"].to(ad)
+        x = _mlp_half(x, lp, cfg)
+        if int8:
+            kq, kscl = _quantize_kv(k)
+            vq, vscl = _quantize_kv(v)
+            cache.k[layer, :, :, :S] = kq.transpose(1, 2)
+            cache.v[layer, :, :, :S] = vq.transpose(1, 2)
+            cache.k_scale[layer, :, :, :S] = kscl.transpose(1, 2)
+            cache.v_scale[layer, :, :, :S] = vscl.transpose(1, 2)
+        else:
+            cache.k[layer, :, :, :S] = k.transpose(1, 2)
+            cache.v[layer, :, :, :S] = v.transpose(1, 2)
+    return _logits(x, params, cfg), cache._replace(length=S)
+
+
+def prefill(params: dict, prompt, cache: KVCache, cfg: LlamaConfig, *,
+            fresh: bool = False, pad_lens=None):
+    """(last-token logits [B, V], cache) after consuming the prompt.
+    ``fresh=True`` (an empty cache) takes the self-attention fast path;
+    otherwise the general cached forward runs. ``pad_lens`` needs
+    fresh=False; a sliding window always takes the general path."""
+    if cfg.sliding_window is not None:
+        fresh = False
+    if fresh:
+        if pad_lens is not None:
+            raise ValueError("pad_lens requires fresh=False — the fresh "
+                             "fast path cannot mask pad keys")
+        logits, cache = _prefill_forward(params, prompt, cache, cfg)
+    else:
+        logits, cache = cached_forward(params, prompt, cache, cfg,
+                                       pad_lens=pad_lens)
+    return logits[:, -1], cache
+
+
+def family_fns(cfg, pad_lens=None, fresh: bool = False):
+    """(prefill_fn, step_fn), each (params, tokens, cache) → (logits,
+    cache): the one dispatch point generate() and the engine share. Dense
+    family only until the MoE slice."""
+    if type(cfg) is not LlamaConfig:
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: only the dense Llama family is ported; "
+            "MoE serving comes with the MoE slice")
+    return (lambda p, t, c: prefill(p, t, c, cfg, fresh=fresh,
+                                    pad_lens=pad_lens),
+            lambda p, t, c: cached_forward(p, t, c, cfg, pad_lens=pad_lens))
+
+
+def filter_logits(logits, temperature: float, top_k, top_p):
+    """The serving sampling distribution: temperature → top-k → top-p."""
+    logits = logits / temperature
+    if top_k is not None:
+        logits = _filter_top_k(logits, top_k)
+    if top_p is not None:
+        logits = _filter_top_p(logits, top_p)
+    return logits
+
+
+def validate_sampling_args(temperature: float, top_k, top_p,
+                           generator) -> None:
+    """Shared loud validation for every sampling entry point."""
+    if temperature > 0 and generator is None:
+        raise ValueError(
+            "sampling (temperature>0) requires an explicit torch.Generator "
+            "— sampling without one would be silently irreproducible")
+    if top_k is not None and not 0 < top_k:
+        raise ValueError(f"top_k must be positive, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _filter_top_k(logits, top_k: int):
+    """Keep the k highest logits per row (ties with the k-th kept)."""
+    vals = torch.topk(logits, top_k, dim=-1).values
+    return torch.where(logits >= vals[..., -1:], logits, NEG_INF)
+
+
+def _filter_top_p(logits, top_p: float):
+    """Nucleus filter: the smallest set of tokens whose mass reaches top_p
+    (at least one: the exclusive cumsum keeps the top token)."""
+    probs = torch.softmax(logits, dim=-1)
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    exclusive_csum = torch.cumsum(sorted_probs, dim=-1) - sorted_probs
+    keep = exclusive_csum < top_p
+    thresh = torch.where(keep, sorted_probs, 2.0).amin(dim=-1, keepdim=True)
+    return torch.where(probs >= thresh, logits, NEG_INF)
+
+
+def sample(logits, generator: torch.Generator):
+    """One draw per row from softmax(logits), by Gumbel-max with noise from
+    ``generator`` (NEG_INF logits are never drawn)."""
+    e = torch.empty(logits.shape, dtype=torch.float32, device=logits.device)
+    e.exponential_(generator=generator)
+    return torch.argmax(logits - torch.log(e), dim=-1)
+
+
+def pick(logits, temperature: float, top_k, top_p, generator,
+         return_logprobs: bool):
+    """(token int32 [B], log-prob [B] under the sampling distribution —
+    greedy reports the unfiltered one; zeros when not asked for)."""
+    if temperature > 0:
+        dist = filter_logits(logits, temperature, top_k, top_p)
+        tok = sample(dist, generator)
+    else:
+        dist = logits
+        tok = torch.argmax(logits, dim=-1)
+    if return_logprobs:
+        lp = torch.log_softmax(dist, dim=-1).gather(-1, tok[:, None])[:, 0]
+    else:
+        lp = torch.zeros(tok.shape, device=tok.device)
+    return tok.to(torch.int32), lp
+
+
+@torch.no_grad()
+def generate(params: dict, prompt, cfg: LlamaConfig, *, max_new_tokens: int,
+             max_len: int = None, temperature: float = 0.0,
+             top_k: int = None, top_p: float = None,
+             generator: torch.Generator = None, pad_id: int = None,
+             eos_id: int = None, return_logprobs: bool = False, device=None):
+    """Autoregressive generation: prefill, then a loop of decode steps.
+    prompt: [B, S0] int → [B, max_new_tokens] int32, on ``device`` (default
+    cuda; the params must live there).
+
+    temperature 0 = greedy (top_k/top_p ignored); temperature > 0 samples
+    with ``generator``, which is then required. ``pad_id``: LEFT-padded
+    ragged prompts (every row needs a real token). ``eos_id``: a row that
+    emits it is finished and repeats eos_id from then on.
+    ``return_logprobs``: also each token's log-probability under the
+    sampling distribution ([B, max_new_tokens] f32; forced eos reports 0)."""
+    dev = resolve_device(device)
+    if params["embed"].device != dev:
+        raise ValueError(f"params on {params['embed'].device}, generate on "
+                         f"{dev}")
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, S0 = prompt.shape
+    if max_len is None:
+        max_len = S0 + max_new_tokens
+    if S0 + max_new_tokens > max_len:
+        raise ValueError(f"prompt {S0} + {max_new_tokens} new tokens > "
+                         f"max_len {max_len}")
+    validate_sampling_args(temperature, top_k, top_p, generator)
+
+    pad_lens = None
+    if pad_id is not None:
+        # leading-pad count per row == index of the first real token
+        pad_lens = torch.argmax((prompt != pad_id).to(torch.int32),
+                                dim=1).to(torch.int32)
+
+    prefill_fn, step_fn = family_fns(cfg, pad_lens=pad_lens,
+                                     fresh=pad_id is None)
+    cache = init_kv_cache(cfg, B, max_len, dev)
+    logits, cache = prefill_fn(params, prompt, cache)
+    args = (temperature, top_k, top_p, generator, return_logprobs)
+    tok, lp = pick(logits, *args)
+    done = (tok == eos_id) if eos_id is not None else None
+    toks, lps = [tok], [lp]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = step_fn(params, tok[:, None], cache)
+        tok, lp = pick(logits[:, 0], *args)
+        if eos_id is not None:
+            tok = torch.where(done, eos_id, tok).to(torch.int32)
+            lp = torch.where(done, 0.0, lp)     # forced eos: not a draw
+            done = done | (tok == eos_id)
+        toks.append(tok)
+        lps.append(lp)
+    out = torch.stack(toks, dim=1)
+    if not return_logprobs:
+        return out
+    return out, torch.stack(lps, dim=1)

@@ -1,0 +1,194 @@
+"""The port's continuous-batching engine, on the CPU, in f32.
+
+The engine's invariant (tests/test_engine.py): a request served through the
+engine emits exactly the stream plain generate() produces for it alone.
+Here each port stream must equal the port's own generate() AND the JAX
+engine's stream for the same request, token for token; logprobs agree with
+the JAX engine to 1e-4 absolute.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gpu_provisioner_tpu.models import engine as je
+from gpu_provisioner_tpu.models import llama as jl
+from gpu_provisioner_tpu_torch.models import decode as td
+from gpu_provisioner_tpu_torch.models import engine as te
+from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
+
+JCFG = jl.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=128, max_seq_len=256,
+                      dtype="float32")
+JPARAMS = jl.init_params(jax.random.key(0), JCFG)
+TPARAMS = params_from_numpy(jax.tree.map(np.asarray, JPARAMS), device="cpu")
+
+
+def _tcfg(jcfg):
+    return tl.LlamaConfig(**dataclasses.asdict(jcfg))
+
+
+def _prompt(seed, n):
+    return np.random.default_rng(seed).integers(1, 128, n).tolist()
+
+
+def _solo(prompt, new, cfg, **kw):
+    toks = td.generate(TPARAMS, torch.tensor([prompt]), cfg,
+                       max_new_tokens=new, max_len=256, device="cpu", **kw)
+    return toks[0].tolist()
+
+
+def _both(jcfg, requests, mid_flight=(), steps_before=0, **eng_kw):
+    """Serve ``requests`` [(prompt, new, submit kwargs)] on the JAX and the
+    port engines alike, ``mid_flight`` ones after ``steps_before`` steps;
+    returns (jax engine, port engine, jax ids, port ids)."""
+    out = []
+    for mod, params, cfg, dev in ((je, JPARAMS, jcfg, {}),
+                                  (te, TPARAMS, _tcfg(jcfg),
+                                   {"device": "cpu"})):
+        eng = mod.ServeEngine(params, cfg, **eng_kw, **dev)
+        ids = [eng.submit(p, n, **kw) for p, n, kw in requests]
+        for _ in range(steps_before):
+            eng.step()
+        ids += [eng.submit(p, n, **kw) for p, n, kw in mid_flight]
+        eng.run()
+        out.append((eng, ids))
+    (jeng, jids), (teng, tids) = out
+    return jeng, teng, jids, tids
+
+
+def _assert_same_streams(jeng, teng, jids, tids):
+    for j, t in zip(jids, tids):
+        assert teng.finished[t] == jeng.finished[j], f"request {t}"
+
+
+def test_engine_matches_generate_and_jax_engine():
+    reqs = [(_prompt(1, 10), 8, {}), (_prompt(2, 20), 12, {})]
+    jeng, teng, jids, tids = _both(JCFG, reqs, slots=2, max_len=64,
+                                   prefill_buckets=(16, 32))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs, tids):
+        assert teng.finished[t] == _solo(p, n, _tcfg(JCFG))
+
+
+def test_engine_staggered_arrival_and_slot_reuse():
+    reqs = [(_prompt(s, 8 + s), 4 + s, {}) for s in range(3)]
+    late = [(_prompt(9, 12), 6, {})]
+    jeng, teng, jids, tids = _both(JCFG, reqs, mid_flight=late,
+                                   steps_before=3, slots=2, max_len=64,
+                                   prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs + late, tids):
+        assert teng.finished[t] == _solo(p, n, _tcfg(JCFG))
+
+
+def test_engine_eos_frees_slot_early():
+    cfg = _tcfg(JCFG)
+    eos = _solo(_prompt(4, 10), 12, cfg)[2]
+    reqs = [(_prompt(4, 10), 12, {"eos_id": eos}), (_prompt(5, 10), 4, {})]
+    jeng, teng, jids, tids = _both(JCFG, reqs, slots=1, max_len=64,
+                                   prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    first = teng.finished[tids[0]]
+    assert first[-1] == eos and len(first) < 12
+    assert first == _solo(_prompt(4, 10), 12, cfg, eos_id=eos)[:len(first)]
+    assert teng.finished[tids[1]] == _solo(_prompt(5, 10), 4, cfg)
+
+
+def test_engine_prefix_cache_hit_and_miss():
+    prefix = _prompt(50, 11)
+    reqs = [(_prompt(51 + i, 5 + i), 6, {"prefix": prefix}) for i in range(3)]
+    reqs.append((_prompt(60, 7), 4, {"prefix": _prompt(61, 9)}))
+    jeng, teng, jids, tids = _both(JCFG, reqs, slots=2, max_len=96,
+                                   prefill_buckets=(16,),
+                                   prefix_cache_size=2)
+    _assert_same_streams(jeng, teng, jids, tids)
+    assert (teng.prefix_misses, teng.prefix_hits) == (2, 2)
+    st = teng.stats()
+    assert st["prefix_cache_entries"] == 2 and st["requests_finished"] == 4
+    assert st["tokens_emitted"] == 6 * 3 + 4
+    # the prefix row survives its hits: a request after them still matches
+    for (p, n, kw), t in zip(reqs[:3], tids):
+        assert teng.finished[t] == _solo(prefix + p, n, _tcfg(JCFG))
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_engine_through_the_kernels_matches_jax(kv_dtype):
+    """attn_impl="flash" with a 128 bucket: admission takes the cached
+    kernel (and, after a prefix, at a start above 0), every step the
+    decode kernel with per-row starts."""
+    jcfg = dataclasses.replace(JCFG, attn_impl="flash",
+                               kv_cache_dtype=kv_dtype)
+    prefix = _prompt(70, 40)
+    reqs = [(_prompt(71, 100), 5, {}), (_prompt(72, 60), 7, {}),
+            (_prompt(73, 30), 4, {"prefix": prefix}),
+            (_prompt(74, 20), 3, {"prefix": prefix})]
+    jeng, teng, jids, tids = _both(jcfg, reqs, slots=2, max_len=512,
+                                   prefill_buckets=(128,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    assert teng.prefix_hits == 1
+
+
+def test_engine_logprobs_match_jax_engine():
+    reqs = [(_prompt(80, 9), 6, {}), (_prompt(81, 14), 5, {})]
+    jeng, teng, jids, tids = _both(JCFG, reqs, slots=2, max_len=64,
+                                   prefill_buckets=(16,),
+                                   return_logprobs=True)
+    _assert_same_streams(jeng, teng, jids, tids)
+    for j, t in zip(jids, tids):
+        np.testing.assert_allclose(teng.finished_logprobs[t],
+                                   jeng.finished_logprobs[j], atol=1e-4)
+        assert len(teng.finished_logprobs[t]) == len(teng.finished[t])
+
+
+def test_engine_sampled_is_reproducible_and_in_vocab():
+    cfg = _tcfg(JCFG)
+
+    def run(seed):
+        eng = te.ServeEngine(TPARAMS, cfg, slots=2, max_len=64,
+                             prefill_buckets=(16,), temperature=0.9,
+                             top_k=20, device="cpu",
+                             generator=torch.Generator().manual_seed(seed))
+        ids = [eng.submit(_prompt(90 + i, 8), 6) for i in range(3)]
+        out = eng.run()
+        return [out[i] for i in ids]
+
+    a = run(0)
+    assert a == run(0)
+    assert all(0 <= t < 128 for s in a for t in s)
+    assert all(len(s) == 6 for s in a)
+
+
+def test_engine_validation():
+    cfg = _tcfg(JCFG)
+    with pytest.raises(NotImplementedError, match="speculation slice"):
+        te.ServeEngine(TPARAMS, cfg, draft_params=TPARAMS, draft_cfg=cfg,
+                       device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        te.ServeEngine(TPARAMS, cfg, temperature=1.0, device="cpu")
+    eng = te.ServeEngine(TPARAMS, cfg, slots=1, max_len=32,
+                         prefill_buckets=(16,), device="cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        eng.submit(_prompt(1, 10), 20)
+    with pytest.raises(ValueError, match="largest bucket"):
+        eng.submit(_prompt(1, 17), 2)
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit([], 2)
+    assert eng.stats()["requests_submitted"] == 0
+
+
+def test_engine_sliding_window_with_sinks_matches_jax():
+    """Window + sinks through the decode kernel with per-slot pads and
+    lengths: streams equal the JAX engine's and the port's generate()."""
+    jcfg = dataclasses.replace(JCFG, attn_impl="flash", sliding_window=12,
+                               attn_sinks=3)
+    reqs = [(_prompt(100, 9), 14, {}), (_prompt(101, 15), 10, {})]
+    jeng, teng, jids, tids = _both(jcfg, reqs, slots=2, max_len=256,
+                                   prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs, tids):
+        assert teng.finished[t] == _solo(p, n, _tcfg(jcfg))
