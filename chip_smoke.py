@@ -14,10 +14,26 @@ Phases, each of which exits non-zero on a failed check:
    over 989 TFLOP/s, whichever is larger: the H100 SXM's published peaks);
 3. exact tokens: Llama-7B width, 2 layers, f32: every ServeEngine stream
    equals generate() on that request alone;
-4. the main path: full Llama-7B (32 layers) in bf16 with the flash kernels:
-   after one warm-up pass, three ServeEngine passes of 6 requests each (one
-   shared prefix), then generate() with B=2, S0=512, fresh and left-padded,
-   with every kernel's launch count read across that run;
+4. the serving path: full Llama-7B (32 layers) in bf16 with the flash
+   kernels: after one warm-up pass, three ServeEngine passes of 6 requests
+   each (one shared prefix), then generate() with B=2, S0=512, fresh and
+   left-padded, with every kernel's launch count read across that run;
+5. both backward kernels against attention_bwd_plain on the card (bf16 and
+   f32, D 128, causal, non-causal, window 1024, a non-zero lse cotangent;
+   error relative to the largest plain gradient), then, at the training
+   shape (B=8, S=2048 causal, Hq 16, Hkv 8, bf16), the forward kernel
+   against attention_plain and both backward kernels against
+   attention_bwd_plain, and each backward kernel timed beside the plain
+   backward, the library yardstick (torch.autograd.grad of
+   scaled_dot_product_attention, dQ/dK/dV together) and its bound;
+6. exact training: Llama-1B width, 2 layers, f32: one make_train_step with
+   the flash kernels and one with dense attention, from the same params and
+   batch, agree in loss and every gradient, and again in the loss of a
+   second step;
+7. the training path: full Llama-1B (16 layers), bf16 activations, f32
+   masters, remat, B=8, S=2048, AdamW: one warm-up step, then five timed
+   steps on one fixed batch, with the loss falling and every kernel's
+   launch count read across the five;
 then the card line, the kernels line and, last, the device line.
 """
 
@@ -68,12 +84,8 @@ def time_ms(fn, flush, reps=20):
     return statistics.median(times)
 
 
-def work(B, S, Hq, Hkv, D, Sk, start, pads, window, sinks, causal,
-         act_bytes, kv_bytes, int8, lse):
-    """(operations, bytes) the call needs on these inputs: 4·D operations
-    per attended (query, key) pair and head; each input read once (the
-    cache only where some query of the row attends), each output written
-    once."""
+def _attended(B, S, Sk, start, pads, window, sinks, causal):
+    """keep [B, S, Sk]: key attendable from query, on these inputs."""
     import torch
     st = (start.long().cpu().reshape(-1) if isinstance(start, torch.Tensor)
           else torch.tensor([start])).expand(B)
@@ -89,6 +101,16 @@ def work(B, S, Hq, Hkv, D, Sk, start, pads, window, sinks, causal,
         if sinks:
             w = w | (kp < (pad + sinks)[:, None, None])
         keep = keep & w
+    return keep
+
+
+def work(B, S, Hq, Hkv, D, Sk, start, pads, window, sinks, causal,
+         act_bytes, kv_bytes, int8, lse):
+    """(operations, bytes) the call needs on these inputs: 4·D operations
+    per attended (query, key) pair and head; each input read once (the
+    cache only where some query of the row attends), each output written
+    once."""
+    keep = _attended(B, S, Sk, start, pads, window, sinks, causal)
     pairs = int(keep.sum()) * Hq
     keys = int(keep.any(dim=1).sum()) * Hkv          # (row, kv head, key)
     nbytes = (2 * B * S * Hq * D * act_bytes          # q in, out
@@ -235,6 +257,207 @@ def phase_kernels(torch, tfa, td, dev):
     return rows
 
 
+def work_bwd(kernel, B, S, Hq, Hkv, D, causal, window, act_bytes):
+    """(operations, bytes) one backward kernel needs on these inputs: per
+    attended (query, key) pair and q-head, 6·D operations for dQ (S, dP,
+    dS·K) and 8·D for dK/dV (S, dP, Pᵀ·dO, dSᵀ·Q); q, k, v, dO, lse and Δ
+    read once, its outputs written once."""
+    pairs = int(_attended(B, S, S, 0, None, window, 0, causal).sum()) * Hq
+    q_side, kv_side = B * S * Hq * D * act_bytes, B * S * Hkv * D * act_bytes
+    reads = 2 * q_side + 2 * kv_side + 2 * B * Hq * S * 4
+    if kernel == "flash_bwd_dq":
+        return 6 * D * pairs, reads + q_side
+    return 8 * D * pairs, reads + 2 * kv_side
+
+
+# (B, S, Hq, Hkv, causal, window, lse cotangent), D = 128
+BWD_CASES = ((2, 512, 32, 8, True, None, False),
+             (1, 2048, 16, 8, True, None, False),
+             (1, 4096, 32, 8, True, None, False),
+             (2, 512, 16, 16, False, None, False),
+             (1, 4096, 32, 8, True, 1024, False),
+             (2, 512, 32, 8, True, None, True))
+TRAIN_SHAPE = (8, 2048, 16, 8)     # llama-1b attention: B, S, Hq, Hkv
+
+
+def phase_bwd_kernels(torch, tfa, dev):
+    """Both backward kernels against attention_bwd_plain, then each timed
+    at the training shape. Returns the kernels line's entries."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    D = 128
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def err(a, b):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / b.float().abs().max().item()
+
+    worst = {"flash_bwd_dq": (0.0, 0.0), "flash_bwd_dkv": (0.0, 0.0)}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        for B, S, Hq, Hkv, causal, window, cot in BWD_CASES:
+            q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
+                                                         dtype=dtype)
+            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                        dtype=dtype)
+            g_lse = rnd(B, Hq, S, dtype=torch.float32) if cot else None
+            kw = dict(causal=causal, window=window)
+            out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+            got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
+                                          **kw)
+            want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse,
+                                           **kw)
+            es = [err(a, b) for a, b in zip(got, want)]
+            print(f"flash_bwd {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                  f"causal={causal} window={window} lse_cotangent={cot}: "
+                  + ", ".join(f"{n} max|err| {e:.3g} rel {r:.3g}"
+                              for n, (e, r) in zip(("dq", "dk", "dv"), es))
+                  + f" (tol {tol}, relative)")
+            check(all(r <= tol for _, r in es),
+                  "a backward kernel disagrees with attention_bwd_plain")
+            check(all(a.dtype == dtype for a in got), "gradient dtypes")
+            if dtype == torch.bfloat16:
+                for name, part in (("flash_bwd_dq", es[:1]),
+                                   ("flash_bwd_dkv", es[1:])):
+                    worst[name] = tuple(max(x) for x in zip(worst[name],
+                                                            *part))
+            del q, k, v, dout, out, lse, got, want
+    torch.cuda.synchronize()
+
+    # the training shape, bf16: one llama-1b layer's attention, checked
+    # against the plain versions, then timed
+    bf, (B, S, Hq, Hkv) = torch.bfloat16, TRAIN_SHAPE
+    tol = TOL["bfloat16"]
+    q, dout = rnd(B, S, Hq, D, dtype=bf), rnd(B, S, Hq, D, dtype=bf)
+    k, v = rnd(B, S, Hkv, D, dtype=bf), rnd(B, S, Hkv, D, dtype=bf)
+    out, lse = tfa.flash_attention_with_lse(q, k, v)
+    ref, rlse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    0)
+    (fwd_err, fwd_rel), (lse_err, _) = err(out, ref), err(lse, rlse)
+    del ref, rlse
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout)
+    es = [err(a, b) for a, b in zip(got, want)]
+    del got, want
+    print(f"training shape bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} causal: "
+          f"flash_fwd max|out-plain| {fwd_err:.3g} rel {fwd_rel:.3g}, "
+          f"|lse-plain| {lse_err:.3g} (tol 1e-4); "
+          + ", ".join(f"{n} max|err| {e:.3g} rel {r:.3g}"
+                      for n, (e, r) in zip(("dq", "dk", "dv"), es))
+          + f" (tol {tol}, relative)")
+    check(fwd_rel <= tol and lse_err <= 1e-4,
+          "flash_fwd disagrees with plain at the training shape")
+    check(all(r <= tol for _, r in es), "a backward kernel disagrees with "
+          "attention_bwd_plain at the training shape")
+    for name, part in (("flash_bwd_dq", es[:1]), ("flash_bwd_dkv", es[1:])):
+        worst[name] = tuple(max(x) for x in zip(worst[name], *part))
+    delta = tfa._bwd_delta(out, dout, None).contiguous()
+    lib_in = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    plain_ms = time_ms(lambda: tfa.attention_bwd_plain(q, k, v, out, lse,
+                                                       dout), flush)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, lib_dout, retain_graph=True), flush)
+    rows = []
+    for name, replaces in (("flash_bwd_dq", ":916 (_bwd_dq_kernel)"),
+                           ("flash_bwd_dkv", ":979 (_bwd_dkv_kernel)")):
+        ops, nbytes = work_bwd(name, B, S, Hq, Hkv, D, True, None, 2)
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gpu_provisioner_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": "gpu_provisioner_tpu/ops/flash_attention.py"
+                        + replaces,
+            "launches": 0, "max_abs_err": worst[name][0],
+            "max_rel_err": worst[name][1], "tolerance": TOL["bfloat16"],
+            "ms": time_ms(lambda: tfa._launch_bwd(
+                name, q, k, v, dout, lse, delta, causal=True,
+                scale=D ** -0.5), flush),
+            "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": library_ms,
+            "library_note": "dQ, dK and dV in one call; plain_ms likewise"})
+        print(f"{name}: {json.dumps(rows[-1])}")
+    del flush, lib_out, lib_in
+    return fwd_err, rows
+
+
+def phase_train_exact(torch, tl, tt, dev):
+    """Llama-1B width, 2 layers, f32: a flash train step == a dense one."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
+                              dtype="float32")
+    g = torch.Generator().manual_seed(SEED + 4)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 513), generator=g)
+               .to(dev) for _ in range(2)]
+    losses, grads = {}, {}
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        params, opt = tt.make_train_state(
+            c, torch.Generator(dev).manual_seed(SEED), dev)
+        step = tt.make_train_step(c, opt)
+        first = step(params, batches[0][:, :-1], batches[0][:, 1:]).item()
+        grads[impl] = [p.grad.clone() for p in tt.param_leaves(params)]
+        second = step(params, batches[1][:, :-1], batches[1][:, 1:]).item()
+        losses[impl] = (first, second)
+        del params, opt, step
+    for i, what in enumerate(("loss", "second-step loss")):
+        a, b = losses["flash"][i], losses["dense"][i]
+        print(f"exact training (llama-1b width, 2 layers, f32) {what}: "
+              f"flash {a!r} dense {b!r} rel {abs(a - b) / abs(b):.3g}")
+        check(abs(a - b) <= 1e-5 * abs(b), f"{what}: flash != dense")
+    worst = max((a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(grads["flash"], grads["dense"]))
+    print(f"exact training: worst gradient leaf max|flash - dense| / "
+          f"max|dense| = {worst:.3g} (tol 1e-4)")
+    check(worst <= 1e-4, "flash gradients != dense gradients")
+
+
+def phase_train(torch, tl, tt, tfa, dev):
+    """Full Llama-1B: bf16 activations, f32 masters, remat, B=8, S=2048."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash",
+                              remat=True)
+    (B, S, _, _), steps = TRAIN_SHAPE, 5
+    params, opt = tt.make_train_state(
+        cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    step = tt.make_train_step(cfg, opt)
+    g = torch.Generator().manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).to(dev)
+    inp, tgt = toks[:, :-1], toks[:, 1:]
+    warm = step(params, inp, tgt).item()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(params, inp, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = dict(tfa.LAUNCHES)
+    ms = statistics.median(times)
+    print(f"train llama-1b bf16 (f32 masters, remat, flash) B={B} S={S}: "
+          f"warm-up loss {warm!r}, losses {losses}; step ms {times}, median "
+          f"{ms!r} = {B * S / ms * 1e3!r} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches over {steps} steps {launches}")
+    check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
+          "a training loss is not finite")
+    check(losses[-1] < losses[0] < warm, f"loss did not fall: {losses}")
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name}: {launches[name]} launches on the training path, "
+              f"expected {n}")
+    return launches
+
+
 def phase_exact(torch, tl, td, te, dev):
     """Llama-7B width, 2 layers, f32: engine streams == solo generate()."""
     cfg = dataclasses.replace(tl.PRESETS["llama-7b"], n_layers=2,
@@ -331,7 +554,9 @@ def phase_main(torch, tl, td, te, tfa, dev):
     print(f"main-path launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        serving = not name.startswith("flash_bwd")   # no backward here
+        check((n > 0) == serving,
+              f"kernel {name}: {n} launches on the serving path")
     return launches
 
 
@@ -348,6 +573,7 @@ def main() -> int:
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
     from gpu_provisioner_tpu_torch.models import llama as tl
+    from gpu_provisioner_tpu_torch.models import train as tt
     from gpu_provisioner_tpu_torch.ops import _cuda
     from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
@@ -373,10 +599,29 @@ def main() -> int:
     print(f"exact phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches = phase_main(torch, tl, td, te, tfa, dev)
+    serve = phase_main(torch, tl, td, te, tfa, dev)
     print(f"main phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()      # the serving params are gone
+    t0 = time.perf_counter()
+    fwd_err, bwd_rows = phase_bwd_kernels(torch, tfa, dev)
+    fwd = next(r for r in rows if r["name"] == "flash_fwd")
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_err)
+    rows += bwd_rows
+    print(f"backward kernel phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_exact(torch, tl, tt, dev)
+    print(f"exact training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = phase_train(torch, tl, tt, tfa, dev)
+    print(f"training phase {time.perf_counter() - t0:.1f} s")
+    # each kernel's launches on its own path: serving for the forward
+    # kernels, training for the backward ones (both counts kept)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {"serve": serve[r["name"]],
+                                 "train": train[r["name"]]}
+        r["launches"] = (train if r["name"].startswith("flash_bwd")
+                         else serve)[r["name"]]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,15 @@ through ``models/convert.py``), and the same math: an f32 RMSNorm cast back
 to the activation dtype before the scale, the half-split rotary embedding,
 SwiGLU, and f32 logits. Deliberate differences:
 
-- an eager Python loop over the layers in place of ``lax.scan``/``jit``;
-- ``init_params`` draws from a ``torch.Generator`` on the target device and
-  stores the matrices, embedding and norm scales in the activation dtype
-  once (the JAX code keeps f32 masters and casts at every use, which gives
-  the same numbers); ``lm_head`` stays f32, as the logits product is f32;
+- an eager Python loop over the layers in place of ``lax.scan``/``jit``,
+  with ``cfg.remat`` as ``torch.utils.checkpoint`` per block (the twin of
+  ``jax.checkpoint``);
+- ``init_params`` draws from a ``torch.Generator`` on the target device and,
+  for serving, stores the matrices, embedding and norm scales in the
+  activation dtype once (the JAX code keeps f32 masters and casts at every
+  use, which gives the same numbers); ``lm_head`` stays f32, as the logits
+  product is f32. The train state asks for ``cfg.param_dtype`` masters
+  (``models/train.py``), which the product code casts at each use;
 - ``attn_impl="flash"`` resolves to this package's CUDA kernels;
 - no ``param_specs``: tensor parallelism comes with the multi-GPU slice.
 """
@@ -25,6 +29,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel.ring import dense_attention
@@ -43,7 +48,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"        # activation / matmul dtype
     param_dtype: str = "float32"   # the JAX package's master weights
-    remat: bool = False            # training only (training slice)
+    remat: bool = False            # checkpoint each block (memory ↔ FLOPs)
     seq_schedule: str = "ring"     # sequence parallelism (multi-GPU slice)
     attn_impl: str = "dense"       # "dense" | "flash" (CUDA kernels; the
                                    # dense result for shapes that don't tile)
@@ -103,16 +108,17 @@ def resolve_attn(impl: str, window: Optional[int] = None,
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, dtype: Optional[torch.dtype] = None) -> dict:
     """Stacked-layer parameters with the JAX layout, normal(0, fan_in^-1/2)
-    drawn from ``generator`` on ``device`` (default cuda). Matrices,
-    embedding and norms are stored in cfg's activation dtype, lm_head in
-    f32. jax.random cannot be reproduced here: tests carry JAX params
-    across with params_from_numpy instead of comparing inits."""
+    drawn in f32 from ``generator`` on ``device`` (default cuda). Matrices,
+    embedding and norms are stored in ``dtype`` (default cfg's activation
+    dtype, the serving storage; the train state passes f32 masters),
+    lm_head in f32. jax.random cannot be reproduced here: tests carry JAX
+    params across with params_from_numpy instead of comparing inits."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
-    ad = cfg.act_dtype
+    ad = cfg.act_dtype if dtype is None else dtype
     L, D, F_ = cfg.n_layers, cfg.dim, cfg.hidden_dim
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -206,12 +212,13 @@ def _logits(x, params: dict, cfg: LlamaConfig):
     return x.float() @ params["lm_head"].float()
 
 
-@torch.no_grad()
 def forward(params: dict, tokens, cfg: LlamaConfig,
             attn_fn: Optional[Callable] = None, positions=None):
     """Logits for next-token prediction. tokens: [B, S] int → [B, S, V]
     f32. ``attn_fn(q, k, v) -> o`` defaults to cfg's attention;
-    ``positions`` defaults to arange(S)."""
+    ``positions`` defaults to arange(S). Differentiable (the serving entry
+    points call it under no_grad); ``cfg.remat`` recomputes each block in
+    the backward instead of keeping its activations."""
     if attn_fn is None:
         attn_fn = resolve_attn(cfg.attn_impl, cfg.sliding_window,
                                cfg.attn_sinks)
@@ -220,7 +227,12 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens].to(cfg.act_dtype)                # [B, S, D]
     for layer in range(cfg.n_layers):
-        x = _block(x, layer_params(params, layer), cfg, positions, attn_fn)
+        lp = layer_params(params, layer)
+        if cfg.remat:
+            x = checkpoint(_block, x, lp, cfg, positions, attn_fn,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(x, lp, cfg, positions, attn_fn)
     return _logits(x, params, cfg)
 
 

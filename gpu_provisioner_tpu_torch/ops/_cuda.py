@@ -2,7 +2,9 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``ops/_build/`` under a name
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.
+keyed by a hash of the sources and flags, and loaded with ``ctypes``. Each C
+entry point takes a pointer to its argument struct and a stream and returns
+``cudaGetLastError()`` (``ENTRIES``).
 Nothing here runs when the module is imported, so the CPU tests import it
 freely; ``build()`` starts one ``nvcc`` per source, all at once.
 
@@ -20,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_decode")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +41,28 @@ class FlashArgs(ctypes.Structure):
             "act_dtype", "kv_dtype", "B", "Sq", "Sk", "Hq", "Hkv", "D",
             "start", "n_start", "causal", "window", "sinks")]
         + [("scale", ctypes.c_float)])
+
+
+class FlashBwdArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct FlashBwdArgs`` in
+    csrc/flash_common.cuh."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("q", "k", "v", "dout", "lse", "delta",
+                                        "dq", "dk", "dv")]
+        + [(f"{t}_s{ax}", ctypes.c_longlong)
+           for t in ("q", "k", "v", "do", "dq", "dk", "dv") for ax in "bsh"]
+        + [(n, ctypes.c_int) for n in ("act_dtype", "B", "S", "Hq", "Hkv", "D",
+                                       "causal", "window")]
+        + [("scale", ctypes.c_float)])
+
+
+# C entry point -> (source in csrc/, argument struct)
+ENTRIES = {
+    "flash_fwd": ("flash_fwd", FlashArgs),
+    "flash_decode": ("flash_decode", FlashArgs),
+    "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
+    "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
+}
 
 
 def _nvcc() -> str:
@@ -94,16 +118,21 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use; its one
-    entry point ``<name>(const FlashArgs*, cudaStream_t) -> cudaError_t``."""
+    """The loaded library for csrc/<name>.cu, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)
         if not path.exists():
             build((name,))
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def kernel(entry: str):
+    """The C entry point ``entry`` (a key of ENTRIES) of its library, typed
+    ``(const Args*, cudaStream_t) -> cudaError_t``."""
+    source, args = ENTRIES[entry]
+    fn = getattr(library(source), entry)
+    fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

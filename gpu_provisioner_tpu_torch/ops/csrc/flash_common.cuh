@@ -1,11 +1,13 @@
-// Shared numerics core of every forward attention kernel of this package:
-// the Hopper counterpart of gpu_provisioner_tpu/ops/flash_attention.py's
-// _online_softmax_tile, _online_update and _finalize_out. flash_fwd.cu
-// (self-attention and KV-cache prefill) and flash_decode.cu (short query
-// blocks against the cache) both include it, so a numerics fix lands once.
+// Shared numerics core of every attention kernel of this package: the Hopper
+// counterpart of gpu_provisioner_tpu/ops/flash_attention.py's
+// _online_softmax_tile, _online_update and _finalize_out (forward), and of
+// the mask and P rebuild of _rebuild_p_ds (backward). flash_fwd.cu
+// (self-attention and KV-cache prefill), flash_decode.cu (short query
+// blocks against the cache) and flash_bwd.cu (dQ and dK/dV) all include it,
+// so the mask, the NEG_INF guard and a numerics fix land once.
 //
-// Model of a block: BR = 16 * RPT query rows against the key/value sequence
-// in tiles of BK = 64 keys, 128 threads. Thread t owns rows
+// Model of a forward block: BR = 16 * RPT query rows against the key/value
+// sequence in tiles of BK = 64 keys, 128 threads. Thread t owns rows
 // (t / 8) * RPT .. + RPT - 1 and, within a tile, key columns
 // (t % 8) + 8 * c; the eight threads of one row group are neighbouring lanes
 // of one warp, so row maxima and sums reduce with three shuffles. The output
@@ -14,12 +16,14 @@
 // threads. All arithmetic is f32 FMA from shared memory: simple and right
 // first; tensor cores (mma.sync / wgmma) and TMA are later work.
 //
-// Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30:
-// key position kp is attendable from query position qp iff
+// Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30
+// (attendable() below is its one home): key position kp is attendable from
+// query position qp iff
 //   kp < Sk, (!causal || kp <= qp), kp >= pad,
 //   and, with a window, (kp > qp - window || kp < pad + sinks).
 // A row with nothing attendable so far keeps m = NEG_INF and p = 0 (the
-// `m_new > NEG_INF / 2` guard), and finalises to zeros and lse = NEG_INF.
+// `m_new > NEG_INF / 2` guard), and finalises to zeros and lse = NEG_INF;
+// the backward rebuilds P = 0 on such rows (p_from_lse).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,7 +33,7 @@
 #define FA_NEG_INF (-1.0e30f)
 
 // Argument block shared by both C entry points; mirrored field for field by
-// ctypes.Structure FlashArgs in ops/flash_attention.py. Strides are in
+// ctypes.Structure FlashArgs in ops/_cuda.py. Strides are in
 // elements; the last (head) dimension is contiguous for q, k, v and out.
 struct FlashArgs {
   const void* q;          // [B, Sq, Hq, D] act dtype
@@ -57,6 +61,34 @@ struct FlashArgs {
   float scale;
 };
 
+// Argument block of the backward entry points (flash_bwd.cu), mirrored by
+// ctypes.Structure FlashBwdArgs in ops/_cuda.py. GQA self-attention at
+// positions 0..S-1 (no pads, no sinks). Strides in elements, in (batch,
+// position, head) order; the head dimension is contiguous everywhere.
+struct FlashBwdArgs {
+  const void* q;          // [B, S, Hq, D] act dtype
+  const void* k;          // [B, S, Hkv, D]
+  const void* v;
+  const void* dout;       // [B, S, Hq, D] cotangent of out
+  const float* lse;       // [B, Hq, S] f32, contiguous: the forward's
+  const float* delta;     // [B, Hq, S] f32, contiguous: rowsum(dO o O) - g_lse
+  void* dq;               // [B, S, Hq, D] act dtype
+  void* dk;               // [B, S, Hkv, D]
+  void* dv;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int act_dtype;          // 0 f32, 1 bf16 (every tensor but lse / delta)
+  int B, S, Hq, Hkv, D;
+  int causal;
+  int window;             // <= 0: no window
+  float scale;
+};
+
 namespace fa {
 
 constexpr int NTHREADS = 128;
@@ -79,6 +111,38 @@ __device__ __forceinline__ float row_sum8(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 4);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x + __shfl_xor_sync(0xffffffffu, x, 1);
+}
+
+// sink_hi of attendable(): keys below it stay attendable under a window.
+__device__ __forceinline__ int sink_bound(int pad, int sinks) {
+  return sinks > 0 ? pad + sinks : -2147483647;
+}
+
+// The mask (both positions in range): key kp attendable from query qp.
+__device__ __forceinline__ bool attendable(int qp, int kp, int causal, int pad, int window,
+                                           int sink_hi) {
+  bool keep = kp >= pad && (!causal || kp <= qp);
+  if (window > 0) keep = keep && (kp > qp - window || kp < sink_hi);
+  return keep;
+}
+
+// _rebuild_p_ds's P for one (query, key) pair from the forward's lse:
+// exp(s - lse) where attendable, 0 where masked and on rows that attended
+// nothing (lse = NEG_INF), with s the scaled score.
+__device__ __forceinline__ float p_from_lse(bool keep, float s, float lse) {
+  return keep && lse > FA_NEG_INF / 2 ? expf(s - lse) : 0.f;
+}
+
+// Self-attention (positions 0..S-1, no pads or sinks): the keys [x, y) that
+// some query of [q0, q1] attends, and the queries [x, y) that attend some
+// key of [k0, k1]. The backward loops run over these ranges only, the
+// counterpart of the TPU kernels' `live` gates.
+__device__ __forceinline__ int2 live_keys(int q0, int q1, int S, int causal, int window) {
+  return make_int2(window > 0 ? max(0, q0 - window + 1) : 0, causal ? min(S, q1 + 1) : S);
+}
+
+__device__ __forceinline__ int2 live_queries(int k0, int k1, int S, int causal, int window) {
+  return make_int2(causal ? k0 : 0, window > 0 ? min(S, k1 + window) : S);
 }
 
 // Shared-memory floats a block needs: Q and K padded to D + 1 (conflict-free
@@ -115,7 +179,7 @@ __device__ void attend_tiles(const float* sQ, float* sK, float* sV, float* sP,
   const int tid = threadIdx.x;
   const int lane_c = tid & 7;
   const int rg = tid >> 3;
-  const int sink_hi = sinks > 0 ? pad + sinks : -2147483647;
+  const int sink_hi = sink_bound(pad, sinks);
 
   for (int j = lo_tile; j < hi_tile; ++j) {
     const int kv0 = j * BK;
@@ -166,8 +230,8 @@ __device__ void attend_tiles(const float* sQ, float* sK, float* sV, float* sP,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kp = kv0 + lane_c + 8 * c;
-        bool keep = st.valid[i] && kp < Sk && kp >= pad && (!causal || kp <= qp);
-        if (window > 0) keep = keep && (kp > qp - window || kp < sink_hi);
+        const bool keep =
+            st.valid[i] && kp < Sk && attendable(qp, kp, causal, pad, window, sink_hi);
         s[i][c] = keep ? s[i][c] * scale : FA_NEG_INF;
         mx = fmaxf(mx, s[i][c]);
       }

@@ -1,28 +1,36 @@
 """Flash attention for Hopper: wrappers, gates and plain versions.
 
-Twin of ``gpu_provisioner_tpu/ops/flash_attention.py``'s forward surface:
+Twin of ``gpu_provisioner_tpu/ops/flash_attention.py``:
 ``flash_attention`` / ``flash_attention_with_lse`` (Pallas ``_kernel_resident``
-and ``_kernel``), ``flash_attention_cached`` (``_kernel_cached``) and
+and ``_kernel`` forward, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+backward, differentiable in out and lse as ``_flash_lse_diff`` is),
+``flash_attention_cached`` (``_kernel_cached``) and
 ``flash_attention_decode`` (``_kernel_decode``), with the same gates
 (``_auto_block``, the ``tiles`` test, ``cached_flash_supported``,
 ``decode_flash_supported``), so the port dispatches exactly where the JAX
-package does, and the dense result for shapes that do not tile.
+package does, and the dense result for shapes that do not tile (which
+autograd differentiates, as JAX does).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_decode.cu``) on a CUDA tensor, or raises; on a CPU tensor it
-runs ``attention_plain``, the plain PyTorch version of the same function.
-Nothing else picks between the two. Deliberate differences from the JAX
-module:
+``csrc/flash_decode.cu``, ``csrc/flash_bwd.cu``) on a CUDA tensor, or
+raises; on a CPU tensor it runs the plain PyTorch version of the same
+function (``attention_plain``, ``attention_bwd_plain``). Nothing else picks
+between the two. Deliberate differences from the JAX module:
 
-- forward only: every wrapper raises if an input requires grad (the
-  backward kernels come with the training slice);
+- ``flash_attention_cached`` and ``flash_attention_decode`` raise if an
+  input requires grad: their JAX twins have no VJP;
 - no ``interpret`` argument (the plain version is the CPU path) and no
-  ``triangular`` option (its kernels, #3/#8/#9, are not ported yet);
+  ``triangular`` option: the flattened-triangle kernels (#3/#8/#9) compute
+  the same function on a schedule that skips the dead cells of the TPU's
+  sequential grid; the CUDA kernels' loops over live tiles skip them too,
+  but that schedule has no kernel of its own yet;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
   CUDA tensor;
-- a plain launch counter per wrapper, ``LAUNCHES``.
+- the dK/dV kernel folds GQA inside the block instead of writing f32
+  per-q-head arrays and summing them after;
+- a plain launch counter per kernel, ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -37,8 +45,9 @@ NEG_INF = -1.0e30  # mask value; finite so exp() underflows instead of NaN-ing
 DEFAULT_BLOCK = 512
 DECODE_MAX_S = 16   # short-block bound: decode steps / verify blocks
 
-# kernel launches per wrapper, counted where each launches its kernel
-LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_decode": 0}
+# launches per kernel, counted where its wrapper launches it
+LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_decode": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -62,10 +71,11 @@ def _auto_block(S: int) -> int:
 
 
 def _check_no_grad(*tensors) -> None:
-    if any(t is not None and t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
         raise NotImplementedError(
-            "flash attention is forward-only in this port: the backward "
-            "kernels come with the training slice")
+            "the KV-cache attention wrappers are forward-only, as their JAX "
+            "twins are (no VJP): call them under torch.no_grad()")
 
 
 def _require_cpu(t: torch.Tensor) -> None:
@@ -209,45 +219,211 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     a.B, a.Sq, a.Sk, a.Hq, a.Hkv, a.D = B, S, Sk, Hq, Hkv, D
     a.causal, a.window, a.sinks = int(causal), window or 0, sinks
     a.scale = scale
-    fn = getattr(_cuda.library(kernel), kernel)
+    _run(kernel, a, dev)
+    return out, lse
+
+
+def _run(kernel: str, a, dev) -> None:
+    """Launches C entry ``kernel`` with argument struct ``a`` on ``dev``'s
+    current stream; raises on a non-zero cudaError."""
+    fn = _cuda.kernel(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(a), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError {rc}")
-    return out, lse
+
+
+def _bwd_delta(out, dout, g_lse):
+    """Δ = rowsum(dO∘O) in f32, minus the lse cotangent when there is one
+    (∂lse/∂S = P, so it folds into Δ): [B, Hq, S]."""
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    return delta if g_lse is None else delta - g_lse.float()
+
+
+def attention_bwd_plain(q, k, v, out, lse, dout, g_lse=None, *,
+                        causal: bool = True, scale: float | None = None,
+                        window: int | None = None):
+    """Plain PyTorch version of both backward kernels: (dq, dk, dv) of
+    self-attention q [B,S,Hq,D], k/v [B,S,Hkv,D] at positions 0..S-1, given
+    the forward's out [B,S,Hq,D] and lse [B,Hq,S] f32, the cotangent dout of
+    out and, or None, g_lse of lse. The explicit math of the JAX package's
+    _rebuild_p_ds, _bwd_dq_step and _bwd_dkv_step, not autograd: P =
+    exp(S − lse), zero where masked and on rows with lse = NEG_INF; dS =
+    P∘(dP − Δ)·scale; dQ = dS K, dK = dSᵀ Q, dV = Pᵀ dO, the group's q-heads
+    summed onto their kv head. f32 throughout; each gradient is returned in
+    its input's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, S, Hkv, group, D)
+    gf = dout.float().reshape(B, S, Hkv, group, D)
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(S, device=q.device)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = pos[None, :] <= pos[:, None]
+    if window is not None:
+        keep = keep & (pos[None, :] > pos[:, None] - window)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    s = torch.where(keep, s, NEG_INF)
+    lse_ = lse.float().reshape(B, Hkv, group, S, 1)
+    p = torch.where(lse_ > NEG_INF / 2, torch.exp(s - lse_), 0.0)
+    del s
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", gf, vf)
+    delta = _bwd_delta(out, dout, g_lse).reshape(B, Hkv, group, S, 1)
+    ds = p * (dp - delta) * scale
+    del dp
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, S, Hq, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
+                scale: float, window=None):
+    """Checks what the backward kernels take, allocates ``kernel``'s outputs
+    and launches it on the current stream: ``flash_bwd_dq`` → dq [B,S,Hq,D]
+    in q's dtype, ``flash_bwd_dkv`` → (dk, dv) [B,S,Hkv,D] in k's. q/k/v/dout
+    token-major with the head dim contiguous; lse and delta [B,Hq,S] f32."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("dout", dout), ("lse", lse),
+                    ("delta", delta)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _ACT_DTYPES:
+        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    if not k.dtype == v.dtype == dout.dtype == q.dtype:
+        raise TypeError(f"k/v/dout dtypes {k.dtype}/{v.dtype}/{dout.dtype}; "
+                        f"expected {q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes {_HEAD_DIMS}")
+    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
+            or dout.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
+                         f"{tuple(v.shape)}, dout {tuple(dout.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0; got {Hq}/{Hkv}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, dout)):
+        raise ValueError("the head dim of q, k, v and dout must be "
+                         "contiguous")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hq, S) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[B={B}, Hq={Hq}, S={S}]")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+
+    a = _cuda.FlashBwdArgs()
+    a.q, a.k, a.v, a.dout = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             dout.data_ptr())
+    a.lse, a.delta = lse.data_ptr(), delta.data_ptr()
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (dout, "do")):
+        for ax, st in zip("bsh", t.stride()[:3]):
+            setattr(a, f"{name}_s{ax}", st)
+    if kernel == "flash_bwd_dq":
+        outs = (torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev),)
+        names = ("dq",)
+    else:
+        outs = tuple(torch.empty((B, S, Hkv, D), dtype=k.dtype, device=dev)
+                     for _ in range(2))
+        names = ("dk", "dv")
+    for t, name in zip(outs, names):
+        setattr(a, name, t.data_ptr())
+        for ax, st in zip("bsh", t.stride()[:3]):
+            setattr(a, f"{name}_s{ax}", st)
+    a.act_dtype = _ACT_DTYPES[q.dtype]
+    a.B, a.S, a.Hq, a.Hkv, a.D = B, S, Hq, Hkv, D
+    a.causal, a.window, a.scale = int(causal), window or 0, scale
+    _run(kernel, a, dev)
+    LAUNCHES[kernel] += 1
+    return outs[0] if len(outs) == 1 else outs
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, *,
+                        causal: bool = True, scale: float | None = None,
+                        window: int | None = None):
+    """(dq, dk, dv) of self-attention from the forward's out and lse, as
+    attention_bwd_plain defines them: on a CUDA tensor the dQ kernel and the
+    dK/dV kernel (Δ computed here), on a CPU tensor attention_bwd_plain."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        delta = _bwd_delta(out, dout, g_lse).contiguous()
+        kw = dict(causal=causal, scale=scale, window=window)
+        dq = _launch_bwd("flash_bwd_dq", q, k, v, dout, lse, delta, **kw)
+        dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta, **kw)
+        return dq, dk, dv
+    _require_cpu(q)
+    return attention_bwd_plain(q, k, v, out, lse, dout, g_lse, causal=causal,
+                               scale=scale, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Self-attention differentiable in out and lse: the twin of the JAX
+    package's ``_flash_lse_diff`` (custom_vjp, flash_attention.py). Forward
+    saves (q, k, v, out, lse); backward runs flash_attention_bwd with the
+    cotangents of both outputs. CUDA tensors take the kernels, CPU tensors
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)    # views, no copy
+        if q.device.type == "cuda":
+            out, lse = _launch("flash_fwd", q, kh, vh, 0, causal=causal,
+                               scale=scale, window=window, want_lse=True)
+            LAUNCHES["flash_fwd"] += 1
+        else:
+            _require_cpu(q)
+            out, lse = attention_plain(q, kh, vh, 0, causal=causal,
+                                       scale=scale, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, scale, window)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, window = ctx.mask
+        g_out = torch.zeros_like(out) if g_out is None else g_out
+        if g_out.stride(-1) != 1:
+            g_out = g_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, g_lse,
+                                         causal=causal, scale=scale,
+                                         window=window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              scale: float = None, window: int = None):
     """Self-attention q [B,S,Hq,D], k/v [B,S,Hkv,D] → (out [B,S,Hq,D],
-    lse [B,Hq,S] f32). Takes the kernel when S tiles into the (JAX)
-    blocks and GQA divides; any other shape gets the dense path."""
-    _check_no_grad(q, k, v)
+    lse [B,Hq,S] f32), differentiable in both. Takes the kernels when S
+    tiles into the (JAX) blocks and GQA divides; any other shape gets the
+    dense path, which autograd differentiates."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     if scale is None:
         scale = D ** -0.5
-    kh, vh = k.transpose(1, 2), v.transpose(1, 2)    # views, no copy
     tiles = (S % _auto_block(S) == 0 and Hq % Hkv == 0
              and q.shape[1] == k.shape[1])
     if not tiles:   # the dense result, as the JAX package gives
-        return attention_plain(q, kh, vh, 0, causal=causal, scale=scale,
-                               window=window)
-    if q.device.type == "cuda":
-        out_lse = _launch("flash_fwd", q, kh, vh, 0, causal=causal,
-                          scale=scale, window=window, want_lse=True)
-        LAUNCHES["flash_fwd"] += 1
-        return out_lse
-    _require_cpu(q)
-    return attention_plain(q, kh, vh, 0, causal=causal, scale=scale,
-                           window=window)
+        return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
+                               causal=causal, scale=scale, window=window)
+    return _FlashAttention.apply(q, k, v, causal, scale, window)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,
                     window: int = None):
     """Drop-in for dense_attention: q [B,S,Hq,D], k/v [B,S,Hkv,D] →
-    [B,S,Hq,D]."""
+    [B,S,Hq,D]. One backward serves this and the with_lse variant: the
+    dropped lse has no cotangent, so Δ takes none."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
                                     window=window)[0]
 

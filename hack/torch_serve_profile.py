@@ -45,8 +45,9 @@ def _trace(torch, fn):
     from torch.autograd import DeviceType
     by_name = {}
     for evt in prof.key_averages():      # device-side events: kernels, copies
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue
+        if getattr(evt, "device_type", None) != DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
+            continue                     # (an annotation spans kernels)
         by_name[evt.key] = by_name.get(evt.key, 0.0) + _device_us(evt)
     return wall, by_name, sum(by_name.values())
 

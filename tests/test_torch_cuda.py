@@ -6,7 +6,12 @@ package in tests/test_torch_flash.py). Run on a machine with an H100:
 ``python -m pytest tests/test_torch_cuda.py -q``. Tolerances: f32 1e-4
 absolute (the kernel sums tiles in another order), bf16 1e-2 absolute (one
 bf16 rounding of the output; the largest error seen on an H100 was 3.9e-3).
+The backward kernels are held to the same bounds relative to the largest
+plain gradient (max|kernel - plain| / max|plain|), since gradients scale
+with S and the cotangents.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -14,6 +19,7 @@ import torch
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -34,6 +40,10 @@ def _randn(g, *shape, dtype, dev):
 
 def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _rel(a, b):
+    return _err(a, b) / b.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,3 +140,71 @@ def test_engine_streams_equal_generate_on_the_card(dev):
         want = td.generate(params, torch.tensor([p]), cfg, max_new_tokens=6,
                            max_len=512)
         assert out[rid] == want[0].tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,kv_heads", [(256, 2), (512, 8)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 200), (False, 200)])
+def test_flash_bwd_matches_plain(dev, dtype, S, kv_heads, causal, window):
+    g = torch.Generator(dev).manual_seed(3)
+    q = _randn(g, 2, S, 8, 128, dtype=dtype, dev=dev)
+    k = _randn(g, 2, S, kv_heads, 128, dtype=dtype, dev=dev)
+    v = _randn(g, 2, S, kv_heads, 128, dtype=dtype, dev=dev)
+    dout = _randn(g, 2, S, 8, 128, dtype=dtype, dev=dev)
+    g_lse = _randn(g, 2, 8, S, dtype=torch.float32, dev=dev)
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                            window=window)
+    kw = dict(causal=causal, window=window)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, g_lse, **kw)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+
+
+def test_autograd_runs_the_backward_kernels(dev):
+    g = torch.Generator(dev).manual_seed(4)
+    q, k, v = (_randn(g, 1, 256, h, 128, dtype=torch.float32, dev=dev)
+               .requires_grad_() for h in (4, 2, 2))
+    dout = _randn(g, 1, 256, 4, 128, dtype=torch.float32, dev=dev)
+    tfa.reset_launches()
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), dout)
+    assert tfa.LAUNCHES["flash_bwd_dq"] == tfa.LAUNCHES["flash_bwd_dkv"] == 1
+    out, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-4
+
+
+def test_bwd_raises_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 128, 4, 64, device=dev)
+    lse = torch.zeros(1, 4, 128, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse, q)
+    q = torch.zeros(1, 128, 4, 128, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._launch_bwd("flash_bwd_dq", q, q[:, :, :2], q[:, :, :2], q,
+                        lse.transpose(1, 2).contiguous().transpose(1, 2),
+                        lse, causal=True, scale=1.0)
+
+
+def test_flash_training_equals_dense_training_on_the_card(dev):
+    cfg = tl.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                         n_kv_heads=1, hidden_dim=512, dtype="float32")
+    g = torch.Generator().manual_seed(5)
+    inp = torch.randint(0, 512, (2, 256), generator=g).to(dev)
+    tgt = torch.randint(0, 512, (2, 256), generator=g).to(dev)
+    losses, grads = [], []
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        params, _ = ttrain.make_train_state(
+            c, torch.Generator(dev).manual_seed(0), dev)
+        loss = ttrain.loss_fn(params, inp, tgt, c)
+        losses.append(loss.item())
+        grads.append(torch.autograd.grad(loss, ttrain.param_leaves(params)))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for a, b in zip(*grads):
+        assert _err(a, b) <= 1e-4 * b.abs().max().item()

@@ -187,10 +187,17 @@ def test_flash_attention_decode_matches_jax(start, S, pads, int8, window,
 
 
 def test_wrappers_refuse_gradients_and_long_decode_blocks():
-    q, k, v = _rand(5, (1, 128, 2, 16), (1, 128, 2, 16), (1, 128, 2, 16))
+    """The KV-cache wrappers are forward-only, as their JAX twins are (no
+    VJP); self-attention is differentiable (tests/test_torch_flash_bwd.py)."""
+    q, k, v = _rand(5, (1, 128, 2, 16), (1, 2, 128, 16), (1, 2, 128, 16))
     tq = torch.from_numpy(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v))
+    kv = torch.from_numpy(k), torch.from_numpy(v)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tfa.flash_attention_cached(tq, *kv, 0)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tfa.flash_attention_decode(tq[:, :1], *kv, 0)
+    with torch.no_grad():
+        tfa.flash_attention_cached(tq, *kv, 0)
     kc = torch.zeros(1, 2, 128, 16)
     with pytest.raises(ValueError, match="short query blocks"):
         tfa.flash_attention_decode(torch.zeros(1, 17, 2, 16), kc, kc, 0)

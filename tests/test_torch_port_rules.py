@@ -4,7 +4,8 @@
   JAX package (only the tests import both).
 - Entry points run on cuda unless the caller names a device: with no card
   they raise instead of drifting to the CPU.
-- The ctypes mirror of the kernels' argument struct follows the CUDA header.
+- The ctypes mirrors of the kernels' argument structs follow the CUDA
+  header.
 """
 
 import ctypes
@@ -18,6 +19,7 @@ import torch
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 from gpu_provisioner_tpu_torch.ops import _cuda
 
@@ -61,6 +63,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         tl.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         td.init_kv_cache(cfg, 1, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.make_train_state(cfg, torch.Generator())
     params = tl.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
@@ -74,13 +78,33 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
                     max_new_tokens=2, device="meta")
 
 
-def test_flash_args_mirror_the_cuda_struct():
+def _header_fields(struct: str) -> list:
     header = (_cuda.CSRC / "flash_common.cuh").read_text()
-    body = re.search(r"struct FlashArgs \{(.*?)\};", header, re.S).group(1)
+    body = re.search(rf"struct {struct} \{{(.*?)\}};", header, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
-    names = re.findall(r"\*?\s*(\w+)\s*(?=[,;])", body)
-    assert names == [f[0] for f in _cuda.FlashArgs._fields_]
+    return re.findall(r"\*?\s*(\w+)\s*(?=[,;])", body)
+
+
+def test_flash_args_mirror_the_cuda_struct():
+    assert _header_fields("FlashArgs") == \
+        [f[0] for f in _cuda.FlashArgs._fields_]
     assert ctypes.sizeof(_cuda.FlashArgs) == 248
+
+
+def test_flash_bwd_args_mirror_the_cuda_struct():
+    """9 pointers, 21 strides, 8 ints and the scale: 276 bytes, padded to
+    the 8-byte alignment of the pointers."""
+    assert _header_fields("FlashBwdArgs") == \
+        [f[0] for f in _cuda.FlashBwdArgs._fields_]
+    assert ctypes.sizeof(_cuda.FlashBwdArgs) == 280
+
+
+def test_every_entry_point_has_its_source_and_struct():
+    assert set(_cuda.SOURCES) == {src for src, _ in _cuda.ENTRIES.values()}
+    for entry, (source, args) in _cuda.ENTRIES.items():
+        text = (_cuda.CSRC / f"{source}.cu").read_text()
+        assert re.search(rf'extern "C" int {entry}\(const {args.__name__}\*',
+                         text), entry
 
 
 def test_kernel_libraries_are_keyed_by_source_hash_and_need_nvcc():
