@@ -34,6 +34,23 @@ Phases, each of which exits non-zero on a failed check:
    masters, remat, B=8, S=2048, AdamW: one warm-up step, then five timed
    steps on one fixed batch, with the loss falling and every kernel's
    launch count read across the five;
+8. long context: the three flattened-triangle kernels (flash_tri.cu)
+   called directly against their plain versions (bf16 and f32, causal, at
+   (B, S, Hq, Hkv) = (1, 128, 1, 1), where the persistent grid has more
+   CTAs than tiles, (1, 384, 2, 1) with an lse cotangent, (2, 2048, 16, 8)
+   and (1, 8192, 16, 8)); flash_attention(triangular=True) and its
+   gradients against the rectangular kernels at B=1, S=16384 and 32768,
+   Hq/Hkv 8/4 (bench_flash_op's streaming shape) and 32/8 (llama-7b's
+   attention at mistral-7b-ish's 32k context), bf16, with every kernel's
+   launch count read across the 32k, Hq 32 forward and backward; each tri
+   kernel timed at S=32768, Hq 8 beside its rectangular kernel, the SDPA
+   yardstick and its bound; flash_attention_with_lse and its gradients
+   against the plain versions at the bench twins' own shapes ((1, 8192, 8,
+   4) causal, (1, 32768, 8, 4) with window 1024 through a plain version
+   built by 1024-query chunks, (8, 4096, 16, 8) causal), one launch of
+   each rectangular kernel apiece; then the bench twins
+   bench_long_context and bench_flash_op at full size, each with its
+   launch counts read and checked against its repetition counts;
 then the card line, the kernels line and, last, the device line.
 """
 
@@ -66,11 +83,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, flush, reps=20):
+def time_ms(fn, flush, reps=20, warm=3):
     """Median of per-launch CUDA-event times, the 50 MB L2 flushed before
     each launch (the serving loop reads each layer's cache cold)."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -458,6 +475,368 @@ def phase_train(torch, tl, tt, tfa, dev):
     return launches
 
 
+# (B, S, Hq, Hkv, lse cotangent) of the tri kernels against plain, D = 128
+TRI_CASES = ((1, 128, 1, 1, False), (1, 384, 2, 1, True),
+             (2, 2048, 16, 8, False), (1, 8192, 16, 8, False))
+# (S, Hq, Hkv) at B=1, bf16: triangle against rectangle, past the plain
+# versions' reach; the last is the main path of the launch counts
+LONG_SHAPES = ((16384, 8, 4), (16384, 32, 8), (32768, 8, 4), (32768, 32, 8))
+LONG_TOL = 2e-2
+TRI_TIMED = (1, 32768, 8, 4)       # bench_flash_op's streaming shape
+# tri kernel, TPU kernel it replaces, its rectangular counterpart, D·ops
+TRI_KERNELS = (("flash_fwd_tri", ":308 (_kernel_tri)", "flash_fwd", 4),
+               ("flash_bwd_dq_tri", ":943 (_bwd_dq_kernel_tri)",
+                "flash_bwd_dq", 6),
+               ("flash_bwd_dkv_tri", ":1020 (_bwd_dkv_kernel_tri)",
+                "flash_bwd_dkv", 8))
+
+
+def work_tri(kernel, B, S, Hq, Hkv, D, ws_bytes, act_bytes=2):
+    """(operations, bytes) of one tri kernel on causal inputs: 4, 6 or 8·D
+    operations per attended pair and q-head; q, k, v (and dO, lse, Δ for
+    the backward) read once, the outputs written once, and the workspace
+    partials written once and read once by the fixup."""
+    pairs = B * S * (S + 1) // 2 * Hq
+    q_side, kv_side = B * S * Hq * D * act_bytes, B * S * Hkv * D * act_bytes
+    rows = B * Hq * S * 4
+    per_d = next(n for name, _, _, n in TRI_KERNELS if name == kernel)
+    if kernel == "flash_fwd_tri":
+        nbytes = 2 * q_side + 2 * kv_side + rows
+    else:
+        nbytes = 2 * q_side + 2 * kv_side + 2 * rows + (
+            q_side if kernel == "flash_bwd_dq_tri" else 2 * kv_side)
+    return per_d * D * pairs, nbytes + ws_bytes
+
+
+def tri_ws_bytes(_cuda, kernel, dev):
+    """(workspace bytes written and read back, P): the two slots of each
+    of the P CTAs, as the wrapper allocates them (flash_tri_ws_floats),
+    counted once written and once read."""
+    P = _cuda.tri_ctas(kernel, 1, dev.index)
+    return 2 * P * _cuda.tri_ws_floats(kernel) * 4, P
+
+
+def phase_tri_kernels(torch, tfa, dev):
+    """The three flattened-triangle kernels, called directly (below the
+    forward's streaming gate), against attention_plain and
+    attention_bwd_plain. Returns the worst bf16 errors by kernel."""
+    g = torch.Generator(dev).manual_seed(SEED + 6)
+    D = 128
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def rel(a, b):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / b.float().abs().max().item()
+
+    worst = {name: (0.0, 0.0) for name, *_ in TRI_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dtype).split(".")[1]]
+        for B, S, Hq, Hkv, cot in TRI_CASES:
+            q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
+                                                         dtype=dtype)
+            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                        dtype=dtype)
+            g_lse = rnd(B, Hq, S, dtype=torch.float32) if cot else None
+            scale = D ** -0.5
+            out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+            ref, rlse = tfa.attention_plain(q, k.transpose(1, 2),
+                                            v.transpose(1, 2), 0)
+            (e_out, _), (e_lse, _) = rel(out, ref), rel(lse, rlse)
+            del ref, rlse
+            delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
+            kw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+            dq = tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+            dk, dv = tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+            want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse)
+            es = [rel(a, b) for a, b in zip((dq, dk, dv), want)]
+            print(f"tri kernels {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                  f"lse_cotangent={cot}: flash_fwd_tri max|out-plain| "
+                  f"{e_out:.3g} |lse-plain| {e_lse:.3g}; "
+                  + ", ".join(f"{n} max|err| {e:.3g} rel {r:.3g}"
+                              for n, (e, r) in zip(("dq", "dk", "dv"), es))
+                  + f" (tol {tol}; backward relative)")
+            check(e_out <= tol and e_lse <= 1e-4,
+                  "flash_fwd_tri disagrees with attention_plain")
+            check(all(r <= tol for _, r in es),
+                  "a tri backward kernel disagrees with attention_bwd_plain")
+            check(all(a.dtype == dtype for a in (out, dq, dk, dv)),
+                  "tri output dtypes")
+            if dtype == torch.bfloat16:
+                for name, part in (("flash_fwd_tri", [(e_out, 0.0)]),
+                                   ("flash_bwd_dq_tri", es[:1]),
+                                   ("flash_bwd_dkv_tri", es[1:])):
+                    worst[name] = tuple(max(x) for x in zip(worst[name],
+                                                            *part))
+            del q, k, v, dout, out, lse, dq, dk, dv, want, delta
+    torch.cuda.synchronize()
+    return worst
+
+
+# (B, S, Hq, Hkv, window) of the bench twins' attention, D = 128, bf16:
+# bench_long_context's layers at S=8192 and its sliding-window model at
+# S=32768, then bench_flash_op's op
+TWIN_CASES = ((1, 8192, 8, 4, None), (1, 32768, 8, 4, 1024),
+              (8, 4096, 16, 8, None))
+TWIN_CHUNK = 1024
+
+
+def plain_windowed(torch, tfa, q, k, v, dout, window):
+    """The plain version of windowed causal self-attention and its
+    gradients where the S² scores do not fit: attention_plain over chunks
+    of TWIN_CHUNK queries at q0, each against keys [q0 - window + 1, q0 +
+    TWIN_CHUNK) at start offset q0 - (its first key), in f32 from the
+    inputs' values, and autograd's gradients of sum(out · dout) through it.
+    Returns (out, lse, dq, dk, dv)."""
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    qf, kf, vf = leaves
+    outs, lses = [], []
+    for q0 in range(0, q.shape[1], TWIN_CHUNK):
+        ks, ke = max(0, q0 - window + 1), q0 + TWIN_CHUNK
+        o, lse = tfa.attention_plain(
+            qf[:, q0:ke], kf[:, ks:ke].transpose(1, 2),
+            vf[:, ks:ke].transpose(1, 2), q0 - ks, window=window)
+        outs.append(o)
+        lses.append(lse)
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 2)
+    grads = torch.autograd.grad(out, leaves, dout.float())
+    return (out.detach(), lse.detach()) + grads
+
+
+def plain_causal(torch, tfa, q, k, v, dout):
+    """attention_plain, then attention_bwd_plain on its out and lse, one
+    batch element at a time (its S² f32 tensors alone on the card).
+    Returns (out, lse, dq, dk, dv)."""
+    parts = []
+    for b in range(q.shape[0]):
+        qb, kb, vb, gb = (t[b:b + 1] for t in (q, k, v, dout))
+        o, lse = tfa.attention_plain(qb, kb.transpose(1, 2),
+                                     vb.transpose(1, 2), 0)
+        parts.append((o, lse) + tfa.attention_bwd_plain(qb, kb, vb, o, lse,
+                                                        gb))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def phase_twin_shapes(torch, tfa, dev):
+    """flash_attention_with_lse and its gradients at the bench twins'
+    shapes (TWIN_CASES) against the plain versions, with the launches of
+    each forward and backward (exactly one of each rectangular kernel).
+    Returns the worst bf16 errors by kernel: (absolute, relative to the
+    largest plain value)."""
+    g = torch.Generator(dev).manual_seed(SEED + 8)
+    D, bf, tol = 128, torch.bfloat16, TOL["bfloat16"]
+    worst = {"flash_fwd": (0.0, 0.0), "flash_bwd_dq": (0.0, 0.0),
+             "flash_bwd_dkv": (0.0, 0.0)}
+    for B, S, Hq, Hkv, window in TWIN_CASES:
+        leaves = [torch.randn(B, S, h, D, generator=g, device=dev).to(bf)
+                  .requires_grad_() for h in (Hq, Hkv, Hkv)]
+        dout = torch.randn(B, S, Hq, D, generator=g, device=dev).to(bf)
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        out, lse = tfa.flash_attention_with_lse(*leaves, window=window)
+        got = (out, lse) + torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in tfa.LAUNCHES.items() if c}
+        q, k, v = (t.detach() for t in leaves)
+        want = (plain_windowed(torch, tfa, q, k, v, dout, window) if window
+                else plain_causal(torch, tfa, q, k, v, dout))
+        es = [((a.float() - b.float()).abs().max().item(),
+               ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item())
+              for a, b in zip(got, want)]
+        print(f"bench twin shape bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
+              f"window={window}: max|out-plain| {es[0][0]:.3g} "
+              f"|lse-plain| {es[1][0]:.3g}; "
+              + ", ".join(f"{n} max|err| {e:.3g} rel {r:.3g}"
+                          for n, (e, r) in zip(("dq", "dk", "dv"), es[2:]))
+              + f" (tol {tol}; backward relative); launches {launches}")
+        check(es[0][0] <= tol and es[1][0] <= 1e-4
+              and all(r <= tol for _, r in es[2:]),
+              f"flash attention disagrees with plain at B={B} S={S} "
+              f"Hq={Hq} window={window}")
+        check(launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1},
+              f"launches at B={B} S={S} window={window}: {launches}")
+        for name, part in (("flash_fwd", es[:1]), ("flash_bwd_dq", es[2:3]),
+                           ("flash_bwd_dkv", es[3:])):
+            worst[name] = tuple(max(x) for x in zip(worst[name], *part))
+        del leaves, dout, out, lse, got, want, q, k, v
+        torch.cuda.empty_cache()
+    return worst
+
+
+def twin_launches(bench):
+    """The launches each bench twin makes at full size, from its
+    repetition counts: bench_long_context trains two 4-layer models with
+    remat (two forwards a layer) for WARM_STEPS + TIMED_STEPS steps each,
+    windowed in the second (no triangle); bench_flash_op makes one warm
+    call and ROUNDS rounds of OP_CALLS calls of the forward and of the
+    forward and backward, then one warm call and ROUNDS calls of the
+    streaming forward, rectangular and triangular."""
+    L = bench.long_context_config(8192).n_layers
+    steps = 2 * (bench.WARM_STEPS + bench.TIMED_STEPS)
+    calls, streaming = 1 + bench.ROUNDS * bench.OP_CALLS, 1 + bench.ROUNDS
+    return ({"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+             "flash_bwd_dkv": L * steps},
+            {"flash_fwd": 2 * calls + streaming, "flash_bwd_dq": calls,
+             "flash_bwd_dkv": calls, "flash_fwd_tri": streaming})
+
+
+def phase_long(torch, tfa, _cuda, bench, dev, worst):
+    """flash_attention(triangular=True) against the rectangular kernels at
+    full width, the launch counts of the 32k, Hq 32 forward and backward,
+    the tri kernels' times, and the bench twins. Returns (kernels line
+    entries, launches on the long path)."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 7)
+    D, bf = 128, torch.bfloat16
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def fwd_bwd(leaves, dout, triangular):
+        out, lse = tfa.flash_attention_with_lse(*leaves,
+                                                triangular=triangular)
+        grads = torch.autograd.grad(out, leaves, dout)
+        return (out, lse) + grads
+
+    launches = None
+    for S, Hq, Hkv in LONG_SHAPES:
+        leaves = [rnd(1, S, h, D).requires_grad_() for h in (Hq, Hkv, Hkv)]
+        dout = rnd(1, S, Hq, D)
+        want = fwd_bwd(leaves, dout, False)
+        main = (S, Hq, Hkv) == LONG_SHAPES[-1]
+        if main:
+            torch.cuda.synchronize()
+            tfa.reset_launches()
+        got = fwd_bwd(leaves, dout, True)
+        if main:
+            torch.cuda.synchronize()
+            launches = dict(tfa.LAUNCHES)
+        errs = [(a.float() - b.float()).abs().max().item()
+                / (1.0 if i < 2 else b.float().abs().max().item())
+                for i, (a, b) in enumerate(zip(got, want))]
+        print(f"triangle vs rectangle bf16 B=1 S={S} Hq={Hq} Hkv={Hkv}: "
+              + ", ".join(f"{n} {e:.3g}" for n, e in zip(
+                  ("max|out| ", "max|lse|", "dq rel", "dk rel", "dv rel"),
+                  errs))
+              + f" (tol {LONG_TOL})")
+        check(all(e <= LONG_TOL for e in errs) and all(
+            bool(torch.isfinite(t).all()) for t in got),
+            f"triangular=True disagrees with the rectangular kernels at "
+            f"S={S}, Hq={Hq}")
+        del leaves, dout, want, got
+    print(f"long-path launches (B=1, S={LONG_SHAPES[-1][0]}, Hq "
+          f"{LONG_SHAPES[-1][1]}, triangular=True, forward and backward): "
+          f"{launches}")
+    for name, n in launches.items():
+        want_n = 1 if name.endswith("_tri") else 0
+        check(n == want_n, f"{name}: {n} launches on the long path, "
+              f"expected {want_n}")
+
+    # times at the streaming shape, bf16, beside the rectangular kernels
+    B, S, Hq, Hkv = TRI_TIMED
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    scale = D ** -0.5
+    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+    delta = tfa._bwd_delta(out, dout, None).contiguous()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kw = dict(flush=flush, reps=5, warm=1)
+    bkw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+    tri_fns = {
+        "flash_fwd_tri": lambda: tfa._launch_tri("flash_fwd_tri", q, k, v,
+                                                 scale=scale),
+        "flash_bwd_dq_tri": lambda: tfa._launch_tri("flash_bwd_dq_tri", q,
+                                                    k, v, **bkw),
+        "flash_bwd_dkv_tri": lambda: tfa._launch_tri("flash_bwd_dkv_tri", q,
+                                                     k, v, **bkw)}
+    rect_fns = {
+        "flash_fwd": lambda: tfa._launch(
+            "flash_fwd", q, k.transpose(1, 2), v.transpose(1, 2), 0,
+            causal=True, scale=scale, want_lse=True),
+        "flash_bwd_dq": lambda: tfa._launch_bwd(
+            "flash_bwd_dq", q, k, v, dout, lse, delta, causal=True,
+            scale=scale),
+        "flash_bwd_dkv": lambda: tfa._launch_bwd(
+            "flash_bwd_dkv", q, k, v, dout, lse, delta, causal=True,
+            scale=scale)}
+    lib_in = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *[t.detach() for t in lib_in], is_causal=True, enable_gqa=True), **kw)
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), **kw)
+    del lib_out, lib_in
+
+    # the plain versions at the largest shape whose S² scores fit
+    Bp, Sp, Hqp, Hkvp = TRI_CASES[-1][:4]
+    qp, doutp = rnd(Bp, Sp, Hqp, D), rnd(Bp, Sp, Hqp, D)
+    kp, vp = rnd(Bp, Sp, Hkvp, D), rnd(Bp, Sp, Hkvp, D)
+    outp, lsep = tfa.attention_plain(qp, kp.transpose(1, 2),
+                                     vp.transpose(1, 2), 0)
+    plain_fwd_ms = time_ms(lambda: tfa.attention_plain(
+        qp, kp.transpose(1, 2), vp.transpose(1, 2), 0), **kw)
+    plain_bwd_ms = time_ms(lambda: tfa.attention_bwd_plain(
+        qp, kp, vp, outp, lsep, doutp), **kw)
+    del qp, doutp, kp, vp, outp, lsep
+
+    rows = []
+    for name, replaces, rect, _ in TRI_KERNELS:
+        ws, P = tri_ws_bytes(_cuda, name, dev)
+        ops, nbytes = work_tri(name, B, S, Hq, Hkv, D, ws)
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+        fwd = name == "flash_fwd_tri"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gpu_provisioner_tpu_torch/ops/csrc/flash_tri.cu",
+            "replaces": "gpu_provisioner_tpu/ops/flash_attention.py"
+                        + replaces,
+            "launches": 0, "max_abs_err": worst[name][0],
+            "max_rel_err": worst[name][1], "tolerance": TOL["bfloat16"],
+            "ms": time_ms(tri_fns[name], **kw),
+            "rect_ms": time_ms(rect_fns[rect], **kw),
+            "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib_fwd_ms if fwd else lib_bwd_ms,
+            "ctas": P,
+            "shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+            "plain_note": f"plain_ms at B={Bp} S={Sp} Hq={Hqp} Hkv={Hkvp} "
+                          "(the S² scores at S=32768 do not fit)"
+                          + ("" if fwd else "; dQ+dK+dV, as library_ms")})
+        print(f"{name}: {json.dumps(rows[-1])}")
+    del flush, q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+
+    want_lc, want_fo = twin_launches(bench)
+    by_twin = {}
+    for name, run, want in (("long_context", bench.bench_long_context,
+                             want_lc),
+                            ("flash_op", bench.bench_flash_op, want_fo)):
+        torch.cuda.synchronize()
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        res = run(False)
+        torch.cuda.synchronize()
+        by_twin[name] = dict(tfa.LAUNCHES)
+        got = {n: c for n, c in tfa.LAUNCHES.items() if c}
+        print(f"bench_{name} (full size, {time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(res)}; launches {got}")
+        check(got == want, f"bench_{name} launches {got}, expected {want}")
+        if name == "long_context":
+            check(all(x == x and abs(x) < float("inf")
+                      for x in res["losses"] + res["swa_losses"]),
+                  "a long-context training loss is not finite")
+        else:
+            check(all(v > 0 and v < float("inf") for v in res.values()),
+                  f"bench_flash_op: {res}")
+        torch.cuda.empty_cache()
+    return rows, launches, by_twin
+
+
 def phase_exact(torch, tl, td, te, dev):
     """Llama-7B width, 2 layers, f32: engine streams == solo generate()."""
     cfg = dataclasses.replace(tl.PRESETS["llama-7b"], n_layers=2,
@@ -554,7 +933,8 @@ def phase_main(torch, tl, td, te, tfa, dev):
     print(f"main-path launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name, n in launches.items():
-        serving = not name.startswith("flash_bwd")   # no backward here
+        # no backward and no triangle here
+        serving = not name.startswith("flash_bwd") and "_tri" not in name
         check((n > 0) == serving,
               f"kernel {name}: {n} launches on the serving path")
     return launches
@@ -570,6 +950,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from gpu_provisioner_tpu_torch import bench
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
     from gpu_provisioner_tpu_torch.models import llama as tl
@@ -615,13 +996,30 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(torch, tl, tt, tfa, dev)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    worst = phase_tri_kernels(torch, tfa, dev)
+    twin_worst = phase_twin_shapes(torch, tfa, dev)
+    tri_rows, long, by_twin = phase_long(torch, tfa, _cuda, bench, dev,
+                                         worst)
+    rows += tri_rows
+    print(f"long-context phase {time.perf_counter() - t0:.1f} s")
+    for r in rows:      # the bench twins' shapes count in the worst errors
+        if r["name"] in twin_worst:
+            e, rel = twin_worst[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+            if "max_rel_err" in r:
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
     # each kernel's launches on its own path: serving for the forward
-    # kernels, training for the backward ones (both counts kept)
+    # kernels, training for the backward ones, the long path for the
+    # triangle (every count kept, the bench twins' too)
     for r in rows:
-        r["launches_by_path"] = {"serve": serve[r["name"]],
-                                 "train": train[r["name"]]}
-        r["launches"] = (train if r["name"].startswith("flash_bwd")
-                         else serve)[r["name"]]
+        name = r["name"]
+        r["launches_by_path"] = {"serve": serve[name], "train": train[name],
+                                 "long": long[name],
+                                 **{k: v[name] for k, v in by_twin.items()}}
+        r["launches"] = (long if name.endswith("_tri") else train
+                         if name.startswith("flash_bwd") else serve)[name]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

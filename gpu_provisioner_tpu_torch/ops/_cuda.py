@@ -22,11 +22,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_tri")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_TRI_CTAS: dict[tuple, int] = {}
+_TRI_WS: dict[str, int] = {}
 
 
 class FlashArgs(ctypes.Structure):
@@ -56,13 +58,33 @@ class FlashBwdArgs(ctypes.Structure):
         + [("scale", ctypes.c_float)])
 
 
+class FlashTriArgs(ctypes.Structure):
+    """Field-for-field mirror of ``struct FlashTriArgs`` in
+    csrc/flash_common.cuh."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ("q", "k", "v", "dout", "out", "lse",
+                                        "delta", "dq", "dk", "dv", "ws")]
+        + [(f"{t}_s{ax}", ctypes.c_longlong)
+           for t in ("q", "k", "v", "do", "o", "dq", "dk", "dv") for ax in "bsh"]
+        + [("ws_floats", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in ("act_dtype", "B", "S", "Hq", "Hkv", "D",
+                                       "ctas")]
+        + [("scale", ctypes.c_float)])
+
+
 # C entry point -> (source in csrc/, argument struct)
 ENTRIES = {
     "flash_fwd": ("flash_fwd", FlashArgs),
     "flash_decode": ("flash_decode", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
+    "flash_fwd_tri": ("flash_tri", FlashTriArgs),
+    "flash_bwd_dq_tri": ("flash_tri", FlashTriArgs),
+    "flash_bwd_dkv_tri": ("flash_tri", FlashTriArgs),
 }
+# the `which` argument of flash_tri_ctas() and flash_tri_ws_floats() for
+# each flattened-triangle entry
+TRI_WHICH = {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1, "flash_bwd_dkv_tri": 2}
 
 
 def _nvcc() -> str:
@@ -136,3 +158,36 @@ def kernel(entry: str):
     fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def tri_ctas(entry: str, act_dtype: int, device_index: int) -> int:
+    """The persistent grid P of flattened-triangle entry ``entry`` on the
+    card ``device_index`` (the SM count times the blocks of its kernel that
+    fit on one SM, from csrc/flash_tri.cu's ``flash_tri_ctas``), cached."""
+    key = (entry, act_dtype, device_index)
+    if key not in _TRI_CTAS:
+        fn = library("flash_tri").flash_tri_ctas
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        P = fn(TRI_WHICH[entry], act_dtype)
+        if P <= 0:
+            raise RuntimeError(f"flash_tri_ctas({entry}) failed with "
+                               f"cudaError {-P}")
+        _TRI_CTAS[key] = P
+    return _TRI_CTAS[key]
+
+
+def tri_ws_floats(entry: str) -> int:
+    """f32 workspace values per CTA of flattened-triangle entry ``entry``
+    (csrc/flash_tri.cu's ``flash_tri_ws_floats``, which owns the layout),
+    cached: the wrapper allocates ``tri_ctas(...)`` times this."""
+    if entry not in _TRI_WS:
+        fn = library("flash_tri").flash_tri_ws_floats
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+        n = fn(TRI_WHICH[entry])
+        if n <= 0:
+            raise RuntimeError(f"flash_tri_ws_floats({entry}) failed with "
+                               f"cudaError {-n}")
+        _TRI_WS[entry] = n
+    return _TRI_WS[entry]

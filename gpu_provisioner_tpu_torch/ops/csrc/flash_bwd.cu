@@ -30,10 +30,11 @@
 //   - Every output element has one owner block, so there are no atomics and
 //     the results are the same run to run.
 // The opt-in flattened-triangle kernels _bwd_*_tri compute the same
-// function on a schedule that skips the dead cells of the TPU's sequential
-// grid; the loops over live tiles here skip them too, but that schedule
-// (one flat list of live tiles) has no kernel of its own yet.
-// Tensor cores (wgmma), TMA and a persistent schedule are later work.
+// function over one flat list of the live causal tiles; their Hopper
+// counterparts, a persistent balanced schedule over that list, are in
+// flash_tri.cu and share the tile steps (dq_tile, dkv_tile in
+// flash_common.cuh) with the kernels here. Tensor cores (wgmma) and TMA are
+// later work.
 #include "flash_common.cuh"
 
 namespace {
@@ -54,19 +55,6 @@ constexpr size_t dkv_smem() {  // sK, sV [BKV][D+1]; sQ, sdO [BQ][D+1]; sP, sdS 
                           2 * 16 * DKV_KPT * (DKV_BQ + 1) + 2 * DKV_BQ);
 }
 
-// Rows row0 .. row0 + n - 1 of one (batch, head) slice into shared memory as
-// f32, [n][D + 1]; rows at or past S are zero. Neighbouring threads read
-// neighbouring elements of a row.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, int n, const T* base, long long row_stride,
-                                          int row0, int S) {
-  for (int idx = threadIdx.x; idx < n * D; idx += fa::NTHREADS) {
-    const int r = idx / D, d = idx % D;
-    const int pos = row0 + r;
-    dst[r * (D + 1) + d] = pos < S ? fa::to_f32(base[pos * row_stride + d]) : 0.f;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs a) {
   constexpr int RPT = DQ_RPT, BR = 16 * RPT, BK = fa::BK;
@@ -83,11 +71,11 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
   const int h = blockIdx.x % a.Hq;
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = blockIdx.y * BR;
-  const int no_sinks = fa::sink_bound(0, 0);
 
-  load_rows<T, D>(sQ, BR, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-  load_rows<T, D>(sdO, BR, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
-                  a.S);
+  fa::load_rows<T, D>(sQ, BR, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+                      a.S);
+  fa::load_rows<T, D>(sdO, BR, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
+                      a.do_ss, q0, a.S);
   const long long rows = ((long long)b * a.Hq + h) * a.S;
   float lse[RPT], delta[RPT], acc[RPT][D / 8];
   int qpos[RPT];
@@ -105,64 +93,9 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   const int2 keys = fa::live_keys(q0, min(q0 + BR, a.S) - 1, a.S, a.causal, a.window);
-  for (int kv0 = keys.x / BK * BK; kv0 < keys.y; kv0 += BK) {
-    __syncthreads();   // previous tile's sK / sV reads are done
-    load_rows<T, D>(sK, BK, kb, a.k_ss, kv0, a.S);
-    load_rows<T, D>(sV, BK, vb, a.v_ss, kv0, a.S);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for the thread's rows x columns
-    float s[RPT][8], dp[RPT][8];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], gv[RPT], kv[8], vv[8];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = sQ[(rg * RPT + i) * (D + 1) + d];
-        gv[i] = sdO[(rg * RPT + i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        kv[c] = sK[(lane_c + 8 * c) * (D + 1) + d];
-        vv[c] = sV[(lane_c + 8 * c) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-          dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
-        }
-    }
-
-    // dS = P o (dP - delta) * scale, into shared memory for the dQ product
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int kp = kv0 + lane_c + 8 * c;
-        const bool keep = valid[i] && kp < a.S &&
-                          fa::attendable(qpos[i], kp, a.causal, 0, a.window, no_sinks);
-        const float p = fa::p_from_lse(keep, s[i][c] * a.scale, lse[i]);
-        sdS[(rg * RPT + i) * (BK + 1) + lane_c + 8 * c] = p * (dp[i][c] - delta[i]) * a.scale;
-      }
-    __syncwarp();   // a row group's dS is written and read by one warp
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float kr[D / 8];
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) kr[c] = sK[kk * (D + 1) + lane_c + 8 * c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float ds = sdS[(rg * RPT + i) * (BK + 1) + kk];
-#pragma unroll
-        for (int c = 0; c < D / 8; ++c) acc[i][c] = fmaf(ds, kr[c], acc[i][c]);
-      }
-    }
-  }
+  for (int kv0 = keys.x / BK * BK; kv0 < keys.y; kv0 += BK)
+    fa::dq_tile<T, D, RPT>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb, a.k_ss,
+                           a.v_ss, kv0, a.S, a.causal, a.window, a.scale);
 
   T* dq = static_cast<T*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
@@ -193,12 +126,11 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
   const int kvh = blockIdx.x % a.Hkv;
   const int group = a.Hq / a.Hkv;
   const int k0 = blockIdx.y * BKV;
-  const int no_sinks = fa::sink_bound(0, 0);
 
-  load_rows<T, D>(sK, BKV, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, k0,
-                  a.S);
-  load_rows<T, D>(sV, BKV, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, k0,
-                  a.S);
+  fa::load_rows<T, D>(sK, BKV, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss,
+                      k0, a.S);
+  fa::load_rows<T, D>(sV, BKV, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss,
+                      k0, a.S);
   float dk[KPT][D / 8], dv[KPT][D / 8];
   int kpos[KPT];
 #pragma unroll
@@ -214,77 +146,10 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
     const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
     const T* gb = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
     const long long rows = ((long long)b * a.Hq + h) * a.S;
-    for (int q0 = queries.x / BQ * BQ; q0 < queries.y; q0 += BQ) {
-      __syncthreads();   // previous tile's sQ / sdO / sP / sdS reads are done
-      load_rows<T, D>(sQ, BQ, qb, a.q_ss, q0, a.S);
-      load_rows<T, D>(sdO, BQ, gb, a.do_ss, q0, a.S);
-      for (int r = threadIdx.x; r < BQ; r += fa::NTHREADS) {
-        const bool in = q0 + r < a.S;
-        sL[r] = in ? a.lse[rows + q0 + r] : FA_NEG_INF;
-        sDelta[r] = in ? a.delta[rows + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for the thread's keys x query columns
-      float s[KPT][8], dp[KPT][8];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[KPT], vv[KPT], qv[8], gv[8];
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          kv[i] = sK[(rg * KPT + i) * (D + 1) + d];
-          vv[i] = sV[(rg * KPT + i) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          qv[c] = sQ[(lane_c + 8 * c) * (D + 1) + d];
-          gv[c] = sdO[(lane_c + 8 * c) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < KPT; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
-            dp[i][c] = fmaf(vv[i], gv[c], dp[i][c]);
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < KPT; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int col = lane_c + 8 * c;
-          const int qp = q0 + col;
-          const bool keep = kpos[i] < a.S && qp < a.S &&
-                            fa::attendable(qp, kpos[i], a.causal, 0, a.window, no_sinks);
-          const float p = fa::p_from_lse(keep, s[i][c] * a.scale, sL[col]);
-          sP[(rg * KPT + i) * (BQ + 1) + col] = p;
-          sdS[(rg * KPT + i) * (BQ + 1) + col] = p * (dp[i][c] - sDelta[col]) * a.scale;
-        }
-      __syncwarp();   // a row group's P / dS rows are written and read by one warp
-
-      for (int qq = 0; qq < BQ; ++qq) {
-        float gr[D / 8], qr[D / 8];
-#pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
-          gr[c] = sdO[qq * (D + 1) + lane_c + 8 * c];
-          qr[c] = sQ[qq * (D + 1) + lane_c + 8 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          const float p = sP[(rg * KPT + i) * (BQ + 1) + qq];
-          const float ds = sdS[(rg * KPT + i) * (BQ + 1) + qq];
-#pragma unroll
-          for (int c = 0; c < D / 8; ++c) {
-            dv[i][c] = fmaf(p, gr[c], dv[i][c]);
-            dk[i][c] = fmaf(ds, qr[c], dk[i][c]);
-          }
-        }
-      }
-    }
+    for (int q0 = queries.x / BQ * BQ; q0 < queries.y; q0 += BQ)
+      fa::dkv_tile<T, D, KPT, BQ>(sK, sV, sQ, sdO, sP, sdS, sL, sDelta, dk, dv, kpos, qb, gb,
+                                  a.q_ss, a.do_ss, a.lse + rows, a.delta + rows, q0, a.S,
+                                  a.causal, a.window, a.scale);
   }
 
   T* dkb = static_cast<T*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;

@@ -1,10 +1,12 @@
 // Shared numerics core of every attention kernel of this package: the Hopper
 // counterpart of gpu_provisioner_tpu/ops/flash_attention.py's
 // _online_softmax_tile, _online_update and _finalize_out (forward), and of
-// the mask and P rebuild of _rebuild_p_ds (backward). flash_fwd.cu
-// (self-attention and KV-cache prefill), flash_decode.cu (short query
-// blocks against the cache) and flash_bwd.cu (dQ and dK/dV) all include it,
-// so the mask, the NEG_INF guard and a numerics fix land once.
+// the mask and P rebuild of _rebuild_p_ds and the tile steps _bwd_dq_step /
+// _bwd_dkv_step (backward). flash_fwd.cu (self-attention and KV-cache
+// prefill), flash_decode.cu (short query blocks against the cache),
+// flash_bwd.cu (dQ and dK/dV) and flash_tri.cu (the same functions on the
+// persistent flattened-triangle schedule) all include it, so the mask, the
+// NEG_INF guard, a tile step and a numerics fix land once.
 //
 // Model of a forward block: BR = 16 * RPT query rows against the key/value
 // sequence in tiles of BK = 64 keys, 128 threads. Thread t owns rows
@@ -86,6 +88,42 @@ struct FlashBwdArgs {
   int B, S, Hq, Hkv, D;
   int causal;
   int window;             // <= 0: no window
+  float scale;
+};
+
+// Argument block of the flattened-triangle entry points (flash_tri.cu),
+// mirrored by ctypes.Structure FlashTriArgs in ops/_cuda.py. Causal GQA
+// self-attention at positions 0..S-1 (no window, pads or sinks); strides in
+// elements, in (batch, position, head) order, the head dimension contiguous.
+// The forward reads q, k, v and writes out, lse; dQ reads q, k, v, dout,
+// lse, delta and writes dq; dK/dV the same and writes dk, dv. `ws` is the
+// f32 workspace of cut rows, `ws_floats` long (at least `ctas` times
+// flash_tri_ws_floats(), allocated by the wrapper), and `ctas` the
+// persistent grid, from flash_tri_ctas().
+struct FlashTriArgs {
+  const void* q;          // [B, S, Hq, D] act dtype
+  const void* k;          // [B, S, Hkv, D]
+  const void* v;
+  const void* dout;       // [B, S, Hq, D] cotangent of out
+  void* out;              // [B, S, Hq, D]
+  float* lse;             // [B, Hq, S] f32, contiguous: written by the forward
+  const float* delta;     // [B, Hq, S] f32, contiguous: rowsum(dO o O) - g_lse
+  void* dq;               // [B, S, Hq, D]
+  void* dk;               // [B, S, Hkv, D]
+  void* dv;
+  float* ws;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  long long o_sb, o_ss, o_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  long long ws_floats;    // f32 values in ws
+  int act_dtype;          // 0 f32, 1 bf16 (every tensor but lse / delta / ws)
+  int B, S, Hq, Hkv, D;
+  int ctas;
   float scale;
 };
 
@@ -295,6 +333,176 @@ __device__ __forceinline__ float finalize_row(RowState<D, RPT>& st, int i) {
 template <typename T, int D>
 __device__ __forceinline__ void load_q_row(float* sQ, int r, const T* src, int lane_c) {
   for (int d = lane_c; d < D; d += 8) sQ[r * (D + 1) + d] = src ? to_f32(src[d]) : 0.f;
+}
+
+// Rows row0 .. row0 + n - 1 of one (batch, head) slice into shared memory as
+// f32, [n][D + 1]; rows at or past S are zero. Neighbouring threads read
+// neighbouring elements of a row.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, int n, const T* base, long long row_stride,
+                                          int row0, int S) {
+  for (int idx = threadIdx.x; idx < n * D; idx += NTHREADS) {
+    const int r = idx / D, d = idx % D;
+    const int pos = row0 + r;
+    dst[r * (D + 1) + d] = pos < S ? to_f32(base[pos * row_stride + d]) : 0.f;
+  }
+}
+
+// One dQ tile of the backward (_bwd_dq_step): keys kv0 .. kv0 + BK - 1 of
+// one (batch, kv head) (`kb` / `vb` at its first key) against the block's
+// 16 * RPT query rows, already in sQ / sdO with their lse and delta in
+// registers: S = Q K^T and dP = dO V^T for the thread's rows x columns,
+// dS = P o (dP - delta) * scale into sdS, acc += dS K. Self-attention at
+// positions 0..S-1 (no pads or sinks). Rows owned as in the forward.
+template <typename T, int D, int RPT>
+__device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV, float* sdS,
+                        float (&acc)[RPT][D / 8], const float (&lse)[RPT],
+                        const float (&delta)[RPT], const int (&qpos)[RPT],
+                        const bool (&valid)[RPT], const T* kb, const T* vb, long long k_ss,
+                        long long v_ss, int kv0, int S, int causal, int window, float scale) {
+  const int lane_c = threadIdx.x & 7;
+  const int rg = threadIdx.x >> 3;
+  const int no_sinks = sink_bound(0, 0);
+  __syncthreads();   // previous tile's sK / sV reads are done
+  load_rows<T, D>(sK, BK, kb, k_ss, kv0, S);
+  load_rows<T, D>(sV, BK, vb, v_ss, kv0, S);
+  __syncthreads();
+
+  float s[RPT][8], dp[RPT][8];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float qv[RPT], gv[RPT], kv[8], vv[8];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = sQ[(rg * RPT + i) * (D + 1) + d];
+      gv[i] = sdO[(rg * RPT + i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      kv[c] = sK[(lane_c + 8 * c) * (D + 1) + d];
+      vv[c] = sV[(lane_c + 8 * c) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+        dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int kp = kv0 + lane_c + 8 * c;
+      const bool keep =
+          valid[i] && kp < S && attendable(qpos[i], kp, causal, 0, window, no_sinks);
+      const float p = p_from_lse(keep, s[i][c] * scale, lse[i]);
+      sdS[(rg * RPT + i) * (BK + 1) + lane_c + 8 * c] = p * (dp[i][c] - delta[i]) * scale;
+    }
+  __syncwarp();   // a row group's dS is written and read by one warp
+
+  for (int kk = 0; kk < BK; ++kk) {
+    float kr[D / 8];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) kr[c] = sK[kk * (D + 1) + lane_c + 8 * c];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float ds = sdS[(rg * RPT + i) * (BK + 1) + kk];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) acc[i][c] = fmaf(ds, kr[c], acc[i][c]);
+    }
+  }
+}
+
+// One dK/dV tile of the backward (_bwd_dkv_step): queries q0 .. q0 + BQ - 1
+// of one q-head (`qb` / `gb` at its first query, `lse_row` / `delta_row` at
+// its row of lse and delta) against the block's 16 * KPT keys, already in
+// sK / sV: S^T = K Q^T and dP^T = V dO^T for the thread's keys x query
+// columns (lane_c + 8 * c, c < BQ / 8), then dV += P^T dO, dK += dS^T Q.
+template <typename T, int D, int KPT, int BQ>
+__device__ void dkv_tile(const float* sK, const float* sV, float* sQ, float* sdO, float* sP,
+                         float* sdS, float* sL, float* sDelta, float (&dk)[KPT][D / 8],
+                         float (&dv)[KPT][D / 8], const int (&kpos)[KPT], const T* qb,
+                         const T* gb, long long q_ss, long long do_ss, const float* lse_row,
+                         const float* delta_row, int q0, int S, int causal, int window,
+                         float scale) {
+  constexpr int NC = BQ / 8;
+  const int lane_c = threadIdx.x & 7;
+  const int rg = threadIdx.x >> 3;      // owns keys rg * KPT .. + KPT - 1
+  const int no_sinks = sink_bound(0, 0);
+  __syncthreads();   // previous tile's sQ / sdO / sP / sdS reads are done
+  load_rows<T, D>(sQ, BQ, qb, q_ss, q0, S);
+  load_rows<T, D>(sdO, BQ, gb, do_ss, q0, S);
+  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
+    const bool in = q0 + r < S;
+    sL[r] = in ? lse_row[q0 + r] : FA_NEG_INF;
+    sDelta[r] = in ? delta_row[q0 + r] : 0.f;
+  }
+  __syncthreads();
+
+  float s[KPT][NC], dp[KPT][NC];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[i][c] = dp[i][c] = 0.f;
+  for (int d = 0; d < D; ++d) {
+    float kv[KPT], vv[KPT], qv[NC], gv[NC];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      kv[i] = sK[(rg * KPT + i) * (D + 1) + d];
+      vv[i] = sV[(rg * KPT + i) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      qv[c] = sQ[(lane_c + 8 * c) * (D + 1) + d];
+      gv[c] = sdO[(lane_c + 8 * c) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        s[i][c] = fmaf(kv[i], qv[c], s[i][c]);
+        dp[i][c] = fmaf(vv[i], gv[c], dp[i][c]);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane_c + 8 * c;
+      const int qp = q0 + col;
+      const bool keep = kpos[i] < S && qp < S &&
+                        attendable(qp, kpos[i], causal, 0, window, no_sinks);
+      const float p = p_from_lse(keep, s[i][c] * scale, sL[col]);
+      sP[(rg * KPT + i) * (BQ + 1) + col] = p;
+      sdS[(rg * KPT + i) * (BQ + 1) + col] = p * (dp[i][c] - sDelta[col]) * scale;
+    }
+  __syncwarp();   // a row group's P / dS rows are written and read by one warp
+
+  for (int qq = 0; qq < BQ; ++qq) {
+    float gr[D / 8], qr[D / 8];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      gr[c] = sdO[qq * (D + 1) + lane_c + 8 * c];
+      qr[c] = sQ[qq * (D + 1) + lane_c + 8 * c];
+    }
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const float p = sP[(rg * KPT + i) * (BQ + 1) + qq];
+      const float ds = sdS[(rg * KPT + i) * (BQ + 1) + qq];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        dv[i][c] = fmaf(p, gr[c], dv[i][c]);
+        dk[i][c] = fmaf(ds, qr[c], dk[i][c]);
+      }
+    }
+  }
 }
 
 }  // namespace fa

@@ -24,8 +24,11 @@
 // (causal frontier, pad floor, window band plus sinks), which replaces the
 // TPU's sequential kv grid axis and its index-map clamps
 // (_causal_kv_index), so dead tiles cost neither compute nor bytes. GQA
-// costs no copy: q-head h reads kv head h / group. Tensor cores (wgmma with
-// bf16 operands), TMA loads and a persistent schedule are later work.
+// costs no copy: q-head h reads kv head h / group. The persistent causal
+// schedule (one flat list of live tiles in equal shares per CTA, the
+// counterpart of the TPU's _kernel_tri) lives in flash_tri.cu, behind
+// triangular=True. Tensor cores (wgmma with bf16 operands) and TMA loads are
+// later work.
 #include "flash_common.cuh"
 
 namespace {

@@ -3,7 +3,10 @@
 Twin of ``gpu_provisioner_tpu/ops/flash_attention.py``:
 ``flash_attention`` / ``flash_attention_with_lse`` (Pallas ``_kernel_resident``
 and ``_kernel`` forward, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-backward, differentiable in out and lse as ``_flash_lse_diff`` is),
+backward, differentiable in out and lse as ``_flash_lse_diff`` is; with
+``triangular=True`` the flattened-triangle ``_kernel_tri``,
+``_bwd_dq_kernel_tri`` and ``_bwd_dkv_kernel_tri`` where the JAX package
+takes them, ``tri_dispatch``),
 ``flash_attention_cached`` (``_kernel_cached``) and
 ``flash_attention_decode`` (``_kernel_decode``), with the same gates
 (``_auto_block``, the ``tiles`` test, ``cached_flash_supported``,
@@ -12,18 +15,23 @@ package does, and the dense result for shapes that do not tile (which
 autograd differentiates, as JAX does).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_decode.cu``, ``csrc/flash_bwd.cu``) on a CUDA tensor, or
+``csrc/flash_decode.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cu``) on
+a CUDA tensor, or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
 function (``attention_plain``, ``attention_bwd_plain``). Nothing else picks
 between the two. Deliberate differences from the JAX module:
 
 - ``flash_attention_cached`` and ``flash_attention_decode`` raise if an
   input requires grad: their JAX twins have no VJP;
-- no ``interpret`` argument (the plain version is the CPU path) and no
-  ``triangular`` option: the flattened-triangle kernels (#3/#8/#9) compute
-  the same function on a schedule that skips the dead cells of the TPU's
-  sequential grid; the CUDA kernels' loops over live tiles skip them too,
-  but that schedule has no kernel of its own yet;
+- no ``interpret`` argument (the plain version is the CPU path);
+- ``triangular=True`` takes ``csrc/flash_tri.cu``: on the TPU the flat
+  triangle saves the dead cells of the sequential grid, which the CUDA
+  kernels' loops over live tiles skip anyway; on the card it is a
+  persistent launch that gives every CTA an equal share of the live tiles
+  (balance), with a fixup launch for the rows cut between shares. The
+  decode and the shares of its schedule have CPU twins here
+  (``_tri_decode``, ``_tri_decode_rev``, ``_tri_shares``) that the tests
+  check;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -44,10 +53,16 @@ from . import _cuda
 NEG_INF = -1.0e30  # mask value; finite so exp() underflows instead of NaN-ing
 DEFAULT_BLOCK = 512
 DECODE_MAX_S = 16   # short-block bound: decode steps / verify blocks
+# K+V bytes (in the input dtype) the TPU keeps resident in VMEM before its
+# forward switches to the streaming grid, where triangular=True applies: a
+# copy of the JAX constant, kept so the port takes the triangle exactly
+# where the JAX package does (bf16 at D 128: S > 12288)
+RESIDENT_KV_BUDGET = 6 * 1024 * 1024
 
 # launches per kernel, counted where its wrapper launches it
 LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_decode": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_tri": 0,
+            "flash_bwd_dq_tri": 0, "flash_bwd_dkv_tri": 0}
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -68,6 +83,41 @@ def _auto_block(S: int) -> int:
             return b
         b //= 2
     return DEFAULT_BLOCK  # won't tile; the caller takes the dense path
+
+
+def tri_dispatch(S: int, D: int, itemsize: int, *, causal: bool,
+                 triangular: bool, window) -> tuple[bool, bool]:
+    """(forward, backward): whether self-attention that tiles takes the
+    flattened-triangle kernels, exactly where the JAX package's _flash and
+    _flash_bwd_impl do. Both need causal, triangular and no window (_auto_block
+    always gives block_q == block_k); the forward also needs the streaming
+    regime, K+V past RESIDENT_KV_BUDGET. Anywhere else the flag is a no-op."""
+    tri = bool(causal and triangular and window is None)
+    return tri and 2 * S * D * itemsize > RESIDENT_KV_BUDGET, tri
+
+
+def _tri_decode(t):
+    """Flat index t of a triangle → (row r, column c <= r), row r starting
+    at r(r+1)/2: the twin of the JAX _tri_decode and of flash_tri.cu's
+    tri_decode, in exact integers (numpy int64, ints or arrays): the float
+    square root is a seed, the two corrections decide."""
+    t = np.asarray(t, dtype=np.int64)
+    r = np.floor((np.sqrt(8.0 * t + 1.0) - 1.0) / 2.0).astype(np.int64)
+    r = np.where(r * (r + 1) // 2 > t, r - 1, r)
+    r = np.where((r + 1) * (r + 2) // 2 <= t, r + 1, r)
+    return r, t - r * (r + 1) // 2
+
+
+def _tri_decode_rev(t, n: int):
+    """The dK/dV triangle (qi >= kj): flat index → (kj, qi), row u = n-1-kj
+    walking qi down from n-1 to kj, as the JAX _tri_decode_rev."""
+    u, v = _tri_decode(t)
+    return n - 1 - u, n - 1 - v
+
+
+def _tri_shares(W: int, P: int) -> list:
+    """CTA c's share [c·W/P, (c+1)·W/P) of W flat tiles among P CTAs."""
+    return [(c * W // P, (c + 1) * W // P) for c in range(P)]
 
 
 def _check_no_grad(*tensors) -> None:
@@ -282,6 +332,47 @@ def attention_bwd_plain(q, k, v, out, lse, dout, g_lse=None, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _check_self_attention(q, k, v, dout=None, lse=None, delta=None) -> None:
+    """What the self-attention kernels (flash_bwd.cu, flash_tri.cu) take:
+    q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
+    kernels' dtypes, head dim 128 contiguous, GQA dividing; lse and delta,
+    where given, contiguous float32 [B,Hq,S]."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    dev = q.device
+    named = [("k", k), ("v", v), ("dout", dout), ("lse", lse),
+             ("delta", delta)]
+    for name, t in named:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _ACT_DTYPES:
+        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
+                        "bfloat16")
+    acts = [t for t in (k, v, dout) if t is not None]
+    if any(t.dtype != q.dtype for t in acts):
+        raise TypeError("k/v/dout dtypes "
+                        + "/".join(str(t.dtype) for t in acts)
+                        + f"; expected {q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes {_HEAD_DIMS}")
+    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
+            or (dout is not None and dout.shape != q.shape):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
+                         f"{tuple(v.shape)}, dout "
+                         f"{None if dout is None else tuple(dout.shape)}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0; got {Hq}/{Hkv}")
+    if any(t.stride(-1) != 1 for t in [q] + acts):
+        raise ValueError("the head dim of q, k, v and dout must be "
+                         "contiguous")
+    for name, t in named[3:]:
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != (B, Hq, S)
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[B={B}, Hq={Hq}, S={S}]")
+
+
 def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
                 scale: float, window=None):
     """Checks what the backward kernels take, allocates ``kernel``'s outputs
@@ -291,32 +382,7 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
-    for name, t in (("k", k), ("v", v), ("dout", dout), ("lse", lse),
-                    ("delta", delta)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _ACT_DTYPES:
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
-                        "bfloat16")
-    if not k.dtype == v.dtype == dout.dtype == q.dtype:
-        raise TypeError(f"k/v/dout dtypes {k.dtype}/{v.dtype}/{dout.dtype}; "
-                        f"expected {q.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes {_HEAD_DIMS}")
-    if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
-            or dout.shape != q.shape:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
-                         f"{tuple(v.shape)}, dout {tuple(dout.shape)}")
-    if Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"GQA needs Hq % Hkv == 0; got {Hq}/{Hkv}")
-    if any(t.stride(-1) != 1 for t in (q, k, v, dout)):
-        raise ValueError("the head dim of q, k, v and dout must be "
-                         "contiguous")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hq, S) \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 "
-                             f"[B={B}, Hq={Hq}, S={S}]")
+    _check_self_attention(q, k, v, dout, lse, delta)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
 
@@ -346,16 +412,71 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     return outs[0] if len(outs) == 1 else outs
 
 
+def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
+                delta=None):
+    """Checks what the flattened-triangle kernels take (causal
+    self-attention, no window), allocates ``kernel``'s outputs and its f32
+    workspace (two slots per CTA of the persistent grid) and queues its main
+    launch and its fixup on the current stream: ``flash_fwd_tri`` → (out
+    [B,S,Hq,D], lse [B,Hq,S] f32), ``flash_bwd_dq_tri`` → dq,
+    ``flash_bwd_dkv_tri`` → (dk, dv). q/k/v/dout token-major with the head
+    dim contiguous; lse and delta (the backward's) [B,Hq,S] f32."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    dev = q.device
+    fwd = kernel == "flash_fwd_tri"
+    if not fwd and (dout is None or lse is None or delta is None):
+        raise ValueError(f"{kernel} needs dout, lse and delta")
+    _check_self_attention(q, k, v, dout, lse, delta)
+    P = _cuda.tri_ctas(kernel, _ACT_DTYPES[q.dtype], dev.index)
+    ws = torch.empty(P * _cuda.tri_ws_floats(kernel), dtype=torch.float32,
+                     device=dev)
+    a = _cuda.FlashTriArgs()
+    if fwd:
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+        outs = {"o": torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)}
+    elif kernel == "flash_bwd_dq_tri":
+        outs = {"dq": torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)}
+    else:
+        outs = {n: torch.empty((B, S, Hkv, D), dtype=k.dtype, device=dev)
+                for n in ("dk", "dv")}
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", dout), *outs.items()):
+        if t is None:
+            continue
+        setattr(a, {"do": "dout", "o": "out"}.get(name, name), t.data_ptr())
+        for ax, st in zip("bsh", t.stride()[:3]):
+            setattr(a, f"{name}_s{ax}", st)
+    a.lse = lse.data_ptr()
+    a.delta = delta.data_ptr() if delta is not None else None
+    a.ws, a.ws_floats = ws.data_ptr(), ws.numel()
+    a.act_dtype = _ACT_DTYPES[q.dtype]
+    a.B, a.S, a.Hq, a.Hkv, a.D, a.ctas = B, S, Hq, Hkv, D, P
+    a.scale = scale
+    _run(kernel, a, dev)
+    LAUNCHES[kernel] += 1
+    if fwd:
+        return outs["o"], lse
+    return outs["dq"] if "dq" in outs else (outs["dk"], outs["dv"])
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, *,
                         causal: bool = True, scale: float | None = None,
-                        window: int | None = None):
+                        window: int | None = None, triangular: bool = False):
     """(dq, dk, dv) of self-attention from the forward's out and lse, as
     attention_bwd_plain defines them: on a CUDA tensor the dQ kernel and the
-    dK/dV kernel (Δ computed here), on a CPU tensor attention_bwd_plain."""
+    dK/dV kernel (Δ computed here), their flattened-triangle versions where
+    tri_dispatch says so; on a CPU tensor attention_bwd_plain."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cuda":
         delta = _bwd_delta(out, dout, g_lse).contiguous()
+        if tri_dispatch(q.shape[1], q.shape[-1], q.element_size(),
+                        causal=causal, triangular=triangular,
+                        window=window)[1]:
+            kw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+            dq = _launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+            dk, dv = _launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+            return dq, dk, dv
         kw = dict(causal=causal, scale=scale, window=window)
         dq = _launch_bwd("flash_bwd_dq", q, k, v, dout, lse, delta, **kw)
         dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta, **kw)
@@ -373,40 +494,50 @@ class _FlashAttention(torch.autograd.Function):
     the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
+    def forward(ctx, q, k, v, causal, scale, window, triangular):
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)    # views, no copy
         if q.device.type == "cuda":
-            out, lse = _launch("flash_fwd", q, kh, vh, 0, causal=causal,
-                               scale=scale, window=window, want_lse=True)
-            LAUNCHES["flash_fwd"] += 1
+            if tri_dispatch(q.shape[1], q.shape[-1], q.element_size(),
+                            causal=causal, triangular=triangular,
+                            window=window)[0]:
+                out, lse = _launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+            else:
+                out, lse = _launch("flash_fwd", q, kh, vh, 0, causal=causal,
+                                   scale=scale, window=window, want_lse=True)
+                LAUNCHES["flash_fwd"] += 1
         else:
             _require_cpu(q)
             out, lse = attention_plain(q, kh, vh, 0, causal=causal,
                                        scale=scale, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, scale, window)
+        ctx.mask = (causal, scale, window, triangular)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, scale, window = ctx.mask
+        causal, scale, window, triangular = ctx.mask
         g_out = torch.zeros_like(out) if g_out is None else g_out
         if g_out.stride(-1) != 1:
             g_out = g_out.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, g_lse,
                                          causal=causal, scale=scale,
-                                         window=window)
-        return dq, dk, dv, None, None, None
+                                         window=window, triangular=triangular)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
-                             scale: float = None, window: int = None):
+                             scale: float = None, window: int = None,
+                             triangular: bool = False):
     """Self-attention q [B,S,Hq,D], k/v [B,S,Hkv,D] → (out [B,S,Hq,D],
     lse [B,Hq,S] f32), differentiable in both. Takes the kernels when S
     tiles into the (JAX) blocks and GQA divides; any other shape gets the
-    dense path, which autograd differentiates."""
+    dense path, which autograd differentiates. ``triangular=True``: the
+    flattened-triangle kernels where the JAX package takes them
+    (tri_dispatch: causal, no window; the forward only past
+    RESIDENT_KV_BUDGET), the same function on another schedule; elsewhere a
+    no-op."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     if scale is None:
@@ -416,16 +547,16 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     if not tiles:   # the dense result, as the JAX package gives
         return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
                                causal=causal, scale=scale, window=window)
-    return _FlashAttention.apply(q, k, v, causal, scale, window)
+    return _FlashAttention.apply(q, k, v, causal, scale, window, triangular)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,
-                    window: int = None):
+                    window: int = None, triangular: bool = False):
     """Drop-in for dense_attention: q [B,S,Hq,D], k/v [B,S,Hkv,D] →
     [B,S,Hq,D]. One backward serves this and the with_lse variant: the
     dropped lse has no cotangent, so Δ takes none."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
-                                    window=window)[0]
+                                    window=window, triangular=triangular)[0]
 
 
 def cached_flash_supported(S: int, max_len: int, Hq: int, Hkv: int) -> bool:

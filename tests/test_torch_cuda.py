@@ -8,9 +8,13 @@ absolute (the kernel sums tiles in another order), bf16 1e-2 absolute (one
 bf16 rounding of the output; the largest error seen on an H100 was 3.9e-3).
 The backward kernels are held to the same bounds relative to the largest
 plain gradient (max|kernel - plain| / max|plain|), since gradients scale
-with S and the cotangents.
+with S and the cotangents. The flattened-triangle kernels (flash_tri.cu)
+are held to the same bounds at shapes where the persistent grid has more
+CTAs than tiles, rows are cut into many pieces, and many rows lie whole in
+one CTA's share.
 """
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -20,6 +24,7 @@ from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
 from gpu_provisioner_tpu_torch.models import train as ttrain
+from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -208,3 +213,94 @@ def test_flash_training_equals_dense_training_on_the_card(dev):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     for a, b in zip(*grads):
         assert _err(a, b) <= 1e-4 * b.abs().max().item()
+
+
+# (B, S, Hq, Hkv, lse cotangent): W < P with every row cut (S 128, 384),
+# whole rows beside cut ones (S 2048)
+TRI_CASES = [(1, 128, 1, 1, False), (1, 384, 2, 1, True),
+             (2, 2048, 16, 8, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain(dev, dtype, B, S, Hq, Hkv, cot):
+    g = torch.Generator(dev).manual_seed(6)
+    q = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    k = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    v = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    dout = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev) if cot else None
+    scale = 128 ** -0.5
+    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+    ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), 0)
+    delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
+    kw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+    dq = tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+    dk, dv = tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse)
+    torch.cuda.synchronize()
+    assert _err(out, ref) < TOL[dtype]
+    assert _err(lse, ref_lse) < 1e-4
+    for a, b in zip((dq, dk, dv), want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+
+
+def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
+    """S=16384 bf16 (past the resident budget): the tri forward and both
+    tri backward kernels, once each, no rectangular launch; S=4096: the
+    rectangular forward, the tri backward."""
+    g = torch.Generator(dev).manual_seed(7)
+    for S, fwd in ((16384, "flash_fwd_tri"), (4096, "flash_fwd")):
+        q, k, v = (_randn(g, 1, S, h, 128, dtype=torch.bfloat16, dev=dev)
+                   .requires_grad_() for h in (2, 1, 1))
+        dout = _randn(g, 1, S, 2, 128, dtype=torch.bfloat16, dev=dev)
+        tfa.reset_launches()
+        got = torch.autograd.grad(tfa.flash_attention(q, k, v,
+                                                      triangular=True),
+                                  (q, k, v), dout)
+        torch.cuda.synchronize()
+        want = {fwd: 1, "flash_bwd_dq_tri": 1, "flash_bwd_dkv_tri": 1}
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == want
+        ref = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v),
+                                  dout)
+        for a, b in zip(got, ref):
+            assert _rel(a, b) < 2e-2
+
+
+def test_tri_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 128, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
+                        scale=1.0)
+    q = torch.zeros(1, 128, 4, 128, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
+                        scale=1.0)
+    q = torch.zeros(1, 128, 4, 128, device=dev)
+    lse = torch.zeros(1, 4, 128, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._launch_tri("flash_bwd_dkv_tri", q, q[:, :, :2], q[:, :, :2],
+                        scale=1.0, dout=q, lse=lse.transpose(1, 2)
+                        .contiguous().transpose(1, 2), delta=lse)
+
+
+def test_tri_entries_refuse_a_short_workspace(dev):
+    """flash_tri.cu owns the workspace layout: an entry given fewer than
+    ctas × flash_tri_ws_floats() f32 values returns cudaErrorInvalidValue
+    (1) before it launches anything."""
+    q = torch.zeros(1, 128, 2, 128, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for entry in _cuda.TRI_WHICH:
+        P = _cuda.tri_ctas(entry, 0, dev.index)
+        n = P * _cuda.tri_ws_floats(entry)
+        ws = torch.empty(n, device=dev)
+        a = _cuda.FlashTriArgs()
+        for name in ("q", "k", "v", "dout", "out", "dq", "dk", "dv"):
+            setattr(a, name, q.data_ptr())
+        a.lse, a.delta = ws.data_ptr(), ws.data_ptr()
+        a.ws, a.ws_floats = ws.data_ptr(), n - 1
+        a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = 0, 1, 128, 2, 2, 128
+        a.ctas, a.scale = P, 1.0
+        assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry

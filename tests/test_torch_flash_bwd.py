@@ -145,17 +145,19 @@ def test_bwd_plain_zeroes_rows_that_attend_nothing():
 
 def test_triangular_reference_equals_the_same_port_kernels(monkeypatch):
     """The JAX flattened-triangle kernels (#3 forward, #8/#9 backward, opt-in
-    triangular=True) compute the same function as the rectangular ones,
-    which the port's flash_attention computes too. Forward and grads at the
-    shape of the JAX package's own triangular test (S=384, streaming)."""
+    triangular=True) against the port's flash_attention(triangular=True),
+    whose CPU path is the same plain versions as the rectangular kernels'.
+    Forward and grads at the shape of the JAX package's own triangular test
+    (S=384, streaming)."""
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
+    monkeypatch.setattr(tfa, "RESIDENT_KV_BUDGET", 0)
     q, k, v, g_out, _ = _inputs(5, 1, 384, 2, 1, 32)
     out, jgrads = _jax_grads(
         lambda *a: jfa.flash_attention_with_lse(
             *a, triangular=True, block_q=128, block_k=128, interpret=True),
         q, k, v, g_out, np.zeros((1, 2, 384), np.float32))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    to = tfa.flash_attention(*leaves)
+    to = tfa.flash_attention(*leaves, triangular=True)
     _close(to, out[0])
     for got, want in zip(torch.autograd.grad(to, leaves,
                                              torch.from_numpy(g_out)),

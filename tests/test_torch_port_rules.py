@@ -99,6 +99,27 @@ def test_flash_bwd_args_mirror_the_cuda_struct():
     assert ctypes.sizeof(_cuda.FlashBwdArgs) == 280
 
 
+def test_flash_tri_args_mirror_the_cuda_struct():
+    """11 pointers, 24 strides, the workspace length, 7 ints and the
+    scale: 316 bytes, padded to the 8-byte alignment of the pointers."""
+    assert _header_fields("FlashTriArgs") == \
+        [f[0] for f in _cuda.FlashTriArgs._fields_]
+    assert ctypes.sizeof(_cuda.FlashTriArgs) == 320
+
+
+def test_tri_grid_query_names_every_tri_entry():
+    """flash_tri_ctas(which, ...) and flash_tri_ws_floats(which) number the
+    three tri entries as the source's enum does."""
+    text = (_cuda.CSRC / "flash_tri.cu").read_text()
+    assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", text)
+    assert _cuda.TRI_WHICH == {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1,
+                               "flash_bwd_dkv_tri": 2}
+    assert {e for e, (src, _) in _cuda.ENTRIES.items()
+            if src == "flash_tri"} == set(_cuda.TRI_WHICH)
+    assert 'extern "C" int flash_tri_ctas(int which, int act_dtype)' in text
+    assert 'extern "C" long long flash_tri_ws_floats(int which)' in text
+
+
 def test_every_entry_point_has_its_source_and_struct():
     assert set(_cuda.SOURCES) == {src for src, _ in _cuda.ENTRIES.values()}
     for entry, (source, args) in _cuda.ENTRIES.items():
