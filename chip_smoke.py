@@ -34,17 +34,22 @@ Phases, each of which exits non-zero on a failed check:
    masters, remat, B=8, S=2048, AdamW: one warm-up step, then five timed
    steps on one fixed batch, with the loss falling and every kernel's
    launch count read across the five;
-8. long context: the three flattened-triangle kernels (flash_tri.cu)
-   called directly against their plain versions (bf16 and f32, causal, at
-   (B, S, Hq, Hkv) = (1, 128, 1, 1), where the persistent grid has more
-   CTAs than tiles, (1, 384, 2, 1) with an lse cotangent, (2, 2048, 16, 8)
-   and (1, 8192, 16, 8)); flash_attention(triangular=True) and its
+8. long context: the three flattened-triangle kernels (flash_tri.cu;
+   the bf16 forward and dQ on the tensor cores) called directly against
+   their plain versions (bf16 and f32, causal, at (B, S, Hq, Hkv) = (1,
+   128, 1, 1), where the persistent grid has more CTAs than tiles, (1, 384,
+   2, 1) with an lse cotangent, the ragged (1, 1000, 1, 1) with every row
+   of more than one tile cut, (1, 1000, 4, 1) and (2, 200, 8, 8) with an
+   lse cotangent, (2, 2048, 16, 8) and (1, 8192, 16, 8));
+   flash_attention(triangular=True) and its
    gradients against the rectangular kernels at B=1, S=16384 and 32768,
    Hq/Hkv 8/4 (bench_flash_op's streaming shape) and 32/8 (llama-7b's
    attention at mistral-7b-ish's 32k context), bf16, with every kernel's
    launch count read across the 32k, Hq 32 forward and backward; each tri
    kernel timed at S=32768, Hq 8 beside its rectangular kernel, the SDPA
-   yardstick and its bound; flash_attention_with_lse and its gradients
+   yardstick and its bound (bound_share = bound / time), the forward and
+   dQ also at the training shape beside their rectangular kernels (the
+   tri/rect ratio); flash_attention_with_lse and its gradients
    against the plain versions at the bench twins' own shapes ((1, 8192, 8,
    4) causal, (1, 32768, 8, 4) with window 1024 through a plain version
    built by 1024-query chunks, (8, 4096, 16, 8) causal), one launch of
@@ -475,9 +480,13 @@ def phase_train(torch, tl, tt, tfa, dev):
     return launches
 
 
-# (B, S, Hq, Hkv, lse cotangent) of the tri kernels against plain, D = 128
+# (B, S, Hq, Hkv, lse cotangent) of the tri kernels against plain, D = 128:
+# W < P (S 128; S 1000 at Hq 1, every row of more than one tile cut), an lse
+# cotangent, ragged S at GQA groups 4 and 1, then the larger shapes
 TRI_CASES = ((1, 128, 1, 1, False), (1, 384, 2, 1, True),
-             (2, 2048, 16, 8, False), (1, 8192, 16, 8, False))
+             (1, 1000, 1, 1, False), (1, 1000, 4, 1, False),
+             (2, 200, 8, 8, True), (2, 2048, 16, 8, False),
+             (1, 8192, 16, 8, False))
 # (S, Hq, Hkv) at B=1, bf16: triangle against rectangle, past the plain
 # versions' reach; the last is the main path of the launch counts
 LONG_SHAPES = ((16384, 8, 4), (16384, 32, 8), (32768, 8, 4), (32768, 32, 8))
@@ -771,6 +780,35 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
         lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), **kw)
     del lib_out, lib_in
 
+    # the tensor-core tri kernels against their rectangular counterparts at
+    # the training shape (ROADMAP's merge condition), bf16
+    Bt, St, Hqt, Hkvt = TRAIN_SHAPE
+    qt, doutt = rnd(Bt, St, Hqt, D), rnd(Bt, St, Hqt, D)
+    kt, vt = rnd(Bt, St, Hkvt, D), rnd(Bt, St, Hkvt, D)
+    out_t, lse_t = tfa._launch_tri("flash_fwd_tri", qt, kt, vt, scale=scale)
+    delta_t = tfa._bwd_delta(out_t, doutt, None).contiguous()
+    train_fns = {
+        "flash_fwd_tri": (
+            lambda: tfa._launch_tri("flash_fwd_tri", qt, kt, vt, scale=scale),
+            lambda: tfa._launch("flash_fwd", qt, kt.transpose(1, 2),
+                                vt.transpose(1, 2), 0, causal=True,
+                                scale=scale, want_lse=True)),
+        "flash_bwd_dq_tri": (
+            lambda: tfa._launch_tri("flash_bwd_dq_tri", qt, kt, vt,
+                                    scale=scale, dout=doutt, lse=lse_t,
+                                    delta=delta_t),
+            lambda: tfa._launch_bwd("flash_bwd_dq", qt, kt, vt, doutt, lse_t,
+                                    delta_t, causal=True, scale=scale))}
+    at_train = {}
+    for name, (tri_fn, rect_fn) in train_fns.items():
+        tri_ms, rect_ms = time_ms(tri_fn, **kw), time_ms(rect_fn, **kw)
+        at_train[name] = {"shape": list(TRAIN_SHAPE), "ms": tri_ms,
+                          "rect_ms": rect_ms, "tri_over_rect": tri_ms / rect_ms}
+        print(f"{name} at the training shape B={Bt} S={St} Hq={Hqt} "
+              f"Hkv={Hkvt} bf16: {tri_ms:.4f} ms, rectangular "
+              f"{rect_ms:.4f} ms, tri/rect {tri_ms / rect_ms:.4f}")
+    del qt, doutt, kt, vt, out_t, lse_t, delta_t
+
     # the plain versions at the largest shape whose S² scores fit
     Bp, Sp, Hqp, Hkvp = TRI_CASES[-1][:4]
     qp, doutp = rnd(Bp, Sp, Hqp, D), rnd(Bp, Sp, Hqp, D)
@@ -789,6 +827,7 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
         ops, nbytes = work_tri(name, B, S, Hq, Hkv, D, ws)
         t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
         fwd = name == "flash_fwd_tri"
+        ms = time_ms(tri_fns[name], **kw)
         rows.append({
             "name": name, "route": "cuda",
             "source": "gpu_provisioner_tpu_torch/ops/csrc/flash_tri.cu",
@@ -796,13 +835,16 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
                         + replaces,
             "launches": 0, "max_abs_err": worst[name][0],
             "max_rel_err": worst[name][1], "tolerance": TOL["bfloat16"],
-            "ms": time_ms(tri_fns[name], **kw),
+            "ms": ms,
             "rect_ms": time_ms(rect_fns[rect], **kw),
             "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
             "bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": lib_fwd_ms if fwd else lib_bwd_ms,
+            "bound_share": max(t_b, t_o) / ms,
             "ctas": P,
+            **({"at_train_shape": at_train[name]} if name in at_train
+               else {}),
             "shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
             "plain_note": f"plain_ms at B={Bp} S={Sp} Hq={Hqp} Hkv={Hkvp} "
                           "(the S² scores at S=32768 do not fit)"

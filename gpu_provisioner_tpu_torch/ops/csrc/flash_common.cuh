@@ -16,7 +16,8 @@
 // accumulator of a row lives in the same thread as that row's running max
 // and denominator (columns (t % 8) + 8 * c of D), so rescaling never crosses
 // threads. All arithmetic is f32 FMA from shared memory: simple and right
-// first; tensor cores (mma.sync / wgmma) and TMA are later work.
+// first. The tensor-core tile steps (wgmma) are flash_wgmma.cuh's, used so
+// far by flash_tri.cu's bf16 forward and dQ.
 //
 // Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30
 // (attendable() below is its one home): key position kp is attendable from

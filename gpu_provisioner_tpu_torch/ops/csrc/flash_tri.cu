@@ -9,9 +9,8 @@
 //   - _bwd_dq_kernel_tri (pallas_call in _flash_bwd_tri): flash_bwd_dq_tri;
 //   - _bwd_dkv_kernel_tri (the reversed triangle, _tri_decode_rev):
 //     flash_bwd_dkv_tri.
-// They compute what flash_fwd.cu and flash_bwd.cu compute (the same tile
-// steps: attend_tiles, dq_tile, dkv_tile in flash_common.cuh); what differs
-// is the schedule.
+// They compute what flash_fwd.cu and flash_bwd.cu compute; what differs is
+// the schedule, and for the bf16 forward and dQ the tile step (below).
 //
 // What bounds them on an H100: compute, as for the rectangular kernels (4, 6
 // and 8 * D operations per attended pair and q-head against a few bytes per
@@ -43,9 +42,36 @@
 // second launch, the fixup, merges each cut row's pieces in flat order
 // (parallel/ring.py:_lse_merge for the forward, a sum for the backward) and
 // writes the row. No atomics: the result is the same run to run for a
-// given P. f32 FMA from shared memory, like the kernels already ported;
-// wgmma and TMA are later work.
+// given P.
+//
+// The tile steps. The f32 instances of all three kernels and the bf16
+// instance of dK/dV are f32 FMA from shared memory (attend_tiles, dq_tile,
+// dkv_tile), the exactness instances. The bf16 forward and dQ run on the
+// tensor cores (flash_wgmma.cuh), chosen by the template type: one
+// warpgroup of 128 threads owns the 64-row query tile of a segment, Q (and
+// dO) loaded once per segment, the K/V tiles through a two-stage ring of
+// swizzled bf16 tiles filled by cp.async, the copy of tile j + 1 issued
+// before the products of tile j. Forward: S = Q K^T (m64n64k16, A and B
+// from shared memory), the online softmax on the accumulator's fragments
+// (mask on the diagonal tile only), P split in registers into two bf16
+// terms, hi + lo, the A operands of O += P V (m64n128k16 twice, V
+// MN-major), the denominator summed from the f32 P. (One bf16 rounding of
+// P moves an output near 2 across a bf16 rounding step, 0.0156, past the
+// 1e-2 the kernels are held to; the lo term costs half again the forward's
+// products.) dQ: S = Q K^T and dP = dO V^T, P = exp(S scale - lse) and dS =
+// P (dP - delta) scale in registers, dS rounded to bf16 for dQ += dS K (K
+// MN-major: one swizzled K tile is both B operands). Shared memory: 80 KB
+// forward, 96 KB dQ, so two CTAs an SM where the f32 tiles allowed two
+// (forward) and one (dQ). Bound: operations, 4 and 6 D per attended pair
+// and q-head at 989 TFLOP/s bf16 (2.22 and 3.34 ms at S = 32768, Hq 8).
+// Left for later: warp specialisation (a producer warp issuing TMA, with
+// setmaxnreg giving the consumers its registers), two consumer warpgroups
+// in ping-pong so that one's softmax overlaps the other's products, and
+// fp8 operands.
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -188,6 +214,276 @@ __device__ __forceinline__ void lse_merge(float& o, float& L, float oi, float li
   L = z > 0.f ? M + logf(zs) : FA_NEG_INF;
 }
 
+// ---- tensor-core tile steps (bf16) ------------------------------------------
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+static_assert(FWD_E == wg::ROWS, "a query tile is one wgmma M");
+// Q; K and V in two stages / Q, dO; K and V in two stages; plus the slack
+// that aligns the first tile to a swizzle period
+constexpr size_t TC_FWD_SMEM = 5 * wg::TILE_BYTES + wg::ALIGN;
+constexpr size_t TC_DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
+
+// The first swizzle-aligned byte of dynamic shared memory.
+__device__ __forceinline__ uint32_t tc_tiles() {
+  extern __shared__ float smem[];
+  return (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
+}
+
+// s = A B^T for one 64 x 64 tile (A, B both K-major): 8 k-steps over D.
+__device__ __forceinline__ void tc_abt(float (&s)[32], uint32_t sa, uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
+}
+
+// acc += p x tile (MN-major), 4 k-steps over the tile's 64 rows, waited
+// for; p rounded to bf16, or with Split as bf16 hi + lo (8 k-steps).
+template <bool Split>
+__device__ __forceinline__ void tc_pv(float (&acc)[64], const float (&p)[32], uint32_t tile) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (Split)
+      wg::a_frag_split(p, kk, hi[kk], lo[kk]);
+    else
+      wg::a_frag(p, kk, hi[kk]);
+  }
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wg::mma_m64n128k16_rs<1>(acc, hi[kk], wg::desc_mnmajor(tile, kk), 1);
+    if constexpr (Split) wg::mma_m64n128k16_rs<1>(acc, lo[kk], wg::desc_mnmajor(tile, kk), 1);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(acc);
+}
+
+// Element e of the thread's fragment is attendable on the diagonal tile
+// (kj == r: query row - key column = in-tile row - column) and in range.
+__device__ __forceinline__ bool tc_keep(bool diag, int row, int col, int e, int keys_left) {
+  const int kc = col + wg::elem_col(e);
+  return !diag || (kc <= row + wg::elem_row(e) && kc < keys_left);
+}
+
+// Waits for the copies of the current stage, publishes them to every
+// thread and to the tensor cores, then issues the copy of the next K/V tile
+// (if any) into the other stage, whose products are done.
+__device__ __forceinline__ void tc_next_stage(uint32_t next_k, bool more, const __nv_bfloat16* kb,
+                                              const __nv_bfloat16* vb, long long k_ss,
+                                              long long v_ss, int kv0, int S) {
+  wg::copy_wait<0>();
+  wg::fence_smem_to_async();
+  __syncthreads();
+  if (more) {
+    wg::load_tile(next_k, kb, k_ss, kv0, S);
+    wg::load_tile(next_k + wg::TILE_BYTES, vb, v_ss, kv0, S);
+    wg::copy_commit();
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = FWD_E;
+  const uint32_t sQ = tc_tiles(), ring = sQ + wg::TILE_BYTES;   // stage st: K, V at ring + 2 st TILE
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  const int group = a.Hq / a.Hkv;
+  const Tri tri = make_tri(a.S, E, a.Hq, a.B);
+  const float sl2 = a.scale * kLog2e;          // scores in log2 units
+  float* ws_lse = a.ws + 2LL * a.ctas * E * D;
+  float s[32] = {};
+
+  Walk walk(blockIdx.x, tri, a.ctas);
+  Seg sg;
+  while (walk.next(sg)) {
+    const int b = static_cast<int>(sg.bh / a.Hq), h = static_cast<int>(sg.bh % a.Hq);
+    const int kvh = h / group;
+    const int q0 = sg.r * E;
+    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+    __syncthreads();   // the previous segment's products are done
+    wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
+    wg::load_tile(ring, kb, a.k_ss, sg.c0 * E, a.S);
+    wg::load_tile(ring + wg::TILE_BYTES, vb, a.v_ss, sg.c0 * E, a.S);
+    wg::copy_commit();
+    float acc[64], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+    for (int kj = sg.c0; kj <= sg.c1; ++kj) {
+      const int st = (kj - sg.c0) & 1;
+      const uint32_t sK = ring + 2 * st * wg::TILE_BYTES;
+      tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
+                    (kj + 1) * E, a.S);
+      wg::fence();
+      tc_abt(s, sQ, sK);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(s);
+
+      // _online_update on the fragment's two rows
+      const bool diag = kj == sg.r;
+      const int keys_left = a.S - kj * E;
+      // (element 4 j + 2 i + c of a fragment lies in row i, j-th column pair)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = FA_NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            s[e] = tc_keep(diag, row, col, e, keys_left) ? s[e] * sl2 : FA_NEG_INF;
+            mx = fmaxf(mx, s[e]);
+          }
+        const float m_new = fmaxf(m[i], wg::quad_max(mx));
+        const bool live = m_new > FA_NEG_INF / 2;
+        const float corr = exp2f(m[i] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            s[e] = live ? exp2f(s[e] - m_new) : 0.f;
+            psum += s[e];
+          }
+        m[i] = m_new;
+        l[i] = l[i] * corr + psum;     // this thread's columns; the quad's sum at the end
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          acc[4 * j + 2 * i] *= corr;
+          acc[4 * j + 2 * i + 1] *= corr;
+        }
+      }
+      tc_pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
+    }
+
+    // _finalize_out, then the row or its workspace slot
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      const float lsum = wg::quad_sum(l[i]);
+      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+      const float lse = lsum > 0.f ? m[i] * kLn2 + logf(lsum) : FA_NEG_INF;
+      if (sg.whole) {
+        if (q0 + r >= a.S) continue;
+        bf16* o = static_cast<bf16*>(a.out) + b * a.o_sb + (q0 + r) * a.o_ss + h * a.o_sh + col;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+        if ((t & 3) == 0) a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + q0 + r] = lse;
+      } else {
+        float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+        if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse;
+      }
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = FWD_E;
+  const uint32_t sQ = tc_tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  const int group = a.Hq / a.Hkv;
+  const Tri tri = make_tri(a.S, E, a.Hq, a.B);
+  const float sl2 = a.scale * kLog2e;
+  float s[32] = {}, dp[32] = {};
+
+  Walk walk(blockIdx.x, tri, a.ctas);
+  Seg sg;
+  while (walk.next(sg)) {
+    const int b = static_cast<int>(sg.bh / a.Hq), h = static_cast<int>(sg.bh % a.Hq);
+    const int kvh = h / group;
+    const int q0 = sg.r * E;
+    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+    __syncthreads();   // the previous segment's products are done
+    wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
+    wg::load_tile(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
+                  q0, a.S);
+    wg::load_tile(ring, kb, a.k_ss, sg.c0 * E, a.S);
+    wg::load_tile(ring + wg::TILE_BYTES, vb, a.v_ss, sg.c0 * E, a.S);
+    wg::copy_commit();
+    // the two rows' lse (log2 units) and delta; rows past S attend nothing
+    const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
+    float lse2[2], delta[2];
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = q0 + row + 8 * i;
+      const float lse = qp < a.S ? a.lse[rows + qp] : FA_NEG_INF;
+      live[i] = lse > FA_NEG_INF / 2;
+      lse2[i] = lse * kLog2e;
+      delta[i] = qp < a.S ? a.delta[rows + qp] : 0.f;
+    }
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+    for (int kj = sg.c0; kj <= sg.c1; ++kj) {
+      const int st = (kj - sg.c0) & 1;
+      const uint32_t sK = ring + 2 * st * wg::TILE_BYTES;
+      tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
+                    (kj + 1) * E, a.S);
+      wg::fence();
+      tc_abt(s, sQ, sK);
+      wg::commit();
+      tc_abt(dp, sdO, sK + wg::TILE_BYTES);
+      wg::commit();
+
+      // _rebuild_p_ds: P from the forward's lse while dP finishes, then dS
+      const bool diag = kj == sg.r;
+      const int keys_left = a.S - kj * E;
+      wg::wait<1>();
+      wg::fence_regs(s);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        s[e] = live[i] && tc_keep(diag, row, col, e, keys_left) ? exp2f(s[e] * sl2 - lse2[i]) : 0.f;
+      }
+      wg::wait<0>();
+      wg::fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * a.scale;
+      tc_pv<false>(acc, s, sK);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      if (sg.whole) {
+        if (q0 + r >= a.S) continue;
+        bf16* o = static_cast<bf16*>(a.dq) + b * a.dq_sb + (q0 + r) * a.dq_ss + h * a.dq_sh + col;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      } else {
+        float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
 // ---- forward --------------------------------------------------------------
 
 template <int D>
@@ -196,7 +492,7 @@ constexpr size_t fwd_smem() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_kernel(FlashTriArgs a) {
+__device__ __forceinline__ void fwd_tri_fma(const FlashTriArgs& a) {
   constexpr int RPT = FWD_RPT, E = FWD_E;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -255,6 +551,21 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_kernel(FlashTriArg
   }
 }
 
+// The block size of each main kernel: one warpgroup for the tensor-core
+// instances, fa::NTHREADS for the FMA ones.
+template <typename T>
+constexpr int threads_of(int which) {
+  return kTensorCores<T> && which != DKV ? wg::THREADS : fa::NTHREADS;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(threads_of<T>(FWD)) flash_fwd_tri_kernel(FlashTriArgs a) {
+  if constexpr (kTensorCores<T>)
+    fwd_tri_tc<D>(a);
+  else
+    fwd_tri_fma<T, D>(a);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_fixup(FlashTriArgs a) {
   constexpr int E = FWD_E;
@@ -287,7 +598,7 @@ constexpr size_t dq_smem() {   // sQ, sdO [E][D+1]; sK, sV [BK][D+1]; sdS [E][BK
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_tri_kernel(FlashTriArgs a) {
+__device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
   constexpr int RPT = FWD_RPT, E = FWD_E;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -345,6 +656,14 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_tri_kernel(FlashTri
       }
     }
   }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(threads_of<T>(DQ)) flash_bwd_dq_tri_kernel(FlashTriArgs a) {
+  if constexpr (kTensorCores<T>)
+    dq_tri_tc<D>(a);
+  else
+    dq_tri_fma<T, D>(a);
 }
 
 template <typename T, int D>
@@ -473,9 +792,11 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_fixup(FlashTri
 
 // ---- launches --------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 constexpr size_t smem_of(int which) {
-  return which == FWD ? fwd_smem<D>() : which == DQ ? dq_smem<D>() : dkv_smem<D>();
+  return which == FWD  ? (kTensorCores<T> ? TC_FWD_SMEM : fwd_smem<D>())
+         : which == DQ ? (kTensorCores<T> ? TC_DQ_SMEM : dq_smem<D>())
+                       : dkv_smem<D>();
 }
 
 template <typename T, int D>
@@ -497,7 +818,7 @@ void* fixup_kernel(int which) {
 template <typename T, int D>
 int resident_ctas(int which) {
   const void* fn = main_kernel<T, D>(which);
-  const size_t smem = smem_of<D>(which);
+  const size_t smem = smem_of<T, D>(which);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -505,7 +826,8 @@ int resident_ctas(int which) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, fa::NTHREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads_of<T>(which),
+                                                      smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return sms * (per_sm > 0 ? per_sm : 1);
 }
@@ -514,12 +836,12 @@ int resident_ctas(int which) {
 template <typename T, int D>
 cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
   const void* fn = main_kernel<T, D>(which);
-  const size_t smem = smem_of<D>(which);
+  const size_t smem = smem_of<T, D>(which);
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   void* args[] = {const_cast<FlashTriArgs*>(&a)};
-  e = cudaLaunchKernel(fn, dim3(a.ctas), dim3(fa::NTHREADS), args, smem, stream);
+  e = cudaLaunchKernel(fn, dim3(a.ctas), dim3(threads_of<T>(which)), args, smem, stream);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernel(fixup_kernel<T, D>(which), dim3(a.ctas), dim3(fa::NTHREADS), args, 0,
                        stream);

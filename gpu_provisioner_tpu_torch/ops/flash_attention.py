@@ -31,7 +31,10 @@ between the two. Deliberate differences from the JAX module:
   (balance), with a fixup launch for the rows cut between shares. The
   decode and the shares of its schedule have CPU twins here
   (``_tri_decode``, ``_tri_decode_rev``, ``_tri_shares``) that the tests
-  check;
+  check; its bf16 forward and dQ run on the tensor cores, with P as two
+  bf16 terms (hi + lo) and dS rounded to bf16 before their second product
+  (the JAX kernels keep both f32), and need 16-byte aligned inputs
+  (``_check_tri_copies``);
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
@@ -412,10 +415,33 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     return outs[0] if len(outs) == 1 else outs
 
 
+# the flattened-triangle kernels whose bf16 instances copy 16-byte chunks
+# of the named inputs into shared memory (cp.async)
+_TRI_COPIED = {"flash_fwd_tri": ("q", "k", "v"),
+               "flash_bwd_dq_tri": ("q", "k", "v", "dout")}
+
+
+def _check_tri_copies(kernel: str, **tensors) -> None:
+    """The bf16 tensor-core kernels copy each row of 128 bf16 values in
+    16-byte chunks: every input they copy needs a 16-byte aligned base and
+    batch, position and head strides of whole chunks (multiples of 8
+    elements). Raises ValueError naming the first tensor that has not."""
+    for name in _TRI_COPIED.get(kernel, ()):
+        t = tensors[name]
+        if t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
+        if any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"{kernel}: {name} strides {t.stride()[:3]} "
+                             "are not multiples of 8 elements (16 bytes)")
+
+
 def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
                 delta=None):
     """Checks what the flattened-triangle kernels take (causal
-    self-attention, no window), allocates ``kernel``'s outputs and its f32
+    self-attention, no window; in bf16 the 16-byte alignment of what the
+    tensor-core kernels copy), allocates ``kernel``'s outputs and its f32
     workspace (two slots per CTA of the persistent grid) and queues its main
     launch and its fixup on the current stream: ``flash_fwd_tri`` → (out
     [B,S,Hq,D], lse [B,Hq,S] f32), ``flash_bwd_dq_tri`` → dq,
@@ -428,6 +454,7 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     if not fwd and (dout is None or lse is None or delta is None):
         raise ValueError(f"{kernel} needs dout, lse and delta")
     _check_self_attention(q, k, v, dout, lse, delta)
+    _check_tri_copies(kernel, q=q, k=k, v=v, dout=dout)
     P = _cuda.tri_ctas(kernel, _ACT_DTYPES[q.dtype], dev.index)
     ws = torch.empty(P * _cuda.tri_ws_floats(kernel), dtype=torch.float32,
                      device=dev)

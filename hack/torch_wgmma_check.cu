@@ -1,0 +1,76 @@
+// The tensor-core building blocks of ops/csrc/flash_wgmma.cuh on their own:
+// one warpgroup loads three 64 x 128 bf16 tiles A, B, V through the
+// swizzling cp.async loader (rows at or past `rows` zero-filled), then
+//   s = A B^T        (m64n64k16, both K-major from shared memory)
+//   o = bf16(s) V    (m64n128k16, A from registers, V MN-major)
+//   g = bf16(s) B    (the same with B as the MN-major operand)
+// and writes s [64][64], o and g [64][128] in f32 through the fragment map.
+// Built and checked against torch.matmul by hack/torch_wgmma_check.py.
+#include <cuda_runtime.h>
+
+#include "flash_wgmma.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(wg::THREADS)
+    wgmma_check_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, const __nv_bfloat16* v,
+                       int rows, float* s_out, float* o_out, float* g_out) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t sa = (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
+  const uint32_t sb = sa + wg::TILE_BYTES, sv = sb + wg::TILE_BYTES;
+  wg::load_tile(sa, a, 128, 0, rows);
+  wg::load_tile(sb, b, 128, 0, rows);
+  wg::load_tile(sv, v, 128, 0, rows);
+  wg::copy_commit();
+  wg::copy_wait<0>();
+  wg::fence_smem_to_async();
+  __syncthreads();
+
+  float s[32] = {}, o[64] = {}, g[64] = {};
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(s);
+
+  uint32_t p[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, p[kk]);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n128k16_rs<1>(o, p[kk], wg::desc_mnmajor(sv, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n128k16_rs<1>(g, p[kk], wg::desc_mnmajor(sb, kk), 1);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(o);
+  wg::fence_regs(g);
+
+  const int row = wg::frag_row(threadIdx.x), col = wg::frag_col(threadIdx.x);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s_out[(row + wg::elem_row(e)) * 64 + col + wg::elem_col(e)] = s[e];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const int at = (row + wg::elem_row(e)) * 128 + col + wg::elem_col(e);
+    o_out[at] = o[e];
+    g_out[at] = g[e];
+  }
+}
+
+}  // namespace
+
+// a, b, v: [64][128] bf16 on the card; s_out [64][64], o_out, g_out
+// [64][128] f32. Returns cudaGetLastError() after the launch.
+extern "C" int wgmma_check(const void* a, const void* b, const void* v, int rows, float* s_out,
+                           float* o_out, float* g_out, void* stream) {
+  const int smem = 3 * wg::TILE_BYTES + wg::ALIGN;
+  cudaError_t e =
+      cudaFuncSetAttribute(wgmma_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wgmma_check_kernel<<<1, wg::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(v), rows, s_out, o_out, g_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -11,7 +11,9 @@ plain gradient (max|kernel - plain| / max|plain|), since gradients scale
 with S and the cotangents. The flattened-triangle kernels (flash_tri.cu)
 are held to the same bounds at shapes where the persistent grid has more
 CTAs than tiles, rows are cut into many pieces, and many rows lie whole in
-one CTA's share.
+one CTA's share, and at ragged S; in bf16 their forward and dQ run on the
+tensor cores (P as bf16 hi + lo, dS rounded to bf16: within 5e-3 of the f32
+functions on the CPU replay, tests/test_torch_flash_tri.py).
 """
 
 import ctypes
@@ -215,10 +217,15 @@ def test_flash_training_equals_dense_training_on_the_card(dev):
         assert _err(a, b) <= 1e-4 * b.abs().max().item()
 
 
-# (B, S, Hq, Hkv, lse cotangent): W < P with every row cut (S 128, 384),
-# whole rows beside cut ones (S 2048)
+# (B, S, Hq, Hkv, lse cotangent): W < P with every row cut (S 128, 384,
+# and 1000 at Hq 1: 136 tiles, each its own share at P 264 and 396, rows of
+# up to 16 pieces), whole rows beside cut ones (S 2048); ragged S (1000,
+# 200, 333) at GQA groups 4, 1 and 2 (the tensor-core kernels' zero-filled
+# copies and masked last tile)
 TRI_CASES = [(1, 128, 1, 1, False), (1, 384, 2, 1, True),
-             (2, 2048, 16, 8, False)]
+             (2, 2048, 16, 8, False), (1, 1000, 1, 1, False),
+             (1, 1000, 4, 1, False), (2, 200, 8, 8, True),
+             (1, 333, 4, 2, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -284,6 +291,29 @@ def test_tri_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tfa._launch_tri("flash_bwd_dkv_tri", q, q[:, :, :2], q[:, :, :2],
                         scale=1.0, dout=q, lse=lse.transpose(1, 2)
                         .contiguous().transpose(1, 2), delta=lse)
+
+
+def test_tri_tensor_core_kernels_refuse_misaligned_bf16(dev):
+    """The bf16 forward and dQ copy 16-byte chunks: a row stride that is
+    not a whole number of them raises ValueError naming the tensor; the
+    same layout in f32 (FMA tile steps) runs and matches the plain
+    version."""
+    S, Hq, row = 128, 2, 2 * 128 + 4
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(dev).manual_seed(8)
+        q = _randn(g, 1, S, row, dtype=dtype, dev=dev).as_strided(
+            (1, S, Hq, 128), (S * row, row, 128, 1))
+        k, v = (_randn(g, 1, S, 1, 128, dtype=dtype, dev=dev)
+                for _ in range(2))
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="flash_fwd_tri: q strides"):
+                tfa._launch_tri("flash_fwd_tri", q, k, v, scale=1.0)
+            continue
+        out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=1.0)
+        ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                           v.transpose(1, 2), 0, scale=1.0)
+        torch.cuda.synchronize()
+        assert _err(out, ref) < TOL[dtype] and _err(lse, ref_lse) < 1e-4
 
 
 def test_tri_entries_refuse_a_short_workspace(dev):

@@ -22,6 +22,7 @@ tests hold, on the CPU:
 import ast
 import dataclasses
 import importlib
+import importlib.util
 from collections import defaultdict
 from pathlib import Path
 
@@ -415,6 +416,69 @@ def test_bench_twins_return_the_jax_sections_keys():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tbench.bench_long_context(True)
+
+
+def _hack_module(name):
+    """A script of hack/ as a module (it imports no JAX)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "hack"
+                                                  / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(2, 1), (4, 2)])
+def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
+        monkeypatch, Hq, Hkv):
+    """ROADMAP Queue C 12: the bf16 tri kernels round P (as bf16 hi + lo)
+    and dS to bf16 before their second product; the JAX kernels keep both
+    in f32. The CPU replay of the kernels' arithmetic
+    (hack/torch_tri_bf16_replay.py) on bf16 values from a numpy seed,
+    against JAX triangular=True on the same values (Pallas in interpret
+    mode, streaming forced; in f32, so that both sides stop before the
+    last rounding of out and dQ to bf16): out and dQ (relative to its
+    largest value) within 5e-3, lse within 5e-5, half the card's 1e-2 and
+    1e-4, so rounding alone never spends the card's tolerance."""
+    replay = _hack_module("torch_tri_bf16_replay")
+    monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
+    S, D = 384, 128
+    q, k, v, dout = replay.inputs(21, 1, S, Hq, Hkv, D)
+    outs, vjp = jax.vjp(lambda *a: jfa.flash_attention_with_lse(
+        *a, triangular=True, block_q=128, block_k=128, interpret=True),
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    jdq = np.asarray(vjp((jnp.asarray(dout.float().numpy()),
+                          jnp.zeros_like(outs[1])))[0])
+    scale = D ** -0.5
+    out, lse = replay.replay_fwd(q, k, v, scale)
+    dq = replay.replay_dq(q, k, v, dout, out, lse, scale)
+    assert np.abs(out.numpy() - np.asarray(outs[0])).max() <= 5e-3
+    assert np.abs(lse.numpy() - np.asarray(outs[1])).max() <= 5e-5
+    assert np.abs(dq.numpy() - jdq).max() / np.abs(jdq).max() <= 5e-3
+
+
+def test_tri_wrapper_refuses_misaligned_bf16_copies():
+    """The bf16 tensor-core kernels copy rows in 16-byte chunks: a bf16
+    input they copy with a stride that is not a whole number of chunks, or
+    a base off a 16-byte boundary, raises ValueError naming it, before the
+    kernel library is asked for. f32 inputs and dK/dV (FMA tile steps)
+    take any strides."""
+    S, Hq = 128, 2
+    bf = torch.bfloat16
+    row = Hq * 128 + 4          # a row stride of 260 elements
+    q = torch.zeros(1, S, row, dtype=bf).as_strided(
+        (1, S, Hq, 128), (S * row, row, 128, 1))
+    k = torch.zeros(1, S, 1, 128, dtype=bf)
+    with pytest.raises(ValueError, match=r"flash_fwd_tri: q strides"):
+        tfa._launch_tri("flash_fwd_tri", q, k, k, scale=1.0)
+    qa = torch.zeros(1, S, Hq, 128, dtype=bf)
+    dout = torch.zeros(S * Hq * 128 + 1, dtype=bf)[1:].view(1, S, Hq, 128)
+    lse = torch.zeros(1, Hq, S)
+    with pytest.raises(ValueError, match=r"flash_bwd_dq_tri: dout is not "
+                                         r"16-byte aligned"):
+        tfa._launch_tri("flash_bwd_dq_tri", qa, k, k, scale=1.0, dout=dout,
+                        lse=lse, delta=lse)
+    tfa._check_tri_copies("flash_bwd_dkv_tri", q=q, k=k, v=k, dout=dout)
+    tfa._check_tri_copies("flash_fwd_tri", q=q.float(), k=k, v=k)
 
 
 def test_tri_wrapper_checks_before_it_builds():
