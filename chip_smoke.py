@@ -5,7 +5,9 @@
 
 Phases, each of which exits non-zero on a failed check:
 1. card and build: the card's name and power limit, the nvcc build of every
-   kernel from ops/csrc (one nvcc per source, started together);
+   kernel from ops/csrc (one nvcc per source, started together), with
+   ptxas's registers and spills of the tensor-core dK/dV instances and the
+   HGMMA instructions in their SASS (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32, then its time
    (CUDA events, L2 flushed before each launch) beside its plain version's,
@@ -25,7 +27,8 @@ Phases, each of which exits non-zero on a failed check:
    against attention_plain and both backward kernels against
    attention_bwd_plain, and each backward kernel timed beside the plain
    backward, the library yardstick (torch.autograd.grad of
-   scaled_dot_product_attention, dQ/dK/dV together) and its bound;
+   scaled_dot_product_attention, dQ/dK/dV together) and its bound
+   (bound_share = bound / time);
 6. exact training: Llama-1B width, 2 layers, f32: one make_train_step with
    the flash kernels and one with dense attention, from the same params and
    batch, agree in loss and every gradient, and again in the loss of a
@@ -35,7 +38,7 @@ Phases, each of which exits non-zero on a failed check:
    steps on one fixed batch, with the loss falling and every kernel's
    launch count read across the five;
 8. long context: the three flattened-triangle kernels (flash_tri.cu;
-   the bf16 forward and dQ on the tensor cores) called directly against
+   the bf16 instances on the tensor cores) called directly against
    their plain versions (bf16 and f32, causal, at (B, S, Hq, Hkv) = (1,
    128, 1, 1), where the persistent grid has more CTAs than tiles, (1, 384,
    2, 1) with an lse cotangent, the ragged (1, 1000, 1, 1) with every row
@@ -47,9 +50,9 @@ Phases, each of which exits non-zero on a failed check:
    attention at mistral-7b-ish's 32k context), bf16, with every kernel's
    launch count read across the 32k, Hq 32 forward and backward; each tri
    kernel timed at S=32768, Hq 8 beside its rectangular kernel, the SDPA
-   yardstick and its bound (bound_share = bound / time), the forward and
-   dQ also at the training shape beside their rectangular kernels (the
-   tri/rect ratio); flash_attention_with_lse and its gradients
+   yardstick and its bound (bound_share = bound / time), each also at the
+   training shape beside its rectangular kernel (the tri/rect ratio);
+   flash_attention_with_lse and its gradients
    against the plain versions at the bench twins' own shapes ((1, 8192, 8,
    4) causal, (1, 32768, 8, 4) with window 1024 through a plain version
    built by 1024-query chunks, (8, 4096, 16, 8) causal), one launch of
@@ -86,6 +89,74 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the tensor-core dK/dV instances: (source, a substring of the mangled name)
+TC_DKV = {"flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
+          "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernel")}
+
+
+def ptxas_info(log):
+    """{mangled kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    -Xptxas -v output."""
+    import re
+    info, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = info.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return info
+
+
+def hgmma_counts(_cuda, source):
+    """{mangled kernel: HGMMA instructions in its SASS} of a built library
+    (cuobjdump -sass, which ships with nvcc); fails without cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(Path(tool).exists(), "cuobjdump not found: the SASS of the "
+          "tensor-core kernels cannot be checked for HGMMA")
+    out = subprocess.run([tool, "-sass", str(_cuda.lib_path(source))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            cur = line.split("Function : ", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def tc_build_report(_cuda, logs):
+    """Per tensor-core dK/dV entry: ptxas's registers and spills (when this
+    run built its library) and the HGMMA count of its SASS; fails when ptxas
+    spilled, or when the SASS holds no HGMMA (the tensor-core path is not
+    there) or cannot be read."""
+    report = {}
+    for entry, (source, part) in TC_DKV.items():
+        regs = {k: v for k, v in ptxas_info(logs.get(source, "")).items()
+                if part in k}
+        hgmma = sum(n for k, n in hgmma_counts(_cuda, source).items()
+                    if part in k)
+        ptxas = next(iter(regs.values()), None)
+        report[entry] = {"ptxas": ptxas, "hgmma": hgmma}
+        print(f"  {entry} (bf16, {part}): ptxas {ptxas}, "
+              f"HGMMA in SASS {hgmma}")
+        check(hgmma > 0, f"{entry}: no HGMMA in the SASS of {part}")
+        check(ptxas is None or not (ptxas.get("spill_stores")
+                                    or ptxas.get("spill_loads")),
+              f"{entry}: ptxas spills in {part}")
+    return report
 
 
 def time_ms(fn, flush, reps=20, warm=3):
@@ -404,6 +475,9 @@ def phase_bwd_kernels(torch, tfa, dev):
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": library_ms,
             "library_note": "dQ, dK and dV in one call; plain_ms likewise"})
+        rows[-1]["bound_share"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
+        if name == "flash_bwd_dkv":
+            rows[-1]["blocks"] = tfa._cuda.bwd_dkv_blocks(B, Hkv, S, 1)
         print(f"{name}: {json.dumps(rows[-1])}")
     del flush, lib_out, lib_in
     return fwd_err, rows
@@ -522,7 +596,7 @@ def tri_ws_bytes(_cuda, kernel, dev):
     of the P CTAs, as the wrapper allocates them (flash_tri_ws_floats),
     counted once written and once read."""
     P = _cuda.tri_ctas(kernel, 1, dev.index)
-    return 2 * P * _cuda.tri_ws_floats(kernel) * 4, P
+    return 2 * P * _cuda.tri_ws_floats(kernel, 1) * 4, P
 
 
 def phase_tri_kernels(torch, tfa, dev):
@@ -780,8 +854,8 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
         lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), **kw)
     del lib_out, lib_in
 
-    # the tensor-core tri kernels against their rectangular counterparts at
-    # the training shape (ROADMAP's merge condition), bf16
+    # the tri kernels against their rectangular counterparts at the
+    # training shape (ROADMAP's merge condition), bf16
     Bt, St, Hqt, Hkvt = TRAIN_SHAPE
     qt, doutt = rnd(Bt, St, Hqt, D), rnd(Bt, St, Hqt, D)
     kt, vt = rnd(Bt, St, Hkvt, D), rnd(Bt, St, Hkvt, D)
@@ -798,7 +872,14 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
                                     scale=scale, dout=doutt, lse=lse_t,
                                     delta=delta_t),
             lambda: tfa._launch_bwd("flash_bwd_dq", qt, kt, vt, doutt, lse_t,
-                                    delta_t, causal=True, scale=scale))}
+                                    delta_t, causal=True, scale=scale)),
+        "flash_bwd_dkv_tri": (
+            lambda: tfa._launch_tri("flash_bwd_dkv_tri", qt, kt, vt,
+                                    scale=scale, dout=doutt, lse=lse_t,
+                                    delta=delta_t),
+            lambda: tfa._launch_bwd("flash_bwd_dkv", qt, kt, vt, doutt,
+                                    lse_t, delta_t, causal=True,
+                                    scale=scale))}
     at_train = {}
     for name, (tri_fn, rect_fn) in train_fns.items():
         tri_ms, rect_ms = time_ms(tri_fn, **kw), time_ms(rect_fn, **kw)
@@ -1010,9 +1091,9 @@ def main() -> int:
     logs = _cuda.build()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for fn, info in ptxas_info(log).items():
+            print(f"  {name}: {fn}: {info}")
+    tc_report = tc_build_report(_cuda, logs)
 
     t0 = time.perf_counter()
     rows = phase_kernels(torch, tfa, td, dev)
@@ -1062,6 +1143,7 @@ def main() -> int:
                                  **{k: v[name] for k, v in by_twin.items()}}
         r["launches"] = (long if name.endswith("_tri") else train
                          if name.startswith("flash_bwd") else serve)[name]
+        r.update(tc_report.get(name, {}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _TRI_CTAS: dict[tuple, int] = {}
-_TRI_WS: dict[str, int] = {}
+_TRI_WS: dict[tuple, int] = {}
 
 
 class FlashArgs(ctypes.Structure):
@@ -177,17 +177,32 @@ def tri_ctas(entry: str, act_dtype: int, device_index: int) -> int:
     return _TRI_CTAS[key]
 
 
-def tri_ws_floats(entry: str) -> int:
+def bwd_dkv_blocks(B: int, Hkv: int, S: int, act_dtype: int) -> int:
+    """The blocks ``flash_bwd_dkv`` launches for (B, Hkv, S) at act dtype
+    ``act_dtype`` (0 f32, 1 bf16: the key tile differs; csrc/flash_bwd.cu's
+    ``flash_bwd_dkv_blocks``, which owns the grid)."""
+    fn = library("flash_bwd").flash_bwd_dkv_blocks
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    n = fn(B, Hkv, S, act_dtype)
+    if n < 0:
+        raise RuntimeError(f"flash_bwd_dkv_blocks failed with cudaError {-n}")
+    return n
+
+
+def tri_ws_floats(entry: str, act_dtype: int) -> int:
     """f32 workspace values per CTA of flattened-triangle entry ``entry``
-    (csrc/flash_tri.cu's ``flash_tri_ws_floats``, which owns the layout),
-    cached: the wrapper allocates ``tri_ctas(...)`` times this."""
-    if entry not in _TRI_WS:
+    for act dtype ``act_dtype`` (0 f32, 1 bf16: the dK/dV tile edge
+    differs; csrc/flash_tri.cu's ``flash_tri_ws_floats``, which owns the
+    layout), cached: the wrapper allocates ``tri_ctas(...)`` times this."""
+    key = (entry, act_dtype)
+    if key not in _TRI_WS:
         fn = library("flash_tri").flash_tri_ws_floats
-        fn.argtypes = [ctypes.c_int]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_longlong
-        n = fn(TRI_WHICH[entry])
+        n = fn(TRI_WHICH[entry], act_dtype)
         if n <= 0:
             raise RuntimeError(f"flash_tri_ws_floats({entry}) failed with "
                                f"cudaError {-n}")
-        _TRI_WS[entry] = n
-    return _TRI_WS[entry]
+        _TRI_WS[key] = n
+    return _TRI_WS[key]

@@ -14,28 +14,37 @@
 // What bounds it on an H100: like the forward, compute. dQ does 6 * D
 // operations per attended (query, key) pair and q-head, dK/dV 8 * D, against
 // a few bytes per position, thousands of operations per byte at long S.
-// This first version computes in f32 FMA from shared memory (no tensor
-// cores), far below the bf16 roofline. What its design does about the bound
-// is to do only live work and no redundant passes:
+// dQ and the f32 dK/dV compute in f32 FMA from shared memory (no tensor
+// cores), far below the bf16 roofline; the bf16 dK/dV runs on the tensor
+// cores (below). What the design does about the bound is to do only live
+// work and no redundant passes:
 //   - dQ: one block per (batch * q-head, 64-row query tile) that loops over
 //     the live key tiles only (causal frontier, window band), the loop-bound
 //     counterpart of the TPU's sequential kv grid axis, its `live` gate and
 //     its index-map clamps. Rows owned as in the forward (flash_common.cuh).
-//   - dK/dV: one block per (batch * kv-head, 32-key tile) that loops over the
-//     group's q-heads and, for each, over the live query tiles only. GQA is
-//     folded inside the block: the group's contributions add into one f32
-//     accumulator, which replaces the TPU's per-q-head f32 dK/dV arrays and
-//     their sum over the group after the kernel. 32 keys, not 64: the f32 dK
-//     and dV accumulators of 32 keys x 128 dims are 64 registers a thread.
+//   - dK/dV: one block per (batch * kv-head, key tile) that loops over the
+//     live query tiles only and the group's q-heads. GQA is folded inside
+//     the block: the group's contributions add into one f32 accumulator,
+//     which replaces the TPU's per-q-head f32 dK/dV arrays and their sum
+//     over the group after the kernel. In f32, 32 keys (the FMA dK and dV
+//     accumulators of 32 keys x 128 dims are 64 registers a thread), the
+//     group outermost; in bf16, 64 keys, one warpgroup on the tensor cores
+//     (tc::dkv_walk_tc in flash_tc.cuh, shared with flash_tri.cu's
+//     flash_bwd_dkv_tri: S^T and dP^T by wgmma from K-major tiles, P^T and
+//     dS^T rounded to bf16 in registers for dV += P^T dO and dK += dS^T Q),
+//     the query tiles of the live range (fa::live_queries) descending, the
+//     group innermost, two CTAs an SM.
 //   - Every output element has one owner block, so there are no atomics and
 //     the results are the same run to run.
 // The opt-in flattened-triangle kernels _bwd_*_tri compute the same
 // function over one flat list of the live causal tiles; their Hopper
 // counterparts, a persistent balanced schedule over that list, are in
 // flash_tri.cu and share the tile steps (dq_tile, dkv_tile in
-// flash_common.cuh) with the kernels here. Tensor cores (wgmma) and TMA are
-// later work.
-#include "flash_common.cuh"
+// flash_common.cuh, tc::dkv_tile_tc in flash_tc.cuh) with the kernels here.
+// dQ on the tensor cores and TMA are later work.
+#include <type_traits>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -165,6 +174,35 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
   }
 }
 
+// The bf16 instance: one warpgroup per (batch * kv-head, 64-key tile) on the
+// tensor cores, over the 64-query tiles that hold the live query range.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tc_kernel(FlashBwdArgs a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = tc::E;
+  const int b = blockIdx.x / a.Hkv;
+  const int kvh = blockIdx.x % a.Hkv;
+  const int k0 = blockIdx.y * E;
+  const long long rows = static_cast<long long>(b) * a.Hq * a.S;
+  const tc::DkvSrc src{static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                       static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh,
+                       static_cast<const bf16*>(a.q) + b * a.q_sb,
+                       static_cast<const bf16*>(a.dout) + b * a.do_sb,
+                       a.lse + rows, a.delta + rows,
+                       a.k_ss, a.v_ss, a.q_ss, a.q_sh, a.do_ss, a.do_sh,
+                       a.S, a.Hq / a.Hkv, kvh, a.scale};
+  float dk[64], dv[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dk[e] = dv[e] = 0.f;
+  const int2 queries = fa::live_queries(k0, min(k0 + E, a.S) - 1, a.S, a.causal, a.window);
+  const int qt1 = (queries.y + E - 1) / E;   // one past the last live query tile
+  tc::dkv_walk_tc(dk, dv, tc::tiles(), src, k0, qt1 - 1, qt1 - queries.x / E,
+                  tc::RectMask{a.S, a.causal, a.window});
+  tc::dkv_store(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss,
+                static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
   constexpr int BR = 16 * DQ_RPT;
@@ -177,15 +215,31 @@ cudaError_t launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The grid flash_bwd_dkv launches: one block per (batch * kv head, tile of
+// keys), the tile 64 keys on the tensor cores (bf16) or 16 * DKV_KPT (f32).
+template <typename T>
+dim3 dkv_grid(int B, int Hkv, int S) {
+  constexpr int edge = std::is_same<T, __nv_bfloat16>::value ? tc::E : 16 * DKV_KPT;
+  return dim3(B * Hkv, (S + edge - 1) / edge);
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
-  constexpr int BKV = 16 * DKV_KPT;
-  constexpr size_t smem = dkv_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool tensor_cores = std::is_same<T, __nv_bfloat16>::value;
+  void* fn;
+  size_t smem;
+  if constexpr (tensor_cores) {
+    fn = reinterpret_cast<void*>(flash_bwd_dkv_tc_kernel<D>);
+    smem = tc::DKV_SMEM;
+  } else {
+    fn = reinterpret_cast<void*>(flash_bwd_dkv_kernel<T, D>);
+    smem = dkv_smem<D>();
+  }
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.B * a.Hkv, (a.S + BKV - 1) / BKV);
-  flash_bwd_dkv_kernel<T, D><<<grid, fa::NTHREADS, smem, stream>>>(a);
+  void* args[] = {const_cast<FlashBwdArgs*>(&a)};
+  e = cudaLaunchKernel(fn, dkv_grid<T>(a.B, a.Hkv, a.S), dim3(fa::NTHREADS), args, smem, stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -212,4 +266,12 @@ extern "C" int flash_bwd_dkv(const FlashBwdArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(a->act_dtype == 0 ? launch_dkv<float, 128>(*a, s)
                                             : launch_dkv<__nv_bfloat16, 128>(*a, s));
+}
+
+// The blocks flash_bwd_dkv launches for (B, Hkv, S) at act dtype act_dtype
+// (0 f32, 1 bf16), or -cudaErrorInvalidValue for another dtype.
+extern "C" long long flash_bwd_dkv_blocks(int B, int Hkv, int S, int act_dtype) {
+  if (act_dtype != 0 && act_dtype != 1) return -static_cast<long long>(cudaErrorInvalidValue);
+  const dim3 g = act_dtype == 0 ? dkv_grid<float>(B, Hkv, S) : dkv_grid<__nv_bfloat16>(B, Hkv, S);
+  return static_cast<long long>(g.x) * g.y;
 }

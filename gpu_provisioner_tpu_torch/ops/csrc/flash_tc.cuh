@@ -1,0 +1,268 @@
+// Tensor-core tile steps of the attention kernels (sm_90a, bf16), built on
+// flash_wgmma.cuh's products: the 64 x 64 score product, the P V-shaped
+// product from registers, and the dK/dV step that flash_tri.cu's
+// flash_bwd_dkv_tri and flash_bwd.cu's flash_bwd_dkv share.
+//
+// dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
+// threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
+// V tiles are loaded once, swizzled. Each step is one (64-query tile, q-head
+// of the group), the group innermost, so GQA folds into one f32 dK and dV
+// accumulator per key (no atomics, no per-q-head arrays). The step's Q and
+// dO tiles and the 64 queries' lse and delta come through a two-stage
+// cp.async ring; the copy of step i + 1 is issued before the products of
+// step i. The products compute the transposes directly from K-major tiles,
+// so nothing is transposed in shared memory:
+//   S^T = K Q^T and dP^T = V dO^T (abt; rows are keys, columns queries);
+//   P^T = exp2(S^T scale log2e - lse log2e) per column, 0 where masked or
+//   where the query attends nothing; dS^T = P^T o (dP^T - delta) scale;
+//   dV += P^T dO and dK += dS^T Q (A from registers, dO and Q MN-major, as V
+//   enters P V).
+// P^T and dS^T are each rounded to bf16 once before their product (the JAX
+// kernels keep both f32; hack/torch_tri_bf16_replay.py replays the two
+// roundings against JAX). dV's product runs while dS^T is computed; dK's is
+// issued after it and both are waited for once.
+//
+// Shared memory of the dK/dV step, from the first swizzle-aligned byte: K, V
+// (two tiles), then two stages of Q, dO (four tiles), then two stages of 64
+// lse and 64 delta values (512 bytes each): 97 KB, so two CTAs an SM.
+// Registers: dK and dV 64 f32 each, S^T and dP^T 32 each, a thread.
+#pragma once
+
+#include "flash_common.cuh"
+#include "flash_wgmma.cuh"
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int E = wg::ROWS;                  // a key or query tile: 64 rows
+constexpr uint32_t STAT_BYTES = 2 * E * sizeof(float);   // a stage's lse, delta
+// K, V; Q, dO in two stages; lse, delta in two stages; alignment slack
+constexpr size_t DKV_SMEM = 6 * wg::TILE_BYTES + 2 * STAT_BYTES + wg::ALIGN;
+
+// The first swizzle-aligned byte of dynamic shared memory.
+__device__ __forceinline__ uint32_t tiles() {
+  extern __shared__ float smem[];
+  return (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
+}
+
+// The generic pointer of shared address `addr` (for plain loads).
+__device__ __forceinline__ const float* floats_at(uint32_t addr) {
+  extern __shared__ float smem[];
+  return reinterpret_cast<const float*>(reinterpret_cast<const char*>(smem) +
+                                        (addr - wg::smem_addr(smem)));
+}
+
+// s = A B^T for one 64 x 64 tile (A, B both K-major): 8 k-steps over D.
+__device__ __forceinline__ void abt(float (&s)[32], uint32_t sa, uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
+}
+
+// acc += a x tile (MN-major), a the bf16 A fragments of 4 k-steps over the
+// tile's 64 rows; issued, not committed.
+__device__ __forceinline__ void pv_issue(float (&acc)[64], const uint32_t (&a)[4][4],
+                                         uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wg::mma_m64n128k16_rs<1>(acc, a[kk], wg::desc_mnmajor(tile, kk), 1);
+}
+
+// acc += p x tile (MN-major), 4 k-steps over the tile's 64 rows, waited
+// for; p rounded to bf16, or with Split as bf16 hi + lo (8 k-steps).
+template <bool Split>
+__device__ __forceinline__ void pv(float (&acc)[64], const float (&p)[32], uint32_t tile) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (Split)
+      wg::a_frag_split(p, kk, hi[kk], lo[kk]);
+    else
+      wg::a_frag(p, kk, hi[kk]);
+  }
+  wg::fence();
+  pv_issue(acc, hi, tile);
+  if constexpr (Split) pv_issue(acc, lo, tile);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(acc);
+}
+
+// Keeps A fragments alive (and unmoved) until the product reading them has
+// been waited for.
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+}
+
+// ---- dK/dV ----------------------------------------------------------------
+
+// The masks of the dK/dV step, on (key, query) positions: keep(kp, qp), and
+// full(k0, q0), true when every pair of the 64 x 64 tile at (k0, q0) is kept
+// (the step then skips the per-element test).
+struct TriMask {   // causal self-attention over the flattened triangle
+  int S;
+  __device__ __forceinline__ bool keep(int kp, int qp) const { return qp < S && kp <= qp; }
+  __device__ __forceinline__ bool full(int k0, int q0) const { return q0 > k0 && q0 + E <= S; }
+};
+
+struct RectMask {  // fa::attendable: causal or not, with or without a window
+  int S, causal, window;
+  __device__ __forceinline__ bool keep(int kp, int qp) const {
+    return kp < S && qp < S && fa::attendable(qp, kp, causal, 0, window, fa::sink_bound(0, 0));
+  }
+  __device__ __forceinline__ bool full(int k0, int q0) const {
+    return k0 + E <= S && q0 + E <= S && (!causal || q0 >= k0 + E - 1) &&
+           (window <= 0 || k0 > q0 + E - 1 - window);
+  }
+};
+
+// Where a dK/dV block reads: one (batch, kv head)'s K and V at position 0,
+// the batch's Q and dO at head 0, its lse and delta rows [Hq][S] at head 0.
+struct DkvSrc {
+  const bf16* k;
+  const bf16* v;
+  const bf16* q;
+  const bf16* dout;
+  const float* lse;
+  const float* delta;
+  long long k_ss, v_ss, q_ss, q_sh, do_ss, do_sh;
+  int S, group, kvh;
+  float scale;
+};
+
+// Issues the copies of one step's inputs into stage `stage` (Q, dO tiles)
+// and `stats` (lse then delta of the 64 queries; zero past S, where the
+// masks keep nothing): queries q0 .. q0 + 63 of q-head h. Not committed.
+__device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const DkvSrc& s, int q0,
+                                          int h) {
+  wg::load_tile(stage, s.q + h * s.q_sh, s.q_ss, q0, s.S);
+  wg::load_tile(stage + wg::TILE_BYTES, s.dout + h * s.do_sh, s.do_ss, q0, s.S);
+  const int i = threadIdx.x & (E - 1);
+  const bool in = q0 + i < s.S;
+  const float* src = (threadIdx.x < E ? s.lse : s.delta) + static_cast<long long>(h) * s.S +
+                     (in ? q0 + i : 0);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stats + threadIdx.x * 4),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// One dK/dV step: the block's keys k0 .. k0 + 63 (K, V tiles at sK, sK +
+// TILE) against queries q0 .. q0 + 63 of one q-head (Q, dO tiles at stage,
+// stage + TILE; lse, delta at sL, sL + 64), the copies waited for and
+// published. Adds the step's P^T dO to dv and dS^T Q to dk.
+template <typename Mask>
+__device__ __forceinline__ void dkv_tile_tc(float (&dk)[64], float (&dv)[64], uint32_t sK,
+                                            uint32_t stage, const float* sL, int k0, int q0,
+                                            float scale, const Mask& mask) {
+  const uint32_t sV = sK + wg::TILE_BYTES, sQ = stage, sdO = stage + wg::TILE_BYTES;
+  const float* sD = sL + E;
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  float s[32], dp[32];
+  wg::fence_regs(dk);
+  wg::fence_regs(dv);
+  wg::fence();
+  abt(s, sK, sQ);            // S^T = K Q^T
+  wg::commit();
+  abt(dp, sV, sdO);          // dP^T = V dO^T
+  wg::commit();
+
+  // P^T from the forward's lse, per column (query), while dP^T finishes
+  const bool full = mask.full(k0, q0);
+  const float sl2 = scale * kLog2e;
+  wg::wait<1>();
+  wg::fence_regs(s);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int c = col + wg::elem_col(e);
+    const float lse = sL[c];
+    const bool keep = (full || mask.keep(k0 + row + wg::elem_row(e), q0 + c)) &&
+                      lse > FA_NEG_INF / 2;
+    s[e] = keep ? exp2f(fmaf(s[e], sl2, -lse * kLog2e)) : 0.f;
+  }
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, pa[kk]);
+  wg::fence();
+  pv_issue(dv, pa, sdO);     // dV += P^T dO, running while dS^T is formed
+  wg::commit();
+
+  wg::wait<1>();             // dP^T is done
+  wg::fence_regs(dp);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - sD[col + wg::elem_col(e)]) * scale;
+  uint32_t dsa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::a_frag(dp, kk, dsa[kk]);
+  wg::fence();
+  pv_issue(dk, dsa, sQ);     // dK += dS^T Q
+  wg::commit();
+  wg::wait<0>();
+  fence_frags(pa);
+  fence_frags(dsa);
+  wg::fence_regs(dk);
+  wg::fence_regs(dv);
+}
+
+// A dK/dV block's walk: loads its K/V tiles, then runs `tiles` query tiles
+// downward, the first at tile index qt0 and each next one below it (the
+// order in which the f32 sums came out most accurate), each for every q-head
+// of the group (innermost), through the two-stage ring. dk and dv
+// accumulate; every product is waited for on return.
+template <typename Mask>
+__device__ __forceinline__ void dkv_walk_tc(float (&dk)[64], float (&dv)[64], uint32_t sK,
+                                            const DkvSrc& s, int k0, int qt0, int tiles,
+                                            const Mask& mask) {
+  const int steps = tiles * s.group;
+  if (steps <= 0) return;
+  const uint32_t ring = sK + 2 * wg::TILE_BYTES;             // stage st at ring + 2 st TILE
+  const uint32_t stats = sK + 6 * wg::TILE_BYTES;            // stage st at stats + st STAT
+  const int h0 = s.kvh * s.group;
+  wg::load_tile(sK, s.k, s.k_ss, k0, s.S);
+  wg::load_tile(sK + wg::TILE_BYTES, s.v, s.v_ss, k0, s.S);
+  dkv_stage(ring, stats, s, qt0 * E, h0);
+  wg::copy_commit();
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1;
+    wg::copy_wait<0>();
+    wg::fence_smem_to_async();
+    __syncthreads();         // this stage is in; the other one's readers are done
+    if (i + 1 < steps) {
+      const int j = i + 1;
+      dkv_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, stats + (st ^ 1) * STAT_BYTES, s,
+                (qt0 - j / s.group) * E, h0 + j % s.group);
+      wg::copy_commit();
+    }
+    dkv_tile_tc(dk, dv, sK, ring + 2 * st * wg::TILE_BYTES, floats_at(stats + st * STAT_BYTES),
+                k0, (qt0 - i / s.group) * E, s.scale, mask);
+  }
+}
+
+// Rows k0 + frag_row (+ 8) of dK and dV from the fragments, as bf16, rows
+// at or past S left out (`dkb` / `dvb` at position 0 of the (batch, kv
+// head), `*_ss` their position strides).
+__device__ __forceinline__ void dkv_store(const float (&dk)[64], const float (&dv)[64], bf16* dkb,
+                                          long long dk_ss, bf16* dvb, long long dv_ss, int k0,
+                                          int S) {
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + row + 8 * i;
+    if (kp >= S) continue;
+    bf16* ok = dkb + kp * dk_ss + col;
+    bf16* ov = dvb + kp * dv_ss + col;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(ok + 8 * j) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(ov + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+}  // namespace tc

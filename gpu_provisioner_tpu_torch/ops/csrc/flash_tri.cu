@@ -23,9 +23,10 @@
 // [c W / P, (c + 1) W / P), so no SM waits on a long row at the end.
 //
 // The schedule, in square tiles of the kernel's own edge E (64 for the
-// forward and dQ, the query tile and fa::BK; 32 for dK/dV, whose f32
-// accumulators cap the key tile): within each (batch, head) n = ceil(S / E)
-// rows and n (n + 1) / 2 live tiles, W = B * H * n (n + 1) / 2 in all.
+// forward and dQ, the query tile and fa::BK; for dK/dV 64 in bf16, the
+// tensor-core key tile, and 32 in f32, whose FMA accumulators cap the key
+// tile): within each (batch, head) n = ceil(S / E) rows and n (n + 1) / 2
+// live tiles, W = B * H * n (n + 1) / 2 in all.
 //   - forward, dQ: row r = query tile qi, its tiles kj = 0..qi ascending
 //     (_tri_decode), H = Hq;
 //   - dK/dV: row r = n - 1 - kj, its tiles qi = n - 1 down to kj
@@ -44,51 +45,65 @@
 // writes the row. No atomics: the result is the same run to run for a
 // given P.
 //
-// The tile steps. The f32 instances of all three kernels and the bf16
-// instance of dK/dV are f32 FMA from shared memory (attend_tiles, dq_tile,
-// dkv_tile), the exactness instances. The bf16 forward and dQ run on the
-// tensor cores (flash_wgmma.cuh), chosen by the template type: one
-// warpgroup of 128 threads owns the 64-row query tile of a segment, Q (and
-// dO) loaded once per segment, the K/V tiles through a two-stage ring of
-// swizzled bf16 tiles filled by cp.async, the copy of tile j + 1 issued
-// before the products of tile j. Forward: S = Q K^T (m64n64k16, A and B
-// from shared memory), the online softmax on the accumulator's fragments
-// (mask on the diagonal tile only), P split in registers into two bf16
-// terms, hi + lo, the A operands of O += P V (m64n128k16 twice, V
-// MN-major), the denominator summed from the f32 P. (One bf16 rounding of
-// P moves an output near 2 across a bf16 rounding step, 0.0156, past the
-// 1e-2 the kernels are held to; the lo term costs half again the forward's
+// The tile steps. The f32 instances of all three kernels are f32 FMA from
+// shared memory (attend_tiles, dq_tile, dkv_tile), the exactness
+// instances. The bf16 instances run on the tensor cores (flash_wgmma.cuh,
+// flash_tc.cuh), chosen by the template type: one warpgroup of 128 threads
+// owns the segment's 64-row tile. Forward and dQ: Q (and dO) loaded once
+// per segment, the K/V tiles through a two-stage ring of swizzled bf16
+// tiles filled by cp.async, the copy of tile j + 1 issued before the
+// products of tile j. Forward: S = Q K^T (m64n64k16, A and B from shared
+// memory), the online softmax on the accumulator's fragments (mask on the
+// diagonal tile only), P split in registers into two bf16 terms, hi + lo,
+// the A operands of O += P V (m64n128k16 twice, V MN-major), the
+// denominator summed from the f32 P. (One bf16 rounding of P moves an
+// output near 2 across a bf16 rounding step, 0.0156, past the 1e-2 the
+// kernels are held to; the lo term costs half again the forward's
 // products.) dQ: S = Q K^T and dP = dO V^T, P = exp(S scale - lse) and dS =
 // P (dP - delta) scale in registers, dS rounded to bf16 for dQ += dS K (K
-// MN-major: one swizzled K tile is both B operands). Shared memory: 80 KB
-// forward, 96 KB dQ, so two CTAs an SM where the f32 tiles allowed two
-// (forward) and one (dQ). Bound: operations, 4 and 6 D per attended pair
-// and q-head at 989 TFLOP/s bf16 (2.22 and 3.34 ms at S = 32768, Hq 8).
-// Left for later: warp specialisation (a producer warp issuing TMA, with
-// setmaxnreg giving the consumers its registers), two consumer warpgroups
-// in ping-pong so that one's softmax overlaps the other's products, and
-// fp8 operands.
+// MN-major: one swizzled K tile is both B operands). dK/dV: the 64-key
+// tile's K and V loaded once per segment, the (query tile, q-head) steps'
+// Q, dO, lse and delta through the ring, tc::dkv_tile_tc (flash_tc.cuh,
+// shared with flash_bwd.cu's flash_bwd_dkv). Shared memory: 80 KB forward,
+// 96 KB dQ, 97 KB dK/dV, so two CTAs an SM. Bound: operations, 4, 6 and 8 D
+// per attended pair and q-head at 989 TFLOP/s bf16 (2.22, 3.34 and 4.45 ms
+// at S = 32768, Hq 8). Left for later: warp specialisation (a producer warp
+// issuing TMA, with setmaxnreg giving the consumers its registers), two
+// consumer warpgroups in ping-pong so that one's softmax overlaps the
+// other's products, and fp8 operands.
 #include <type_traits>
 
 #include "flash_common.cuh"
-#include "flash_wgmma.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
 constexpr int FWD_RPT = 4;                 // forward / dQ: 16 * 4 = 64 query rows
 constexpr int FWD_E = 16 * FWD_RPT;        // their tile edge, == fa::BK
-constexpr int DKV_KPT = 2;                 // dK/dV: 16 * 2 = 32 keys
+constexpr int DKV_KPT = 2;                 // dK/dV in f32: 16 * 2 = 32 keys
 constexpr int DKV_E = 16 * DKV_KPT;        // its tile edge (keys and queries)
 static_assert(FWD_E == fa::BK, "forward and dQ tiles are square");
+static_assert(FWD_E == tc::E, "a query tile is one wgmma M");
+static_assert(fa::NTHREADS == wg::THREADS, "every block is one warpgroup");
 
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
+
+// The dK/dV tile edge of act dtype 0 (f32, FMA) or 1 (bf16, tensor cores).
+__host__ __device__ constexpr int dkv_edge(int act_dtype) {
+  return act_dtype == 1 ? tc::E : DKV_E;
+}
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 // f32 workspace values per CTA, two slots of E rows each. With P CTAs:
 // forward o [2P][E][D] then lse [2P][E]; dQ [2P][E][D]; dK/dV dk [2P][E][D]
 // then dv [2P][E][D]. Each kernel finds its second array at 2 P E D.
 template <int D>
-constexpr long long ws_per_cta(int which) {
-  return which == FWD ? 2LL * FWD_E * (D + 1) : which == DQ ? 2LL * FWD_E * D : 4LL * DKV_E * D;
+constexpr long long ws_per_cta(int which, int act_dtype) {
+  return which == FWD  ? 2LL * FWD_E * (D + 1)
+         : which == DQ ? 2LL * FWD_E * D
+                       : 4LL * dkv_edge(act_dtype) * D;
 }
 
 // _tri_decode: flat index t of a triangle -> row r and column c <= r (row r
@@ -216,52 +231,11 @@ __device__ __forceinline__ void lse_merge(float& o, float& L, float oi, float li
 
 // ---- tensor-core tile steps (bf16) ------------------------------------------
 
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-static_assert(FWD_E == wg::ROWS, "a query tile is one wgmma M");
 // Q; K and V in two stages / Q, dO; K and V in two stages; plus the slack
 // that aligns the first tile to a swizzle period
 constexpr size_t TC_FWD_SMEM = 5 * wg::TILE_BYTES + wg::ALIGN;
 constexpr size_t TC_DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
-
-// The first swizzle-aligned byte of dynamic shared memory.
-__device__ __forceinline__ uint32_t tc_tiles() {
-  extern __shared__ float smem[];
-  return (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
-}
-
-// s = A B^T for one 64 x 64 tile (A, B both K-major): 8 k-steps over D.
-__device__ __forceinline__ void tc_abt(float (&s)[32], uint32_t sa, uint32_t sb) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
-}
-
-// acc += p x tile (MN-major), 4 k-steps over the tile's 64 rows, waited
-// for; p rounded to bf16, or with Split as bf16 hi + lo (8 k-steps).
-template <bool Split>
-__device__ __forceinline__ void tc_pv(float (&acc)[64], const float (&p)[32], uint32_t tile) {
-  uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (Split)
-      wg::a_frag_split(p, kk, hi[kk], lo[kk]);
-    else
-      wg::a_frag(p, kk, hi[kk]);
-  }
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wg::mma_m64n128k16_rs<1>(acc, hi[kk], wg::desc_mnmajor(tile, kk), 1);
-    if constexpr (Split) wg::mma_m64n128k16_rs<1>(acc, lo[kk], wg::desc_mnmajor(tile, kk), 1);
-  }
-  wg::commit();
-  wg::wait<0>();
-  wg::fence_regs(acc);
-}
 
 // Element e of the thread's fragment is attendable on the diagonal tile
 // (kj == r: query row - key column = in-tile row - column) and in range.
@@ -291,11 +265,11 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
-  const uint32_t sQ = tc_tiles(), ring = sQ + wg::TILE_BYTES;   // stage st: K, V at ring + 2 st TILE
+  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;   // stage st: K, V at ring + 2 st TILE
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
-  const float sl2 = a.scale * kLog2e;          // scores in log2 units
+  const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
   float* ws_lse = a.ws + 2LL * a.ctas * E * D;
   float s[32] = {};
 
@@ -322,7 +296,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
       tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
                     (kj + 1) * E, a.S);
       wg::fence();
-      tc_abt(s, sQ, sK);
+      tc::abt(s, sQ, sK);
       wg::commit();
       wg::wait<0>();
       wg::fence_regs(s);
@@ -362,7 +336,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
           acc[4 * j + 2 * i + 1] *= corr;
         }
       }
-      tc_pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
+      tc::pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
     }
 
     // _finalize_out, then the row or its workspace slot
@@ -397,11 +371,11 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
-  const uint32_t sQ = tc_tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
+  const uint32_t sQ = tc::tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
-  const float sl2 = a.scale * kLog2e;
+  const float sl2 = a.scale * tc::kLog2e;
   float s[32] = {}, dp[32] = {};
 
   Walk walk(blockIdx.x, tri, a.ctas);
@@ -428,7 +402,7 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
       const int qp = q0 + row + 8 * i;
       const float lse = qp < a.S ? a.lse[rows + qp] : FA_NEG_INF;
       live[i] = lse > FA_NEG_INF / 2;
-      lse2[i] = lse * kLog2e;
+      lse2[i] = lse * tc::kLog2e;
       delta[i] = qp < a.S ? a.delta[rows + qp] : 0.f;
     }
     float acc[64];
@@ -441,9 +415,9 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
       tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
                     (kj + 1) * E, a.S);
       wg::fence();
-      tc_abt(s, sQ, sK);
+      tc::abt(s, sQ, sK);
       wg::commit();
-      tc_abt(dp, sdO, sK + wg::TILE_BYTES);
+      tc::abt(dp, sdO, sK + wg::TILE_BYTES);
       wg::commit();
 
       // _rebuild_p_ds: P from the forward's lse while dP finishes, then dS
@@ -460,7 +434,7 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
       wg::fence_regs(dp);
 #pragma unroll
       for (int e = 0; e < 32; ++e) s[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * a.scale;
-      tc_pv<false>(acc, s, sK);
+      tc::pv<false>(acc, s, sK);
     }
 
 #pragma unroll
@@ -551,15 +525,8 @@ __device__ __forceinline__ void fwd_tri_fma(const FlashTriArgs& a) {
   }
 }
 
-// The block size of each main kernel: one warpgroup for the tensor-core
-// instances, fa::NTHREADS for the FMA ones.
-template <typename T>
-constexpr int threads_of(int which) {
-  return kTensorCores<T> && which != DKV ? wg::THREADS : fa::NTHREADS;
-}
-
 template <typename T, int D>
-__global__ void __launch_bounds__(threads_of<T>(FWD)) flash_fwd_tri_kernel(FlashTriArgs a) {
+__global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_kernel(FlashTriArgs a) {
   if constexpr (kTensorCores<T>)
     fwd_tri_tc<D>(a);
   else
@@ -659,7 +626,7 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(threads_of<T>(DQ)) flash_bwd_dq_tri_kernel(FlashTriArgs a) {
+__global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_tri_kernel(FlashTriArgs a) {
   if constexpr (kTensorCores<T>)
     dq_tri_tc<D>(a);
   else
@@ -766,9 +733,62 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_kernel(FlashTr
   }
 }
 
+// The bf16 instance: a 64-key tile per segment on the tensor cores
+// (tc::dkv_walk_tc over the segment's query tiles, descending), the cut
+// rows' f32 partials stored from the fragments.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tri_tc_kernel(FlashTriArgs a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = tc::E;
+  const uint32_t sK = tc::tiles();
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  const int group = a.Hq / a.Hkv;
+  const Tri tri = make_tri(a.S, E, a.Hkv, a.B);
+  float* ws_dv = a.ws + 2LL * a.ctas * E * D;
+  const tc::TriMask mask{a.S};
+
+  Walk walk(blockIdx.x, tri, a.ctas);
+  Seg sg;
+  while (walk.next(sg)) {
+    const int b = static_cast<int>(sg.bh / a.Hkv), kvh = static_cast<int>(sg.bh % a.Hkv);
+    const int k0 = (tri.n - 1 - sg.r) * E;     // _tri_decode_rev: row r is kj = n - 1 - r
+    const long long rows = static_cast<long long>(b) * a.Hq * a.S;
+    const tc::DkvSrc src{static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                         static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh,
+                         static_cast<const bf16*>(a.q) + b * a.q_sb,
+                         static_cast<const bf16*>(a.dout) + b * a.do_sb,
+                         a.lse + rows, a.delta + rows,
+                         a.k_ss, a.v_ss, a.q_ss, a.q_sh, a.do_ss, a.do_sh,
+                         a.S, group, kvh, a.scale};
+    float dk[64], dv[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) dk[e] = dv[e] = 0.f;
+    __syncthreads();   // the previous segment's products are done
+    // column c is qi = n - 1 - c: the segment's query tiles descend
+    tc::dkv_walk_tc(dk, dv, sK, src, k0, tri.n - 1 - sg.c0, sg.c1 - sg.c0 + 1, mask);
+    if (sg.whole) {
+      tc::dkv_store(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss,
+                    static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long at = (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(a.ws + at + 8 * j) =
+            make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+        *reinterpret_cast<float2*>(ws_dv + at + 8 * j) =
+            make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_fixup(FlashTriArgs a) {
-  constexpr int E = DKV_E;
+  constexpr int E = dkv_edge(kTensorCores<T>);
   const Tri tri = make_tri(a.S, E, a.Hkv, a.B);
   CutRow cr;
   if (!cut_row(blockIdx.x, tri, a.ctas, cr)) return;
@@ -796,14 +816,22 @@ template <typename T, int D>
 constexpr size_t smem_of(int which) {
   return which == FWD  ? (kTensorCores<T> ? TC_FWD_SMEM : fwd_smem<D>())
          : which == DQ ? (kTensorCores<T> ? TC_DQ_SMEM : dq_smem<D>())
-                       : dkv_smem<D>();
+                       : (kTensorCores<T> ? tc::DKV_SMEM : dkv_smem<D>());
+}
+
+template <typename T, int D>
+void* dkv_kernel() {
+  if constexpr (kTensorCores<T>)
+    return reinterpret_cast<void*>(flash_bwd_dkv_tri_tc_kernel<D>);
+  else
+    return reinterpret_cast<void*>(flash_bwd_dkv_tri_kernel<T, D>);
 }
 
 template <typename T, int D>
 void* main_kernel(int which) {
   return which == FWD  ? reinterpret_cast<void*>(flash_fwd_tri_kernel<T, D>)
          : which == DQ ? reinterpret_cast<void*>(flash_bwd_dq_tri_kernel<T, D>)
-                       : reinterpret_cast<void*>(flash_bwd_dkv_tri_kernel<T, D>);
+                       : dkv_kernel<T, D>();
 }
 
 template <typename T, int D>
@@ -826,7 +854,7 @@ int resident_ctas(int which) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads_of<T>(which),
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, fa::NTHREADS,
                                                       smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return sms * (per_sm > 0 ? per_sm : 1);
@@ -841,7 +869,7 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   void* args[] = {const_cast<FlashTriArgs*>(&a)};
-  e = cudaLaunchKernel(fn, dim3(a.ctas), dim3(threads_of<T>(which)), args, smem, stream);
+  e = cudaLaunchKernel(fn, dim3(a.ctas), dim3(fa::NTHREADS), args, smem, stream);
   if (e != cudaSuccess) return e;
   e = cudaLaunchKernel(fixup_kernel<T, D>(which), dim3(a.ctas), dim3(fa::NTHREADS), args, 0,
                        stream);
@@ -852,7 +880,7 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
 bool takes(int which, const FlashTriArgs* a) {
   return a->D == 128 && (a->act_dtype == 0 || a->act_dtype == 1) && a->Hkv > 0 &&
          a->Hq % a->Hkv == 0 && a->ctas > 0 && a->ws != nullptr &&
-         a->ws_floats >= a->ctas * ws_per_cta<128>(which);
+         a->ws_floats >= a->ctas * ws_per_cta<128>(which, a->act_dtype);
 }
 
 int run(int which, const FlashTriArgs* a, void* stream) {
@@ -876,12 +904,14 @@ extern "C" int flash_tri_ctas(int which, int act_dtype) {
                         : resident_ctas<__nv_bfloat16, 128>(which);
 }
 
-// f32 workspace values per CTA of entry `which` (as flash_tri_ctas), at
-// head dim 128: the wrapper allocates ctas times this and passes the length
-// as FlashTriArgs.ws_floats. A negative value is -cudaError.
-extern "C" long long flash_tri_ws_floats(int which) {
-  if (which < FWD || which > DKV) return -static_cast<long long>(cudaErrorInvalidValue);
-  return ws_per_cta<128>(which);
+// f32 workspace values per CTA of entry `which` for act dtype 0 (f32) or 1
+// (bf16) (as flash_tri_ctas), at head dim 128: the wrapper allocates ctas
+// times this and passes the length as FlashTriArgs.ws_floats. A negative
+// value is -cudaError.
+extern "C" long long flash_tri_ws_floats(int which, int act_dtype) {
+  if (which < FWD || which > DKV || act_dtype < 0 || act_dtype > 1)
+    return -static_cast<long long>(cudaErrorInvalidValue);
+  return ws_per_cta<128>(which, act_dtype);
 }
 
 // Each queues its main launch and its fixup on `stream`, allocates nothing

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) tensor-core building blocks of the attention kernels:
 // warpgroup matrix products (wgmma) on bf16 tiles in 128-byte-swizzled
 // shared memory, the accumulator's fragment map, row reductions on
-// fragments, and the asynchronous loader that fills a tile. flash_tri.cu's
-// bf16 forward and dQ use them; the later redesigns of flash_fwd.cu and
-// flash_bwd.cu are meant to.
+// fragments, and the asynchronous loader that fills a tile. flash_tc.cuh
+// builds the tile steps on them (flash_tri.cu's bf16 forward, dQ and dK/dV,
+// flash_bwd.cu's bf16 dK/dV); the later redesigns of flash_fwd.cu and
+// flash_bwd.cu's dQ are meant to use them too.
 //
 // A tile is 64 rows of D = 128 bf16 values (one row per query or key
 // position), 16 KB: two swizzle atoms of 64 rows x 64 columns (128 bytes a
@@ -25,7 +26,9 @@
 //   - S = Q K^T: A = Q tile, B = K tile, both K-major (D contiguous);
 //   - O += P V:  A = P from registers, B = V tile, MN-major (D = N
 //     contiguous): the transpose bit;
-//   - dQ += dS K: the same with the K tile, MN-major.
+//   - dQ += dS K: the same with the K tile, MN-major;
+//   - S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q (dK/dV):
+//     the same two forms with the roles of the tiles swapped.
 // One swizzled tile serves as a K-major and an MN-major operand through two
 // descriptors (desc_kmajor, desc_mnmajor).
 #pragma once

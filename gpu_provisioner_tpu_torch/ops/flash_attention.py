@@ -31,15 +31,18 @@ between the two. Deliberate differences from the JAX module:
   (balance), with a fixup launch for the rows cut between shares. The
   decode and the shares of its schedule have CPU twins here
   (``_tri_decode``, ``_tri_decode_rev``, ``_tri_shares``) that the tests
-  check; its bf16 forward and dQ run on the tensor cores, with P as two
-  bf16 terms (hi + lo) and dS rounded to bf16 before their second product
-  (the JAX kernels keep both f32), and need 16-byte aligned inputs
-  (``_check_tri_copies``);
+  check; its bf16 kernels run on the tensor cores, with P as two bf16
+  terms (hi + lo) in the forward and P and dS each rounded to bf16 before
+  their second product in the backward (the JAX kernels keep them f32);
+- the bf16 tensor-core kernels (the three of ``triangular=True`` and
+  ``flash_bwd_dkv``) need 16-byte aligned inputs (``_check_tc_copies``);
+  the autograd backward copies a cotangent or saved input that is not
+  (``_tc_layout``) where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
   CUDA tensor;
-- the dK/dV kernel folds GQA inside the block instead of writing f32
+- the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
 """
@@ -381,11 +384,14 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     """Checks what the backward kernels take, allocates ``kernel``'s outputs
     and launches it on the current stream: ``flash_bwd_dq`` → dq [B,S,Hq,D]
     in q's dtype, ``flash_bwd_dkv`` → (dk, dv) [B,S,Hkv,D] in k's. q/k/v/dout
-    token-major with the head dim contiguous; lse and delta [B,Hq,S] f32."""
+    token-major with the head dim contiguous (in bf16, ``flash_bwd_dkv``
+    takes 16-byte chunks: ``_check_tc_copies``); lse and delta [B,Hq,S]
+    f32."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
     _check_self_attention(q, k, v, dout, lse, delta)
+    _check_tc_copies(kernel, q=q, k=k, v=v, dout=dout)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
 
@@ -415,34 +421,54 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     return outs[0] if len(outs) == 1 else outs
 
 
-# the flattened-triangle kernels whose bf16 instances copy 16-byte chunks
-# of the named inputs into shared memory (cp.async)
-_TRI_COPIED = {"flash_fwd_tri": ("q", "k", "v"),
-               "flash_bwd_dq_tri": ("q", "k", "v", "dout")}
+# the kernels whose bf16 instances copy 16-byte chunks of the named inputs
+# into shared memory (cp.async) for the tensor cores
+_TC_COPIED = {"flash_fwd_tri": ("q", "k", "v"),
+              "flash_bwd_dq_tri": ("q", "k", "v", "dout"),
+              "flash_bwd_dkv_tri": ("q", "k", "v", "dout"),
+              "flash_bwd_dkv": ("q", "k", "v", "dout")}
 
 
-def _check_tri_copies(kernel: str, **tensors) -> None:
-    """The bf16 tensor-core kernels copy each row of 128 bf16 values in
-    16-byte chunks: every input they copy needs a 16-byte aligned base and
-    batch, position and head strides of whole chunks (multiples of 8
-    elements). Raises ValueError naming the first tensor that has not."""
-    for name in _TRI_COPIED.get(kernel, ()):
-        t = tensors[name]
-        if t.dtype != torch.bfloat16:
-            continue
-        if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
-        if any(st % 8 for st in t.stride()[:3]):
-            raise ValueError(f"{kernel}: {name} strides {t.stride()[:3]} "
-                             "are not multiples of 8 elements (16 bytes)")
+def _tc_copy_fault(t) -> str | None:
+    """Why the bf16 tensor-core kernels cannot copy ``t`` (they copy rows of
+    128 bf16 values in 16-byte chunks: a 16-byte aligned base, batch,
+    position and head strides of whole chunks, multiples of 8 elements), or
+    None when they can. Other dtypes: None."""
+    if t.dtype != torch.bfloat16:
+        return None
+    if t.data_ptr() % 16:
+        return "is not 16-byte aligned"
+    if any(st % 8 for st in t.stride()[:3]):
+        return (f"strides {t.stride()[:3]} are not multiples of 8 elements "
+                "(16 bytes)")
+    return None
+
+
+def _check_tc_copies(kernel: str, **tensors) -> None:
+    """Raises ValueError naming the first input of ``kernel`` that its bf16
+    instance copies and cannot (``_tc_copy_fault``)."""
+    for name in _TC_COPIED.get(kernel, ()):
+        fault = _tc_copy_fault(tensors[name])
+        if fault:
+            raise ValueError(f"{kernel}: {name} {fault}")
+
+
+def _tc_layout(t):
+    """``t`` itself when every kernel takes its layout (head dim contiguous
+    and, in bf16, ``_tc_copy_fault`` clear), else a contiguous copy in
+    fresh, aligned storage: a layout copy, the same values."""
+    if t.stride(-1) == 1 and _tc_copy_fault(t) is None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
                 delta=None):
     """Checks what the flattened-triangle kernels take (causal
-    self-attention, no window; in bf16 the 16-byte alignment of what the
-    tensor-core kernels copy), allocates ``kernel``'s outputs and its f32
-    workspace (two slots per CTA of the persistent grid) and queues its main
+    self-attention, no window; in bf16 the 16-byte chunks the tensor-core
+    kernels copy, ``_check_tc_copies``), allocates ``kernel``'s outputs and
+    its f32 workspace (two slots per CTA of the persistent grid; its size
+    depends on the dtype) and queues its main
     launch and its fixup on the current stream: ``flash_fwd_tri`` → (out
     [B,S,Hq,D], lse [B,Hq,S] f32), ``flash_bwd_dq_tri`` → dq,
     ``flash_bwd_dkv_tri`` → (dk, dv). q/k/v/dout token-major with the head
@@ -454,10 +480,11 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     if not fwd and (dout is None or lse is None or delta is None):
         raise ValueError(f"{kernel} needs dout, lse and delta")
     _check_self_attention(q, k, v, dout, lse, delta)
-    _check_tri_copies(kernel, q=q, k=k, v=v, dout=dout)
-    P = _cuda.tri_ctas(kernel, _ACT_DTYPES[q.dtype], dev.index)
-    ws = torch.empty(P * _cuda.tri_ws_floats(kernel), dtype=torch.float32,
-                     device=dev)
+    _check_tc_copies(kernel, q=q, k=k, v=v, dout=dout)
+    act = _ACT_DTYPES[q.dtype]
+    P = _cuda.tri_ctas(kernel, act, dev.index)
+    ws = torch.empty(P * _cuda.tri_ws_floats(kernel, act),
+                     dtype=torch.float32, device=dev)
     a = _cuda.FlashTriArgs()
     if fwd:
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
@@ -476,7 +503,7 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     a.lse = lse.data_ptr()
     a.delta = delta.data_ptr() if delta is not None else None
     a.ws, a.ws_floats = ws.data_ptr(), ws.numel()
-    a.act_dtype = _ACT_DTYPES[q.dtype]
+    a.act_dtype = act
     a.B, a.S, a.Hq, a.Hkv, a.D, a.ctas = B, S, Hq, Hkv, D, P
     a.scale = scale
     _run(kernel, a, dev)
@@ -546,8 +573,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, scale, window, triangular = ctx.mask
         g_out = torch.zeros_like(out) if g_out is None else g_out
-        if g_out.stride(-1) != 1:
-            g_out = g_out.contiguous()
+        # autograd may hand over any layout (the narrow of a torch.cat's
+        # gradient, say): copy what the kernels would refuse
+        q, k, v, g_out = (_tc_layout(t) for t in (q, k, v, g_out))
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g_out, g_lse,
                                          causal=causal, scale=scale,
                                          window=window, triangular=triangular)

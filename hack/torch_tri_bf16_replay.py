@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""The bf16 tensor-core tri kernels' rounding points, replayed on the CPU.
+"""The bf16 tensor-core kernels' rounding points, replayed on the CPU.
 
     python3 hack/torch_tri_bf16_replay.py
 
-``flash_fwd_tri`` and ``flash_bwd_dq_tri`` (csrc/flash_tri.cu) take their
-products on the tensor cores in bf16, where the plain versions and the JAX
-kernels keep P and dS in f32. ``replay_fwd`` and ``replay_dq`` redo the
-kernels' arithmetic in plain torch, key tile by key tile (64 keys): f32
-scores, the online softmax with the denominator summed from the f32 P, P
-rounded to bf16 before P·V (``split``: as the kernel does, two bf16 terms
-hi + lo); dS = P∘(dP − Δ)·scale rounded to bf16 before dS·K. Both return
-f32, before the kernels' last rounding of out and dQ to bf16.
-tests/test_torch_flash_tri.py holds them against the JAX package's
-kernels. This script prints, at the card tests' bf16 shapes (random normal
-bf16 values from a numpy seed, causal, head dim 128), how far each replay
-lies from the plain versions: in f32 (what the rounding of P or dS alone
-moves: out absolute, dQ relative to its largest value), and rounded to
+``flash_fwd_tri``, ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri``
+(csrc/flash_tri.cu) and ``flash_bwd_dkv`` (csrc/flash_bwd.cu, the same
+tile step) take their products on the tensor cores in bf16, where the
+plain versions and the JAX kernels keep P and dS in f32. ``replay_fwd``,
+``replay_dq`` and ``replay_dkv`` redo the kernels' arithmetic in plain
+torch: f32 scores, the online softmax with the denominator summed from the
+f32 P, P rounded to bf16 before P·V (``split``: as the kernel does, two
+bf16 terms hi + lo); dS = P∘(dP − Δ)·scale rounded to bf16 before dS·K;
+for dK/dV, 64-key × 64-query tiles of f32 Sᵀ and dPᵀ, Pᵀ and dSᵀ each
+rounded to bf16 once before Pᵀ·dO and dSᵀ·Q, the group's q-heads folded
+in f32, with the causal and window masks. Each returns f32, before the
+kernels' last rounding to bf16. tests/test_torch_flash_tri.py holds them
+against the JAX package's kernels. This script prints, at the card tests'
+bf16 shapes (random normal bf16 values from a numpy seed, causal, head dim
+128; the last also with window 1024), how far each replay lies from the
+plain versions: in f32 (what the rounding of P or dS alone moves: out
+absolute, the gradients relative to their largest values), and rounded to
 bf16 against the plain versions' bf16 results, as the card tests compare
 (where one bf16 step of the result, 0.0156 at |out| in [2, 4), can
 appear). One JSON line per shape, a few seconds each. Imports nothing of
@@ -39,6 +43,7 @@ from gpu_provisioner_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 TILE = 64
 # (B, S, Hq, Hkv) of the card tests' bf16 tri cases
 SHAPES = ((1, 384, 2, 1), (2, 2048, 16, 8), (1, 1000, 4, 1), (2, 200, 8, 8))
+WINDOW = 1024       # the windowed dK/dV case, at the last shape of S 2048
 
 
 def _scores(q, k, scale):
@@ -100,6 +105,54 @@ def replay_dq(q, k, v, dout, out, lse, scale):
     return (ds @ kf).transpose(1, 2)
 
 
+def _keep(S, causal, window):
+    """keep [S query, S key] of self-attention at positions 0..S-1."""
+    pos = torch.arange(S)
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep = pos[None, :] <= pos[:, None]
+    if window is not None:
+        keep = keep & (pos[None, :] > pos[:, None] - window)
+    return keep
+
+
+def replay_dkv(q, k, v, dout, out, lse, scale, *, causal=True, window=None,
+               g_lse=None):
+    """(dk, dv) [B,S,Hkv,D] in f32 as the tensor-core dK/dV step
+    (flash_tc.cuh's dkv_tile_tc) computes them from the forward's out and
+    lse, before it rounds them to bf16: per 64-key tile, per 64-query tile
+    and q-head of the group, f32 Sᵀ = K Qᵀ and dPᵀ = V dOᵀ from the bf16
+    inputs, Pᵀ = exp(Sᵀ·scale − lse) (0 where masked or lse = NEG_INF),
+    dSᵀ = Pᵀ∘(dPᵀ − Δ)·scale, then dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q
+    summed in f32."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    qf = q.float().transpose(1, 2).reshape(B, Hkv, group, S, D)
+    gf = dout.float().transpose(1, 2).reshape(B, Hkv, group, S, D)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    lse_ = lse.float().reshape(B, Hkv, group, S)
+    delta = tfa._bwd_delta(out, dout, g_lse).reshape(B, Hkv, group, S)
+    keep_t = _keep(S, causal, window).T                  # [key, query]
+    dk = torch.zeros(B, Hkv, S, D)
+    dv = torch.zeros(B, Hkv, S, D)
+    for k0 in range(0, S, TILE):
+        ks = slice(k0, k0 + TILE)
+        for q0 in range(0, S, TILE):
+            qs = slice(q0, q0 + TILE)
+            for g in range(group):
+                qt, gt = qf[:, :, g, qs], gf[:, :, g, qs]
+                lt = lse_[:, :, g, None, qs]
+                st = kf[:, :, ks] @ qt.transpose(-1, -2) * scale
+                pt = torch.where(keep_t[ks, qs] & (lt > tfa.NEG_INF / 2),
+                                 torch.exp(st - lt), 0.0)
+                dpt = vf[:, :, ks] @ gt.transpose(-1, -2)
+                dst = pt * (dpt - delta[:, :, g, None, qs]) * scale
+                dv[:, :, ks] += _bf16(pt) @ gt
+                dk[:, :, ks] += _bf16(dst) @ qt
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 def inputs(seed, B, S, Hq, Hkv, D=128):
     """q, k, v, dout: random normal values from a numpy seed, in bf16."""
     rng = np.random.default_rng(seed)
@@ -130,10 +183,24 @@ def main() -> int:
                 "out_bf16_max_abs": err.max().item(),
                 "at_abs_out": ref.flatten()[err.argmax()].abs().item(),
                 "lse_max_abs": (lse - ref_lse).abs().max().item()}
-        want = tfa.attention_bwd_plain(*f32[:3], out, lse, f32[3])[0]
+        want = tfa.attention_bwd_plain(*f32[:3], out, lse, f32[3])
         dq = replay_dq(q, k, v, dout, out, lse, scale)
-        row["dq_f32_rel"] = _rel(dq, want)
-        row["dq_bf16_rel"] = _rel(dq.to(bf), want.to(bf))
+        row["dq_f32_rel"] = _rel(dq, want[0])
+        row["dq_bf16_rel"] = _rel(dq.to(bf), want[0].to(bf))
+        for name, got, ref in zip(("dk", "dv"), replay_dkv(
+                q, k, v, dout, out, lse, scale), want[1:]):
+            row[f"{name}_f32_rel"] = _rel(got, ref)
+            row[f"{name}_bf16_rel"] = _rel(got.to(bf), ref.to(bf))
+        if S >= WINDOW:   # the rectangular kernel's windowed case
+            wout, wlse = tfa.attention_plain(
+                f32[0], f32[1].transpose(1, 2), f32[2].transpose(1, 2), 0,
+                window=WINDOW)
+            wwant = tfa.attention_bwd_plain(*f32[:3], wout, wlse, f32[3],
+                                            window=WINDOW)
+            for name, got, ref in zip(("dk", "dv"), replay_dkv(
+                    q, k, v, dout, wout, wlse, scale, window=WINDOW),
+                    wwant[1:]):
+                row[f"window_{name}_f32_rel"] = _rel(got, ref)
         print(json.dumps(row), flush=True)
     return 0
 

@@ -11,9 +11,10 @@ plain gradient (max|kernel - plain| / max|plain|), since gradients scale
 with S and the cotangents. The flattened-triangle kernels (flash_tri.cu)
 are held to the same bounds at shapes where the persistent grid has more
 CTAs than tiles, rows are cut into many pieces, and many rows lie whole in
-one CTA's share, and at ragged S; in bf16 their forward and dQ run on the
-tensor cores (P as bf16 hi + lo, dS rounded to bf16: within 5e-3 of the f32
-functions on the CPU replay, tests/test_torch_flash_tri.py).
+one CTA's share, and at ragged S; in bf16 all three and the rectangular
+dK/dV run on the tensor cores (P as bf16 hi + lo in the forward, P and dS
+each rounded to bf16 once in the backward: within 5e-3 of the f32 functions
+on the CPU replay, tests/test_torch_flash_tri.py).
 """
 
 import ctypes
@@ -171,6 +172,66 @@ def test_flash_bwd_matches_plain(dev, dtype, S, kv_heads, causal, window):
         assert _rel(a, b) < TOL[dtype]
 
 
+# (B, S, Hq, Hkv, causal, window) of the bf16 dK/dV kernel on the tensor
+# cores beyond test_flash_bwd_matches_plain's: ragged S (a zero-filled last
+# key and query tile) at GQA 4/1 and 4/2, window 1024 (the band cuts tiles),
+# non-causal with a window
+DKV_CASES = [(1, 1000, 4, 1, True, None), (2, 333, 8, 2, False, None),
+             (1, 2048, 8, 2, True, 1024), (1, 1500, 4, 1, False, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", DKV_CASES)
+def test_flash_bwd_dkv_matches_plain(dev, dtype, B, S, Hq, Hkv, causal,
+                                     window):
+    g = torch.Generator(dev).manual_seed(9)
+    q = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    k = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    v = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    dout = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev)
+    kw = dict(causal=causal, window=window)
+    out, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   0, **kw)
+    delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
+    got = tfa._launch_bwd("flash_bwd_dkv", q, k, v, dout, lse, delta,
+                          scale=128 ** -0.5, **kw)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse, **kw)[1:]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_backward_takes_a_cotangent_through_torch_cat(dev, triangular):
+    """flash_attention's bf16 output through torch.cat beside a 12-wide
+    piece: autograd hands the backward a cotangent with head stride 140,
+    which the tensor-core kernels refuse; the backward copies it and the
+    kernels' gradients match attention_bwd_plain (triangular=True takes
+    the tri backward here; the default path the rectangular kernels)."""
+    g = torch.Generator(dev).manual_seed(10)
+    S, bf = 1024, torch.bfloat16
+    q, k, v = (_randn(g, 1, S, h, 128, dtype=bf, dev=dev).requires_grad_()
+               for h in (8, 2, 2))
+    dout = _randn(g, 1, S, 8, 128, dtype=bf, dev=dev)
+    extra = _randn(g, 1, S, 8, 12, dtype=bf, dev=dev)
+    tfa.reset_launches()
+    out = tfa.flash_attention(q, k, v, triangular=triangular)
+    got = torch.autograd.grad(torch.cat([out, extra], -1), (q, k, v),
+                              torch.cat([dout, extra], -1))
+    torch.cuda.synchronize()
+    bwd = ("flash_bwd_dq_tri", "flash_bwd_dkv_tri") if triangular \
+        else ("flash_bwd_dq", "flash_bwd_dkv")
+    assert all(tfa.LAUNCHES[n] == 1 for n in bwd)
+    with torch.no_grad():
+        ref, lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), 0)
+        want = tfa.attention_bwd_plain(q, k, v, ref, lse, dout)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < TOL[bf]
+
+
 def test_autograd_runs_the_backward_kernels(dev):
     g = torch.Generator(dev).manual_seed(4)
     q, k, v = (_randn(g, 1, 256, h, 128, dtype=torch.float32, dev=dev)
@@ -316,21 +377,35 @@ def test_tri_tensor_core_kernels_refuse_misaligned_bf16(dev):
         assert _err(out, ref) < TOL[dtype] and _err(lse, ref_lse) < 1e-4
 
 
-def test_tri_entries_refuse_a_short_workspace(dev):
-    """flash_tri.cu owns the workspace layout: an entry given fewer than
-    ctas × flash_tri_ws_floats() f32 values returns cudaErrorInvalidValue
-    (1) before it launches anything."""
-    q = torch.zeros(1, 128, 2, 128, device=dev)
+def test_bwd_dkv_grid_query_answers_for_the_launch(dev):
+    """flash_bwd_dkv launches one block per (batch * kv head, key tile):
+    64 keys in bf16 (tensor cores), 32 in f32; another dtype is refused."""
+    assert _cuda.bwd_dkv_blocks(2, 4, 1000, 1) == 2 * 4 * 16
+    assert _cuda.bwd_dkv_blocks(2, 4, 1000, 0) == 2 * 4 * 32
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_blocks"):
+        _cuda.bwd_dkv_blocks(2, 4, 1000, 2)
+
+
+@pytest.mark.parametrize("act_dtype", [0, 1])
+def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
+    """flash_tri.cu owns the workspace layout, which depends on the act
+    dtype (0 f32, 1 bf16: the bf16 dK/dV tile edge is twice the f32 one):
+    an entry given fewer than ctas × flash_tri_ws_floats() f32 values (the
+    f32-sized workspace too, where that is shorter) returns
+    cudaErrorInvalidValue (1) before it launches anything."""
+    q = torch.zeros(1, 128, 2, 128, device=dev,
+                    dtype=(torch.float32, torch.bfloat16)[act_dtype])
     stream = torch.cuda.current_stream(dev).cuda_stream
     for entry in _cuda.TRI_WHICH:
-        P = _cuda.tri_ctas(entry, 0, dev.index)
-        n = P * _cuda.tri_ws_floats(entry)
+        P = _cuda.tri_ctas(entry, act_dtype, dev.index)
+        n = P * _cuda.tri_ws_floats(entry, act_dtype)
         ws = torch.empty(n, device=dev)
         a = _cuda.FlashTriArgs()
         for name in ("q", "k", "v", "dout", "out", "dq", "dk", "dv"):
             setattr(a, name, q.data_ptr())
         a.lse, a.delta = ws.data_ptr(), ws.data_ptr()
-        a.ws, a.ws_floats = ws.data_ptr(), n - 1
-        a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = 0, 1, 128, 2, 2, 128
+        a.ws = ws.data_ptr()
+        a.ws_floats = min(n - 1, P * _cuda.tri_ws_floats(entry, 0))
+        a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = act_dtype, 1, 128, 2, 2, 128
         a.ctas, a.scale = P, 1.0
         assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry

@@ -178,3 +178,86 @@ def test_bf16_gradients_come_back_in_bf16():
     want = torch.autograd.grad(tfa.flash_attention(*f32), f32, bf[3].float())
     for g, w in zip(grads, want):
         torch.testing.assert_close(g.float(), w, atol=2e-2, rtol=1e-2)
+
+
+def _cat_cotangent(shape, other=12):
+    """The gradient autograd hands to a bf16 tensor that went into
+    torch.cat(..., dim=-1) beside a piece ``other`` wide: a narrow of the
+    cat's gradient, head stride 128 + ``other``."""
+    x = torch.zeros(shape, dtype=torch.bfloat16, requires_grad=True)
+    seen = []
+    y = x * 1
+    y.register_hook(seen.append)
+    z = torch.cat([y, torch.zeros(*shape[:-1], other, dtype=torch.bfloat16)],
+                  -1)
+    g = torch.from_numpy(_rand(8, z.shape)[0]).bfloat16()
+    z.backward(g)
+    return seen[0]
+
+
+@pytest.mark.parametrize("layout", ["offset", "cat"])
+def test_tc_layout_copies_what_the_tensor_core_kernels_refuse(layout):
+    """A bf16 tensor whose base is off a 16-byte boundary (a storage offset
+    of 4 elements) or whose head stride is not a whole number of 16-byte
+    chunks (the width-12 narrow torch.cat's gradient gives back): the
+    tensor-core kernels' check refuses it, and _tc_layout returns a copy
+    the check accepts, equal to it; a tensor the check accepts comes back
+    as itself."""
+    S, Hq = 16, 2
+    if layout == "offset":
+        flat = torch.from_numpy(_rand(9, (S * Hq * 128 + 4,))[0]).bfloat16()
+        t = flat[4:].view(1, S, Hq, 128)
+    else:
+        t = _cat_cotangent((1, S, Hq, 128))
+        assert t.stride()[2] == 140
+    ok = torch.zeros(1, S, Hq, 128, dtype=torch.bfloat16)
+    assert tfa._tc_copy_fault(t) is not None
+    with pytest.raises(ValueError, match="flash_bwd_dkv: dout"):
+        tfa._check_tc_copies("flash_bwd_dkv", q=ok, k=ok, v=ok, dout=t)
+    got = tfa._tc_layout(t)
+    assert tfa._tc_copy_fault(got) is None and got.stride(-1) == 1
+    assert torch.equal(got, t)
+    tfa._check_tc_copies("flash_bwd_dkv", q=ok, k=ok, v=ok, dout=got)
+    assert tfa._tc_layout(ok) is ok
+    # any dtype: a head dim that is not contiguous is copied too
+    cols = torch.zeros(1, S, 128, Hq).transpose(2, 3)
+    assert tfa._tc_layout(cols).stride(-1) == 1
+
+
+def test_launch_bwd_refuses_misaligned_bf16_copies_before_it_builds():
+    """flash_bwd_dkv's bf16 instance copies q, k, v and dout in 16-byte
+    chunks: a dout off a 16-byte boundary raises ValueError naming it
+    before the kernel library (nvcc, a card) is asked for."""
+    S, Hq, Hkv = 128, 2, 1
+    q = torch.zeros(1, S, Hq, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, S, Hkv, 128, dtype=torch.bfloat16)
+    dout = torch.zeros(S * Hq * 128 + 4, dtype=torch.bfloat16)[4:].view(
+        1, S, Hq, 128)
+    lse = torch.zeros(1, Hq, S)
+    with pytest.raises(ValueError, match=r"flash_bwd_dkv: dout is not "
+                                         r"16-byte aligned"):
+        tfa._launch_bwd("flash_bwd_dkv", q, k, k, dout, lse, lse,
+                        causal=True, scale=1.0)
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_backward_takes_a_cotangent_through_torch_cat(monkeypatch,
+                                                      triangular):
+    """flash_attention's output through torch.cat beside a 12-wide piece:
+    autograd hands its backward the narrow of the cat's gradient, which the
+    tensor-core kernels refuse; the backward copies it (_tc_layout) and the
+    gradients equal those from the same cotangent laid out contiguously
+    (here through the plain versions; on the card, tests/test_torch_cuda.py
+    holds the kernels)."""
+    monkeypatch.setattr(tfa, "RESIDENT_KV_BUDGET", 0)
+    q, k, v, g_out, _ = _inputs(10, 1, 128, 4, 2, 128)
+    bf = [torch.from_numpy(a).bfloat16() for a in (q, k, v, g_out)]
+    extra = torch.from_numpy(_rand(11, (1, 128, 4, 12))[0]).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in bf[:3]]
+    out = tfa.flash_attention(*leaves, triangular=triangular)
+    got = torch.autograd.grad(torch.cat([out, extra], -1), leaves,
+                              torch.cat([bf[3], extra], -1))
+    want = torch.autograd.grad(
+        tfa.flash_attention(*leaves, triangular=triangular), leaves, bf[3])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -427,41 +427,60 @@ def _hack_module(name):
     return mod
 
 
-@pytest.mark.parametrize("Hq,Hkv", [(2, 1), (4, 2)])
+@pytest.mark.parametrize("Hq,Hkv,window", [
+    pytest.param(2, 1, None, id="2-1"), pytest.param(4, 2, None, id="4-2"),
+    pytest.param(2, 1, 160, id="2-1-window"),
+    pytest.param(4, 2, 160, id="4-2-window")])
 def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
-        monkeypatch, Hq, Hkv):
-    """ROADMAP Queue C 12: the bf16 tri kernels round P (as bf16 hi + lo)
-    and dS to bf16 before their second product; the JAX kernels keep both
-    in f32. The CPU replay of the kernels' arithmetic
-    (hack/torch_tri_bf16_replay.py) on bf16 values from a numpy seed,
-    against JAX triangular=True on the same values (Pallas in interpret
-    mode, streaming forced; in f32, so that both sides stop before the
-    last rounding of out and dQ to bf16): out and dQ (relative to its
-    largest value) within 5e-3, lse within 5e-5, half the card's 1e-2 and
-    1e-4, so rounding alone never spends the card's tolerance."""
+        monkeypatch, Hq, Hkv, window):
+    """ROADMAP Queue C 12: the bf16 tensor-core kernels round P (as bf16
+    hi + lo in the forward, once in dK/dV) and dS to bf16 before their
+    second product; the JAX kernels keep both in f32. The CPU replay of the
+    kernels' arithmetic (hack/torch_tri_bf16_replay.py) on bf16 values
+    from a numpy seed, against JAX on the same values (Pallas in interpret
+    mode; in f32, so that both sides stop before the last rounding to
+    bf16): without a window against triangular=True (streaming forced),
+    out, dQ, dK and dV (each gradient relative to its largest value)
+    within 5e-3, lse within 5e-5, half the card's 1e-2 and 1e-4, so
+    rounding alone never spends the card's tolerance; with a window the
+    rectangular flash_bwd_dkv's dK and dV, from the plain forward's out and
+    lse, against the JAX rectangular kernels' VJP, within 5e-3."""
     replay = _hack_module("torch_tri_bf16_replay")
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
     S, D = 384, 128
     q, k, v, dout = replay.inputs(21, 1, S, Hq, Hkv, D)
     outs, vjp = jax.vjp(lambda *a: jfa.flash_attention_with_lse(
-        *a, triangular=True, block_q=128, block_k=128, interpret=True),
+        *a, triangular=window is None, window=window, block_q=128,
+        block_k=128, interpret=True),
         *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
-    jdq = np.asarray(vjp((jnp.asarray(dout.float().numpy()),
-                          jnp.zeros_like(outs[1])))[0])
+    jdq, jdk, jdv = (np.asarray(g) for g in vjp(
+        (jnp.asarray(dout.float().numpy()), jnp.zeros_like(outs[1]))))
     scale = D ** -0.5
-    out, lse = replay.replay_fwd(q, k, v, scale)
-    dq = replay.replay_dq(q, k, v, dout, out, lse, scale)
-    assert np.abs(out.numpy() - np.asarray(outs[0])).max() <= 5e-3
-    assert np.abs(lse.numpy() - np.asarray(outs[1])).max() <= 5e-5
-    assert np.abs(dq.numpy() - jdq).max() / np.abs(jdq).max() <= 5e-3
+
+    def rel(got, want):
+        return np.abs(got.numpy() - want).max() / np.abs(want).max()
+
+    if window is None:
+        out, lse = replay.replay_fwd(q, k, v, scale)
+        dq = replay.replay_dq(q, k, v, dout, out, lse, scale)
+        assert np.abs(out.numpy() - np.asarray(outs[0])).max() <= 5e-3
+        assert np.abs(lse.numpy() - np.asarray(outs[1])).max() <= 5e-5
+        assert rel(dq, jdq) <= 5e-3
+    else:
+        out, lse = tfa.attention_plain(q.float(), k.float().transpose(1, 2),
+                                       v.float().transpose(1, 2), 0,
+                                       window=window)
+    dk, dv = replay.replay_dkv(q, k, v, dout, out, lse, scale, window=window)
+    assert rel(dk, jdk) <= 5e-3
+    assert rel(dv, jdv) <= 5e-3
 
 
 def test_tri_wrapper_refuses_misaligned_bf16_copies():
     """The bf16 tensor-core kernels copy rows in 16-byte chunks: a bf16
     input they copy with a stride that is not a whole number of chunks, or
     a base off a 16-byte boundary, raises ValueError naming it, before the
-    kernel library is asked for. f32 inputs and dK/dV (FMA tile steps)
-    take any strides."""
+    kernel library is asked for; dK/dV copies q, k, v and dout too. f32
+    inputs (FMA tile steps) take any strides."""
     S, Hq = 128, 2
     bf = torch.bfloat16
     row = Hq * 128 + 4          # a row stride of 260 elements
@@ -477,8 +496,9 @@ def test_tri_wrapper_refuses_misaligned_bf16_copies():
                                          r"16-byte aligned"):
         tfa._launch_tri("flash_bwd_dq_tri", qa, k, k, scale=1.0, dout=dout,
                         lse=lse, delta=lse)
-    tfa._check_tri_copies("flash_bwd_dkv_tri", q=q, k=k, v=k, dout=dout)
-    tfa._check_tri_copies("flash_fwd_tri", q=q.float(), k=k, v=k)
+    with pytest.raises(ValueError, match=r"flash_bwd_dkv_tri: q strides"):
+        tfa._check_tc_copies("flash_bwd_dkv_tri", q=q, k=k, v=k, dout=dout)
+    tfa._check_tc_copies("flash_fwd_tri", q=q.float(), k=k, v=k)
 
 
 def test_tri_wrapper_checks_before_it_builds():

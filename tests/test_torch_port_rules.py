@@ -108,8 +108,9 @@ def test_flash_tri_args_mirror_the_cuda_struct():
 
 
 def test_tri_grid_query_names_every_tri_entry():
-    """flash_tri_ctas(which, ...) and flash_tri_ws_floats(which) number the
-    three tri entries as the source's enum does."""
+    """flash_tri_ctas(which, ...) and flash_tri_ws_floats(which, ...)
+    number the three tri entries as the source's enum does, and both take
+    the act dtype (the bf16 dK/dV tile edge differs from the f32 one)."""
     text = (_cuda.CSRC / "flash_tri.cu").read_text()
     assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", text)
     assert _cuda.TRI_WHICH == {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1,
@@ -117,7 +118,18 @@ def test_tri_grid_query_names_every_tri_entry():
     assert {e for e, (src, _) in _cuda.ENTRIES.items()
             if src == "flash_tri"} == set(_cuda.TRI_WHICH)
     assert 'extern "C" int flash_tri_ctas(int which, int act_dtype)' in text
-    assert 'extern "C" long long flash_tri_ws_floats(int which)' in text
+    assert ('extern "C" long long flash_tri_ws_floats(int which, '
+            'int act_dtype)') in text
+
+
+def test_bwd_dkv_grid_query_is_declared():
+    """flash_bwd.cu owns flash_bwd_dkv's grid and answers for it through
+    flash_bwd_dkv_blocks(B, Hkv, S, act_dtype), which _cuda types."""
+    text = (_cuda.CSRC / "flash_bwd.cu").read_text()
+    assert ('extern "C" long long flash_bwd_dkv_blocks(int B, int Hkv, '
+            'int S, int act_dtype)') in text
+    assert "dkv_grid<T>(a.B, a.Hkv, a.S)" in text
+    assert callable(_cuda.bwd_dkv_blocks)
 
 
 def test_every_entry_point_has_its_source_and_struct():
