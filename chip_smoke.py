@@ -6,10 +6,13 @@
 Phases, each of which exits non-zero on a failed check:
 1. card and build: the card's name and power limit, the nvcc build of every
    kernel from ops/csrc (one nvcc per source, started together), with
-   ptxas's registers and spills of the tensor-core dK/dV instances and the
-   HGMMA instructions in their SASS (cuobjdump);
+   ptxas's registers and spills of the six tensor-core (bf16) instances
+   (flash_fwd, flash_bwd_dq, flash_bwd_dkv and the three tri kernels) and
+   the HGMMA instructions in their SASS (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32, then its time
+   path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
+   flash_fwd and bf16-cache prefill on the tensor cores, the int8 cache and
+   f32 on FMA), then its time
    (CUDA events, L2 flushed before each launch) beside its plain version's,
    one PyTorch library call's (scaled_dot_product_attention, a yardstick the
    port never calls) and its bound (bytes over 3.35 TB/s or bf16 operations
@@ -25,10 +28,11 @@ Phases, each of which exits non-zero on a failed check:
    error relative to the largest plain gradient), then, at the training
    shape (B=8, S=2048 causal, Hq 16, Hkv 8, bf16), the forward kernel
    against attention_plain and both backward kernels against
-   attention_bwd_plain, and each backward kernel timed beside the plain
-   backward, the library yardstick (torch.autograd.grad of
-   scaled_dot_product_attention, dQ/dK/dV together) and its bound
-   (bound_share = bound / time);
+   attention_bwd_plain, the forward timed beside the plain forward, SDPA's
+   forward and its bound (the flash_fwd row's at_train_shape), and each
+   backward kernel beside the plain backward, the library yardstick
+   (torch.autograd.grad of scaled_dot_product_attention, dQ/dK/dV
+   together) and its bound (bound_share = bound / time);
 6. exact training: Llama-1B width, 2 layers, f32: one make_train_step with
    the flash kernels and one with dense attention, from the same params and
    batch, agree in loss and every gradient, and again in the loss of a
@@ -91,9 +95,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# the tensor-core dK/dV instances: (source, a substring of the mangled name)
-TC_DKV = {"flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
-          "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernel")}
+# the tensor-core (bf16) instances: (source, a substring of the mangled name)
+TC_KERNELS = {
+    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernel"),
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernel"),
+    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
+    "flash_fwd_tri": ("flash_tri", "flash_fwd_tri_kernelI13__nv_bfloat16"),
+    "flash_bwd_dq_tri": ("flash_tri",
+                         "flash_bwd_dq_tri_kernelI13__nv_bfloat16"),
+    "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernel")}
 
 
 def ptxas_info(log):
@@ -138,16 +148,18 @@ def hgmma_counts(_cuda, source):
 
 
 def tc_build_report(_cuda, logs):
-    """Per tensor-core dK/dV entry: ptxas's registers and spills (when this
+    """Per tensor-core instance: ptxas's registers and spills (when this
     run built its library) and the HGMMA count of its SASS; fails when ptxas
     spilled, or when the SASS holds no HGMMA (the tensor-core path is not
     there) or cannot be read."""
     report = {}
-    for entry, (source, part) in TC_DKV.items():
+    sass = {}
+    for entry, (source, part) in TC_KERNELS.items():
+        if source not in sass:
+            sass[source] = hgmma_counts(_cuda, source)
         regs = {k: v for k, v in ptxas_info(logs.get(source, "")).items()
                 if part in k}
-        hgmma = sum(n for k, n in hgmma_counts(_cuda, source).items()
-                    if part in k)
+        hgmma = sum(n for k, n in sass[source].items() if part in k)
         ptxas = next(iter(regs.values()), None)
         report[entry] = {"ptxas": ptxas, "hgmma": hgmma}
         print(f"  {entry} (bf16, {part}): ptxas {ptxas}, "
@@ -452,6 +464,24 @@ def phase_bwd_kernels(torch, tfa, dev):
                                              enable_gqa=True)
     lib_dout = dout.transpose(1, 2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # the forward at the training shape (the serving row is phase 2's)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    ops, nbytes = work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2,
+                       False, True)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    fwd_train = {
+        "shape": list(TRAIN_SHAPE), "max_abs_err": fwd_err,
+        "ms": time_ms(lambda: tfa._launch(
+            "flash_fwd", q, kh, vh, 0, causal=True, scale=D ** -0.5,
+            want_lse=True), flush),
+        "plain_ms": time_ms(lambda: tfa.attention_plain(q, kh, vh, 0), flush),
+        "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *[t.detach() for t in lib_in], is_causal=True, enable_gqa=True),
+            flush)}
+    fwd_train["bound_share"] = fwd_train["bound_ms"] / fwd_train["ms"]
+    print(f"flash_fwd at the training shape: {json.dumps(fwd_train)}")
     plain_ms = time_ms(lambda: tfa.attention_bwd_plain(q, k, v, out, lse,
                                                        dout), flush)
     library_ms = time_ms(lambda: torch.autograd.grad(
@@ -480,7 +510,7 @@ def phase_bwd_kernels(torch, tfa, dev):
             rows[-1]["blocks"] = tfa._cuda.bwd_dkv_blocks(B, Hkv, S, 1)
         print(f"{name}: {json.dumps(rows[-1])}")
     del flush, lib_out, lib_in
-    return fwd_err, rows
+    return fwd_train, rows
 
 
 def phase_train_exact(torch, tl, tt, dev):
@@ -1107,9 +1137,10 @@ def main() -> int:
     print(f"main phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()      # the serving params are gone
     t0 = time.perf_counter()
-    fwd_err, bwd_rows = phase_bwd_kernels(torch, tfa, dev)
+    fwd_train, bwd_rows = phase_bwd_kernels(torch, tfa, dev)
     fwd = next(r for r in rows if r["name"] == "flash_fwd")
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_err)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_train["max_abs_err"])
+    fwd["at_train_shape"] = fwd_train
     rows += bwd_rows
     print(f"backward kernel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

@@ -14,14 +14,20 @@
 // What bounds it on an H100: like the forward, compute. dQ does 6 * D
 // operations per attended (query, key) pair and q-head, dK/dV 8 * D, against
 // a few bytes per position, thousands of operations per byte at long S.
-// dQ and the f32 dK/dV compute in f32 FMA from shared memory (no tensor
-// cores), far below the bf16 roofline; the bf16 dK/dV runs on the tensor
-// cores (below). What the design does about the bound is to do only live
-// work and no redundant passes:
+// The bf16 instances run on the tensor cores through flash_tc.cuh's tile
+// steps (wgmma on swizzled bf16 tiles, cp.async rings, one warpgroup a
+// block, two CTAs an SM), shared with flash_tri.cu; the f32 instances are
+// f32 FMA from shared memory, the exactness instances. What the design
+// does about the bound is to do only live work and no redundant passes:
 //   - dQ: one block per (batch * q-head, 64-row query tile) that loops over
-//     the live key tiles only (causal frontier, window band), the loop-bound
-//     counterpart of the TPU's sequential kv grid axis, its `live` gate and
-//     its index-map clamps. Rows owned as in the forward (flash_common.cuh).
+//     the live key tiles only (causal frontier, window band:
+//     fa::live_keys), the loop-bound counterpart of the TPU's sequential kv
+//     grid axis, its `live` gate and its index-map clamps. In bf16 the
+//     block's Q and dO tiles are loaded once, K/V come through the ring
+//     (tc::kv_walk), tc::dq_tile_tc rebuilds P from lse and dS in
+//     registers and rounds dS to bf16 once for dQ += dS K (tc::RectMask);
+//     a causal grid starts with the longest query tiles (tc::query_tile). In
+//     f32, rows owned as in the forward (flash_common.cuh).
 //   - dK/dV: one block per (batch * kv-head, key tile) that loops over the
 //     live query tiles only and the group's q-heads. GQA is folded inside
 //     the block: the group's contributions add into one f32 accumulator,
@@ -29,22 +35,23 @@
 //     over the group after the kernel. In f32, 32 keys (the FMA dK and dV
 //     accumulators of 32 keys x 128 dims are 64 registers a thread), the
 //     group outermost; in bf16, 64 keys, one warpgroup on the tensor cores
-//     (tc::dkv_walk_tc in flash_tc.cuh, shared with flash_tri.cu's
-//     flash_bwd_dkv_tri: S^T and dP^T by wgmma from K-major tiles, P^T and
+//     (tc::dkv_walk_tc: S^T and dP^T by wgmma from K-major tiles, P^T and
 //     dS^T rounded to bf16 in registers for dV += P^T dO and dK += dS^T Q),
 //     the query tiles of the live range (fa::live_queries) descending, the
-//     group innermost, two CTAs an SM.
+//     group innermost.
 //   - Every output element has one owner block, so there are no atomics and
 //     the results are the same run to run.
 // The opt-in flattened-triangle kernels _bwd_*_tri compute the same
 // function over one flat list of the live causal tiles; their Hopper
 // counterparts, a persistent balanced schedule over that list, are in
 // flash_tri.cu and share the tile steps (dq_tile, dkv_tile in
-// flash_common.cuh, tc::dkv_tile_tc in flash_tc.cuh) with the kernels here.
-// dQ on the tensor cores and TMA are later work.
+// flash_common.cuh; tc::dq_tile_tc, tc::dkv_tile_tc in flash_tc.cuh) with
+// the kernels here. Left for later: warp specialisation with TMA,
+// ping-pong consumers, fp8.
 #include <type_traits>
 
 #include "flash_tc.cuh"
+
 
 namespace {
 
@@ -203,15 +210,61 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tc_kernel(FlashB
                 static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
 }
 
+// The bf16 dQ instance: one warpgroup per (batch * q-head, 64-query tile)
+// on the tensor cores, over the tiles that hold the live key range.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dq_tc_kernel(FlashBwdArgs a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = tc::E;
+  const uint32_t sQ = tc::tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
+  const int b = blockIdx.x / a.Hq;
+  const int h = blockIdx.x % a.Hq;
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int q0 = tc::query_tile(a.causal) * E;
+  wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
+  wg::load_tile(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
+                a.S);
+  const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
+  float lse2[2], delta[2], acc[64];
+  bool live[2];
+  tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  const int2 keys = fa::live_keys(q0, min(q0 + E, a.S) - 1, a.S, a.causal, a.window);
+  const tc::RectMask mask{a.S, a.causal, a.window};
+  const float sl2 = a.scale * tc::kLog2e;
+  tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+              static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
+              keys.x / E, (keys.y + E - 1) / E, [](int j) { return j + 1; },
+              [&](uint32_t sK, int j) {
+                tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2, a.scale,
+                               mask);
+              });
+  const float one[2] = {1.f, 1.f};
+  tc::store_bf16(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0, a.S,
+                 one);
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
-  constexpr int BR = 16 * DQ_RPT;
-  constexpr size_t smem = dq_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool tensor_cores = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int BR = tensor_cores ? tc::E : 16 * DQ_RPT;
+  void* fn;
+  size_t smem;
+  if constexpr (tensor_cores) {
+    fn = reinterpret_cast<void*>(flash_bwd_dq_tc_kernel<D>);
+    smem = tc::DQ_SMEM;
+  } else {
+    fn = reinterpret_cast<void*>(flash_bwd_dq_kernel<T, D>);
+    smem = dq_smem<D>();
+  }
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.B * a.Hq, (a.S + BR - 1) / BR);
-  flash_bwd_dq_kernel<T, D><<<grid, fa::NTHREADS, smem, stream>>>(a);
+  void* args[] = {const_cast<FlashBwdArgs*>(&a)};
+  e = cudaLaunchKernel(fn, dim3(a.B * a.Hq, (a.S + BR - 1) / BR), dim3(fa::NTHREADS), args, smem,
+                       stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

@@ -15,9 +15,9 @@
 // of one warp, so row maxima and sums reduce with three shuffles. The output
 // accumulator of a row lives in the same thread as that row's running max
 // and denominator (columns (t % 8) + 8 * c of D), so rescaling never crosses
-// threads. All arithmetic is f32 FMA from shared memory: simple and right
-// first. The tensor-core tile steps (wgmma) are flash_wgmma.cuh's, used so
-// far by flash_tri.cu's bf16 forward and dQ.
+// threads. All arithmetic is f32 FMA from shared memory: the exactness
+// instances (f32) and the int8-cache forward use it. The bf16 tile steps
+// run on the tensor cores (flash_tc.cuh, on flash_wgmma.cuh's products).
 //
 // Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30
 // (attendable() below is its one home): key position kp is attendable from
@@ -184,6 +184,26 @@ __device__ __forceinline__ int2 live_queries(int k0, int k1, int S, int causal, 
   return make_int2(causal ? k0 : 0, window > 0 ? min(S, k1 + window) : S);
 }
 
+// The window's key-tile gate of a forward block whose first query sits at
+// position min_qpos (the TPU kernels' `live` window clause and index-map
+// clamp): the BK-key tile at kv0 is skipped when it lies wholly below that
+// row's window and does not overlap the sinks [pad, pad + sinks).
+__device__ __forceinline__ bool window_skips(int kv0, int min_qpos, int window, int pad,
+                                             int sinks) {
+  if (window <= 0) return false;
+  const bool below = kv0 + BK - 1 < min_qpos - window + 1;
+  const bool sink = sinks > 0 && kv0 <= pad + sinks - 1;
+  return below && !sink;
+}
+
+// The first key tile that is not wholly below the window of the row at
+// min_qpos: every skipped tile (window_skips) lies before it, and every
+// tile from the first skipped one up to it is skipped.
+__device__ __forceinline__ int window_first_tile(int min_qpos, int window) {
+  const int x = min_qpos - window - (BK - 2);   // tile j is below iff BK j < x
+  return window > 0 && x > 0 ? (x + BK - 1) / BK : 0;
+}
+
 // Shared-memory floats a block needs: Q and K padded to D + 1 (conflict-free
 // column reads), V, and the probability tile padded to BK + 1.
 template <int D, int RPT>
@@ -222,11 +242,7 @@ __device__ void attend_tiles(const float* sQ, float* sK, float* sV, float* sP,
 
   for (int j = lo_tile; j < hi_tile; ++j) {
     const int kv0 = j * BK;
-    if (window > 0) {
-      const bool below = kv0 + BK - 1 < min_qpos - window + 1;
-      const bool sink = sinks > 0 && kv0 <= pad + sinks - 1;
-      if (below && !sink) continue;
-    }
+    if (window_skips(kv0, min_qpos, window, pad, sinks)) continue;
     __syncthreads();   // previous tile's sK / sV reads are done
     for (int idx = tid; idx < BK * D; idx += NTHREADS) {
       const int r = idx / D, d = idx % D;

@@ -17,19 +17,33 @@
 // batch row: thousands of operations per byte, far above the ~295 the card
 // needs to leave the memory roofline). Cache prefill at the serving shapes
 // (S = 128..512 queries against up to a few thousand cached positions) sits
-// near the same line. This first version computes in f32 FMA from shared
-// memory (no tensor cores), so it runs well below the bf16 roofline; what
-// its design does about the bound is to do only the live work: one block per
-// (batch * q-head, 64-row query tile) loops over the live key tiles only
-// (causal frontier, pad floor, window band plus sinks), which replaces the
-// TPU's sequential kv grid axis and its index-map clamps
-// (_causal_kv_index), so dead tiles cost neither compute nor bytes. GQA
-// costs no copy: q-head h reads kv head h / group. The persistent causal
-// schedule (one flat list of live tiles in equal shares per CTA, the
-// counterpart of the TPU's _kernel_tri) lives in flash_tri.cu, behind
-// triangular=True. Tensor cores (wgmma with bf16 operands) and TMA loads are
-// later work.
-#include "flash_common.cuh"
+// near the same line. What the design does about it:
+//   - only live work: one block per (batch * q-head, 64-row query tile)
+//     loops over the live key tiles only (causal frontier, pad floor,
+//     window band plus sinks: fa::window_skips), which replaces the TPU's
+//     sequential kv grid axis and its index-map clamps (_causal_kv_index),
+//     so dead tiles cost neither compute nor bytes. GQA costs no copy:
+//     q-head h reads kv head h / group.
+//   - the bf16 instance (bf16 activations and K/V: self-attention and the
+//     bf16 cache) runs on the tensor cores: one warpgroup per block, its Q
+//     tile swizzled once, K/V through flash_tc.cuh's two-stage cp.async ring
+//     (tc::kv_walk: the copy of the next live tile, not j + 1 under a window,
+//     issued before the products of the current one), tc::fwd_tile_tc's
+//     wgmma products with P as bf16 hi + lo, the mask on fragments
+//     (tc::CacheMask, a whole-tile test first), out and lse stored from the
+//     fragments; 80 KB of shared memory, two CTAs an SM. A causal grid
+//     starts with the query tiles that have the most key tiles
+//     (tc::query_tile), so that the short ones fill the tail.
+//   - the f32 instance (the exactness instance) and the int8-cache instances
+//     compute in f32 FMA from shared memory (fa::attend_tiles), int8
+//     dequantised per token there; an int8 tile on the tensor cores would
+//     add a rounding point (ROADMAP Queue B).
+// The persistent causal schedule (one flat list of live tiles in equal
+// shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
+// flash_tri.cu, behind triangular=True, on the same tile steps. Left for
+// later: warp specialisation with TMA, ping-pong consumers, fp8.
+#include "flash_tc.cuh"
+
 
 namespace {
 
@@ -91,6 +105,66 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
+// The bf16 instance on the tensor cores: one warpgroup per (batch * q-head,
+// 64-query tile) over the block's live key tiles.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs a) {
+  static_assert(D == 128, "one tile spans the head dim");
+  using bf16 = __nv_bfloat16;
+  constexpr int E = tc::E;
+  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;
+  const int b = blockIdx.x / a.Hq;
+  const int h = blockIdx.x % a.Hq;
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int q0 = tc::query_tile(a.causal) * E;
+  const int start = a.starts ? a.starts[a.n_start > 1 ? b : 0] : a.start;
+  const int pad = a.pad_lens ? a.pad_lens[b] : 0;
+  const int qpos0 = start + q0;   // position of the tile's first query
+
+  // block-uniform key tiles: from the pad floor's to the causal frontier's,
+  // those wholly below the window skipped unless they overlap the sinks
+  const int last = min(q0 + E, a.Sq) - 1;
+  const int hi = a.causal ? min(a.Sk, start + last + 1) : a.Sk;
+  const int end = hi > 0 ? (hi + E - 1) / E : 0;
+  const int wlo = fa::window_first_tile(qpos0, a.window);
+  auto skips = [&](int j) { return fa::window_skips(j * E, qpos0, a.window, pad, a.sinks); };
+  auto next = [&](int j) {
+    ++j;
+    return skips(j) ? wlo : j;
+  };
+  const int first = skips(pad / E) ? wlo : pad / E;
+
+  wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq);
+  float acc[64], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  const tc::CacheMask mask{a.Sk, a.causal, pad, a.window, fa::sink_bound(pad, a.sinks)};
+  const float sl2 = a.scale * tc::kLog2e;
+  tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+              static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.Sk,
+              first, end, next, [&](uint32_t sK, int j) {
+                tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
+              });
+
+  float inv[2], lse[2];
+  tc::fwd_final(m, l, inv, lse);
+  tc::store_bf16(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss, q0, a.Sq,
+                 inv);
+  if (a.lse != nullptr)
+    tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.Sq, q0, a.Sq);
+}
+
+template <int D>
+cudaError_t launch_tc(const FlashArgs& a, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(tc::FWD_SMEM));
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.B * a.Hq, (a.Sq + tc::E - 1) / tc::E);
+  flash_fwd_tc_kernel<D><<<grid, wg::THREADS, tc::FWD_SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, typename KT, int D>
 cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   constexpr int RPT = 4;
@@ -108,7 +182,7 @@ template <int D>
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t s) {
   if (a.act_dtype == 0 && a.kv_dtype == 0) return launch<float, float, D>(a, s);
   if (a.act_dtype == 0 && a.kv_dtype == 2) return launch<float, int8_t, D>(a, s);
-  if (a.act_dtype == 1 && a.kv_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16, D>(a, s);
+  if (a.act_dtype == 1 && a.kv_dtype == 1) return launch_tc<D>(a, s);
   if (a.act_dtype == 1 && a.kv_dtype == 2) return launch<__nv_bfloat16, int8_t, D>(a, s);
   return cudaErrorInvalidValue;
 }

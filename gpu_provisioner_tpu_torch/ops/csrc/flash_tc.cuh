@@ -1,7 +1,32 @@
 // Tensor-core tile steps of the attention kernels (sm_90a, bf16), built on
-// flash_wgmma.cuh's products: the 64 x 64 score product, the P V-shaped
-// product from registers, and the dK/dV step that flash_tri.cu's
-// flash_bwd_dkv_tri and flash_bwd.cu's flash_bwd_dkv share.
+// flash_wgmma.cuh's products: the forward step, the dQ step and the dK/dV
+// step, each one 64 x 64 tile of (query, key) pairs, with the walks that
+// feed them through a two-stage cp.async ring. flash_fwd.cu's flash_fwd and
+// flash_tri.cu's flash_fwd_tri share the forward step; flash_bwd.cu's
+// flash_bwd_dq and flash_tri.cu's flash_bwd_dq_tri the dQ step;
+// flash_bwd.cu's flash_bwd_dkv and flash_tri.cu's flash_bwd_dkv_tri the dK/dV
+// step. What differs between a pair is the schedule and the mask, a functor
+// with a per-element `keep` and a whole-tile `full` test (the step skips
+// the per-element test on a full tile).
+//
+// Forward and dQ (FlashAttention-2/3's query-major loop). One warpgroup of
+// 128 threads owns a 64-query tile, the wgmma M: its Q tile (and dO for dQ)
+// is loaded once, swizzled; K/V tiles come through the ring (kv_walk), the
+// copy of the next live tile issued before the products of the current one.
+//   - forward: S = Q K^T, the online softmax on the accumulator's fragments
+//     (running max and denominator of the thread's two rows), P split in
+//     registers into two bf16 terms hi + lo, the A operands of O += P V (V
+//     MN-major); the denominator sums the f32 P. One bf16 rounding of P
+//     would move an output near 2 by a bf16 step, 0.0156, past the 1e-2 the
+//     kernels are held to; the lo term costs half again the step's products.
+//   - dQ: S = Q K^T and dP = dO V^T, P = exp(S scale - lse) from the
+//     forward's lse and dS = P (dP - delta) scale in registers, dS rounded
+//     to bf16 once for dQ += dS K (K MN-major: one swizzled K tile is both B
+//     operands).
+// The JAX kernels keep P and dS in f32; hack/torch_tri_bf16_replay.py
+// replays these roundings against them (ROADMAP Queue C 12). Shared memory:
+// Q and two K/V stages, 80 KB (forward); Q, dO and two stages, 96 KB (dQ):
+// two CTAs an SM.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -38,8 +63,21 @@ using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int E = wg::ROWS;                  // a key or query tile: 64 rows
 constexpr uint32_t STAT_BYTES = 2 * E * sizeof(float);   // a stage's lse, delta
-// K, V; Q, dO in two stages; lse, delta in two stages; alignment slack
+constexpr float kLn2 = 0.6931471805599453f;
+// Q; K and V in two stages / Q, dO; K and V in two stages / K, V; Q, dO in
+// two stages; lse, delta in two stages; each plus the slack that aligns the
+// first tile to a swizzle period
+constexpr size_t FWD_SMEM = 5 * wg::TILE_BYTES + wg::ALIGN;
+constexpr size_t DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
 constexpr size_t DKV_SMEM = 6 * wg::TILE_BYTES + 2 * STAT_BYTES + wg::ALIGN;
+
+// The query tile of a rectangular grid's block (blockIdx.y), the tiles
+// with the most key tiles first when `descending` (on a causal grid), so
+// that the short ones fill the tail.
+__device__ __forceinline__ int query_tile(bool descending) {
+  return descending ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                    : static_cast<int>(blockIdx.y);
+}
 
 // The first swizzle-aligned byte of dynamic shared memory.
 __device__ __forceinline__ uint32_t tiles() {
@@ -99,9 +137,26 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// ---- dK/dV ----------------------------------------------------------------
+// Rows r0 + frag_row (+ 8) of a 64 x 128 accumulator, each times mul[i], as
+// bf16 at `base` (row stride ld elements), rows at or past n left out.
+__device__ __forceinline__ void store_bf16(const float (&acc)[64], bf16* base, long long ld,
+                                           int r0, int n, const float (&mul)[2]) {
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + row + 8 * i;
+    if (r >= n) continue;
+    bf16* o = base + r * ld + col;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+  }
+}
 
-// The masks of the dK/dV step, on (key, query) positions: keep(kp, qp), and
+// ---- masks ----------------------------------------------------------------
+
+// The masks of the tile steps, on (key, query) positions: keep(kp, qp), and
 // full(k0, q0), true when every pair of the 64 x 64 tile at (k0, q0) is kept
 // (the step then skips the per-element test).
 struct TriMask {   // causal self-attention over the flattened triangle
@@ -120,6 +175,199 @@ struct RectMask {  // fa::attendable: causal or not, with or without a window
            (window <= 0 || k0 > q0 + E - 1 - window);
   }
 };
+
+// fa::attendable at cache positions (flash_fwd: self-attention at start 0,
+// or queries at start.. against the cache): keys below Sk, the pad floor,
+// causal, the window with its sinks below sink_hi (fa::sink_bound).
+struct CacheMask {
+  int Sk, causal, pad, window, sink_hi;
+  __device__ __forceinline__ bool keep(int kp, int qp) const {
+    return kp < Sk && fa::attendable(qp, kp, causal, pad, window, sink_hi);
+  }
+  __device__ __forceinline__ bool full(int k0, int q0) const {
+    return k0 + E <= Sk && k0 >= pad && (!causal || q0 >= k0 + E - 1) &&
+           (window <= 0 || k0 > q0 + E - 1 - window || k0 + E <= sink_hi);
+  }
+};
+
+// ---- forward and dQ -------------------------------------------------------
+
+// A query tile's walk over key tiles first, next(first), ... while < end,
+// through the two-stage K/V ring at `ring` (stage st: K at ring + 2 st
+// TILE, V after it; kb / vb at position 0 of the (batch, kv head), rows at
+// or past Sk zero-filled). Issues the first tile's copy and commits it with
+// whatever the caller issued before (its Q, dO tiles); for each tile waits
+// for its stage, publishes it to every thread and to the tensor cores,
+// issues the copy of the next live tile into the other stage (whose
+// products are done), then calls step(stage, j). `next` gives the tile
+// after j, skipping dead ones: the ring must hold the tile the step reads.
+template <typename Next, typename Step>
+__device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf16* vb,
+                                        long long k_ss, long long v_ss, int Sk, int first,
+                                        int end, Next next, Step step) {
+  if (first < end) {
+    wg::load_tile(ring, kb, k_ss, first * E, Sk);
+    wg::load_tile(ring + wg::TILE_BYTES, vb, v_ss, first * E, Sk);
+  }
+  wg::copy_commit();
+  int st = 0;
+  for (int j = first; j < end; st ^= 1) {
+    const int jn = next(j);
+    wg::copy_wait<0>();
+    wg::fence_smem_to_async();
+    __syncthreads();
+    if (jn < end) {
+      const uint32_t other = ring + 2 * (st ^ 1) * wg::TILE_BYTES;
+      wg::load_tile(other, kb, k_ss, jn * E, Sk);
+      wg::load_tile(other + wg::TILE_BYTES, vb, v_ss, jn * E, Sk);
+      wg::copy_commit();
+    }
+    step(ring + 2 * st * wg::TILE_BYTES, j);
+    j = jn;
+  }
+  wg::copy_wait<0>();        // nothing in flight when the walk had no tile
+}
+
+// One forward step (_online_update): queries q0 .. q0 + 63 (Q tile at sQ)
+// against keys k0 .. k0 + 63 (K, V tiles at sK, sK + TILE), the copies
+// waited for and published. S = Q K^T, the mask, the running max m (log2
+// units) and denominator l of the fragment's two rows (l over this thread's
+// columns; the quad's sum at the end, fwd_final), acc rescaled, then acc +=
+// P V with P as bf16 hi + lo.
+template <typename Mask>
+__device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], float (&l)[2],
+                                            uint32_t sQ, uint32_t sK, int q0, int k0, float sl2,
+                                            const Mask& mask) {
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  float s[32];
+  wg::fence();
+  abt(s, sQ, sK);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(s);
+  // the mask in a pass of its own, skipped on a full tile (a per-element
+  // test folded into the max's loop measured slower on both schedules)
+  if (mask.full(k0, q0)) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= sl2;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      s[e] = mask.keep(k0 + col + wg::elem_col(e), q0 + row + wg::elem_row(e)) ? s[e] * sl2
+                                                                              : FA_NEG_INF;
+  }
+  // (element 4 j + 2 i + c of a fragment lies in row i, j-th column pair)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = FA_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) mx = fmaxf(mx, s[4 * j + 2 * i + c]);
+    const float m_new = fmaxf(m[i], wg::quad_max(mx));
+    const bool live = m_new > FA_NEG_INF / 2;
+    const float corr = exp2f(m[i] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * i + c;
+        s[e] = live ? exp2f(s[e] - m_new) : 0.f;
+        psum += s[e];
+      }
+    m[i] = m_new;
+    l[i] = l[i] * corr + psum;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[4 * j + 2 * i] *= corr;
+      acc[4 * j + 2 * i + 1] *= corr;
+    }
+  }
+  pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
+}
+
+// _finalize_out for the fragment's two rows: inv = 1 / l (0 where the row
+// attended nothing) and its lse (NEG_INF there), l summed over the quad.
+__device__ __forceinline__ void fwd_final(const float (&m)[2], const float (&l)[2],
+                                          float (&inv)[2], float (&lse)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lsum = wg::quad_sum(l[i]);
+    inv[i] = lsum > 0.f ? 1.f / lsum : 0.f;
+    lse[i] = lsum > 0.f ? m[i] * kLn2 + logf(lsum) : FA_NEG_INF;
+  }
+}
+
+// The fragment rows' values v[i] at base[r0 + frag_row + 8 i], one thread of
+// each quad writing, rows at or past n left out.
+__device__ __forceinline__ void store_rows(const float (&v)[2], float* base, int r0, int n) {
+  const int t = threadIdx.x, row = wg::frag_row(t);
+  if ((t & 3) != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (r0 + row + 8 * i < n) base[r0 + row + 8 * i] = v[i];
+}
+
+// The dQ inputs of the fragment's two rows q0 + frag_row (+ 8): lse in log2
+// units, delta, and whether the row attended anything (lse > NEG_INF / 2);
+// rows at or past S attend nothing. `lse` / `delta` at the (batch, q-head)'s
+// row of [B, Hq, S].
+__device__ __forceinline__ void dq_rows(const float* lse, const float* delta, int q0, int S,
+                                        float (&lse2)[2], float (&dl)[2], bool (&live)[2]) {
+  const int row = wg::frag_row(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + row + 8 * i;
+    const float x = qp < S ? lse[qp] : FA_NEG_INF;
+    live[i] = x > FA_NEG_INF / 2;
+    lse2[i] = x * kLog2e;
+    dl[i] = qp < S ? delta[qp] : 0.f;
+  }
+}
+
+// One dQ step (_bwd_dq_step): queries q0 .. q0 + 63 (Q, dO tiles at sQ, sdO;
+// their rows' dq_rows) against keys k0 .. k0 + 63 (K, V tiles at sK, sK +
+// TILE), the copies waited for and published. S = Q K^T and dP = dO V^T,
+// P from lse while dP finishes, dS = P (dP - delta) scale, acc += dS K with
+// dS rounded to bf16.
+template <typename Mask>
+__device__ __forceinline__ void dq_tile_tc(float (&acc)[64], uint32_t sQ, uint32_t sdO,
+                                           uint32_t sK, const float (&lse2)[2],
+                                           const float (&delta)[2], const bool (&live)[2],
+                                           int q0, int k0, float sl2, float scale,
+                                           const Mask& mask) {
+  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  float s[32], dp[32];
+  wg::fence();
+  abt(s, sQ, sK);
+  wg::commit();
+  abt(dp, sdO, sK + wg::TILE_BYTES);
+  wg::commit();
+  wg::wait<1>();
+  wg::fence_regs(s);
+  if (mask.full(k0, q0)) {   // as in fwd_tile_tc: no per-element test
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = live[i] ? exp2f(s[e] * sl2 - lse2[i]) : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const bool keep = live[i] && mask.keep(k0 + col + wg::elem_col(e), q0 + row + 8 * i);
+      s[e] = keep ? exp2f(s[e] * sl2 - lse2[i]) : 0.f;
+    }
+  }
+  wg::wait<0>();
+  wg::fence_regs(dp);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * scale;
+  pv<false>(acc, s, sK);
+}
+
+// ---- dK/dV ----------------------------------------------------------------
 
 // Where a dK/dV block reads: one (batch, kv head)'s K and V at position 0,
 // the batch's Q and dO at head 0, its lse and delta rows [Hq][S] at head 0.
@@ -248,21 +496,9 @@ __device__ __forceinline__ void dkv_walk_tc(float (&dk)[64], float (&dv)[64], ui
 __device__ __forceinline__ void dkv_store(const float (&dk)[64], const float (&dv)[64], bf16* dkb,
                                           long long dk_ss, bf16* dvb, long long dv_ss, int k0,
                                           int S) {
-  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kp = k0 + row + 8 * i;
-    if (kp >= S) continue;
-    bf16* ok = dkb + kp * dk_ss + col;
-    bf16* ov = dvb + kp * dv_ss + col;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(ok + 8 * j) =
-          __floats2bfloat162_rn(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(ov + 8 * j) =
-          __floats2bfloat162_rn(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
-    }
-  }
+  const float one[2] = {1.f, 1.f};
+  store_bf16(dk, dkb, dk_ss, k0, S, one);
+  store_bf16(dv, dvb, dv_ss, k0, S, one);
 }
 
 }  // namespace tc

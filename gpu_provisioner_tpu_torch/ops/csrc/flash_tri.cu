@@ -9,8 +9,8 @@
 //   - _bwd_dq_kernel_tri (pallas_call in _flash_bwd_tri): flash_bwd_dq_tri;
 //   - _bwd_dkv_kernel_tri (the reversed triangle, _tri_decode_rev):
 //     flash_bwd_dkv_tri.
-// They compute what flash_fwd.cu and flash_bwd.cu compute; what differs is
-// the schedule, and for the bf16 forward and dQ the tile step (below).
+// They compute what flash_fwd.cu and flash_bwd.cu compute, with the same
+// tile steps (below); what differs is the schedule.
 //
 // What bounds them on an H100: compute, as for the rectangular kernels (4, 6
 // and 8 * D operations per attended pair and q-head against a few bytes per
@@ -47,30 +47,20 @@
 //
 // The tile steps. The f32 instances of all three kernels are f32 FMA from
 // shared memory (attend_tiles, dq_tile, dkv_tile), the exactness
-// instances. The bf16 instances run on the tensor cores (flash_wgmma.cuh,
-// flash_tc.cuh), chosen by the template type: one warpgroup of 128 threads
-// owns the segment's 64-row tile. Forward and dQ: Q (and dO) loaded once
-// per segment, the K/V tiles through a two-stage ring of swizzled bf16
-// tiles filled by cp.async, the copy of tile j + 1 issued before the
-// products of tile j. Forward: S = Q K^T (m64n64k16, A and B from shared
-// memory), the online softmax on the accumulator's fragments (mask on the
-// diagonal tile only), P split in registers into two bf16 terms, hi + lo,
-// the A operands of O += P V (m64n128k16 twice, V MN-major), the
-// denominator summed from the f32 P. (One bf16 rounding of P moves an
-// output near 2 across a bf16 rounding step, 0.0156, past the 1e-2 the
-// kernels are held to; the lo term costs half again the forward's
-// products.) dQ: S = Q K^T and dP = dO V^T, P = exp(S scale - lse) and dS =
-// P (dP - delta) scale in registers, dS rounded to bf16 for dQ += dS K (K
-// MN-major: one swizzled K tile is both B operands). dK/dV: the 64-key
-// tile's K and V loaded once per segment, the (query tile, q-head) steps'
-// Q, dO, lse and delta through the ring, tc::dkv_tile_tc (flash_tc.cuh,
-// shared with flash_bwd.cu's flash_bwd_dkv). Shared memory: 80 KB forward,
-// 96 KB dQ, 97 KB dK/dV, so two CTAs an SM. Bound: operations, 4, 6 and 8 D
-// per attended pair and q-head at 989 TFLOP/s bf16 (2.22, 3.34 and 4.45 ms
-// at S = 32768, Hq 8). Left for later: warp specialisation (a producer warp
-// issuing TMA, with setmaxnreg giving the consumers its registers), two
-// consumer warpgroups in ping-pong so that one's softmax overlaps the
-// other's products, and fp8 operands.
+// instances. The bf16 instances run on the tensor cores, chosen by the
+// template type: one warpgroup of 128 threads owns the segment's 64-row
+// tile and runs the tile steps of flash_tc.cuh, which the rectangular
+// kernels share (tc::fwd_tile_tc and tc::dq_tile_tc with flash_fwd.cu and
+// flash_bwd.cu's dQ through tc::kv_walk's K/V ring; tc::dkv_walk_tc with
+// flash_bwd.cu's dK/dV), with the triangle's mask (tc::TriMask). The
+// forward's P goes to the tensor cores as bf16 hi + lo, dQ's dS and dK/dV's
+// P^T and dS^T each rounded to bf16 once (flash_tc.cuh says why). Shared
+// memory: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an SM. Bound:
+// operations, 4, 6 and 8 D per attended pair and q-head at 989 TFLOP/s
+// bf16 (2.22, 3.34 and 4.45 ms at S = 32768, Hq 8). Left for later: warp
+// specialisation (a producer warp issuing TMA, with setmaxnreg giving the
+// consumers its registers), two consumer warpgroups in ping-pong so that
+// one's softmax overlaps the other's products, and fp8 operands.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -229,49 +219,23 @@ __device__ __forceinline__ void lse_merge(float& o, float& L, float oi, float li
   L = z > 0.f ? M + logf(zs) : FA_NEG_INF;
 }
 
-// ---- tensor-core tile steps (bf16) ------------------------------------------
+// ---- tensor-core instances (bf16) -------------------------------------------
 
-constexpr float kLn2 = 0.6931471805599453f;
-// Q; K and V in two stages / Q, dO; K and V in two stages; plus the slack
-// that aligns the first tile to a swizzle period
-constexpr size_t TC_FWD_SMEM = 5 * wg::TILE_BYTES + wg::ALIGN;
-constexpr size_t TC_DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
-
-// Element e of the thread's fragment is attendable on the diagonal tile
-// (kj == r: query row - key column = in-tile row - column) and in range.
-__device__ __forceinline__ bool tc_keep(bool diag, int row, int col, int e, int keys_left) {
-  const int kc = col + wg::elem_col(e);
-  return !diag || (kc <= row + wg::elem_row(e) && kc < keys_left);
-}
-
-// Waits for the copies of the current stage, publishes them to every
-// thread and to the tensor cores, then issues the copy of the next K/V tile
-// (if any) into the other stage, whose products are done.
-__device__ __forceinline__ void tc_next_stage(uint32_t next_k, bool more, const __nv_bfloat16* kb,
-                                              const __nv_bfloat16* vb, long long k_ss,
-                                              long long v_ss, int kv0, int S) {
-  wg::copy_wait<0>();
-  wg::fence_smem_to_async();
-  __syncthreads();
-  if (more) {
-    wg::load_tile(next_k, kb, k_ss, kv0, S);
-    wg::load_tile(next_k + wg::TILE_BYTES, vb, v_ss, kv0, S);
-    wg::copy_commit();
-  }
-}
-
+// The forward's segments on the tensor cores: tc::fwd_tile_tc (flash_tc.cuh,
+// shared with flash_fwd.cu) over the segment's key tiles, the row stored
+// from the fragments, or its normalised f32 partial and lse into the slot.
 template <int D>
 __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
-  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;   // stage st: K, V at ring + 2 st TILE
+  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
   const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
+  const tc::TriMask mask{a.S};
   float* ws_lse = a.ws + 2LL * a.ctas * E * D;
-  float s[32] = {};
 
   Walk walk(blockIdx.x, tri, a.ctas);
   Seg sg;
@@ -279,104 +243,55 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
     const int b = static_cast<int>(sg.bh / a.Hq), h = static_cast<int>(sg.bh % a.Hq);
     const int kvh = h / group;
     const int q0 = sg.r * E;
-    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
     __syncthreads();   // the previous segment's products are done
     wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-    wg::load_tile(ring, kb, a.k_ss, sg.c0 * E, a.S);
-    wg::load_tile(ring + wg::TILE_BYTES, vb, a.v_ss, sg.c0 * E, a.S);
-    wg::copy_commit();
     float acc[64], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-
-    for (int kj = sg.c0; kj <= sg.c1; ++kj) {
-      const int st = (kj - sg.c0) & 1;
-      const uint32_t sK = ring + 2 * st * wg::TILE_BYTES;
-      tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
-                    (kj + 1) * E, a.S);
-      wg::fence();
-      tc::abt(s, sQ, sK);
-      wg::commit();
-      wg::wait<0>();
-      wg::fence_regs(s);
-
-      // _online_update on the fragment's two rows
-      const bool diag = kj == sg.r;
-      const int keys_left = a.S - kj * E;
-      // (element 4 j + 2 i + c of a fragment lies in row i, j-th column pair)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = FA_NEG_INF;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * i + c;
-            s[e] = tc_keep(diag, row, col, e, keys_left) ? s[e] * sl2 : FA_NEG_INF;
-            mx = fmaxf(mx, s[e]);
-          }
-        const float m_new = fmaxf(m[i], wg::quad_max(mx));
-        const bool live = m_new > FA_NEG_INF / 2;
-        const float corr = exp2f(m[i] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int e = 4 * j + 2 * i + c;
-            s[e] = live ? exp2f(s[e] - m_new) : 0.f;
-            psum += s[e];
-          }
-        m[i] = m_new;
-        l[i] = l[i] * corr + psum;     // this thread's columns; the quad's sum at the end
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          acc[4 * j + 2 * i] *= corr;
-          acc[4 * j + 2 * i + 1] *= corr;
-        }
-      }
-      tc::pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
-    }
+    tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
+                sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
+                [&](uint32_t sK, int kj) {
+                  tc::fwd_tile_tc(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
+                });
 
     // _finalize_out, then the row or its workspace slot
+    float inv[2], lse[2];
+    tc::fwd_final(m, l, inv, lse);
+    if (sg.whole) {
+      tc::store_bf16(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss, q0, a.S,
+                     inv);
+      tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.S, q0, a.S);
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row + 8 * i;
-      const float lsum = wg::quad_sum(l[i]);
-      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-      const float lse = lsum > 0.f ? m[i] * kLn2 + logf(lsum) : FA_NEG_INF;
-      if (sg.whole) {
-        if (q0 + r >= a.S) continue;
-        bf16* o = static_cast<bf16*>(a.out) + b * a.o_sb + (q0 + r) * a.o_ss + h * a.o_sh + col;
+      float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-        if ((t & 3) == 0) a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + q0 + r] = lse;
-      } else {
-        float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(o + 8 * j) =
-              make_float2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-        if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse;
-      }
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(o + 8 * j) =
+            make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
+      if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse[i];
     }
   }
 }
 
+// dQ's segments on the tensor cores: tc::dq_tile_tc (shared with
+// flash_bwd.cu) over the segment's key tiles, the row stored from the
+// fragments, or its f32 partial into the slot.
 template <int D>
 __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
   const uint32_t sQ = tc::tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
-  const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
+  const int row = wg::frag_row(threadIdx.x), col = wg::frag_col(threadIdx.x);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
   const float sl2 = a.scale * tc::kLog2e;
-  float s[32] = {}, dp[32] = {};
+  const tc::TriMask mask{a.S};
+  const float one[2] = {1.f, 1.f};
 
   Walk walk(blockIdx.x, tri, a.ctas);
   Seg sg;
@@ -384,76 +299,36 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
     const int b = static_cast<int>(sg.bh / a.Hq), h = static_cast<int>(sg.bh % a.Hq);
     const int kvh = h / group;
     const int q0 = sg.r * E;
-    const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-    const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
     __syncthreads();   // the previous segment's products are done
     wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
     wg::load_tile(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
                   q0, a.S);
-    wg::load_tile(ring, kb, a.k_ss, sg.c0 * E, a.S);
-    wg::load_tile(ring + wg::TILE_BYTES, vb, a.v_ss, sg.c0 * E, a.S);
-    wg::copy_commit();
-    // the two rows' lse (log2 units) and delta; rows past S attend nothing
     const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-    float lse2[2], delta[2];
+    float lse2[2], delta[2], acc[64];
     bool live[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qp = q0 + row + 8 * i;
-      const float lse = qp < a.S ? a.lse[rows + qp] : FA_NEG_INF;
-      live[i] = lse > FA_NEG_INF / 2;
-      lse2[i] = lse * tc::kLog2e;
-      delta[i] = qp < a.S ? a.delta[rows + qp] : 0.f;
-    }
-    float acc[64];
+    tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
+                sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
+                [&](uint32_t sK, int kj) {
+                  tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, kj * E, sl2, a.scale,
+                                 mask);
+                });
 
-    for (int kj = sg.c0; kj <= sg.c1; ++kj) {
-      const int st = (kj - sg.c0) & 1;
-      const uint32_t sK = ring + 2 * st * wg::TILE_BYTES;
-      tc_next_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, kj < sg.c1, kb, vb, a.k_ss, a.v_ss,
-                    (kj + 1) * E, a.S);
-      wg::fence();
-      tc::abt(s, sQ, sK);
-      wg::commit();
-      tc::abt(dp, sdO, sK + wg::TILE_BYTES);
-      wg::commit();
-
-      // _rebuild_p_ds: P from the forward's lse while dP finishes, then dS
-      const bool diag = kj == sg.r;
-      const int keys_left = a.S - kj * E;
-      wg::wait<1>();
-      wg::fence_regs(s);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int i = (e >> 1) & 1;
-        s[e] = live[i] && tc_keep(diag, row, col, e, keys_left) ? exp2f(s[e] * sl2 - lse2[i]) : 0.f;
-      }
-      wg::wait<0>();
-      wg::fence_regs(dp);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) s[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * a.scale;
-      tc::pv<false>(acc, s, sK);
+    if (sg.whole) {
+      tc::store_bf16(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0,
+                     a.S, one);
+      continue;
     }
-
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = row + 8 * i;
-      if (sg.whole) {
-        if (q0 + r >= a.S) continue;
-        bf16* o = static_cast<bf16*>(a.dq) + b * a.dq_sb + (q0 + r) * a.dq_ss + h * a.dq_sh + col;
+      float* o = a.ws + (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-      } else {
-        float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          *reinterpret_cast<float2*>(o + 8 * j) =
-              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-      }
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(o + 8 * j) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -814,8 +689,8 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_fixup(FlashTri
 
 template <typename T, int D>
 constexpr size_t smem_of(int which) {
-  return which == FWD  ? (kTensorCores<T> ? TC_FWD_SMEM : fwd_smem<D>())
-         : which == DQ ? (kTensorCores<T> ? TC_DQ_SMEM : dq_smem<D>())
+  return which == FWD  ? (kTensorCores<T> ? tc::FWD_SMEM : fwd_smem<D>())
+         : which == DQ ? (kTensorCores<T> ? tc::DQ_SMEM : dq_smem<D>())
                        : (kTensorCores<T> ? tc::DKV_SMEM : dkv_smem<D>());
 }
 

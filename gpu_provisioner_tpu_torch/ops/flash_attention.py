@@ -19,7 +19,17 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
 a CUDA tensor, or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
 function (``attention_plain``, ``attention_bwd_plain``). Nothing else picks
-between the two. Deliberate differences from the JAX module:
+between the two.
+
+What bounds the kernels on an H100: the forward, dQ and dK/dV of
+self-attention and of a cached prefill are compute-bound (4, 6 and 8·D
+operations per attended pair and q-head against a few bytes per position),
+the decode kernel's short query blocks read the cache (bytes). So the bf16
+instances of all but the decode and int8-cache kernels run on the tensor
+cores: one warpgroup per 64-row tile, ``wgmma`` on swizzled bf16 tiles fed
+by a ``cp.async`` ring over the live key (or query) tiles only, the mask on
+fragments; the f32 instances stay f32 FMA, the exactness instances.
+Deliberate differences from the JAX module:
 
 - ``flash_attention_cached`` and ``flash_attention_decode`` raise if an
   input requires grad: their JAX twins have no VJP;
@@ -31,13 +41,16 @@ between the two. Deliberate differences from the JAX module:
   (balance), with a fixup launch for the rows cut between shares. The
   decode and the shares of its schedule have CPU twins here
   (``_tri_decode``, ``_tri_decode_rev``, ``_tri_shares``) that the tests
-  check; its bf16 kernels run on the tensor cores, with P as two bf16
-  terms (hi + lo) in the forward and P and dS each rounded to bf16 before
-  their second product in the backward (the JAX kernels keep them f32);
-- the bf16 tensor-core kernels (the three of ``triangular=True`` and
-  ``flash_bwd_dkv``) need 16-byte aligned inputs (``_check_tc_copies``);
-  the autograd backward copies a cotangent or saved input that is not
-  (``_tc_layout``) where the JAX kernels take any layout;
+  check; it runs the rectangular kernels' tile steps;
+- every bf16 kernel but the decode and int8-cache ones runs on the
+  tensor cores (``csrc/flash_tc.cuh``'s tile steps): the forward's P as two
+  bf16 terms (hi + lo), P and dS each rounded to bf16 before their second
+  product in the backward, where the JAX kernels keep them f32 (ROADMAP
+  Queue C 12); these kernels need 16-byte aligned inputs
+  (``_check_tc_copies``, a ValueError on a direct launch), and the model
+  paths (the autograd forward and backward, ``flash_attention_cached``)
+  copy an input or cotangent that is not (``_tc_layout``), where the JAX
+  kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
@@ -134,6 +147,13 @@ def _check_no_grad(*tensors) -> None:
             "twins are (no VJP): call them under torch.no_grad()")
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card, where a wrapper launches its kernel
+    (the module's one device test; the CPU tests stand it in to reach the
+    launch path's checks and layouts)."""
+    return t.device.type == "cuda"
+
+
 def _require_cpu(t: torch.Tensor) -> None:
     if t.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {t.device}")
@@ -204,7 +224,8 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
             sinks: int = 0, want_lse: bool = False):
     """Checks what the CUDA kernel takes, allocates the outputs and launches
     ``kernel`` on the current stream. k/v are head-major [B,Hkv,Sk,D] views
-    (any strides, head dim contiguous)."""
+    (any strides, head dim contiguous; ``flash_fwd`` with a bf16 cache takes
+    16-byte chunks of q, k and v: ``_check_tc_copies``)."""
     B, S, Hq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dev = q.device
@@ -239,6 +260,8 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
                              "equal strides")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+    if not int8:
+        _check_tc_copies(kernel, q=q, k=k, v=v)
 
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
@@ -422,8 +445,11 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
 
 
 # the kernels whose bf16 instances copy 16-byte chunks of the named inputs
-# into shared memory (cp.async) for the tensor cores
-_TC_COPIED = {"flash_fwd_tri": ("q", "k", "v"),
+# into shared memory (cp.async) for the tensor cores (flash_fwd: with bf16
+# K/V; its int8-cache instance reads q element by element, any row stride)
+_TC_COPIED = {"flash_fwd": ("q", "k", "v"),
+              "flash_bwd_dq": ("q", "k", "v", "dout"),
+              "flash_fwd_tri": ("q", "k", "v"),
               "flash_bwd_dq_tri": ("q", "k", "v", "dout"),
               "flash_bwd_dkv_tri": ("q", "k", "v", "dout"),
               "flash_bwd_dkv": ("q", "k", "v", "dout")}
@@ -522,7 +548,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, *,
     tri_dispatch says so; on a CPU tensor attention_bwd_plain."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cuda":
+    if _on_card(q):
         delta = _bwd_delta(out, dout, g_lse).contiguous()
         if tri_dispatch(q.shape[1], q.shape[-1], q.element_size(),
                         causal=causal, triangular=triangular,
@@ -549,19 +575,24 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, triangular):
-        kh, vh = k.transpose(1, 2), v.transpose(1, 2)    # views, no copy
-        if q.device.type == "cuda":
+        if _on_card(q):
+            # a caller may hand over any layout (a strided q, a narrow of a
+            # fused projection): copy what the kernels would refuse
+            ql, kl, vl = (_tc_layout(t) for t in (q, k, v))
             if tri_dispatch(q.shape[1], q.shape[-1], q.element_size(),
                             causal=causal, triangular=triangular,
                             window=window)[0]:
-                out, lse = _launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+                out, lse = _launch_tri("flash_fwd_tri", ql, kl, vl,
+                                       scale=scale)
             else:
-                out, lse = _launch("flash_fwd", q, kh, vh, 0, causal=causal,
+                out, lse = _launch("flash_fwd", ql, kl.transpose(1, 2),
+                                   vl.transpose(1, 2), 0, causal=causal,
                                    scale=scale, window=window, want_lse=True)
                 LAUNCHES["flash_fwd"] += 1
         else:
             _require_cpu(q)
-            out, lse = attention_plain(q, kh, vh, 0, causal=causal,
+            out, lse = attention_plain(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), 0, causal=causal,
                                        scale=scale, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, scale, window, triangular)
@@ -640,7 +671,10 @@ def flash_attention_cached(q, k_cache, v_cache, start, *, scale: float = None,
         scale = q.shape[-1] ** -0.5
     kw = dict(causal=True, scale=scale, pad_lens=pad_lens, k_scale=k_scale,
               v_scale=v_scale, window=window, sinks=sinks)
-    if q.device.type == "cuda":
+    if _on_card(q):
+        if k_scale is None:   # the bf16 cache's tensor-core instance
+            q, k_cache, v_cache = (_tc_layout(t) for t in (q, k_cache,
+                                                            v_cache))
         out, _ = _launch("flash_fwd", q, k_cache, v_cache, start, **kw)
         LAUNCHES["flash_cached"] += 1
         return out
@@ -674,7 +708,7 @@ def flash_attention_decode(q, k_cache, v_cache, start, *, scale: float = None,
         scale = q.shape[-1] ** -0.5
     kw = dict(causal=True, scale=scale, pad_lens=pad_lens, k_scale=k_scale,
               v_scale=v_scale, window=window, sinks=sinks)
-    if q.device.type == "cuda":
+    if _on_card(q):
         out, _ = _launch("flash_decode", q, k_cache, v_cache, start, **kw)
         LAUNCHES["flash_decode"] += 1
         return out

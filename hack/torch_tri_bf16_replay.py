@@ -3,27 +3,31 @@
 
     python3 hack/torch_tri_bf16_replay.py
 
-``flash_fwd_tri``, ``flash_bwd_dq_tri`` and ``flash_bwd_dkv_tri``
-(csrc/flash_tri.cu) and ``flash_bwd_dkv`` (csrc/flash_bwd.cu, the same
-tile step) take their products on the tensor cores in bf16, where the
-plain versions and the JAX kernels keep P and dS in f32. ``replay_fwd``,
+The bf16 instances of ``flash_fwd`` (self-attention and the bf16 cache),
+``flash_bwd_dq`` and ``flash_bwd_dkv`` (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu) and of ``flash_fwd_tri``, ``flash_bwd_dq_tri`` and
+``flash_bwd_dkv_tri`` (csrc/flash_tri.cu) take their products on the
+tensor cores in bf16 through csrc/flash_tc.cuh's tile steps, where the plain
+versions and the JAX kernels keep P and dS in f32. ``replay_fwd``,
 ``replay_dq`` and ``replay_dkv`` redo the kernels' arithmetic in plain
-torch: f32 scores, the online softmax with the denominator summed from the
-f32 P, P rounded to bf16 before P·V (``split``: as the kernel does, two
-bf16 terms hi + lo); dS = P∘(dP − Δ)·scale rounded to bf16 before dS·K;
-for dK/dV, 64-key × 64-query tiles of f32 Sᵀ and dPᵀ, Pᵀ and dSᵀ each
-rounded to bf16 once before Pᵀ·dO and dSᵀ·Q, the group's q-heads folded
-in f32, with the causal and window masks. Each returns f32, before the
-kernels' last rounding to bf16. tests/test_torch_flash_tri.py holds them
-against the JAX package's kernels. This script prints, at the card tests'
-bf16 shapes (random normal bf16 values from a numpy seed, causal, head dim
-128; the last also with window 1024), how far each replay lies from the
-plain versions: in f32 (what the rounding of P or dS alone moves: out
-absolute, the gradients relative to their largest values), and rounded to
-bf16 against the plain versions' bf16 results, as the card tests compare
-(where one bf16 step of the result, 0.0156 at |out| in [2, 4), can
-appear). One JSON line per shape, a few seconds each. Imports nothing of
-JAX.
+torch: f32 scores, the online softmax over 64-key tiles with the
+denominator summed from the f32 P, P rounded to bf16 before P·V (``split``:
+as the kernel does, two bf16 terms hi + lo); dS = P∘(dP − Δ)·scale rounded
+to bf16 before dS·K; for dK/dV, 64-key × 64-query tiles of f32 Sᵀ and dPᵀ,
+Pᵀ and dSᵀ each rounded to bf16 once before Pᵀ·dO and dSᵀ·Q, the group's
+q-heads folded in f32. The forward and dQ take any mask ``keep_mask``
+builds (causal or not, window, start, per-row starts, pads, sinks: the
+cache's), dK/dV the causal and window masks. Each returns f32, before the
+kernels' last rounding to bf16. tests/test_torch_flash_tri.py and
+tests/test_torch_flash_tc.py hold them against the JAX package's kernels.
+This script prints, at the card tests' bf16 shapes (random normal bf16
+values from a numpy seed, causal, head dim 128; the last also with window
+1024), how far each replay lies from the plain versions: in f32 (what the
+rounding of P or dS alone moves: out absolute, the gradients relative to
+their largest values), and rounded to bf16 against the plain versions'
+bf16 results, as the card tests compare (where one bf16 step of the
+result, 0.0156 at |out| in [2, 4), can appear). One JSON line per shape, a
+few seconds each. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,16 +50,41 @@ SHAPES = ((1, 384, 2, 1), (2, 2048, 16, 8), (1, 1000, 4, 1), (2, 200, 8, 8))
 WINDOW = 1024       # the windowed dK/dV case, at the last shape of S 2048
 
 
-def _scores(q, k, scale):
-    """f32 causal scores [B, Hq, S, S] (NEG_INF where masked) and the
-    kv-head index of each q-head's K/V, head-major f32."""
+def keep_mask(B, S, Sk, *, start=0, causal=True, pad_lens=None,
+              window=None, sinks=0):
+    """keep [B, S, Sk]: key kp attendable from query s at position start_b
+    + s (``start`` an int or B values), as attention_plain and the kernels
+    mask: (!causal or kp <= qp), kp >= pad_b, and with a window (kp > qp -
+    window or kp < pad_b + sinks)."""
+    st = torch.as_tensor(start, dtype=torch.long).reshape(-1).expand(B)
+    qp = (st[:, None] + torch.arange(S))[:, :, None]
+    kp = torch.arange(Sk)[None, None, :]
+    pad = (torch.zeros(B, dtype=torch.long) if pad_lens is None
+           else torch.as_tensor(pad_lens, dtype=torch.long))
+    keep = (kp >= pad[:, None, None]).expand(B, S, Sk)
+    if causal:
+        keep = keep & (kp <= qp)
+    if window is not None:
+        wkeep = kp > qp - window
+        if sinks:
+            wkeep = wkeep | (kp < (pad + sinks)[:, None, None])
+        keep = keep & wkeep
+    return keep
+
+
+def _scores(q, k, scale, keep=None):
+    """f32 scores [B, Hq, S, Sk] (NEG_INF where ``keep`` [B, S, Sk] is
+    False; default causal self-attention) and each q-head's K, head-major
+    f32; k token-major [B, Sk, Hkv, D]."""
     B, S, Hq, _ = q.shape
+    Sk = k.shape[1]
     group = Hq // k.shape[2]
+    if keep is None:
+        keep = keep_mask(B, S, Sk)
     qf = q.float().transpose(1, 2)
     kf = k.float().repeat_interleave(group, 2).transpose(1, 2)
-    pos = torch.arange(S)
-    s = torch.where(pos[None, :] <= pos[:, None], qf @ kf.transpose(-1, -2)
-                    * scale, tfa.NEG_INF)
+    s = torch.where(keep[:, None], qf @ kf.transpose(-1, -2) * scale,
+                    tfa.NEG_INF)
     return s, kf
 
 
@@ -63,10 +92,12 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def replay_fwd(q, k, v, scale, *, split=True):
+def replay_fwd(q, k, v, scale, *, split=True, keep=None):
     """(out [B,S,Hq,D], lse [B,Hq,S]) in f32 as the tensor-core forward
-    computes them, before it rounds out to bf16."""
-    s, _ = _scores(q, k, scale)
+    computes them, before it rounds out to bf16; k/v token-major [B, Sk,
+    Hkv, D], ``keep`` [B, S, Sk] (default causal self-attention). A tile
+    the kernels skip as dead changes nothing here (P = 0, no rescale)."""
+    s, _ = _scores(q, k, scale, keep)
     group = q.shape[2] // k.shape[2]
     vf = v.float().repeat_interleave(group, 2).transpose(1, 2)
     m = torch.full(s.shape[:-1] + (1,), tfa.NEG_INF)
@@ -89,11 +120,11 @@ def replay_fwd(q, k, v, scale, *, split=True):
     return out, lse
 
 
-def replay_dq(q, k, v, dout, out, lse, scale):
+def replay_dq(q, k, v, dout, out, lse, scale, *, keep=None):
     """dQ [B,S,Hq,D] in f32 as the tensor-core dQ kernel computes it from
     the forward's out and lse (no lse cotangent), before it rounds to
-    bf16."""
-    s, kf = _scores(q, k, scale)
+    bf16; ``keep`` as replay_fwd's."""
+    s, kf = _scores(q, k, scale, keep)
     group = q.shape[2] // k.shape[2]
     vf = v.float().repeat_interleave(group, 2).transpose(1, 2)
     gf = dout.float().transpose(1, 2)

@@ -3,7 +3,13 @@
 rectangular attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and
 the flattened-triangle ones (csrc/flash_tri.cu).
 
-    python3 hack/torch_tri_vs_rect.py
+    python3 hack/torch_tri_vs_rect.py            # this repo's kernels
+    python3 hack/torch_tri_vs_rect.py ROOT ...   # the kernels of each ROOT
+
+Each ROOT is a directory that holds a ``gpu_provisioner_tpu_torch`` package
+(an unpacked parent commit, a variant under study): its kernels are built
+from its own sources into its own ``ops/_build/``, one process for each
+ROOT in the order given (give them as A B B A to alternate).
 
 1. f32 accuracy against f64: at (B, S, Hq, Hkv) = (1, 2048, 16, 8) and
    (1, 8192, 16, 8), causal, head dim 128, random normal inputs, the
@@ -18,8 +24,8 @@ the flattened-triangle ones (csrc/flash_tri.cu).
    of 10 CUDA-event times each, the L2 flushed before each launch, the two
    kernels alternating.
 
-Prints one JSON object, with the card's name and power limit. Imports
-nothing of JAX.
+Prints one JSON object for each ROOT, with the ROOT and the card's name and
+power limit. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -158,6 +164,15 @@ def timings(torch, tfa, _cuda, dev):
 
 
 def main() -> int:
+    roots = sys.argv[1:]
+    if len(roots) > 1:
+        rc = 0
+        for root in roots:
+            rc |= subprocess.run([sys.executable, __file__, root],
+                                 timeout=900).returncode
+        return rc
+    root = Path(roots[0]).resolve() if roots else ROOT
+    sys.path.insert(0, str(root))
     import torch
     if not torch.cuda.is_available():
         print("torch_tri_vs_rect: no CUDA device", file=sys.stderr)
@@ -173,9 +188,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    out = {"card": card, "accuracy_vs_f64": accuracy(torch, tfa, dev),
+    out = {"root": str(root), "card": card,
+           "accuracy_vs_f64": accuracy(torch, tfa, dev),
            "times_ms": timings(torch, tfa, _cuda, dev)}
-    print(json.dumps(out))
+    print(json.dumps(out), flush=True)
     return 0
 
 

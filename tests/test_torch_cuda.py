@@ -11,10 +11,13 @@ plain gradient (max|kernel - plain| / max|plain|), since gradients scale
 with S and the cotangents. The flattened-triangle kernels (flash_tri.cu)
 are held to the same bounds at shapes where the persistent grid has more
 CTAs than tiles, rows are cut into many pieces, and many rows lie whole in
-one CTA's share, and at ragged S; in bf16 all three and the rectangular
-dK/dV run on the tensor cores (P as bf16 hi + lo in the forward, P and dS
-each rounded to bf16 once in the backward: within 5e-3 of the f32 functions
-on the CPU replay, tests/test_torch_flash_tri.py).
+one CTA's share, and at ragged S. In bf16 every self-attention kernel and
+the bf16-cache forward run on the tensor cores (P as bf16 hi + lo in the
+forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
+the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
+tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
+and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
+a direct launch refuses.
 """
 
 import ctypes
@@ -54,33 +57,78 @@ def _rel(a, b):
     return _err(a, b) / b.float().abs().max().item()
 
 
+# (B, S, Hq, Hkv, causal, window) of the forward: shapes the wrapper takes
+# (S tiles into the JAX blocks), then ragged S (a zero-filled last query and
+# key tile) at GQA 4/1, through the launch itself (the wrapper gives such
+# shapes the dense path), with a window 1024 that skips key tiles
+FWD_CASES = [(2, 256, 8, 2, True, None), (2, 256, 8, 2, False, None),
+             (2, 256, 8, 2, True, 200), (2, 512, 8, 2, True, None),
+             (2, 512, 8, 2, False, None), (2, 512, 8, 2, True, 200),
+             (1, 1000, 4, 1, True, None), (2, 333, 4, 1, False, None),
+             (1, 1500, 4, 1, True, 1024)]
+
+
+def _q_view(g, B, S, Hq, extra, dtype, dev):
+    """q [B, S, Hq, 128] as a view of rows Hq·128 + extra wide: extra 8
+    keeps every stride a whole number of 16-byte chunks in bf16, extra 4
+    does not."""
+    row = Hq * 128 + extra
+    return _randn(g, B, S, row, dtype=dtype, dev=dev).as_strided(
+        (B, S, Hq, 128), (S * row, row, 128, 1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [256, 512])
-@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
-                                           (True, 200)])
-def test_flash_fwd_matches_plain(dev, dtype, S, causal, window):
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
+def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
+                                 layout):
+    """The forward (bf16: the tensor-core instance) against the plain
+    version. q contiguous, a strided view the kernels take as it is, or a
+    view whose row stride is no whole number of 16-byte chunks: a direct
+    bf16 launch refuses it (ValueError), flash_attention_with_lse copies it
+    (_tc_layout) and matches."""
     g = torch.Generator(dev).manual_seed(0)
-    q = _randn(g, 2, S, 8, 128, dtype=dtype, dev=dev)
-    k = _randn(g, 2, S, 2, 128, dtype=dtype, dev=dev)
-    v = _randn(g, 2, S, 2, 128, dtype=dtype, dev=dev)
-    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
-                                            window=window)
-    ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
-                                       v.transpose(1, 2), 0, causal=causal,
-                                       window=window)
+    q = (_randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+         if layout == "contiguous" else
+         _q_view(g, B, S, Hq, 8 if layout == "strided" else 4, dtype, dev))
+    k = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    v = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    kw = dict(causal=causal, window=window)
+    refused = layout == "misaligned" and dtype == torch.bfloat16
+    tiles = S % tfa._auto_block(S) == 0
+    if refused:
+        with pytest.raises(ValueError, match="flash_fwd: q strides"):
+            tfa._launch("flash_fwd", q, kh, vh, 0, scale=128 ** -0.5,
+                        want_lse=True, **kw)
+    tfa.reset_launches()
+    if tiles:
+        out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+        assert tfa.LAUNCHES["flash_fwd"] == 1
+    elif refused:
+        return
+    else:
+        out, lse = tfa._launch("flash_fwd", q, kh, vh, 0, scale=128 ** -0.5,
+                               want_lse=True, **kw)
+    ref, ref_lse = tfa.attention_plain(q, kh, vh, 0, **kw)
     torch.cuda.synchronize()
     assert _err(out, ref) < TOL[dtype]
     assert _err(lse, ref_lse) < 1e-4
 
 
 CASES = [
-    # (B, S, start, pads, int8, window, sinks)
+    # (B, S, start, pads, int8, window, sinks); S > 16 is flash_fwd (bf16:
+    # the tensor-core instance), per-row starts there through the launch
+    # itself (flash_attention_cached takes one start), S <= 16 flash_decode
     (1, 128, 0, [40], False, None, 0),
     (2, 256, 300, [0, 100], True, None, 0),
     (1, 128, 900, None, False, 256, 4),
     (2, 1, [600, 37], [0, 20], False, None, 0),
     (2, 5, [1000, 130], [3, 0], True, 300, 2),
     (2, 16, 1500, None, False, None, 0),
+    (2, 200, 400, [0, 37], False, 256, 4),       # ragged S, window, sinks
+    (2, 100, [300, 1200], [5, 0], False, 512, 3),  # per-row starts
+    (2, 100, [300, 1200], [5, 0], True, None, 0),
 ]
 
 
@@ -103,6 +151,9 @@ def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
         if isinstance(start, list) else start
     if S <= tfa.DECODE_MAX_S:
         got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
+    elif isinstance(start, list):
+        got, _ = tfa._launch("flash_fwd", q, kc, vc, st, causal=True,
+                             scale=128 ** -0.5, **kw)
     else:
         got = tfa.flash_attention_cached(q, kc, vc, st, **kw)
     ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
@@ -151,16 +202,22 @@ def test_engine_streams_equal_generate_on_the_card(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,kv_heads", [(256, 2), (512, 8)])
+@pytest.mark.parametrize("S,Hq,kv_heads", [(256, 8, 2), (512, 8, 8),
+                                           (333, 4, 1), (1000, 8, 2)])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 200), (False, 200)])
-def test_flash_bwd_matches_plain(dev, dtype, S, kv_heads, causal, window):
+def test_flash_bwd_matches_plain(dev, dtype, S, Hq, kv_heads, causal,
+                                 window):
+    """Both backward kernels (bf16: on the tensor cores) against the plain
+    version, with an lse cotangent; ragged S (333, 1000: the forward takes
+    the dense path there, the backward kernels a zero-filled last tile) at
+    GQA 4/1."""
     g = torch.Generator(dev).manual_seed(3)
-    q = _randn(g, 2, S, 8, 128, dtype=dtype, dev=dev)
+    q = _randn(g, 2, S, Hq, 128, dtype=dtype, dev=dev)
     k = _randn(g, 2, S, kv_heads, 128, dtype=dtype, dev=dev)
     v = _randn(g, 2, S, kv_heads, 128, dtype=dtype, dev=dev)
-    dout = _randn(g, 2, S, 8, 128, dtype=dtype, dev=dev)
-    g_lse = _randn(g, 2, 8, S, dtype=torch.float32, dev=dev)
+    dout = _randn(g, 2, S, Hq, 128, dtype=dtype, dev=dev)
+    g_lse = _randn(g, 2, Hq, S, dtype=torch.float32, dev=dev)
     out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
                                             window=window)
     kw = dict(causal=causal, window=window)
@@ -257,6 +314,13 @@ def test_bwd_raises_on_what_the_kernels_do_not_take(dev):
         tfa._launch_bwd("flash_bwd_dq", q, q[:, :, :2], q[:, :, :2], q,
                         lse.transpose(1, 2).contiguous().transpose(1, 2),
                         lse, causal=True, scale=1.0)
+    # the bf16 dQ copies 16-byte chunks: a dout off a 16-byte boundary
+    qb = q.bfloat16()
+    dout = torch.zeros(128 * 4 * 128 + 4, dtype=torch.bfloat16,
+                       device=dev)[4:].view(1, 128, 4, 128)
+    with pytest.raises(ValueError, match="flash_bwd_dq: dout is not"):
+        tfa._launch_bwd("flash_bwd_dq", qb, qb[:, :, :2], qb[:, :, :2],
+                        dout, lse, lse, causal=True, scale=1.0)
 
 
 def test_flash_training_equals_dense_training_on_the_card(dev):

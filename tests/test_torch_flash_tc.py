@@ -1,0 +1,235 @@
+"""The tensor-core instances of the rectangular kernels, on the CPU.
+
+The bf16 ``flash_fwd`` (self-attention and the bf16 cache) and
+``flash_bwd_dq`` run csrc/flash_tc.cuh's tile steps on the card: the
+forward's P as two bf16 terms (hi + lo) before P·V, dQ's dS rounded to bf16
+once before dS·K, where the JAX kernels keep both f32 (ROADMAP Queue C 12).
+No CUDA kernel runs here, so the tests hold:
+- the CPU replay of that arithmetic (hack/torch_tri_bf16_replay.py) on bf16
+  values from a numpy seed, against the JAX kernels in interpret mode (in
+  f32, so that both sides stop before the last rounding to bf16), at a
+  ragged S (not a multiple of the kernels' 64-row tiles) and GQA 4/1:
+  ``flash_attention_with_lse`` and its VJP (causal or not, window),
+  ``flash_attention_cached`` (start, pads, window, sinks) and
+  ``flash_attention_decode`` (per-row starts, which ``flash_fwd`` takes
+  too); out within 5e-3 absolute and lse within 5e-5 (half the card's
+  1e-2 and 1e-4), dQ within 5e-3 of its largest value;
+- the launch path's layout rule: a strided bf16 q through
+  ``flash_attention_with_lse`` or ``flash_attention_cached`` reaches the
+  kernel as a copy that the tensor-core instances take (``_tc_layout``),
+  the int8-cache instance takes it as it is, and a direct launch of a
+  misaligned bf16 ``flash_fwd`` or ``flash_bwd_dq`` raises before the kernel
+  library (nvcc, a card) is asked for. The launch itself is stood in
+  (``_on_card``, ``_run``); tests/test_torch_cuda.py holds the kernels.
+"""
+
+import importlib
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpu_provisioner_tpu_torch.models import decode as td
+from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
+
+# the JAX ops package re-exports flash_attention, shadowing the module name
+jfa = importlib.import_module("gpu_provisioner_tpu.ops.flash_attention")
+ROOT = Path(__file__).resolve().parent.parent
+D = 128
+SCALE = D ** -0.5
+
+
+def _replay():
+    """hack/torch_tri_bf16_replay.py as a module (it imports no JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_tri_bf16_replay", ROOT / "hack" / "torch_tri_bf16_replay.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(torch.bfloat16) for s in shapes]
+
+
+def _j(t):
+    return jnp.asarray(t.float().numpy())
+
+
+def _abs(got, want):
+    return np.abs(got.numpy() - np.asarray(want)).max()
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return np.abs(got.numpy() - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal,window", [
+    pytest.param(True, None, id="causal"),
+    pytest.param(False, None, id="full"),
+    pytest.param(True, 72, id="causal-window"),
+    pytest.param(False, 72, id="full-window")])
+def test_rectangular_rounding_stays_within_half_the_card_tolerance(
+        causal, window):
+    """Self-attention at S=200 (three full 64-row tiles and a ragged one),
+    Hq 4 / Hkv 1: the replay of the tensor-core forward and dQ against JAX
+    flash_attention_with_lse and its VJP (blocks of 40, interpret mode)."""
+    replay = _replay()
+    S, Hq, Hkv = 200, 4, 1
+    q, k, v, dout = _bf16(31, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D),
+                          (1, S, Hq, D))
+    outs, vjp = jax.vjp(lambda *a: jfa.flash_attention_with_lse(
+        *a, causal=causal, window=window, block_q=40, block_k=40,
+        interpret=True), *(_j(t) for t in (q, k, v)))
+    jdq = vjp((_j(dout), jnp.zeros_like(outs[1])))[0]
+    keep = replay.keep_mask(1, S, S, causal=causal, window=window)
+    out, lse = replay.replay_fwd(q, k, v, SCALE, keep=keep)
+    dq = replay.replay_dq(q, k, v, dout, out, lse, SCALE, keep=keep)
+    assert _abs(out, outs[0]) <= 5e-3
+    assert _abs(lse, outs[1]) <= 5e-5
+    assert _rel(dq, jdq) <= 5e-3
+
+
+@pytest.mark.parametrize("start,pads,window,sinks", [
+    pytest.param(0, None, None, 0, id="start0"),
+    pytest.param(100, [0, 30], None, 0, id="pads"),
+    pytest.param(150, [5, 20], 64, 4, id="window-sinks")])
+def test_cache_rounding_stays_within_half_the_card_tolerance(start, pads,
+                                                             window, sinks):
+    """40 fresh queries (one ragged tile) at cache positions start.. against
+    a head-major bf16 cache of 256, B=2, Hq 4 / Hkv 1: the replay of the
+    tensor-core forward (flash_fwd's bf16-cache instance) against JAX
+    flash_attention_cached (blocks 40 and 64, interpret mode). Pad-query
+    rows are zeros on both sides."""
+    replay = _replay()
+    B, S, Hq, Hkv, ML = 2, 40, 4, 1, 256
+    q, kc, vc = _bf16(32, (B, S, Hq, D), (B, Hkv, ML, D), (B, Hkv, ML, D))
+    kw = dict(window=window, sinks=sinks)
+    if pads is not None:
+        kw["pad_lens"] = jnp.asarray(pads, jnp.int32)
+    want = jfa.flash_attention_cached(_j(q), _j(kc), _j(vc), start,
+                                      block_q=40, block_k=64,
+                                      interpret=True, **kw)
+    keep = replay.keep_mask(B, S, ML, start=start, pad_lens=pads,
+                            window=window, sinks=sinks)
+    out, _ = replay.replay_fwd(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                               SCALE, keep=keep)
+    assert _abs(out, want) <= 5e-3
+
+
+@pytest.mark.parametrize("pads,window,sinks", [
+    pytest.param(None, None, 0, id="starts"),
+    pytest.param([3, 40], 100, 2, id="starts-pads-window-sinks")])
+def test_per_row_starts_rounding_stays_within_half_the_card_tolerance(
+        pads, window, sinks):
+    """16 queries a row at per-row starts (a ragged tile; flash_fwd takes
+    starts of B values as flash_attention_decode does): the replay of the
+    tensor-core forward against JAX flash_attention_decode (interpret
+    mode)."""
+    replay = _replay()
+    B, S, Hq, Hkv, ML = 2, 16, 4, 1, 256
+    starts = [200, 61]
+    q, kc, vc = _bf16(33, (B, S, Hq, D), (B, Hkv, ML, D), (B, Hkv, ML, D))
+    kw = dict(window=window, sinks=sinks)
+    if pads is not None:
+        kw["pad_lens"] = jnp.asarray(pads, jnp.int32)
+    want = jfa.flash_attention_decode(_j(q), _j(kc), _j(vc),
+                                      jnp.asarray(starts, jnp.int32),
+                                      interpret=True, **kw)
+    keep = replay.keep_mask(B, S, ML, start=starts, pad_lens=pads,
+                            window=window, sinks=sinks)
+    out, _ = replay.replay_fwd(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                               SCALE, keep=keep)
+    assert _abs(out, want) <= 5e-3
+
+
+def _strided_q(S, Hq, dtype=torch.bfloat16):
+    """[1, S, Hq, 128] with a row stride of Hq·128 + 4 elements: not a
+    whole number of 16-byte chunks, as a narrow of a wider projection."""
+    row = Hq * D + 4
+    q = _bf16(34, (1, S, row))[0].to(dtype)
+    return q.as_strided((1, S, Hq, D), (S * row, row, D, 1))
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Stands the card in: the wrappers take their launch path on CPU
+    tensors, and every check and layout up to the C entry runs; the entry
+    (``_run``) only records the argument struct it was given."""
+    seen = []
+    monkeypatch.setattr(tfa, "_on_card", lambda t: True)
+    monkeypatch.setattr(tfa, "_run", lambda kernel, a, dev: seen.append(
+        (kernel, a)))
+    return seen
+
+
+def test_forward_lays_out_a_strided_bf16_q_for_the_kernel(launches):
+    """A bf16 q whose row stride is no whole number of 16-byte chunks: a
+    direct flash_fwd launch refuses it (ValueError naming q), and
+    flash_attention_with_lse hands the kernel a contiguous copy instead
+    (_tc_layout), whose strides the tensor-core instance takes."""
+    S, Hq, Hkv = 128, 2, 1
+    q = _strided_q(S, Hq)
+    k, v = _bf16(35, (1, S, Hkv, D), (1, S, Hkv, D))
+    with pytest.raises(ValueError, match=r"flash_fwd: q strides"):
+        tfa._launch("flash_fwd", q, k.transpose(1, 2), v.transpose(1, 2), 0,
+                    causal=True, scale=SCALE)
+    assert launches == []
+    tfa.flash_attention_with_lse(q, k, v)
+    (kernel, a), = launches
+    assert kernel == "flash_fwd"
+    assert a.q != q.data_ptr() and a.q % 16 == 0
+    assert (a.q_sb, a.q_ss, a.q_sh) == (S * Hq * D, Hq * D, D)
+    assert a.k == k.data_ptr() and a.v == v.data_ptr()   # no copy needed
+
+
+def test_cached_prefill_lays_out_q_for_the_bf16_cache_only(launches):
+    """flash_attention_cached with a strided bf16 q: against a bf16 cache
+    the kernel gets a contiguous copy (the tensor-core instance copies
+    16-byte chunks); against an int8 cache it gets q as it is (the FMA
+    instance reads any row stride), as before."""
+    S, Hq, Hkv, ML = 128, 2, 1, 256
+    q = _strided_q(S, Hq)
+    kc, vc = _bf16(36, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    with torch.no_grad():
+        tfa.flash_attention_cached(q, kc, vc, 64)
+        kq, ks = td._quantize_kv(kc)
+        vq, vs = td._quantize_kv(vc)
+        tfa.flash_attention_cached(q, kq, vq, 64, k_scale=ks, v_scale=vs)
+    (_, bf), (_, i8) = launches
+    assert bf.q != q.data_ptr() and bf.q_ss == Hq * D
+    assert bf.k == kc.data_ptr() and bf.kv_dtype == 1
+    assert i8.q == q.data_ptr() and i8.q_ss == Hq * D + 4
+    assert i8.kv_dtype == 2
+
+
+def test_launches_refuse_misaligned_bf16_copies_before_they_build():
+    """The tensor-core flash_fwd copies q, k and v, flash_bwd_dq q, k, v and
+    dout, in 16-byte chunks: a bf16 input off a 16-byte boundary raises
+    ValueError naming it before the kernel library (nvcc, a card) is asked
+    for; f32 and the int8 cache's q take any row stride."""
+    S, Hq, Hkv = 128, 2, 1
+    q = torch.zeros(1, S, Hq, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, S, Hkv, D, dtype=torch.bfloat16)
+    off = torch.zeros(S * Hkv * D + 4, dtype=torch.bfloat16)[4:].view(
+        1, S, Hkv, D)
+    with pytest.raises(ValueError, match=r"flash_fwd: v is not 16-byte "
+                                         r"aligned"):
+        tfa._launch("flash_fwd", q, k.transpose(1, 2), off.transpose(1, 2),
+                    0, causal=True, scale=SCALE)
+    dout = torch.zeros(S * Hq * D + 4, dtype=torch.bfloat16)[4:].view(
+        1, S, Hq, D)
+    lse = torch.zeros(1, Hq, S)
+    with pytest.raises(ValueError, match=r"flash_bwd_dq: dout is not "
+                                         r"16-byte aligned"):
+        tfa._launch_bwd("flash_bwd_dq", q, k, k, dout, lse, lse,
+                        causal=True, scale=SCALE)
+    tfa._check_tc_copies("flash_fwd", q=_strided_q(S, Hq, torch.float32),
+                         k=k.float(), v=k.float())
