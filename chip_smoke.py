@@ -6,23 +6,35 @@
 Phases, each of which exits non-zero on a failed check:
 1. card and build: the card's name and power limit, the nvcc build of every
    kernel from ops/csrc (one nvcc per source, started together), with
-   ptxas's registers and spills of the six tensor-core (bf16) instances
-   (flash_fwd, flash_bwd_dq, flash_bwd_dkv and the three tri kernels) and
-   the HGMMA instructions in their SASS (cuobjdump);
+   ptxas's registers and spills of the seven tensor-core (bf16) instances
+   (flash_fwd on bf16 K/V and on an int8 cache, flash_bwd_dq, flash_bwd_dkv
+   and the three tri kernels) and the HGMMA instructions in their SASS
+   (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
-   flash_fwd and bf16-cache prefill on the tensor cores, the int8 cache and
-   f32 on FMA), then its time
+   flash_fwd and the bf16 and int8 caches' prefill on the tensor cores, f32
+   on FMA; flash_decode's split schedule on every cache, its shares' edge
+   cases included: DECODE_SPLIT_CASES), then its time
    (CUDA events, L2 flushed before each launch) beside its plain version's,
    one PyTorch library call's (scaled_dot_product_attention, a yardstick the
-   port never calls) and its bound (bytes over 3.35 TB/s or bf16 operations
-   over 989 TFLOP/s, whichever is larger: the H100 SXM's published peaks);
+   port never calls; none for an int8 cache) and its bound (bytes over 3.35
+   TB/s or bf16 operations over 989 TFLOP/s, whichever is larger: the H100
+   SXM's published peaks); the rows under 0.1 ms (the serving flash_fwd,
+   the bf16 and int8 cached prefill, flash_decode on a bf16 and an int8
+   cache and at S=5 and 16) also with the kernels' own device time from
+   torch.profiler (device_ms, flash_decode's merge launch included; taken
+   after phase 8, since a profiler session slows every later launch on
+   the host) and the bound share from it, beside the library call's own
+   device time (library_device_ms), and ptxas's registers and spills of
+   the timed flash_decode instances;
 3. exact tokens: Llama-7B width, 2 layers, f32: every ServeEngine stream
    equals generate() on that request alone;
 4. the serving path: full Llama-7B (32 layers) in bf16 with the flash
    kernels: after one warm-up pass, three ServeEngine passes of 6 requests
    each (one shared prefix), then generate() with B=2, S0=512, fresh and
-   left-padded, with every kernel's launch count read across that run;
+   left-padded, and left-padded on an int8 KV cache, with every kernel's
+   launch count read across that run (the int8 cache's prefill and decode
+   instances count apart: flash_cached_int8, flash_decode_int8);
 5. both backward kernels against attention_bwd_plain on the card (bf16 and
    f32, D 128, causal, non-causal, window 1024, a non-zero lse cotangent;
    error relative to the largest plain gradient), then, at the training
@@ -63,7 +75,8 @@ Phases, each of which exits non-zero on a failed check:
    each rectangular kernel apiece; then the bench twins
    bench_long_context and bench_flash_op at full size, each with its
    launch counts read and checked against its repetition counts;
-then the card line, the kernels line and, last, the device line.
+then the phase-2 rows' device times, the card line, the kernels line and,
+last, the device line.
 """
 
 from __future__ import annotations
@@ -97,7 +110,8 @@ def card_line() -> str:
 
 # the tensor-core (bf16) instances: (source, a substring of the mangled name)
 TC_KERNELS = {
-    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernel"),
+    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16"),
+    "flash_cached_int8": ("flash_fwd", "flash_fwd_tc_kernelIa"),
     "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernel"),
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
     "flash_fwd_tri": ("flash_tri", "flash_fwd_tri_kernelI13__nv_bfloat16"),
@@ -171,6 +185,26 @@ def tc_build_report(_cuda, logs):
     return report
 
 
+# the flash_decode instances on the timed rows: (row, part of the mangled
+# name), R = 4 rows a unit at S=1, 32 at S=5, 64 at S=16 (group 4)
+DECODE_INSTANCES = {
+    "flash_decode": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi4E",
+    "flash_decode_s5": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi32E",
+    "flash_decode_s16": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi64E",
+    "flash_decode_int8": "flash_decode_kernelI13__nv_bfloat16aLi128ELi4E"}
+
+
+def decode_build_report(logs):
+    """ptxas's registers and spills of the timed flash_decode instances
+    (when this run built the library; FMA kernels: no HGMMA)."""
+    info = ptxas_info(logs.get("flash_decode", ""))
+    report = {row: next((v for k, v in info.items() if part in k), None)
+              for row, part in DECODE_INSTANCES.items()}
+    for row, ptxas in report.items():
+        print(f"  {row} ({DECODE_INSTANCES[row]}): ptxas {ptxas}")
+    return report
+
+
 def time_ms(fn, flush, reps=20, warm=3):
     """Median of per-launch CUDA-event times, the 50 MB L2 flushed before
     each launch (the serving loop reads each layer's cache cold)."""
@@ -187,6 +221,36 @@ def time_ms(fn, flush, reps=20, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, flush, names=None, reps=20, warm=3):
+    """Mean device time of one fn() call in the kernels whose names hold
+    one of ``names``, or in every kernel but the flush's fill when
+    ``names`` is None (torch.profiler's kernel records: the kernels' own
+    time, without the wrapper's host work that time_ms's events may hold),
+    the 50 MB L2 flushed before each call; fails when the profiler records
+    no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == DeviceType.CUDA and (
+                any(n in evt.key for n in names) if names
+                else "FillFunctor" not in evt.key):
+            us += float(getattr(evt, "self_device_time_total", None)
+                        or getattr(evt, "self_cuda_time_total", 0.0))
+    check(us > 0, f"torch.profiler recorded no device time for {names}")
+    return us / reps / 1e3
 
 
 def _attended(B, S, Sk, start, pads, window, sinks, causal):
@@ -225,6 +289,24 @@ def work(B, S, Hq, Hkv, D, Sk, start, pads, window, sinks, causal,
     return 4 * D * pairs, nbytes
 
 
+# (B, S, start, pads, window, sinks) of flash_decode's split schedule, D 128,
+# Hq 32 / Hkv 8, ML 2048: a live range shorter than one share, start 0, a
+# pad floor past the first share, a window band and its sinks in different
+# shares, per-row starts more than ML / 2 apart, B=1 (the most splits a
+# row), S=16 at group 4 (64 rows a unit); each with a bf16 or f32 cache of
+# the act dtype and with an int8 cache
+DECODE_SPLIT_CASES = (
+    (4, 1, [40, 1900, 700, 5], [0, 0, 650, 0], None, 0),
+    (2, 1, 0, None, None, 0),
+    (2, 1, [1500, 900], [700, 300], None, 0),
+    (2, 1, [1800, 1200], [0, 130], 256, 4),
+    (2, 5, [1900, 60], [4, 0], None, 0),
+    (1, 1, 1500, None, None, 0),
+    (2, 16, [1200, 333], [3, 0], 300, 2))
+# an engine decode step: 4 slots at their own lengths and pads
+DECODE_STARTS, DECODE_PADS = [540, 300, 610, 420], [12, 0, 100, 56]
+
+
 def phase_kernels(torch, tfa, td, dev):
     """Each kernel against its plain version, then timed at a main-path
     shape. Returns the kernels line's entries (launches filled later)."""
@@ -238,7 +320,34 @@ def phase_kernels(torch, tfa, td, dev):
     def err(a, b):
         return (a.float() - b.float()).abs().max().item()
 
-    errs = {"flash_fwd": 0.0, "flash_cached": 0.0, "flash_decode": 0.0}
+    def cache_case(dtype, B, S, start, pads, int8, window, sinks):
+        q = rnd(B, S, Hq, D, dtype=dtype)
+        kc, vc = rnd(B, Hkv, ML, D, dtype=dtype), rnd(B, Hkv, ML, D,
+                                                     dtype=dtype)
+        kw = dict(window=window, sinks=sinks)
+        if int8:
+            kc, kw["k_scale"] = td._quantize_kv(kc)
+            vc, kw["v_scale"] = td._quantize_kv(vc)
+        if pads is not None:
+            kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
+                                          device=dev)
+        st = (torch.tensor(start, dtype=torch.int32, device=dev)
+              if isinstance(start, list) else start)
+        name = "flash_decode" if S <= tfa.DECODE_MAX_S else "flash_cached"
+        fn = getattr(tfa, "flash_attention_" + name.split("_")[1])
+        e = err(fn(q, kc, vc, st, **kw),
+                tfa.attention_plain(q, kc, vc, st, **kw)[0])
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"{name} {dtype} B={B} S={S} start={start} pads={pads} "
+              f"int8={int8} window={window} sinks={sinks}: "
+              f"max|out-plain| {e:.3g} (tol {tol})")
+        check(e <= tol, f"{name} disagrees with plain")
+        if dtype == torch.bfloat16:
+            name += "_int8" if int8 else ""
+            errs[name] = max(errs[name], e)
+
+    errs = {"flash_fwd": 0.0, "flash_cached": 0.0, "flash_cached_int8": 0.0,
+            "flash_decode": 0.0, "flash_decode_int8": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype).split(".")[1]]
         for B, S, causal, window in ((2, 512, True, None),
@@ -271,95 +380,162 @@ def phase_kernels(torch, tfa, td, dev):
                 (2, 5, 1000, None, False, None, 0),
                 (2, 1, [700, 64], [0, 9], True, None, 0),
                 (2, 5, [1400, 300], [4, 0], False, 300, 4)):
-            q = rnd(B, S, Hq, D, dtype=dtype)
-            kc, vc = rnd(B, Hkv, ML, D, dtype=dtype), rnd(B, Hkv, ML, D,
-                                                         dtype=dtype)
-            kw = dict(window=window, sinks=sinks)
-            if int8:
-                kc, kw["k_scale"] = td._quantize_kv(kc)
-                vc, kw["v_scale"] = td._quantize_kv(vc)
-            if pads is not None:
-                kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
-                                              device=dev)
-            st = (torch.tensor(start, dtype=torch.int32, device=dev)
-                  if isinstance(start, list) else start)
-            name = "flash_decode" if S <= tfa.DECODE_MAX_S else "flash_cached"
-            fn = getattr(tfa, "flash_attention_" + name.split("_")[1])
-            e = err(fn(q, kc, vc, st, **kw),
-                    tfa.attention_plain(q, kc, vc, st, **kw)[0])
-            print(f"{name} {dtype} B={B} S={S} start={start} pads={pads} "
-                  f"int8={int8} window={window} sinks={sinks}: "
-                  f"max|out-plain| {e:.3g} (tol {tol})")
-            check(e <= tol, f"{name} disagrees with plain")
-            if dtype == torch.bfloat16:
-                errs[name] = max(errs[name], e)
+            cache_case(dtype, B, S, start, pads, int8, window, sinks)
+    # after the cases above, whose inputs stay those of the parent commit's
+    # run: the int8 cache's prefill on the tensor cores (start 0; ragged S,
+    # window and sinks), the split decode's edge cases on every cache
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, start, pads, window, sinks in (
+                (1, 128, 0, [40], None, 0), (2, 200, 400, [0, 37], 256, 4)):
+            cache_case(dtype, B, S, start, pads, True, window, sinks)
+        for B, S, start, pads, window, sinks in DECODE_SPLIT_CASES:
+            for int8 in (False, True):
+                cache_case(dtype, B, S, start, pads, int8, window, sinks)
     torch.cuda.synchronize()
 
     # timing at main-path shapes, bf16
     bf = torch.bfloat16
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rows = []
+    rows, deferred = [], []
 
-    def row(name, source, replaces, kernel, plain, library, ops_bytes):
+    def timed(r, kernel, plain, library, ops_bytes, names=None):
+        """Adds to entry ``r`` ms, plain_ms, library_ms (null without a
+        library call) and the bound; with ``names``, the entry's device
+        times are measured last (device_times). Returns ``r``."""
         ops, nbytes = ops_bytes
         t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-        rows.append({
+        r.update({"ms": time_ms(kernel, flush),
+                  "plain_ms": time_ms(plain, flush),
+                  "bound_ms": max(t_b, t_o),
+                  "bound_by": "bytes" if t_b >= t_o else "operations",
+                  "library_ms": time_ms(library, flush) if library else None})
+        if names:
+            deferred.append((r, kernel, library, names))
+        return r
+
+    def row(name, source, replaces, *args, **kw):
+        rows.append(timed({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0,
-            "max_abs_err": errs[name], "tolerance": TOL["bfloat16"],
-            "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-            "bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": time_ms(library, flush)})
+            "max_abs_err": errs[name], "tolerance": TOL["bfloat16"]},
+            *args, **kw))
         print(f"{name}: {json.dumps(rows[-1])}")
+        return rows[-1]
 
-    # generate's fresh prefill: B=2, S0=512, causal self-attention
-    q = rnd(2, 512, Hq, D, dtype=bf)
-    k, v = rnd(2, 512, Hkv, D, dtype=bf), rnd(2, 512, Hkv, D, dtype=bf)
+    def self_attention():
+        """generate's fresh prefill: B=2, S0=512, causal self-attention"""
+        q = rnd(2, 512, Hq, D, dtype=bf)
+        k, v = rnd(2, 512, Hkv, D, dtype=bf), rnd(2, 512, Hkv, D, dtype=bf)
+        return (lambda: tfa.flash_attention_with_lse(q, k, v),
+                lambda: tfa.attention_plain(q, k.transpose(1, 2),
+                                            v.transpose(1, 2), 0),
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True),
+                work(2, 512, Hq, Hkv, D, 512, 0, None, None, 0, True, 2, 2,
+                     False, True))
+
     row("flash_fwd", "gpu_provisioner_tpu_torch/ops/csrc/flash_fwd.cu",
         "gpu_provisioner_tpu/ops/flash_attention.py:70 (_kernel_resident), "
-        ":202 (_kernel)",
-        lambda: tfa.flash_attention_with_lse(q, k, v),
-        lambda: tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
-                                    0),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True),
-        work(2, 512, Hq, Hkv, D, 512, 0, None, None, 0, True, 2, 2, False,
-             True))
-    # engine admission after a cached prefix: B=1, suffix bucket 256 at
-    # the prefix bucket's offset 128, the prefix's left pads masked
-    q = rnd(1, 256, Hq, D, dtype=bf)
-    kc, vc = rnd(1, Hkv, ML, D, dtype=bf), rnd(1, Hkv, ML, D, dtype=bf)
-    pads = torch.tensor([28], dtype=torch.int32, device=dev)
+        ":202 (_kernel)", *self_attention(), names=("flash_fwd_tc_kernel",))
     kp = torch.arange(ML, device=dev)
-    mask = ((kp[None, :] <= 128 + torch.arange(256, device=dev)[:, None])
-            & (kp[None, :] >= 28))[None, None]
-    row("flash_cached", "gpu_provisioner_tpu_torch/ops/csrc/flash_fwd.cu",
-        "gpu_provisioner_tpu/ops/flash_attention.py:468 (_kernel_cached)",
-        lambda: tfa.flash_attention_cached(q, kc, vc, 128, pad_lens=pads),
-        lambda: tfa.attention_plain(q, kc, vc, 128, pad_lens=pads),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True),
-        work(1, 256, Hq, Hkv, D, ML, 128, pads, None, 0, True, 2, 2, False,
-             False))
-    # an engine decode step: 4 slots at their own lengths and pads
-    q = rnd(4, 1, Hq, D, dtype=bf)
+
+    def admission():
+        """engine admission after a cached prefix: B=1, suffix bucket 256
+        at the prefix bucket's offset 128, the prefix's left pads masked;
+        a bf16 and an int8 cache of the same values"""
+        q = rnd(1, 256, Hq, D, dtype=bf)
+        kc, vc = rnd(1, Hkv, ML, D, dtype=bf), rnd(1, Hkv, ML, D, dtype=bf)
+        pads = torch.tensor([28], dtype=torch.int32, device=dev)
+        mask = ((kp[None, :] <= 128 + torch.arange(256, device=dev)[:, None])
+                & (kp[None, :] >= 28))[None, None]
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        i8 = dict(pad_lens=pads, k_scale=ks, v_scale=vs)
+        return ((lambda: tfa.flash_attention_cached(q, kc, vc, 128,
+                                                    pad_lens=pads),
+                 lambda: tfa.attention_plain(q, kc, vc, 128, pad_lens=pads),
+                 lambda: F.scaled_dot_product_attention(
+                     q.transpose(1, 2), kc, vc, attn_mask=mask,
+                     enable_gqa=True),
+                 work(1, 256, Hq, Hkv, D, ML, 128, pads, None, 0, True, 2, 2,
+                      False, False)),
+                (lambda: tfa.flash_attention_cached(q, k8, v8, 128, **i8),
+                 lambda: tfa.attention_plain(q, k8, v8, 128, **i8), None,
+                 work(1, 256, Hq, Hkv, D, ML, 128, pads, None, 0, True, 2, 1,
+                      True, False)))
+
+    cached_src = "gpu_provisioner_tpu_torch/ops/csrc/flash_fwd.cu"
+    cached_tpu = "gpu_provisioner_tpu/ops/flash_attention.py:468 " \
+                 "(_kernel_cached)"
+    bf16_cache, int8_cache = admission()
+    row("flash_cached", cached_src, cached_tpu, *bf16_cache,
+        names=("flash_fwd_tc_kernel",))
+    row("flash_cached_int8", cached_src, cached_tpu + ", int8 cache",
+        *int8_cache, names=("flash_fwd_tc_kernel",))
+    rows[-1]["library_note"] = "no single PyTorch call attends over an " \
+                               "int8 cache"
+    # an engine decode step: 4 slots at their own lengths and pads, then
+    # verify-sized blocks (S=5, 16) at the same starts; a bf16 and an int8
+    # cache
     kc, vc = rnd(4, Hkv, ML, D, dtype=bf), rnd(4, Hkv, ML, D, dtype=bf)
-    st = torch.tensor([540, 300, 610, 420], dtype=torch.int32, device=dev)
-    pads = torch.tensor([12, 0, 100, 56], dtype=torch.int32, device=dev)
-    mask = ((kp[None, :] <= st[:, None]) & (kp[None, :] >= pads[:, None])
-            )[:, None, None, :]
-    row("flash_decode", "gpu_provisioner_tpu_torch/ops/csrc/flash_decode.cu",
-        "gpu_provisioner_tpu/ops/flash_attention.py:660 (_kernel_decode)",
-        lambda: tfa.flash_attention_decode(q, kc, vc, st, pad_lens=pads),
-        lambda: tfa.attention_plain(q, kc, vc, st, pad_lens=pads),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True),
-        work(4, 1, Hq, Hkv, D, ML, st, pads, None, 0, True, 2, 2, False,
-             False))
+    st = torch.tensor(DECODE_STARTS, dtype=torch.int32, device=dev)
+    pads = torch.tensor(DECODE_PADS, dtype=torch.int32, device=dev)
+    dec_src = "gpu_provisioner_tpu_torch/ops/csrc/flash_decode.cu"
+    dec_tpu = "gpu_provisioner_tpu/ops/flash_attention.py:660 " \
+              "(_kernel_decode)"
+    names = ("flash_decode",)
+
+    def decode_timed(S, kc, vc, **kw):
+        q = rnd(4, S, Hq, D, dtype=bf)
+        mask = ((kp[None, None, :] <= st[:, None, None]
+                 + torch.arange(S, device=dev)[None, :, None])
+                & (kp[None, None, :] >= pads[:, None, None]))[:, None]
+        int8 = "k_scale" in kw
+        library = None if int8 else (
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True))
+        return (lambda: tfa.flash_attention_decode(q, kc, vc, st,
+                                                   pad_lens=pads, **kw),
+                lambda: tfa.attention_plain(q, kc, vc, st, pad_lens=pads,
+                                            **kw),
+                library,
+                work(4, S, Hq, Hkv, D, ML, st, pads, None, 0, True, 2,
+                     1 if int8 else 2, int8, False))
+
+    dec = row("flash_decode", dec_src, dec_tpu, *decode_timed(1, kc, vc),
+              names=names)
+    dec["verify_blocks"] = {
+        f"S={S}": timed({"shape": f"B=4 S={S} Hq={Hq} Hkv={Hkv} ML={ML}"},
+                        *decode_timed(S, kc, vc), names=names)
+        for S in (5, 16)}
+    print(f"flash_decode verify blocks: {json.dumps(dec['verify_blocks'])}")
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    row("flash_decode_int8", dec_src, dec_tpu + ", int8 cache",
+        *decode_timed(1, k8, v8, k_scale=ks, v_scale=vs), names=names)
+    rows[-1]["library_note"] = "no single PyTorch call attends over an " \
+                               "int8 cache"
     del flush
-    return rows
+    return rows, deferred
+
+
+def device_times(torch, deferred, dev):
+    """device_ms of the rows under 0.1 ms (the kernels' own time; the
+    decode's merge launch included), the bound share from it and, where
+    the row has one, the library call's own device time. Measured after
+    every end-to-end phase: a torch.profiler session leaves CUPTI's
+    callbacks behind, and every later launch then costs the host more
+    (5.8-8.0 µs a launch before one session, 9.6-10.2 after, on the H100
+    machine), which would slow the host-bound serving phase."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for r, kernel, library, names in deferred:
+        r["device_ms"] = device_ms(kernel, flush, names)
+        r["bound_share"] = r["bound_ms"] / r["device_ms"]
+        if library:
+            r["library_device_ms"] = device_ms(library, flush)
+        print(f"device time ({names[0]}, bound {r['bound_ms']:.5f} ms): "
+              f"{r['device_ms']:.5f} ms, library "
+              f"{r.get('library_device_ms')}")
+    del flush
 
 
 def work_bwd(kernel, B, S, Hq, Hkv, D, causal, window, act_bytes):
@@ -1082,6 +1258,20 @@ def phase_main(torch, tl, td, te, tfa, dev):
               f"generate {name}: {tuple(out.shape)}")
         print(f"generate llama-7b bf16 B=2 S0=512 {name}: {2 * new} tokens "
               f"in {wall:.2f} s = {2 * new / wall:.1f} tokens/s")
+    # the same model on an int8 KV cache (kv_cache_dtype="int8"): the
+    # prefill through the int8 cache's tensor-core flash_fwd, the decode
+    # steps through flash_decode's int8 instance
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    t0 = time.perf_counter()
+    out = td.generate(params, ragged, cfg8, max_new_tokens=new, max_len=1024,
+                      pad_id=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tuple(out.shape) == (2, new) and bool(((out >= 0) & (out < V))
+                                                .all()),
+          f"generate int8 cache: {tuple(out.shape)}")
+    print(f"generate llama-7b bf16, int8 KV cache, B=2 S0=512 pad_id: "
+          f"{2 * new} tokens in {wall:.2f} s = {2 * new / wall:.1f} tokens/s")
     launches = dict(tfa.LAUNCHES)
     print(f"main-path launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1124,9 +1314,10 @@ def main() -> int:
         for fn, info in ptxas_info(log).items():
             print(f"  {name}: {fn}: {info}")
     tc_report = tc_build_report(_cuda, logs)
+    decode_report = decode_build_report(logs)
 
     t0 = time.perf_counter()
-    rows = phase_kernels(torch, tfa, td, dev)
+    rows, deferred = phase_kernels(torch, tfa, td, dev)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_exact(torch, tl, td, te, dev)
@@ -1158,6 +1349,9 @@ def main() -> int:
                                          worst)
     rows += tri_rows
     print(f"long-context phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    device_times(torch, deferred, dev)
+    print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
         if r["name"] in twin_worst:
             e, rel = twin_worst[r["name"]]
@@ -1175,6 +1369,10 @@ def main() -> int:
         r["launches"] = (long if name.endswith("_tri") else train
                          if name.startswith("flash_bwd") else serve)[name]
         r.update(tc_report.get(name, {}))
+        if name in decode_report:
+            r["ptxas"] = decode_report[name]
+            for S, v in r.get("verify_blocks", {}).items():
+                v["ptxas"] = decode_report[f"flash_decode_s{S[2:]}"]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ class FlashArgs(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "act_dtype", "kv_dtype", "B", "Sq", "Sk", "Hq", "Hkv", "D",
             "start", "n_start", "causal", "window", "sinks")]
-        + [("scale", ctypes.c_float)])
+        + [("scale", ctypes.c_float), ("ws", ctypes.c_void_p),
+           ("ws_floats", ctypes.c_longlong), ("splits", ctypes.c_int)])
 
 
 class FlashBwdArgs(ctypes.Structure):

@@ -16,8 +16,10 @@
 // accumulator of a row lives in the same thread as that row's running max
 // and denominator (columns (t % 8) + 8 * c of D), so rescaling never crosses
 // threads. All arithmetic is f32 FMA from shared memory: the exactness
-// instances (f32) and the int8-cache forward use it. The bf16 tile steps
-// run on the tensor cores (flash_tc.cuh, on flash_wgmma.cuh's products).
+// instances of the forward (f32 activations, an f32 or int8 cache) use it.
+// The bf16 tile steps run on the tensor cores (flash_tc.cuh, on
+// flash_wgmma.cuh's products); flash_decode.cu keeps its own split
+// schedule and f32 FMA loops over the mask and window helpers below.
 //
 // Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30
 // (attendable() below is its one home): key position kp is attendable from
@@ -62,6 +64,12 @@ struct FlashArgs {
   int window;             // <= 0: no window
   int sinks;
   float scale;
+  // flash_decode's split schedule: the CTAs sharing each (batch, kv head,
+  // row block)'s live key tiles, and the f32 workspace of their partials
+  // (ws_floats long; unused, and may be null, when splits is 1)
+  float* ws;
+  long long ws_floats;
+  int splits;
 };
 
 // Argument block of the backward entry points (flash_bwd.cu), mirrored by

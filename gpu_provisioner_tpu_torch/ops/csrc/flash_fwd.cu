@@ -24,24 +24,34 @@
 //     sequential kv grid axis and its index-map clamps (_causal_kv_index),
 //     so dead tiles cost neither compute nor bytes. GQA costs no copy:
 //     q-head h reads kv head h / group.
-//   - the bf16 instance (bf16 activations and K/V: self-attention and the
-//     bf16 cache) runs on the tensor cores: one warpgroup per block, its Q
-//     tile swizzled once, K/V through flash_tc.cuh's two-stage cp.async ring
-//     (tc::kv_walk: the copy of the next live tile, not j + 1 under a window,
-//     issued before the products of the current one), tc::fwd_tile_tc's
-//     wgmma products with P as bf16 hi + lo, the mask on fragments
-//     (tc::CacheMask, a whole-tile test first), out and lse stored from the
-//     fragments; 80 KB of shared memory, two CTAs an SM. A causal grid
-//     starts with the query tiles that have the most key tiles
-//     (tc::query_tile), so that the short ones fill the tail.
-//   - the f32 instance (the exactness instance) and the int8-cache instances
+//   - the bf16 instances (bf16 activations; bf16 K/V: self-attention and
+//     the bf16 cache; or an int8 cache) run on the tensor cores: one
+//     warpgroup per block, its Q tile swizzled once, K/V through
+//     flash_tc.cuh's two-stage cp.async ring (tc::ring_walk: the copy of
+//     the next live tile, not j + 1 under a window, issued before the
+//     products of the current one), tc::fwd_tile_tc's wgmma products with
+//     P as bf16 hi + lo, the mask on fragments (tc::CacheMask, a whole-tile
+//     test first), out and lse stored from the fragments; 80 KB of shared
+//     memory, two CTAs an SM. A causal grid starts with the query tiles
+//     that have the most key tiles (tc::query_tile), so that the short ones
+//     fill the tail.
+//   - the int8 cache's bf16 instance copies each key tile as int8 with its
+//     64 k and v scales (tc::i8_stage: half the bytes of a bf16 tile) and
+//     widens it, exactly (|x| <= 127 has 8 significant bits), into the
+//     swizzled bf16 K/V pair the products read (tc::i8_widen); k_scale
+//     multiplies score column j on the fragments, v_scale P's column j
+//     before the hi + lo split, and the denominator sums the unscaled P
+//     (tc::ColScales). No rounding point beyond the bf16 cache's (ROADMAP
+//     Queue C 14, 15); 82 KB of shared memory, two CTAs an SM.
+//   - the f32 instances (the exactness instances, f32 or int8 cache)
 //     compute in f32 FMA from shared memory (fa::attend_tiles), int8
-//     dequantised per token there; an int8 tile on the tensor cores would
-//     add a rounding point (ROADMAP Queue B).
+//     dequantised per token there.
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
 // flash_tri.cu, behind triangular=True, on the same tile steps. Left for
 // later: warp specialisation with TMA, ping-pong consumers, fp8.
+#include <type_traits>
+
 #include "flash_tc.cuh"
 
 
@@ -105,9 +115,10 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
-// The bf16 instance on the tensor cores: one warpgroup per (batch * q-head,
-// 64-query tile) over the block's live key tiles.
-template <int D>
+// The bf16 instances on the tensor cores, a bf16 (KT = bf16) or an int8
+// (KT = int8_t) cache: one warpgroup per (batch * q-head, 64-query tile)
+// over the block's live key tiles.
+template <typename KT, int D>
 __global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs a) {
   static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
@@ -140,11 +151,33 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs 
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
   const tc::CacheMask mask{a.Sk, a.causal, pad, a.window, fa::sink_bound(pad, a.sinks)};
   const float sl2 = a.scale * tc::kLog2e;
-  tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-              static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.Sk,
-              first, end, next, [&](uint32_t sK, int j) {
-                tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
-              });
+  const KT* kb = static_cast<const KT*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const KT* vb = static_cast<const KT*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  if constexpr (std::is_same<KT, bf16>::value) {
+    tc::kv_walk(ring, kb, vb, a.k_ss, a.v_ss, a.Sk, first, end, next, [&](uint32_t sK, int j) {
+      tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
+    });
+  } else {
+    // the int8 cache: tiles and scales through the int8 stages after the
+    // bf16 K/V pair at `ring`, widened into the pair before the products
+    const uint32_t stages = ring + 2 * wg::TILE_BYTES;
+    const float* ksb = a.k_scale + b * a.sc_sb + kvh * a.sc_sh;
+    const float* vsb = a.v_scale + b * a.sc_sb + kvh * a.sc_sh;
+    tc::ring_walk(
+        first, end, next,
+        [&](int st, int j) {
+          tc::i8_stage(stages + st * tc::I8_STAGE, kb, vb, ksb, vsb, a.k_ss, a.v_ss, a.sc_ss,
+                       j * E, a.Sk);
+        },
+        [&](int st, int j) {
+          const uint32_t stage = stages + st * tc::I8_STAGE;
+          tc::i8_widen(ring, stage);
+          wg::fence_smem_to_async();
+          __syncthreads();
+          tc::fwd_tile_tc(acc, m, l, sQ, ring, qpos0, j * E, sl2, mask,
+                          tc::ColScales{tc::floats_at(stage + 2 * tc::I8_TILE)});
+        });
+  }
 
   float inv[2], lse[2];
   tc::fwd_final(m, l, inv, lse);
@@ -154,14 +187,15 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs 
     tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.Sq, q0, a.Sq);
 }
 
-template <int D>
+template <typename KT, int D>
 cudaError_t launch_tc(const FlashArgs& a, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  constexpr size_t smem = std::is_same<KT, int8_t>::value ? tc::FWD_I8_SMEM : tc::FWD_SMEM;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<KT, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(tc::FWD_SMEM));
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.Hq, (a.Sq + tc::E - 1) / tc::E);
-  flash_fwd_tc_kernel<D><<<grid, wg::THREADS, tc::FWD_SMEM, stream>>>(a);
+  flash_fwd_tc_kernel<KT, D><<<grid, wg::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -182,8 +216,8 @@ template <int D>
 cudaError_t dispatch(const FlashArgs& a, cudaStream_t s) {
   if (a.act_dtype == 0 && a.kv_dtype == 0) return launch<float, float, D>(a, s);
   if (a.act_dtype == 0 && a.kv_dtype == 2) return launch<float, int8_t, D>(a, s);
-  if (a.act_dtype == 1 && a.kv_dtype == 1) return launch_tc<D>(a, s);
-  if (a.act_dtype == 1 && a.kv_dtype == 2) return launch<__nv_bfloat16, int8_t, D>(a, s);
+  if (a.act_dtype == 1 && a.kv_dtype == 1) return launch_tc<__nv_bfloat16, D>(a, s);
+  if (a.act_dtype == 1 && a.kv_dtype == 2) return launch_tc<int8_t, D>(a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -26,7 +26,11 @@
 // The JAX kernels keep P and dS in f32; hack/torch_tri_bf16_replay.py
 // replays these roundings against them (ROADMAP Queue C 12). Shared memory:
 // Q and two K/V stages, 80 KB (forward); Q, dO and two stages, 96 KB (dQ):
-// two CTAs an SM.
+// two CTAs an SM. The forward over an int8 cache walks the same ring
+// (ring_walk) with int8 stages: each tile copied as int8 with its 64 k and
+// v scales, widened exactly to bf16 into one swizzled K/V pair, the scales
+// on the score and P columns (ColScales; Queue C 15): Q, the pair and two
+// int8 stages, 82 KB, two CTAs an SM.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -193,22 +197,17 @@ struct CacheMask {
 // ---- forward and dQ -------------------------------------------------------
 
 // A query tile's walk over key tiles first, next(first), ... while < end,
-// through the two-stage K/V ring at `ring` (stage st: K at ring + 2 st
-// TILE, V after it; kb / vb at position 0 of the (batch, kv head), rows at
-// or past Sk zero-filled). Issues the first tile's copy and commits it with
-// whatever the caller issued before (its Q, dO tiles); for each tile waits
-// for its stage, publishes it to every thread and to the tensor cores,
-// issues the copy of the next live tile into the other stage (whose
-// products are done), then calls step(stage, j). `next` gives the tile
-// after j, skipping dead ones: the ring must hold the tile the step reads.
-template <typename Next, typename Step>
-__device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf16* vb,
-                                        long long k_ss, long long v_ss, int Sk, int first,
-                                        int end, Next next, Step step) {
-  if (first < end) {
-    wg::load_tile(ring, kb, k_ss, first * E, Sk);
-    wg::load_tile(ring + wg::TILE_BYTES, vb, v_ss, first * E, Sk);
-  }
+// through a two-stage ring: load(st, j) issues the copies of tile j into
+// stage st (not committed), step(st, j) runs the products on it. Commits the
+// first tile's copies with whatever the caller issued before (its Q, dO
+// tiles); for each tile waits for its stage, publishes it to every thread
+// and to the tensor cores, issues the copy of the next live tile into the
+// other stage (whose products are done), then calls step. `next` gives the
+// tile after j, skipping dead ones: the ring must hold the tile the step
+// reads.
+template <typename Next, typename Load, typename Step>
+__device__ __forceinline__ void ring_walk(int first, int end, Next next, Load load, Step step) {
+  if (first < end) load(0, first);
   wg::copy_commit();
   int st = 0;
   for (int j = first; j < end; st ^= 1) {
@@ -217,27 +216,129 @@ __device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf1
     wg::fence_smem_to_async();
     __syncthreads();
     if (jn < end) {
-      const uint32_t other = ring + 2 * (st ^ 1) * wg::TILE_BYTES;
-      wg::load_tile(other, kb, k_ss, jn * E, Sk);
-      wg::load_tile(other + wg::TILE_BYTES, vb, v_ss, jn * E, Sk);
+      load(st ^ 1, jn);
       wg::copy_commit();
     }
-    step(ring + 2 * st * wg::TILE_BYTES, j);
+    step(st, j);
     j = jn;
   }
   wg::copy_wait<0>();        // nothing in flight when the walk had no tile
 }
+
+// ring_walk over bf16 K/V tiles at `ring` (stage st: K at ring + 2 st TILE,
+// V after it; kb / vb at position 0 of the (batch, kv head), rows at or past
+// Sk zero-filled); step(sK, j) gets the stage's K tile.
+template <typename Next, typename Step>
+__device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf16* vb,
+                                        long long k_ss, long long v_ss, int Sk, int first,
+                                        int end, Next next, Step step) {
+  ring_walk(
+      first, end, next,
+      [&](int st, int j) {
+        const uint32_t stage = ring + 2 * st * wg::TILE_BYTES;
+        wg::load_tile(stage, kb, k_ss, j * E, Sk);
+        wg::load_tile(stage + wg::TILE_BYTES, vb, v_ss, j * E, Sk);
+      },
+      [&](int st, int j) { step(ring + 2 * st * wg::TILE_BYTES, j); });
+}
+
+// ---- the int8 cache -------------------------------------------------------
+
+// An int8 stage: the K and V tiles as they lie in the cache (64 rows of 128
+// int8, 8 KB each), then the tile's 64 k and 64 v scales. An int8 value is
+// exact in bf16 (8 significant bits), so the tiles widen without rounding
+// into the swizzled bf16 K/V pair the products read (i8_widen); k_scale
+// multiplies score column j, v_scale P's column j (ColScales).
+constexpr uint32_t I8_TILE = E * 128;
+constexpr uint32_t I8_STAGE = 2 * I8_TILE + 2 * E * sizeof(float);
+// Q, the bf16 K/V pair, two int8 stages, the alignment slack
+constexpr size_t FWD_I8_SMEM = 3 * wg::TILE_BYTES + 2 * I8_STAGE + wg::ALIGN;
+
+// Issues the copies of key tile rows k0 .. k0 + 63 of one (batch, kv head)
+// (kb / vb / ksb / vsb at its position 0; rows at or past Sk zero-filled)
+// into the int8 stage at `stage`: 512 16-byte chunks of each tile, four a
+// thread, and one scale a thread. Not committed.
+__device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
+                                         const float* ksb, const float* vsb, long long k_ss,
+                                         long long v_ss, long long sc_ss, int k0, int Sk) {
+#pragma unroll
+  for (int it = 0; it < E * 8 / wg::THREADS; ++it) {
+    const int i = threadIdx.x + it * wg::THREADS;
+    const int r = i >> 3, c = i & 7;
+    const bool in = k0 + r < Sk;
+    const long long row = in ? k0 + r : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + r * 128 + c * 16),
+                 "l"(kb + row * k_ss + c * 16), "r"(in ? 16 : 0)
+                 : "memory");
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + I8_TILE + r * 128 +
+                                                                         c * 16),
+                 "l"(vb + row * v_ss + c * 16), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+  const int r = threadIdx.x & (E - 1);
+  const bool in = k0 + r < Sk;
+  const float* src = (threadIdx.x < E ? ksb : vsb) + (in ? (k0 + r) * sc_ss : 0);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stage + 2 * I8_TILE +
+                                                                      threadIdx.x * 4),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Widens the int8 stage's K and V tiles, exactly, into the swizzled bf16
+// tiles at sK and sK + TILE (wg::load_tile's layout): each thread 8 chunks
+// of 8 values a tile. The caller publishes them (fence_smem_to_async, then a
+// barrier) before the products.
+__device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
+  const char* src = reinterpret_cast<const char*>(floats_at(stage));
+  char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
+#pragma unroll
+  for (int kv = 0; kv < 2; ++kv)
+#pragma unroll
+    for (int it = 0; it < E * 16 / wg::THREADS; ++it) {
+      const int i = threadIdx.x + it * wg::THREADS;
+      const int r = i >> 4, c = i & 15;   // row, chunk of 8 values along D
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + kv * I8_TILE + r * 128 + c * 8);
+      const uint32_t w[2] = {raw.x, raw.y};
+      uint32_t o[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint32_t x = w[h >> 1] >> (16 * (h & 1));
+        o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
+                             static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
+      }
+      *reinterpret_cast<uint4*>(dst + kv * wg::TILE_BYTES + (c >> 3) * wg::ATOM_BYTES + r * 128 +
+                                (((c & 7) ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+}
+
+// Per-key-column factors of a forward step: none (a bf16 cache), or the int8
+// cache's k_scale (on the scores, before the max) and v_scale (on P, before
+// P V; the denominator sums the unscaled P).
+struct NoScales {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ float k(int) const { return 1.f; }
+  __device__ __forceinline__ float v(int) const { return 1.f; }
+};
+
+struct ColScales {
+  static constexpr bool kOn = true;
+  const float* ks;   // the stage's 64 k scales, then its 64 v scales
+  __device__ __forceinline__ float k(int c) const { return ks[c]; }
+  __device__ __forceinline__ float v(int c) const { return ks[E + c]; }
+};
 
 // One forward step (_online_update): queries q0 .. q0 + 63 (Q tile at sQ)
 // against keys k0 .. k0 + 63 (K, V tiles at sK, sK + TILE), the copies
 // waited for and published. S = Q K^T, the mask, the running max m (log2
 // units) and denominator l of the fragment's two rows (l over this thread's
 // columns; the quad's sum at the end, fwd_final), acc rescaled, then acc +=
-// P V with P as bf16 hi + lo.
-template <typename Mask>
+// P V with P as bf16 hi + lo. With ColScales (the int8 cache) score column
+// j is multiplied by k_scale[j] with the scale, and P's column j by
+// v_scale[j] after the denominator took it.
+template <typename Mask, typename Scales = NoScales>
 __device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], float (&l)[2],
                                             uint32_t sQ, uint32_t sK, int q0, int k0, float sl2,
-                                            const Mask& mask) {
+                                            const Mask& mask, const Scales& sc = Scales()) {
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32];
   wg::fence();
@@ -247,6 +348,10 @@ __device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], flo
   wg::fence_regs(s);
   // the mask in a pass of its own, skipped on a full tile (a per-element
   // test folded into the max's loop measured slower on both schedules)
+  if constexpr (Scales::kOn) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= sc.k(col + wg::elem_col(e));
+  }
   if (mask.full(k0, q0)) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] *= sl2;
@@ -283,6 +388,10 @@ __device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], flo
       acc[4 * j + 2 * i] *= corr;
       acc[4 * j + 2 * i + 1] *= corr;
     }
+  }
+  if constexpr (Scales::kOn) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= sc.v(col + wg::elem_col(e));
   }
   pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
 }

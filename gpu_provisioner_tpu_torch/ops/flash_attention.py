@@ -24,12 +24,16 @@ between the two.
 What bounds the kernels on an H100: the forward, dQ and dK/dV of
 self-attention and of a cached prefill are compute-bound (4, 6 and 8·D
 operations per attended pair and q-head against a few bytes per position),
-the decode kernel's short query blocks read the cache (bytes). So the bf16
-instances of all but the decode and int8-cache kernels run on the tensor
-cores: one warpgroup per 64-row tile, ``wgmma`` on swizzled bf16 tiles fed
-by a ``cp.async`` ring over the live key (or query) tiles only, the mask on
-fragments; the f32 instances stay f32 FMA, the exactness instances.
-Deliberate differences from the JAX module:
+the decode kernel's short query blocks read the cache (bytes). So every
+bf16 instance but the decode kernel's runs on the tensor cores (the int8
+cache's prefill too, its tiles widened exactly to bf16): one warpgroup per
+64-row tile, ``wgmma`` on swizzled bf16 tiles fed by a ``cp.async`` ring
+over the live key (or query) tiles only, the mask on fragments; the f32
+instances stay f32 FMA, the exactness instances. The decode kernel spreads
+each (batch, kv head)'s live cache over many CTAs (split-KV, a share of
+the live tiles each, partials merged by log-sum-exp in a second launch),
+streams it through a ``cp.async`` ring in the cache's own dtype and stays
+f32 FMA for every dtype. Deliberate differences from the JAX module:
 
 - ``flash_attention_cached`` and ``flash_attention_decode`` raise if an
   input requires grad: their JAX twins have no VJP;
@@ -42,15 +46,22 @@ Deliberate differences from the JAX module:
   decode and the shares of its schedule have CPU twins here
   (``_tri_decode``, ``_tri_decode_rev``, ``_tri_shares``) that the tests
   check; it runs the rectangular kernels' tile steps;
-- every bf16 kernel but the decode and int8-cache ones runs on the
-  tensor cores (``csrc/flash_tc.cuh``'s tile steps): the forward's P as two
-  bf16 terms (hi + lo), P and dS each rounded to bf16 before their second
-  product in the backward, where the JAX kernels keep them f32 (ROADMAP
-  Queue C 12); these kernels need 16-byte aligned inputs
-  (``_check_tc_copies``, a ValueError on a direct launch), and the model
-  paths (the autograd forward and backward, ``flash_attention_cached``)
-  copy an input or cotangent that is not (``_tc_layout``), where the JAX
-  kernels take any layout;
+- ``flash_attention_decode`` splits each (batch, kv head)'s live cache
+  tiles among several CTAs and merges their partials by log-sum-exp (the
+  sums in another order); its schedule has a CPU twin here
+  (``_decode_tiles``, ``_decode_shares``, ``_decode_merge``,
+  ``_decode_split_plain``) that the tests hold against JAX;
+- every bf16 kernel but the decode runs on the tensor cores
+  (``csrc/flash_tc.cuh``'s tile steps): the forward's P as two bf16 terms
+  (hi + lo), P and dS each rounded to bf16 before their second product in
+  the backward, where the JAX kernels keep them f32 (ROADMAP Queue C 12,
+  14; an int8 cache widens exactly to bf16 with its scales on the score
+  and P columns, Queue C 15); these kernels, and the decode kernel's K/V
+  ring in every dtype, need 16-byte aligned inputs (``_check_tc_copies``,
+  a ValueError on a direct launch), and the model paths (the autograd
+  forward and backward, ``flash_attention_cached``,
+  ``flash_attention_decode``) copy an input or cotangent that is not
+  (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
 - head dim 128 only (every Llama preset's); another head dim raises on a
@@ -72,14 +83,22 @@ from . import _cuda
 NEG_INF = -1.0e30  # mask value; finite so exp() underflows instead of NaN-ing
 DEFAULT_BLOCK = 512
 DECODE_MAX_S = 16   # short-block bound: decode steps / verify blocks
+# flash_decode's split schedule (csrc/flash_decode.cu): the row counts of its
+# instances, the most CTAs that share one unit's live tiles, and its tile
+DECODE_ROWS = (4, 8, 16, 32, 64)
+DECODE_MAX_SPLITS = 32
+_TILE = 64
 # K+V bytes (in the input dtype) the TPU keeps resident in VMEM before its
 # forward switches to the streaming grid, where triangular=True applies: a
 # copy of the JAX constant, kept so the port takes the triangle exactly
 # where the JAX package does (bf16 at D 128: S > 12288)
 RESIDENT_KV_BUDGET = 6 * 1024 * 1024
 
-# launches per kernel, counted where its wrapper launches it
-LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_decode": 0,
+# launches per kernel, counted where its wrapper launches it; an int8 cache
+# has its own counts (the int8 instances of flash_fwd and flash_decode), and
+# flash_decode's merge launch is counted with its split launch (one C entry)
+LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
+            "flash_decode": 0, "flash_decode_int8": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_tri": 0,
             "flash_bwd_dq_tri": 0, "flash_bwd_dkv_tri": 0}
 
@@ -137,6 +156,131 @@ def _tri_decode_rev(t, n: int):
 def _tri_shares(W: int, P: int) -> list:
     """CTA c's share [c·W/P, (c+1)·W/P) of W flat tiles among P CTAs."""
     return [(c * W // P, (c + 1) * W // P) for c in range(P)]
+
+
+def _decode_rows(rows: int) -> tuple[int, int]:
+    """(R, row blocks) of flash_decode for a unit of ``rows`` = S·group query
+    rows: R the smallest instance that holds them, 64 at most, and the row
+    blocks of R that cover them (csrc/flash_decode.cu launch_rows)."""
+    R = next((r for r in DECODE_ROWS if r >= rows), DECODE_ROWS[-1])
+    return R, -(-rows // R)
+
+
+def _decode_splits(units: int, max_len: int, sms: int) -> int:
+    """The CTAs that share each of ``units`` (batch, kv head, row block)
+    units' live key tiles: about two CTAs an SM in all, at most one a cache
+    tile and DECODE_MAX_SPLITS. From shapes alone: the host never reads the
+    starts (a device tensor; reading it would sync)."""
+    return max(1, min(-(-2 * sms // units), max_len // _TILE,
+                      DECODE_MAX_SPLITS))
+
+
+def _window_first_tile(min_qpos: int, window) -> int:
+    """The first key tile not wholly below the window of the row at
+    ``min_qpos`` (csrc/flash_common.cuh fa::window_first_tile)."""
+    x = min_qpos - (window or 0) - (_TILE - 2)
+    return -(-x // _TILE) if window and x > 0 else 0
+
+
+def _decode_tiles(start: int, pad: int, first_s: int, last_s: int, Sk: int,
+                  window=None, sinks: int = 0) -> tuple[int, int, int, int]:
+    """A unit's live key tiles as two runs, [lo, a_end) (the sink tiles under
+    a window) then [b0, hi): the pad floor's tile to the causal frontier of
+    the unit's last row (position start + last_s), less the tiles wholly
+    below the window of its first row (start + first_s) that do not overlap
+    the sinks [pad, pad + sinks) (fa::window_skips). The twin of
+    csrc/flash_decode.cu's live_tiles."""
+    hi_pos = min(Sk, start + last_s + 1)
+    lo = pad // _TILE
+    hi = -(-hi_pos // _TILE) if hi_pos > 0 else 0
+    wlo = _window_first_tile(start + first_s, window)
+    sink_end = (pad + sinks - 1) // _TILE + 1 if window and sinks > 0 else 0
+    a_end = max(lo, min(hi, sink_end))
+    return lo, a_end, max(lo, wlo, a_end), hi
+
+
+def _decode_shares(lo_tile: int, hi_tile: int, n_split: int, *,
+                   a_end=None, b0=None) -> list:
+    """The key tiles each of ``n_split`` CTAs walks: CTA c takes [c·n/P,
+    (c+1)·n/P) of the n live tiles [lo_tile, a_end) + [b0, hi_tile) (by
+    default the whole run [lo_tile, hi_tile)), in order; a share may be
+    empty."""
+    a_end = lo_tile if a_end is None else a_end
+    b0 = lo_tile if b0 is None else b0
+    live = list(range(lo_tile, a_end)) + list(range(b0, hi_tile))
+    n = len(live)
+    return [live[c * n // n_split:(c + 1) * n // n_split]
+            for c in range(n_split)]
+
+
+def _decode_merge(parts):
+    """Normalised partials [(out [..., S, H, D], lse [..., H, S])] of the
+    same rows over disjoint key sets → (out f32, lse): the log-sum-exp
+    merge of flash_decode's merge launch; rows no part attended (lse =
+    NEG_INF everywhere) give zeros and NEG_INF."""
+    lses = torch.stack([lse.float() for _, lse in parts])
+    M = lses.amax(0)
+    w = torch.where(lses > NEG_INF / 2, torch.exp(lses - M), 0.0)
+    L = w.sum(0)
+    w = w / torch.where(L > 0, L, 1.0)
+    out = sum(wi.transpose(-1, -2)[..., None] * o.float()
+              for wi, (o, _) in zip(w, parts))
+    return out, torch.where(L > 0, M + torch.log(torch.where(L > 0, L, 1.0)),
+                            NEG_INF)
+
+
+def _decode_split_plain(q, k_cache, v_cache, start, n_split: int, *,
+                        scale=None, pad_lens=None, k_scale=None,
+                        v_scale=None, window=None, sinks: int = 0):
+    """The CPU twin of flash_decode's split schedule, the function of
+    flash_attention_decode: for each (batch, kv head, row block) unit
+    (_decode_rows), its live key tiles (_decode_tiles) cut into ``n_split``
+    shares (_decode_shares), each share's partial computed by
+    attention_plain on the keys of its tiles alone (a run of tiles at key
+    offset k0 is the cache slice from k0 with positions, pad and start
+    shifted by k0), and the partials merged by log-sum-exp
+    (_decode_merge). Returns out [B,S,Hq,D] f32."""
+    B, S, Hq, D = q.shape
+    Hkv, Sk = k_cache.shape[1], k_cache.shape[2]
+    group, rows = Hq // Hkv, S * (Hq // Hkv)
+    R, blocks = _decode_rows(rows)
+    starts = _start_vector(start, B, q.device).tolist()
+    pads = [0] * B if pad_lens is None else pad_lens.long().tolist()
+    out = torch.zeros(B, S, Hq, D)
+    for b in range(B):
+        for h in range(Hkv):
+            heads = slice(h * group, (h + 1) * group)
+            for rb in range(blocks):
+                r0, r1 = rb * R, min(rb * R + R, rows)
+                lo, a_end, b0, hi = _decode_tiles(
+                    starts[b], pads[b], r0 // group, (r1 - 1) // group, Sk,
+                    window, sinks)
+                parts = []
+                for share in _decode_shares(lo, hi, n_split, a_end=a_end,
+                                            b0=b0):
+                    while share:   # each run of consecutive tiles
+                        n = next((i for i in range(1, len(share))
+                                  if share[i] != share[i - 1] + 1),
+                                 len(share))
+                        k0, k1 = share[0] * _TILE, min(share[n - 1] * _TILE
+                                                       + _TILE, Sk)
+                        share = share[n:]
+                        sl = (slice(b, b + 1), slice(h, h + 1),
+                              slice(k0, k1))
+                        kw = dict(scale=scale, window=window, sinks=sinks,
+                                  pad_lens=torch.tensor([pads[b] - k0]))
+                        if k_scale is not None:
+                            kw.update(k_scale=k_scale[sl], v_scale=v_scale[sl])
+                        parts.append(attention_plain(
+                            q[b:b + 1, :, heads], k_cache[sl], v_cache[sl],
+                            starts[b] - k0, **kw))
+                if not parts:
+                    continue
+                o, _ = _decode_merge(parts)             # [1, S, group, D]
+                for r in range(r0, r1):
+                    out[b, r // group, h * group + r % group] = \
+                        o[0, r // group, r % group]
+    return out
 
 
 def _check_no_grad(*tensors) -> None:
@@ -224,8 +368,10 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
             sinks: int = 0, want_lse: bool = False):
     """Checks what the CUDA kernel takes, allocates the outputs and launches
     ``kernel`` on the current stream. k/v are head-major [B,Hkv,Sk,D] views
-    (any strides, head dim contiguous; ``flash_fwd`` with a bf16 cache takes
-    16-byte chunks of q, k and v: ``_check_tc_copies``)."""
+    (any strides, head dim contiguous; the bf16 ``flash_fwd`` takes 16-byte
+    chunks of q, k and v, ``flash_decode`` of k and v: ``_check_tc_copies``).
+    ``flash_decode`` also gets its split plan (``_decode_plan``) and, with
+    more than one split, the f32 workspace of its partials."""
     B, S, Hq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dev = q.device
@@ -260,8 +406,7 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
                              "equal strides")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    if not int8:
-        _check_tc_copies(kernel, q=q, k=k, v=v)
+    _check_tc_copies(kernel, q=q, k=k, v=v)
 
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
@@ -298,8 +443,36 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     a.B, a.Sq, a.Sk, a.Hq, a.Hkv, a.D = B, S, Sk, Hq, Hkv, D
     a.causal, a.window, a.sinks = int(causal), window or 0, sinks
     a.scale = scale
+    if kernel == "flash_decode":
+        R, units, a.splits = _decode_plan(B, S, Hq, Hkv, Sk, _sm_count(dev))
+        if a.splits > 1:
+            ws = torch.empty(units * a.splits * R * (D + 2),
+                             dtype=torch.float32, device=dev)
+            keep.append(ws)
+            a.ws, a.ws_floats = ws.data_ptr(), ws.numel()
     _run(kernel, a, dev)
     return out, lse
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    """The SM count of card ``dev`` (cached)."""
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _decode_plan(B: int, S: int, Hq: int, Hkv: int, max_len: int,
+                 sms: int) -> tuple[int, int, int]:
+    """(R, units, splits) of a flash_decode launch: rows per unit
+    (_decode_rows), (batch, kv head, row block) units, and the CTAs that
+    share each unit's live tiles (_decode_splits)."""
+    R, blocks = _decode_rows(S * (Hq // Hkv))
+    units = B * Hkv * blocks
+    return R, units, _decode_splits(units, max_len, sms)
 
 
 def _run(kernel: str, a, dev) -> None:
@@ -444,10 +617,13 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     return outs[0] if len(outs) == 1 else outs
 
 
-# the kernels whose bf16 instances copy 16-byte chunks of the named inputs
-# into shared memory (cp.async) for the tensor cores (flash_fwd: with bf16
-# K/V; its int8-cache instance reads q element by element, any row stride)
+# the kernels whose instances copy 16-byte chunks of the named inputs into
+# shared memory (cp.async): the bf16 tensor-core instances (flash_fwd with a
+# bf16 or an int8 cache; its f32 instances read element by element, any
+# row stride), and every instance of flash_decode (its K/V ring, in the
+# cache's dtype; it reads q element by element)
 _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
+              "flash_decode": ("k", "v"),
               "flash_bwd_dq": ("q", "k", "v", "dout"),
               "flash_fwd_tri": ("q", "k", "v"),
               "flash_bwd_dq_tri": ("q", "k", "v", "dout"),
@@ -455,35 +631,41 @@ _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
               "flash_bwd_dkv": ("q", "k", "v", "dout")}
 
 
-def _tc_copy_fault(t) -> str | None:
-    """Why the bf16 tensor-core kernels cannot copy ``t`` (they copy rows of
-    128 bf16 values in 16-byte chunks: a 16-byte aligned base, batch,
-    position and head strides of whole chunks, multiples of 8 elements), or
-    None when they can. Other dtypes: None."""
-    if t.dtype != torch.bfloat16:
+def _tc_copy_fault(t, any_dtype: bool = False) -> str | None:
+    """Why a kernel cannot copy ``t`` in 16-byte chunks (rows of 128 values:
+    a 16-byte aligned base, batch, position and head strides of whole
+    chunks), or None when it can. Only bf16 is checked unless
+    ``any_dtype`` (f32 chunks hold 4 values, int8 chunks 16)."""
+    if t.dtype != torch.bfloat16 and not any_dtype:
         return None
     if t.data_ptr() % 16:
         return "is not 16-byte aligned"
-    if any(st % 8 for st in t.stride()[:3]):
-        return (f"strides {t.stride()[:3]} are not multiples of 8 elements "
-                "(16 bytes)")
+    chunk = 16 // t.element_size()
+    sb, ss, sh = t.stride()[:3]
+    if sb % chunk or ss % chunk or sh % chunk:
+        return (f"strides {(sb, ss, sh)} are not multiples of {chunk} "
+                "elements (16 bytes)")
     return None
 
 
 def _check_tc_copies(kernel: str, **tensors) -> None:
-    """Raises ValueError naming the first input of ``kernel`` that its bf16
-    instance copies and cannot (``_tc_copy_fault``)."""
+    """Raises ValueError naming the first input that ``kernel``'s instance
+    for these dtypes copies and cannot (``_tc_copy_fault``); the f32
+    instances of every kernel but flash_decode copy nothing."""
+    if kernel != "flash_decode" and tensors["q"].dtype != torch.bfloat16:
+        return
     for name in _TC_COPIED.get(kernel, ()):
-        fault = _tc_copy_fault(tensors[name])
+        fault = _tc_copy_fault(tensors[name], any_dtype=True)
         if fault:
             raise ValueError(f"{kernel}: {name} {fault}")
 
 
-def _tc_layout(t):
+def _tc_layout(t, any_dtype: bool = False):
     """``t`` itself when every kernel takes its layout (head dim contiguous
-    and, in bf16, ``_tc_copy_fault`` clear), else a contiguous copy in
-    fresh, aligned storage: a layout copy, the same values."""
-    if t.stride(-1) == 1 and _tc_copy_fault(t) is None:
+    and ``_tc_copy_fault`` clear: in bf16, or in any dtype with
+    ``any_dtype``), else a contiguous copy in fresh, aligned storage: a
+    layout copy, the same values."""
+    if t.stride(-1) == 1 and _tc_copy_fault(t, any_dtype) is None:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -672,11 +854,12 @@ def flash_attention_cached(q, k_cache, v_cache, start, *, scale: float = None,
     kw = dict(causal=True, scale=scale, pad_lens=pad_lens, k_scale=k_scale,
               v_scale=v_scale, window=window, sinks=sinks)
     if _on_card(q):
-        if k_scale is None:   # the bf16 cache's tensor-core instance
-            q, k_cache, v_cache = (_tc_layout(t) for t in (q, k_cache,
-                                                            v_cache))
+        if q.dtype == torch.bfloat16:   # the tensor-core instances
+            q, k_cache, v_cache = (_tc_layout(t, any_dtype=True)
+                                   for t in (q, k_cache, v_cache))
         out, _ = _launch("flash_fwd", q, k_cache, v_cache, start, **kw)
-        LAUNCHES["flash_cached"] += 1
+        LAUNCHES["flash_cached_int8" if k_scale is not None
+                 else "flash_cached"] += 1
         return out
     _require_cpu(q)
     return attention_plain(q, k_cache, v_cache, start, **kw)[0]
@@ -709,8 +892,11 @@ def flash_attention_decode(q, k_cache, v_cache, start, *, scale: float = None,
     kw = dict(causal=True, scale=scale, pad_lens=pad_lens, k_scale=k_scale,
               v_scale=v_scale, window=window, sinks=sinks)
     if _on_card(q):
+        k_cache, v_cache = (_tc_layout(t, any_dtype=True)
+                            for t in (k_cache, v_cache))
         out, _ = _launch("flash_decode", q, k_cache, v_cache, start, **kw)
-        LAUNCHES["flash_decode"] += 1
+        LAUNCHES["flash_decode_int8" if k_scale is not None
+                 else "flash_decode"] += 1
         return out
     _require_cpu(q)
     return attention_plain(q, k_cache, v_cache, start, **kw)[0]

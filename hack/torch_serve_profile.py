@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one GPU.
 
-    python3 hack/torch_serve_profile.py [--steps 8] [--layers 32]
+    python3 hack/torch_serve_profile.py [--steps 8] [--layers 32] [ROOT]
 
 Builds full-width Llama-7B in bf16 with the flash kernels (seeded random
 weights, ``--layers`` deep), fills a 4-slot ServeEngine (max_len 2048,
-buckets 128/256/512) with four requests, then traces ``--steps`` decode
-steps and one admission (a 512-bucket prefill) under torch.profiler. Prints
-one JSON object: the card's name and power limit, the host wall per step,
-the device time by kernel name (top 12) and in total, and the device's
-idle share of the wall (1 - device busy / wall). Imports nothing of JAX.
+buckets 128/256/512) with four requests, times ``--steps`` decode steps
+untraced (host wall per step: median and each step), then traces
+``--steps`` decode steps and one admission (a 512-bucket prefill) under
+torch.profiler. Prints one JSON object: the card's name and power limit,
+the untraced wall per step, the traced host wall per step, the device time
+by kernel name (top 12, and every flash kernel) and in total, and the
+device's idle share of the traced wall (1 - device busy / wall). ROOT: a
+directory holding another ``gpu_provisioner_tpu_torch`` (an unpacked
+parent commit) to profile instead of this repo's. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -57,19 +62,23 @@ def _summary(wall, by_name, busy, n):
     return {"wall_ms_per_step": wall * 1e3 / n,
             "device_busy_ms_per_step": busy / 1e3 / n,
             "idle_share": 1 - busy / 1e6 / wall if wall > 0 else None,
-            "top_kernels_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}}
+            "top_kernels_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top},
+            "flash_kernels_ms_per_step": {k[:90]: v / 1e3 / n
+                                          for k, v in by_name.items()
+                                          if "flash_" in k}}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("root", nargs="?", default=str(ROOT))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     from gpu_provisioner_tpu_torch.models import engine as te
     from gpu_provisioner_tpu_torch.models import llama as tl
 
@@ -87,13 +96,22 @@ def main() -> int:
                    .tolist(), 64)
     for _ in range(4):                      # admits all four, warms up
         eng.step()
+    untraced = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
     wall, by_name, busy = _trace(
         torch, lambda: [eng.step() for _ in range(args.steps)])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    out = {"card": card, "layers": args.layers,
+    out = {"card": card, "root": str(Path(args.root).resolve()),
+           "layers": args.layers,
+           "untraced_wall_ms_per_step": statistics.median(untraced),
+           "untraced_wall_ms_steps": untraced,
            "decode_step": _summary(wall, by_name, busy, args.steps)}
     prompt = torch.randint(1, cfg.vocab_size, (500,), generator=g).tolist()
     eng2 = te.ServeEngine(params, cfg, slots=1, max_len=2048,

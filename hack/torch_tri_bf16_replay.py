@@ -3,8 +3,8 @@
 
     python3 hack/torch_tri_bf16_replay.py
 
-The bf16 instances of ``flash_fwd`` (self-attention and the bf16 cache),
-``flash_bwd_dq`` and ``flash_bwd_dkv`` (csrc/flash_fwd.cu,
+The bf16 instances of ``flash_fwd`` (self-attention, the bf16 and the int8
+cache), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (csrc/flash_fwd.cu,
 csrc/flash_bwd.cu) and of ``flash_fwd_tri``, ``flash_bwd_dq_tri`` and
 ``flash_bwd_dkv_tri`` (csrc/flash_tri.cu) take their products on the
 tensor cores in bf16 through csrc/flash_tc.cuh's tile steps, where the plain
@@ -12,7 +12,9 @@ versions and the JAX kernels keep P and dS in f32. ``replay_fwd``,
 ``replay_dq`` and ``replay_dkv`` redo the kernels' arithmetic in plain
 torch: f32 scores, the online softmax over 64-key tiles with the
 denominator summed from the f32 P, P rounded to bf16 before P·V (``split``:
-as the kernel does, two bf16 terms hi + lo); dS = P∘(dP − Δ)·scale rounded
+as the kernel does, two bf16 terms hi + lo; an int8 cache's values widened
+exactly to bf16, its k scales on the score columns and its v scales on P's
+columns before the split); dS = P∘(dP − Δ)·scale rounded
 to bf16 before dS·K; for dK/dV, 64-key × 64-query tiles of f32 Sᵀ and dPᵀ,
 Pᵀ and dSᵀ each rounded to bf16 once before Pᵀ·dO and dSᵀ·Q, the group's
 q-heads folded in f32. The forward and dQ take any mask ``keep_mask``
@@ -72,19 +74,29 @@ def keep_mask(B, S, Sk, *, start=0, causal=True, pad_lens=None,
     return keep
 
 
-def _scores(q, k, scale, keep=None):
+def _per_q_head(x, group):
+    """[B, Sk, Hkv, ...] token-major → [B, Hq, Sk, ...], each kv head's
+    slice repeated for the q-heads of its group."""
+    return x.float().repeat_interleave(group, 2).transpose(1, 2)
+
+
+def _scores(q, k, scale, keep=None, k_scale=None):
     """f32 scores [B, Hq, S, Sk] (NEG_INF where ``keep`` [B, S, Sk] is
     False; default causal self-attention) and each q-head's K, head-major
-    f32; k token-major [B, Sk, Hkv, D]."""
+    f32; k token-major [B, Sk, Hkv, D]. With ``k_scale`` [B, Sk, Hkv, 1]
+    (an int8 cache: k holds its int8 values), score column j is Q K_j
+    times k_scale[j], as the int8 tensor-core forward scales it."""
     B, S, Hq, _ = q.shape
     Sk = k.shape[1]
     group = Hq // k.shape[2]
     if keep is None:
         keep = keep_mask(B, S, Sk)
     qf = q.float().transpose(1, 2)
-    kf = k.float().repeat_interleave(group, 2).transpose(1, 2)
-    s = torch.where(keep[:, None], qf @ kf.transpose(-1, -2) * scale,
-                    tfa.NEG_INF)
+    kf = _per_q_head(k, group)
+    s = qf @ kf.transpose(-1, -2)
+    if k_scale is not None:
+        s = s * _per_q_head(k_scale, group)[..., 0][:, :, None, :]
+    s = torch.where(keep[:, None], s * scale, tfa.NEG_INF)
     return s, kf
 
 
@@ -92,14 +104,20 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def replay_fwd(q, k, v, scale, *, split=True, keep=None):
+def replay_fwd(q, k, v, scale, *, split=True, keep=None, k_scale=None,
+               v_scale=None):
     """(out [B,S,Hq,D], lse [B,Hq,S]) in f32 as the tensor-core forward
     computes them, before it rounds out to bf16; k/v token-major [B, Sk,
     Hkv, D], ``keep`` [B, S, Sk] (default causal self-attention). A tile
-    the kernels skip as dead changes nothing here (P = 0, no rescale)."""
-    s, _ = _scores(q, k, scale, keep)
+    the kernels skip as dead changes nothing here (P = 0, no rescale).
+    An int8 cache (k/v its int8 values, exact in bf16; ``k_scale`` /
+    ``v_scale`` [B, Sk, Hkv, 1]): k_scale on the score columns, the
+    denominator from the unscaled P, and P's column j times v_scale[j]
+    before the split and P·V, as the int8 instance computes them."""
+    s, _ = _scores(q, k, scale, keep, k_scale)
     group = q.shape[2] // k.shape[2]
-    vf = v.float().repeat_interleave(group, 2).transpose(1, 2)
+    vf = _per_q_head(v, group)
+    vs = None if v_scale is None else _per_q_head(v_scale, group)[..., 0]
     m = torch.full(s.shape[:-1] + (1,), tfa.NEG_INF)
     l = torch.zeros_like(m)
     acc = torch.zeros(s.shape[:-1] + (q.shape[-1],))
@@ -109,6 +127,8 @@ def replay_fwd(q, k, v, scale, *, split=True, keep=None):
         p = torch.where(m_new > tfa.NEG_INF / 2, torch.exp(sj - m_new), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[:, :, None, j:j + TILE]
         pb = _bf16(p)
         if split:
             pb = pb + _bf16(p - pb)

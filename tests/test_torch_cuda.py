@@ -33,6 +33,9 @@ from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
+# the split decode schedule's edge cases, as chip_smoke.py runs them
+from chip_smoke import DECODE_SPLIT_CASES
+
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -161,8 +164,135 @@ def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
     assert _err(got, ref) < TOL[dtype]
 
 
+def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8):
+    q = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    kc = _randn(g, B, Hkv, ML, 128, dtype=dtype, dev=dev)
+    vc = _randn(g, B, Hkv, ML, 128, dtype=dtype, dev=dev)
+    kw = {}
+    if int8:
+        kc, kw["k_scale"] = td._quantize_kv(kc)
+        vc, kw["v_scale"] = td._quantize_kv(vc)
+    if pads is not None:
+        kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32, device=dev)
+    return q, kc, vc, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
+def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
+                                             pads, window, sinks):
+    """flash_decode's split schedule (the live tiles of each unit shared
+    among the CTAs the host plans, partials merged by a second launch)
+    against the plain version, at the edge cases of the shares; one count
+    on the int8 or the other counter."""
+    g = torch.Generator(dev).manual_seed(12)
+    q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads)
+    kw.update(window=window, sinks=sinks)
+    st = torch.tensor(start, dtype=torch.int32, device=dev) \
+        if isinstance(start, list) else start
+    tfa.reset_launches()
+    got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
+    assert tfa.LAUNCHES["flash_decode_int8" if int8 else "flash_decode"] == 1
+    ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
+    torch.cuda.synchronize()
+    assert _err(got, ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("splits", [1, 3, 32])
+def test_decode_takes_any_split_count(dev, monkeypatch, splits):
+    """The same decode at a forced split count: one split (the kernel
+    writes the output, no merge), three, and 32 (more CTAs than live
+    tiles: most shares empty), bf16 and int8, against the plain version."""
+    monkeypatch.setattr(tfa, "_decode_splits", lambda *a: splits)
+    g = torch.Generator(dev).manual_seed(13)
+    st = torch.tensor([540, 300, 610, 20], dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        q, kc, vc, kw = _cache_inputs(g, dev, torch.bfloat16, 4, 1, 2048,
+                                      int8, [12, 0, 100, 3])
+        got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
+        ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
+        torch.cuda.synchronize()
+        assert _err(got, ref) < 1e-2
+
+
+def test_decode_entry_refuses_a_short_workspace(dev):
+    """flash_decode checks the workspace against its own plan: a split
+    launch given fewer f32 values than units × splits × R × (D + 2), or none,
+    returns cudaErrorInvalidValue (1) before it launches anything."""
+    q = torch.zeros(4, 1, 32, 128, device=dev)
+    kc = torch.zeros(4, 8, 2048, 128, device=dev)
+    ws = torch.empty(32 * 9 * 4 * 130 - 1, device=dev)
+    a = _cuda.FlashArgs()
+    a.q, a.k, a.v, a.out = (q.data_ptr(), kc.data_ptr(), kc.data_ptr(),
+                            q.data_ptr())
+    a.q_sb, a.q_ss, a.q_sh = q.stride()[:3]
+    a.k_sb, a.k_sh, a.k_ss = kc.stride()[:3]
+    a.v_sb, a.v_sh, a.v_ss = kc.stride()[:3]
+    a.o_sb, a.o_ss, a.o_sh = q.stride()[:3]
+    a.act_dtype, a.kv_dtype = 0, 0
+    a.B, a.Sq, a.Sk, a.Hq, a.Hkv, a.D = 4, 1, 2048, 32, 8, 128
+    a.start, a.n_start, a.causal, a.scale, a.splits = 100, 1, 1, 1.0, 9
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _cuda.kernel("flash_decode")
+    assert fn(ctypes.byref(a), stream) == 1
+    a.ws, a.ws_floats = ws.data_ptr(), ws.numel()
+    assert fn(ctypes.byref(a), stream) == 1
+    a.splits = 33      # past DECODE_MAX_SPLITS
+    assert fn(ctypes.byref(a), stream) == 1
+
+
+# (B, S, start, pads, window, sinks) of the int8 cache's tensor-core prefill
+# (flash_fwd on int8 tiles widened to bf16): start 0, pads, ragged S with a
+# window and sinks, the serving row's shape, and per-row starts through the
+# launch itself
+INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
+                  (2, 200, 400, [0, 37], 256, 4), (1, 256, 128, [28], None, 0),
+                  (2, 100, [300, 1200], [5, 0], 512, 3)]
+
+
+@pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
+def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
+        dev, B, S, start, pads, window, sinks):
+    g = torch.Generator(dev).manual_seed(14)
+    q, kc, vc, kw = _cache_inputs(g, dev, torch.bfloat16, B, S, 2048, True,
+                                  pads)
+    kw.update(window=window, sinks=sinks)
+    if isinstance(start, list):
+        st = torch.tensor(start, dtype=torch.int32, device=dev)
+        got, _ = tfa._launch("flash_fwd", q, kc, vc, st, causal=True,
+                             scale=128 ** -0.5, **kw)
+    else:
+        st = start
+        tfa.reset_launches()
+        got = tfa.flash_attention_cached(q, kc, vc, st, **kw)
+        assert tfa.LAUNCHES["flash_cached_int8"] == 1
+    ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-2
+
+
+def test_int8_cache_prefill_lays_out_a_misaligned_q(dev):
+    """The int8 cache's tensor-core prefill copies q in 16-byte chunks: a
+    bf16 q whose row stride is no whole number of them is refused by a
+    direct launch and copied by flash_attention_cached, which matches."""
+    g = torch.Generator(dev).manual_seed(15)
+    S, Hq = 128, 32
+    q = _q_view(g, 1, S, Hq, 4, torch.bfloat16, dev)
+    _, kc, vc, kw = _cache_inputs(g, dev, torch.bfloat16, 1, 1, 2048, True,
+                                  None)
+    with pytest.raises(ValueError, match="flash_fwd: q strides"):
+        tfa._launch("flash_fwd", q, kc, vc, 64, causal=True,
+                    scale=128 ** -0.5, **kw)
+    got = tfa.flash_attention_cached(q, kc, vc, 64, **kw)
+    ref = tfa.attention_plain(q, kc, vc, 64, **kw)[0]
+    torch.cuda.synchronize()
+    assert _err(got, ref) < 1e-2
+
+
 def test_decode_rows_beyond_one_block(dev):
-    """group 8 x S 16 = 128 query rows per kv head: two row blocks."""
+    """group 8 x S 16 = 128 query rows per kv head: two row blocks (two
+    units of 64 rows each)."""
     g = torch.Generator(dev).manual_seed(2)
     q = _randn(g, 1, 16, 16, 128, dtype=torch.float32, dev=dev)
     kc = _randn(g, 1, 2, 256, 128, dtype=torch.float32, dev=dev)

@@ -13,14 +13,17 @@ No CUDA kernel runs here, so the tests hold:
   ``flash_attention_cached`` (start, pads, window, sinks) and
   ``flash_attention_decode`` (per-row starts, which ``flash_fwd`` takes
   too); out within 5e-3 absolute and lse within 5e-5 (half the card's
-  1e-2 and 1e-4), dQ within 5e-3 of its largest value;
+  1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
+  fold (int8 widened to bf16, scales on the score and P columns) against
+  the same JAX functions in int8 mode;
 - the launch path's layout rule: a strided bf16 q through
-  ``flash_attention_with_lse`` or ``flash_attention_cached`` reaches the
-  kernel as a copy that the tensor-core instances take (``_tc_layout``),
-  the int8-cache instance takes it as it is, and a direct launch of a
-  misaligned bf16 ``flash_fwd`` or ``flash_bwd_dq`` raises before the kernel
-  library (nvcc, a card) is asked for. The launch itself is stood in
-  (``_on_card``, ``_run``); tests/test_torch_cuda.py holds the kernels.
+  ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
+  int8 cache) reaches the kernel as a copy that the tensor-core instances
+  take (``_tc_layout``), the f32 instances take it as it is, and a direct
+  launch of a misaligned bf16 ``flash_fwd`` (q, k, v; int8 K/V in chunks of
+  16 values) or ``flash_bwd_dq`` raises before the kernel library (nvcc, a
+  card) is asked for. The launch itself is stood in (``_on_card``,
+  ``_run``); tests/test_torch_cuda.py holds the kernels.
 """
 
 import importlib
@@ -150,6 +153,70 @@ def test_per_row_starts_rounding_stays_within_half_the_card_tolerance(
     assert _abs(out, want) <= 5e-3
 
 
+def _int8_cache(seed, B, Hkv, ML):
+    """A head-major cache quantised by the JAX package's own _quantize_kv:
+    (int8 k, int8 v, f32 k_scale, f32 v_scale) as torch tensors."""
+    from gpu_provisioner_tpu.models.decode import _quantize_kv
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x = rng.standard_normal((B, Hkv, ML, D)).astype(np.float32)
+        out.append([torch.from_numpy(np.array(a))
+                    for a in _quantize_kv(jnp.asarray(x))])
+    (k8, ks), (v8, vs) = out
+    return k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("op,start,pads,window,sinks", [
+    pytest.param("cached", 0, None, None, 0, id="cached-start0"),
+    pytest.param("cached", 100, [0, 30], None, 0, id="cached-pads"),
+    pytest.param("cached", 150, [5, 20], 64, 4, id="cached-window-sinks"),
+    pytest.param("decode", [200, 61], [3, 40], 100, 2,
+                 id="decode-starts-pads-window-sinks")])
+def test_int8_fold_rounding_stays_within_half_the_card_tolerance(
+        op, start, pads, window, sinks):
+    """The int8 cache's tensor-core forward (ROADMAP Queue C 15): its int8
+    tiles widened exactly to bf16, k_scale on the score columns, v_scale
+    folded into P's columns before the hi + lo split, the denominator from
+    the unscaled P. The replay against JAX flash_attention_cached (40 fresh
+    queries, one ragged tile) or flash_attention_decode (16 queries at
+    per-row starts, which flash_fwd takes too) in int8 mode (interpret
+    mode), B=2, Hq 4 / Hkv 1, a cache of 256: out within 5e-3 of the
+    largest value, lse within 5e-5 of attention_plain's on the same int8
+    inputs (the function tests/test_torch_flash.py holds against JAX; the
+    JAX cached and decode kernels return no lse)."""
+    replay = _replay()
+    B, Hq, Hkv, ML = 2, 4, 1, 256
+    S = 40 if op == "cached" else 16
+    (q,) = _bf16(37, (B, S, Hq, D))
+    k8, v8, ks, vs = _int8_cache(38, B, Hkv, ML)
+    kw = dict(window=window, sinks=sinks)
+    if pads is not None:
+        kw["pad_lens"] = jnp.asarray(pads, jnp.int32)
+    jkw = dict(kw, k_scale=jnp.asarray(ks.numpy()),
+               v_scale=jnp.asarray(vs.numpy()))
+    if op == "cached":
+        want = jfa.flash_attention_cached(
+            _j(q), jnp.asarray(k8.numpy()), jnp.asarray(v8.numpy()), start,
+            block_q=40, block_k=64, interpret=True, **jkw)
+    else:
+        want = jfa.flash_attention_decode(
+            _j(q), jnp.asarray(k8.numpy()), jnp.asarray(v8.numpy()),
+            jnp.asarray(start, jnp.int32), interpret=True, **jkw)
+    keep = replay.keep_mask(B, S, ML, start=start, pad_lens=pads,
+                            window=window, sinks=sinks)
+    out, lse = replay.replay_fwd(q, k8.transpose(1, 2), v8.transpose(1, 2),
+                                 SCALE, keep=keep,
+                                 k_scale=ks.transpose(1, 2),
+                                 v_scale=vs.transpose(1, 2))
+    assert _rel(out, want) <= 5e-3
+    tkw = dict(window=window, sinks=sinks, k_scale=ks, v_scale=vs,
+               pad_lens=None if pads is None else torch.tensor(pads))
+    st = torch.tensor(start) if isinstance(start, list) else start
+    _, plain_lse = tfa.attention_plain(q.float(), k8, v8, st, **tkw)
+    assert _abs(lse, plain_lse.numpy()) <= 5e-5
+
+
 def _strided_q(S, Hq, dtype=torch.bfloat16):
     """[1, S, Hq, 128] with a row stride of Hq·128 + 4 elements: not a
     whole number of 16-byte chunks, as a narrow of a wider projection."""
@@ -191,30 +258,37 @@ def test_forward_lays_out_a_strided_bf16_q_for_the_kernel(launches):
 
 
 def test_cached_prefill_lays_out_q_for_the_bf16_cache_only(launches):
-    """flash_attention_cached with a strided bf16 q: against a bf16 cache
-    the kernel gets a contiguous copy (the tensor-core instance copies
-    16-byte chunks); against an int8 cache it gets q as it is (the FMA
-    instance reads any row stride), as before."""
+    """flash_attention_cached with a strided q: a bf16 q reaches the
+    tensor-core instances, which copy 16-byte chunks, as a contiguous copy,
+    against a bf16 cache and (since the int8 cache's prefill runs on the
+    tensor cores too) against an int8 cache, whose int8 tiles are taken as
+    they are; an f32 q against an int8 cache reaches the FMA instance,
+    which reads any row stride, as it is."""
     S, Hq, Hkv, ML = 128, 2, 1, 256
     q = _strided_q(S, Hq)
     kc, vc = _bf16(36, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    kq, ks = td._quantize_kv(kc)
+    vq, vs = td._quantize_kv(vc)
+    q32 = _strided_q(S, Hq, torch.float32)
     with torch.no_grad():
         tfa.flash_attention_cached(q, kc, vc, 64)
-        kq, ks = td._quantize_kv(kc)
-        vq, vs = td._quantize_kv(vc)
         tfa.flash_attention_cached(q, kq, vq, 64, k_scale=ks, v_scale=vs)
-    (_, bf), (_, i8) = launches
+        tfa.flash_attention_cached(q32, kq, vq, 64, k_scale=ks, v_scale=vs)
+    (_, bf), (_, i8), (_, f32) = launches
     assert bf.q != q.data_ptr() and bf.q_ss == Hq * D
     assert bf.k == kc.data_ptr() and bf.kv_dtype == 1
-    assert i8.q == q.data_ptr() and i8.q_ss == Hq * D + 4
-    assert i8.kv_dtype == 2
+    assert i8.q != q.data_ptr() and i8.q % 16 == 0 and i8.q_ss == Hq * D
+    assert i8.k == kq.data_ptr() and i8.kv_dtype == 2
+    assert f32.q == q32.data_ptr() and f32.q_ss == Hq * D + 4
+    assert f32.kv_dtype == 2
+    assert tfa.LAUNCHES["flash_cached_int8"] >= 2
 
 
 def test_launches_refuse_misaligned_bf16_copies_before_they_build():
     """The tensor-core flash_fwd copies q, k and v, flash_bwd_dq q, k, v and
     dout, in 16-byte chunks: a bf16 input off a 16-byte boundary raises
     ValueError naming it before the kernel library (nvcc, a card) is asked
-    for; f32 and the int8 cache's q take any row stride."""
+    for; an f32 q (the FMA instances) takes any row stride."""
     S, Hq, Hkv = 128, 2, 1
     q = torch.zeros(1, S, Hq, D, dtype=torch.bfloat16)
     k = torch.zeros(1, S, Hkv, D, dtype=torch.bfloat16)
@@ -233,3 +307,23 @@ def test_launches_refuse_misaligned_bf16_copies_before_they_build():
                         causal=True, scale=SCALE)
     tfa._check_tc_copies("flash_fwd", q=_strided_q(S, Hq, torch.float32),
                          k=k.float(), v=k.float())
+
+
+def test_int8_prefill_refuses_misaligned_copies_before_it_builds():
+    """The int8 cache's tensor-core prefill copies q in bf16 chunks and the
+    int8 tiles in 16-byte chunks of 16 values: a bf16 q with a row stride
+    of no whole number of chunks, or an int8 cache whose position stride
+    is not a multiple of 16 values, raises ValueError naming it before the
+    kernel library (nvcc, a card) is asked for; an f32 q (the FMA
+    instance) takes both."""
+    S, Hq, Hkv, ML = 128, 2, 1, 256
+    kc = _bf16(39, (1, Hkv, ML, D))[0]
+    k8, ks = td._quantize_kv(kc)
+    kw = dict(causal=True, scale=SCALE, k_scale=ks, v_scale=ks)
+    with pytest.raises(ValueError, match=r"flash_fwd: q strides"):
+        tfa._launch("flash_fwd", _strided_q(S, Hq), k8, k8, 0, **kw)
+    wide = torch.zeros(1, Hkv, ML, D + 8, dtype=torch.int8)[..., :D]
+    q = torch.zeros(1, S, Hq, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"flash_fwd: k strides"):
+        tfa._launch("flash_fwd", q, wide, k8, 0, **kw)
+    tfa._check_tc_copies("flash_fwd", q=q.float(), k=wide, v=wide)
