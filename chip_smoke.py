@@ -75,8 +75,21 @@ Phases, each of which exits non-zero on a failed check:
    each rectangular kernel apiece; then the bench twins
    bench_long_context and bench_flash_op at full size, each with its
    launch counts read and checked against its repetition counts;
-then the phase-2 rows' device times, the card line, the kernels line and,
-last, the device line.
+9. MoE serving (mixtral-ish: dim 2048, 16 layers, GQA 16/8, 8 experts,
+   top-2): the cached prefill and decode kernels at its attention shapes
+   against their plain versions (bf16 and f32, plain and int8 cache; the
+   bf16 admission and decode step timed: ``at_moe_shape``); at 2 layers in
+   f32, route on the card equal to route on the CPU (random, tied and
+   overflowing logits), moe_cached_forward flash equal to dense within
+   1e-4, greedy generate flash equal to dense, ServeEngine streams equal
+   to generate on the bucket-padded prompt, a dropless 4-token block
+   equal to four single steps; then full depth in bf16 with the flash
+   kernels: after a warm-up pass, three ServeEngine passes of 6 requests
+   (100-500 prompt tokens, 32 new each; a shared prefix is refused), 16
+   timed decode steps at 4 slots, and generate at B=2, S0=512 left-padded
+   on a bf16 and an int8 cache, every kernel's launches read across it;
+then the phase-2 and phase-9 rows' device times, the card line, the
+kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -253,6 +266,17 @@ def device_ms(fn, flush, names=None, reps=20, warm=3):
     return us / reps / 1e3
 
 
+def timing(kernel, plain, library, ops_bytes, flush):
+    """ms, plain_ms, library_ms (null without a library call) and the bound
+    (bound_ms, bound_by) of one call."""
+    ops, nbytes = ops_bytes
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    return {"ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": time_ms(library, flush) if library else None}
+
+
 def _attended(B, S, Sk, start, pads, window, sinks, causal):
     """keep [B, S, Sk]: key attendable from query, on these inputs."""
     import torch
@@ -399,16 +423,9 @@ def phase_kernels(torch, tfa, td, dev):
     rows, deferred = [], []
 
     def timed(r, kernel, plain, library, ops_bytes, names=None):
-        """Adds to entry ``r`` ms, plain_ms, library_ms (null without a
-        library call) and the bound; with ``names``, the entry's device
-        times are measured last (device_times). Returns ``r``."""
-        ops, nbytes = ops_bytes
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-        r.update({"ms": time_ms(kernel, flush),
-                  "plain_ms": time_ms(plain, flush),
-                  "bound_ms": max(t_b, t_o),
-                  "bound_by": "bytes" if t_b >= t_o else "operations",
-                  "library_ms": time_ms(library, flush) if library else None})
+        """Adds timing()'s keys to entry ``r``; with ``names``, the entry's
+        device times are measured last (device_times). Returns ``r``."""
+        r.update(timing(kernel, plain, library, ops_bytes, flush))
         if names:
             deferred.append((r, kernel, library, names))
         return r
@@ -1166,6 +1183,290 @@ def phase_long(torch, tfa, _cuda, bench, dev, worst):
     return rows, launches, by_twin
 
 
+MOE_KERNEL_ROWS = ("flash_cached", "flash_cached_int8", "flash_decode",
+                   "flash_decode_int8")
+
+
+def phase_moe_kernels(torch, tfa, td, dev, deferred):
+    """#4 and #5 at the MoE path's attention shapes (mixtral-ish: Hq 16,
+    Hkv 8, D 128) against their plain versions, in bf16 and f32, on a plain
+    and an int8 cache: an engine admission (a 500-token prompt in the
+    512 bucket, ML 2048), generate's ragged prefill (B=2, S0=512, pads 0
+    and 200, ML 1024) and an engine decode step (4 slots, ML 2048); then
+    the bf16 admission and decode step timed (their device times joining
+    ``deferred``). Returns ({row: at_moe_shape entry}, {row: worst bf16
+    error})."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    Hq, Hkv, D = 16, 8, 128
+    bf = torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    errs = dict.fromkeys(MOE_KERNEL_ROWS, 0.0)
+    entries = {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def case(name, dtype, B, S, start, pads, ML, timed):
+        q = rnd(B, S, Hq, D, dtype=dtype)
+        kc, vc = rnd(B, Hkv, ML, D, dtype=dtype), rnd(B, Hkv, ML, D,
+                                                     dtype=dtype)
+        pl = torch.tensor(pads, dtype=torch.int32, device=dev)
+        st = (torch.tensor(start, dtype=torch.int32, device=dev)
+              if isinstance(start, list) else start)
+        fn = getattr(tfa, "flash_attention_" + name.split("_")[1])
+        kp = torch.arange(ML, device=dev)
+        qp = torch.as_tensor(st, device=dev).reshape(-1, 1) \
+            + torch.arange(S, device=dev)                          # [B|1, S]
+        mask = ((kp <= qp[..., None]) & (kp >= pl[:, None, None]))[:, None]
+        for int8 in (False, True):
+            kw = {"pad_lens": pl}
+            k_, v_ = kc, vc
+            if int8:
+                (k_, kw["k_scale"]), (v_, kw["v_scale"]) = \
+                    td._quantize_kv(kc), td._quantize_kv(vc)
+            row = name + ("_int8" if int8 else "")
+            e = (fn(q, k_, v_, st, **kw).float()
+                 - tfa.attention_plain(q, k_, v_, st, **kw)[0].float()
+                 ).abs().max().item()
+            tol = TOL[str(dtype).split(".")[1]]
+            print(f"{row} {dtype} at the MoE shape B={B} S={S} "
+                  f"start={start} pads={pads} ML={ML}: max|out-plain| "
+                  f"{e:.3g} (tol {tol})")
+            check(e <= tol, f"{row} disagrees with plain at the MoE shape")
+            if dtype != bf:
+                continue
+            errs[row] = max(errs[row], e)
+            if not timed:
+                continue
+            library = None if int8 else (
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc, vc, attn_mask=mask,
+                    enable_gqa=True))
+            kernel = (lambda k_=k_, v_=v_, kw=kw:
+                      fn(q, k_, v_, st, **kw))
+            entries[row] = {
+                "shape": f"B={B} S={S} start={start} pads={pads} Hq={Hq} "
+                         f"Hkv={Hkv} ML={ML}",
+                **timing(kernel,
+                         lambda k_=k_, v_=v_, kw=kw:
+                         tfa.attention_plain(q, k_, v_, st, **kw),
+                         library,
+                         work(B, S, Hq, Hkv, D, ML, st, pl, None, 0, True, 2,
+                              1 if int8 else 2, int8, False), flush)}
+            if library is None:
+                entries[row]["library_note"] = "no single PyTorch call " \
+                                               "attends over an int8 cache"
+            deferred.append((entries[row], kernel, library,
+                             ("flash_fwd_tc_kernel",) if S > 16
+                             else ("flash_decode",)))
+
+    for dtype in (bf, torch.float32):
+        case("flash_cached", dtype, 1, 512, 0, [12], 2048, True)
+        case("flash_cached", dtype, 2, 512, 0, [0, 200], 1024, False)
+        case("flash_decode", dtype, 4, 1, DECODE_STARTS, DECODE_PADS, 2048,
+             True)
+    torch.cuda.synchronize()
+    for row, entry in entries.items():
+        print(f"{row} at the MoE shape: {json.dumps(entry)}")
+    del flush
+    return entries, errs
+
+
+def phase_moe_exact(torch, tm, tms, td, te, dev):
+    """mixtral-ish width, 2 layers, f32, the flash kernels in their f32
+    instances: route on the card == route on the CPU; moe_cached_forward
+    flash == dense; greedy generate flash == dense; ServeEngine streams ==
+    generate on the bucket-padded prompt; a dropless 4-token block == four
+    single-token steps."""
+    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"], n_layers=2,
+                              dtype="float32", attn_impl="flash")
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    V, k = cfg.vocab_size, cfg.experts_per_token
+    g = torch.Generator().manual_seed(SEED + 3)
+    S = 512
+    cap = tm.capacity(cfg, S)
+    rand = torch.randn(2, S, cfg.n_experts, generator=g)
+    ties = torch.zeros(2, S, cfg.n_experts)     # all equal: experts 0, 1
+    ties[:, 1::2] = rand[:, 1::2].round()       # integer levels: many ties
+    overflow = rand.clone()
+    overflow[..., 3] += 3.0                      # expert 3 oversubscribed
+    for name, logits in (("random", rand), ("ties", ties),
+                         ("overflow", overflow)):
+        cpu = tm.route(logits, k, cap)
+        card = tm.route(logits.to(dev), k, cap)
+        same = torch.equal(card[0].cpu(), cpu[0])
+        e = (card[1].cpu() - cpu[1]).abs().max().item()
+        placed = int(cpu[0].sum())
+        print(f"route {name} (B=2, S={S}, cap {cap}): dispatch "
+              f"{'equal' if same else 'DIFFERS'}, max|combine| diff {e:.3g}"
+              f", {placed} of {2 * S * k} choices placed")
+        check(same and e <= 1e-6, f"route {name}: the card differs")
+    check(placed < 2 * S * k, "the overflow case dropped nothing")
+
+    params = tm.init_moe_model(cfg, torch.Generator(dev).manual_seed(SEED),
+                               dev)
+    prompt = torch.randint(1, V, (2, S), generator=g).to(dev)
+    pads = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+    real = torch.ones(2, S + 4, dtype=torch.bool, device=dev)
+    real[1, :200] = False          # pad queries: the kernels emit zeros
+    logits = {}
+    for c in (dense, cfg):
+        cache = td.init_kv_cache(c, 2, 1024, dev)
+        lg, cache = tms.moe_cached_forward(params, prompt, cache, c,
+                                           pad_lens=pads)
+        out = [lg]
+        for i in range(4):
+            lg, cache = tms.moe_cached_forward(params, prompt[:, i:i + 1],
+                                               cache, c, pad_lens=pads)
+            out.append(lg)
+        logits[c.attn_impl] = torch.cat(out, dim=1)[real]
+    e = (logits["flash"] - logits["dense"]).abs().max().item()
+    print(f"moe_cached_forward flash vs dense (prefill B=2 S={S} pads 0/200,"
+          f" 4 decode steps): max|logits diff| {e:.3g} (tol 1e-4)")
+    check(e <= 1e-4, "moe_cached_forward: flash differs from dense")
+
+    ragged = prompt.clone()
+    ragged[1, :200] = 0
+    streams = {c.attn_impl: td.generate(params, ragged, c,
+                                        max_new_tokens=16, max_len=1024,
+                                        pad_id=0)
+               for c in (dense, cfg)}
+    check(torch.equal(streams["flash"], streams["dense"]),
+          f"generate: flash {streams['flash'].tolist()} != dense "
+          f"{streams['dense'].tolist()}")
+
+    reqs = [torch.randint(1, V, (n,), generator=g).tolist()
+            for n in (100, 230, 60, 150)]
+    eng = te.ServeEngine(params, cfg, slots=2, max_len=1024,
+                         prefill_buckets=(128, 256))
+    ids = [eng.submit(p, 8) for p in reqs]
+    out = eng.run()
+    for rid, p in zip(ids, reqs):
+        b = next(b for b in (128, 256) if len(p) <= b)
+        want = td.generate(params, torch.tensor([[0] * (b - len(p)) + p]),
+                           cfg, max_new_tokens=8, max_len=1024,
+                           pad_id=0)[0].tolist()
+        check(out[rid] == want, f"MoE engine stream {rid} != generate on "
+              f"the bucket-padded prompt: {out[rid]} vs {want}")
+
+    cache = td.init_kv_cache(cfg, 2, 1024, dev)
+    _, cache = tms.moe_cached_forward(params, prompt, cache, cfg,
+                                      pad_lens=pads)
+    steps = td.KVCache(*(t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in cache))
+    block = torch.randint(1, V, (2, 4), generator=g).to(dev)
+    blk, _ = td.family_fns(cfg, pad_lens=pads, dropless_step=True)[1](
+        params, block, cache)
+    one = []
+    for i in range(4):
+        lg, steps = tms.moe_cached_forward(params, block[:, i:i + 1], steps,
+                                           cfg, pad_lens=pads)
+        one.append(lg)
+    e_blk = (blk - torch.cat(one, dim=1)).abs().max().item()
+    print(f"dropless 4-token block vs four single steps: max|logits diff| "
+          f"{e_blk:.3g} (tol 1e-4)")
+    check(e_blk <= 1e-4, "the dropless block differs from single steps")
+    print(f"MoE exact phase (mixtral-ish width, 2 layers, f32): route card "
+          f"== CPU, flash == dense, generate flash == dense "
+          f"{streams['flash'].tolist()}, {len(ids)} engine streams == "
+          f"generate on the bucket-padded prompt")
+    del params, eng
+
+
+def phase_moe(torch, tm, td, te, tfa, dev):
+    """Full mixtral-ish (16 layers, 8 experts, top-2) in bf16 through
+    ServeEngine and generate(), every kernel's launches read across it."""
+    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"],
+                              attn_impl="flash")
+    t0 = time.perf_counter()
+    params = tm.init_moe_model(cfg, torch.Generator(dev).manual_seed(SEED),
+                               dev)
+    torch.cuda.synchronize()
+    print(f"mixtral-ish params on the card in {time.perf_counter() - t0:.1f}"
+          f" s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    g = torch.Generator().manual_seed(SEED + 5)
+    V, new = cfg.vocab_size, 32
+
+    def toks(n):
+        return torch.randint(1, V, (n,), generator=g).tolist()
+
+    reqs = [toks(n) for n in (180, 500, 120, 350, 100, 230)]
+
+    def serve():
+        eng = te.ServeEngine(params, cfg, slots=4, max_len=2048,
+                             prefill_buckets=(128, 256, 512),
+                             return_logprobs=True)
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, new) for p in reqs]
+        out = eng.run()
+        torch.cuda.synchronize()
+        return eng, ids, out, time.perf_counter() - t0
+
+    eng = serve()[0]         # a warm-up pass before the counts are reset
+    try:
+        eng.submit(reqs[0], 4, prefix=reqs[1][:100])
+    except ValueError as err:
+        check("dense family" in str(err), f"prefix refusal: {err}")
+    else:
+        check(False, "an MoE engine took a shared prefix")
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    rates = []
+    for _ in range(3):
+        eng, ids, out, wall = serve()
+        for rid in ids:
+            check(len(out[rid]) == new and all(0 <= t < V for t in out[rid]),
+                  f"MoE request {rid}: {out[rid]}")
+            lps = eng.finished_logprobs[rid]
+            check(all(lp <= 0 and lp == lp for lp in lps),
+                  f"MoE request {rid} logprobs {lps}")
+        rates.append(eng.stats()["tokens_emitted"] / wall)
+    print(f"ServeEngine mixtral-ish bf16, smoke-run rate (3 passes after a "
+          f"warm-up, each {len(ids)} requests and "
+          f"{eng.stats()['tokens_emitted']} tokens, admissions included): "
+          f"{rates} tokens/s, median {statistics.median(rates)}")
+    eng = te.ServeEngine(params, cfg, slots=4, max_len=2048,
+                         prefill_buckets=(128, 256, 512))
+    for p in reqs[:4]:
+        eng.submit(p, 64)
+    for _ in range(4):                           # admits all four
+        eng.step()
+    walls = []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"MoE decode step, 4 active slots: host wall "
+          f"{statistics.median(walls):.2f} ms median ({walls})")
+    prompt = torch.tensor([toks(512), toks(512)])
+    ragged = prompt.clone()
+    ragged[1, :200] = 0
+    for c in (cfg, dataclasses.replace(cfg, kv_cache_dtype="int8")):
+        t0 = time.perf_counter()
+        out = td.generate(params, ragged, c, max_new_tokens=new,
+                          max_len=1024, pad_id=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(tuple(out.shape) == (2, new) and bool(((out >= 0) & (out < V))
+                                                    .all()),
+              f"MoE generate {c.kv_cache_dtype}: {tuple(out.shape)}")
+        print(f"generate mixtral-ish bf16, {c.kv_cache_dtype} KV cache, B=2 "
+              f"S0=512 pad_id: {2 * new} tokens in {wall:.2f} s = "
+              f"{2 * new / wall:.1f} tokens/s")
+    launches = dict(tfa.LAUNCHES)
+    print(f"MoE-path launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, n in launches.items():
+        # the cached prefill and the decode, on both caches; the MoE family
+        # has no fresh-prefill path, so no self-attention kernel
+        check((n > 0) == (name in MOE_KERNEL_ROWS),
+              f"kernel {name}: {n} launches on the MoE path")
+    del params, eng
+    return launches
+
+
 def phase_exact(torch, tl, td, te, dev):
     """Llama-7B width, 2 layers, f32: engine streams == solo generate()."""
     cfg = dataclasses.replace(tl.PRESETS["llama-7b"], n_layers=2,
@@ -1297,6 +1598,8 @@ def main() -> int:
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
     from gpu_provisioner_tpu_torch.models import llama as tl
+    from gpu_provisioner_tpu_torch.models import moe as tm
+    from gpu_provisioner_tpu_torch.models import moe_serve as tms
     from gpu_provisioner_tpu_torch.models import train as tt
     from gpu_provisioner_tpu_torch.ops import _cuda
     from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
@@ -1349,6 +1652,14 @@ def main() -> int:
                                          worst)
     rows += tri_rows
     print(f"long-context phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_shape, moe_errs = phase_moe_kernels(torch, tfa, td, dev, deferred)
+    phase_moe_exact(torch, tm, tms, td, te, dev)
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, tm, td, te, tfa, dev)
+    print(f"MoE phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -1360,12 +1671,15 @@ def main() -> int:
                 r["max_rel_err"] = max(r["max_rel_err"], rel)
     # each kernel's launches on its own path: serving for the forward
     # kernels, training for the backward ones, the long path for the
-    # triangle (every count kept, the bench twins' too)
+    # triangle (every count kept, the bench twins' and MoE serving's too)
     for r in rows:
         name = r["name"]
         r["launches_by_path"] = {"serve": serve[name], "train": train[name],
-                                 "long": long[name],
+                                 "long": long[name], "moe": moe[name],
                                  **{k: v[name] for k, v in by_twin.items()}}
+        if name in moe_shape:
+            r["at_moe_shape"] = moe_shape[name]
+            r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
         r["launches"] = (long if name.endswith("_tri") else train
                          if name.startswith("flash_bwd") else serve)[name]
         r.update(tc_report.get(name, {}))

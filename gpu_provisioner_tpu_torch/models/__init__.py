@@ -1,7 +1,7 @@
-"""Llama serving and single-device training: model, KV-cache decode, the
-continuous-batching engine and the train step.
+"""Llama and MoE serving and single-device training: models, KV-cache
+decode, the continuous-batching engine and the train step.
 
-Twins of the dense modules of ``gpu_provisioner_tpu/models/`` (``llama``,
-``decode``, ``engine``, ``train``); MoE, speculation, the sharded train
-steps and checkpointing are not ported yet.
+Twins of ``gpu_provisioner_tpu/models/`` ``llama``, ``decode``, ``engine``,
+``train``, ``moe`` and ``moe_serve``; speculation, the sharded and MoE
+train steps and checkpointing are not ported yet.
 """

@@ -21,18 +21,23 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+F32_LEAVES = ("lm_head", "router")
+
+
 def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """JAX params as a dict of numpy arrays → the same dict of tensors on
     ``device`` (default cuda). ``dtype`` casts every leaf except
-    ``lm_head`` once at load (the logits product is f32 either way); None
-    keeps the arrays' own dtypes."""
+    ``lm_head`` and an MoE ``router`` once at load (the logits and router
+    products are f32 either way); None keeps the arrays' own dtypes. The
+    MoE tree (``backbone``/``moe``) converts leaf by leaf like the dense
+    one."""
     dev = resolve_device(device)
 
     def conv(name, leaf):
         if isinstance(leaf, dict):
             return {k: conv(k, v) for k, v in leaf.items()}
         t = _tensor(np.asarray(leaf))
-        if dtype is not None and name != "lm_head":
+        if dtype is not None and name not in F32_LEAVES:
             t = t.to(dtype)
         return t.to(dev)
 

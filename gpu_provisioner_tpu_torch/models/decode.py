@@ -1,7 +1,8 @@
 """KV-cache inference: prefill, cached forward, sampling and generate.
 
-Twin of ``gpu_provisioner_tpu/models/decode.py`` for the dense family: one
-cached forward serves prefill (S tokens) and decode (S = 1); the cache is
+Twin of ``gpu_provisioner_tpu/models/decode.py``: one cached forward
+serves prefill (S tokens) and decode (S = 1), ``family_fns`` dispatches the
+dense and the MoE family (``models/moe_serve.py``); the cache is
 head-major ``[L, B, Hkv, max_len, Dh]`` with a length that is one int for
 every row or a ``[B]`` tensor (per-row, as the serving engine's slots are);
 ragged batches serve left-padded, pads masked out of attention and RoPE
@@ -22,8 +23,11 @@ Deliberate differences from the JAX module:
   ``lax.scan``/``jit``;
 - ``torch.Generator`` in place of ``jax.random`` keys for sampling, drawn by
   Gumbel-max (sampled streams cannot match across the two RNGs);
-- the dense family only: ``family_fns`` raises for anything but a
-  ``LlamaConfig`` until the MoE slice; no ``prefill_chunked`` and no
+- the two families share one attention half (``_attention_half``: norm,
+  QKV, the cache write, int8 quantisation, ``_cached_attention``, wo), which
+  ``models/moe_serve.py`` calls too, where the reference repeats it;
+- ``family_step`` is eager (the reference's ``family_step_jit`` jits and
+  donates the cache; here the cache is updated in place anyway); no
   ``kv_cache_specs`` yet.
 """
 
@@ -40,6 +44,7 @@ from ..ops.flash_attention import (_start_vector, cached_flash_supported,
                                    flash_attention_decode)
 from .llama import (LlamaConfig, _logits, _mlp_half, _project_qkv, _rmsnorm,
                     layer_params, resolve_attn as _resolve_attn)
+from .moe import MoEConfig, embed_table
 
 NEG_INF = -1.0e30
 
@@ -163,6 +168,62 @@ def _writer(start, S: int, max_len: int, B: int, device):
     return write
 
 
+def _cached_setup(tokens, cache: KVCache, cfg: LlamaConfig, pad_lens):
+    """The cached forward's preamble, shared by both families → (positions,
+    token_mask, write). RoPE positions count from each row's first real
+    token ([S], or [B, S] with per-row lengths or pads; pad positions clip
+    to 0); ``token_mask`` [B, S] marks the real tokens (None without pads),
+    taken before the clip; ``write`` stores new keys and values in place."""
+    _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
+    B, S = tokens.shape
+    dev = tokens.device
+    start = cache.length
+    per_row = _is_per_row(start)
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = (start.to(torch.int32)[:, None] + ar) if per_row else ar + start
+    token_mask = None
+    if pad_lens is not None:
+        if not per_row:
+            positions = positions[None, :]
+        token_mask = positions >= pad_lens[:, None]
+        positions = torch.clamp(positions - pad_lens[:, None], min=0)
+    if _kv_int8(cfg) != (cache.k_scale is not None):
+        raise ValueError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} but the cache was "
+            f"built {'WITH' if cache.k_scale is not None else 'without'} "
+            "int8 scales — cfg and init_kv_cache(cfg, ...) must agree")
+    return positions, token_mask, _writer(start, S, cache.k.shape[3], B, dev)
+
+
+def _attention_half(x, lp, layer: int, cache: KVCache, cfg: LlamaConfig,
+                    positions, write, pad_lens):
+    """Norm → QKV → rope → this layer's cache write (int8 quantised under
+    kv_cache_dtype="int8") → attention over the cache → wo → residual:
+    the attention half of every family's cached forward."""
+    B, S, _ = x.shape
+    a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = _project_qkv(a, lp, cfg, positions)
+    k_cache, v_cache = cache.k[layer], cache.v[layer]
+    k_scl = v_scl = None
+    if cache.k_scale is not None:
+        kq, ks_ = _quantize_kv(k)
+        vq, vs_ = _quantize_kv(v)
+        k_scl, v_scl = cache.k_scale[layer], cache.v_scale[layer]
+        write(k_cache, kq)
+        write(v_cache, vq)
+        write(k_scl, ks_)
+        write(v_scl, vs_)
+    else:
+        write(k_cache, k)
+        write(v_cache, v)
+    o = _cached_attention(q, k_cache, v_cache, cache.length,
+                          cfg.head_dim ** -0.5, impl=cfg.attn_impl,
+                          pad_lens=pad_lens, k_scale=k_scl, v_scale=v_scl,
+                          window=cfg.sliding_window, sinks=cfg.attn_sinks)
+    return x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+        @ lp["wo"].to(cfg.act_dtype)
+
+
 @torch.no_grad()
 def cached_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig,
                    pad_lens=None):
@@ -173,53 +234,15 @@ def cached_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig,
     ``pad_lens`` [B]: left-pad counts for ragged batches (keys below are
     masked; RoPE positions count from the first real token, pad positions
     clip to 0). Precondition, owned by the caller: length + S <= max_len."""
-    _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
-    ad = cfg.act_dtype
-    B, S = tokens.shape
-    dev = tokens.device
-    start = cache.length
-    per_row = _is_per_row(start)
-    ar = torch.arange(S, dtype=torch.int32, device=dev)
-    positions = (start.to(torch.int32)[:, None] + ar) if per_row else ar + start
-    if pad_lens is not None:
-        if not per_row:
-            positions = positions[None, :]
-        positions = torch.clamp(positions - pad_lens[:, None], min=0)
-    scale = cfg.head_dim ** -0.5
-    int8 = _kv_int8(cfg)
-    if int8 != (cache.k_scale is not None):
-        raise ValueError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} but the cache was "
-            f"built {'WITH' if cache.k_scale is not None else 'without'} "
-            "int8 scales — cfg and init_kv_cache(cfg, ...) must agree")
-    write = _writer(start, S, cache.k.shape[3], B, dev)
-
-    x = params["embed"][tokens].to(ad)
+    positions, _, write = _cached_setup(tokens, cache, cfg, pad_lens)
+    x = params["embed"][tokens].to(cfg.act_dtype)
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
-        a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = _project_qkv(a, lp, cfg, positions)
-        k_cache, v_cache = cache.k[layer], cache.v[layer]
-        k_scl = v_scl = None
-        if int8:
-            kq, ks_ = _quantize_kv(k)
-            vq, vs_ = _quantize_kv(v)
-            k_scl, v_scl = cache.k_scale[layer], cache.v_scale[layer]
-            write(k_cache, kq)
-            write(v_cache, vq)
-            write(k_scl, ks_)
-            write(v_scl, vs_)
-        else:
-            write(k_cache, k)
-            write(v_cache, v)
-        o = _cached_attention(q, k_cache, v_cache, start, scale,
-                              impl=cfg.attn_impl, pad_lens=pad_lens,
-                              k_scale=k_scl, v_scale=v_scl,
-                              window=cfg.sliding_window, sinks=cfg.attn_sinks)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-            @ lp["wo"].to(ad)
+        x = _attention_half(x, lp, layer, cache, cfg, positions, write,
+                            pad_lens)
         x = _mlp_half(x, lp, cfg)
-    return _logits(x, params, cfg), cache._replace(length=start + S)
+    return (_logits(x, params, cfg),
+            cache._replace(length=cache.length + tokens.shape[1]))
 
 
 @torch.no_grad()
@@ -278,17 +301,63 @@ def prefill(params: dict, prompt, cache: KVCache, cfg: LlamaConfig, *,
     return logits[:, -1], cache
 
 
-def family_fns(cfg, pad_lens=None, fresh: bool = False):
+def prefill_chunked(params: dict, prompt, cache: KVCache, cfg: LlamaConfig,
+                    *, chunk: int = 2048, pad_lens=None):
+    """(last-token logits [B, V], cache) after consuming the prompt in
+    ``chunk``-sized pieces through the family's cached forward, so peak
+    activation memory is O(chunk·S) for very long prompts; each piece still
+    takes the cached flash kernel. Dense family: the same function as one
+    cached forward over the whole prompt (each chunk attends to everything
+    written before it plus its own causal prefix). MoE family: expert
+    capacity is computed per chunk and tokens compete for expert slots only
+    within their chunk; where neither drops, the two agree. The cache is
+    updated in place, as cached_forward's is."""
+    B, S = prompt.shape
+    if S == 0 or chunk <= 0:
+        raise ValueError(f"need a non-empty prompt (S={S}) and a positive "
+                         f"chunk ({chunk})")
+    step = family_step(cfg)
+    logits = None
+    for off in range(0, S, chunk):
+        logits, cache = step(params, prompt[:, off:off + chunk], cache, cfg,
+                             pad_lens=pad_lens)
+    return logits[:, -1], cache
+
+
+def family_fns(cfg, pad_lens=None, fresh: bool = False,
+               dropless_step: bool = False):
     """(prefill_fn, step_fn), each (params, tokens, cache) → (logits,
-    cache): the one dispatch point generate() and the engine share. Dense
-    family only until the MoE slice."""
-    if type(cfg) is not LlamaConfig:
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only the dense Llama family is ported; "
-            "MoE serving comes with the MoE slice")
+    cache), dispatched on the config's model family: the one dispatch point
+    generate() and the engine share. ``fresh``: the dense family's fast
+    path for an empty cache (MoE has none and ignores it).
+    ``dropless_step``: MoE only — step_fn routes with capacity = its block
+    width, so a multi-token step cannot capacity-drop and its logits equal
+    single-token steps' (a no-op for the dense family)."""
+    step = family_step(cfg)
+    if isinstance(cfg, MoEConfig):
+        from .moe_serve import moe_prefill
+        return (lambda p, t, c: moe_prefill(p, t, c, cfg,
+                                            pad_lens=pad_lens),
+                lambda p, t, c: step(p, t, c, cfg, pad_lens=pad_lens,
+                                     dropless=dropless_step))
     return (lambda p, t, c: prefill(p, t, c, cfg, fresh=fresh,
                                     pad_lens=pad_lens),
-            lambda p, t, c: cached_forward(p, t, c, cfg, pad_lens=pad_lens))
+            lambda p, t, c: step(p, t, c, cfg, pad_lens=pad_lens))
+
+
+def family_step(cfg):
+    """The family's cached forward, (params, tokens, cache, cfg, pad_lens=)
+    → (logits, cache): prefill_chunked's step, the eager twin of the
+    reference's family_step_jit. Families other than dense Llama and MoE
+    raise."""
+    if isinstance(cfg, MoEConfig):
+        from .moe_serve import moe_cached_forward
+        return moe_cached_forward
+    if type(cfg) is not LlamaConfig:
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: the port serves the dense Llama and the "
+            "MoE families")
+    return cached_forward
 
 
 def filter_logits(logits, temperature: float, top_k, top_p):
@@ -373,9 +442,9 @@ def generate(params: dict, prompt, cfg: LlamaConfig, *, max_new_tokens: int,
     ``return_logprobs``: also each token's log-probability under the
     sampling distribution ([B, max_new_tokens] f32; forced eos reports 0)."""
     dev = resolve_device(device)
-    if params["embed"].device != dev:
-        raise ValueError(f"params on {params['embed'].device}, generate on "
-                         f"{dev}")
+    if embed_table(params).device != dev:
+        raise ValueError(f"params on {embed_table(params).device}, generate "
+                         f"on {dev}")
     prompt = torch.as_tensor(prompt, device=dev)
     B, S0 = prompt.shape
     if max_len is None:

@@ -24,7 +24,14 @@ Deliberate differences from the JAX module:
   package's observability registry, which this package does not import;
   the bridge is later work;
 - ``draft_params``/``draft_cfg`` (speculative serving) raise until the
-  speculation slice; MoE configs raise until the MoE slice.
+  speculation slice.
+
+Both model families serve, through ``family_fns``. MoE bucketing: expert
+capacity for an admission's prefill comes from the bucket length (pads
+claim no capacity but widen capacity's S), so an MoE stream equals
+``generate()`` on the identically padded prompt; decode steps are dropless
+either way. Prefix caching serves the dense family only: the right-padded
+suffix rows would compete for MoE routing capacity.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..device import resolve_device
 from .decode import (KVCache, family_fns, init_kv_cache, pick,
                      validate_sampling_args)
 from .llama import LlamaConfig, resolve_attn as _resolve_attn
+from .moe import MoEConfig, embed_table
 
 DEFAULT_BUCKETS = (64, 128, 256, 512, 1024)
 
@@ -83,15 +91,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "speculative serving (draft_params/draft_cfg) comes with the "
                 "speculation slice of the port")
-        family_fns(cfg)     # the family dispatch point: dense only for now
+        family_fns(cfg)     # the family dispatch point: other families raise
         _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
         validate_sampling_args(temperature, top_k, top_p, generator)
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         dev = resolve_device(device)
-        if params["embed"].device != dev:
-            raise ValueError(f"params on {params['embed'].device}, engine "
-                             f"on {dev}")
+        if embed_table(params).device != dev:
+            raise ValueError(f"params on {embed_table(params).device}, "
+                             f"engine on {dev}")
         self.params = params
         self.cfg = cfg
         self.device = dev
@@ -136,6 +144,11 @@ class ServeEngine:
             prefix = tuple(int(t) for t in prefix)
             if not prefix:
                 raise ValueError("empty prefix — omit it instead")
+            if isinstance(self.cfg, MoEConfig):
+                raise ValueError(
+                    "prefix caching serves the dense family only — the "
+                    "right-padded suffix rows would compete for MoE "
+                    "routing capacity")
             p = self._bucket(len(prefix))   # prefixes bucket like prompts
         b = self._bucket(len(prompt))
         if p + b + max_new_tokens > self.max_len:

@@ -107,6 +107,18 @@ def resolve_attn(impl: str, window: Optional[int] = None,
     return dense_attention
 
 
+def normal_init(generator: torch.Generator, device, shape, fan_in: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """normal(0, fan_in^-1/2) drawn in f32 from ``generator`` on ``device``,
+    stored in ``dtype``; raises when the generator lives elsewhere."""
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, params on "
+                         f"{device}")
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return w.mul_(fan_in ** -0.5).to(dtype)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None, dtype: Optional[torch.dtype] = None) -> dict:
     """Stacked-layer parameters with the JAX layout, normal(0, fan_in^-1/2)
@@ -116,16 +128,10 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     lm_head in f32. jax.random cannot be reproduced here: tests carry JAX
     params across with params_from_numpy instead of comparing inits."""
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator on {generator.device}, params on {dev}")
     ad = cfg.act_dtype if dtype is None else dtype
     L, D, F_ = cfg.n_layers, cfg.dim, cfg.hidden_dim
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def norm(shape, fan_in, dtype=ad):
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return w.mul_(fan_in ** -0.5).to(dtype)
+    norm = partial(normal_init, generator, dev, dtype=ad)
 
     return {
         "embed": norm((cfg.vocab_size, D), D),
@@ -141,7 +147,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             "ln_mlp": torch.ones((L, D), dtype=ad, device=dev),
         },
         "ln_final": torch.ones((D,), dtype=ad, device=dev),
-        "lm_head": norm((D, cfg.vocab_size), D, torch.float32),
+        "lm_head": norm((D, cfg.vocab_size), D, dtype=torch.float32),
     }
 
 

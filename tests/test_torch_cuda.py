@@ -29,6 +29,8 @@ import torch
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models import moe as tm
+from gpu_provisioner_tpu_torch.models import moe_serve as tms
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
@@ -329,6 +331,56 @@ def test_engine_streams_equal_generate_on_the_card(dev):
         want = td.generate(params, torch.tensor([p]), cfg, max_new_tokens=6,
                            max_len=512)
         assert out[rid] == want[0].tolist()
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "overflow"])
+def test_route_on_the_card_equals_the_cpu(dev, case):
+    """MoE routing on the card: the same dispatch (the stable sort keeps
+    lax.top_k's tie order on both) and combine within 1e-6."""
+    g = torch.Generator().manual_seed(5)
+    B, S, E = 2, 64, 8
+    logits = torch.randn(B, S, E, generator=g)
+    if case == "ties":
+        logits[:, ::2] = 0.0
+        logits[:, 1::4, 3:5] = 9.0
+    cap = tm.capacity(tm.PRESETS_MOE["mixtral-ish"], S)
+    if case == "overflow":
+        logits[..., 6] += 3.0
+    mask = torch.ones(B, S, dtype=torch.bool)
+    mask[1, :10] = False
+    cpu = tm.route(logits, 2, cap, token_mask=mask)
+    card = tm.route(logits.to(dev), 2, cap, token_mask=mask.to(dev))
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert _err(card[1].cpu(), cpu[1]) <= 1e-6
+    if case == "overflow":
+        assert float(cpu[0].sum()) < B * S * 2 - 20
+
+
+def test_moe_cached_forward_flash_equals_dense_on_the_card(dev):
+    """mixtral-ish width, 2 layers, f32: a left-padded prefill (the cached
+    kernel), then decode steps (the decode kernel), flash against dense."""
+    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"], n_layers=2,
+                              dtype="float32")
+    params = tm.init_moe_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 256), generator=g).to(dev)
+    pads = torch.tensor([0, 70], dtype=torch.int32, device=dev)
+    logits = {}
+    tfa.reset_launches()
+    for impl in ("dense", "flash"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        cache = td.init_kv_cache(c, 2, 512, dev)
+        lg, cache = tms.moe_cached_forward(params, prompt, cache, c,
+                                           pad_lens=pads)
+        steps = [lg[:, -1]]
+        for i in range(3):
+            lg, cache = tms.moe_cached_forward(params, prompt[:, i:i + 1],
+                                               cache, c, pad_lens=pads)
+            steps.append(lg[:, 0])
+        logits[impl] = torch.stack(steps)
+    assert tfa.LAUNCHES["flash_cached"] == 2
+    assert tfa.LAUNCHES["flash_decode"] == 6
+    assert _err(logits["flash"], logits["dense"]) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,9 +16,11 @@ import torch
 
 from gpu_provisioner_tpu.models import engine as je
 from gpu_provisioner_tpu.models import llama as jl
+from gpu_provisioner_tpu.models import moe as jm
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models import moe as tm
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 
 JCFG = jl.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4,
@@ -29,7 +31,8 @@ TPARAMS = params_from_numpy(jax.tree.map(np.asarray, JPARAMS), device="cpu")
 
 
 def _tcfg(jcfg):
-    return tl.LlamaConfig(**dataclasses.asdict(jcfg))
+    return (tm.MoEConfig if isinstance(jcfg, jm.MoEConfig)
+            else tl.LlamaConfig)(**dataclasses.asdict(jcfg))
 
 
 def _prompt(seed, n):
@@ -42,13 +45,14 @@ def _solo(prompt, new, cfg, **kw):
     return toks[0].tolist()
 
 
-def _both(jcfg, requests, mid_flight=(), steps_before=0, **eng_kw):
+def _both(jcfg, requests, mid_flight=(), steps_before=0,
+          params=(JPARAMS, TPARAMS), **eng_kw):
     """Serve ``requests`` [(prompt, new, submit kwargs)] on the JAX and the
     port engines alike, ``mid_flight`` ones after ``steps_before`` steps;
     returns (jax engine, port engine, jax ids, port ids)."""
     out = []
-    for mod, params, cfg, dev in ((je, JPARAMS, jcfg, {}),
-                                  (te, TPARAMS, _tcfg(jcfg),
+    for mod, params, cfg, dev in ((je, params[0], jcfg, {}),
+                                  (te, params[1], _tcfg(jcfg),
                                    {"device": "cpu"})):
         eng = mod.ServeEngine(params, cfg, **eng_kw, **dev)
         ids = [eng.submit(p, n, **kw) for p, n, kw in requests]
@@ -192,3 +196,44 @@ def test_engine_sliding_window_with_sinks_matches_jax():
     _assert_same_streams(jeng, teng, jids, tids)
     for (p, n, _), t in zip(reqs, tids):
         assert teng.finished[t] == _solo(p, n, _tcfg(jcfg))
+
+
+MOE_CFG = jm.MoEConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4,
+                       n_kv_heads=2, hidden_dim=128, max_seq_len=256,
+                       n_experts=4, experts_per_token=2, dtype="float32")
+
+
+def _moe_params(seed, jcfg):
+    jp = jm.init_moe_model(jax.random.key(seed), jcfg)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_engine_serves_moe_as_generate_on_the_bucket_padded_prompt(impl):
+    """The MoE half of tests/test_engine.py:80: expert capacity comes from
+    the bucket length, so an MoE stream equals generate() on the prompt
+    left-padded to its bucket — and the JAX engine's stream."""
+    jcfg = dataclasses.replace(MOE_CFG, attn_impl=impl)
+    params = _moe_params(7, jcfg)
+    reqs = [(_prompt(8, 11), 6, {}), (_prompt(9, 16), 5, {}),
+            (_prompt(10, 4), 7, {})]
+    jeng, teng, jids, tids = _both(jcfg, reqs, params=params, slots=2,
+                                   max_len=64, prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs, tids):
+        padded = torch.tensor([[0] * (16 - len(p)) + p])
+        want = td.generate(params[1], padded, _tcfg(jcfg), max_new_tokens=n,
+                           max_len=256, pad_id=0, device="cpu")
+        assert teng.finished[t] == want[0].tolist()
+
+
+def test_engine_refuses_a_prefix_on_moe():
+    """tests/test_engine.py:305's MoE case: prefix caching serves the
+    dense family only."""
+    jcfg = dataclasses.replace(MOE_CFG, n_layers=1)
+    _, tparams = _moe_params(1, jcfg)
+    eng = te.ServeEngine(tparams, _tcfg(jcfg), slots=1, max_len=64,
+                         prefill_buckets=(16,), device="cpu")
+    with pytest.raises(ValueError, match="dense family"):
+        eng.submit(_prompt(82, 8), 4, prefix=_prompt(83, 8))
+    assert eng.stats()["requests_submitted"] == 0

@@ -19,6 +19,7 @@ import torch
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
+from gpu_provisioner_tpu_torch.models import moe as tm
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 from gpu_provisioner_tpu_torch.ops import _cuda
@@ -76,6 +77,28 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     with pytest.raises(ValueError, match="params on cpu"):
         td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
                     max_new_tokens=2, device="meta")
+
+
+def test_moe_entry_points_without_device_raise_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = tm.PRESETS_MOE["tiny-moe"]
+    for init in (tm.init_moe_model, tm.init_moe_params):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        td.init_kv_cache(cfg, 1, 16)
+    params = tm.init_moe_model(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
+                    max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.ServeEngine(params, cfg)
+    with pytest.raises(ValueError, match="params on cpu"):
+        td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
+                    max_new_tokens=2, device="meta")
+    with pytest.raises(ValueError, match="params on cpu"):
+        te.ServeEngine(params, cfg, device="meta")
 
 
 def _header_fields(struct: str) -> list:
