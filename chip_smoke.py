@@ -22,7 +22,9 @@ Phases, each of which exits non-zero on a failed check:
    SXM's published peaks); the rows under 0.1 ms (the serving flash_fwd,
    the bf16 and int8 cached prefill, flash_decode on a bf16 and an int8
    cache and at S=5 and 16) also with the kernels' own device time from
-   torch.profiler (device_ms, flash_decode's merge launch included; taken
+   torch.profiler (device_ms, flash_decode's merge launch included; by
+   CUDA events behind a spin kernel where three profiler sessions in a row
+   record no kernel: device_ms_by; taken
    after phase 8, since a profiler session slows every later launch on
    the host) and the bound share from it, beside the library call's own
    device time (library_device_ms), and ptxas's registers and spills of
@@ -88,8 +90,28 @@ Phases, each of which exits non-zero on a failed check:
    (100-500 prompt tokens, 32 new each; a shared prefix is refused), 16
    timed decode steps at 4 slots, and generate at B=2, S0=512 left-padded
    on a bf16 and an int8 cache, every kernel's launches read across it;
-then the phase-2 and phase-9 rows' device times, the card line, the
-kernels line and, last, the device line.
+10. speculation (models/speculative.py, ServeEngine's draft mode): at 2
+   layers in f32, llama-7b width target and llama-1b width draft, greedy
+   speculative_generate equal to generate at B=1 (fresh prefill) and B=4
+   (ragged pad_id), spec_k 4 and 15 (verify blocks of 5 and 16 queries on
+   flash_decode), flash equal to dense, ServeEngine with the draft equal
+   to ServeEngine without, and a mixtral-ish-width MoE target with the
+   dense draft equal to its generate; then full llama-7b with a full
+   llama-1b draft in bf16 at bench_speculative's shape (S0 256, 96 new,
+   spec_k 4) at B=1 and B=8 (left-padded): target calls, the accepted
+   share, tokens/s beside plain generate's in the same run, host syncs a
+   round (torch.cuda.set_sync_debug_mode), flash_decode calls by block
+   length, agreement with plain greedy and its first divergence; a
+   speculative ServeEngine pass (6 requests, a shared prefix); every
+   kernel's launches across the speculative runs and that pass alone,
+   plain generate timed before the count starts (``spec`` in
+   launches_by_path); flash_decode at the B=8 verify call's shape, and
+   flash_fwd and flash_cached at the shapes the B=1 and B=8 prefills gave
+   them (target and draft heads), each against its plain version and timed
+   (``at_spec_verify``, ``at_spec_prefill``); then the bench_speculative
+   twin (self-draft llama-1b) with its launches;
+then the phase-2, phase-9 and phase-10 rows' device times, the card line,
+the kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -236,18 +258,17 @@ def time_ms(fn, flush, reps=20, warm=3):
     return statistics.median(times)
 
 
-def device_ms(fn, flush, names=None, reps=20, warm=3):
-    """Mean device time of one fn() call in the kernels whose names hold
-    one of ``names``, or in every kernel but the flush's fill when
-    ``names`` is None (torch.profiler's kernel records: the kernels' own
-    time, without the wrapper's host work that time_ms's events may hold),
-    the 50 MB L2 flushed before each call; fails when the profiler records
-    no such kernel."""
+SESSIONS = 3
+
+
+def profiled(fn, flush, names=None, reps=20):
+    """One torch.profiler session of ``reps`` fn() calls, the 50 MB L2
+    flushed before each: {kernel: (records, self device µs)} of the
+    kernels whose names hold one of ``names``, or of every kernel but the
+    flush's fill when ``names`` is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warm):
-        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -255,15 +276,67 @@ def device_ms(fn, flush, names=None, reps=20, warm=3):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == DeviceType.CUDA and (
-                any(n in evt.key for n in names) if names
-                else "FillFunctor" not in evt.key):
-            us += float(getattr(evt, "self_device_time_total", None)
-                        or getattr(evt, "self_cuda_time_total", 0.0))
-    check(us > 0, f"torch.profiler recorded no device time for {names}")
-    return us / reps / 1e3
+    return {evt.key: (evt.count,
+                      float(getattr(evt, "self_device_time_total", None)
+                            or getattr(evt, "self_cuda_time_total", 0.0)))
+            for evt in prof.key_averages()
+            if getattr(evt, "device_type", None) == DeviceType.CUDA
+            and (any(n in evt.key for n in names) if names
+                 else "FillFunctor" not in evt.key)}
+
+
+def device_ms(fn, flush, names=None, reps=20, warm=3):
+    """(ms, by): the mean device time of one fn() call in the kernels of
+    ``profiled`` (the kernels' own time, without the wrapper's host work
+    that time_ms's events may hold), by "profiler". About one session in
+    170 loses some or all of its kernel records (measured by
+    hack/torch_profiler_sessions.py); one counts only when it holds each
+    kernel a whole number of times a call. After SESSIONS sessions that
+    do not, the time comes from spun_ms instead, by "spun events"."""
+    for _ in range(warm):
+        fn()
+    for i in range(SESSIONS):
+        kernels = profiled(fn, flush, names, reps)
+        if kernels and all(c % reps == 0 for c, _ in kernels.values()):
+            return sum(us for _, us in kernels.values()) / reps / 1e3, \
+                "profiler"
+        print(f"torch.profiler session {i + 1} of {SESSIONS} for {names}: "
+              f"{reps} calls, kernel records "
+              f"{ {k[:40]: c for k, (c, _) in kernels.items()} }",
+              file=sys.stderr)
+    return spun_ms(fn, flush, reps), "spun events"
+
+
+SPIN_MS = 1.0
+
+
+def spun_ms(fn, flush, reps=20):
+    """Median device time of one fn() call by CUDA events queued behind a
+    SPIN_MS spin kernel (torch.cuda._sleep): the host queues both events
+    and fn's launches while the card spins, so the events hold no host
+    time, only fn's kernels and the gaps between them on the card; fails
+    when the host took longer than the spin to queue them."""
+    import torch
+    a, b, s = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    torch.cuda._sleep(1 << 20)
+    a.record()
+    a.synchronize()
+    cycles = int((1 << 20) * SPIN_MS / s.elapsed_time(a))
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        check(host_ms < SPIN_MS, f"spun_ms: the host took {host_ms:.3f} ms "
+              f"to queue the call, longer than the {SPIN_MS} ms spin")
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def timing(kernel, plain, library, ops_bytes, flush):
@@ -535,22 +608,28 @@ def phase_kernels(torch, tfa, td, dev):
     return rows, deferred
 
 
-def device_times(torch, deferred, dev):
+def device_times(torch, tfa, deferred, dev):
     """device_ms of the rows under 0.1 ms (the kernels' own time; the
     decode's merge launch included), the bound share from it and, where
-    the row has one, the library call's own device time. Measured after
+    the row has one, the library call's own device time, each with the
+    way device_ms took it (``device_ms_by``); fails when the kernel's
+    wrapper launched nothing while it was timed. Measured after
     every end-to-end phase: a torch.profiler session leaves CUPTI's
     callbacks behind, and every later launch then costs the host more
     (5.8-8.0 µs a launch before one session, 9.6-10.2 after, on the H100
     machine), which would slow the host-bound serving phase."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for r, kernel, library, names in deferred:
-        r["device_ms"] = device_ms(kernel, flush, names)
+        before = sum(tfa.LAUNCHES.values())
+        r["device_ms"], r["device_ms_by"] = device_ms(kernel, flush, names)
+        check(sum(tfa.LAUNCHES.values()) > before,
+              f"device time of {names}: the wrapper launched no kernel")
         r["bound_share"] = r["bound_ms"] / r["device_ms"]
         if library:
-            r["library_device_ms"] = device_ms(library, flush)
+            r["library_device_ms"], r["library_device_ms_by"] = device_ms(
+                library, flush)
         print(f"device time ({names[0]}, bound {r['bound_ms']:.5f} ms): "
-              f"{r['device_ms']:.5f} ms, library "
+              f"{r['device_ms']:.5f} ms by {r['device_ms_by']}, library "
               f"{r.get('library_device_ms')}")
     del flush
 
@@ -1584,6 +1663,413 @@ def phase_main(torch, tl, td, te, tfa, dev):
     return launches
 
 
+# phase 10: bench_speculative's full shape (S0, new tokens, spec_k) and
+# the cache budget, S0 + new + spec_k + 1 = 357 rounded up to a multiple of
+# 128 so that the kernels' gates hold
+SPEC_S0, SPEC_NEW, SPEC_K, SPEC_ML = 256, 96, 4, 384
+
+
+class SpecTally:
+    """While installed: counts flash_attention_decode calls by query block
+    length S (1: a draft step, spec_k + 1: a verify block) and keeps each
+    S's last (q shape, starts); keeps the last (q shape, k shape, start,
+    pads) that the fresh prefill's flash_attention and the cached
+    prefill's flash_attention_cached were given, by kernel and query heads
+    (``prefill``); sums the proposals the active rows of each spec_round
+    were offered and accepted, on the device (no host sync). The kernels'
+    own LAUNCHES counts are untouched."""
+
+    def __init__(self, td, ts, tfa):
+        self.td, self.ts, self.tfa = td, ts, tfa
+        self.decode, self.spec_round = td.flash_attention_decode, \
+            ts.spec_round
+        self.fwd, self.cached = tfa.flash_attention, td.flash_attention_cached
+        self.by_s, self.seen, self.prefill = {}, {}, {}
+        self.accepted = self.proposed = 0
+
+    def __enter__(self):
+        def decode(q, k_cache, v_cache, start, **kw):
+            S = q.shape[1]
+            self.by_s[S] = self.by_s.get(S, 0) + 1
+            self.seen[S] = (tuple(q.shape), start)
+            return self.decode(q, k_cache, v_cache, start, **kw)
+
+        def fwd(q, k, v, **kw):
+            self.prefill["flash_fwd", q.shape[2]] = (
+                tuple(q.shape), tuple(k.shape), 0, None)
+            return self.fwd(q, k, v, **kw)
+
+        def cached(q, k_cache, v_cache, start, **kw):
+            self.prefill["flash_cached", q.shape[2]] = (
+                tuple(q.shape), tuple(k_cache.shape), start,
+                kw.get("pad_lens"))
+            return self.cached(q, k_cache, v_cache, start, **kw)
+
+        def spec_round(*args, **kw):
+            out = self.spec_round(*args, **kw)
+            emit_n = out[2]                  # -1 rolled back, else m + 1
+            self.accepted = self.accepted + (emit_n - 1).clamp(min=0).sum()
+            self.proposed = self.proposed + (emit_n > 0).sum() * kw["spec_k"]
+            return out
+        self.td.flash_attention_decode = decode
+        self.ts.spec_round = spec_round
+        self.tfa.flash_attention = fwd
+        self.td.flash_attention_cached = cached
+        return self
+
+    def __exit__(self, *exc):
+        self.td.flash_attention_decode = self.decode
+        self.ts.spec_round = self.spec_round
+        self.tfa.flash_attention = self.fwd
+        self.td.flash_attention_cached = self.cached
+
+
+def count_syncs(torch, fn):
+    """(fn's result, host syncs fn made), counted by
+    torch.cuda.set_sync_debug_mode's warnings."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_spec_exact(torch, tl, tm, td, te, ts, dev):
+    """Llama-7B width target and Llama-1B width draft, 2 layers each, f32,
+    the flash kernels in their f32 instances: greedy speculative_generate
+    == generate at B=1 (fresh prefill) and B=4 (ragged pad_id), spec_k 4
+    and 15 (verify blocks of 5 and 16 on flash_decode); flash == dense;
+    ServeEngine with the draft == ServeEngine without, request by request;
+    an MoE target (mixtral-ish width, 2 layers) with the dense draft ==
+    its plain greedy stream."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-7b"], n_layers=2,
+                              dtype="float32", attn_impl="flash")
+    dcfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
+                               dtype="float32", attn_impl="flash")
+    params = tl.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    draft = tl.init_params(dcfg, torch.Generator(dev).manual_seed(SEED + 1),
+                           dev)
+    g = torch.Generator().manual_seed(SEED + 8)
+    V, new, ML = cfg.vocab_size, 24, SPEC_ML
+    one = torch.randint(1, V, (1, 256), generator=g)
+    ragged = torch.randint(1, V, (4, 256), generator=g)
+    for b, pad in enumerate((0, 37, 100, 190)):
+        ragged[b, :pad] = 0
+    cases = ((one, {}), (ragged, {"pad_id": 0}))
+    for spec_k in (4, 15):
+        for prompt, kw in cases:
+            want = td.generate(params, prompt, cfg, max_new_tokens=new,
+                               max_len=ML, **kw)
+            got, st = ts.speculative_generate(
+                params, draft, prompt, cfg, dcfg, max_new_tokens=new,
+                spec_k=spec_k, max_len=ML, **kw)
+            check(torch.equal(got, want),
+                  f"speculative (spec_k {spec_k}, B={len(prompt)}) != "
+                  f"generate: {got.tolist()} vs {want.tolist()}")
+            print(f"speculative == generate: spec_k {spec_k}, "
+                  f"B={len(prompt)} {kw or 'fresh'}, target_calls "
+                  f"{st['target_calls']} for {new} tokens")
+    dense = [dataclasses.replace(c, attn_impl="dense") for c in (cfg, dcfg)]
+    flash_out = ts.speculative_generate(params, draft, ragged, cfg, dcfg,
+                                        max_new_tokens=new, spec_k=4,
+                                        max_len=ML, pad_id=0)[0]
+    dense_out = ts.speculative_generate(params, draft, ragged, *dense,
+                                        max_new_tokens=new, spec_k=4,
+                                        max_len=ML, pad_id=0)[0]
+    check(torch.equal(flash_out, dense_out),
+          f"speculative flash != dense: {flash_out.tolist()} vs "
+          f"{dense_out.tolist()}")
+    reqs = [(torch.randint(1, V, (n,), generator=g).tolist(), m)
+            for n, m in ((100, 12), (230, 9), (60, 16), (150, 7))]
+    prefix = torch.randint(1, V, (90,), generator=g).tolist()
+    streams = []
+    for kw in ({}, {"draft_params": draft, "draft_cfg": dcfg, "spec_k": 4}):
+        eng = te.ServeEngine(params, cfg, slots=3, max_len=1024,
+                             prefill_buckets=(128, 256), **kw)
+        ids = [eng.submit(p, m, prefix=prefix if i % 2 else None)
+               for i, (p, m) in enumerate(reqs)]
+        out = eng.run()
+        streams.append([out[i] for i in ids])
+    check(streams[0] == streams[1],
+          f"speculative engine != plain engine: {streams}")
+    print(f"speculative flash == dense (B=4, pad_id); ServeEngine with the "
+          f"draft == without, {len(reqs)} requests (2 on a prefix)")
+    del params
+    mcfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"], n_layers=2,
+                               dtype="float32", attn_impl="flash")
+    mparams = tm.init_moe_model(mcfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+    want = td.generate(mparams, ragged, mcfg, max_new_tokens=new, max_len=ML,
+                       pad_id=0)
+    got, st = ts.speculative_generate(mparams, draft, ragged, mcfg, dcfg,
+                                      max_new_tokens=new, spec_k=4,
+                                      max_len=ML, pad_id=0)
+    check(torch.equal(got, want), f"MoE-target speculative != generate: "
+          f"{got.tolist()} vs {want.tolist()}")
+    print(f"MoE target (mixtral-ish width, 2 layers) with the dense draft "
+          f"== generate, B=4 pad_id, target_calls {st['target_calls']}")
+    del mparams, draft
+
+
+def agreement(a, b):
+    """(share of equal positions, first divergence per row or None)."""
+    eq = (a == b)
+    first = [None if bool(r.all()) else int((~r).nonzero()[0])
+             for r in eq.cpu()]
+    return float(eq.float().mean()), first
+
+
+def phase_spec(torch, tl, td, te, ts, tfa, dev, deferred):
+    """Full Llama-7B target with a full Llama-1B draft, bf16, flash:
+    speculative_generate at bench_speculative's shape (S0 256, 96 new,
+    spec_k 4) at B=1 (fresh prefill) and B=8 (left-padded, pad_id) against
+    generate in the same call, then a speculative ServeEngine pass. Plain
+    generate is timed first, so that every kernel's launches are read
+    across the speculative runs and the engine pass alone. Returns (the
+    launches, the report, the verify entry, the prefill shapes)."""
+    import torch.nn.functional as F
+    cfg = dataclasses.replace(tl.PRESETS["llama-7b"], attn_impl="flash")
+    dcfg = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash")
+    t0 = time.perf_counter()
+    params = tl.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    draft = tl.init_params(dcfg, torch.Generator(dev).manual_seed(SEED + 1),
+                           dev)
+    torch.cuda.synchronize()
+    print(f"llama-7b + llama-1b params on the card in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    g = torch.Generator().manual_seed(SEED + 9)
+    V, K, new, ML = cfg.vocab_size, SPEC_K, SPEC_NEW, SPEC_ML
+    one = torch.randint(1, V, (1, SPEC_S0), generator=g)
+    eight = torch.randint(1, V, (8, SPEC_S0), generator=g)
+    for b in range(8):
+        eight[b, :12 * b] = 0
+
+    def spec(prompt, kw):
+        return ts.speculative_generate(params, draft, prompt, cfg, dcfg,
+                                       max_new_tokens=new, spec_k=K,
+                                       max_len=ML, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # warm-up: the first bf16 cuBLAS calls at these widths, uncounted
+    spec(one[:, :128], {})
+    td.generate(params, one[:, :128], cfg, max_new_tokens=4, max_len=ML)
+    runs = (("B=1", one, {}), ("B=8", eight, {"pad_id": 0}))
+    plain = {name: timed(lambda: td.generate(
+        params, prompt, cfg, max_new_tokens=new, max_len=ML, **kw))
+        for name, prompt, kw in runs}
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    report, decode_calls, prefill = {}, 0, {}
+    for name, prompt, kw in runs:
+        B = len(prompt)
+        with SpecTally(td, ts, tfa) as tally:
+            (got, st), syncs = count_syncs(torch, lambda: spec(prompt, kw))
+        (got2, st2), spec_s = timed(lambda: spec(prompt, kw))
+        check(tuple(got.shape) == (B, new) and bool(((got >= 0) & (got < V))
+                                                    .all()),
+              f"speculative {name}: {tuple(got.shape)}")
+        check(torch.equal(got, got2) and st["target_calls"]
+              == st2["target_calls"], f"speculative {name} not repeatable")
+        rounds = st["target_calls"] - 1
+        check(tally.by_s.get(K + 1, 0) == cfg.n_layers * rounds
+              and tally.by_s.get(1, 0) == dcfg.n_layers * (K + 1) * rounds,
+              f"speculative {name}: decode calls by S {tally.by_s}, "
+              f"{rounds} rounds")
+        share, first = agreement(got, plain[name][0])
+        decode_calls += 2 * sum(tally.by_s.values())     # both runs
+        prefill.update(tally.prefill)
+        report[name] = {
+            "target_calls": st["target_calls"],
+            "accepted_share": float(tally.accepted) / float(tally.proposed),
+            "tokens_per_s": B * new / spec_s,
+            "plain_tokens_per_s": B * new / plain[name][1],
+            "host_syncs": syncs, "syncs_per_round": syncs / rounds,
+            "decode_calls_by_S": dict(tally.by_s),
+            "agreement_with_plain": share, "first_divergence": first}
+        print(f"speculative llama-7b + llama-1b bf16 {name} S0={SPEC_S0} "
+              f"{new} new, spec_k {K}: {json.dumps(report[name])}")
+        verify_shape, verify_start = tally.seen[K + 1]
+    # two runs a batch: the B=1 prefills on #1 (fresh), the B=8 ones on #4
+    # (pads), one launch a layer of each model; every #5 call a launch
+    gen = dict(tfa.LAUNCHES)
+    L2 = 2 * (cfg.n_layers + dcfg.n_layers)
+    check(gen["flash_fwd"] == L2 and gen["flash_cached"] == L2
+          and gen["flash_decode"] == decode_calls,
+          f"speculative_generate launches {gen}: want flash_fwd and "
+          f"flash_cached {L2}, flash_decode {decode_calls}")
+    eng = te.ServeEngine(params, cfg, slots=4, max_len=1024,
+                         prefill_buckets=(128, 256, 512),
+                         draft_params=draft, draft_cfg=dcfg, spec_k=K,
+                         return_logprobs=True)
+    prefix = torch.randint(1, V, (100,), generator=g).tolist()
+    reqs = [(torch.randint(1, V, (n,), generator=g).tolist(), pre)
+            for n, pre in ((180, None), (400, None), (120, prefix),
+                           (350, None), (100, None), (230, prefix))]
+    (ids, out), wall = timed(lambda: (
+        [eng.submit(p, 32, prefix=pre) for p, pre in reqs], eng.run()))
+    for rid in ids:
+        lps = eng.finished_logprobs[rid]
+        check(len(out[rid]) == 32 and all(0 <= t < V for t in out[rid])
+              and len(lps) == 32 and all(lp <= 0 for lp in lps),
+              f"speculative engine request {rid}: {out[rid]}")
+    st = eng.stats()
+    print(f"speculative ServeEngine llama-7b + llama-1b bf16: "
+          f"{st['tokens_emitted']} tokens in {wall:.2f} s = "
+          f"{st['tokens_emitted'] / wall:.1f} tokens/s; {st}")
+    launches = dict(tfa.LAUNCHES)
+    print(f"speculation-path launches {launches} (speculative_generate "
+          f"alone {gen}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, n in launches.items():
+        # the fresh prefill, the cached prefill (pads, admissions, prefix
+        # suffixes) and the decode; no int8 cache, backward or triangle
+        check((n > 0) == (name in ("flash_fwd", "flash_cached",
+                                   "flash_decode")),
+              f"kernel {name}: {n} launches on the speculation path")
+    # the engine admits through #4 and steps through #5
+    check(launches["flash_cached"] > gen["flash_cached"]
+          and launches["flash_decode"] > gen["flash_decode"],
+          f"speculative ServeEngine launches {launches} after {gen}")
+    del params, draft, eng
+
+    # the verify call's attention at the shape the B=8 run gave it
+    gq = torch.Generator(dev).manual_seed(SEED + 10)
+    B, S, Hq, D = verify_shape
+    Hkv = cfg.n_kv_heads
+    bf = torch.bfloat16
+    q = torch.randn(B, S, Hq, D, generator=gq, device=dev).to(bf)
+    kc, vc = (torch.randn(B, Hkv, ML, D, generator=gq, device=dev).to(bf)
+              for _ in range(2))
+    st_ = verify_start.to(torch.int32)
+    pads = torch.tensor([12 * b for b in range(B)], dtype=torch.int32,
+                        device=dev)
+    kp = torch.arange(ML, device=dev)
+    mask = ((kp[None, None, :] <= st_[:, None, None].long()
+             + torch.arange(S, device=dev)[None, :, None])
+            & (kp[None, None, :] >= pads[:, None, None]))[:, None]
+    e = (tfa.flash_attention_decode(q, kc, vc, st_, pad_lens=pads).float()
+         - tfa.attention_plain(q, kc, vc, st_, pad_lens=pads)[0].float()
+         ).abs().max().item()
+    check(e <= TOL["bfloat16"], f"flash_decode at the verify shape: {e}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kernel = lambda: tfa.flash_attention_decode(q, kc, vc, st_,  # noqa: E731
+                                                pad_lens=pads)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True)
+    verify = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} ML={ML}, starts "
+                       f"{st_.tolist()}, pads {pads.tolist()}",
+              "max_abs_err": e,
+              **timing(kernel,
+                       lambda: tfa.attention_plain(q, kc, vc, st_,
+                                                   pad_lens=pads),
+                       library,
+                       work(B, S, Hq, Hkv, D, ML, st_, pads, None, 0, True,
+                            2, 2, False, False), flush)}
+    deferred.append((verify, kernel, library, ("flash_decode",)))
+    print(f"flash_decode at the verify shape: {json.dumps(verify)}")
+    del flush
+    return launches, report, verify, prefill
+
+
+def spec_prefill_rows(torch, tfa, prefill, dev, deferred):
+    """#1 and #4 at the shapes the speculation path's prefills gave them
+    (SpecTally.prefill: the B=1 fresh prefill's self-attention and the B=8
+    pad_id prefill's cached attention from its start under the rows' pads,
+    for the target's and the draft's query heads), bf16, random inputs:
+    each against attention_plain within TOL, then timed (device times
+    deferred). Returns ({row: {"Hq=..": entry}}, {row: worst error})."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 11)
+    bf = torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    entries = {"flash_fwd": {}, "flash_cached": {}}
+    errs = dict.fromkeys(entries, 0.0)
+
+    def rnd(shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def case(name, q_shape, k_shape, start, pads):
+        """(kernel, plain, library, work, shape) of one recorded call."""
+        B, S, Hq, D = q_shape
+        q, k, v = rnd(q_shape), rnd(k_shape), rnd(k_shape)
+        if name == "flash_fwd":                    # k/v [B, S, Hkv, D]
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+            Hkv = k_shape[2]
+            return (lambda: tfa.flash_attention_with_lse(q, k, v),
+                    lambda: tfa.attention_plain(q, kh, vh, 0),
+                    lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kh, vh, is_causal=True,
+                        enable_gqa=True),
+                    work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2,
+                         False, True),
+                    f"B={B} S={S} Hq={Hq} Hkv={Hkv}, self-attention")
+        Hkv, ML = k_shape[1], k_shape[2]           # cache [B, Hkv, ML, D]
+        st = int(start)
+        kp = torch.arange(ML, device=dev)
+        mask = ((kp[None, None, :] <= st + torch.arange(S, device=dev)[
+            None, :, None]) & (kp[None, None, :] >= pads[:, None, None])
+                )[:, None]
+        return (lambda: tfa.flash_attention_cached(q, k, v, st,
+                                                   pad_lens=pads),
+                lambda: tfa.attention_plain(q, k, v, st, pad_lens=pads),
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k, v, attn_mask=mask,
+                    enable_gqa=True),
+                work(B, S, Hq, Hkv, D, ML, st, pads, None, 0, True, 2, 2,
+                     False, False),
+                f"B={B} S={S} Hq={Hq} Hkv={Hkv} ML={ML}, start {st}, pads "
+                f"{pads.tolist()}")
+
+    for (name, Hq), args in sorted(prefill.items()):
+        kernel, plain, library, ops_bytes, shape = case(name, *args)
+        e = (kernel()[0] if name == "flash_fwd" else kernel()).float()
+        e = (e - plain()[0].float()).abs().max().item()
+        check(e <= TOL["bfloat16"],
+              f"{name} at the speculation prefill's shape {shape}: {e}")
+        errs[name] = max(errs[name], e)
+        entry = {"shape": shape, "max_abs_err": e,
+                 **timing(kernel, plain, library, ops_bytes, flush)}
+        entries[name][f"Hq={Hq}"] = entry
+        deferred.append((entry, kernel, library, ("flash_fwd_tc_kernel",)))
+        print(f"{name} at the speculation prefill's shape: "
+              f"{json.dumps(entry)}")
+    check(all(len(v) == 2 for v in entries.values()),
+          f"speculation prefill shapes {sorted(prefill)}")
+    del flush
+    return entries, errs
+
+
+def phase_spec_twin(torch, bench, tfa):
+    """bench_speculative (self-draft Llama-1B, full size) with its launches:
+    the fresh prefill of target and draft (16 layers each) in one warm and
+    SPEC_ROUNDS timed calls at each of the two batch sizes."""
+    tfa.reset_launches()
+    res = bench.bench_speculative(False)
+    launches = dict(tfa.LAUNCHES)
+    L = bench.speculative_config(False).n_layers
+    print(f"bench_speculative (self-draft llama-1b): {json.dumps(res)}; "
+          f"launches {launches}")
+    check(res["target_calls"] <= -(-(res["new_tokens"] - 1)
+                                   // (res["spec_k"] + 1)) + 1,
+          f"bench_speculative: self-draft did not accept every proposal: "
+          f"{res}")
+    check(launches["flash_fwd"] == 2 * L * 2 * (1 + bench.SPEC_ROUNDS)
+          and launches["flash_decode"] > 0,
+          f"bench_speculative launches {launches}")
+    return res, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1600,6 +2086,7 @@ def main() -> int:
     from gpu_provisioner_tpu_torch.models import llama as tl
     from gpu_provisioner_tpu_torch.models import moe as tm
     from gpu_provisioner_tpu_torch.models import moe_serve as tms
+    from gpu_provisioner_tpu_torch.models import speculative as ts
     from gpu_provisioner_tpu_torch.models import train as tt
     from gpu_provisioner_tpu_torch.ops import _cuda
     from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
@@ -1661,7 +2148,19 @@ def main() -> int:
     print(f"MoE phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    device_times(torch, deferred, dev)
+    phase_spec_exact(torch, tl, tm, td, te, ts, dev)
+    torch.cuda.empty_cache()
+    spec, spec_report, spec_verify, spec_prefill = phase_spec(
+        torch, tl, td, te, ts, tfa, dev, deferred)
+    torch.cuda.empty_cache()
+    prefill_rows, prefill_errs = spec_prefill_rows(torch, tfa, spec_prefill,
+                                                   dev, deferred)
+    spec_twin, by_twin["bench_speculative"] = phase_spec_twin(torch, bench,
+                                                              tfa)
+    print(f"speculation phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
         if r["name"] in twin_worst:
@@ -1676,6 +2175,7 @@ def main() -> int:
         name = r["name"]
         r["launches_by_path"] = {"serve": serve[name], "train": train[name],
                                  "long": long[name], "moe": moe[name],
+                                 "spec": spec[name],
                                  **{k: v[name] for k, v in by_twin.items()}}
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
@@ -1687,6 +2187,14 @@ def main() -> int:
             r["ptxas"] = decode_report[name]
             for S, v in r.get("verify_blocks", {}).items():
                 v["ptxas"] = decode_report[f"flash_decode_s{S[2:]}"]
+        if name == "flash_decode":
+            r["at_spec_verify"] = spec_verify
+            r["max_abs_err"] = max(r["max_abs_err"], spec_verify["max_abs_err"])
+        if name in prefill_rows:
+            r["at_spec_prefill"] = prefill_rows[name]
+            r["max_abs_err"] = max(r["max_abs_err"], prefill_errs[name])
+    print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
+          f"{json.dumps(spec_twin)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

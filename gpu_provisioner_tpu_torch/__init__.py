@@ -6,3 +6,7 @@ This package imports torch and numpy, never jax and nothing of
 ``gpu_provisioner_tpu``. Its kernels are CUDA C++ for Hopper (sm_90a)
 under ``ops/csrc/``, built with nvcc at first use.
 """
+
+from .device import prime_cpu_math
+
+prime_cpu_math()

@@ -1,14 +1,15 @@
-"""Long-context benchmark sections on one GPU.
+"""Long-context and speculative-decoding benchmark sections on one GPU.
 
-Twins of two sections of the JAX package's ``bench.py``:
+Twins of three sections of the JAX package's ``bench.py``:
 ``bench_flash_op`` (one flash-attention op against the dense path, forward
 and forward+backward, then the streaming shape at S=32768 with and without
-``triangular=True``) and ``bench_long_context`` (a 4-layer, dim-1024 model
+``triangular=True``), ``bench_long_context`` (a 4-layer, dim-1024 model
 trained with flash attention and remat at S=8192, then with a 1024-token
-sliding window at S×4). The same shapes, configurations and dict keys,
-timed after the same warm-ups: on a CUDA tensor with CUDA events, on a CPU
-tensor (the tests' shrunken shapes) with the host clock. Deliberate
-differences:
+sliding window at S×4) and ``bench_speculative`` (self-draft speculative
+decoding of a Llama-1B: S0=256, 96 new tokens, spec_k 4, B=1 then 8). The
+same shapes, configurations and dict keys, timed after the same warm-ups:
+on a CUDA tensor with CUDA events, on a CPU tensor (the tests' shrunken
+shapes) with the host clock. Deliberate differences:
 
 - flash attention is the port's CUDA kernels on the card; the JAX section
   runs dense attention off the TPU and skips the sliding-window half there;
@@ -18,7 +19,11 @@ differences:
   ``swa_losses``), so a caller can check them;
 - inputs come from ``torch.Generator`` seeds 0 and 1 (``jax.random`` cannot
   be reproduced); ``shape``, ``streaming_shape``, ``cfg``, ``seq_len`` and
-  ``window`` override the sizes.
+  ``window`` override the sizes;
+- ``bench_speculative`` runs flash attention (the JAX section runs the
+  config's default, dense) and rounds ``max_len`` up to a multiple of 128,
+  where the decode kernel's gate holds (the JAX section takes the smallest
+  budget, S0 + new + spec_k + 1).
 
 Run on a machine with the card, from the repository root::
 
@@ -36,7 +41,8 @@ import time
 import torch
 
 from .device import resolve_device
-from .models.llama import LlamaConfig
+from .models.llama import LlamaConfig, init_params
+from .models.speculative import speculative_generate
 from .models.train import make_train_state, make_train_step
 from .ops.flash_attention import flash_attention
 from .parallel.ring import dense_attention
@@ -48,6 +54,9 @@ SWA_WINDOW = 1024
 ROUNDS = 3          # best of ROUNDS, after one warm call (bench_flash_op)
 OP_CALLS = 5        # calls per round of the op timings (streaming: 1)
 WARM_STEPS, TIMED_STEPS = 2, 3     # bench_long_context, per model
+# (S0, new tokens, spec_k, batched B) of bench_speculative, as bench.py's
+SPEC_SHAPE = {True: (64, 16, 3, 2), False: (256, 96, 4, 8)}
+SPEC_ROUNDS = 3     # best of SPEC_ROUNDS runs a batch size, after one warm
 
 
 def _elapsed_ms(dev: torch.device, fn) -> float:
@@ -168,6 +177,52 @@ def bench_long_context(fast: bool, device=None, *, cfg=None, seq_len=None,
     return out
 
 
+def speculative_config(fast: bool) -> LlamaConfig:
+    """bench.py's bench_speculative model: fast, vocab 2048, dim 512, 4
+    layers, GQA 8/4, hidden 1408; else Llama-1B (vocab 32000, dim 2048, 16
+    layers, GQA 16/8, hidden 5504); bf16, flash attention."""
+    if fast:
+        return LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=8,
+                           n_kv_heads=4, hidden_dim=1408, attn_impl="flash")
+    return LlamaConfig(vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
+                       n_kv_heads=8, hidden_dim=5504, attn_impl="flash")
+
+
+def bench_speculative(fast: bool, device=None, *, cfg=None,
+                      shape=None) -> dict:
+    """Speculative decoding with a SELF-draft (draft == target, so every
+    proposal is accepted): the tokens/s is the acceptance upper bound. It
+    times the draft steps, the wide verify call and the rollback, at B=1
+    and then batched (per-row acceptance). ``shape`` = (S0, new tokens,
+    spec_k, batched B) overrides SPEC_SHAPE."""
+    dev = resolve_device(device)
+    cfg = cfg or speculative_config(fast)
+    S0, NEW, K, Bb = shape or SPEC_SHAPE[fast]
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    max_len = -(-(S0 + NEW + K + 1) // 128) * 128
+
+    def best(B):
+        """(best ms of SPEC_ROUNDS runs after a warm one, target calls)"""
+        prompt = torch.zeros((B, S0), dtype=torch.int32, device=dev)
+
+        def run():
+            return speculative_generate(
+                params, params, prompt, cfg, cfg, max_new_tokens=NEW,
+                spec_k=K, max_len=max_len, device=dev)[1]["target_calls"]
+        calls = run()
+        return min(_elapsed_ms(dev, run) for _ in range(SPEC_ROUNDS)), calls
+
+    total_ms, calls = best(1)
+    out = {"new_tokens": NEW, "spec_k": K, "target_calls": calls,
+           "total_ms": total_ms,
+           "tokens_per_s_upper_bound": NEW / total_ms * 1e3}
+    batched_ms, _ = best(Bb)
+    out.update({"batch": Bb, "batched_total_ms": batched_ms,
+                "batched_tokens_per_s_upper_bound": Bb * NEW / batched_ms
+                * 1e3})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fast", action="store_true")
@@ -175,7 +230,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "long_context": bench_long_context(args.fast),
-                      "flash_op": bench_flash_op(args.fast)}))
+                      "flash_op": bench_flash_op(args.fast),
+                      "speculative": bench_speculative(args.fast)}))
 
 
 if __name__ == "__main__":

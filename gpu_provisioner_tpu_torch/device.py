@@ -22,3 +22,16 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:     # compare equal to tensors' cuda:N devices
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def prime_cpu_math() -> None:
+    """Makes the process's first CPU ``torch.exp`` a call on one thread.
+
+    MKL sets up exp on its first call. When that first call comes from
+    several OpenMP threads at once (ATen splits a large CPU tensor across
+    them), one thread now and then computes its chunk with a less accurate
+    exp, relative error 1.5e-4 where the others give 6e-8: enough to fail
+    the 1e-5 comparisons against the JAX package.
+    ``hack/torch_exp_first_call.py`` counts it in fresh processes. A
+    single-threaded first call settles it before any parallel one."""
+    torch.exp(torch.ones(64))

@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over the per-row KV cache.
 
-Twin of ``gpu_provisioner_tpu/models/engine.py`` without speculation: one
-pre-allocated cache of ``slots`` rows at a fixed ``max_len``; every step
-advances all active slots together through one ``cached_forward`` with a
+Twin of ``gpu_provisioner_tpu/models/engine.py``: one pre-allocated cache
+of ``slots`` rows at a fixed ``max_len``; every step advances all active
+slots together through one ``cached_forward`` with a
 per-row length vector (the per-row-start decode kernel); a finished slot
 (eos or token budget) frees at once and the next queued request is admitted
 into it, its prompt left-padded to a bucket and prefilled into a one-row
@@ -11,27 +11,34 @@ shared step with their write offset parked in bounds and their length
 restored afterwards. Prefix caching prefills a shared prefix once (LRU) and
 admits later requests by prefilling only their right-padded suffix at the
 prefix row's offset. Greedy engine output per request is exactly
-``generate()``'s stream for that request alone.
+``generate()``'s stream for that request alone. With a draft model
+(``draft_params``/``draft_cfg``/``spec_k``) every step is one
+``spec_round`` (models/speculative.py) across all slots: the draft keeps a
+cache pool of its own (same slots, buckets and pads, prefilled at
+admission), inactive slots ride through as finished rows, and each active
+slot emits its accepted prefix plus one token, truncated on the host at
+its quota and at eos.
 
 Deliberate differences from the JAX module:
 
 - the cache is updated in place (slot copies and decode writes), and the
-  suffix prefill of a prefix hit runs on a clone of the cached prefix row,
-  which stays untouched for the next hit;
+  suffix prefill of a prefix hit runs on clones of the cached prefix rows
+  (the target's and the draft's), which stay untouched for the next hit;
 - an eager host loop in place of jitted step/prefill/insert programs;
 - ``torch.Generator`` in place of ``jax.random`` keys for sampling;
 - no fleet registration: the JAX engine registers itself with the JAX
   package's observability registry, which this package does not import;
   the bridge is later work;
-- ``draft_params``/``draft_cfg`` (speculative serving) raise until the
-  speculation slice.
+- a speculative step brings its tokens, emit counts and (when asked) the
+  logprobs to the host in one transfer (the reference makes two).
 
 Both model families serve, through ``family_fns``. MoE bucketing: expert
 capacity for an admission's prefill comes from the bucket length (pads
 claim no capacity but widen capacity's S), so an MoE stream equals
 ``generate()`` on the identically padded prompt; decode steps are dropless
-either way. Prefix caching serves the dense family only: the right-padded
-suffix rows would compete for MoE routing capacity.
+either way. Prefix caching serves the dense family only, for the target and
+the draft alike: the right-padded suffix rows would compete for MoE routing
+capacity.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from .decode import (KVCache, family_fns, init_kv_cache, pick,
                      validate_sampling_args)
 from .llama import LlamaConfig, resolve_attn as _resolve_attn
 from .moe import MoEConfig, embed_table
+from .speculative import spec_round
 
 DEFAULT_BUCKETS = (64, 128, 256, 512, 1024)
 
@@ -72,12 +80,16 @@ class ServeEngine:
 
     ``slots``: concurrent sequences (the decode batch width). ``max_len``:
     per-slot cache budget; every request must satisfy bucket(prefix) +
-    bucket(prompt) + max_new_tokens <= max_len. ``prefill_buckets``:
-    ascending prompt-pad lengths. Sampling (``temperature``/``top_k``/
-    ``top_p``/``generator``) follows generate()'s contract. ``device``
-    (default cuda) must be where the params live. ``return_logprobs``:
-    record each emitted token's log-probability (generate()'s convention)
-    in ``finished_logprobs``."""
+    bucket(prompt) + max_new_tokens (+ spec_k + 1 of verify slack when
+    speculating) <= max_len. ``prefill_buckets``: ascending prompt-pad
+    lengths. Sampling (``temperature``/``top_k``/``top_p``/``generator``)
+    follows generate()'s contract. ``draft_params``/``draft_cfg``/
+    ``spec_k``: speculative serving, one spec_round a step (1..spec_k+1
+    tokens a slot); greedy slots emit exactly the plain engine's streams
+    (MoE targets verify drop-free). ``device`` (default cuda) must be where
+    the params live. ``return_logprobs``: record each emitted token's
+    log-probability (generate()'s convention; speculative slots score under
+    the target's verify distribution) in ``finished_logprobs``."""
 
     def __init__(self, params, cfg: LlamaConfig, *, slots: int = 8,
                  max_len: int = 2048,
@@ -85,21 +97,30 @@ class ServeEngine:
                  temperature: float = 0.0, top_k: int = None,
                  top_p: float = None, generator: torch.Generator = None,
                  draft_params=None, draft_cfg: LlamaConfig = None,
-                 prefix_cache_size: int = 8, return_logprobs: bool = False,
-                 device=None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_params/draft_cfg) comes with the "
-                "speculation slice of the port")
+                 spec_k: int = 4, prefix_cache_size: int = 8,
+                 return_logprobs: bool = False, device=None):
         family_fns(cfg)     # the family dispatch point: other families raise
         _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
         validate_sampling_args(temperature, top_k, top_p, generator)
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg come together")
+        if draft_cfg is not None:
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary: "
+                                 f"{draft_cfg.vocab_size} != "
+                                 f"{cfg.vocab_size}")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            family_fns(draft_cfg)
+            _resolve_attn(draft_cfg.attn_impl, draft_cfg.sliding_window,
+                          draft_cfg.attn_sinks)
         dev = resolve_device(device)
-        if embed_table(params).device != dev:
-            raise ValueError(f"params on {embed_table(params).device}, "
-                             f"engine on {dev}")
+        for name, p in (("params", params), ("draft_params", draft_params)):
+            if p is not None and embed_table(p).device != dev:
+                raise ValueError(f"{name} on {embed_table(p).device}, "
+                                 f"engine on {dev}")
         self.params = params
         self.cfg = cfg
         self.device = dev
@@ -109,10 +130,14 @@ class ServeEngine:
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self._generator = generator
         self.return_logprobs = return_logprobs
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        self.spec_k = spec_k
+        # a speculative round may write spec_k+1 entries at a row's length
+        self._slack = (spec_k + 1) if draft_cfg is not None else 0
 
-        self.cache = init_kv_cache(cfg, slots, max_len, dev)
-        self.cache = self.cache._replace(
-            length=torch.zeros((slots,), dtype=torch.int32, device=dev))
+        self.cache = self._slot_cache(cfg)
+        self.draft_cache = (self._slot_cache(draft_cfg)
+                            if draft_cfg is not None else None)
         self._pads = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._last = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._slot: list[Optional[_Slot]] = [None] * slots
@@ -124,6 +149,11 @@ class ServeEngine:
         self._prefix_lru: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.prefix_misses = 0
         self.prefix_hits = 0
+
+    def _slot_cache(self, cfg) -> KVCache:
+        cache = init_kv_cache(cfg, self.slots, self.max_len, self.device)
+        return cache._replace(length=torch.zeros(
+            (self.slots,), dtype=torch.int32, device=self.device))
 
     # --- request lifecycle --------------------------------------------------
 
@@ -144,18 +174,20 @@ class ServeEngine:
             prefix = tuple(int(t) for t in prefix)
             if not prefix:
                 raise ValueError("empty prefix — omit it instead")
-            if isinstance(self.cfg, MoEConfig):
+            if isinstance(self.cfg, MoEConfig) or \
+                    isinstance(self.draft_cfg, MoEConfig):
                 raise ValueError(
                     "prefix caching serves the dense family only — the "
                     "right-padded suffix rows would compete for MoE "
                     "routing capacity")
             p = self._bucket(len(prefix))   # prefixes bucket like prompts
         b = self._bucket(len(prompt))
-        if p + b + max_new_tokens > self.max_len:
+        if p + b + max_new_tokens + self._slack > self.max_len:
             raise ValueError(
                 "request needs " + (f"prefix {p} + " if p else "")
-                + f"bucket {b} + {max_new_tokens} new tokens > max_len "
-                f"{self.max_len}")
+                + f"bucket {b} + {max_new_tokens} new tokens "
+                + (f"+ {self._slack} verify slack " if self._slack else "")
+                + f"> max_len {self.max_len}")
         rid = self._next_id
         self._next_id += 1
         self._queue.append(Request(rid, prompt, max_new_tokens, eos_id,
@@ -169,14 +201,16 @@ class ServeEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
-    def _prefill(self, tokens: list[int], pad: int, cache1: KVCache):
-        """B=1 cached forward at the row cache's length (left-padded
-        prompt, or a right-padded suffix after a prefix) → (logits [1, S,
-        V], cache1)."""
+    def _prefill(self, tokens: list[int], pad: int, cache1: KVCache,
+                 draft: bool = False):
+        """B=1 cached forward of the target (or, with ``draft``, the draft)
+        at the row cache's length (left-padded prompt, or a right-padded
+        suffix after a prefix) → (logits [1, S, V], cache1)."""
         toks = torch.tensor([tokens], dtype=torch.int32, device=self.device)
         pads1 = torch.tensor([pad], dtype=torch.int32, device=self.device)
-        step = family_fns(self.cfg, pad_lens=pads1)[1]
-        return step(self.params, toks, cache1)
+        cfg, params = ((self.draft_cfg, self.draft_params) if draft
+                       else (self.cfg, self.params))
+        return family_fns(cfg, pad_lens=pads1)[1](params, toks, cache1)
 
     def _pick(self, logits):
         return pick(logits, self.temperature, self.top_k, self.top_p,
@@ -192,28 +226,41 @@ class ServeEngine:
                 continue
             req = self._queue.popleft()
             if req.prefix is not None:
-                lg, cache1, pad, length = self._prefix_admit(req)
+                lg, cache1, dcache1, pad, length = self._prefix_admit(req)
             else:
                 b = self._bucket(len(req.prompt))
                 pad = b - len(req.prompt)
                 length = b
-                cache1 = init_kv_cache(self.cfg, 1, self.max_len, self.device)
-                logits, cache1 = self._prefill([0] * pad + req.prompt, pad,
-                                               cache1)
+                logits, cache1, dcache1 = self._fresh_rows(
+                    [0] * pad + req.prompt, pad)
                 lg = logits[:, -1]
             tok, lp = self._pick(lg)
             tok0 = int(tok[0])
             lp0 = float(lp[0]) if self.return_logprobs else 0.0
-            self._insert(cache1, s, length)
+            self._insert(self.cache, cache1, s, length)
+            if dcache1 is not None:
+                self._insert(self.draft_cache, dcache1, s, length)
             self._pads[s] = pad
             self._last[s] = tok0
             self._slot[s] = _Slot(req, [tok0], [lp0])
             emitted.setdefault(req.req_id, []).append(tok0)
             self._maybe_finish(s)
 
-    def _insert(self, small: KVCache, slot: int, length: int) -> None:
-        """Copy a one-row cache into ``slot`` of the engine cache, in place."""
-        big = self.cache
+    def _fresh_rows(self, tokens: list[int], pad: int):
+        """A left-padded prompt prefilled into fresh one-row caches →
+        (target logits [1, S, V], target row, draft row or None)."""
+        c = init_kv_cache(self.cfg, 1, self.max_len, self.device)
+        logits, c = self._prefill(tokens, pad, c)
+        d = None
+        if self.draft_cfg is not None:
+            d = init_kv_cache(self.draft_cfg, 1, self.max_len, self.device)
+            _, d = self._prefill(tokens, pad, d, draft=True)
+        return logits, c, d
+
+    @staticmethod
+    def _insert(big: KVCache, small: KVCache, slot: int, length: int) -> None:
+        """Copy a one-row cache into ``slot`` of the pool ``big``, in
+        place."""
         for b, sm in ((big.k, small.k), (big.v, small.v),
                       (big.k_scale, small.k_scale),
                       (big.v_scale, small.v_scale)):
@@ -222,9 +269,10 @@ class ServeEngine:
         big.length[slot] = length
 
     def _prefix_row(self, prefix: tuple[int, ...]):
-        """(row cache, pad count) prefilled over the LEFT-pad-bucketed
-        prefix, LRU-cached: the prefix is prefilled once per distinct
-        prefix and every later request reuses the row."""
+        """(target row cache, draft row cache or None, pad count) prefilled
+        over the LEFT-pad-bucketed prefix, LRU-cached: the prefix is
+        prefilled once per distinct prefix and every later request reuses
+        the rows."""
         hit = self._prefix_lru.get(prefix)
         if hit is not None:
             self.prefix_hits += 1
@@ -232,27 +280,27 @@ class ServeEngine:
             return hit
         self.prefix_misses += 1
         pad = self._bucket(len(prefix)) - len(prefix)
-        c = init_kv_cache(self.cfg, 1, self.max_len, self.device)
-        _, c = self._prefill([0] * pad + list(prefix), pad, c)
-        self._prefix_lru[prefix] = (c, pad)
+        _, c, d = self._fresh_rows([0] * pad + list(prefix), pad)
+        self._prefix_lru[prefix] = (c, d, pad)
         while len(self._prefix_lru) > self.prefix_cache_size:
             self._prefix_lru.popitem(last=False)
-        return c, pad
+        return c, d, pad
 
     def _prefix_admit(self, req: Request):
         """Admission via a cached prefix row: only the per-request suffix is
-        prefilled, RIGHT-padded to a bucket, on a clone of the row; the
-        padded tail's writes roll back via the length. The slot inherits
-        the prefix row's LEFT-pad count."""
+        prefilled, RIGHT-padded to a bucket, on clones of the rows (the
+        target's and the draft's); the padded tail's writes roll back via
+        the length. The slot inherits the prefix row's LEFT-pad count."""
         b = self._bucket(len(req.prompt))
         r = len(req.prompt)
-        pc, pad = self._prefix_row(req.prefix)
-        cache1 = KVCache(*(t.clone() if isinstance(t, torch.Tensor) else t
-                           for t in pc))
-        logits, cache1 = self._prefill(req.prompt + [0] * (b - r), pad,
-                                       cache1)
+        pc, pd, pad = self._prefix_row(req.prefix)
+        suffix = req.prompt + [0] * (b - r)
+        logits, cache1 = self._prefill(suffix, pad, _clone(pc))
+        dcache1 = None
+        if pd is not None:
+            _, dcache1 = self._prefill(suffix, pad, _clone(pd), draft=True)
         length = self._bucket(len(req.prefix)) + r
-        return logits[:, r - 1], cache1, pad, length
+        return logits[:, r - 1], cache1, dcache1, pad, length
 
     def _maybe_finish(self, s: int) -> None:
         slot = self._slot[s]
@@ -265,6 +313,8 @@ class ServeEngine:
                 self.finished_logprobs[req.req_id] = slot.lps
             self._slot[s] = None
             self.cache.length[s] = 0
+            if self.draft_cache is not None:
+                self.draft_cache.length[s] = 0
 
     # --- the serving loop ---------------------------------------------------
 
@@ -314,6 +364,8 @@ class ServeEngine:
             return out
         active = torch.tensor([s is not None for s in self._slot],
                               device=self.device)
+        if self.draft_cfg is not None:
+            return self._spec_advance(out, active_slots, active)
         nxt, lp = self._decode(active)
         self._last = nxt
         toks = nxt.tolist()                  # the one host sync per step
@@ -324,6 +376,46 @@ class ServeEngine:
             if lps is not None:
                 slot.lps.append(lps[s])
             out.setdefault(slot.req.req_id, []).append(toks[s])
+            self._maybe_finish(s)
+        return out
+
+    @torch.no_grad()
+    def _spec_advance(self, out, active_slots, active):
+        """One speculative round for every slot (inactive ones as finished
+        rows): 1..spec_k+1 tokens an active slot. Quota and eos truncation
+        happen on the host; a truncated slot always finishes, so the device
+        state that ran ahead of it goes with the slot."""
+        step_t = family_fns(self.cfg, pad_lens=self._pads,
+                            dropless_step=True)[1]
+        step_d = family_fns(self.draft_cfg, pad_lens=self._pads)[1]
+        (emit_vec, _, emit_n, self._last, self.cache, self.draft_cache,
+         verify_logits) = spec_round(
+            step_t, step_d, self.params, self.draft_params, self._last,
+            ~active, self.cache, self.draft_cache, self._generator,
+            spec_k=self.spec_k, max_len=self.max_len,
+            sampled=self.temperature > 0, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p)
+        # tokens, emit counts and logprobs in one transfer: f64 holds the
+        # int32 tokens and the f32 logprobs exactly
+        parts = [emit_vec.double(), emit_n[:, None].double()]
+        if self.return_logprobs:
+            parts.append(torch.log_softmax(verify_logits, dim=-1).gather(
+                2, emit_vec[..., None].long())[..., 0].double())
+        host = torch.cat(parts, dim=1).tolist()   # the one host sync a step
+        k1 = self.spec_k + 1
+        for s in active_slots:
+            slot = self._slot[s]
+            req = slot.req
+            row = host[s]
+            new = [int(t) for t in row[:int(row[k1])]]
+            new = new[:req.max_new_tokens - len(slot.emitted)]
+            if req.eos_id is not None and req.eos_id in new:
+                new = new[:new.index(req.eos_id) + 1]
+            slot.emitted.extend(new)
+            if self.return_logprobs:       # aligned with the kept tokens
+                slot.lps.extend(row[k1 + 1:k1 + 1 + len(new)])
+            if new:
+                out.setdefault(req.req_id, []).extend(new)
             self._maybe_finish(s)
         return out
 
@@ -338,6 +430,11 @@ class ServeEngine:
                 raise RuntimeError(f"engine did not drain in {max_steps} "
                                    f"steps ({self.pending} pending)")
         return self.finished
+
+
+def _clone(cache: KVCache) -> KVCache:
+    return KVCache(*(t.clone() if isinstance(t, torch.Tensor) else t
+                     for t in cache))
 
 
 __all__ = ["ServeEngine", "Request", "DEFAULT_BUCKETS"]

@@ -120,7 +120,8 @@ def rows(torch, tfa, td, dev):
         out.append({"name": name, "ms": cs.time_ms(call, flush),
                     "host_us": host_us(call), "max_abs_err": err})
     for r, (_, call, _, kernels) in zip(out, cases):
-        r["device_ms"] = cs.device_ms(call, flush, kernels)
+        r["device_ms"], r["device_ms_by"] = cs.device_ms(call, flush,
+                                                         kernels)
         print(json.dumps(r), flush=True)
     return out
 

@@ -31,6 +31,7 @@ from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
 from gpu_provisioner_tpu_torch.models import moe as tm
 from gpu_provisioner_tpu_torch.models import moe_serve as tms
+from gpu_provisioner_tpu_torch.models import speculative as tspec
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
@@ -331,6 +332,58 @@ def test_engine_streams_equal_generate_on_the_card(dev):
         want = td.generate(params, torch.tensor([p]), cfg, max_new_tokens=6,
                            max_len=512)
         assert out[rid] == want[0].tolist()
+
+
+def _spec_models(dev):
+    """A target and a draft at head dim 128 (the kernels'), f32, flash."""
+    cfg = tl.LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                         n_kv_heads=2, hidden_dim=1024, dtype="float32",
+                         attn_impl="flash")
+    dcfg = dataclasses.replace(cfg, dim=256, n_layers=1, n_heads=2,
+                               n_kv_heads=1, hidden_dim=512)
+    return (cfg, tl.init_params(cfg, torch.Generator(dev).manual_seed(0), dev),
+            dcfg, tl.init_params(dcfg, torch.Generator(dev).manual_seed(1),
+                                 dev))
+
+
+def test_speculative_flash_equals_dense_and_generate_on_the_card(dev):
+    """Greedy speculation on a ragged pad_id batch: the flash kernels and
+    the dense path give the same tokens, and both plain generate()'s."""
+    cfg, params, dcfg, draft = _spec_models(dev)
+    g = torch.Generator().manual_seed(2)
+    prompt = torch.randint(1, 512, (3, 128), generator=g)
+    prompt[1, :40] = 0
+    prompt[2, :100] = 0
+    kw = dict(max_new_tokens=12, spec_k=4, max_len=256, pad_id=0)
+    flash = tspec.speculative_generate(params, draft, prompt, cfg, dcfg,
+                                       **kw)[0]
+    dense = tspec.speculative_generate(
+        params, draft, prompt, dataclasses.replace(cfg, attn_impl="dense"),
+        dataclasses.replace(dcfg, attn_impl="dense"), **kw)[0]
+    want = td.generate(params, prompt, cfg, max_new_tokens=12, max_len=256,
+                       pad_id=0)
+    assert torch.equal(flash, dense)
+    assert torch.equal(flash, want)
+
+
+@pytest.mark.parametrize("spec_k", [4, 15])
+def test_speculative_verify_blocks_launch_flash_decode(dev, spec_k):
+    """Every round: spec_k + 1 draft steps and one verify block of spec_k +
+    1 queries, each a flash_decode launch a layer; the fresh prefill of
+    both models one flash_fwd a layer."""
+    cfg, params, dcfg, draft = _spec_models(dev)
+    prompt = torch.randint(1, 512, (2, 128),
+                           generator=torch.Generator().manual_seed(3))
+    tfa.reset_launches()
+    _, st = tspec.speculative_generate(params, draft, prompt, cfg, dcfg,
+                                       max_new_tokens=10, spec_k=spec_k,
+                                       max_len=256)
+    rounds = st["target_calls"] - 1
+    assert rounds >= 1
+    assert tfa.LAUNCHES["flash_fwd"] == cfg.n_layers + dcfg.n_layers
+    assert tfa.LAUNCHES["flash_decode"] == rounds * (
+        cfg.n_layers + dcfg.n_layers * (spec_k + 1))
+    assert tfa.LAUNCHES["flash_cached"] == 0
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "overflow"])

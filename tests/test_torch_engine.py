@@ -4,7 +4,8 @@ The engine's invariant (tests/test_engine.py): a request served through the
 engine emits exactly the stream plain generate() produces for it alone.
 Here each port stream must equal the port's own generate() AND the JAX
 engine's stream for the same request, token for token; logprobs agree with
-the JAX engine to 1e-4 absolute.
+the JAX engine to 1e-4 absolute, and a speculative engine's with the port's
+generate() to 1e-5.
 """
 
 import dataclasses
@@ -46,14 +47,18 @@ def _solo(prompt, new, cfg, **kw):
 
 
 def _both(jcfg, requests, mid_flight=(), steps_before=0,
-          params=(JPARAMS, TPARAMS), **eng_kw):
+          params=(JPARAMS, TPARAMS), draft=None, **eng_kw):
     """Serve ``requests`` [(prompt, new, submit kwargs)] on the JAX and the
     port engines alike, ``mid_flight`` ones after ``steps_before`` steps;
+    ``draft`` (jax params, port params, jax cfg) makes both speculative;
     returns (jax engine, port engine, jax ids, port ids)."""
     out = []
-    for mod, params, cfg, dev in ((je, params[0], jcfg, {}),
-                                  (te, params[1], _tcfg(jcfg),
-                                   {"device": "cpu"})):
+    for side, (mod, params, cfg, dev) in enumerate((
+            (je, params[0], jcfg, {}),
+            (te, params[1], _tcfg(jcfg), {"device": "cpu"}))):
+        if draft is not None:
+            dcfg = draft[2] if side == 0 else _tcfg(draft[2])
+            dev = dict(dev, draft_params=draft[side], draft_cfg=dcfg)
         eng = mod.ServeEngine(params, cfg, **eng_kw, **dev)
         ids = [eng.submit(p, n, **kw) for p, n, kw in requests]
         for _ in range(steps_before):
@@ -169,8 +174,16 @@ def test_engine_sampled_is_reproducible_and_in_vocab():
 
 def test_engine_validation():
     cfg = _tcfg(JCFG)
-    with pytest.raises(NotImplementedError, match="speculation slice"):
+    # the reference's speculative validation (tests/test_engine.py:391-396
+    # and engine.py:135-141)
+    with pytest.raises(ValueError, match="spec_k"):
         te.ServeEngine(TPARAMS, cfg, draft_params=TPARAMS, draft_cfg=cfg,
+                       spec_k=0, device="cpu")
+    with pytest.raises(ValueError, match="together"):
+        te.ServeEngine(TPARAMS, cfg, draft_params=TPARAMS, device="cpu")
+    with pytest.raises(ValueError, match="vocabulary"):
+        te.ServeEngine(TPARAMS, cfg, draft_params=TPARAMS,
+                       draft_cfg=dataclasses.replace(cfg, vocab_size=64),
                        device="cpu")
     with pytest.raises(ValueError, match="Generator"):
         te.ServeEngine(TPARAMS, cfg, temperature=1.0, device="cpu")
@@ -237,3 +250,140 @@ def test_engine_refuses_a_prefix_on_moe():
     with pytest.raises(ValueError, match="dense family"):
         eng.submit(_prompt(82, 8), 4, prefix=_prompt(83, 8))
     assert eng.stats()["requests_submitted"] == 0
+
+
+# the speculative engine: the draft of tests/test_engine.py's speculative
+# cases (the target's width at one layer)
+JDRAFT_CFG = dataclasses.replace(JCFG, n_layers=1)
+JDRAFT = jl.init_params(jax.random.key(3), JDRAFT_CFG)
+TDRAFT = params_from_numpy(jax.tree.map(np.asarray, JDRAFT), device="cpu")
+DRAFT = (JDRAFT, TDRAFT, JDRAFT_CFG)
+SELF_DRAFT = (JPARAMS, TPARAMS, JCFG)
+
+
+def test_engine_speculative_matches_plain_streams():
+    """tests/test_engine.py:172: speculative slots (draft a round, one
+    wide verify, per-slot acceptance) emit exactly the plain greedy streams
+    and the JAX speculative engine's, with slot reuse, staggered arrival,
+    the quota cutting the last window, and eos inside an accepted one."""
+    cfg = _tcfg(JCFG)
+    reqs = [(_prompt(40 + i, 8 + i), 5 + i, {}) for i in range(3)]
+    late = [(_prompt(44, 12), 7, {})]
+    jeng, teng, jids, tids = _both(JCFG, reqs, mid_flight=late,
+                                   steps_before=1, draft=DRAFT, spec_k=3,
+                                   slots=2, max_len=64, prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs + late, tids):
+        assert teng.finished[t] == _solo(p, n, cfg)
+
+    # self-draft: every proposal accepted, 1 admission token + 2 rounds
+    eng = te.ServeEngine(TPARAMS, cfg, slots=1, max_len=64,
+                         prefill_buckets=(16,), draft_params=TPARAMS,
+                         draft_cfg=cfg, spec_k=3, device="cpu")
+    r = eng.submit(_prompt(45, 8), 8)
+    steps = 0
+    while eng.pending:
+        eng.step()
+        steps += 1
+    assert eng.finished[r] == _solo(_prompt(45, 8), 8, cfg)
+    assert steps <= 3
+
+    # eos inside an accepted window truncates and frees the slot
+    eos = _solo(_prompt(46, 10), 12, cfg)[3]
+    jeng, teng, jids, tids = _both(JCFG, [(_prompt(46, 10), 12,
+                                           {"eos_id": eos})],
+                                   draft=SELF_DRAFT, spec_k=3, slots=1,
+                                   max_len=64, prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    got = teng.finished[tids[0]]
+    assert eos in got and got[-1] == eos
+    assert got == _solo(_prompt(46, 10), 12, cfg, eos_id=eos)[:len(got)]
+
+
+def test_engine_speculative_moe_target():
+    """tests/test_engine.py:216: a Mixtral-capacity MoE target verifies
+    drop-free, so speculative slots equal the plain engine's, and the JAX
+    speculative engine's."""
+    jcfg = dataclasses.replace(MOE_CFG, n_experts=8, capacity_factor=1.25)
+    params = _moe_params(9, jcfg)
+    p = _prompt(47, 9)
+    jeng, teng, jids, tids = _both(jcfg, [(p, 8, {})], params=params,
+                                   draft=DRAFT, spec_k=2, slots=2,
+                                   max_len=64, prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    plain = te.ServeEngine(params[1], _tcfg(jcfg), slots=2, max_len=64,
+                           prefill_buckets=(16,), device="cpu")
+    rp = plain.submit(p, 8)
+    assert teng.finished[tids[0]] == plain.run()[rp]
+
+
+def test_engine_prefix_with_speculation():
+    """tests/test_engine.py:288: both caches carry the prefix row (each
+    cloned before its suffix prefill), and the streams stay plain greedy's
+    and the JAX engine's."""
+    prefix = _prompt(70, 10)
+    reqs = [(_prompt(71 + i, 8), 6, {"prefix": prefix}) for i in range(3)]
+    jeng, teng, jids, tids = _both(JCFG, reqs, draft=DRAFT, spec_k=3,
+                                   slots=2, max_len=96,
+                                   prefill_buckets=(16,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    assert (teng.prefix_misses, teng.prefix_hits) == (1, 2)
+    for (p, n, _), t in zip(reqs, tids):
+        assert teng.finished[t] == _solo(prefix + p, n, _tcfg(JCFG))
+
+
+def test_engine_speculative_logprobs_match_generate():
+    """The draft half of tests/test_engine.py:326: speculative slots score
+    under the target's verify distribution, which equals generate()'s."""
+    p = _prompt(95, 9)
+    want_t, want_lp = td.generate(TPARAMS, torch.tensor([p]), _tcfg(JCFG),
+                                  max_new_tokens=6, max_len=256,
+                                  return_logprobs=True, device="cpu")
+    jeng, teng, jids, tids = _both(JCFG, [(p, 6, {})], draft=DRAFT,
+                                   spec_k=3, slots=2, max_len=64,
+                                   prefill_buckets=(16,),
+                                   return_logprobs=True)
+    _assert_same_streams(jeng, teng, jids, tids)
+    assert teng.finished[tids[0]] == want_t[0].tolist()
+    got = teng.finished_logprobs[tids[0]]
+    assert len(got) == 6
+    np.testing.assert_allclose(got, want_lp[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(got, jeng.finished_logprobs[jids[0]],
+                               atol=1e-4)
+
+
+def test_engine_speculative_refuses_a_prefix_with_an_moe_draft():
+    """Prefix caching needs a dense target AND a dense draft (reference
+    engine.py:319-325)."""
+    jcfg = dataclasses.replace(MOE_CFG, n_layers=1)
+    _, tparams = _moe_params(1, jcfg)
+    eng = te.ServeEngine(TPARAMS, _tcfg(JCFG), slots=1, max_len=64,
+                         prefill_buckets=(16,), draft_params=tparams,
+                         draft_cfg=_tcfg(jcfg), spec_k=2, device="cpu")
+    with pytest.raises(ValueError, match="dense family"):
+        eng.submit(_prompt(82, 8), 4, prefix=_prompt(83, 8))
+    with pytest.raises(ValueError, match="verify slack"):
+        eng.submit(_prompt(82, 8), 46)      # 16 + 46 + 3 > 64
+    assert eng.submit(_prompt(82, 8), 45) == 0
+
+
+def test_engine_speculative_sampled_is_reproducible_and_in_vocab():
+    cfg = _tcfg(JCFG)
+
+    def run(seed):
+        eng = te.ServeEngine(TPARAMS, cfg, slots=2, max_len=64,
+                             prefill_buckets=(16,), temperature=0.9,
+                             top_k=20, draft_params=TDRAFT,
+                             draft_cfg=_tcfg(JDRAFT_CFG), spec_k=3,
+                             generator=torch.Generator().manual_seed(seed),
+                             return_logprobs=True, device="cpu")
+        ids = [eng.submit(_prompt(90 + i, 8), 6) for i in range(3)]
+        out = eng.run()
+        return ([out[i] for i in ids],
+                [eng.finished_logprobs[i] for i in ids])
+
+    a, lps = run(0)
+    assert (a, lps) == run(0)
+    assert all(0 <= t < 128 for s in a for t in s)
+    assert all(len(s) == 6 for s in a)
+    assert all(len(lp) == 6 and all(x <= 0 for x in lp) for lp in lps)

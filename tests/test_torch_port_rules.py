@@ -20,6 +20,7 @@ from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
 from gpu_provisioner_tpu_torch.models import moe as tm
+from gpu_provisioner_tpu_torch.models import speculative as tspec
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 from gpu_provisioner_tpu_torch.ops import _cuda
@@ -99,6 +100,29 @@ def test_moe_entry_points_without_device_raise_when_cuda_is_absent():
                     max_new_tokens=2, device="meta")
     with pytest.raises(ValueError, match="params on cpu"):
         te.ServeEngine(params, cfg, device="meta")
+
+
+def test_speculation_entry_points_without_device_raise_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = tl.PRESETS["tiny"]
+    params = tl.init_params(cfg, torch.Generator(), device="cpu")
+    prompt = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tspec.speculative_generate(params, params, prompt, cfg, cfg,
+                                   max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.ServeEngine(params, cfg, draft_params=params, draft_cfg=cfg)
+    with pytest.raises(ValueError, match="params on cpu"):
+        tspec.speculative_generate(params, params, prompt, cfg, cfg,
+                                   max_new_tokens=2, device="meta")
+    elsewhere = dict(params, embed=params["embed"].to("meta"))
+    with pytest.raises(ValueError, match="draft_params on meta"):
+        tspec.speculative_generate(params, elsewhere, prompt, cfg, cfg,
+                                   max_new_tokens=2, device="cpu")
+    with pytest.raises(ValueError, match="draft_params on meta"):
+        te.ServeEngine(params, cfg, draft_params=elsewhere, draft_cfg=cfg,
+                       device="cpu")
 
 
 def _header_fields(struct: str) -> list:
