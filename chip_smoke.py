@@ -110,6 +110,26 @@ Phases, each of which exits non-zero on a failed check:
    them (target and draft heads), each against its plain version and timed
    (``at_spec_verify``, ``at_spec_prefill``); then the bench_speculative
    twin (self-draft llama-1b) with its launches;
+11. resumable training (models/checkpoint.py on torch.distributed.checkpoint,
+   default_optimizer(mu_dtype=), the MoE train step, the training bench
+   twins): at llama-1b width, 2 layers, f32, flash, two uninterrupted runs
+   of 4 steps (bitwise equal or not: the run-to-run spread), then 2 steps,
+   a TrainCheckpointManager save, every tensor dropped, restore_latest()
+   onto the card (every leaf, params, mu, nu and count, bitwise equal to
+   the saved one) and 2 more steps equal to the uninterrupted run's (or
+   within its spread), and a restore onto the CPU equal to the card's;
+   full llama-1b (bf16, f32 masters, bf16 mu, remat, B=8, S=2048): 4
+   uninterrupted steps, then 2 steps, save_train_state (the state's bytes,
+   the seconds, the disk's free space: the phase fails if the disk cannot
+   hold it), a restore and 2 steps with the same losses, the launches read
+   across the resumed steps (``resume``), the bf16-mu step's ms beside
+   phase 7's f32-mu step; mixtral-ish at 2 layers in f32, a flash MoE train
+   step equal to a dense one in loss and every gradient; mixtral-ish at
+   full width and 8 of 16 layers (bf16, f32 masters, remat, B=4, S=2048):
+   a warm-up and 5 timed steps, the loss falling, peak memory, the
+   launches (``moe_train``); then the bench_train_step twin (mfu against
+   the H100's 989e12 bf16 FLOP/s; ``bench_train_step``) and the
+   bench_workload twin, at full size;
 then the phase-2, phase-9 and phase-10 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
@@ -117,10 +137,13 @@ the kernels line and, last, the device line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -853,7 +876,7 @@ def phase_train(torch, tl, tt, tfa, dev):
         check(launches[name] == n,
               f"{name}: {launches[name]} launches on the training path, "
               f"expected {n}")
-    return launches
+    return launches, ms
 
 
 # (B, S, Hq, Hkv, lse cotangent) of the tri kernels against plain, D = 128:
@@ -2070,6 +2093,342 @@ def phase_spec_twin(torch, bench, tfa):
     return res, launches
 
 
+# phase 11: resumable training. (B, S) of the exact resume at llama-1b
+# width; the MoE training run's (B, S) and depth (mixtral-ish's 16 layers
+# hold ~4.7B params, ×16 B of f32 params, grads and moments ≈ 75 GB, which
+# leaves no room for the activations on 80 GB)
+RESUME_EXACT_SHAPE = (2, 512)
+MOE_TRAIN_SHAPE, MOE_TRAIN_LAYERS = (4, 2048), 8
+
+
+def _named(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def ckpt_leaves(ck, params, opt):
+    """The checkpoint tree's tensors (params, mu, nu, count) as CPU
+    copies, by name."""
+    tree = {"params": params, "opt_state": ck.adam_state_tree(params, opt)}
+    return {k: v.detach().cpu().clone() for k, v in _named(tree).items()}
+
+
+def state_bytes(ck, params, opt):
+    tree = {"params": params, "opt_state": ck.adam_state_tree(params, opt)}
+    return sum(t.numel() * t.element_size() for t in _named(tree).values())
+
+
+def same_leaves(a, b):
+    """Names of the leaves of a and b that are not equal in dtype, shape and
+    every value."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not a[k].equal(b[k]))
+
+
+def held_losses(what, got, want, spread):
+    """Losses held bitwise, or within ``spread`` where two uninterrupted
+    runs of the same step differed by that much."""
+    err = max(abs(a - b) for a, b in zip(got, want))
+    print(f"{what}: losses {got} against the uninterrupted {want}: max "
+          f"|diff| {err!r} (run-to-run spread {spread!r})")
+    check(err <= spread, f"{what}: losses {got} != uninterrupted {want}")
+
+
+def phase_resume_exact(torch, tl, tt, ck, dev, tmp):
+    """Llama-1B width, 2 layers, f32, flash: 4 uninterrupted steps twice,
+    then 2 steps, a TrainCheckpointManager save, every tensor dropped,
+    restore_latest() onto the card and 2 more steps; the restored leaves
+    bitwise equal to the saved ones, the resumed run to the uninterrupted
+    one (or within its run-to-run spread), a restore onto the CPU equal."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
+                              dtype="float32", attn_impl="flash")
+    B, S = RESUME_EXACT_SHAPE
+    g = torch.Generator().manual_seed(SEED + 11)
+    batches = [torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+               .to(dev) for _ in range(4)]
+
+    def fresh():
+        return tt.make_train_state(
+            cfg, torch.Generator(dev).manual_seed(SEED), dev)
+
+    def run(params, opt, idx):
+        step = tt.make_train_step(cfg, opt)
+        return [step(params, batches[i][:, :-1], batches[i][:, 1:]).item()
+                for i in idx]
+
+    runs = []
+    for _ in range(2):
+        params, opt = fresh()
+        losses = run(params, opt, range(4))
+        runs.append((losses, {k: v.detach().clone()
+                              for k, v in _named(params).items()}))
+        del params, opt
+    (want, want_p), (again, again_p) = runs
+    spread = max(abs(a - b) for a, b in zip(want, again))
+    p_spread = max((want_p[k] - again_p[k]).abs().max().item()
+                   for k in want_p)
+    same = not same_leaves(want_p, again_p) and want == again
+    print(f"resume exact (llama-1b width, 2 layers, f32, flash): two "
+          f"uninterrupted runs of 4 steps "
+          f"{'bitwise equal' if same else 'differ'}: losses {want} / "
+          f"{again}, params max |diff| {p_spread!r}")
+    del again_p
+
+    mgr = ck.TrainCheckpointManager(tmp / "exact", cfg, tt.default_optimizer,
+                                    device=dev, max_to_keep=2,
+                                    save_interval_steps=2)
+    params, opt = fresh()
+    first = run(params, opt, range(2))
+    t0 = time.perf_counter()
+    check(mgr.maybe_save(2, params, opt), "the manager did not save step 2")
+    save_s = time.perf_counter() - t0
+    saved = ckpt_leaves(ck, params, opt)
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, opt, step = mgr.restore_latest()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == 2 and mgr.latest_step() == 2,
+          f"restore_latest: step {step}, latest {mgr.latest_step()}")
+    bad = same_leaves(saved, ckpt_leaves(ck, params, opt))
+    check(not bad, f"restored leaves differ from the saved ones: {bad}")
+    resumed = run(params, opt, range(2, 4))
+    got_p = {k: v.detach() for k, v in _named(params).items()}
+    p_err = max((got_p[k] - want_p[k]).abs().max().item() for k in want_p)
+    print(f"resume exact: saved {len(saved)} leaves in {save_s:.2f} s, "
+          f"restored on the card in {restore_s:.2f} s, every leaf bitwise "
+          f"equal; resumed params max |diff| {p_err!r} (spread "
+          f"{p_spread!r})")
+    held_losses("resume exact", first + resumed, want, spread)
+    check(p_err <= p_spread, f"resumed params differ by {p_err!r}, beyond "
+          f"the run-to-run spread {p_spread!r}")
+    del params, opt, got_p, want_p
+    c_params, c_opt, c_step = ck.restore_train_state(
+        tmp / "exact" / "2", cfg, tt.default_optimizer, device="cpu")
+    bad = same_leaves(saved, ckpt_leaves(ck, c_params, c_opt))
+    check(c_step == 2 and not bad and c_params["embed"].device.type == "cpu",
+          f"the restore onto the CPU differs from the card's copy: {bad}")
+    print("resume exact: the restore onto the CPU equals the card's copy")
+    mgr.close()
+
+
+def phase_resume(torch, tl, tt, ck, tfa, dev, tmp, f32_ms):
+    """Full Llama-1B, bf16 activations, f32 masters, remat, B=8, S=2048,
+    default_optimizer(mu_dtype=bf16): 4 uninterrupted steps, then a fresh
+    state's 2 steps, save_train_state, a restore into a fresh state and 2
+    steps, the launches read across the resumed steps."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash",
+                              remat=True)
+    (B, S, _, _), L = TRAIN_SHAPE, cfg.n_layers
+    opt_fn = functools.partial(tt.default_optimizer,
+                               mu_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED + 12)
+    batches = [torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+               .to(dev) for _ in range(4)]
+
+    def run(params, opt, idx, times):
+        step = tt.make_train_step(cfg, opt)
+        out = []
+        for i in idx:
+            t0 = time.perf_counter()
+            loss = step(params, batches[i][:, :-1], batches[i][:, 1:])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(loss.item())
+        return out
+
+    def fresh():
+        return tt.make_train_state(
+            cfg, torch.Generator(dev).manual_seed(SEED), dev, optimizer=opt_fn)
+
+    times = []
+    params, opt = fresh()
+    want = run(params, opt, range(4), times)
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt = fresh()
+    first = run(params, opt, range(2), [])
+    need = state_bytes(ck, params, opt)
+    free = shutil.disk_usage(tmp).free
+    print(f"resume llama-1b: the state is {need / 1e9:.3f} GB, the disk "
+          f"under {tmp} has {free / 1e9:.3f} GB free")
+    check(need < free, f"the disk has {free / 1e9:.3f} GB free, a "
+          f"checkpoint of full llama-1b needs {need / 1e9:.3f} GB")
+    path = tmp / "llama-1b"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_train_state(path, params, opt, 2)
+    save_s = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    del params, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, opt, step = ck.restore_train_state(path, cfg, opt_fn, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == 2 and type(opt).__name__ == "AdamWMu",
+          f"restored step {step}, optimizer {type(opt).__name__}")
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    resumed = run(params, opt, range(2, 4), [])
+    launches = dict(tfa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times)
+    report = {"state_gb": need / 1e9, "written_gb": written / 1e9,
+              "save_s": save_s, "save_gb_per_s": written / 1e9 / save_s,
+              "restore_s": restore_s,
+              "restore_gb_per_s": written / 1e9 / restore_s,
+              "disk_free_gb": free / 1e9, "step_ms": times,
+              "step_ms_median": ms, "f32_mu_step_ms": f32_ms,
+              "tokens_per_s": B * S / ms * 1e3, "peak_gib": peak}
+    print(f"resume llama-1b bf16 (f32 masters, bf16 mu, remat, flash) B={B} "
+          f"S={S}: {json.dumps(report)}; launches over the 2 resumed steps "
+          f"{launches}")
+    held_losses("resume llama-1b", first + resumed, want, 0.0)
+    for name, n in {"flash_fwd": 2 * L * 2, "flash_bwd_dq": L * 2,
+                    "flash_bwd_dkv": L * 2}.items():
+        check(launches[name] == n,
+              f"{name}: {launches[name]} launches over the resumed steps, "
+              f"expected {n}")
+    shutil.rmtree(path)
+    return launches, report
+
+
+def phase_moe_train_exact(torch, tm, dev):
+    """mixtral-ish width, 2 layers, f32: a flash MoE train step == a dense
+    one in loss and every gradient (the MoE twin of phase 6)."""
+    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"], n_layers=2,
+                              dtype="float32")
+    g = torch.Generator().manual_seed(SEED + 13)
+    toks = torch.randint(0, cfg.vocab_size, (2, 513), generator=g).to(dev)
+    losses, grads = {}, {}
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        params, opt = tm.make_moe_train_state(
+            c, torch.Generator(dev).manual_seed(SEED), dev)
+        losses[impl] = tm.make_moe_train_step(c, opt)(
+            params, toks[:, :-1], toks[:, 1:]).item()
+        grads[impl] = {k: v.grad for k, v in _named(params).items()}
+        del params, opt
+    a, b = losses["flash"], losses["dense"]
+    worst = max((grads["flash"][k] - grads["dense"][k]).abs().max().item()
+                / grads["dense"][k].abs().max().item() for k in grads["dense"])
+    print(f"MoE training exact (mixtral-ish width, 2 layers, f32): loss "
+          f"flash {a!r} dense {b!r} rel {abs(a - b) / abs(b):.3g}; worst "
+          f"gradient leaf max|flash - dense| / max|dense| = {worst:.3g} "
+          f"(tol 1e-4)")
+    check(abs(a - b) <= 1e-5 * abs(b), "MoE training loss: flash != dense")
+    check(worst <= 1e-4, "MoE flash gradients != dense gradients")
+
+
+def phase_moe_train(torch, tm, tfa, dev):
+    """mixtral-ish at full width, MOE_TRAIN_LAYERS of 16 layers, bf16, f32
+    masters, remat: one warm-up step, then 5 timed steps."""
+    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"],
+                              n_layers=MOE_TRAIN_LAYERS, attn_impl="flash",
+                              remat=True)
+    (B, S), steps, L = MOE_TRAIN_SHAPE, 5, cfg.n_layers
+    params, opt = tm.make_moe_train_state(
+        cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    n = sum(p.numel() for p in _named(params).values())
+    step = tm.make_moe_train_step(cfg, opt)
+    g = torch.Generator().manual_seed(SEED + 14)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).to(dev)
+    inp, tgt = toks[:, :-1], toks[:, 1:]
+    warm = step(params, inp, tgt).item()
+    torch.cuda.reset_peak_memory_stats()
+    tfa.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(params, inp, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = dict(tfa.LAUNCHES)
+    ms = statistics.median(times)
+    report = {"layers": L, "of_layers": tm.PRESETS_MOE["mixtral-ish"].n_layers,
+              "params": n, "batch": B, "seq_len": S, "warm_loss": warm,
+              "losses": losses, "step_ms": times, "step_ms_median": ms,
+              "tokens_per_s": B * S / ms * 1e3,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"MoE train mixtral-ish bf16 (f32 masters, remat, flash; depth cut "
+          f"to {L} of 16 layers: 16 do not fit beside the activations on 80 "
+          f"GB): {json.dumps(report)}; launches over {steps} steps "
+          f"{launches}")
+    check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
+          "an MoE training loss is not finite")
+    check(losses[-1] < losses[0] < warm, f"MoE loss did not fall: {losses}")
+    for name, want in {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                       "flash_bwd_dkv": L * steps}.items():
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches on the MoE training path, "
+              f"expected {want}")
+    del params, opt, step
+    return launches, report
+
+
+def phase_train_twins(torch, bench, tfa):
+    """bench_train_step and bench_workload at full size, each with its
+    launches read: TRAIN_WARM + ROUNDS × TRAIN_ITERS steps of 16 layers;
+    the workload's dense forward launches none."""
+    tfa.reset_launches()
+    res = bench.bench_train_step(False)
+    launches = dict(tfa.LAUNCHES)
+    n, L = (bench.TRAIN_WARM + bench.ROUNDS * bench.TRAIN_ITERS,
+            bench.train_step_config(False).n_layers)
+    print(f"bench_train_step (llama-1b, bf16 mu): {json.dumps(res)}; "
+          f"launches {launches}")
+    check(0 < res["mfu"] < 1 and res["tokens_per_s"] > 0,
+          f"bench_train_step: {res}")
+    for name, want in {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+                       "flash_bwd_dkv": L * n}.items():
+        check(launches[name] == want,
+              f"bench_train_step {name}: {launches[name]} launches, "
+              f"expected {want}")
+    tfa.reset_launches()
+    work = bench.bench_workload(False)
+    print(f"bench_workload (llama-1b forward, dense attention): "
+          f"{json.dumps(work)}; launches {dict(tfa.LAUNCHES)}")
+    check(work["tokens_per_s"] > 0 and not any(tfa.LAUNCHES.values()),
+          f"bench_workload: {work}, launches {dict(tfa.LAUNCHES)}")
+    return res, work, launches
+
+
+def phase_resumable(torch, tl, tm, tt, ck, bench, tfa, dev, f32_ms):
+    """Phase 11: the exact resume, the full resume, MoE training and the
+    two training bench twins."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        phase_resume_exact(torch, tl, tt, ck, dev, tmp)
+        torch.cuda.empty_cache()
+        resume, resume_report = phase_resume(torch, tl, tt, ck, tfa, dev,
+                                             tmp, f32_ms)
+        print(f"resume phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_moe_train_exact(torch, tm, dev)
+    torch.cuda.empty_cache()
+    moe_train, moe_report = phase_moe_train(torch, tm, tfa, dev)
+    print(f"MoE training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    twin, work, twin_launches = phase_train_twins(torch, bench, tfa)
+    print(f"training twins phase {time.perf_counter() - t0:.1f} s")
+    return {"resume": resume, "moe_train": moe_train,
+            "bench_train_step": twin_launches}, {
+        "resume": resume_report, "moe_train": moe_report,
+        "bench_train_step": twin, "bench_workload": work}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2081,6 +2440,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from gpu_provisioner_tpu_torch import bench
+    from gpu_provisioner_tpu_torch.models import checkpoint as ck
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
     from gpu_provisioner_tpu_torch.models import llama as tl
@@ -2129,7 +2489,7 @@ def main() -> int:
     print(f"exact training phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    train = phase_train(torch, tl, tt, tfa, dev)
+    train, f32_ms = phase_train(torch, tl, tt, tfa, dev)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2160,6 +2520,11 @@ def main() -> int:
     print(f"speculation phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    resumable, resumable_report = phase_resumable(
+        torch, tl, tm, tt, ck, bench, tfa, dev, f32_ms)
+    print(f"resumable-training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
@@ -2176,7 +2541,8 @@ def main() -> int:
         r["launches_by_path"] = {"serve": serve[name], "train": train[name],
                                  "long": long[name], "moe": moe[name],
                                  "spec": spec[name],
-                                 **{k: v[name] for k, v in by_twin.items()}}
+                                 **{k: v[name] for k, v in by_twin.items()},
+                                 **{k: v[name] for k, v in resumable.items()}}
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -2195,6 +2561,7 @@ def main() -> int:
             r["max_abs_err"] = max(r["max_abs_err"], prefill_errs[name])
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
+    print(f"resumable training: {json.dumps(resumable_report)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,13 @@
-"""Long-context and speculative-decoding benchmark sections on one GPU.
+"""Workload, training, long-context and speculative-decoding benchmark
+sections on one GPU.
 
-Twins of three sections of the JAX package's ``bench.py``:
+Twins of five sections of the JAX package's ``bench.py``:
+``bench_workload`` (the flagship model's forward throughput with dense
+attention: Llama-1B, B=8, S=1024, bf16; best of 3 rounds of 10 calls after
+3 warm ones), ``bench_train_step`` (a full train step of Llama-1B with
+flash attention and remat at B=8, S=2048, bf16 activations, f32 masters,
+``default_optimizer(mu_dtype=torch.bfloat16)``: best of 3 rounds of 5 steps
+after 2 warm ones, with its tokens/s and MFU),
 ``bench_flash_op`` (one flash-attention op against the dense path, forward
 and forward+backward, then the streaming shape at S=32768 with and without
 ``triangular=True``), ``bench_long_context`` (a 4-layer, dim-1024 model
@@ -13,6 +20,11 @@ shapes) with the host clock. Deliberate differences:
 
 - flash attention is the port's CUDA kernels on the card; the JAX section
   runs dense attention off the TPU and skips the sliding-window half there;
+- ``mfu`` is model FLOPs (``_train_flops``) over the step time and the H100
+  SXM's data-sheet bf16 peak (989e12 FLOP/s, ``PEAK_BF16``), and None off
+  the card; the JAX section divides by its TPU generation's peak;
+- ``bench_train_step``'s fast model has 4 query and 2 kv heads of 128 (the
+  kernels take head dim 128 only) where the JAX one has 8/4 of 64;
 - no ``try``: a failing kernel raises, where the JAX section records
   ``fwdbwd_error`` / ``streaming_tri_error`` and goes on;
 - the long-context dict also carries the timed steps' losses (``losses``,
@@ -35,15 +47,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 
 import torch
 
 from .device import resolve_device
-from .models.llama import LlamaConfig, init_params
+from .models.llama import PRESETS, LlamaConfig, forward, init_params
 from .models.speculative import speculative_generate
-from .models.train import make_train_state, make_train_step
+from .models.train import (default_optimizer, make_train_state,
+                           make_train_step, param_leaves)
 from .ops.flash_attention import flash_attention
 from .parallel.ring import dense_attention
 
@@ -57,6 +71,14 @@ WARM_STEPS, TIMED_STEPS = 2, 3     # bench_long_context, per model
 # (S0, new tokens, spec_k, batched B) of bench_speculative, as bench.py's
 SPEC_SHAPE = {True: (64, 16, 3, 2), False: (256, 96, 4, 8)}
 SPEC_ROUNDS = 3     # best of SPEC_ROUNDS runs a batch size, after one warm
+
+
+# (B, S) of bench_workload and bench_train_step, as bench.py's
+WORKLOAD_SHAPE = {True: (4, 512), False: (8, 1024)}
+TRAIN_STEP_SHAPE = {True: (4, 512), False: (8, 2048)}
+WORKLOAD_WARM, WORKLOAD_CALLS = 3, 10   # then best of ROUNDS rounds
+TRAIN_WARM, TRAIN_ITERS = 2, 5          # then best of ROUNDS rounds
+PEAK_BF16 = 989e12      # H100 SXM data sheet, dense bf16 FLOP/s
 
 
 def _elapsed_ms(dev: torch.device, fn) -> float:
@@ -130,6 +152,93 @@ def bench_flash_op(fast: bool, device=None, *, shape=None,
         out["streaming_tri_ms"] = best_ms(
             lambda: flash_attention(q2, k2, v2, triangular=True), 1)
     return out
+
+
+def workload_config(fast: bool) -> LlamaConfig:
+    """bench.py's flagship model: fast, vocab 2048, dim 512, 4 layers, GQA
+    8/4, hidden 1408; else Llama-1B; bf16, dense attention."""
+    if fast:
+        return LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=8,
+                           n_kv_heads=4, hidden_dim=1408)
+    return PRESETS["llama-1b"]
+
+
+def bench_workload(fast: bool, device=None, *, cfg=None, shape=None) -> dict:
+    """Forward-step throughput of the flagship model (dense attention, bf16
+    weights, zero tokens): the best of ROUNDS rounds of WORKLOAD_CALLS
+    forwards after WORKLOAD_WARM, at ``shape`` (B, S) (default
+    WORKLOAD_SHAPE)."""
+    dev = resolve_device(device)
+    cfg = cfg or workload_config(fast)
+    B, S = shape or WORKLOAD_SHAPE[fast]
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
+
+    def calls(n):
+        with torch.no_grad():
+            for _ in range(n):
+                forward(params, tokens, cfg)
+
+    calls(WORKLOAD_WARM)
+    ms = min(_elapsed_ms(dev, lambda: calls(WORKLOAD_CALLS))
+             for _ in range(ROUNDS)) / WORKLOAD_CALLS
+    return {"platform": dev.type, "tokens_per_s": B * S / ms * 1e3,
+            "step_ms": ms}
+
+
+def train_step_config(fast: bool) -> LlamaConfig:
+    """bench.py's bench_train_step model, flash attention and remat: fast,
+    vocab 2048, dim 512, 4 layers, 4/2 heads of 128, hidden 1408; else
+    Llama-1B; bf16 activations."""
+    cfg = (LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=4,
+                       n_kv_heads=2, hidden_dim=1408) if fast
+           else PRESETS["llama-1b"])
+    return dataclasses.replace(cfg, attn_impl="flash", remat=True)
+
+
+def _train_flops(params: dict, cfg: LlamaConfig, batch: int,
+                 seq: int) -> float:
+    """Model FLOPs per train step (fwd+bwd ≈ 3× fwd): 6·P per token for the
+    matmuls + causal attention scores/values (2·B·S²·H·Dh fwd, ×3)."""
+    n_params = sum(p.numel() for p in param_leaves(params))
+    matmul = 6.0 * n_params * batch * seq
+    # QKᵀ and PV: 4·B·S²·H·Dh forward, ×3 with the backward; causal halves
+    attn = (12.0 * batch * seq * seq * cfg.n_heads * cfg.head_dim
+            * cfg.n_layers * 0.5)
+    return matmul + attn
+
+
+def bench_train_step(fast: bool, device=None, *, cfg=None,
+                     shape=None) -> dict:
+    """A full train step (forward, backward, the bf16-mu AdamW update) with
+    flash attention and remat, and its MFU: the best of ROUNDS rounds of
+    TRAIN_ITERS steps after TRAIN_WARM, at ``shape`` (B, S) (default
+    TRAIN_STEP_SHAPE), one batch drawn from seed 1."""
+    dev = resolve_device(device)
+    cfg = cfg or train_step_config(fast)
+    B, S = shape or TRAIN_STEP_SHAPE[fast]
+    params, opt = make_train_state(
+        cfg, torch.Generator(dev).manual_seed(0), dev,
+        optimizer=functools.partial(default_optimizer,
+                                    mu_dtype=torch.bfloat16))
+    step = make_train_step(cfg, opt)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).to(dev)
+    inp, tgt = toks[:, :-1], toks[:, 1:]
+
+    def steps(n):
+        for _ in range(n):
+            loss = step(params, inp, tgt)
+        return loss.item()
+
+    steps(TRAIN_WARM)
+    ms = min(_elapsed_ms(dev, lambda: steps(TRAIN_ITERS))
+             for _ in range(ROUNDS)) / TRAIN_ITERS
+    flops = _train_flops(params, cfg, B, S)
+    return {"platform": dev.type, "batch": B, "seq_len": S, "step_ms": ms,
+            "tokens_per_s": B * S / ms * 1e3, "flops": flops,
+            "mfu": flops / (ms * 1e-3) / PEAK_BF16 if dev.type == "cuda"
+            else None}
 
 
 def long_context_config(S: int) -> LlamaConfig:
@@ -229,6 +338,8 @@ def main() -> None:
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "workload": bench_workload(args.fast),
+                      "train_step": bench_train_step(args.fast),
                       "long_context": bench_long_context(args.fast),
                       "flash_op": bench_flash_op(args.fast),
                       "speculative": bench_speculative(args.fast)}))

@@ -1,10 +1,11 @@
 """Llama and MoE serving and single-device training: models, KV-cache
-decode, speculative decoding, the continuous-batching engine and the train
-step.
+decode, speculative decoding, the continuous-batching engine, the dense
+and MoE train steps and train-state checkpointing.
 
 Twins of ``gpu_provisioner_tpu/models/`` ``llama``, ``decode``,
-``speculative``, ``engine``, ``train``, ``moe`` and ``moe_serve``; the
-sharded and MoE train steps and checkpointing are not ported yet.
+``speculative``, ``engine``, ``train``, ``moe``, ``moe_serve`` and
+``checkpoint``, on one device; the sharded, pipelined and expert-parallel
+train steps are not ported yet.
 """
 
 from .speculative import speculative_generate

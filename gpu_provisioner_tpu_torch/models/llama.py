@@ -110,7 +110,11 @@ def resolve_attn(impl: str, window: Optional[int] = None,
 def normal_init(generator: torch.Generator, device, shape, fan_in: int,
                 dtype: torch.dtype) -> torch.Tensor:
     """normal(0, fan_in^-1/2) drawn in f32 from ``generator`` on ``device``,
-    stored in ``dtype``; raises when the generator lives elsewhere."""
+    stored in ``dtype``; raises when the generator lives elsewhere. With no
+    generator on the ``meta`` device (a shape-only init: the checkpoint's
+    restore target) nothing is drawn."""
+    if generator is None and device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}")
@@ -119,10 +123,11 @@ def normal_init(generator: torch.Generator, device, shape, fan_in: int,
     return w.mul_(fan_in ** -0.5).to(dtype)
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator,
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator],
                 device=None, dtype: Optional[torch.dtype] = None) -> dict:
     """Stacked-layer parameters with the JAX layout, normal(0, fan_in^-1/2)
-    drawn in f32 from ``generator`` on ``device`` (default cuda). Matrices,
+    drawn in f32 from ``generator`` on ``device`` (default cuda; no
+    generator on ``meta``: shapes and dtypes only). Matrices,
     embedding and norms are stored in ``dtype`` (default cfg's activation
     dtype, the serving storage; the train state passes f32 masters),
     lm_head in f32. jax.random cannot be reproduced here: tests carry JAX

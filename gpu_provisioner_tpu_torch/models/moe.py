@@ -22,8 +22,11 @@ dtype before their products). Deliberate differences:
   asked: the serving path discards them, and eager torch would launch them
   anyway;
 - an eager loop over the layers, ``cfg.remat`` as ``torch.utils.checkpoint``
-  per block; no ``moe_param_specs``/``make_moe_train_step``: the
-  expert-parallel mesh comes with the multi-GPU slice.
+  per block;
+- ``make_moe_train_state`` and ``make_moe_train_step`` are the
+  single-device twins (f32 masters, ``models/train.py``'s in-place step
+  over ``moe_loss_fn``); ``moe_param_specs``/``moe_model_specs`` and the
+  expert-parallel mesh come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from .llama import (LlamaConfig, _block_attention_half, _logits, _rmsnorm,
                     init_params, layer_params, normal_init, resolve_attn)
+from .train import make_train_step, train_state_from
 
 
 @dataclass(frozen=True)
@@ -208,6 +212,24 @@ def moe_loss_fn(params, inputs, targets, cfg: MoEConfig, attn_fn=None,
             + cfg.router_z_loss * aux["router_z"])
 
 
+def make_moe_train_state(cfg: MoEConfig, generator: torch.Generator,
+                         device=None, optimizer: Optional[Callable] = None):
+    """(params, optimizer): f32 masters (``cfg.param_dtype``; the router is
+    f32 either way) drawn from ``generator`` on ``device`` (default cuda),
+    and ``optimizer`` (a callable on the leaves, default
+    default_optimizer) over them."""
+    params = init_moe_model(cfg, generator, device,
+                            dtype=getattr(torch, cfg.param_dtype))
+    return train_state_from(params, optimizer)
+
+
+def make_moe_train_step(cfg: MoEConfig, optimizer: torch.optim.Optimizer):
+    """step(params, inputs, targets) → loss: one forward and backward of
+    moe_loss_fn with cfg's attention (``attn_impl="flash"``: the CUDA
+    forward and backward kernels), then one optimizer step, in place."""
+    return make_train_step(cfg, optimizer, loss=moe_loss_fn)
+
+
 __all__ = ["MoEConfig", "PRESETS_MOE", "capacity", "route", "moe_ffn",
            "moe_block", "init_moe_params", "init_moe_model", "moe_forward",
-           "moe_loss_fn"]
+           "moe_loss_fn", "make_moe_train_state", "make_moe_train_step"]

@@ -22,10 +22,12 @@ a direct launch refuses.
 
 import ctypes
 import dataclasses
+import functools
 
 import pytest
 import torch
 
+from gpu_provisioner_tpu_torch.models import checkpoint as tck
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
@@ -575,6 +577,95 @@ def test_flash_training_equals_dense_training_on_the_card(dev):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     for a, b in zip(*grads):
         assert _err(a, b) <= 1e-4 * b.abs().max().item()
+
+
+# a card-sized model for the training-state tests: head dim 128 (the
+# kernels'), 2 layers, f32
+CKPT_CFG = tl.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                          n_kv_heads=1, hidden_dim=512, dtype="float32",
+                          attn_impl="flash")
+BF16_MU = functools.partial(ttrain.default_optimizer, mu_dtype=torch.bfloat16)
+
+
+def _ckpt_batch(dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, 512, (2, 257), generator=g).to(dev)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _ckpt_leaves(params, opt):
+    out, tree = {}, {"params": params,
+                     "opt_state": tck.adam_state_tree(params, opt)}
+    stack = [("", tree)]
+    while stack:
+        prefix, t = stack.pop()
+        for k, v in t.items():
+            if isinstance(v, dict):
+                stack.append((f"{prefix}{k}/", v))
+            else:
+                out[f"{prefix}{k}"] = v.detach().cpu().clone()
+    return out
+
+
+def _same(a, b):
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A bf16-mu state trained a step on the card, saved and restored onto
+    the card: every leaf equal, the next step's loss bitwise equal."""
+    params, opt = ttrain.make_train_state(
+        CKPT_CFG, torch.Generator(dev).manual_seed(0), dev, optimizer=BF16_MU)
+    step = ttrain.make_train_step(CKPT_CFG, opt)
+    step(params, *_ckpt_batch(dev, 1))
+    tck.save_train_state(tmp_path / "ckpt", params, opt, 1)
+    r_params, r_opt, n = tck.restore_train_state(tmp_path / "ckpt", CKPT_CFG,
+                                                 BF16_MU, device=dev)
+    assert n == 1 and r_params["embed"].is_cuda
+    assert _same(_ckpt_leaves(r_params, r_opt), _ckpt_leaves(params, opt))
+    r_loss = ttrain.make_train_step(CKPT_CFG, r_opt)(
+        r_params, *_ckpt_batch(dev, 2)).item()
+    assert r_loss == step(params, *_ckpt_batch(dev, 2)).item()
+
+
+def test_checkpoint_restores_from_the_card_onto_the_cpu(dev, tmp_path):
+    params, opt = ttrain.make_train_state(
+        CKPT_CFG, torch.Generator(dev).manual_seed(0), dev)
+    ttrain.make_train_step(CKPT_CFG, opt)(params, *_ckpt_batch(dev, 3))
+    tck.save_train_state(tmp_path / "ckpt", params, opt, 1)
+    c_params, c_opt, n = tck.restore_train_state(tmp_path / "ckpt",
+                                                 CKPT_CFG,
+                                                 ttrain.default_optimizer,
+                                                 device="cpu")
+    assert n == 1 and c_params["embed"].device.type == "cpu"
+    assert _same(_ckpt_leaves(c_params, c_opt), _ckpt_leaves(params, opt))
+
+
+def test_bf16_mu_step_on_the_card_equals_the_cpu_step(dev):
+    """One AdamWMu step from the same f32 params and gradients on the card
+    and on the CPU: mu (bf16) within one bf16 ulp, nu and params at the f32
+    tolerance (the card's foreach kernels round apart from the CPU's)."""
+    g = torch.Generator().manual_seed(4)
+    params = [torch.randn(64, 128, generator=g) for _ in range(3)]
+    grads = [torch.randn(64, 128, generator=g) * 1e-2 for _ in range(3)]
+    out = []
+    for d in ("cpu", dev):
+        leaves = [p.to(d, copy=True).requires_grad_() for p in params]
+        opt = ttrain.default_optimizer(leaves, mu_dtype=torch.bfloat16)
+        for _ in range(2):
+            for p, gr in zip(leaves, grads):
+                p.grad = gr.to(d)
+            opt.step()
+        out.append([(p.detach().cpu(), opt.state[p]["exp_avg"].cpu(),
+                     opt.state[p]["exp_avg_sq"].cpu()) for p in leaves])
+    for (p0, m0, v0), (p1, m1, v1) in zip(*out):
+        assert m1.dtype == torch.bfloat16
+        ulp = torch.ldexp(torch.ones_like(m0.float()),
+                          torch.frexp(m0.float())[1] - 8)
+        assert ((m1.float() - m0.float()).abs() <= ulp).all()
+        torch.testing.assert_close(v1, v0, atol=1e-6, rtol=0)
+        torch.testing.assert_close(p1, p0, atol=1e-6, rtol=0)
 
 
 # (B, S, Hq, Hkv, lse cotangent): W < P with every row cut (S 128, 384,

@@ -7,7 +7,11 @@ order); aux losses, the loss and its gradients 1e-5 / 1e-4. Twins of the
 route and moe_forward cases of tests/test_parallel_extra.py (:27, :35,
 :43), plus the cases where torch and JAX could part: equal router logits
 (lax.top_k keeps the lower index first), overflow at the default capacity
-(the claim order decides who drops) and the pad mask.
+(the claim order decides who drops) and the pad mask. The train step
+against JAX's ``make_moe_train_step`` on a 1-device mesh, dense and flash
+(the JAX side's Pallas kernels in interpret mode): loss 1e-5, Adam moments
+1e-6, params 1e-5 where |g| >= 1e-7 (tests/test_torch_train.py's rule),
+the second step's loss 1e-5.
 """
 
 import dataclasses
@@ -18,8 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+from jax.sharding import NamedSharding
+
 from gpu_provisioner_tpu.models import moe as jm
+from gpu_provisioner_tpu.models import train as jtrain
+from gpu_provisioner_tpu.parallel.topology import make_mesh
 from gpu_provisioner_tpu_torch.models import moe as tm
+from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 
 JCFG = dataclasses.replace(jm.PRESETS_MOE["tiny-moe"], dtype="float32")
@@ -218,3 +227,88 @@ def test_params_from_numpy_keeps_the_router_in_f32():
     assert params["backbone"]["blocks"]["wq"].dtype == torch.bfloat16
     np.testing.assert_array_equal(params["moe"]["router"].numpy(),
                                   tree["moe"]["router"])
+
+
+def _named(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _level0(jitted, *args):
+    """``jitted`` compiled for ``args`` at LLVM's optimisation level 0 (a
+    third less CPU to compile a program that runs twice)."""
+    return jitted.lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
+@pytest.mark.parametrize("impl,S", [("dense", 32), ("flash", 128)])
+def test_moe_train_step_matches_jax(impl, S):
+    """make_moe_train_step against JAX's from the same params and batch:
+    the loss, the AdamW moments and the updated params, then a second
+    step's loss."""
+    jcfg = dataclasses.replace(JCFG, attn_impl=impl)
+    mesh = make_mesh(1, devices=[jax.devices()[0]])
+    put = lambda x: jax.device_put(jnp.asarray(x),
+                                   NamedSharding(mesh, jtrain.BATCH_SPEC))
+    opt = jtrain.default_optimizer()
+    jparams = jtrain.shard_params(jax.tree.map(jnp.copy, JPARAMS), mesh,
+                                  specs=jm.moe_model_specs(jcfg))
+    jstate = opt.init(jparams)
+    toks = [_tokens(20 + i, (2, S + 1)) for i in range(2)]
+    inp, tgt = put(toks[0][:, :-1]), put(toks[0][:, 1:])
+    attn = jtrain.make_attn_fn(mesh, impl=impl)
+    grad = jax.jit(lambda p, a, b: jax.grad(jm.moe_loss_fn)(p, a, b, jcfg,
+                                                            attn))
+    jgrads = _level0(grad, jparams, inp, tgt)(jparams, inp, tgt)
+    jstep = _level0(jm.make_moe_train_step(mesh, jcfg, opt), jparams, jstate,
+                    inp, tgt)
+    jparams, jstate, jloss = jstep(jparams, jstate, inp, tgt)
+
+    params, optimizer = ttrain.train_state_from(
+        jax.tree.map(torch.clone, TPARAMS))
+    step = tm.make_moe_train_step(_tcfg(jcfg), optimizer)
+    loss = step(params, *(torch.from_numpy(a)
+                          for a in (toks[0][:, :-1], toks[0][:, 1:])))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    mu, nu = _named(jstate[0].mu), _named(jstate[0].nu)
+    want_p, g = _named(jparams), _named(jgrads)
+    assert _named(params).keys() == want_p.keys()
+    excluded = 0
+    for name, p in _named(params).items():
+        st = optimizer.state[p]
+        np.testing.assert_allclose(st["exp_avg"].numpy(),
+                                   np.asarray(mu[name]), atol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
+                                   np.asarray(nu[name]), atol=1e-6,
+                                   err_msg=name)
+        gj = np.asarray(g[name])
+        steady = (np.abs(gj) >= 1e-7) | (gj == 0)
+        excluded += int((~steady).sum())
+        np.testing.assert_allclose(p.detach().numpy()[steady],
+                                   np.asarray(want_p[name])[steady],
+                                   atol=1e-5, err_msg=name)
+    n = sum(p.numel() for p in ttrain.param_leaves(params))
+    assert excluded < n // 1000, f"{excluded} of {n} elements excluded"
+
+    inp2, tgt2 = put(toks[1][:, :-1]), put(toks[1][:, 1:])
+    _, _, jloss2 = jstep(jparams, jstate, inp2, tgt2)
+    loss2 = step(params, *(torch.from_numpy(a)
+                           for a in (toks[1][:, :-1], toks[1][:, 1:])))
+    np.testing.assert_allclose(loss2.item(), float(jloss2), rtol=1e-5)
+
+
+def test_make_moe_train_state_keeps_f32_masters():
+    cfg = tm.PRESETS_MOE["tiny-moe"]
+    params, optimizer = tm.make_moe_train_state(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    leaves = ttrain.param_leaves(params)
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)
+    assert type(optimizer) is torch.optim.AdamW
+    assert {id(p) for g in optimizer.param_groups
+            for p in g["params"]} == {id(p) for p in leaves}

@@ -16,6 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from gpu_provisioner_tpu_torch import bench as tbench
+from gpu_provisioner_tpu_torch.examples import train_resume
+from gpu_provisioner_tpu_torch.models import checkpoint as tck
 from gpu_provisioner_tpu_torch.models import decode as td
 from gpu_provisioner_tpu_torch.models import engine as te
 from gpu_provisioner_tpu_torch.models import llama as tl
@@ -123,6 +126,31 @@ def test_speculation_entry_points_without_device_raise_when_cuda_is_absent():
     with pytest.raises(ValueError, match="draft_params on meta"):
         te.ServeEngine(params, cfg, draft_params=elsewhere, draft_cfg=cfg,
                        device="cpu")
+
+
+def test_training_entry_points_without_device_raise_when_cuda_is_absent(
+        tmp_path):
+    """Checkpoint restore and its manager, the MoE train state, the two
+    training bench twins and the resume example run on cuda by default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = tl.PRESETS["tiny"]
+    params, opt = ttrain.make_train_state(cfg, torch.Generator(), "cpu")
+    tck.save_train_state(tmp_path / "ckpt", params, opt, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tck.restore_train_state(tmp_path / "ckpt", cfg,
+                                ttrain.default_optimizer)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tck.TrainCheckpointManager(tmp_path / "mgr", cfg,
+                                   ttrain.default_optimizer)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.make_moe_train_state(tm.PRESETS_MOE["tiny-moe"],
+                                torch.Generator())
+    for twin in (tbench.bench_train_step, tbench.bench_workload):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            twin(True, cfg=cfg, shape=(1, 16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_resume.main([])
 
 
 def _header_fields(struct: str) -> list:

@@ -13,6 +13,7 @@ tokens), which moves by the decay alone on both sides.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -204,3 +205,69 @@ def test_make_forward_is_the_forward():
         torch.testing.assert_close(ttrain.make_forward(cfg)(params, toks),
                                    tl.forward(params, toks, cfg),
                                    atol=0, rtol=0)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (8 significant bits)."""
+    return np.ldexp(1.0, np.frexp(np.abs(x).astype(np.float32))[1] - 8)
+
+
+def test_bf16_mu_step_matches_optax_adamw_mu_dtype():
+    """default_optimizer(mu_dtype=bf16) against optax.adamw(mu_dtype=
+    bfloat16): one step of each from the same params and batch (mu in bf16
+    within 1e-6 plus one bf16 ulp: the f32 mu agrees to 1e-6 before its
+    cast rounds it once; nu 1e-6; params 1e-5 where |g| >= 1e-7), then a
+    second step's loss."""
+    inp, tgt = _batch(10, 4, 64)
+    mesh = make_mesh(1, devices=[jax.devices()[0]])
+    put = lambda x: jax.device_put(jnp.asarray(x),
+                                   NamedSharding(mesh, jtrain.BATCH_SPEC))
+    opt = jtrain.default_optimizer(mu_dtype=jnp.bfloat16)
+    jparams = jtrain.shard_params(jax.tree.map(jnp.copy, JPARAMS), mesh, JCFG)
+    jstate = opt.init(jparams)
+    jgrads = jax.grad(jtrain.loss_fn)(JPARAMS, jnp.asarray(inp),
+                                      jnp.asarray(tgt), JCFG)
+    jstep = jtrain.make_train_step(mesh, JCFG, opt)
+    jparams, jstate, jloss = jstep(jparams, jstate, put(inp), put(tgt))
+
+    params, optimizer = ttrain.train_state_from(
+        params_from_numpy(jax.tree.map(np.asarray, JPARAMS), device="cpu"),
+        functools.partial(ttrain.default_optimizer, mu_dtype=torch.bfloat16))
+    assert type(optimizer) is ttrain.AdamWMu
+    step = ttrain.make_train_step(_tcfg(JCFG), optimizer)
+    loss = step(params, torch.from_numpy(inp), torch.from_numpy(tgt))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+
+    adam = jstate[0]
+    mu, nu = _named(adam.mu), _named(adam.nu)
+    want_p, g = _named(jparams), _named(jgrads)
+    excluded = 0
+    for name, p in _named(params).items():
+        st = optimizer.state[p]
+        assert st["exp_avg"].dtype == torch.bfloat16, name
+        want_mu = np.asarray(mu[name]).astype(np.float32)
+        assert (np.abs(st["exp_avg"].float().numpy() - want_mu)
+                <= 1e-6 + _bf16_ulp(want_mu)).all(), name
+        np.testing.assert_allclose(st["exp_avg_sq"].numpy(),
+                                   np.asarray(nu[name]), atol=1e-6,
+                                   err_msg=name)
+        gj = np.asarray(g[name])
+        steady = (np.abs(gj) >= 1e-7) | (gj == 0)
+        excluded += int((~steady).sum())
+        np.testing.assert_allclose(p.detach().numpy()[steady],
+                                   np.asarray(want_p[name])[steady],
+                                   atol=1e-5, err_msg=name)
+    n = sum(p.numel() for p in ttrain.param_leaves(params))
+    assert excluded < n // 1000, f"{excluded} of {n} elements excluded"
+
+    inp2, tgt2 = _batch(11, 4, 64)
+    _, _, jloss2 = jstep(jparams, jstate, put(inp2), put(tgt2))
+    loss2 = step(params, torch.from_numpy(inp2), torch.from_numpy(tgt2))
+    np.testing.assert_allclose(loss2.item(), float(jloss2), rtol=1e-5)
+
+
+def test_default_optimizer_without_mu_dtype_is_torch_adamw():
+    params, _ = _state()
+    opt = ttrain.default_optimizer(ttrain.param_leaves(params))
+    assert type(opt) is torch.optim.AdamW
+    assert opt.defaults["lr"] == 3e-4 and opt.defaults["weight_decay"] == 0.1
