@@ -130,6 +130,20 @@ Phases, each of which exits non-zero on a failed check:
    launches (``moe_train``); then the bench_train_step twin (mfu against
    the H100's 989e12 bf16 FLOP/s; ``bench_train_step``) and the
    bench_workload twin, at full size;
+12. sharded training (parallel/, models/train.py on a mesh), its ranks
+   spawned by parallel/launch.py and sharing the one card over gloo (no
+   multi-GPU time: every time is labelled so): at llama-1b width, 2
+   layers, f32, flash, one step on (sp 2, dp 2) ring and zigzag, (sp 2,
+   tp 2) and (tp 2, dp 2) of one 4-rank world, each rank's gradients and
+   updated shards against this process's make_train_step (loss 1e-5
+   relative, gradients 1e-4 of the largest, params 1e-5 where |g| >=
+   1e-7), no rank importing jax; then full llama-1b (bf16, f32 masters,
+   remat, B=8, S=2048) at sp=2 over 2 ranks, ring then zigzag, and at (sp
+   2, tp 2) over 4: a warm step and three timed, the loss falling and
+   equal on every rank, step ms, bytes staged through the host and seconds
+   in the staged collectives a step, peak memory, and each rank's
+   launches a step checked (ring: 32/16/16 on seq rank 0, 64/32/32 on
+   rank 1; zigzag 160/80/80; ``sharded`` in launches_by_path);
 then the phase-2, phase-9 and phase-10 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
@@ -2429,6 +2443,209 @@ def phase_resumable(torch, tl, tm, tt, ck, bench, tfa, dev, f32_ms):
         "bench_train_step": twin, "bench_workload": work}
 
 
+# phase 12: the sharded step's ranks share the one card over gloo. Its
+# exact meshes over one 4-rank world (mesh arguments, seq_schedule), the
+# batch, and the full-size runs: (ranks, mesh, schedules), B, S, steps
+SHARDED_EXACT = ((({"sp": 2}, "ring"), ({"sp": 2}, "zigzag"),
+                  ({"sp": 2, "tp": 2}, "ring"), ({"tp": 2}, "ring")),
+                 (4, 512))
+SHARDED_FULL = ((2, {"sp": 2}, ("ring", "zigzag")),
+                (4, {"sp": 2, "tp": 2}, ("ring",)))
+SHARDED_SHAPE, SHARDED_WARM, SHARDED_STEPS = (8, 2048), 1, 3
+SHARED = "ranks sharing one H100 over gloo; not a multi-GPU time"
+SHARDED_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def sharded_launches(L, n, my, zigzag):
+    """Predicted launches a step of one rank of the causal ring over n
+    ranks (remat: two forwards a layer): the ring's rank my makes my + 1
+    calls a layer, the zigzag's every rank 2n + 1."""
+    calls = 2 * n + 1 if zigzag else my + 1
+    return {"flash_fwd": 2 * L * calls, "flash_bwd_dq": L * calls,
+            "flash_bwd_dkv": L * calls}
+
+
+# (path, B, S, Hq, Hkv) of the flash calls on phase 12's full-size path
+# (Llama-1B, B=8, S=2048, D=128): the ring's 1024-token blocks at sp=2,
+# the zigzag's 512-token chunk pairs, the ring's blocks at (sp=2, tp=2)
+# with 8/4 heads a rank
+SHARDED_CALLS = (("ring", 8, 1024, 16, 8), ("zigzag", 8, 512, 16, 8),
+                 ("ring_sp2_tp2", 8, 1024, 8, 4))
+
+
+def phase_sharded_kernels(torch, tfa, dev):
+    """flash_fwd (#1/#2), flash_bwd_dq (#6) and flash_bwd_dkv (#7) at the
+    sharded path's own call shapes in bf16: each shape causal (a diagonal
+    block) and full (an earlier block), the backward with an lse cotangent
+    (the ring's merge gives one), against attention_plain and
+    attention_bwd_plain on the same inputs, within TOL of the reference's
+    largest value (lse within 1e-4). Returns each kernel's worst errors."""
+    g = torch.Generator(dev).manual_seed(SEED + 23)
+    D, bf, tol = 128, torch.bfloat16, TOL["bfloat16"]
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def err(a, b):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / b.float().abs().max().item()
+
+    worst = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": tol,
+                 "shapes": [list(c) for c in SHARDED_CALLS]}
+             for k in SHARDED_KERNELS}
+    for path, B, S, Hq, Hkv in SHARDED_CALLS:
+        for causal in (True, False):
+            q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+            k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+            g_lse = rnd(B, Hq, S, dtype=torch.float32)
+            out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+            ref, rlse = tfa.attention_plain(q, k.transpose(1, 2),
+                                            v.transpose(1, 2), 0,
+                                            causal=causal)
+            fwd, (lse_err, _) = err(out, ref), err(lse, rlse)
+            del ref, rlse
+            got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
+                                          causal=causal)
+            want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse,
+                                           causal=causal)
+            es = [err(a, b) for a, b in zip(got, want)]
+            del got, want
+            print(f"sharded call {path} bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                  f"causal={causal} lse_cotangent=True: flash_fwd max|err| "
+                  f"{fwd[0]:.3g} rel {fwd[1]:.3g}, |lse-plain| {lse_err:.3g}"
+                  " (tol 1e-4); " + ", ".join(
+                      f"{n} max|err| {e:.3g} rel {r:.3g}"
+                      for n, (e, r) in zip(("dq", "dk", "dv"), es))
+                  + f" (tol {tol}, relative)")
+            check(fwd[1] <= tol and lse_err <= 1e-4,
+                  f"flash_fwd disagrees with attention_plain at the sharded "
+                  f"{path} call (causal={causal})")
+            check(all(r <= tol for _, r in es),
+                  f"a backward kernel disagrees with attention_bwd_plain at "
+                  f"the sharded {path} call (causal={causal})")
+            for name, part in (("flash_fwd", [fwd]), ("flash_bwd_dq", es[:1]),
+                               ("flash_bwd_dkv", es[1:])):
+                w = worst[name]
+                w["max_abs_err"] = max([w["max_abs_err"]]
+                                       + [e for e, _ in part])
+                w["max_rel_err"] = max([w["max_rel_err"]]
+                                       + [r for _, r in part])
+            del q, k, v, dout, g_lse, out, lse
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_sharded_exact(torch, tl, tt, jobs, launch, dev):
+    """Llama-1B width, 2 layers, f32, flash: one sharded step on each mesh
+    of SHARDED_EXACT (one 4-rank world) against make_train_step in this
+    process on the same params and batch; the ranks hold their shards
+    against its gradients and params (saved for them)."""
+    meshes, (B, S) = SHARDED_EXACT
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
+                              dtype="float32", attn_impl="flash")
+    params, opt = tt.make_train_state(
+        cfg, torch.Generator(dev).manual_seed(SEED + 20), dev)
+    inp, tgt = jobs.seeded_batch(cfg, B, S, SEED + 21, dev)
+    loss = tt.make_train_step(cfg, opt)(params, inp, tgt).item()
+    grads = {k: ({kk: vv.grad for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.grad) for k, v in params.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-sharded-") as d:
+        ref = str(Path(d) / "reference.pt")
+        torch.save({"grads": grads, "params": params}, ref)
+        del params, opt, grads
+        torch.cuda.empty_cache()
+        cases = [{"kind": "mesh", "mesh": meshes[0][0]}] + [
+            {"kind": "train", "mesh": mesh,
+             "cfg": dataclasses.replace(cfg, seq_schedule=sched),
+             "seed": SEED + 20, "batch_shape": (B, S),
+             "batch_seed": SEED + 21, "reference": ref}
+            for mesh, sched in meshes]
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, 4, backend="gloo",
+                                 device=dev, timeout_s=300,
+                                 args=(cases, dev.type))
+    print(f"sharded exact: 4 ranks ({SHARED}) in "
+          f"{time.perf_counter() - t0:.1f} s; a rank imported jax: "
+          f"{[r[0]['jax_loaded'] for r in res]}")
+    check(not any(r[0]["jax_loaded"] for r in res), "a rank imported jax")
+    for i, (mesh, sched) in enumerate(meshes, 1):
+        got = [r[i] for r in res]
+        rel = max(abs(g["losses"][0] - loss) for g in got) / abs(loss)
+        worst = {k: max(g[k] for g in got)
+                 for k in ("grad_err", "param_err", "param_err_all")}
+        print(f"sharded exact {mesh} {sched} (llama-1b width, 2 layers, f32,"
+              f" B={B} S={S}): loss {got[0]['losses'][0]!r} vs {loss!r} rel "
+              f"{rel:.3g} (tol 1e-5); worst gradient leaf "
+              f"{worst['grad_err']:.3g} of its largest (tol 1e-4); params "
+              f"{worst['param_err']:.3g} where |g| >= 1e-7 (tol 1e-5; "
+              f"{worst['param_err_all']:.3g} over all: AdamW's first update "
+              f"is ±lr where the gradient's sign follows the summation "
+              f"order); launches a rank "
+              f"{[{k: g['launches'][k] for k in SHARDED_KERNELS} for g in got]}")
+        check(rel <= 1e-5, f"sharded {mesh} {sched}: loss rel {rel}")
+        check(worst["grad_err"] <= 1e-4,
+              f"sharded {mesh} {sched}: gradients {worst['grad_err']}")
+        check(worst["param_err"] <= 1e-5,
+              f"sharded {mesh} {sched}: params {worst['param_err']}")
+
+
+def phase_sharded(torch, tl, jobs, launch, dev):
+    """Full Llama-1B (bf16, f32 masters, remat, flash, B=8, S=2048): at
+    sp=2 over 2 ranks, ring then zigzag, and at (sp=2, tp=2) over 4 ranks,
+    SHARDED_WARM + SHARDED_STEPS steps each, every rank on the one card."""
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash",
+                              remat=True)
+    L, steps = cfg.n_layers, SHARDED_STEPS
+    by_path, report = {}, {}
+    for ranks, mesh, scheds in SHARDED_FULL:
+        cases = [{"kind": "train", "mesh": mesh,
+                  "cfg": dataclasses.replace(cfg, seq_schedule=sched),
+                  "seed": SEED + 22, "batch_shape": SHARDED_SHAPE,
+                  "warm": SHARDED_WARM, "steps": steps} for sched in scheds]
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, ranks, backend="gloo",
+                                 device=dev, timeout_s=400,
+                                 args=(cases, dev.type))
+        wall = time.perf_counter() - t0
+        for i, sched in enumerate(scheds):
+            key = sched if ranks == 2 else f"{sched}_sp2_tp2"
+            got = [r[i] for r in res]
+            row = {"ranks": ranks, "mesh": mesh, "layers": L,
+                   "batch": SHARDED_SHAPE, "losses": got[0]["losses"],
+                   "step_ms_by_rank": [g["step_ms"] for g in got],
+                   "staged_bytes_a_step_by_rank": [g["staged_bytes"]
+                                                   for g in got],
+                   "collective_s_by_rank": [g["comm_s"] for g in got],
+                   "peak_gib_by_rank": [(g["peak_bytes"] or 0) / 2**30
+                                        for g in got],
+                   "launches_a_step_by_rank": [
+                       {k: g["launches"][k] / steps for k in SHARDED_KERNELS}
+                       for g in got],
+                   "what": SHARED}
+            report[key] = row
+            print(f"sharded llama-1b {key} ({ranks} {SHARED}; "
+                  f"{wall:.1f} s for the world): {json.dumps(row)}")
+            losses = got[0]["losses"]
+            check(all(x == x and abs(x) < float("inf") for x in losses),
+                  f"sharded {key}: a loss is not finite")
+            check(losses[-1] < losses[SHARDED_WARM] < losses[0],
+                  f"sharded {key}: loss did not fall: {losses}")
+            check(all(g["losses"] == losses for g in got),
+                  f"sharded {key}: ranks disagree on the loss")
+            n_seq = mesh["sp"]
+            for g in got:
+                my = g["coords"]["seq"]
+                want = sharded_launches(L, n_seq, my, sched == "zigzag")
+                for k, n in want.items():
+                    check(g["launches"][k] == n * steps,
+                          f"sharded {key} seq rank {my}: {k} launched "
+                          f"{g['launches'][k]} times in {steps} steps, "
+                          f"expected {n * steps}")
+            by_path[key] = {k: [g["launches"][k] for g in got]
+                            for k in SHARDED_KERNELS}
+    return by_path, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2450,6 +2667,7 @@ def main() -> int:
     from gpu_provisioner_tpu_torch.models import train as tt
     from gpu_provisioner_tpu_torch.ops import _cuda
     from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
+    from gpu_provisioner_tpu_torch.parallel import jobs, launch
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2525,6 +2743,14 @@ def main() -> int:
     print(f"resumable-training phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    sharded_errs = phase_sharded_kernels(torch, tfa, dev)
+    torch.cuda.empty_cache()
+    phase_sharded_exact(torch, tl, tt, jobs, launch, dev)
+    torch.cuda.empty_cache()
+    sharded, sharded_report = phase_sharded(torch, tl, jobs, launch, dev)
+    print(f"sharded-training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
@@ -2543,6 +2769,12 @@ def main() -> int:
                                  "spec": spec[name],
                                  **{k: v[name] for k, v in by_twin.items()},
                                  **{k: v[name] for k, v in resumable.items()}}
+        if name in SHARDED_KERNELS:
+            r["launches_by_path"]["sharded"] = {
+                k: v[name] for k, v in sharded.items()}
+            r["at_sharded_shapes"] = sharded_errs[name]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   sharded_errs[name]["max_abs_err"])
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -2562,6 +2794,7 @@ def main() -> int:
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")
+    print(f"sharded training ({SHARED}): {json.dumps(sharded_report)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ The ``tiny`` model trains for STEPS steps, checkpoints every SAVE_EVERY
 checkpoint, then restores it with ``restore_train_state`` onto the device
 and finishes. The reference's resume onto a *different* mesh layout and
 its ``TPU_KAITO_BOOTSTRAP`` path (a slice bootstrapped from the
-provisioner's node labels) wait for the multi-GPU slice.
+provisioner's node labels) are not ported: the restore onto another mesh
+waits (ROADMAP Queue A 3).
 """
 
 from __future__ import annotations

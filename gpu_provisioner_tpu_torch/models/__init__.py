@@ -4,8 +4,9 @@ and MoE train steps and train-state checkpointing.
 
 Twins of ``gpu_provisioner_tpu/models/`` ``llama``, ``decode``,
 ``speculative``, ``engine``, ``train``, ``moe``, ``moe_serve`` and
-``checkpoint``, on one device; the sharded, pipelined and expert-parallel
-train steps are not ported yet.
+``checkpoint``; the dense train step also runs sharded (data, sequence and
+tensor parallelism); the pipelined and expert-parallel train steps are not
+ported yet.
 """
 
 from .speculative import speculative_generate

@@ -32,8 +32,8 @@ Deliberate differences:
   ``dcp.async_save``, wait until a save's time says they matter);
 - restore is onto one device (``device``, default cuda), the one-GPU twin
   of "onto the current mesh": restoring a card's checkpoint onto the CPU
-  is the twin of restore-as-reshard; meshes and specs come with the
-  multi-GPU slice;
+  is the twin of restore-as-reshard; a restore onto a mesh (shards by
+  ``param_specs``) is not ported yet;
 - the optimizer is the port's Adam (``models/train.py``), whose per-leaf
   state the checkpoint reads and writes;
 - dense only, as the reference's restore target is (``init_params``).

@@ -17,7 +17,15 @@ SwiGLU, and f32 logits. Deliberate differences:
   product is f32. The train state asks for ``cfg.param_dtype`` masters
   (``models/train.py``), which the product code casts at each use;
 - ``attn_impl="flash"`` resolves to this package's CUDA kernels;
-- no ``param_specs``: tensor parallelism comes with the multi-GPU slice.
+- tensor parallelism is explicit, not a sharding annotation:
+  ``param_specs`` names the dim of each leaf split over ``model``, and with
+  a ``tp`` group the forward takes this rank's shards (local head counts,
+  ``head_dim`` from the global config), ``comm.copy_to_tp`` before each
+  column-parallel product and ``comm.reduce_from_tp`` after ``wo`` and
+  ``w_down`` (Megatron's pair, where GSPMD inserts the collectives), a
+  vocabulary-parallel embedding (a masked local lookup, then a sum over
+  the group) and logits for the rank's vocabulary columns. Without ``tp``
+  the forward is the single-device one.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.comm import TPGroup, copy_to_tp, reduce_from_tp
 from ..parallel.ring import dense_attention
 
 
@@ -49,7 +58,7 @@ class LlamaConfig:
     dtype: str = "bfloat16"        # activation / matmul dtype
     param_dtype: str = "float32"   # the JAX package's master weights
     remat: bool = False            # checkpoint each block (memory ↔ FLOPs)
-    seq_schedule: str = "ring"     # sequence parallelism (multi-GPU slice)
+    seq_schedule: str = "ring"     # "ring" | "zigzag" (balanced causal ring)
     attn_impl: str = "dense"       # "dense" | "flash" (CUDA kernels; the
                                    # dense result for shapes that don't tile)
     kv_cache_dtype: str = "auto"   # "auto" (= act dtype) | "int8"
@@ -156,6 +165,21 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator],
     }
 
 
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The dim of each leaf split over the ``model`` axis (None: replicated),
+    the twin of the JAX ``param_specs``' PartitionSpecs: QKV, gate and up
+    by columns, ``wo`` and ``w_down`` by rows, the embedding by vocabulary
+    rows, ``lm_head`` by vocabulary columns. The stacked layer dim is never
+    split."""
+    return {
+        "embed": 0,
+        "blocks": {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "w_gate": 2,
+                   "w_up": 2, "w_down": 1, "ln_attn": None, "ln_mlp": None},
+        "ln_final": None,
+        "lm_head": 1,
+    }
+
+
 def layer_params(params: dict, layer: int) -> dict:
     """One layer's slice of the stacked blocks (views, no copy)."""
     return {k: v[layer] for k, v in params["blocks"].items()}
@@ -182,10 +206,13 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
-def _project_qkv(h, lp, cfg: LlamaConfig, positions):
-    """Normed input → roped (q, k, v), shared with models/decode.py."""
+def _project_qkv(h, lp, cfg: LlamaConfig, positions, heads=None):
+    """Normed input → roped (q, k, v), shared with models/decode.py.
+    ``heads``: this rank's (q, kv) head counts under tensor parallelism
+    (default cfg's); the head dim stays cfg's."""
     B, S, _ = h.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hq, Hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    Dh = cfg.head_dim
     ad = cfg.act_dtype
     q = (h @ lp["wq"].to(ad)).reshape(B, S, Hq, Dh)
     k = (h @ lp["wk"].to(ad)).reshape(B, S, Hkv, Dh)
@@ -194,57 +221,91 @@ def _project_qkv(h, lp, cfg: LlamaConfig, positions):
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _mlp_half(x, lp, cfg: LlamaConfig):
-    """Norm → SwiGLU → residual (shared with models/decode.py)."""
+def _mlp_half(x, lp, cfg: LlamaConfig, tp: Optional[TPGroup] = None):
+    """Norm → SwiGLU → residual (shared with models/decode.py). With ``tp``
+    the gate/up columns and ``w_down`` rows are this rank's."""
     ad = cfg.act_dtype
     h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
+    if tp is not None:
+        h = copy_to_tp(h, tp)
     gated = F.silu(h @ lp["w_gate"].to(ad)) * (h @ lp["w_up"].to(ad))
-    return x + gated @ lp["w_down"].to(ad)
+    out = gated @ lp["w_down"].to(ad)
+    return x + (out if tp is None else reduce_from_tp(out, tp))
 
 
-def _block_attention_half(x, lp, cfg: LlamaConfig, positions, attn_fn):
-    """Norm → QKV → rope → attention → residual."""
+def _block_attention_half(x, lp, cfg: LlamaConfig, positions, attn_fn,
+                          tp: Optional[TPGroup] = None):
+    """Norm → QKV → rope → attention → residual. With ``tp`` the rank's
+    heads (n_heads / tp q heads, n_kv_heads / tp kv heads)."""
     B, S, _ = x.shape
     h = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = _project_qkv(h, lp, cfg, positions)
-    o = attn_fn(q, k, v).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return x + o @ lp["wo"].to(cfg.act_dtype)
+    heads = None
+    if tp is not None:
+        h = copy_to_tp(h, tp)
+        heads = (cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size)
+    q, k, v = _project_qkv(h, lp, cfg, positions, heads)
+    o = attn_fn(q, k, v).reshape(B, S, q.shape[2] * cfg.head_dim)
+    out = o @ lp["wo"].to(cfg.act_dtype)
+    return x + (out if tp is None else reduce_from_tp(out, tp))
 
 
-def _block(x, lp, cfg: LlamaConfig, positions, attn_fn):
+def _block(x, lp, cfg: LlamaConfig, positions, attn_fn,
+           tp: Optional[TPGroup] = None):
     """One decoder block. x: [B, S, D], lp: this layer's params."""
-    x = _block_attention_half(x, lp, cfg, positions, attn_fn)
-    return _mlp_half(x, lp, cfg)
+    x = _block_attention_half(x, lp, cfg, positions, attn_fn, tp)
+    return _mlp_half(x, lp, cfg, tp)
 
 
-def _logits(x, params: dict, cfg: LlamaConfig):
-    """Final norm, then the f32 vocabulary product."""
+def _logits(x, params: dict, cfg: LlamaConfig, tp: Optional[TPGroup] = None):
+    """Final norm, then the f32 vocabulary product (this rank's vocabulary
+    columns under ``tp``)."""
     x = _rmsnorm(x, params["ln_final"], cfg.norm_eps)
+    if tp is not None:
+        x = copy_to_tp(x, tp)
     return x.float() @ params["lm_head"].float()
 
 
+def _embed(params: dict, tokens, cfg: LlamaConfig,
+           tp: Optional[TPGroup] = None):
+    """The token embeddings [B, S, D] in the activation dtype. Under ``tp``
+    the rank holds vocabulary rows [rank·V/tp, (rank+1)·V/tp): it looks up
+    the tokens it owns, zeros the rest, and the group sums."""
+    if tp is None:
+        return params["embed"][tokens].to(cfg.act_dtype)
+    rows = params["embed"].shape[0]
+    local = tokens - tp.rank * rows
+    own = (local >= 0) & (local < rows)
+    x = params["embed"][local.clamp(0, rows - 1)]
+    x = torch.where(own[..., None], x, 0.0).to(cfg.act_dtype)
+    return reduce_from_tp(x, tp)
+
+
 def forward(params: dict, tokens, cfg: LlamaConfig,
-            attn_fn: Optional[Callable] = None, positions=None):
+            attn_fn: Optional[Callable] = None, positions=None,
+            tp: Optional[TPGroup] = None):
     """Logits for next-token prediction. tokens: [B, S] int → [B, S, V]
     f32. ``attn_fn(q, k, v) -> o`` defaults to cfg's attention;
-    ``positions`` defaults to arange(S). Differentiable (the serving entry
-    points call it under no_grad); ``cfg.remat`` recomputes each block in
-    the backward instead of keeping its activations."""
+    ``positions`` defaults to arange(S) (pass global positions when the
+    sequence is sharded). Differentiable (the serving entry points call it
+    under no_grad); ``cfg.remat`` recomputes each block in the backward
+    instead of keeping its activations. With ``tp`` the params are this
+    rank's shards (``param_specs``) and the logits its V/tp vocabulary
+    columns."""
     if attn_fn is None:
         attn_fn = resolve_attn(cfg.attn_impl, cfg.sliding_window,
                                cfg.attn_sinks)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = params["embed"][tokens].to(cfg.act_dtype)                # [B, S, D]
+    x = _embed(params, tokens, cfg, tp)                          # [B, S, D]
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
         if cfg.remat:
-            x = checkpoint(_block, x, lp, cfg, positions, attn_fn,
+            x = checkpoint(_block, x, lp, cfg, positions, attn_fn, tp,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(x, lp, cfg, positions, attn_fn)
-    return _logits(x, params, cfg)
+            x = _block(x, lp, cfg, positions, attn_fn, tp)
+    return _logits(x, params, cfg, tp)
 
 
 class Llama(nn.Module):

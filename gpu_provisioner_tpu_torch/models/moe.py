@@ -26,7 +26,8 @@ dtype before their products). Deliberate differences:
 - ``make_moe_train_state`` and ``make_moe_train_step`` are the
   single-device twins (f32 masters, ``models/train.py``'s in-place step
   over ``moe_loss_fn``); ``moe_param_specs``/``moe_model_specs`` and the
-  expert-parallel mesh come with the multi-GPU slice.
+  expert-parallel step are not ported yet (the dense step's data,
+  sequence and tensor parallelism are, ``models/train.py``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Single-device training step.
+"""Training step, on one device or sharded over a mesh.
 
-Twin of ``gpu_provisioner_tpu/models/train.py`` on one GPU: the same
+Twin of ``gpu_provisioner_tpu/models/train.py``: the same
 optimizer (``default_optimizer`` is optax's ``adamw(3e-4,
 weight_decay=0.1)``: b1 0.9, b2 0.999, eps 1e-8, decoupled decay on every
 leaf applied to the pre-update value), the same ``loss_fn`` (f32 logits,
@@ -18,18 +18,38 @@ differences:
   ``functools.partial(default_optimizer, mu_dtype=torch.bfloat16)``). With
   no ``mu_dtype`` it is ``torch.optim.AdamW`` (foreach); with one it is
   ``AdamWMu``, which keeps optax's ``scale_by_adam(mu_dtype=)`` order;
-- no mesh: ``shard_params``, the ring and zigzag schedules and the pipelined
-  step come with the multi-GPU slice.
+- on a mesh (``make_mesh``: data, sequence and tensor parallelism over
+  ``slice``, ``data``, ``seq`` and ``model``; ``pipe`` = ``expert`` = 1),
+  each rank holds its shards (``shard_params`` narrows the whole tree every
+  rank draws from the same seeded generator), takes its block of the
+  global batch (``batch_block``, BATCH_SPEC's twin), runs the forward and
+  backward with global positions, then all-reduces the gradients (and the
+  loss) over the ranks the batch is cut over, in a few flat buckets, and
+  divides by their number: the global mean's gradient, as GSPMD's psum
+  gives. AdamW works element by element, so each rank's step on its own
+  shards is the global step. The pipelined and expert-parallel steps are
+  not ported.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from ..device import resolve_device
-from .llama import LlamaConfig, forward, init_params, resolve_attn
+from ..parallel.comm import TPGroup, all_reduce_, reduce_from_tp
+from ..parallel.ring import ring_attention, zigzag_order, zigzag_ring_attention
+from ..parallel.topology import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
+                                 AXIS_PIPE, AXIS_SEQ, AXIS_SLICE, axis_index,
+                                 axis_sizes)
+from .llama import LlamaConfig, forward, init_params, param_specs, resolve_attn
+
+# gradient elements a bucket of the batch all-reduce holds (256 MB in f32)
+GRAD_BUCKET = 1 << 26
 
 
 def param_leaves(params: dict) -> list:
@@ -130,13 +150,27 @@ def init_adam_state(optimizer: torch.optim.Optimizer) -> None:
 
 
 def loss_fn(params, inputs, targets, cfg: LlamaConfig, attn_fn=None,
-            positions=None):
+            positions=None, tp: Optional[TPGroup] = None):
     """Next-token cross entropy. inputs/targets: [B, S] int (pre-shifted).
-    ``positions`` as in forward."""
+    ``positions`` as in forward. With ``tp`` the logits are this rank's
+    vocabulary columns: the logsumexp is the group's (the max, then the
+    sum of exp, each all-reduced) and the gold logit comes from the rank
+    that owns the target, the same f32 function."""
     logits = forward(params, inputs, cfg, attn_fn=attn_fn,
-                     positions=positions)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+                     positions=positions, tp=tp)
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+        return (logz - gold).mean()
+    cols = logits.shape[-1]
+    m = all_reduce_(logits.detach().amax(dim=-1), tp.group,
+                    dist.ReduceOp.MAX)
+    logz = m + reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1),
+                              tp).log()
+    local = targets.long() - tp.rank * cols
+    own = (local >= 0) & (local < cols)
+    gold = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = reduce_from_tp(torch.where(own, gold, 0.0), tp)
     return (logz - gold).mean()
 
 
@@ -150,37 +184,207 @@ def train_state_from(params: dict, optimizer: Optional[Callable] = None):
     return params, (optimizer or default_optimizer)(leaves)
 
 
+def shard_params(params: dict, mesh, cfg: Optional[LlamaConfig] = None,
+                 specs: Optional[dict] = None) -> dict:
+    """This rank's shards of ``params``: each leaf narrowed (and copied)
+    along its ``specs`` dim (default ``param_specs(cfg)``) to the rank's
+    ``model`` coordinate; replicated leaves kept as they are."""
+    if specs is None:
+        specs = param_specs(cfg)
+    n, m = axis_sizes(mesh)[AXIS_MODEL], axis_index(mesh, AXIS_MODEL)
+
+    def cut(x, dim):
+        if isinstance(x, dict):
+            return {k: cut(v, dim[k]) for k, v in x.items()}
+        if dim is None or n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does not "
+                             f"split over model = {n}")
+        size = x.shape[dim] // n
+        return x.narrow(dim, m * size, size).clone()
+
+    return cut(params, specs)
+
+
 def make_train_state(cfg: LlamaConfig, generator: torch.Generator,
-                     device=None, optimizer: Optional[Callable] = None):
+                     device=None, optimizer: Optional[Callable] = None,
+                     mesh=None):
     """(params, optimizer): f32 masters (``cfg.param_dtype``) drawn from
-    ``generator`` on ``device`` (default cuda) and the optimizer over them."""
+    ``generator`` on ``device`` (default cuda) and the optimizer over them.
+    On a ``mesh`` every rank draws the whole tree (the same numbers from the
+    same seed) and keeps its shards (``shard_params``)."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for params on {dev}")
     params = init_params(cfg, generator, dev,
                          dtype=getattr(torch, cfg.param_dtype))
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg)
     return train_state_from(params, optimizer)
 
 
+def make_attn_fn(mesh, impl: str = "dense", seq_schedule: str = "ring",
+                 window: Optional[int] = None, sinks: int = 0) -> Callable:
+    """Attention on a rank's blocks: ring (or, with ``seq_schedule=
+    "zigzag"``, the balanced zigzag ring over blocks of the permuted
+    sequence) over ``seq`` when that axis is sharded; otherwise cfg's
+    attention on the rank's own batch rows and heads. A sliding window with
+    a sharded sequence is not implemented, as in the JAX package: that
+    raises."""
+    attn = resolve_attn(impl, window, sinks)      # validates every branch
+    if axis_sizes(mesh)[AXIS_SEQ] > 1:
+        if window is not None:
+            raise NotImplementedError(
+                "sliding_window × sequence-parallel ring attention is not "
+                "implemented; train SWA models with sp=1")
+        ring = (zigzag_ring_attention if seq_schedule == "zigzag"
+                else ring_attention)
+        return partial(ring, group=mesh.get_group(AXIS_SEQ), impl=impl)
+    return attn
+
+
+def batch_block(x: torch.Tensor, mesh, perm=None) -> torch.Tensor:
+    """This rank's [B/(slice·data), S/seq] block of the global [B, S, ...]
+    ``x`` (BATCH_SPEC's twin: batch over (slice, data), sequence over
+    ``seq``), after ``x[:, perm]`` when the zigzag permutation is given. A
+    1-d ``x`` is a sequence alone (positions)."""
+    sizes = axis_sizes(mesh)
+    if perm is not None:
+        x = x[perm] if x.ndim == 1 else x[:, perm]
+    ns, si = sizes[AXIS_SEQ], axis_index(mesh, AXIS_SEQ)
+    S = x.shape[-1 if x.ndim == 1 else 1]
+    if S % ns:
+        raise ValueError(f"S = {S} does not split over seq = {ns}")
+    if x.ndim == 1:
+        return x[si * S // ns:(si + 1) * S // ns]
+    nb = sizes[AXIS_SLICE] * sizes[AXIS_DATA]
+    bi = (axis_index(mesh, AXIS_SLICE) * sizes[AXIS_DATA]
+          + axis_index(mesh, AXIS_DATA))
+    B = x.shape[0]
+    if B % nb:
+        raise ValueError(f"B = {B} does not split over slice·data = {nb}")
+    return x[bi * B // nb:(bi + 1) * B // nb, si * S // ns:(si + 1) * S // ns]
+
+
+def tp_group(mesh) -> Optional[TPGroup]:
+    """This rank's ``model`` group, None when the axis has size 1."""
+    n = axis_sizes(mesh)[AXIS_MODEL]
+    if n == 1:
+        return None
+    return TPGroup(mesh.get_group(AXIS_MODEL), n, axis_index(mesh, AXIS_MODEL))
+
+
+def batch_group(mesh):
+    """The process group of the ranks that share this rank's ``model``
+    coordinate: the (slice, data, seq) ranks the batch is cut over. None
+    when there is one. Built collectively: every rank calls this."""
+    sizes = axis_sizes(mesh)
+    ranks = mesh.mesh.movedim(mesh.mesh_dim_names.index(AXIS_MODEL), -1)
+    ranks = ranks.reshape(-1, sizes[AXIS_MODEL]).T.tolist()
+    if len(ranks[0]) == 1:
+        return None
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
+
+
+def _mean_over(group, leaves: list, loss: torch.Tensor) -> torch.Tensor:
+    """All-reduces every leaf's gradient and ``loss`` over ``group`` in flat
+    buckets of at most GRAD_BUCKET elements and divides by the group's
+    size; returns the mean loss."""
+    n = dist.get_world_size(group)
+    loss = loss.reshape(1).float()
+    grads = [loss] + [p.grad for p in leaves]
+    start = 0
+    while start < len(grads):
+        end, numel = start + 1, grads[start].numel()
+        while end < len(grads) and numel + grads[end].numel() <= GRAD_BUCKET:
+            numel += grads[end].numel()
+            end += 1
+        part = grads[start:end]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in part]), group)
+        flat.div_(n)
+        chunks = flat.split([g.numel() for g in part])
+        torch._foreach_copy_(part, [c.view_as(g) for c, g in zip(chunks,
+                                                                 part)])
+        start = end
+    return loss[0]
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
-                    loss: Callable = loss_fn):
+                    loss: Callable = loss_fn, mesh=None):
     """step(params, inputs, targets) → loss (a 0-d tensor, not synced).
 
     One forward and backward of ``loss`` (the dense ``loss_fn``, or MoE's
     ``moe_loss_fn``) with cfg's attention, then one optimizer step. Updates
     ``params`` (the tree the optimizer was built over) and the optimizer's
-    state in place: the twin of the JAX step's ``donate_argnums``."""
-    attn_fn = resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
+    state in place: the twin of the JAX step's ``donate_argnums``.
+
+    On a ``mesh`` (every rank calls this, and then the step, with the same
+    global [B, S] batch): the rank's block of the batch (under
+    ``cfg.seq_schedule="zigzag"`` with ``seq`` > 1, of the batch permuted
+    by ``zigzag_order`` once, positions travelling with the tokens), the
+    forward with global positions, the backward, the gradients and the
+    loss averaged over the (slice, data, seq) ranks, then the optimizer
+    step on the rank's shards; the loss returned is the global mean's.
+    Remat's recompute replays a block's collectives, so it runs whole
+    (no early stop) on every rank."""
     owned = {id(p) for group in optimizer.param_groups
              for p in group["params"]}
 
-    def step(params, inputs, targets):
+    def check(params):
         if {id(p) for p in param_leaves(params)} != owned:
             raise ValueError("params are not the tree this optimizer was "
                              "built over")
+
+    if mesh is None:
+        attn_fn = resolve_attn(cfg.attn_impl, cfg.sliding_window,
+                               cfg.attn_sinks)
+
+        def step(params, inputs, targets):
+            check(params)
+            optimizer.zero_grad(set_to_none=True)
+            value = loss(params, inputs, targets, cfg, attn_fn)
+            value.backward()
+            optimizer.step()
+            return value.detach()
+
+        return step
+
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_PIPE] > 1 or sizes[AXIS_EXPERT] > 1:
+        raise NotImplementedError("pipeline and expert parallelism are not "
+                                  "ported: pipe and expert must be 1")
+    if loss is not loss_fn:
+        raise NotImplementedError("the sharded step trains the dense "
+                                  "loss_fn only")
+    n_seq = sizes[AXIS_SEQ]
+    zigzag = cfg.seq_schedule == "zigzag" and n_seq > 1
+    attn_fn = make_attn_fn(mesh, cfg.attn_impl, cfg.seq_schedule,
+                           cfg.sliding_window, cfg.attn_sinks)
+    tp = tp_group(mesh)
+    if tp is not None and (cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size):
+        raise ValueError(f"model = {tp.size} does not divide the heads "
+                         f"({cfg.n_heads} q, {cfg.n_kv_heads} kv)")
+    group = batch_group(mesh)
+
+    def step(params, inputs, targets):
+        check(params)
+        S = inputs.shape[1]
+        perm = zigzag_order(S, n_seq, inputs.device)[0] if zigzag else None
+        positions = (torch.arange(S, device=inputs.device) if perm is None
+                     else perm).to(torch.int32)
         optimizer.zero_grad(set_to_none=True)
-        value = loss(params, inputs, targets, cfg, attn_fn)
+        with set_checkpoint_early_stop(False):
+            value = loss_fn(params, batch_block(inputs, mesh, perm),
+                            batch_block(targets, mesh, perm), cfg, attn_fn,
+                            batch_block(positions, mesh), tp=tp)
         value.backward()
+        value = value.detach()
+        if group is not None:
+            value = _mean_over(group, param_leaves(params), value)
         optimizer.step()
-        return value.detach()
+        return value
 
     return step
 

@@ -1,0 +1,214 @@
+"""What one rank of a spawned world computes, case by case.
+
+No JAX twin. ``run_cases`` is the function ``launch.spawn_ranks`` hands the
+ranks when a caller (a test, ``chip_smoke.py``) wants several sharded runs
+out of one world: every rank builds every case's mesh in the same order
+(the meshes' process groups are built collectively) and returns one result
+a case, which the caller assembles with ``assemble`` and holds against a
+single-process run. The cases:
+
+- ``mesh``: the mesh's axis sizes, this rank's coordinates, whether
+  ``make_attn_fn(mesh)`` is plain ``dense_attention``, and whether jax was
+  imported in this process;
+- ``attention``: ``make_attn_fn`` on the rank's blocks of global q/k/v
+  (batch over slice·data, sequence over ``seq``, heads over ``model``;
+  blocks of the zigzag-permuted sequence under that schedule), and with
+  ``dout`` its gradients: each block returned with its global index;
+- ``train``: ``make_train_state``/``make_train_step`` on the mesh, from
+  given params (numpy, the JAX layout) or a seed, over given or seeded
+  batches: losses, step times (synchronised host clock), bytes staged
+  through the host a step and the host seconds in the collectives, peak
+  memory, kernel launches over the timed steps, and, given a reference
+  (a single-process step, saved with ``torch.save``), how far this rank's
+  gradients and updated shards after the first step lie from its shards
+  of it.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.convert import params_from_numpy
+from ..models.llama import param_specs
+from ..models.train import (make_attn_fn, make_train_state, make_train_step,
+                            shard_params, train_state_from)
+from ..ops import flash_attention as tfa
+from . import comm
+from .ring import dense_attention, zigzag_order
+from .topology import (AXIS_DATA, AXIS_MODEL, AXIS_SEQ, AXIS_SLICE,
+                       axis_index, axis_sizes, make_mesh)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _coords(mesh) -> dict:
+    return {a: axis_index(mesh, a) for a in mesh.mesh_dim_names}
+
+
+def mesh_case(device, mesh: dict) -> dict:
+    m = make_mesh(**mesh, device=device)
+    return {"shape": axis_sizes(m), "coords": _coords(m),
+            "dense_is_default": make_attn_fn(m) is dense_attention,
+            "jax_loaded": "jax" in sys.modules}
+
+
+def attention_case(device, mesh: dict, q, k, v, dout=None, *,
+                   schedule: str = "ring", impl: str = "dense",
+                   causal: bool = True, dtype: str = "float32",
+                   replicate_batch: bool = False) -> dict:
+    """Rank blocks of make_attn_fn(mesh, impl, schedule) on global q
+    [B,S,Hq,D], k/v [B,S,Hkv,D] (numpy) → {"index": (batch slice, sequence
+    positions, q-head slice, kv-head slice), "out", and with ``dout`` "dq",
+    "dk", "dv"} as f32 numpy. ``replicate_batch``: every rank takes all
+    rows (a batch dim the spec leaves unsharded)."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    sizes = axis_sizes(m)
+    B, S, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    nb = 1 if replicate_batch else sizes[AXIS_SLICE] * sizes[AXIS_DATA]
+    bi = 0 if replicate_batch else (axis_index(m, AXIS_SLICE)
+                                    * sizes[AXIS_DATA]
+                                    + axis_index(m, AXIS_DATA))
+    ns, si = sizes[AXIS_SEQ], axis_index(m, AXIS_SEQ)
+    nm, mi = sizes[AXIS_MODEL], axis_index(m, AXIS_MODEL)
+    pos = (zigzag_order(S, ns)[0] if schedule == "zigzag" and ns > 1
+           else torch.arange(S))[si * S // ns:(si + 1) * S // ns].numpy()
+    rows = slice(bi * B // nb, (bi + 1) * B // nb)
+    qh = slice(mi * Hq // nm, (mi + 1) * Hq // nm)
+    kh = slice(mi * Hkv // nm, (mi + 1) * Hkv // nm)
+    act = getattr(torch, dtype)
+
+    def block(a, heads):
+        t = torch.from_numpy(np.ascontiguousarray(a[rows][:, pos][:, :, heads]))
+        return t.to(dev, act).requires_grad_(dout is not None)
+
+    ql, kl, vl = block(q, qh), block(k, kh), block(v, kh)
+    attn = make_attn_fn(m, impl, schedule)
+    out = attn(ql, kl, vl, causal=causal)
+    res = {"index": (rows, pos, qh, kh), "out": _numpy(out)}
+    if dout is not None:
+        out.backward(block(dout, qh).detach())
+        res.update(dq=_numpy(ql.grad), dk=_numpy(kl.grad), dv=_numpy(vl.grad))
+    return res
+
+
+def assemble(parts: list, name: str, shape) -> np.ndarray:
+    """The global array ``name`` from attention_case results (replicas
+    write the same values)."""
+    out = np.zeros(shape, np.float32)
+    for p in parts:
+        rows, pos, qh, kh = p["index"]
+        out[rows, pos, kh if name in ("dk", "dv") else qh] = p[name]
+    return out
+
+
+def spec_leaves(tree, specs, prefix=""):
+    """(name, leaf, split dim) for every leaf of a param tree."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from spec_leaves(leaf, specs[key], f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", leaf, specs[key]
+
+
+def seeded_batch(cfg, B, S, seed, dev):
+    """(inputs, targets) [B, S] of tokens drawn from ``seed`` on ``dev``:
+    the same on every rank and in the caller."""
+    g = torch.Generator(dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=dev)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def train_case(device, mesh: dict, cfg, *, params=None, seed: int = 0,
+               batches=None, batch_shape=None, batch_seed=None,
+               steps: int = 1, warm: int = 0, reference=None) -> dict:
+    """``warm`` + ``steps`` sharded train steps of ``cfg`` on ``mesh``.
+    params: a numpy tree in the JAX layout (else drawn from ``seed``);
+    batches: a list of (inputs, targets) numpy pairs, one a step, cycled
+    (else one batch of ``batch_shape`` (B, S) drawn from ``batch_seed``,
+    default seed + 1: ``seeded_batch``). ``reference``: the path of a
+    ``torch.save``d {"grads": tree, "params": tree} of one single-process
+    step from the same params and first batch (full leaves): the first
+    step's gradients and updated params are held against this rank's
+    shards of it (``reference_errors``)."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    if params is not None:
+        tree = params_from_numpy(params, device=dev)
+        p, opt = train_state_from(shard_params(tree, m, cfg))
+    else:
+        p, opt = make_train_state(cfg, torch.Generator(dev).manual_seed(seed),
+                                  dev, mesh=m)
+    step = make_train_step(cfg, opt, mesh=m)
+    if batches is None:
+        data = [seeded_batch(cfg, *batch_shape, seed + 1 if batch_seed is None
+                             else batch_seed, dev)]
+    else:
+        data = [tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in b)
+                for b in batches]
+    cuda = dev.type == "cuda"
+    res = {"losses": [], "step_ms": [], "staged_bytes": [], "comm_s": [],
+           "coords": _coords(m)}
+    for i in range(warm + steps):
+        if i == warm:
+            tfa.reset_launches()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+        comm.reset_staged()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(p, *data[i % len(data)])
+        value = loss.item()
+        if cuda:
+            torch.cuda.synchronize()
+        if i >= warm:
+            res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            res["staged_bytes"].append(comm.STAGED["bytes"])
+            res["comm_s"].append(comm.STAGED["seconds"])
+        res["losses"].append(value)
+        if i == 0 and reference is not None:
+            res.update(reference_errors(p, torch.load(
+                reference, mmap=True, map_location="cpu"), m, cfg))
+    res["launches"] = dict(tfa.LAUNCHES)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    return res
+
+
+def reference_errors(params: dict, ref: dict, mesh, cfg) -> dict:
+    """This rank's gradients and params against its shards of the
+    single-process ``ref`` ({"grads", "params"} trees): the worst leaf's
+    max|g - ref| / max|ref|, and max|p - ref| where |g_ref| >= 1e-7 (below
+    that the sign of AdamW's first update, ±lr, follows the summation
+    order) and over every element."""
+    specs = param_specs(cfg)
+    grads, new = (shard_params(ref[k], mesh, cfg) for k in ("grads",
+                                                             "params"))
+    g_err = p_err = p_all = 0.0
+    for (_, p, _), (_, g, _), (_, w, _) in zip(
+            spec_leaves(params, specs), spec_leaves(grads, specs),
+            spec_leaves(new, specs)):
+        g, w = g.to(p.device), w.to(p.device)
+        g_err = max(g_err, ((p.grad - g).abs().max() / g.abs().max()).item())
+        d = (p.detach() - w).abs()
+        p_all = max(p_all, d.max().item())
+        p_err = max(p_err, (d * (g.abs() >= 1e-7)).max().item())
+    return {"grad_err": g_err, "param_err": p_err, "param_err_all": p_all}
+
+
+CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case}
+
+
+def run_cases(cases: list, device) -> list:
+    """Every case ({"kind": ..., its arguments}) on this rank, in order."""
+    return [CASES[c["kind"]](device, **{k: v for k, v in c.items()
+                                         if k != "kind"}) for c in cases]

@@ -24,6 +24,7 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,6 +38,7 @@ from gpu_provisioner_tpu_torch.models import speculative as tspec
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
+from gpu_provisioner_tpu_torch.parallel import jobs, launch
 
 # the split decode schedule's edge cases, as chip_smoke.py runs them
 from chip_smoke import DECODE_SPLIT_CASES
@@ -799,3 +801,42 @@ def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
         a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = act_dtype, 1, 128, 2, 2, 128
         a.ctas, a.scale = P, 1.0
         assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_and_zigzag_flash_match_plain_on_the_card(dev, dtype):
+    """Two ranks sharing the card over gloo, S_local = 256 (zigzag chunks of
+    128), D 128, GQA 4/2: the flash ring and zigzag ring's out and
+    gradients (the forward and both backward kernels on every live step,
+    partials merged by lse) against attention_plain and attention_bwd_plain
+    over the whole sequence, out within TOL, gradients within TOL of the
+    largest plain one. The ranks only load the kernels built here."""
+    _cuda.build()
+    rng = np.random.default_rng(7)
+    B, S, Hq, Hkv, D = 2, 512, 4, 2, 128
+    q, dout = (rng.standard_normal((B, S, Hq, D), np.float32)
+               for _ in range(2))
+    k, v = (rng.standard_normal((B, S, Hkv, D), np.float32)
+            for _ in range(2))
+    name = str(dtype).split(".")[1]
+    cases = [{"kind": "attention", "mesh": {"sp": 2}, "q": q, "k": k, "v": v,
+              "dout": dout, "schedule": sched, "impl": "flash",
+              "dtype": name} for sched in ("ring", "zigzag")]
+    res = launch.spawn_ranks(jobs.run_cases, 2, backend="gloo", device=dev,
+                             timeout_s=300, args=(cases, "cuda"))
+    qt, kt, vt, dt = (torch.from_numpy(a).to(dev, dtype)
+                      for a in (q, k, v, dout))
+    out, lse = tfa.attention_plain(qt, kt.transpose(1, 2),
+                                   vt.transpose(1, 2), 0, causal=True)
+    want = dict(zip(("dq", "dk", "dv"),
+                    tfa.attention_bwd_plain(qt, kt, vt, out, lse, dt)))
+    want["out"] = out
+    for i in range(len(cases)):
+        parts = [r[i] for r in res]
+        for key, ref in want.items():
+            got = torch.from_numpy(jobs.assemble(parts, key, ref.shape))
+            ref = ref.float().cpu()
+            err = (got - ref).abs().max().item()
+            if key != "out":
+                err /= ref.abs().max().item()
+            assert err < TOL[dtype], (cases[i]["schedule"], key, err)

@@ -27,6 +27,9 @@ from gpu_provisioner_tpu_torch.models import speculative as tspec
 from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 from gpu_provisioner_tpu_torch.ops import _cuda
+from gpu_provisioner_tpu_torch.parallel import bootstrap as tboot
+from gpu_provisioner_tpu_torch.parallel import launch as tlaunch
+from gpu_provisioner_tpu_torch.parallel import topology as ttopo
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
@@ -81,6 +84,32 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     with pytest.raises(ValueError, match="params on cpu"):
         td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
                     max_new_tokens=2, device="meta")
+
+
+def test_import_rule_reads_the_parallel_modules():
+    """The rule's rglob reaches the multi-GPU modules (and the spawned
+    ranks' case runner)."""
+    files = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for name in ("topology", "bootstrap", "comm", "ring", "launch", "jobs"):
+        assert f"gpu_provisioner_tpu_torch/parallel/{name}.py" in files
+
+
+def test_parallel_entry_points_without_device_raise_when_cuda_is_absent():
+    """make_mesh, initialize_distributed, the mesh form of make_train_state
+    and spawn_ranks run on cuda unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    topo = ttopo.SliceTopology(generation="v5e", topology="2x4", chips=8,
+                               hosts=2, worker_hostnames=("h0", "h1"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttopo.make_mesh(4, sp=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tboot.initialize_distributed(topo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.make_train_state(tl.PRESETS["tiny"], torch.Generator(),
+                                mesh=object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlaunch.spawn_ranks(print, 2, backend="gloo")
 
 
 def test_moe_entry_points_without_device_raise_when_cuda_is_absent():
