@@ -144,6 +144,23 @@ Phases, each of which exits non-zero on a failed check:
    in the staged collectives a step, peak memory, and each rank's
    launches a step checked (ring: 32/16/16 on seq rank 0, 64/32/32 on
    rank 1; zigzag 160/80/80; ``sharded`` in launches_by_path);
+13. pipeline and expert parallelism (parallel/pipeline.py,
+   make_pipeline_train_step, make_moe_train_step on a mesh), the ranks
+   again sharing the card over gloo: flash_fwd, flash_bwd_dq and
+   flash_bwd_dkv at the paths' own call shapes (PARALLEL_CALLS) against
+   their plain versions; one step at llama-1b width (2 layers, 4 where
+   n_chunks 2 needs them) and mixtral-ish width (2 layers, capacity
+   factor 0.5, so choices drop), f32, flash, on (pp 2, dp 2), (pp 2, tp 2)
+   gpipe and interleaved, (pp 2, sp 2), (ep 2, tp 2), (dp 2, ep 2) and
+   (sp 2, ep 2) zigzag of one 4-rank world, against this process's
+   single-process step to phase 12's limits; then full llama-1b (B=8,
+   S=2048, bf16, n_micro 4, no remat) at pp=2 over 2 ranks, gpipe and
+   interleaved, and at (pp 2, tp 2) over 4, and full-width mixtral-ish at
+   8 of 16 layers (remat, B=4, S=2048) at ep=2 over 2 ranks and (ep 2, tp
+   2) over 4: a warm step and three timed, the loss falling and equal on
+   every rank, step ms, staged bytes, seconds in collectives, peak memory
+   and each rank's launches a step checked (pipeline 32/32/32, expert
+   16/8/8; ``pipeline`` and ``expert`` in launches_by_path);
 then the phase-2, phase-9 and phase-10 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
@@ -2473,14 +2490,16 @@ SHARDED_CALLS = (("ring", 8, 1024, 16, 8), ("zigzag", 8, 512, 16, 8),
                  ("ring_sp2_tp2", 8, 1024, 8, 4))
 
 
-def phase_sharded_kernels(torch, tfa, dev):
-    """flash_fwd (#1/#2), flash_bwd_dq (#6) and flash_bwd_dkv (#7) at the
-    sharded path's own call shapes in bf16: each shape causal (a diagonal
-    block) and full (an earlier block), the backward with an lse cotangent
-    (the ring's merge gives one), against attention_plain and
-    attention_bwd_plain on the same inputs, within TOL of the reference's
-    largest value (lse within 1e-4). Returns each kernel's worst errors."""
-    g = torch.Generator(dev).manual_seed(SEED + 23)
+def phase_call_shapes(torch, tfa, dev, calls, path, causals=(True, False),
+                      lse_cotangent=True, seed=SEED + 23):
+    """flash_fwd (#1/#2), flash_bwd_dq (#6) and flash_bwd_dkv (#7) at a
+    parallel path's own call shapes ``calls`` ((label, B, S, Hq, Hkv)) in
+    bf16, each causal and (where ``causals`` says) full, the backward with
+    an lse cotangent where the path has one (the ring's merge gives one),
+    against attention_plain and attention_bwd_plain on the same inputs,
+    within TOL of the reference's largest value (lse within 1e-4). Returns
+    each kernel's worst errors."""
+    g = torch.Generator(dev).manual_seed(seed)
     D, bf, tol = 128, torch.bfloat16, TOL["bfloat16"]
 
     def rnd(*shape, dtype=bf):
@@ -2491,13 +2510,14 @@ def phase_sharded_kernels(torch, tfa, dev):
         return e, e / b.float().abs().max().item()
 
     worst = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "tolerance": tol,
-                 "shapes": [list(c) for c in SHARDED_CALLS]}
+                 "shapes": [list(c) for c in calls]}
              for k in SHARDED_KERNELS}
-    for path, B, S, Hq, Hkv in SHARDED_CALLS:
-        for causal in (True, False):
+    for label, B, S, Hq, Hkv in calls:
+        for causal in causals:
             q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
             k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-            g_lse = rnd(B, Hq, S, dtype=torch.float32)
+            g_lse = (rnd(B, Hq, S, dtype=torch.float32) if lse_cotangent
+                     else None)
             out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
             ref, rlse = tfa.attention_plain(q, k.transpose(1, 2),
                                             v.transpose(1, 2), 0,
@@ -2510,19 +2530,19 @@ def phase_sharded_kernels(torch, tfa, dev):
                                            causal=causal)
             es = [err(a, b) for a, b in zip(got, want)]
             del got, want
-            print(f"sharded call {path} bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
-                  f"causal={causal} lse_cotangent=True: flash_fwd max|err| "
-                  f"{fwd[0]:.3g} rel {fwd[1]:.3g}, |lse-plain| {lse_err:.3g}"
-                  " (tol 1e-4); " + ", ".join(
+            print(f"{path} call {label} bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                  f"causal={causal} lse_cotangent={lse_cotangent}: flash_fwd"
+                  f" max|err| {fwd[0]:.3g} rel {fwd[1]:.3g}, |lse-plain| "
+                  f"{lse_err:.3g} (tol 1e-4); " + ", ".join(
                       f"{n} max|err| {e:.3g} rel {r:.3g}"
                       for n, (e, r) in zip(("dq", "dk", "dv"), es))
                   + f" (tol {tol}, relative)")
             check(fwd[1] <= tol and lse_err <= 1e-4,
-                  f"flash_fwd disagrees with attention_plain at the sharded "
-                  f"{path} call (causal={causal})")
+                  f"flash_fwd disagrees with attention_plain at the {path} "
+                  f"{label} call (causal={causal})")
             check(all(r <= tol for _, r in es),
                   f"a backward kernel disagrees with attention_bwd_plain at "
-                  f"the sharded {path} call (causal={causal})")
+                  f"the {path} {label} call (causal={causal})")
             for name, part in (("flash_fwd", [fwd]), ("flash_bwd_dq", es[:1]),
                                ("flash_bwd_dkv", es[1:])):
                 w = worst[name]
@@ -2646,6 +2666,227 @@ def phase_sharded(torch, tl, jobs, launch, dev):
     return by_path, report
 
 
+# phase 13: the pipelined and expert-parallel steps, their ranks sharing the
+# one card over gloo. (label, B, S, Hq, Hkv) of their flash calls at full
+# size: Llama-1B's pipeline microbatch (B = 8 / n_micro) at 16/8 heads and
+# at 8/4 (tp 2 within a stage); mixtral-ish at the expert ranks' batch
+# block (the batch is replicated over expert: B 4) at 16/8 and 8/4. Every
+# call is causal with no lse cotangent (no ring on these paths).
+PARALLEL_CALLS = (("pipeline", 2, 2048, 16, 8),
+                  ("pipeline_tp2", 2, 2048, 8, 4),
+                  ("expert", 4, 2048, 16, 8), ("expert_tp2", 4, 2048, 8, 4))
+# the exact runs of one 4-rank world, one step each at llama-1b / mixtral-ish
+# width in f32 (flash) against one single-process step: (name, kind, mesh,
+# layers, n_chunks, seq_schedule); the MoE runs at capacity factor
+# OVERFLOW_CF (64 slots an expert and row for 128 claims on average: half
+# the choices drop), the batch B 4, S 512 with n_micro 2
+PARALLEL_EXACT = (("pp2_dp2", "pipeline", {"pp": 2}, 2, 1, "ring"),
+                  ("pp2_tp2", "pipeline", {"pp": 2, "tp": 2}, 2, 1, "ring"),
+                  ("pp2_tp2_interleaved", "pipeline", {"pp": 2, "tp": 2}, 4,
+                   2, "ring"),
+                  ("pp2_sp2", "pipeline", {"pp": 2, "sp": 2}, 2, 1, "ring"),
+                  ("ep2_tp2", "moe", {"ep": 2, "tp": 2}, 2, 1, "ring"),
+                  ("dp2_ep2", "moe", {"ep": 2}, 2, 1, "ring"),
+                  ("sp2_ep2_zigzag", "moe", {"sp": 2, "ep": 2}, 2, 1,
+                   "zigzag"))
+PARALLEL_EXACT_SHAPE, PARALLEL_MICRO, OVERFLOW_CF = (4, 512), 2, 0.5
+# the full-size runs: (ranks, name, kind, mesh, n_chunks). Llama-1B as
+# bench.py:213-267 trains it (B 8, S 2048, bf16, flash, AdamW; no remat: the
+# pipeline's stage body has none) with n_micro 4; mixtral-ish at 8 of 16
+# layers with remat, B 4, S 2048, as phase 11 trains it
+PARALLEL_FULL = ((2, "pp2", "pipeline", {"pp": 2}, 1),
+                 (2, "pp2_interleaved", "pipeline", {"pp": 2}, 2),
+                 (2, "ep2", "moe", {"ep": 2}, 1),
+                 (4, "pp2_tp2", "pipeline", {"pp": 2, "tp": 2}, 1),
+                 (4, "ep2_tp2", "moe", {"ep": 2, "tp": 2}, 1))
+PIPELINE_SHAPE, PIPELINE_MICRO = (8, 2048), 4
+EXPERT_SHAPE, EXPERT_LAYERS = (4, 2048), 8
+
+
+def parallel_launches(kind, cfg, n_stages):
+    """Predicted launches a step of one rank at full size: a pipeline stage
+    applies its n_layers / n_stages layers to each of PIPELINE_MICRO
+    microbatches once forward and once backward (the ramp's garbage ticks
+    compute nothing, and there is no remat); an expert rank attends its
+    whole batch block in every layer, twice forward under remat."""
+    if kind == "pipeline":
+        calls = PIPELINE_MICRO * cfg.n_layers // n_stages
+        return {k: calls for k in SHARDED_KERNELS}
+    L = cfg.n_layers
+    return {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
+def parallel_cases(tl, tm):
+    """(exact configs {name: cfg}, full-size configs {kind: cfg})."""
+    llama = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash")
+    mixtral = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"],
+                                  attn_impl="flash")
+    exact = {"llama2": dataclasses.replace(llama, n_layers=2,
+                                           dtype="float32"),
+             "llama4": dataclasses.replace(llama, n_layers=4,
+                                           dtype="float32"),
+             "mixtral2": dataclasses.replace(mixtral, n_layers=2,
+                                             dtype="float32",
+                                             capacity_factor=OVERFLOW_CF)}
+    full = {"pipeline": llama,
+            "moe": dataclasses.replace(mixtral, n_layers=EXPERT_LAYERS,
+                                       remat=True)}
+    return exact, full
+
+
+def exact_key(kind, layers):
+    """The exact run's config and reference, by parallel_cases' names."""
+    return "mixtral2" if kind == "moe" else f"llama{layers}"
+
+
+def parallel_reference(torch, tm, tt, jobs, cfg, dev, path):
+    """One single-process step of ``cfg`` from the exact runs' seed and
+    batch, saved to ``path`` as {"grads", "params"}; returns its loss."""
+    g = torch.Generator(dev).manual_seed(SEED + 30)
+    moe = isinstance(cfg, tm.MoEConfig)
+    params, opt = (tm.make_moe_train_state(cfg, g, dev) if moe
+                   else tt.make_train_state(cfg, g, dev))
+    step = (tm.make_moe_train_step if moe else tt.make_train_step)(cfg, opt)
+    inp, tgt = jobs.seeded_batch(cfg, *PARALLEL_EXACT_SHAPE, SEED + 31, dev)
+    loss = step(params, inp, tgt).item()
+
+    def grads(tree):
+        return {k: grads(v) if isinstance(v, dict) else v.grad
+                for k, v in tree.items()}
+
+    torch.save({"grads": grads(params), "params": params}, path)
+    del params, opt
+    torch.cuda.empty_cache()
+    return loss
+
+
+def held_exact(name, got, loss):
+    """Prints and checks one exact run's ranks against the single-process
+    step's ``loss`` (and, on the ranks, its gradients and params)."""
+    rel = max(abs(g["losses"][0] - loss) for g in got) / abs(loss)
+    worst = {k: max(g[k] for g in got)
+             for k in ("grad_err", "param_err", "param_err_all")}
+    print(f"parallel exact {name} (f32, B={PARALLEL_EXACT_SHAPE[0]} "
+          f"S={PARALLEL_EXACT_SHAPE[1]}): loss {got[0]['losses'][0]!r} vs "
+          f"{loss!r} rel {rel:.3g} (tol 1e-5); worst gradient leaf "
+          f"{worst['grad_err']:.3g} of its largest (tol 1e-4); params "
+          f"{worst['param_err']:.3g} where |g| >= 1e-7 (tol 1e-5; "
+          f"{worst['param_err_all']:.3g} over all); launches a rank "
+          f"{[{k: g['launches'][k] for k in SHARDED_KERNELS} for g in got]}")
+    check(rel <= 1e-5, f"parallel exact {name}: loss rel {rel}")
+    check(worst["grad_err"] <= 1e-4,
+          f"parallel exact {name}: gradients {worst['grad_err']}")
+    check(worst["param_err"] <= 1e-5,
+          f"parallel exact {name}: params {worst['param_err']}")
+
+
+def held_full(name, kind, ranks, mesh, cfg, got, wall, steps):
+    """Prints one full-size run and checks its falling loss, its ranks'
+    agreement and each rank's launches a step against parallel_launches;
+    returns its report row."""
+    shape = PIPELINE_SHAPE if kind == "pipeline" else EXPERT_SHAPE
+    row = {"ranks": ranks, "mesh": mesh, "layers": cfg.n_layers,
+           "batch": shape, "losses": got[0]["losses"],
+           "step_ms_by_rank": [g["step_ms"] for g in got],
+           "staged_bytes_a_step_by_rank": [g["staged_bytes"] for g in got],
+           "collective_s_by_rank": [g["comm_s"] for g in got],
+           "peak_gib_by_rank": [(g["peak_bytes"] or 0) / 2**30 for g in got],
+           "launches_a_step_by_rank": [
+               {k: g["launches"][k] / steps for k in SHARDED_KERNELS}
+               for g in got],
+           "what": SHARED}
+    if kind == "pipeline":
+        row["n_micro"] = PIPELINE_MICRO
+    print(f"parallel {cfg.n_layers}-layer {name} ({ranks} {SHARED}; "
+          f"{wall:.1f} s for the world): {json.dumps(row)}")
+    losses = got[0]["losses"]
+    check(all(x == x and abs(x) < float("inf") for x in losses),
+          f"parallel {name}: a loss is not finite")
+    check(losses[-1] < losses[SHARDED_WARM] < losses[0],
+          f"parallel {name}: loss did not fall: {losses}")
+    check(all(g["losses"] == losses for g in got),
+          f"parallel {name}: ranks disagree on the loss")
+    want = parallel_launches(kind, cfg, mesh.get("pp", 1))
+    for g in got:
+        for k, n in want.items():
+            check(g["launches"][k] == n * steps,
+                  f"parallel {name} rank {g['coords']}: {k} launched "
+                  f"{g['launches'][k]} times in {steps} steps, expected "
+                  f"{n * steps}")
+    return row
+
+
+def phase_parallel(torch, tl, tm, tt, jobs, launch, dev):
+    """The exact runs (PARALLEL_EXACT, one step each against the
+    single-process step, saved for the ranks to cut) and the full-size
+    runs of PARALLEL_FULL over 4 ranks in one world, then those over 2
+    ranks in another; returns ({"pipeline": {name: launches by rank},
+    "expert": {...}} a kernel, the report)."""
+    exact, full = parallel_cases(tl, tm)
+    steps = SHARDED_STEPS
+    shared = {"warm": SHARDED_WARM, "steps": steps, "seed": SEED + 32}
+
+    def full_case(kind, mesh, n_chunks):
+        cfg = full[kind]
+        shape = PIPELINE_SHAPE if kind == "pipeline" else EXPERT_SHAPE
+        case = {"kind": kind, "mesh": mesh, "cfg": cfg, "batch_shape": shape,
+                **shared}
+        if kind == "pipeline":
+            case.update(n_micro=PIPELINE_MICRO, n_chunks=n_chunks)
+        return case
+
+    by_path, report = {"pipeline": {}, "expert": {}}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-parallel-") as d:
+        losses, paths = {}, {}
+        t0 = time.perf_counter()
+        for name, cfg in exact.items():
+            paths[name] = str(Path(d) / f"{name}.pt")
+            losses[name] = parallel_reference(torch, tm, tt, jobs, cfg, dev,
+                                              paths[name])
+        print(f"parallel references (single process): "
+              f"{time.perf_counter() - t0:.1f} s")
+        cases = []
+        for name, kind, mesh, layers, n_chunks, sched in PARALLEL_EXACT:
+            key = exact_key(kind, layers)
+            cases.append({"kind": kind, "mesh": mesh,
+                          "cfg": dataclasses.replace(exact[key],
+                                                     seq_schedule=sched),
+                          "seed": SEED + 30,
+                          "batch_shape": PARALLEL_EXACT_SHAPE,
+                          "batch_seed": SEED + 31, "reference": paths[key],
+                          "n_micro": PARALLEL_MICRO, "n_chunks": n_chunks})
+        fours = [f for f in PARALLEL_FULL if f[0] == 4]
+        cases += [full_case(kind, mesh, nc) for _, _, kind, mesh, nc in fours]
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, 4, backend="gloo",
+                                 device=dev, timeout_s=900,
+                                 args=(cases, dev.type))
+        wall = time.perf_counter() - t0
+    for i, (name, kind, mesh, layers, _, _) in enumerate(PARALLEL_EXACT):
+        held_exact(f"{name} {mesh}", [r[i] for r in res],
+                   losses[exact_key(kind, layers)])
+    results = {f[1]: [r[len(PARALLEL_EXACT) + i] for r in res]
+               for i, f in enumerate(fours)}
+    walls = {f[1]: wall for f in fours}
+    twos = [f for f in PARALLEL_FULL if f[0] == 2]
+    t0 = time.perf_counter()
+    res = launch.spawn_ranks(
+        jobs.run_cases, 2, backend="gloo", device=dev, timeout_s=900,
+        args=([full_case(kind, mesh, nc) for _, _, kind, mesh, nc in twos],
+              dev.type))
+    wall = time.perf_counter() - t0
+    results.update({f[1]: [r[i] for r in res] for i, f in enumerate(twos)})
+    walls.update({f[1]: wall for f in twos})
+    for ranks, name, kind, mesh, _ in PARALLEL_FULL:
+        got = results[name]
+        report[name] = held_full(name, kind, ranks, mesh, full[kind], got,
+                                 walls[name], steps)
+        path = "pipeline" if kind == "pipeline" else "expert"
+        by_path[path][name] = {k: [g["launches"][k] for g in got]
+                               for k in SHARDED_KERNELS}
+    return by_path, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2743,12 +2984,22 @@ def main() -> int:
     print(f"resumable-training phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sharded_errs = phase_sharded_kernels(torch, tfa, dev)
+    sharded_errs = phase_call_shapes(torch, tfa, dev, SHARDED_CALLS,
+                                     "sharded")
     torch.cuda.empty_cache()
     phase_sharded_exact(torch, tl, tt, jobs, launch, dev)
     torch.cuda.empty_cache()
     sharded, sharded_report = phase_sharded(torch, tl, jobs, launch, dev)
     print(f"sharded-training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel_errs = phase_call_shapes(torch, tfa, dev, PARALLEL_CALLS,
+                                      "parallel", causals=(True,),
+                                      lse_cotangent=False, seed=SEED + 33)
+    torch.cuda.empty_cache()
+    parallel, parallel_report = phase_parallel(torch, tl, tm, tt, jobs,
+                                               launch, dev)
+    print(f"pipeline and expert phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
@@ -2775,6 +3026,12 @@ def main() -> int:
             r["at_sharded_shapes"] = sharded_errs[name]
             r["max_abs_err"] = max(r["max_abs_err"],
                                    sharded_errs[name]["max_abs_err"])
+            r["launches_by_path"].update(
+                {k: {run: v[name] for run, v in runs.items()}
+                 for k, runs in parallel.items()})
+            r["at_parallel_shapes"] = parallel_errs[name]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   parallel_errs[name]["max_abs_err"])
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -2795,6 +3052,8 @@ def main() -> int:
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")
     print(f"sharded training ({SHARED}): {json.dumps(sharded_report)}")
+    print(f"pipeline and expert training ({SHARED}): "
+          f"{json.dumps(parallel_report)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

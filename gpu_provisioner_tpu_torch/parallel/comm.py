@@ -13,7 +13,12 @@ conjugate pair) and for the gradients of the batch axes.
 - ``copy_to_tp``: identity forward, all-reduce backward (before a
   column-parallel product); ``reduce_from_tp``: all-reduce forward, identity
   backward (after a row-parallel product).
-- ``all_reduce_``: in place, for the gradients and the loss.
+- ``all_reduce_``: in place, for the gradients and the loss;
+- ``sum_over``: all-reduce (sum) forward; backward, the cotangent times
+  the group's size: psum's transpose where every rank's cotangent is the
+  same (a global mean every rank computes alike from the sum, such as the
+  MoE load-balance term's), so a step that then averages the gradients
+  over the group counts the term once.
 
 **Transport.** NCCL takes CUDA tensors. Gloo's point-to-point ops take
 host memory only, so where a group's backend is gloo and a tensor lies on
@@ -204,3 +209,20 @@ def reduce_from_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """All-reduce (sum) over ``tp`` forward, identity backward: the output
     of a row-parallel product, replicated on every rank of the group."""
     return _ReduceFromTP.apply(x, tp.group)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) of ``x`` over ``group``; its backward multiplies
+    the (replicated) cotangent by the group's size."""
+    return _SumOver.apply(x, group)

@@ -14,20 +14,26 @@ single-process run. The cases:
   (batch over slice·data, sequence over ``seq``, heads over ``model``;
   blocks of the zigzag-permuted sequence under that schedule), and with
   ``dout`` its gradients: each block returned with its global index;
-- ``train``: ``make_train_state``/``make_train_step`` on the mesh, from
-  given params (numpy, the JAX layout) or a seed, over given or seeded
-  batches: losses, step times (synchronised host clock), bytes staged
-  through the host a step and the host seconds in the collectives, peak
-  memory, kernel launches over the timed steps, and, given a reference
-  (a single-process step, saved with ``torch.save``), how far this rank's
-  gradients and updated shards after the first step lie from its shards
-  of it.
+- ``train`` (``pipeline``, ``moe``): ``make_train_state``/
+  ``make_train_step`` on the mesh (``make_pipeline_train_state``/
+  ``make_pipeline_train_step``; ``make_moe_train_state``/
+  ``make_moe_train_step``), from given params (numpy, the JAX layout) or
+  a seed, over given or seeded batches: losses, step times (synchronised
+  host clock), bytes staged through the host a step and the host seconds
+  in the collectives, peak memory, kernel launches over the timed steps,
+  and, given a reference (a single-process step, saved with
+  ``torch.save``), how far this rank's gradients and updated shards after
+  the first step lie from its shards of it;
+- ``pipeline_forward``: ``make_pipeline_forward``'s logits on the last
+  stage; ``refusals``: the ValueErrors of the pipelined step's
+  preconditions and of ``make_train_step`` on a ``pipe`` mesh.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -35,13 +41,19 @@ import torch
 from ..device import resolve_device
 from ..models.convert import params_from_numpy
 from ..models.llama import param_specs
-from ..models.train import (make_attn_fn, make_train_state, make_train_step,
+from ..models.moe import (make_moe_train_state, make_moe_train_step,
+                          moe_model_specs)
+from ..models.train import (make_attn_fn, make_pipeline_forward,
+                            make_pipeline_train_state,
+                            make_pipeline_train_step, make_train_state,
+                            make_train_step, pipeline_param_specs,
                             shard_params, train_state_from)
 from ..ops import flash_attention as tfa
 from . import comm
+from .pipeline import to_pipeline_layout
 from .ring import dense_attention, zigzag_order
-from .topology import (AXIS_DATA, AXIS_MODEL, AXIS_SEQ, AXIS_SLICE,
-                       axis_index, axis_sizes, make_mesh)
+from .topology import (AXIS_DATA, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ,
+                       AXIS_SLICE, axis_index, axis_sizes, make_mesh)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -111,7 +123,8 @@ def assemble(parts: list, name: str, shape) -> np.ndarray:
 
 
 def spec_leaves(tree, specs, prefix=""):
-    """(name, leaf, split dim) for every leaf of a param tree."""
+    """(name, leaf, spec) for every leaf of a param tree: its split dim or
+    {axis: dim} (``train.split_axes``)."""
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
             yield from spec_leaves(leaf, specs[key], f"{prefix}{key}/")
@@ -128,34 +141,73 @@ def seeded_batch(cfg, B, S, seed, dev):
     return toks[:, :-1], toks[:, 1:]
 
 
+def _family(kind: str, cfg, mesh, n_chunks: int = 1):
+    """(specs, layout) of a ``kind`` of train case ("train": the dense
+    model, "pipeline", "moe"): the spec tree its leaves are cut by, and
+    the map of a whole tree in the JAX layout to the one it is cut from
+    (the pipelined blocks' storage order)."""
+    if kind == "moe":
+        return moe_model_specs(cfg), lambda tree: tree
+    if kind == "pipeline":
+        n = axis_sizes(mesh)[AXIS_PIPE]
+        return pipeline_param_specs(cfg), lambda tree: dict(
+            tree, blocks=to_pipeline_layout(tree["blocks"], cfg.n_layers, n,
+                                            n_chunks))
+    return param_specs(cfg), lambda tree: tree
+
+
+def _state_and_step(kind, dev, m, cfg, params, seed, n_micro, n_chunks):
+    """(params, optimizer, step) of a train case, through the entry points a
+    user calls."""
+    specs, layout = _family(kind, cfg, m, n_chunks)
+    if params is not None:
+        p, opt = train_state_from(shard_params(
+            layout(params_from_numpy(params, device=dev)), m, specs=specs))
+    else:
+        g = torch.Generator(dev).manual_seed(seed)
+        p, opt = (make_moe_train_state(cfg, g, dev, mesh=m) if kind == "moe"
+                  else make_pipeline_train_state(cfg, g, m, dev,
+                                                 n_chunks=n_chunks)
+                  if kind == "pipeline" else make_train_state(cfg, g, dev,
+                                                              mesh=m))
+    if kind == "pipeline":
+        step = make_pipeline_train_step(cfg, opt, m, n_micro, n_chunks)
+    elif kind == "moe":
+        step = make_moe_train_step(cfg, opt, m)
+    else:
+        step = make_train_step(cfg, opt, mesh=m)
+    return p, opt, step
+
+
 def train_case(device, mesh: dict, cfg, *, params=None, seed: int = 0,
                batches=None, batch_shape=None, batch_seed=None,
-               steps: int = 1, warm: int = 0, reference=None) -> dict:
-    """``warm`` + ``steps`` sharded train steps of ``cfg`` on ``mesh``.
+               steps: int = 1, warm: int = 0, reference=None,
+               kind: str = "train", n_micro: int = 4,
+               n_chunks: int = 1) -> dict:
+    """``warm`` + ``steps`` sharded train steps of ``cfg`` on ``mesh``:
+    the dense step (``kind`` "train"), the pipelined one ("pipeline",
+    ``n_micro``, ``n_chunks``) or the MoE one ("moe").
     params: a numpy tree in the JAX layout (else drawn from ``seed``);
     batches: a list of (inputs, targets) numpy pairs, one a step, cycled
     (else one batch of ``batch_shape`` (B, S) drawn from ``batch_seed``,
     default seed + 1: ``seeded_batch``). ``reference``: the path of a
     ``torch.save``d {"grads": tree, "params": tree} of one single-process
-    step from the same params and first batch (full leaves): the first
-    step's gradients and updated params are held against this rank's
-    shards of it (``reference_errors``)."""
+    step from the same params and first batch (full leaves, the JAX
+    layout): the first step's gradients and updated params are held
+    against this rank's shards of it (``reference_errors``)."""
     dev = resolve_device(device)
     m = make_mesh(**mesh, device=device)
-    if params is not None:
-        tree = params_from_numpy(params, device=dev)
-        p, opt = train_state_from(shard_params(tree, m, cfg))
-    else:
-        p, opt = make_train_state(cfg, torch.Generator(dev).manual_seed(seed),
-                                  dev, mesh=m)
-    step = make_train_step(cfg, opt, mesh=m)
+    p, opt, step = _state_and_step(kind, dev, m, cfg, params, seed, n_micro,
+                                   n_chunks)
+    cuda = dev.type == "cuda"
+    if cuda:        # the whole tree each rank drew: give it back to the card
+        torch.cuda.empty_cache()
     if batches is None:
         data = [seeded_batch(cfg, *batch_shape, seed + 1 if batch_seed is None
                              else batch_seed, dev)]
     else:
         data = [tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in b)
                 for b in batches]
-    cuda = dev.type == "cuda"
     res = {"losses": [], "step_ms": [], "staged_bytes": [], "comm_s": [],
            "coords": _coords(m)}
     for i in range(warm + steps):
@@ -177,35 +229,88 @@ def train_case(device, mesh: dict, cfg, *, params=None, seed: int = 0,
             res["comm_s"].append(comm.STAGED["seconds"])
         res["losses"].append(value)
         if i == 0 and reference is not None:
-            res.update(reference_errors(p, torch.load(
-                reference, mmap=True, map_location="cpu"), m, cfg))
+            res.update(reference_errors(
+                p, torch.load(reference, mmap=True, map_location="cpu"), m,
+                *_family(kind, cfg, m, n_chunks)))
     res["launches"] = dict(tfa.LAUNCHES)
     res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    del p, opt, step
+    if cuda:
+        torch.cuda.empty_cache()
     return res
 
 
-def reference_errors(params: dict, ref: dict, mesh, cfg) -> dict:
-    """This rank's gradients and params against its shards of the
-    single-process ``ref`` ({"grads", "params"} trees): the worst leaf's
-    max|g - ref| / max|ref|, and max|p - ref| where |g_ref| >= 1e-7 (below
-    that the sign of AdamW's first update, ±lr, follows the summation
-    order) and over every element."""
-    specs = param_specs(cfg)
-    grads, new = (shard_params(ref[k], mesh, cfg) for k in ("grads",
-                                                             "params"))
+def pipeline_forward_case(device, mesh: dict, cfg, params, tokens, *,
+                          n_micro: int = 4, n_chunks: int = 1) -> dict:
+    """make_pipeline_forward on the rank's block of ``tokens`` ([B, S]
+    numpy) from ``params`` (numpy, the JAX layout): this rank's
+    coordinates and, on the last stage, its logits (f32 numpy)."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    specs, layout = _family("pipeline", cfg, m, n_chunks)
+    tree = shard_params(layout(params_from_numpy(params, device=dev)), m,
+                        specs=specs)
+    with torch.no_grad():
+        logits, _ = make_pipeline_forward(cfg, m, n_micro, n_chunks)(
+            tree, torch.from_numpy(np.asarray(tokens)).to(dev))
+    return {"coords": _coords(m),
+            "logits": None if logits is None else _numpy(logits)}
+
+
+def refusals_case(device, mesh: dict, cfg, attempts: list) -> list:
+    """The ValueError message of each attempt on ``mesh`` (None where it
+    went through): ("pipeline", n_micro, n_chunks, B) builds
+    make_pipeline_train_step and takes a step on a [B, 8] batch; ("train",)
+    builds make_train_step."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    out = []
+    for kind, *args in attempts:
+        p, opt = make_pipeline_train_state(
+            cfg, torch.Generator(dev).manual_seed(0), m, dev)
+        try:
+            if kind == "train":
+                make_train_step(cfg, opt, mesh=m)
+            else:
+                n_micro, n_chunks, B = args
+                step = make_pipeline_train_step(cfg, opt, m, n_micro,
+                                                n_chunks)
+                step(p, *seeded_batch(cfg, B, 8, 1, dev))
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out
+
+
+def reference_errors(params: dict, ref: dict, mesh, specs: dict,
+                     layout=lambda tree: tree) -> dict:
+    """This rank's gradients and params against its shards (``specs``) of
+    the single-process ``ref`` ({"grads", "params"} trees, mapped by
+    ``layout`` first): the worst leaf's max|g - ref| / max|ref|, and
+    max|p - ref| where |g_ref| >= 1e-7 (below that the sign of AdamW's
+    first update, ±lr, follows the summation order) and over every
+    element."""
+    grads, new = (shard_params(layout(ref[k]), mesh, specs=specs)
+                  for k in ("grads", "params"))
     g_err = p_err = p_all = 0.0
     for (_, p, _), (_, g, _), (_, w, _) in zip(
             spec_leaves(params, specs), spec_leaves(grads, specs),
             spec_leaves(new, specs)):
         g, w = g.to(p.device), w.to(p.device)
-        g_err = max(g_err, ((p.grad - g).abs().max() / g.abs().max()).item())
+        scale = g.abs().max().clamp_min(torch.finfo(g.dtype).tiny)
+        g_err = max(g_err, ((p.grad - g).abs().max() / scale).item())
         d = (p.detach() - w).abs()
         p_all = max(p_all, d.max().item())
         p_err = max(p_err, (d * (g.abs() >= 1e-7)).max().item())
     return {"grad_err": g_err, "param_err": p_err, "param_err_all": p_all}
 
 
-CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case}
+CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case,
+         "pipeline": partial(train_case, kind="pipeline"),
+         "moe": partial(train_case, kind="moe"),
+         "pipeline_forward": pipeline_forward_case,
+         "refusals": refusals_case}
 
 
 def run_cases(cases: list, device) -> list:

@@ -87,10 +87,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
 
 
 def test_import_rule_reads_the_parallel_modules():
-    """The rule's rglob reaches the multi-GPU modules (and the spawned
-    ranks' case runner)."""
+    """The rule's rglob reaches the multi-GPU modules (the pipeline too, and
+    the spawned ranks' case runner)."""
     files = {f.relative_to(ROOT).as_posix() for f in _port_files()}
-    for name in ("topology", "bootstrap", "comm", "ring", "launch", "jobs"):
+    for name in ("topology", "bootstrap", "comm", "ring", "launch", "jobs",
+                 "pipeline"):
         assert f"gpu_provisioner_tpu_torch/parallel/{name}.py" in files
 
 
@@ -110,6 +111,19 @@ def test_parallel_entry_points_without_device_raise_when_cuda_is_absent():
                                 mesh=object())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.spawn_ranks(print, 2, backend="gloo")
+
+
+def test_pipeline_and_expert_states_raise_when_cuda_is_absent():
+    """The pipelined train state and the MoE train state on a mesh run on
+    cuda unless the caller names the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.make_pipeline_train_state(tl.PRESETS["tiny"],
+                                         torch.Generator(), object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.make_moe_train_state(tm.PRESETS_MOE["tiny-moe"],
+                                torch.Generator(), mesh=object())
 
 
 def test_moe_entry_points_without_device_raise_when_cuda_is_absent():
