@@ -137,13 +137,14 @@ Phases, each of which exits non-zero on a failed check:
    tp 2) and (tp 2, dp 2) of one 4-rank world, each rank's gradients and
    updated shards against this process's make_train_step (loss 1e-5
    relative, gradients 1e-4 of the largest, params 1e-5 where |g| >=
-   1e-7), no rank importing jax; then full llama-1b (bf16, f32 masters,
-   remat, B=8, S=2048) at sp=2 over 2 ranks, ring then zigzag, and at (sp
-   2, tp 2) over 4: a warm step and three timed, the loss falling and
-   equal on every rank, step ms, bytes staged through the host and seconds
-   in the staged collectives a step, peak memory, and each rank's
-   launches a step checked (ring: 32/16/16 on seq rank 0, 64/32/32 on
-   rank 1; zigzag 160/80/80; ``sharded`` in launches_by_path);
+   1e-7), no rank importing jax; then full-width llama-1b at 8 of 16
+   layers (bf16, f32 masters, remat, B=8, S=2048) at sp=2 over 2 ranks,
+   ring then zigzag, and at (sp 2, tp 2) over 4: a warm step and three
+   timed, the loss falling and equal on every rank, step ms, bytes staged
+   through the host and seconds in the staged collectives a step, peak
+   memory, and each rank's launches a step checked (ring: 16/8/8 on seq
+   rank 0, 32/16/16 on rank 1; zigzag 80/40/40; ``sharded`` in
+   launches_by_path);
 13. pipeline and expert parallelism (parallel/pipeline.py,
    make_pipeline_train_step, make_moe_train_step on a mesh), the ranks
    again sharing the card over gloo: flash_fwd, flash_bwd_dq and
@@ -153,16 +154,37 @@ Phases, each of which exits non-zero on a failed check:
    factor 0.5, so choices drop), f32, flash, on (pp 2, dp 2), (pp 2, tp 2)
    gpipe and interleaved, (pp 2, sp 2), (ep 2, tp 2), (dp 2, ep 2) and
    (sp 2, ep 2) zigzag of one 4-rank world, against this process's
-   single-process step to phase 12's limits; then full llama-1b (B=8,
-   S=2048, bf16, n_micro 4, no remat) at pp=2 over 2 ranks, gpipe and
-   interleaved, and at (pp 2, tp 2) over 4, and full-width mixtral-ish at
-   8 of 16 layers (remat, B=4, S=2048) at ep=2 over 2 ranks and (ep 2, tp
-   2) over 4: a warm step and three timed, the loss falling and equal on
-   every rank, step ms, staged bytes, seconds in collectives, peak memory
-   and each rank's launches a step checked (pipeline 32/32/32, expert
-   16/8/8; ``pipeline`` and ``expert`` in launches_by_path);
-then the phase-2, phase-9 and phase-10 rows' device times, the card line,
-the kernels line and, last, the device line.
+   single-process step to phase 12's limits; then full-width llama-1b at
+   8 of 16 layers (B=8, S=2048, bf16, n_micro 4, no remat) at pp=2 over
+   2 ranks, gpipe and interleaved, and at (pp 2, tp 2) over 4, and
+   full-width mixtral-ish at 8 of 16 layers (remat, B=4, S=2048) at ep=2
+   over 2 ranks and (ep 2, tp 2) over 4: a warm step and three timed, the
+   loss falling and equal on every rank, step ms, staged bytes, seconds in
+   collectives, peak memory and each rank's launches a step checked
+   (pipeline 16/16/16, expert 16/8/8; ``pipeline`` and ``expert`` in
+   launches_by_path);
+14. sharded serving (generate, speculative_generate, ServeEngine and
+   cached_forward with ``mesh=``: models/decode.py, moe_serve.py,
+   speculative.py, engine.py), the ranks again sharing the card over gloo:
+   #1, #4 and #5 at the per-rank shapes (Hq 16/Hkv 4: Llama-7B at tp=2;
+   8/4: mixtral-ish at (ep=2, tp=2)), bf16 and f32, plain and int8 caches,
+   against their plain versions, the bf16 calls timed
+   (``at_tp_serving_shapes``); at 2 layers in f32 (the kernels' f32
+   instances) Llama-7B width on tp=2 (data 2 × model 2): generate fresh,
+   left-padded, on an int8 cache, self-draft speculation, a ServeEngine
+   with a cached prefix, then mixtral-ish width on ep=2 and (ep=2, tp=2),
+   one 4-rank world, every rank's tokens equal to this process's
+   single-process run and each generate's launches L of #1 or #4 and
+   (new - 1)·L of #5 (``serving_exact``); full Llama-7B (32 layers, bf16)
+   at tp=2 and full mixtral-ish (16 layers) at ep=2 over 2 ranks: generate
+   B=2, S0=512, 32 new (fresh, left-padded, int8 cache), three
+   ServeEngine passes of 6 requests after a warm one (a shared prefix,
+   dense only), the launches a rank checked, tokens/s, staged bytes and
+   collective seconds a forward, peak a rank (``tp_serving``,
+   ``ep_serving``); then entry() on the card, dryrun_multichip(4) and the
+   four serving bench twins at fast size with their launches;
+then the phase-2, 9, 10 and 14 rows' device times, the card line, the
+kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -2469,6 +2491,9 @@ SHARDED_EXACT = ((({"sp": 2}, "ring"), ({"sp": 2}, "zigzag"),
 SHARDED_FULL = ((2, {"sp": 2}, ("ring", "zigzag")),
                 (4, {"sp": 2, "tp": 2}, ("ring",)))
 SHARDED_SHAPE, SHARDED_WARM, SHARDED_STEPS = (8, 2048), 1, 3
+# the full-size runs' depth: 8 of llama-1b's 16 layers (the whole script's
+# time; phase 12 took 140-215 s at 16, most of it staging gradients)
+SHARDED_LAYERS = 8
 SHARED = "ranks sharing one H100 over gloo; not a multi-GPU time"
 SHARDED_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -2610,11 +2635,12 @@ def phase_sharded_exact(torch, tl, tt, jobs, launch, dev):
 
 
 def phase_sharded(torch, tl, jobs, launch, dev):
-    """Full Llama-1B (bf16, f32 masters, remat, flash, B=8, S=2048): at
-    sp=2 over 2 ranks, ring then zigzag, and at (sp=2, tp=2) over 4 ranks,
-    SHARDED_WARM + SHARDED_STEPS steps each, every rank on the one card."""
+    """Full-width Llama-1B at SHARDED_LAYERS layers (bf16, f32 masters,
+    remat, flash, B=8, S=2048): at sp=2 over 2 ranks, ring then zigzag,
+    and at (sp=2, tp=2) over 4 ranks, SHARDED_WARM + SHARDED_STEPS steps
+    each, every rank on the one card."""
     cfg = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash",
-                              remat=True)
+                              remat=True, n_layers=SHARDED_LAYERS)
     L, steps = cfg.n_layers, SHARDED_STEPS
     by_path, report = {}, {}
     for ranks, mesh, scheds in SHARDED_FULL:
@@ -2690,10 +2716,11 @@ PARALLEL_EXACT = (("pp2_dp2", "pipeline", {"pp": 2}, 2, 1, "ring"),
                   ("sp2_ep2_zigzag", "moe", {"sp": 2, "ep": 2}, 2, 1,
                    "zigzag"))
 PARALLEL_EXACT_SHAPE, PARALLEL_MICRO, OVERFLOW_CF = (4, 512), 2, 0.5
-# the full-size runs: (ranks, name, kind, mesh, n_chunks). Llama-1B as
-# bench.py:213-267 trains it (B 8, S 2048, bf16, flash, AdamW; no remat: the
-# pipeline's stage body has none) with n_micro 4; mixtral-ish at 8 of 16
-# layers with remat, B 4, S 2048, as phase 11 trains it
+# the full-size runs: (ranks, name, kind, mesh, n_chunks). Llama-1B at
+# SHARDED_LAYERS of its 16 layers as bench.py:213-267 trains it (B 8, S
+# 2048, bf16, flash, AdamW; no remat: the pipeline's stage body has none)
+# with n_micro 4; mixtral-ish at 8 of 16 layers with remat, B 4, S 2048, as
+# phase 11 trains it
 PARALLEL_FULL = ((2, "pp2", "pipeline", {"pp": 2}, 1),
                  (2, "pp2_interleaved", "pipeline", {"pp": 2}, 2),
                  (2, "ep2", "moe", {"ep": 2}, 1),
@@ -2728,7 +2755,7 @@ def parallel_cases(tl, tm):
              "mixtral2": dataclasses.replace(mixtral, n_layers=2,
                                              dtype="float32",
                                              capacity_factor=OVERFLOW_CF)}
-    full = {"pipeline": llama,
+    full = {"pipeline": dataclasses.replace(llama, n_layers=SHARDED_LAYERS),
             "moe": dataclasses.replace(mixtral, n_layers=EXPERT_LAYERS,
                                        remat=True)}
     return exact, full
@@ -2887,6 +2914,455 @@ def phase_parallel(torch, tl, tm, tt, jobs, launch, dev):
     return by_path, report
 
 
+# phase 14: sharded serving, the ranks sharing the one card over gloo. The
+# per-rank attention shapes (Hq, Hkv) of the serving meshes: Llama-7B at
+# tp=2 (16/4) and mixtral-ish at (ep=2, tp=2) (8/4); at ep=2 alone the
+# attention stays whole (16/8: phase 9's shape)
+SERVE_TP_HEADS = {"llama-7b tp2": (16, 4), "mixtral-ish ep2 tp2": (8, 4)}
+SERVE_KERNEL_ROWS = ("flash_fwd", "flash_cached", "flash_cached_int8",
+                     "flash_decode", "flash_decode_int8")
+# the exact runs (f32, 2 layers): B, S0, new tokens, max_len, spec_k
+SERVE_EXACT = (4, 256, 8, 384, 4)
+# the full-size runs, as phase 4 serves: B, S0, new tokens, max_len
+SERVE_FULL = (2, 512, 32, 1024)
+SERVE_PASSES = 3
+
+
+def serve_launches(L, new, fresh, int8):
+    """Predicted launches of one rank's generate: the prefill's L (#1 on a
+    fresh cache, else #4) and (new - 1)·L of #5, on the int8 instances
+    with an int8 cache."""
+    sfx = "_int8" if int8 else ""
+    return {"flash_fwd" if fresh else "flash_cached" + sfx: L,
+            "flash_decode" + sfx: (new - 1) * L}
+
+
+def is_int8(prog):
+    return prog.get("cfg", {}).get("kv_cache_dtype") == "int8"
+
+
+def phase_serve_kernels(torch, tfa, td, dev, deferred):
+    """#1, #4 and #5 at the sharded serving path's per-rank shapes
+    (SERVE_TP_HEADS, D 128) against their plain versions, in bf16 and f32,
+    #4 and #5 on a plain and an int8 cache: generate's fresh prefill (B=2,
+    S=512, #1 at 16/4 only: the MoE family has no fresh path), its ragged
+    prefill (B=2, S=512, pads 0 and 200, ML 1024) and decode step (B=2,
+    starts 530 and 700, the same pads), an engine admission after a
+    cached prefix (B=1, S=256 at 128, pad 28, ML 2048, 16/4); the bf16
+    calls timed beside their plain versions, SDPA and their bounds (device
+    times deferred). Returns ({row: {label: entry}}, {row: worst bf16
+    error})."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 40)
+    D, bf = 128, torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    errs = dict.fromkeys(SERVE_KERNEL_ROWS, 0.0)
+    entries = {r: {} for r in SERVE_KERNEL_ROWS}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def fresh(label, dtype, Hq, Hkv, B, S):
+        q = rnd(B, S, Hq, D, dtype=dtype)
+        k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D, dtype=dtype)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        kernel = lambda: tfa.flash_attention_with_lse(q, k, v)
+        plain = lambda: tfa.attention_plain(q, kh, vh, 0)
+        out, lse = kernel()
+        ref, rlse = plain()
+        e = (out.float() - ref.float()).abs().max().item()
+        el = (lse - rlse).abs().max().item()
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"flash_fwd {dtype} at the {label} rank's shape B={B} S={S} "
+              f"Hq={Hq} Hkv={Hkv}: max|out-plain| {e:.3g}, |lse-plain| "
+              f"{el:.3g} (tol {tol}, 1e-4)")
+        check(e <= tol and el <= 1e-4,
+              f"flash_fwd disagrees with plain at the {label} shape")
+        if dtype != bf:
+            return
+        errs["flash_fwd"] = max(errs["flash_fwd"], e)
+        library = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kh, vh, is_causal=True, enable_gqa=True)
+        entry = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv}, self-attention",
+                 "max_abs_err": e,
+                 **timing(kernel, plain, library,
+                          work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True,
+                               2, 2, False, True), flush)}
+        entries["flash_fwd"][f"{label} fresh prefill"] = entry
+        deferred.append((entry, kernel, library, ("flash_fwd_tc_kernel",)))
+
+    def cached(label, what, dtype, Hq, Hkv, B, S, start, pads, ML):
+        q = rnd(B, S, Hq, D, dtype=dtype)
+        kc, vc = (rnd(B, Hkv, ML, D, dtype=dtype) for _ in range(2))
+        pl = torch.tensor(pads, dtype=torch.int32, device=dev)
+        st = (torch.tensor(start, dtype=torch.int32, device=dev)
+              if isinstance(start, list) else start)
+        name = "flash_decode" if S <= tfa.DECODE_MAX_S else "flash_cached"
+        fn = getattr(tfa, "flash_attention_" + name.split("_")[1])
+        kp = torch.arange(ML, device=dev)
+        qp = torch.as_tensor(st, device=dev).reshape(-1, 1) \
+            + torch.arange(S, device=dev)
+        mask = ((kp <= qp[..., None]) & (kp >= pl[:, None, None]))[:, None]
+        for int8 in (False, True):
+            kw = {"pad_lens": pl}
+            k_, v_ = kc, vc
+            if int8:
+                (k_, kw["k_scale"]), (v_, kw["v_scale"]) = \
+                    td._quantize_kv(kc), td._quantize_kv(vc)
+            row = name + ("_int8" if int8 else "")
+            kernel = (lambda k_=k_, v_=v_, kw=kw: fn(q, k_, v_, st, **kw))
+            plain = (lambda k_=k_, v_=v_, kw=kw:
+                     tfa.attention_plain(q, k_, v_, st, **kw)[0])
+            e = (kernel().float() - plain().float()).abs().max().item()
+            tol = TOL[str(dtype).split(".")[1]]
+            print(f"{row} {dtype} at the {label} rank's {what} B={B} S={S}"
+                  f" start={start} pads={pads} Hq={Hq} Hkv={Hkv} ML={ML}: "
+                  f"max|out-plain| {e:.3g} (tol {tol})")
+            check(e <= tol, f"{row} disagrees with plain at the {label} "
+                  f"{what} shape")
+            if dtype != bf:
+                continue
+            errs[row] = max(errs[row], e)
+            library = None if int8 else (
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc, vc, attn_mask=mask,
+                    enable_gqa=True))
+            entry = {"shape": f"B={B} S={S} start={start} pads={pads} "
+                              f"Hq={Hq} Hkv={Hkv} ML={ML}",
+                     "max_abs_err": e,
+                     **timing(kernel, plain, library,
+                              work(B, S, Hq, Hkv, D, ML, st, pl, None, 0,
+                                   True, 2, 1 if int8 else 2, int8, False),
+                              flush)}
+            if library is None:
+                entry["library_note"] = "no single PyTorch call attends " \
+                                        "over an int8 cache"
+            entries[row][f"{label} {what}"] = entry
+            deferred.append((entry, kernel, library,
+                             ("flash_fwd_tc_kernel",) if S > 16
+                             else ("flash_decode",)))
+
+    for dtype in (bf, torch.float32):
+        for label, (Hq, Hkv) in SERVE_TP_HEADS.items():
+            if label.startswith("llama"):
+                fresh(label, dtype, Hq, Hkv, 2, 512)
+                cached(label, "admission", dtype, Hq, Hkv, 1, 256, 128,
+                       [28], 2048)
+            cached(label, "ragged prefill", dtype, Hq, Hkv, 2, 512, 0,
+                   [0, 200], 1024)
+            cached(label, "decode step", dtype, Hq, Hkv, 2, 1, [530, 700],
+                   [0, 200], 1024)
+    torch.cuda.synchronize()
+    for row, by in entries.items():
+        for label, entry in by.items():
+            print(f"{row} at {label}: {json.dumps(entry)}")
+    del flush
+    return entries, errs
+
+
+def serve_exact_programs(cfg, moe):
+    """The exact runs' programs (SERVE_EXACT) and the request stream of the
+    dense engine: numpy prompts from seed SEED + 41."""
+    import numpy as np
+    B, S0, new, ML, K = SERVE_EXACT
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 41)
+    prompt = rng.integers(1, V, (B, S0), dtype=np.int32)
+    padded = prompt.copy()
+    padded[1, :100] = 0
+    padded[2, :37] = 0
+    progs = [{"name": "padded", "kind": "generate", "prompt": padded,
+              "new": new, "max_len": ML, "pad_id": 0},
+             {"name": "int8", "kind": "generate", "prompt": padded,
+              "new": new, "max_len": ML, "pad_id": 0,
+              "cfg": {"kv_cache_dtype": "int8"}}]
+    if moe:
+        return progs
+    prefix = rng.integers(1, V, (90,)).tolist()
+    reqs = [(rng.integers(1, V, (n,)).tolist(), new, pre)
+            for n, pre in ((100, None), (230, None), (60, prefix),
+                           (150, None), (40, prefix))]
+    return [{"name": "fresh", "kind": "generate", "prompt": prompt,
+             "new": new, "max_len": ML}] + progs + [
+        {"name": "spec", "kind": "speculative", "prompt": prompt,
+         "new": new, "max_len": ML, "spec_k": K},
+        {"name": "engine", "kind": "engine", "requests": reqs, "slots": 2,
+         "max_len": 1024, "buckets": (128, 256)}]
+
+
+def serve_single(torch, td, ts, params, cfg, progs, dev):
+    """The single-process port's tokens of each program (the engine's:
+    generate on each request alone)."""
+    out = {}
+    for p in progs:
+        c = dataclasses.replace(cfg, **p.get("cfg", {}))
+        if p["kind"] == "engine":
+            out[p["name"]] = [
+                td.generate(params, torch.tensor([(pre or []) + t]), c,
+                            max_new_tokens=n, max_len=p["max_len"],
+                            device=dev)[0].tolist()
+                for t, n, pre in p["requests"]]
+            continue
+        x = torch.from_numpy(p["prompt"]).to(dev)
+        if p["kind"] == "speculative":
+            out[p["name"]] = ts.speculative_generate(
+                params, params, x, c, c, max_new_tokens=p["new"],
+                spec_k=p["spec_k"], max_len=p["max_len"],
+                device=dev)[0].cpu().numpy()
+        else:
+            out[p["name"]] = td.generate(
+                params, x, c, max_new_tokens=p["new"], max_len=p["max_len"],
+                pad_id=p.get("pad_id"), device=dev).cpu().numpy()
+    return out
+
+
+def held_serving(name, prog, ranks, want, L, new):
+    """Checks every rank's tokens of one program against the single-process
+    ``want`` and a generate program's launches against serve_launches;
+    returns the launches by rank."""
+    import numpy as np
+    for r in ranks:
+        got = r["programs"][prog["name"]]
+        if prog["kind"] == "engine":
+            check(got["out"] == want, f"{name} {prog['name']} rank "
+                  f"{r['coords']}: engine streams {got['out']} != "
+                  f"generate {want}")
+        else:
+            rows = slice(*got["rows"])
+            check(np.array_equal(got["out"], want[rows]),
+                  f"{name} {prog['name']} rank {r['coords']}: "
+                  f"{got['out'].tolist()} != {want[rows].tolist()}")
+        if prog["kind"] == "generate":
+            expect = serve_launches(L, new, prog.get("pad_id") is None,
+                                    is_int8(prog))
+            for k in SERVE_KERNEL_ROWS:
+                check(got["launches"][k] == expect.get(k, 0) * len(got["ms"]),
+                      f"{name} {prog['name']} rank {r['coords']}: {k} "
+                      f"launched {got['launches'][k]}, expected "
+                      f"{expect.get(k, 0) * len(got['ms'])}")
+    return [{k: r["programs"][prog["name"]]["launches"][k]
+             for k in SERVE_KERNEL_ROWS} for r in ranks]
+
+
+def phase_serve_exact(torch, tl, tm, td, ts, jobs, launch, dev):
+    """Llama-7B width and mixtral-ish width, 2 layers, f32, flash (the
+    kernels' f32 instances): generate fresh, left-padded and left-padded on
+    an int8 cache, self-draft speculative_generate and a ServeEngine with a
+    cached prefix on tp=2 (data 2 × model 2), then left-padded generate on
+    both caches for the MoE model on ep=2 (data 2 × expert 2) and (ep=2,
+    tp=2), one 4-rank world; every rank's tokens equal this process's
+    single-process run (speculation plain greedy's too) and each
+    generate's launches the prediction. Returns {run: launches by rank}."""
+    import numpy as np
+    llama = dataclasses.replace(tl.PRESETS["llama-7b"], n_layers=2,
+                                dtype="float32", attn_impl="flash")
+    mixtral = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"], n_layers=2,
+                                  dtype="float32", attn_impl="flash")
+    runs = {}
+    for key, cfg, moe in (("llama", llama, False), ("mixtral", mixtral,
+                                                    True)):
+        progs = serve_exact_programs(cfg, moe)
+        g = torch.Generator(dev).manual_seed(SEED + 42)
+        params = (tm.init_moe_model if moe else tl.init_params)(cfg, g, dev)
+        t0 = time.perf_counter()
+        runs[key] = (cfg, progs, serve_single(torch, td, ts, params, cfg,
+                                              progs, dev))
+        print(f"serving exact {key}: single process "
+              f"{time.perf_counter() - t0:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    cases = [{"kind": "mesh", "mesh": {"tp": 2}},
+             {"kind": "serving", "mesh": {"tp": 2}, "cfg": llama,
+              "programs": runs["llama"][1], "seed": SEED + 42}]
+    meshes = {"ep2": {"ep": 2}, "ep2_tp2": {"ep": 2, "tp": 2}}
+    cases += [{"kind": "serving_moe", "mesh": m, "cfg": mixtral,
+               "programs": runs["mixtral"][1], "seed": SEED + 42}
+              for m in meshes.values()]
+    t0 = time.perf_counter()
+    res = launch.spawn_ranks(jobs.run_cases, 4, backend="gloo", device=dev,
+                             timeout_s=400, args=(cases, dev.type))
+    print(f"serving exact: 4 ranks ({SHARED}) in "
+          f"{time.perf_counter() - t0:.1f} s; a rank imported jax: "
+          f"{[r[0]['jax_loaded'] for r in res]}")
+    check(not any(r[0]["jax_loaded"] for r in res), "a rank imported jax")
+    B, S0, new = SERVE_EXACT[:3]
+    launches = {}
+    for i, (name, key) in enumerate((("tp2", "llama"), ("ep2", "mixtral"),
+                                     ("ep2_tp2", "mixtral")), 1):
+        cfg, progs, want = runs[key]
+        ranks = [r[i] for r in res]
+        for prog in progs:
+            launches[f"{name} {prog['name']}"] = held_serving(
+                name, prog, ranks, want[prog["name"]], cfg.n_layers, new)
+        print(f"serving exact {name} ({key} width, 2 layers, f32, B={B} "
+              f"S0={S0} new={new}): every rank's tokens == the single "
+              f"process's in {[p['name'] for p in progs]}")
+    plain = runs["llama"][2]["fresh"]
+    for r in res:
+        spec = r[1]["programs"]["spec"]
+        check(np.array_equal(spec["out"], plain[slice(*spec["rows"])]),
+              f"rank {r[1]['coords']}: sharded speculative != plain greedy")
+    for prog in ("spec", "engine"):
+        print(f"serving exact tp2 {prog}: launches by rank "
+              f"{launches['tp2 ' + prog]}")
+    return launches
+
+
+def serve_full_programs(cfg, moe):
+    """The full-size programs (SERVE_FULL; phase 4's and phase 9's
+    shapes): left-padded generate on both caches (and fresh, dense family),
+    then SERVE_PASSES ServeEngine passes of 6 requests after a warm one
+    (one shared prefix, dense family)."""
+    import numpy as np
+    B, S0, new, ML = SERVE_FULL
+    rng = np.random.default_rng(SEED + 43)
+    V = cfg.vocab_size
+    prompt = rng.integers(1, V, (B, S0), dtype=np.int32)
+    padded = prompt.copy()
+    padded[1, :200] = 0
+    prefix = None if moe else rng.integers(1, V, (100,)).tolist()
+    reqs = [(rng.integers(1, V, (n,)).tolist(), new, pre)
+            for n, pre in ((180, None), (500, None), (120, prefix),
+                           (350, None), (100, None), (230, prefix))]
+    progs = [] if moe else [{"name": "fresh", "kind": "generate",
+                             "prompt": prompt, "new": new, "max_len": ML}]
+    return progs + [
+        {"name": "padded", "kind": "generate", "prompt": padded, "new": new,
+         "max_len": ML, "pad_id": 0},
+        {"name": "int8", "kind": "generate", "prompt": padded, "new": new,
+         "max_len": ML, "pad_id": 0, "cfg": {"kv_cache_dtype": "int8"}},
+        {"name": "engine", "kind": "engine", "requests": reqs, "slots": 4,
+         "max_len": 2048, "buckets": (128, 256, 512), "warm": 1,
+         "runs": SERVE_PASSES}]
+
+
+def phase_serve_full(torch, tl, tm, jobs, launch, dev):
+    """Full Llama-7B (32 layers) in bf16 at tp=2 and full mixtral-ish (16
+    layers) at ep=2, each over 2 ranks sharing the card: serve_full_programs'
+    runs, each generate's launches against serve_launches, every engine
+    pass's #4 launches one L a request (its prefix cached in the warm pass)
+    and its #5 a multiple of L; tokens/s, bytes staged and seconds in the
+    collectives a forward, and peak memory a rank. Returns (launches by
+    path, the report)."""
+    import numpy as np
+    B, _, new, _ = SERVE_FULL
+    runs = (("tp_serving", "serving", dataclasses.replace(
+                tl.PRESETS["llama-7b"], attn_impl="flash"), {"tp": 2}),
+            ("ep_serving", "serving_moe", dataclasses.replace(
+                tm.PRESETS_MOE["mixtral-ish"], attn_impl="flash"),
+             {"ep": 2}))
+    cases = [{"kind": kind, "mesh": mesh, "cfg": cfg, "seed": SEED,
+              "programs": serve_full_programs(cfg, kind == "serving_moe")}
+             for _, kind, cfg, mesh in runs]
+    t0 = time.perf_counter()
+    res = launch.spawn_ranks(jobs.run_cases, 2, backend="gloo", device=dev,
+                             timeout_s=900, args=(cases, dev.type))
+    wall = time.perf_counter() - t0
+    by_path, report = {}, {}
+    for i, (path, kind, cfg, mesh) in enumerate(runs):
+        progs = cases[i]["programs"]
+        ranks = [r[i] for r in res]
+        L = cfg.n_layers
+        by_path[path] = {}
+        for prog in progs:
+            got = [r["programs"][prog["name"]] for r in ranks]
+            runs = len(got[0]["ms"])
+            if prog["kind"] == "generate":
+                for g in got:
+                    out = g["out"]
+                    check(out.shape == (B, new) and bool(((out >= 0) & (
+                        out < cfg.vocab_size)).all()),
+                          f"{path} {prog['name']}: {out.shape}")
+                check(all(np.array_equal(g["out"], got[0]["out"])
+                          for g in got),
+                      f"{path} {prog['name']}: the ranks' rows differ")
+                expect = serve_launches(L, new, prog.get("pad_id") is None,
+                                        is_int8(prog))
+                tokens, forwards = B * new * runs, new * runs
+            else:
+                reqs = prog["requests"]
+                expect = {"flash_cached": L * len(reqs) * runs}
+                for g in got:
+                    check(g["out"] == got[0]["out"] and all(
+                        len(s) == n for s, (_, n, _) in zip(g["out"], reqs)),
+                          f"{path} engine streams {g['out']}")
+                    check(g["launches"]["flash_decode"] % L == 0
+                          and g["launches"]["flash_decode"] > 0,
+                          f"{path} engine: flash_decode "
+                          f"{g['launches']['flash_decode']}")
+                tokens = sum(n for _, n, _ in reqs) * runs
+                forwards = None
+            for g in got:
+                for k in SERVE_KERNEL_ROWS:
+                    if k == "flash_decode" and prog["kind"] == "engine":
+                        continue
+                    check(g["launches"][k] == expect.get(k, 0),
+                          f"{path} {prog['name']}: {k} launched "
+                          f"{g['launches'][k]}, expected {expect.get(k, 0)}")
+            ms = sum(got[0]["ms"])
+            row = {"ranks": 2, "mesh": mesh, "layers": L, "runs": runs,
+                   "ms_by_run": got[0]["ms"],
+                   "tokens_per_s": tokens / ms * 1e3,
+                   "staged_bytes_by_rank": [g["staged_bytes"] for g in got],
+                   "collective_s_by_rank": [g["comm_s"] for g in got],
+                   "peak_gib_by_rank": [(g["peak_bytes"] or 0) / 2**30
+                                        for g in got],
+                   "launches_by_rank": [{k: g["launches"][k]
+                                         for k in SERVE_KERNEL_ROWS}
+                                        for g in got],
+                   "what": SHARED}
+            if forwards:
+                row["staged_bytes_a_forward"] = got[0]["staged_bytes"] \
+                    / forwards
+                row["collective_s_a_forward"] = got[0]["comm_s"] / forwards
+            else:
+                row["engine_stats"] = got[0]["stats"]
+            report[f"{path} {prog['name']}"] = row
+            by_path[path][prog["name"]] = [
+                {k: g["launches"][k] for k in SERVE_KERNEL_ROWS}
+                for g in got]
+            print(f"{path} {cfg.n_layers}-layer {prog['name']} ({SHARED}; "
+                  f"{wall:.1f} s for the world of both paths): "
+                  f"{json.dumps(row)}")
+    return by_path, report
+
+
+def phase_serve_surfaces(torch, bench, entry, tfa):
+    """entry() on the card, dryrun_multichip(4) with its ranks sharing the
+    card, and the four serving bench twins at fast=True with their
+    launches. Returns (the twins' dicts, their launches)."""
+    fn, (params, tokens) = entry.entry()
+    logits = fn(params, tokens)
+    check(tuple(logits.shape) == (2, 32, 256)
+          and bool(torch.isfinite(logits).all()),
+          f"entry(): logits {tuple(logits.shape)}")
+    print(f"entry() on the card: logits {tuple(logits.shape)} finite")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    print(f"dryrun_multichip(4) ({SHARED}): {time.perf_counter() - t0:.1f} s")
+    twins, launches = {}, {}
+    for name in ("bench_decode", "bench_moe_decode", "bench_engine",
+                 "bench_cached_prefill"):
+        tfa.reset_launches()
+        t0 = time.perf_counter()
+        twins[name] = getattr(bench, name)(True)
+        launches[name] = dict(tfa.LAUNCHES)
+        print(f"{name}(fast) in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps(twins[name])}; launches {launches[name]}")
+        # bench_moe_decode's fast budget (S0 + new = 144 tokens) tiles for
+        # no kernel, in the JAX section as here: dense attention throughout
+        kernels = {"bench_decode": ("flash_fwd", "flash_decode"),
+                   "bench_moe_decode": (),
+                   "bench_engine": ("flash_cached", "flash_decode"),
+                   "bench_cached_prefill": ("flash_cached",)}[name]
+        check(all(launches[name][k] > 0 for k in kernels),
+              f"{name}: launches {launches[name]}")
+    check(twins["bench_engine"]["engine_tokens"]
+          == sum(8 + 8 * (i % 4) for i in range(bench.ENGINE_SHAPE[True][2])),
+          f"bench_engine tokens {twins['bench_engine']}")
+    return twins, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2897,7 +3373,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from gpu_provisioner_tpu_torch import bench
+    from gpu_provisioner_tpu_torch import bench, entry
     from gpu_provisioner_tpu_torch.models import checkpoint as ck
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
@@ -3001,6 +3477,24 @@ def main() -> int:
                                                launch, dev)
     print(f"pipeline and expert phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t14 = t0 = time.perf_counter()
+    serve_shapes, serve_errs = phase_serve_kernels(torch, tfa, td, dev,
+                                                   deferred)
+    print(f"sharded serving kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_exact = phase_serve_exact(torch, tl, tm, td, ts, jobs, launch, dev)
+    print(f"sharded serving exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving, serving_report = phase_serve_full(torch, tl, tm, jobs, launch,
+                                               dev)
+    print(f"sharded serving full size {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_twins, by_serve_twin = phase_serve_surfaces(torch, bench, entry,
+                                                      tfa)
+    print(f"entry, dry run and serving twins {time.perf_counter() - t0:.1f}"
+          f" s; sharded serving phase {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -3032,6 +3526,18 @@ def main() -> int:
             r["at_parallel_shapes"] = parallel_errs[name]
             r["max_abs_err"] = max(r["max_abs_err"],
                                    parallel_errs[name]["max_abs_err"])
+        if name in SERVE_KERNEL_ROWS:
+            r["at_tp_serving_shapes"] = serve_shapes[name]
+            r["max_abs_err"] = max(r["max_abs_err"], serve_errs[name])
+            r["launches_by_path"]["serving_exact"] = {
+                run: [g[name] for g in ranks]
+                for run, ranks in serve_exact.items()}
+            for path, runs in serving.items():
+                r["launches_by_path"][path] = {
+                    run: [g[name] for g in ranks]
+                    for run, ranks in runs.items()}
+            r["launches_by_path"].update(
+                {k: v[name] for k, v in by_serve_twin.items()})
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -3054,6 +3560,8 @@ def main() -> int:
     print(f"sharded training ({SHARED}): {json.dumps(sharded_report)}")
     print(f"pipeline and expert training ({SHARED}): "
           f"{json.dumps(parallel_report)}")
+    print(f"sharded serving ({SHARED}): {json.dumps(serving_report)}; "
+          f"serving twins (fast) {json.dumps(serve_twins)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

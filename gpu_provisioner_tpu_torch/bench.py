@@ -1,7 +1,7 @@
-"""Workload, training, long-context and speculative-decoding benchmark
-sections on one GPU.
+"""Workload, training, long-context, serving and speculative-decoding
+benchmark sections on one GPU.
 
-Twins of five sections of the JAX package's ``bench.py``:
+Twins of nine sections of the JAX package's ``bench.py``:
 ``bench_workload`` (the flagship model's forward throughput with dense
 attention: Llama-1B, B=8, S=1024, bf16; best of 3 rounds of 10 calls after
 3 warm ones), ``bench_train_step`` (a full train step of Llama-1B with
@@ -13,7 +13,15 @@ and forward+backward, then the streaming shape at S=32768 with and without
 ``triangular=True``), ``bench_long_context`` (a 4-layer, dim-1024 model
 trained with flash attention and remat at S=8192, then with a 1024-token
 sliding window at S×4) and ``bench_speculative`` (self-draft speculative
-decoding of a Llama-1B: S0=256, 96 new tokens, spec_k 4, B=1 then 8). The
+decoding of a Llama-1B: S0=256, 96 new tokens, spec_k 4, B=1 then 8), and
+the serving sections ``bench_decode`` (greedy and sampled ``generate`` of a
+Llama-1B at B=8, S0=512, 128 new, then at a 4096-token cache budget with
+flash and with dense attention), ``bench_moe_decode`` (a Mixtral-style
+8-layer model, 8 experts, top-2, at the same shape), ``bench_engine``
+(``ServeEngine`` against static ``generate`` batches on a ragged mix of 24
+requests, with a self-draft and with a shared 512-token prefix) and
+``bench_cached_prefill`` (the cached-prefill kernel against the dense
+cached sweep at a half-full and a small-prefix cache). The
 same shapes, configurations and dict keys, timed after the same warm-ups:
 on a CUDA tensor with CUDA events, on a CPU tensor (the tests' shrunken
 shapes) with the host clock. Deliberate differences:
@@ -35,12 +43,23 @@ shapes) with the host clock. Deliberate differences:
 - ``bench_speculative`` runs flash attention (the JAX section runs the
   config's default, dense) and rounds ``max_len`` up to a multiple of 128,
   where the decode kernel's gate holds (the JAX section takes the smallest
-  budget, S0 + new + spec_k + 1).
+  budget, S0 + new + spec_k + 1);
+- the serving sections take the best of ROUNDS runs after one warm one,
+  as the JAX ones after their compile; the dense side of
+  ``bench_decode``'s budget comparison and of ``bench_cached_prefill`` is
+  the port's dense cached sweep (``decode._cached_attention(impl=
+  "dense")``), as in the JAX sections; the sampled run reseeds its
+  generator each run, as the JAX one reuses its key; the kernels take
+  head dim 128, so ``bench_decode``'s fast model has 4/2 heads of 128
+  (the JAX one 8/4 of 64), ``bench_engine``'s and ``bench_moe_decode``'s
+  fast models 2/1 (8/4 of 32) and ``bench_moe_decode``'s full model 8/4
+  (16/8 of 64): the weights' shapes are the JAX ones.
 
 Run on a machine with the card, from the repository root::
 
     python3 -m gpu_provisioner_tpu_torch.bench            # full size
     python3 -m gpu_provisioner_tpu_torch.bench --fast
+    python3 -m gpu_provisioner_tpu_torch.bench --sections decode,engine
 """
 
 from __future__ import annotations
@@ -54,11 +73,15 @@ import time
 import torch
 
 from .device import resolve_device
+from .models.decode import _cached_attention, generate
+from .models.engine import ServeEngine
 from .models.llama import PRESETS, LlamaConfig, forward, init_params
+from .models.moe import MoEConfig, init_moe_model
 from .models.speculative import speculative_generate
 from .models.train import (default_optimizer, make_train_state,
                            make_train_step, param_leaves)
-from .ops.flash_attention import flash_attention
+from .ops.flash_attention import (cached_flash_supported, flash_attention,
+                                  flash_attention_cached)
 from .parallel.ring import dense_attention
 
 # (B, S, Hq, Hkv, D), bf16, as bench.py's bench_flash_op
@@ -79,6 +102,19 @@ TRAIN_STEP_SHAPE = {True: (4, 512), False: (8, 2048)}
 WORKLOAD_WARM, WORKLOAD_CALLS = 3, 10   # then best of ROUNDS rounds
 TRAIN_WARM, TRAIN_ITERS = 2, 5          # then best of ROUNDS rounds
 PEAK_BF16 = 989e12      # H100 SXM data sheet, dense bf16 FLOP/s
+
+# (B, S0, new tokens) of bench_decode and bench_moe_decode, and
+# bench_decode's serving budget (max_len), as bench.py's
+DECODE_SHAPE = {True: (2, 128, 16), False: (8, 512, 128)}
+DECODE_BUDGET = {True: 1024, False: 4096}
+# (slots, max_len, requests) and the shared prefix of bench_engine
+ENGINE_SHAPE = {True: (2, 512, 6), False: (8, 2048, 24)}
+ENGINE_BUCKETS = (64, 128, 256)
+PREFIX_LEN = {True: 128, False: 512}
+# (B, S, max_len, Hq, Hkv, D) of bench_cached_prefill, bf16
+CACHED_PREFILL_SHAPE = {True: (2, 256, 2048, 8, 4, 128),
+                        False: (4, 512, 8192, 16, 8, 128)}
+CACHED_CALLS = 5        # calls per round of bench_cached_prefill
 
 
 def _elapsed_ms(dev: torch.device, fn) -> float:
@@ -332,17 +368,246 @@ def bench_speculative(fast: bool, device=None, *, cfg=None,
     return out
 
 
-def main() -> None:
+def _best_ms(dev: torch.device, fn, rounds: int = ROUNDS) -> float:
+    """The best of ``rounds`` timed fn() after one warm call."""
+    fn()
+    return min(_elapsed_ms(dev, fn) for _ in range(rounds))
+
+
+def decode_config(fast: bool) -> LlamaConfig:
+    """bench.py's bench_decode model, bf16, flash attention: fast, vocab
+    2048, dim 512, 4 layers, 4/2 heads of 128 (the kernels take head dim
+    128: the JAX one has 8/4 of 64, the same weights' shapes), hidden 1408;
+    else Llama-1B."""
+    if fast:
+        return LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=4,
+                           n_kv_heads=2, hidden_dim=1408, attn_impl="flash")
+    return LlamaConfig(vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
+                       n_kv_heads=8, hidden_dim=5504, attn_impl="flash")
+
+
+def bench_decode(fast: bool, device=None, *, cfg=None, shape=None,
+                 budget=None) -> dict:
+    """Serving throughput: greedy ``generate`` at (B, S0, new) = ``shape``
+    (default DECODE_SHAPE) on zero prompts, then sampled (temperature 0.8,
+    top-k 50, top-p 0.95), then greedy at a cache budget of ``budget``
+    tokens (default DECODE_BUDGET) with flash and with dense attention;
+    each the best of ROUNDS runs after a warm one."""
+    dev = resolve_device(device)
+    cfg = cfg or decode_config(fast)
+    B, S0, NEW = shape or DECODE_SHAPE[fast]
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompt = torch.zeros((B, S0), dtype=torch.int32, device=dev)
+    best = _best_ms(dev, lambda: generate(params, prompt, cfg,
+                                          max_new_tokens=NEW, device=dev))
+    g = torch.Generator(dev)
+
+    def sampled():
+        generate(params, prompt, cfg, max_new_tokens=NEW, temperature=0.8,
+                 top_k=50, top_p=0.95, generator=g.manual_seed(1),
+                 device=dev)
+
+    best_s = _best_ms(dev, sampled)
+    out = {"batch": B, "prompt_len": S0, "new_tokens": NEW,
+           "total_ms": best, "decode_tokens_per_s": B * NEW / best * 1e3,
+           "sampled_total_ms": best_s,
+           "decode_tokens_per_s_sampled": B * NEW / best_s * 1e3}
+    ML = budget or DECODE_BUDGET[fast]
+    for impl in ("flash", "dense"):
+        cfg_i = dataclasses.replace(cfg, attn_impl=impl)
+        ms = _best_ms(dev, lambda: generate(params, prompt, cfg_i,
+                                            max_new_tokens=NEW, max_len=ML,
+                                            device=dev))
+        out[f"budget{ML}_{impl}_total_ms"] = ms
+        out[f"budget{ML}_{impl}_tokens_per_s"] = B * NEW / ms * 1e3
+    return out
+
+
+def moe_decode_config(fast: bool) -> MoEConfig:
+    """bench.py's bench_moe_decode model, bf16, flash attention, top-2:
+    fast, vocab 2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4
+    of 32), hidden 512, 4 experts; else vocab 32000, dim 1024, 8 layers,
+    8/4 heads of 128 (the JAX one 16/8 of 64), hidden 2816, 8 experts. The
+    kernels take head dim 128; the weights' shapes are the JAX ones."""
+    if fast:
+        return MoEConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
+                         n_kv_heads=1, hidden_dim=512, n_experts=4,
+                         experts_per_token=2, attn_impl="flash")
+    return MoEConfig(vocab_size=32000, dim=1024, n_layers=8, n_heads=8,
+                     n_kv_heads=4, hidden_dim=2816, n_experts=8,
+                     experts_per_token=2, attn_impl="flash")
+
+
+def bench_moe_decode(fast: bool, device=None, *, cfg=None,
+                     shape=None) -> dict:
+    """MoE serving throughput: greedy ``generate`` of a Mixtral-style
+    model (top-2 of 8 experts) at (B, S0, new) = ``shape`` (default
+    DECODE_SHAPE) on zero prompts, the best of ROUNDS runs after a warm
+    one."""
+    dev = resolve_device(device)
+    cfg = cfg or moe_decode_config(fast)
+    B, S0, NEW = shape or DECODE_SHAPE[fast]
+    params = init_moe_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompt = torch.zeros((B, S0), dtype=torch.int32, device=dev)
+    best = _best_ms(dev, lambda: generate(params, prompt, cfg,
+                                          max_new_tokens=NEW, device=dev))
+    return {"batch": B, "prompt_len": S0, "new_tokens": NEW,
+            "n_experts": cfg.n_experts, "total_ms": best,
+            "decode_tokens_per_s": B * NEW / best * 1e3}
+
+
+def engine_config(fast: bool) -> LlamaConfig:
+    """bench.py's bench_engine model, bf16, flash attention: fast, vocab
+    2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4 of 32),
+    hidden 512; else Llama-1B."""
+    if fast:
+        return LlamaConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
+                           n_kv_heads=1, hidden_dim=512, attn_impl="flash")
+    return decode_config(False)
+
+
+def bench_engine(fast: bool, device=None, *, cfg=None, shape=None,
+                 prefix_len=None) -> dict:
+    """Continuous batching against static batching on a ragged mix: N
+    requests of 64, 128 and 192 tokens (from [1, vocab), seed 1) and 8 to
+    32 new tokens (16 to 64 at full size) through one ``ServeEngine`` of
+    ``slots`` rows at ``max_len`` ((slots, max_len, N) = ``shape``, default
+    ENGINE_SHAPE), against slot-sized ``generate`` batches left-padded to
+    their longest prompt and run to their largest budget; then the engine
+    with a self-draft (spec_k 3), and the mix behind a shared prefix of
+    ``prefix_len`` tokens (default PREFIX_LEN) cached against re-prefilled.
+    Each timed once after one warm pass, as the JAX section."""
+    dev = resolve_device(device)
+    cfg = cfg or engine_config(fast)
+    slots, ML, N = shape or ENGINE_SHAPE[fast]
+    PFX = prefix_len or PREFIX_LEN[fast]
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    g = torch.Generator().manual_seed(1)
+    lens = [64 + 64 * (i % 3) for i in range(N)]
+    news = [(8 + 8 * (i % 4)) if fast else (16 + 16 * (i % 4))
+            for i in range(N)]
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+    prefix = torch.randint(1, cfg.vocab_size, (PFX,), generator=g).tolist()
+
+    def timed(fn):
+        """(ms of one timed fn() after a warm one, its last result)"""
+        fn()
+        box = []
+        ms = _elapsed_ms(dev, lambda: box.append(fn()))
+        return ms, box[0]
+
+    def drain(eng, reqs):
+        for p, n, pre in reqs:
+            eng.submit(p, n, prefix=pre)
+        out = dict(eng.run())
+        eng.finished.clear()
+        return sum(len(v) for v in out.values())
+
+    plain = [(p, n, None) for p, n in zip(prompts, news)]
+    eng = ServeEngine(params, cfg, slots=slots, max_len=ML,
+                      prefill_buckets=ENGINE_BUCKETS, device=dev)
+    dt_engine, total = timed(lambda: drain(eng, plain))
+
+    def run_static():
+        done = 0
+        for i in range(0, N, slots):
+            batch = list(range(i, min(i + slots, N)))
+            w = max(lens[b] for b in batch)
+            new = max(news[b] for b in batch)
+            toks = torch.tensor([[0] * (w - lens[b]) + prompts[b]
+                                 for b in batch], dtype=torch.int32)
+            generate(params, toks, cfg, max_new_tokens=new, max_len=ML,
+                     pad_id=0, device=dev)
+            done += sum(min(new, news[b]) for b in batch)
+        return done
+
+    dt_static, done = timed(run_static)
+    eng_s = ServeEngine(params, cfg, slots=slots, max_len=ML,
+                        prefill_buckets=ENGINE_BUCKETS, draft_params=params,
+                        draft_cfg=cfg, spec_k=3, device=dev)
+    dt_spec, total_s = timed(lambda: drain(eng_s, plain))
+    eng_c = ServeEngine(params, cfg, slots=slots, max_len=ML,
+                        prefill_buckets=ENGINE_BUCKETS + (PFX,), device=dev)
+    eng_u = ServeEngine(params, cfg, slots=slots, max_len=ML,
+                        prefill_buckets=tuple(PFX + b
+                                              for b in ENGINE_BUCKETS),
+                        device=dev)
+    cached = [(p, n, prefix) for p, n in zip(prompts, news)]
+    whole = [(prefix + p, n, None) for p, n in zip(prompts, news)]
+    drain(eng_c, cached), drain(eng_u, whole)          # warm both first
+    dt_pc = _elapsed_ms(dev, lambda: drain(eng_c, cached))
+    dt_pu = _elapsed_ms(dev, lambda: drain(eng_u, whole))
+    rate, rate_s = total / dt_engine * 1e3, total_s / dt_spec * 1e3
+    static_rate = done / dt_static * 1e3
+    return {"requests": N, "slots": slots,
+            "engine_tokens": total, "engine_ms": dt_engine,
+            "engine_tokens_per_s": rate,
+            "static_ms": dt_static, "static_tokens_per_s": static_rate,
+            "speedup_vs_static": rate / static_rate,
+            "spec_engine_selfdraft_ms": dt_spec,
+            "spec_engine_selfdraft_tokens_per_s": rate_s,
+            "spec_selfdraft_cost_ratio": rate_s / rate,
+            "prefix_len": PFX, "prefix_cached_ms": dt_pc,
+            "prefix_uncached_ms": dt_pu,
+            "prefix_cache_speedup": dt_pu / dt_pc}
+
+
+def bench_cached_prefill(fast: bool, device=None, *, shape=None) -> dict:
+    """Prefill continuation: the cached-prefill kernel
+    (``flash_attention_cached``) against the dense masked sweep over the
+    whole budget (``decode._cached_attention``, dense), bf16, at (B, S,
+    max_len, Hq, Hkv, D) = ``shape`` (default CACHED_PREFILL_SHAPE): a
+    half-full cache (start max_len / 2) and a small prefix (max_len / 16).
+    Each the best of ROUNDS rounds of CACHED_CALLS calls after a warm
+    one."""
+    dev = resolve_device(device)
+    B, S, ML, Hq, Hkv, D = shape or CACHED_PREFILL_SHAPE[fast]
+    if not cached_flash_supported(S, ML, Hq, Hkv):
+        raise ValueError(f"(S, max_len, Hq, Hkv) = {(S, ML, Hq, Hkv)} does "
+                         "not tile for the cached-prefill kernel")
+    g = torch.Generator(dev).manual_seed(0)
+    q, kc, vc = (torch.randn(*sh, generator=g, device=dev).to(torch.bfloat16)
+                 for sh in ((B, S, Hq, D), (B, Hkv, ML, D), (B, Hkv, ML, D)))
+    scale = D ** -0.5
+
+    def best_ms(fn):
+        return _best_ms(dev, lambda: [fn() for _ in range(CACHED_CALLS)]) \
+            / CACHED_CALLS
+
+    out = {"new_tokens": S, "cache_len": ML}
+    for tag, st in (("", ML // 2), ("small_prefix_", ML // 16)):
+        f_ms = best_ms(lambda: flash_attention_cached(q, kc, vc, st,
+                                                      scale=scale))
+        d_ms = best_ms(lambda: _cached_attention(q, kc, vc, st, scale))
+        out.update({f"{tag}start": st, f"{tag}flash_ms": f_ms,
+                    f"{tag}dense_ms": d_ms,
+                    f"{tag}flash_speedup": d_ms / f_ms})
+    return out
+
+
+SECTIONS = {"workload": bench_workload, "train_step": bench_train_step,
+            "long_context": bench_long_context, "flash_op": bench_flash_op,
+            "speculative": bench_speculative, "decode": bench_decode,
+            "moe_decode": bench_moe_decode, "engine": bench_engine,
+            "prefill_cached": bench_cached_prefill}
+
+
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--fast", action="store_true")
-    args = ap.parse_args()
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help="comma-separated, of " + ", ".join(SECTIONS))
+    args = ap.parse_args(argv)
+    names = args.sections.split(",")
+    unknown = sorted(set(names) - set(SECTIONS))
+    if unknown:
+        ap.error(f"unknown sections {unknown}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "workload": bench_workload(args.fast),
-                      "train_step": bench_train_step(args.fast),
-                      "long_context": bench_long_context(args.fast),
-                      "flash_op": bench_flash_op(args.fast),
-                      "speculative": bench_speculative(args.fast)}))
+    out = {"device": torch.cuda.get_device_name(0)}
+    for name in names:
+        out[name] = SECTIONS[name](args.fast)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -27,8 +27,20 @@ Deliberate differences from the JAX module:
   QKV, the cache write, int8 quantisation, ``_cached_attention``, wo), which
   ``models/moe_serve.py`` calls too, where the reference repeats it;
 - ``family_step`` is eager (the reference's ``family_step_jit`` jits and
-  donates the cache; here the cache is updated in place anyway); no
-  ``kv_cache_specs`` yet.
+  donates the cache; here the cache is updated in place anyway);
+- serving on a mesh is explicit, not a sharding of the arguments:
+  ``generate(..., mesh=)`` takes this rank's shards of the params
+  (``shard_params`` with ``param_specs`` or ``moe_model_specs``) and its
+  (slice, data) block of the prompt, and returns its rows. A ``Shard``
+  (``serve_shard``) threads through the cached forward: local heads and a
+  cache of local kv heads (``kv_cache_specs``: dim 2 over ``model``, as
+  the JAX specs), ``copy_to_tp`` before and ``reduce_from_tp`` after each
+  row-parallel product, the vocabulary-parallel embedding, and the
+  vocabulary columns of the logits gathered (``comm.gather_from_tp``), so
+  that every rank of the ``model`` group picks from the same full row and
+  its next collectives pair. ``seq`` and ``pipe`` > 1 are refused (the
+  JAX package serves on neither). Without a mesh the code is the
+  single-device path.
 """
 
 from __future__ import annotations
@@ -42,9 +54,13 @@ from ..ops.flash_attention import (_start_vector, cached_flash_supported,
                                    decode_flash_supported,
                                    flash_attention_cached,
                                    flash_attention_decode)
-from .llama import (LlamaConfig, _logits, _mlp_half, _project_qkv, _rmsnorm,
-                    layer_params, resolve_attn as _resolve_attn)
-from .moe import MoEConfig, embed_table
+from ..parallel.comm import TPGroup, gather_from_tp, reduce_from_tp
+from ..parallel.topology import AXIS_PIPE, AXIS_SEQ, axis_sizes
+from .llama import (LlamaConfig, _embed, _logits, _mlp_half, _project_qkv,
+                    _rmsnorm, _tp_heads, init_params, layer_params,
+                    param_specs, resolve_attn as _resolve_attn)
+from .moe import MoEConfig, embed_table, init_moe_model, moe_model_specs
+from .train import Shard, check_heads, mesh_shard, shard_params, tp_group
 
 NEG_INF = -1.0e30
 
@@ -67,11 +83,15 @@ def _kv_int8(cfg: LlamaConfig) -> bool:
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                  device=None) -> KVCache:
+                  device=None, shard: Optional[Shard] = None) -> KVCache:
     """Zeroed cache on ``device`` (default cuda) per cfg.kv_cache_dtype:
-    "auto" stores the act dtype, "int8" int8 values plus f32 scales."""
+    "auto" stores the act dtype, "int8" int8 values plus f32 scales. With
+    ``shard`` it holds this rank's kv heads (n_kv_heads / model), allocated
+    at that shape (``kv_cache_specs``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    tp = _tp(shard)
+    hkv = cfg.n_kv_heads // (1 if tp is None else tp.size)
+    shape = (cfg.n_layers, batch, hkv, max_len, cfg.head_dim)
     if _kv_int8(cfg):
         sshape = shape[:-1] + (1,)
         return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -82,6 +102,70 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     return KVCache(k=torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
                    v=torch.zeros(shape, dtype=cfg.act_dtype, device=dev),
                    length=0)
+
+
+def kv_cache_specs(cfg: LlamaConfig) -> KVCache:
+    """The dim of each cache leaf split over ``model`` (``param_specs``'
+    format; None: replicated), the twin of the JAX ``kv_cache_specs``: kv
+    heads (dim 2 of [L, B, Hkv, max_len, Dh], the int8 scales' too), as
+    the attention weights' columns are cut; the length replicated."""
+    if _kv_int8(cfg):
+        return KVCache(k=2, v=2, length=None, k_scale=2, v_scale=2)
+    return KVCache(k=2, v=2, length=None)
+
+
+def _tp(shard: Optional[Shard]) -> Optional[TPGroup]:
+    return None if shard is None else shard.tp
+
+
+def _check_shards(params: dict, cfg: LlamaConfig, mesh) -> None:
+    """Raises ValueError unless every leaf of ``params`` has the shape of
+    this rank's shard of cfg's tree on ``mesh`` (computed on ``meta``)."""
+    if isinstance(cfg, MoEConfig):
+        whole, specs = init_moe_model(cfg, None, "meta"), moe_model_specs(cfg)
+    else:
+        whole, specs = init_params(cfg, None, "meta"), param_specs(cfg)
+    want = shard_params(whole, mesh, specs=specs)
+
+    def walk(got, want, name):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or got.keys() != want.keys():
+                raise ValueError(f"params{name} are not {type(cfg).__name__}"
+                                 f"'s tree: keys {sorted(got)}")
+            for k in want:
+                walk(got[k], want[k], f"{name}[{k!r}]")
+        elif tuple(got.shape) != tuple(want.shape):
+            raise ValueError(
+                f"params{name} is {tuple(got.shape)}, this rank's shard on "
+                f"{axis_sizes(mesh)} is {tuple(want.shape)}: pass "
+                "shard_params' shards of the whole tree")
+
+    walk(params, want, "")
+
+
+def serve_shard(mesh, dev: torch.device, *models) -> Optional[Shard]:
+    """This rank's ``Shard`` for serving ``models`` ((params, cfg) pairs,
+    all on the same mesh) on ``mesh``; None without a mesh. Refuses, with
+    ValueError and before any collective: ``seq`` or ``pipe`` > 1, a
+    ``model`` size that does not divide a model's heads (``mesh_shard``'s
+    error), params that are not this rank's shards. Then builds the
+    shard's groups collectively: every rank calls this alike."""
+    if mesh is None:
+        return None
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for serving on {dev}")
+    sizes = axis_sizes(mesh)
+    for axis in (AXIS_SEQ, AXIS_PIPE):
+        if sizes[axis] > 1:
+            raise ValueError(
+                f"serving on a mesh with {axis} = {sizes[axis]}: the port, "
+                "as the JAX package, serves over slice, data, expert and "
+                "model only")
+    tp = tp_group(mesh)
+    for params, cfg in models:
+        check_heads(cfg, tp)
+        _check_shards(params, cfg, mesh)
+    return mesh_shard(mesh, models[0][1])
 
 
 def _quantize_kv(x):
@@ -196,13 +280,14 @@ def _cached_setup(tokens, cache: KVCache, cfg: LlamaConfig, pad_lens):
 
 
 def _attention_half(x, lp, layer: int, cache: KVCache, cfg: LlamaConfig,
-                    positions, write, pad_lens):
+                    positions, write, pad_lens, tp: Optional[TPGroup] = None):
     """Norm → QKV → rope → this layer's cache write (int8 quantised under
     kv_cache_dtype="int8") → attention over the cache → wo → residual:
-    the attention half of every family's cached forward."""
+    the attention half of every family's cached forward. With ``tp`` the
+    rank's heads, its cache's kv heads, and wo's sum over the group."""
     B, S, _ = x.shape
-    a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = _project_qkv(a, lp, cfg, positions)
+    a, heads = _tp_heads(_rmsnorm(x, lp["ln_attn"], cfg.norm_eps), cfg, tp)
+    q, k, v = _project_qkv(a, lp, cfg, positions, heads)
     k_cache, v_cache = cache.k[layer], cache.v[layer]
     k_scl = v_scl = None
     if cache.k_scale is not None:
@@ -220,33 +305,46 @@ def _attention_half(x, lp, layer: int, cache: KVCache, cfg: LlamaConfig,
                           cfg.head_dim ** -0.5, impl=cfg.attn_impl,
                           pad_lens=pad_lens, k_scale=k_scl, v_scale=v_scl,
                           window=cfg.sliding_window, sinks=cfg.attn_sinks)
-    return x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
+    out = o.reshape(B, S, q.shape[2] * cfg.head_dim) \
         @ lp["wo"].to(cfg.act_dtype)
+    return x + (out if tp is None else reduce_from_tp(out, tp))
+
+
+def full_logits(x, params: dict, cfg: LlamaConfig,
+                tp: Optional[TPGroup] = None):
+    """The f32 logits [B, S, V]: with ``tp`` every rank's vocabulary
+    columns gathered, the same full rows on every rank of the group."""
+    logits = _logits(x, params, cfg, tp)
+    return logits if tp is None else gather_from_tp(logits, tp)
 
 
 @torch.no_grad()
 def cached_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig,
-                   pad_lens=None):
+                   pad_lens=None, shard: Optional[Shard] = None):
     """Forward over ``tokens`` [B, S] starting at cache.length; returns
     (logits [B, S, V] f32, cache). The cache tensors are updated IN PLACE
     and come back with length + S.
 
     ``pad_lens`` [B]: left-pad counts for ragged batches (keys below are
     masked; RoPE positions count from the first real token, pad positions
-    clip to 0). Precondition, owned by the caller: length + S <= max_len."""
+    clip to 0). Precondition, owned by the caller: length + S <= max_len.
+    ``shard`` (``serve_shard``): the params, the cache's kv heads are this
+    rank's; the logits come back whole on every rank."""
     positions, _, write = _cached_setup(tokens, cache, cfg, pad_lens)
-    x = params["embed"][tokens].to(cfg.act_dtype)
+    tp = _tp(shard)
+    x = _embed(params, tokens, cfg, tp)
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
         x = _attention_half(x, lp, layer, cache, cfg, positions, write,
-                            pad_lens)
-        x = _mlp_half(x, lp, cfg)
-    return (_logits(x, params, cfg),
+                            pad_lens, tp)
+        x = _mlp_half(x, lp, cfg, tp)
+    return (full_logits(x, params, cfg, tp),
             cache._replace(length=cache.length + tokens.shape[1]))
 
 
 @torch.no_grad()
-def _prefill_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig):
+def _prefill_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig,
+                     shard: Optional[Shard] = None):
     """Prefill of an EMPTY cache: plain causal self-attention over the
     prompt (flash-kernel eligible via cfg.attn_impl) instead of the S×max_len
     cached sweep; each layer's k/v is stored once at offset 0 (int8
@@ -259,16 +357,18 @@ def _prefill_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig):
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     attn = _resolve_attn(cfg.attn_impl)
     int8 = _kv_int8(cfg)
+    tp = _tp(shard)
 
-    x = params["embed"][tokens].to(ad)
+    x = _embed(params, tokens, cfg, tp)
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
-        a = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = _project_qkv(a, lp, cfg, positions)
+        a, heads = _tp_heads(_rmsnorm(x, lp["ln_attn"], cfg.norm_eps), cfg,
+                             tp)
+        q, k, v = _project_qkv(a, lp, cfg, positions, heads)
         o = attn(q, k, v)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) \
-            @ lp["wo"].to(ad)
-        x = _mlp_half(x, lp, cfg)
+        out = o.reshape(B, S, q.shape[2] * cfg.head_dim) @ lp["wo"].to(ad)
+        x = x + (out if tp is None else reduce_from_tp(out, tp))
+        x = _mlp_half(x, lp, cfg, tp)
         if int8:
             kq, kscl = _quantize_kv(k)
             vq, vscl = _quantize_kv(v)
@@ -279,30 +379,33 @@ def _prefill_forward(params: dict, tokens, cache: KVCache, cfg: LlamaConfig):
         else:
             cache.k[layer, :, :, :S] = k.transpose(1, 2)
             cache.v[layer, :, :, :S] = v.transpose(1, 2)
-    return _logits(x, params, cfg), cache._replace(length=S)
+    return full_logits(x, params, cfg, tp), cache._replace(length=S)
 
 
 def prefill(params: dict, prompt, cache: KVCache, cfg: LlamaConfig, *,
-            fresh: bool = False, pad_lens=None):
+            fresh: bool = False, pad_lens=None,
+            shard: Optional[Shard] = None):
     """(last-token logits [B, V], cache) after consuming the prompt.
     ``fresh=True`` (an empty cache) takes the self-attention fast path;
     otherwise the general cached forward runs. ``pad_lens`` needs
-    fresh=False; a sliding window always takes the general path."""
+    fresh=False; a sliding window always takes the general path.
+    ``shard``: as cached_forward's."""
     if cfg.sliding_window is not None:
         fresh = False
     if fresh:
         if pad_lens is not None:
             raise ValueError("pad_lens requires fresh=False — the fresh "
                              "fast path cannot mask pad keys")
-        logits, cache = _prefill_forward(params, prompt, cache, cfg)
+        logits, cache = _prefill_forward(params, prompt, cache, cfg, shard)
     else:
         logits, cache = cached_forward(params, prompt, cache, cfg,
-                                       pad_lens=pad_lens)
+                                       pad_lens=pad_lens, shard=shard)
     return logits[:, -1], cache
 
 
 def prefill_chunked(params: dict, prompt, cache: KVCache, cfg: LlamaConfig,
-                    *, chunk: int = 2048, pad_lens=None):
+                    *, chunk: int = 2048, pad_lens=None,
+                    shard: Optional[Shard] = None):
     """(last-token logits [B, V], cache) after consuming the prompt in
     ``chunk``-sized pieces through the family's cached forward, so peak
     activation memory is O(chunk·S) for very long prompts; each piece still
@@ -311,7 +414,8 @@ def prefill_chunked(params: dict, prompt, cache: KVCache, cfg: LlamaConfig,
     written before it plus its own causal prefix). MoE family: expert
     capacity is computed per chunk and tokens compete for expert slots only
     within their chunk; where neither drops, the two agree. The cache is
-    updated in place, as cached_forward's is."""
+    updated in place, as cached_forward's is. ``shard``: as
+    cached_forward's."""
     B, S = prompt.shape
     if S == 0 or chunk <= 0:
         raise ValueError(f"need a non-empty prompt (S={S}) and a positive "
@@ -320,36 +424,38 @@ def prefill_chunked(params: dict, prompt, cache: KVCache, cfg: LlamaConfig,
     logits = None
     for off in range(0, S, chunk):
         logits, cache = step(params, prompt[:, off:off + chunk], cache, cfg,
-                             pad_lens=pad_lens)
+                             pad_lens=pad_lens, shard=shard)
     return logits[:, -1], cache
 
 
 def family_fns(cfg, pad_lens=None, fresh: bool = False,
-               dropless_step: bool = False):
+               dropless_step: bool = False, shard: Optional[Shard] = None):
     """(prefill_fn, step_fn), each (params, tokens, cache) → (logits,
     cache), dispatched on the config's model family: the one dispatch point
     generate() and the engine share. ``fresh``: the dense family's fast
     path for an empty cache (MoE has none and ignores it).
     ``dropless_step``: MoE only — step_fn routes with capacity = its block
     width, so a multi-token step cannot capacity-drop and its logits equal
-    single-token steps' (a no-op for the dense family)."""
+    single-token steps' (a no-op for the dense family). ``shard``: this
+    rank's place on a serving mesh (``serve_shard``), passed to both."""
     step = family_step(cfg)
     if isinstance(cfg, MoEConfig):
         from .moe_serve import moe_prefill
         return (lambda p, t, c: moe_prefill(p, t, c, cfg,
-                                            pad_lens=pad_lens),
+                                            pad_lens=pad_lens, shard=shard),
                 lambda p, t, c: step(p, t, c, cfg, pad_lens=pad_lens,
-                                     dropless=dropless_step))
+                                     dropless=dropless_step, shard=shard))
     return (lambda p, t, c: prefill(p, t, c, cfg, fresh=fresh,
-                                    pad_lens=pad_lens),
-            lambda p, t, c: step(p, t, c, cfg, pad_lens=pad_lens))
+                                    pad_lens=pad_lens, shard=shard),
+            lambda p, t, c: step(p, t, c, cfg, pad_lens=pad_lens,
+                                 shard=shard))
 
 
 def family_step(cfg):
-    """The family's cached forward, (params, tokens, cache, cfg, pad_lens=)
-    → (logits, cache): prefill_chunked's step, the eager twin of the
-    reference's family_step_jit. Families other than dense Llama and MoE
-    raise."""
+    """The family's cached forward, (params, tokens, cache, cfg, pad_lens=,
+    shard=) → (logits, cache): prefill_chunked's step, the eager twin of
+    the reference's family_step_jit. Families other than dense Llama and
+    MoE raise."""
     if isinstance(cfg, MoEConfig):
         from .moe_serve import moe_cached_forward
         return moe_cached_forward
@@ -430,10 +536,18 @@ def generate(params: dict, prompt, cfg: LlamaConfig, *, max_new_tokens: int,
              max_len: int = None, temperature: float = 0.0,
              top_k: int = None, top_p: float = None,
              generator: torch.Generator = None, pad_id: int = None,
-             eos_id: int = None, return_logprobs: bool = False, device=None):
+             eos_id: int = None, return_logprobs: bool = False, device=None,
+             mesh=None):
     """Autoregressive generation: prefill, then a loop of decode steps.
     prompt: [B, S0] int → [B, max_new_tokens] int32, on ``device`` (default
     cuda; the params must live there).
+
+    ``mesh`` (``make_mesh``; every rank calls alike): ``params`` are this
+    rank's shards (``shard_params`` with ``param_specs`` or
+    ``moe_model_specs``), ``prompt`` its (slice, data) block of the batch
+    (``batch_block``), and the rows returned its own (``serve_shard``'s
+    refusals). Sampling needs the same seeded ``generator`` on every rank
+    of a ``model`` group.
 
     temperature 0 = greedy (top_k/top_p ignored); temperature > 0 samples
     with ``generator``, which is then required. ``pad_id``: LEFT-padded
@@ -453,6 +567,7 @@ def generate(params: dict, prompt, cfg: LlamaConfig, *, max_new_tokens: int,
         raise ValueError(f"prompt {S0} + {max_new_tokens} new tokens > "
                          f"max_len {max_len}")
     validate_sampling_args(temperature, top_k, top_p, generator)
+    shard = serve_shard(mesh, dev, (params, cfg))
 
     pad_lens = None
     if pad_id is not None:
@@ -461,8 +576,8 @@ def generate(params: dict, prompt, cfg: LlamaConfig, *, max_new_tokens: int,
                                 dim=1).to(torch.int32)
 
     prefill_fn, step_fn = family_fns(cfg, pad_lens=pad_lens,
-                                     fresh=pad_id is None)
-    cache = init_kv_cache(cfg, B, max_len, dev)
+                                     fresh=pad_id is None, shard=shard)
+    cache = init_kv_cache(cfg, B, max_len, dev, shard=shard)
     logits, cache = prefill_fn(params, prompt, cache)
     args = (temperature, top_k, top_p, generator, return_logprobs)
     tok, lp = pick(logits, *args)

@@ -30,7 +30,14 @@ Deliberate differences from the JAX module:
   package's observability registry, which this package does not import;
   the bridge is later work;
 - a speculative step brings its tokens, emit counts and (when asked) the
-  logprobs to the host in one transfer (the reference makes two).
+  logprobs to the host in one transfer (the reference makes two);
+- on a mesh (``mesh=``; the JAX engine lets GSPMD place its slots) the
+  params are this rank's shards, the slot caches and the prefix rows hold
+  its kv heads, and every rank of a ``model`` group makes the same
+  admission, insertion and finish decisions from the same gathered
+  logits, so its collectives pair with its peers'. Nothing is cut over
+  (slice, data): ranks that differ only there run replicas of the engine,
+  each over the request stream its caller submits.
 
 Both model families serve, through ``family_fns``. MoE bucketing: expert
 capacity for an admission's prefill comes from the bucket length (pads
@@ -51,7 +58,7 @@ import torch
 
 from ..device import resolve_device
 from .decode import (KVCache, family_fns, init_kv_cache, pick,
-                     validate_sampling_args)
+                     serve_shard, validate_sampling_args)
 from .llama import LlamaConfig, resolve_attn as _resolve_attn
 from .moe import MoEConfig, embed_table
 from .speculative import spec_round
@@ -89,7 +96,10 @@ class ServeEngine:
     (MoE targets verify drop-free). ``device`` (default cuda) must be where
     the params live. ``return_logprobs``: record each emitted token's
     log-probability (generate()'s convention; speculative slots score under
-    the target's verify distribution) in ``finished_logprobs``."""
+    the target's verify distribution) in ``finished_logprobs``. ``mesh``:
+    the params (and the draft's) are this rank's shards on it
+    (``decode.serve_shard``; every rank constructs and drives its engine
+    alike)."""
 
     def __init__(self, params, cfg: LlamaConfig, *, slots: int = 8,
                  max_len: int = 2048,
@@ -98,7 +108,7 @@ class ServeEngine:
                  top_p: float = None, generator: torch.Generator = None,
                  draft_params=None, draft_cfg: LlamaConfig = None,
                  spec_k: int = 4, prefix_cache_size: int = 8,
-                 return_logprobs: bool = False, device=None):
+                 return_logprobs: bool = False, device=None, mesh=None):
         family_fns(cfg)     # the family dispatch point: other families raise
         _resolve_attn(cfg.attn_impl, cfg.sliding_window, cfg.attn_sinks)
         validate_sampling_args(temperature, top_k, top_p, generator)
@@ -121,6 +131,9 @@ class ServeEngine:
             if p is not None and embed_table(p).device != dev:
                 raise ValueError(f"{name} on {embed_table(p).device}, "
                                  f"engine on {dev}")
+        models = [(params, cfg)] + ([(draft_params, draft_cfg)]
+                                    if draft_cfg is not None else [])
+        self.shard = serve_shard(mesh, dev, *models)
         self.params = params
         self.cfg = cfg
         self.device = dev
@@ -151,7 +164,8 @@ class ServeEngine:
         self.prefix_hits = 0
 
     def _slot_cache(self, cfg) -> KVCache:
-        cache = init_kv_cache(cfg, self.slots, self.max_len, self.device)
+        cache = init_kv_cache(cfg, self.slots, self.max_len, self.device,
+                              shard=self.shard)
         return cache._replace(length=torch.zeros(
             (self.slots,), dtype=torch.int32, device=self.device))
 
@@ -210,7 +224,8 @@ class ServeEngine:
         pads1 = torch.tensor([pad], dtype=torch.int32, device=self.device)
         cfg, params = ((self.draft_cfg, self.draft_params) if draft
                        else (self.cfg, self.params))
-        return family_fns(cfg, pad_lens=pads1)[1](params, toks, cache1)
+        return family_fns(cfg, pad_lens=pads1,
+                          shard=self.shard)[1](params, toks, cache1)
 
     def _pick(self, logits):
         return pick(logits, self.temperature, self.top_k, self.top_p,
@@ -249,11 +264,13 @@ class ServeEngine:
     def _fresh_rows(self, tokens: list[int], pad: int):
         """A left-padded prompt prefilled into fresh one-row caches →
         (target logits [1, S, V], target row, draft row or None)."""
-        c = init_kv_cache(self.cfg, 1, self.max_len, self.device)
+        c = init_kv_cache(self.cfg, 1, self.max_len, self.device,
+                          shard=self.shard)
         logits, c = self._prefill(tokens, pad, c)
         d = None
         if self.draft_cfg is not None:
-            d = init_kv_cache(self.draft_cfg, 1, self.max_len, self.device)
+            d = init_kv_cache(self.draft_cfg, 1, self.max_len, self.device,
+                              shard=self.shard)
             _, d = self._prefill(tokens, pad, d, draft=True)
         return logits, c, d
 
@@ -346,7 +363,8 @@ class ServeEngine:
         length = self.cache.length
         parked = torch.clamp(length, max=self.max_len - 1)
         safe = torch.where(active, length, parked)
-        step = family_fns(self.cfg, pad_lens=self._pads)[1]
+        step = family_fns(self.cfg, pad_lens=self._pads,
+                          shard=self.shard)[1]
         logits, cache = step(self.params, self._last[:, None],
                              self.cache._replace(length=safe))
         self.cache = cache._replace(
@@ -386,8 +404,9 @@ class ServeEngine:
         happen on the host; a truncated slot always finishes, so the device
         state that ran ahead of it goes with the slot."""
         step_t = family_fns(self.cfg, pad_lens=self._pads,
-                            dropless_step=True)[1]
-        step_d = family_fns(self.draft_cfg, pad_lens=self._pads)[1]
+                            dropless_step=True, shard=self.shard)[1]
+        step_d = family_fns(self.draft_cfg, pad_lens=self._pads,
+                            shard=self.shard)[1]
         (emit_vec, _, emit_n, self._last, self.cache, self.draft_cache,
          verify_logits) = spec_round(
             step_t, step_d, self.params, self.draft_params, self._last,

@@ -233,16 +233,22 @@ def _mlp_half(x, lp, cfg: LlamaConfig, tp: Optional[TPGroup] = None):
     return x + (out if tp is None else reduce_from_tp(out, tp))
 
 
+def _tp_heads(h, cfg: LlamaConfig, tp: Optional[TPGroup]):
+    """(h, heads) for the QKV product: with ``tp`` the normed input through
+    ``copy_to_tp`` and this rank's (n_heads / tp, n_kv_heads / tp) head
+    counts; without, ``h`` and None (cfg's heads)."""
+    if tp is None:
+        return h, None
+    return copy_to_tp(h, tp), (cfg.n_heads // tp.size,
+                               cfg.n_kv_heads // tp.size)
+
+
 def _block_attention_half(x, lp, cfg: LlamaConfig, positions, attn_fn,
                           tp: Optional[TPGroup] = None):
     """Norm → QKV → rope → attention → residual. With ``tp`` the rank's
     heads (n_heads / tp q heads, n_kv_heads / tp kv heads)."""
     B, S, _ = x.shape
-    h = _rmsnorm(x, lp["ln_attn"], cfg.norm_eps)
-    heads = None
-    if tp is not None:
-        h = copy_to_tp(h, tp)
-        heads = (cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size)
+    h, heads = _tp_heads(_rmsnorm(x, lp["ln_attn"], cfg.norm_eps), cfg, tp)
     q, k, v = _project_qkv(h, lp, cfg, positions, heads)
     o = attn_fn(q, k, v).reshape(B, S, q.shape[2] * cfg.head_dim)
     out = o @ lp["wo"].to(cfg.act_dtype)

@@ -16,20 +16,33 @@ routes through its experts with ``moe_ffn``. Routing at serving time:
 
 The aux losses are not computed (the reference computes and discards
 them). The cache is updated in place, as ``decode.cached_forward``'s is.
+
+On a serving mesh (``shard``, ``decode.serve_shard``: ``expert`` and
+``expert`` × ``model``, the batch over (slice, data)) the attention heads
+go over ``model`` as in the dense family, and the FFN goes through
+``moe_ffn(..., shard=)``: the batch replicated over ``expert``, each rank
+dispatching its block to its own experts (and inner columns), the combine
+summed over ``Shard.ffn``, as the training step does (an all-reduce in
+place of the reference's all-to-all). Routing is the single-device one:
+the claim order, the pads' mask and the dropless block are unchanged.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .decode import KVCache, _attention_half, _cached_setup
-from .llama import _logits, _rmsnorm, layer_params
+from typing import Optional
+
+from .decode import KVCache, _attention_half, _cached_setup, _tp, full_logits
+from .llama import _embed, _rmsnorm, layer_params
 from .moe import MoEConfig, moe_ffn, moe_layer
+from .train import Shard
 
 
 @torch.no_grad()
 def moe_cached_forward(params: dict, tokens, cache: KVCache, cfg: MoEConfig,
-                       pad_lens=None, dropless: bool = False):
+                       pad_lens=None, dropless: bool = False,
+                       shard: Optional[Shard] = None):
     """Forward over ``tokens`` [B, S] starting at cache.length; returns
     (logits [B, S, V] f32, cache with length + S), the cache updated in
     place. The MoE twin of decode.cached_forward — the same cache contract
@@ -37,32 +50,37 @@ def moe_cached_forward(params: dict, tokens, cache: KVCache, cfg: MoEConfig,
 
     ``dropless=True``: route with capacity = S, so an S-token block's
     logits equal S single-token calls' (speculative decoding's verify
-    block); prefill keeps training's capacity."""
+    block); prefill keeps training's capacity. ``shard``: this rank's
+    place on a serving mesh (the module's doc); the logits come back whole
+    on every rank."""
     positions, token_mask, write = _cached_setup(tokens, cache, cfg,
                                                  pad_lens)
     S = tokens.shape[1]
+    tp = _tp(shard)
     backbone = params["backbone"]
-    x = backbone["embed"][tokens].to(cfg.act_dtype)
+    x = _embed(backbone, tokens, cfg, tp)
     for layer in range(cfg.n_layers):
         lp = layer_params(backbone, layer)
         x = _attention_half(x, lp, layer, cache, cfg, positions, write,
-                            pad_lens)
+                            pad_lens, tp)
         h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
         # pad positions claim no expert capacity (they sit first in the
         # claim order and would evict real tokens) and emit no output
         ffn_out, _ = moe_ffn(h, moe_layer(params, layer), cfg,
                              token_mask=token_mask,
-                             cap_override=S if dropless else None)
+                             cap_override=S if dropless else None,
+                             shard=shard)
         x = x + ffn_out
-    return _logits(x, backbone, cfg), cache._replace(length=cache.length + S)
+    return (full_logits(x, backbone, cfg, tp),
+            cache._replace(length=cache.length + S))
 
 
 def moe_prefill(params: dict, prompt, cache: KVCache, cfg: MoEConfig, *,
-                pad_lens=None):
+                pad_lens=None, shard: Optional[Shard] = None):
     """(last-token logits [B, V], cache) after consuming the prompt: always
     the cached forward (the MoE family has no fresh-cache fast path)."""
     logits, cache = moe_cached_forward(params, prompt, cache, cfg,
-                                       pad_lens=pad_lens)
+                                       pad_lens=pad_lens, shard=shard)
     return logits[:, -1], cache
 
 

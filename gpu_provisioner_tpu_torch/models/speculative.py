@@ -36,7 +36,12 @@ Deliberate differences from the JAX module:
   work in the reference. So ``spec_round`` takes no ``draft_vocab``: the
   reference needs it only to shape the greedy rounds' unused draft
   probabilities;
-- ``stats["target_calls"]`` is a Python int (the host counts the rounds).
+- ``stats["target_calls"]`` is a Python int (the host counts the rounds);
+- on a mesh (``mesh=``) the target and the draft are both this rank's
+  shards on the same mesh (``decode.serve_shard``), the prompt and the
+  rows returned its (slice, data) block; every rank of a ``model`` group
+  reads the same gathered logits, so its acceptance, rollback and
+  ``done.any()`` agree with its peers' and their collectives pair.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 
 from ..device import resolve_device
 from .decode import (family_fns, filter_logits, init_kv_cache, sample,
-                     validate_sampling_args)
+                     serve_shard, validate_sampling_args)
 from .llama import LlamaConfig
 from .moe import embed_table
 
@@ -97,7 +102,9 @@ def spec_round(step_t, step_d, params, draft_params, last, done, cache_t,
     spec_k+1] int32, keep [B, spec_k+1] bool (True at emitted positions),
     emit_n [B], new_last [B], cache_t, cache_d, verify_logits [B, spec_k+1,
     V]: the target's logits at each block position, filtered when
-    sampled)."""
+    sampled). On a mesh ``step_t``/``step_d`` are ``family_fns(...,
+    shard=)``'s, whose logits are whole on every rank: acceptance and
+    rollback need nothing else."""
     B = last.shape[0]
     dev = last.device
     bound = max_len - (spec_k + 1)
@@ -181,7 +188,8 @@ def speculative_generate(params, draft_params, prompt, cfg: LlamaConfig,
                          top_p: float = None,
                          generator: torch.Generator = None,
                          eos_id: int = None, pad_id: int = None,
-                         return_logprobs: bool = False, device=None):
+                         return_logprobs: bool = False, device=None,
+                         mesh=None):
     """``max_new_tokens`` tokens from the TARGET, accelerated by the draft.
     prompt [B, S0] int → (tokens [B, max_new_tokens] int32, stats) on
     ``device`` (default cuda; both models' params must live there); stats:
@@ -198,7 +206,7 @@ def speculative_generate(params, draft_params, prompt, cfg: LlamaConfig,
     prompts. ``return_logprobs``: also each emitted token's log-probability
     under the target's distribution at its position (greedy: unfiltered;
     sampled: filtered), as a second [B, max_new_tokens] f32 tensor; post-eos
-    positions report 0."""
+    positions report 0. ``mesh``: as generate's, for both models."""
     dev = resolve_device(device)
     for name, p in (("params", params), ("draft_params", draft_params)):
         if embed_table(p).device != dev:
@@ -212,6 +220,7 @@ def speculative_generate(params, draft_params, prompt, cfg: LlamaConfig,
         raise ValueError("draft and target must share a vocabulary: "
                          f"{draft_cfg.vocab_size} != {cfg.vocab_size}")
     validate_sampling_args(temperature, top_k, top_p, generator)
+    shard = serve_shard(mesh, dev, (params, cfg), (draft_params, draft_cfg))
     sampled = temperature > 0
     if max_len is None:
         max_len = S0 + max_new_tokens + spec_k + 1
@@ -228,11 +237,12 @@ def speculative_generate(params, draft_params, prompt, cfg: LlamaConfig,
         pad_lens = torch.argmax((prompt != pad_id).to(torch.int32),
                                 dim=1).to(torch.int32)
     prefill_t, step_t = family_fns(cfg, pad_lens=pad_lens,
-                                   fresh=pad_id is None, dropless_step=True)
+                                   fresh=pad_id is None, dropless_step=True,
+                                   shard=shard)
     prefill_d, step_d = family_fns(draft_cfg, pad_lens=pad_lens,
-                                   fresh=pad_id is None)
-    cache_t = init_kv_cache(cfg, B, max_len, dev)
-    cache_d = init_kv_cache(draft_cfg, B, max_len, dev)
+                                   fresh=pad_id is None, shard=shard)
+    cache_t = init_kv_cache(cfg, B, max_len, dev, shard=shard)
+    cache_d = init_kv_cache(draft_cfg, B, max_len, dev, shard=shard)
     logits_t, cache_t = prefill_t(params, prompt, cache_t)
     _, cache_d = prefill_d(draft_params, prompt, cache_d)
     # per-row lengths from here on: rows advance at their own rates

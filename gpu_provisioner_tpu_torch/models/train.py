@@ -329,13 +329,19 @@ def batch_block(x: torch.Tensor, mesh, perm=None) -> torch.Tensor:
         raise ValueError(f"S = {S} does not split over seq = {ns}")
     if x.ndim == 1:
         return x[si * S // ns:(si + 1) * S // ns]
+    return x[batch_rows(mesh, x.shape[0]), si * S // ns:(si + 1) * S // ns]
+
+
+def batch_rows(mesh, B: int) -> slice:
+    """This rank's rows of a global batch of B: the batch over (slice,
+    data)."""
+    sizes = axis_sizes(mesh)
     nb = sizes[AXIS_SLICE] * sizes[AXIS_DATA]
     bi = (axis_index(mesh, AXIS_SLICE) * sizes[AXIS_DATA]
           + axis_index(mesh, AXIS_DATA))
-    B = x.shape[0]
     if B % nb:
         raise ValueError(f"B = {B} does not split over slice·data = {nb}")
-    return x[bi * B // nb:(bi + 1) * B // nb, si * S // ns:(si + 1) * S // ns]
+    return slice(bi * B // nb, (bi + 1) * B // nb)
 
 
 def tp_group(mesh) -> Optional[TPGroup]:
@@ -368,15 +374,21 @@ def batch_group(mesh):
     return axes_group(mesh, (AXIS_SLICE, AXIS_DATA, AXIS_SEQ))
 
 
+def check_heads(cfg: LlamaConfig, tp: Optional[TPGroup]) -> None:
+    """Raises ValueError when the ``model`` group does not divide cfg's
+    query and kv heads."""
+    if tp is not None and (cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size):
+        raise ValueError(f"model = {tp.size} does not divide the heads "
+                         f"({cfg.n_heads} q, {cfg.n_kv_heads} kv)")
+
+
 def mesh_shard(mesh, cfg: LlamaConfig, zigzag: bool = False) -> Shard:
     """This rank's ``Shard`` of ``mesh`` (its groups built collectively:
     every rank calls this). ``zigzag``: the rank's block holds the
     zigzag's chunk pair of the sequence, else one contiguous block."""
     sizes = axis_sizes(mesh)
     tp = tp_group(mesh)
-    if tp is not None and (cfg.n_heads % tp.size or cfg.n_kv_heads % tp.size):
-        raise ValueError(f"model = {tp.size} does not divide the heads "
-                         f"({cfg.n_heads} q, {cfg.n_kv_heads} kv)")
+    check_heads(cfg, tp)
     n_exp, n_seq = sizes[AXIS_EXPERT], sizes[AXIS_SEQ]
     ffn = tp
     if n_exp > 1:

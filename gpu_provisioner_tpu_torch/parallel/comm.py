@@ -1,5 +1,5 @@
-"""Collectives of the sharded training step, differentiable where the step
-needs them.
+"""Collectives of the sharded training step and of sharded serving,
+differentiable where the step needs them.
 
 No JAX twin module: this is the port's form of what the JAX package gets
 from ``lax.ppermute`` (the ring's K/V rotation, ``parallel/ring.py``) and
@@ -18,7 +18,11 @@ conjugate pair) and for the gradients of the batch axes.
   the group's size: psum's transpose where every rank's cotangent is the
   same (a global mean every rank computes alike from the sum, such as the
   MoE load-balance term's), so a step that then averages the gradients
-  over the group counts the term once.
+  over the group counts the term once;
+- ``gather_from_tp``: all-gather of the last dim over the ``model`` group,
+  forward only: serving's vocabulary-parallel logits, gathered so that
+  every rank of the group samples from the same full row (GSPMD inserts
+  this gather in the JAX package).
 
 **Transport.** NCCL takes CUDA tensors. Gloo's point-to-point ops take
 host memory only, so where a group's backend is gloo and a tensor lies on
@@ -197,6 +201,26 @@ class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def gather_from_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """[..., n] of every rank of ``tp`` → [..., tp.size · n], the ranks'
+    parts in group order (rank r's columns at [r·n, (r+1)·n)), the same on
+    every rank. Forward only (serving runs under no_grad)."""
+    x = x.contiguous()
+    n = tp.size
+    if not _staged(x, tp.group):
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=tp.group)
+        return torch.cat(parts, dim=-1)
+    with _clocked(x):
+        h = _to_host("gather_in", x)
+        gathered = _host("gather", torch.empty((n, *x.shape), dtype=x.dtype,
+                                               device="meta"))
+        dist.all_gather(list(gathered.unbind(0)), h, group=tp.group)
+        out = torch.empty(gathered.shape, dtype=x.dtype, device=x.device)
+        _from_host(out, gathered)
+    return torch.movedim(out, 0, -2).reshape(*x.shape[:-1], n * x.shape[-1])
 
 
 def copy_to_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:

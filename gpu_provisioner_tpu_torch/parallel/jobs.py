@@ -26,11 +26,21 @@ single-process run. The cases:
   the first step lie from its shards of it;
 - ``pipeline_forward``: ``make_pipeline_forward``'s logits on the last
   stage; ``refusals``: the ValueErrors of the pipelined step's
-  preconditions and of ``make_train_step`` on a ``pipe`` mesh.
+  preconditions and of ``make_train_step`` on a ``pipe`` mesh;
+- ``serving`` (``serving_moe``): a list of serving programs on the mesh,
+  through the entry points a user calls (``generate``,
+  ``speculative_generate``, ``ServeEngine``, ``cached_forward`` with
+  ``mesh=``/``shard=``), from the rank's shards of given params (numpy,
+  the JAX layout) or of a seeded tree: each program's tokens (the rank's
+  rows of a global prompt, or the engine's streams) or logits, its wall
+  times, its kernel launches, the bytes staged through the host and the
+  host seconds in the collectives, and peak memory; ``serve_refusals``:
+  the ValueErrors of serving on meshes and params it refuses.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from functools import partial
@@ -40,10 +50,13 @@ import torch
 
 from ..device import resolve_device
 from ..models.convert import params_from_numpy
-from ..models.llama import param_specs
-from ..models.moe import (make_moe_train_state, make_moe_train_step,
-                          moe_model_specs)
-from ..models.train import (make_attn_fn, make_pipeline_forward,
+from ..models.decode import cached_forward, generate, init_kv_cache, serve_shard
+from ..models.engine import ServeEngine
+from ..models.llama import init_params, param_specs
+from ..models.moe import (init_moe_model, make_moe_train_state,
+                          make_moe_train_step, moe_model_specs)
+from ..models.speculative import speculative_generate
+from ..models.train import (batch_rows, make_attn_fn, make_pipeline_forward,
                             make_pipeline_train_state,
                             make_pipeline_train_step, make_train_state,
                             make_train_step, pipeline_param_specs,
@@ -306,11 +319,157 @@ def reference_errors(params: dict, ref: dict, mesh, specs: dict,
     return {"grad_err": g_err, "param_err": p_err, "param_err_all": p_all}
 
 
+def serving_params(kind: str, dev, mesh, cfg, params=None, seed: int = 0):
+    """This rank's shards (``param_specs``, or ``moe_model_specs`` for
+    ``kind`` "moe") of ``params`` (numpy, the JAX layout) or of the tree
+    drawn from ``seed``."""
+    moe = kind == "moe"
+    if params is not None:
+        tree = params_from_numpy(params, device=dev)
+    else:
+        g = torch.Generator(dev).manual_seed(seed)
+        tree = (init_moe_model if moe else init_params)(cfg, g, dev)
+    out = shard_params(tree, mesh, specs=moe_model_specs(cfg) if moe
+                       else param_specs(cfg))
+    del tree
+    if dev.type == "cuda":    # the whole tree: give it back to the card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _program(prog: dict, p, cfg, m, dev) -> dict:
+    """One serving program on this rank (see serving_case)."""
+    kind = prog["kind"]
+    c = dataclasses.replace(cfg, **prog.get("cfg", {}))
+    res = {}
+    if kind == "engine":
+        spec_k = prog.get("spec_k")
+        eng = ServeEngine(p, c, slots=prog["slots"], max_len=prog["max_len"],
+                          prefill_buckets=prog["buckets"], device=dev,
+                          mesh=m, **({} if spec_k is None else dict(
+                              draft_params=p, draft_cfg=c, spec_k=spec_k)))
+
+        def run():
+            ids = [eng.submit(t, n, prefix=pre)
+                   for t, n, pre in prog["requests"]]
+            out = dict(eng.run())
+            eng.finished.clear()
+            return [out[i] for i in ids]
+    else:
+        prompt = np.asarray(prog["prompt"])
+        rows = batch_rows(m, prompt.shape[0])
+        res["rows"] = (rows.start, rows.stop)
+        x = torch.from_numpy(prompt[rows]).to(dev)
+        new = prog.get("new", 0)
+        if kind == "generate":
+            def run():
+                return _numpy(generate(
+                    p, x, c, max_new_tokens=new, max_len=prog.get("max_len"),
+                    pad_id=prog.get("pad_id"), eos_id=prog.get("eos_id"),
+                    device=dev, mesh=m)).astype(np.int32)
+        elif kind == "speculative":
+            def run():
+                return _numpy(speculative_generate(
+                    p, p, x, c, c, max_new_tokens=new,
+                    spec_k=prog["spec_k"], max_len=prog.get("max_len"),
+                    pad_id=prog.get("pad_id"), device=dev,
+                    mesh=m)[0]).astype(np.int32)
+        else:             # "forward": one cached_forward from an empty cache
+            shard = serve_shard(m, dev, (p, c))
+
+            def run():
+                cache = init_kv_cache(c, x.shape[0], prog["max_len"], dev,
+                                      shard=shard)
+                logits, cache = cached_forward(p, x, cache, c, shard=shard)
+                res["length"] = int(cache.length)
+                return _numpy(logits)
+    for _ in range(prog.get("warm", 0)):
+        run()
+    cuda = dev.type == "cuda"
+    tfa.reset_launches()
+    comm.reset_staged()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res["ms"] = []
+    for _ in range(prog.get("runs", 1)):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        if cuda:
+            torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+    res.update(out=out, launches=dict(tfa.LAUNCHES),
+               staged_bytes=comm.STAGED["bytes"],
+               comm_s=comm.STAGED["seconds"],
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda
+               else None)
+    if kind == "engine":
+        res["stats"] = eng.stats()
+    return res
+
+
+def serving_case(device, mesh: dict, cfg, programs: list, *, params=None,
+                 seed: int = 0, kind: str = "dense") -> dict:
+    """``programs`` on ``mesh`` from this rank's shards of ``params`` (numpy,
+    the JAX layout) or of the tree drawn from ``seed`` (``kind`` "moe":
+    the MoE family). A program is a dict: ``kind`` "generate" (``prompt``
+    [B, S] numpy, the global batch, of which the rank serves its block;
+    ``new``, and ``max_len``, ``pad_id``, ``eos_id``), "speculative"
+    (self-draft, ``spec_k``), "engine" (``requests`` [(tokens, new,
+    prefix or None)], the same on every rank; ``slots``, ``max_len``,
+    ``buckets``, and ``spec_k`` for a self-draft) or "forward" (the
+    logits of one ``cached_forward`` of the rank's rows into an empty
+    cache of ``max_len``); ``cfg``: changes to ``cfg``; ``warm`` untimed
+    runs, then ``runs`` timed ones. Returns the rank's coordinates and a
+    result a program: ``out`` (tokens or logits of the rank's ``rows`` of
+    the prompt, or the engine's streams, of the last run), ``ms`` a run,
+    and, over the timed runs, ``launches``, ``staged_bytes``, ``comm_s``
+    and ``peak_bytes``."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    p = serving_params(kind, dev, m, cfg, params, seed)
+    out = {"coords": _coords(m),
+           "programs": {g["name"]: _program(g, p, cfg, m, dev)
+                        for g in programs}}
+    del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+serving_moe_case = partial(serving_case, kind="moe")
+
+
+def serve_refusals_case(device, cfg, attempts: list, params=None) -> list:
+    """The ValueError message of ``generate`` on each attempt (None where it
+    went through): (mesh, "shards") serves this rank's shards of
+    ``params`` (numpy, the JAX layout) on the mesh, (mesh, "whole") the
+    whole tree."""
+    dev = resolve_device(device)
+    whole = params_from_numpy(params, device=dev)
+    out = []
+    for mesh, which in attempts:
+        m = make_mesh(**mesh, device=device)
+        try:
+            p = whole if which == "whole" else shard_params(
+                whole, m, specs=param_specs(cfg))
+            generate(p, torch.ones((1, 4), dtype=torch.int32), cfg,
+                     max_new_tokens=2, device=dev, mesh=m)
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out
+
+
 CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case,
          "pipeline": partial(train_case, kind="pipeline"),
          "moe": partial(train_case, kind="moe"),
          "pipeline_forward": pipeline_forward_case,
-         "refusals": refusals_case}
+         "refusals": refusals_case,
+         "serving": serving_case, "serving_moe": serving_moe_case,
+         "serve_refusals": serve_refusals_case}
 
 
 def run_cases(cases: list, device) -> list:

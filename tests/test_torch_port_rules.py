@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from gpu_provisioner_tpu_torch import bench as tbench
+from gpu_provisioner_tpu_torch import entry as tentry
+from gpu_provisioner_tpu_torch.examples import serve as tserve
 from gpu_provisioner_tpu_torch.examples import train_resume
 from gpu_provisioner_tpu_torch.models import checkpoint as tck
 from gpu_provisioner_tpu_torch.models import decode as td
@@ -194,6 +196,52 @@ def test_training_entry_points_without_device_raise_when_cuda_is_absent(
             twin(True, cfg=cfg, shape=(1, 16))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_resume.main([])
+
+
+def test_import_rule_reads_the_entry_and_example_surfaces():
+    """The rule's rglob reaches the entry, both examples and the bench
+    twins (the serving sections live in bench.py too)."""
+    files = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    for name in ("entry.py", "bench.py", "examples/serve.py",
+                 "examples/train_resume.py"):
+        assert f"gpu_provisioner_tpu_torch/{name}" in files
+    for twin in ("bench_decode", "bench_moe_decode", "bench_engine",
+                 "bench_cached_prefill"):
+        assert tbench.SECTIONS[twin.replace("bench_", "").replace(
+            "cached_prefill", "prefill_cached")] is getattr(tbench, twin)
+
+
+def test_serving_surfaces_without_device_raise_when_cuda_is_absent():
+    """entry(), dryrun_multichip, the serving bench twins and the serve
+    example run on cuda unless the caller names the CPU; serving on a mesh
+    of another device type is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tentry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tentry.dryrun_multichip(4)
+    cfg = tl.PRESETS["tiny"]
+    for twin, kw in ((tbench.bench_decode, {"cfg": cfg, "shape": (1, 8, 2)}),
+                     (tbench.bench_moe_decode, {
+                         "cfg": tm.PRESETS_MOE["tiny-moe"],
+                         "shape": (1, 8, 2)}),
+                     (tbench.bench_engine, {"cfg": cfg,
+                                            "shape": (1, 512, 1)}),
+                     (tbench.bench_cached_prefill, {
+                         "shape": (1, 128, 512, 4, 2, 16)})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            twin(True, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main([])
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    params = tl.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(ValueError, match="a cuda mesh for serving on cpu"):
+        td.generate(params, torch.zeros(1, 4, dtype=torch.int32), cfg,
+                    max_new_tokens=2, device="cpu", mesh=CudaMesh())
 
 
 def _header_fields(struct: str) -> list:
