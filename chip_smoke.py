@@ -183,6 +183,29 @@ Phases, each of which exits non-zero on a failed check:
    collective seconds a forward, peak a rank (``tp_serving``,
    ``ep_serving``); then entry() on the card, dryrun_multichip(4) and the
    four serving bench twins at fast size with their launches;
+15. a save on one mesh restored onto another (models/checkpoint.py with
+   ``mesh=``: each leaf a DTensor over the rank's shard, written once by
+   torch.distributed.checkpoint, read back as the restoring mesh's
+   shards), the ranks again sharing the card over gloo: first flash_fwd
+   (#1/#2), flash_bwd_dq (#6) and flash_bwd_dkv (#7) at the call shape of
+   the step after the full-width restore (RESUME_CALLS: B=8, S=2048,
+   8/4 heads a rank at tp 2, causal) against their plain versions
+   (``at_resume_shapes``); then at llama-1b width
+   in f32 with the flash kernels, one 4-rank world: 2 layers saved after
+   a step at dp 4 and restored at (tp 2, sp 2), and 4 layers pipelined at
+   (pp 2, dp 2) with n_chunks 2 restored under its stamp: every rank's
+   restored leaves bitwise its shards of the saved tree, the next loss
+   within 1e-5 of the old mesh's, a (1, 1) restore of the pipelined state
+   and a save onto an existing checkpoint refused on every rank, no CUDA
+   tensor handed to a collective; then full-width llama-1b at
+   SHARDED_LAYERS layers (bf16, f32 masters and moments, remat, B=8,
+   S=2048) saved after a step at dp 2 through TrainCheckpointManager(
+   mesh=) and restored at tp 2 over 2 ranks (the disk's free space checked
+   first): leaves bitwise, the next loss within 2e-4 relative of
+   the dp-2 mesh's, save and restore seconds and GB/s, and the launches a
+   rank of the step after the restore checked (16 / 8 / 8:
+   ``resume_mesh`` in launches_by_path); phase 4 also reads its last
+   engine back from observability/fleet.py's registry;
 then the phase-2, 9, 10 and 14 rows' device times, the card line, the
 kernels line and, last, the device line.
 """
@@ -1647,7 +1670,7 @@ def phase_exact(torch, tl, td, te, dev):
     del params, eng
 
 
-def phase_main(torch, tl, td, te, tfa, dev):
+def phase_main(torch, tl, td, te, tfa, fleet, dev):
     """Full Llama-7B in bf16 through ServeEngine and generate()."""
     cfg = dataclasses.replace(tl.PRESETS["llama-7b"], attn_impl="flash")
     t0 = time.perf_counter()
@@ -1695,6 +1718,16 @@ def phase_main(torch, tl, td, te, tfa, dev):
         check(st["prefix_cache_hits"] == 1 and st["prefix_cache_misses"] == 1,
               f"prefix cache {st}")
         rates.append(st["tokens_emitted"] / wall)
+    # the engine registered itself at construction: the fleet's scrape
+    # reads what the pass emitted
+    names = [k for k, e in fleet.ENGINES.items() if e is eng]
+    emitted = sum(len(out[rid]) for rid in ids)
+    check(len(names) == 1
+          and fleet.engine_stats()[names[0]]["tokens_emitted"] == emitted,
+          f"fleet registry: {names} for the last pass's engine, stats "
+          f"{fleet.engine_stats()}, emitted {emitted}")
+    print(f"fleet registry: {names[0]} is the last pass's engine, "
+          f"tokens_emitted {emitted} as it emitted")
     print(f"ServeEngine llama-7b bf16, smoke-run rate (3 passes after a "
           f"warm-up, each {len(ids)} requests and {st['tokens_emitted']} "
           f"tokens, admissions included): {rates} tokens/s, median "
@@ -3363,6 +3396,150 @@ def phase_serve_surfaces(torch, bench, entry, tfa):
     return twins, launches
 
 
+# phase 15: a save on one mesh restored onto another, the ranks sharing the
+# card over gloo. The exact f32 cases of one 4-rank world (llama-1b width:
+# 2 layers dense, 4 pipelined), their batch, and the full-width run (8 of
+# llama-1b's 16 layers, as phase 12 runs it): save mesh, restore mesh,
+# batch
+MESH_RESUME_EXACT = (4, 512)
+MESH_RESUME_FULL = ({}, {"tp": 2}, SHARDED_SHAPE)
+# the flash calls of the step after the full-width restore: the whole
+# batch (dp 1) at tp 2, llama-1b's 16/8 heads halved, causal, no ring
+RESUME_CALLS = (("resume_tp2", *SHARDED_SHAPE, 8, 4),)
+
+
+def held_mesh_resume(name, ranks, rtol, atol=0.0):
+    """The checks every rank of a mesh-resume case passes: its restored
+    leaves bitwise its shards of the saved tree, step and count 1, no CUDA
+    tensor in a collective, the restored mesh's next loss within rtol
+    (plus atol) of the old mesh's, and every rank's losses equal."""
+    for r in ranks:
+        first, old, new = r["losses"]
+        check(not r["differ"], f"{name}: restored leaves differ from the "
+              f"saved shards on {r['coords_restore']}: {r['differ']}")
+        check(r["step"] == 1 and r["count"] == 1,
+              f"{name}: restored step {r['step']}, count {r['count']}")
+        check(not any(r["cuda_collectives"].values()),
+              f"{name}: CUDA tensors in collectives "
+              f"{r['cuda_collectives']}")
+        check(abs(new - old) <= atol + rtol * abs(old),
+              f"{name}: next loss {new!r} on the restored mesh, {old!r} on "
+              "the old one")
+        check(r["losses"] == ranks[0]["losses"],
+              f"{name}: ranks disagree on the losses")
+    for r in ranks:
+        for msg, what in zip(r.get("refusals", ()), ("pipeline layout",
+                                                      "already exists")):
+            check(msg is not None and what in msg,
+                  f"{name}: a refusal did not raise on "
+                  f"{r['coords_restore']}: {msg}")
+
+
+def phase_mesh_resume(torch, tl, jobs, launch, dev):
+    """Phase 15: the exact f32 cases over one 4-rank world (llama-1b
+    width, 2 layers, flash: a step at dp 4, a save, the next step, a
+    restore at (tp 2, sp 2) and its next step; 4 layers at (pp 2, dp 2),
+    n_chunks 2: a save and a restore under its stamp; each with the
+    layout refusal and a save onto the existing checkpoint, on every
+    rank), then full-width llama-1b at SHARDED_LAYERS layers over 2 ranks
+    (bf16, f32 masters and moments, remat, flash): a step at dp 2, a save
+    through TrainCheckpointManager(mesh=), the next step, restore_latest
+    at tp 2 and its next step. Returns (launches a rank of the step after
+    the full-width restore, the report)."""
+    B, S = MESH_RESUME_EXACT
+    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
+                              dtype="float32", attn_impl="flash")
+    report = {"what": SHARED}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-mesh-ckpt-") as d:
+        tmp = Path(d)
+        cases = [
+            {"kind": "checkpoint", "cfg": cfg, "directory": str(tmp / "a"),
+             "save_mesh": {}, "restore_mesh": {"tp": 2, "sp": 2},
+             "seed": SEED + 50, "batch_shape": (B, S), "refusals": True},
+            {"kind": "checkpoint_pipeline",
+             "cfg": dataclasses.replace(cfg, n_layers=4),
+             "directory": str(tmp / "p"), "save_mesh": {"pp": 2},
+             "restore_mesh": {"pp": 2}, "seed": SEED + 51,
+             "batch_shape": (B, S), "n_micro": 2, "n_chunks": 2,
+             "refusals": True}]
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, 4, backend="gloo",
+                                 device=dev, timeout_s=400,
+                                 args=(cases, dev.type))
+        wall = time.perf_counter() - t0
+        for i, name in enumerate(("dp4 -> (tp2, sp2)",
+                                  "(pp2, dp2) n_chunks 2 -> itself")):
+            ranks = [r[i] for r in res]
+            row = {k: ranks[0][k] for k in ("losses", "save_s", "restore_s",
+                                            "bytes_written")}
+            row["refusals"] = ranks[0]["refusals"]
+            report[f"exact {name}"] = row
+            print(f"mesh resume exact {name} (llama-1b width, f32, flash, "
+                  f"B={B} S={S}; 4 {SHARED}; {wall:.1f} s for the world): "
+                  f"{json.dumps(row)}; every rank's leaves bitwise its "
+                  f"shards of the saved tree: "
+                  f"{all(not r['differ'] for r in ranks)}")
+            held_mesh_resume(f"mesh resume exact {name}", ranks, 1e-5)
+        shutil.rmtree(tmp / "a")
+        shutil.rmtree(tmp / "p")
+
+        save_mesh, restore_mesh, shape = MESH_RESUME_FULL
+        full = dataclasses.replace(tl.PRESETS["llama-1b"], attn_impl="flash",
+                                   remat=True, n_layers=SHARDED_LAYERS)
+        shapes = tl.init_params(full, None, "meta",
+                                dtype=getattr(torch, full.param_dtype))
+        n = sum(t.numel() for t in _named(shapes).values())
+        need, free = n * 12, shutil.disk_usage(tmp).free
+        print(f"mesh resume llama-1b ({SHARDED_LAYERS} layers): {n} params, "
+              f"the state (f32 params, mu, nu) {need / 1e9:.3f} GB; the disk "
+              f"under {tmp} has {free / 1e9:.3f} GB free")
+        check(need < free, f"the disk has {free / 1e9:.3f} GB free, the "
+              f"checkpoint needs {need / 1e9:.3f} GB")
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, 2, backend="gloo",
+                                 device=dev, timeout_s=500, args=([{
+                                     "kind": "checkpoint", "cfg": full,
+                                     "directory": str(tmp / "full"),
+                                     "save_mesh": save_mesh,
+                                     "restore_mesh": restore_mesh,
+                                     "seed": SEED + 52, "batch_shape": shape,
+                                     "manager": True}], dev.type))
+        wall = time.perf_counter() - t0
+    ranks = [r[0] for r in res]
+    r0 = ranks[0]
+    row = {"layers": SHARDED_LAYERS, "batch": shape, "params": n,
+           "state_gb": need / 1e9, "losses": r0["losses"],
+           "save_s": r0["save_s"], "written_gb": r0["bytes_written"] / 1e9,
+           "save_gb_per_s": r0["bytes_written"] / 1e9 / r0["save_s"],
+           "restore_s": r0["restore_s"],
+           "restore_gb_per_s": r0["bytes_written"] / 1e9 / r0["restore_s"],
+           "peak_gib_by_rank": [(r["peak_bytes"] or 0) / 2**30
+                                for r in ranks],
+           "launches_after_restore_by_rank": [
+               {k: r["launches"][k] for k in SHARDED_KERNELS}
+               for r in ranks],
+           "world_s": wall, "what": SHARED}
+    report["llama-1b dp2 -> tp2"] = row
+    print(f"mesh resume llama-1b bf16 (f32 masters and moments, remat, flash)"
+          f" saved at dp 2 through TrainCheckpointManager(mesh=), restored at"
+          f" tp 2 ({SHARED}): {json.dumps(row)}; beside phase 11's "
+          f"single-card save and restore")
+    # one step moves the loss by ~4e-4 relative (10.8812 -> 10.8766 on the
+    # card): a restore of the state before the step, or a fresh init,
+    # fails this bound
+    held_mesh_resume("mesh resume llama-1b", ranks, 2e-4)
+    L = SHARDED_LAYERS
+    for r in ranks:
+        for k, want in {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}.items():
+            check(r["launches"][k] == want,
+                  f"mesh resume llama-1b on {r['coords_restore']}: {k} "
+                  f"launched {r['launches'][k]} times in the step after the "
+                  f"restore, expected {want}")
+    return {k: [r["launches"][k] for r in ranks]
+            for k in SHARDED_KERNELS}, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3382,6 +3559,7 @@ def main() -> int:
     from gpu_provisioner_tpu_torch.models import moe_serve as tms
     from gpu_provisioner_tpu_torch.models import speculative as ts
     from gpu_provisioner_tpu_torch.models import train as tt
+    from gpu_provisioner_tpu_torch.observability import fleet
     from gpu_provisioner_tpu_torch.ops import _cuda
     from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
     from gpu_provisioner_tpu_torch.parallel import jobs, launch
@@ -3409,7 +3587,7 @@ def main() -> int:
     print(f"exact phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve = phase_main(torch, tl, td, te, tfa, dev)
+    serve = phase_main(torch, tl, td, te, tfa, fleet, dev)
     print(f"main phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()      # the serving params are gone
     t0 = time.perf_counter()
@@ -3496,6 +3674,15 @@ def main() -> int:
           f" s; sharded serving phase {time.perf_counter() - t14:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    resume_errs = phase_call_shapes(torch, tfa, dev, RESUME_CALLS, "resume",
+                                    causals=(True,), lse_cotangent=False,
+                                    seed=SEED + 53)
+    torch.cuda.empty_cache()
+    mesh_resume, mesh_resume_report = phase_mesh_resume(torch, tl, jobs,
+                                                        launch, dev)
+    print(f"mesh resume phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
@@ -3523,6 +3710,10 @@ def main() -> int:
             r["launches_by_path"].update(
                 {k: {run: v[name] for run, v in runs.items()}
                  for k, runs in parallel.items()})
+            r["launches_by_path"]["resume_mesh"] = mesh_resume[name]
+            r["at_resume_shapes"] = resume_errs[name]
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   resume_errs[name]["max_abs_err"])
             r["at_parallel_shapes"] = parallel_errs[name]
             r["max_abs_err"] = max(r["max_abs_err"],
                                    parallel_errs[name]["max_abs_err"])
@@ -3562,6 +3753,7 @@ def main() -> int:
           f"{json.dumps(parallel_report)}")
     print(f"sharded serving ({SHARED}): {json.dumps(serving_report)}; "
           f"serving twins (fast) {json.dumps(serve_twins)}")
+    print(f"mesh resume ({SHARED}): {json.dumps(mesh_resume_report)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

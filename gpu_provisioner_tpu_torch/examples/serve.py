@@ -18,15 +18,18 @@ printed:
   4. the MoE family, a sliding window, speculative decoding (a self-draft:
      every proposal accepted) and the continuous-batching engine with a
      draft.
+With ``TPU_KAITO_BOOTSTRAP=auto`` the process is instead one rank of the
+world its pod belongs to: ``parallel/bootstrap.py`` reads its Node's labels
+(``NODE_NAME``) and starts the process group, and the same rank body runs
+on ``make_mesh(tp=2)`` over that world (``examples.run_bootstrapped``).
 Deliberate differences: prompts and sampled streams come from
-``torch.Generator`` seeds (``jax.random``'s cannot be reproduced); the
-reference's ``TPU_KAITO_BOOTSTRAP`` path (a slice bootstrapped from the
-provisioner's node labels) is not run here.
+``torch.Generator`` seeds (``jax.random``'s cannot be reproduced).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from dataclasses import replace
 
 import torch
@@ -41,6 +44,7 @@ from ..models.speculative import speculative_generate
 from ..models.train import shard_params
 from ..parallel.launch import spawn_ranks
 from ..parallel.topology import axis_sizes, make_mesh
+from . import run_bootstrapped
 
 WORLD = 2
 
@@ -50,7 +54,7 @@ def rank_main(device: str) -> list:
     lines = []
     dev = resolve_device(device)
     cfg = replace(PRESETS["tiny"], max_seq_len=512)
-    mesh = make_mesh(tp=WORLD, device=device)
+    mesh = make_mesh(tp=2, device=device)
     params = shard_params(
         init_params(cfg, torch.Generator(dev).manual_seed(0), dev), mesh,
         specs=param_specs(cfg))
@@ -86,7 +90,7 @@ def rank_main(device: str) -> list:
     # kv heads (kv_cache_specs: dim 2) are this rank's
     shard = serve_shard(mesh, dev, (params, cfg))
     cache = init_kv_cache(cfg, 2, 256, dev, shard=shard)
-    assert cache.k.shape[kv_cache_specs(cfg).k] == cfg.n_kv_heads // WORLD
+    assert cache.k.shape[kv_cache_specs(cfg).k] == cfg.n_kv_heads // 2
     logits, cache = cached_forward(params, prompt, cache, cfg, shard=shard)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     for _ in range(2):
@@ -147,9 +151,13 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
         from ..ops import _cuda
         _cuda.build()           # the ranks load the kernels, never build
-    lines = spawn_ranks(serve.rank_main, WORLD, backend="gloo", device=dev,
-                        timeout_s=300, args=(dev.type,))[0]
-    print("\n".join(lines))
+    if os.environ.get("TPU_KAITO_BOOTSTRAP", "") == "auto":
+        lines = run_bootstrapped(serve.rank_main, dev)
+    else:
+        lines = spawn_ranks(serve.rank_main, WORLD, backend="gloo",
+                            device=dev, timeout_s=300, args=(dev.type,))[0]
+    if lines is not None:
+        print("\n".join(lines))
 
 
 if __name__ == "__main__":

@@ -26,9 +26,11 @@ Deliberate differences from the JAX module:
   (the target's and the draft's), which stay untouched for the next hit;
 - an eager host loop in place of jitted step/prefill/insert programs;
 - ``torch.Generator`` in place of ``jax.random`` keys for sampling;
-- no fleet registration: the JAX engine registers itself with the JAX
-  package's observability registry, which this package does not import;
-  the bridge is later work;
+- the engine registers itself at construction in the port's own registry
+  (``observability/fleet.py``, the twin of the JAX package's, which this
+  package does not import), with no ``try``: that registry cannot be
+  missing; on a mesh only the rank whose ``model`` and ``expert``
+  coordinates are 0 registers, so a model group counts once;
 - a speculative step brings its tokens, emit counts and (when asked) the
   logprobs to the host in one transfer (the reference makes two);
 - on a mesh (``mesh=``; the JAX engine lets GSPMD place its slots) the
@@ -57,6 +59,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
+from ..observability.fleet import register_engine
 from .decode import (KVCache, family_fns, init_kv_cache, pick,
                      serve_shard, validate_sampling_args)
 from .llama import LlamaConfig, resolve_attn as _resolve_attn
@@ -162,6 +165,11 @@ class ServeEngine:
         self._prefix_lru: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.prefix_misses = 0
         self.prefix_hits = 0
+        # the fleet's view of this engine (the tpu_provisioner_engine_*
+        # gauges): once a model group
+        if self.shard is None or (self.shard.expert == 0 and (
+                self.shard.tp is None or self.shard.tp.rank == 0)):
+            register_engine(self)
 
     def _slot_cache(self, cfg) -> KVCache:
         cache = init_kv_cache(cfg, self.slots, self.max_len, self.device,

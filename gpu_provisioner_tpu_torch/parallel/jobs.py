@@ -35,20 +35,34 @@ single-process run. The cases:
   rows of a global prompt, or the engine's streams) or logits, its wall
   times, its kernel launches, the bytes staged through the host and the
   host seconds in the collectives, and peak memory; ``serve_refusals``:
-  the ValueErrors of serving on meshes and params it refuses.
+  the ValueErrors of serving on meshes and params it refuses;
+- ``checkpoint`` (``checkpoint_pipeline``): a step on one mesh, a save
+  (``save_train_state(mesh=)`` or ``TrainCheckpointManager(mesh=)``), the
+  next step, a restore onto another mesh and its next step: the losses,
+  the leaves that differ from the rank's shards of the saved tree, save
+  and restore seconds, bytes written, the CUDA tensors handed to
+  collectives meanwhile, the launches after the restore, and the
+  refusals of a wrong layout stamp and an existing destination;
+  ``checkpoint_restore``: a checkpoint written anywhere restored onto a
+  mesh; ``checkpoint_schedule``: the manager's saved, kept and latest
+  steps on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..models import checkpoint as ck
 from ..models.convert import params_from_numpy
 from ..models.decode import cached_forward, generate, init_kv_cache, serve_shard
 from ..models.engine import ServeEngine
@@ -56,11 +70,12 @@ from ..models.llama import init_params, param_specs
 from ..models.moe import (init_moe_model, make_moe_train_state,
                           make_moe_train_step, moe_model_specs)
 from ..models.speculative import speculative_generate
-from ..models.train import (batch_rows, make_attn_fn, make_pipeline_forward,
-                            make_pipeline_train_state,
+from ..models.train import (batch_rows, default_optimizer, make_attn_fn,
+                            make_pipeline_forward, make_pipeline_train_state,
                             make_pipeline_train_step, make_train_state,
-                            make_train_step, pipeline_param_specs,
-                            shard_params, train_state_from)
+                            make_train_step, param_leaves,
+                            pipeline_param_specs, shard_params,
+                            train_state_from)
 from ..ops import flash_attention as tfa
 from . import comm
 from .pipeline import to_pipeline_layout
@@ -169,27 +184,34 @@ def _family(kind: str, cfg, mesh, n_chunks: int = 1):
     return param_specs(cfg), lambda tree: tree
 
 
-def _state_and_step(kind, dev, m, cfg, params, seed, n_micro, n_chunks):
+def _state_and_step(kind, dev, m, cfg, params, seed, n_micro, n_chunks,
+                    optimizer=None):
     """(params, optimizer, step) of a train case, through the entry points a
-    user calls."""
+    user calls (``optimizer``: a callable on the leaves, default
+    ``default_optimizer``)."""
     specs, layout = _family(kind, cfg, m, n_chunks)
     if params is not None:
         p, opt = train_state_from(shard_params(
-            layout(params_from_numpy(params, device=dev)), m, specs=specs))
+            layout(params_from_numpy(params, device=dev)), m, specs=specs),
+            optimizer)
     else:
         g = torch.Generator(dev).manual_seed(seed)
-        p, opt = (make_moe_train_state(cfg, g, dev, mesh=m) if kind == "moe"
-                  else make_pipeline_train_state(cfg, g, m, dev,
+        p, opt = (make_moe_train_state(cfg, g, dev, optimizer, mesh=m)
+                  if kind == "moe"
+                  else make_pipeline_train_state(cfg, g, m, dev, optimizer,
                                                  n_chunks=n_chunks)
-                  if kind == "pipeline" else make_train_state(cfg, g, dev,
-                                                              mesh=m))
+                  if kind == "pipeline" else make_train_state(
+                      cfg, g, dev, optimizer, mesh=m))
+    return p, opt, _step_fn(kind, cfg, opt, m, n_micro, n_chunks)
+
+
+def _step_fn(kind, cfg, opt, m, n_micro, n_chunks):
+    """The train step of a ``kind`` of train case over ``opt``."""
     if kind == "pipeline":
-        step = make_pipeline_train_step(cfg, opt, m, n_micro, n_chunks)
-    elif kind == "moe":
-        step = make_moe_train_step(cfg, opt, m)
-    else:
-        step = make_train_step(cfg, opt, mesh=m)
-    return p, opt, step
+        return make_pipeline_train_step(cfg, opt, m, n_micro, n_chunks)
+    if kind == "moe":
+        return make_moe_train_step(cfg, opt, m)
+    return make_train_step(cfg, opt, mesh=m)
 
 
 def train_case(device, mesh: dict, cfg, *, params=None, seed: int = 0,
@@ -463,13 +485,281 @@ def serve_refusals_case(device, cfg, attempts: list, params=None) -> list:
     return out
 
 
+# the c10d functions a checkpoint's collectives may reach, each wrapped by
+# _cuda_collectives in both namespaces that export it
+_COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce",
+                "all_to_all", "all_to_all_single", "broadcast", "gather",
+                "irecv", "isend", "recv", "reduce", "reduce_scatter",
+                "reduce_scatter_tensor", "scatter", "send")
+
+
+@contextlib.contextmanager
+def _cuda_collectives():
+    """Counts, by function, the CUDA tensors handed to a c10d collective
+    while the block runs (the object collectives' tensors included): a
+    gloo group refuses them in its p2p and stages nothing, so a checkpoint
+    must pass none. Yields the {name: count} dict."""
+    from torch.distributed import distributed_c10d as c10d
+
+    seen: dict = {}
+    saved = []
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            for a in list(args) + list(kwargs.values()):
+                for t in a if isinstance(a, (list, tuple)) else [a]:
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+                        seen[name] = seen.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for mod in (c10d, dist):
+        for name in _COLLECTIVES:
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, wrap(name, getattr(mod, name)))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _named(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _ckpt_tree(p, opt) -> dict:
+    """The checkpoint tree's tensors of a state, as copies on their
+    device."""
+    tree = {"params": p, "opt_state": ck.adam_state_tree(p, opt)}
+
+    def copy(t):
+        return ({k: copy(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.detach().clone())
+    return copy(tree)
+
+
+def _numpy_leaves(tree: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in _named(tree).items()}
+
+
+def _differing(a: dict, b: dict) -> list:
+    """Names of the leaves of trees a and b not equal in dtype, shape and
+    every value."""
+    a, b = _named(a), _named(b)
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k], b[k]))
+
+
+def _narrowed(tree: dict, mesh, specs: dict) -> dict:
+    """This rank's shards on ``mesh`` of a whole checkpoint tree."""
+    opt = tree["opt_state"]
+    return {"params": shard_params(tree["params"], mesh, specs=specs),
+            "opt_state": {"count": opt["count"],
+                          **{k: shard_params(opt[k], mesh, specs=specs)
+                             for k in ("mu", "nu")}}}
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def checkpoint_case(device, cfg, directory, *, save_mesh: dict,
+                    restore_mesh: dict, params=None, seed: int = 0,
+                    batches=None, batch_shape=None, kind: str = "train",
+                    n_micro: int = 4, n_chunks: int = 1,
+                    manager: bool = False, leaves: bool = False,
+                    refusals: bool = False) -> dict:
+    """A save on one mesh and a restore onto another, through the entry
+    points a user calls: the dense (``kind`` "train") or pipelined
+    ("pipeline", ``n_micro``, ``n_chunks``; the layout stamp (pipe size,
+    n_chunks)) state of ``cfg`` on ``save_mesh`` from ``params`` (numpy,
+    the JAX layout) or ``seed``, through ``default_optimizer``; one
+    step on the first of two batches (numpy pairs, else drawn from seed +
+    1 and seed + 2 at ``batch_shape``); a save of step 1 into
+    ``directory`` (``save_train_state(mesh=)`` into ``directory``/ckpt,
+    or with ``manager`` a ``TrainCheckpointManager(mesh=)``); the next
+    step on the old mesh; then a restore onto ``restore_mesh``
+    (``restore_train_state(mesh=)``, or a new manager's
+    ``restore_latest``) and the next step there.
+
+    Returns this rank's coordinates on both meshes, the losses (first
+    step, the old mesh's next, the restored mesh's next), the restored
+    step and count, the checkpoint leaves that differ from this rank's
+    shards of the saved tree (``differ``: the same mesh's saved shards,
+    or the narrowing of the whole saved tree a save mesh without model
+    or pipe sharding holds), save and restore seconds, the bytes written,
+    the CUDA tensors the collectives of the save and the restore were
+    handed (``cuda_collectives``), the kernel launches of the step after
+    the restore and peak memory; with ``leaves`` the saved and restored
+    leaves as numpy; with ``refusals`` the ValueError messages of a
+    restore under another layout stamp and of a save onto the existing
+    checkpoint."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    m = make_mesh(**save_mesh, device=device)
+    p, opt, step = _state_and_step(kind, dev, m, cfg, params, seed, n_micro,
+                                   n_chunks)
+    if cuda:        # the whole tree each rank drew: give it back to the card
+        torch.cuda.empty_cache()
+    if batches is None:
+        data = [seeded_batch(cfg, *batch_shape, seed + i, dev)
+                for i in (1, 2)]
+    else:
+        data = [tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in b)
+                for b in batches]
+    layout = {"n_stages": axis_sizes(m)[AXIS_PIPE], "n_chunks": n_chunks}
+    path = Path(directory) / ("1" if manager else "ckpt")
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with _cuda_collectives() as seen:
+            out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        return out, time.perf_counter() - t0, seen
+
+    res = {"coords_save": _coords(m), "losses": [step(p, *data[0]).item()]}
+    if manager:
+        mgr = ck.TrainCheckpointManager(directory, cfg, default_optimizer,
+                                        device=dev, mesh=m,
+                                        save_interval_steps=1, **layout)
+        saved_now, res["save_s"], seen_save = timed(
+            lambda: mgr.maybe_save(1, p, opt))
+        if not saved_now:
+            raise RuntimeError("the manager did not save step 1")
+    else:
+        _, res["save_s"], seen_save = timed(lambda: ck.save_train_state(
+            path, p, opt, 1, mesh=m, **layout))
+    res["bytes_written"] = _dir_bytes(path)
+    saved = _ckpt_tree(p, opt)
+    res["losses"].append(step(p, *data[1]).item())
+    del p, opt, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    m2 = m if restore_mesh == save_mesh else make_mesh(**restore_mesh,
+                                                       device=device)
+    if manager:
+        mgr2 = ck.TrainCheckpointManager(directory, cfg, default_optimizer,
+                                         device=dev, mesh=m2, **layout)
+        (p, opt, at), res["restore_s"], seen_restore = timed(
+            mgr2.restore_latest)
+    else:
+        (p, opt, at), res["restore_s"], seen_restore = timed(
+            lambda: ck.restore_train_state(path, cfg, default_optimizer,
+                                           device=dev, mesh=m2, **layout))
+    res.update(coords_restore=_coords(m2), step=at,
+               count=int(opt.state[param_leaves(p)[0]]["step"]),
+               cuda_collectives={"save": seen_save,
+                                 "restore": seen_restore})
+    restored = _ckpt_tree(p, opt)
+    if m2 is m:
+        want = saved
+    elif all(axis_sizes(m)[a] == 1 for a in (AXIS_MODEL, AXIS_PIPE)):
+        want = _narrowed(saved, m2, ck.mesh_specs(m2))
+    else:
+        raise ValueError("a restore onto another mesh is checked against "
+                         "a save mesh that holds the whole tree")
+    res["differ"] = _differing(want, restored)
+    if leaves:
+        res["saved"] = _numpy_leaves(saved)
+        res["restored"] = _numpy_leaves(restored)
+    del saved, restored, want
+    step2 = _step_fn(kind, cfg, opt, m2, n_micro, n_chunks)
+    tfa.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res["losses"].append(step2(p, *data[1]).item())
+    res["launches"] = dict(tfa.LAUNCHES)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    if refusals:
+        other = ({"n_stages": 1, "n_chunks": 1}
+                 if layout != {"n_stages": 1, "n_chunks": 1}
+                 else {"n_stages": 2, "n_chunks": 1})
+        res["refusals"] = [
+            _refused(lambda: ck.restore_train_state(
+                path, cfg, default_optimizer, device=dev, mesh=m2, **other)),
+            _refused(lambda: ck.save_train_state(path, p, opt, 1, mesh=m2,
+                                                 **layout))]
+    del p, opt, step2
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _refused(fn):
+    """fn()'s ValueError message, None where it went through."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def checkpoint_restore_case(device, cfg, path, mesh: dict) -> dict:
+    """``restore_train_state(path, mesh=)`` of a dense checkpoint (written
+    anywhere, one device included): this rank's coordinates, the restored
+    step and the checkpoint leaves as numpy."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    p, opt, at = ck.restore_train_state(path, cfg, default_optimizer,
+                                        device=dev, mesh=m)
+    return {"coords": _coords(m), "step": at,
+            "leaves": _numpy_leaves(_ckpt_tree(p, opt))}
+
+
+def checkpoint_schedule_case(device, cfg, directory, mesh: dict,
+                             sequences: list) -> list:
+    """``TrainCheckpointManager(mesh=)`` over step sequences: for each
+    (interval, keep, [steps, ...], a subdirectory), and for each list of
+    steps a new manager over that subdirectory (a restart), the steps it
+    saved, the step directories kept and the latest step; then the step
+    ``restore_latest`` gives on the mesh."""
+    dev = resolve_device(device)
+    m = make_mesh(**mesh, device=device)
+    p, opt = make_train_state(cfg, torch.Generator(dev).manual_seed(0), dev,
+                              mesh=m)
+    out = []
+    for interval, keep, runs, sub in sequences:
+        d = Path(directory) / sub
+        got = []
+        for steps in runs:
+            mgr = ck.TrainCheckpointManager(
+                d, cfg, default_optimizer, device=dev, mesh=m,
+                max_to_keep=keep, save_interval_steps=interval)
+            saved = [s for s in steps if mgr.maybe_save(s, p, opt)]
+            got.append({"saved": saved, "kept": mgr.all_steps(),
+                        "latest": mgr.latest_step()})
+        got.append(mgr.restore_latest()[2])
+        out.append(got)
+    return out
+
+
 CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case,
          "pipeline": partial(train_case, kind="pipeline"),
          "moe": partial(train_case, kind="moe"),
          "pipeline_forward": pipeline_forward_case,
          "refusals": refusals_case,
          "serving": serving_case, "serving_moe": serving_moe_case,
-         "serve_refusals": serve_refusals_case}
+         "serve_refusals": serve_refusals_case,
+         "checkpoint": checkpoint_case,
+         "checkpoint_pipeline": partial(checkpoint_case, kind="pipeline"),
+         "checkpoint_restore": checkpoint_restore_case,
+         "checkpoint_schedule": checkpoint_schedule_case}
 
 
 def run_cases(cases: list, device) -> list:

@@ -4,8 +4,9 @@ on the CPU.
 Twins of tests/test_checkpoint.py's single-device cases: the layout
 refusal (:56), a checkpoint without a layout entry (:75; the port cannot
 read orbax files, so it writes its own format without the entry), the
-manager's schedule and rotation (:94), and the round trip of :26 without
-its second mesh (that half waits for the multi-GPU slice). Then what the
+manager's schedule and rotation (:94), and the round trip of :26 on one
+device (its second mesh: tests/test_torch_checkpoint_sharded.py). Then
+what the
 port adds: the manager's saved and kept steps equal to orbax's on the same
 step sequence, a save that fails midway, resume parity with a JAX run, and
 a JAX optimizer state carried across (adam_state_from_numpy). ``tiny`` in

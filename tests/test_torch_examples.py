@@ -1,8 +1,8 @@
 """The port's workload examples and bench twins, on the CPU.
 
-Twins of tests/test_examples.py:79 (the train → checkpoint → resume example,
-in a subprocess; its resume onto another mesh waits for the multi-GPU
-slice) and :69 (the serving example on a tp=2 world of two gloo ranks, in a
+Twins of tests/test_examples.py:79 (the train → checkpoint → resume example
+on a world of two gloo ranks, resumed onto a tp=2 mesh, in a subprocess)
+and :69 (the serving example on a tp=2 world of two gloo ranks, in a
 subprocess), and the ``bench_train_step`` and ``bench_workload`` twins of
 the JAX package's bench.py at ``tiny``: their keys, their counts, and the
 model FLOPs of a step equal to the JAX section's ``_train_flops`` at
@@ -55,12 +55,17 @@ def test_serve_example_runs():
 
 
 def test_train_resume_example_runs():
-    """The example trains, checkpoints at step 3, is preempted, resumes
-    from the checkpoint and finishes."""
+    """The example trains at dp 2 over a world of two gloo ranks,
+    checkpoints at step 3, is preempted, resumes from the checkpoint on a
+    tp=2 mesh (the restore reshards) and finishes."""
     r = _run_example("train_resume")
     assert r.returncode == 0, r.stdout + r.stderr
     out = r.stdout
-    assert "checkpointed at step 3" in out and "resuming on device" in out
+    assert "'data': 2" in out.splitlines()[0]
+    resumed = next(x for x in out.splitlines()
+                   if x.startswith("resuming on mesh"))
+    assert "'model': 2" in resumed and "'data': 1" in resumed
+    assert "checkpointed at step 3" in out
     assert "step 6 (resumed)" in out and out.rstrip().endswith("done")
     assert "step 4:" not in out          # preempted right after step 3
 

@@ -13,6 +13,7 @@ and gloo on the CPU, a spawned rank imports no jax, and a rank that
 raises, dies or hangs fails the launch within its timeout.
 """
 
+import asyncio
 import gc
 import os
 import time
@@ -223,13 +224,19 @@ def test_backend_follows_ranks_against_cards(monkeypatch):
     assert called == ["gloo", "nccl", "gloo"]
 
 
-def test_discover_reads_the_environment_and_refuses_the_api_half():
+def test_discover_reads_the_environment_and_refuses_the_api_half(
+        monkeypatch):
+    """Without NODE_NAME the async discover reads the TPU_KAITO_* variables
+    as the JAX package's does; with it, outside a cluster (no
+    KUBERNETES_SERVICE_HOST, no connection given), the API read refuses.
+    tests/test_torch_bootstrap.py reads Nodes from a fake API server."""
     env = {"TPU_KAITO_ACCELERATOR": "v5e", "TPU_KAITO_TOPOLOGY": "2x4",
            "TPU_KAITO_CHIPS": "8", "TPU_KAITO_HOSTS": "1"}
-    assert vars(bootstrap.discover(env)) == vars(
+    assert vars(asyncio.run(bootstrap.discover(env))) == vars(
         jtopo.SliceTopology.from_env(env))
-    with pytest.raises(NotImplementedError, match="node_labels_from_api"):
-        bootstrap.discover(dict(env, NODE_NAME="node-0"))
+    monkeypatch.delenv("KUBERNETES_SERVICE_HOST", raising=False)
+    with pytest.raises(bootstrap.NodeReadError, match="not in a cluster"):
+        asyncio.run(bootstrap.discover(dict(env, NODE_NAME="node-0")))
 
 
 def test_a_rank_that_raises_fails_the_launch():
