@@ -177,9 +177,9 @@ Phases, each of which exits non-zero on a failed check:
    single-process run and each generate's launches L of #1 or #4 and
    (new - 1)·L of #5 (``serving_exact``); full Llama-7B (32 layers, bf16)
    at tp=2 and full mixtral-ish (16 layers) at ep=2 over 2 ranks: generate
-   B=2, S0=512, 32 new (fresh, left-padded, int8 cache), three
-   ServeEngine passes of 6 requests after a warm one (a shared prefix,
-   dense only), the launches a rank checked, tokens/s, staged bytes and
+   B=2, S0=512, 32 new (fresh, left-padded, int8 cache), one
+   ServeEngine pass of 6 requests after a warm one (a shared prefix,
+   dense only; SERVE_PASSES), the launches a rank checked, tokens/s, staged bytes and
    collective seconds a forward, peak a rank (``tp_serving``,
    ``ep_serving``); then entry() on the card, dryrun_multichip(4) and the
    four serving bench twins at fast size with their launches;
@@ -206,8 +206,30 @@ Phases, each of which exits non-zero on a failed check:
    rank of the step after the restore checked (16 / 8 / 8:
    ``resume_mesh`` in launches_by_path); phase 4 also reads its last
    engine back from observability/fleet.py's registry;
-then the phase-2, 9, 10 and 14 rows' device times, the card line, the
-kernels line and, last, the device line.
+16. head dim 64 (the forward kernels' D = 64 instances; phase 1 also
+   prints the ptxas registers, spills and HGMMA of the two new
+   tensor-core instances and of the timed decode ones): (a) #1/#2 (causal
+   and not, a window), #4 on a bf16 and an int8 cache (start, pads,
+   window, sinks, ragged S) and #5 on every cache (DECODE_SPLIT_CASES and
+   an engine step) at the bench_moe_decode model's Hq 16 / Hkv 8 of 64, in
+   bf16 (1e-2) and f32 (1e-4), against their plain versions, then the bf16
+   calls timed at its main-path shapes (a fresh prefill at B=8, S=512;
+   the twin's prefill and decode step, D64_TWIN) beside SDPA and the
+   bound (the ``*_d64`` rows of the kernels line); (b) at that model's
+   width, 2 layers, f32: MoE ServeEngine streams equal generate() on the
+   bucket-padded prompt and generate flash equals dense, and a dense
+   model of the same attention: engine streams (two after a shared
+   prefix) equal generate() on each request alone, fresh generate flash
+   equals dense; (c) the bench_moe_decode model at full size (bf16): the
+   bench_moe_decode twin at (8, 512, 128), a ServeEngine pass of 6
+   requests (a shared prefix refused, as the MoE family takes none), a
+   left-padded generate on an int8 cache, then bench_decode's fast model
+   (dense, 8/4 heads of 64: the MoE family has no fresh prefill): the
+   bench_decode twin and an engine pass with a shared prefix, every
+   kernel's launches read across the run (the five forward kernels and
+   nothing else: ``d64_serving``);
+then the phase-2, 9, 10, 14 and 16 rows' device times, the card line,
+the kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -242,10 +264,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# the tensor-core (bf16) instances: (source, a substring of the mangled name)
+# the tensor-core (bf16) instances at head dim 128: (source, a substring of
+# the mangled name)
 TC_KERNELS = {
-    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16"),
-    "flash_cached_int8": ("flash_fwd", "flash_fwd_tc_kernelIa"),
+    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16Li128E"),
+    "flash_cached_int8": ("flash_fwd", "flash_fwd_tc_kernelIaLi128E"),
     "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernel"),
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
     "flash_fwd_tri": ("flash_tri", "flash_fwd_tri_kernelI13__nv_bfloat16"),
@@ -295,14 +318,14 @@ def hgmma_counts(_cuda, source):
     return counts
 
 
-def tc_build_report(_cuda, logs):
-    """Per tensor-core instance: ptxas's registers and spills (when this
-    run built its library) and the HGMMA count of its SASS; fails when ptxas
-    spilled, or when the SASS holds no HGMMA (the tensor-core path is not
-    there) or cannot be read."""
+def tc_build_report(_cuda, logs, kernels=TC_KERNELS):
+    """Per tensor-core instance of ``kernels``: ptxas's registers and
+    spills (when this run built its library) and the HGMMA count of its
+    SASS; fails when ptxas spilled, or when the SASS holds no HGMMA (the
+    tensor-core path is not there) or cannot be read."""
     report = {}
     sass = {}
-    for entry, (source, part) in TC_KERNELS.items():
+    for entry, (source, part) in kernels.items():
         if source not in sass:
             sass[source] = hgmma_counts(_cuda, source)
         regs = {k: v for k, v in ptxas_info(logs.get(source, "")).items()
@@ -328,14 +351,14 @@ DECODE_INSTANCES = {
     "flash_decode_int8": "flash_decode_kernelI13__nv_bfloat16aLi128ELi4E"}
 
 
-def decode_build_report(logs):
+def decode_build_report(logs, instances=DECODE_INSTANCES):
     """ptxas's registers and spills of the timed flash_decode instances
     (when this run built the library; FMA kernels: no HGMMA)."""
     info = ptxas_info(logs.get("flash_decode", ""))
     report = {row: next((v for k, v in info.items() if part in k), None)
-              for row, part in DECODE_INSTANCES.items()}
+              for row, part in instances.items()}
     for row, ptxas in report.items():
-        print(f"  {row} ({DECODE_INSTANCES[row]}): ptxas {ptxas}")
+        print(f"  {row} ({instances[row]}): ptxas {ptxas}")
     return report
 
 
@@ -2958,7 +2981,9 @@ SERVE_KERNEL_ROWS = ("flash_fwd", "flash_cached", "flash_cached_int8",
 SERVE_EXACT = (4, 256, 8, 384, 4)
 # the full-size runs, as phase 4 serves: B, S0, new tokens, max_len
 SERVE_FULL = (2, 512, 32, 1024)
-SERVE_PASSES = 3
+# engine passes after the warm one: one keeps the script inside its time
+# limit as it grows (every pass is checked alike)
+SERVE_PASSES = 1
 
 
 def serve_launches(L, new, fresh, int8):
@@ -3540,6 +3565,353 @@ def phase_mesh_resume(torch, tl, jobs, launch, dev):
             for k in SHARDED_KERNELS}, report
 
 
+# phase 16: head dim 64. The bench_moe_decode model (bench.py:491-494 of the
+# JAX package: dim 1024, 8 layers, 16/8 heads of 64, hidden 2816, 8
+# experts, top-2) serves at its own heads; the MoE family takes no fresh
+# prefill and no shared prefix, so bench_decode's fast model (dense, 8/4
+# heads of 64: the JAX one) drives #1/#2 and a prefix at head dim 64
+D64_ROWS = ("flash_fwd", "flash_cached", "flash_cached_int8", "flash_decode",
+            "flash_decode_int8")
+# the new tensor-core and timed decode instances (phase 1 reports the D =
+# 128 ones): (source, a substring of the mangled name); R = 4 rows a unit
+# at S=1 and group 2
+TC_KERNELS_D64 = {
+    "flash_fwd_d64": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16Li64E"),
+    "flash_cached_int8_d64": ("flash_fwd", "flash_fwd_tc_kernelIaLi64E")}
+DECODE_INSTANCES_D64 = {
+    "flash_decode_d64": "flash_decode_kernelI13__nv_bfloat16S1_Li64ELi4E",
+    "flash_decode_int8_d64": "flash_decode_kernelI13__nv_bfloat16aLi64ELi4E"}
+# (B, S, start, pads, window, sinks) of #4 at head dim 64, each on a bf16
+# (f32) and an int8 cache of 2048: the twin's prefill, generate's
+# left-padded prefill, an engine admission after a prefix, a window with
+# sinks, and a ragged S with both
+D64_CACHED_CASES = ((8, 512, 0, None, None, 0), (2, 512, 0, [0, 200], None, 0),
+                    (1, 256, 128, [28], None, 0), (1, 256, 900, [7], 256, 4),
+                    (2, 200, 400, [0, 37], 256, 4))
+# the bench_moe_decode twin's prefill and decode step: B, S0, max_len
+D64_TWIN = (8, 512, 640)
+
+
+def phase_d64_kernels(torch, tfa, td, dev, deferred):
+    """Phase 16 (a): #1/#2 (causal and not, a window), #4 on a bf16 and an
+    int8 cache (D64_CACHED_CASES) and #5 on every cache (DECODE_SPLIT_CASES
+    and the engine's decode step) at head dim 64 and the bench_moe_decode
+    model's Hq 16 / Hkv 8, in bf16 and f32, against their plain versions;
+    then the bf16 calls timed at that model's main-path shapes (a fresh
+    prefill at B=8, S=512; the twin's prefill and decode step, D64_TWIN)
+    beside SDPA and the bound, their device times joining ``deferred``.
+    Returns the kernels line's head-dim-64 rows (launches filled later)."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 61)
+    Hq, Hkv, D, ML = 16, 8, 64, 2048
+    bf = torch.bfloat16
+    errs = dict.fromkeys(D64_ROWS, 0.0)
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def held(row, dtype, what, e, e_lse=None):
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"{row} at head dim 64, {dtype} {what}: max|out-plain| {e:.3g}"
+              + ("" if e_lse is None else f" |lse-plain| {e_lse:.3g}")
+              + f" (tol {tol})")
+        check(e <= tol and (e_lse is None or e_lse <= 1e-4),
+              f"{row} disagrees with plain at head dim 64: {what}")
+        if dtype == bf:
+            errs[row] = max(errs[row], e)
+
+    def cache(dtype, B, int8, ml=ML):
+        kc, vc = rnd(B, Hkv, ml, D, dtype=dtype), rnd(B, Hkv, ml, D,
+                                                     dtype=dtype)
+        if not int8:
+            return kc, vc, {}
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        return k8, v8, {"k_scale": ks, "v_scale": vs}
+
+    def cached_case(dtype, B, S, start, pads, window, sinks, int8):
+        q = rnd(B, S, Hq, D, dtype=dtype)
+        kc, vc, kw = cache(dtype, B, int8)
+        kw.update(window=window, sinks=sinks)
+        if pads is not None:
+            kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
+                                          device=dev)
+        st = (torch.tensor(start, dtype=torch.int32, device=dev)
+              if isinstance(start, list) else start)
+        decode = S <= tfa.DECODE_MAX_S
+        fn = tfa.flash_attention_decode if decode \
+            else tfa.flash_attention_cached
+        row = ("flash_decode" if decode else "flash_cached") \
+            + ("_int8" if int8 else "")
+        held(row, dtype, f"B={B} S={S} start={start} pads={pads} "
+             f"window={window} sinks={sinks}",
+             err(fn(q, kc, vc, st, **kw),
+                 tfa.attention_plain(q, kc, vc, st, **kw)[0]))
+
+    for dtype in (bf, torch.float32):
+        for B, S, causal, window in ((8, 512, True, None),
+                                     (2, 512, False, None),
+                                     (1, 4096, True, 1024),
+                                     (2, 1024, False, 300)):
+            q = rnd(B, S, Hq, D, dtype=dtype)
+            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                        dtype=dtype)
+            out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    window=window)
+            ref, ref_lse = tfa.attention_plain(
+                q, k.transpose(1, 2), v.transpose(1, 2), 0, causal=causal,
+                window=window)
+            held("flash_fwd", dtype, f"B={B} S={S} causal={causal} "
+                 f"window={window}", err(out, ref), err(lse, ref_lse))
+        for case in D64_CACHED_CASES + DECODE_SPLIT_CASES + (
+                (4, 1, DECODE_STARTS, DECODE_PADS, None, 0),):
+            for int8 in (False, True):
+                cached_case(dtype, *case, int8)
+    torch.cuda.synchronize()
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    src = "gpu_provisioner_tpu_torch/ops/csrc/"
+    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
+    rows = []
+
+    def row(name, source, replaces, shape, kernel, plain, library, ops_bytes,
+            names):
+        r = {"name": name + "_d64", "route": "cuda", "source": src + source,
+             "replaces": tpu + replaces + ", head dim 64", "launches": 0,
+             "max_abs_err": errs[name], "tolerance": TOL["bfloat16"],
+             "shape": shape, **timing(kernel, plain, library, ops_bytes,
+                                      flush)}
+        if library is None:
+            r["library_note"] = "no single PyTorch call attends over an " \
+                                "int8 cache"
+        deferred.append((r, kernel, library, names))
+        rows.append(r)
+        print(f"{r['name']}: {json.dumps(r)}")
+
+    # a fresh prefill of B=8, S=512 (the twin's batch), causal
+    B, S, ml = D64_TWIN
+    q = rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    row("flash_fwd", "flash_fwd.cu", "70 (_kernel_resident), :202 (_kernel)",
+        f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
+        lambda: tfa.flash_attention_with_lse(q, k, v),
+        lambda: tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    0),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2, False, True),
+        ("flash_fwd_tc_kernel",))
+    # the twin's prefill (start 0, a cache of S0 + new) and one of its
+    # decode steps (start 600), on a bf16 and an int8 cache of its values
+    kp = torch.arange(ml, device=dev)
+    kc, vc, _ = cache(bf, B, False, ml)
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    i8 = {"k_scale": ks, "v_scale": vs}
+    mask = (kp[None, :] <= torch.arange(S, device=dev)[:, None])[None, None]
+    for int8, (kk, vv, kw) in ((False, (kc, vc, {})), (True, (k8, v8, i8))):
+        name = "flash_cached" + ("_int8" if int8 else "")
+        row(name, "flash_fwd.cu", "468 (_kernel_cached)" + (
+            ", int8 cache" if int8 else ""),
+            f"B={B} S={S} start=0 ML={ml} Hq={Hq} Hkv={Hkv} D={D}",
+            lambda kk=kk, vv=vv, kw=kw: tfa.flash_attention_cached(
+                q, kk, vv, 0, **kw),
+            lambda kk=kk, vv=vv, kw=kw: tfa.attention_plain(q, kk, vv, 0,
+                                                            **kw),
+            None if int8 else (lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True)),
+            work(B, S, Hq, Hkv, D, ml, 0, None, None, 0, True, 2,
+                 1 if int8 else 2, int8, False), ("flash_fwd_tc_kernel",))
+    q1 = rnd(B, 1, Hq, D)
+    step = (kp <= 600)[None, None, None]
+    for int8, (kk, vv, kw) in ((False, (kc, vc, {})), (True, (k8, v8, i8))):
+        name = "flash_decode" + ("_int8" if int8 else "")
+        row(name, "flash_decode.cu", "660 (_kernel_decode)" + (
+            ", int8 cache" if int8 else ""),
+            f"B={B} S=1 start=600 ML={ml} Hq={Hq} Hkv={Hkv} D={D}",
+            lambda kk=kk, vv=vv, kw=kw: tfa.flash_attention_decode(
+                q1, kk, vv, 600, **kw),
+            lambda kk=kk, vv=vv, kw=kw: tfa.attention_plain(q1, kk, vv, 600,
+                                                            **kw),
+            None if int8 else (lambda: F.scaled_dot_product_attention(
+                q1.transpose(1, 2), kc, vc, attn_mask=step,
+                enable_gqa=True)),
+            work(B, 1, Hq, Hkv, D, ml, 600, None, None, 0, True, 2,
+                 1 if int8 else 2, int8, False), ("flash_decode",))
+    del flush
+    return rows
+
+
+def phase_d64_exact(torch, tl, tm, td, te, bench, dev):
+    """Phase 16 (b): at the bench_moe_decode model's width (dim 1024, 16/8
+    heads of 64), 2 layers, f32 (the kernels' f32 instances): MoE
+    ServeEngine streams equal generate() on the bucket-padded prompt and
+    greedy generate flash equals dense (left-padded); a dense model of the
+    same attention (hidden 2816): ServeEngine streams, two of them after a
+    shared prefix, equal generate() on each request alone, and a fresh
+    generate (the f32 flash_fwd at head dim 64) flash equals dense."""
+    moe = dataclasses.replace(bench.moe_decode_config(False), n_layers=2,
+                              dtype="float32")
+    dense = tl.LlamaConfig(vocab_size=moe.vocab_size, dim=moe.dim,
+                           n_layers=2, n_heads=moe.n_heads,
+                           n_kv_heads=moe.n_kv_heads,
+                           hidden_dim=moe.hidden_dim, dtype="float32",
+                           attn_impl="flash")
+    check(moe.head_dim == dense.head_dim == 64,
+          f"head dims {moe.head_dim}, {dense.head_dim}")
+    g = torch.Generator().manual_seed(SEED + 62)
+    V = moe.vocab_size
+
+    def toks(n):
+        return torch.randint(1, V, (n,), generator=g).tolist()
+
+    params = tm.init_moe_model(moe, torch.Generator(dev).manual_seed(SEED),
+                               dev)
+    ragged = torch.tensor([toks(512), toks(512)])
+    ragged[1, :200] = 0
+    streams = [td.generate(params, ragged, c, max_new_tokens=8,
+                           max_len=1024, pad_id=0, device=dev)
+               for c in (moe, dataclasses.replace(moe, attn_impl="dense"))]
+    check(torch.equal(*streams), f"MoE generate at head dim 64: flash "
+          f"{streams[0].tolist()} != dense {streams[1].tolist()}")
+    reqs = [toks(n) for n in (100, 230, 60, 150)]
+    eng = te.ServeEngine(params, moe, slots=2, max_len=1024,
+                         prefill_buckets=(128, 256), device=dev)
+    ids = [eng.submit(p, 8) for p in reqs]
+    out = eng.run()
+    for rid, p in zip(ids, reqs):
+        b = next(b for b in (128, 256) if len(p) <= b)
+        want = td.generate(params, torch.tensor([[0] * (b - len(p)) + p]),
+                           moe, max_new_tokens=8, max_len=1024,
+                           pad_id=0, device=dev)[0].tolist()
+        check(out[rid] == want, f"MoE engine stream {rid} at head dim 64 "
+              f"!= generate on the bucket-padded prompt: {out[rid]} vs "
+              f"{want}")
+    del params, eng
+    params = tl.init_params(dense, torch.Generator(dev).manual_seed(SEED),
+                            dev)
+    fresh = torch.tensor([toks(256), toks(256)])
+    streams = [td.generate(params, fresh, c, max_new_tokens=8, max_len=512,
+                           device=dev)
+               for c in (dense, dataclasses.replace(dense, attn_impl="dense"))]
+    check(torch.equal(*streams), f"generate at head dim 64: flash "
+          f"{streams[0].tolist()} != dense {streams[1].tolist()}")
+    prefix = toks(90)
+    dreqs = [(toks(n), pre) for n, pre in ((100, None), (230, None),
+                                           (60, prefix), (150, None),
+                                           (40, prefix))]
+    eng = te.ServeEngine(params, dense, slots=3, max_len=1024,
+                         prefill_buckets=(128, 256), device=dev)
+    ids = [eng.submit(p, 8, prefix=pre) for p, pre in dreqs]
+    out = eng.run()
+    for rid, (p, pre) in zip(ids, dreqs):
+        want = td.generate(params, torch.tensor([(pre or []) + p]), dense,
+                           max_new_tokens=8, max_len=1024,
+                           device=dev)[0].tolist()
+        check(out[rid] == want, f"engine stream {rid} at head dim 64 != "
+              f"generate: {out[rid]} vs {want}")
+    print(f"head-dim-64 exact phase (dim 1024, 16/8 heads of 64, 2 layers, "
+          f"f32): MoE generate flash == dense, {len(reqs)} MoE engine "
+          f"streams == generate on the bucket-padded prompt; dense generate "
+          f"flash == dense, {len(dreqs)} engine streams (2 after a prefix) "
+          f"== generate; {eng.stats()}")
+    del params, eng
+
+
+def phase_d64_serving(torch, tl, tm, td, te, tfa, bench, dev):
+    """Phase 16 (c): the bench_moe_decode model at full size (bf16,
+    flash): the bench_moe_decode twin at (8, 512, 128), a ServeEngine
+    pass of 6 requests (a shared prefix refused: the MoE family takes
+    none), a left-padded generate on an int8 cache; then bench_decode's
+    fast model (dense, 8/4 heads of 64): the bench_decode twin at fast
+    size (its fresh prefill on #1) and a ServeEngine pass of 6 requests
+    with a shared prefix. Every kernel's launches are read across the run:
+    the five forward kernels' head-dim-64 instances and nothing else.
+    Returns (launches, report)."""
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    twin = bench.bench_moe_decode(False)
+    report = {"bench_moe_decode": twin,
+              "bench_moe_decode_s": time.perf_counter() - t0}
+    print(f"bench_moe_decode (full: 16/8 heads of 64) in "
+          f"{report['bench_moe_decode_s']:.1f} s: {json.dumps(twin)}")
+    check(twin["decode_tokens_per_s"] > 0, f"bench_moe_decode {twin}")
+    cfg = bench.moe_decode_config(False)
+    params = tm.init_moe_model(cfg, torch.Generator(dev).manual_seed(SEED),
+                               dev)
+    g = torch.Generator().manual_seed(SEED + 63)
+    V, new = cfg.vocab_size, 32
+
+    def toks(n, vocab=V):
+        return torch.randint(1, vocab, (n,), generator=g).tolist()
+
+    def serve(params, cfg, reqs, prefix=None):
+        eng = te.ServeEngine(params, cfg, slots=4, max_len=1024,
+                             prefill_buckets=(128, 256, 512),
+                             return_logprobs=True, device=dev)
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, new, prefix=prefix if i % 3 == 2 else None)
+               for i, p in enumerate(reqs)]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for rid in ids:
+            lps = eng.finished_logprobs[rid]
+            check(len(out[rid]) == new
+                  and all(0 <= t < cfg.vocab_size for t in out[rid])
+                  and all(lp <= 0 and lp == lp for lp in lps),
+                  f"head-dim-64 request {rid}: {out[rid]} {lps}")
+        return eng, eng.stats()["tokens_emitted"] / wall
+
+    reqs = [toks(n) for n in (180, 500, 120, 350, 100, 230)]
+    eng, report["moe_engine_tokens_per_s"] = serve(params, cfg, reqs)
+    try:
+        eng.submit(reqs[0], 4, prefix=reqs[1][:100])
+    except ValueError as e:
+        check("dense family" in str(e), f"prefix refusal: {e}")
+    else:
+        check(False, "an MoE engine took a shared prefix")
+    ragged = torch.tensor([toks(512), toks(512)])
+    ragged[1, :200] = 0
+    t0 = time.perf_counter()
+    out = td.generate(params, ragged,
+                      dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                      max_new_tokens=new, max_len=1024, pad_id=0, device=dev)
+    torch.cuda.synchronize()
+    report["moe_int8_generate_tokens_per_s"] = \
+        2 * new / (time.perf_counter() - t0)
+    check(tuple(out.shape) == (2, new) and bool(((out >= 0) & (out < V))
+                                                .all()),
+          f"head-dim-64 int8 generate: {tuple(out.shape)}")
+    del params, eng
+    t0 = time.perf_counter()
+    report["bench_decode_fast"] = bench.bench_decode(True)
+    print(f"bench_decode (fast: 8/4 heads of 64) in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(report['bench_decode_fast'])}")
+    dcfg = bench.decode_config(True)
+    check(dcfg.head_dim == cfg.head_dim == 64,
+          f"head dims {dcfg.head_dim}, {cfg.head_dim}")
+    params = tl.init_params(dcfg, torch.Generator(dev).manual_seed(SEED),
+                            dev)
+    dreqs = [toks(n, dcfg.vocab_size) for n in (180, 500, 120, 350, 100, 230)]
+    eng, report["dense_engine_tokens_per_s"] = serve(
+        params, dcfg, dreqs, prefix=toks(100, dcfg.vocab_size))
+    st = eng.stats()
+    check(st["prefix_cache_hits"] == 1 and st["prefix_cache_misses"] == 1,
+          f"head-dim-64 prefix cache {st}")
+    del params, eng
+    launches = dict(tfa.LAUNCHES)
+    report["launches"] = launches
+    print(f"head-dim-64 serving: {json.dumps(report)}")
+    for name, n in launches.items():
+        check((n > 0) == (name in D64_ROWS),
+              f"kernel {name}: {n} launches on the head-dim-64 path")
+    return launches, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3578,6 +3950,9 @@ def main() -> int:
             print(f"  {name}: {fn}: {info}")
     tc_report = tc_build_report(_cuda, logs)
     decode_report = decode_build_report(logs)
+    print("head dim 64 (phase 16):")
+    d64_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_D64)
+    d64_decode_report = decode_build_report(logs, DECODE_INSTANCES_D64)
 
     t0 = time.perf_counter()
     rows, deferred = phase_kernels(torch, tfa, td, dev)
@@ -3682,6 +4057,20 @@ def main() -> int:
                                                         launch, dev)
     print(f"mesh resume phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t16 = t0 = time.perf_counter()
+    d64_rows = phase_d64_kernels(torch, tfa, td, dev, deferred)
+    print(f"head-dim-64 kernels {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_d64_exact(torch, tl, tm, td, te, bench, dev)
+    print(f"head-dim-64 exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d64, d64_report = phase_d64_serving(torch, tl, tm, td, te, tfa, bench,
+                                        dev)
+    print(f"head-dim-64 full size {time.perf_counter() - t0:.1f} s; head "
+          f"dim 64 phase {time.perf_counter() - t16:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -3727,8 +4116,11 @@ def main() -> int:
                 r["launches_by_path"][path] = {
                     run: [g[name] for g in ranks]
                     for run, ranks in runs.items()}
+            # bench_decode's fast model runs at head dim 64 (the D = 64
+            # rows take its launches)
             r["launches_by_path"].update(
-                {k: v[name] for k, v in by_serve_twin.items()})
+                {k: v[name] for k, v in by_serve_twin.items()
+                 if k != "bench_decode"})
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -3745,6 +4137,19 @@ def main() -> int:
         if name in prefill_rows:
             r["at_spec_prefill"] = prefill_rows[name]
             r["max_abs_err"] = max(r["max_abs_err"], prefill_errs[name])
+    # the head-dim-64 instances: launches across phase 16's full-size run
+    # (and the fast bench_decode twin of phase 14), ptxas of the timed ones
+    for r in d64_rows:
+        name = r["name"][:-len("_d64")]
+        r["launches"] = d64[name]
+        r["launches_by_path"] = {
+            "d64_serving": d64[name],
+            "bench_decode_fast": by_serve_twin["bench_decode"][name]}
+        r.update(d64_tc_report.get(r["name"], {}))
+        if r["name"] in d64_decode_report:
+            r["ptxas"] = d64_decode_report[r["name"]]
+    rows += d64_rows
+    print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

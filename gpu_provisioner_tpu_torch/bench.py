@@ -31,8 +31,9 @@ shapes) with the host clock. Deliberate differences:
 - ``mfu`` is model FLOPs (``_train_flops``) over the step time and the H100
   SXM's data-sheet bf16 peak (989e12 FLOP/s, ``PEAK_BF16``), and None off
   the card; the JAX section divides by its TPU generation's peak;
-- ``bench_train_step``'s fast model has 4 query and 2 kv heads of 128 (the
-  kernels take head dim 128 only) where the JAX one has 8/4 of 64;
+- ``bench_train_step``'s fast model has 4 query and 2 kv heads of 128
+  where the JAX one has 8/4 of 64: it trains, and the backward kernels
+  take head dim 128 only (the forward kernels take 64 and 128);
 - no ``try``: a failing kernel raises, where the JAX section records
   ``fwdbwd_error`` / ``streaming_tri_error`` and goes on;
 - the long-context dict also carries the timed steps' losses (``losses``,
@@ -49,11 +50,12 @@ shapes) with the host clock. Deliberate differences:
   ``bench_decode``'s budget comparison and of ``bench_cached_prefill`` is
   the port's dense cached sweep (``decode._cached_attention(impl=
   "dense")``), as in the JAX sections; the sampled run reseeds its
-  generator each run, as the JAX one reuses its key; the kernels take
-  head dim 128, so ``bench_decode``'s fast model has 4/2 heads of 128
-  (the JAX one 8/4 of 64), ``bench_engine``'s and ``bench_moe_decode``'s
-  fast models 2/1 (8/4 of 32) and ``bench_moe_decode``'s full model 8/4
-  (16/8 of 64): the weights' shapes are the JAX ones.
+  generator each run, as the JAX one reuses its key; the serving
+  kernels take head dims 64 and 128, so ``bench_decode``'s fast model
+  (8/4 heads of 64) and ``bench_moe_decode``'s full model (16/8 of 64)
+  are the JAX ones, while ``bench_engine``'s and ``bench_moe_decode``'s
+  fast models have 2/1 heads of 128 where the JAX ones have 8/4 of 32:
+  the weights' shapes are the JAX ones.
 
 Run on a machine with the card, from the repository root::
 
@@ -224,7 +226,8 @@ def bench_workload(fast: bool, device=None, *, cfg=None, shape=None) -> dict:
 
 def train_step_config(fast: bool) -> LlamaConfig:
     """bench.py's bench_train_step model, flash attention and remat: fast,
-    vocab 2048, dim 512, 4 layers, 4/2 heads of 128, hidden 1408; else
+    vocab 2048, dim 512, 4 layers, 4/2 heads of 128 (the JAX one 8/4 of 64:
+    the backward kernels take head dim 128 only), hidden 1408; else
     Llama-1B; bf16 activations."""
     cfg = (LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=4,
                        n_kv_heads=2, hidden_dim=1408) if fast
@@ -376,12 +379,11 @@ def _best_ms(dev: torch.device, fn, rounds: int = ROUNDS) -> float:
 
 def decode_config(fast: bool) -> LlamaConfig:
     """bench.py's bench_decode model, bf16, flash attention: fast, vocab
-    2048, dim 512, 4 layers, 4/2 heads of 128 (the kernels take head dim
-    128: the JAX one has 8/4 of 64, the same weights' shapes), hidden 1408;
-    else Llama-1B."""
+    2048, dim 512, 4 layers, 8/4 heads of 64, hidden 1408; else Llama-1B.
+    The JAX ones, head counts included."""
     if fast:
-        return LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=4,
-                           n_kv_heads=2, hidden_dim=1408, attn_impl="flash")
+        return LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=8,
+                           n_kv_heads=4, hidden_dim=1408, attn_impl="flash")
     return LlamaConfig(vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
                        n_kv_heads=8, hidden_dim=5504, attn_impl="flash")
 
@@ -426,15 +428,15 @@ def bench_decode(fast: bool, device=None, *, cfg=None, shape=None,
 def moe_decode_config(fast: bool) -> MoEConfig:
     """bench.py's bench_moe_decode model, bf16, flash attention, top-2:
     fast, vocab 2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4
-    of 32), hidden 512, 4 experts; else vocab 32000, dim 1024, 8 layers,
-    8/4 heads of 128 (the JAX one 16/8 of 64), hidden 2816, 8 experts. The
-    kernels take head dim 128; the weights' shapes are the JAX ones."""
+    of 32: the kernels take head dims 64 and 128; the weights' shapes are
+    the JAX ones), hidden 512, 4 experts; else the JAX model: vocab 32000,
+    dim 1024, 8 layers, 16/8 heads of 64, hidden 2816, 8 experts."""
     if fast:
         return MoEConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
                          n_kv_heads=1, hidden_dim=512, n_experts=4,
                          experts_per_token=2, attn_impl="flash")
-    return MoEConfig(vocab_size=32000, dim=1024, n_layers=8, n_heads=8,
-                     n_kv_heads=4, hidden_dim=2816, n_experts=8,
+    return MoEConfig(vocab_size=32000, dim=1024, n_layers=8, n_heads=16,
+                     n_kv_heads=8, hidden_dim=2816, n_experts=8,
                      experts_per_token=2, attn_impl="flash")
 
 
@@ -458,8 +460,8 @@ def bench_moe_decode(fast: bool, device=None, *, cfg=None,
 
 def engine_config(fast: bool) -> LlamaConfig:
     """bench.py's bench_engine model, bf16, flash attention: fast, vocab
-    2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4 of 32),
-    hidden 512; else Llama-1B."""
+    2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4 of 32: the
+    kernels take head dims 64 and 128), hidden 512; else Llama-1B."""
     if fast:
         return LlamaConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
                            n_kv_heads=1, hidden_dim=512, attn_impl="flash")

@@ -49,6 +49,17 @@
 // rounding point (the merge only reorders the sums). Whether verify-sized
 // blocks (64 rows, ~128 operations per byte) want mma.sync or wgmma is
 // left open.
+//
+// Head dim 64 or 128 (the C entry refuses any other D). A CTA keeps 128
+// threads at both: at D = 128 a thread owns one output column of every row
+// of the unit; at D = 64 the two halves of the block (threads 0..63 and
+// 64..127) own alternate rows of the unit (rows t / 64, t / 64 + 2, ...),
+// each thread one column of its half's rows, so P V reads each V tile once
+// a half and no combine is needed. A 64-thread block would halve the copies
+// in flight a CTA, where this kernel is bound by bytes; the score product
+// (a thread a key column against rows of its parity) and the softmax (a
+// warp a row) already split the rows by halves, and stay as they are. An
+// int8 row is 64 bytes at D = 64, 4 chunks of 16.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -61,8 +72,8 @@ constexpr int THREADS = 128;
 constexpr int MAX_SPLITS = 32;       // ops/flash_attention.py DECODE_MAX_SPLITS
 
 // Shared memory of one instance: two ring stages, each a K and a V tile of
-// 64 rows padded to RB bytes (RB = 16 mod 128: the 16-byte chunks that
-// eight neighbouring lanes read from eight rows fall in distinct banks)
+// 64 rows padded to RB bytes (RB an odd multiple of 16: the 16-byte chunks
+// that eight neighbouring lanes read from eight rows fall in distinct banks)
 // plus, for int8, the tile's 64 k and 64 v scales; then Q (f32 [R][D]),
 // the scores / P (f32 [R][BK]), each row's running max, denominator and
 // rescale factor, and each row's query position.
@@ -193,7 +204,10 @@ __device__ __forceinline__ Live live_tiles(int start, int pad, int first_s, int 
 // share blockIdx.y of its live tiles.
 template <typename T, typename KT, int D, int R>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
-  static_assert(D == THREADS, "a thread owns one output column");
+  // a thread owns one output column of every RH-th row: RH = 1 at D = 128,
+  // 2 at D = 64 (rows t / D, t / D + 2, ...)
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr int RH = THREADS / D;
   using Ly = Layout<KT, D, R>;
   extern __shared__ __align__(16) char dsmem[];
   float* sQ = reinterpret_cast<float*>(dsmem + Ly::Q);
@@ -204,6 +218,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
   int* sQpos = reinterpret_cast<int*>(dsmem + Ly::QPOS);
 
   const int t = threadIdx.x;
+  // P V's column and row half (at RH = 1 the thread index itself, as before)
+  const int col = RH == 1 ? t : t & (D - 1), rh = RH == 1 ? 0 : t / D;
   const int group = a.Hq / a.Hkv;
   const int rows = a.Sq * group;
   const int nrb = (rows + R - 1) / R;
@@ -233,9 +249,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
                     a.k_scale ? a.k_scale + b * a.sc_sb + kvh * a.sc_sh : nullptr,
                     a.v_scale ? a.v_scale + b * a.sc_sb + kvh * a.sc_sh : nullptr,
                     a.k_ss, a.v_ss, a.sc_ss, a.Sk};
-  float acc[R];
+  float acc[R / RH];   // row rh + RH i in acc[i]
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int i = 0; i < R / RH; ++i) acc[i] = 0.f;
 
   if (i0 < i1) {
     load_stage<KT, D, R>(dsmem, src, live.at(i0));
@@ -324,10 +340,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
     }
     __syncthreads();
 
-    // acc += P V: this thread's column of every row
+    // acc += P V: this thread's column of its rows
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] *= sC[r];
-    const char* vcol = stage + Ly::TILE + t * static_cast<int>(sizeof(KT));
+    for (int i = 0; i < R / RH; ++i) acc[i] *= sC[rh + RH * i];
+    const char* vcol = stage + Ly::TILE + col * static_cast<int>(sizeof(KT));
 #pragma unroll 2
     for (int k = 0; k < BK; k += 4) {
       float v[4];
@@ -335,12 +351,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
       for (int u = 0; u < 4; ++u)
         v[u] = fa::to_f32(*reinterpret_cast<const KT*>(vcol + (k + u) * Ly::RB));
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(sS + r * BK + k);
-        acc[r] = fmaf(p.x, v[0], acc[r]);
-        acc[r] = fmaf(p.y, v[1], acc[r]);
-        acc[r] = fmaf(p.z, v[2], acc[r]);
-        acc[r] = fmaf(p.w, v[3], acc[r]);
+      for (int i = 0; i < R / RH; ++i) {
+        const float4 p = *reinterpret_cast<const float4*>(sS + (rh + RH * i) * BK + k);
+        acc[i] = fmaf(p.x, v[0], acc[i]);
+        acc[i] = fmaf(p.y, v[1], acc[i]);
+        acc[i] = fmaf(p.z, v[2], acc[i]);
+        acc[i] = fmaf(p.w, v[3], acc[i]);
       }
     }
   }
@@ -350,13 +366,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
   if (a.splits == 1) {   // the whole live range: normalise and store
     T* out = static_cast<T*>(a.out);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int rg = r0 + r;
+    for (int i = 0; i < R / RH; ++i) {
+      const int r = rh + RH * i, rg = r0 + r;
       if (rg >= rows) break;
       const float l = sL[r];
       fa::from_f32(out + b * a.o_sb + (rg / group) * a.o_ss + (kvh * group + rg % group) * a.o_sh +
-                       t,
-                   l > 0.f ? acc[r] / l : 0.f);
+                       col,
+                   l > 0.f ? acc[i] / l : 0.f);
     }
     return;
   }
@@ -365,7 +381,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
   float* ws = a.ws + (static_cast<long long>(unit) * a.splits + blockIdx.y) * R * (D + 2);
   if (i0 < i1) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) ws[r * D + t] = acc[r];
+    for (int i = 0; i < R / RH; ++i) ws[(rh + RH * i) * D + col] = acc[i];
   }
   if (t < R) {
     ws[R * D + 2 * t] = sM[t];
@@ -373,11 +389,11 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
   }
 }
 
-// The merge of one row of a unit's partials (a block per (unit, row), a
-// thread per column): one warp reads the row's (m_i, l_i) of the P <= 32
-// partials at once and forms the weights w_i = 2^(m_i - M) / sum_j 2^(m_j -
-// M) l_j, M the largest m_i; then each thread sums its column's P
-// partials, issued together. A row that no share attended (M = NEG_INF)
+// The merge of one row of a unit's partials (a block per (unit, row), D
+// threads, a thread per column): one warp reads the row's (m_i, l_i) of the
+// P <= 32 partials at once and forms the weights w_i = 2^(m_i - M) /
+// sum_j 2^(m_j - M) l_j, M the largest m_i; then each thread sums its
+// column's P partials, issued together. A row that no share attended (M = NEG_INF)
 // gives zeros; an empty share's weight is 0 and its unwritten acc is
 // never used.
 template <typename T, int D, int R>
@@ -431,7 +447,7 @@ cudaError_t launch(const FlashArgs& a, cudaStream_t stream) {
   flash_decode_kernel<T, KT, D, R><<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
-  flash_decode_merge_kernel<T, D, R><<<dim3(static_cast<unsigned>(units), R), THREADS, 0, stream>>>(a);
+  flash_decode_merge_kernel<T, D, R><<<dim3(static_cast<unsigned>(units), R), D, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -461,10 +477,12 @@ cudaError_t dispatch(const FlashArgs& a, cudaStream_t s) {
 
 // Launches the split kernel and, with more than one split, the merge on
 // `stream`; allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launches (0 on success).
+// cudaGetLastError() after the launches (0 on success; cudaErrorInvalidValue
+// for a head dim other than 64 or 128).
 extern "C" int flash_decode(const FlashArgs* a, void* stream) {
   if (a->Sq <= 0 || a->B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->D == 128) return static_cast<int>(dispatch<128>(*a, s));
+  if (a->D == 64) return static_cast<int>(dispatch<64>(*a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,7 +32,7 @@
 //     products of the current one), tc::fwd_tile_tc's wgmma products with
 //     P as bf16 hi + lo, the mask on fragments (tc::CacheMask, a whole-tile
 //     test first), out and lse stored from the fragments; 80 KB of shared
-//     memory, two CTAs an SM. A causal grid starts with the query tiles
+//     memory at D = 128, two CTAs an SM. A causal grid starts with the query tiles
 //     that have the most key tiles (tc::query_tile), so that the short ones
 //     fill the tail.
 //   - the int8 cache's bf16 instance copies each key tile as int8 with its
@@ -42,10 +42,17 @@
 //     multiplies score column j on the fragments, v_scale P's column j
 //     before the hi + lo split, and the denominator sums the unscaled P
 //     (tc::ColScales). No rounding point beyond the bf16 cache's (ROADMAP
-//     Queue C 14, 15); 82 KB of shared memory, two CTAs an SM.
+//     Queue C 14, 15); 82 KB of shared memory at D = 128, two CTAs an SM.
 //   - the f32 instances (the exactness instances, f32 or int8 cache)
 //     compute in f32 FMA from shared memory (fa::attend_tiles), int8
 //     dequantised per token there.
+// Every instance takes head dim 64 or 128 (the C entry refuses any other D).
+// At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q K^T takes 4
+// k-steps, O += P V is m64n64k16 into 32 floats a thread; shared memory is
+// 41 KB (bf16 cache) or 42 KB (int8 cache), so the D = 64 instances are
+// built for four CTAs an SM (FWD_TC_BLOCKS: 128 registers a thread, no
+// spills; at three, 147 and 168 registers, the fresh prefill at (8, 512,
+// 16/8) took ~4% longer on an H100); D = 128 stays at two.
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
 // flash_tri.cu, behind triangular=True, on the same tile steps. Left for
@@ -115,15 +122,19 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
+// CTAs an SM the tensor-core instances are built for, by head dim.
+template <int D>
+constexpr int FWD_TC_BLOCKS = D == 128 ? 2 : 4;
+
 // The bf16 instances on the tensor cores, a bf16 (KT = bf16) or an int8
 // (KT = int8_t) cache: one warpgroup per (batch * q-head, 64-query tile)
-// over the block's live key tiles.
+// over the block's live key tiles; one tile spans the head dim D.
 template <typename KT, int D>
-__global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs a) {
-  static_assert(D == 128, "one tile spans the head dim");
+__global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_kernel(FlashArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
-  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;
+  constexpr uint32_t TILE = wg::tile_bytes<D>();
+  const uint32_t sQ = tc::tiles(), ring = sQ + TILE;
   const int b = blockIdx.x / a.Hq;
   const int h = blockIdx.x % a.Hq;
   const int kvh = h / (a.Hq / a.Hkv);
@@ -145,37 +156,39 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs 
   };
   const int first = skips(pad / E) ? wlo : pad / E;
 
-  wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq);
-  float acc[64], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+  wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+                   a.Sq);
+  float acc[D / 2], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   const tc::CacheMask mask{a.Sk, a.causal, pad, a.window, fa::sink_bound(pad, a.sinks)};
   const float sl2 = a.scale * tc::kLog2e;
   const KT* kb = static_cast<const KT*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const KT* vb = static_cast<const KT*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   if constexpr (std::is_same<KT, bf16>::value) {
-    tc::kv_walk(ring, kb, vb, a.k_ss, a.v_ss, a.Sk, first, end, next, [&](uint32_t sK, int j) {
-      tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
-    });
+    tc::kv_walk<D>(ring, kb, vb, a.k_ss, a.v_ss, a.Sk, first, end, next,
+                   [&](uint32_t sK, int j) {
+                     tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
+                   });
   } else {
     // the int8 cache: tiles and scales through the int8 stages after the
     // bf16 K/V pair at `ring`, widened into the pair before the products
-    const uint32_t stages = ring + 2 * wg::TILE_BYTES;
+    const uint32_t stages = ring + 2 * TILE;
     const float* ksb = a.k_scale + b * a.sc_sb + kvh * a.sc_sh;
     const float* vsb = a.v_scale + b * a.sc_sb + kvh * a.sc_sh;
     tc::ring_walk(
         first, end, next,
         [&](int st, int j) {
-          tc::i8_stage(stages + st * tc::I8_STAGE, kb, vb, ksb, vsb, a.k_ss, a.v_ss, a.sc_ss,
-                       j * E, a.Sk);
+          tc::i8_stage<D>(stages + st * tc::i8_stage_bytes<D>(), kb, vb, ksb, vsb, a.k_ss,
+                          a.v_ss, a.sc_ss, j * E, a.Sk);
         },
         [&](int st, int j) {
-          const uint32_t stage = stages + st * tc::I8_STAGE;
-          tc::i8_widen(ring, stage);
+          const uint32_t stage = stages + st * tc::i8_stage_bytes<D>();
+          tc::i8_widen<D>(ring, stage);
           wg::fence_smem_to_async();
           __syncthreads();
           tc::fwd_tile_tc(acc, m, l, sQ, ring, qpos0, j * E, sl2, mask,
-                          tc::ColScales{tc::floats_at(stage + 2 * tc::I8_TILE)});
+                          tc::ColScales{tc::floats_at(stage + 2 * tc::i8_tile<D>())});
         });
   }
 
@@ -189,7 +202,8 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_fwd_tc_kernel(FlashArgs 
 
 template <typename KT, int D>
 cudaError_t launch_tc(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = std::is_same<KT, int8_t>::value ? tc::FWD_I8_SMEM : tc::FWD_SMEM;
+  constexpr size_t smem =
+      std::is_same<KT, int8_t>::value ? tc::fwd_i8_smem<D>() : tc::fwd_tc_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<KT, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -224,10 +238,12 @@ cudaError_t dispatch(const FlashArgs& a, cudaStream_t s) {
 }  // namespace
 
 // Launches on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launch (0 on success).
+// cudaGetLastError() after the launch (0 on success; cudaErrorInvalidValue
+// for a head dim other than 64 or 128).
 extern "C" int flash_fwd(const FlashArgs* a, void* stream) {
   if (a->Sq <= 0 || a->B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->D == 128) return static_cast<int>(dispatch<128>(*a, s));
+  if (a->D == 64) return static_cast<int>(dispatch<64>(*a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,6 +32,12 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
+// The forward's steps are generic in the head dim D = 64 or 128 (the
+// accumulator's size gives it: D / 2 floats a thread): at D = 64 a tile is
+// one swizzle atom, S = Q K^T takes 4 k-steps, O += P V is m64n64k16 into
+// 32 floats, and shared memory is 41 KB (bf16 cache) or 42 KB (int8
+// cache). The dQ and dK/dV steps take D = 128 only.
+//
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
 // V tiles are loaded once, swizzled. Each step is one (64-query tile, q-head
@@ -71,7 +77,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Q; K and V in two stages / Q, dO; K and V in two stages / K, V; Q, dO in
 // two stages; lse, delta in two stages; each plus the slack that aligns the
 // first tile to a swizzle period
-constexpr size_t FWD_SMEM = 5 * wg::TILE_BYTES + wg::ALIGN;
+template <int D>
+__host__ __device__ constexpr size_t fwd_tc_smem() {
+  return 5 * wg::tile_bytes<D>() + wg::ALIGN;
+}
+constexpr size_t FWD_SMEM = fwd_tc_smem<128>();
 constexpr size_t DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
 constexpr size_t DKV_SMEM = 6 * wg::TILE_BYTES + 2 * STAT_BYTES + wg::ALIGN;
 
@@ -96,26 +106,28 @@ __device__ __forceinline__ const float* floats_at(uint32_t addr) {
                                         (addr - wg::smem_addr(smem)));
 }
 
-// s = A B^T for one 64 x 64 tile (A, B both K-major): 8 k-steps over D.
+// s = A B^T for one 64 x 64 tile (A, B both K-major): D / 16 k-steps.
+template <int D = 128>
 __device__ __forceinline__ void abt(float (&s)[32], uint32_t sa, uint32_t sb) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk)
     wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
 }
 
 // acc += a x tile (MN-major), a the bf16 A fragments of 4 k-steps over the
-// tile's 64 rows; issued, not committed.
-__device__ __forceinline__ void pv_issue(float (&acc)[64], const uint32_t (&a)[4][4],
+// tile's 64 rows, the tile 2 N columns wide (N: acc's floats a thread);
+// issued, not committed.
+template <int N>
+__device__ __forceinline__ void pv_issue(float (&acc)[N], const uint32_t (&a)[4][4],
                                          uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wg::mma_m64n128k16_rs<1>(acc, a[kk], wg::desc_mnmajor(tile, kk), 1);
+  for (int kk = 0; kk < 4; ++kk) wg::mma_rs<1>(acc, a[kk], wg::desc_mnmajor(tile, kk), 1);
 }
 
 // acc += p x tile (MN-major), 4 k-steps over the tile's 64 rows, waited
 // for; p rounded to bf16, or with Split as bf16 hi + lo (8 k-steps).
-template <bool Split>
-__device__ __forceinline__ void pv(float (&acc)[64], const float (&p)[32], uint32_t tile) {
+template <bool Split, int N>
+__device__ __forceinline__ void pv(float (&acc)[N], const float (&p)[32], uint32_t tile) {
   uint32_t hi[4][4], lo[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -141,9 +153,11 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// Rows r0 + frag_row (+ 8) of a 64 x 128 accumulator, each times mul[i], as
-// bf16 at `base` (row stride ld elements), rows at or past n left out.
-__device__ __forceinline__ void store_bf16(const float (&acc)[64], bf16* base, long long ld,
+// Rows r0 + frag_row (+ 8) of a 64 x 2N accumulator (N floats a thread),
+// each times mul[i], as bf16 at `base` (row stride ld elements), rows at or
+// past n left out.
+template <int N>
+__device__ __forceinline__ void store_bf16(const float (&acc)[N], bf16* base, long long ld,
                                            int r0, int n, const float (&mul)[2]) {
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
 #pragma unroll
@@ -152,7 +166,7 @@ __device__ __forceinline__ void store_bf16(const float (&acc)[64], bf16* base, l
     if (r >= n) continue;
     bf16* o = base + r * ld + col;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
   }
@@ -225,52 +239,68 @@ __device__ __forceinline__ void ring_walk(int first, int end, Next next, Load lo
   wg::copy_wait<0>();        // nothing in flight when the walk had no tile
 }
 
-// ring_walk over bf16 K/V tiles at `ring` (stage st: K at ring + 2 st TILE,
-// V after it; kb / vb at position 0 of the (batch, kv head), rows at or past
-// Sk zero-filled); step(sK, j) gets the stage's K tile.
-template <typename Next, typename Step>
+// ring_walk over bf16 K/V tiles of head dim D at `ring` (stage st: K at
+// ring + 2 st TILE, V after it; kb / vb at position 0 of the (batch, kv
+// head), rows at or past Sk zero-filled); step(sK, j) gets the stage's K
+// tile.
+template <int D = 128, typename Next, typename Step>
 __device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf16* vb,
                                         long long k_ss, long long v_ss, int Sk, int first,
                                         int end, Next next, Step step) {
+  constexpr int TILE = wg::tile_bytes<D>();
   ring_walk(
       first, end, next,
       [&](int st, int j) {
-        const uint32_t stage = ring + 2 * st * wg::TILE_BYTES;
-        wg::load_tile(stage, kb, k_ss, j * E, Sk);
-        wg::load_tile(stage + wg::TILE_BYTES, vb, v_ss, j * E, Sk);
+        const uint32_t stage = ring + 2 * st * TILE;
+        wg::load_tile<D>(stage, kb, k_ss, j * E, Sk);
+        wg::load_tile<D>(stage + TILE, vb, v_ss, j * E, Sk);
       },
-      [&](int st, int j) { step(ring + 2 * st * wg::TILE_BYTES, j); });
+      [&](int st, int j) { step(ring + 2 * st * TILE, j); });
 }
 
 // ---- the int8 cache -------------------------------------------------------
 
-// An int8 stage: the K and V tiles as they lie in the cache (64 rows of 128
-// int8, 8 KB each), then the tile's 64 k and 64 v scales. An int8 value is
-// exact in bf16 (8 significant bits), so the tiles widen without rounding
-// into the swizzled bf16 K/V pair the products read (i8_widen); k_scale
-// multiplies score column j, v_scale P's column j (ColScales).
-constexpr uint32_t I8_TILE = E * 128;
-constexpr uint32_t I8_STAGE = 2 * I8_TILE + 2 * E * sizeof(float);
+// An int8 stage: the K and V tiles as they lie in the cache (64 rows of D
+// int8, 4 KB at D = 64, 8 KB at D = 128, each), then the tile's 64 k and 64
+// v scales. An int8 value is exact in bf16 (8 significant bits), so the
+// tiles widen without rounding into the swizzled bf16 K/V pair the products
+// read (i8_widen); k_scale multiplies score column j, v_scale P's column j
+// (ColScales).
+template <int D>
+__host__ __device__ constexpr uint32_t i8_tile() {
+  return E * D;
+}
+template <int D>
+__host__ __device__ constexpr uint32_t i8_stage_bytes() {
+  return 2 * i8_tile<D>() + 2 * E * sizeof(float);
+}
 // Q, the bf16 K/V pair, two int8 stages, the alignment slack
-constexpr size_t FWD_I8_SMEM = 3 * wg::TILE_BYTES + 2 * I8_STAGE + wg::ALIGN;
+template <int D>
+__host__ __device__ constexpr size_t fwd_i8_smem() {
+  return 3 * wg::tile_bytes<D>() + 2 * i8_stage_bytes<D>() + wg::ALIGN;
+}
 
 // Issues the copies of key tile rows k0 .. k0 + 63 of one (batch, kv head)
 // (kb / vb / ksb / vsb at its position 0; rows at or past Sk zero-filled)
-// into the int8 stage at `stage`: 512 16-byte chunks of each tile, four a
-// thread, and one scale a thread. Not committed.
+// into the int8 stage at `stage`: 64 * D / 16 16-byte chunks of each tile,
+// D / 32 a thread, and one scale a thread. Not committed.
+template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
                                          const float* ksb, const float* vsb, long long k_ss,
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
+  constexpr int LOG_CH = D == 128 ? 3 : 2;   // log2 of the chunks a row, D / 16
+  static_assert((1 << LOG_CH) == D / 16, "D = 64 or 128");
+  constexpr uint32_t TILE = i8_tile<D>();
 #pragma unroll
-  for (int it = 0; it < E * 8 / wg::THREADS; ++it) {
+  for (int it = 0; it < E * (D / 16) / wg::THREADS; ++it) {
     const int i = threadIdx.x + it * wg::THREADS;
-    const int r = i >> 3, c = i & 7;
+    const int r = i >> LOG_CH, c = i & (D / 16 - 1);
     const bool in = k0 + r < Sk;
     const long long row = in ? k0 + r : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + r * 128 + c * 16),
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + r * D + c * 16),
                  "l"(kb + row * k_ss + c * 16), "r"(in ? 16 : 0)
                  : "memory");
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + I8_TILE + r * 128 +
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + TILE + r * D +
                                                                          c * 16),
                  "l"(vb + row * v_ss + c * 16), "r"(in ? 16 : 0)
                  : "memory");
@@ -278,26 +308,30 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
   const int r = threadIdx.x & (E - 1);
   const bool in = k0 + r < Sk;
   const float* src = (threadIdx.x < E ? ksb : vsb) + (in ? (k0 + r) * sc_ss : 0);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stage + 2 * I8_TILE +
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stage + 2 * TILE +
                                                                       threadIdx.x * 4),
                "l"(src), "r"(in ? 4 : 0)
                : "memory");
 }
 
 // Widens the int8 stage's K and V tiles, exactly, into the swizzled bf16
-// tiles at sK and sK + TILE (wg::load_tile's layout): each thread 8 chunks
-// of 8 values a tile. The caller publishes them (fence_smem_to_async, then a
-// barrier) before the products.
+// tiles at sK and sK + TILE (wg::load_tile's layout): each thread D / 16
+// chunks of 8 values a tile. The caller publishes them (fence_smem_to_async,
+// then a barrier) before the products.
+template <int D>
 __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
+  constexpr int LOG_CH = D == 128 ? 4 : 3;   // log2 of the bf16 chunks a row, D / 8
+  static_assert((1 << LOG_CH) == D / 8, "D = 64 or 128");
   const char* src = reinterpret_cast<const char*>(floats_at(stage));
   char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
 #pragma unroll
   for (int kv = 0; kv < 2; ++kv)
 #pragma unroll
-    for (int it = 0; it < E * 16 / wg::THREADS; ++it) {
+    for (int it = 0; it < E * (D / 8) / wg::THREADS; ++it) {
       const int i = threadIdx.x + it * wg::THREADS;
-      const int r = i >> 4, c = i & 15;   // row, chunk of 8 values along D
-      const uint2 raw = *reinterpret_cast<const uint2*>(src + kv * I8_TILE + r * 128 + c * 8);
+      const int r = i >> LOG_CH, c = i & (D / 8 - 1);   // row, chunk of 8 values along D
+      const uint2 raw =
+          *reinterpret_cast<const uint2*>(src + kv * i8_tile<D>() + r * D + c * 8);
       const uint32_t w[2] = {raw.x, raw.y};
       uint32_t o[4];
 #pragma unroll
@@ -306,8 +340,9 @@ __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
         o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
                              static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
       }
-      *reinterpret_cast<uint4*>(dst + kv * wg::TILE_BYTES + (c >> 3) * wg::ATOM_BYTES + r * 128 +
-                                (((c & 7) ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+      *reinterpret_cast<uint4*>(dst + kv * wg::tile_bytes<D>() + (c >> 3) * wg::ATOM_BYTES +
+                                r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
     }
 }
 
@@ -329,20 +364,22 @@ struct ColScales {
 
 // One forward step (_online_update): queries q0 .. q0 + 63 (Q tile at sQ)
 // against keys k0 .. k0 + 63 (K, V tiles at sK, sK + TILE), the copies
-// waited for and published. S = Q K^T, the mask, the running max m (log2
-// units) and denominator l of the fragment's two rows (l over this thread's
-// columns; the quad's sum at the end, fwd_final), acc rescaled, then acc +=
-// P V with P as bf16 hi + lo. With ColScales (the int8 cache) score column
-// j is multiplied by k_scale[j] with the scale, and P's column j by
-// v_scale[j] after the denominator took it.
-template <typename Mask, typename Scales = NoScales>
-__device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], float (&l)[2],
+// waited for and published; head dim D = 2 N (N: acc's floats a thread).
+// S = Q K^T, the mask, the running max m (log2 units) and denominator l of
+// the fragment's two rows (l over this thread's columns; the quad's sum at
+// the end, fwd_final), acc rescaled, then acc += P V with P as bf16 hi +
+// lo. With ColScales (the int8 cache) score column j is multiplied by
+// k_scale[j] with the scale, and P's column j by v_scale[j] after the
+// denominator took it.
+template <typename Mask, typename Scales = NoScales, int N>
+__device__ __forceinline__ void fwd_tile_tc(float (&acc)[N], float (&m)[2], float (&l)[2],
                                             uint32_t sQ, uint32_t sK, int q0, int k0, float sl2,
                                             const Mask& mask, const Scales& sc = Scales()) {
+  constexpr int D = 2 * N;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32];
   wg::fence();
-  abt(s, sQ, sK);
+  abt<D>(s, sQ, sK);
   wg::commit();
   wg::wait<0>();
   wg::fence_regs(s);
@@ -384,7 +421,7 @@ __device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], flo
     m[i] = m_new;
     l[i] = l[i] * corr + psum;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       acc[4 * j + 2 * i] *= corr;
       acc[4 * j + 2 * i + 1] *= corr;
     }
@@ -393,7 +430,7 @@ __device__ __forceinline__ void fwd_tile_tc(float (&acc)[64], float (&m)[2], flo
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] *= sc.v(col + wg::elem_col(e));
   }
-  pv<true>(acc, s, sK + wg::TILE_BYTES);   // P as bf16 hi + lo
+  pv<true>(acc, s, sK + wg::tile_bytes<D>());   // P as bf16 hi + lo
 }
 
 // _finalize_out for the fragment's two rows: inv = 1 / l (0 where the row

@@ -6,13 +6,15 @@
 // flash_bwd.cu's bf16 dK/dV); the later redesigns of flash_fwd.cu and
 // flash_bwd.cu's dQ are meant to use them too.
 //
-// A tile is 64 rows of D = 128 bf16 values (one row per query or key
-// position), 16 KB: two swizzle atoms of 64 rows x 64 columns (128 bytes a
-// row), columns 0..63 in the first, 64..127 in the second, 8 KB apart, each
-// 1024-byte aligned. Inside an atom, row r lies at r * 128 bytes and its
-// 16-byte chunk c (8 values) at chunk c ^ (r % 8): the layout TMA writes
-// with CU_TENSOR_MAP_SWIZZLE_128B, and the one wgmma reads through a
-// descriptor of layout type B128.
+// A tile is 64 rows of D bf16 values (one row per query or key position),
+// D = 64 or 128: D / 64 swizzle atoms of 64 rows x 64 columns (128 bytes a
+// row), columns 0..63 in the first, 64..127 in the second (D = 128), 8 KB
+// apart, each 1024-byte aligned: 8 KB at D = 64, 16 KB at D = 128. Inside
+// an atom, row r lies at r * 128 bytes and its 16-byte chunk c (8 values)
+// at chunk c ^ (r % 8): the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B, and the one wgmma reads through a descriptor
+// of layout type B128. The backward and triangle kernels take D = 128 only
+// (TILE_BYTES and the defaults below); the forward takes both.
 //
 // The loader is cp.async (16 bytes a thread and copy, zero-fill past the
 // sequence's end, commit groups), not TMA: the one warpgroup that computes
@@ -25,7 +27,8 @@
 // Products (A is M x K, B is K x N, M = 64; K-major: K contiguous):
 //   - S = Q K^T: A = Q tile, B = K tile, both K-major (D contiguous);
 //   - O += P V:  A = P from registers, B = V tile, MN-major (D = N
-//     contiguous): the transpose bit;
+//     contiguous): the transpose bit; m64n128k16 at D = 128, m64n64k16 at
+//     D = 64 (mma_rs picks);
 //   - dQ += dS K: the same with the K tile, MN-major;
 //   - S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q (dK/dV):
 //     the same two forms with the roles of the tiles swapped.
@@ -41,8 +44,15 @@ namespace wg {
 constexpr int THREADS = 128;                 // one warpgroup
 constexpr int ROWS = 64;                     // wgmma M; a tile's rows
 constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
-constexpr int TILE_BYTES = 2 * ATOM_BYTES;   // 64 x 128 bf16
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
+
+// A tile of 64 rows of D bf16 values: D / 64 atoms.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  static_assert(D == 64 || D == 128, "a tile spans the head dim: 64 or 128");
+  return D / 64 * ATOM_BYTES;
+}
+constexpr int TILE_BYTES = tile_bytes<128>();   // 64 x 128 bf16
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -61,15 +71,16 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 
 // A tile read K-major (as Q, or K in S = Q K^T): rows 8 at a time 1024
 // bytes apart (SBO); the leading offset is unused under the swizzle. k-step
-// kk (16 values of D) starts 32 bytes further within the atom, and the
-// second atom holds D 64..127.
+// kk (16 values of D, D / 16 of them) starts 32 bytes further within the
+// atom, and the second atom (D = 128) holds D 64..127.
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
   return make_desc(tile + (kk >> 2) * ATOM_BYTES + (kk & 3) * 32, 16, 1024);
 }
 
-// A tile read MN-major (V in P V, K in dS K: keys are K, D is N): the two
-// atoms of N 64 values each are ATOM_BYTES apart (LBO), groups of 8 keys
-// 1024 bytes apart (SBO); k-step kk (16 keys) starts 2048 bytes further.
+// A tile read MN-major (V in P V, K in dS K: keys are K, D is N): the
+// atoms of N 64 values each are ATOM_BYTES apart (LBO; one atom at D = 64,
+// where it is unused), groups of 8 keys 1024 bytes apart (SBO); k-step kk
+// (16 keys) starts 2048 bytes further.
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
   return make_desc(tile + kk * 2048, ATOM_BYTES, 1024);
 }
@@ -161,6 +172,43 @@ __device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
 }
 
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (a_frag), B
+// from shared memory; TransB = 1: B is MN-major. O += P V at D = 64.
+template <int TransB>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N], A from registers, N = 2 * (the
+// accumulator's floats a thread): the register-A product of a 64- or
+// 128-column output (P V, dS K, P^T dO, dS^T Q).
+template <int TransB, int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N], const uint32_t (&a)[4], uint64_t db,
+                                       int scale_d) {
+  static_assert(N == 32 || N == 64, "an accumulator of 64 or 128 columns");
+  if constexpr (N == 64)
+    mma_m64n128k16_rs<TransB>(d, a, db, scale_d);
+  else
+    mma_m64n64k16_rs<TransB>(d, a, db, scale_d);
+}
+
 // ---- fragments ------------------------------------------------------------
 
 // The accumulator of an m64nN product: thread t of the warpgroup holds rows
@@ -220,16 +268,20 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // Issues the copy of rows row0 .. row0 + 63 of one (batch, head) slice of
-// bf16 [positions][128] (`base` at position 0, `ld` elements between
-// positions; 16-byte aligned) into the swizzled tile at `tile`: 1024 chunks
-// of 16 bytes, 8 per thread, neighbouring threads on neighbouring chunks of
-// a row. Rows at or past S are zero-filled (src-size 0). Not committed.
+// bf16 [positions][D] (`base` at position 0, `ld` elements between
+// positions; 16-byte aligned) into the swizzled tile at `tile`: 64 * D / 8
+// chunks of 16 bytes, D / 16 per thread, neighbouring threads on
+// neighbouring chunks of a row. Rows at or past S are zero-filled (src-size
+// 0). Not committed.
+template <int D = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base, long long ld,
                                           int row0, int S) {
+  constexpr int LOG_CH = D == 128 ? 4 : 3;   // log2 of the chunks a row, D / 8
+  static_assert(tile_bytes<D>() > 0 && (1 << LOG_CH) == D / 8, "D = 64 or 128");
 #pragma unroll
-  for (int it = 0; it < ROWS * 16 / THREADS; ++it) {
+  for (int it = 0; it < ROWS * (D / 8) / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;
-    const int r = i >> 4, c = i & 15;     // row, chunk of 8 values along D
+    const int r = i >> LOG_CH, c = i & (D / 8 - 1);   // row, chunk of 8 values along D
     const bool in = row0 + r < S;
     const __nv_bfloat16* src = in ? base + (row0 + r) * ld + c * 8 : base;
     const uint32_t dst = tile + (c >> 3) * ATOM_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);

@@ -64,8 +64,13 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dim 128 only (every Llama preset's); another head dim raises on a
-  CUDA tensor;
+- head dims 64 and 128 in the forward kernels (``flash_fwd`` for
+  self-attention and the cache, ``flash_decode``: ``_FWD_HEAD_DIMS``),
+  128 only in the backward and flattened-triangle kernels
+  (``_SELF_HEAD_DIMS``); on a CUDA tensor any other head dim raises a
+  ValueError naming it before a kernel is built or launched, and so does
+  a D = 64 backward or ``triangular=True`` call that reaches those kernels
+  (no plain fallback);
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -91,7 +96,7 @@ _TILE = 64
 # K+V bytes (in the input dtype) the TPU keeps resident in VMEM before its
 # forward switches to the streaming grid, where triangular=True applies: a
 # copy of the JAX constant, kept so the port takes the triangle exactly
-# where the JAX package does (bf16 at D 128: S > 12288)
+# where the JAX package does (bf16 at D 128: S > 12288; at D 64: S > 24576)
 RESIDENT_KV_BUDGET = 6 * 1024 * 1024
 
 # launches per kernel, counted where its wrapper launches it; an int8 cache
@@ -104,7 +109,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (128,)
+# the head dims each kernel family is built for: the forward kernels
+# (flash_fwd: self-attention and the cache; flash_decode) and the
+# self-attention backward and flattened-triangle kernels (flash_bwd,
+# flash_tri)
+_FWD_HEAD_DIMS = (64, 128)
+_SELF_HEAD_DIMS = (128,)
 
 
 def reset_launches() -> None:
@@ -386,8 +396,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes {_HEAD_DIMS}")
+    if D not in _FWD_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: {kernel} takes head dims "
+                         f"{_FWD_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -534,11 +545,13 @@ def attention_bwd_plain(q, k, v, out, lse, dout, g_lse=None, *,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_self_attention(q, k, v, dout=None, lse=None, delta=None) -> None:
+def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
+                          delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cu, flash_tri.cu) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 128 contiguous, GQA dividing; lse and delta,
-    where given, contiguous float32 [B,Hq,S]."""
+    kernels' dtypes, head dim 128 (``_SELF_HEAD_DIMS``) contiguous, GQA
+    dividing; lse and delta, where given, contiguous float32 [B,Hq,S].
+    Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -555,8 +568,9 @@ def _check_self_attention(q, k, v, dout=None, lse=None, delta=None) -> None:
         raise TypeError("k/v/dout dtypes "
                         + "/".join(str(t.dtype) for t in acts)
                         + f"; expected {q.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes {_HEAD_DIMS}")
+    if D not in _SELF_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: {kernel} takes head dims "
+                         f"{_SELF_HEAD_DIMS}")
     if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
             or (dout is not None and dout.shape != q.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
@@ -586,7 +600,7 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
-    _check_self_attention(q, k, v, dout, lse, delta)
+    _check_self_attention(kernel, q, k, v, dout, lse, delta)
     _check_tc_copies(kernel, q=q, k=k, v=v, dout=dout)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -632,7 +646,7 @@ _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
 
 
 def _tc_copy_fault(t, any_dtype: bool = False) -> str | None:
-    """Why a kernel cannot copy ``t`` in 16-byte chunks (rows of 128 values:
+    """Why a kernel cannot copy ``t`` in 16-byte chunks (rows of D values:
     a 16-byte aligned base, batch, position and head strides of whole
     chunks), or None when it can. Only bf16 is checked unless
     ``any_dtype`` (f32 chunks hold 4 values, int8 chunks 16)."""
@@ -687,7 +701,7 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     fwd = kernel == "flash_fwd_tri"
     if not fwd and (dout is None or lse is None or delta is None):
         raise ValueError(f"{kernel} needs dout, lse and delta")
-    _check_self_attention(q, k, v, dout, lse, delta)
+    _check_self_attention(kernel, q, k, v, dout, lse, delta)
     _check_tc_copies(kernel, q=q, k=k, v=v, dout=dout)
     act = _ACT_DTYPES[q.dtype]
     P = _cuda.tri_ctas(kernel, act, dev.index)

@@ -4,21 +4,27 @@ side by side on one GPU.
 
     python3 hack/torch_decode_ab.py            # this repo's kernels
     python3 hack/torch_decode_ab.py ROOT ...   # the kernels of each ROOT
+    python3 hack/torch_decode_ab.py --head-dim 64 [ROOT ...]
 
 Each ROOT is a directory that holds a ``gpu_provisioner_tpu_torch`` package
 (an unpacked parent commit, a variant under study): its kernels are built
 from its own sources into its own ``ops/_build/``, one process for each
 ROOT in the order given (give them as A B B A to alternate).
 
-At the shapes of chip_smoke.py's timed rows (Hq 32 / Hkv 8, head dim 128,
-a cache of 2048, bf16 activations, random normal inputs from a seed):
+At the shapes of chip_smoke.py's timed rows (Hq 32 / Hkv 8, head dim 128;
+with ``--head-dim 64`` the bench_moe_decode model's Hq 16 / Hkv 8 of 64,
+which a checkout from before the head-dim-64 kernels refuses; a cache of
+2048, bf16 activations, random normal inputs from a seed):
 ``flash_attention_decode`` at the engine's decode step (B=4, S=1, per-row
 starts 540/300/610/420, pads 12/0/100/56) on a bf16 and an int8 cache, and
 at S=5 and S=16 from the same starts; ``flash_attention_cached`` at the
 admission prefill (B=1, 256 queries at 128, pad 28) on a bf16 and an int8
 cache; then, where the checkout has flash_decode's split schedule, the
 bf16 decode step at each forced split count of SPLIT_SWEEP (its plan picks
-9 there on 132 SMs). For each: ``ms``, CUDA events around the wrapper call
+9 there on 132 SMs), and last a fresh prefill through
+``flash_attention_with_lse`` (causal self-attention: B=2, S=512 at head
+dim 128, phase 2's serving row; B=8, S=512 at 64, the bench_moe_decode
+twin's). For each: ``ms``, CUDA events around the wrapper call
 (median of 20, chip_smoke.time_ms); ``host_us``, the host's time per call
 over 200 calls in a row with no synchronisation (median of 5 rounds: the
 wrapper's enqueue cost); ``device_ms``, the kernels' own device time from
@@ -43,11 +49,14 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs   # noqa: E402  (time_ms, device_ms, the rows' shapes)
 
-Hq, Hkv, D, ML = 32, 8, 128, 2048
+ML = 2048
+HEADS = {128: (32, 8), 64: (16, 8)}   # head dim -> (Hq, Hkv)
+PREFILL = {128: (2, 512), 64: (8, 512)}   # head dim -> the fresh prefill's (B, S)
 SPLIT_SWEEP = (1, 2, 4, 9, 16, 32)   # forced split counts at the decode step
 
 
-def rows(torch, tfa, td, dev):
+def rows(torch, tfa, td, dev, D=128):
+    Hq, Hkv = HEADS[D]
     g = torch.Generator(dev).manual_seed(21)
     bf = torch.bfloat16
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -111,6 +120,13 @@ def rows(torch, tfa, td, dev):
         for n in SPLIT_SWEEP:
             cases.append((f"flash_decode S=1 splits={n}",
                           forced(tfa, n, call), plain, kernels))
+    B, S = PREFILL[D]
+    q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    cases.append((f"flash_fwd B={B} S={S}",
+                  lambda: tfa.flash_attention_with_lse(q, k, v)[0],
+                  lambda: tfa.attention_plain(q, k.transpose(1, 2),
+                                              v.transpose(1, 2), 0)[0],
+                  ("flash_fwd",)))
 
     # host and event times first: a torch.profiler session slows every
     # later launch on the host (chip_smoke.device_times)
@@ -139,12 +155,14 @@ def forced(tfa, n, call):
 
 
 def main() -> int:
-    roots = sys.argv[1:]
+    roots, D = sys.argv[1:], 128
+    if roots[:1] == ["--head-dim"]:
+        D, roots = int(roots[1]), roots[2:]
     if len(roots) > 1:
         rc = 0
         for root in roots:
-            rc |= subprocess.run([sys.executable, __file__, root],
-                                 timeout=900).returncode
+            rc |= subprocess.run([sys.executable, __file__, "--head-dim",
+                                  str(D), root], timeout=900).returncode
         return rc
     root = Path(roots[0]).resolve() if roots else ROOT
     sys.path.insert(0, str(root))
@@ -159,8 +177,8 @@ def main() -> int:
     dev = torch.device("cuda")
     _cuda.build()
     with torch.no_grad():
-        out = {"root": str(root), "card": cs.card_line(),
-               "rows": rows(torch, tfa, td, dev)}
+        out = {"root": str(root), "card": cs.card_line(), "head_dim": D,
+               "rows": rows(torch, tfa, td, dev, D)}
     print(json.dumps(out), flush=True)
     return 0
 

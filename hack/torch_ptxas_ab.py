@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""ptxas's registers and spills, and the SASS, of every kernel of two
+checkouts, side by side, on a machine with nvcc.
+
+    python3 hack/torch_ptxas_ab.py A B
+
+A and B are directories that hold a ``gpu_provisioner_tpu_torch`` package
+(an unpacked parent commit and this tree, say). Each builds its four
+kernel libraries from its own sources with its own ``_cuda.build`` into a
+temporary directory (the eight nvcc processes run together); the
+``-Xptxas -v`` output is read per kernel, and each library's SASS
+(``cuobjdump -sass``, which ships with nvcc) is cut per kernel, the
+mangled names taken without their anonymous namespace's per-build hash.
+Prints, per source, how many of A's kernels B builds with the same
+registers and spills and with the same SASS, then one line for every
+kernel whose registers or spills differ or that only one side has, and
+exits non-zero when a kernel of A differs in B in either (a kernel B adds
+is listed, not a failure). Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs   # noqa: E402  (ptxas_info)
+
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_tri")
+
+
+def plain_name(mangled: str) -> str:
+    """The mangled name without the anonymous namespace's per-build hash."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "", mangled)
+
+
+def sass_by_kernel(text: str) -> dict:
+    """{plain kernel name: its SASS} of one ``cuobjdump -sass`` listing."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            cur = plain_name(line.split("Function : ", 1)[1].strip())
+            out[cur] = []
+        elif cur is not None:
+            out[cur].append(line.strip())
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def child(root: str) -> int:
+    """Builds ``root``'s libraries into a temporary directory and prints
+    {"logs": nvcc's output, "sass": each library's SASS} as one JSON line."""
+    sys.path.insert(0, root)
+    from gpu_provisioner_tpu_torch.ops import _cuda
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    with tempfile.TemporaryDirectory() as tmp:
+        _cuda.BUILD_DIR = Path(tmp)
+        logs = _cuda.build()
+        sass = {src: subprocess.run([tool, "-sass", str(_cuda.lib_path(src))],
+                                    capture_output=True, text=True,
+                                    check=True).stdout
+                for src in SOURCES}
+    print(json.dumps({"logs": logs, "sass": sass}))
+    return 0
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        return child(sys.argv[2])
+    if len(sys.argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = [str(Path(r).resolve()) for r in sys.argv[1:]]
+    procs = [subprocess.Popen([sys.executable, __file__, "--child", r],
+                              stdout=subprocess.PIPE, text=True)
+             for r in roots]
+    built = []
+    for r, p in zip(roots, procs):
+        out, _ = p.communicate()
+        if p.returncode:
+            print(f"torch_ptxas_ab: the build of {r} failed", file=sys.stderr)
+            return 1
+        built.append(json.loads(out.strip().splitlines()[-1]))
+    ok = True
+    for src in SOURCES:
+        a, b = ({plain_name(k): v
+                 for k, v in cs.ptxas_info(x["logs"].get(src, "")).items()}
+                for x in built)
+        sa, sb = (sass_by_kernel(x["sass"][src]) for x in built)
+        same = sum(b.get(k) == v for k, v in a.items())
+        same_sass = sum(sb.get(k) == v for k, v in sa.items())
+        print(json.dumps({"source": src, "kernels_a": len(a),
+                          "kernels_b": len(b), "same_in_b": same,
+                          "sass_kernels_a": len(sa),
+                          "same_sass_in_b": same_sass}))
+        for k in sorted(set(a) | set(b)):
+            if a.get(k) != b.get(k):
+                print(json.dumps({"kernel": k, "a": a.get(k),
+                                  "b": b.get(k)}))
+        ok &= same == len(a) and same_sass == len(sa)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

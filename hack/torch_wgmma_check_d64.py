@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""The head-dim-64 tensor-core building blocks of ops/csrc/flash_wgmma.cuh
+and flash_tc.cuh, one product at a time, against torch.matmul on one GPU.
+
+    python3 hack/torch_wgmma_check_d64.py
+
+Builds hack/torch_wgmma_check_d64.cu (nvcc, sm_90a, the package's flags)
+into the git-ignored ops/_build/ and runs its one warpgroup on three random
+64 x 64 bf16 tiles A, B, V (one swizzle atom each) and a random 64 x 64
+int8 tile W with 64 scales, loaded with rows at or past ``rows`` zero (64,
+then the ragged 50): s = A Bᵀ (both operands K-major, 4 k-steps), o =
+bf16(s) V and g = bf16(s) B (m64n64k16 with A from registers, V and B as
+MN-major operands), and x = A Wᵀ with W widened exactly from int8 to bf16
+by the int8 stage (its scales read back as the stage holds them). Each is
+held against the same product in f32 by torch.matmul on the card (relative
+to its largest value, 1e-5: the inputs are exact in bf16 and the products
+sum in f32; o and g take the kernel's s rounded to bf16), the scales
+exactly. A wrong descriptor, swizzle or fragment map gives wrong numbers,
+not an error, so this is the first check of a change there; the D = 128
+products have hack/torch_wgmma_check.py. Prints one JSON line per case and
+exits non-zero on a miss. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+TOL = 1e-5
+
+
+def build(_cuda) -> Path:
+    src = ROOT / "hack" / "torch_wgmma_check_d64.cu"
+    out = _cuda.BUILD_DIR / "libtorch_wgmma_check_d64.so"
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
+                    "-o", str(out), str(src)], check=True)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_wgmma_check_d64: no CUDA device", file=sys.stderr)
+        return 2
+    from gpu_provisioner_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = ctypes.CDLL(str(build(_cuda)))
+    fn = lib.wgmma_check_d64
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    ok = True
+    for rows in (64, 50):
+        a, b, v = (torch.randn(64, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        w = torch.randint(-127, 128, (64, 64), generator=g, device=dev,
+                          dtype=torch.int8)
+        ws = torch.rand(64, generator=g, device=dev) + 0.5
+        s, o, gg, x = (torch.empty(64, 64, device=dev) for _ in range(4))
+        sc = torch.empty(128, device=dev)
+        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), w.data_ptr(),
+                ws.data_ptr(), rows, s.data_ptr(), o.data_ptr(),
+                gg.data_ptr(), x.data_ptr(), sc.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            print(f"torch_wgmma_check_d64: launch failed with cudaError {rc}",
+                  file=sys.stderr)
+            return 1
+        af, bf, vf, wf = (t.float() for t in (a, b, v, w))
+        for t in (af, bf, vf, wf):
+            t[rows:] = 0.0
+        wsf = ws.clone()
+        wsf[rows:] = 0.0
+        p = s.to(torch.bfloat16).float()    # the kernel's own rounding of s
+        errs = {}
+        for name, got, want in (("s", s, af @ bf.T), ("o", o, p @ vf),
+                                ("g", gg, p @ bf), ("x", x, af @ wf.T)):
+            errs[name] = ((got - want).abs().max()
+                          / want.abs().max()).item()
+        errs["scales"] = (sc - torch.cat([wsf, wsf])).abs().max().item()
+        miss = {n: e for n, e in errs.items()
+                if not e <= (0.0 if n == "scales" else TOL)}
+        ok &= not miss
+        print(json.dumps({"rows": rows, "rel_err": errs, "tol": TOL,
+                          "ok": not miss}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

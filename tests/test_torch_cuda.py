@@ -17,7 +17,9 @@ forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
 the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
-a direct launch refuses.
+a direct launch refuses. The forward kernels (flash_fwd for self-attention
+and the cache, flash_decode) run at head dims 64 and 128; the backward and
+triangle kernels at 128 only.
 """
 
 import ctypes
@@ -78,38 +80,40 @@ FWD_CASES = [(2, 256, 8, 2, True, None), (2, 256, 8, 2, False, None),
              (1, 1500, 4, 1, True, 1024)]
 
 
-def _q_view(g, B, S, Hq, extra, dtype, dev):
-    """q [B, S, Hq, 128] as a view of rows Hq·128 + extra wide: extra 8
-    keeps every stride a whole number of 16-byte chunks in bf16, extra 4
-    does not."""
-    row = Hq * 128 + extra
+def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
+    """q [B, S, Hq, D] as a view of rows Hq·D + extra wide: extra 8 keeps
+    every stride a whole number of 16-byte chunks in bf16, extra 4 does
+    not."""
+    row = Hq * D + extra
     return _randn(g, B, S, row, dtype=dtype, dev=dev).as_strided(
-        (B, S, Hq, 128), (S * row, row, 128, 1))
+        (B, S, Hq, D), (S * row, row, D, 1))
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
 def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
-                                 layout):
+                                 layout, D):
     """The forward (bf16: the tensor-core instance) against the plain
-    version. q contiguous, a strided view the kernels take as it is, or a
-    view whose row stride is no whole number of 16-byte chunks: a direct
-    bf16 launch refuses it (ValueError), flash_attention_with_lse copies it
-    (_tc_layout) and matches."""
+    version, at head dim 64 and 128. q contiguous, a strided view the
+    kernels take as it is, or a view whose row stride is no whole number
+    of 16-byte chunks: a direct bf16 launch refuses it (ValueError),
+    flash_attention_with_lse copies it (_tc_layout) and matches."""
     g = torch.Generator(dev).manual_seed(0)
-    q = (_randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
+    q = (_randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
          if layout == "contiguous" else
-         _q_view(g, B, S, Hq, 8 if layout == "strided" else 4, dtype, dev))
-    k = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
-    v = _randn(g, B, S, Hkv, 128, dtype=dtype, dev=dev)
+         _q_view(g, B, S, Hq, 8 if layout == "strided" else 4, dtype, dev,
+                 D))
+    k = _randn(g, B, S, Hkv, D, dtype=dtype, dev=dev)
+    v = _randn(g, B, S, Hkv, D, dtype=dtype, dev=dev)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     kw = dict(causal=causal, window=window)
     refused = layout == "misaligned" and dtype == torch.bfloat16
     tiles = S % tfa._auto_block(S) == 0
     if refused:
         with pytest.raises(ValueError, match="flash_fwd: q strides"):
-            tfa._launch("flash_fwd", q, kh, vh, 0, scale=128 ** -0.5,
+            tfa._launch("flash_fwd", q, kh, vh, 0, scale=D ** -0.5,
                         want_lse=True, **kw)
     tfa.reset_launches()
     if tiles:
@@ -118,7 +122,7 @@ def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
     elif refused:
         return
     else:
-        out, lse = tfa._launch("flash_fwd", q, kh, vh, 0, scale=128 ** -0.5,
+        out, lse = tfa._launch("flash_fwd", q, kh, vh, 0, scale=D ** -0.5,
                                want_lse=True, **kw)
     ref, ref_lse = tfa.attention_plain(q, kh, vh, 0, **kw)
     torch.cuda.synchronize()
@@ -142,12 +146,13 @@ CASES = [
 ]
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
-                                   window, sinks):
+                                   window, sinks, D):
     g = torch.Generator(dev).manual_seed(1)
-    Hq, Hkv, ML, D = 32, 8, 2048, 128
+    Hq, Hkv, ML = 32, 8, 2048
     q = _randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
     kc = _randn(g, B, Hkv, ML, D, dtype=dtype, dev=dev)
     vc = _randn(g, B, Hkv, ML, D, dtype=dtype, dev=dev)
@@ -163,7 +168,7 @@ def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
         got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
     elif isinstance(start, list):
         got, _ = tfa._launch("flash_fwd", q, kc, vc, st, causal=True,
-                             scale=128 ** -0.5, **kw)
+                             scale=D ** -0.5, **kw)
     else:
         got = tfa.flash_attention_cached(q, kc, vc, st, **kw)
     ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
@@ -171,10 +176,11 @@ def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
     assert _err(got, ref) < TOL[dtype]
 
 
-def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8):
-    q = _randn(g, B, S, Hq, 128, dtype=dtype, dev=dev)
-    kc = _randn(g, B, Hkv, ML, 128, dtype=dtype, dev=dev)
-    vc = _randn(g, B, Hkv, ML, 128, dtype=dtype, dev=dev)
+def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
+                  D=128):
+    q = _randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
+    kc = _randn(g, B, Hkv, ML, D, dtype=dtype, dev=dev)
+    vc = _randn(g, B, Hkv, ML, D, dtype=dtype, dev=dev)
     kw = {}
     if int8:
         kc, kw["k_scale"] = td._quantize_kv(kc)
@@ -184,17 +190,20 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8):
     return q, kc, vc, kw
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
 def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
-                                             pads, window, sinks):
+                                             pads, window, sinks, D):
     """flash_decode's split schedule (the live tiles of each unit shared
     among the CTAs the host plans, partials merged by a second launch)
-    against the plain version, at the edge cases of the shares; one count
+    against the plain version, at the edge cases of the shares, at head
+    dim 64 (the block's two halves on alternate rows) and 128; one count
     on the int8 or the other counter."""
     g = torch.Generator(dev).manual_seed(12)
-    q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads)
+    q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads,
+                                  D=D)
     kw.update(window=window, sinks=sinks)
     st = torch.tensor(start, dtype=torch.int32, device=dev) \
         if isinstance(start, list) else start
@@ -258,17 +267,18 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
-        dev, B, S, start, pads, window, sinks):
+        dev, B, S, start, pads, window, sinks, D):
     g = torch.Generator(dev).manual_seed(14)
     q, kc, vc, kw = _cache_inputs(g, dev, torch.bfloat16, B, S, 2048, True,
-                                  pads)
+                                  pads, D=D)
     kw.update(window=window, sinks=sinks)
     if isinstance(start, list):
         st = torch.tensor(start, dtype=torch.int32, device=dev)
         got, _ = tfa._launch("flash_fwd", q, kc, vc, st, causal=True,
-                             scale=128 ** -0.5, **kw)
+                             scale=D ** -0.5, **kw)
     else:
         st = start
         tfa.reset_launches()
@@ -311,10 +321,23 @@ def test_decode_rows_beyond_one_block(dev):
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
-    for D in (16, 64):
+    """Head dim 64 runs the forward kernel and raises ValueError naming
+    the head dim where it reaches a backward or triangle kernel (built for
+    128 only), with no plain fallback; 16 and 32 raise in the forward;
+    float16 raises TypeError."""
+    for D in (16, 32):
         q = torch.zeros(1, 128, 4, D, device=dev)
-        with pytest.raises(ValueError, match="head dim"):
+        with pytest.raises(ValueError, match=f"head dim {D}"):
             tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    for triangular in (False, True):
+        q = torch.zeros(1, 128, 4, 64, device=dev, requires_grad=True)
+        tfa.reset_launches()
+        out = tfa.flash_attention(q, q[:, :, :2], q[:, :, :2],
+                                  triangular=triangular)
+        assert tfa.LAUNCHES["flash_fwd"] == 1
+        with pytest.raises(ValueError, match="head dim 64"):
+            out.sum().backward()
+        assert sum(tfa.LAUNCHES.values()) == 1 and q.grad is None
     q = torch.zeros(1, 128, 4, 128, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])

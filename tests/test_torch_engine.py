@@ -240,6 +240,26 @@ def test_engine_serves_moe_as_generate_on_the_bucket_padded_prompt(impl):
         assert teng.finished[t] == want[0].tolist()
 
 
+def test_engine_serves_moe_at_head_dim_64_as_jax_and_generate():
+    """An MoE model at head dim 64 (the bench_moe_decode model's: dim 256,
+    4/2 heads of 64), flash, a 128 bucket: admission takes the cached
+    kernel, every step the decode kernel at per-row starts; each stream
+    equals the JAX engine's and generate() on its bucket-padded prompt."""
+    jcfg = dataclasses.replace(MOE_CFG, dim=256, hidden_dim=256,
+                               max_seq_len=512, attn_impl="flash")
+    params = _moe_params(11, jcfg)
+    reqs = [(_prompt(12, 100), 5, {}), (_prompt(13, 60), 6, {}),
+            (_prompt(14, 128), 4, {})]
+    jeng, teng, jids, tids = _both(jcfg, reqs, params=params, slots=2,
+                                   max_len=512, prefill_buckets=(128,))
+    _assert_same_streams(jeng, teng, jids, tids)
+    for (p, n, _), t in zip(reqs, tids):
+        padded = torch.tensor([[0] * (128 - len(p)) + p])
+        want = td.generate(params[1], padded, _tcfg(jcfg), max_new_tokens=n,
+                           max_len=512, pad_id=0, device="cpu")
+        assert teng.finished[t] == want[0].tolist()
+
+
 def test_engine_refuses_a_prefix_on_moe():
     """tests/test_engine.py:305's MoE case: prefix caching serves the
     dense family only."""

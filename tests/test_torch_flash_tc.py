@@ -15,15 +15,24 @@ No CUDA kernel runs here, so the tests hold:
   too); out within 5e-3 absolute and lse within 5e-5 (half the card's
   1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
   fold (int8 widened to bf16, scales on the score and P columns) against
-  the same JAX functions in int8 mode;
+  the same JAX functions in int8 mode; each at head dim 64 and 128 (the
+  forward kernels take both; dQ's replay at 64 is the arithmetic the D = 64
+  backward will have);
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
   take (``_tc_layout``), the f32 instances take it as it is, and a direct
   launch of a misaligned bf16 ``flash_fwd`` (q, k, v; int8 K/V in chunks of
   16 values) or ``flash_bwd_dq`` raises before the kernel library (nvcc, a
-  card) is asked for. The launch itself is stood in (``_on_card``,
-  ``_run``); tests/test_torch_cuda.py holds the kernels.
+  card) is asked for;
+- the head-dim gates: D = 64 reaches ``flash_fwd`` (self-attention, a bf16
+  and an int8 cache) and ``flash_decode``; the backward and triangle
+  kernels (D = 128 only) refuse it with a ValueError naming it, through
+  autograd and ``triangular=True`` too, before any kernel library is
+  built and without a plain fallback; D = 16, 32 and 96 are refused by
+  every kernel.
+The launch itself is stood in (``_on_card``, ``_run``);
+tests/test_torch_cuda.py holds the kernels.
 """
 
 import importlib
@@ -37,6 +46,7 @@ import pytest
 import torch
 
 from gpu_provisioner_tpu_torch.models import decode as td
+from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
 # the JAX ops package re-exports flash_attention, shadowing the module name
@@ -74,18 +84,22 @@ def _rel(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
+HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128")]
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("causal,window", [
     pytest.param(True, None, id="causal"),
     pytest.param(False, None, id="full"),
     pytest.param(True, 72, id="causal-window"),
     pytest.param(False, 72, id="full-window")])
 def test_rectangular_rounding_stays_within_half_the_card_tolerance(
-        causal, window):
+        causal, window, D):
     """Self-attention at S=200 (three full 64-row tiles and a ragged one),
     Hq 4 / Hkv 1: the replay of the tensor-core forward and dQ against JAX
     flash_attention_with_lse and its VJP (blocks of 40, interpret mode)."""
     replay = _replay()
-    S, Hq, Hkv = 200, 4, 1
+    S, Hq, Hkv, scale = 200, 4, 1, D ** -0.5
     q, k, v, dout = _bf16(31, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D),
                           (1, S, Hq, D))
     outs, vjp = jax.vjp(lambda *a: jfa.flash_attention_with_lse(
@@ -93,26 +107,28 @@ def test_rectangular_rounding_stays_within_half_the_card_tolerance(
         interpret=True), *(_j(t) for t in (q, k, v)))
     jdq = vjp((_j(dout), jnp.zeros_like(outs[1])))[0]
     keep = replay.keep_mask(1, S, S, causal=causal, window=window)
-    out, lse = replay.replay_fwd(q, k, v, SCALE, keep=keep)
-    dq = replay.replay_dq(q, k, v, dout, out, lse, SCALE, keep=keep)
+    out, lse = replay.replay_fwd(q, k, v, scale, keep=keep)
+    dq = replay.replay_dq(q, k, v, dout, out, lse, scale, keep=keep)
     assert _abs(out, outs[0]) <= 5e-3
     assert _abs(lse, outs[1]) <= 5e-5
     assert _rel(dq, jdq) <= 5e-3
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("start,pads,window,sinks", [
     pytest.param(0, None, None, 0, id="start0"),
     pytest.param(100, [0, 30], None, 0, id="pads"),
     pytest.param(150, [5, 20], 64, 4, id="window-sinks")])
 def test_cache_rounding_stays_within_half_the_card_tolerance(start, pads,
-                                                             window, sinks):
+                                                             window, sinks,
+                                                             D):
     """40 fresh queries (one ragged tile) at cache positions start.. against
     a head-major bf16 cache of 256, B=2, Hq 4 / Hkv 1: the replay of the
     tensor-core forward (flash_fwd's bf16-cache instance) against JAX
     flash_attention_cached (blocks 40 and 64, interpret mode). Pad-query
     rows are zeros on both sides."""
     replay = _replay()
-    B, S, Hq, Hkv, ML = 2, 40, 4, 1, 256
+    B, S, Hq, Hkv, ML, scale = 2, 40, 4, 1, 256, D ** -0.5
     q, kc, vc = _bf16(32, (B, S, Hq, D), (B, Hkv, ML, D), (B, Hkv, ML, D))
     kw = dict(window=window, sinks=sinks)
     if pads is not None:
@@ -123,21 +139,22 @@ def test_cache_rounding_stays_within_half_the_card_tolerance(start, pads,
     keep = replay.keep_mask(B, S, ML, start=start, pad_lens=pads,
                             window=window, sinks=sinks)
     out, _ = replay.replay_fwd(q, kc.transpose(1, 2), vc.transpose(1, 2),
-                               SCALE, keep=keep)
+                               scale, keep=keep)
     assert _abs(out, want) <= 5e-3
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("pads,window,sinks", [
     pytest.param(None, None, 0, id="starts"),
     pytest.param([3, 40], 100, 2, id="starts-pads-window-sinks")])
 def test_per_row_starts_rounding_stays_within_half_the_card_tolerance(
-        pads, window, sinks):
+        pads, window, sinks, D):
     """16 queries a row at per-row starts (a ragged tile; flash_fwd takes
     starts of B values as flash_attention_decode does): the replay of the
     tensor-core forward against JAX flash_attention_decode (interpret
     mode)."""
     replay = _replay()
-    B, S, Hq, Hkv, ML = 2, 16, 4, 1, 256
+    B, S, Hq, Hkv, ML, scale = 2, 16, 4, 1, 256, D ** -0.5
     starts = [200, 61]
     q, kc, vc = _bf16(33, (B, S, Hq, D), (B, Hkv, ML, D), (B, Hkv, ML, D))
     kw = dict(window=window, sinks=sinks)
@@ -149,11 +166,11 @@ def test_per_row_starts_rounding_stays_within_half_the_card_tolerance(
     keep = replay.keep_mask(B, S, ML, start=starts, pad_lens=pads,
                             window=window, sinks=sinks)
     out, _ = replay.replay_fwd(q, kc.transpose(1, 2), vc.transpose(1, 2),
-                               SCALE, keep=keep)
+                               scale, keep=keep)
     assert _abs(out, want) <= 5e-3
 
 
-def _int8_cache(seed, B, Hkv, ML):
+def _int8_cache(seed, B, Hkv, ML, D=D):
     """A head-major cache quantised by the JAX package's own _quantize_kv:
     (int8 k, int8 v, f32 k_scale, f32 v_scale) as torch tensors."""
     from gpu_provisioner_tpu.models.decode import _quantize_kv
@@ -167,6 +184,7 @@ def _int8_cache(seed, B, Hkv, ML):
     return k8, v8, ks, vs
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("op,start,pads,window,sinks", [
     pytest.param("cached", 0, None, None, 0, id="cached-start0"),
     pytest.param("cached", 100, [0, 30], None, 0, id="cached-pads"),
@@ -174,7 +192,7 @@ def _int8_cache(seed, B, Hkv, ML):
     pytest.param("decode", [200, 61], [3, 40], 100, 2,
                  id="decode-starts-pads-window-sinks")])
 def test_int8_fold_rounding_stays_within_half_the_card_tolerance(
-        op, start, pads, window, sinks):
+        op, start, pads, window, sinks, D):
     """The int8 cache's tensor-core forward (ROADMAP Queue C 15): its int8
     tiles widened exactly to bf16, k_scale on the score columns, v_scale
     folded into P's columns before the hi + lo split, the denominator from
@@ -186,10 +204,10 @@ def test_int8_fold_rounding_stays_within_half_the_card_tolerance(
     inputs (the function tests/test_torch_flash.py holds against JAX; the
     JAX cached and decode kernels return no lse)."""
     replay = _replay()
-    B, Hq, Hkv, ML = 2, 4, 1, 256
+    B, Hq, Hkv, ML, scale = 2, 4, 1, 256, D ** -0.5
     S = 40 if op == "cached" else 16
     (q,) = _bf16(37, (B, S, Hq, D))
-    k8, v8, ks, vs = _int8_cache(38, B, Hkv, ML)
+    k8, v8, ks, vs = _int8_cache(38, B, Hkv, ML, D)
     kw = dict(window=window, sinks=sinks)
     if pads is not None:
         kw["pad_lens"] = jnp.asarray(pads, jnp.int32)
@@ -206,7 +224,7 @@ def test_int8_fold_rounding_stays_within_half_the_card_tolerance(
     keep = replay.keep_mask(B, S, ML, start=start, pad_lens=pads,
                             window=window, sinks=sinks)
     out, lse = replay.replay_fwd(q, k8.transpose(1, 2), v8.transpose(1, 2),
-                                 SCALE, keep=keep,
+                                 scale, keep=keep,
                                  k_scale=ks.transpose(1, 2),
                                  v_scale=vs.transpose(1, 2))
     assert _rel(out, want) <= 5e-3
@@ -327,3 +345,102 @@ def test_int8_prefill_refuses_misaligned_copies_before_it_builds():
     with pytest.raises(ValueError, match=r"flash_fwd: k strides"):
         tfa._launch("flash_fwd", q, wide, k8, 0, **kw)
     tfa._check_tc_copies("flash_fwd", q=q.float(), k=wide, v=wide)
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fails the test where a wrapper asks for a kernel library (nvcc, a
+    card), and gives the decode plan an H100's 132 SMs."""
+    def refuse(name):
+        raise AssertionError(f"the {name} library was asked for")
+    monkeypatch.setattr(_cuda, "library", refuse)
+    monkeypatch.setattr(tfa, "_sm_count", lambda dev: 132)
+
+
+def test_head_dim_64_reaches_the_forward_kernels(launches, no_build):
+    """flash_attention_with_lse, flash_attention_cached on a bf16 and an
+    int8 cache, and flash_attention_decode on both, at head dim 64: each
+    reaches its kernel's launch with D = 64 (the bench_moe_decode model's
+    head dim)."""
+    D, S, Hq, Hkv, ML = 64, 128, 4, 2, 256
+    q, k, v = _bf16(40, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+    kc, vc = _bf16(41, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    tfa.flash_attention_with_lse(q, k, v)
+    with torch.no_grad():
+        tfa.flash_attention_cached(q, kc, vc, 64)
+        tfa.flash_attention_cached(q, k8, v8, 64, **i8)
+        tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
+        tfa.flash_attention_decode(q[:, :1], k8, v8, 100, **i8)
+    assert [(kernel, a.D, a.kv_dtype) for kernel, a in launches] == [
+        ("flash_fwd", 64, 1), ("flash_fwd", 64, 1), ("flash_fwd", 64, 2),
+        ("flash_decode", 64, 1), ("flash_decode", 64, 2)]
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_head_dim_64_backward_raises_before_any_build(launches, no_build,
+                                                      triangular):
+    """The backward kernels (rectangular and triangle) take head dim 128
+    only: a D = 64 self-attention runs its forward kernel, and its
+    backward raises ValueError naming the head dim and the kernel before
+    any library is built, with no plain fallback (no gradient)."""
+    q, k, v = (t.requires_grad_() for t in _bf16(
+        42, (1, 128, 4, 64), (1, 128, 2, 64), (1, 128, 2, 64)))
+    out = tfa.flash_attention(q, k, v, triangular=triangular)
+    kernel = "flash_bwd_dq_tri" if triangular else "flash_bwd_dq"
+    with pytest.raises(ValueError, match=f"head dim 64: {kernel} takes"):
+        out.float().sum().backward()
+    assert [kernel for kernel, _ in launches] == ["flash_fwd"]
+    assert q.grad is None and k.grad is None
+
+
+def test_head_dim_64_triangle_forward_raises_before_any_build(launches,
+                                                              no_build):
+    """tri_dispatch keeps the JAX budget rule: at head dim 64 in bf16 the
+    triangle's forward starts past S = 24576, where a D = 64
+    triangular=True call raises ValueError naming the head dim before any
+    library is built; below it the rectangular forward takes the call."""
+    assert tfa.tri_dispatch(24576, 64, 2, causal=True, triangular=True,
+                            window=None) == (False, True)
+    assert tfa.tri_dispatch(25088, 64, 2, causal=True, triangular=True,
+                            window=None) == (True, True)
+    q = torch.zeros(1, 25088, 1, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 64: flash_fwd_tri takes"):
+        tfa.flash_attention(q, q, q, triangular=True)
+    assert launches == []
+
+
+@pytest.mark.parametrize("D", [16, 32, 96])
+def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
+    """Head dims other than 64 and 128 raise ValueError naming the head
+    dim in every kernel's wrapper before any library is built: the
+    forward (self-attention, a bf16 and an int8 cache), the decode, the
+    backward and the triangle kernels."""
+    S, Hq, Hkv, ML = 128, 4, 2, 256
+    q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+    kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    lse = torch.zeros(1, Hq, S)
+    calls = {
+        "flash_fwd": [lambda: tfa.flash_attention_with_lse(q, k, v),
+                      lambda: tfa.flash_attention_cached(q, kc, vc, 64),
+                      lambda: tfa.flash_attention_cached(
+                          q, k8, v8, 64, k_scale=ks, v_scale=vs)],
+        "flash_decode": [lambda: tfa.flash_attention_decode(
+            q[:, :1], kc, vc, 100)],
+        "flash_bwd_dq": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q)],
+        "flash_bwd_dkv": [lambda: tfa._launch_bwd(
+            "flash_bwd_dkv", q, k, v, q, lse, lse, causal=True, scale=1.0)],
+        "flash_bwd_dq_tri": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q, triangular=True)],
+        "flash_fwd_tri": [lambda: tfa._launch_tri(
+            "flash_fwd_tri", q, k, v, scale=1.0)]}
+    with torch.no_grad():
+        for kernel, fns in calls.items():
+            for fn in fns:
+                with pytest.raises(ValueError,
+                                   match=f"head dim {D}: {kernel} takes"):
+                    fn()
+    assert launches == []

@@ -113,6 +113,35 @@ def test_moe_generate_greedy_and_flash_parity():
     assert td_ == tf == jd_ == jf
 
 
+# the bench_moe_decode model's head dim (its 16/8 heads of 64) at a narrow
+# width: dim 256, 4/2 heads of 64, 2 layers
+JCFG64 = dataclasses.replace(JCFG, dim=256, hidden_dim=256, max_seq_len=512)
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_moe_generate_at_head_dim_64_matches_jax(kv_dtype):
+    """Greedy generate of an MoE model at head dim 64 (flash, a 128-token
+    prompt, so the prefill takes the cached kernel and every step the
+    decode kernel; one row left-padded) on an f32 or an int8
+    cache: the port's stream equals the JAX package's and the port's dense
+    stream, token for token."""
+    jcfg = dataclasses.replace(JCFG64, attn_impl="flash",
+                               kv_cache_dtype=kv_dtype)
+    jp = jm.init_moe_model(jax.random.key(3), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    prompt = np.random.default_rng(5).integers(1, JCFG.vocab_size, (2, 128),
+                                               dtype=np.int32)
+    prompt[1, :28] = 0
+    kw = dict(max_new_tokens=6, max_len=256, pad_id=0)
+    j = jd.generate(jp, jnp.asarray(prompt), jcfg, **kw)
+    t = td.generate(tp, torch.from_numpy(prompt), _tcfg(jcfg), device="cpu",
+                    **kw)
+    dense = td.generate(tp, torch.from_numpy(prompt),
+                        _tcfg(dataclasses.replace(jcfg, attn_impl="dense")),
+                        device="cpu", **kw)
+    assert t.tolist() == np.asarray(j).tolist() == dense.tolist()
+
+
 def test_moe_generate_sampling_reproducible():
     prompt = torch.from_numpy(_tokens(4, (2, 16)))
     cfg = _tcfg(JCFG)
