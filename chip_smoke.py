@@ -7,8 +7,9 @@ Phases, each of which exits non-zero on a failed check:
 1. card and build: the card's name and power limit, the nvcc build of every
    kernel from ops/csrc (one nvcc per source, started together), with
    ptxas's registers and spills of the seven tensor-core (bf16) instances
-   (flash_fwd on bf16 K/V and on an int8 cache, flash_bwd_dq, flash_bwd_dkv
-   and the three tri kernels) and the HGMMA instructions in their SASS
+   at head dim 128 (flash_fwd on bf16 K/V and on an int8 cache,
+   flash_bwd_dq, flash_bwd_dkv and the three tri kernels; and at head dim
+   64 for phases 16 and 17) and the HGMMA instructions in their SASS
    (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
@@ -175,8 +176,9 @@ Phases, each of which exits non-zero on a failed check:
    with a cached prefix, then mixtral-ish width on ep=2 and (ep=2, tp=2),
    one 4-rank world, every rank's tokens equal to this process's
    single-process run and each generate's launches L of #1 or #4 and
-   (new - 1)·L of #5 (``serving_exact``); full Llama-7B (32 layers, bf16)
-   at tp=2 and full mixtral-ish (16 layers) at ep=2 over 2 ranks: generate
+   (new - 1)·L of #5 (``serving_exact``); Llama-7B at full width (16 of
+   its 32 layers: SERVE_TP_LAYERS; bf16) at tp=2 and full mixtral-ish (16
+   layers) at ep=2 over 2 ranks: generate
    B=2, S0=512, 32 new (fresh, left-padded, int8 cache), one
    ServeEngine pass of 6 requests after a warm one (a shared prefix,
    dense only; SERVE_PASSES), the launches a rank checked, tokens/s, staged bytes and
@@ -228,6 +230,29 @@ Phases, each of which exits non-zero on a failed check:
    bench_decode twin and an engine pass with a shared prefix, every
    kernel's launches read across the run (the five forward kernels and
    nothing else: ``d64_serving``);
+17. head dim 64 in training (the backward and triangle kernels' D = 64
+   instances; phase 1 also prints the ptxas registers, spills and HGMMA
+   of their tensor-core instances): (a) #6/#7, with #1's forward, at
+   D64_BWD_CASES (the training shape (8, 2048, 16/8), the fast
+   bench_train_step model's (4, 512, 8/4), ragged S, a window, lse
+   cotangents) and #3/#8/#9 called directly at D64_TRI_CASES, in bf16
+   (1e-2) and f32 (1e-4; gradients relative to the largest plain one),
+   against their plain versions; then #1, #6 and #7 timed at D64_TRAIN
+   and the tri kernels at D64_TRI beside their plain versions (at
+   D64_TRI_PLAIN for the triangle), SDPA and the bound (the ``*_d64``
+   rows of #6-#9; #1's in the flash_fwd_d64 row's at_train_shape); (b) a
+   flash train step equal to a dense one at the fast bench_train_step
+   model's width (dim 512, 8/4 heads of 64), 2 layers, f32; (c) that model
+   at its JAX shape (B=4, S=512; bf16, remat): a warm-up and five steps on
+   one batch, the loss falling, then its bench twin, each with its
+   launches (``d64_train``, ``bench_train_step_fast``); three steps of
+   make_moe_train_step on bench_moe_decode's full model (dim 1024, 8
+   layers, 16/8 heads of 64, 8 experts, top-2) at MOE_TRAIN_SHAPE
+   (``moe_train_d64``); a triangular=True forward and backward at (1,
+   32768, 8/4) against the rectangular kernels, the tri kernels launched
+   once each (``d64_long``); (d) the twin of hack/tpu_onchip_checks.py
+   (gpu_provisioner_tpu_torch/onchip_checks.py) in this process, every
+   check ok;
 then the phase-2, 9, 10, 14 and 16 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
@@ -269,12 +294,13 @@ def card_line() -> str:
 TC_KERNELS = {
     "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16Li128E"),
     "flash_cached_int8": ("flash_fwd", "flash_fwd_tc_kernelIaLi128E"),
-    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernel"),
-    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernel"),
-    "flash_fwd_tri": ("flash_tri", "flash_fwd_tri_kernelI13__nv_bfloat16"),
+    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernelILi128E"),
+    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernelILi128E"),
+    "flash_fwd_tri": ("flash_tri",
+                      "flash_fwd_tri_kernelI13__nv_bfloat16Li128E"),
     "flash_bwd_dq_tri": ("flash_tri",
-                         "flash_bwd_dq_tri_kernelI13__nv_bfloat16"),
-    "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernel")}
+                         "flash_bwd_dq_tri_kernelI13__nv_bfloat16Li128E"),
+    "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernelILi128E")}
 
 
 def ptxas_info(log):
@@ -907,10 +933,11 @@ def phase_bwd_kernels(torch, tfa, dev):
     return fwd_train, rows
 
 
-def phase_train_exact(torch, tl, tt, dev):
-    """Llama-1B width, 2 layers, f32: a flash train step == a dense one."""
-    cfg = dataclasses.replace(tl.PRESETS["llama-1b"], n_layers=2,
-                              dtype="float32")
+def phase_train_exact(torch, tl, tt, dev, cfg=None, what="llama-1b width"):
+    """Llama-1B width (or ``cfg``'s, named ``what``), 2 layers, f32: a
+    flash train step == a dense one."""
+    cfg = dataclasses.replace(cfg or tl.PRESETS["llama-1b"], n_layers=2,
+                              dtype="float32", remat=False)
     g = torch.Generator().manual_seed(SEED + 4)
     batches = [torch.randint(0, cfg.vocab_size, (2, 513), generator=g)
                .to(dev) for _ in range(2)]
@@ -925,16 +952,16 @@ def phase_train_exact(torch, tl, tt, dev):
         second = step(params, batches[1][:, :-1], batches[1][:, 1:]).item()
         losses[impl] = (first, second)
         del params, opt, step
-    for i, what in enumerate(("loss", "second-step loss")):
+    for i, which in enumerate(("loss", "second-step loss")):
         a, b = losses["flash"][i], losses["dense"][i]
-        print(f"exact training (llama-1b width, 2 layers, f32) {what}: "
+        print(f"exact training ({what}, 2 layers, f32) {which}: "
               f"flash {a!r} dense {b!r} rel {abs(a - b) / abs(b):.3g}")
-        check(abs(a - b) <= 1e-5 * abs(b), f"{what}: flash != dense")
+        check(abs(a - b) <= 1e-5 * abs(b), f"{what} {which}: flash != dense")
     worst = max((a - b).abs().max().item() / b.abs().max().item()
                 for a, b in zip(grads["flash"], grads["dense"]))
-    print(f"exact training: worst gradient leaf max|flash - dense| / "
-          f"max|dense| = {worst:.3g} (tol 1e-4)")
-    check(worst <= 1e-4, "flash gradients != dense gradients")
+    print(f"exact training ({what}): worst gradient leaf max|flash - "
+          f"dense| / max|dense| = {worst:.3g} (tol 1e-4)")
+    check(worst <= 1e-4, f"{what}: flash gradients != dense gradients")
 
 
 def phase_train(torch, tl, tt, tfa, dev):
@@ -1015,12 +1042,13 @@ def work_tri(kernel, B, S, Hq, Hkv, D, ws_bytes, act_bytes=2):
     return per_d * D * pairs, nbytes + ws_bytes
 
 
-def tri_ws_bytes(_cuda, kernel, dev):
+def tri_ws_bytes(_cuda, kernel, dev, D=128):
     """(workspace bytes written and read back, P): the two slots of each
-    of the P CTAs, as the wrapper allocates them (flash_tri_ws_floats),
-    counted once written and once read."""
-    P = _cuda.tri_ctas(kernel, 1, dev.index)
-    return 2 * P * _cuda.tri_ws_floats(kernel, 1) * 4, P
+    of the P CTAs of the bf16 entry at head dim D, as the wrapper
+    allocates them (flash_tri_ws_floats), counted once written and once
+    read."""
+    P = _cuda.tri_ctas(kernel, 1, D, dev.index)
+    return 2 * P * _cuda.tri_ws_floats(kernel, 1, D) * 4, P
 
 
 def phase_tri_kernels(torch, tfa, dev):
@@ -2437,13 +2465,18 @@ def phase_moe_train_exact(torch, tm, dev):
     check(worst <= 1e-4, "MoE flash gradients != dense gradients")
 
 
-def phase_moe_train(torch, tm, tfa, dev):
-    """mixtral-ish at full width, MOE_TRAIN_LAYERS of 16 layers, bf16, f32
-    masters, remat: one warm-up step, then 5 timed steps."""
-    cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"],
-                              n_layers=MOE_TRAIN_LAYERS, attn_impl="flash",
-                              remat=True)
-    (B, S), steps, L = MOE_TRAIN_SHAPE, 5, cfg.n_layers
+def phase_moe_train(torch, tm, tfa, dev, cfg=None, steps=5, what=None):
+    """An MoE model at MOE_TRAIN_SHAPE, bf16, f32 masters, remat, flash:
+    one warm-up step, then ``steps`` timed steps, the loss falling and the
+    launches read across them. ``cfg`` (named ``what``) defaults to
+    mixtral-ish at full width and MOE_TRAIN_LAYERS of 16 layers."""
+    if cfg is None:
+        cfg = dataclasses.replace(tm.PRESETS_MOE["mixtral-ish"],
+                                  n_layers=MOE_TRAIN_LAYERS)
+        what = (f"mixtral-ish; depth cut to {MOE_TRAIN_LAYERS} of 16 layers:"
+                " 16 do not fit beside the activations on 80 GB")
+    cfg = dataclasses.replace(cfg, attn_impl="flash", remat=True)
+    (B, S), L = MOE_TRAIN_SHAPE, cfg.n_layers
     params, opt = tm.make_moe_train_state(
         cfg, torch.Generator(dev).manual_seed(SEED), dev)
     n = sum(p.numel() for p in _named(params).values())
@@ -2463,15 +2496,13 @@ def phase_moe_train(torch, tm, tfa, dev):
         losses.append(loss.item())
     launches = dict(tfa.LAUNCHES)
     ms = statistics.median(times)
-    report = {"layers": L, "of_layers": tm.PRESETS_MOE["mixtral-ish"].n_layers,
+    report = {"layers": L, "head_dim": cfg.head_dim,
               "params": n, "batch": B, "seq_len": S, "warm_loss": warm,
               "losses": losses, "step_ms": times, "step_ms_median": ms,
               "tokens_per_s": B * S / ms * 1e3,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print(f"MoE train mixtral-ish bf16 (f32 masters, remat, flash; depth cut "
-          f"to {L} of 16 layers: 16 do not fit beside the activations on 80 "
-          f"GB): {json.dumps(report)}; launches over {steps} steps "
-          f"{launches}")
+    print(f"MoE train bf16 (f32 masters, remat, flash; {what}): "
+          f"{json.dumps(report)}; launches over {steps} steps {launches}")
     check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
           "an MoE training loss is not finite")
     check(losses[-1] < losses[0] < warm, f"MoE loss did not fall: {losses}")
@@ -2984,6 +3015,11 @@ SERVE_FULL = (2, 512, 32, 1024)
 # engine passes after the warm one: one keeps the script inside its time
 # limit as it grows (every pass is checked alike)
 SERVE_PASSES = 1
+# Llama-7B's depth at tp=2 in the full-size runs: 16 of its 32 layers,
+# which keeps the script inside its time limit with phase 17 (at 32 the
+# tp=2 world took 60-100 s of the phase; every launch count follows the
+# layers)
+SERVE_TP_LAYERS = 16
 
 
 def serve_launches(L, new, fresh, int8):
@@ -3295,8 +3331,9 @@ def serve_full_programs(cfg, moe):
 
 
 def phase_serve_full(torch, tl, tm, jobs, launch, dev):
-    """Full Llama-7B (32 layers) in bf16 at tp=2 and full mixtral-ish (16
-    layers) at ep=2, each over 2 ranks sharing the card: serve_full_programs'
+    """Llama-7B at full width and SERVE_TP_LAYERS of its 32 layers in bf16
+    at tp=2 and full mixtral-ish (16 layers) at ep=2, each over 2 ranks
+    sharing the card: serve_full_programs'
     runs, each generate's launches against serve_launches, every engine
     pass's #4 launches one L a request (its prefix cached in the warm pass)
     and its #5 a multiple of L; tokens/s, bytes staged and seconds in the
@@ -3305,7 +3342,8 @@ def phase_serve_full(torch, tl, tm, jobs, launch, dev):
     import numpy as np
     B, _, new, _ = SERVE_FULL
     runs = (("tp_serving", "serving", dataclasses.replace(
-                tl.PRESETS["llama-7b"], attn_impl="flash"), {"tp": 2}),
+                tl.PRESETS["llama-7b"], attn_impl="flash",
+                n_layers=SERVE_TP_LAYERS), {"tp": 2}),
             ("ep_serving", "serving_moe", dataclasses.replace(
                 tm.PRESETS_MOE["mixtral-ish"], attn_impl="flash"),
              {"ep": 2}))
@@ -3912,6 +3950,365 @@ def phase_d64_serving(torch, tl, tm, td, te, tfa, bench, dev):
     return launches, report
 
 
+# phase 17: head dim 64 in training. The fast bench_train_step model (JAX
+# bench.py:228-231: dim 512, 4 layers, 8/4 heads of 64, B=4, S=512) and
+# bench_moe_decode's full model (16/8 heads of 64) train at their own
+# heads: #1, #6 and #7 at head dim 64, timed at the training shape at
+# that head dim; the triangle kernels (#3, #8, #9) at head dim 64, timed
+# at the long-context twin's heads, and one triangular=True pass at 32k
+D64_TRAIN = (8, 2048, 16, 8)       # B, S, Hq, Hkv of #1, #6, #7 timed
+D64_TRI = (1, 32768, 8, 4)         # of #3, #8, #9 timed and the long path
+D64_TRI_PLAIN = (1, 8192, 8, 4)    # their plain versions' (S² must fit)
+# (B, S, Hq, Hkv, causal, window, lse cotangent) of #6/#7 against plain:
+# the training shape, the fast model's, ragged S at GQA 4/1 and 4/2, a
+# window that skips tiles
+D64_BWD_CASES = ((8, 2048, 16, 8, True, None, False),
+                 (4, 512, 8, 4, True, None, True),
+                 (1, 1000, 4, 1, True, None, False),
+                 (2, 333, 8, 2, False, None, True),
+                 (1, 4096, 16, 8, True, 1024, False))
+# (B, S, Hq, Hkv, lse cotangent) of #3/#8/#9 against plain: W < P, rows cut
+# into many pieces, whole rows beside cut ones, the plain timing shape
+D64_TRI_CASES = ((1, 128, 1, 1, False), (1, 1000, 4, 1, False),
+                 (2, 200, 8, 8, True), (2, 2048, 16, 8, False),
+                 D64_TRI_PLAIN + (False,))
+D64_TRAIN_ROWS = ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
+                  "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
+# the new tensor-core instances: (source, a substring of the mangled name)
+TC_KERNELS_D64_TRAIN = {
+    "flash_bwd_dq_d64": ("flash_bwd", "flash_bwd_dq_tc_kernelILi64E"),
+    "flash_bwd_dkv_d64": ("flash_bwd", "flash_bwd_dkv_tc_kernelILi64E"),
+    "flash_fwd_tri_d64": ("flash_tri",
+                          "flash_fwd_tri_kernelI13__nv_bfloat16Li64E"),
+    "flash_bwd_dq_tri_d64": ("flash_tri",
+                             "flash_bwd_dq_tri_kernelI13__nv_bfloat16Li64E"),
+    "flash_bwd_dkv_tri_d64": ("flash_tri",
+                              "flash_bwd_dkv_tri_tc_kernelILi64E")}
+
+
+def phase_d64_train_kernels(torch, tfa, _cuda, dev):
+    """Phase 17 (a): #6/#7 (with #1's forward) and #3/#8/#9 at head dim 64
+    against their plain versions, bf16 within 1e-2 and f32 within 1e-4
+    (gradients relative to the largest plain one; D64_BWD_CASES,
+    D64_TRI_CASES); then, in bf16, #1, #6 and #7 timed at D64_TRAIN and the
+    tri kernels at D64_TRI (their plain versions at D64_TRI_PLAIN) beside
+    SDPA and the bound. Returns (the #1 training-shape dict, the *_d64
+    rows of #6-#9, the worst bf16 error of #1)."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 71)
+    D, bf = 64, torch.bfloat16
+    scale = D ** -0.5
+    worst = dict.fromkeys(("flash_fwd",) + D64_TRAIN_ROWS, (0.0, 0.0))
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def rel(a, b):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / b.float().abs().max().item()
+
+    def held(names, dtype, what, errs, out_err=None):
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"head dim 64 {dtype} {what}: "
+              + ("" if out_err is None else
+                 f"max|out-plain| {out_err[0]:.3g} |lse-plain| "
+                 f"{out_err[1]:.3g}; ")
+              + ", ".join(f"{n} max|err| {e:.3g} rel {r:.3g}"
+                          for n, (e, r) in zip(("dq", "dk", "dv"), errs))
+              + f" (tol {tol}; backward relative)")
+        check((out_err is None or (out_err[0] <= tol and out_err[1] <= 1e-4))
+              and all(r <= tol for _, r in errs),
+              f"a head-dim-64 kernel disagrees with plain: {what}")
+        if dtype == bf:
+            parts = [(names[1], errs[:1]), (names[2], errs[1:])]
+            if out_err is not None:
+                parts.append((names[0], [(out_err[0], 0.0)]))
+            for name, part in parts:
+                worst[name] = tuple(max(x) for x in zip(worst[name], *part))
+
+    for dtype in (bf, torch.float32):
+        for B, S, Hq, Hkv, causal, window, cot in D64_BWD_CASES:
+            q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
+                                                         dtype=dtype)
+            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                        dtype=dtype)
+            g_lse = rnd(B, Hq, S, dtype=torch.float32) if cot else None
+            kw = dict(causal=causal, window=window)
+            out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+            ref, ref_lse = tfa.attention_plain(
+                q, k.transpose(1, 2), v.transpose(1, 2), 0, **kw)
+            fwd = ((out.float() - ref.float()).abs().max().item(),
+                   (lse - ref_lse).abs().max().item())
+            del ref, ref_lse
+            got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, g_lse,
+                                          **kw)
+            want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse,
+                                           **kw)
+            check(all(a.dtype == dtype for a in got), "gradient dtypes")
+            held(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), dtype,
+                 f"B={B} S={S} Hq={Hq} Hkv={Hkv} causal={causal} "
+                 f"window={window} lse_cotangent={cot}",
+                 [rel(a, b) for a, b in zip(got, want)], fwd)
+            del q, k, v, dout, out, lse, got, want
+        for B, S, Hq, Hkv, cot in D64_TRI_CASES:
+            q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
+                                                         dtype=dtype)
+            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                        dtype=dtype)
+            g_lse = rnd(B, Hq, S, dtype=torch.float32) if cot else None
+            out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+            ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                               v.transpose(1, 2), 0)
+            fwd = ((out.float() - ref.float()).abs().max().item(),
+                   (lse - ref_lse).abs().max().item())
+            del ref, ref_lse
+            delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
+            kw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+            got = (tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw),
+                   *tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw))
+            want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse)
+            check(all(a.dtype == dtype for a in (out,) + got),
+                  "tri output dtypes")
+            held(("flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"),
+                 dtype, f"tri kernels B={B} S={S} Hq={Hq} Hkv={Hkv} "
+                 f"lse_cotangent={cot}",
+                 [rel(a, b) for a, b in zip(got, want)], fwd)
+            del q, k, v, dout, out, lse, delta, got, want
+    torch.cuda.synchronize()
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    src = "gpu_provisioner_tpu_torch/ops/csrc/"
+    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
+    rows = []
+
+    def row(name, source, replaces, shape, ms, plain_ms, library_ms,
+            ops_bytes, **extra):
+        ops, nbytes = ops_bytes
+        t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+        r = {"name": name + "_d64", "route": "cuda", "source": src + source,
+             "replaces": tpu + replaces + ", head dim 64", "launches": 0,
+             "max_abs_err": worst[name][0], "max_rel_err": worst[name][1],
+             "tolerance": TOL["bfloat16"], "shape": shape, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+             "bound_by": "bytes" if t_b >= t_o else "operations",
+             "library_ms": library_ms, "bound_share": max(t_b, t_o) / ms,
+             **extra}
+        rows.append(r)
+        print(f"{r['name']}: {json.dumps(r)}")
+
+    # #1, #6 and #7 at the training shape at head dim 64
+    B, S, Hq, Hkv = D64_TRAIN
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    out, lse = tfa.flash_attention_with_lse(q, k, v)
+    delta = tfa._bwd_delta(out, dout, None).contiguous()
+    lib_in = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    ops, nbytes = work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2,
+                       False, True)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+    fwd_train = {
+        "shape": list(D64_TRAIN), "max_abs_err": worst["flash_fwd"][0],
+        "ms": time_ms(lambda: tfa._launch(
+            "flash_fwd", q, kh, vh, 0, causal=True, scale=scale,
+            want_lse=True), flush),
+        "plain_ms": time_ms(lambda: tfa.attention_plain(q, kh, vh, 0), flush),
+        "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *[t.detach() for t in lib_in], is_causal=True, enable_gqa=True),
+            flush)}
+    fwd_train["bound_share"] = fwd_train["bound_ms"] / fwd_train["ms"]
+    print(f"flash_fwd at head dim 64, the training shape: "
+          f"{json.dumps(fwd_train)}")
+    plain_ms = time_ms(lambda: tfa.attention_bwd_plain(q, k, v, out, lse,
+                                                       dout), flush)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), flush)
+    for name, replaces in (("flash_bwd_dq", "916 (_bwd_dq_kernel)"),
+                           ("flash_bwd_dkv", "979 (_bwd_dkv_kernel)")):
+        row(name, "flash_bwd.cu", replaces,
+            f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
+            time_ms(lambda name=name: tfa._launch_bwd(
+                name, q, k, v, dout, lse, delta, causal=True, scale=scale),
+                flush), plain_ms, library_ms,
+            work_bwd(name, B, S, Hq, Hkv, D, True, None, 2),
+            library_note="dQ, dK and dV in one call; plain_ms likewise")
+    del q, k, v, dout, out, lse, delta, lib_in, lib_out, kh, vh
+
+    # the tri kernels at the long-context twin's heads, 32k
+    B, S, Hq, Hkv = D64_TRI
+    q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
+    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=scale)
+    delta = tfa._bwd_delta(out, dout, None).contiguous()
+    kw = dict(flush=flush, reps=5, warm=1)
+    bkw = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+    tri_fns = {
+        "flash_fwd_tri": lambda: tfa._launch_tri("flash_fwd_tri", q, k, v,
+                                                 scale=scale),
+        "flash_bwd_dq_tri": lambda: tfa._launch_tri("flash_bwd_dq_tri", q,
+                                                    k, v, **bkw),
+        "flash_bwd_dkv_tri": lambda: tfa._launch_tri("flash_bwd_dkv_tri", q,
+                                                     k, v, **bkw)}
+    rect_fns = {
+        "flash_fwd_tri": lambda: tfa._launch(
+            "flash_fwd", q, k.transpose(1, 2), v.transpose(1, 2), 0,
+            causal=True, scale=scale, want_lse=True),
+        "flash_bwd_dq_tri": lambda: tfa._launch_bwd(
+            "flash_bwd_dq", q, k, v, dout, lse, delta, causal=True,
+            scale=scale),
+        "flash_bwd_dkv_tri": lambda: tfa._launch_bwd(
+            "flash_bwd_dkv", q, k, v, dout, lse, delta, causal=True,
+            scale=scale)}
+    lib_in = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *[t.detach() for t in lib_in], is_causal=True, enable_gqa=True), **kw)
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), **kw)
+    del lib_out, lib_in
+    Bp, Sp, Hqp, Hkvp = D64_TRI_PLAIN
+    qp, doutp = rnd(Bp, Sp, Hqp, D), rnd(Bp, Sp, Hqp, D)
+    kp, vp = rnd(Bp, Sp, Hkvp, D), rnd(Bp, Sp, Hkvp, D)
+    outp, lsep = tfa.attention_plain(qp, kp.transpose(1, 2),
+                                     vp.transpose(1, 2), 0)
+    plain_fwd_ms = time_ms(lambda: tfa.attention_plain(
+        qp, kp.transpose(1, 2), vp.transpose(1, 2), 0), **kw)
+    plain_bwd_ms = time_ms(lambda: tfa.attention_bwd_plain(
+        qp, kp, vp, outp, lsep, doutp), **kw)
+    del qp, doutp, kp, vp, outp, lsep
+    for name, replaces, _, _ in TRI_KERNELS:
+        ws, P = tri_ws_bytes(_cuda, name, dev, D)
+        fwd = name == "flash_fwd_tri"
+        row(name, "flash_tri.cu", replaces[1:], f"B={B} S={S} Hq={Hq} "
+            f"Hkv={Hkv} D={D} bf16 causal", time_ms(tri_fns[name], **kw),
+            plain_fwd_ms if fwd else plain_bwd_ms,
+            lib_fwd_ms if fwd else lib_bwd_ms,
+            work_tri(name, B, S, Hq, Hkv, D, ws), ctas=P,
+            rect_ms=time_ms(rect_fns[name], **kw),
+            plain_note=f"plain_ms at B={Bp} S={Sp} Hq={Hqp} Hkv={Hkvp} (the "
+                       "S² scores at S=32768 do not fit)"
+                       + ("" if fwd else "; dQ+dK+dV, as library_ms"))
+    del flush, q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    return fwd_train, rows, worst["flash_fwd"][0]
+
+
+def phase_d64_train(torch, tl, tm, tt, tfa, bench, dev):
+    """Phase 17 (c): the fast bench_train_step model at its JAX heads (8/4
+    of 64), bf16, remat, flash, at the twin's (B, S): one warm-up step
+    and five on one batch, the loss finite and falling, its launches
+    (``d64_train``); then the twin itself (``bench_train_step_fast``);
+    three steps of make_moe_train_step on bench_moe_decode's full model
+    (16/8 heads of 64) at MOE_TRAIN_SHAPE (``moe_train_d64``); then one
+    triangular=True forward and backward at D64_TRI against the
+    rectangular kernels within LONG_TOL (the tri kernels once each, no
+    rectangular launch: ``d64_long``). Returns (launches by path,
+    report)."""
+    cfg = bench.train_step_config(True)
+    check(cfg.head_dim == 64 and (cfg.n_heads, cfg.n_kv_heads) == (8, 4),
+          f"the fast bench_train_step model: {cfg}")
+    (B, S), steps, L = bench.TRAIN_STEP_SHAPE[True], 5, cfg.n_layers
+    by_path, report = {}, {}
+    params, opt = tt.make_train_state(
+        cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    step = tt.make_train_step(cfg, opt)
+    g = torch.Generator().manual_seed(SEED + 72)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).to(dev)
+    warm = step(params, toks[:, :-1], toks[:, 1:]).item()
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    losses = [step(params, toks[:, :-1], toks[:, 1:]).item()
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    by_path["d64_train"] = dict(tfa.LAUNCHES)
+    report["d64_train"] = {"batch": B, "seq_len": S, "warm_loss": warm,
+                           "losses": losses}
+    print(f"train the fast bench_train_step model (8/4 heads of 64, bf16, "
+          f"remat, flash) B={B} S={S}: warm-up loss {warm!r}, losses "
+          f"{losses}; launches over {steps} steps {by_path['d64_train']}")
+    check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
+          "a head-dim-64 training loss is not finite")
+    check(losses[-1] < losses[0] < warm, f"loss did not fall: {losses}")
+    del params, opt, step
+    tfa.reset_launches()
+    twin = bench.bench_train_step(True)
+    by_path["bench_train_step_fast"] = dict(tfa.LAUNCHES)
+    report["bench_train_step_fast"] = twin
+    print(f"bench_train_step (fast: 8/4 heads of 64): {json.dumps(twin)}; "
+          f"launches {by_path['bench_train_step_fast']}")
+    check(0 < twin["mfu"] < 1 and twin["tokens_per_s"] > 0,
+          f"bench_train_step fast: {twin}")
+    n = bench.TRAIN_WARM + bench.ROUNDS * bench.TRAIN_ITERS
+    for path, k in (("d64_train", steps), ("bench_train_step_fast", n)):
+        for name, want in {"flash_fwd": 2 * L * k, "flash_bwd_dq": L * k,
+                           "flash_bwd_dkv": L * k}.items():
+            check(by_path[path][name] == want,
+                  f"{path}: {name} launched {by_path[path][name]} times, "
+                  f"expected {want}")
+    torch.cuda.empty_cache()
+    moe = bench.moe_decode_config(False)
+    by_path["moe_train_d64"], report["moe_train_d64"] = phase_moe_train(
+        torch, tm, tfa, dev, cfg=moe, steps=3,
+        what="bench_moe_decode's model at full size: 8 layers, 16/8 heads "
+             "of 64, 8 experts, top-2")
+    torch.cuda.empty_cache()
+
+    # the long path at head dim 64: triangular=True at 32k against the
+    # rectangular kernels, the triangle's launches read alone
+    Bl, Sl, Hq, Hkv = D64_TRI
+    gl = torch.Generator(dev).manual_seed(SEED + 73)
+    leaves = [torch.randn(Bl, Sl, h, 64, generator=gl, device=dev)
+              .to(torch.bfloat16).requires_grad_() for h in (Hq, Hkv, Hkv)]
+    dout = torch.randn(Bl, Sl, Hq, 64, generator=gl, device=dev).to(
+        torch.bfloat16)
+
+    def fwd_bwd(triangular):
+        out, lse = tfa.flash_attention_with_lse(*leaves,
+                                                triangular=triangular)
+        return (out, lse) + torch.autograd.grad(out, leaves, dout)
+
+    want = fwd_bwd(False)
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    got = fwd_bwd(True)
+    torch.cuda.synchronize()
+    by_path["d64_long"] = dict(tfa.LAUNCHES)
+    errs = [(a.float() - b.float()).abs().max().item()
+            / (1.0 if i < 2 else b.float().abs().max().item())
+            for i, (a, b) in enumerate(zip(got, want))]
+    report["d64_long"] = dict(zip(("out", "lse", "dq_rel", "dk_rel",
+                                   "dv_rel"), errs))
+    print(f"triangle vs rectangle at head dim 64, bf16 B={Bl} S={Sl} "
+          f"Hq={Hq} Hkv={Hkv}: {json.dumps(report['d64_long'])} (tol "
+          f"{LONG_TOL}); launches {by_path['d64_long']}")
+    check(all(e <= LONG_TOL for e in errs) and all(
+        bool(torch.isfinite(t).all()) for t in got),
+        "triangular=True disagrees with the rectangular kernels at head "
+        "dim 64")
+    for name, n in by_path["d64_long"].items():
+        want_n = 1 if name.endswith("_tri") else 0
+        check(n == want_n, f"{name}: {n} launches on the head-dim-64 long "
+              f"path, expected {want_n}")
+    del leaves, dout, want, got
+    torch.cuda.empty_cache()
+    return by_path, report
+
+
+def phase_onchip_twin(torch, onchip, dev):
+    """Phase 17 (d): the twin of hack/tpu_onchip_checks.py in this process
+    (gpu_provisioner_tpu_torch/onchip_checks.py): every check ok."""
+    lines = onchip.run(dev)
+    failed = [line["check"] for line in lines if not line["ok"]]
+    print(f"on-card checks: {len(lines)} checks, {len(failed)} failed")
+    check(not failed, f"on-card checks failed: {failed}")
+    return len(lines)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3923,6 +4320,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from gpu_provisioner_tpu_torch import bench, entry
+    from gpu_provisioner_tpu_torch import onchip_checks as onchip
     from gpu_provisioner_tpu_torch.models import checkpoint as ck
     from gpu_provisioner_tpu_torch.models import decode as td
     from gpu_provisioner_tpu_torch.models import engine as te
@@ -3953,6 +4351,8 @@ def main() -> int:
     print("head dim 64 (phase 16):")
     d64_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_D64)
     d64_decode_report = decode_build_report(logs, DECODE_INSTANCES_D64)
+    print("head dim 64 in training (phase 17):")
+    d64_tc_report.update(tc_build_report(_cuda, logs, TC_KERNELS_D64_TRAIN))
 
     t0 = time.perf_counter()
     rows, deferred = phase_kernels(torch, tfa, td, dev)
@@ -4071,6 +4471,25 @@ def main() -> int:
     print(f"head-dim-64 full size {time.perf_counter() - t0:.1f} s; head "
           f"dim 64 phase {time.perf_counter() - t16:.1f} s")
     torch.cuda.empty_cache()
+    t17 = t0 = time.perf_counter()
+    d64_train_fwd, d64_train_rows, d64_fwd_err = phase_d64_train_kernels(
+        torch, tfa, _cuda, dev)
+    print(f"head-dim-64 training kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_exact(torch, tl, tt, dev, cfg=bench.train_step_config(True),
+                      what="the fast bench_train_step model's width, 8/4 "
+                           "heads of 64")
+    print(f"head-dim-64 exact training {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d64t, d64t_report = phase_d64_train(torch, tl, tm, tt, tfa, bench, dev)
+    print(f"head-dim-64 training full size {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d64t_report["onchip_checks"] = phase_onchip_twin(torch, onchip, dev)
+    print(f"on-card checks {time.perf_counter() - t0:.1f} s; head dim 64 "
+          f"training phase {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -4148,8 +4567,24 @@ def main() -> int:
         r.update(d64_tc_report.get(r["name"], {}))
         if r["name"] in d64_decode_report:
             r["ptxas"] = d64_decode_report[r["name"]]
-    rows += d64_rows
+        if name == "flash_fwd":     # and its training paths (phase 17)
+            r["at_train_shape"] = d64_train_fwd
+            r["max_abs_err"] = max(r["max_abs_err"], d64_fwd_err)
+            r["launches_by_path"].update(
+                {k: v[name] for k, v in d64t.items() if k != "d64_long"})
+    # the head-dim-64 training and triangle instances: launches on their
+    # own path (training for the backward, the 32k triangle pass for the
+    # tri kernels), every phase-17 path's count kept
+    for r in d64_train_rows:
+        name = r["name"][:-len("_d64")]
+        r["launches_by_path"] = {k: v[name] for k, v in d64t.items()}
+        r["launches"] = d64t["d64_long" if name.endswith("_tri")
+                             else "d64_train"][name]
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        r.update(d64_tc_report.get(r["name"], {}))
+    rows += d64_rows + d64_train_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
+    print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

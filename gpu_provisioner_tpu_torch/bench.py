@@ -31,9 +31,6 @@ shapes) with the host clock. Deliberate differences:
 - ``mfu`` is model FLOPs (``_train_flops``) over the step time and the H100
   SXM's data-sheet bf16 peak (989e12 FLOP/s, ``PEAK_BF16``), and None off
   the card; the JAX section divides by its TPU generation's peak;
-- ``bench_train_step``'s fast model has 4 query and 2 kv heads of 128
-  where the JAX one has 8/4 of 64: it trains, and the backward kernels
-  take head dim 128 only (the forward kernels take 64 and 128);
 - no ``try``: a failing kernel raises, where the JAX section records
   ``fwdbwd_error`` / ``streaming_tri_error`` and goes on;
 - the long-context dict also carries the timed steps' losses (``losses``,
@@ -50,12 +47,12 @@ shapes) with the host clock. Deliberate differences:
   ``bench_decode``'s budget comparison and of ``bench_cached_prefill`` is
   the port's dense cached sweep (``decode._cached_attention(impl=
   "dense")``), as in the JAX sections; the sampled run reseeds its
-  generator each run, as the JAX one reuses its key; the serving
-  kernels take head dims 64 and 128, so ``bench_decode``'s fast model
-  (8/4 heads of 64) and ``bench_moe_decode``'s full model (16/8 of 64)
-  are the JAX ones, while ``bench_engine``'s and ``bench_moe_decode``'s
-  fast models have 2/1 heads of 128 where the JAX ones have 8/4 of 32:
-  the weights' shapes are the JAX ones.
+  generator each run, as the JAX one reuses its key; every kernel takes
+  head dims 64 and 128, so ``bench_train_step``'s and ``bench_decode``'s
+  fast models (8/4 heads of 64) and ``bench_moe_decode``'s full model
+  (16/8 of 64) are the JAX ones, while ``bench_engine``'s and
+  ``bench_moe_decode``'s fast models have 2/1 heads of 128 where the JAX
+  ones have 8/4 of 32: the weights' shapes are the JAX ones.
 
 Run on a machine with the card, from the repository root::
 
@@ -226,11 +223,10 @@ def bench_workload(fast: bool, device=None, *, cfg=None, shape=None) -> dict:
 
 def train_step_config(fast: bool) -> LlamaConfig:
     """bench.py's bench_train_step model, flash attention and remat: fast,
-    vocab 2048, dim 512, 4 layers, 4/2 heads of 128 (the JAX one 8/4 of 64:
-    the backward kernels take head dim 128 only), hidden 1408; else
+    vocab 2048, dim 512, 4 layers, 8/4 heads of 64, hidden 1408; else
     Llama-1B; bf16 activations."""
-    cfg = (LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=4,
-                       n_kv_heads=2, hidden_dim=1408) if fast
+    cfg = (LlamaConfig(vocab_size=2048, dim=512, n_layers=4, n_heads=8,
+                       n_kv_heads=4, hidden_dim=1408) if fast
            else PRESETS["llama-1b"])
     return dataclasses.replace(cfg, attn_impl="flash", remat=True)
 

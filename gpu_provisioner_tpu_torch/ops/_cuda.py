@@ -161,19 +161,21 @@ def kernel(entry: str):
     return fn
 
 
-def tri_ctas(entry: str, act_dtype: int, device_index: int) -> int:
-    """The persistent grid P of flattened-triangle entry ``entry`` on the
-    card ``device_index`` (the SM count times the blocks of its kernel that
-    fit on one SM, from csrc/flash_tri.cu's ``flash_tri_ctas``), cached."""
-    key = (entry, act_dtype, device_index)
+def tri_ctas(entry: str, act_dtype: int, head_dim: int,
+             device_index: int) -> int:
+    """The persistent grid P of flattened-triangle entry ``entry`` at act
+    dtype ``act_dtype`` and head dim ``head_dim`` on the card
+    ``device_index`` (the SM count times the blocks of its kernel that fit
+    on one SM, from csrc/flash_tri.cu's ``flash_tri_ctas``), cached."""
+    key = (entry, act_dtype, head_dim, device_index)
     if key not in _TRI_CTAS:
         fn = library("flash_tri").flash_tri_ctas
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
-        P = fn(TRI_WHICH[entry], act_dtype)
+        P = fn(TRI_WHICH[entry], act_dtype, head_dim)
         if P <= 0:
-            raise RuntimeError(f"flash_tri_ctas({entry}) failed with "
-                               f"cudaError {-P}")
+            raise RuntimeError(f"flash_tri_ctas({entry}, D={head_dim}) "
+                               f"failed with cudaError {-P}")
         _TRI_CTAS[key] = P
     return _TRI_CTAS[key]
 
@@ -191,19 +193,20 @@ def bwd_dkv_blocks(B: int, Hkv: int, S: int, act_dtype: int) -> int:
     return n
 
 
-def tri_ws_floats(entry: str, act_dtype: int) -> int:
+def tri_ws_floats(entry: str, act_dtype: int, head_dim: int) -> int:
     """f32 workspace values per CTA of flattened-triangle entry ``entry``
     for act dtype ``act_dtype`` (0 f32, 1 bf16: the dK/dV tile edge
-    differs; csrc/flash_tri.cu's ``flash_tri_ws_floats``, which owns the
-    layout), cached: the wrapper allocates ``tri_ctas(...)`` times this."""
-    key = (entry, act_dtype)
+    differs) and head dim ``head_dim`` (csrc/flash_tri.cu's
+    ``flash_tri_ws_floats``, which owns the layout), cached: the wrapper
+    allocates ``tri_ctas(...)`` times this."""
+    key = (entry, act_dtype, head_dim)
     if key not in _TRI_WS:
         fn = library("flash_tri").flash_tri_ws_floats
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_longlong
-        n = fn(TRI_WHICH[entry], act_dtype)
+        n = fn(TRI_WHICH[entry], act_dtype, head_dim)
         if n <= 0:
-            raise RuntimeError(f"flash_tri_ws_floats({entry}) failed with "
-                               f"cudaError {-n}")
+            raise RuntimeError(f"flash_tri_ws_floats({entry}, D={head_dim}) "
+                               f"failed with cudaError {-n}")
         _TRI_WS[key] = n
     return _TRI_WS[key]

@@ -16,8 +16,10 @@
 // a few bytes per position, thousands of operations per byte at long S.
 // The bf16 instances run on the tensor cores through flash_tc.cuh's tile
 // steps (wgmma on swizzled bf16 tiles, cp.async rings, one warpgroup a
-// block, two CTAs an SM), shared with flash_tri.cu; the f32 instances are
-// f32 FMA from shared memory, the exactness instances. What the design
+// block, two CTAs an SM at D = 128; at D = 64 tc::DQ_TC_BLOCKS and
+// tc::DKV_TC_BLOCKS), shared with flash_tri.cu; the f32 instances are f32
+// FMA from shared memory, the exactness instances. Every instance takes
+// head dim 64 or 128 (the C entries refuse any other D). What the design
 // does about the bound is to do only live work and no redundant passes:
 //   - dQ: one block per (batch * q-head, 64-row query tile) that loops over
 //     the live key tiles only (causal frontier, window band:
@@ -182,10 +184,12 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
 }
 
 // The bf16 instance: one warpgroup per (batch * kv-head, 64-key tile) on the
-// tensor cores, over the 64-query tiles that hold the live query range.
+// tensor cores, over the 64-query tiles that hold the live query range;
+// one tile spans the head dim D.
 template <int D>
-__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tc_kernel(FlashBwdArgs a) {
-  static_assert(D == 128, "one tile spans the head dim");
+__global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
+    flash_bwd_dkv_tc_kernel(FlashBwdArgs a) {
+  static_assert(D == 64 || D == 128, "one tile spans the head dim: 64 or 128");
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
   const int b = blockIdx.x / a.Hkv;
@@ -199,9 +203,9 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tc_kernel(FlashB
                        a.lse + rows, a.delta + rows,
                        a.k_ss, a.v_ss, a.q_ss, a.q_sh, a.do_ss, a.do_sh,
                        a.S, a.Hq / a.Hkv, kvh, a.scale};
-  float dk[64], dv[64];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
   const int2 queries = fa::live_queries(k0, min(k0 + E, a.S) - 1, a.S, a.causal, a.window);
   const int qt1 = (queries.y + E - 1) / E;   // one past the last live query tile
   tc::dkv_walk_tc(dk, dv, tc::tiles(), src, k0, qt1 - 1, qt1 - queries.x / E,
@@ -211,36 +215,40 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tc_kernel(FlashB
 }
 
 // The bf16 dQ instance: one warpgroup per (batch * q-head, 64-query tile)
-// on the tensor cores, over the tiles that hold the live key range.
+// on the tensor cores, over the tiles that hold the live key range; one
+// tile spans the head dim D.
 template <int D>
-__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dq_tc_kernel(FlashBwdArgs a) {
-  static_assert(D == 128, "one tile spans the head dim");
+__global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
+    flash_bwd_dq_tc_kernel(FlashBwdArgs a) {
+  static_assert(D == 64 || D == 128, "one tile spans the head dim: 64 or 128");
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
-  const uint32_t sQ = tc::tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
+  constexpr int TILE = wg::tile_bytes<D>();
+  const uint32_t sQ = tc::tiles(), sdO = sQ + TILE, ring = sdO + TILE;
   const int b = blockIdx.x / a.Hq;
   const int h = blockIdx.x % a.Hq;
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = tc::query_tile(a.causal) * E;
-  wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-  wg::load_tile(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
-                a.S);
+  wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+                   a.S);
+  wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
+                   q0, a.S);
   const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-  float lse2[2], delta[2], acc[64];
+  float lse2[2], delta[2], acc[D / 2];
   bool live[2];
   tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   const int2 keys = fa::live_keys(q0, min(q0 + E, a.S) - 1, a.S, a.causal, a.window);
   const tc::RectMask mask{a.S, a.causal, a.window};
   const float sl2 = a.scale * tc::kLog2e;
-  tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-              static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
-              keys.x / E, (keys.y + E - 1) / E, [](int j) { return j + 1; },
-              [&](uint32_t sK, int j) {
-                tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2, a.scale,
-                               mask);
-              });
+  tc::kv_walk<D>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                 static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
+                 keys.x / E, (keys.y + E - 1) / E, [](int j) { return j + 1; },
+                 [&](uint32_t sK, int j) {
+                   tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2, a.scale,
+                                  mask);
+                 });
   const float one[2] = {1.f, 1.f};
   tc::store_bf16(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0, a.S,
                  one);
@@ -254,7 +262,7 @@ cudaError_t launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
   size_t smem;
   if constexpr (tensor_cores) {
     fn = reinterpret_cast<void*>(flash_bwd_dq_tc_kernel<D>);
-    smem = tc::DQ_SMEM;
+    smem = tc::dq_tc_smem<D>();
   } else {
     fn = reinterpret_cast<void*>(flash_bwd_dq_kernel<T, D>);
     smem = dq_smem<D>();
@@ -283,7 +291,7 @@ cudaError_t launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
   size_t smem;
   if constexpr (tensor_cores) {
     fn = reinterpret_cast<void*>(flash_bwd_dkv_tc_kernel<D>);
-    smem = tc::DKV_SMEM;
+    smem = tc::dkv_tc_smem<D>();
   } else {
     fn = reinterpret_cast<void*>(flash_bwd_dkv_kernel<T, D>);
     smem = dkv_smem<D>();
@@ -297,18 +305,22 @@ cudaError_t launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
 }
 
 bool takes(const FlashBwdArgs* a) {
-  return a->D == 128 && (a->act_dtype == 0 || a->act_dtype == 1) && a->Hkv > 0 &&
-         a->Hq % a->Hkv == 0;
+  return (a->D == 64 || a->D == 128) && (a->act_dtype == 0 || a->act_dtype == 1) &&
+         a->Hkv > 0 && a->Hq % a->Hkv == 0;
 }
 
 }  // namespace
 
 // Both launch on `stream`, allocate nothing and do not synchronise; each
-// returns cudaGetLastError() after its launch (0 on success).
+// returns cudaGetLastError() after its launch (0 on success;
+// cudaErrorInvalidValue for a head dim other than 64 or 128).
 extern "C" int flash_bwd_dq(const FlashBwdArgs* a, void* stream) {
   if (a->S <= 0 || a->B <= 0) return 0;
   if (!takes(a)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->D == 64)
+    return static_cast<int>(a->act_dtype == 0 ? launch_dq<float, 64>(*a, s)
+                                              : launch_dq<__nv_bfloat16, 64>(*a, s));
   return static_cast<int>(a->act_dtype == 0 ? launch_dq<float, 128>(*a, s)
                                             : launch_dq<__nv_bfloat16, 128>(*a, s));
 }
@@ -317,6 +329,9 @@ extern "C" int flash_bwd_dkv(const FlashBwdArgs* a, void* stream) {
   if (a->S <= 0 || a->B <= 0) return 0;
   if (!takes(a)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->D == 64)
+    return static_cast<int>(a->act_dtype == 0 ? launch_dkv<float, 64>(*a, s)
+                                              : launch_dkv<__nv_bfloat16, 64>(*a, s));
   return static_cast<int>(a->act_dtype == 0 ? launch_dkv<float, 128>(*a, s)
                                             : launch_dkv<__nv_bfloat16, 128>(*a, s));
 }

@@ -32,11 +32,13 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// The forward's steps are generic in the head dim D = 64 or 128 (the
-// accumulator's size gives it: D / 2 floats a thread): at D = 64 a tile is
-// one swizzle atom, S = Q K^T takes 4 k-steps, O += P V is m64n64k16 into
-// 32 floats, and shared memory is 41 KB (bf16 cache) or 42 KB (int8
-// cache). The dQ and dK/dV steps take D = 128 only.
+// Every step is generic in the head dim D = 64 or 128 (the accumulator's
+// size gives it: D / 2 floats a thread): at D = 64 a tile is one swizzle
+// atom, S = Q K^T (and dP = dO V^T, S^T, dP^T) takes 4 k-steps, and the
+// register-A products (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q)
+// are m64n64k16 into 32 floats; their A fragments do not change with D
+// (their K is the tile's 64 keys or queries). Shared memory at D = 64: 41
+// KB forward (bf16 cache) or 42 KB (int8 cache), 49 KB dQ, 50 KB dK/dV.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -59,8 +61,9 @@
 //
 // Shared memory of the dK/dV step, from the first swizzle-aligned byte: K, V
 // (two tiles), then two stages of Q, dO (four tiles), then two stages of 64
-// lse and 64 delta values (512 bytes each): 97 KB, so two CTAs an SM.
-// Registers: dK and dV 64 f32 each, S^T and dP^T 32 each, a thread.
+// lse and 64 delta values (512 bytes each): 97 KB at D = 128, so two CTAs
+// an SM. Registers: dK and dV D / 2 f32 each, S^T and dP^T 32 each, a
+// thread.
 #pragma once
 
 #include "flash_common.cuh"
@@ -81,9 +84,35 @@ template <int D>
 __host__ __device__ constexpr size_t fwd_tc_smem() {
   return 5 * wg::tile_bytes<D>() + wg::ALIGN;
 }
-constexpr size_t FWD_SMEM = fwd_tc_smem<128>();
-constexpr size_t DQ_SMEM = 6 * wg::TILE_BYTES + wg::ALIGN;
-constexpr size_t DKV_SMEM = 6 * wg::TILE_BYTES + 2 * STAT_BYTES + wg::ALIGN;
+template <int D>
+__host__ __device__ constexpr size_t dq_tc_smem() {
+  return 6 * wg::tile_bytes<D>() + wg::ALIGN;
+}
+template <int D>
+__host__ __device__ constexpr size_t dkv_tc_smem() {
+  return 6 * wg::tile_bytes<D>() + 2 * STAT_BYTES + wg::ALIGN;
+}
+
+// CTAs an SM the backward's tensor-core instances (flash_bwd.cu's dQ and
+// dK/dV, flash_tri.cu's dK/dV) are built for, by head dim: two at D = 128;
+// at D = 64, where a step holds half the accumulators and half the shared
+// memory, the counts hack/torch_bwd_d64_ab.py measured fastest on an H100
+// (it builds the sources with other values through these macros). dK/dV
+// at three: 164 registers and three CTAs resident, 0.615 ms at (8, 2048,
+// 16/8) against 0.818 at two (180 registers, two resident) and 0.767 at
+// four (128 registers, 416 bytes of spill stores). dQ at two: 151
+// registers, three CTAs resident as at three (150), 0.451 and 0.474 ms
+// within the turns' spread; four spills (24 bytes) at 0.465.
+#ifndef TC_DQ_BLOCKS_D64
+#define TC_DQ_BLOCKS_D64 2
+#endif
+#ifndef TC_DKV_BLOCKS_D64
+#define TC_DKV_BLOCKS_D64 3
+#endif
+template <int D>
+constexpr int DQ_TC_BLOCKS = D == 128 ? 2 : TC_DQ_BLOCKS_D64;
+template <int D>
+constexpr int DKV_TC_BLOCKS = D == 128 ? 2 : TC_DKV_BLOCKS_D64;
 
 // The query tile of a rectangular grid's block (blockIdx.y), the tiles
 // with the most key tiles first when `descending` (on a causal grid), so
@@ -474,21 +503,22 @@ __device__ __forceinline__ void dq_rows(const float* lse, const float* delta, in
 
 // One dQ step (_bwd_dq_step): queries q0 .. q0 + 63 (Q, dO tiles at sQ, sdO;
 // their rows' dq_rows) against keys k0 .. k0 + 63 (K, V tiles at sK, sK +
-// TILE), the copies waited for and published. S = Q K^T and dP = dO V^T,
-// P from lse while dP finishes, dS = P (dP - delta) scale, acc += dS K with
-// dS rounded to bf16.
-template <typename Mask>
-__device__ __forceinline__ void dq_tile_tc(float (&acc)[64], uint32_t sQ, uint32_t sdO,
+// TILE), the copies waited for and published; head dim D = 2 N (N: acc's
+// floats a thread). S = Q K^T and dP = dO V^T, P from lse while dP
+// finishes, dS = P (dP - delta) scale, acc += dS K with dS rounded to bf16.
+template <typename Mask, int N>
+__device__ __forceinline__ void dq_tile_tc(float (&acc)[N], uint32_t sQ, uint32_t sdO,
                                            uint32_t sK, const float (&lse2)[2],
                                            const float (&delta)[2], const bool (&live)[2],
                                            int q0, int k0, float sl2, float scale,
                                            const Mask& mask) {
+  constexpr int D = 2 * N;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32], dp[32];
   wg::fence();
-  abt(s, sQ, sK);
+  abt<D>(s, sQ, sK);
   wg::commit();
-  abt(dp, sdO, sK + wg::TILE_BYTES);
+  abt<D>(dp, sdO, sK + wg::tile_bytes<D>());
   wg::commit();
   wg::wait<1>();
   wg::fence_regs(s);
@@ -529,13 +559,15 @@ struct DkvSrc {
   float scale;
 };
 
-// Issues the copies of one step's inputs into stage `stage` (Q, dO tiles)
-// and `stats` (lse then delta of the 64 queries; zero past S, where the
-// masks keep nothing): queries q0 .. q0 + 63 of q-head h. Not committed.
+// Issues the copies of one step's inputs into stage `stage` (Q, dO tiles
+// of head dim D) and `stats` (lse then delta of the 64 queries; zero past
+// S, where the masks keep nothing): queries q0 .. q0 + 63 of q-head h. Not
+// committed.
+template <int D>
 __device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const DkvSrc& s, int q0,
                                           int h) {
-  wg::load_tile(stage, s.q + h * s.q_sh, s.q_ss, q0, s.S);
-  wg::load_tile(stage + wg::TILE_BYTES, s.dout + h * s.do_sh, s.do_ss, q0, s.S);
+  wg::load_tile<D>(stage, s.q + h * s.q_sh, s.q_ss, q0, s.S);
+  wg::load_tile<D>(stage + wg::tile_bytes<D>(), s.dout + h * s.do_sh, s.do_ss, q0, s.S);
   const int i = threadIdx.x & (E - 1);
   const bool in = q0 + i < s.S;
   const float* src = (threadIdx.x < E ? s.lse : s.delta) + static_cast<long long>(h) * s.S +
@@ -548,21 +580,23 @@ __device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const 
 // One dK/dV step: the block's keys k0 .. k0 + 63 (K, V tiles at sK, sK +
 // TILE) against queries q0 .. q0 + 63 of one q-head (Q, dO tiles at stage,
 // stage + TILE; lse, delta at sL, sL + 64), the copies waited for and
-// published. Adds the step's P^T dO to dv and dS^T Q to dk.
-template <typename Mask>
-__device__ __forceinline__ void dkv_tile_tc(float (&dk)[64], float (&dv)[64], uint32_t sK,
+// published; head dim D = 2 N (N: dk's and dv's floats a thread). Adds the
+// step's P^T dO to dv and dS^T Q to dk (m64nDk16 over the 64 queries).
+template <typename Mask, int N>
+__device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             uint32_t stage, const float* sL, int k0, int q0,
                                             float scale, const Mask& mask) {
-  const uint32_t sV = sK + wg::TILE_BYTES, sQ = stage, sdO = stage + wg::TILE_BYTES;
+  constexpr int D = 2 * N;
+  const uint32_t sV = sK + wg::tile_bytes<D>(), sQ = stage, sdO = stage + wg::tile_bytes<D>();
   const float* sD = sL + E;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32], dp[32];
   wg::fence_regs(dk);
   wg::fence_regs(dv);
   wg::fence();
-  abt(s, sK, sQ);            // S^T = K Q^T
+  abt<D>(s, sK, sQ);         // S^T = K Q^T
   wg::commit();
-  abt(dp, sV, sdO);          // dP^T = V dO^T
+  abt<D>(dp, sV, sdO);       // dP^T = V dO^T
   wg::commit();
 
   // P^T from the forward's lse, per column (query), while dP^T finishes
@@ -605,20 +639,22 @@ __device__ __forceinline__ void dkv_tile_tc(float (&dk)[64], float (&dv)[64], ui
 // A dK/dV block's walk: loads its K/V tiles, then runs `tiles` query tiles
 // downward, the first at tile index qt0 and each next one below it (the
 // order in which the f32 sums came out most accurate), each for every q-head
-// of the group (innermost), through the two-stage ring. dk and dv
-// accumulate; every product is waited for on return.
-template <typename Mask>
-__device__ __forceinline__ void dkv_walk_tc(float (&dk)[64], float (&dv)[64], uint32_t sK,
+// of the group (innermost), through the two-stage ring; head dim D = 2 N.
+// dk and dv accumulate; every product is waited for on return.
+template <typename Mask, int N>
+__device__ __forceinline__ void dkv_walk_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             const DkvSrc& s, int k0, int qt0, int tiles,
                                             const Mask& mask) {
+  constexpr int D = 2 * N;
+  constexpr int TILE = wg::tile_bytes<D>();
   const int steps = tiles * s.group;
   if (steps <= 0) return;
-  const uint32_t ring = sK + 2 * wg::TILE_BYTES;             // stage st at ring + 2 st TILE
-  const uint32_t stats = sK + 6 * wg::TILE_BYTES;            // stage st at stats + st STAT
+  const uint32_t ring = sK + 2 * TILE;             // stage st at ring + 2 st TILE
+  const uint32_t stats = sK + 6 * TILE;            // stage st at stats + st STAT
   const int h0 = s.kvh * s.group;
-  wg::load_tile(sK, s.k, s.k_ss, k0, s.S);
-  wg::load_tile(sK + wg::TILE_BYTES, s.v, s.v_ss, k0, s.S);
-  dkv_stage(ring, stats, s, qt0 * E, h0);
+  wg::load_tile<D>(sK, s.k, s.k_ss, k0, s.S);
+  wg::load_tile<D>(sK + TILE, s.v, s.v_ss, k0, s.S);
+  dkv_stage<D>(ring, stats, s, qt0 * E, h0);
   wg::copy_commit();
   for (int i = 0; i < steps; ++i) {
     const int st = i & 1;
@@ -627,19 +663,20 @@ __device__ __forceinline__ void dkv_walk_tc(float (&dk)[64], float (&dv)[64], ui
     __syncthreads();         // this stage is in; the other one's readers are done
     if (i + 1 < steps) {
       const int j = i + 1;
-      dkv_stage(ring + 2 * (st ^ 1) * wg::TILE_BYTES, stats + (st ^ 1) * STAT_BYTES, s,
-                (qt0 - j / s.group) * E, h0 + j % s.group);
+      dkv_stage<D>(ring + 2 * (st ^ 1) * TILE, stats + (st ^ 1) * STAT_BYTES, s,
+                   (qt0 - j / s.group) * E, h0 + j % s.group);
       wg::copy_commit();
     }
-    dkv_tile_tc(dk, dv, sK, ring + 2 * st * wg::TILE_BYTES, floats_at(stats + st * STAT_BYTES),
-                k0, (qt0 - i / s.group) * E, s.scale, mask);
+    dkv_tile_tc(dk, dv, sK, ring + 2 * st * TILE, floats_at(stats + st * STAT_BYTES), k0,
+                (qt0 - i / s.group) * E, s.scale, mask);
   }
 }
 
 // Rows k0 + frag_row (+ 8) of dK and dV from the fragments, as bf16, rows
 // at or past S left out (`dkb` / `dvb` at position 0 of the (batch, kv
 // head), `*_ss` their position strides).
-__device__ __forceinline__ void dkv_store(const float (&dk)[64], const float (&dv)[64], bf16* dkb,
+template <int N>
+__device__ __forceinline__ void dkv_store(const float (&dk)[N], const float (&dv)[N], bf16* dkb,
                                           long long dk_ss, bf16* dvb, long long dv_ss, int k0,
                                           int S) {
   const float one[2] = {1.f, 1.f};

@@ -55,7 +55,9 @@
 // flash_bwd.cu's dK/dV), with the triangle's mask (tc::TriMask). The
 // forward's P goes to the tensor cores as bf16 hi + lo, dQ's dS and dK/dV's
 // P^T and dS^T each rounded to bf16 once (flash_tc.cuh says why). Shared
-// memory: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an SM. Bound:
+// memory at D = 128: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an
+// SM; at D = 64 41, 49 and 50 KB, the CTAs an SM the occupancy query's
+// (flash_tri_ctas). Every instance takes head dim 64 or 128. Bound:
 // operations, 4, 6 and 8 D per attended pair and q-head at 989 TFLOP/s
 // bf16 (2.22, 3.34 and 4.45 ms at S = 32768, Hq 8). Left for later: warp
 // specialisation (a producer warp issuing TMA, with setmaxnreg giving the
@@ -226,10 +228,9 @@ __device__ __forceinline__ void lse_merge(float& o, float& L, float oi, float li
 // from the fragments, or its normalised f32 partial and lse into the slot.
 template <int D>
 __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
-  static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
-  const uint32_t sQ = tc::tiles(), ring = sQ + wg::TILE_BYTES;
+  const uint32_t sQ = tc::tiles(), ring = sQ + wg::tile_bytes<D>();
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
@@ -244,16 +245,17 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
     const int kvh = h / group;
     const int q0 = sg.r * E;
     __syncthreads();   // the previous segment's products are done
-    wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-    float acc[64], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+    wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+                     a.S);
+    float acc[D / 2], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-    tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-                static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
-                sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
-                [&](uint32_t sK, int kj) {
-                  tc::fwd_tile_tc(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
-                });
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    tc::kv_walk<D>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                   static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss,
+                   a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
+                   [&](uint32_t sK, int kj) {
+                     tc::fwd_tile_tc(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
+                   });
 
     // _finalize_out, then the row or its workspace slot
     float inv[2], lse[2];
@@ -269,7 +271,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
       const int r = row + 8 * i;
       float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(o + 8 * j) =
             make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
       if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse[i];
@@ -282,10 +284,10 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
 // fragments, or its f32 partial into the slot.
 template <int D>
 __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
-  static_assert(D == 128, "one tile spans the head dim");
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
-  const uint32_t sQ = tc::tiles(), sdO = sQ + wg::TILE_BYTES, ring = sdO + wg::TILE_BYTES;
+  constexpr int TILE = wg::tile_bytes<D>();
+  const uint32_t sQ = tc::tiles(), sdO = sQ + TILE, ring = sdO + TILE;
   const int row = wg::frag_row(threadIdx.x), col = wg::frag_col(threadIdx.x);
   const int group = a.Hq / a.Hkv;
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
@@ -300,22 +302,23 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
     const int kvh = h / group;
     const int q0 = sg.r * E;
     __syncthreads();   // the previous segment's products are done
-    wg::load_tile(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S);
-    wg::load_tile(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
-                  q0, a.S);
+    wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+                     a.S);
+    wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh,
+                     a.do_ss, q0, a.S);
     const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-    float lse2[2], delta[2], acc[64];
+    float lse2[2], delta[2], acc[D / 2];
     bool live[2];
     tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
 #pragma unroll
-    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-    tc::kv_walk(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-                static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
-                sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
-                [&](uint32_t sK, int kj) {
-                  tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, kj * E, sl2, a.scale,
-                                 mask);
-                });
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    tc::kv_walk<D>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                   static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss,
+                   a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
+                   [&](uint32_t sK, int kj) {
+                     tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, kj * E, sl2,
+                                    a.scale, mask);
+                   });
 
     if (sg.whole) {
       tc::store_bf16(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0,
@@ -326,7 +329,7 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
     for (int i = 0; i < 2; ++i) {
       float* o = a.ws + (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(o + 8 * j) =
             make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
@@ -612,8 +615,9 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_kernel(FlashTr
 // (tc::dkv_walk_tc over the segment's query tiles, descending), the cut
 // rows' f32 partials stored from the fragments.
 template <int D>
-__global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tri_tc_kernel(FlashTriArgs a) {
-  static_assert(D == 128, "one tile spans the head dim");
+__global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
+    flash_bwd_dkv_tri_tc_kernel(FlashTriArgs a) {
+  static_assert(D == 64 || D == 128, "one tile spans the head dim: 64 or 128");
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
   const uint32_t sK = tc::tiles();
@@ -636,9 +640,9 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tri_tc_kernel(Fl
                          a.lse + rows, a.delta + rows,
                          a.k_ss, a.v_ss, a.q_ss, a.q_sh, a.do_ss, a.do_sh,
                          a.S, group, kvh, a.scale};
-    float dk[64], dv[64];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int e = 0; e < 64; ++e) dk[e] = dv[e] = 0.f;
+    for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
     __syncthreads();   // the previous segment's products are done
     // column c is qi = n - 1 - c: the segment's query tiles descend
     tc::dkv_walk_tc(dk, dv, sK, src, k0, tri.n - 1 - sg.c0, sg.c1 - sg.c0 + 1, mask);
@@ -651,7 +655,7 @@ __global__ void __launch_bounds__(wg::THREADS, 2) flash_bwd_dkv_tri_tc_kernel(Fl
     for (int i = 0; i < 2; ++i) {
       const long long at = (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<float2*>(a.ws + at + 8 * j) =
             make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
         *reinterpret_cast<float2*>(ws_dv + at + 8 * j) =
@@ -689,9 +693,9 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_fixup(FlashTri
 
 template <typename T, int D>
 constexpr size_t smem_of(int which) {
-  return which == FWD  ? (kTensorCores<T> ? tc::FWD_SMEM : fwd_smem<D>())
-         : which == DQ ? (kTensorCores<T> ? tc::DQ_SMEM : dq_smem<D>())
-                       : (kTensorCores<T> ? tc::DKV_SMEM : dkv_smem<D>());
+  return which == FWD  ? (kTensorCores<T> ? tc::fwd_tc_smem<D>() : fwd_smem<D>())
+         : which == DQ ? (kTensorCores<T> ? tc::dq_tc_smem<D>() : dq_smem<D>())
+                       : (kTensorCores<T> ? tc::dkv_tc_smem<D>() : dkv_smem<D>());
 }
 
 template <typename T, int D>
@@ -752,16 +756,27 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// f32 workspace values per CTA of `which` at act dtype 0 or 1 and head dim
+// 64 or 128; 0 for another head dim.
+long long ws_floats(int which, int act_dtype, int head_dim) {
+  return head_dim == 128 ? ws_per_cta<128>(which, act_dtype)
+         : head_dim == 64 ? ws_per_cta<64>(which, act_dtype)
+                          : 0;
+}
+
 bool takes(int which, const FlashTriArgs* a) {
-  return a->D == 128 && (a->act_dtype == 0 || a->act_dtype == 1) && a->Hkv > 0 &&
-         a->Hq % a->Hkv == 0 && a->ctas > 0 && a->ws != nullptr &&
-         a->ws_floats >= a->ctas * ws_per_cta<128>(which, a->act_dtype);
+  return (a->D == 64 || a->D == 128) && (a->act_dtype == 0 || a->act_dtype == 1) &&
+         a->Hkv > 0 && a->Hq % a->Hkv == 0 && a->ctas > 0 && a->ws != nullptr &&
+         a->ws_floats >= a->ctas * ws_floats(which, a->act_dtype, a->D);
 }
 
 int run(int which, const FlashTriArgs* a, void* stream) {
   if (a->S <= 0 || a->B <= 0) return 0;
   if (!takes(which, a)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->D == 64)
+    return static_cast<int>(a->act_dtype == 0 ? launch<float, 64>(which, *a, s)
+                                              : launch<__nv_bfloat16, 64>(which, *a, s));
   return static_cast<int>(a->act_dtype == 0 ? launch<float, 128>(which, *a, s)
                                             : launch<__nv_bfloat16, 128>(which, *a, s));
 }
@@ -770,23 +785,29 @@ int run(int which, const FlashTriArgs* a, void* stream) {
 
 // The persistent grid P of entry `which` (0 flash_fwd_tri, 1
 // flash_bwd_dq_tri, 2 flash_bwd_dkv_tri) for act dtype 0 (f32) or 1 (bf16)
-// on the current device: the wrapper sizes the workspace from it and passes
-// it back as FlashTriArgs.ctas. A negative value is -cudaError.
-extern "C" int flash_tri_ctas(int which, int act_dtype) {
-  if (which < FWD || which > DKV || act_dtype < 0 || act_dtype > 1)
+// and head dim 64 or 128 on the current device (the blocks that fit on an
+// SM depend on both): the wrapper sizes the workspace from it and passes it
+// back as FlashTriArgs.ctas. A negative value is -cudaError.
+extern "C" int flash_tri_ctas(int which, int act_dtype, int head_dim) {
+  if (which < FWD || which > DKV || act_dtype < 0 || act_dtype > 1 ||
+      (head_dim != 64 && head_dim != 128))
     return -static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim == 64)
+    return act_dtype == 0 ? resident_ctas<float, 64>(which)
+                          : resident_ctas<__nv_bfloat16, 64>(which);
   return act_dtype == 0 ? resident_ctas<float, 128>(which)
                         : resident_ctas<__nv_bfloat16, 128>(which);
 }
 
 // f32 workspace values per CTA of entry `which` for act dtype 0 (f32) or 1
-// (bf16) (as flash_tri_ctas), at head dim 128: the wrapper allocates ctas
-// times this and passes the length as FlashTriArgs.ws_floats. A negative
-// value is -cudaError.
-extern "C" long long flash_tri_ws_floats(int which, int act_dtype) {
-  if (which < FWD || which > DKV || act_dtype < 0 || act_dtype > 1)
-    return -static_cast<long long>(cudaErrorInvalidValue);
-  return ws_per_cta<128>(which, act_dtype);
+// (bf16) and head dim 64 or 128 (as flash_tri_ctas): the wrapper allocates
+// ctas times this and passes the length as FlashTriArgs.ws_floats. A
+// negative value is -cudaError.
+extern "C" long long flash_tri_ws_floats(int which, int act_dtype, int head_dim) {
+  const long long n = which < FWD || which > DKV || act_dtype < 0 || act_dtype > 1
+                          ? 0
+                          : ws_floats(which, act_dtype, head_dim);
+  return n > 0 ? n : -static_cast<long long>(cudaErrorInvalidValue);
 }
 
 // Each queues its main launch and its fixup on `stream`, allocates nothing

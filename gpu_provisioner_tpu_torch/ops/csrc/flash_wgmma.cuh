@@ -13,8 +13,8 @@
 // an atom, row r lies at r * 128 bytes and its 16-byte chunk c (8 values)
 // at chunk c ^ (r % 8): the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B, and the one wgmma reads through a descriptor
-// of layout type B128. The backward and triangle kernels take D = 128 only
-// (TILE_BYTES and the defaults below); the forward takes both.
+// of layout type B128. Every kernel takes both (TILE_BYTES and the defaults
+// below are D = 128's, for the standalone checks under hack/).
 //
 // The loader is cp.async (16 bytes a thread and copy, zero-fill past the
 // sequence's end, commit groups), not TMA: the one warpgroup that computes

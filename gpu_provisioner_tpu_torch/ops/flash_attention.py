@@ -64,13 +64,9 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 64 and 128 in the forward kernels (``flash_fwd`` for
-  self-attention and the cache, ``flash_decode``: ``_FWD_HEAD_DIMS``),
-  128 only in the backward and flattened-triangle kernels
-  (``_SELF_HEAD_DIMS``); on a CUDA tensor any other head dim raises a
-  ValueError naming it before a kernel is built or launched, and so does
-  a D = 64 backward or ``triangular=True`` call that reaches those kernels
-  (no plain fallback);
+- head dims 64 and 128 only (``_HEAD_DIMS``), in every kernel; on a CUDA
+  tensor any other head dim raises a ValueError naming it before a kernel
+  is built or launched (no plain fallback);
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -109,12 +105,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims each kernel family is built for: the forward kernels
-# (flash_fwd: self-attention and the cache; flash_decode) and the
-# self-attention backward and flattened-triangle kernels (flash_bwd,
-# flash_tri)
-_FWD_HEAD_DIMS = (64, 128)
-_SELF_HEAD_DIMS = (128,)
+# the head dims every kernel is built for
+_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -396,9 +388,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _FWD_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_FWD_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -549,9 +541,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cu, flash_tri.cu) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 128 (``_SELF_HEAD_DIMS``) contiguous, GQA
-    dividing; lse and delta, where given, contiguous float32 [B,Hq,S].
-    Raises naming ``kernel``."""
+    kernels' dtypes, head dim 64 or 128 (``_HEAD_DIMS``) contiguous,
+    GQA dividing; lse and delta, where given, contiguous float32
+    [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -568,9 +560,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
         raise TypeError("k/v/dout dtypes "
                         + "/".join(str(t.dtype) for t in acts)
                         + f"; expected {q.dtype}")
-    if D not in _SELF_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_SELF_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
             or (dout is not None and dout.shape != q.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
@@ -690,7 +682,7 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     self-attention, no window; in bf16 the 16-byte chunks the tensor-core
     kernels copy, ``_check_tc_copies``), allocates ``kernel``'s outputs and
     its f32 workspace (two slots per CTA of the persistent grid; its size
-    depends on the dtype) and queues its main
+    depends on the dtype and the head dim) and queues its main
     launch and its fixup on the current stream: ``flash_fwd_tri`` → (out
     [B,S,Hq,D], lse [B,Hq,S] f32), ``flash_bwd_dq_tri`` → dq,
     ``flash_bwd_dkv_tri`` → (dk, dv). q/k/v/dout token-major with the head
@@ -704,8 +696,8 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     _check_self_attention(kernel, q, k, v, dout, lse, delta)
     _check_tc_copies(kernel, q=q, k=k, v=v, dout=dout)
     act = _ACT_DTYPES[q.dtype]
-    P = _cuda.tri_ctas(kernel, act, dev.index)
-    ws = torch.empty(P * _cuda.tri_ws_floats(kernel, act),
+    P = _cuda.tri_ctas(kernel, act, D, dev.index)
+    ws = torch.empty(P * _cuda.tri_ws_floats(kernel, act, D),
                      dtype=torch.float32, device=dev)
     a = _cuda.FlashTriArgs()
     if fwd:

@@ -155,7 +155,7 @@ def timings(torch, tfa, _cuda, dev):
         for kernel, fns in pairs.items():
             ms = alternate_ms(torch, fns, flush)
             row[kernel] = {**ms, "tri_over_rect": ms["tri"] / ms["rect"]}
-        row["ctas"] = {e: _cuda.tri_ctas(e, 1, dev.index)
+        row["ctas"] = {e: _cuda.tri_ctas(e, 1, 128, dev.index)
                        for e in _cuda.TRI_WHICH}
         print(json.dumps(row), flush=True)
         out.append(row)

@@ -17,9 +17,8 @@ forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
 the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
-a direct launch refuses. The forward kernels (flash_fwd for self-attention
-and the cache, flash_decode) run at head dims 64 and 128; the backward and
-triangle kernels at 128 only.
+a direct launch refuses. Every kernel runs at head dims 64 and 128 (the
+``*_at_head_dim_64`` tests hold the backward and triangle kernels at 64).
 """
 
 import ctypes
@@ -321,23 +320,31 @@ def test_decode_rows_beyond_one_block(dev):
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
-    """Head dim 64 runs the forward kernel and raises ValueError naming
-    the head dim where it reaches a backward or triangle kernel (built for
-    128 only), with no plain fallback; 16 and 32 raise in the forward;
-    float16 raises TypeError."""
+    """Head dim 64 runs the forward kernel and, through autograd, the
+    backward kernels (their triangle twins with triangular=True); 16 and
+    32 raise ValueError naming the head dim in the forward and in the
+    backward, with no plain fallback; float16 raises TypeError."""
     for D in (16, 32):
         q = torch.zeros(1, 128, 4, D, device=dev)
         with pytest.raises(ValueError, match=f"head dim {D}"):
             tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+        lse = torch.zeros(1, 4, 128, device=dev)
+        for triangular in (False, True):
+            with pytest.raises(ValueError, match=f"head dim {D}"):
+                tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse,
+                                        q, triangular=triangular)
     for triangular in (False, True):
         q = torch.zeros(1, 128, 4, 64, device=dev, requires_grad=True)
         tfa.reset_launches()
         out = tfa.flash_attention(q, q[:, :, :2], q[:, :, :2],
                                   triangular=triangular)
-        assert tfa.LAUNCHES["flash_fwd"] == 1
-        with pytest.raises(ValueError, match="head dim 64"):
-            out.sum().backward()
-        assert sum(tfa.LAUNCHES.values()) == 1 and q.grad is None
+        out.sum().backward()
+        torch.cuda.synchronize()
+        bwd = ("flash_bwd_dq_tri", "flash_bwd_dkv_tri") if triangular \
+            else ("flash_bwd_dq", "flash_bwd_dkv")
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            "flash_fwd": 1, bwd[0]: 1, bwd[1]: 1}
+        assert bool(torch.isfinite(q.grad).all())
     q = torch.zeros(1, 128, 4, 128, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
@@ -522,6 +529,38 @@ def test_flash_bwd_dkv_matches_plain(dev, dtype, B, S, Hq, Hkv, causal,
         assert _rel(a, b) < TOL[dtype]
 
 
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dim 64: the fast
+# bench_train_step model's heads at its length, ragged S at GQA 4/1 with
+# an lse cotangent, non-causal, a window that skips tiles
+BWD_D64_CASES = [(4, 512, 8, 4, True, None), (1, 1000, 4, 1, True, None),
+                 (2, 333, 8, 2, False, None), (1, 2048, 8, 2, True, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_D64_CASES)
+def test_flash_bwd_matches_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
+                                                causal, window):
+    """flash_bwd_dq and flash_bwd_dkv at head dim 64 (bf16: one-atom tiles
+    on the tensor cores) against attention_bwd_plain, with an lse
+    cotangent, from the plain forward's out and lse."""
+    g = torch.Generator(dev).manual_seed(10)
+    q, dout = (_randn(g, B, S, Hq, 64, dtype=dtype, dev=dev)
+               for _ in range(2))
+    k, v = (_randn(g, B, S, Hkv, 64, dtype=dtype, dev=dev) for _ in range(2))
+    g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev)
+    kw = dict(causal=causal, window=window)
+    out, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   0, **kw)
+    tfa.reset_launches()
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, dout, g_lse, **kw)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_bwd_dq"] == tfa.LAUNCHES["flash_bwd_dkv"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 def test_backward_takes_a_cotangent_through_torch_cat(dev, triangular):
     """flash_attention's bf16 output through torch.cat beside a 12-wide
@@ -567,7 +606,7 @@ def test_autograd_runs_the_backward_kernels(dev):
 
 
 def test_bwd_raises_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 128, 4, 64, device=dev)
+    q = torch.zeros(1, 128, 4, 32, device=dev)
     lse = torch.zeros(1, 4, 128, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse, q)
@@ -730,6 +769,33 @@ def test_tri_kernels_match_plain(dev, dtype, B, S, Hq, Hkv, cot):
         assert _rel(a, b) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
+                                                cot):
+    """The three tri kernels at head dim 64 (bf16: one-atom tiles; the
+    workspace's cut rows D / 8 float pairs a thread) at TRI_CASES."""
+    g = torch.Generator(dev).manual_seed(16)
+    q, dout = (_randn(g, B, S, Hq, 64, dtype=dtype, dev=dev)
+               for _ in range(2))
+    k, v = (_randn(g, B, S, Hkv, 64, dtype=dtype, dev=dev) for _ in range(2))
+    g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev) if cot else None
+    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=0.125)
+    ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), 0)
+    delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
+    kw = dict(scale=0.125, dout=dout, lse=lse, delta=delta)
+    dq = tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+    dk, dv = tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse)
+    torch.cuda.synchronize()
+    assert _err(out, ref) < TOL[dtype]
+    assert _err(lse, ref_lse) < 1e-4
+    for a, b in zip((dq, dk, dv), want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _rel(a, b) < TOL[dtype]
+
+
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
     """S=16384 bf16 (past the resident budget): the tri forward and both
     tri backward kernels, once each, no rectangular launch; S=4096: the
@@ -753,7 +819,7 @@ def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
 
 
 def test_tri_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 128, 4, 64, device=dev)
+    q = torch.zeros(1, 128, 4, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
                         scale=1.0)
@@ -804,26 +870,34 @@ def test_bwd_dkv_grid_query_answers_for_the_launch(dev):
 @pytest.mark.parametrize("act_dtype", [0, 1])
 def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
     """flash_tri.cu owns the workspace layout, which depends on the act
-    dtype (0 f32, 1 bf16: the bf16 dK/dV tile edge is twice the f32 one):
-    an entry given fewer than ctas × flash_tri_ws_floats() f32 values (the
-    f32-sized workspace too, where that is shorter) returns
-    cudaErrorInvalidValue (1) before it launches anything."""
-    q = torch.zeros(1, 128, 2, 128, device=dev,
-                    dtype=(torch.float32, torch.bfloat16)[act_dtype])
+    dtype (0 f32, 1 bf16: the bf16 dK/dV tile edge is twice the f32 one)
+    and the head dim: an entry given fewer than ctas ×
+    flash_tri_ws_floats() f32 values (the f32-sized workspace too, where
+    that is shorter) returns cudaErrorInvalidValue (1) before it launches
+    anything, at head dim 64 and 128; the queries refuse head dim 32."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for entry in _cuda.TRI_WHICH:
-        P = _cuda.tri_ctas(entry, act_dtype, dev.index)
-        n = P * _cuda.tri_ws_floats(entry, act_dtype)
-        ws = torch.empty(n, device=dev)
-        a = _cuda.FlashTriArgs()
-        for name in ("q", "k", "v", "dout", "out", "dq", "dk", "dv"):
-            setattr(a, name, q.data_ptr())
-        a.lse, a.delta = ws.data_ptr(), ws.data_ptr()
-        a.ws = ws.data_ptr()
-        a.ws_floats = min(n - 1, P * _cuda.tri_ws_floats(entry, 0))
-        a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = act_dtype, 1, 128, 2, 2, 128
-        a.ctas, a.scale = P, 1.0
-        assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry
+    for D in (64, 128):
+        q = torch.zeros(1, 128, 2, D, device=dev,
+                        dtype=(torch.float32, torch.bfloat16)[act_dtype])
+        for entry in _cuda.TRI_WHICH:
+            P = _cuda.tri_ctas(entry, act_dtype, D, dev.index)
+            n = P * _cuda.tri_ws_floats(entry, act_dtype, D)
+            ws = torch.empty(n, device=dev)
+            a = _cuda.FlashTriArgs()
+            for name in ("q", "k", "v", "dout", "out", "dq", "dk", "dv"):
+                setattr(a, name, q.data_ptr())
+            a.lse, a.delta = ws.data_ptr(), ws.data_ptr()
+            a.ws = ws.data_ptr()
+            a.ws_floats = min(n - 1, P * _cuda.tri_ws_floats(entry, 0, D))
+            a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = (act_dtype, 1, 128, 2,
+                                                       2, D)
+            a.ctas, a.scale = P, 1.0
+            assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry
+    for fn in (lambda: _cuda.tri_ctas("flash_fwd_tri", act_dtype, 32,
+                                      dev.index),
+               lambda: _cuda.tri_ws_floats("flash_fwd_tri", act_dtype, 32)):
+        with pytest.raises(RuntimeError, match="D=32"):
+            fn()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

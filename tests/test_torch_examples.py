@@ -13,6 +13,7 @@ serving twins (``bench_decode``, ``bench_moe_decode``, ``bench_engine``,
 the request mix's total.
 """
 
+import ast
 import dataclasses
 import importlib.util
 import os
@@ -104,6 +105,35 @@ def test_train_flops_equal_the_jax_sections():
     want = jbench._train_flops(shapes, jcfg, B, S)
     assert tbench._train_flops(params, tcfg, B, S) == want
     assert 9.2e13 < want < 9.3e13
+
+
+def test_fast_train_step_model_is_the_jax_sections():
+    """bench_train_step's fast model is the JAX section's (bench.py: the
+    first LlamaConfig of bench_train_step, read by ast: 8/4 heads of 64,
+    which every port kernel takes), flash and remat, with the same model
+    FLOPs at the fast shape."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "bench_train_step")
+    call = next(n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", None) == "LlamaConfig")
+    want = {k.arg: ast.literal_eval(k.value) for k in call.keywords
+            if k.arg not in ("attn_impl",)}
+    tcfg = tbench.train_step_config(True)
+    assert {k: getattr(tcfg, k) for k in want} == want
+    assert (tcfg.head_dim, tcfg.attn_impl, tcfg.remat) == (64, "flash", True)
+    spec = importlib.util.spec_from_file_location("jax_bench",
+                                                  ROOT / "bench.py")
+    jbench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jbench)
+    jcfg = jl.LlamaConfig(**{f.name: getattr(tcfg, f.name)
+                             for f in dataclasses.fields(jl.LlamaConfig)})
+    shapes = jax.eval_shape(lambda: jl.init_params(jax.random.key(0), jcfg))
+    params = tl.init_params(tcfg, None, "meta", dtype=torch.float32)
+    B, S = tbench.TRAIN_STEP_SHAPE[True]
+    assert (B, S) == (4, 512)
+    assert tbench._train_flops(params, tcfg, B, S) == \
+        jbench._train_flops(shapes, jcfg, B, S)
 
 
 DECODE_KEYS = {"batch", "prompt_len", "new_tokens", "total_ms",

@@ -54,12 +54,17 @@ def _port_grads(fn, q, k, v, g_out, g_lse):
 @pytest.mark.parametrize("variant", ["resident", "streaming"])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 100)])
-@pytest.mark.parametrize("kv_heads", [4, 2])       # GQA groups 1 and 2
+@pytest.mark.parametrize("kv_heads,D", [       # GQA groups 1 and 2
+    pytest.param(4, 32, id="4"), pytest.param(2, 32, id="2"),
+    pytest.param(4, 64, id="4-d64"), pytest.param(2, 64, id="2-d64")])
 def test_flash_grads_match_jax_vjp(monkeypatch, variant, causal, window,
-                                   kv_heads):
+                                   kv_heads, D):
+    """Head dim 32 (the JAX fast models') and 64 (the fast
+    bench_train_step model's, which the backward kernels take on the
+    card)."""
     if variant == "streaming":
         monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
-    args = _inputs(0, 2, 256, 4, kv_heads, 32)
+    args = _inputs(0, 2, 256, 4, kv_heads, D)
     (jo, jl), jgrads = _jax_grads(
         lambda q, k, v: jfa.flash_attention_with_lse(
             q, k, v, causal=causal, window=window, interpret=True,

@@ -15,9 +15,9 @@ No CUDA kernel runs here, so the tests hold:
   too); out within 5e-3 absolute and lse within 5e-5 (half the card's
   1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
   fold (int8 widened to bf16, scales on the score and P columns) against
-  the same JAX functions in int8 mode; each at head dim 64 and 128 (the
-  forward kernels take both; dQ's replay at 64 is the arithmetic the D = 64
-  backward will have);
+  the same JAX functions in int8 mode; each at head dim 64 and 128 (every
+  kernel takes both; dQ's replay at 64 is the D = 64 backward's
+  arithmetic);
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -26,11 +26,10 @@ No CUDA kernel runs here, so the tests hold:
   16 values) or ``flash_bwd_dq`` raises before the kernel library (nvcc, a
   card) is asked for;
 - the head-dim gates: D = 64 reaches ``flash_fwd`` (self-attention, a bf16
-  and an int8 cache) and ``flash_decode``; the backward and triangle
-  kernels (D = 128 only) refuse it with a ValueError naming it, through
-  autograd and ``triangular=True`` too, before any kernel library is
-  built and without a plain fallback; D = 16, 32 and 96 are refused by
-  every kernel.
+  and an int8 cache), ``flash_decode``, the backward kernels and the
+  triangle kernels, through autograd and ``triangular=True`` too, with no
+  kernel library built and no plain fallback; D = 16, 32 and 96 are
+  refused by every kernel with a ValueError naming the head dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -378,37 +377,63 @@ def test_head_dim_64_reaches_the_forward_kernels(launches, no_build):
         ("flash_decode", 64, 1), ("flash_decode", 64, 2)]
 
 
+@pytest.fixture
+def tri_grid(monkeypatch):
+    """Stands in the tri entries' grid and workspace queries (the kernel
+    library answers them on the card), recording the head dims asked."""
+    asked = []
+
+    def ctas(entry, act_dtype, head_dim, device_index):
+        asked.append((entry, head_dim))
+        return 264
+
+    monkeypatch.setattr(_cuda, "tri_ctas", ctas)
+    monkeypatch.setattr(_cuda, "tri_ws_floats",
+                        lambda entry, act_dtype, head_dim: 4 * 64 * head_dim)
+    return asked
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 def test_head_dim_64_backward_raises_before_any_build(launches, no_build,
-                                                      triangular):
-    """The backward kernels (rectangular and triangle) take head dim 128
-    only: a D = 64 self-attention runs its forward kernel, and its
-    backward raises ValueError naming the head dim and the kernel before
-    any library is built, with no plain fallback (no gradient)."""
+                                                      tri_grid, triangular):
+    """The backward kernels (rectangular and triangle) take head dim 64
+    since the fast bench_train_step model trains at it, so nothing raises
+    any more: a D = 64 self-attention runs its forward kernel, and its
+    backward reaches the dQ and dK/dV launches (their triangle twins with
+    triangular=True, which ask the tri grid for head dim 64) with D = 64,
+    no library built and no plain fallback."""
     q, k, v = (t.requires_grad_() for t in _bf16(
         42, (1, 128, 4, 64), (1, 128, 2, 64), (1, 128, 2, 64)))
     out = tfa.flash_attention(q, k, v, triangular=triangular)
-    kernel = "flash_bwd_dq_tri" if triangular else "flash_bwd_dq"
-    with pytest.raises(ValueError, match=f"head dim 64: {kernel} takes"):
-        out.float().sum().backward()
-    assert [kernel for kernel, _ in launches] == ["flash_fwd"]
-    assert q.grad is None and k.grad is None
+    out.float().sum().backward()
+    bwd = (["flash_bwd_dq_tri", "flash_bwd_dkv_tri"] if triangular
+           else ["flash_bwd_dq", "flash_bwd_dkv"])
+    assert [kernel for kernel, _ in launches] == ["flash_fwd"] + bwd
+    assert all(a.D == 64 for _, a in launches)
+    assert tri_grid == [(kernel, 64) for kernel in bwd if triangular]
+    assert q.grad is not None and k.grad.shape == k.shape
 
 
-def test_head_dim_64_triangle_forward_raises_before_any_build(launches,
-                                                              no_build):
+def test_head_dim_64_triangle_forward_raises_before_any_build(
+        launches, no_build, tri_grid):
     """tri_dispatch keeps the JAX budget rule: at head dim 64 in bf16 the
     triangle's forward starts past S = 24576, where a D = 64
-    triangular=True call raises ValueError naming the head dim before any
-    library is built; below it the rectangular forward takes the call."""
+    triangular=True call now reaches flash_fwd_tri's launch with D = 64
+    (its grid and workspace asked for head dim 64) instead of raising, no
+    library built; below it the rectangular forward takes the call."""
     assert tfa.tri_dispatch(24576, 64, 2, causal=True, triangular=True,
                             window=None) == (False, True)
     assert tfa.tri_dispatch(25088, 64, 2, causal=True, triangular=True,
                             window=None) == (True, True)
-    q = torch.zeros(1, 25088, 1, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 64: flash_fwd_tri takes"):
-        tfa.flash_attention(q, q, q, triangular=True)
-    assert launches == []
+    with torch.no_grad():
+        for S in (24576, 25088):
+            q = torch.zeros(1, S, 1, 64, dtype=torch.bfloat16)
+            tfa.flash_attention(q, q, q, triangular=True)
+    (rect, a), (tri, b) = launches
+    assert (rect, a.D, a.Sq, tri, b.D, b.S) == (
+        "flash_fwd", 64, 24576, "flash_fwd_tri", 64, 25088)
+    assert b.ctas == 264 and b.ws_floats == 264 * 4 * 64 * 64
+    assert tri_grid == [("flash_fwd_tri", 64)]
 
 
 @pytest.mark.parametrize("D", [16, 32, 96])

@@ -53,14 +53,19 @@ def _rand(seed, *shapes):
 
 
 @pytest.mark.parametrize("with_lse", [True, False])
-@pytest.mark.parametrize("Hq,Hkv", [(2, 1), (4, 2)])
-def test_triangular_matches_jax_triangular(monkeypatch, Hq, Hkv, with_lse):
+@pytest.mark.parametrize("Hq,Hkv,D", [
+    pytest.param(2, 1, 32, id="2-1"), pytest.param(4, 2, 32, id="4-2"),
+    pytest.param(2, 1, 64, id="2-1-d64"),
+    pytest.param(4, 2, 64, id="4-2-d64")])
+def test_triangular_matches_jax_triangular(monkeypatch, Hq, Hkv, D,
+                                           with_lse):
     """Forward, gradients and (with_lse) an lse cotangent: the port's
     flash_attention[_with_lse](triangular=True) against the JAX tri kernels
-    in interpret mode (streaming forced, 128-blocks: a 3-row triangle)."""
+    in interpret mode (streaming forced, 128-blocks: a 3-row triangle), at
+    head dim 32 and 64 (the tri kernels take 64 on the card)."""
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
     monkeypatch.setattr(tfa, "RESIDENT_KV_BUDGET", 0)
-    S, D = 384, 32
+    S = 384
     q, k, v, g_out, g_lse = _rand(7, (1, S, Hq, D), (1, S, Hkv, D),
                                   (1, S, Hkv, D), (1, S, Hq, D), (1, Hq, S))
     if not with_lse:
@@ -427,12 +432,17 @@ def _hack_module(name):
     return mod
 
 
-@pytest.mark.parametrize("Hq,Hkv,window", [
-    pytest.param(2, 1, None, id="2-1"), pytest.param(4, 2, None, id="4-2"),
-    pytest.param(2, 1, 160, id="2-1-window"),
-    pytest.param(4, 2, 160, id="4-2-window")])
+@pytest.mark.parametrize("Hq,Hkv,window,D", [
+    pytest.param(2, 1, None, 128, id="2-1"),
+    pytest.param(4, 2, None, 128, id="4-2"),
+    pytest.param(2, 1, 160, 128, id="2-1-window"),
+    pytest.param(4, 2, 160, 128, id="4-2-window"),
+    pytest.param(2, 1, None, 64, id="2-1-d64"),
+    pytest.param(4, 2, None, 64, id="4-2-d64"),
+    pytest.param(2, 1, 160, 64, id="2-1-window-d64"),
+    pytest.param(4, 2, 160, 64, id="4-2-window-d64")])
 def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
-        monkeypatch, Hq, Hkv, window):
+        monkeypatch, Hq, Hkv, window, D):
     """ROADMAP Queue C 12: the bf16 tensor-core kernels round P (as bf16
     hi + lo in the forward, once in dK/dV) and dS to bf16 before their
     second product; the JAX kernels keep both in f32. The CPU replay of the
@@ -444,10 +454,11 @@ def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
     within 5e-3, lse within 5e-5, half the card's 1e-2 and 1e-4, so
     rounding alone never spends the card's tolerance; with a window the
     rectangular flash_bwd_dkv's dK and dV, from the plain forward's out and
-    lse, against the JAX rectangular kernels' VJP, within 5e-3."""
+    lse, against the JAX rectangular kernels' VJP, within 5e-3; at head
+    dim 128 and 64 (the D = 64 kernels round at the same points)."""
     replay = _hack_module("torch_tri_bf16_replay")
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
-    S, D = 384, 128
+    S = 384
     q, k, v, dout = replay.inputs(21, 1, S, Hq, Hkv, D)
     outs, vjp = jax.vjp(lambda *a: jfa.flash_attention_with_lse(
         *a, triangular=window is None, window=window, block_q=128,
@@ -503,9 +514,10 @@ def test_tri_wrapper_refuses_misaligned_bf16_copies():
 
 def test_tri_wrapper_checks_before_it_builds():
     """_launch_tri refuses what the kernels do not take before it asks for
-    the kernel library (which needs nvcc and a card)."""
-    q = torch.zeros(1, 128, 4, 64)
-    with pytest.raises(ValueError, match="head dim"):
+    the kernel library (which needs nvcc and a card): head dim 32 (the
+    kernels take 64 and 128)."""
+    q = torch.zeros(1, 128, 4, 32)
+    with pytest.raises(ValueError, match="head dim 32"):
         tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
                         scale=1.0)
     q = torch.zeros(1, 128, 4, 128)

@@ -9,6 +9,7 @@
 """
 
 import ctypes
+import inspect
 import re
 import shutil
 from pathlib import Path
@@ -18,6 +19,7 @@ import torch
 
 from gpu_provisioner_tpu_torch import bench as tbench
 from gpu_provisioner_tpu_torch import entry as tentry
+from gpu_provisioner_tpu_torch import onchip_checks as tonchip
 from gpu_provisioner_tpu_torch.examples import serve as tserve
 from gpu_provisioner_tpu_torch.examples import train_resume
 from gpu_provisioner_tpu_torch.models import checkpoint as tck
@@ -244,6 +246,19 @@ def test_serving_surfaces_without_device_raise_when_cuda_is_absent():
                     max_new_tokens=2, device="cpu", mesh=CudaMesh())
 
 
+def test_onchip_checks_read_by_the_import_rule_raise_without_cuda():
+    """The twin of hack/tpu_onchip_checks.py lies in the package, where the
+    import rule reads it, and its entry (``python3 -m
+    gpu_provisioner_tpu_torch.onchip_checks``) runs on cuda: without a card
+    it raises before any check."""
+    files = {f.relative_to(ROOT).as_posix() for f in _port_files()}
+    assert "gpu_provisioner_tpu_torch/onchip_checks.py" in files
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tonchip.main()
+
+
 def _header_fields(struct: str) -> list:
     header = (_cuda.CSRC / "flash_common.cuh").read_text()
     body = re.search(rf"struct {struct} \{{(.*?)\}};", header, re.S).group(1)
@@ -279,16 +294,21 @@ def test_flash_tri_args_mirror_the_cuda_struct():
 def test_tri_grid_query_names_every_tri_entry():
     """flash_tri_ctas(which, ...) and flash_tri_ws_floats(which, ...)
     number the three tri entries as the source's enum does, and both take
-    the act dtype (the bf16 dK/dV tile edge differs from the f32 one)."""
+    the act dtype (the bf16 dK/dV tile edge differs from the f32 one) and
+    the head dim (the blocks an SM and the workspace's rows depend on it),
+    as _cuda types them."""
     text = (_cuda.CSRC / "flash_tri.cu").read_text()
     assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", text)
     assert _cuda.TRI_WHICH == {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1,
                                "flash_bwd_dkv_tri": 2}
     assert {e for e, (src, _) in _cuda.ENTRIES.items()
             if src == "flash_tri"} == set(_cuda.TRI_WHICH)
-    assert 'extern "C" int flash_tri_ctas(int which, int act_dtype)' in text
+    assert ('extern "C" int flash_tri_ctas(int which, int act_dtype, '
+            'int head_dim)') in text
     assert ('extern "C" long long flash_tri_ws_floats(int which, '
-            'int act_dtype)') in text
+            'int act_dtype, int head_dim)') in text
+    for fn in (_cuda.tri_ctas, _cuda.tri_ws_floats):
+        assert "head_dim" in inspect.signature(fn).parameters
 
 
 def test_bwd_dkv_grid_query_is_declared():
