@@ -253,7 +253,28 @@ Phases, each of which exits non-zero on a failed check:
    once each (``d64_long``); (d) the twin of hack/tpu_onchip_checks.py
    (gpu_provisioner_tpu_torch/onchip_checks.py) in this process, every
    check ok;
-then the phase-2, 9, 10, 14 and 16 rows' device times, the card line,
+18. head dims 32 and 16 in serving (the D = 32 and 16 instances of #1/#2,
+   #4 and #5): (a) in phase 1, each source's nvcc seconds and the ptxas
+   registers, spills and HGMMA of the new tensor-core instances and of
+   the timed decode ones (whose C entry is flash_decode_narrow); (b)
+   #1/#2 (causal and not, a window, a ragged S through the launch), #4 on
+   a bf16 and an int8 cache and #5 on both (SMALL_CACHE_CASES: the fast
+   bench_engine model's admission, pads, a window with sinks, a decode
+   step at per-row starts, verify blocks of 5 and 16) at head dims 32 (Hq
+   8 / Hkv 4) and 16 (4 / 2), bf16 (1e-2) and f32 (1e-4), against their
+   plain versions, then the bf16 calls timed (a fresh prefill at B=2,
+   S=128; an admission at S=128, ML 512; a decode step at B=2 and a
+   verify block of 5) beside SDPA and the bound (the ``*_d32`` and
+   ``*_d16`` rows of the kernels line); (c) in f32, tiny (4/2 heads of
+   16), the fast bench_engine model (8/4 of 32) and tiny-moe with flash
+   against dense: logits, generate, an int8 generate, a ServeEngine pass;
+   (d) bf16: the fast bench_moe_decode and bench_engine twins at 8/4 heads
+   of 32 and their models through the kernels, then tiny and tiny-moe,
+   each head dim's launches read (the five forward kernels, each at least
+   once, and nothing else: ``d32_serving``, ``d16_serving``), and a
+   backward and a triangular=True backward at head dim 32 refused, naming
+   it, before any backward launch;
+then the phase-2, 9, 10, 14, 16 and 18 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
 
@@ -377,10 +398,12 @@ DECODE_INSTANCES = {
     "flash_decode_int8": "flash_decode_kernelI13__nv_bfloat16aLi128ELi4E"}
 
 
-def decode_build_report(logs, instances=DECODE_INSTANCES):
+def decode_build_report(logs, instances=DECODE_INSTANCES,
+                        source="flash_decode"):
     """ptxas's registers and spills of the timed flash_decode instances
-    (when this run built the library; FMA kernels: no HGMMA)."""
-    info = ptxas_info(logs.get("flash_decode", ""))
+    of ``source`` (when this run built the library; FMA kernels: no
+    HGMMA)."""
+    info = ptxas_info(logs.get(source, ""))
     report = {row: next((v for k, v in info.items() if part in k), None)
               for row, part in instances.items()}
     for row, ptxas in report.items():
@@ -455,35 +478,42 @@ def device_ms(fn, flush, names=None, reps=20, warm=3):
     return spun_ms(fn, flush, reps), "spun events"
 
 
-SPIN_MS = 1.0
+SPIN_MS, SPIN_MAX_MS = 1.0, 64.0
 
 
 def spun_ms(fn, flush, reps=20):
     """Median device time of one fn() call by CUDA events queued behind a
-    SPIN_MS spin kernel (torch.cuda._sleep): the host queues both events
-    and fn's launches while the card spins, so the events hold no host
-    time, only fn's kernels and the gaps between them on the card; fails
-    when the host took longer than the spin to queue them."""
+    spin kernel (torch.cuda._sleep): the host queues both events and fn's
+    launches while the card spins, so the events hold no host time, only
+    fn's kernels and the gaps between them on the card. A call is kept
+    only when the host queued it within its spin; one that took longer is
+    timed again behind a spin twice as long, from SPIN_MS up to
+    SPIN_MAX_MS. Fails when the host took longer than that."""
     import torch
     a, b, s = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     s.record()
     torch.cuda._sleep(1 << 20)
     a.record()
     a.synchronize()
-    cycles = int((1 << 20) * SPIN_MS / s.elapsed_time(a))
-    times = []
-    for _ in range(reps):
+    per_ms = (1 << 20) / s.elapsed_time(a)
+    spin, times = SPIN_MS, []
+    while len(times) < reps:
         flush.zero_()
-        torch.cuda._sleep(cycles)
+        torch.cuda._sleep(int(per_ms * spin))
         t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         b.synchronize()
-        check(host_ms < SPIN_MS, f"spun_ms: the host took {host_ms:.3f} ms "
-              f"to queue the call, longer than the {SPIN_MS} ms spin")
-        times.append(a.elapsed_time(b))
+        if host_ms < spin:
+            times.append(a.elapsed_time(b))
+            continue
+        check(spin < SPIN_MAX_MS, f"spun_ms: the host took {host_ms:.3f} "
+              f"ms to queue the call, longer than the {spin} ms spin")
+        spin *= 2
+        print(f"spun_ms: the host took {host_ms:.3f} ms to queue the call; "
+              f"spinning {spin} ms", file=sys.stderr)
     return statistics.median(times)
 
 
@@ -3445,10 +3475,11 @@ def phase_serve_surfaces(torch, bench, entry, tfa):
         launches[name] = dict(tfa.LAUNCHES)
         print(f"{name}(fast) in {time.perf_counter() - t0:.1f} s: "
               f"{json.dumps(twins[name])}; launches {launches[name]}")
-        # bench_moe_decode's fast budget (S0 + new = 144 tokens) tiles for
-        # no kernel, in the JAX section as here: dense attention throughout
+        # bench_moe_decode's fast budget (S0 + new = 144 tokens) tiles at
+        # block 144 (_auto_block), in the JAX section as here: its prefill
+        # takes #4 (the MoE family has no fresh prefill), its steps #5
         kernels = {"bench_decode": ("flash_fwd", "flash_decode"),
-                   "bench_moe_decode": (),
+                   "bench_moe_decode": ("flash_cached", "flash_decode"),
                    "bench_engine": ("flash_cached", "flash_decode"),
                    "bench_cached_prefill": ("flash_cached",)}[name]
         check(all(launches[name][k] > 0 for k in kernels),
@@ -4309,6 +4340,458 @@ def phase_onchip_twin(torch, onchip, dev):
     return len(lines)
 
 
+# phase 18: head dims 32 and 16 in serving. The fast bench_engine and
+# bench_moe_decode models (JAX bench.py:486-490 and :529-531: dim 256, 8/4
+# heads of 32) and the tiny / tiny-moe presets (dim 64, 4/2 heads of 16)
+# serve at their own heads through the D = 32 and 16 instances of #1/#2,
+# #4 and #5; the backward and triangle kernels take 64 and 128 only
+SMALL_HEADS = {32: (8, 4), 16: (4, 2)}     # head dim: its models' Hq, Hkv
+SMALL_ML = 512                             # the fast bench_engine max_len
+# the new tensor-core and timed decode instances: (source, a substring of
+# the mangled name); R = 4 rows a unit at S=1 and group 2
+TC_KERNELS_SMALL = {
+    f"{row}_d{D}": ("flash_fwd", f"flash_fwd_tc_kernel{part}Li{D}E")
+    for D in SMALL_HEADS
+    for row, part in (("flash_fwd", "I13__nv_bfloat16"),
+                      ("flash_cached_int8", "Ia"))}
+DECODE_INSTANCES_SMALL = {
+    f"{row}_d{D}": f"flash_decode_kernel{part}Li{D}ELi4E"
+    for D in SMALL_HEADS
+    for row, part in (("flash_decode", "I13__nv_bfloat16S1_"),
+                      ("flash_decode_int8", "I13__nv_bfloat16a"))}
+# (B, S, start, pads, window, sinks) of #4 and #5 at ML 512: the fast
+# bench_engine model's admission (S=128 at start 0, a 192-token prompt),
+# a left-padded prefill after a prefix, a window with sinks, a ragged S;
+# a decode step at per-row starts and pads, a window with sinks, verify
+# blocks of 5 and 16
+SMALL_CACHE_CASES = (
+    (1, 128, 0, None, None, 0), (1, 192, 0, None, None, 0),
+    (2, 192, 64, [0, 37], None, 0), (1, 128, 300, [7], 128, 4),
+    (2, 200, 100, [0, 20], 128, 4), (2, 1, [300, 37], [0, 5], None, 0),
+    (2, 1, [480, 200], [0, 130], 128, 4), (2, 5, [400, 60], [3, 0], None, 0),
+    (1, 16, 200, None, None, 0))
+SMALL_STARTS, SMALL_PADS = [300, 200], [0, 12]   # the timed decode step
+
+
+def phase_small_kernels(torch, tfa, td, dev, deferred):
+    """Phase 18 (b): #1/#2 (causal and not, a window, a ragged S), #4 on a
+    bf16 and an int8 cache and #5 on both (SMALL_CACHE_CASES) at head dims
+    32 (Hq 8 / Hkv 4) and 16 (4 / 2), in bf16 (1e-2) and f32 (1e-4),
+    against their plain versions; then the bf16 calls timed at the fast
+    bench_engine model's shapes (a fresh prefill at B=2, S=128; an
+    admission at S=128, start 0, ML 512; a decode step at B=2 and per-row
+    starts, a verify block of 5) beside SDPA and the bound, and #1, #4
+    and #5 at the bf16 head-dim-64 rows' shapes (``at_d64_shape``), their
+    device times joining ``deferred``. Returns the kernels line's ``*_d32`` and
+    ``*_d16`` rows (launches filled later)."""
+    import torch.nn.functional as F
+    g = torch.Generator(dev).manual_seed(SEED + 81)
+    bf = torch.bfloat16
+    errs = {}
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def held(row, D, dtype, what, e, e_lse=None):
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"{row} at head dim {D}, {dtype} {what}: max|out-plain| {e:.3g}"
+              + ("" if e_lse is None else f" |lse-plain| {e_lse:.3g}")
+              + f" (tol {tol})")
+        check(e <= tol and (e_lse is None or e_lse <= 1e-4),
+              f"{row} disagrees with plain at head dim {D}: {what}")
+        if dtype == bf:
+            errs[row, D] = max(errs.get((row, D), 0.0), e)
+
+    def cache(dtype, B, Hkv, D, int8):
+        kc, vc = (rnd(B, Hkv, SMALL_ML, D, dtype=dtype) for _ in range(2))
+        if not int8:
+            return kc, vc, {}
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        return k8, v8, {"k_scale": ks, "v_scale": vs}
+
+    for D, (Hq, Hkv) in SMALL_HEADS.items():
+        for dtype in (bf, torch.float32):
+            for B, S, causal, window in ((2, 128, True, None),
+                                         (2, 128, False, None),
+                                         (1, 512, True, 200),
+                                         (2, 200, False, None)):
+                q = rnd(B, S, Hq, D, dtype=dtype)
+                k, v = (rnd(B, S, Hkv, D, dtype=dtype).transpose(1, 2)
+                        for _ in range(2))
+                # S=200 tiles for no JAX block: the launch itself
+                out, lse = tfa._launch("flash_fwd", q, k, v, 0,
+                                       causal=causal, scale=D ** -0.5,
+                                       window=window, want_lse=True)
+                ref, ref_lse = tfa.attention_plain(q, k, v, 0, causal=causal,
+                                                   window=window)
+                held("flash_fwd", D, dtype, f"B={B} S={S} causal={causal} "
+                     f"window={window}", err(out, ref), err(lse, ref_lse))
+            for B, S, start, pads, window, sinks in SMALL_CACHE_CASES:
+                for int8 in (False, True):
+                    q = rnd(B, S, Hq, D, dtype=dtype)
+                    kc, vc, kw = cache(dtype, B, Hkv, D, int8)
+                    kw.update(window=window, sinks=sinks)
+                    if pads is not None:
+                        kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
+                                                      device=dev)
+                    st = (torch.tensor(start, dtype=torch.int32, device=dev)
+                          if isinstance(start, list) else start)
+                    decode = S <= tfa.DECODE_MAX_S
+                    if decode:
+                        got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
+                    else:
+                        got, _ = tfa._launch("flash_fwd", q, kc, vc, st,
+                                             causal=True, scale=D ** -0.5,
+                                             **kw)
+                    row = ("flash_decode" if decode else "flash_cached") \
+                        + ("_int8" if int8 else "")
+                    held(row, D, dtype, f"B={B} S={S} start={start} "
+                         f"pads={pads} window={window} sinks={sinks}",
+                         err(got, tfa.attention_plain(q, kc, vc, st,
+                                                      **kw)[0]))
+    torch.cuda.synchronize()
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    src = "gpu_provisioner_tpu_torch/ops/csrc/"
+    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
+    rows = []
+    kp = torch.arange(SMALL_ML, device=dev)
+    st = torch.tensor(SMALL_STARTS, dtype=torch.int32, device=dev)
+    pads = torch.tensor(SMALL_PADS, dtype=torch.int32, device=dev)
+
+    def row(name, D, source, replaces, shape, kernel, plain, library,
+            ops_bytes, names):
+        r = {"name": f"{name}_d{D}", "route": "cuda", "source": src + source,
+             "replaces": f"{tpu}{replaces}, head dim {D}", "launches": 0,
+             "max_abs_err": errs[name, D], "tolerance": TOL["bfloat16"],
+             "shape": shape, **timing(kernel, plain, library, ops_bytes,
+                                      flush)}
+        if library is None:
+            r["library_note"] = "no single PyTorch call attends over an " \
+                                "int8 cache"
+        deferred.append((r, kernel, library, names))
+        rows.append(r)
+        print(f"{r['name']}: {json.dumps(r)}")
+        return r
+
+    def decode_timed(S, q, kc, vc, Hq, Hkv, D, **kw):
+        mask = ((kp[None, None, :] <= st[:, None, None]
+                 + torch.arange(S, device=dev)[None, :, None])
+                & (kp[None, None, :] >= pads[:, None, None]))[:, None]
+        int8 = "k_scale" in kw
+        return (lambda: tfa.flash_attention_decode(q, kc, vc, st,
+                                                   pad_lens=pads, **kw),
+                lambda: tfa.attention_plain(q, kc, vc, st, pad_lens=pads,
+                                            **kw),
+                None if int8 else (lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc, vc, attn_mask=mask,
+                    enable_gqa=True)),
+                work(2, S, Hq, Hkv, D, SMALL_ML, st, pads, None, 0, True, 2,
+                     1 if int8 else 2, int8, False))
+
+    for D, (Hq, Hkv) in SMALL_HEADS.items():
+        B, S = 2, 128
+        q = rnd(B, S, Hq, D)
+        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        row("flash_fwd", D, "flash_fwd.cu",
+            "70 (_kernel_resident), :202 (_kernel)",
+            f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
+            lambda q=q, k=k, v=v: tfa.flash_attention_with_lse(q, k, v),
+            lambda q=q, k=k, v=v: tfa.attention_plain(
+                q, k.transpose(1, 2), v.transpose(1, 2), 0),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True),
+            work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2, False,
+                 True), ("flash_fwd_tc_kernel",))
+        # an admission (one request, S=128 at start 0) and a decode step
+        # (two slots at their own starts and pads), on a bf16 and an int8
+        # cache of the same values
+        qa, q1 = rnd(1, S, Hq, D), rnd(2, 1, Hq, D)
+        kc, vc, _ = cache(bf, 2, Hkv, D, False)
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        amask = (kp[None, :] <= torch.arange(S, device=dev)[:, None])
+        for int8, (kk, vv, kw) in ((False, (kc, vc, {})),
+                                   (True, (k8, v8, {"k_scale": ks,
+                                                    "v_scale": vs}))):
+            a_kw = {n: t[:1] for n, t in kw.items()}
+            ka, va = kk[:1], vv[:1]
+            tag = "_int8" if int8 else ""
+            row("flash_cached" + tag, D, "flash_fwd.cu",
+                "468 (_kernel_cached)" + (", int8 cache" if int8 else ""),
+                f"B=1 S={S} start=0 ML={SMALL_ML} Hq={Hq} Hkv={Hkv} D={D}",
+                lambda qa=qa, ka=ka, va=va, a_kw=a_kw:
+                    tfa.flash_attention_cached(qa, ka, va, 0, **a_kw),
+                lambda qa=qa, ka=ka, va=va, a_kw=a_kw:
+                    tfa.attention_plain(qa, ka, va, 0, **a_kw),
+                None if int8 else (
+                    lambda qa=qa, ka=ka, va=va: F.scaled_dot_product_attention(
+                        qa.transpose(1, 2), ka, va, attn_mask=amask,
+                        enable_gqa=True)),
+                work(1, S, Hq, Hkv, D, SMALL_ML, 0, None, None, 0, True, 2,
+                     1 if int8 else 2, int8, False), ("flash_fwd_tc_kernel",))
+            r = row("flash_decode" + tag, D, "flash_decode_narrow.cu",
+                    "660 (_kernel_decode)" + (", int8 cache" if int8 else ""),
+                    f"B=2 S=1 starts={SMALL_STARTS} pads={SMALL_PADS} "
+                    f"ML={SMALL_ML} Hq={Hq} Hkv={Hkv} D={D}",
+                    *decode_timed(1, q1, kk, vv, Hq, Hkv, D, **kw),
+                    names=("flash_decode",))
+            r["verify_blocks"] = {"S=5": timing(
+                *decode_timed(5, rnd(2, 5, Hq, D), kk, vv, Hq, Hkv, D, **kw),
+                flush)}
+            print(f"{r['name']} verify block: "
+                  f"{json.dumps(r['verify_blocks'])}")
+    # the same attention pairs and heads as the bf16 head-dim-64 rows (16/8
+    # heads; a fresh prefill of B=8, S=512, the admission of that prompt at
+    # ML 640 and a decode step at start 600), so that a row's time reads
+    # beside the D = 64 one's; device times deferred with the rows'
+    B, S, ml = D64_TWIN
+    Hq, Hkv = 16, 8
+    for D in SMALL_HEADS:
+        q, q1 = rnd(B, S, Hq, D), rnd(B, 1, Hq, D)
+        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        kc, vc = (rnd(B, Hkv, ml, D) for _ in range(2))
+        calls = {
+            "flash_fwd": (lambda q=q, k=k, v=v: tfa.flash_attention_with_lse(
+                              q, k, v),
+                          lambda q=q, k=k, v=v: tfa.attention_plain(
+                              q, k.transpose(1, 2), v.transpose(1, 2), 0),
+                          work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2,
+                               2, False, True), "flash_fwd_tc_kernel"),
+            "flash_cached": (lambda q=q, kc=kc, vc=vc:
+                             tfa.flash_attention_cached(q, kc, vc, 0),
+                             lambda q=q, kc=kc, vc=vc: tfa.attention_plain(
+                                 q, kc, vc, 0),
+                             work(B, S, Hq, Hkv, D, ml, 0, None, None, 0,
+                                  True, 2, 2, False, False),
+                             "flash_fwd_tc_kernel"),
+            "flash_decode": (lambda q1=q1, kc=kc, vc=vc:
+                             tfa.flash_attention_decode(q1, kc, vc, 600),
+                             lambda q1=q1, kc=kc, vc=vc: tfa.attention_plain(
+                                 q1, kc, vc, 600),
+                             work(B, 1, Hq, Hkv, D, ml, 600, None, None, 0,
+                                  True, 2, 2, False, False), "flash_decode")}
+        for name, (kernel, plain, ops_bytes, names) in calls.items():
+            r = next(r for r in rows if r["name"] == f"{name}_d{D}")
+            at = r["at_d64_shape"] = {
+                "shape": f"as the {name}_d64 row, Hq={Hq} Hkv={Hkv} D={D}",
+                **timing(kernel, plain, None, ops_bytes, flush)}
+            deferred.append((at, kernel, None, (names,)))
+            print(f"{r['name']} at the head-dim-64 row's shape: "
+                  f"{json.dumps(at)}")
+    del flush
+    return rows
+
+
+def small_logits(torch, td, fwd, params, cfg, dev, g):
+    """max |flash - dense| of the f32 logits of a 128-token prompt through
+    ``fwd`` (decode.cached_forward or moe_serve.moe_cached_forward: #4 on
+    an empty cache) and one decode step after it (#5), each side on its
+    own cache of max_len 256."""
+    toks = torch.randint(1, cfg.vocab_size, (2, 129), generator=g).to(dev)
+    outs = []
+    for impl in ("flash", "dense"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        cache = td.init_kv_cache(c, 2, 256, device=dev)
+        a, cache = fwd(params, toks[:, :128], cache, c)
+        b, _ = fwd(params, toks[:, 128:], cache, c)
+        outs.append(torch.cat([a, b], dim=1))
+    return (outs[0] - outs[1]).abs().max().item()
+
+
+def phase_small_exact(torch, tl, tm, td, te, tms, bench, dev):
+    """Phase 18 (c): in f32 (the kernels' f32 instances), the tiny preset
+    (4/2 heads of 16), the fast bench_engine model (8/4 of 32) and
+    tiny-moe (4/2 of 16) with flash attention against dense on the card:
+    the logits of a prompt and a decode step within 1e-4 on an f32 cache
+    and 2e-2 on an int8 one (a value that the two sides' hidden states,
+    1e-6 apart, put on either side of a quantisation boundary lands one
+    step apart: at dim 256, one V element a quantum apart where its
+    attention weight is 1 moves the logits by 7.4e-3 a layer, ROADMAP
+    Queue C 2); greedy generate (fresh for the dense family, left-padded)
+    and an int8-cache generate token-equal; a ServeEngine pass (the dense
+    family with a shared prefix) with streams equal to dense's."""
+    g = torch.Generator().manual_seed(SEED + 82)
+    report = {}
+    models = (("tiny", tl.PRESETS["tiny"], tl.init_params, td.cached_forward),
+              ("fast bench_engine", bench.engine_config(True), tl.init_params,
+               td.cached_forward),
+              ("tiny-moe", tm.PRESETS_MOE["tiny-moe"], tm.init_moe_model,
+               tms.moe_cached_forward))
+    for name, cfg, init, fwd in models:
+        cfg = dataclasses.replace(cfg, dtype="float32", attn_impl="flash")
+        check(cfg.head_dim in SMALL_HEADS, f"{name}: head dim {cfg.head_dim}")
+        moe = isinstance(cfg, tm.MoEConfig)
+        V = cfg.vocab_size
+        params = init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+
+        def toks(n):
+            return torch.randint(1, V, (n,), generator=g).tolist()
+
+        def both(fn):
+            return [fn(dataclasses.replace(cfg, attn_impl=impl))
+                    for impl in ("flash", "dense")]
+
+        logits = [small_logits(torch, td, fwd, params,
+                               dataclasses.replace(cfg, kv_cache_dtype=kv),
+                               dev, g) for kv in ("auto", "int8")]
+        check(logits[0] <= 1e-4 and logits[1] <= 2e-2, f"{name}: flash "
+              f"logits differ from dense by {logits} (f32, int8 cache)")
+        fresh = torch.tensor([toks(128), toks(128)])
+        ragged = torch.tensor([toks(128), toks(128)])
+        ragged[1, :37] = 0
+        runs = {"generate": lambda c: td.generate(
+                    params, ragged if moe else fresh, c, max_new_tokens=8,
+                    max_len=256, pad_id=0 if moe else None, device=dev),
+                "int8 generate": lambda c: td.generate(
+                    params, ragged, dataclasses.replace(
+                        c, kv_cache_dtype="int8"), max_new_tokens=8,
+                    max_len=256, pad_id=0, device=dev)}
+        for what, fn in runs.items():
+            a, b = both(fn)
+            check(torch.equal(a, b), f"{name} {what}: flash {a.tolist()} != "
+                  f"dense {b.tolist()}")
+        prefix = None if moe else toks(40)
+        reqs = [(toks(n), prefix if i % 3 == 2 else None)
+                for i, n in enumerate((100, 60, 128, 30, 80))]
+
+        def serve(c):
+            eng = te.ServeEngine(params, c, slots=2, max_len=512,
+                                 prefill_buckets=(128, 256), device=dev)
+            ids = [eng.submit(p, 6, prefix=pre) for p, pre in reqs]
+            out = eng.run()
+            return [out[i] for i in ids]
+
+        a, b = both(serve)
+        check(a == b, f"{name} engine streams: flash {a} != dense {b}")
+        report[name] = {"head_dim": cfg.head_dim, "heads": [
+            cfg.n_heads, cfg.n_kv_heads], "max_logit_diff": logits}
+        print(f"head dim {cfg.head_dim} exact ({name}, f32): logits flash - "
+              f"dense {logits} (f32, int8 cache); generate, int8 generate "
+              f"and {len(reqs)} engine streams flash == dense")
+        del params
+    return report
+
+
+def phase_small_serving(torch, tl, tm, td, te, tfa, bench, dev):
+    """Phase 18 (d), bf16: the fast bench_moe_decode twin at (2, 128, 16
+    new) (its prefill on #4, its steps on #5: a budget of 144 tiles at
+    block 144) and the fast bench_engine twin, both at 8/4 heads of 32,
+    then their models through the kernels: a fresh and an int8-cache
+    generate of the bench_engine model and a generate of the
+    bench_moe_decode model at max_len 256; then tiny and tiny-moe (4/2
+    heads of 16): a fresh and an int8-cache generate, an engine pass with
+    a shared prefix, an MoE generate. The five forward kernels' launches
+    are read across each head dim's run, each at least once and nothing
+    else launched; then a backward and a triangular=True backward at head
+    dim 32 raise ValueError naming it, with no backward or triangle
+    launch. Returns ({32: launches, 16: launches}, report)."""
+    g = torch.Generator().manual_seed(SEED + 83)
+    launches, report = {}, {}
+
+    def gen(params, cfg, B=2, S0=128, new=16, pads=False, int8=False):
+        prompt = torch.randint(1, cfg.vocab_size, (B, S0), generator=g)
+        if pads:
+            prompt[1, :37] = 0
+        if int8:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        t0 = time.perf_counter()
+        out = td.generate(params, prompt, cfg, max_new_tokens=new,
+                          max_len=256, pad_id=0 if pads else None,
+                          device=dev)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (B, new)
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"generate at head dim {cfg.head_dim}: {tuple(out.shape)}")
+        return B * new / (time.perf_counter() - t0)
+
+    tfa.reset_launches()
+    for name in ("bench_moe_decode", "bench_engine"):
+        t0 = time.perf_counter()
+        report[name] = getattr(bench, name)(True)
+        print(f"{name} (fast: 8/4 heads of 32) in "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(report[name])}")
+    check(report["bench_engine"]["engine_tokens"]
+          == sum(8 + 8 * (i % 4) for i in range(bench.ENGINE_SHAPE[True][2])),
+          f"bench_engine tokens {report['bench_engine']}")
+    cfg = bench.engine_config(True)
+    moe = bench.moe_decode_config(True)
+    check(cfg.head_dim == moe.head_dim == 32,
+          f"head dims {cfg.head_dim}, {moe.head_dim}")
+    params = tl.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    report["engine_model_generate_tokens_per_s"] = gen(params, cfg)
+    report["engine_model_int8_generate_tokens_per_s"] = gen(
+        params, cfg, pads=True, int8=True)
+    params = tm.init_moe_model(moe, torch.Generator(dev).manual_seed(SEED),
+                               dev)
+    report["moe_model_generate_tokens_per_s"] = gen(params, moe, pads=True)
+    launches[32] = dict(tfa.LAUNCHES)
+
+    tfa.reset_launches()
+    tiny = dataclasses.replace(tl.PRESETS["tiny"], attn_impl="flash")
+    tiny_moe = dataclasses.replace(tm.PRESETS_MOE["tiny-moe"],
+                                   attn_impl="flash")
+    params = tl.init_params(tiny, torch.Generator(dev).manual_seed(SEED), dev)
+    report["tiny_generate_tokens_per_s"] = gen(params, tiny)
+    report["tiny_int8_generate_tokens_per_s"] = gen(params, tiny, pads=True,
+                                                    int8=True)
+    eng = te.ServeEngine(params, tiny, slots=2, max_len=512,
+                         prefill_buckets=(128, 256), device=dev)
+    prefix = torch.randint(1, tiny.vocab_size, (40,), generator=g).tolist()
+    t0 = time.perf_counter()
+    for i, n in enumerate((100, 60, 128, 30)):
+        eng.submit(torch.randint(1, tiny.vocab_size, (n,),
+                                 generator=g).tolist(), 8,
+                   prefix=prefix if i % 2 else None)
+    eng.run()
+    torch.cuda.synchronize()
+    report["tiny_engine_tokens_per_s"] = \
+        eng.stats()["tokens_emitted"] / (time.perf_counter() - t0)
+    params = tm.init_moe_model(tiny_moe, torch.Generator(dev).manual_seed(
+        SEED), dev)
+    report["tiny_moe_generate_tokens_per_s"] = gen(params, tiny_moe,
+                                                   pads=True)
+    launches[16] = dict(tfa.LAUNCHES)
+    del params, eng
+    for D, counts in launches.items():
+        print(f"head dim {D} launches: {counts}")
+        for name, n in counts.items():
+            check((n > 0) == (name in D64_ROWS),
+                  f"kernel {name}: {n} launches on the head-dim-{D} path")
+
+    # the backward and triangle kernels refuse head dim 32 before a launch
+    Hq, Hkv = SMALL_HEADS[32]
+    gq = torch.Generator(dev).manual_seed(SEED + 84)
+    for triangular in (False, True):
+        q, k, v = (torch.randn(1, 128, h, 32, generator=gq, device=dev)
+                   .to(torch.bfloat16).requires_grad_()
+                   for h in (Hq, Hkv, Hkv))
+        tfa.reset_launches()
+        out = tfa.flash_attention(q, k, v, triangular=triangular)
+        try:
+            out.float().sum().backward()
+        except ValueError as e:
+            check("head dim 32" in str(e), f"backward at head dim 32: {e}")
+        else:
+            check(False, "a backward at head dim 32 ran")
+        check({n: c for n, c in tfa.LAUNCHES.items() if c}
+              == {"flash_fwd": 1},
+              f"triangular={triangular} at head dim 32: {tfa.LAUNCHES}")
+        try:
+            tfa._launch_tri("flash_fwd_tri", q.detach(), k.detach(),
+                            v.detach(), scale=1.0)
+        except ValueError as e:
+            check("head dim 32" in str(e), f"flash_fwd_tri at 32: {e}")
+        else:
+            check(False, "flash_fwd_tri launched at head dim 32")
+    report["refusals"] = "backward, triangular=True backward, flash_fwd_tri"
+    print(f"head dims 32 and 16 serving: {json.dumps(report)}")
+    return launches, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4342,7 +4825,8 @@ def main() -> int:
           f"; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
     logs = _cuda.build()
-    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
+          f"(seconds a source: {json.dumps(_cuda.BUILD_SECONDS)})")
     for name, log in logs.items():
         for fn, info in ptxas_info(log).items():
             print(f"  {name}: {fn}: {info}")
@@ -4353,6 +4837,10 @@ def main() -> int:
     d64_decode_report = decode_build_report(logs, DECODE_INSTANCES_D64)
     print("head dim 64 in training (phase 17):")
     d64_tc_report.update(tc_build_report(_cuda, logs, TC_KERNELS_D64_TRAIN))
+    print("head dims 32 and 16 (phase 18):")
+    small_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_SMALL)
+    small_decode_report = decode_build_report(logs, DECODE_INSTANCES_SMALL,
+                                              "flash_decode_narrow")
 
     t0 = time.perf_counter()
     rows, deferred = phase_kernels(torch, tfa, td, dev)
@@ -4490,6 +4978,21 @@ def main() -> int:
     print(f"on-card checks {time.perf_counter() - t0:.1f} s; head dim 64 "
           f"training phase {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
+    t18 = t0 = time.perf_counter()
+    small_rows = phase_small_kernels(torch, tfa, td, dev, deferred)
+    print(f"head dims 32 and 16 kernels {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small_exact = phase_small_exact(torch, tl, tm, td, te, tms, bench, dev)
+    print(f"head dims 32 and 16 exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small, small_report = phase_small_serving(torch, tl, tm, td, te, tfa,
+                                              bench, dev)
+    small_report["exact"] = small_exact
+    print(f"head dims 32 and 16 serving {time.perf_counter() - t0:.1f} s; "
+          f"head dims 32 and 16 phase {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -4535,11 +5038,11 @@ def main() -> int:
                 r["launches_by_path"][path] = {
                     run: [g[name] for g in ranks]
                     for run, ranks in runs.items()}
-            # bench_decode's fast model runs at head dim 64 (the D = 64
-            # rows take its launches)
-            r["launches_by_path"].update(
-                {k: v[name] for k, v in by_serve_twin.items()
-                 if k != "bench_decode"})
+            # bench_decode's fast model runs at head dim 64, bench_engine's
+            # and bench_moe_decode's at 32 (the D = 64 and D = 32 rows
+            # take their launches)
+            r["launches_by_path"]["bench_cached_prefill"] = \
+                by_serve_twin["bench_cached_prefill"][name]
         if name in moe_shape:
             r["at_moe_shape"] = moe_shape[name]
             r["max_abs_err"] = max(r["max_abs_err"], moe_errs[name])
@@ -4582,9 +5085,25 @@ def main() -> int:
                              else "d64_train"][name]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         r.update(d64_tc_report.get(r["name"], {}))
-    rows += d64_rows + d64_train_rows
+    # the head-dim-32 and 16 instances: launches across phase 18's runs
+    # at each head dim (and the fast bench_engine and bench_moe_decode
+    # twins of phase 14, at 32), ptxas of the timed ones
+    for r in small_rows:
+        name, D = r["name"].rsplit("_d", 1)
+        r["launches"] = small[int(D)][name]
+        r["launches_by_path"] = {f"d{D}_serving": small[int(D)][name]}
+        if D == "32":
+            r["launches_by_path"].update(
+                {k: by_serve_twin[k][name]
+                 for k in ("bench_engine", "bench_moe_decode")})
+        r.update(small_tc_report.get(r["name"], {}))
+        if r["name"] in small_decode_report:
+            r["ptxas"] = small_decode_report[r["name"]]
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+    rows += d64_rows + d64_train_rows + small_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
+    print(f"head dims 32 and 16: {json.dumps(small_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -47,12 +47,11 @@ shapes) with the host clock. Deliberate differences:
   ``bench_decode``'s budget comparison and of ``bench_cached_prefill`` is
   the port's dense cached sweep (``decode._cached_attention(impl=
   "dense")``), as in the JAX sections; the sampled run reseeds its
-  generator each run, as the JAX one reuses its key; every kernel takes
-  head dims 64 and 128, so ``bench_train_step``'s and ``bench_decode``'s
-  fast models (8/4 heads of 64) and ``bench_moe_decode``'s full model
-  (16/8 of 64) are the JAX ones, while ``bench_engine``'s and
-  ``bench_moe_decode``'s fast models have 2/1 heads of 128 where the JAX
-  ones have 8/4 of 32: the weights' shapes are the JAX ones.
+  generator each run, as the JAX one reuses its key; every model is the
+  JAX one, heads included: the serving kernels take head dims 16, 32, 64
+  and 128 (``bench_engine``'s and ``bench_moe_decode``'s fast models serve
+  at 8/4 heads of 32), the training kernels 64 and 128
+  (``bench_train_step``'s fast model trains at 8/4 heads of 64).
 
 Run on a machine with the card, from the repository root::
 
@@ -422,14 +421,13 @@ def bench_decode(fast: bool, device=None, *, cfg=None, shape=None,
 
 
 def moe_decode_config(fast: bool) -> MoEConfig:
-    """bench.py's bench_moe_decode model, bf16, flash attention, top-2:
-    fast, vocab 2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4
-    of 32: the kernels take head dims 64 and 128; the weights' shapes are
-    the JAX ones), hidden 512, 4 experts; else the JAX model: vocab 32000,
-    dim 1024, 8 layers, 16/8 heads of 64, hidden 2816, 8 experts."""
+    """bench.py's bench_moe_decode model, bf16, flash attention, top-2,
+    the JAX one: fast, vocab 2048, dim 256, 2 layers, 8/4 heads of 32,
+    hidden 512, 4 experts; else vocab 32000, dim 1024, 8 layers, 16/8
+    heads of 64, hidden 2816, 8 experts."""
     if fast:
-        return MoEConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
-                         n_kv_heads=1, hidden_dim=512, n_experts=4,
+        return MoEConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=8,
+                         n_kv_heads=4, hidden_dim=512, n_experts=4,
                          experts_per_token=2, attn_impl="flash")
     return MoEConfig(vocab_size=32000, dim=1024, n_layers=8, n_heads=16,
                      n_kv_heads=8, hidden_dim=2816, n_experts=8,
@@ -455,12 +453,12 @@ def bench_moe_decode(fast: bool, device=None, *, cfg=None,
 
 
 def engine_config(fast: bool) -> LlamaConfig:
-    """bench.py's bench_engine model, bf16, flash attention: fast, vocab
-    2048, dim 256, 2 layers, 2/1 heads of 128 (the JAX one 8/4 of 32: the
-    kernels take head dims 64 and 128), hidden 512; else Llama-1B."""
+    """bench.py's bench_engine model, bf16, flash attention, the JAX one:
+    fast, vocab 2048, dim 256, 2 layers, 8/4 heads of 32, hidden 512; else
+    Llama-1B."""
     if fast:
-        return LlamaConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=2,
-                           n_kv_heads=1, hidden_dim=512, attn_impl="flash")
+        return LlamaConfig(vocab_size=2048, dim=256, n_layers=2, n_heads=8,
+                           n_kv_heads=4, hidden_dim=512, attn_impl="flash")
     return decode_config(False)
 
 

@@ -18,15 +18,21 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_tri")
+SOURCES = ("flash_fwd", "flash_decode", "flash_decode_narrow", "flash_bwd",
+           "flash_tri")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# seconds from the start of the last build() to each of its nvcc processes'
+# end, by source
+BUILD_SECONDS: dict[str, float] = {}
 _TRI_CTAS: dict[tuple, int] = {}
 _TRI_WS: dict[tuple, int] = {}
 
@@ -77,6 +83,7 @@ class FlashTriArgs(ctypes.Structure):
 ENTRIES = {
     "flash_fwd": ("flash_fwd", FlashArgs),
     "flash_decode": ("flash_decode", FlashArgs),
+    "flash_decode_narrow": ("flash_decode_narrow", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
     "flash_fwd_tri": ("flash_tri", FlashTriArgs),
@@ -115,8 +122,11 @@ def build(names=SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` process per source, all started together. Returns
     {name: nvcc output} (register and spill counts from ``-Xptxas -v``) for
-    the sources it compiled; raises with the compiler's output on failure."""
+    the sources it compiled (each one's seconds in BUILD_SECONDS); raises
+    with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    BUILD_SECONDS.clear()
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = lib_path(name)
@@ -128,9 +138,11 @@ def build(names=SOURCES) -> dict[str, str]:
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     logs, failed = {}, []
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        texts = dict(zip(procs, pool.map(
+            lambda n: _wait(n, procs[n][0], t0), procs)))
     for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        logs[name] = text
+        text = logs[name] = texts[name]
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{text}")
             continue
@@ -138,6 +150,14 @@ def build(names=SOURCES) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs
+
+
+def _wait(name: str, proc, t0: float) -> str:
+    """nvcc's output once ``proc`` ends; its seconds since ``t0`` go to
+    BUILD_SECONDS."""
+    text, _ = proc.communicate()
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    return text
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -149,6 +169,14 @@ def library(name: str) -> ctypes.CDLL:
             build((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def entry(kernel: str, head_dim: int) -> str:
+    """The C entry that launches ``kernel`` at ``head_dim``: flash_decode's
+    head dims 32 and 16 live in a source of their own (csrc/
+    flash_decode_narrow.cu), built beside flash_decode.cu's 64 and 128."""
+    return "flash_decode_narrow" if kernel == "flash_decode" \
+        and head_dim < 64 else kernel
 
 
 def kernel(entry: str):

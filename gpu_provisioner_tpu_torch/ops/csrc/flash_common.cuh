@@ -3,7 +3,7 @@
 // _online_softmax_tile, _online_update and _finalize_out (forward), and of
 // the mask and P rebuild of _rebuild_p_ds and the tile steps _bwd_dq_step /
 // _bwd_dkv_step (backward). flash_fwd.cu (self-attention and KV-cache
-// prefill), flash_decode.cu (short query blocks against the cache),
+// prefill), flash_decode.cuh (short query blocks against the cache),
 // flash_bwd.cu (dQ and dK/dV) and flash_tri.cu (the same functions on the
 // persistent flattened-triangle schedule) all include it, so the mask, the
 // NEG_INF guard, a tile step and a numerics fix land once.
@@ -18,7 +18,7 @@
 // threads. All arithmetic is f32 FMA from shared memory: the exactness
 // instances of the forward (f32 activations, an f32 or int8 cache) use it.
 // The bf16 tile steps run on the tensor cores (flash_tc.cuh, on
-// flash_wgmma.cuh's products); flash_decode.cu keeps its own split
+// flash_wgmma.cuh's products); flash_decode.cuh keeps its own split
 // schedule and f32 FMA loops over the mask and window helpers below.
 //
 // Masking follows the TPU kernels exactly, with NEG_INF the finite -1e30

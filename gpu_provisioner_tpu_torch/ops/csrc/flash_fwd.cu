@@ -46,13 +46,20 @@
 //   - the f32 instances (the exactness instances, f32 or int8 cache)
 //     compute in f32 FMA from shared memory (fa::attend_tiles), int8
 //     dequantised per token there.
-// Every instance takes head dim 64 or 128 (the C entry refuses any other D).
-// At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q K^T takes 4
-// k-steps, O += P V is m64n64k16 into 32 floats a thread; shared memory is
-// 41 KB (bf16 cache) or 42 KB (int8 cache), so the D = 64 instances are
-// built for four CTAs an SM (FWD_TC_BLOCKS: 128 registers a thread, no
-// spills; at three, 147 and 168 registers, the fresh prefill at (8, 512,
-// 16/8) took ~4% longer on an H100); D = 128 stays at two.
+// Every instance takes head dim 16, 32, 64 or 128 (the C entry refuses any
+// other D). At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q
+// K^T takes 4 k-steps, O += P V is m64n64k16 into 32 floats a thread;
+// shared memory is 41 KB (bf16 cache) or 42 KB (int8 cache), so the D = 64
+// instances are built for four CTAs an SM (FWD_TC_BLOCKS: 128 registers a
+// thread, no spills; at three, 147 and 168 registers, the fresh prefill at
+// (8, 512, 16/8) took ~4% longer on an H100); D = 128 stays at two. At D =
+// 32 and 16 (the fast serving models' 8/4 heads of 32, the tiny presets'
+// 4/2 of 16) a tile is the D = 64 atom partly filled, its other chunks
+// zeroed once at the start (wg::zero_pad): S = Q K^T in 2 or 1 k-steps,
+// O += P V still m64n64k16 into D = 64's 32 floats a thread, of which the
+// first D columns are stored; shared memory as at D = 64 (the int8 stages
+// smaller), four CTAs an SM. The f32 instances take every D as they are
+// (8 lanes a row, D / 8 columns each).
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
 // flash_tri.cu, behind triangular=True, on the same tile steps. Left for
@@ -122,7 +129,8 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
   }
 }
 
-// CTAs an SM the tensor-core instances are built for, by head dim.
+// CTAs an SM the tensor-core instances are built for, by head dim (below
+// 64 as at 64: the same accumulator and shared memory).
 template <int D>
 constexpr int FWD_TC_BLOCKS = D == 128 ? 2 : 4;
 
@@ -158,9 +166,15 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
 
   wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
                    a.Sq);
-  float acc[D / 2], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+  // below D = 64 the chunks past D of Q and of every K/V buffer (two ring
+  // stages, or the int8 path's widened pair), published with the first
+  // tile's copies
+  constexpr int BUFS = std::is_same<KT, bf16>::value ? 5 : 3;
+  for (int i = 0; i < BUFS; ++i) wg::zero_pad<D>(sQ + i * TILE);
+  constexpr int ACC = tc::acc_floats<D>;
+  float acc[ACC], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
   const tc::CacheMask mask{a.Sk, a.causal, pad, a.window, fa::sink_bound(pad, a.sinks)};
   const float sl2 = a.scale * tc::kLog2e;
   const KT* kb = static_cast<const KT*>(a.k) + b * a.k_sb + kvh * a.k_sh;
@@ -168,7 +182,7 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
   if constexpr (std::is_same<KT, bf16>::value) {
     tc::kv_walk<D>(ring, kb, vb, a.k_ss, a.v_ss, a.Sk, first, end, next,
                    [&](uint32_t sK, int j) {
-                     tc::fwd_tile_tc(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
+                     tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
                    });
   } else {
     // the int8 cache: tiles and scales through the int8 stages after the
@@ -187,15 +201,15 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
           tc::i8_widen<D>(ring, stage);
           wg::fence_smem_to_async();
           __syncthreads();
-          tc::fwd_tile_tc(acc, m, l, sQ, ring, qpos0, j * E, sl2, mask,
-                          tc::ColScales{tc::floats_at(stage + 2 * tc::i8_tile<D>())});
+          tc::fwd_tile_tc<D>(acc, m, l, sQ, ring, qpos0, j * E, sl2, mask,
+                             tc::ColScales{tc::floats_at(stage + 2 * tc::i8_tile<D>())});
         });
   }
 
   float inv[2], lse[2];
   tc::fwd_final(m, l, inv, lse);
-  tc::store_bf16(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss, q0, a.Sq,
-                 inv);
+  tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss, q0,
+                         a.Sq, inv);
   if (a.lse != nullptr)
     tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.Sq, q0, a.Sq);
 }
@@ -239,11 +253,13 @@ cudaError_t dispatch(const FlashArgs& a, cudaStream_t s) {
 
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() after the launch (0 on success; cudaErrorInvalidValue
-// for a head dim other than 64 or 128).
+// for a head dim other than 16, 32, 64 or 128).
 extern "C" int flash_fwd(const FlashArgs* a, void* stream) {
   if (a->Sq <= 0 || a->B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->D == 128) return static_cast<int>(dispatch<128>(*a, s));
   if (a->D == 64) return static_cast<int>(dispatch<64>(*a, s));
+  if (a->D == 32) return static_cast<int>(dispatch<32>(*a, s));
+  if (a->D == 16) return static_cast<int>(dispatch<16>(*a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,6 +39,11 @@
 // are m64n64k16 into 32 floats; their A fragments do not change with D
 // (their K is the tile's 64 keys or queries). Shared memory at D = 64: 41
 // KB forward (bf16 cache) or 42 KB (int8 cache), 49 KB dQ, 50 KB dK/dV.
+// The forward step also takes D = 32 and 16 (D a template parameter of its
+// own): the D = 64 tile partly filled (flash_wgmma.cuh), S = Q K^T in D / 16
+// k-steps, O += P V m64n64k16 into the D = 64 accumulator of 32 floats a
+// thread (acc_floats), columns D.. never stored (store_bf16's D); shared
+// memory D = 64's.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -114,6 +119,11 @@ constexpr int DQ_TC_BLOCKS = D == 128 ? 2 : TC_DQ_BLOCKS_D64;
 template <int D>
 constexpr int DKV_TC_BLOCKS = D == 128 ? 2 : TC_DKV_BLOCKS_D64;
 
+// The floats a thread of the forward's accumulator, 64 x max(D, 64): D / 2,
+// and D = 64's 32 below it (the columns past D are computed, never stored).
+template <int D>
+constexpr int acc_floats = D < 64 ? 32 : D / 2;
+
 // The query tile of a rectangular grid's block (blockIdx.y), the tiles
 // with the most key tiles first when `descending` (on a causal grid), so
 // that the short ones fill the tail.
@@ -183,11 +193,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 }
 
 // Rows r0 + frag_row (+ 8) of a 64 x 2N accumulator (N floats a thread),
-// each times mul[i], as bf16 at `base` (row stride ld elements), rows at or
-// past n left out.
-template <int N>
+// its first D columns (all of them by default), each times mul[i], as bf16
+// at `base` (row stride ld elements), rows at or past n left out.
+template <int N, int D = 2 * N>
 __device__ __forceinline__ void store_bf16(const float (&acc)[N], bf16* base, long long ld,
                                            int r0, int n, const float (&mul)[2]) {
+  static_assert(D % 8 == 0 && D <= 2 * N, "whole 8-column groups of the accumulator");
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -195,7 +206,7 @@ __device__ __forceinline__ void store_bf16(const float (&acc)[N], bf16* base, lo
     if (r >= n) continue;
     bf16* o = base + r * ld + col;
 #pragma unroll
-    for (int j = 0; j < N / 4; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
   }
@@ -312,14 +323,25 @@ __host__ __device__ constexpr size_t fwd_i8_smem() {
 // Issues the copies of key tile rows k0 .. k0 + 63 of one (batch, kv head)
 // (kb / vb / ksb / vsb at its position 0; rows at or past Sk zero-filled)
 // into the int8 stage at `stage`: 64 * D / 16 16-byte chunks of each tile,
-// D / 32 a thread, and one scale a thread. Not committed.
+// D / 32 a thread (at D = 16, where a row is one chunk, threads 0..63 copy
+// a K row each and threads 64..127 a V row), and one scale a thread. Not
+// committed.
 template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
                                          const float* ksb, const float* vsb, long long k_ss,
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
-  constexpr int LOG_CH = D == 128 ? 3 : 2;   // log2 of the chunks a row, D / 16
-  static_assert((1 << LOG_CH) == D / 16, "D = 64 or 128");
+  constexpr int LOG_CH = wg::log2i(D / 16);   // log2 of the chunks a row, D / 16
+  static_assert((1 << LOG_CH) == D / 16, "D = 16, 32, 64 or 128");
   constexpr uint32_t TILE = i8_tile<D>();
+  if constexpr (E * (D / 16) < wg::THREADS) {   // D = 16
+    const int r = threadIdx.x & (E - 1), kv = threadIdx.x / E;
+    const bool in = k0 + r < Sk;
+    const long long row = in ? k0 + r : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + kv * TILE +
+                                                                         r * D),
+                 "l"((kv ? vb + row * v_ss : kb + row * k_ss)), "r"(in ? 16 : 0)
+                 : "memory");
+  }
 #pragma unroll
   for (int it = 0; it < E * (D / 16) / wg::THREADS; ++it) {
     const int i = threadIdx.x + it * wg::THREADS;
@@ -349,8 +371,8 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
 // then a barrier) before the products.
 template <int D>
 __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
-  constexpr int LOG_CH = D == 128 ? 4 : 3;   // log2 of the bf16 chunks a row, D / 8
-  static_assert((1 << LOG_CH) == D / 8, "D = 64 or 128");
+  constexpr int LOG_CH = wg::log2i(D / 8);   // log2 of the bf16 chunks a row, D / 8
+  static_assert((1 << LOG_CH) == D / 8, "D = 16, 32, 64 or 128");
   const char* src = reinterpret_cast<const char*>(floats_at(stage));
   char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
 #pragma unroll
@@ -393,18 +415,18 @@ struct ColScales {
 
 // One forward step (_online_update): queries q0 .. q0 + 63 (Q tile at sQ)
 // against keys k0 .. k0 + 63 (K, V tiles at sK, sK + TILE), the copies
-// waited for and published; head dim D = 2 N (N: acc's floats a thread).
-// S = Q K^T, the mask, the running max m (log2 units) and denominator l of
-// the fragment's two rows (l over this thread's columns; the quad's sum at
-// the end, fwd_final), acc rescaled, then acc += P V with P as bf16 hi +
-// lo. With ColScales (the int8 cache) score column j is multiplied by
-// k_scale[j] with the scale, and P's column j by v_scale[j] after the
-// denominator took it.
-template <typename Mask, typename Scales = NoScales, int N>
+// waited for and published; head dim D, acc_floats<D> floats a thread
+// (D = 2 N from 64 up; D = 64's 32 below it). S = Q K^T, the mask, the
+// running max m (log2 units) and denominator l of the fragment's two rows
+// (l over this thread's columns; the quad's sum at the end, fwd_final),
+// acc rescaled, then acc += P V with P as bf16 hi + lo. With ColScales
+// (the int8 cache) score column j is multiplied by k_scale[j] with the
+// scale, and P's column j by v_scale[j] after the denominator took it.
+template <int D, typename Mask, typename Scales = NoScales, int N>
 __device__ __forceinline__ void fwd_tile_tc(float (&acc)[N], float (&m)[2], float (&l)[2],
                                             uint32_t sQ, uint32_t sK, int q0, int k0, float sl2,
                                             const Mask& mask, const Scales& sc = Scales()) {
-  constexpr int D = 2 * N;
+  static_assert(N == acc_floats<D>, "the accumulator of head dim D");
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32];
   wg::fence();

@@ -254,7 +254,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
                    static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss,
                    a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
                    [&](uint32_t sK, int kj) {
-                     tc::fwd_tile_tc(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
+                     tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
                    });
 
     // _finalize_out, then the row or its workspace slot

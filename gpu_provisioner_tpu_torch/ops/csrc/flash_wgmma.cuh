@@ -16,6 +16,16 @@
 // of layout type B128. Every kernel takes both (TILE_BYTES and the defaults
 // below are D = 128's, for the standalone checks under hack/).
 //
+// D = 32 or 16 (the forward only): the D = 64 tile, one atom, partly
+// filled. A row's D / 8 chunks (4 or 2) go to their swizzled places; the
+// atom's other chunks are zeroed once a buffer (zero_pad) and never written
+// again. S = Q K^T takes D / 16 k-steps (2 or 1) of the K-major descriptor
+// and never reads past column D; O += P V stays m64n64k16 over the whole
+// atom, so columns D..63 of the accumulator are computed (from the zeros)
+// and never stored. Every descriptor and wgmma shape is D = 64's, which
+// hack/torch_wgmma_check_d64.py checked on the card; the cost is an
+// m64n64 P V where m64n32 / m64n16 would do.
+//
 // The loader is cp.async (16 bytes a thread and copy, zero-fill past the
 // sequence's end, commit groups), not TMA: the one warpgroup that computes
 // also issues the copies (no producer warp yet), so the copy of the next
@@ -46,12 +56,16 @@ constexpr int ROWS = 64;                     // wgmma M; a tile's rows
 constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
 
-// A tile of 64 rows of D bf16 values: D / 64 atoms.
+// A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 64 || D == 128, "a tile spans the head dim: 64 or 128");
-  return D / 64 * ATOM_BYTES;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "a tile spans the head dim: 16, 32, 64 or 128");
+  return D < 64 ? ATOM_BYTES : D / 64 * ATOM_BYTES;
 }
+
+// log2 of a power of two (the chunks a row, as shift counts)
+__host__ __device__ constexpr int log2i(int x) { return x <= 1 ? 0 : 1 + log2i(x / 2); }
 constexpr int TILE_BYTES = tile_bytes<128>();   // 64 x 128 bf16
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -276,8 +290,8 @@ __device__ __forceinline__ void copy_wait() {
 template <int D = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base, long long ld,
                                           int row0, int S) {
-  constexpr int LOG_CH = D == 128 ? 4 : 3;   // log2 of the chunks a row, D / 8
-  static_assert(tile_bytes<D>() > 0 && (1 << LOG_CH) == D / 8, "D = 64 or 128");
+  constexpr int LOG_CH = log2i(D / 8);   // log2 of the chunks a row, D / 8
+  static_assert(tile_bytes<D>() > 0 && (1 << LOG_CH) == D / 8, "D = 16, 32, 64 or 128");
 #pragma unroll
   for (int it = 0; it < ROWS * (D / 8) / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;
@@ -288,6 +302,25 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                  "r"(in ? 16 : 0)
                  : "memory");
+  }
+}
+
+// Zeroes the chunks D / 8 .. 7 of every row of a one-atom tile at `tile`
+// (D = 32 or 16: what load_tile leaves empty; nothing at D >= 64), with
+// plain stores: the caller publishes them to the tensor cores
+// (fence_smem_to_async, then a barrier) before the first product reads
+// the tile.
+template <int D>
+__device__ __forceinline__ void zero_pad(uint32_t tile) {
+  if constexpr (D < 64) {
+    constexpr int PAD = 8 - D / 8;   // empty chunks a row: 4 or 6
+    for (int i = threadIdx.x; i < ROWS * PAD; i += THREADS) {
+      const int r = i / PAD, c = D / 8 + i % PAD;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       tile + r * 128 + ((c ^ (r & 7)) << 4)),
+                   "r"(0u), "r"(0u), "r"(0u), "r"(0u)
+                   : "memory");
+    }
   }
 }
 

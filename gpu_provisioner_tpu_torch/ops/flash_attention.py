@@ -15,7 +15,7 @@ package does, and the dense result for shapes that do not tile (which
 autograd differentiates, as JAX does).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_decode.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cu``) on
+``csrc/flash_decode.cuh``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cu``) on
 a CUDA tensor, or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
 function (``attention_plain``, ``attention_bwd_plain``). Nothing else picks
@@ -64,9 +64,13 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 64 and 128 only (``_HEAD_DIMS``), in every kernel; on a CUDA
-  tensor any other head dim raises a ValueError naming it before a kernel
-  is built or launched (no plain fallback);
+- head dims 16, 32, 64 and 128 in the forward, cached and decode kernels
+  (``_FWD_HEAD_DIMS``: at 32 and 16 the tensor-core tile is the 64-wide
+  one partly filled), 64 and 128 in the backward and triangle kernels
+  (``_SELF_HEAD_DIMS``); on a CUDA tensor any other head dim raises a
+  ValueError naming it before a kernel is built or launched (no plain
+  fallback), so a self-attention at 32 or 16 runs its forward kernel and
+  raises in its backward;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -84,7 +88,7 @@ from . import _cuda
 NEG_INF = -1.0e30  # mask value; finite so exp() underflows instead of NaN-ing
 DEFAULT_BLOCK = 512
 DECODE_MAX_S = 16   # short-block bound: decode steps / verify blocks
-# flash_decode's split schedule (csrc/flash_decode.cu): the row counts of its
+# flash_decode's split schedule (csrc/flash_decode.cuh): the row counts of its
 # instances, the most CTAs that share one unit's live tiles, and its tile
 DECODE_ROWS = (4, 8, 16, 32, 64)
 DECODE_MAX_SPLITS = 32
@@ -105,8 +109,10 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims every kernel is built for
-_HEAD_DIMS = (64, 128)
+# the head dims the kernels are built for: flash_fwd (self-attention and
+# the cache) and flash_decode; the backward and triangle kernels
+_FWD_HEAD_DIMS = (16, 32, 64, 128)
+_SELF_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -163,7 +169,7 @@ def _tri_shares(W: int, P: int) -> list:
 def _decode_rows(rows: int) -> tuple[int, int]:
     """(R, row blocks) of flash_decode for a unit of ``rows`` = S·group query
     rows: R the smallest instance that holds them, 64 at most, and the row
-    blocks of R that cover them (csrc/flash_decode.cu launch_rows)."""
+    blocks of R that cover them (csrc/flash_decode.cuh launch_rows)."""
     R = next((r for r in DECODE_ROWS if r >= rows), DECODE_ROWS[-1])
     return R, -(-rows // R)
 
@@ -191,7 +197,7 @@ def _decode_tiles(start: int, pad: int, first_s: int, last_s: int, Sk: int,
     the unit's last row (position start + last_s), less the tiles wholly
     below the window of its first row (start + first_s) that do not overlap
     the sinks [pad, pad + sinks) (fa::window_skips). The twin of
-    csrc/flash_decode.cu's live_tiles."""
+    csrc/flash_decode.cuh's live_tiles."""
     hi_pos = min(Sk, start + last_s + 1)
     lo = pad // _TILE
     hi = -(-hi_pos // _TILE) if hi_pos > 0 else 0
@@ -388,9 +394,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _HEAD_DIMS:
+    if D not in _FWD_HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_HEAD_DIMS}")
+                         f"{_FWD_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -479,9 +485,10 @@ def _decode_plan(B: int, S: int, Hq: int, Hkv: int, max_len: int,
 
 
 def _run(kernel: str, a, dev) -> None:
-    """Launches C entry ``kernel`` with argument struct ``a`` on ``dev``'s
-    current stream; raises on a non-zero cudaError."""
-    fn = _cuda.kernel(kernel)
+    """Launches ``kernel``'s C entry at the struct's head dim
+    (``_cuda.entry``) with argument struct ``a`` on ``dev``'s current
+    stream; raises on a non-zero cudaError."""
+    fn = _cuda.kernel(_cuda.entry(kernel, a.D))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(a), stream)
@@ -541,7 +548,7 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cu, flash_tri.cu) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 64 or 128 (``_HEAD_DIMS``) contiguous,
+    kernels' dtypes, head dim 64 or 128 (``_SELF_HEAD_DIMS``) contiguous,
     GQA dividing; lse and delta, where given, contiguous float32
     [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
@@ -560,9 +567,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
         raise TypeError("k/v/dout dtypes "
                         + "/".join(str(t.dtype) for t in acts)
                         + f"; expected {q.dtype}")
-    if D not in _HEAD_DIMS:
+    if D not in _SELF_HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_HEAD_DIMS}")
+                         f"{_SELF_HEAD_DIMS}")
     if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
             or (dout is not None and dout.shape != q.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
@@ -759,7 +766,9 @@ class _FlashAttention(torch.autograd.Function):
     package's ``_flash_lse_diff`` (custom_vjp, flash_attention.py). Forward
     saves (q, k, v, out, lse); backward runs flash_attention_bwd with the
     cotangents of both outputs. CUDA tensors take the kernels, CPU tensors
-    the plain versions."""
+    the plain versions. At head dim 32 or 16 the forward runs its kernel
+    and the backward raises a ValueError naming the head dim (the backward
+    kernels take 64 and 128)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, triangular):

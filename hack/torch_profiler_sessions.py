@@ -19,7 +19,10 @@ requires), ``partial`` (some records lost) and ``empty`` (no record of the
 kernel), with the whole sessions' device time a call (median, min, max)
 and the partial ones' (min, max); and chip_smoke.spun_ms three times (CUDA
 events queued behind a spin kernel). Then device_ms once on a kernel name
-that no kernel has, which takes its fallback after three sessions.
+that no kernel has, which takes its fallback after three sessions, and
+spun_ms of the first case with the host held 3 ms before each call,
+longer than the first spin, beside spun_ms of the call as it is: the
+spin grows until the host queues the call within it.
 Writes one JSON object, with the card's name and power limit, to
 chiprun_out/profiler_sessions.json and prints it. Imports nothing of JAX.
 """
@@ -30,6 +33,7 @@ import argparse
 import json
 import statistics
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -119,8 +123,14 @@ def main() -> int:
         name, call, _ = cases(torch, tfa, dev)[0]
         ms, by = cs.device_ms(call, flush, ("no_such_kernel",))
         print(json.dumps({"forced_fallback": [name, ms, by]}), flush=True)
+
+        def held():
+            time.sleep(0.003)
+            call()
+        slow_host = [name, cs.spun_ms(held, flush), cs.spun_ms(call, flush)]
+        print(json.dumps({"slow_host": slow_host}), flush=True)
     out = {"card": cs.card_line(), "rows": rows,
-           "forced_fallback": [name, ms, by]}
+           "forced_fallback": [name, ms, by], "slow_host": slow_host}
     path = ROOT / "chiprun_out" / "profiler_sessions.json"
     path.parent.mkdir(exist_ok=True)
     path.write_text(json.dumps(out, indent=1))

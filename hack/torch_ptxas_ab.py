@@ -5,13 +5,14 @@ checkouts, side by side, on a machine with nvcc.
     python3 hack/torch_ptxas_ab.py A B
 
 A and B are directories that hold a ``gpu_provisioner_tpu_torch`` package
-(an unpacked parent commit and this tree, say). Each builds its four
-kernel libraries from its own sources with its own ``_cuda.build`` into a
-temporary directory (the eight nvcc processes run together); the
+(an unpacked parent commit and this tree, say). Each builds its kernel
+libraries (its own ``_cuda.SOURCES``) from its own sources with its own
+``_cuda.build`` into a temporary directory (every nvcc process of both
+runs together); the
 ``-Xptxas -v`` output is read per kernel, and each library's SASS
 (``cuobjdump -sass``, which ships with nvcc) is cut per kernel, the
 mangled names taken without their anonymous namespace's per-build hash.
-Prints, per source, how many of A's kernels B builds with the same
+Prints, per source of A, how many of A's kernels B builds with the same
 registers and spills and with the same SASS, then one line for every
 kernel whose registers or spills differ or that only one side has, and
 exits non-zero when a kernel of A differs in B in either (a kernel B adds
@@ -32,9 +33,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs   # noqa: E402  (ptxas_info)
-
-SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_tri")
-
 
 def plain_name(mangled: str) -> str:
     """The mangled name without the anonymous namespace's per-build hash."""
@@ -65,7 +63,7 @@ def child(root: str) -> int:
         sass = {src: subprocess.run([tool, "-sass", str(_cuda.lib_path(src))],
                                     capture_output=True, text=True,
                                     check=True).stdout
-                for src in SOURCES}
+                for src in _cuda.SOURCES}
     print(json.dumps({"logs": logs, "sass": sass}))
     return 0
 
@@ -88,7 +86,7 @@ def main() -> int:
             return 1
         built.append(json.loads(out.strip().splitlines()[-1]))
     ok = True
-    for src in SOURCES:
+    for src in built[0]["sass"]:   # A's sources (B may add one)
         a, b = ({plain_name(k): v
                  for k, v in cs.ptxas_info(x["logs"].get(src, "")).items()}
                 for x in built)

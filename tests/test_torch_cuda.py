@@ -17,8 +17,9 @@ forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
 the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
-a direct launch refuses. Every kernel runs at head dims 64 and 128 (the
-``*_at_head_dim_64`` tests hold the backward and triangle kernels at 64).
+a direct launch refuses. The forward, cached and decode kernels run at
+head dims 16, 32, 64 and 128 (SERVE_HEAD_DIMS), the backward and triangle
+kernels at 64 and 128 (the ``*_at_head_dim_64`` tests hold them at 64).
 """
 
 import ctypes
@@ -45,6 +46,9 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the head dims of the forward, cached and decode kernels (the backward and
+# triangle kernels take 64 and 128)
+SERVE_HEAD_DIMS = [16, 32, 64, 128]
 
 
 @pytest.fixture
@@ -88,14 +92,15 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
 def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
                                  layout, D):
     """The forward (bf16: the tensor-core instance) against the plain
-    version, at head dim 64 and 128. q contiguous, a strided view the
+    version, at head dims 16, 32 (the D = 64 tile partly filled), 64 and
+    128. q contiguous, a strided view the
     kernels take as it is, or a view whose row stride is no whole number
     of 16-byte chunks: a direct bf16 launch refuses it (ValueError),
     flash_attention_with_lse copies it (_tc_layout) and matches."""
@@ -145,7 +150,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -189,7 +194,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -198,8 +203,8 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     """flash_decode's split schedule (the live tiles of each unit shared
     among the CTAs the host plans, partials merged by a second launch)
     against the plain version, at the edge cases of the shares, at head
-    dim 64 (the block's two halves on alternate rows) and 128; one count
-    on the int8 or the other counter."""
+    dims 16, 32, 64 (the block's 8, 4 or 2 row groups on interleaved
+    rows) and 128; one count on the int8 or the other counter."""
     g = torch.Generator(dev).manual_seed(12)
     q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads,
                                   D=D)
@@ -214,17 +219,19 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
-def test_decode_takes_any_split_count(dev, monkeypatch, splits):
+def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
     writes the output, no merge), three, and 32 (more CTAs than live
-    tiles: most shares empty), bf16 and int8, against the plain version."""
+    tiles: most shares empty; at D = 16 the merge block is a whole warp of
+    which 16 threads store), bf16 and int8, against the plain version."""
     monkeypatch.setattr(tfa, "_decode_splits", lambda *a: splits)
     g = torch.Generator(dev).manual_seed(13)
     st = torch.tensor([540, 300, 610, 20], dtype=torch.int32, device=dev)
     for int8 in (False, True):
         q, kc, vc, kw = _cache_inputs(g, dev, torch.bfloat16, 4, 1, 2048,
-                                      int8, [12, 0, 100, 3])
+                                      int8, [12, 0, 100, 3], D=D)
         got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
         ref = tfa.attention_plain(q, kc, vc, st, **kw)[0]
         torch.cuda.synchronize()
@@ -266,7 +273,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -322,17 +329,37 @@ def test_decode_rows_beyond_one_block(dev):
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     """Head dim 64 runs the forward kernel and, through autograd, the
     backward kernels (their triangle twins with triangular=True); 16 and
-    32 raise ValueError naming the head dim in the forward and in the
-    backward, with no plain fallback; float16 raises TypeError."""
+    32 run the forward kernel, held to its plain version, and raise
+    ValueError naming the head dim in the backward (rectangular and
+    triangular=True, directly and through autograd, no backward launched);
+    8 and 48 raise in the forward too, with no plain fallback; float16
+    raises TypeError."""
+    g = torch.Generator(dev).manual_seed(16)
     for D in (16, 32):
-        q = torch.zeros(1, 128, 4, D, device=dev)
-        with pytest.raises(ValueError, match=f"head dim {D}"):
-            tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+        q, k, v = (_randn(g, 1, 128, h, D, dtype=torch.bfloat16, dev=dev)
+                   for h in (4, 2, 2))
+        tfa.reset_launches()
+        out = tfa.flash_attention(q, k, v)
+        ref = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  0)[0]
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["flash_fwd"] == 1
+        assert _err(out, ref) < TOL[torch.bfloat16]
         lse = torch.zeros(1, 4, 128, device=dev)
         for triangular in (False, True):
             with pytest.raises(ValueError, match=f"head dim {D}"):
-                tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse,
-                                        q, triangular=triangular)
+                tfa.flash_attention_bwd(q, k, v, q, lse, q,
+                                        triangular=triangular)
+            qg = q.detach().requires_grad_()
+            out = tfa.flash_attention(qg, k, v, triangular=triangular)
+            with pytest.raises(ValueError, match=f"head dim {D}"):
+                out.float().sum().backward()
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            "flash_fwd": 3}
+    for D in (8, 48):
+        q = torch.zeros(1, 128, 4, D, device=dev)
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
     for triangular in (False, True):
         q = torch.zeros(1, 128, 4, 64, device=dev, requires_grad=True)
         tfa.reset_launches()

@@ -1,6 +1,6 @@
 """flash_decode's split schedule on the CPU, against the JAX package.
 
-On the card, flash_decode (csrc/flash_decode.cu) gives each (batch, kv
+On the card, flash_decode (csrc/flash_decode.cuh) gives each (batch, kv
 head, row block) unit's live key tiles to several CTAs in equal shares and
 merges their partials by log-sum-exp in a second launch. No CUDA kernel
 runs here, so the tests hold the schedule's CPU twin in
@@ -10,7 +10,8 @@ partial from attention_plain on that share's keys alone) against JAX
 ``flash_attention_decode`` in interpret mode (as tests/test_torch_flash.py
 runs it), on the same numpy inputs, at 1e-5 in f32 (the merge sums in
 another order), at 1, 3 and 9 splits (9 is more than the live tiles of a
-256-position cache); the plan's rules (rows a unit, splits); and the
+256-position cache), at head dim 16 and, for the edge cases, 32; the
+plan's rules (rows a unit, splits); and the
 launch path's layouts and workspace, with the card stood in (``_on_card``,
 ``_run``). tests/test_torch_cuda.py holds the kernel itself.
 """
@@ -32,10 +33,10 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 SPLITS = (1, 3, 9)
 
 
-def _check_splits(B, S, Hq, Hkv, ML, start, pads, int8, window, sinks, seed):
+def _check_splits(B, S, Hq, Hkv, ML, start, pads, int8, window, sinks, seed,
+                  D=16):
     """JAX flash_attention_decode (interpret mode) against the split twin at
-    each of SPLITS, D 16, f32."""
-    D = 16
+    each of SPLITS, f32, head dim D (16, the tiny presets', by default)."""
     assert tfa.decode_flash_supported(ML, Hq, Hkv, S=S)
     (q,) = _rand(seed, (B, S, Hq, D))
     (jk, jv, jkw), (tk, tv, tkw) = _cache(seed + 1, B, Hkv, ML, D, int8)
@@ -84,6 +85,17 @@ EDGE_CASES = [
 def test_split_schedule_edges_match_jax_decode(B, S, Hq, Hkv, start, pads,
                                                window, sinks, int8):
     _check_splits(B, S, Hq, Hkv, 512, start, pads, int8, window, sinks, 70)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,S,Hq,Hkv,start,pads,window,sinks", EDGE_CASES)
+def test_split_schedule_edges_match_jax_decode_at_head_dim_32(
+        B, S, Hq, Hkv, start, pads, window, sinks, int8):
+    """The same edges at head dim 32 (the fast bench_engine and
+    bench_moe_decode models' heads), where the kernel's P V runs in four
+    row groups of 32 threads."""
+    _check_splits(B, S, Hq, Hkv, 512, start, pads, int8, window, sinks, 71,
+                  D=32)
 
 
 def _window_skips(kv0, min_qpos, window, pad, sinks):

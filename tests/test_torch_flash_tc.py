@@ -28,8 +28,10 @@ No CUDA kernel runs here, so the tests hold:
 - the head-dim gates: D = 64 reaches ``flash_fwd`` (self-attention, a bf16
   and an int8 cache), ``flash_decode``, the backward kernels and the
   triangle kernels, through autograd and ``triangular=True`` too, with no
-  kernel library built and no plain fallback; D = 16, 32 and 96 are
-  refused by every kernel with a ValueError naming the head dim.
+  kernel library built and no plain fallback; D = 32 and 16 reach
+  ``flash_fwd`` and ``flash_decode`` (its narrow entry) and are refused by
+  the backward and triangle kernels; D = 8, 48 and 96 are refused by
+  every kernel, each with a ValueError naming the head dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -84,6 +86,11 @@ def _rel(got, want):
 
 
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128")]
+# the forward-only replays also at the serving kernels' head dims 32 and 16
+# (the D = 64 tile partly filled: the same arithmetic on the first D
+# columns)
+FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
+                 *HEAD_DIMS]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -113,7 +120,7 @@ def test_rectangular_rounding_stays_within_half_the_card_tolerance(
     assert _rel(dq, jdq) <= 5e-3
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("start,pads,window,sinks", [
     pytest.param(0, None, None, 0, id="start0"),
     pytest.param(100, [0, 30], None, 0, id="pads"),
@@ -142,7 +149,7 @@ def test_cache_rounding_stays_within_half_the_card_tolerance(start, pads,
     assert _abs(out, want) <= 5e-3
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("pads,window,sinks", [
     pytest.param(None, None, 0, id="starts"),
     pytest.param([3, 40], 100, 2, id="starts-pads-window-sinks")])
@@ -183,7 +190,7 @@ def _int8_cache(seed, B, Hkv, ML, D=D):
     return k8, v8, ks, vs
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("op,start,pads,window,sinks", [
     pytest.param("cached", 0, None, None, 0, id="cached-start0"),
     pytest.param("cached", 100, [0, 30], None, 0, id="cached-pads"),
@@ -436,12 +443,14 @@ def test_head_dim_64_triangle_forward_raises_before_any_build(
     assert tri_grid == [("flash_fwd_tri", 64)]
 
 
-@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("D", [8, 16, 32, 48, 96])
 def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
     """Head dims other than 64 and 128 raise ValueError naming the head
-    dim in every kernel's wrapper before any library is built: the
-    forward (self-attention, a bf16 and an int8 cache), the decode, the
-    backward and the triangle kernels."""
+    dim in the backward and triangle kernels' wrappers, and head dims other
+    than 16, 32, 64 and 128 in the forward's (self-attention, a bf16 and
+    an int8 cache) and the decode's too, each before any library is built;
+    at 32 and 16 those four reach their launches instead
+    (test_head_dims_32_and_16_reach_the_serving_kernels)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -462,6 +471,8 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
             q, k, v, q, lse, q, triangular=True)],
         "flash_fwd_tri": [lambda: tfa._launch_tri(
             "flash_fwd_tri", q, k, v, scale=1.0)]}
+    if D in tfa._FWD_HEAD_DIMS:
+        del calls["flash_fwd"], calls["flash_decode"]
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -469,3 +480,40 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
                                    match=f"head dim {D}: {kernel} takes"):
                     fn()
     assert launches == []
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_head_dims_32_and_16_reach_the_serving_kernels(launches, no_build,
+                                                       D):
+    """flash_attention_with_lse, flash_attention_cached on a bf16 and an
+    int8 cache, and flash_attention_decode on both, at head dims 32 (the
+    fast bench_engine and bench_moe_decode models' 8/4 heads) and 16 (the
+    tiny presets' 4/2): each reaches its kernel's launch with that D, no
+    library built and no plain fallback; the decode's C entry at these
+    head dims is flash_decode_narrow (a source of its own). A D = 32 or 16
+    self-attention then raises in its backward, naming the head dim,
+    before a backward launch (rectangular and triangular=True)."""
+    S, Hq, Hkv, ML = 128, 4, 2, 256
+    q, k, v = _bf16(45, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+    kc, vc = _bf16(46, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    with torch.no_grad():
+        tfa.flash_attention_with_lse(q, k, v)
+        tfa.flash_attention_cached(q, kc, vc, 64)
+        tfa.flash_attention_cached(q, k8, v8, 64, **i8)
+        tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
+        tfa.flash_attention_decode(q[:, :1], k8, v8, 100, **i8)
+    assert [(kernel, a.D, a.kv_dtype) for kernel, a in launches] == [
+        ("flash_fwd", D, 1), ("flash_fwd", D, 1), ("flash_fwd", D, 2),
+        ("flash_decode", D, 1), ("flash_decode", D, 2)]
+    assert [_cuda.entry(kernel, a.D) for kernel, a in launches] == [
+        "flash_fwd"] * 3 + ["flash_decode_narrow"] * 2
+    assert _cuda.entry("flash_decode", 64) == "flash_decode"
+    for triangular in (False, True):
+        launches.clear()
+        qg = q.clone().requires_grad_()
+        out = tfa.flash_attention(qg, k, v, triangular=triangular)
+        with pytest.raises(ValueError, match=f"head dim {D}: flash_bwd_dq"):
+            out.float().sum().backward()
+        assert [kernel for kernel, _ in launches] == ["flash_fwd"]
