@@ -138,13 +138,14 @@ Phases, each of which exits non-zero on a failed check:
    tp 2) and (tp 2, dp 2) of one 4-rank world, each rank's gradients and
    updated shards against this process's make_train_step (loss 1e-5
    relative, gradients 1e-4 of the largest, params 1e-5 where |g| >=
-   1e-7), no rank importing jax; then full-width llama-1b at 8 of 16
-   layers (bf16, f32 masters, remat, B=8, S=2048) at sp=2 over 2 ranks,
+   1e-7), no rank importing jax; then full-width llama-1b at 4 of 16
+   layers (SHARDED_LAYERS; bf16, f32 masters, remat, B=8, S=2048) at sp=2
+   over 2 ranks,
    ring then zigzag, and at (sp 2, tp 2) over 4: a warm step and three
    timed, the loss falling and equal on every rank, step ms, bytes staged
    through the host and seconds in the staged collectives a step, peak
-   memory, and each rank's launches a step checked (ring: 16/8/8 on seq
-   rank 0, 32/16/16 on rank 1; zigzag 80/40/40; ``sharded`` in
+   memory, and each rank's launches a step checked (ring: 8/4/4 on seq
+   rank 0, 16/8/8 on rank 1; zigzag 40/20/20; ``sharded`` in
    launches_by_path);
 13. pipeline and expert parallelism (parallel/pipeline.py,
    make_pipeline_train_step, make_moe_train_step on a mesh), the ranks
@@ -156,13 +157,13 @@ Phases, each of which exits non-zero on a failed check:
    gpipe and interleaved, (pp 2, sp 2), (ep 2, tp 2), (dp 2, ep 2) and
    (sp 2, ep 2) zigzag of one 4-rank world, against this process's
    single-process step to phase 12's limits; then full-width llama-1b at
-   8 of 16 layers (B=8, S=2048, bf16, n_micro 4, no remat) at pp=2 over
+   4 of 16 layers (B=8, S=2048, bf16, n_micro 4, no remat) at pp=2 over
    2 ranks, gpipe and interleaved, and at (pp 2, tp 2) over 4, and
-   full-width mixtral-ish at 8 of 16 layers (remat, B=4, S=2048) at ep=2
+   full-width mixtral-ish at 4 of 16 layers (remat, B=4, S=2048) at ep=2
    over 2 ranks and (ep 2, tp 2) over 4: a warm step and three timed, the
    loss falling and equal on every rank, step ms, staged bytes, seconds in
    collectives, peak memory and each rank's launches a step checked
-   (pipeline 16/16/16, expert 16/8/8; ``pipeline`` and ``expert`` in
+   (pipeline 8/8/8, expert 8/4/4; ``pipeline`` and ``expert`` in
    launches_by_path);
 14. sharded serving (generate, speculative_generate, ServeEngine and
    cached_forward with ``mesh=``: models/decode.py, moe_serve.py,
@@ -176,7 +177,7 @@ Phases, each of which exits non-zero on a failed check:
    with a cached prefix, then mixtral-ish width on ep=2 and (ep=2, tp=2),
    one 4-rank world, every rank's tokens equal to this process's
    single-process run and each generate's launches L of #1 or #4 and
-   (new - 1)·L of #5 (``serving_exact``); Llama-7B at full width (16 of
+   (new - 1)·L of #5 (``serving_exact``); Llama-7B at full width (8 of
    its 32 layers: SERVE_TP_LAYERS; bf16) at tp=2 and full mixtral-ish (16
    layers) at ep=2 over 2 ranks: generate
    B=2, S0=512, 32 new (fresh, left-padded, int8 cache), one
@@ -205,7 +206,7 @@ Phases, each of which exits non-zero on a failed check:
    mesh=) and restored at tp 2 over 2 ranks (the disk's free space checked
    first): leaves bitwise, the next loss within 2e-4 relative of
    the dp-2 mesh's, save and restore seconds and GB/s, and the launches a
-   rank of the step after the restore checked (16 / 8 / 8:
+   rank of the step after the restore checked (8 / 4 / 4 at 4 layers:
    ``resume_mesh`` in launches_by_path); phase 4 also reads its last
    engine back from observability/fleet.py's registry;
 16. head dim 64 (the forward kernels' D = 64 instances; phase 1 also
@@ -271,9 +272,35 @@ Phases, each of which exits non-zero on a failed check:
    (d) bf16: the fast bench_moe_decode and bench_engine twins at 8/4 heads
    of 32 and their models through the kernels, then tiny and tiny-moe,
    each head dim's launches read (the five forward kernels, each at least
-   once, and nothing else: ``d32_serving``, ``d16_serving``), and a
-   backward and a triangular=True backward at head dim 32 refused, naming
-   it, before any backward launch;
+   once, and nothing else: ``d32_serving``, ``d16_serving``), and the
+   forward, the backward and flash_fwd_tri at head dim 48 (which no
+   kernel takes) refused, naming it, before any launch;
+19. head dims 32 and 16 in training (the D = 32 and 16 instances of #6/#7
+   and #3/#8/#9): (a) in phase 1, the ptxas registers, spills and HGMMA
+   of their ten tensor-core instances; (b) at each head dim (8/4 heads of
+   32, 4/2 of 16) #6/#7, with #1's forward, at small_bwd_cases (causal,
+   non-causal, a window, with and without an lse cotangent, a ragged S)
+   and #3/#8/#9 called directly at small_tri_cases, bf16 (1e-2) and f32
+   (1e-4; gradients relative to the largest plain one), against their
+   plain versions, and triangular=True through the wrapper at (1, 8192)
+   with RESIDENT_KV_BUDGET lowered for the call (the tri kernels once
+   each; against plain and against the rectangular kernels); (c) in bf16
+   #1, #6 and #7 timed at the D = 64 rows' training pairs and heads (8,
+   2048, 16/8) and the tri kernels at (1, 32768, 8/4), beside their plain
+   versions (the triangle's at S=8192), SDPA's torch.autograd.grad and
+   the bound (the ``*_d32`` and ``*_d16`` rows of #6-#9; #1's in the
+   flash_fwd rows' at_train_shape); (d) in f32, tiny, the fast bench_engine
+   model and tiny-moe three train steps with flash against dense (losses
+   1e-5 relative, params 1e-4), then bf16 with remat: the fast
+   bench_engine model and tiny trained five steps each at (4, 512)
+   (``d32_train``, ``d16_train``), tiny-moe three MoE steps
+   (``moe_train_d16``); (e) the pp2_tp2_flash pipeline on tiny at 4 layers
+   over 4 ranks sharing the card over gloo against the single-process
+   step (``d16_pipeline``), and a triangular=True forward and backward
+   at (1, 50176, 8/4) at 32 and (1, 98816, 4/2) at 16, where the natural
+   budget takes flash_fwd_tri, against the rectangular kernels and timed
+   (``d32_long``, ``d16_long``), each path's launches read alone, every
+   backward and triangle kernel launched at both head dims;
 then the phase-2, 9, 10, 14, 16 and 18 rows' device times, the card line,
 the kernels line and, last, the device line.
 """
@@ -2608,9 +2635,10 @@ SHARDED_EXACT = ((({"sp": 2}, "ring"), ({"sp": 2}, "zigzag"),
 SHARDED_FULL = ((2, {"sp": 2}, ("ring", "zigzag")),
                 (4, {"sp": 2, "tp": 2}, ("ring",)))
 SHARDED_SHAPE, SHARDED_WARM, SHARDED_STEPS = (8, 2048), 1, 3
-# the full-size runs' depth: 8 of llama-1b's 16 layers (the whole script's
-# time; phase 12 took 140-215 s at 16, most of it staging gradients)
-SHARDED_LAYERS = 8
+# the full-size runs' depth: 4 of llama-1b's 16 layers (the whole script's
+# time; phase 12 took 140-215 s at 16, most of it staging gradients, and
+# 147 s at 8, when phase 19 brought the script to 975 s of its 1200)
+SHARDED_LAYERS = 4
 SHARED = "ranks sharing one H100 over gloo; not a multi-GPU time"
 SHARDED_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -2836,15 +2864,16 @@ PARALLEL_EXACT_SHAPE, PARALLEL_MICRO, OVERFLOW_CF = (4, 512), 2, 0.5
 # the full-size runs: (ranks, name, kind, mesh, n_chunks). Llama-1B at
 # SHARDED_LAYERS of its 16 layers as bench.py:213-267 trains it (B 8, S
 # 2048, bf16, flash, AdamW; no remat: the pipeline's stage body has none)
-# with n_micro 4; mixtral-ish at 8 of 16 layers with remat, B 4, S 2048, as
-# phase 11 trains it
+# with n_micro 4; mixtral-ish at EXPERT_LAYERS of 16 layers with remat, B 4,
+# S 2048, as phase 11 trains it (4, for the script's time, as
+# SHARDED_LAYERS)
 PARALLEL_FULL = ((2, "pp2", "pipeline", {"pp": 2}, 1),
                  (2, "pp2_interleaved", "pipeline", {"pp": 2}, 2),
                  (2, "ep2", "moe", {"ep": 2}, 1),
                  (4, "pp2_tp2", "pipeline", {"pp": 2, "tp": 2}, 1),
                  (4, "ep2_tp2", "moe", {"ep": 2, "tp": 2}, 1))
 PIPELINE_SHAPE, PIPELINE_MICRO = (8, 2048), 4
-EXPERT_SHAPE, EXPERT_LAYERS = (4, 2048), 8
+EXPERT_SHAPE, EXPERT_LAYERS = (4, 2048), 4
 
 
 def parallel_launches(kind, cfg, n_stages):
@@ -2883,15 +2912,17 @@ def exact_key(kind, layers):
     return "mixtral2" if kind == "moe" else f"llama{layers}"
 
 
-def parallel_reference(torch, tm, tt, jobs, cfg, dev, path):
+def parallel_reference(torch, tm, tt, jobs, cfg, dev, path,
+                       shape=PARALLEL_EXACT_SHAPE):
     """One single-process step of ``cfg`` from the exact runs' seed and
-    batch, saved to ``path`` as {"grads", "params"}; returns its loss."""
+    batch (of ``shape``), saved to ``path`` as {"grads", "params"};
+    returns its loss."""
     g = torch.Generator(dev).manual_seed(SEED + 30)
     moe = isinstance(cfg, tm.MoEConfig)
     params, opt = (tm.make_moe_train_state(cfg, g, dev) if moe
                    else tt.make_train_state(cfg, g, dev))
     step = (tm.make_moe_train_step if moe else tt.make_train_step)(cfg, opt)
-    inp, tgt = jobs.seeded_batch(cfg, *PARALLEL_EXACT_SHAPE, SEED + 31, dev)
+    inp, tgt = jobs.seeded_batch(cfg, *shape, SEED + 31, dev)
     loss = step(params, inp, tgt).item()
 
     def grads(tree):
@@ -2904,14 +2935,14 @@ def parallel_reference(torch, tm, tt, jobs, cfg, dev, path):
     return loss
 
 
-def held_exact(name, got, loss):
+def held_exact(name, got, loss, shape=PARALLEL_EXACT_SHAPE):
     """Prints and checks one exact run's ranks against the single-process
     step's ``loss`` (and, on the ranks, its gradients and params)."""
     rel = max(abs(g["losses"][0] - loss) for g in got) / abs(loss)
     worst = {k: max(g[k] for g in got)
              for k in ("grad_err", "param_err", "param_err_all")}
-    print(f"parallel exact {name} (f32, B={PARALLEL_EXACT_SHAPE[0]} "
-          f"S={PARALLEL_EXACT_SHAPE[1]}): loss {got[0]['losses'][0]!r} vs "
+    print(f"parallel exact {name} (f32, B={shape[0]} S={shape[1]}): loss "
+          f"{got[0]['losses'][0]!r} vs "
           f"{loss!r} rel {rel:.3g} (tol 1e-5); worst gradient leaf "
           f"{worst['grad_err']:.3g} of its largest (tol 1e-4); params "
           f"{worst['param_err']:.3g} where |g| >= 1e-7 (tol 1e-5; "
@@ -3045,11 +3076,11 @@ SERVE_FULL = (2, 512, 32, 1024)
 # engine passes after the warm one: one keeps the script inside its time
 # limit as it grows (every pass is checked alike)
 SERVE_PASSES = 1
-# Llama-7B's depth at tp=2 in the full-size runs: 16 of its 32 layers,
-# which keeps the script inside its time limit with phase 17 (at 32 the
-# tp=2 world took 60-100 s of the phase; every launch count follows the
-# layers)
-SERVE_TP_LAYERS = 16
+# Llama-7B's depth at tp=2 in the full-size runs: 8 of its 32 layers,
+# which keeps the script inside its time limit with phases 17-19 (at 32 the
+# tp=2 world took 60-100 s of the phase, at 16 with mixtral-ish's ep=2 82
+# s; every launch count follows the layers)
+SERVE_TP_LAYERS = 8
 
 
 def serve_launches(L, new, fresh, int8):
@@ -3619,8 +3650,8 @@ def phase_mesh_resume(torch, tl, jobs, launch, dev):
           f" tp 2 ({SHARED}): {json.dumps(row)}; beside phase 11's "
           f"single-card save and restore")
     # one step moves the loss by ~4e-4 relative (10.8812 -> 10.8766 on the
-    # card): a restore of the state before the step, or a fresh init,
-    # fails this bound
+    # card at 8 layers): a restore of the state before the step, or a fresh
+    # init, fails this bound
     held_mesh_resume("mesh resume llama-1b", ranks, 2e-4)
     L = SHARDED_LAYERS
     for r in ranks:
@@ -4025,9 +4056,23 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
     tri kernels at D64_TRI (their plain versions at D64_TRI_PLAIN) beside
     SDPA and the bound. Returns (the #1 training-shape dict, the *_d64
     rows of #6-#9, the worst bf16 error of #1)."""
+    return train_kernels(torch, tfa, _cuda, dev, 64, D64_BWD_CASES,
+                         D64_TRI_CASES, SEED + 71)
+
+
+def train_kernels(torch, tfa, _cuda, dev, D, bwd_cases, tri_cases, seed):
+    """#6/#7 (with #1's forward) at ``bwd_cases`` (B, S, Hq, Hkv, causal,
+    window, lse cotangent) and #3/#8/#9 at ``tri_cases`` (B, S, Hq, Hkv,
+    lse cotangent) at head dim D against their plain versions, bf16 within
+    1e-2 and f32 within 1e-4 (gradients relative to the largest plain
+    one); then, in bf16, #1, #6 and #7 timed at D64_TRAIN's pairs and
+    heads and the tri kernels at D64_TRI's (their plain versions at
+    D64_TRI_PLAIN) beside SDPA and the bound. Returns (the #1
+    training-shape dict, the ``*_d{D}`` rows of #6-#9, the worst bf16 error
+    of #1)."""
     import torch.nn.functional as F
-    g = torch.Generator(dev).manual_seed(SEED + 71)
-    D, bf = 64, torch.bfloat16
+    g = torch.Generator(dev).manual_seed(seed)
+    bf = torch.bfloat16
     scale = D ** -0.5
     worst = dict.fromkeys(("flash_fwd",) + D64_TRAIN_ROWS, (0.0, 0.0))
 
@@ -4040,7 +4085,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
 
     def held(names, dtype, what, errs, out_err=None):
         tol = TOL[str(dtype).split(".")[1]]
-        print(f"head dim 64 {dtype} {what}: "
+        print(f"head dim {D} {dtype} {what}: "
               + ("" if out_err is None else
                  f"max|out-plain| {out_err[0]:.3g} |lse-plain| "
                  f"{out_err[1]:.3g}; ")
@@ -4049,7 +4094,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
               + f" (tol {tol}; backward relative)")
         check((out_err is None or (out_err[0] <= tol and out_err[1] <= 1e-4))
               and all(r <= tol for _, r in errs),
-              f"a head-dim-64 kernel disagrees with plain: {what}")
+              f"a head-dim-{D} kernel disagrees with plain: {what}")
         if dtype == bf:
             parts = [(names[1], errs[:1]), (names[2], errs[1:])]
             if out_err is not None:
@@ -4058,7 +4103,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
                 worst[name] = tuple(max(x) for x in zip(worst[name], *part))
 
     for dtype in (bf, torch.float32):
-        for B, S, Hq, Hkv, causal, window, cot in D64_BWD_CASES:
+        for B, S, Hq, Hkv, causal, window, cot in bwd_cases:
             q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
                                                          dtype=dtype)
             k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
@@ -4081,7 +4126,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
                  f"window={window} lse_cotangent={cot}",
                  [rel(a, b) for a, b in zip(got, want)], fwd)
             del q, k, v, dout, out, lse, got, want
-        for B, S, Hq, Hkv, cot in D64_TRI_CASES:
+        for B, S, Hq, Hkv, cot in tri_cases:
             q, dout = rnd(B, S, Hq, D, dtype=dtype), rnd(B, S, Hq, D,
                                                          dtype=dtype)
             k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
@@ -4116,8 +4161,9 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
             ops_bytes, **extra):
         ops, nbytes = ops_bytes
         t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
-        r = {"name": name + "_d64", "route": "cuda", "source": src + source,
-             "replaces": tpu + replaces + ", head dim 64", "launches": 0,
+        r = {"name": f"{name}_d{D}", "route": "cuda",
+             "source": src + source,
+             "replaces": f"{tpu}{replaces}, head dim {D}", "launches": 0,
              "max_abs_err": worst[name][0], "max_rel_err": worst[name][1],
              "tolerance": TOL["bfloat16"], "shape": shape, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
@@ -4127,7 +4173,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
         rows.append(r)
         print(f"{r['name']}: {json.dumps(r)}")
 
-    # #1, #6 and #7 at the training shape at head dim 64
+    # #1, #6 and #7 at the training shape's pairs and heads at head dim D
     B, S, Hq, Hkv = D64_TRAIN
     q, dout = rnd(B, S, Hq, D), rnd(B, S, Hq, D)
     k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
@@ -4141,7 +4187,8 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
                        False, True)
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
     fwd_train = {
-        "shape": list(D64_TRAIN), "max_abs_err": worst["flash_fwd"][0],
+        "shape": list(D64_TRAIN), "head_dim": D,
+        "max_abs_err": worst["flash_fwd"][0],
         "ms": time_ms(lambda: tfa._launch(
             "flash_fwd", q, kh, vh, 0, causal=True, scale=scale,
             want_lse=True), flush),
@@ -4152,7 +4199,7 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
             *[t.detach() for t in lib_in], is_causal=True, enable_gqa=True),
             flush)}
     fwd_train["bound_share"] = fwd_train["bound_ms"] / fwd_train["ms"]
-    print(f"flash_fwd at head dim 64, the training shape: "
+    print(f"flash_fwd at head dim {D}, the training shape: "
           f"{json.dumps(fwd_train)}")
     plain_ms = time_ms(lambda: tfa.attention_bwd_plain(q, k, v, out, lse,
                                                        dout), flush)
@@ -4215,7 +4262,8 @@ def phase_d64_train_kernels(torch, tfa, _cuda, dev):
     for name, replaces, _, _ in TRI_KERNELS:
         ws, P = tri_ws_bytes(_cuda, name, dev, D)
         fwd = name == "flash_fwd_tri"
-        row(name, "flash_tri.cu", replaces[1:], f"B={B} S={S} Hq={Hq} "
+        row(name, "flash_tri.cu" if D >= 64 else "flash_tri_narrow.cu",
+            replaces[1:], f"B={B} S={S} Hq={Hq} "
             f"Hkv={Hkv} D={D} bf16 causal", time_ms(tri_fns[name], **kw),
             plain_fwd_ms if fwd else plain_bwd_ms,
             lib_fwd_ms if fwd else lib_bwd_ms,
@@ -4344,7 +4392,7 @@ def phase_onchip_twin(torch, onchip, dev):
 # bench_moe_decode models (JAX bench.py:486-490 and :529-531: dim 256, 8/4
 # heads of 32) and the tiny / tiny-moe presets (dim 64, 4/2 heads of 16)
 # serve at their own heads through the D = 32 and 16 instances of #1/#2,
-# #4 and #5; the backward and triangle kernels take 64 and 128 only
+# #4 and #5 (phase 19 trains them)
 SMALL_HEADS = {32: (8, 4), 16: (4, 2)}     # head dim: its models' Hq, Hkv
 SMALL_ML = 512                             # the fast bench_engine max_len
 # the new tensor-core and timed decode instances: (source, a substring of
@@ -4686,9 +4734,10 @@ def phase_small_serving(torch, tl, tm, td, te, tfa, bench, dev):
     heads of 16): a fresh and an int8-cache generate, an engine pass with
     a shared prefix, an MoE generate. The five forward kernels' launches
     are read across each head dim's run, each at least once and nothing
-    else launched; then a backward and a triangular=True backward at head
-    dim 32 raise ValueError naming it, with no backward or triangle
-    launch. Returns ({32: launches, 16: launches}, report)."""
+    else launched; then the forward, the backward (rectangular and
+    triangular=True) and flash_fwd_tri at head dim 48, which no kernel
+    takes, raise ValueError naming it, with no launch. Returns ({32:
+    launches, 16: launches}, report)."""
     g = torch.Generator().manual_seed(SEED + 83)
     launches, report = {}, {}
 
@@ -4762,34 +4811,397 @@ def phase_small_serving(torch, tl, tm, td, te, tfa, bench, dev):
             check((n > 0) == (name in D64_ROWS),
                   f"kernel {name}: {n} launches on the head-dim-{D} path")
 
-    # the backward and triangle kernels refuse head dim 32 before a launch
+    # a head dim no kernel is built for (48) is refused by name before a
+    # launch, forward, backward and triangle alike (32 and 16 train since
+    # phase 19's kernels)
     Hq, Hkv = SMALL_HEADS[32]
     gq = torch.Generator(dev).manual_seed(SEED + 84)
-    for triangular in (False, True):
-        q, k, v = (torch.randn(1, 128, h, 32, generator=gq, device=dev)
-                   .to(torch.bfloat16).requires_grad_()
-                   for h in (Hq, Hkv, Hkv))
-        tfa.reset_launches()
-        out = tfa.flash_attention(q, k, v, triangular=triangular)
+    q, k, v = (torch.randn(1, 128, h, 48, generator=gq, device=dev)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    lse = torch.zeros(1, Hq, 128, device=dev)
+    tfa.reset_launches()
+    for what, fn in (
+            ("flash_attention", lambda: tfa.flash_attention(q, k, v)),
+            ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
+                q, k, v, q, lse, q)),
+            ("triangular=True backward", lambda: tfa.flash_attention_bwd(
+                q, k, v, q, lse, q, triangular=True)),
+            ("flash_fwd_tri", lambda: tfa._launch_tri(
+                "flash_fwd_tri", q, k, v, scale=1.0))):
         try:
-            out.float().sum().backward()
+            fn()
         except ValueError as e:
-            check("head dim 32" in str(e), f"backward at head dim 32: {e}")
+            check("head dim 48" in str(e), f"{what} at head dim 48: {e}")
         else:
-            check(False, "a backward at head dim 32 ran")
-        check({n: c for n, c in tfa.LAUNCHES.items() if c}
-              == {"flash_fwd": 1},
-              f"triangular={triangular} at head dim 32: {tfa.LAUNCHES}")
-        try:
-            tfa._launch_tri("flash_fwd_tri", q.detach(), k.detach(),
-                            v.detach(), scale=1.0)
-        except ValueError as e:
-            check("head dim 32" in str(e), f"flash_fwd_tri at 32: {e}")
-        else:
-            check(False, "flash_fwd_tri launched at head dim 32")
-    report["refusals"] = "backward, triangular=True backward, flash_fwd_tri"
+            check(False, f"{what} ran at head dim 48")
+    check(not any(tfa.LAUNCHES.values()),
+          f"a launch at head dim 48: {tfa.LAUNCHES}")
+    report["refusals"] = ("head dim 48: flash_attention, flash_attention_bwd"
+                          ", triangular=True backward, flash_fwd_tri")
     print(f"head dims 32 and 16 serving: {json.dumps(report)}")
     return launches, report
+
+
+# phase 19: head dims 32 and 16 in training. tiny (4/2 heads of 16), the
+# fast bench_engine model (8/4 of 32) and tiny-moe train through the D = 32
+# and 16 instances of #6/#7 and #3/#8/#9: the D = 64 atom partly filled,
+# the K-major products in D / 16 k-steps, the register-A ones m64n64k16
+# the new tensor-core instances: (source, a substring of the mangled name)
+TC_KERNELS_SMALL_TRAIN = {
+    f"{row}_d{D}": (source, f"{kernel}Li{D}E")
+    for D in SMALL_HEADS
+    for row, source, kernel in (
+        ("flash_bwd_dq", "flash_bwd", "flash_bwd_dq_tc_kernelI"),
+        ("flash_bwd_dkv", "flash_bwd", "flash_bwd_dkv_tc_kernelI"),
+        ("flash_fwd_tri", "flash_tri_narrow",
+         "flash_fwd_tri_kernelI13__nv_bfloat16"),
+        ("flash_bwd_dq_tri", "flash_tri_narrow",
+         "flash_bwd_dq_tri_kernelI13__nv_bfloat16"),
+        ("flash_bwd_dkv_tri", "flash_tri_narrow",
+         "flash_bwd_dkv_tri_tc_kernelI"))}
+SMALL_TRI_S = 8192                 # the triangle through the wrapper
+SMALL_TRAIN_SHAPE = (4, 512)       # B, S of the bf16 training steps
+SMALL_PIPELINE_SHAPE = (4, 128)    # tests/test_parallel_extra.py:176's
+# (B, S, Hq, Hkv) of the triangular=True pass at each head dim, long enough
+# that the natural budget takes flash_fwd_tri: 2 S D 2 bytes past
+# RESIDENT_KV_BUDGET (S > 49152 at D = 32, > 98304 at D = 16) and S a
+# multiple of 512 (the JAX block rule)
+SMALL_LONG = {32: (1, 50176, 8, 4), 16: (1, 98816, 4, 2)}
+
+
+def small_bwd_cases(Hq, Hkv):
+    """(B, S, Hq, Hkv, causal, window, lse cotangent) of #6/#7 at a small
+    head dim: causal, non-causal and a window of 100, with and without an
+    lse cotangent, at (2, 256), and a ragged S (a zero-filled last tile)."""
+    return ((2, 256, Hq, Hkv, True, None, False),
+            (2, 256, Hq, Hkv, True, None, True),
+            (2, 256, Hq, Hkv, False, None, False),
+            (2, 256, Hq, Hkv, False, None, True),
+            (2, 256, Hq, Hkv, True, 100, True),
+            (1, 333, Hq, Hkv, True, None, True))
+
+
+def small_tri_cases(Hq, Hkv):
+    """(B, S, Hq, Hkv, lse cotangent) of #3/#8/#9 called directly: W < P,
+    rows cut into many pieces at a ragged S, B 2, and SMALL_TRI_S."""
+    return ((1, 128, Hq, Hkv, False), (1, 1000, Hq, Hkv, True),
+            (2, 200, Hq, Hkv, True), (1, SMALL_TRI_S, Hq, Hkv, False))
+
+
+def tri_through_wrapper(torch, tfa, dev, D, Hq, Hkv, seed):
+    """triangular=True through flash_attention_with_lse and autograd at (1,
+    SMALL_TRI_S, Hq, Hkv), bf16, with tfa.RESIDENT_KV_BUDGET lowered to 0
+    for the call and restored after (as tests/test_ops.py:74 lowers JAX's):
+    the three tri kernels once each and nothing else, out and lse within
+    1e-2 and 1e-4 of the plain versions and the gradients within 1e-2 of
+    the largest plain one, and all of them within LONG_TOL of the
+    rectangular kernels. Returns {name: (abs, rel) error} of each output
+    against plain."""
+    g = torch.Generator(dev).manual_seed(seed)
+    bf, S = torch.bfloat16, SMALL_TRI_S
+    leaves = [torch.randn(1, S, h, D, generator=g, device=dev).to(bf)
+              .requires_grad_() for h in (Hq, Hkv, Hkv)]
+    dout = torch.randn(1, S, Hq, D, generator=g, device=dev).to(bf)
+
+    def fwd_bwd(triangular):
+        out, lse = tfa.flash_attention_with_lse(*leaves,
+                                                triangular=triangular)
+        return (out, lse) + torch.autograd.grad(out, leaves, dout)
+
+    rect = fwd_bwd(False)
+    budget = tfa.RESIDENT_KV_BUDGET
+    tfa.RESIDENT_KV_BUDGET = 0
+    try:
+        tfa.reset_launches()
+        got = fwd_bwd(True)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in tfa.LAUNCHES.items() if c}
+    finally:
+        tfa.RESIDENT_KV_BUDGET = budget
+    q, k, v = (t.detach() for t in leaves)
+    out, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   0)
+    plain = (out, lse) + tfa.attention_bwd_plain(q, k, v, out, lse, dout)
+    names = ("out", "lse", "dq", "dk", "dv")
+
+    def errs(a, b, i):
+        e = (a.float() - b.float()).abs().max().item()
+        return e, e / (1.0 if i < 2 else b.float().abs().max().item())
+
+    vs_plain = {n: errs(a, b, i) for i, (n, a, b) in
+                enumerate(zip(names, got, plain))}
+    vs_rect = {n: errs(a, b, i)[1] for i, (n, a, b) in
+               enumerate(zip(names, got, rect))}
+    print(f"triangular=True through the wrapper at head dim {D}, bf16 B=1 "
+          f"S={S} Hq={Hq} Hkv={Hkv}, budget lowered to 0: launches "
+          f"{launches}; against plain {json.dumps(vs_plain)} (tol 1e-2, lse "
+          f"1e-4; gradients relative); against the rectangular kernels "
+          f"{json.dumps(vs_rect)} (tol {LONG_TOL})")
+    check(launches == {"flash_fwd_tri": 1, "flash_bwd_dq_tri": 1,
+                       "flash_bwd_dkv_tri": 1},
+          f"triangular=True at head dim {D} launched {launches}")
+    check(vs_plain["lse"][0] <= 1e-4 and all(
+        r <= TOL["bfloat16"] for n, (_, r) in vs_plain.items() if n != "lse"),
+        f"the tri kernels at head dim {D} disagree with plain: {vs_plain}")
+    check(all(e <= LONG_TOL for e in vs_rect.values()),
+          f"the tri kernels at head dim {D} disagree with the rectangular "
+          f"ones: {vs_rect}")
+    return {"flash_fwd_tri": vs_plain["out"], "flash_bwd_dq_tri":
+            vs_plain["dq"], "flash_bwd_dkv_tri": max(vs_plain["dk"],
+                                                     vs_plain["dv"])}
+
+
+def phase_small_train_kernels(torch, tfa, _cuda, dev):
+    """Phase 19 (b), (c): at head dims 32 (Hq 8 / Hkv 4) and 16 (4 / 2),
+    #6/#7 (with #1's forward) at small_bwd_cases and #3/#8/#9 at
+    small_tri_cases against their plain versions, bf16 (1e-2) and f32
+    (1e-4), then timed in bf16 at the D = 64 rows' pairs and heads beside
+    their plain versions, SDPA and the bound (train_kernels), and the
+    triangle through the wrapper with the budget lowered
+    (tri_through_wrapper). Returns ({D: the #1 training-shape dict}, the
+    ``*_d32`` and ``*_d16`` rows of #6-#9, {D: #1's worst bf16 error})."""
+    fwd_train, rows, fwd_err = {}, [], {}
+    for D, (Hq, Hkv) in SMALL_HEADS.items():
+        fwd_train[D], r, fwd_err[D] = train_kernels(
+            torch, tfa, _cuda, dev, D, small_bwd_cases(Hq, Hkv),
+            small_tri_cases(Hq, Hkv), SEED + 90 + D)
+        for name, (e, rel) in tri_through_wrapper(
+                torch, tfa, dev, D, Hq, Hkv, SEED + 91 + D).items():
+            row = next(x for x in r if x["name"] == f"{name}_d{D}")
+            row["max_abs_err"] = max(row["max_abs_err"], e)
+            row["max_rel_err"] = max(row["max_rel_err"], rel)
+        rows += r
+        torch.cuda.empty_cache()
+    return fwd_train, rows, fwd_err
+
+
+def phase_small_train_exact(torch, tl, tm, tt, bench, dev):
+    """Phase 19 (d): in f32 (the kernels' f32 instances), tiny (4/2 heads
+    of 16), the fast bench_engine model (8/4 of 32, 2 layers) and tiny-moe
+    (make_moe_train_step) each take three train steps with attn_impl
+    "flash" and again with "dense", from the same params and batches of
+    (2, 256): every loss within 1e-5 relative, the params after the third
+    step within 1e-4 where each step's dense gradient is 0 or at least
+    1e-7 in size (elsewhere AdamW moves an element by about lr·sign(g),
+    and a gradient that rounds to the other sign moves it by up to 2·lr;
+    those elements are counted, fewer than one in a thousand)."""
+    g = torch.Generator().manual_seed(SEED + 92)
+    report = {}
+    models = (("tiny", tl.PRESETS["tiny"], False),
+              ("fast bench_engine", bench.engine_config(True), False),
+              ("tiny-moe", tm.PRESETS_MOE["tiny-moe"], True))
+    for name, cfg, moe in models:
+        cfg = dataclasses.replace(cfg, dtype="float32", remat=False)
+        check(cfg.head_dim in SMALL_HEADS, f"{name}: head dim {cfg.head_dim}")
+        batches = [torch.randint(0, cfg.vocab_size, (2, 257), generator=g)
+                   .to(dev) for _ in range(3)]
+        losses, params, steady = {}, {}, {}
+        for impl in ("flash", "dense"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            state = (tm.make_moe_train_state if moe else tt.make_train_state)
+            p, opt = state(c, torch.Generator(dev).manual_seed(SEED), dev)
+            step = (tm.make_moe_train_step if moe
+                    else tt.make_train_step)(c, opt)
+            losses[impl], ok = [], None
+            for b in batches:
+                losses[impl].append(step(p, b[:, :-1], b[:, 1:]).item())
+                gr = {k: v.grad for k, v in _named(p).items()}
+                now = {k: (x.abs() >= 1e-7) | (x == 0) for k, x in gr.items()}
+                ok = now if ok is None else {k: ok[k] & now[k] for k in ok}
+            params[impl], steady[impl] = _named(p), ok
+            del p, opt, step
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["flash"], losses["dense"]))
+        diff = {k: (params["flash"][k] - params["dense"][k]).detach().abs()
+                for k in params["dense"]}
+        worst = max(d[steady["dense"][k]].max().item() if
+                    steady["dense"][k].any() else 0.0
+                    for k, d in diff.items())
+        worst_all = max(d.max().item() for d in diff.values())
+        excluded = sum(int((~m).sum()) for m in steady["dense"].values())
+        n = sum(d.numel() for d in diff.values())
+        report[name] = {"head_dim": cfg.head_dim,
+                        "heads": [cfg.n_heads, cfg.n_kv_heads],
+                        "losses": losses, "loss_rel": rel,
+                        "param_err": worst, "param_err_all": worst_all,
+                        "excluded": excluded, "params": n}
+        print(f"head dim {cfg.head_dim} exact training ({name}, f32, 3 "
+              f"steps): losses flash {losses['flash']} dense "
+              f"{losses['dense']} (worst rel {rel:.3g}, tol 1e-5); params "
+              f"max|flash - dense| {worst:.3g} (tol 1e-4; {worst_all:.3g} "
+              f"over all, {excluded} of {n} elements with a gradient under "
+              f"1e-7 left out)")
+        check(rel <= 1e-5, f"{name}: flash losses != dense losses")
+        check(worst <= 1e-4, f"{name}: flash params != dense params")
+        check(excluded < n // 1000, f"{name}: {excluded} of {n} left out")
+    return report
+
+
+def small_long(torch, tfa, dev, D, seed):
+    """triangular=True forward and backward at SMALL_LONG[D], bf16, the
+    natural budget: against the rectangular kernels within LONG_TOL, the
+    tri kernels once each and no rectangular launch (the counts read
+    alone), then the pass timed (CUDA events, median of 5). Returns
+    (launches, report)."""
+    B, S, Hq, Hkv = SMALL_LONG[D]
+    check(tfa.tri_dispatch(S, D, 2, causal=True, triangular=True,
+                           window=None) == (True, True),
+          f"tri_dispatch at S={S}, head dim {D}")
+    g = torch.Generator(dev).manual_seed(seed)
+    leaves = [torch.randn(B, S, h, D, generator=g, device=dev)
+              .to(torch.bfloat16).requires_grad_() for h in (Hq, Hkv, Hkv)]
+    dout = torch.randn(B, S, Hq, D, generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def fwd_bwd(triangular=True):
+        out, lse = tfa.flash_attention_with_lse(*leaves,
+                                                triangular=triangular)
+        return (out, lse) + torch.autograd.grad(out, leaves, dout)
+
+    want = fwd_bwd(False)
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    got = fwd_bwd()
+    torch.cuda.synchronize()
+    launches = dict(tfa.LAUNCHES)
+    errs = [(a.float() - b.float()).abs().max().item()
+            / (1.0 if i < 2 else b.float().abs().max().item())
+            for i, (a, b) in enumerate(zip(got, want))]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    report = dict(zip(("out", "lse", "dq_rel", "dk_rel", "dv_rel"), errs))
+    report.update(shape=[B, S, Hq, Hkv, D],
+                  ms=time_ms(fwd_bwd, flush, reps=5, warm=1),
+                  rect_ms=time_ms(lambda: fwd_bwd(False), flush, reps=5,
+                                  warm=1))
+    print(f"triangle vs rectangle at head dim {D}, bf16 B={B} S={S} Hq={Hq} "
+          f"Hkv={Hkv}: {json.dumps(report)} (tol {LONG_TOL}); launches "
+          f"{launches}")
+    check(all(e <= LONG_TOL for e in errs) and all(
+        bool(torch.isfinite(t).all()) for t in got),
+        f"triangular=True disagrees with the rectangular kernels at head "
+        f"dim {D}")
+    for name, n in launches.items():
+        want_n = 1 if name.endswith("_tri") else 0
+        check(n == want_n, f"{name}: {n} launches on the head-dim-{D} long "
+              f"path, expected {want_n}")
+    del leaves, dout, want, got, flush
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def small_train_steps(torch, tt, tfa, cfg, what, dev, steps=5):
+    """``cfg`` in bf16 (f32 masters, remat, flash) at SMALL_TRAIN_SHAPE: a
+    warm-up step and ``steps`` on one batch, the loss finite and falling,
+    the launches read across the steps and checked (#1 twice a layer under
+    remat, #6 and #7 once). Returns (launches, report)."""
+    cfg = dataclasses.replace(cfg, attn_impl="flash", remat=True)
+    (B, S), L = SMALL_TRAIN_SHAPE, cfg.n_layers
+    params, opt = tt.make_train_state(
+        cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    step = tt.make_train_step(cfg, opt)
+    g = torch.Generator().manual_seed(SEED + 93)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).to(dev)
+    warm = step(params, toks[:, :-1], toks[:, 1:]).item()
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    losses = [step(params, toks[:, :-1], toks[:, 1:]).item()
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = dict(tfa.LAUNCHES)
+    report = {"head_dim": cfg.head_dim, "batch": B, "seq_len": S,
+              "warm_loss": warm, "losses": losses, "step_ms": ms}
+    print(f"train {what} (bf16, remat, flash) B={B} S={S}: "
+          f"{json.dumps(report)}; launches over {steps} steps {launches}")
+    check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
+          f"{what}: a training loss is not finite")
+    check(losses[-1] < losses[0] < warm, f"{what}: loss did not fall: "
+          f"{losses}")
+    for name, n in launches.items():
+        want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                "flash_bwd_dkv": L * steps}.get(name, 0)
+        check(n == want, f"{what}: {name} launched {n} times, expected "
+              f"{want}")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def small_pipeline(torch, tl, tm, tt, jobs, launch, dev):
+    """The pp2_tp2_flash pipeline (tests/test_parallel_extra.py:176's twin)
+    on tiny at 4 layers, f32, one step of (pp 2, tp 2) over 4 ranks sharing
+    the card over gloo (n_micro 2, B=4, S=128) against this process's
+    single-process step: loss within 1e-5 relative, each rank's gradients
+    within 1e-4 of the largest and params within 1e-5 where |g| >= 1e-7
+    (held_exact), and each rank's launches of #1, #6 and #7 (2 microbatches
+    through its 2 layers, forward and backward once: 4 each). Returns the
+    launches by rank."""
+    cfg = dataclasses.replace(tl.PRESETS["tiny"], n_layers=4,
+                              dtype="float32", attn_impl="flash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pipeline-") as d:
+        path = str(Path(d) / "tiny4.pt")
+        loss = parallel_reference(torch, tm, tt, jobs, cfg, dev, path,
+                                  shape=SMALL_PIPELINE_SHAPE)
+        case = {"kind": "pipeline", "mesh": {"pp": 2, "tp": 2}, "cfg": cfg,
+                "seed": SEED + 30, "batch_shape": SMALL_PIPELINE_SHAPE,
+                "batch_seed": SEED + 31, "reference": path,
+                "n_micro": PARALLEL_MICRO, "n_chunks": 1}
+        t0 = time.perf_counter()
+        res = launch.spawn_ranks(jobs.run_cases, 4, backend="gloo",
+                                 device=dev, timeout_s=600,
+                                 args=([case], dev.type))
+        wall = time.perf_counter() - t0
+    got = [r[0] for r in res]
+    print(f"pp2_tp2_flash on tiny at 4 layers ({SHARED}; {wall:.1f} s for "
+          f"the world):")
+    held_exact("pp2_tp2_flash {'pp': 2, 'tp': 2}", got, loss,
+               SMALL_PIPELINE_SHAPE)
+    want = PARALLEL_MICRO * cfg.n_layers // 2
+    for gr in got:
+        for k in SHARDED_KERNELS:
+            check(gr["launches"][k] == want,
+                  f"pp2_tp2_flash rank {gr['coords']}: {k} launched "
+                  f"{gr['launches'][k]} times, expected {want}")
+    return {k: [gr["launches"][k] for gr in got] for k in SHARDED_KERNELS}
+
+
+def phase_small_train(torch, tl, tm, tt, tfa, jobs, launch, bench, dev):
+    """Phase 19 (d) bf16 and (e): each head dim's main path, its launches
+    read alone. At 32: the fast bench_engine model trained (``d32_train``)
+    and a triangular=True pass at (1, 50176, 8/4) (``d32_long``); at 16:
+    tiny trained (``d16_train``), tiny-moe through make_moe_train_step at
+    MOE_TRAIN_SHAPE (``moe_train_d16``), the pp2_tp2_flash pipeline on tiny
+    (``d16_pipeline``, a list by rank) and a triangular=True pass at (1,
+    98816, 4/2) (``d16_long``). Every one of #6, #7, #3, #8 and #9 launches
+    at each head dim. Returns ({D: {path: launches}}, report)."""
+    by_dim, report = {32: {}, 16: {}}, {}
+    engine = bench.engine_config(True)
+    check(engine.head_dim == 32, f"the fast bench_engine model: {engine}")
+    by_dim[32]["d32_train"], report["d32_train"] = small_train_steps(
+        torch, tt, tfa, engine, "the fast bench_engine model (8/4 heads of "
+        "32)", dev)
+    by_dim[32]["d32_long"], report["d32_long"] = small_long(
+        torch, tfa, dev, 32, SEED + 94)
+    tiny = tl.PRESETS["tiny"]
+    check(tiny.head_dim == 16, f"tiny: {tiny}")
+    by_dim[16]["d16_train"], report["d16_train"] = small_train_steps(
+        torch, tt, tfa, tiny, "tiny (4/2 heads of 16)", dev)
+    by_dim[16]["moe_train_d16"], report["moe_train_d16"] = phase_moe_train(
+        torch, tm, tfa, dev, cfg=tm.PRESETS_MOE["tiny-moe"], steps=3,
+        what="tiny-moe: 2 layers, 4/2 heads of 16, 4 experts, top-2")
+    torch.cuda.empty_cache()
+    by_dim[16]["d16_pipeline"] = small_pipeline(torch, tl, tm, tt, jobs,
+                                                launch, dev)
+    by_dim[16]["d16_long"], report["d16_long"] = small_long(
+        torch, tfa, dev, 16, SEED + 95)
+    for D, paths in by_dim.items():
+        for name in D64_TRAIN_ROWS:
+            n = sum(sum(c) if isinstance(c, list) else c
+                    for c in (v.get(name, 0) for v in paths.values()))
+            check(n > 0, f"{name}: no launch at head dim {D}")
+    print(f"head dims 32 and 16 in training: {json.dumps(report)}")
+    return by_dim, report
 
 
 def main() -> int:
@@ -4841,6 +5253,9 @@ def main() -> int:
     small_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_SMALL)
     small_decode_report = decode_build_report(logs, DECODE_INSTANCES_SMALL,
                                               "flash_decode_narrow")
+    print("head dims 32 and 16 in training (phase 19):")
+    small_train_tc_report = tc_build_report(_cuda, logs,
+                                            TC_KERNELS_SMALL_TRAIN)
 
     t0 = time.perf_counter()
     rows, deferred = phase_kernels(torch, tfa, td, dev)
@@ -4993,6 +5408,25 @@ def main() -> int:
     print(f"head dims 32 and 16 serving {time.perf_counter() - t0:.1f} s; "
           f"head dims 32 and 16 phase {time.perf_counter() - t18:.1f} s")
     torch.cuda.empty_cache()
+    t19 = t0 = time.perf_counter()
+    small_train_fwd, small_train_rows, small_fwd_err = \
+        phase_small_train_kernels(torch, tfa, _cuda, dev)
+    print(f"head dims 32 and 16 training kernels "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    small_train_exact = phase_small_train_exact(torch, tl, tm, tt, bench,
+                                                dev)
+    print(f"head dims 32 and 16 exact training "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small_train, small_train_report = phase_small_train(
+        torch, tl, tm, tt, tfa, jobs, launch, bench, dev)
+    small_train_report["exact"] = small_train_exact
+    print(f"head dims 32 and 16 training paths {time.perf_counter() - t0:.1f}"
+          f" s; head dims 32 and 16 training phase "
+          f"{time.perf_counter() - t19:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -5100,10 +5534,28 @@ def main() -> int:
         if r["name"] in small_decode_report:
             r["ptxas"] = small_decode_report[r["name"]]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
-    rows += d64_rows + d64_train_rows + small_rows
+        if name == "flash_fwd":     # and its training paths (phase 19)
+            r["at_train_shape"] = small_train_fwd[int(D)]
+            r["max_abs_err"] = max(r["max_abs_err"], small_fwd_err[int(D)])
+            r["launches_by_path"].update(
+                {k: v.get(name, 0) for k, v in small_train[int(D)].items()})
+    # the head-dim-32 and 16 training and triangle instances: launches on
+    # their own path (training for the backward, the triangular=True pass
+    # for the tri kernels), every phase-19 path's count at that head dim
+    for r in small_train_rows:
+        name, D = r["name"].rsplit("_d", 1)
+        paths = small_train[int(D)]
+        r["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
+        r["launches"] = paths[f"d{D}_long" if name.endswith("_tri")
+                              else f"d{D}_train"][name]
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        r.update(small_train_tc_report.get(r["name"], {}))
+    rows += d64_rows + d64_train_rows + small_rows + small_train_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
+    print(f"head dims 32 and 16 in training: "
+          f"{json.dumps(small_train_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -48,10 +48,10 @@ shapes) with the host clock. Deliberate differences:
   the port's dense cached sweep (``decode._cached_attention(impl=
   "dense")``), as in the JAX sections; the sampled run reseeds its
   generator each run, as the JAX one reuses its key; every model is the
-  JAX one, heads included: the serving kernels take head dims 16, 32, 64
-  and 128 (``bench_engine``'s and ``bench_moe_decode``'s fast models serve
-  at 8/4 heads of 32), the training kernels 64 and 128
-  (``bench_train_step``'s fast model trains at 8/4 heads of 64).
+  JAX one, heads included: every kernel takes head dims 16, 32, 64 and
+  128 (``bench_engine``'s and ``bench_moe_decode``'s fast models serve and
+  train at 8/4 heads of 32, ``bench_train_step``'s fast model trains at
+  8/4 heads of 64).
 
 Run on a machine with the card, from the repository root::
 

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_fwd", "flash_decode", "flash_decode_narrow", "flash_bwd",
-           "flash_tri")
+           "flash_tri", "flash_tri_narrow")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +89,9 @@ ENTRIES = {
     "flash_fwd_tri": ("flash_tri", FlashTriArgs),
     "flash_bwd_dq_tri": ("flash_tri", FlashTriArgs),
     "flash_bwd_dkv_tri": ("flash_tri", FlashTriArgs),
+    "flash_fwd_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
+    "flash_bwd_dq_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
+    "flash_bwd_dkv_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
 }
 # the `which` argument of flash_tri_ctas() and flash_tri_ws_floats() for
 # each flattened-triangle entry
@@ -171,12 +174,24 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# the kernels whose head dims 32 and 16 live in a source of their own
+# (csrc/flash_decode_narrow.cu, csrc/flash_tri_narrow.cu), built beside the
+# 64 and 128 of flash_decode.cu and flash_tri.cu: C entry <kernel>_narrow
+NARROW = ("flash_decode", "flash_fwd_tri", "flash_bwd_dq_tri",
+          "flash_bwd_dkv_tri")
+
+
 def entry(kernel: str, head_dim: int) -> str:
-    """The C entry that launches ``kernel`` at ``head_dim``: flash_decode's
-    head dims 32 and 16 live in a source of their own (csrc/
-    flash_decode_narrow.cu), built beside flash_decode.cu's 64 and 128."""
-    return "flash_decode_narrow" if kernel == "flash_decode" \
-        and head_dim < 64 else kernel
+    """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``, or
+    ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16."""
+    return f"{kernel}_narrow" if kernel in NARROW and head_dim < 64 \
+        else kernel
+
+
+def _tri_library(head_dim: int) -> ctypes.CDLL:
+    """The library whose flash_tri_ctas / flash_tri_ws_floats answer for
+    ``head_dim``: flash_tri_narrow's at 32 and 16, flash_tri's else."""
+    return library("flash_tri_narrow" if head_dim < 64 else "flash_tri")
 
 
 def kernel(entry: str):
@@ -194,10 +209,11 @@ def tri_ctas(entry: str, act_dtype: int, head_dim: int,
     """The persistent grid P of flattened-triangle entry ``entry`` at act
     dtype ``act_dtype`` and head dim ``head_dim`` on the card
     ``device_index`` (the SM count times the blocks of its kernel that fit
-    on one SM, from csrc/flash_tri.cu's ``flash_tri_ctas``), cached."""
+    on one SM, from the ``flash_tri_ctas`` of csrc/flash_tri.cu, or of
+    flash_tri_narrow.cu at 32 and 16), cached."""
     key = (entry, act_dtype, head_dim, device_index)
     if key not in _TRI_CTAS:
-        fn = library("flash_tri").flash_tri_ctas
+        fn = _tri_library(head_dim).flash_tri_ctas
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
         P = fn(TRI_WHICH[entry], act_dtype, head_dim)
@@ -224,12 +240,12 @@ def bwd_dkv_blocks(B: int, Hkv: int, S: int, act_dtype: int) -> int:
 def tri_ws_floats(entry: str, act_dtype: int, head_dim: int) -> int:
     """f32 workspace values per CTA of flattened-triangle entry ``entry``
     for act dtype ``act_dtype`` (0 f32, 1 bf16: the dK/dV tile edge
-    differs) and head dim ``head_dim`` (csrc/flash_tri.cu's
-    ``flash_tri_ws_floats``, which owns the layout), cached: the wrapper
+    differs) and head dim ``head_dim`` (``flash_tri_ws_floats`` of
+    csrc/flash_tri.cuh's entries, which own the layout), cached: the wrapper
     allocates ``tri_ctas(...)`` times this."""
     key = (entry, act_dtype, head_dim)
     if key not in _TRI_WS:
-        fn = library("flash_tri").flash_tri_ws_floats
+        fn = _tri_library(head_dim).flash_tri_ws_floats
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_longlong
         n = fn(TRI_WHICH[entry], act_dtype, head_dim)

@@ -17,10 +17,14 @@
 // The bf16 instances run on the tensor cores through flash_tc.cuh's tile
 // steps (wgmma on swizzled bf16 tiles, cp.async rings, one warpgroup a
 // block, two CTAs an SM at D = 128; at D = 64 tc::DQ_TC_BLOCKS and
-// tc::DKV_TC_BLOCKS), shared with flash_tri.cu; the f32 instances are f32
+// tc::DKV_TC_BLOCKS), shared with flash_tri.cuh; the f32 instances are f32
 // FMA from shared memory, the exactness instances. Every instance takes
-// head dim 64 or 128 (the C entries refuse any other D). What the design
-// does about the bound is to do only live work and no redundant passes:
+// head dim 16, 32, 64 or 128 (the C entries refuse any other D): at 32
+// and 16 (the tiny presets' and the fast bench_engine model's heads) the
+// bf16 tiles are the D = 64 atom partly filled, their other chunks zeroed
+// once at the kernel's start (flash_tc.cuh), and the f32 instances take
+// D / 8 columns a lane as at every D. What the design does about the bound
+// is to do only live work and no redundant passes:
 //   - dQ: one block per (batch * q-head, 64-row query tile) that loops over
 //     the live key tiles only (causal frontier, window band:
 //     fa::live_keys), the loop-bound counterpart of the TPU's sequential kv
@@ -46,7 +50,7 @@
 // The opt-in flattened-triangle kernels _bwd_*_tri compute the same
 // function over one flat list of the live causal tiles; their Hopper
 // counterparts, a persistent balanced schedule over that list, are in
-// flash_tri.cu and share the tile steps (dq_tile, dkv_tile in
+// flash_tri.cuh and share the tile steps (dq_tile, dkv_tile in
 // flash_common.cuh; tc::dq_tile_tc, tc::dkv_tile_tc in flash_tc.cuh) with
 // the kernels here. Left for later: warp specialisation with TMA,
 // ping-pong consumers, fp8.
@@ -189,9 +193,12 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
     flash_bwd_dkv_tc_kernel(FlashBwdArgs a) {
-  static_assert(D == 64 || D == 128, "one tile spans the head dim: 64 or 128");
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
+  // below D = 64 the chunks past D of K, V and both Q/dO stages, published
+  // with the walk's first copies
+  if constexpr (D < 64)
+    for (int i = 0; i < 6; ++i) wg::zero_pad<D>(tc::tiles() + i * wg::tile_bytes<D>());
   const int b = blockIdx.x / a.Hkv;
   const int kvh = blockIdx.x % a.Hkv;
   const int k0 = blockIdx.y * E;
@@ -203,15 +210,16 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
                        a.lse + rows, a.delta + rows,
                        a.k_ss, a.v_ss, a.q_ss, a.q_sh, a.do_ss, a.do_sh,
                        a.S, a.Hq / a.Hkv, kvh, a.scale};
-  float dk[D / 2], dv[D / 2];
+  constexpr int ACC = tc::acc_floats<D>;
+  float dk[ACC], dv[ACC];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < ACC; ++e) dk[e] = dv[e] = 0.f;
   const int2 queries = fa::live_queries(k0, min(k0 + E, a.S) - 1, a.S, a.causal, a.window);
   const int qt1 = (queries.y + E - 1) / E;   // one past the last live query tile
-  tc::dkv_walk_tc(dk, dv, tc::tiles(), src, k0, qt1 - 1, qt1 - queries.x / E,
-                  tc::RectMask{a.S, a.causal, a.window});
-  tc::dkv_store(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss,
-                static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
+  tc::dkv_walk_tc<D>(dk, dv, tc::tiles(), src, k0, qt1 - 1, qt1 - queries.x / E,
+                     tc::RectMask{a.S, a.causal, a.window});
+  tc::dkv_store<D>(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss,
+                   static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
 }
 
 // The bf16 dQ instance: one warpgroup per (batch * q-head, 64-query tile)
@@ -220,7 +228,6 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
     flash_bwd_dq_tc_kernel(FlashBwdArgs a) {
-  static_assert(D == 64 || D == 128, "one tile spans the head dim: 64 or 128");
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
   constexpr int TILE = wg::tile_bytes<D>();
@@ -233,12 +240,17 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
                    a.S);
   wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
                    q0, a.S);
+  // below D = 64 the chunks past D of Q, dO and both K/V stages, published
+  // with the first key tile's copies
+  if constexpr (D < 64)
+    for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
   const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-  float lse2[2], delta[2], acc[D / 2];
+  constexpr int ACC = tc::acc_floats<D>;
+  float lse2[2], delta[2], acc[ACC];
   bool live[2];
   tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
   const int2 keys = fa::live_keys(q0, min(q0 + E, a.S) - 1, a.S, a.causal, a.window);
   const tc::RectMask mask{a.S, a.causal, a.window};
   const float sl2 = a.scale * tc::kLog2e;
@@ -246,12 +258,12 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
                  static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss, a.S,
                  keys.x / E, (keys.y + E - 1) / E, [](int j) { return j + 1; },
                  [&](uint32_t sK, int j) {
-                   tc::dq_tile_tc(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2, a.scale,
-                                  mask);
+                   tc::dq_tile_tc<D>(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2,
+                                     a.scale, mask);
                  });
   const float one[2] = {1.f, 1.f};
-  tc::store_bf16(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0, a.S,
-                 one);
+  tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss,
+                         q0, a.S, one);
 }
 
 template <typename T, int D>
@@ -305,35 +317,38 @@ cudaError_t launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
 }
 
 bool takes(const FlashBwdArgs* a) {
-  return (a->D == 64 || a->D == 128) && (a->act_dtype == 0 || a->act_dtype == 1) &&
-         a->Hkv > 0 && a->Hq % a->Hkv == 0;
+  return (a->D == 16 || a->D == 32 || a->D == 64 || a->D == 128) &&
+         (a->act_dtype == 0 || a->act_dtype == 1) && a->Hkv > 0 && a->Hq % a->Hkv == 0;
+}
+
+// The dQ (dq) or dK/dV launch at head dim D in the struct's act dtype.
+template <int D>
+cudaError_t launch_at(bool dq, const FlashBwdArgs& a, cudaStream_t s) {
+  if (a.act_dtype == 0) return dq ? launch_dq<float, D>(a, s) : launch_dkv<float, D>(a, s);
+  return dq ? launch_dq<__nv_bfloat16, D>(a, s) : launch_dkv<__nv_bfloat16, D>(a, s);
+}
+
+int run(bool dq, const FlashBwdArgs* a, void* stream) {
+  if (a->S <= 0 || a->B <= 0) return 0;
+  if (!takes(a)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->D) {
+    case 16: return static_cast<int>(launch_at<16>(dq, *a, s));
+    case 32: return static_cast<int>(launch_at<32>(dq, *a, s));
+    case 64: return static_cast<int>(launch_at<64>(dq, *a, s));
+    default: return static_cast<int>(launch_at<128>(dq, *a, s));
+  }
 }
 
 }  // namespace
 
 // Both launch on `stream`, allocate nothing and do not synchronise; each
 // returns cudaGetLastError() after its launch (0 on success;
-// cudaErrorInvalidValue for a head dim other than 64 or 128).
-extern "C" int flash_bwd_dq(const FlashBwdArgs* a, void* stream) {
-  if (a->S <= 0 || a->B <= 0) return 0;
-  if (!takes(a)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->D == 64)
-    return static_cast<int>(a->act_dtype == 0 ? launch_dq<float, 64>(*a, s)
-                                              : launch_dq<__nv_bfloat16, 64>(*a, s));
-  return static_cast<int>(a->act_dtype == 0 ? launch_dq<float, 128>(*a, s)
-                                            : launch_dq<__nv_bfloat16, 128>(*a, s));
-}
+// cudaErrorInvalidValue for a head dim other than 16, 32, 64 or 128).
+extern "C" int flash_bwd_dq(const FlashBwdArgs* a, void* stream) { return run(true, a, stream); }
 
 extern "C" int flash_bwd_dkv(const FlashBwdArgs* a, void* stream) {
-  if (a->S <= 0 || a->B <= 0) return 0;
-  if (!takes(a)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->D == 64)
-    return static_cast<int>(a->act_dtype == 0 ? launch_dkv<float, 64>(*a, s)
-                                              : launch_dkv<__nv_bfloat16, 64>(*a, s));
-  return static_cast<int>(a->act_dtype == 0 ? launch_dkv<float, 128>(*a, s)
-                                            : launch_dkv<__nv_bfloat16, 128>(*a, s));
+  return run(false, a, stream);
 }
 
 // The blocks flash_bwd_dkv launches for (B, Hkv, S) at act dtype act_dtype

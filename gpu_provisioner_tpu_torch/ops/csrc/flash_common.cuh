@@ -4,7 +4,7 @@
 // the mask and P rebuild of _rebuild_p_ds and the tile steps _bwd_dq_step /
 // _bwd_dkv_step (backward). flash_fwd.cu (self-attention and KV-cache
 // prefill), flash_decode.cuh (short query blocks against the cache),
-// flash_bwd.cu (dQ and dK/dV) and flash_tri.cu (the same functions on the
+// flash_bwd.cu (dQ and dK/dV) and flash_tri.cuh (the same functions on the
 // persistent flattened-triangle schedule) all include it, so the mask, the
 // NEG_INF guard, a tile step and a numerics fix land once.
 //
@@ -100,7 +100,7 @@ struct FlashBwdArgs {
   float scale;
 };
 
-// Argument block of the flattened-triangle entry points (flash_tri.cu),
+// Argument block of the flattened-triangle entry points (flash_tri.cuh),
 // mirrored by ctypes.Structure FlashTriArgs in ops/_cuda.py. Causal GQA
 // self-attention at positions 0..S-1 (no window, pads or sinks); strides in
 // elements, in (batch, position, head) order, the head dimension contiguous.

@@ -62,7 +62,7 @@
 // (8 lanes a row, D / 8 columns each).
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
-// flash_tri.cu, behind triangular=True, on the same tile steps. Left for
+// flash_tri.cuh, behind triangular=True, on the same tile steps. Left for
 // later: warp specialisation with TMA, ping-pong consumers, fp8.
 #include <type_traits>
 

@@ -2,9 +2,9 @@
 // flash_wgmma.cuh's products: the forward step, the dQ step and the dK/dV
 // step, each one 64 x 64 tile of (query, key) pairs, with the walks that
 // feed them through a two-stage cp.async ring. flash_fwd.cu's flash_fwd and
-// flash_tri.cu's flash_fwd_tri share the forward step; flash_bwd.cu's
-// flash_bwd_dq and flash_tri.cu's flash_bwd_dq_tri the dQ step;
-// flash_bwd.cu's flash_bwd_dkv and flash_tri.cu's flash_bwd_dkv_tri the dK/dV
+// flash_tri.cuh's flash_fwd_tri share the forward step; flash_bwd.cu's
+// flash_bwd_dq and flash_tri.cuh's flash_bwd_dq_tri the dQ step;
+// flash_bwd.cu's flash_bwd_dkv and flash_tri.cuh's flash_bwd_dkv_tri the dK/dV
 // step. What differs between a pair is the schedule and the mask, a functor
 // with a per-element `keep` and a whole-tile `full` test (the step skips
 // the per-element test on a full tile).
@@ -32,18 +32,20 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// Every step is generic in the head dim D = 64 or 128 (the accumulator's
-// size gives it: D / 2 floats a thread): at D = 64 a tile is one swizzle
-// atom, S = Q K^T (and dP = dO V^T, S^T, dP^T) takes 4 k-steps, and the
-// register-A products (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q)
-// are m64n64k16 into 32 floats; their A fragments do not change with D
-// (their K is the tile's 64 keys or queries). Shared memory at D = 64: 41
-// KB forward (bf16 cache) or 42 KB (int8 cache), 49 KB dQ, 50 KB dK/dV.
-// The forward step also takes D = 32 and 16 (D a template parameter of its
-// own): the D = 64 tile partly filled (flash_wgmma.cuh), S = Q K^T in D / 16
-// k-steps, O += P V m64n64k16 into the D = 64 accumulator of 32 floats a
-// thread (acc_floats), columns D.. never stored (store_bf16's D); shared
-// memory D = 64's.
+// Every step is generic in the head dim D = 16, 32, 64 or 128, a template
+// parameter of its own (the accumulator holds acc_floats<D> floats a
+// thread): at D = 64 a tile is one swizzle atom, S = Q K^T (and dP = dO
+// V^T, S^T, dP^T) takes 4 k-steps, and the register-A products (O += P V,
+// dQ += dS K, dV += P^T dO, dK += dS^T Q) are m64n64k16 into 32 floats;
+// their A fragments do not change with D (their K is the tile's 64 keys or
+// queries). Shared memory at D = 64: 41 KB forward (bf16 cache) or 42 KB
+// (int8 cache), 49 KB dQ, 50 KB dK/dV. At D = 32 and 16 a tile is the D =
+// 64 atom partly filled (flash_wgmma.cuh; the kernels zero its other
+// chunks once, wg::zero_pad): the K-major products take D / 16 k-steps,
+// the register-A products stay m64n64k16 into D = 64's accumulator of 32
+// floats a thread, whose columns D.. are computed from the zeros and never
+// stored (store_bf16's and dkv_store's D); shared memory and CTAs an SM as
+// at D = 64.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -67,8 +69,8 @@
 // Shared memory of the dK/dV step, from the first swizzle-aligned byte: K, V
 // (two tiles), then two stages of Q, dO (four tiles), then two stages of 64
 // lse and 64 delta values (512 bytes each): 97 KB at D = 128, so two CTAs
-// an SM. Registers: dK and dV D / 2 f32 each, S^T and dP^T 32 each, a
-// thread.
+// an SM. Registers: dK and dV acc_floats<D> f32 each (D / 2 from 64 up),
+// S^T and dP^T 32 each, a thread.
 #pragma once
 
 #include "flash_common.cuh"
@@ -99,9 +101,10 @@ __host__ __device__ constexpr size_t dkv_tc_smem() {
 }
 
 // CTAs an SM the backward's tensor-core instances (flash_bwd.cu's dQ and
-// dK/dV, flash_tri.cu's dK/dV) are built for, by head dim: two at D = 128;
-// at D = 64, where a step holds half the accumulators and half the shared
-// memory, the counts hack/torch_bwd_d64_ab.py measured fastest on an H100
+// dK/dV, flash_tri.cuh's dK/dV) are built for, by head dim: two at D = 128;
+// at D = 64 (and below it, with D = 64's accumulators and shared memory),
+// where a step holds half the accumulators and half the shared memory of
+// D = 128's, the counts hack/torch_bwd_d64_ab.py measured fastest on an H100
 // (it builds the sources with other values through these macros). dK/dV
 // at three: 164 registers and three CTAs resident, 0.615 ms at (8, 2048,
 // 16/8) against 0.818 at two (180 registers, two resident) and 0.767 at
@@ -119,8 +122,9 @@ constexpr int DQ_TC_BLOCKS = D == 128 ? 2 : TC_DQ_BLOCKS_D64;
 template <int D>
 constexpr int DKV_TC_BLOCKS = D == 128 ? 2 : TC_DKV_BLOCKS_D64;
 
-// The floats a thread of the forward's accumulator, 64 x max(D, 64): D / 2,
-// and D = 64's 32 below it (the columns past D are computed, never stored).
+// The floats a thread of an accumulator of 64 x max(D, 64) (the forward's
+// O, dQ, dK, dV): D / 2, and D = 64's 32 below it (the columns past D are
+// computed, never stored).
 template <int D>
 constexpr int acc_floats = D < 64 ? 32 : D / 2;
 
@@ -525,16 +529,16 @@ __device__ __forceinline__ void dq_rows(const float* lse, const float* delta, in
 
 // One dQ step (_bwd_dq_step): queries q0 .. q0 + 63 (Q, dO tiles at sQ, sdO;
 // their rows' dq_rows) against keys k0 .. k0 + 63 (K, V tiles at sK, sK +
-// TILE), the copies waited for and published; head dim D = 2 N (N: acc's
-// floats a thread). S = Q K^T and dP = dO V^T, P from lse while dP
+// TILE), the copies waited for and published; head dim D, acc_floats<D>
+// floats a thread. S = Q K^T and dP = dO V^T, P from lse while dP
 // finishes, dS = P (dP - delta) scale, acc += dS K with dS rounded to bf16.
-template <typename Mask, int N>
+template <int D, typename Mask, int N>
 __device__ __forceinline__ void dq_tile_tc(float (&acc)[N], uint32_t sQ, uint32_t sdO,
                                            uint32_t sK, const float (&lse2)[2],
                                            const float (&delta)[2], const bool (&live)[2],
                                            int q0, int k0, float sl2, float scale,
                                            const Mask& mask) {
-  constexpr int D = 2 * N;
+  static_assert(N == acc_floats<D>, "the accumulator of head dim D");
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   float s[32], dp[32];
   wg::fence();
@@ -602,13 +606,14 @@ __device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const 
 // One dK/dV step: the block's keys k0 .. k0 + 63 (K, V tiles at sK, sK +
 // TILE) against queries q0 .. q0 + 63 of one q-head (Q, dO tiles at stage,
 // stage + TILE; lse, delta at sL, sL + 64), the copies waited for and
-// published; head dim D = 2 N (N: dk's and dv's floats a thread). Adds the
-// step's P^T dO to dv and dS^T Q to dk (m64nDk16 over the 64 queries).
-template <typename Mask, int N>
+// published; head dim D, acc_floats<D> of dk's and dv's floats a thread.
+// Adds the step's P^T dO to dv and dS^T Q to dk (m64nNk16 over the 64
+// queries, N = max(D, 64)).
+template <int D, typename Mask, int N>
 __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             uint32_t stage, const float* sL, int k0, int q0,
                                             float scale, const Mask& mask) {
-  constexpr int D = 2 * N;
+  static_assert(N == acc_floats<D>, "the accumulator of head dim D");
   const uint32_t sV = sK + wg::tile_bytes<D>(), sQ = stage, sdO = stage + wg::tile_bytes<D>();
   const float* sD = sL + E;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
@@ -661,13 +666,13 @@ __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint
 // A dK/dV block's walk: loads its K/V tiles, then runs `tiles` query tiles
 // downward, the first at tile index qt0 and each next one below it (the
 // order in which the f32 sums came out most accurate), each for every q-head
-// of the group (innermost), through the two-stage ring; head dim D = 2 N.
-// dk and dv accumulate; every product is waited for on return.
-template <typename Mask, int N>
+// of the group (innermost), through the two-stage ring; head dim D (below
+// 64 the caller zeroed the six tiles' pad). dk and dv accumulate; every
+// product is waited for on return.
+template <int D, typename Mask, int N>
 __device__ __forceinline__ void dkv_walk_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             const DkvSrc& s, int k0, int qt0, int tiles,
                                             const Mask& mask) {
-  constexpr int D = 2 * N;
   constexpr int TILE = wg::tile_bytes<D>();
   const int steps = tiles * s.group;
   if (steps <= 0) return;
@@ -689,21 +694,21 @@ __device__ __forceinline__ void dkv_walk_tc(float (&dk)[N], float (&dv)[N], uint
                    (qt0 - j / s.group) * E, h0 + j % s.group);
       wg::copy_commit();
     }
-    dkv_tile_tc(dk, dv, sK, ring + 2 * st * TILE, floats_at(stats + st * STAT_BYTES), k0,
+    dkv_tile_tc<D>(dk, dv, sK, ring + 2 * st * TILE, floats_at(stats + st * STAT_BYTES), k0,
                 (qt0 - i / s.group) * E, s.scale, mask);
   }
 }
 
-// Rows k0 + frag_row (+ 8) of dK and dV from the fragments, as bf16, rows
-// at or past S left out (`dkb` / `dvb` at position 0 of the (batch, kv
-// head), `*_ss` their position strides).
-template <int N>
+// Rows k0 + frag_row (+ 8) of dK and dV from the fragments, their first D
+// columns, as bf16, rows at or past S left out (`dkb` / `dvb` at position
+// 0 of the (batch, kv head), `*_ss` their position strides).
+template <int D, int N>
 __device__ __forceinline__ void dkv_store(const float (&dk)[N], const float (&dv)[N], bf16* dkb,
                                           long long dk_ss, bf16* dvb, long long dv_ss, int k0,
                                           int S) {
   const float one[2] = {1.f, 1.f};
-  store_bf16(dk, dkb, dk_ss, k0, S, one);
-  store_bf16(dv, dvb, dv_ss, k0, S, one);
+  store_bf16<N, D>(dk, dkb, dk_ss, k0, S, one);
+  store_bf16<N, D>(dv, dvb, dv_ss, k0, S, one);
 }
 
 }  // namespace tc

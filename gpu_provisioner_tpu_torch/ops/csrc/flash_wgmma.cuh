@@ -2,29 +2,32 @@
 // warpgroup matrix products (wgmma) on bf16 tiles in 128-byte-swizzled
 // shared memory, the accumulator's fragment map, row reductions on
 // fragments, and the asynchronous loader that fills a tile. flash_tc.cuh
-// builds the tile steps on them (flash_tri.cu's bf16 forward, dQ and dK/dV,
+// builds the tile steps on them (flash_tri.cuh's bf16 forward, dQ and dK/dV,
 // flash_bwd.cu's bf16 dK/dV); the later redesigns of flash_fwd.cu and
 // flash_bwd.cu's dQ are meant to use them too.
 //
 // A tile is 64 rows of D bf16 values (one row per query or key position),
-// D = 64 or 128: D / 64 swizzle atoms of 64 rows x 64 columns (128 bytes a
-// row), columns 0..63 in the first, 64..127 in the second (D = 128), 8 KB
-// apart, each 1024-byte aligned: 8 KB at D = 64, 16 KB at D = 128. Inside
+// D = 64 or 128 (below 64, see D = 32 or 16): D / 64 swizzle atoms of 64
+// rows x 64 columns (128 bytes a row), columns 0..63 in the first, 64..127
+// in the second (D = 128), 8 KB apart, each 1024-byte aligned: 8 KB at D =
+// 64, 16 KB at D = 128. Inside
 // an atom, row r lies at r * 128 bytes and its 16-byte chunk c (8 values)
 // at chunk c ^ (r % 8): the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B, and the one wgmma reads through a descriptor
 // of layout type B128. Every kernel takes both (TILE_BYTES and the defaults
 // below are D = 128's, for the standalone checks under hack/).
 //
-// D = 32 or 16 (the forward only): the D = 64 tile, one atom, partly
-// filled. A row's D / 8 chunks (4 or 2) go to their swizzled places; the
-// atom's other chunks are zeroed once a buffer (zero_pad) and never written
-// again. S = Q K^T takes D / 16 k-steps (2 or 1) of the K-major descriptor
-// and never reads past column D; O += P V stays m64n64k16 over the whole
-// atom, so columns D..63 of the accumulator are computed (from the zeros)
-// and never stored. Every descriptor and wgmma shape is D = 64's, which
-// hack/torch_wgmma_check_d64.py checked on the card; the cost is an
-// m64n64 P V where m64n32 / m64n16 would do.
+// D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
+// A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's
+// other chunks are zeroed once a buffer (zero_pad) and never written
+// again. The K-major products (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T =
+// V dO^T) take D / 16 k-steps (2 or 1) of the K-major descriptor and never
+// read past column D; the register-A products (O += P V, dQ += dS K, dV +=
+// P^T dO, dK += dS^T Q) stay m64n64k16 over the whole atom, so columns
+// D..63 of their accumulators are computed (from the zeros) and never
+// stored. Every descriptor and wgmma shape is D = 64's, which
+// hack/torch_wgmma_check_d64.py checked on the card; the cost is an m64n64
+// register-A product where m64n32 / m64n16 would do.
 //
 // The loader is cp.async (16 bytes a thread and copy, zero-fill past the
 // sequence's end, commit groups), not TMA: the one warpgroup that computes

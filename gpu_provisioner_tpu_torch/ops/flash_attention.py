@@ -15,7 +15,7 @@ package does, and the dense result for shapes that do not tile (which
 autograd differentiates, as JAX does).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_decode.cuh``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cu``) on
+``csrc/flash_decode.cuh``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cuh``) on
 a CUDA tensor, or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
 function (``attention_plain``, ``attention_bwd_plain``). Nothing else picks
@@ -38,7 +38,7 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
 - ``flash_attention_cached`` and ``flash_attention_decode`` raise if an
   input requires grad: their JAX twins have no VJP;
 - no ``interpret`` argument (the plain version is the CPU path);
-- ``triangular=True`` takes ``csrc/flash_tri.cu``: on the TPU the flat
+- ``triangular=True`` takes ``csrc/flash_tri.cuh``: on the TPU the flat
   triangle saves the dead cells of the sequential grid, which the CUDA
   kernels' loops over live tiles skip anyway; on the card it is a
   persistent launch that gives every CTA an equal share of the live tiles
@@ -64,13 +64,11 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 16, 32, 64 and 128 in the forward, cached and decode kernels
-  (``_FWD_HEAD_DIMS``: at 32 and 16 the tensor-core tile is the 64-wide
-  one partly filled), 64 and 128 in the backward and triangle kernels
-  (``_SELF_HEAD_DIMS``); on a CUDA tensor any other head dim raises a
-  ValueError naming it before a kernel is built or launched (no plain
-  fallback), so a self-attention at 32 or 16 runs its forward kernel and
-  raises in its backward;
+- head dims 16, 32, 64 and 128 in every kernel (``_HEAD_DIMS``: at 32 and
+  16 the tensor-core tile is the 64-wide one partly filled); on a CUDA
+  tensor any other head dim raises a ValueError naming it before a kernel
+  is built or launched (no plain fallback), where the JAX kernels take any
+  head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -109,10 +107,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims the kernels are built for: flash_fwd (self-attention and
-# the cache) and flash_decode; the backward and triangle kernels
-_FWD_HEAD_DIMS = (16, 32, 64, 128)
-_SELF_HEAD_DIMS = (64, 128)
+# the head dims every kernel is built for
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -144,7 +140,7 @@ def tri_dispatch(S: int, D: int, itemsize: int, *, causal: bool,
 
 def _tri_decode(t):
     """Flat index t of a triangle → (row r, column c <= r), row r starting
-    at r(r+1)/2: the twin of the JAX _tri_decode and of flash_tri.cu's
+    at r(r+1)/2: the twin of the JAX _tri_decode and of flash_tri.cuh's
     tri_decode, in exact integers (numpy int64, ints or arrays): the float
     square root is a seed, the two corrections decide."""
     t = np.asarray(t, dtype=np.int64)
@@ -394,9 +390,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _FWD_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_FWD_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -546,9 +542,9 @@ def attention_bwd_plain(q, k, v, out, lse, dout, g_lse=None, *,
 
 def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
-    """What the self-attention kernels (flash_bwd.cu, flash_tri.cu) take:
+    """What the self-attention kernels (flash_bwd.cu, flash_tri.cuh) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 64 or 128 (``_SELF_HEAD_DIMS``) contiguous,
+    kernels' dtypes, head dim 16, 32, 64 or 128 (``_HEAD_DIMS``) contiguous,
     GQA dividing; lse and delta, where given, contiguous float32
     [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
@@ -567,9 +563,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
         raise TypeError("k/v/dout dtypes "
                         + "/".join(str(t.dtype) for t in acts)
                         + f"; expected {q.dtype}")
-    if D not in _SELF_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_SELF_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
             or (dout is not None and dout.shape != q.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
@@ -766,9 +762,7 @@ class _FlashAttention(torch.autograd.Function):
     package's ``_flash_lse_diff`` (custom_vjp, flash_attention.py). Forward
     saves (q, k, v, out, lse); backward runs flash_attention_bwd with the
     cotangents of both outputs. CUDA tensors take the kernels, CPU tensors
-    the plain versions. At head dim 32 or 16 the forward runs its kernel
-    and the backward raises a ValueError naming the head dim (the backward
-    kernels take 64 and 128)."""
+    the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, triangular):

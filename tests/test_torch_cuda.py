@@ -17,9 +17,10 @@ forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
 the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
-a direct launch refuses. The forward, cached and decode kernels run at
-head dims 16, 32, 64 and 128 (SERVE_HEAD_DIMS), the backward and triangle
-kernels at 64 and 128 (the ``*_at_head_dim_64`` tests hold them at 64).
+a direct launch refuses. Every kernel runs at head dims 16, 32, 64 and
+128: the forward, cached and decode kernels at SERVE_HEAD_DIMS, the
+backward and triangle kernels at 128 and in the ``*_at_head_dim_64`` and
+``*_at_head_dims_32_and_16`` tests.
 """
 
 import ctypes
@@ -46,8 +47,7 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of the forward, cached and decode kernels (the backward and
-# triangle kernels take 64 and 128)
+# the head dims every kernel takes
 SERVE_HEAD_DIMS = [16, 32, 64, 128]
 
 
@@ -327,35 +327,41 @@ def test_decode_rows_beyond_one_block(dev):
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
-    """Head dim 64 runs the forward kernel and, through autograd, the
-    backward kernels (their triangle twins with triangular=True); 16 and
-    32 run the forward kernel, held to its plain version, and raise
-    ValueError naming the head dim in the backward (rectangular and
-    triangular=True, directly and through autograd, no backward launched);
-    8 and 48 raise in the forward too, with no plain fallback; float16
-    raises TypeError."""
+    """Head dims 64, 32 and 16 run the forward kernel and, through autograd,
+    the backward kernels (their triangle twins with triangular=True), at
+    32 and 16 held to their plain versions; 8 and 48 raise ValueError
+    naming the head dim in the forward and in the backward, with no plain
+    fallback and no launch; float16 raises TypeError."""
     g = torch.Generator(dev).manual_seed(16)
     for D in (16, 32):
         q, k, v = (_randn(g, 1, 128, h, D, dtype=torch.bfloat16, dev=dev)
-                   for h in (4, 2, 2))
-        tfa.reset_launches()
-        out = tfa.flash_attention(q, k, v)
-        ref = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
-                                  0)[0]
-        torch.cuda.synchronize()
-        assert tfa.LAUNCHES["flash_fwd"] == 1
-        assert _err(out, ref) < TOL[torch.bfloat16]
+                   .requires_grad_() for h in (4, 2, 2))
+        dout = _randn(g, 1, 128, 4, D, dtype=torch.bfloat16, dev=dev)
+        with torch.no_grad():
+            ref, lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                           v.transpose(1, 2), 0)
+            want = tfa.attention_bwd_plain(q, k, v, ref, lse, dout)
+        for triangular in (False, True):
+            tfa.reset_launches()
+            out = tfa.flash_attention(q, k, v, triangular=triangular)
+            got = torch.autograd.grad(out, (q, k, v), dout)
+            torch.cuda.synchronize()
+            bwd = ("flash_bwd_dq_tri", "flash_bwd_dkv_tri") if triangular \
+                else ("flash_bwd_dq", "flash_bwd_dkv")
+            assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+                "flash_fwd": 1, bwd[0]: 1, bwd[1]: 1}
+            assert _err(out, ref) < TOL[torch.bfloat16]
+            for a, b in zip(got, want):
+                assert _rel(a, b) < TOL[torch.bfloat16]
+    tfa.reset_launches()
+    for D in (8, 48):
+        q = torch.zeros(1, 128, 4, D, device=dev)
         lse = torch.zeros(1, 4, 128, device=dev)
         for triangular in (False, True):
             with pytest.raises(ValueError, match=f"head dim {D}"):
-                tfa.flash_attention_bwd(q, k, v, q, lse, q,
-                                        triangular=triangular)
-            qg = q.detach().requires_grad_()
-            out = tfa.flash_attention(qg, k, v, triangular=triangular)
-            with pytest.raises(ValueError, match=f"head dim {D}"):
-                out.float().sum().backward()
-        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
-            "flash_fwd": 3}
+                tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse,
+                                        q, triangular=triangular)
+    assert not any(tfa.LAUNCHES.values())
     for D in (8, 48):
         q = torch.zeros(1, 128, 4, D, device=dev)
         with pytest.raises(ValueError, match=f"head dim {D}"):
@@ -570,10 +576,17 @@ def test_flash_bwd_matches_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
     """flash_bwd_dq and flash_bwd_dkv at head dim 64 (bf16: one-atom tiles
     on the tensor cores) against attention_bwd_plain, with an lse
     cotangent, from the plain forward's out and lse."""
-    g = torch.Generator(dev).manual_seed(10)
-    q, dout = (_randn(g, B, S, Hq, 64, dtype=dtype, dev=dev)
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 64, 10)
+
+
+def _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, D, seed):
+    """flash_attention_bwd (one launch of each backward kernel) against
+    attention_bwd_plain at head dim D, with an lse cotangent, from the
+    plain forward's out and lse."""
+    g = torch.Generator(dev).manual_seed(seed)
+    q, dout = (_randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
                for _ in range(2))
-    k, v = (_randn(g, B, S, Hkv, 64, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(g, B, S, Hkv, D, dtype=dtype, dev=dev) for _ in range(2))
     g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev)
     kw = dict(causal=causal, window=window)
     out, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
@@ -586,6 +599,25 @@ def test_flash_bwd_matches_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert _rel(a, b) < TOL[dtype]
+
+
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dims 32 and 16: the fast
+# bench_engine model's 8/4 heads and tiny's 4/2 at (2, 256) causal, not
+# causal and with a window of 100, and ragged S at GQA 4/1
+BWD_SMALL_CASES = [(2, 256, 8, 4, True, None), (2, 256, 8, 4, False, None),
+                   (2, 256, 4, 2, True, 100), (1, 333, 4, 1, True, None)]
+
+
+@pytest.mark.parametrize("D", [32, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_SMALL_CASES)
+def test_flash_bwd_matches_plain_at_head_dims_32_and_16(
+        dev, dtype, B, S, Hq, Hkv, causal, window, D):
+    """flash_bwd_dq and flash_bwd_dkv at head dims 32 and 16 (bf16: the D =
+    64 atom partly filled, its other chunks zeroed once) against
+    attention_bwd_plain, with an lse cotangent, from the plain forward's
+    out and lse."""
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, D, 11)
 
 
 @pytest.mark.parametrize("triangular", [False, True])
@@ -633,7 +665,7 @@ def test_autograd_runs_the_backward_kernels(dev):
 
 
 def test_bwd_raises_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 128, 4, 32, device=dev)
+    q = torch.zeros(1, 128, 4, 48, device=dev)
     lse = torch.zeros(1, 4, 128, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_bwd(q, q[:, :, :2], q[:, :, :2], q, lse, q)
@@ -802,16 +834,22 @@ def test_tri_kernels_match_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
                                                 cot):
     """The three tri kernels at head dim 64 (bf16: one-atom tiles; the
     workspace's cut rows D / 8 float pairs a thread) at TRI_CASES."""
-    g = torch.Generator(dev).manual_seed(16)
-    q, dout = (_randn(g, B, S, Hq, 64, dtype=dtype, dev=dev)
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 64, 16)
+
+
+def _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, D, seed):
+    """The three tri kernels, called directly, against the plain versions
+    at head dim D, with an lse cotangent where ``cot``."""
+    g = torch.Generator(dev).manual_seed(seed)
+    q, dout = (_randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
                for _ in range(2))
-    k, v = (_randn(g, B, S, Hkv, 64, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(g, B, S, Hkv, D, dtype=dtype, dev=dev) for _ in range(2))
     g_lse = _randn(g, B, Hq, S, dtype=torch.float32, dev=dev) if cot else None
-    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=0.125)
+    out, lse = tfa._launch_tri("flash_fwd_tri", q, k, v, scale=D ** -0.5)
     ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
                                        v.transpose(1, 2), 0)
     delta = tfa._bwd_delta(out, dout, g_lse).contiguous()
-    kw = dict(scale=0.125, dout=dout, lse=lse, delta=delta)
+    kw = dict(scale=D ** -0.5, dout=dout, lse=lse, delta=delta)
     dq = tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
     dk, dv = tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
     want = tfa.attention_bwd_plain(q, k, v, out, lse, dout, g_lse)
@@ -821,6 +859,17 @@ def test_tri_kernels_match_plain_at_head_dim_64(dev, dtype, B, S, Hq, Hkv,
     for a, b in zip((dq, dk, dv), want):
         assert a.dtype == dtype and a.shape == b.shape
         assert _rel(a, b) < TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [32, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dims_32_and_16(dev, dtype, B, S, Hq,
+                                                        Hkv, cot, D):
+    """The three tri kernels at head dims 32 and 16 (bf16: the D = 64 atom
+    partly filled, zeroed once a CTA; the cut rows' partials D columns) at
+    TRI_CASES."""
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, D, 17)
 
 
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
@@ -846,7 +895,7 @@ def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
 
 
 def test_tri_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 128, 4, 32, device=dev)
+    q = torch.zeros(1, 128, 4, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
                         scale=1.0)
@@ -896,14 +945,15 @@ def test_bwd_dkv_grid_query_answers_for_the_launch(dev):
 
 @pytest.mark.parametrize("act_dtype", [0, 1])
 def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
-    """flash_tri.cu owns the workspace layout, which depends on the act
+    """flash_tri.cuh owns the workspace layout, which depends on the act
     dtype (0 f32, 1 bf16: the bf16 dK/dV tile edge is twice the f32 one)
     and the head dim: an entry given fewer than ctas ×
     flash_tri_ws_floats() f32 values (the f32-sized workspace too, where
     that is shorter) returns cudaErrorInvalidValue (1) before it launches
-    anything, at head dim 64 and 128; the queries refuse head dim 32."""
+    anything, at head dims 16, 32, 64 and 128; the queries refuse head dim
+    48."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for D in (64, 128):
+    for D in SERVE_HEAD_DIMS:
         q = torch.zeros(1, 128, 2, D, device=dev,
                         dtype=(torch.float32, torch.bfloat16)[act_dtype])
         for entry in _cuda.TRI_WHICH:
@@ -919,11 +969,12 @@ def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
             a.act_dtype, a.B, a.S, a.Hq, a.Hkv, a.D = (act_dtype, 1, 128, 2,
                                                        2, D)
             a.ctas, a.scale = P, 1.0
-            assert _cuda.kernel(entry)(ctypes.byref(a), stream) == 1, entry
-    for fn in (lambda: _cuda.tri_ctas("flash_fwd_tri", act_dtype, 32,
+            assert _cuda.kernel(_cuda.entry(entry, D))(
+                ctypes.byref(a), stream) == 1, entry
+    for fn in (lambda: _cuda.tri_ctas("flash_fwd_tri", act_dtype, 48,
                                       dev.index),
-               lambda: _cuda.tri_ws_floats("flash_fwd_tri", act_dtype, 32)):
-        with pytest.raises(RuntimeError, match="D=32"):
+               lambda: _cuda.tri_ws_floats("flash_fwd_tri", act_dtype, 48)):
+        with pytest.raises(RuntimeError, match="D=48"):
             fn()
 
 

@@ -36,6 +36,8 @@ The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
 
+import ctypes
+import gc
 import importlib
 import importlib.util
 from pathlib import Path
@@ -55,6 +57,15 @@ jfa = importlib.import_module("gpu_provisioner_tpu.ops.flash_attention")
 ROOT = Path(__file__).resolve().parent.parent
 D = 128
 SCALE = D ** -0.5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_jax_caches():
+    """Drops what this module compiled once it is done (a later test in the
+    same worker would pay for those objects in every garbage collection)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _replay():
@@ -443,14 +454,14 @@ def test_head_dim_64_triangle_forward_raises_before_any_build(
     assert tri_grid == [("flash_fwd_tri", 64)]
 
 
-@pytest.mark.parametrize("D", [8, 16, 32, 48, 96])
+@pytest.mark.parametrize("D", [8, 24, 48, 80, 96])
 def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
-    """Head dims other than 64 and 128 raise ValueError naming the head
-    dim in the backward and triangle kernels' wrappers, and head dims other
-    than 16, 32, 64 and 128 in the forward's (self-attention, a bf16 and
-    an int8 cache) and the decode's too, each before any library is built;
-    at 32 and 16 those four reach their launches instead
-    (test_head_dims_32_and_16_reach_the_serving_kernels)."""
+    """Head dims other than 16, 32, 64 and 128 raise ValueError naming the
+    head dim in every kernel's wrapper (the forward on self-attention, a
+    bf16 and an int8 cache, the decode, the backward and the triangle),
+    each before any library is built; 16 and 32 reach their launches
+    instead (test_head_dims_32_and_16_reach_the_serving_kernels and
+    test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -470,9 +481,11 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
         "flash_bwd_dq_tri": [lambda: tfa.flash_attention_bwd(
             q, k, v, q, lse, q, triangular=True)],
         "flash_fwd_tri": [lambda: tfa._launch_tri(
-            "flash_fwd_tri", q, k, v, scale=1.0)]}
-    if D in tfa._FWD_HEAD_DIMS:
-        del calls["flash_fwd"], calls["flash_decode"]
+            "flash_fwd_tri", q, k, v, scale=1.0)],
+        "flash_bwd_dkv_tri": [lambda: tfa._launch_tri(
+            "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
+            delta=lse)]}
+    assert D not in tfa._HEAD_DIMS
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -484,15 +497,16 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
 
 @pytest.mark.parametrize("D", [16, 32])
 def test_head_dims_32_and_16_reach_the_serving_kernels(launches, no_build,
-                                                       D):
+                                                       tri_grid, D):
     """flash_attention_with_lse, flash_attention_cached on a bf16 and an
     int8 cache, and flash_attention_decode on both, at head dims 32 (the
     fast bench_engine and bench_moe_decode models' 8/4 heads) and 16 (the
     tiny presets' 4/2): each reaches its kernel's launch with that D, no
     library built and no plain fallback; the decode's C entry at these
     head dims is flash_decode_narrow (a source of its own). A D = 32 or 16
-    self-attention then raises in its backward, naming the head dim,
-    before a backward launch (rectangular and triangular=True)."""
+    self-attention's backward through autograd then reaches the dQ and
+    dK/dV launches with that D (their triangle twins with triangular=True,
+    which ask the tri grid for that head dim), as at D = 64."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(45, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(46, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -514,6 +528,66 @@ def test_head_dims_32_and_16_reach_the_serving_kernels(launches, no_build,
         launches.clear()
         qg = q.clone().requires_grad_()
         out = tfa.flash_attention(qg, k, v, triangular=triangular)
-        with pytest.raises(ValueError, match=f"head dim {D}: flash_bwd_dq"):
-            out.float().sum().backward()
-        assert [kernel for kernel, _ in launches] == ["flash_fwd"]
+        out.float().sum().backward()
+        bwd = (["flash_bwd_dq_tri", "flash_bwd_dkv_tri"] if triangular
+               else ["flash_bwd_dq", "flash_bwd_dkv"])
+        assert [(kernel, a.D, a.act_dtype) for kernel, a in launches] == [
+            ("flash_fwd", D, 1)] + [(kernel, D, 1) for kernel in bwd]
+        assert qg.grad is not None
+    assert tri_grid == [(kernel, D) for kernel in
+                        ("flash_bwd_dq_tri", "flash_bwd_dkv_tri")]
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels(
+        launches, no_build, tri_grid, D):
+    """At head dims 32 (the fast bench_engine model's 8/4 heads) and 16
+    (tiny's 4/2), with the card stood in (the autograd path:
+    test_head_dims_32_and_16_reach_the_serving_kernels):
+    flash_attention_bwd with an lse cotangent hands both backward kernels
+    delta = rowsum(dO o O) - g_lse, and _launch_tri reaches all three
+    triangle entries, each with that D in its argument struct, the bf16
+    act dtype, the grid and workspace asked for that head dim, and its own
+    C entry: flash_bwd.cu builds every head dim, the triangle's 32 and 16
+    are flash_tri_narrow.cu's <entry>_narrow; no library built and no
+    plain fallback."""
+    B, S, Hq, Hkv = 1, 128, 4, 2
+    q, k, v, dout = _bf16(47, (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                          (B, S, Hq, D))
+    # delta as each launch sees it (the wrapper's tensor lives for the call)
+    deltas, stand_in = [], tfa._run
+
+    def run(kernel, a, dev):
+        deltas.append(np.ctypeslib.as_array(ctypes.cast(
+            a.delta, ctypes.POINTER(ctypes.c_float)), shape=(B * Hq * S,))
+            .copy())
+        stand_in(kernel, a, dev)
+
+    out = torch.zeros(B, S, Hq, D, dtype=torch.bfloat16)
+    out[..., :1] = 1.0
+    g_lse = torch.full((B, Hq, S), 0.25)
+    lse = torch.zeros(B, Hq, S)
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfa, "_run", run)
+        tfa.flash_attention_bwd(q, k, v, out, lse, out, g_lse)
+    (dq, a), (dkv, b) = launches
+    assert (dq, dkv, a.D, b.D) == ("flash_bwd_dq", "flash_bwd_dkv", D, D)
+    assert all((d == 0.75).all() for d in deltas) and len(deltas) == 2
+
+    launches.clear()
+    with torch.no_grad():
+        tfa._launch_tri("flash_fwd_tri", q, k, v, scale=D ** -0.5)
+        kw = dict(scale=D ** -0.5, dout=dout, lse=lse, delta=lse)
+        tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+        tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    entries = ["flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"]
+    assert [kernel for kernel, _ in launches] == entries
+    assert tri_grid == [(kernel, D) for kernel in entries]
+    for kernel, a in launches:
+        assert (a.D, a.act_dtype, a.ctas) == (D, 1, 264)
+        assert a.ws_floats == 264 * 4 * 64 * D
+        assert _cuda.entry(kernel, D) == kernel + "_narrow"
+        assert _cuda.ENTRIES[kernel + "_narrow"][0] == "flash_tri_narrow"
+        assert _cuda.entry(kernel, 64) == kernel
+    assert _cuda.entry("flash_bwd_dq", D) == "flash_bwd_dq"
+    assert _cuda.entry("flash_bwd_dkv", D) == "flash_bwd_dkv"

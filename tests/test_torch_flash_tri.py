@@ -1,6 +1,6 @@
 """The flattened-triangle path of the port against the JAX package's.
 
-``triangular=True`` takes csrc/flash_tri.cu on the card: a persistent
+``triangular=True`` takes csrc/flash_tri.cuh on the card: a persistent
 launch over the flat list of live causal tiles, with a fixup launch that
 merges the rows cut between CTAs' shares. No CUDA kernel runs here, so the
 tests hold, on the CPU:
@@ -11,7 +11,7 @@ tests hold, on the CPU:
   gradients, f32);
 - tri_dispatch against the kernels the JAX package traces;
 - the schedule's CPU twins (the module's _tri_decode and _tri_shares,
-  and here _tri_segments and _tri_fixup_pieces, twins of flash_tri.cu's
+  and here _tri_segments and _tri_fixup_pieces, twins of flash_tri.cuh's
   Walk and cut_row) against the JAX decode and against coverage and
   balance, and the cut-row merge rebuilt from the plain versions over
   key/query ranges plus _lse_merge, equal to the unsplit result at 1e-5;
@@ -21,6 +21,7 @@ tests hold, on the CPU:
 
 import ast
 import dataclasses
+import gc
 import importlib
 import importlib.util
 from collections import defaultdict
@@ -46,6 +47,14 @@ from gpu_provisioner_tpu_torch.parallel import ring as tring
 jfa = importlib.import_module("gpu_provisioner_tpu.ops.flash_attention")
 ROOT = Path(__file__).resolve().parent.parent
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_jax_caches():
+    """Drops what this module compiled once it is done (a later test in the
+    same worker would pay for those objects in every garbage collection)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 def _rand(seed, *shapes):
     rng = np.random.default_rng(seed)
@@ -164,7 +173,7 @@ def test_tri_shares_cover_every_tile_once_in_balance(W, P):
 
 
 def _tri_segments(W: int, n: int, P: int) -> list:
-    """Twin of flash_tri.cu's Walk: every CTA's run over its share, one
+    """Twin of flash_tri.cuh's Walk: every CTA's run over its share, one
     (cta, slot, bh, r, c0, c1, whole) per segment (tiles c0..c1 of row r of
     (batch, head) bh; n rows per bh). ``whole``: the row lies whole in the
     share and is finalised in place; else its partial goes to workspace
@@ -189,7 +198,7 @@ def _tri_segments(W: int, n: int, P: int) -> list:
 
 
 def _tri_fixup_pieces(W: int, n: int, P: int) -> dict:
-    """Twin of flash_tri.cu's cut_row and for_each_piece: {(bh, r): [slot,
+    """Twin of flash_tri.cuh's cut_row and for_each_piece: {(bh, r): [slot,
     ...]}, for every row cut between shares, the workspace slots its fixup
     merges, in flat order. Only the row of a share's last tile can start in
     the share and end past it; the CTA of that share owns its fixup."""
@@ -233,10 +242,14 @@ def _cut_rows(W, n, P):
 
 # (B·heads, n, P): the card's grids (P 264 forward, 132 dQ, 396 dK/dV on
 # an H100) at phase 8's shapes, and small ones with W < P, a share inside
-# one row and rows cut into three or more pieces
+# one row and rows cut into three or more pieces; then chip_smoke.py phase
+# 19's triangular=True passes at head dims 32 (S 50176, 8/4 heads) and 16
+# (S 98816, 4/2), at the grids of D = 64's shared memory (528 forward, 396
+# dQ and dK/dV)
 SCHEDULES = [(1, 2, 132), (2, 6, 132), (32, 32, 264), (16, 64, 396),
              (16, 128, 132), (8, 512, 264), (4, 1024, 396), (6, 7, 5),
-             (1, 9, 2), (6, 40, 7), (3, 11, 40)]
+             (1, 9, 2), (6, 40, 7), (3, 11, 40), (8, 784, 528),
+             (4, 784, 396), (4, 1544, 528), (2, 1544, 396)]
 
 
 @pytest.mark.parametrize("heads,n,P", SCHEDULES)
@@ -266,14 +279,17 @@ def test_schedules_reach_the_edge_cases():
     assert small and inside and three
 
 
+@pytest.mark.parametrize("D", [16, 32])
 @pytest.mark.parametrize("P", [5, 13, 40])
-def test_cut_row_merge_equals_the_unsplit_result(P):
+def test_cut_row_merge_equals_the_unsplit_result(P, D):
     """The kernels' arithmetic on cut rows, rebuilt on the CPU: every
     segment of the walk's twin computed by the plain versions over its key
     range (forward, dQ) or query range (dK/dV), cut rows merged in flat
     order (_lse_merge for the forward, sums for the backward), equals the
-    unsplit plain result at 1e-5. Tile edge 16 at S=96 (6 rows)."""
-    B, S, Hq, Hkv, D, E = 1, 96, 4, 2, 16, 16
+    unsplit plain result at 1e-5. Tile edge 16 at S=96 (6 rows), at head
+    dims 16 (tiny's) and 32 (the fast bench_engine model's), which the
+    triangle kernels take."""
+    B, S, Hq, Hkv, E = 1, 96, 4, 2, 16
     n, group = S // E, Hq // Hkv
     q, k, v, dout = (torch.from_numpy(a) for a in _rand(
         11, (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, Hq, D)))
@@ -514,10 +530,10 @@ def test_tri_wrapper_refuses_misaligned_bf16_copies():
 
 def test_tri_wrapper_checks_before_it_builds():
     """_launch_tri refuses what the kernels do not take before it asks for
-    the kernel library (which needs nvcc and a card): head dim 32 (the
-    kernels take 64 and 128)."""
-    q = torch.zeros(1, 128, 4, 32)
-    with pytest.raises(ValueError, match="head dim 32"):
+    the kernel library (which needs nvcc and a card): head dim 48 (the
+    kernels take 16, 32, 64 and 128)."""
+    q = torch.zeros(1, 128, 4, 48)
+    with pytest.raises(ValueError, match="head dim 48"):
         tfa._launch_tri("flash_fwd_tri", q, q[:, :, :2], q[:, :, :2],
                         scale=1.0)
     q = torch.zeros(1, 128, 4, 128)

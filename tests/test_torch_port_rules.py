@@ -296,17 +296,23 @@ def test_tri_grid_query_names_every_tri_entry():
     number the three tri entries as the source's enum does, and both take
     the act dtype (the bf16 dK/dV tile edge differs from the f32 one) and
     the head dim (the blocks an SM and the workspace's rows depend on it),
-    as _cuda types them."""
-    text = (_cuda.CSRC / "flash_tri.cu").read_text()
-    assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", text)
+    as _cuda types them. The kernels and the enum live in flash_tri.cuh;
+    flash_tri.cu (head dims 128 and 64) and flash_tri_narrow.cu (32 and
+    16, entries named <entry>_narrow) each declare both queries."""
+    header = (_cuda.CSRC / "flash_tri.cuh").read_text()
+    assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", header)
     assert _cuda.TRI_WHICH == {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1,
                                "flash_bwd_dkv_tri": 2}
-    assert {e for e, (src, _) in _cuda.ENTRIES.items()
-            if src == "flash_tri"} == set(_cuda.TRI_WHICH)
-    assert ('extern "C" int flash_tri_ctas(int which, int act_dtype, '
-            'int head_dim)') in text
-    assert ('extern "C" long long flash_tri_ws_floats(int which, '
-            'int act_dtype, int head_dim)') in text
+    for source, suffix in (("flash_tri", ""), ("flash_tri_narrow",
+                                                "_narrow")):
+        text = (_cuda.CSRC / f"{source}.cu").read_text()
+        assert '#include "flash_tri.cuh"' in text
+        assert {e for e, (src, _) in _cuda.ENTRIES.items()
+                if src == source} == {e + suffix for e in _cuda.TRI_WHICH}
+        assert ('extern "C" int flash_tri_ctas(int which, int act_dtype, '
+                'int head_dim)') in text
+        assert ('extern "C" long long flash_tri_ws_floats(int which, '
+                'int act_dtype, int head_dim)') in text
     for fn in (_cuda.tri_ctas, _cuda.tri_ws_floats):
         assert "head_dim" in inspect.signature(fn).parameters
 
