@@ -8,9 +8,9 @@ Phases, each of which exits non-zero on a failed check:
    kernel from ops/csrc (one nvcc per source, started together), with
    ptxas's registers and spills of the seven tensor-core (bf16) instances
    at head dim 128 (flash_fwd on bf16 K/V and on an int8 cache,
-   flash_bwd_dq, flash_bwd_dkv and the three tri kernels; and at head dim
-   64 for phases 16 and 17) and the HGMMA instructions in their SASS
-   (cuobjdump);
+   flash_bwd_dq, flash_bwd_dkv and the three tri kernels; and at the other
+   head dims for phases 16 to 20) and the HGMMA instructions in their
+   SASS (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
    flash_fwd and the bf16 and int8 caches' prefill on the tensor cores, f32
@@ -301,8 +301,33 @@ Phases, each of which exits non-zero on a failed check:
    budget takes flash_fwd_tri, against the rectangular kernels and timed
    (``d32_long``, ``d16_long``), each path's launches read alone, every
    backward and triangle kernel launched at both head dims;
-then the phase-2, 9, 10, 14, 16 and 18 rows' device times, the card line,
-the kernels line and, last, the device line.
+20. head dims 96 and 80 in serving (the D = 96 and 80 instances of #1/#2,
+   #4 and #5, built from flash_fwd_mid.cu and flash_decode_mid.cu): (a) in
+   phase 1, the ptxas registers, spills and HGMMA of the new tensor-core
+   instances and of the timed decode ones; (b) #1/#2 (causal and not, a
+   window, a ragged S through the launch), #4 on a bf16 and an int8 cache
+   (MID_CACHE_CASES: an admission after a prefix, generate's left-padded
+   prefill, a window with sinks, a ragged S) and #5 on both
+   (DECODE_SPLIT_CASES: S = 1, 5 and 16, windows; an engine step) at
+   Phi-3-mini's 32/32 heads of 96 and H2O-Danube-1.8B's 32/8 of 80, bf16
+   (1e-2) and f32 (1e-4), against their plain versions, then the bf16
+   calls timed at generate's shapes (B=2, S0=512, max_len 1024, Danube's
+   window of 4096 on #4 and #5; a verify block of 5) and at the D = 128
+   rows' (``at_d128_shape``) beside SDPA and the bound (the ``*_d96`` and
+   ``*_d80`` rows of the kernels line); (c) in f32 at the two models'
+   widths cut to 2 layers, flash against dense: logits, generate, an int8
+   generate, a ServeEngine pass; (d) bf16 at full depth (mid_models: 32
+   layers at dim 3072, 24 at 2560; random weights): a fresh generate
+   (Danube's without its window, which routes a prefill to #4), a
+   left-padded one on a bf16 and on an int8 cache and a ServeEngine pass
+   of three requests on two slots, each head dim's launches read equal to
+   the path's prediction (``d96_serving``, ``d80_serving``), then a
+   forward that requires grad, triangular=True and the backward at both
+   head dims refused, naming it, before any launch.
+Phases 2, 16, 18 and 20 check and time the serving kernels through one
+function of the head dim (serve_kernels, SERVE_DIMS); then the
+phase-2, 9, 10, 14, 16, 18 and 20 rows' device times, the card line, the
+kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -337,11 +362,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# the tensor-core (bf16) instances at head dim 128: (source, a substring of
-# the mangled name)
-TC_KERNELS = {
-    "flash_fwd": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16Li128E"),
-    "flash_cached_int8": ("flash_fwd", "flash_fwd_tc_kernelIaLi128E"),
+# the tensor-core (bf16) instances of the backward and triangle kernels at
+# head dim 128 (the serving kernels' at every head dim: serve_tc_kernels):
+# (source, a substring of the mangled name)
+TC_KERNELS_TRAIN = {
     "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernelILi128E"),
     "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernelILi128E"),
     "flash_fwd_tri": ("flash_tri",
@@ -392,7 +416,7 @@ def hgmma_counts(_cuda, source):
     return counts
 
 
-def tc_build_report(_cuda, logs, kernels=TC_KERNELS):
+def tc_build_report(_cuda, logs, kernels):
     """Per tensor-core instance of ``kernels``: ptxas's registers and
     spills (when this run built its library) and the HGMMA count of its
     SASS; fails when ptxas spilled, or when the SASS holds no HGMMA (the
@@ -416,20 +440,10 @@ def tc_build_report(_cuda, logs, kernels=TC_KERNELS):
     return report
 
 
-# the flash_decode instances on the timed rows: (row, part of the mangled
-# name), R = 4 rows a unit at S=1, 32 at S=5, 64 at S=16 (group 4)
-DECODE_INSTANCES = {
-    "flash_decode": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi4E",
-    "flash_decode_s5": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi32E",
-    "flash_decode_s16": "flash_decode_kernelI13__nv_bfloat16S1_Li128ELi64E",
-    "flash_decode_int8": "flash_decode_kernelI13__nv_bfloat16aLi128ELi4E"}
-
-
-def decode_build_report(logs, instances=DECODE_INSTANCES,
-                        source="flash_decode"):
+def decode_build_report(logs, instances, source):
     """ptxas's registers and spills of the timed flash_decode instances
-    of ``source`` (when this run built the library; FMA kernels: no
-    HGMMA)."""
+    ``instances`` ({row: a part of the mangled name}) of ``source`` (when
+    this run built the library; FMA kernels: no HGMMA)."""
     info = ptxas_info(logs.get(source, ""))
     report = {row: next((v for k, v in info.items() if part in k), None)
               for row, part in instances.items()}
@@ -607,210 +621,6 @@ DECODE_SPLIT_CASES = (
     (2, 16, [1200, 333], [3, 0], 300, 2))
 # an engine decode step: 4 slots at their own lengths and pads
 DECODE_STARTS, DECODE_PADS = [540, 300, 610, 420], [12, 0, 100, 56]
-
-
-def phase_kernels(torch, tfa, td, dev):
-    """Each kernel against its plain version, then timed at a main-path
-    shape. Returns the kernels line's entries (launches filled later)."""
-    import torch.nn.functional as F
-    g = torch.Generator(dev).manual_seed(SEED)
-    Hq, Hkv, D, ML = 32, 8, 128, 2048
-
-    def rnd(*shape, dtype):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item()
-
-    def cache_case(dtype, B, S, start, pads, int8, window, sinks):
-        q = rnd(B, S, Hq, D, dtype=dtype)
-        kc, vc = rnd(B, Hkv, ML, D, dtype=dtype), rnd(B, Hkv, ML, D,
-                                                     dtype=dtype)
-        kw = dict(window=window, sinks=sinks)
-        if int8:
-            kc, kw["k_scale"] = td._quantize_kv(kc)
-            vc, kw["v_scale"] = td._quantize_kv(vc)
-        if pads is not None:
-            kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
-                                          device=dev)
-        st = (torch.tensor(start, dtype=torch.int32, device=dev)
-              if isinstance(start, list) else start)
-        name = "flash_decode" if S <= tfa.DECODE_MAX_S else "flash_cached"
-        fn = getattr(tfa, "flash_attention_" + name.split("_")[1])
-        e = err(fn(q, kc, vc, st, **kw),
-                tfa.attention_plain(q, kc, vc, st, **kw)[0])
-        tol = TOL[str(dtype).split(".")[1]]
-        print(f"{name} {dtype} B={B} S={S} start={start} pads={pads} "
-              f"int8={int8} window={window} sinks={sinks}: "
-              f"max|out-plain| {e:.3g} (tol {tol})")
-        check(e <= tol, f"{name} disagrees with plain")
-        if dtype == torch.bfloat16:
-            name += "_int8" if int8 else ""
-            errs[name] = max(errs[name], e)
-
-    errs = {"flash_fwd": 0.0, "flash_cached": 0.0, "flash_cached_int8": 0.0,
-            "flash_decode": 0.0, "flash_decode_int8": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        tol = TOL[str(dtype).split(".")[1]]
-        for B, S, causal, window in ((2, 512, True, None),
-                                     (1, 4096, True, None),
-                                     (1, 4096, True, 1024),
-                                     (2, 512, False, None)):
-            q = rnd(B, S, Hq, D, dtype=dtype)
-            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
-                                                        dtype=dtype)
-            out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
-                                                    window=window)
-            ref, rlse = tfa.attention_plain(
-                q, k.transpose(1, 2), v.transpose(1, 2), 0, causal=causal,
-                window=window)
-            e, el = err(out, ref), err(lse, rlse)
-            print(f"flash_fwd {dtype} B={B} S={S} causal={causal} "
-                  f"window={window}:"
-                  f" max|out-plain| {e:.3g} |lse-plain| {el:.3g} (tol {tol})")
-            check(e <= tol and el <= 1e-4, "flash_fwd disagrees with plain")
-            if dtype == torch.bfloat16:
-                errs["flash_fwd"] = max(errs["flash_fwd"], e)
-            del q, k, v, out, lse, ref, rlse
-        for B, S, start, pads, int8, window, sinks in (
-                (1, 128, 0, [40], False, None, 0),
-                (2, 512, 0, [0, 200], False, None, 0),
-                (1, 512, 512, None, False, None, 0),
-                (2, 256, 300, [0, 100], True, None, 0),
-                (1, 256, 900, [7], False, 256, 4),
-                (4, 1, [600, 300, 1500, 100], [0, 20, 0, 5], False, None, 0),
-                (2, 5, 1000, None, False, None, 0),
-                (2, 1, [700, 64], [0, 9], True, None, 0),
-                (2, 5, [1400, 300], [4, 0], False, 300, 4)):
-            cache_case(dtype, B, S, start, pads, int8, window, sinks)
-    # after the cases above, whose inputs stay those of the parent commit's
-    # run: the int8 cache's prefill on the tensor cores (start 0; ragged S,
-    # window and sinks), the split decode's edge cases on every cache
-    for dtype in (torch.bfloat16, torch.float32):
-        for B, S, start, pads, window, sinks in (
-                (1, 128, 0, [40], None, 0), (2, 200, 400, [0, 37], 256, 4)):
-            cache_case(dtype, B, S, start, pads, True, window, sinks)
-        for B, S, start, pads, window, sinks in DECODE_SPLIT_CASES:
-            for int8 in (False, True):
-                cache_case(dtype, B, S, start, pads, int8, window, sinks)
-    torch.cuda.synchronize()
-
-    # timing at main-path shapes, bf16
-    bf = torch.bfloat16
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    rows, deferred = [], []
-
-    def timed(r, kernel, plain, library, ops_bytes, names=None):
-        """Adds timing()'s keys to entry ``r``; with ``names``, the entry's
-        device times are measured last (device_times). Returns ``r``."""
-        r.update(timing(kernel, plain, library, ops_bytes, flush))
-        if names:
-            deferred.append((r, kernel, library, names))
-        return r
-
-    def row(name, source, replaces, *args, **kw):
-        rows.append(timed({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": errs[name], "tolerance": TOL["bfloat16"]},
-            *args, **kw))
-        print(f"{name}: {json.dumps(rows[-1])}")
-        return rows[-1]
-
-    def self_attention():
-        """generate's fresh prefill: B=2, S0=512, causal self-attention"""
-        q = rnd(2, 512, Hq, D, dtype=bf)
-        k, v = rnd(2, 512, Hkv, D, dtype=bf), rnd(2, 512, Hkv, D, dtype=bf)
-        return (lambda: tfa.flash_attention_with_lse(q, k, v),
-                lambda: tfa.attention_plain(q, k.transpose(1, 2),
-                                            v.transpose(1, 2), 0),
-                lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True),
-                work(2, 512, Hq, Hkv, D, 512, 0, None, None, 0, True, 2, 2,
-                     False, True))
-
-    row("flash_fwd", "gpu_provisioner_tpu_torch/ops/csrc/flash_fwd.cu",
-        "gpu_provisioner_tpu/ops/flash_attention.py:70 (_kernel_resident), "
-        ":202 (_kernel)", *self_attention(), names=("flash_fwd_tc_kernel",))
-    kp = torch.arange(ML, device=dev)
-
-    def admission():
-        """engine admission after a cached prefix: B=1, suffix bucket 256
-        at the prefix bucket's offset 128, the prefix's left pads masked;
-        a bf16 and an int8 cache of the same values"""
-        q = rnd(1, 256, Hq, D, dtype=bf)
-        kc, vc = rnd(1, Hkv, ML, D, dtype=bf), rnd(1, Hkv, ML, D, dtype=bf)
-        pads = torch.tensor([28], dtype=torch.int32, device=dev)
-        mask = ((kp[None, :] <= 128 + torch.arange(256, device=dev)[:, None])
-                & (kp[None, :] >= 28))[None, None]
-        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-        i8 = dict(pad_lens=pads, k_scale=ks, v_scale=vs)
-        return ((lambda: tfa.flash_attention_cached(q, kc, vc, 128,
-                                                    pad_lens=pads),
-                 lambda: tfa.attention_plain(q, kc, vc, 128, pad_lens=pads),
-                 lambda: F.scaled_dot_product_attention(
-                     q.transpose(1, 2), kc, vc, attn_mask=mask,
-                     enable_gqa=True),
-                 work(1, 256, Hq, Hkv, D, ML, 128, pads, None, 0, True, 2, 2,
-                      False, False)),
-                (lambda: tfa.flash_attention_cached(q, k8, v8, 128, **i8),
-                 lambda: tfa.attention_plain(q, k8, v8, 128, **i8), None,
-                 work(1, 256, Hq, Hkv, D, ML, 128, pads, None, 0, True, 2, 1,
-                      True, False)))
-
-    cached_src = "gpu_provisioner_tpu_torch/ops/csrc/flash_fwd.cu"
-    cached_tpu = "gpu_provisioner_tpu/ops/flash_attention.py:468 " \
-                 "(_kernel_cached)"
-    bf16_cache, int8_cache = admission()
-    row("flash_cached", cached_src, cached_tpu, *bf16_cache,
-        names=("flash_fwd_tc_kernel",))
-    row("flash_cached_int8", cached_src, cached_tpu + ", int8 cache",
-        *int8_cache, names=("flash_fwd_tc_kernel",))
-    rows[-1]["library_note"] = "no single PyTorch call attends over an " \
-                               "int8 cache"
-    # an engine decode step: 4 slots at their own lengths and pads, then
-    # verify-sized blocks (S=5, 16) at the same starts; a bf16 and an int8
-    # cache
-    kc, vc = rnd(4, Hkv, ML, D, dtype=bf), rnd(4, Hkv, ML, D, dtype=bf)
-    st = torch.tensor(DECODE_STARTS, dtype=torch.int32, device=dev)
-    pads = torch.tensor(DECODE_PADS, dtype=torch.int32, device=dev)
-    dec_src = "gpu_provisioner_tpu_torch/ops/csrc/flash_decode.cu"
-    dec_tpu = "gpu_provisioner_tpu/ops/flash_attention.py:660 " \
-              "(_kernel_decode)"
-    names = ("flash_decode",)
-
-    def decode_timed(S, kc, vc, **kw):
-        q = rnd(4, S, Hq, D, dtype=bf)
-        mask = ((kp[None, None, :] <= st[:, None, None]
-                 + torch.arange(S, device=dev)[None, :, None])
-                & (kp[None, None, :] >= pads[:, None, None]))[:, None]
-        int8 = "k_scale" in kw
-        library = None if int8 else (
-            lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True))
-        return (lambda: tfa.flash_attention_decode(q, kc, vc, st,
-                                                   pad_lens=pads, **kw),
-                lambda: tfa.attention_plain(q, kc, vc, st, pad_lens=pads,
-                                            **kw),
-                library,
-                work(4, S, Hq, Hkv, D, ML, st, pads, None, 0, True, 2,
-                     1 if int8 else 2, int8, False))
-
-    dec = row("flash_decode", dec_src, dec_tpu, *decode_timed(1, kc, vc),
-              names=names)
-    dec["verify_blocks"] = {
-        f"S={S}": timed({"shape": f"B=4 S={S} Hq={Hq} Hkv={Hkv} ML={ML}"},
-                        *decode_timed(S, kc, vc), names=names)
-        for S in (5, 16)}
-    print(f"flash_decode verify blocks: {json.dumps(dec['verify_blocks'])}")
-    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-    row("flash_decode_int8", dec_src, dec_tpu + ", int8 cache",
-        *decode_timed(1, k8, v8, k_scale=ks, v_scale=vs), names=names)
-    rows[-1]["library_note"] = "no single PyTorch call attends over an " \
-                               "int8 cache"
-    del flush
-    return rows, deferred
 
 
 def device_times(torch, tfa, deferred, dev):
@@ -3672,15 +3482,6 @@ def phase_mesh_resume(torch, tl, jobs, launch, dev):
 # heads of 64: the JAX one) drives #1/#2 and a prefix at head dim 64
 D64_ROWS = ("flash_fwd", "flash_cached", "flash_cached_int8", "flash_decode",
             "flash_decode_int8")
-# the new tensor-core and timed decode instances (phase 1 reports the D =
-# 128 ones): (source, a substring of the mangled name); R = 4 rows a unit
-# at S=1 and group 2
-TC_KERNELS_D64 = {
-    "flash_fwd_d64": ("flash_fwd", "flash_fwd_tc_kernelI13__nv_bfloat16Li64E"),
-    "flash_cached_int8_d64": ("flash_fwd", "flash_fwd_tc_kernelIaLi64E")}
-DECODE_INSTANCES_D64 = {
-    "flash_decode_d64": "flash_decode_kernelI13__nv_bfloat16S1_Li64ELi4E",
-    "flash_decode_int8_d64": "flash_decode_kernelI13__nv_bfloat16aLi64ELi4E"}
 # (B, S, start, pads, window, sinks) of #4 at head dim 64, each on a bf16
 # (f32) and an int8 cache of 2048: the twin's prefill, generate's
 # left-padded prefill, an engine admission after a prefix, a window with
@@ -3690,158 +3491,6 @@ D64_CACHED_CASES = ((8, 512, 0, None, None, 0), (2, 512, 0, [0, 200], None, 0),
                     (2, 200, 400, [0, 37], 256, 4))
 # the bench_moe_decode twin's prefill and decode step: B, S0, max_len
 D64_TWIN = (8, 512, 640)
-
-
-def phase_d64_kernels(torch, tfa, td, dev, deferred):
-    """Phase 16 (a): #1/#2 (causal and not, a window), #4 on a bf16 and an
-    int8 cache (D64_CACHED_CASES) and #5 on every cache (DECODE_SPLIT_CASES
-    and the engine's decode step) at head dim 64 and the bench_moe_decode
-    model's Hq 16 / Hkv 8, in bf16 and f32, against their plain versions;
-    then the bf16 calls timed at that model's main-path shapes (a fresh
-    prefill at B=8, S=512; the twin's prefill and decode step, D64_TWIN)
-    beside SDPA and the bound, their device times joining ``deferred``.
-    Returns the kernels line's head-dim-64 rows (launches filled later)."""
-    import torch.nn.functional as F
-    g = torch.Generator(dev).manual_seed(SEED + 61)
-    Hq, Hkv, D, ML = 16, 8, 64, 2048
-    bf = torch.bfloat16
-    errs = dict.fromkeys(D64_ROWS, 0.0)
-
-    def rnd(*shape, dtype=bf):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item()
-
-    def held(row, dtype, what, e, e_lse=None):
-        tol = TOL[str(dtype).split(".")[1]]
-        print(f"{row} at head dim 64, {dtype} {what}: max|out-plain| {e:.3g}"
-              + ("" if e_lse is None else f" |lse-plain| {e_lse:.3g}")
-              + f" (tol {tol})")
-        check(e <= tol and (e_lse is None or e_lse <= 1e-4),
-              f"{row} disagrees with plain at head dim 64: {what}")
-        if dtype == bf:
-            errs[row] = max(errs[row], e)
-
-    def cache(dtype, B, int8, ml=ML):
-        kc, vc = rnd(B, Hkv, ml, D, dtype=dtype), rnd(B, Hkv, ml, D,
-                                                     dtype=dtype)
-        if not int8:
-            return kc, vc, {}
-        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-        return k8, v8, {"k_scale": ks, "v_scale": vs}
-
-    def cached_case(dtype, B, S, start, pads, window, sinks, int8):
-        q = rnd(B, S, Hq, D, dtype=dtype)
-        kc, vc, kw = cache(dtype, B, int8)
-        kw.update(window=window, sinks=sinks)
-        if pads is not None:
-            kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
-                                          device=dev)
-        st = (torch.tensor(start, dtype=torch.int32, device=dev)
-              if isinstance(start, list) else start)
-        decode = S <= tfa.DECODE_MAX_S
-        fn = tfa.flash_attention_decode if decode \
-            else tfa.flash_attention_cached
-        row = ("flash_decode" if decode else "flash_cached") \
-            + ("_int8" if int8 else "")
-        held(row, dtype, f"B={B} S={S} start={start} pads={pads} "
-             f"window={window} sinks={sinks}",
-             err(fn(q, kc, vc, st, **kw),
-                 tfa.attention_plain(q, kc, vc, st, **kw)[0]))
-
-    for dtype in (bf, torch.float32):
-        for B, S, causal, window in ((8, 512, True, None),
-                                     (2, 512, False, None),
-                                     (1, 4096, True, 1024),
-                                     (2, 1024, False, 300)):
-            q = rnd(B, S, Hq, D, dtype=dtype)
-            k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
-                                                        dtype=dtype)
-            out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal,
-                                                    window=window)
-            ref, ref_lse = tfa.attention_plain(
-                q, k.transpose(1, 2), v.transpose(1, 2), 0, causal=causal,
-                window=window)
-            held("flash_fwd", dtype, f"B={B} S={S} causal={causal} "
-                 f"window={window}", err(out, ref), err(lse, ref_lse))
-        for case in D64_CACHED_CASES + DECODE_SPLIT_CASES + (
-                (4, 1, DECODE_STARTS, DECODE_PADS, None, 0),):
-            for int8 in (False, True):
-                cached_case(dtype, *case, int8)
-    torch.cuda.synchronize()
-
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    src = "gpu_provisioner_tpu_torch/ops/csrc/"
-    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
-    rows = []
-
-    def row(name, source, replaces, shape, kernel, plain, library, ops_bytes,
-            names):
-        r = {"name": name + "_d64", "route": "cuda", "source": src + source,
-             "replaces": tpu + replaces + ", head dim 64", "launches": 0,
-             "max_abs_err": errs[name], "tolerance": TOL["bfloat16"],
-             "shape": shape, **timing(kernel, plain, library, ops_bytes,
-                                      flush)}
-        if library is None:
-            r["library_note"] = "no single PyTorch call attends over an " \
-                                "int8 cache"
-        deferred.append((r, kernel, library, names))
-        rows.append(r)
-        print(f"{r['name']}: {json.dumps(r)}")
-
-    # a fresh prefill of B=8, S=512 (the twin's batch), causal
-    B, S, ml = D64_TWIN
-    q = rnd(B, S, Hq, D)
-    k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-    row("flash_fwd", "flash_fwd.cu", "70 (_kernel_resident), :202 (_kernel)",
-        f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
-        lambda: tfa.flash_attention_with_lse(q, k, v),
-        lambda: tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
-                                    0),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True),
-        work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2, False, True),
-        ("flash_fwd_tc_kernel",))
-    # the twin's prefill (start 0, a cache of S0 + new) and one of its
-    # decode steps (start 600), on a bf16 and an int8 cache of its values
-    kp = torch.arange(ml, device=dev)
-    kc, vc, _ = cache(bf, B, False, ml)
-    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-    i8 = {"k_scale": ks, "v_scale": vs}
-    mask = (kp[None, :] <= torch.arange(S, device=dev)[:, None])[None, None]
-    for int8, (kk, vv, kw) in ((False, (kc, vc, {})), (True, (k8, v8, i8))):
-        name = "flash_cached" + ("_int8" if int8 else "")
-        row(name, "flash_fwd.cu", "468 (_kernel_cached)" + (
-            ", int8 cache" if int8 else ""),
-            f"B={B} S={S} start=0 ML={ml} Hq={Hq} Hkv={Hkv} D={D}",
-            lambda kk=kk, vv=vv, kw=kw: tfa.flash_attention_cached(
-                q, kk, vv, 0, **kw),
-            lambda kk=kk, vv=vv, kw=kw: tfa.attention_plain(q, kk, vv, 0,
-                                                            **kw),
-            None if int8 else (lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), kc, vc, attn_mask=mask, enable_gqa=True)),
-            work(B, S, Hq, Hkv, D, ml, 0, None, None, 0, True, 2,
-                 1 if int8 else 2, int8, False), ("flash_fwd_tc_kernel",))
-    q1 = rnd(B, 1, Hq, D)
-    step = (kp <= 600)[None, None, None]
-    for int8, (kk, vv, kw) in ((False, (kc, vc, {})), (True, (k8, v8, i8))):
-        name = "flash_decode" + ("_int8" if int8 else "")
-        row(name, "flash_decode.cu", "660 (_kernel_decode)" + (
-            ", int8 cache" if int8 else ""),
-            f"B={B} S=1 start=600 ML={ml} Hq={Hq} Hkv={Hkv} D={D}",
-            lambda kk=kk, vv=vv, kw=kw: tfa.flash_attention_decode(
-                q1, kk, vv, 600, **kw),
-            lambda kk=kk, vv=vv, kw=kw: tfa.attention_plain(q1, kk, vv, 600,
-                                                            **kw),
-            None if int8 else (lambda: F.scaled_dot_product_attention(
-                q1.transpose(1, 2), kc, vc, attn_mask=step,
-                enable_gqa=True)),
-            work(B, 1, Hq, Hkv, D, ml, 600, None, None, 0, True, 2,
-                 1 if int8 else 2, int8, False), ("flash_decode",))
-    del flush
-    return rows
 
 
 def phase_d64_exact(torch, tl, tm, td, te, bench, dev):
@@ -4395,18 +4044,6 @@ def phase_onchip_twin(torch, onchip, dev):
 # #4 and #5 (phase 19 trains them)
 SMALL_HEADS = {32: (8, 4), 16: (4, 2)}     # head dim: its models' Hq, Hkv
 SMALL_ML = 512                             # the fast bench_engine max_len
-# the new tensor-core and timed decode instances: (source, a substring of
-# the mangled name); R = 4 rows a unit at S=1 and group 2
-TC_KERNELS_SMALL = {
-    f"{row}_d{D}": ("flash_fwd", f"flash_fwd_tc_kernel{part}Li{D}E")
-    for D in SMALL_HEADS
-    for row, part in (("flash_fwd", "I13__nv_bfloat16"),
-                      ("flash_cached_int8", "Ia"))}
-DECODE_INSTANCES_SMALL = {
-    f"{row}_d{D}": f"flash_decode_kernel{part}Li{D}ELi4E"
-    for D in SMALL_HEADS
-    for row, part in (("flash_decode", "I13__nv_bfloat16S1_"),
-                      ("flash_decode_int8", "I13__nv_bfloat16a"))}
 # (B, S, start, pads, window, sinks) of #4 and #5 at ML 512: the fast
 # bench_engine model's admission (S=128 at start 0, a 192-token prompt),
 # a left-padded prefill after a prefix, a window with sinks, a ragged S;
@@ -4419,219 +4056,6 @@ SMALL_CACHE_CASES = (
     (2, 1, [480, 200], [0, 130], 128, 4), (2, 5, [400, 60], [3, 0], None, 0),
     (1, 16, 200, None, None, 0))
 SMALL_STARTS, SMALL_PADS = [300, 200], [0, 12]   # the timed decode step
-
-
-def phase_small_kernels(torch, tfa, td, dev, deferred):
-    """Phase 18 (b): #1/#2 (causal and not, a window, a ragged S), #4 on a
-    bf16 and an int8 cache and #5 on both (SMALL_CACHE_CASES) at head dims
-    32 (Hq 8 / Hkv 4) and 16 (4 / 2), in bf16 (1e-2) and f32 (1e-4),
-    against their plain versions; then the bf16 calls timed at the fast
-    bench_engine model's shapes (a fresh prefill at B=2, S=128; an
-    admission at S=128, start 0, ML 512; a decode step at B=2 and per-row
-    starts, a verify block of 5) beside SDPA and the bound, and #1, #4
-    and #5 at the bf16 head-dim-64 rows' shapes (``at_d64_shape``), their
-    device times joining ``deferred``. Returns the kernels line's ``*_d32`` and
-    ``*_d16`` rows (launches filled later)."""
-    import torch.nn.functional as F
-    g = torch.Generator(dev).manual_seed(SEED + 81)
-    bf = torch.bfloat16
-    errs = {}
-
-    def rnd(*shape, dtype=bf):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item()
-
-    def held(row, D, dtype, what, e, e_lse=None):
-        tol = TOL[str(dtype).split(".")[1]]
-        print(f"{row} at head dim {D}, {dtype} {what}: max|out-plain| {e:.3g}"
-              + ("" if e_lse is None else f" |lse-plain| {e_lse:.3g}")
-              + f" (tol {tol})")
-        check(e <= tol and (e_lse is None or e_lse <= 1e-4),
-              f"{row} disagrees with plain at head dim {D}: {what}")
-        if dtype == bf:
-            errs[row, D] = max(errs.get((row, D), 0.0), e)
-
-    def cache(dtype, B, Hkv, D, int8):
-        kc, vc = (rnd(B, Hkv, SMALL_ML, D, dtype=dtype) for _ in range(2))
-        if not int8:
-            return kc, vc, {}
-        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-        return k8, v8, {"k_scale": ks, "v_scale": vs}
-
-    for D, (Hq, Hkv) in SMALL_HEADS.items():
-        for dtype in (bf, torch.float32):
-            for B, S, causal, window in ((2, 128, True, None),
-                                         (2, 128, False, None),
-                                         (1, 512, True, 200),
-                                         (2, 200, False, None)):
-                q = rnd(B, S, Hq, D, dtype=dtype)
-                k, v = (rnd(B, S, Hkv, D, dtype=dtype).transpose(1, 2)
-                        for _ in range(2))
-                # S=200 tiles for no JAX block: the launch itself
-                out, lse = tfa._launch("flash_fwd", q, k, v, 0,
-                                       causal=causal, scale=D ** -0.5,
-                                       window=window, want_lse=True)
-                ref, ref_lse = tfa.attention_plain(q, k, v, 0, causal=causal,
-                                                   window=window)
-                held("flash_fwd", D, dtype, f"B={B} S={S} causal={causal} "
-                     f"window={window}", err(out, ref), err(lse, ref_lse))
-            for B, S, start, pads, window, sinks in SMALL_CACHE_CASES:
-                for int8 in (False, True):
-                    q = rnd(B, S, Hq, D, dtype=dtype)
-                    kc, vc, kw = cache(dtype, B, Hkv, D, int8)
-                    kw.update(window=window, sinks=sinks)
-                    if pads is not None:
-                        kw["pad_lens"] = torch.tensor(pads, dtype=torch.int32,
-                                                      device=dev)
-                    st = (torch.tensor(start, dtype=torch.int32, device=dev)
-                          if isinstance(start, list) else start)
-                    decode = S <= tfa.DECODE_MAX_S
-                    if decode:
-                        got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
-                    else:
-                        got, _ = tfa._launch("flash_fwd", q, kc, vc, st,
-                                             causal=True, scale=D ** -0.5,
-                                             **kw)
-                    row = ("flash_decode" if decode else "flash_cached") \
-                        + ("_int8" if int8 else "")
-                    held(row, D, dtype, f"B={B} S={S} start={start} "
-                         f"pads={pads} window={window} sinks={sinks}",
-                         err(got, tfa.attention_plain(q, kc, vc, st,
-                                                      **kw)[0]))
-    torch.cuda.synchronize()
-
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    src = "gpu_provisioner_tpu_torch/ops/csrc/"
-    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
-    rows = []
-    kp = torch.arange(SMALL_ML, device=dev)
-    st = torch.tensor(SMALL_STARTS, dtype=torch.int32, device=dev)
-    pads = torch.tensor(SMALL_PADS, dtype=torch.int32, device=dev)
-
-    def row(name, D, source, replaces, shape, kernel, plain, library,
-            ops_bytes, names):
-        r = {"name": f"{name}_d{D}", "route": "cuda", "source": src + source,
-             "replaces": f"{tpu}{replaces}, head dim {D}", "launches": 0,
-             "max_abs_err": errs[name, D], "tolerance": TOL["bfloat16"],
-             "shape": shape, **timing(kernel, plain, library, ops_bytes,
-                                      flush)}
-        if library is None:
-            r["library_note"] = "no single PyTorch call attends over an " \
-                                "int8 cache"
-        deferred.append((r, kernel, library, names))
-        rows.append(r)
-        print(f"{r['name']}: {json.dumps(r)}")
-        return r
-
-    def decode_timed(S, q, kc, vc, Hq, Hkv, D, **kw):
-        mask = ((kp[None, None, :] <= st[:, None, None]
-                 + torch.arange(S, device=dev)[None, :, None])
-                & (kp[None, None, :] >= pads[:, None, None]))[:, None]
-        int8 = "k_scale" in kw
-        return (lambda: tfa.flash_attention_decode(q, kc, vc, st,
-                                                   pad_lens=pads, **kw),
-                lambda: tfa.attention_plain(q, kc, vc, st, pad_lens=pads,
-                                            **kw),
-                None if int8 else (lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), kc, vc, attn_mask=mask,
-                    enable_gqa=True)),
-                work(2, S, Hq, Hkv, D, SMALL_ML, st, pads, None, 0, True, 2,
-                     1 if int8 else 2, int8, False))
-
-    for D, (Hq, Hkv) in SMALL_HEADS.items():
-        B, S = 2, 128
-        q = rnd(B, S, Hq, D)
-        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-        row("flash_fwd", D, "flash_fwd.cu",
-            "70 (_kernel_resident), :202 (_kernel)",
-            f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
-            lambda q=q, k=k, v=v: tfa.flash_attention_with_lse(q, k, v),
-            lambda q=q, k=k, v=v: tfa.attention_plain(
-                q, k.transpose(1, 2), v.transpose(1, 2), 0),
-            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True),
-            work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2, False,
-                 True), ("flash_fwd_tc_kernel",))
-        # an admission (one request, S=128 at start 0) and a decode step
-        # (two slots at their own starts and pads), on a bf16 and an int8
-        # cache of the same values
-        qa, q1 = rnd(1, S, Hq, D), rnd(2, 1, Hq, D)
-        kc, vc, _ = cache(bf, 2, Hkv, D, False)
-        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
-        amask = (kp[None, :] <= torch.arange(S, device=dev)[:, None])
-        for int8, (kk, vv, kw) in ((False, (kc, vc, {})),
-                                   (True, (k8, v8, {"k_scale": ks,
-                                                    "v_scale": vs}))):
-            a_kw = {n: t[:1] for n, t in kw.items()}
-            ka, va = kk[:1], vv[:1]
-            tag = "_int8" if int8 else ""
-            row("flash_cached" + tag, D, "flash_fwd.cu",
-                "468 (_kernel_cached)" + (", int8 cache" if int8 else ""),
-                f"B=1 S={S} start=0 ML={SMALL_ML} Hq={Hq} Hkv={Hkv} D={D}",
-                lambda qa=qa, ka=ka, va=va, a_kw=a_kw:
-                    tfa.flash_attention_cached(qa, ka, va, 0, **a_kw),
-                lambda qa=qa, ka=ka, va=va, a_kw=a_kw:
-                    tfa.attention_plain(qa, ka, va, 0, **a_kw),
-                None if int8 else (
-                    lambda qa=qa, ka=ka, va=va: F.scaled_dot_product_attention(
-                        qa.transpose(1, 2), ka, va, attn_mask=amask,
-                        enable_gqa=True)),
-                work(1, S, Hq, Hkv, D, SMALL_ML, 0, None, None, 0, True, 2,
-                     1 if int8 else 2, int8, False), ("flash_fwd_tc_kernel",))
-            r = row("flash_decode" + tag, D, "flash_decode_narrow.cu",
-                    "660 (_kernel_decode)" + (", int8 cache" if int8 else ""),
-                    f"B=2 S=1 starts={SMALL_STARTS} pads={SMALL_PADS} "
-                    f"ML={SMALL_ML} Hq={Hq} Hkv={Hkv} D={D}",
-                    *decode_timed(1, q1, kk, vv, Hq, Hkv, D, **kw),
-                    names=("flash_decode",))
-            r["verify_blocks"] = {"S=5": timing(
-                *decode_timed(5, rnd(2, 5, Hq, D), kk, vv, Hq, Hkv, D, **kw),
-                flush)}
-            print(f"{r['name']} verify block: "
-                  f"{json.dumps(r['verify_blocks'])}")
-    # the same attention pairs and heads as the bf16 head-dim-64 rows (16/8
-    # heads; a fresh prefill of B=8, S=512, the admission of that prompt at
-    # ML 640 and a decode step at start 600), so that a row's time reads
-    # beside the D = 64 one's; device times deferred with the rows'
-    B, S, ml = D64_TWIN
-    Hq, Hkv = 16, 8
-    for D in SMALL_HEADS:
-        q, q1 = rnd(B, S, Hq, D), rnd(B, 1, Hq, D)
-        k, v = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
-        kc, vc = (rnd(B, Hkv, ml, D) for _ in range(2))
-        calls = {
-            "flash_fwd": (lambda q=q, k=k, v=v: tfa.flash_attention_with_lse(
-                              q, k, v),
-                          lambda q=q, k=k, v=v: tfa.attention_plain(
-                              q, k.transpose(1, 2), v.transpose(1, 2), 0),
-                          work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2,
-                               2, False, True), "flash_fwd_tc_kernel"),
-            "flash_cached": (lambda q=q, kc=kc, vc=vc:
-                             tfa.flash_attention_cached(q, kc, vc, 0),
-                             lambda q=q, kc=kc, vc=vc: tfa.attention_plain(
-                                 q, kc, vc, 0),
-                             work(B, S, Hq, Hkv, D, ml, 0, None, None, 0,
-                                  True, 2, 2, False, False),
-                             "flash_fwd_tc_kernel"),
-            "flash_decode": (lambda q1=q1, kc=kc, vc=vc:
-                             tfa.flash_attention_decode(q1, kc, vc, 600),
-                             lambda q1=q1, kc=kc, vc=vc: tfa.attention_plain(
-                                 q1, kc, vc, 600),
-                             work(B, 1, Hq, Hkv, D, ml, 600, None, None, 0,
-                                  True, 2, 2, False, False), "flash_decode")}
-        for name, (kernel, plain, ops_bytes, names) in calls.items():
-            r = next(r for r in rows if r["name"] == f"{name}_d{D}")
-            at = r["at_d64_shape"] = {
-                "shape": f"as the {name}_d64 row, Hq={Hq} Hkv={Hkv} D={D}",
-                **timing(kernel, plain, None, ops_bytes, flush)}
-            deferred.append((at, kernel, None, (names,)))
-            print(f"{r['name']} at the head-dim-64 row's shape: "
-                  f"{json.dumps(at)}")
-    del flush
-    return rows
 
 
 def small_logits(torch, td, fwd, params, cfg, dev, g):
@@ -4662,16 +4086,24 @@ def phase_small_exact(torch, tl, tm, td, te, tms, bench, dev):
     Queue C 2); greedy generate (fresh for the dense family, left-padded)
     and an int8-cache generate token-equal; a ServeEngine pass (the dense
     family with a shared prefix) with streams equal to dense's."""
-    g = torch.Generator().manual_seed(SEED + 82)
-    report = {}
     models = (("tiny", tl.PRESETS["tiny"], tl.init_params, td.cached_forward),
               ("fast bench_engine", bench.engine_config(True), tl.init_params,
                td.cached_forward),
               ("tiny-moe", tm.PRESETS_MOE["tiny-moe"], tm.init_moe_model,
                tms.moe_cached_forward))
+    return serve_exact(torch, tm, td, te, models, SMALL_HEADS, dev,
+                       SEED + 82)
+
+
+def serve_exact(torch, tm, td, te, models, head_dims, dev, seed):
+    """Each of ``models`` ((name, config, init, cached forward)) in f32
+    with flash attention against dense on the card, its head dim one of
+    ``head_dims``: phase_small_exact's checks. Returns the report."""
+    g = torch.Generator().manual_seed(seed)
+    report = {}
     for name, cfg, init, fwd in models:
         cfg = dataclasses.replace(cfg, dtype="float32", attn_impl="flash")
-        check(cfg.head_dim in SMALL_HEADS, f"{name}: head dim {cfg.head_dim}")
+        check(cfg.head_dim in head_dims, f"{name}: head dim {cfg.head_dim}")
         moe = isinstance(cfg, tm.MoEConfig)
         V = cfg.vocab_size
         params = init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
@@ -5204,6 +4636,529 @@ def phase_small_train(torch, tl, tm, tt, tfa, jobs, launch, bench, dev):
     return by_dim, report
 
 
+# The serving kernels' checks and timed rows at one head dim, by ServeDim:
+# phases 2 (D = 128), 16 (64), 18 (32, 16) and 20 (96, 80) each call
+# serve_kernels with theirs. The checks run in groups, each group's
+# self-attention cases (B, S, causal, window) and cache cases (B, S,
+# start, pads, window, sinks, int8) in bf16 and then in f32, from one
+# generator seeded with ``seed``; the timed calls, in bf16 at
+# ``timed_ML``: a fresh prefill (B, S), an admission (B, S, start, pads)
+# and a decode step (B, starts, pads) on a bf16 and an int8 cache of the
+# same values (#4 and #5 under ``window``, the path's sliding window),
+# verify blocks of S queries at the step's starts, and with ``at`` #1, #4
+# and #5 once more at the shapes of head dim ``ref``'s rows (ref, Hq, Hkv,
+# fresh, admission, step, max_len), so that a row reads beside that one.
+@dataclasses.dataclass(frozen=True)
+class ServeDim:
+    D: int
+    Hq: int
+    Hkv: int
+    ML: int
+    seed: int
+    groups: tuple
+    fresh: tuple
+    admission: tuple
+    step: tuple
+    timed_ML: int
+    verify: tuple = ()
+    window: int | None = None
+    at: tuple | None = None
+
+
+def both_caches(cases):
+    """Each (B, S, start, pads, window, sinks) case on a bf16 (f32) and
+    then on an int8 cache."""
+    return tuple((*c, int8) for c in cases for int8 in (False, True))
+
+
+# phase 20: head dims 96 and 80 in serving. Llama-family configs at
+# Phi-3-mini-4k's widths (the Hugging Face config.json of
+# microsoft/Phi-3-mini-4k-instruct: hidden 3072, 32 layers, 32/32 heads of
+# 96, intermediate 8192, vocab 32064, rope_theta 10000) and at
+# H2O-Danube-1.8B's (that of h2oai/h2o-danube-1.8b-base: hidden 2560, 24
+# layers, 32/8 heads of 80, intermediate 6912, vocab 32000, sliding window
+# 4096), written out as LlamaConfig literals (the JAX package has no such
+# preset; no file is fetched: the weights are seeded at random) and served
+# through the D = 96 and 80 instances of #1/#2, #4 and #5
+MID_HEADS = {96: (32, 32, None), 80: (32, 8, 4096)}   # Hq, Hkv, window
+
+
+def mid_models(tl):
+    """{head dim: the full-size bf16 flash config at that head dim}."""
+    return {
+        # microsoft/Phi-3-mini-4k-instruct (config.json)
+        96: tl.LlamaConfig(vocab_size=32064, dim=3072, n_layers=32,
+                           n_heads=32, n_kv_heads=32, hidden_dim=8192,
+                           max_seq_len=4096, rope_theta=10000.0,
+                           attn_impl="flash"),
+        # h2oai/h2o-danube-1.8b-base (config.json)
+        80: tl.LlamaConfig(vocab_size=32000, dim=2560, n_layers=24,
+                           n_heads=32, n_kv_heads=8, hidden_dim=6912,
+                           max_seq_len=16384, rope_theta=10000.0,
+                           sliding_window=4096, attn_impl="flash")}
+
+
+# the self-attention checks of phase 18's head dims (S=200 tiles for no JAX
+# block: the launch itself) and of phase 20's
+SMALL_FWD_CASES = ((2, 128, True, None), (2, 128, False, None),
+                   (1, 512, True, 200), (2, 200, False, None))
+MID_FWD_CASES = ((2, 512, True, None), (2, 512, False, None),
+                 (1, 4096, True, 1024), (2, 200, False, None))
+# (B, S, start, pads, window, sinks) of #4 at head dims 96 and 80, ML 2048:
+# an engine admission after a prefix, generate's left-padded prefill, a
+# window with sinks, a ragged S with both
+MID_CACHE_CASES = ((1, 256, 128, [28], None, 0), (2, 512, 0, [0, 37], None, 0),
+                   (1, 256, 900, [7], 256, 4), (2, 200, 400, [0, 37], 256, 4))
+SERVE_DIMS = {
+    # phase 2: Llama-7B's heads; the rows without a head-dim suffix
+    128: ServeDim(
+        128, 32, 8, 2048, SEED,
+        groups=((((2, 512, True, None), (1, 4096, True, None),
+                  (1, 4096, True, 1024), (2, 512, False, None)),
+                 ((1, 128, 0, [40], None, 0, False),
+                  (2, 512, 0, [0, 200], None, 0, False),
+                  (1, 512, 512, None, None, 0, False),
+                  (2, 256, 300, [0, 100], None, 0, True),
+                  (1, 256, 900, [7], 256, 4, False),
+                  (4, 1, [600, 300, 1500, 100], [0, 20, 0, 5], None, 0,
+                   False),
+                  (2, 5, 1000, None, None, 0, False),
+                  (2, 1, [700, 64], [0, 9], None, 0, True),
+                  (2, 5, [1400, 300], [4, 0], 300, 4, False))),
+                # then the int8 cache's prefill on the tensor cores (start
+                # 0; ragged S, window and sinks), the split decode's edge
+                # cases on every cache
+                ((), ((1, 128, 0, [40], None, 0, True),
+                      (2, 200, 400, [0, 37], 256, 4, True))
+                 + both_caches(DECODE_SPLIT_CASES))),
+        fresh=(2, 512), admission=(1, 256, 128, [28]),
+        step=(4, DECODE_STARTS, DECODE_PADS), timed_ML=2048, verify=(5, 16)),
+    # phase 16: the bench_moe_decode model's 16/8 heads, timed at its twin's
+    # prefill and decode step (D64_TWIN)
+    64: ServeDim(
+        64, 16, 8, 2048, SEED + 61,
+        groups=((((8, 512, True, None), (2, 512, False, None),
+                  (1, 4096, True, 1024), (2, 1024, False, 300)),
+                 both_caches(D64_CACHED_CASES + DECODE_SPLIT_CASES + (
+                     (4, 1, DECODE_STARTS, DECODE_PADS, None, 0),))),),
+        fresh=(8, 512), admission=(8, 512, 0, None), step=(8, 600, None),
+        timed_ML=640),
+    # phase 18: the fast bench_engine model's 8/4 heads of 32, tiny's 4/2 of
+    # 16, timed at the bench_engine model's shapes and at the D = 64 rows'
+    **{D: ServeDim(
+        D, Hq, Hkv, SMALL_ML, SEED + 81 + 4 * (D == 16),
+        groups=((SMALL_FWD_CASES, both_caches(SMALL_CACHE_CASES)),),
+        fresh=(2, 128), admission=(1, 128, 0, None),
+        step=(2, SMALL_STARTS, SMALL_PADS), timed_ML=SMALL_ML, verify=(5,),
+        at=(64, 16, 8, (8, 512), (8, 512, 0, None), (8, 600, None), 640))
+       for D, (Hq, Hkv) in SMALL_HEADS.items()},
+    # phase 20: at the models' own heads (MID_HEADS), timed at generate's
+    # fresh and left-padded prefills (B=2, S0=512) and a decode step of
+    # theirs (max_len 1024) and at the D = 128 rows' shapes
+    **{D: ServeDim(
+        D, Hq, Hkv, 2048, SEED + 91 + 4 * (D == 80),
+        groups=((MID_FWD_CASES, both_caches(
+            MID_CACHE_CASES + DECODE_SPLIT_CASES
+            + ((4, 1, DECODE_STARTS, DECODE_PADS, None, 0),))),),
+        fresh=(2, 512), admission=(2, 512, 0, [0, 37]),
+        step=(2, [560, 523], [0, 37]), timed_ML=1024, verify=(5,),
+        window=window, at=(128, 32, 8, (2, 512), (1, 256, 128, [28]),
+                           (4, DECODE_STARTS, DECODE_PADS), 2048))
+       for D, (Hq, Hkv, window) in MID_HEADS.items()},
+}
+# the rows of each head dim and the TPU kernel each replaces
+SERVE_ROWS = {
+    "flash_fwd": "70 (_kernel_resident), :202 (_kernel)",
+    "flash_cached": "468 (_kernel_cached)",
+    "flash_cached_int8": "468 (_kernel_cached), int8 cache",
+    "flash_decode": "660 (_kernel_decode)",
+    "flash_decode_int8": "660 (_kernel_decode), int8 cache"}
+
+
+def serve_suffix(D):
+    """A head dim's row suffix: none at 128 (phase 2's rows), _d<D> else."""
+    return "" if D == 128 else f"_d{D}"
+
+
+def serve_tc_kernels(_cuda, D):
+    """The tensor-core instances of the serving rows at head dim D: {row:
+    (source, a substring of the mangled name)}."""
+    src, sfx = _cuda.entry("flash_fwd", D), serve_suffix(D)
+    return {f"flash_fwd{sfx}": (src, "flash_fwd_tc_kernelI13__nv_bfloat16"
+                                     f"Li{D}E"),
+            f"flash_cached_int8{sfx}": (src, f"flash_fwd_tc_kernelIaLi{D}E")}
+
+
+def serve_decode_instances(tfa, D):
+    """The flash_decode instances of the timed rows at head dim D (the
+    decode step and its verify blocks, R from the rows of a unit): {row:
+    a substring of the mangled name}."""
+    spec, sfx = SERVE_DIMS[D], serve_suffix(D)
+    out = {}
+    for S in (1,) + spec.verify:
+        R = tfa._decode_rows(S * (spec.Hq // spec.Hkv))[0]
+        tag = "" if S == 1 else f"_s{S}"
+        out[f"flash_decode{sfx}{tag}"] = \
+            f"flash_decode_kernelI13__nv_bfloat16S1_Li{D}ELi{R}E"
+        out[f"flash_decode_int8{sfx}{tag}"] = \
+            f"flash_decode_kernelI13__nv_bfloat16aLi{D}ELi{R}E"
+    return out
+
+
+def serve_build_report(_cuda, tfa, logs, D):
+    """(tensor-core report, decode ptxas) of the serving instances at head
+    dim D (tc_build_report, decode_build_report)."""
+    return (tc_build_report(_cuda, logs, serve_tc_kernels(_cuda, D)),
+            decode_build_report(logs, serve_decode_instances(tfa, D),
+                                _cuda.entry("flash_decode", D)))
+
+
+def serve_reports(rows, report):
+    """Adds a head dim's serve_build_report to its rows: the tensor-core
+    instances' ptxas and HGMMA, the timed decode instances' ptxas (their
+    verify blocks' too)."""
+    tc, dec = report
+    for r in rows:
+        r.update(tc.get(r["name"], {}))
+        if r["name"] in dec:
+            r["ptxas"] = dec[r["name"]]
+        for S, v in r.get("verify_blocks", {}).items():
+            if f"{r['name']}_s{S[2:]}" in dec:
+                v["ptxas"] = dec[f"{r['name']}_s{S[2:]}"]
+
+
+def serve_kernels(torch, tfa, td, dev, deferred, D):
+    """#1/#2, #4 on a bf16 and an int8 cache and #5 on both at head dim D
+    (SERVE_DIMS[D]) against their plain versions, bf16 within 1e-2 and f32
+    within 1e-4 (lse within 1e-4); then the bf16 calls timed beside their
+    plain versions, SDPA (none for an int8 cache) and the bound, their
+    device times joining ``deferred``. Returns the head dim's rows of the
+    kernels line (launches filled later)."""
+    import torch.nn.functional as F
+    spec = SERVE_DIMS[D]
+    Hq, Hkv = spec.Hq, spec.Hkv
+    g = torch.Generator(dev).manual_seed(spec.seed)
+    bf = torch.bfloat16
+    errs = dict.fromkeys(SERVE_ROWS, 0.0)
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def ints(x):
+        return (torch.tensor(x, dtype=torch.int32, device=dev)
+                if isinstance(x, list) else x)
+
+    def held(row, dtype, what, e, e_lse=None):
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"{row} at head dim {D}, {dtype} {what}: max|out-plain| {e:.3g}"
+              + ("" if e_lse is None else f" |lse-plain| {e_lse:.3g}")
+              + f" (tol {tol})")
+        check(e <= tol and (e_lse is None or e_lse <= 1e-4),
+              f"{row} disagrees with plain at head dim {D}: {what}")
+        if dtype == bf:
+            errs[row] = max(errs[row], e)
+
+    def cache(dtype, B, Hkv, ml, int8):
+        kc, vc = rnd(B, Hkv, ml, D, dtype=dtype), rnd(B, Hkv, ml, D,
+                                                     dtype=dtype)
+        if not int8:
+            return kc, vc, {}
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        return k8, v8, {"k_scale": ks, "v_scale": vs}
+
+    for fwd_cases, cache_cases in spec.groups:
+        for dtype in (bf, torch.float32):
+            for B, S, causal, window in fwd_cases:
+                q = rnd(B, S, Hq, D, dtype=dtype)
+                k, v = rnd(B, S, Hkv, D, dtype=dtype), rnd(B, S, Hkv, D,
+                                                            dtype=dtype)
+                kw = dict(causal=causal, window=window)
+                if S % tfa._auto_block(S) == 0:
+                    out, lse = tfa.flash_attention_with_lse(q, k, v, **kw)
+                else:      # no JAX block tiles S: the launch itself
+                    out, lse = tfa._launch(
+                        "flash_fwd", q, k.transpose(1, 2), v.transpose(1, 2),
+                        0, scale=D ** -0.5, want_lse=True, **kw)
+                ref, ref_lse = tfa.attention_plain(
+                    q, k.transpose(1, 2), v.transpose(1, 2), 0, **kw)
+                held("flash_fwd", dtype, f"B={B} S={S} causal={causal} "
+                     f"window={window}", err(out, ref), err(lse, ref_lse))
+                del q, k, v, out, lse, ref, ref_lse
+            for B, S, start, pads, window, sinks, int8 in cache_cases:
+                q = rnd(B, S, Hq, D, dtype=dtype)
+                kc, vc, kw = cache(dtype, B, Hkv, spec.ML, int8)
+                kw.update(window=window, sinks=sinks)
+                if pads is not None:
+                    kw["pad_lens"] = ints(pads)
+                st = ints(start)
+                decode = S <= tfa.DECODE_MAX_S
+                if decode:
+                    got = tfa.flash_attention_decode(q, kc, vc, st, **kw)
+                elif isinstance(start, list):   # per-row starts: the launch
+                    got, _ = tfa._launch("flash_fwd", q, kc, vc, st,
+                                         causal=True, scale=D ** -0.5, **kw)
+                else:
+                    got = tfa.flash_attention_cached(q, kc, vc, st, **kw)
+                row = ("flash_decode" if decode else "flash_cached") \
+                    + ("_int8" if int8 else "")
+                held(row, dtype, f"B={B} S={S} start={start} pads={pads} "
+                     f"window={window} sinks={sinks}",
+                     err(got, tfa.attention_plain(q, kc, vc, st, **kw)[0]))
+    torch.cuda.synchronize()
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    src = "gpu_provisioner_tpu_torch/ops/csrc/"
+    tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
+    sfx = serve_suffix(D)
+    rows = []
+
+    def mask(B, S, starts, pads, ml, window):
+        """[B, 1, S, ml]: key attendable from query (SDPA's attn_mask)."""
+        st = torch.as_tensor(starts, device=dev).reshape(-1).expand(B)
+        pd = torch.zeros(B, dtype=torch.long, device=dev) if pads is None \
+            else torch.as_tensor(pads, device=dev)
+        qp = (st[:, None] + torch.arange(S, device=dev))[:, :, None]
+        kp = torch.arange(ml, device=dev)
+        keep = (kp <= qp) & (kp >= pd[:, None, None])
+        if window:
+            keep = keep & (kp > qp - window)
+        return keep[:, None]
+
+    def calls(Hq, Hkv, fresh, admission, step, ml, window, verify=()):
+        """{(row, S of a verify block or None): (shape, kernel, plain,
+        library, (ops, bytes), names)} of the timed calls at these shapes,
+        #4 and #5 on one bf16 cache and its int8 copy."""
+        out = {}
+        B, S = fresh
+        q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        out["flash_fwd", None] = (
+            f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
+            lambda: tfa.flash_attention_with_lse(q, k, v),
+            lambda: tfa.attention_plain(q, k.transpose(1, 2),
+                                        v.transpose(1, 2), 0),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True),
+            work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2, 2, False,
+                 True), ("flash_fwd_tc_kernel",))
+        kc, vc, _ = cache(bf, max(admission[0], step[0]), Hkv, ml, False)
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        blocks = [("flash_cached", None, admission)] + [
+            ("flash_decode", n, (step[0], n) + tuple(step[1:]))
+            for n in (1,) + tuple(verify)]
+        for name, n, (B, S, start, pads) in blocks:
+            qq = rnd(B, S, Hq, D)
+            st, pl = ints(start), ints(pads)
+            fn = tfa.flash_attention_cached if name == "flash_cached" \
+                else tfa.flash_attention_decode
+            m = mask(B, S, start, pads, ml, window)
+            for int8 in (False, True):
+                kk, vv = (k8[:B], v8[:B]) if int8 else (kc[:B], vc[:B])
+                kw = dict(pad_lens=pl, window=window)
+                if int8:
+                    kw.update(k_scale=ks[:B], v_scale=vs[:B])
+                out[name + ("_int8" if int8 else ""), None if n == 1 else n] \
+                    = (f"B={B} S={S} start={start} pads={pads} "
+                       f"window={window} ML={ml} Hq={Hq} Hkv={Hkv} D={D}",
+                       lambda fn=fn, qq=qq, kk=kk, vv=vv, st=st, kw=kw:
+                           fn(qq, kk, vv, st, **kw),
+                       lambda qq=qq, kk=kk, vv=vv, st=st, kw=kw:
+                           tfa.attention_plain(qq, kk, vv, st, **kw),
+                       None if int8 else (
+                           lambda qq=qq, kk=kk, vv=vv, m=m:
+                           F.scaled_dot_product_attention(
+                               qq.transpose(1, 2), kk, vv, attn_mask=m,
+                               enable_gqa=True)),
+                       work(B, S, Hq, Hkv, D, ml, st, pl, window, 0, True, 2,
+                            1 if int8 else 2, int8, False),
+                       ("flash_fwd_tc_kernel",) if name == "flash_cached"
+                       else ("flash_decode",))
+        return out
+
+    def timed(r, shape, kernel, plain, library, ops_bytes, names):
+        """Adds the shape and timing()'s keys to entry ``r``, its device
+        times measured last (device_times). Returns ``r``."""
+        r.update(shape=shape, **timing(kernel, plain, library, ops_bytes,
+                                       flush))
+        deferred.append((r, kernel, library, names))
+        return r
+
+    for (name, S), c in calls(Hq, Hkv, spec.fresh, spec.admission,
+                              spec.step, spec.timed_ML, spec.window,
+                              spec.verify).items():
+        if S is not None:       # a verify block of the decode row before it
+            r = next(r for r in rows if r["name"] == name + sfx)
+            v = r.setdefault("verify_blocks", {})[f"S={S}"] = timed({}, *c)
+            print(f"{r['name']} verify block S={S}: {json.dumps(v)}")
+            continue
+        kernel = "flash_decode" if name.startswith("flash_decode") \
+            else "flash_fwd"
+        r = timed({"name": name + sfx, "route": "cuda",
+                   "source": f"{src}{tfa._cuda.entry(kernel, D)}.cu",
+                   "replaces": tpu + SERVE_ROWS[name]
+                   + ("" if D == 128 else f", head dim {D}"),
+                   "launches": 0, "max_abs_err": errs[name],
+                   "tolerance": TOL["bfloat16"]}, *c)
+        if c[3] is None:
+            r["library_note"] = "no single PyTorch call attends over an " \
+                                "int8 cache"
+        rows.append(r)
+        print(f"{r['name']}: {json.dumps(r)}")
+    if spec.at:
+        ref, Hq2, Hkv2, fresh, admission, step, ml = spec.at
+        at = calls(Hq2, Hkv2, fresh, admission, step, ml, None)
+        for name in ("flash_fwd", "flash_cached", "flash_decode"):
+            shape, kernel, plain, _, ops_bytes, names = at[name, None]
+            r = next(r for r in rows if r["name"] == name + sfx)
+            v = r[f"at_d{ref}_shape"] = timed(
+                {}, f"as the head-dim-{ref} {name} row: {shape}", kernel,
+                plain, None, ops_bytes, names)
+            print(f"{r['name']} at the head-dim-{ref} row's shape: "
+                  f"{json.dumps(v)}")
+    del flush
+    return rows
+
+
+def engine_steps(slots, news):
+    """(admissions, decode steps) of a ServeEngine pass over requests of
+    ``news`` new tokens each (>= 2; no eos), ``slots`` at a time: an
+    admission emits a request's first token, every step one token for each
+    live slot (ServeEngine.step)."""
+    queue, live, steps = list(news), [], 0
+    while queue or live:
+        while queue and len(live) < slots:
+            live.append(queue.pop(0) - 1)
+        steps += 1
+        live = [n - 1 for n in live if n > 1]
+    return len(news), steps
+
+
+def phase_mid_exact(torch, tl, tm, td, te, dev):
+    """Phase 20 (b): at Phi-3-mini's and H2O-Danube-1.8B's widths (96 and
+    80, mid_models) cut to 2 layers, f32 (the kernels' f32 instances),
+    flash against dense on the card (serve_exact: logits within 1e-4 on an
+    f32 cache and 2e-2 on an int8 one, generate fresh, left-padded and on
+    an int8 cache token-equal, a ServeEngine pass with a shared prefix
+    stream-equal)."""
+    models = tuple((f"{name} width, 2 layers", dataclasses.replace(
+        cfg, n_layers=2), tl.init_params, td.cached_forward)
+        for name, cfg in zip(("Phi-3-mini", "H2O-Danube-1.8B"),
+                             mid_models(tl).values()))
+    return serve_exact(torch, tm, td, te, models, MID_HEADS, dev, SEED + 92)
+
+
+def phase_mid_serving(torch, tl, td, te, tfa, dev):
+    """Phase 20 (c), bf16, full depth: the Phi-3-mini-width and
+    H2O-Danube-width models (mid_models) through generate (B=2, S0=512, 16
+    new, max_len 1024: fresh, left-padded on a bf16 and on an int8 cache)
+    and a ServeEngine pass of three requests on two slots (buckets 256,
+    512); every kernel's launches read across each model's run equal to
+    what the path predicts (L a prefill, L a decode step, L an engine
+    admission: serve_launches, engine_steps) and nothing else launched. A
+    windowed config prefills through #4 (in the JAX package as here), so
+    Danube's fresh generate runs without its window: at these lengths,
+    under 4096, the same attention. Then at both head dims a forward whose
+    input requires grad, triangular=True and the backward (rectangular
+    and triangle) raise ValueError naming the head dim, with no launch.
+    Returns ({96: launches, 80: launches}, report)."""
+    g = torch.Generator().manual_seed(SEED + 93)
+    B, S0, new, ml = 2, 512, 16, 1024
+    news, slots = (8, 6, 5), 2
+    launches, report = {}, {}
+    for D, cfg in mid_models(tl).items():
+        check(cfg.head_dim == D, f"head dim {cfg.head_dim}, expected {D}")
+        L = cfg.n_layers
+        t0 = time.perf_counter()
+        params = tl.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        torch.cuda.synchronize()
+        rep = report[D] = {
+            "params": sum(t.numel() for t in _named(params).values()),
+            "init_s": time.perf_counter() - t0}
+        want: dict = {}
+
+        def gen(what, c, pads=False, fresh=False):
+            prompt = torch.randint(1, c.vocab_size, (B, S0), generator=g)
+            if pads:
+                prompt[1, :37] = 0
+            t0 = time.perf_counter()
+            out = td.generate(params, prompt, c, max_new_tokens=new,
+                              max_len=ml, pad_id=0 if pads else None,
+                              device=dev)
+            torch.cuda.synchronize()
+            rep[what + "_tokens_per_s"] = B * new / (time.perf_counter() - t0)
+            check(tuple(out.shape) == (B, new)
+                  and bool(((out >= 0) & (out < c.vocab_size)).all()),
+                  f"{what} at head dim {D}: {tuple(out.shape)}")
+            int8 = c.kv_cache_dtype == "int8"
+            for k, n in serve_launches(L, new, fresh, int8).items():
+                want[k] = want.get(k, 0) + n
+
+        tfa.reset_launches()
+        gen("generate", dataclasses.replace(cfg, sliding_window=None),
+            fresh=True)
+        gen("padded_generate", cfg, pads=True)
+        gen("int8_generate", dataclasses.replace(cfg, kv_cache_dtype="int8"),
+            pads=True)
+        eng = te.ServeEngine(params, cfg, slots=slots, max_len=ml,
+                             prefill_buckets=(256, 512), device=dev)
+        t0 = time.perf_counter()
+        ids = [eng.submit(torch.randint(1, cfg.vocab_size, (n,),
+                                        generator=g).tolist(), m)
+               for n, m in zip((300, 200, 480), news)]
+        out = eng.run()
+        torch.cuda.synchronize()
+        rep["engine_tokens_per_s"] = sum(news) / (time.perf_counter() - t0)
+        check([len(out[i]) for i in ids] == list(news),
+              f"engine streams at head dim {D}: {[out[i] for i in ids]}")
+        admissions, steps = engine_steps(slots, news)
+        want["flash_cached"] = want.get("flash_cached", 0) + L * admissions
+        want["flash_decode"] = want.get("flash_decode", 0) + L * steps
+        launches[D] = dict(tfa.LAUNCHES)
+        print(f"head dim {D} ({'Phi-3-mini' if D == 96 else 'H2O-Danube'}"
+              f" width, {L} layers, bf16): launches {launches[D]}, "
+              f"predicted {want}; {json.dumps(rep)}")
+        for name, n in launches[D].items():
+            check(n == want.get(name, 0), f"{name}: {n} launches on the "
+                  f"head-dim-{D} path, predicted {want.get(name, 0)}")
+        del params, eng
+        torch.cuda.empty_cache()
+
+    # the backward and triangle kernels take neither head dim: a training
+    # call is refused by name before any launch
+    gq = torch.Generator(dev).manual_seed(SEED + 94)
+    tfa.reset_launches()
+    for D, (Hq, Hkv, _) in MID_HEADS.items():
+        q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        lse = torch.zeros(1, Hq, 256, device=dev)
+        for what, fn in (
+                ("a forward that requires grad", lambda: tfa.flash_attention(
+                    q.clone().requires_grad_(), k, v)),
+                ("triangular=True", lambda: tfa.flash_attention(
+                    q, k, v, triangular=True)),
+                ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
+                    q, k, v, q, lse, q)),
+                ("triangular=True backward", lambda: tfa.flash_attention_bwd(
+                    q, k, v, q, lse, q, triangular=True))):
+            try:
+                fn()
+            except ValueError as e:
+                check(f"head dim {D}" in str(e), f"{what} at head dim {D}: "
+                      f"{e}")
+            else:
+                check(False, f"{what} ran at head dim {D}")
+    check(not any(tfa.LAUNCHES.values()),
+          f"a training launch at head dims 96 and 80: {tfa.LAUNCHES}")
+    report["refusals"] = ("head dims 96 and 80: a forward that requires "
+                          "grad, triangular=True, flash_attention_bwd, "
+                          "triangular=True backward")
+    return launches, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5242,23 +5197,21 @@ def main() -> int:
     for name, log in logs.items():
         for fn, info in ptxas_info(log).items():
             print(f"  {name}: {fn}: {info}")
-    tc_report = tc_build_report(_cuda, logs)
-    decode_report = decode_build_report(logs)
-    print("head dim 64 (phase 16):")
-    d64_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_D64)
-    d64_decode_report = decode_build_report(logs, DECODE_INSTANCES_D64)
+    serve_report = {}
+    for D in SERVE_DIMS:     # phases 2, 16, 18 and 20
+        print(f"serving instances at head dim {D}:")
+        serve_report[D] = serve_build_report(_cuda, tfa, logs, D)
+    print("training instances at head dim 128:")
+    tc_report = tc_build_report(_cuda, logs, TC_KERNELS_TRAIN)
     print("head dim 64 in training (phase 17):")
-    d64_tc_report.update(tc_build_report(_cuda, logs, TC_KERNELS_D64_TRAIN))
-    print("head dims 32 and 16 (phase 18):")
-    small_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_SMALL)
-    small_decode_report = decode_build_report(logs, DECODE_INSTANCES_SMALL,
-                                              "flash_decode_narrow")
+    d64_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_D64_TRAIN)
     print("head dims 32 and 16 in training (phase 19):")
     small_train_tc_report = tc_build_report(_cuda, logs,
                                             TC_KERNELS_SMALL_TRAIN)
 
     t0 = time.perf_counter()
-    rows, deferred = phase_kernels(torch, tfa, td, dev)
+    deferred = []
+    rows = serve_kernels(torch, tfa, td, dev, deferred, 128)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_exact(torch, tl, td, te, dev)
@@ -5361,7 +5314,7 @@ def main() -> int:
     print(f"mesh resume phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t16 = t0 = time.perf_counter()
-    d64_rows = phase_d64_kernels(torch, tfa, td, dev, deferred)
+    d64_rows = serve_kernels(torch, tfa, td, dev, deferred, 64)
     print(f"head-dim-64 kernels {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5394,7 +5347,8 @@ def main() -> int:
           f"training phase {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
     t18 = t0 = time.perf_counter()
-    small_rows = phase_small_kernels(torch, tfa, td, dev, deferred)
+    small_rows = [r for D in SMALL_HEADS
+                  for r in serve_kernels(torch, tfa, td, dev, deferred, D)]
     print(f"head dims 32 and 16 kernels {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5426,6 +5380,21 @@ def main() -> int:
     print(f"head dims 32 and 16 training paths {time.perf_counter() - t0:.1f}"
           f" s; head dims 32 and 16 training phase "
           f"{time.perf_counter() - t19:.1f} s")
+    torch.cuda.empty_cache()
+    t20 = t0 = time.perf_counter()
+    mid_rows = [r for D in MID_HEADS
+                for r in serve_kernels(torch, tfa, td, dev, deferred, D)]
+    print(f"head dims 96 and 80 kernels {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mid_exact = phase_mid_exact(torch, tl, tm, td, te, dev)
+    print(f"head dims 96 and 80 exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mid, mid_report = phase_mid_serving(torch, tl, td, te, tfa, dev)
+    mid_report["exact"] = mid_exact
+    print(f"head dims 96 and 80 serving {time.perf_counter() - t0:.1f} s; "
+          f"head dims 96 and 80 phase {time.perf_counter() - t20:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
@@ -5483,27 +5452,22 @@ def main() -> int:
         r["launches"] = (long if name.endswith("_tri") else train
                          if name.startswith("flash_bwd") else serve)[name]
         r.update(tc_report.get(name, {}))
-        if name in decode_report:
-            r["ptxas"] = decode_report[name]
-            for S, v in r.get("verify_blocks", {}).items():
-                v["ptxas"] = decode_report[f"flash_decode_s{S[2:]}"]
         if name == "flash_decode":
             r["at_spec_verify"] = spec_verify
             r["max_abs_err"] = max(r["max_abs_err"], spec_verify["max_abs_err"])
         if name in prefill_rows:
             r["at_spec_prefill"] = prefill_rows[name]
             r["max_abs_err"] = max(r["max_abs_err"], prefill_errs[name])
+    serve_reports(rows, serve_report[128])
     # the head-dim-64 instances: launches across phase 16's full-size run
     # (and the fast bench_decode twin of phase 14), ptxas of the timed ones
+    serve_reports(d64_rows, serve_report[64])
     for r in d64_rows:
         name = r["name"][:-len("_d64")]
         r["launches"] = d64[name]
         r["launches_by_path"] = {
             "d64_serving": d64[name],
             "bench_decode_fast": by_serve_twin["bench_decode"][name]}
-        r.update(d64_tc_report.get(r["name"], {}))
-        if r["name"] in d64_decode_report:
-            r["ptxas"] = d64_decode_report[r["name"]]
         if name == "flash_fwd":     # and its training paths (phase 17)
             r["at_train_shape"] = d64_train_fwd
             r["max_abs_err"] = max(r["max_abs_err"], d64_fwd_err)
@@ -5522,6 +5486,8 @@ def main() -> int:
     # the head-dim-32 and 16 instances: launches across phase 18's runs
     # at each head dim (and the fast bench_engine and bench_moe_decode
     # twins of phase 14, at 32), ptxas of the timed ones
+    for D in SMALL_HEADS:
+        serve_reports(small_rows, serve_report[D])
     for r in small_rows:
         name, D = r["name"].rsplit("_d", 1)
         r["launches"] = small[int(D)][name]
@@ -5530,9 +5496,6 @@ def main() -> int:
             r["launches_by_path"].update(
                 {k: by_serve_twin[k][name]
                  for k in ("bench_engine", "bench_moe_decode")})
-        r.update(small_tc_report.get(r["name"], {}))
-        if r["name"] in small_decode_report:
-            r["ptxas"] = small_decode_report[r["name"]]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         if name == "flash_fwd":     # and its training paths (phase 19)
             r["at_train_shape"] = small_train_fwd[int(D)]
@@ -5550,12 +5513,23 @@ def main() -> int:
                               else f"d{D}_train"][name]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         r.update(small_train_tc_report.get(r["name"], {}))
-    rows += d64_rows + d64_train_rows + small_rows + small_train_rows
+    # the head-dim-96 and 80 instances: launches across phase 20's
+    # full-size runs, ptxas of the timed ones
+    for D in MID_HEADS:
+        serve_reports(mid_rows, serve_report[D])
+    for r in mid_rows:
+        name, D = r["name"].rsplit("_d", 1)
+        r["launches"] = mid[int(D)][name]
+        r["launches_by_path"] = {f"d{D}_serving": mid[int(D)][name]}
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+    rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
+        + mid_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
     print(f"head dims 32 and 16 in training: "
           f"{json.dumps(small_train_report)}")
+    print(f"head dims 96 and 80: {json.dumps(mid_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_decode", "flash_decode_narrow", "flash_bwd",
-           "flash_tri", "flash_tri_narrow")
+SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_decode", "flash_decode_narrow",
+           "flash_decode_mid", "flash_bwd", "flash_tri", "flash_tri_narrow")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,8 +82,10 @@ class FlashTriArgs(ctypes.Structure):
 # C entry point -> (source in csrc/, argument struct)
 ENTRIES = {
     "flash_fwd": ("flash_fwd", FlashArgs),
+    "flash_fwd_mid": ("flash_fwd_mid", FlashArgs),
     "flash_decode": ("flash_decode", FlashArgs),
     "flash_decode_narrow": ("flash_decode_narrow", FlashArgs),
+    "flash_decode_mid": ("flash_decode_mid", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
     "flash_fwd_tri": ("flash_tri", FlashTriArgs),
@@ -179,11 +181,18 @@ def library(name: str) -> ctypes.CDLL:
 # 64 and 128 of flash_decode.cu and flash_tri.cu: C entry <kernel>_narrow
 NARROW = ("flash_decode", "flash_fwd_tri", "flash_bwd_dq_tri",
           "flash_bwd_dkv_tri")
+# the kernels whose head dims 80 and 96 live in a source of their own
+# (csrc/flash_fwd_mid.cu, csrc/flash_decode_mid.cu): C entry <kernel>_mid
+MID = ("flash_fwd", "flash_decode")
+MID_HEAD_DIMS = (80, 96)
 
 
 def entry(kernel: str, head_dim: int) -> str:
-    """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``, or
-    ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16."""
+    """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``,
+    ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16, or
+    ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96."""
+    if kernel in MID and head_dim in MID_HEAD_DIMS:
+        return f"{kernel}_mid"
     return f"{kernel}_narrow" if kernel in NARROW and head_dim < 64 \
         else kernel
 

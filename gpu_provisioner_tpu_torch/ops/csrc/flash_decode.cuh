@@ -50,24 +50,27 @@
 // blocks (64 rows, ~128 operations per byte) want mma.sync or wgmma is
 // left open.
 //
-// Head dim 16, 32, 64 or 128 (the C entries refuse any other D). A CTA
-// keeps 128 threads at each: P V splits the block into RH = 128 / D row
-// groups of D threads (1 at D = 128, 2 at 64, 4 at 32, 8 at 16), group g
-// owning rows g, g + RH, ... of the unit and each of its threads one
+// Head dim 16, 32, 64, 80, 96 or 128 (the C entries refuse any other D).
+// A CTA keeps 128 threads at each: P V splits the block into RH = 128 / D
+// row groups of D threads (1 at D = 128, 2 at 64, 4 at 32, 8 at 16), group
+// g owning rows g, g + RH, ... of the unit and each of its threads one
 // output column of them, so P V reads each V tile once a group and no
 // combine is needed. At R = 4 rows (a plain step at group 2 or 4) and D =
-// 16, groups 4..7 (warps 2 and 3) own no row and idle through P V. A
+// 16, groups 4..7 (warps 2 and 3) own no row and idle through P V. At D =
+// 80 and 96, which do not divide 128, the block keeps D = 128's one group:
+// threads 0..D-1 own a column of every row, the other 48 or 32 idle
+// through P V (a block of D threads would cut the copies in flight). A
 // smaller block would cut the copies in flight a CTA, where this kernel is
 // bound by bytes. The score product (a thread a key column of the 64-key
 // tile against the rows of its half of the block) and the softmax (a warp
 // a row) do not depend on D. A row is copied in 16-byte chunks: an int8 row
-// is 64 bytes at D = 64, one chunk at D = 16.
+// is 64 bytes at D = 64, one chunk at D = 16, 5 or 6 chunks at 80 or 96.
 //
 // This header holds the kernel, its merge and their launch for every head
 // dim; flash_decode.cu's C entry takes 64 and 128, flash_decode_narrow.cu's
-// 32 and 16, so that two nvcc processes build the instances side by side
-// (one source for all four head dims took 87 s to build for sm_90a, four
-// times flash_fwd.cu's 20).
+// 32 and 16, flash_decode_mid.cu's 80 and 96, so that nvcc processes build
+// the instances side by side (one source for all four of 16..128 took 87 s
+// to build for sm_90a, four times flash_fwd.cu's 20).
 #pragma once
 
 #include <type_traits>
@@ -212,14 +215,28 @@ __device__ __forceinline__ Live live_tiles(int start, int pad, int first_s, int 
   return Live{lo, a_end, max(max(lo, wlo), a_end), hi};
 }
 
+// CTAs an SM the kernel's instances are built for: at head dims 80 and 96
+// two, the split plan's about two an SM (_decode_splits), which leaves
+// ptxas 255 registers; without a bound (-DDECODE_MID_MIN_BLOCKS=0) it
+// spilled in 8 of those 60 instances (hack/torch_ptxas_variants.py
+// flash_decode_mid). 0 at the other head dims: no bound, the same SASS as
+// none given.
+#ifndef DECODE_MID_MIN_BLOCKS
+#define DECODE_MID_MIN_BLOCKS 2
+#endif
+template <int D>
+constexpr int DECODE_MIN_BLOCKS = D == 80 || D == 96 ? DECODE_MID_MIN_BLOCKS : 0;
+
 // One CTA: unit blockIdx.x (= ((b * Hkv + kvh) * row blocks + row block)),
 // share blockIdx.y of its live tiles.
 template <typename T, typename KT, int D, int R>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
-  // a thread owns one output column of every RH-th row: RH = 1 at D = 128,
-  // 2 at D = 64, 4 at 32, 8 at 16 (rows t / D, t / D + RH, ...), NA rows; at
-  // R < RH the groups t / D >= R own none
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+__global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_kernel(FlashArgs a) {
+  // a thread owns one output column of every RH-th row: RH = 1 at D = 128
+  // (and at 80 and 96, where threads D.. own none), 2 at D = 64, 4 at 32, 8
+  // at 16 (rows t / D, t / D + RH, ...), NA rows; at R < RH the groups t /
+  // D >= R own none
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
+                "head dim 16, 32, 64, 80, 96 or 128");
   constexpr int RH = THREADS / D;
   constexpr int NA = (R + RH - 1) / RH;
   using Ly = Layout<KT, D, R>;
@@ -235,7 +252,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(FlashArgs a) {
   // P V's column and row group (at RH = 1 the thread index itself, as
   // before), and whether the group owns a row
   const int col = RH == 1 ? t : t & (D - 1), rh = RH == 1 ? 0 : t / D;
-  const bool owns = R >= RH || rh < R;
+  const bool owns = (R >= RH || rh < R) && (THREADS % D == 0 || t < D);
   const int group = a.Hq / a.Hkv;
   const int rows = a.Sq * group;
   const int nrb = (rows + R - 1) / R;

@@ -45,7 +45,13 @@
 // the register-A products stay m64n64k16 into D = 64's accumulator of 32
 // floats a thread, whose columns D.. are computed from the zeros and never
 // stored (store_bf16's and dkv_store's D); shared memory and CTAs an SM as
-// at D = 64.
+// at D = 64. The forward step alone also takes D = 80 and 96 (the serving
+// head dims of H2O-Danube-1.8B and Phi-3-mini): D = 128's two-atom tile
+// partly filled (flash_wgmma.cuh), S = Q K^T in D / 16 k-steps (5 or 6),
+// O += P V D = 128's m64n128k16 into D = 128's accumulator of 64 floats a
+// thread, its columns D.. computed from the zeroed pad and never stored;
+// shared memory and CTAs an SM as at D = 128 (80 KB; the int8 stages
+// smaller: 70 or 74 KB).
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -122,11 +128,12 @@ constexpr int DQ_TC_BLOCKS = D == 128 ? 2 : TC_DQ_BLOCKS_D64;
 template <int D>
 constexpr int DKV_TC_BLOCKS = D == 128 ? 2 : TC_DKV_BLOCKS_D64;
 
-// The floats a thread of an accumulator of 64 x max(D, 64) (the forward's
-// O, dQ, dK, dV): D / 2, and D = 64's 32 below it (the columns past D are
-// computed, never stored).
+// The floats a thread of an accumulator of 64 x (D rounded up to a whole
+// swizzle atom of 64 columns) (the forward's O, dQ, dK, dV): D / 2 at 64
+// and 128, D = 64's 32 below it, D = 128's 64 at 80 and 96 (the columns
+// past D are computed, never stored).
 template <int D>
-constexpr int acc_floats = D < 64 ? 32 : D / 2;
+constexpr int acc_floats = D < 64 ? 32 : (D + 63) / 64 * 32;
 
 // The query tile of a rectangular grid's block (blockIdx.y), the tiles
 // with the most key tiles first when `descending` (on a causal grid), so
@@ -328,16 +335,31 @@ __host__ __device__ constexpr size_t fwd_i8_smem() {
 // (kb / vb / ksb / vsb at its position 0; rows at or past Sk zero-filled)
 // into the int8 stage at `stage`: 64 * D / 16 16-byte chunks of each tile,
 // D / 32 a thread (at D = 16, where a row is one chunk, threads 0..63 copy
-// a K row each and threads 64..127 a V row), and one scale a thread. Not
-// committed.
+// a K row each and threads 64..127 a V row; at D = 80 and 96, rows of 5 or
+// 6 chunks, the K and V tiles' chunks together, D / 16 a thread), and one
+// scale a thread. Not committed.
 template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
                                          const float* ksb, const float* vsb, long long k_ss,
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
-  constexpr int LOG_CH = wg::log2i(D / 16);   // log2 of the chunks a row, D / 16
-  static_assert((1 << LOG_CH) == D / 16, "D = 16, 32, 64 or 128");
+  constexpr int CH = D / 16;                  // chunks a row
+  constexpr int LOG_CH = wg::log2i(CH);
+  static_assert(D % 16 == 0 && D <= 128, "D = 16, 32, 64, 80, 96 or 128");
   constexpr uint32_t TILE = i8_tile<D>();
-  if constexpr (E * (D / 16) < wg::THREADS) {   // D = 16
+  if constexpr ((1 << LOG_CH) != CH) {        // D = 80 or 96
+#pragma unroll
+    for (int it = 0; it < 2 * E * CH / wg::THREADS; ++it) {
+      const int i = threadIdx.x + it * wg::THREADS;
+      const int kv = i / (E * CH), j = i % (E * CH);
+      const int r = j / CH, c = j % CH;
+      const bool in = k0 + r < Sk;
+      const long long row = in ? k0 + r : 0;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(stage + kv * TILE +
+                                                                         r * D + c * 16),
+                   "l"((kv ? vb + row * v_ss : kb + row * k_ss) + c * 16), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+  } else if constexpr (E * (D / 16) < wg::THREADS) {   // D = 16
     const int r = threadIdx.x & (E - 1), kv = threadIdx.x / E;
     const bool in = k0 + r < Sk;
     const long long row = in ? k0 + r : 0;
@@ -347,7 +369,7 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
                  : "memory");
   }
 #pragma unroll
-  for (int it = 0; it < E * (D / 16) / wg::THREADS; ++it) {
+  for (int it = 0; it < ((1 << LOG_CH) == CH ? E * (D / 16) / wg::THREADS : 0); ++it) {
     const int i = threadIdx.x + it * wg::THREADS;
     const int r = i >> LOG_CH, c = i & (D / 16 - 1);
     const bool in = k0 + r < Sk;
@@ -376,7 +398,8 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
 template <int D>
 __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
   constexpr int LOG_CH = wg::log2i(D / 8);   // log2 of the bf16 chunks a row, D / 8
-  static_assert((1 << LOG_CH) == D / 8, "D = 16, 32, 64 or 128");
+  constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
+  static_assert(wg::tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96 or 128");
   const char* src = reinterpret_cast<const char*>(floats_at(stage));
   char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
 #pragma unroll
@@ -384,7 +407,8 @@ __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
 #pragma unroll
     for (int it = 0; it < E * (D / 8) / wg::THREADS; ++it) {
       const int i = threadIdx.x + it * wg::THREADS;
-      const int r = i >> LOG_CH, c = i & (D / 8 - 1);   // row, chunk of 8 values along D
+      // row, chunk of 8 values along D
+      const int r = POW2 ? i >> LOG_CH : i / (D / 8), c = POW2 ? i & (D / 8 - 1) : i % (D / 8);
       const uint2 raw =
           *reinterpret_cast<const uint2*>(src + kv * i8_tile<D>() + r * D + c * 8);
       const uint32_t w[2] = {raw.x, raw.y};

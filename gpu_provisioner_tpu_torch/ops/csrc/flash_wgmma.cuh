@@ -17,6 +17,15 @@
 // of layout type B128. Every kernel takes both (TILE_BYTES and the defaults
 // below are D = 128's, for the standalone checks under hack/).
 //
+// D = 80 or 96 (the forward's tensor-core instances): D = 128's tile, two
+// atoms, the second partly filled. A row's D / 8 chunks (10 or 12) go to
+// their swizzled places, 8 in the first atom and 2 or 4 in the second; the
+// second atom's other chunks are zeroed once a buffer (zero_pad). S = Q K^T
+// takes D / 16 k-steps (5 or 6; desc_kmajor's k-steps 4 and 5 lie in the
+// second atom) and never reads past column D; O += P V stays D = 128's
+// m64n128k16 over both atoms, its columns D..127 computed from the zeros
+// and never stored. Every descriptor and wgmma shape is D = 128's.
+//
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's
 // other chunks are zeroed once a buffer (zero_pad) and never written
@@ -59,12 +68,13 @@ constexpr int ROWS = 64;                     // wgmma M; a tile's rows
 constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
 
-// A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64.
+// A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64 and
+// two at D = 80 and 96.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "a tile spans the head dim: 16, 32, 64 or 128");
-  return D < 64 ? ATOM_BYTES : D / 64 * ATOM_BYTES;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
+                "a tile spans the head dim: 16, 32, 64, 80, 96 or 128");
+  return D < 64 ? ATOM_BYTES : (D + 63) / 64 * ATOM_BYTES;
 }
 
 // log2 of a power of two (the chunks a row, as shift counts)
@@ -294,11 +304,13 @@ template <int D = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base, long long ld,
                                           int row0, int S) {
   constexpr int LOG_CH = log2i(D / 8);   // log2 of the chunks a row, D / 8
-  static_assert(tile_bytes<D>() > 0 && (1 << LOG_CH) == D / 8, "D = 16, 32, 64 or 128");
+  constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
+  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96 or 128");
 #pragma unroll
   for (int it = 0; it < ROWS * (D / 8) / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;
-    const int r = i >> LOG_CH, c = i & (D / 8 - 1);   // row, chunk of 8 values along D
+    // row, chunk of 8 values along D
+    const int r = POW2 ? i >> LOG_CH : i / (D / 8), c = POW2 ? i & (D / 8 - 1) : i % (D / 8);
     const bool in = row0 + r < S;
     const __nv_bfloat16* src = in ? base + (row0 + r) * ld + c * 8 : base;
     const uint32_t dst = tile + (c >> 3) * ATOM_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
@@ -308,19 +320,22 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
   }
 }
 
-// Zeroes the chunks D / 8 .. 7 of every row of a one-atom tile at `tile`
-// (D = 32 or 16: what load_tile leaves empty; nothing at D >= 64), with
-// plain stores: the caller publishes them to the tensor cores
-// (fence_smem_to_async, then a barrier) before the first product reads
-// the tile.
+// Zeroes what load_tile leaves empty in every row of a tile at `tile`:
+// the chunks D / 8 .. 7 of a one-atom tile (D = 32 or 16), or the chunks
+// D / 8 - 8 .. 7 of a two-atom tile's second atom (D = 80 or 96); nothing
+// at D = 64 and 128. Plain stores: the caller publishes them to the tensor
+// cores (fence_smem_to_async, then a barrier) before the first product
+// reads the tile.
 template <int D>
 __device__ __forceinline__ void zero_pad(uint32_t tile) {
-  if constexpr (D < 64) {
-    constexpr int PAD = 8 - D / 8;   // empty chunks a row: 4 or 6
+  if constexpr (D % 64 != 0) {
+    constexpr int CH = D / 8 % 8;   // chunks of the last atom in use
+    constexpr int PAD = 8 - CH;     // empty chunks a row: 4 or 6
+    const uint32_t atom = tile + (D / 64) * ATOM_BYTES;
     for (int i = threadIdx.x; i < ROWS * PAD; i += THREADS) {
-      const int r = i / PAD, c = D / 8 + i % PAD;
+      const int r = i / PAD, c = CH + i % PAD;
       asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       tile + r * 128 + ((c ^ (r & 7)) << 4)),
+                       atom + r * 128 + ((c ^ (r & 7)) << 4)),
                    "r"(0u), "r"(0u), "r"(0u), "r"(0u)
                    : "memory");
     }

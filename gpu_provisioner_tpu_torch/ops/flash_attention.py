@@ -14,7 +14,7 @@ takes them, ``tri_dispatch``),
 package does, and the dense result for shapes that do not tile (which
 autograd differentiates, as JAX does).
 
-Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cu``,
+Each wrapper launches its hand-written CUDA kernel (``csrc/flash_fwd.cuh``,
 ``csrc/flash_decode.cuh``, ``csrc/flash_bwd.cu``, ``csrc/flash_tri.cuh``) on
 a CUDA tensor, or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
@@ -64,11 +64,17 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 16, 32, 64 and 128 in every kernel (``_HEAD_DIMS``: at 32 and
-  16 the tensor-core tile is the 64-wide one partly filled); on a CUDA
-  tensor any other head dim raises a ValueError naming it before a kernel
-  is built or launched (no plain fallback), where the JAX kernels take any
-  head dim;
+- head dims 16, 32, 64 and 128 in every kernel (at 32 and 16 the
+  tensor-core tile is the 64-wide one partly filled), and 80 and 96 in the
+  serving kernels alone (``_SERVE_HEAD_DIMS``: ``flash_fwd`` on
+  self-attention and on a bf16 or int8 cache, ``flash_decode``; the
+  128-wide tile partly filled), not in the backward and triangle kernels
+  (``_TRAIN_HEAD_DIMS``); on a CUDA tensor any other head dim raises a
+  ValueError naming it before a kernel is built or launched (no plain
+  fallback), and so, at 80 and 96, do ``triangular=True`` and a
+  self-attention input that requires grad (``_check_forward_only``: a
+  training step must not launch the forward and then fail in the
+  backward), where the JAX kernels take any head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -107,8 +113,10 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims every kernel is built for
-_HEAD_DIMS = (16, 32, 64, 128)
+# the head dims the serving kernels (flash_fwd, flash_decode) are built for,
+# and those of the backward and triangle kernels
+_SERVE_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+_TRAIN_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -390,9 +398,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _HEAD_DIMS:
+    if D not in _SERVE_HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_HEAD_DIMS}")
+                         f"{_SERVE_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -544,9 +552,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cu, flash_tri.cuh) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 16, 32, 64 or 128 (``_HEAD_DIMS``) contiguous,
-    GQA dividing; lse and delta, where given, contiguous float32
-    [B,Hq,S]. Raises naming ``kernel``."""
+    kernels' dtypes, head dim 16, 32, 64 or 128 (``_TRAIN_HEAD_DIMS``)
+    contiguous, GQA dividing; lse and delta, where given, contiguous
+    float32 [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -563,9 +571,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
         raise TypeError("k/v/dout dtypes "
                         + "/".join(str(t.dtype) for t in acts)
                         + f"; expected {q.dtype}")
-    if D not in _HEAD_DIMS:
+    if D not in _TRAIN_HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_HEAD_DIMS}")
+                         f"{_TRAIN_HEAD_DIMS}")
     if tuple(k.shape) != (B, S, Hkv, D) or k.shape != v.shape \
             or (dout is not None and dout.shape != q.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k/v {tuple(k.shape)}/"
@@ -824,7 +832,26 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     if not tiles:   # the dense result, as the JAX package gives
         return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
                                causal=causal, scale=scale, window=window)
+    if _on_card(q):
+        _check_forward_only(q, k, v, triangular)
     return _FlashAttention.apply(q, k, v, causal, scale, window, triangular)
+
+
+def _check_forward_only(q, k, v, triangular: bool) -> None:
+    """At a head dim that the serving kernels take and the backward and
+    triangle kernels do not (80, 96), raises a ValueError naming it, before
+    any kernel is built or launched, for a call that would need those:
+    ``triangular=True``, or an input that requires grad."""
+    D = q.shape[-1]
+    if D in _TRAIN_HEAD_DIMS or D not in _SERVE_HEAD_DIMS:
+        return
+    if triangular:
+        raise ValueError(f"head dim {D}: the triangle kernels take head dims "
+                         f"{_TRAIN_HEAD_DIMS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(f"head dim {D}: the backward kernels take head dims "
+                         f"{_TRAIN_HEAD_DIMS}; at {D} flash attention serves "
+                         "(call it under torch.no_grad())")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,

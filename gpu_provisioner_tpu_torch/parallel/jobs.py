@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import sys
 import time
 from functools import partial
@@ -760,6 +761,16 @@ CASES = {"mesh": mesh_case, "attention": attention_case, "train": train_case,
          "checkpoint_pipeline": partial(checkpoint_case, kind="pipeline"),
          "checkpoint_restore": checkpoint_restore_case,
          "checkpoint_schedule": checkpoint_schedule_case}
+
+
+def peer_fault(delay_s: float, code: int) -> None:
+    """Rank 1 raises at once; every other rank exits with ``code`` after
+    ``delay_s`` seconds and sends no result (the peer's error reaches the
+    launcher before the exit does)."""
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails first")
+    time.sleep(delay_s)
+    os._exit(code)
 
 
 def run_cases(cases: list, device) -> list:

@@ -26,6 +26,7 @@ Ranks must not build the kernels at once: the caller builds them first
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import socket
@@ -109,6 +110,13 @@ def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
     exited: dict = {}            # rank → when it was first seen gone
     settle = None                # after a failure: when to stop collecting
     deadline = time.monotonic() + timeout_s
+
+    def take(rank, ok, payload):
+        if ok:
+            out[rank] = payload
+        else:
+            errors[rank] = f"raised:\n{payload}"
+
     try:
         while len(out) + len(errors) < world_size:
             now = time.monotonic()
@@ -134,14 +142,23 @@ def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
                                      "no result")
                         settle = settle or now + _FLUSH_S
                 continue
-            if ok:
-                out[rank] = payload
-            else:
+            take(rank, ok, payload)
+            if not ok:
                 # the others' errors follow (a peer that lost this rank
                 # fails too): collect them for a moment, then report all
-                errors[rank] = f"raised:\n{payload}"
                 settle = settle or time.monotonic() + _FLUSH_S
         if errors:
+            # the window closed: what the pipe still holds, then every
+            # rank gone by now without a result, though its exit came too
+            # late in the window to pass the flush wait above
+            with contextlib.suppress(queue.Empty):
+                while True:
+                    take(*results.get(timeout=0.05))
+            for r, p in enumerate(procs):
+                if r not in out and r not in errors \
+                        and p.exitcode is not None:
+                    errors[r] = (f"died with exit code {p.exitcode} and no "
+                                 "result")
             raise RankError("\n".join(f"rank {r} {e}"
                                       for r, e in sorted(errors.items())))
     finally:

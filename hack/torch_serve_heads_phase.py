@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""One of chip_smoke.py's serving head-dim phases alone, on one GPU:
+phase 18 (head dims 32 and 16) or phase 20 (head dims 96 and 80).
+
+    python3 hack/torch_serve_heads_phase.py [--phase 18|20] [--json PATH]
+
+Builds the kernels (printing each source's nvcc seconds) and prints
+ptxas's registers and spills and the HGMMA count of the phase's
+tensor-core instances of the forward and of its timed decode instances,
+then runs chip_smoke.py's functions of the phase in its order: #1/#2, #4
+on a bf16 and an int8 cache and #5 on both at each of its head dims
+against their plain versions and timed (``serve_kernels``); flash against
+dense in f32 (phase 18: the tiny preset, the fast bench_engine model and
+tiny-moe, ``phase_small_exact``; phase 20: the Phi-3-mini-width and
+H2O-Danube-width models at 2 layers, ``phase_mid_exact``); the bf16
+serving paths with their launches and the refusals
+(``phase_small_serving``: the fast bench_moe_decode and bench_engine
+twins, tiny and tiny-moe; ``phase_mid_serving``: both models at full
+depth); then the timed calls' device times. Prints each step's seconds;
+with ``--json`` also writes the rows, the launches and the report there.
+Exits non-zero on any failed check, as chip_smoke.py does. Imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", type=int, choices=(18, 20), default=18)
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from gpu_provisioner_tpu_torch import bench
+    from gpu_provisioner_tpu_torch.models import decode as td
+    from gpu_provisioner_tpu_torch.models import engine as te
+    from gpu_provisioner_tpu_torch.models import llama as tl
+    from gpu_provisioner_tpu_torch.models import moe as tm
+    from gpu_provisioner_tpu_torch.models import moe_serve as tms
+    from gpu_provisioner_tpu_torch.ops import _cuda
+    from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    if args.phase == 18:
+        dims = cs.SMALL_HEADS
+        exact = lambda: cs.phase_small_exact(   # noqa: E731
+            torch, tl, tm, td, te, tms, bench, dev)
+        serving = lambda: cs.phase_small_serving(   # noqa: E731
+            torch, tl, tm, td, te, tfa, bench, dev)
+    else:
+        dims = cs.MID_HEADS
+        exact = lambda: cs.phase_mid_exact(   # noqa: E731
+            torch, tl, tm, td, te, dev)
+        serving = lambda: cs.phase_mid_serving(   # noqa: E731
+            torch, tl, td, te, tfa, dev)
+    print(cs.card_line(), flush=True)
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    print(f"build {time.perf_counter() - t0:.1f} s, a source "
+          f"{json.dumps(_cuda.BUILD_SECONDS)}", flush=True)
+    reports = {D: cs.serve_build_report(_cuda, tfa, logs, D) for D in dims}
+    deferred = []
+    t = t0 = time.perf_counter()
+    rows = [r for D in dims
+            for r in cs.serve_kernels(torch, tfa, td, dev, deferred, D)]
+    print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    exact_report = exact()
+    print(f"exact {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    launches, report = serving()
+    print(f"serving {time.perf_counter() - t:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t = time.perf_counter()
+    cs.device_times(torch, tfa, deferred, dev)
+    print(f"device times {time.perf_counter() - t:.1f} s", flush=True)
+    for build_report in reports.values():
+        cs.serve_reports(rows, build_report)
+    for r in rows:
+        name, D = r["name"].rsplit("_d", 1)
+        r["launches"] = launches[int(D)][name]
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(
+            {"build": reports, "rows": rows, "launches": launches,
+             "report": report, "exact": exact_report}, default=str))
+    print(json.dumps({"kernels": rows}))
+    print(f"phase {args.phase} ok")
+
+
+if __name__ == "__main__":
+    main()

@@ -18,9 +18,11 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64 and
-128: the forward, cached and decode kernels at SERVE_HEAD_DIMS, the
-backward and triangle kernels at 128 and in the ``*_at_head_dim_64`` and
-``*_at_head_dims_32_and_16`` tests.
+128, the serving kernels at 80 and 96 too: the forward, cached and decode
+kernels at SERVE_HEAD_DIMS, the backward and triangle kernels at 128 and
+in the ``*_at_head_dim_64`` and ``*_at_head_dims_32_and_16`` tests
+(TRAIN_HEAD_DIMS), refusing 80 and 96 before any launch
+(``test_head_dims_80_and_96_serve_and_refuse_training``).
 """
 
 import ctypes
@@ -47,8 +49,10 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims every kernel takes
-SERVE_HEAD_DIMS = [16, 32, 64, 128]
+# the head dims of the serving kernels (the forward, cached and decode) and
+# of the backward and triangle kernels
+SERVE_HEAD_DIMS = [16, 32, 64, 80, 96, 128]
+TRAIN_HEAD_DIMS = [16, 32, 64, 128]
 
 
 @pytest.fixture
@@ -99,8 +103,9 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
 def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
                                  layout, D):
     """The forward (bf16: the tensor-core instance) against the plain
-    version, at head dims 16, 32 (the D = 64 tile partly filled), 64 and
-    128. q contiguous, a strided view the
+    version, at head dims 16, 32 (the D = 64 tile partly filled), 64, 80,
+    96 (the D = 128 tile partly filled) and 128. q contiguous, a strided
+    view the
     kernels take as it is, or a view whose row stride is no whole number
     of 16-byte chunks: a direct bf16 launch refuses it (ValueError),
     flash_attention_with_lse copies it (_tc_layout) and matches."""
@@ -204,7 +209,8 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     among the CTAs the host plans, partials merged by a second launch)
     against the plain version, at the edge cases of the shares, at head
     dims 16, 32, 64 (the block's 8, 4 or 2 row groups on interleaved
-    rows) and 128; one count on the int8 or the other counter."""
+    rows), 80, 96 (one row group, D of the 128 threads owning a column)
+    and 128; one count on the int8 or the other counter."""
     g = torch.Generator(dev).manual_seed(12)
     q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads,
                                   D=D)
@@ -381,6 +387,36 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 128, 4, 128, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
+    """At head dims 80 and 96 the self-attention forward runs its kernel
+    under no_grad (one flash_fwd launch, within 1e-2 of the plain version
+    in bf16), while a forward whose input requires grad, triangular=True
+    and the backward (rectangular and triangle) raise ValueError naming the
+    head dim before any launch."""
+    g = torch.Generator(dev).manual_seed(17)
+    q, k, v = (_randn(g, 1, 256, h, D, dtype=torch.bfloat16, dev=dev)
+               for h in (4, 2, 2))
+    tfa.reset_launches()
+    with torch.no_grad():
+        out = tfa.flash_attention(q.requires_grad_(), k, v)
+    ref, lse = tfa.attention_plain(q.detach(), k.transpose(1, 2),
+                                   v.transpose(1, 2), 0)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {"flash_fwd": 1}
+    assert _err(out, ref) < TOL[torch.bfloat16]
+    tfa.reset_launches()
+    for fn in (lambda: tfa.flash_attention(q, k, v),
+               lambda: tfa.flash_attention(q, k, v, triangular=True),
+               lambda: tfa.flash_attention_bwd(q.detach(), k, v, ref, lse,
+                                               ref),
+               lambda: tfa.flash_attention_bwd(q.detach(), k, v, ref, lse,
+                                               ref, triangular=True)):
+        with pytest.raises(ValueError, match=f"head dim {D}"):
+            fn()
+    assert not any(tfa.LAUNCHES.values())
 
 
 def test_engine_streams_equal_generate_on_the_card(dev):
@@ -953,7 +989,7 @@ def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
     anything, at head dims 16, 32, 64 and 128; the queries refuse head dim
     48."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for D in SERVE_HEAD_DIMS:
+    for D in TRAIN_HEAD_DIMS:
         q = torch.zeros(1, 128, 2, D, device=dev,
                         dtype=(torch.float32, torch.bfloat16)[act_dtype])
         for entry in _cuda.TRI_WHICH:

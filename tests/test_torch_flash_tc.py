@@ -17,7 +17,8 @@ No CUDA kernel runs here, so the tests hold:
   fold (int8 widened to bf16, scales on the score and P columns) against
   the same JAX functions in int8 mode; each at head dim 64 and 128 (every
   kernel takes both; dQ's replay at 64 is the D = 64 backward's
-  arithmetic);
+  arithmetic), the forward-only replays also at the serving kernels' 16,
+  32, 80 and 96;
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -29,9 +30,12 @@ No CUDA kernel runs here, so the tests hold:
   and an int8 cache), ``flash_decode``, the backward kernels and the
   triangle kernels, through autograd and ``triangular=True`` too, with no
   kernel library built and no plain fallback; D = 32 and 16 reach
-  ``flash_fwd`` and ``flash_decode`` (its narrow entry) and are refused by
-  the backward and triangle kernels; D = 8, 48 and 96 are refused by
-  every kernel, each with a ValueError naming the head dim.
+  ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
+  and triangle kernels; D = 80 and 96 reach ``flash_fwd`` and
+  ``flash_decode`` (their mid entries) and are refused by the backward,
+  the triangle and a forward whose input requires grad; D = 8, 24, 48, 100
+  and 112 are refused by every kernel, each with a ValueError naming the
+  head dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -98,10 +102,11 @@ def _rel(got, want):
 
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128")]
 # the forward-only replays also at the serving kernels' head dims 32 and 16
-# (the D = 64 tile partly filled: the same arithmetic on the first D
-# columns)
+# (the D = 64 tile partly filled) and 80 and 96 (the D = 128 tile partly
+# filled): the same arithmetic on the first D columns
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS]
+                 *HEAD_DIMS, pytest.param(80, id="d80"),
+                 pytest.param(96, id="d96")]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -454,14 +459,16 @@ def test_head_dim_64_triangle_forward_raises_before_any_build(
     assert tri_grid == [("flash_fwd_tri", 64)]
 
 
-@pytest.mark.parametrize("D", [8, 24, 48, 80, 96])
+@pytest.mark.parametrize("D", [8, 24, 48, 100, 112])
 def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
-    """Head dims other than 16, 32, 64 and 128 raise ValueError naming the
-    head dim in every kernel's wrapper (the forward on self-attention, a
-    bf16 and an int8 cache, the decode, the backward and the triangle),
-    each before any library is built; 16 and 32 reach their launches
-    instead (test_head_dims_32_and_16_reach_the_serving_kernels and
-    test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels)."""
+    """Head dims other than 16, 32, 64, 80, 96 and 128 raise ValueError
+    naming the head dim in every kernel's wrapper (the forward on
+    self-attention, a bf16 and an int8 cache, the decode, the backward and
+    the triangle), each before any library is built; 16 and 32 reach their
+    launches instead (test_head_dims_32_and_16_reach_the_serving_kernels
+    and test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels),
+    80 and 96 the serving kernels' (test_head_dims_80_and_96_reach_the_
+    serving_kernels_alone)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -485,7 +492,7 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
         "flash_bwd_dkv_tri": [lambda: tfa._launch_tri(
             "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
             delta=lse)]}
-    assert D not in tfa._HEAD_DIMS
+    assert D not in tfa._SERVE_HEAD_DIMS
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -536,6 +543,74 @@ def test_head_dims_32_and_16_reach_the_serving_kernels(launches, no_build,
         assert qg.grad is not None
     assert tri_grid == [(kernel, D) for kernel in
                         ("flash_bwd_dq_tri", "flash_bwd_dkv_tri")]
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_head_dims_80_and_96_reach_the_serving_kernels_alone(
+        launches, no_build, tri_grid, D):
+    """At head dims 80 (H2O-Danube-1.8B's 32/8 heads) and 96 (Phi-3-mini's
+    32/32): flash_attention_with_lse under no_grad (an input that requires
+    grad too), flash_attention_cached on a bf16 and an int8 cache, and
+    flash_attention_decode on both reach their launches with that D and
+    the C entries of csrc/flash_fwd_mid.cu and csrc/flash_decode_mid.cu,
+    no library built and no plain fallback. The backward (rectangular and
+    triangle), the triangle forward (direct, and triangular=True with or
+    without grad) and a self-attention forward whose input requires grad
+    each raise a ValueError naming the head dim before any build or
+    launch: a training step does not launch the forward and then fail in
+    the backward."""
+    S, Hq, Hkv, ML = 128, 4, 2, 256
+    q, k, v = _bf16(48, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+    kc, vc = _bf16(49, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        tfa.flash_attention_with_lse(q, k, v)
+        tfa.flash_attention(qg, k, v)
+        tfa.flash_attention_cached(q, kc, vc, 64)
+        tfa.flash_attention_cached(q, k8, v8, 64, **i8)
+        tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
+        tfa.flash_attention_decode(q[:, :5], k8, v8, 100, **i8)
+    assert [(kernel, a.D, a.kv_dtype) for kernel, a in launches] == [
+        ("flash_fwd", D, 1), ("flash_fwd", D, 1), ("flash_fwd", D, 1),
+        ("flash_fwd", D, 2), ("flash_decode", D, 1), ("flash_decode", D, 2)]
+    assert [_cuda.entry(kernel, a.D) for kernel, a in launches] == [
+        "flash_fwd_mid"] * 4 + ["flash_decode_mid"] * 2
+    for kernel in ("flash_fwd", "flash_decode"):
+        assert _cuda.ENTRIES[kernel + "_mid"][0] == kernel + "_mid"
+        assert _cuda.entry(kernel, 128) == kernel
+    assert _cuda.entry("flash_bwd_dq", D) == "flash_bwd_dq"
+
+    launches.clear()
+    lse = torch.zeros(1, Hq, S)
+    refused = {
+        "the backward kernels take": [
+            lambda: tfa.flash_attention_with_lse(qg, k, v),
+            lambda: tfa.flash_attention(q, k, v.clone().requires_grad_(),
+                                        causal=False, window=64)],
+        "the triangle kernels take": [
+            lambda: tfa.flash_attention(qg, k, v, triangular=True)],
+        "flash_bwd_dq takes": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q)],
+        "flash_bwd_dkv takes": [lambda: tfa._launch_bwd(
+            "flash_bwd_dkv", q, k, v, q, lse, lse, causal=True, scale=1.0)],
+        "flash_bwd_dq_tri takes": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q, triangular=True)],
+        "flash_fwd_tri takes": [lambda: tfa._launch_tri(
+            "flash_fwd_tri", q, k, v, scale=1.0)],
+        "flash_bwd_dkv_tri takes": [lambda: tfa._launch_tri(
+            "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
+            delta=lse)]}
+    for what, fns in refused.items():
+        for fn in fns:
+            with pytest.raises(ValueError, match=f"head dim {D}: {what}"):
+                fn()
+    with torch.no_grad(), pytest.raises(
+            ValueError, match=f"head dim {D}: the triangle kernels take"):
+        tfa.flash_attention(q, k, v, triangular=True)
+    assert launches == [] and tri_grid == []
+    assert qg.grad is None
 
 
 @pytest.mark.parametrize("D", [16, 32])

@@ -10,7 +10,9 @@ the JAX mesh's of devices, at 4 devices of the 8-device CPU mesh. Then what
 the port adds: initialize_distributed is a no-op at one process and when a
 group is live, its default backend is nccl on a card of the rank's own
 and gloo on the CPU, a spawned rank imports no jax, and a rank that
-raises, dies or hangs fails the launch within its timeout.
+raises, dies or hangs fails the launch within its timeout (a dead rank
+named with its exit code even when a peer's error reached the launcher
+first).
 """
 
 import asyncio
@@ -255,6 +257,20 @@ def test_a_rank_that_dies_fails_the_launch():
     with pytest.raises(launch.RankError, match="died with exit code 3"):
         launch.spawn_ranks(os._exit, 2, backend="gloo", device="cpu",
                            timeout_s=60, args=(3,))
+
+
+def test_a_dead_rank_is_named_when_a_peers_error_comes_first():
+    """Rank 1 raises at once and rank 0 exits with code 3 a moment later:
+    the peer's error opens the launcher's settle window before the exit
+    is first seen, and the RankError names both ranks all the same."""
+    t0 = time.monotonic()
+    with pytest.raises(launch.RankError) as e:
+        launch.spawn_ranks(jobs.peer_fault, 2, backend="gloo", device="cpu",
+                           timeout_s=60, args=(0.3, 3))
+    msg = str(e.value)
+    assert "rank 1 raised" in msg and "rank 1 fails first" in msg
+    assert "rank 0 died with exit code 3" in msg
+    assert time.monotonic() - t0 < 30
 
 
 def test_a_rank_that_hangs_fails_the_launch_at_its_timeout():
