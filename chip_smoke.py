@@ -9,7 +9,7 @@ Phases, each of which exits non-zero on a failed check:
    ptxas's registers and spills of the seven tensor-core (bf16) instances
    at head dim 128 (flash_fwd on bf16 K/V and on an int8 cache,
    flash_bwd_dq, flash_bwd_dkv and the three tri kernels; and at the other
-   head dims for phases 16 to 20) and the HGMMA instructions in their
+   head dims for phases 16 to 21) and the HGMMA instructions in their
    SASS (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
@@ -322,12 +322,42 @@ Phases, each of which exits non-zero on a failed check:
    left-padded one on a bf16 and on an int8 cache and a ServeEngine pass
    of three requests on two slots, each head dim's launches read equal to
    the path's prediction (``d96_serving``, ``d80_serving``), then a
-   forward that requires grad, triangular=True and the backward at both
-   head dims refused, naming it, before any launch.
+   forward that requires grad, triangular=True and the backward at head
+   dim 100 (which no kernel takes) refused, naming it, before any launch;
+21. head dims 96 and 80 in training (the D = 96 and 80 instances of #6/#7
+   and #3/#8/#9, built from flash_bwd_mid.cu and flash_tri_mid.cu): (a) in
+   phase 1, the ptxas registers, spills and HGMMA of their ten tensor-core
+   instances; (b) at Phi-3-mini's 32/32 heads of 96 and H2O-Danube-1.8B's
+   32/8 of 80, #6/#7 (with #1's forward) at mid_bwd_cases (causal, non-
+   causal, a window of 1024 and at 80 Danube's 4096 at S 5120, with and
+   without an lse cotangent, a ragged S) and #3/#8/#9 called directly, bf16
+   (1e-2) and f32 (1e-4; gradients relative to the largest plain one),
+   against their plain versions, and triangular=True through the wrapper
+   at (1, 4096) with RESIDENT_KV_BUDGET lowered for the call; (c) in bf16
+   #1, #6 and #7 timed at the D = 128 training rows' pairs and heads (8,
+   2048, 16/8) and the tri kernels at (1, 32768, 8/4), beside their plain
+   versions, SDPA's torch.autograd.grad, the bound and the D = 128 row's
+   time of the same call (the ``*_d96`` and ``*_d80`` rows of #6-#9,
+   ``d128_ms``; #1's in the flash_fwd rows' at_train_shape); (d) both
+   widths cut to 2 layers, three f32 train steps flash against dense
+   (losses 1e-5 relative; the first step's gradients within 1e-4 of the
+   largest and its params within 1e-4 where its gradients are at least
+   1e-7 and of one sign: train_exact's wide gate, since later steps'
+   params move apart by ~lr where a tiny first gradient flipped its sign);
+   (e) bf16 with remat, f32 masters
+   and AdamW at full width: Danube's 24 layers at (2, 8192), where its
+   window masks (``d80_train``), Phi-3-mini at its 32 layers at (4, 4096)
+   (``d96_train``: its f32 state alone is ~61 GB of the card's 80), a warm-up
+   and five steps each, the loss falling, launches #1 2·L·5 and #6/#7 L·5,
+   peak memory; (f) a triangular=True forward and backward at (1, 32768,
+   8/4) at each head dim, where the natural budget takes flash_fwd_tri,
+   against the rectangular kernels and timed (``d96_long``,
+   ``d80_long``), each path's launches read alone.
 Phases 2, 16, 18 and 20 check and time the serving kernels through one
-function of the head dim (serve_kernels, SERVE_DIMS); then the
-phase-2, 9, 10, 14, 16, 18 and 20 rows' device times, the card line, the
-kernels line and, last, the device line.
+function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19 and 21
+the training kernels (train_kernels; phase_train_kernels at 19 and 21);
+then the phase-2, 9, 10, 14, 16, 18 and 20 rows' device times, the card
+line, the kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -362,17 +392,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# the tensor-core (bf16) instances of the backward and triangle kernels at
-# head dim 128 (the serving kernels' at every head dim: serve_tc_kernels):
-# (source, a substring of the mangled name)
-TC_KERNELS_TRAIN = {
-    "flash_bwd_dq": ("flash_bwd", "flash_bwd_dq_tc_kernelILi128E"),
-    "flash_bwd_dkv": ("flash_bwd", "flash_bwd_dkv_tc_kernelILi128E"),
-    "flash_fwd_tri": ("flash_tri",
-                      "flash_fwd_tri_kernelI13__nv_bfloat16Li128E"),
-    "flash_bwd_dq_tri": ("flash_tri",
-                         "flash_bwd_dq_tri_kernelI13__nv_bfloat16Li128E"),
-    "flash_bwd_dkv_tri": ("flash_tri", "flash_bwd_dkv_tri_tc_kernelILi128E")}
+# the tensor-core (bf16) instances of the backward and triangle kernels (the
+# serving kernels' are serve_tc_kernels'): row, the mangled name's start
+TRAIN_TC = (("flash_bwd_dq", "flash_bwd_dq_tc_kernelI"),
+            ("flash_bwd_dkv", "flash_bwd_dkv_tc_kernelI"),
+            ("flash_fwd_tri", "flash_fwd_tri_kernelI13__nv_bfloat16"),
+            ("flash_bwd_dq_tri", "flash_bwd_dq_tri_kernelI13__nv_bfloat16"),
+            ("flash_bwd_dkv_tri", "flash_bwd_dkv_tri_tc_kernelI"))
+
+
+def train_tc_kernels(_cuda, dims):
+    """The tensor-core instances of the backward and triangle rows at each
+    head dim of ``dims``: {row: (source, a substring of the mangled name)},
+    the source the C entry's (_cuda.entry) and the row suffixed as
+    serve_suffix says."""
+    return {f"{row}{serve_suffix(D)}": (_cuda.ENTRIES[_cuda.entry(row, D)][0],
+                                        f"{part}Li{D}E")
+            for D in dims for row, part in TRAIN_TC}
 
 
 def ptxas_info(log):
@@ -3685,16 +3721,6 @@ D64_TRI_CASES = ((1, 128, 1, 1, False), (1, 1000, 4, 1, False),
                  D64_TRI_PLAIN + (False,))
 D64_TRAIN_ROWS = ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
                   "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
-# the new tensor-core instances: (source, a substring of the mangled name)
-TC_KERNELS_D64_TRAIN = {
-    "flash_bwd_dq_d64": ("flash_bwd", "flash_bwd_dq_tc_kernelILi64E"),
-    "flash_bwd_dkv_d64": ("flash_bwd", "flash_bwd_dkv_tc_kernelILi64E"),
-    "flash_fwd_tri_d64": ("flash_tri",
-                          "flash_fwd_tri_kernelI13__nv_bfloat16Li64E"),
-    "flash_bwd_dq_tri_d64": ("flash_tri",
-                             "flash_bwd_dq_tri_kernelI13__nv_bfloat16Li64E"),
-    "flash_bwd_dkv_tri_d64": ("flash_tri",
-                              "flash_bwd_dkv_tri_tc_kernelILi64E")}
 
 
 def phase_d64_train_kernels(torch, tfa, _cuda, dev):
@@ -3806,6 +3832,9 @@ def train_kernels(torch, tfa, _cuda, dev, D, bwd_cases, tri_cases, seed):
     tpu = "gpu_provisioner_tpu/ops/flash_attention.py:"
     rows = []
 
+    def source_of(kernel):   # the source of kernel's C entry at head dim D
+        return _cuda.ENTRIES[_cuda.entry(kernel, D)][0] + ".cu"
+
     def row(name, source, replaces, shape, ms, plain_ms, library_ms,
             ops_bytes, **extra):
         ops, nbytes = ops_bytes
@@ -3856,7 +3885,7 @@ def train_kernels(torch, tfa, _cuda, dev, D, bwd_cases, tri_cases, seed):
         lib_out, lib_in, dout.transpose(1, 2), retain_graph=True), flush)
     for name, replaces in (("flash_bwd_dq", "916 (_bwd_dq_kernel)"),
                            ("flash_bwd_dkv", "979 (_bwd_dkv_kernel)")):
-        row(name, "flash_bwd.cu", replaces,
+        row(name, source_of(name), replaces,
             f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D}",
             time_ms(lambda name=name: tfa._launch_bwd(
                 name, q, k, v, dout, lse, delta, causal=True, scale=scale),
@@ -3911,8 +3940,7 @@ def train_kernels(torch, tfa, _cuda, dev, D, bwd_cases, tri_cases, seed):
     for name, replaces, _, _ in TRI_KERNELS:
         ws, P = tri_ws_bytes(_cuda, name, dev, D)
         fwd = name == "flash_fwd_tri"
-        row(name, "flash_tri.cu" if D >= 64 else "flash_tri_narrow.cu",
-            replaces[1:], f"B={B} S={S} Hq={Hq} "
+        row(name, source_of(name), replaces[1:], f"B={B} S={S} Hq={Hq} "
             f"Hkv={Hkv} D={D} bf16 causal", time_ms(tri_fns[name], **kw),
             plain_fwd_ms if fwd else plain_bwd_ms,
             lib_fwd_ms if fwd else lib_bwd_ms,
@@ -4279,18 +4307,6 @@ def phase_small_serving(torch, tl, tm, td, te, tfa, bench, dev):
 # and 16 instances of #6/#7 and #3/#8/#9: the D = 64 atom partly filled,
 # the K-major products in D / 16 k-steps, the register-A ones m64n64k16
 # the new tensor-core instances: (source, a substring of the mangled name)
-TC_KERNELS_SMALL_TRAIN = {
-    f"{row}_d{D}": (source, f"{kernel}Li{D}E")
-    for D in SMALL_HEADS
-    for row, source, kernel in (
-        ("flash_bwd_dq", "flash_bwd", "flash_bwd_dq_tc_kernelI"),
-        ("flash_bwd_dkv", "flash_bwd", "flash_bwd_dkv_tc_kernelI"),
-        ("flash_fwd_tri", "flash_tri_narrow",
-         "flash_fwd_tri_kernelI13__nv_bfloat16"),
-        ("flash_bwd_dq_tri", "flash_tri_narrow",
-         "flash_bwd_dq_tri_kernelI13__nv_bfloat16"),
-        ("flash_bwd_dkv_tri", "flash_tri_narrow",
-         "flash_bwd_dkv_tri_tc_kernelI"))}
 SMALL_TRI_S = 8192                 # the triangle through the wrapper
 SMALL_TRAIN_SHAPE = (4, 512)       # B, S of the bf16 training steps
 SMALL_PIPELINE_SHAPE = (4, 128)    # tests/test_parallel_extra.py:176's
@@ -4313,16 +4329,22 @@ def small_bwd_cases(Hq, Hkv):
             (1, 333, Hq, Hkv, True, None, True))
 
 
-def small_tri_cases(Hq, Hkv):
+def small_tri_cases(Hq, Hkv, S=SMALL_TRI_S):
     """(B, S, Hq, Hkv, lse cotangent) of #3/#8/#9 called directly: W < P,
-    rows cut into many pieces at a ragged S, B 2, and SMALL_TRI_S."""
+    rows cut into many pieces at a ragged S, B 2, and S (the wrapper's)."""
     return ((1, 128, Hq, Hkv, False), (1, 1000, Hq, Hkv, True),
-            (2, 200, Hq, Hkv, True), (1, SMALL_TRI_S, Hq, Hkv, False))
+            (2, 200, Hq, Hkv, True), (1, S, Hq, Hkv, False))
 
 
-def tri_through_wrapper(torch, tfa, dev, D, Hq, Hkv, seed):
+# phase 19 (b), (c): phase_train_kernels at 8/4 heads of 32 and 4/2 of 16
+SMALL_TRAIN_SPECS = {
+    D: (Hq, Hkv, small_bwd_cases(Hq, Hkv), small_tri_cases(Hq, Hkv),
+        SMALL_TRI_S, SEED + 90 + D) for D, (Hq, Hkv) in SMALL_HEADS.items()}
+
+
+def tri_through_wrapper(torch, tfa, dev, D, Hq, Hkv, seed, S=SMALL_TRI_S):
     """triangular=True through flash_attention_with_lse and autograd at (1,
-    SMALL_TRI_S, Hq, Hkv), bf16, with tfa.RESIDENT_KV_BUDGET lowered to 0
+    S, Hq, Hkv), bf16, with tfa.RESIDENT_KV_BUDGET lowered to 0
     for the call and restored after (as tests/test_ops.py:74 lowers JAX's):
     the three tri kernels once each and nothing else, out and lse within
     1e-2 and 1e-4 of the plain versions and the gradients within 1e-2 of
@@ -4330,7 +4352,7 @@ def tri_through_wrapper(torch, tfa, dev, D, Hq, Hkv, seed):
     rectangular kernels. Returns {name: (abs, rel) error} of each output
     against plain."""
     g = torch.Generator(dev).manual_seed(seed)
-    bf, S = torch.bfloat16, SMALL_TRI_S
+    bf = torch.bfloat16
     leaves = [torch.randn(1, S, h, D, generator=g, device=dev).to(bf)
               .requires_grad_() for h in (Hq, Hkv, Hkv)]
     dout = torch.randn(1, S, Hq, D, generator=g, device=dev).to(bf)
@@ -4383,22 +4405,22 @@ def tri_through_wrapper(torch, tfa, dev, D, Hq, Hkv, seed):
                                                      vs_plain["dv"])}
 
 
-def phase_small_train_kernels(torch, tfa, _cuda, dev):
-    """Phase 19 (b), (c): at head dims 32 (Hq 8 / Hkv 4) and 16 (4 / 2),
-    #6/#7 (with #1's forward) at small_bwd_cases and #3/#8/#9 at
-    small_tri_cases against their plain versions, bf16 (1e-2) and f32
-    (1e-4), then timed in bf16 at the D = 64 rows' pairs and heads beside
-    their plain versions, SDPA and the bound (train_kernels), and the
-    triangle through the wrapper with the budget lowered
+def phase_train_kernels(torch, tfa, _cuda, dev, specs):
+    """Phases 19 (b), (c) and 21 (b), (c): at each head dim D of ``specs``
+    ({D: (Hq, Hkv, #6/#7 cases, #3/#8/#9 cases, S of the wrapper's
+    triangle, seed)}: SMALL_TRAIN_SPECS, MID_TRAIN_SPECS), #6/#7 (with #1's
+    forward) and #3/#8/#9 against their plain versions, bf16 (1e-2) and
+    f32 (1e-4), then timed in bf16 at the D = 64 rows' pairs and heads
+    beside their plain versions, SDPA and the bound (train_kernels), and
+    the triangle through the wrapper with the budget lowered
     (tri_through_wrapper). Returns ({D: the #1 training-shape dict}, the
-    ``*_d32`` and ``*_d16`` rows of #6-#9, {D: #1's worst bf16 error})."""
+    ``*_d{D}`` rows of #6-#9, {D: #1's worst bf16 error})."""
     fwd_train, rows, fwd_err = {}, [], {}
-    for D, (Hq, Hkv) in SMALL_HEADS.items():
+    for D, (Hq, Hkv, bwd_cases, tri_cases, tri_S, seed) in specs.items():
         fwd_train[D], r, fwd_err[D] = train_kernels(
-            torch, tfa, _cuda, dev, D, small_bwd_cases(Hq, Hkv),
-            small_tri_cases(Hq, Hkv), SEED + 90 + D)
+            torch, tfa, _cuda, dev, D, bwd_cases, tri_cases, seed)
         for name, (e, rel) in tri_through_wrapper(
-                torch, tfa, dev, D, Hq, Hkv, SEED + 91 + D).items():
+                torch, tfa, dev, D, Hq, Hkv, seed + 1, tri_S).items():
             row = next(x for x in r if x["name"] == f"{name}_d{D}")
             row["max_abs_err"] = max(row["max_abs_err"], e)
             row["max_rel_err"] = max(row["max_rel_err"], rel)
@@ -4408,26 +4430,42 @@ def phase_small_train_kernels(torch, tfa, _cuda, dev):
 
 
 def phase_small_train_exact(torch, tl, tm, tt, bench, dev):
-    """Phase 19 (d): in f32 (the kernels' f32 instances), tiny (4/2 heads
-    of 16), the fast bench_engine model (8/4 of 32, 2 layers) and tiny-moe
-    (make_moe_train_step) each take three train steps with attn_impl
-    "flash" and again with "dense", from the same params and batches of
-    (2, 256): every loss within 1e-5 relative, the params after the third
-    step within 1e-4 where each step's dense gradient is 0 or at least
-    1e-7 in size (elsewhere AdamW moves an element by about lr·sign(g),
-    and a gradient that rounds to the other sign moves it by up to 2·lr;
-    those elements are counted, fewer than one in a thousand)."""
-    g = torch.Generator().manual_seed(SEED + 92)
-    report = {}
+    """Phase 19 (d): tiny (4/2 heads of 16), the fast bench_engine model
+    (8/4 of 32, 2 layers) and tiny-moe (make_moe_train_step) flash against
+    dense in f32 (train_exact)."""
     models = (("tiny", tl.PRESETS["tiny"], False),
               ("fast bench_engine", bench.engine_config(True), False),
               ("tiny-moe", tm.PRESETS_MOE["tiny-moe"], True))
+    for name, cfg, _ in models:
+        check(cfg.head_dim in SMALL_HEADS, f"{name}: head dim {cfg.head_dim}")
+    return train_exact(torch, tm, tt, models, dev, SEED + 92)
+
+
+def train_exact(torch, tm, tt, models, dev, seed, wide=False):
+    """In f32 (the kernels' f32 instances), each of ``models`` ((name,
+    config, MoE or not): make_moe_train_step for MoE) takes three train
+    steps with attn_impl "flash" and again with "dense", from the same
+    params and batches of (2, 256): every loss within 1e-5 relative, the
+    params after the third step within 1e-4 where each step's dense
+    gradient is 0 or at least 1e-7 in size (elsewhere AdamW moves an
+    element by about lr·sign(g), and a gradient that rounds to the other
+    sign moves it by up to 2·lr; those elements are counted, fewer than
+    one in a thousand). ``wide`` (phase 21's widths, where elements whose
+    gradients pass 1e-7 still move apart by ~lr once the two runs' params
+    differ after the first step): the first step's gradient leaves within
+    1e-4 of their largest value (phase 6's gate at Llama-1B's width) and
+    its params within 1e-4 where its two gradients are 0 or at least 1e-7
+    and of one sign (Adam's first step is lr·g / (|g| + eps)), those left
+    out counted; the later steps' gradient errors and params reported.
+    Returns {name: report}."""
+    g = torch.Generator().manual_seed(seed)
+    report = {}
     for name, cfg, moe in models:
         cfg = dataclasses.replace(cfg, dtype="float32", remat=False)
-        check(cfg.head_dim in SMALL_HEADS, f"{name}: head dim {cfg.head_dim}")
         batches = [torch.randint(0, cfg.vocab_size, (2, 257), generator=g)
                    .to(dev) for _ in range(3)]
         losses, params, steady = {}, {}, {}
+        flash_steps, grad_errs, first = [], [], {}
         for impl in ("flash", "dense"):
             c = dataclasses.replace(cfg, attn_impl=impl)
             state = (tm.make_moe_train_state if moe else tt.make_train_state)
@@ -4435,11 +4473,33 @@ def phase_small_train_exact(torch, tl, tm, tt, bench, dev):
             step = (tm.make_moe_train_step if moe
                     else tt.make_train_step)(c, opt)
             losses[impl], ok = [], None
-            for b in batches:
+            for i, b in enumerate(batches):
                 losses[impl].append(step(p, b[:, :-1], b[:, 1:]).item())
                 gr = {k: v.grad for k, v in _named(p).items()}
                 now = {k: (x.abs() >= 1e-7) | (x == 0) for k, x in gr.items()}
                 ok = now if ok is None else {k: ok[k] & now[k] for k in ok}
+                if not wide:
+                    continue
+                if impl == "flash":   # its gradients (and first params)
+                    flash_steps.append(
+                        ({k: x.clone() for k, x in gr.items()},
+                         {k: x.detach().clone() for k, x in _named(p).items()}
+                         if i == 0 else None))
+                    continue
+                (fg, fp), flash_steps[i] = flash_steps[i], None
+                grad_errs.append(max((fg[k] - x).abs().max().item()
+                                     / max(x.abs().max().item(), 1e-30)
+                                     for k, x in gr.items()))
+                if i == 0:
+                    keep = {k: now[k] & (torch.sign(fg[k]) == torch.sign(x))
+                            for k, x in gr.items()}
+                    first = {"param_err": max(
+                        (fp[k] - x.detach())[keep[k]].abs().max().item()
+                        if keep[k].any() else 0.0
+                        for k, x in _named(p).items()),
+                        "excluded": sum(int((~m).sum())
+                                        for m in keep.values())}
+                del fg, fp
             params[impl], steady[impl] = _named(p), ok
             del p, opt, step
         rel = max(abs(a - b) / abs(b)
@@ -4460,22 +4520,35 @@ def phase_small_train_exact(torch, tl, tm, tt, bench, dev):
         print(f"head dim {cfg.head_dim} exact training ({name}, f32, 3 "
               f"steps): losses flash {losses['flash']} dense "
               f"{losses['dense']} (worst rel {rel:.3g}, tol 1e-5); params "
-              f"max|flash - dense| {worst:.3g} (tol 1e-4; {worst_all:.3g} "
-              f"over all, {excluded} of {n} elements with a gradient under "
-              f"1e-7 left out)")
+              f"max|flash - dense| {worst:.3g} ({worst_all:.3g} over all, "
+              f"{excluded} of {n} elements with a gradient under 1e-7 left "
+              f"out; tol 1e-4" + (", not held: wide)" if wide else ")"))
         check(rel <= 1e-5, f"{name}: flash losses != dense losses")
+        if wide:
+            report[name].update(grad_errs=grad_errs, first_step=first)
+            print(f"  first step: gradients max|flash - dense| / max|dense| "
+                  f"{grad_errs[0]:.3g} over every leaf (tol 1e-4; steps 2 "
+                  f"and 3: {grad_errs[1]:.3g}, {grad_errs[2]:.3g}); params "
+                  f"max|flash - dense| {first['param_err']:.3g} (tol 1e-4; "
+                  f"{first['excluded']} of {n} elements with a gradient "
+                  f"under 1e-7 or of two signs left out)")
+            check(grad_errs[0] <= 1e-4,
+                  f"{name}: flash gradients != dense gradients")
+            check(first["param_err"] <= 1e-4,
+                  f"{name}: flash params != dense params after one step")
+            continue
         check(worst <= 1e-4, f"{name}: flash params != dense params")
         check(excluded < n // 1000, f"{name}: {excluded} of {n} left out")
     return report
 
 
-def small_long(torch, tfa, dev, D, seed):
-    """triangular=True forward and backward at SMALL_LONG[D], bf16, the
-    natural budget: against the rectangular kernels within LONG_TOL, the
-    tri kernels once each and no rectangular launch (the counts read
-    alone), then the pass timed (CUDA events, median of 5). Returns
-    (launches, report)."""
-    B, S, Hq, Hkv = SMALL_LONG[D]
+def long_pass(torch, tfa, dev, D, shape, seed):
+    """triangular=True forward and backward at ``shape`` (B, S, Hq, Hkv)
+    and head dim D, bf16, the natural budget: against the rectangular
+    kernels within LONG_TOL, the tri kernels once each and no rectangular
+    launch (the counts read alone), then the pass timed (CUDA events,
+    median of 5). Returns (launches, report)."""
+    B, S, Hq, Hkv = shape
     check(tfa.tri_dispatch(S, D, 2, causal=True, triangular=True,
                            window=None) == (True, True),
           f"tri_dispatch at S={S}, head dim {D}")
@@ -4521,13 +4594,18 @@ def small_long(torch, tfa, dev, D, seed):
     return launches, report
 
 
-def small_train_steps(torch, tt, tfa, cfg, what, dev, steps=5):
-    """``cfg`` in bf16 (f32 masters, remat, flash) at SMALL_TRAIN_SHAPE: a
+def train_steps(torch, tt, tfa, cfg, what, dev, shape=SMALL_TRAIN_SHAPE,
+                steps=5):
+    """``cfg`` in bf16 (f32 masters, remat, flash) at ``shape`` (B, S): a
     warm-up step and ``steps`` on one batch, the loss finite and falling,
     the launches read across the steps and checked (#1 twice a layer under
-    remat, #6 and #7 once). Returns (launches, report)."""
+    remat, #6 and #7 once), and the peak memory of the run from the state's
+    making on beside the card's free memory before it. Returns (launches,
+    report)."""
     cfg = dataclasses.replace(cfg, attn_impl="flash", remat=True)
-    (B, S), L = SMALL_TRAIN_SHAPE, cfg.n_layers
+    (B, S), L = shape, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    free = torch.cuda.mem_get_info(dev)[0]
     params, opt = tt.make_train_state(
         cfg, torch.Generator(dev).manual_seed(SEED), dev)
     step = tt.make_train_step(cfg, opt)
@@ -4542,8 +4620,11 @@ def small_train_steps(torch, tt, tfa, cfg, what, dev, steps=5):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = dict(tfa.LAUNCHES)
-    report = {"head_dim": cfg.head_dim, "batch": B, "seq_len": S,
-              "warm_loss": warm, "losses": losses, "step_ms": ms}
+    report = {"head_dim": cfg.head_dim, "layers": L, "batch": B,
+              "seq_len": S, "warm_loss": warm, "losses": losses,
+              "step_ms": ms,
+              "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "free_gb_before": free / 1e9}
     print(f"train {what} (bf16, remat, flash) B={B} S={S}: "
           f"{json.dumps(report)}; launches over {steps} steps {launches}")
     check(all(x == x and abs(x) < float("inf") for x in [warm] + losses),
@@ -4610,14 +4691,14 @@ def phase_small_train(torch, tl, tm, tt, tfa, jobs, launch, bench, dev):
     by_dim, report = {32: {}, 16: {}}, {}
     engine = bench.engine_config(True)
     check(engine.head_dim == 32, f"the fast bench_engine model: {engine}")
-    by_dim[32]["d32_train"], report["d32_train"] = small_train_steps(
+    by_dim[32]["d32_train"], report["d32_train"] = train_steps(
         torch, tt, tfa, engine, "the fast bench_engine model (8/4 heads of "
         "32)", dev)
-    by_dim[32]["d32_long"], report["d32_long"] = small_long(
-        torch, tfa, dev, 32, SEED + 94)
+    by_dim[32]["d32_long"], report["d32_long"] = long_pass(
+        torch, tfa, dev, 32, SMALL_LONG[32], SEED + 94)
     tiny = tl.PRESETS["tiny"]
     check(tiny.head_dim == 16, f"tiny: {tiny}")
-    by_dim[16]["d16_train"], report["d16_train"] = small_train_steps(
+    by_dim[16]["d16_train"], report["d16_train"] = train_steps(
         torch, tt, tfa, tiny, "tiny (4/2 heads of 16)", dev)
     by_dim[16]["moe_train_d16"], report["moe_train_d16"] = phase_moe_train(
         torch, tm, tfa, dev, cfg=tm.PRESETS_MOE["tiny-moe"], steps=3,
@@ -4625,8 +4706,8 @@ def phase_small_train(torch, tl, tm, tt, tfa, jobs, launch, bench, dev):
     torch.cuda.empty_cache()
     by_dim[16]["d16_pipeline"] = small_pipeline(torch, tl, tm, tt, jobs,
                                                 launch, dev)
-    by_dim[16]["d16_long"], report["d16_long"] = small_long(
-        torch, tfa, dev, 16, SEED + 95)
+    by_dim[16]["d16_long"], report["d16_long"] = long_pass(
+        torch, tfa, dev, 16, SMALL_LONG[16], SEED + 95)
     for D, paths in by_dim.items():
         for name in D64_TRAIN_ROWS:
             n = sum(sum(c) if isinstance(c, list) else c
@@ -5060,10 +5141,11 @@ def phase_mid_serving(torch, tl, td, te, tfa, dev):
     admission: serve_launches, engine_steps) and nothing else launched. A
     windowed config prefills through #4 (in the JAX package as here), so
     Danube's fresh generate runs without its window: at these lengths,
-    under 4096, the same attention. Then at both head dims a forward whose
-    input requires grad, triangular=True and the backward (rectangular
-    and triangle) raise ValueError naming the head dim, with no launch.
-    Returns ({96: launches, 80: launches}, report)."""
+    under 4096, the same attention. Then, at head dim 100 (which no kernel
+    takes; 96 and 80 train in phase 21), a forward whose input requires
+    grad, triangular=True and the backward (rectangular and triangle)
+    raise ValueError naming it, with no launch. Returns ({96: launches, 80:
+    launches}, report)."""
     g = torch.Generator().manual_seed(SEED + 93)
     B, S0, new, ml = 2, 512, 16, 1024
     news, slots = (8, 6, 5), 2
@@ -5127,11 +5209,11 @@ def phase_mid_serving(torch, tl, td, te, tfa, dev):
         del params, eng
         torch.cuda.empty_cache()
 
-    # the backward and triangle kernels take neither head dim: a training
-    # call is refused by name before any launch
+    # a head dim that no kernel takes: a training call is refused by name
+    # before any launch
     gq = torch.Generator(dev).manual_seed(SEED + 94)
     tfa.reset_launches()
-    for D, (Hq, Hkv, _) in MID_HEADS.items():
+    for D, (Hq, Hkv) in ((100, (32, 8)),):
         q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         lse = torch.zeros(1, Hq, 256, device=dev)
@@ -5152,11 +5234,83 @@ def phase_mid_serving(torch, tl, td, te, tfa, dev):
             else:
                 check(False, f"{what} ran at head dim {D}")
     check(not any(tfa.LAUNCHES.values()),
-          f"a training launch at head dims 96 and 80: {tfa.LAUNCHES}")
-    report["refusals"] = ("head dims 96 and 80: a forward that requires "
-                          "grad, triangular=True, flash_attention_bwd, "
+          f"a training launch at head dim 100: {tfa.LAUNCHES}")
+    report["refusals"] = ("head dim 100: a forward that requires grad, "
+                          "triangular=True, flash_attention_bwd, "
                           "triangular=True backward")
     return launches, report
+
+
+# phase 21: head dims 96 and 80 in training, at the phase-20 models' heads
+# (MID_HEADS). #6/#7 checked causal and not, with a window of 1024 and at
+# 80 Danube's own 4096 where it masks (S 5120), with and without an lse
+# cotangent, at a ragged S; #3/#8/#9 and the wrapper's triangle at S 4096
+# (the plain versions' S² scores of 32 q-heads in f32 must fit); the bf16
+# training runs at full width, Danube at its 24 layers (B=2, S=8192: its
+# window masks), Phi-3-mini at its 32 (B=4, S=4096: its f32 masters,
+# gradients and AdamW moments alone are ~61 GB of the card's 80, its peak
+# ~76 GB); the long pass at the long-context twin's (1, 32768, 8/4), where the
+# natural budget takes flash_fwd_tri at both head dims
+MID_TRI_S = 4096
+MID_TRAIN_SHAPE = {96: (4, 4096), 80: (2, 8192)}   # B, S
+MID_LONG = (1, 32768, 8, 4)
+
+
+def mid_bwd_cases(Hq, Hkv, window):
+    """(B, S, Hq, Hkv, causal, window, lse cotangent) of #6/#7 at head dims
+    96 and 80: causal and not, with and without an lse cotangent, a window
+    of 1024, a ragged S, and the model's own window where it masks."""
+    return ((2, 1024, Hq, Hkv, True, None, False),
+            (2, 1024, Hq, Hkv, True, None, True),
+            (2, 1024, Hq, Hkv, False, None, True),
+            (1, 4096, Hq, Hkv, True, 1024, True),
+            (1, 333, Hq, Hkv, True, None, True)) + (
+        ((1, window + 1024, Hq, Hkv, True, window, True),) if window else ())
+
+
+MID_TRAIN_SPECS = {
+    D: (Hq, Hkv, mid_bwd_cases(Hq, Hkv, window),
+        small_tri_cases(Hq, Hkv, MID_TRI_S), MID_TRI_S, SEED + 100 + D)
+    for D, (Hq, Hkv, window) in MID_HEADS.items()}
+
+
+def phase_mid_train_exact(torch, tl, tm, tt, dev):
+    """Phase 21 (d): Phi-3-mini's and H2O-Danube-1.8B's widths (mid_models)
+    cut to 2 layers, three f32 train steps flash against dense
+    (train_exact, wide: the first step's gradients and params held)."""
+    models = tuple((f"{name} width, 2 layers",
+                    dataclasses.replace(cfg, n_layers=2), False)
+                   for name, cfg in zip(("Phi-3-mini", "H2O-Danube-1.8B"),
+                                        mid_models(tl).values()))
+    return train_exact(torch, tm, tt, models, dev, SEED + 102, wide=True)
+
+
+def phase_mid_train(torch, tl, tt, tfa, dev):
+    """Phase 21 (e), (f): each head dim's main path, its launches read
+    alone: the Phi-3-mini-width (32 layers) and H2O-Danube-width (24
+    layers) models trained in bf16 (f32 masters, remat, AdamW) at
+    MID_TRAIN_SHAPE
+    (``d96_train``, ``d80_train``: a warm-up and five steps, the loss
+    falling, #1 2·L·5 launches and #6/#7 L·5, peak memory), then a
+    triangular=True pass at MID_LONG (``d96_long``, ``d80_long``). Every
+    one of #6, #7, #3, #8 and #9 launches at each head dim. Returns ({D:
+    {path: launches}}, report)."""
+    by_dim, report = {D: {} for D in MID_HEADS}, {}
+    for D, cfg in mid_models(tl).items():
+        check(cfg.head_dim == D, f"head dim {cfg.head_dim}, expected {D}")
+        name = "Phi-3-mini" if D == 96 else "H2O-Danube-1.8B"
+        by_dim[D][f"d{D}_train"], report[f"d{D}_train"] = train_steps(
+            torch, tt, tfa, cfg, f"{name} width ({cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {D}, {cfg.n_layers} layers)", dev,
+            MID_TRAIN_SHAPE[D])
+        by_dim[D][f"d{D}_long"], report[f"d{D}_long"] = long_pass(
+            torch, tfa, dev, D, MID_LONG, SEED + 103 + D)
+    for D, paths in by_dim.items():
+        for name in D64_TRAIN_ROWS:
+            n = sum(v.get(name, 0) for v in paths.values())
+            check(n > 0, f"{name}: no launch at head dim {D}")
+    print(f"head dims 96 and 80 in training: {json.dumps(report)}")
+    return by_dim, report
 
 
 def main() -> int:
@@ -5202,12 +5356,15 @@ def main() -> int:
         print(f"serving instances at head dim {D}:")
         serve_report[D] = serve_build_report(_cuda, tfa, logs, D)
     print("training instances at head dim 128:")
-    tc_report = tc_build_report(_cuda, logs, TC_KERNELS_TRAIN)
+    tc_report = tc_build_report(_cuda, logs, train_tc_kernels(_cuda, [128]))
     print("head dim 64 in training (phase 17):")
-    d64_tc_report = tc_build_report(_cuda, logs, TC_KERNELS_D64_TRAIN)
+    d64_tc_report = tc_build_report(_cuda, logs, train_tc_kernels(_cuda, [64]))
     print("head dims 32 and 16 in training (phase 19):")
-    small_train_tc_report = tc_build_report(_cuda, logs,
-                                            TC_KERNELS_SMALL_TRAIN)
+    small_train_tc_report = tc_build_report(
+        _cuda, logs, train_tc_kernels(_cuda, SMALL_HEADS))
+    print("head dims 96 and 80 in training (phase 21):")
+    mid_train_tc_report = tc_build_report(
+        _cuda, logs, train_tc_kernels(_cuda, MID_HEADS))
 
     t0 = time.perf_counter()
     deferred = []
@@ -5363,8 +5520,8 @@ def main() -> int:
           f"head dims 32 and 16 phase {time.perf_counter() - t18:.1f} s")
     torch.cuda.empty_cache()
     t19 = t0 = time.perf_counter()
-    small_train_fwd, small_train_rows, small_fwd_err = \
-        phase_small_train_kernels(torch, tfa, _cuda, dev)
+    small_train_fwd, small_train_rows, small_fwd_err = phase_train_kernels(
+        torch, tfa, _cuda, dev, SMALL_TRAIN_SPECS)
     print(f"head dims 32 and 16 training kernels "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5395,6 +5552,23 @@ def main() -> int:
     mid_report["exact"] = mid_exact
     print(f"head dims 96 and 80 serving {time.perf_counter() - t0:.1f} s; "
           f"head dims 96 and 80 phase {time.perf_counter() - t20:.1f} s")
+    torch.cuda.empty_cache()
+    t21 = t0 = time.perf_counter()
+    mid_train_fwd, mid_train_rows, mid_fwd_err = phase_train_kernels(
+        torch, tfa, _cuda, dev, MID_TRAIN_SPECS)
+    print(f"head dims 96 and 80 training kernels "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mid_train_exact = phase_mid_train_exact(torch, tl, tm, tt, dev)
+    print(f"head dims 96 and 80 exact training "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mid_train, mid_train_report = phase_mid_train(torch, tl, tt, tfa, dev)
+    mid_train_report["exact"] = mid_train_exact
+    print(f"head dims 96 and 80 training paths {time.perf_counter() - t0:.1f}"
+          f" s; head dims 96 and 80 training phase "
+          f"{time.perf_counter() - t21:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
@@ -5502,17 +5676,6 @@ def main() -> int:
             r["max_abs_err"] = max(r["max_abs_err"], small_fwd_err[int(D)])
             r["launches_by_path"].update(
                 {k: v.get(name, 0) for k, v in small_train[int(D)].items()})
-    # the head-dim-32 and 16 training and triangle instances: launches on
-    # their own path (training for the backward, the triangular=True pass
-    # for the tri kernels), every phase-19 path's count at that head dim
-    for r in small_train_rows:
-        name, D = r["name"].rsplit("_d", 1)
-        paths = small_train[int(D)]
-        r["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
-        r["launches"] = paths[f"d{D}_long" if name.endswith("_tri")
-                              else f"d{D}_train"][name]
-        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
-        r.update(small_train_tc_report.get(r["name"], {}))
     # the head-dim-96 and 80 instances: launches across phase 20's
     # full-size runs, ptxas of the timed ones
     for D in MID_HEADS:
@@ -5522,14 +5685,38 @@ def main() -> int:
         r["launches"] = mid[int(D)][name]
         r["launches_by_path"] = {f"d{D}_serving": mid[int(D)][name]}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        if name == "flash_fwd":     # and its training paths (phase 21)
+            r["at_train_shape"] = mid_train_fwd[int(D)]
+            r["max_abs_err"] = max(r["max_abs_err"], mid_fwd_err[int(D)])
+            r["launches_by_path"].update(
+                {k: v.get(name, 0) for k, v in mid_train[int(D)].items()})
+    # the head-dim-32, 16, 96 and 80 training and triangle instances:
+    # launches on their own path (training for the backward, the
+    # triangular=True pass for the tri kernels), every phase-19 or 21
+    # path's count at that head dim; at 96 and 80 also the D = 128 row's
+    # time of the same call (phase 5's #6/#7, phase 8's tri rows)
+    by_name = {r["name"]: r for r in rows}
+    train_paths = {**small_train, **mid_train}
+    for r in small_train_rows + mid_train_rows:
+        name, D = r["name"].rsplit("_d", 1)
+        paths = train_paths[int(D)]
+        r["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
+        r["launches"] = paths[f"d{D}_long" if name.endswith("_tri")
+                              else f"d{D}_train"][name]
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        r.update({**small_train_tc_report, **mid_train_tc_report}.get(
+            r["name"], {}))
+        if int(D) in MID_HEADS:
+            r["d128_ms"] = by_name[name]["ms"]
     rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
-        + mid_rows
+        + mid_rows + mid_train_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
     print(f"head dims 32 and 16 in training: "
           f"{json.dumps(small_train_report)}")
     print(f"head dims 96 and 80: {json.dumps(mid_report)}")
+    print(f"head dims 96 and 80 in training: {json.dumps(mid_train_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_decode", "flash_decode_narrow",
-           "flash_decode_mid", "flash_bwd", "flash_tri", "flash_tri_narrow")
+           "flash_decode_mid", "flash_bwd", "flash_bwd_mid", "flash_tri",
+           "flash_tri_narrow", "flash_tri_mid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,12 +89,17 @@ ENTRIES = {
     "flash_decode_mid": ("flash_decode_mid", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
+    "flash_bwd_dq_mid": ("flash_bwd_mid", FlashBwdArgs),
+    "flash_bwd_dkv_mid": ("flash_bwd_mid", FlashBwdArgs),
     "flash_fwd_tri": ("flash_tri", FlashTriArgs),
     "flash_bwd_dq_tri": ("flash_tri", FlashTriArgs),
     "flash_bwd_dkv_tri": ("flash_tri", FlashTriArgs),
     "flash_fwd_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
     "flash_bwd_dq_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
     "flash_bwd_dkv_tri_narrow": ("flash_tri_narrow", FlashTriArgs),
+    "flash_fwd_tri_mid": ("flash_tri_mid", FlashTriArgs),
+    "flash_bwd_dq_tri_mid": ("flash_tri_mid", FlashTriArgs),
+    "flash_bwd_dkv_tri_mid": ("flash_tri_mid", FlashTriArgs),
 }
 # the `which` argument of flash_tri_ctas() and flash_tri_ws_floats() for
 # each flattened-triangle entry
@@ -182,8 +188,10 @@ def library(name: str) -> ctypes.CDLL:
 NARROW = ("flash_decode", "flash_fwd_tri", "flash_bwd_dq_tri",
           "flash_bwd_dkv_tri")
 # the kernels whose head dims 80 and 96 live in a source of their own
-# (csrc/flash_fwd_mid.cu, csrc/flash_decode_mid.cu): C entry <kernel>_mid
-MID = ("flash_fwd", "flash_decode")
+# (csrc/flash_fwd_mid.cu, csrc/flash_decode_mid.cu, csrc/flash_bwd_mid.cu,
+# csrc/flash_tri_mid.cu): C entry <kernel>_mid, every kernel
+MID = ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
+       "flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
 MID_HEAD_DIMS = (80, 96)
 
 
@@ -199,7 +207,10 @@ def entry(kernel: str, head_dim: int) -> str:
 
 def _tri_library(head_dim: int) -> ctypes.CDLL:
     """The library whose flash_tri_ctas / flash_tri_ws_floats answer for
-    ``head_dim``: flash_tri_narrow's at 32 and 16, flash_tri's else."""
+    ``head_dim``: flash_tri_narrow's at 32 and 16, flash_tri_mid's at 80
+    and 96, flash_tri's else."""
+    if head_dim in MID_HEAD_DIMS:
+        return library("flash_tri_mid")
     return library("flash_tri_narrow" if head_dim < 64 else "flash_tri")
 
 
@@ -219,7 +230,8 @@ def tri_ctas(entry: str, act_dtype: int, head_dim: int,
     dtype ``act_dtype`` and head dim ``head_dim`` on the card
     ``device_index`` (the SM count times the blocks of its kernel that fit
     on one SM, from the ``flash_tri_ctas`` of csrc/flash_tri.cu, or of
-    flash_tri_narrow.cu at 32 and 16), cached."""
+    flash_tri_narrow.cu at 32 and 16 and flash_tri_mid.cu at 80 and 96),
+    cached."""
     key = (entry, act_dtype, head_dim, device_index)
     if key not in _TRI_CTAS:
         fn = _tri_library(head_dim).flash_tri_ctas

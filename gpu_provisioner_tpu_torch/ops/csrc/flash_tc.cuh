@@ -2,9 +2,9 @@
 // flash_wgmma.cuh's products: the forward step, the dQ step and the dK/dV
 // step, each one 64 x 64 tile of (query, key) pairs, with the walks that
 // feed them through a two-stage cp.async ring. flash_fwd.cu's flash_fwd and
-// flash_tri.cuh's flash_fwd_tri share the forward step; flash_bwd.cu's
+// flash_tri.cuh's flash_fwd_tri share the forward step; flash_bwd.cuh's
 // flash_bwd_dq and flash_tri.cuh's flash_bwd_dq_tri the dQ step;
-// flash_bwd.cu's flash_bwd_dkv and flash_tri.cuh's flash_bwd_dkv_tri the dK/dV
+// flash_bwd.cuh's flash_bwd_dkv and flash_tri.cuh's flash_bwd_dkv_tri the dK/dV
 // step. What differs between a pair is the schedule and the mask, a functor
 // with a per-element `keep` and a whole-tile `full` test (the step skips
 // the per-element test on a full tile).
@@ -32,7 +32,7 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// Every step is generic in the head dim D = 16, 32, 64 or 128, a template
+// Every step is generic in the head dim D = 16, 32, 64, 80, 96 or 128, a template
 // parameter of its own (the accumulator holds acc_floats<D> floats a
 // thread): at D = 64 a tile is one swizzle atom, S = Q K^T (and dP = dO
 // V^T, S^T, dP^T) takes 4 k-steps, and the register-A products (O += P V,
@@ -45,13 +45,13 @@
 // the register-A products stay m64n64k16 into D = 64's accumulator of 32
 // floats a thread, whose columns D.. are computed from the zeros and never
 // stored (store_bf16's and dkv_store's D); shared memory and CTAs an SM as
-// at D = 64. The forward step alone also takes D = 80 and 96 (the serving
-// head dims of H2O-Danube-1.8B and Phi-3-mini): D = 128's two-atom tile
-// partly filled (flash_wgmma.cuh), S = Q K^T in D / 16 k-steps (5 or 6),
-// O += P V D = 128's m64n128k16 into D = 128's accumulator of 64 floats a
-// thread, its columns D.. computed from the zeroed pad and never stored;
-// shared memory and CTAs an SM as at D = 128 (80 KB; the int8 stages
-// smaller: 70 or 74 KB).
+// at D = 64. At D = 80 and 96 (the head dims of H2O-Danube-1.8B and
+// Phi-3-mini) a tile is D = 128's two atoms, the second partly filled
+// (flash_wgmma.cuh): the K-major products take D / 16 k-steps (5 or 6),
+// the register-A products stay D = 128's m64n128k16 into D = 128's
+// accumulator of 64 floats a thread, its columns D.. computed from the
+// zeroed pad and never stored; shared memory and CTAs an SM as at D = 128
+// (the forward's int8 stages smaller: 70 or 74 KB).
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -106,9 +106,10 @@ __host__ __device__ constexpr size_t dkv_tc_smem() {
   return 6 * wg::tile_bytes<D>() + 2 * STAT_BYTES + wg::ALIGN;
 }
 
-// CTAs an SM the backward's tensor-core instances (flash_bwd.cu's dQ and
-// dK/dV, flash_tri.cuh's dK/dV) are built for, by head dim: two at D = 128;
-// at D = 64 (and below it, with D = 64's accumulators and shared memory),
+// CTAs an SM the backward's tensor-core instances (flash_bwd.cuh's dQ and
+// dK/dV, flash_tri.cuh's dK/dV) are built for, by head dim: two at D = 128
+// and at 80 and 96 (D = 128's accumulators and shared memory: 97 KB for
+// dK/dV, so three would neither fit nor keep their registers); at D = 64 (and below it, with D = 64's accumulators and shared memory),
 // where a step holds half the accumulators and half the shared memory of
 // D = 128's, the counts hack/torch_bwd_d64_ab.py measured fastest on an H100
 // (it builds the sources with other values through these macros). dK/dV
@@ -124,9 +125,9 @@ __host__ __device__ constexpr size_t dkv_tc_smem() {
 #define TC_DKV_BLOCKS_D64 3
 #endif
 template <int D>
-constexpr int DQ_TC_BLOCKS = D == 128 ? 2 : TC_DQ_BLOCKS_D64;
+constexpr int DQ_TC_BLOCKS = D > 64 ? 2 : TC_DQ_BLOCKS_D64;
 template <int D>
-constexpr int DKV_TC_BLOCKS = D == 128 ? 2 : TC_DKV_BLOCKS_D64;
+constexpr int DKV_TC_BLOCKS = D > 64 ? 2 : TC_DKV_BLOCKS_D64;
 
 // The floats a thread of an accumulator of 64 x (D rounded up to a whole
 // swizzle atom of 64 columns) (the forward's O, dQ, dK, dV): D / 2 at 64

@@ -9,7 +9,7 @@
 //   - _bwd_dq_kernel_tri (pallas_call in _flash_bwd_tri): flash_bwd_dq_tri;
 //   - _bwd_dkv_kernel_tri (the reversed triangle, _tri_decode_rev):
 //     flash_bwd_dkv_tri.
-// They compute what flash_fwd.cu and flash_bwd.cu compute, with the same
+// They compute what flash_fwd.cu and flash_bwd.cuh compute, with the same
 // tile steps (below); what differs is the schedule.
 //
 // What bounds them on an H100: compute, as for the rectangular kernels (4, 6
@@ -51,18 +51,21 @@
 // template type: one warpgroup of 128 threads owns the segment's 64-row
 // tile and runs the tile steps of flash_tc.cuh, which the rectangular
 // kernels share (tc::fwd_tile_tc and tc::dq_tile_tc with flash_fwd.cu and
-// flash_bwd.cu's dQ through tc::kv_walk's K/V ring; tc::dkv_walk_tc with
-// flash_bwd.cu's dK/dV), with the triangle's mask (tc::TriMask). The
+// flash_bwd.cuh's dQ through tc::kv_walk's K/V ring; tc::dkv_walk_tc with
+// flash_bwd.cuh's dK/dV), with the triangle's mask (tc::TriMask). The
 // forward's P goes to the tensor cores as bf16 hi + lo, dQ's dS and dK/dV's
 // P^T and dS^T each rounded to bf16 once (flash_tc.cuh says why). Shared
 // memory at D = 128: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an
 // SM; at D = 64 41, 49 and 50 KB, the CTAs an SM the occupancy query's
-// (flash_tri_ctas). Every instance takes head dim 16, 32, 64 or 128: at 32
-// and 16 a bf16 tile is the D = 64 atom partly filled, its other chunks
-// zeroed once a CTA before its first segment (the persistent walk only
-// rewrites the first D / 8 chunks of a row), with D = 64's shared memory
-// and accumulators; the workspace and the cut rows' partials hold D
-// columns. Bound:
+// (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96 or
+// 128: at 32 and 16 a bf16 tile is the D = 64 atom partly filled, with D =
+// 64's shared memory and accumulators; at 96 and 80 (Phi-3-mini's and
+// H2O-Danube-1.8B's heads) D = 128's two atoms, the second partly filled,
+// with D = 128's shared memory, accumulators and register-A products
+// (flash_bwd.cuh says why); at both the chunks past D are zeroed once a
+// CTA before its first segment (the persistent walk only rewrites the
+// first D / 8 chunks of a row). The workspace and the cut rows' partials
+// hold D columns. Bound:
 // operations, 4, 6 and 8 D per attended pair and q-head at 989 TFLOP/s
 // bf16 (2.22, 3.34 and 4.45 ms at S = 32768, Hq 8). Left for later: warp
 // specialisation (a producer warp issuing TMA, with setmaxnreg giving the
@@ -71,8 +74,8 @@
 //
 // This header holds the kernels, their launches and the C entries' bodies
 // for every head dim (HeadDims); flash_tri.cu's entries take 128 and 64,
-// flash_tri_narrow.cu's 32 and 16, so that two nvcc processes build them
-// side by side (one source for all four took 23.8 s to build for sm_90a,
+// flash_tri_narrow.cu's 32 and 16, flash_tri_mid.cu's 96 and 80, so that
+// three nvcc processes build them side by side (one source for all four took 23.8 s to build for sm_90a,
 // flash_fwd.cu 17.0 s in the same build).
 #pragma once
 
@@ -250,10 +253,11 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
   const tc::TriMask mask{a.S};
   float* ws_lse = a.ws + 2LL * a.ctas * E * D;
-  // below D = 64 the chunks past D of Q and both K/V stages, once, published
-  // with the first segment's copies (if constexpr: at D = 64 and 128 even
-  // the empty loop moved the compiled kernel's registers)
-  if constexpr (D < 64)
+  // below D = 64, and at 80 and 96, the chunks past D of Q and both K/V
+  // stages, once, published with the first segment's copies (if
+  // constexpr: at D = 64 and 128 even the empty loop moved the compiled
+  // kernel's registers)
+  if constexpr (D % 64 != 0)
     for (int i = 0; i < 5; ++i) wg::zero_pad<D>(sQ + i * wg::tile_bytes<D>());
   constexpr int ACC = tc::acc_floats<D>;
 
@@ -299,7 +303,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
 }
 
 // dQ's segments on the tensor cores: tc::dq_tile_tc (shared with
-// flash_bwd.cu) over the segment's key tiles, the row stored from the
+// flash_bwd.cuh) over the segment's key tiles, the row stored from the
 // fragments, or its f32 partial into the slot.
 template <int D>
 __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
@@ -313,9 +317,9 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   const float sl2 = a.scale * tc::kLog2e;
   const tc::TriMask mask{a.S};
   const float one[2] = {1.f, 1.f};
-  // below D = 64 the chunks past D of Q, dO and both K/V stages, once,
-  // published with the first segment's copies
-  if constexpr (D < 64)
+  // below D = 64, and at 80 and 96, the chunks past D of Q, dO and both
+  // K/V stages, once, published with the first segment's copies
+  if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
   constexpr int ACC = tc::acc_floats<D>;
 
@@ -644,9 +648,9 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
   const uint32_t sK = tc::tiles();
-  // below D = 64 the chunks past D of K, V and both Q/dO stages, once,
-  // published with the first segment's copies
-  if constexpr (D < 64)
+  // below D = 64, and at 80 and 96, the chunks past D of K, V and both
+  // Q/dO stages, once, published with the first segment's copies
+  if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sK + i * wg::tile_bytes<D>());
   constexpr int ACC = tc::acc_floats<D>;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
@@ -786,7 +790,8 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
 }
 
 // The two head dims one source builds an instance of every kernel at:
-// flash_tri.cu 128 and 64, flash_tri_narrow.cu 32 and 16.
+// flash_tri.cu 128 and 64, flash_tri_narrow.cu 32 and 16, flash_tri_mid.cu
+// 96 and 80.
 template <int D0, int D1>
 struct HeadDims {
   static constexpr bool has(int D) { return D == D0 || D == D1; }

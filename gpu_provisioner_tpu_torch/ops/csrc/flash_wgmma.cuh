@@ -17,14 +17,16 @@
 // of layout type B128. Every kernel takes both (TILE_BYTES and the defaults
 // below are D = 128's, for the standalone checks under hack/).
 //
-// D = 80 or 96 (the forward's tensor-core instances): D = 128's tile, two
+// D = 80 or 96 (every kernel but the decode's): D = 128's tile, two
 // atoms, the second partly filled. A row's D / 8 chunks (10 or 12) go to
 // their swizzled places, 8 in the first atom and 2 or 4 in the second; the
-// second atom's other chunks are zeroed once a buffer (zero_pad). S = Q K^T
-// takes D / 16 k-steps (5 or 6; desc_kmajor's k-steps 4 and 5 lie in the
-// second atom) and never reads past column D; O += P V stays D = 128's
-// m64n128k16 over both atoms, its columns D..127 computed from the zeros
-// and never stored. Every descriptor and wgmma shape is D = 128's.
+// second atom's other chunks are zeroed once a buffer (zero_pad). The
+// K-major products (S = Q K^T, dP = dO V^T, S^T, dP^T) take D / 16 k-steps
+// (5 or 6; desc_kmajor's k-steps 4 and 5 lie in the second atom) and never
+// read past column D; the register-A products (O += P V, dQ += dS K, dV +=
+// P^T dO, dK += dS^T Q) stay D = 128's m64n128k16 over both atoms, their
+// columns D..127 computed from the zeros and never stored. Every
+// descriptor and wgmma shape is D = 128's.
 //
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's

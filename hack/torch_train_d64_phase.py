@@ -51,7 +51,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _cuda.build()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    tc = cs.tc_build_report(_cuda, logs, cs.TC_KERNELS_D64_TRAIN)
+    tc = cs.tc_build_report(_cuda, logs, cs.train_tc_kernels(_cuda, [64]))
     t = t0 = time.perf_counter()
     fwd, rows, _ = cs.phase_d64_train_kernels(torch, tfa, _cuda, dev)
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)

@@ -10,7 +10,7 @@ tensor-core instances of the backward and triangle kernels, then runs
 chip_smoke.py's phase-19 functions in its order: #6/#7 (with #1's forward)
 and #3/#8/#9 at head dims 32 and 16 against their plain versions, the
 triangle through the wrapper with the budget lowered, and the bf16 calls
-timed (``phase_small_train_kernels``), tiny, the fast bench_engine model
+timed (``phase_train_kernels``), tiny, the fast bench_engine model
 and tiny-moe flash against dense over three f32 train steps
 (``phase_small_train_exact``), then the bf16 training paths, the
 pp2_tp2_flash pipeline on tiny and the triangular=True passes with their
@@ -55,9 +55,11 @@ def main() -> None:
     logs = _cuda.build()
     print(f"build {time.perf_counter() - t0:.1f} s, a source "
           f"{json.dumps(_cuda.BUILD_SECONDS)}", flush=True)
-    tc = cs.tc_build_report(_cuda, logs, cs.TC_KERNELS_SMALL_TRAIN)
+    tc = cs.tc_build_report(_cuda, logs,
+                            cs.train_tc_kernels(_cuda, cs.SMALL_HEADS))
     t = t0 = time.perf_counter()
-    fwd, rows, _ = cs.phase_small_train_kernels(torch, tfa, _cuda, dev)
+    fwd, rows, _ = cs.phase_train_kernels(torch, tfa, _cuda, dev,
+                                          cs.SMALL_TRAIN_SPECS)
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     exact = cs.phase_small_train_exact(torch, tl, tm, tt, bench, dev)

@@ -17,12 +17,13 @@ forward, P and dS each rounded to bf16 once in the backward: within 5e-3 of
 the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
-a direct launch refuses. Every kernel runs at head dims 16, 32, 64 and
-128, the serving kernels at 80 and 96 too: the forward, cached and decode
-kernels at SERVE_HEAD_DIMS, the backward and triangle kernels at 128 and
-in the ``*_at_head_dim_64`` and ``*_at_head_dims_32_and_16`` tests
-(TRAIN_HEAD_DIMS), refusing 80 and 96 before any launch
-(``test_head_dims_80_and_96_serve_and_refuse_training``).
+a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
+96 and 128 (HEAD_DIMS): the forward, cached and decode kernels at each,
+the backward and triangle kernels at 128 and in the ``*_at_head_dim_64``,
+``*_at_head_dims_32_and_16`` and ``*_at_head_dims_96_and_80`` tests, and
+autograd through them at 80 and 96
+(``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses
+head dim 100 before any launch).
 """
 
 import ctypes
@@ -49,10 +50,8 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of the serving kernels (the forward, cached and decode) and
-# of the backward and triangle kernels
-SERVE_HEAD_DIMS = [16, 32, 64, 80, 96, 128]
-TRAIN_HEAD_DIMS = [16, 32, 64, 128]
+# the head dims of every kernel
+HEAD_DIMS = [16, 32, 64, 80, 96, 128]
 
 
 @pytest.fixture
@@ -96,7 +95,7 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
@@ -155,7 +154,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -199,7 +198,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -225,7 +224,7 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
 def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
@@ -279,7 +278,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -393,28 +392,47 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
 def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
     """At head dims 80 and 96 the self-attention forward runs its kernel
     under no_grad (one flash_fwd launch, within 1e-2 of the plain version
-    in bf16), while a forward whose input requires grad, triangular=True
-    and the backward (rectangular and triangle) raise ValueError naming the
-    head dim before any launch."""
+    in bf16), and so does a training call: autograd through
+    flash_attention, rectangular and with triangular=True, launches the
+    forward and both backward kernels (their triangle twins), within 1e-2
+    of the plain gradients; at head dim 100 (which no kernel takes) a
+    forward that requires grad, triangular=True and the backward
+    (rectangular and triangle) raise ValueError naming it before any
+    launch."""
     g = torch.Generator(dev).manual_seed(17)
     q, k, v = (_randn(g, 1, 256, h, D, dtype=torch.bfloat16, dev=dev)
                for h in (4, 2, 2))
+    dout = _randn(g, 1, 256, 4, D, dtype=torch.bfloat16, dev=dev)
     tfa.reset_launches()
     with torch.no_grad():
-        out = tfa.flash_attention(q.requires_grad_(), k, v)
-    ref, lse = tfa.attention_plain(q.detach(), k.transpose(1, 2),
-                                   v.transpose(1, 2), 0)
+        out = tfa.flash_attention(q.clone().requires_grad_(), k, v)
+    ref, lse = tfa.attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   0)
     torch.cuda.synchronize()
     assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {"flash_fwd": 1}
     assert _err(out, ref) < TOL[torch.bfloat16]
+    want = tfa.attention_bwd_plain(q, k, v, ref, lse, dout)
+    for triangular, bwd in ((False, ("flash_bwd_dq", "flash_bwd_dkv")),
+                            (True, ("flash_bwd_dq_tri", "flash_bwd_dkv_tri"))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        tfa.reset_launches()
+        got = torch.autograd.grad(
+            tfa.flash_attention(*leaves, triangular=triangular), leaves, dout)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            "flash_fwd": 1, **dict.fromkeys(bwd, 1)}
+        for a, b in zip(got, want):
+            assert _rel(a, b) < TOL[torch.bfloat16]
+    q, k, v = (_randn(g, 1, 256, h, 100, dtype=torch.bfloat16, dev=dev)
+               for h in (4, 2, 2))
+    lse = torch.zeros(1, 4, 256, device=dev)
     tfa.reset_launches()
-    for fn in (lambda: tfa.flash_attention(q, k, v),
+    for fn in (lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
                lambda: tfa.flash_attention(q, k, v, triangular=True),
-               lambda: tfa.flash_attention_bwd(q.detach(), k, v, ref, lse,
-                                               ref),
-               lambda: tfa.flash_attention_bwd(q.detach(), k, v, ref, lse,
-                                               ref, triangular=True)):
-        with pytest.raises(ValueError, match=f"head dim {D}"):
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
+                                               triangular=True)):
+        with pytest.raises(ValueError, match="head dim 100"):
             fn()
     assert not any(tfa.LAUNCHES.values())
 
@@ -654,6 +672,25 @@ def test_flash_bwd_matches_plain_at_head_dims_32_and_16(
     attention_bwd_plain, with an lse cotangent, from the plain forward's
     out and lse."""
     _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, D, 11)
+
+
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dims 96 and 80:
+# Phi-3-mini's 32/32 heads and H2O-Danube-1.8B's 32/8 causal, non-causal
+# and with a window of 100, and ragged S at GQA 4/1
+BWD_MID_CASES = [(1, 512, 32, 32, True, None), (1, 512, 32, 8, False, None),
+                 (2, 256, 32, 8, True, 100), (1, 333, 4, 1, True, None)]
+
+
+@pytest.mark.parametrize("D", [96, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_MID_CASES)
+def test_flash_bwd_matches_plain_at_head_dims_96_and_80(
+        dev, dtype, B, S, Hq, Hkv, causal, window, D):
+    """flash_bwd_dq and flash_bwd_dkv at head dims 96 and 80 (bf16: D =
+    128's two atoms, the second partly filled and its pad zeroed once)
+    against attention_bwd_plain, with an lse cotangent, from the plain
+    forward's out and lse."""
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, D, 12)
 
 
 @pytest.mark.parametrize("triangular", [False, True])
@@ -908,6 +945,17 @@ def test_tri_kernels_match_plain_at_head_dims_32_and_16(dev, dtype, B, S, Hq,
     _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, D, 17)
 
 
+@pytest.mark.parametrize("D", [96, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dims_96_and_80(dev, dtype, B, S, Hq,
+                                                        Hkv, cot, D):
+    """The three tri kernels at head dims 96 and 80 (bf16: D = 128's two
+    atoms, the second partly filled and zeroed once a CTA; the cut rows'
+    partials D columns) at TRI_CASES."""
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, D, 18)
+
+
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):
     """S=16384 bf16 (past the resident budget): the tri forward and both
     tri backward kernels, once each, no rectangular launch; S=4096: the
@@ -986,10 +1034,9 @@ def test_tri_entries_refuse_a_short_workspace(dev, act_dtype):
     and the head dim: an entry given fewer than ctas ×
     flash_tri_ws_floats() f32 values (the f32-sized workspace too, where
     that is shorter) returns cudaErrorInvalidValue (1) before it launches
-    anything, at head dims 16, 32, 64 and 128; the queries refuse head dim
-    48."""
+    anything, at every head dim; the queries refuse head dim 48."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for D in TRAIN_HEAD_DIMS:
+    for D in HEAD_DIMS:
         q = torch.zeros(1, 128, 2, D, device=dev,
                         dtype=(torch.float32, torch.bfloat16)[act_dtype])
         for entry in _cuda.TRI_WHICH:

@@ -15,10 +15,10 @@ No CUDA kernel runs here, so the tests hold:
   too); out within 5e-3 absolute and lse within 5e-5 (half the card's
   1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
   fold (int8 widened to bf16, scales on the score and P columns) against
-  the same JAX functions in int8 mode; each at head dim 64 and 128 (every
-  kernel takes both; dQ's replay at 64 is the D = 64 backward's
-  arithmetic), the forward-only replays also at the serving kernels' 16,
-  32, 80 and 96;
+  the same JAX functions in int8 mode; each at head dims 64, 128, 80 and
+  96 (every kernel takes them; dQ's replay at 64, 80 and 96 is those
+  backward instances' arithmetic), the forward-only replays also at 16
+  and 32;
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -31,11 +31,10 @@ No CUDA kernel runs here, so the tests hold:
   triangle kernels, through autograd and ``triangular=True`` too, with no
   kernel library built and no plain fallback; D = 32 and 16 reach
   ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
-  and triangle kernels; D = 80 and 96 reach ``flash_fwd`` and
-  ``flash_decode`` (their mid entries) and are refused by the backward,
-  the triangle and a forward whose input requires grad; D = 8, 24, 48, 100
-  and 112 are refused by every kernel, each with a ValueError naming the
-  head dim.
+  and triangle kernels; D = 80 and 96 reach every kernel (their mid
+  entries), through autograd and ``triangular=True`` too; D = 8, 24, 48,
+  100 and 112 are refused by every kernel, each with a ValueError naming
+  the head dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -100,13 +99,14 @@ def _rel(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
-HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128")]
-# the forward-only replays also at the serving kernels' head dims 32 and 16
-# (the D = 64 tile partly filled) and 80 and 96 (the D = 128 tile partly
-# filled): the same arithmetic on the first D columns
+# the forward and dQ replays at head dims 64 and 128, and 80 and 96 (the D
+# = 128 tile partly filled: the same arithmetic on the first D columns)
+HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
+             pytest.param(80, id="d80"), pytest.param(96, id="d96")]
+# the forward-only replays also at 32 and 16 (the D = 64 tile partly
+# filled)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS, pytest.param(80, id="d80"),
-                 pytest.param(96, id="d96")]
+                 *HEAD_DIMS]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -467,8 +467,8 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
     the triangle), each before any library is built; 16 and 32 reach their
     launches instead (test_head_dims_32_and_16_reach_the_serving_kernels
     and test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels),
-    80 and 96 the serving kernels' (test_head_dims_80_and_96_reach_the_
-    serving_kernels_alone)."""
+    and so do 80 and 96 (test_head_dims_80_and_96_reach_the_serving_
+    kernels_alone, every kernel's)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -492,7 +492,7 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
         "flash_bwd_dkv_tri": [lambda: tfa._launch_tri(
             "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
             delta=lse)]}
-    assert D not in tfa._SERVE_HEAD_DIMS
+    assert D not in tfa._HEAD_DIMS
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -549,25 +549,25 @@ def test_head_dims_32_and_16_reach_the_serving_kernels(launches, no_build,
 def test_head_dims_80_and_96_reach_the_serving_kernels_alone(
         launches, no_build, tri_grid, D):
     """At head dims 80 (H2O-Danube-1.8B's 32/8 heads) and 96 (Phi-3-mini's
-    32/32): flash_attention_with_lse under no_grad (an input that requires
-    grad too), flash_attention_cached on a bf16 and an int8 cache, and
-    flash_attention_decode on both reach their launches with that D and
-    the C entries of csrc/flash_fwd_mid.cu and csrc/flash_decode_mid.cu,
-    no library built and no plain fallback. The backward (rectangular and
-    triangle), the triangle forward (direct, and triangular=True with or
-    without grad) and a self-attention forward whose input requires grad
-    each raise a ValueError naming the head dim before any build or
-    launch: a training step does not launch the forward and then fail in
-    the backward."""
+    32/32), every kernel (the name is from when only the serving kernels
+    took them): flash_attention_with_lse, flash_attention_cached on a bf16
+    and an int8 cache, and flash_attention_decode on both reach their
+    launches with that D and the C entries of csrc/flash_fwd_mid.cu and
+    csrc/flash_decode_mid.cu; a self-attention whose input requires grad
+    then reaches the dQ and dK/dV launches through autograd (their triangle
+    twins with triangular=True, which ask the tri grid for that head dim),
+    each at the C entry <kernel>_mid of csrc/flash_bwd_mid.cu or
+    csrc/flash_tri_mid.cu; and _launch_tri reaches all three triangle
+    entries with the grid and workspace asked for that head dim; no
+    library built and no plain fallback."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(48, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(49, (1, Hkv, ML, D), (1, Hkv, ML, D))
     (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
     i8 = dict(k_scale=ks, v_scale=vs)
-    qg = q.clone().requires_grad_()
     with torch.no_grad():
         tfa.flash_attention_with_lse(q, k, v)
-        tfa.flash_attention(qg, k, v)
+        tfa.flash_attention(q.clone().requires_grad_(), k, v)
         tfa.flash_attention_cached(q, kc, vc, 64)
         tfa.flash_attention_cached(q, k8, v8, 64, **i8)
         tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
@@ -580,37 +580,42 @@ def test_head_dims_80_and_96_reach_the_serving_kernels_alone(
     for kernel in ("flash_fwd", "flash_decode"):
         assert _cuda.ENTRIES[kernel + "_mid"][0] == kernel + "_mid"
         assert _cuda.entry(kernel, 128) == kernel
-    assert _cuda.entry("flash_bwd_dq", D) == "flash_bwd_dq"
+
+    for triangular in (False, True):
+        launches.clear()
+        qg = q.clone().requires_grad_()
+        out = tfa.flash_attention(qg, k, v, triangular=triangular)
+        out.float().sum().backward()
+        bwd = (["flash_bwd_dq_tri", "flash_bwd_dkv_tri"] if triangular
+               else ["flash_bwd_dq", "flash_bwd_dkv"])
+        assert [(kernel, a.D, a.act_dtype) for kernel, a in launches] == [
+            ("flash_fwd", D, 1)] + [(kernel, D, 1) for kernel in bwd]
+        assert [_cuda.entry(kernel, D) for kernel, _ in launches] == [
+            kernel + "_mid" for kernel, _ in launches]
+        assert qg.grad is not None
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _cuda.ENTRIES[kernel + "_mid"][0] == "flash_bwd_mid"
+        assert _cuda.entry(kernel, 128) == kernel
+    assert tri_grid == [(kernel, D) for kernel in
+                        ("flash_bwd_dq_tri", "flash_bwd_dkv_tri")]
 
     launches.clear()
+    tri_grid.clear()
     lse = torch.zeros(1, Hq, S)
-    refused = {
-        "the backward kernels take": [
-            lambda: tfa.flash_attention_with_lse(qg, k, v),
-            lambda: tfa.flash_attention(q, k, v.clone().requires_grad_(),
-                                        causal=False, window=64)],
-        "the triangle kernels take": [
-            lambda: tfa.flash_attention(qg, k, v, triangular=True)],
-        "flash_bwd_dq takes": [lambda: tfa.flash_attention_bwd(
-            q, k, v, q, lse, q)],
-        "flash_bwd_dkv takes": [lambda: tfa._launch_bwd(
-            "flash_bwd_dkv", q, k, v, q, lse, lse, causal=True, scale=1.0)],
-        "flash_bwd_dq_tri takes": [lambda: tfa.flash_attention_bwd(
-            q, k, v, q, lse, q, triangular=True)],
-        "flash_fwd_tri takes": [lambda: tfa._launch_tri(
-            "flash_fwd_tri", q, k, v, scale=1.0)],
-        "flash_bwd_dkv_tri takes": [lambda: tfa._launch_tri(
-            "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
-            delta=lse)]}
-    for what, fns in refused.items():
-        for fn in fns:
-            with pytest.raises(ValueError, match=f"head dim {D}: {what}"):
-                fn()
-    with torch.no_grad(), pytest.raises(
-            ValueError, match=f"head dim {D}: the triangle kernels take"):
-        tfa.flash_attention(q, k, v, triangular=True)
-    assert launches == [] and tri_grid == []
-    assert qg.grad is None
+    with torch.no_grad():
+        tfa._launch_tri("flash_fwd_tri", q, k, v, scale=D ** -0.5)
+        kw = dict(scale=D ** -0.5, dout=q, lse=lse, delta=lse)
+        tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+        tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    entries = ["flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"]
+    assert [kernel for kernel, _ in launches] == entries
+    assert tri_grid == [(kernel, D) for kernel in entries]
+    for kernel, a in launches:
+        assert (a.D, a.act_dtype, a.ctas) == (D, 1, 264)
+        assert a.ws_floats == 264 * 4 * 64 * D
+        assert _cuda.entry(kernel, D) == kernel + "_mid"
+        assert _cuda.ENTRIES[kernel + "_mid"][0] == "flash_tri_mid"
+        assert _cuda.entry(kernel, 128) == kernel
 
 
 @pytest.mark.parametrize("D", [16, 32])
@@ -623,7 +628,7 @@ def test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels(
     delta = rowsum(dO o O) - g_lse, and _launch_tri reaches all three
     triangle entries, each with that D in its argument struct, the bf16
     act dtype, the grid and workspace asked for that head dim, and its own
-    C entry: flash_bwd.cu builds every head dim, the triangle's 32 and 16
+    C entry: flash_bwd.cu builds 16 to 128, the triangle's 32 and 16
     are flash_tri_narrow.cu's <entry>_narrow; no library built and no
     plain fallback."""
     B, S, Hq, Hkv = 1, 128, 4, 2

@@ -456,7 +456,11 @@ def _hack_module(name):
     pytest.param(2, 1, None, 64, id="2-1-d64"),
     pytest.param(4, 2, None, 64, id="4-2-d64"),
     pytest.param(2, 1, 160, 64, id="2-1-window-d64"),
-    pytest.param(4, 2, 160, 64, id="4-2-window-d64")])
+    pytest.param(4, 2, 160, 64, id="4-2-window-d64"),
+    pytest.param(4, 1, None, 80, id="4-1-d80"),
+    pytest.param(4, 1, 160, 80, id="4-1-window-d80"),
+    pytest.param(4, 4, None, 96, id="4-4-d96"),
+    pytest.param(4, 4, 160, 96, id="4-4-window-d96")])
 def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
         monkeypatch, Hq, Hkv, window, D):
     """ROADMAP Queue C 12: the bf16 tensor-core kernels round P (as bf16
@@ -471,7 +475,9 @@ def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
     rounding alone never spends the card's tolerance; with a window the
     rectangular flash_bwd_dkv's dK and dV, from the plain forward's out and
     lse, against the JAX rectangular kernels' VJP, within 5e-3; at head
-    dim 128 and 64 (the D = 64 kernels round at the same points)."""
+    dims 128 and 64, and 80 and 96 at H2O-Danube-1.8B's GQA group of 4 and
+    Phi-3-mini's of 1 (every head dim's kernels round at the same
+    points)."""
     replay = _hack_module("torch_tri_bf16_replay")
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
     S = 384

@@ -297,14 +297,16 @@ def test_tri_grid_query_names_every_tri_entry():
     the act dtype (the bf16 dK/dV tile edge differs from the f32 one) and
     the head dim (the blocks an SM and the workspace's rows depend on it),
     as _cuda types them. The kernels and the enum live in flash_tri.cuh;
-    flash_tri.cu (head dims 128 and 64) and flash_tri_narrow.cu (32 and
-    16, entries named <entry>_narrow) each declare both queries."""
+    flash_tri.cu (head dims 128 and 64), flash_tri_narrow.cu (32 and 16,
+    entries named <entry>_narrow) and flash_tri_mid.cu (96 and 80, entries
+    named <entry>_mid) each declare both queries."""
     header = (_cuda.CSRC / "flash_tri.cuh").read_text()
     assert re.search(r"enum Which \{ FWD = 0, DQ = 1, DKV = 2 \}", header)
     assert _cuda.TRI_WHICH == {"flash_fwd_tri": 0, "flash_bwd_dq_tri": 1,
                                "flash_bwd_dkv_tri": 2}
     for source, suffix in (("flash_tri", ""), ("flash_tri_narrow",
-                                                "_narrow")):
+                                                "_narrow"),
+                           ("flash_tri_mid", "_mid")):
         text = (_cuda.CSRC / f"{source}.cu").read_text()
         assert '#include "flash_tri.cuh"' in text
         assert {e for e, (src, _) in _cuda.ENTRIES.items()
@@ -319,11 +321,17 @@ def test_tri_grid_query_names_every_tri_entry():
 
 def test_bwd_dkv_grid_query_is_declared():
     """flash_bwd.cu owns flash_bwd_dkv's grid and answers for it through
-    flash_bwd_dkv_blocks(B, Hkv, S, act_dtype), which _cuda types."""
+    flash_bwd_dkv_blocks(B, Hkv, S, act_dtype), which _cuda types; the
+    launch it answers for (flash_bwd_dkv's and flash_bwd_dkv_mid's) lives
+    in flash_bwd.cuh, which both sources include."""
     text = (_cuda.CSRC / "flash_bwd.cu").read_text()
     assert ('extern "C" long long flash_bwd_dkv_blocks(int B, int Hkv, '
             'int S, int act_dtype)') in text
-    assert "dkv_grid<T>(a.B, a.Hkv, a.S)" in text
+    assert "dkv_grid<T>(a.B, a.Hkv, a.S)" in (
+        _cuda.CSRC / "flash_bwd.cuh").read_text()
+    for source in ("flash_bwd", "flash_bwd_mid"):
+        assert '#include "flash_bwd.cuh"' in (
+            _cuda.CSRC / f"{source}.cu").read_text()
     assert callable(_cuda.bwd_dkv_blocks)
 
 
