@@ -98,8 +98,9 @@ Phases, each of which exits non-zero on a failed check:
    flash_decode), flash equal to dense, ServeEngine with the draft equal
    to ServeEngine without, and a mixtral-ish-width MoE target with the
    dense draft equal to its generate; then full llama-7b with a full
-   llama-1b draft in bf16 at bench_speculative's shape (S0 256, 96 new,
-   spec_k 4) at B=1 and B=8 (left-padded): target calls, the accepted
+   llama-1b draft in bf16 at bench_speculative's S0 256 and spec_k 4 with
+   48 new tokens (SPEC_NEW, half its 96) at B=1 and B=8
+   (left-padded): target calls, the accepted
    share, tokens/s beside plain generate's in the same run, host syncs a
    round (torch.cuda.set_sync_debug_mode), flash_decode calls by block
    length, agreement with plain greedy and its first divergence; a
@@ -159,11 +160,12 @@ Phases, each of which exits non-zero on a failed check:
    single-process step to phase 12's limits; then full-width llama-1b at
    4 of 16 layers (B=8, S=2048, bf16, n_micro 4, no remat) at pp=2 over
    2 ranks, gpipe and interleaved, and at (pp 2, tp 2) over 4, and
-   full-width mixtral-ish at 4 of 16 layers (remat, B=4, S=2048) at ep=2
+   full-width mixtral-ish at 2 of 16 layers (EXPERT_LAYERS; remat, B=4,
+   S=2048) at ep=2
    over 2 ranks and (ep 2, tp 2) over 4: a warm step and three timed, the
    loss falling and equal on every rank, step ms, staged bytes, seconds in
    collectives, peak memory and each rank's launches a step checked
-   (pipeline 8/8/8, expert 8/4/4; ``pipeline`` and ``expert`` in
+   (pipeline 8/8/8, expert 4/2/2; ``pipeline`` and ``expert`` in
    launches_by_path);
 14. sharded serving (generate, speculative_generate, ServeEngine and
    cached_forward with ``mesh=``: models/decode.py, moe_serve.py,
@@ -177,9 +179,10 @@ Phases, each of which exits non-zero on a failed check:
    with a cached prefix, then mixtral-ish width on ep=2 and (ep=2, tp=2),
    one 4-rank world, every rank's tokens equal to this process's
    single-process run and each generate's launches L of #1 or #4 and
-   (new - 1)·L of #5 (``serving_exact``); Llama-7B at full width (8 of
-   its 32 layers: SERVE_TP_LAYERS; bf16) at tp=2 and full mixtral-ish (16
-   layers) at ep=2 over 2 ranks: generate
+   (new - 1)·L of #5 (``serving_exact``); Llama-7B at full width (4 of
+   its 32 layers: SERVE_TP_LAYERS; bf16) at tp=2 and mixtral-ish at full
+   width (8 of its 16 layers: SERVE_EP_LAYERS) at ep=2 over 2 ranks
+   (each depth cut for the script's time): generate
    B=2, S0=512, 32 new (fresh, left-padded, int8 cache), one
    ServeEngine pass of 6 requests after a warm one (a shared prefix,
    dense only; SERVE_PASSES), the launches a rank checked, tokens/s, staged bytes and
@@ -352,12 +355,34 @@ Phases, each of which exits non-zero on a failed check:
    peak memory; (f) a triangular=True forward and backward at (1, 32768,
    8/4) at each head dim, where the natural budget takes flash_fwd_tri,
    against the rectangular kernels and timed (``d96_long``,
-   ``d80_long``), each path's launches read alone.
-Phases 2, 16, 18 and 20 check and time the serving kernels through one
-function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19 and 21
-the training kernels (train_kernels; phase_train_kernels at 19 and 21);
-then the phase-2, 9, 10, 14, 16, 18 and 20 rows' device times, the card
-line, the kernels line and, last, the device line.
+   ``d80_long``), each path's launches read alone;
+22. head dim 256 in serving (the D = 256 instances of #1/#2, #4 and #5,
+   built from flash_fwd_wide.cu and flash_decode_wide.cu: the forward's
+   output in two column halves of 128, one a CTA; the decode's threads
+   two columns each): (a) in phase 1, the ptxas registers, spills and
+   HGMMA of the two tensor-core instances and of the timed decode ones (R
+   = 8 for S = 1, 64 for S = 5); (b) #1/#2, #4 on a bf16 and an int8 cache
+   and #5 on both at Gemma-2B's 8/1 heads of 256 (phase 20's cases), bf16
+   (1e-2) and f32 (1e-4), against their plain versions, then the bf16
+   calls timed at generate's shapes (B=2, S0=512, max_len 1024; a verify
+   block of 5) and at the D = 128 rows' (``at_d128_shape``, with the D =
+   128 row's time of the same call, ``d128_ms``), and #1 once more at the
+   D = 128 training row's (8, 2048, 16/8) (``at_train_shape``) beside
+   SDPA and the bound (the ``*_d256`` rows); (c) in f32 at Gemma-2B's
+   widths cut to 2 layers, flash against dense: logits, generate, an int8
+   generate, a ServeEngine pass; (d) bf16 at full depth (wide_models: 18
+   layers at dim 2048, vocab 256000; random weights): a fresh generate, a
+   left-padded one on a bf16 and on an int8 cache and a ServeEngine pass,
+   the launches read equal to the path's prediction (``d256_serving``),
+   tokens/s, peak memory and the parameter count, then a forward that
+   requires grad, triangular=True and the backward at head dim 256 (whose
+   backward and triangle kernels are later work) refused, naming it,
+   before any launch.
+Phases 2, 16, 18, 20 and 22 check and time the serving kernels through
+one function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19
+and 21 the training kernels (train_kernels; phase_train_kernels at 19 and
+21); then the phase-2, 9, 10, 14, 16, 18, 20 and 22 rows' device times,
+the card line, the kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -1726,10 +1751,12 @@ def phase_main(torch, tl, td, te, tfa, fleet, dev):
     return launches
 
 
-# phase 10: bench_speculative's full shape (S0, new tokens, spec_k) and
-# the cache budget, S0 + new + spec_k + 1 = 357 rounded up to a multiple of
-# 128 so that the kernels' gates hold
-SPEC_S0, SPEC_NEW, SPEC_K, SPEC_ML = 256, 96, 4, 384
+# phase 10: bench_speculative's S0 and spec_k, 48 new tokens (half its 96,
+# to keep the script inside its time limit: the rounds, and every count
+# read from them, follow), and the cache budget, S0 + new +
+# spec_k + 1 = 309 rounded up to a multiple of 128 so that the kernels'
+# gates hold
+SPEC_S0, SPEC_NEW, SPEC_K, SPEC_ML = 256, 48, 4, 384
 
 
 class SpecTally:
@@ -1888,8 +1915,9 @@ def agreement(a, b):
 
 def phase_spec(torch, tl, td, te, ts, tfa, dev, deferred):
     """Full Llama-7B target with a full Llama-1B draft, bf16, flash:
-    speculative_generate at bench_speculative's shape (S0 256, 96 new,
-    spec_k 4) at B=1 (fresh prefill) and B=8 (left-padded, pad_id) against
+    speculative_generate at bench_speculative's S0 256 and spec_k 4 with
+    SPEC_NEW (48) new tokens at B=1 (fresh prefill) and B=8 (left-padded,
+    pad_id) against
     generate in the same call, then a speculative ServeEngine pass. Plain
     generate is timed first, so that every kernel's launches are read
     across the speculative runs and the engine pass alone. Returns (the
@@ -2711,15 +2739,15 @@ PARALLEL_EXACT_SHAPE, PARALLEL_MICRO, OVERFLOW_CF = (4, 512), 2, 0.5
 # SHARDED_LAYERS of its 16 layers as bench.py:213-267 trains it (B 8, S
 # 2048, bf16, flash, AdamW; no remat: the pipeline's stage body has none)
 # with n_micro 4; mixtral-ish at EXPERT_LAYERS of 16 layers with remat, B 4,
-# S 2048, as phase 11 trains it (4, for the script's time, as
-# SHARDED_LAYERS)
+# S 2048, as phase 11 trains it (2, for the script's time; SHARDED_LAYERS
+# stays 4, the interleaved pipeline's pp 2 × n_chunks 2)
 PARALLEL_FULL = ((2, "pp2", "pipeline", {"pp": 2}, 1),
                  (2, "pp2_interleaved", "pipeline", {"pp": 2}, 2),
                  (2, "ep2", "moe", {"ep": 2}, 1),
                  (4, "pp2_tp2", "pipeline", {"pp": 2, "tp": 2}, 1),
                  (4, "ep2_tp2", "moe", {"ep": 2, "tp": 2}, 1))
 PIPELINE_SHAPE, PIPELINE_MICRO = (8, 2048), 4
-EXPERT_SHAPE, EXPERT_LAYERS = (4, 2048), 4
+EXPERT_SHAPE, EXPERT_LAYERS = (4, 2048), 2
 
 
 def parallel_launches(kind, cfg, n_stages):
@@ -2922,11 +2950,12 @@ SERVE_FULL = (2, 512, 32, 1024)
 # engine passes after the warm one: one keeps the script inside its time
 # limit as it grows (every pass is checked alike)
 SERVE_PASSES = 1
-# Llama-7B's depth at tp=2 in the full-size runs: 8 of its 32 layers,
-# which keeps the script inside its time limit with phases 17-19 (at 32 the
-# tp=2 world took 60-100 s of the phase, at 16 with mixtral-ish's ep=2 82
-# s; every launch count follows the layers)
-SERVE_TP_LAYERS = 8
+# Llama-7B's depth at tp=2 in the full-size runs, 4 of its 32 layers, and
+# mixtral-ish's at ep=2, 8 of its 16, which keep the script inside its
+# time limit with phases 17-22 (at 32 the tp=2 world took 60-100 s of the
+# phase, at 16 with mixtral-ish's ep=2 82 s, at 8 and 16 ~98 s on a slow
+# host; every launch count follows the layers)
+SERVE_TP_LAYERS, SERVE_EP_LAYERS = 4, 8
 
 
 def serve_launches(L, new, fresh, int8):
@@ -3239,7 +3268,8 @@ def serve_full_programs(cfg, moe):
 
 def phase_serve_full(torch, tl, tm, jobs, launch, dev):
     """Llama-7B at full width and SERVE_TP_LAYERS of its 32 layers in bf16
-    at tp=2 and full mixtral-ish (16 layers) at ep=2, each over 2 ranks
+    at tp=2 and mixtral-ish at full width and SERVE_EP_LAYERS of its 16
+    layers at ep=2, each over 2 ranks
     sharing the card: serve_full_programs'
     runs, each generate's launches against serve_launches, every engine
     pass's #4 launches one L a request (its prefix cached in the warm pass)
@@ -3252,8 +3282,8 @@ def phase_serve_full(torch, tl, tm, jobs, launch, dev):
                 tl.PRESETS["llama-7b"], attn_impl="flash",
                 n_layers=SERVE_TP_LAYERS), {"tp": 2}),
             ("ep_serving", "serving_moe", dataclasses.replace(
-                tm.PRESETS_MOE["mixtral-ish"], attn_impl="flash"),
-             {"ep": 2}))
+                tm.PRESETS_MOE["mixtral-ish"], attn_impl="flash",
+                n_layers=SERVE_EP_LAYERS), {"ep": 2}))
     cases = [{"kind": kind, "mesh": mesh, "cfg": cfg, "seed": SEED,
               "programs": serve_full_programs(cfg, kind == "serving_moe")}
              for _, kind, cfg, mesh in runs]
@@ -4718,7 +4748,7 @@ def phase_small_train(torch, tl, tm, tt, tfa, jobs, launch, bench, dev):
 
 
 # The serving kernels' checks and timed rows at one head dim, by ServeDim:
-# phases 2 (D = 128), 16 (64), 18 (32, 16) and 20 (96, 80) each call
+# phases 2 (D = 128), 16 (64), 18 (32, 16), 20 (96, 80) and 22 (256) each call
 # serve_kernels with theirs. The checks run in groups, each group's
 # self-attention cases (B, S, causal, window) and cache cases (B, S,
 # start, pads, window, sinks, int8) in bf16 and then in f32, from one
@@ -4779,13 +4809,37 @@ def mid_models(tl):
                            sliding_window=4096, attn_impl="flash")}
 
 
+# phase 22: head dim 256 in serving. A Llama config at Gemma-2B's widths
+# (the Hugging Face config.json of google/gemma-2b: hidden 2048, 18 layers,
+# 8/1 heads of 256, intermediate 16384, vocab 256000, max_position 8192,
+# rms_norm_eps 1e-6, rope_theta 10000): the JAX package's Llama block at
+# those widths (SwiGLU, an untied output, no embedding scaling; nothing
+# Gemma-specific, which the JAX package has none of), written out as a
+# LlamaConfig literal, ~3.03e9 parameters (no file is fetched: the weights
+# are seeded at random), served through the D = 256 instances of #1/#2, #4
+# and #5 (flash_fwd_wide.cu, flash_decode_wide.cu); #1 timed once more at
+# the D = 128 training row's pairs and heads
+WIDE_HEADS = {256: (8, 1, None)}      # Hq, Hkv, window
+WIDE_TRAIN_SHAPE = (8, 2048, 16, 8)   # B, S, Hq, Hkv
+
+
+def wide_models(tl):
+    """{head dim: the full-size bf16 flash config at that head dim}."""
+    # google/gemma-2b (config.json)
+    return {256: tl.LlamaConfig(vocab_size=256000, dim=2048, n_layers=18,
+                                n_heads=8, n_kv_heads=1, hidden_dim=16384,
+                                max_seq_len=8192, rope_theta=10000.0,
+                                norm_eps=1e-6, attn_impl="flash")}
+
+
 # the self-attention checks of phase 18's head dims (S=200 tiles for no JAX
-# block: the launch itself) and of phase 20's
+# block: the launch itself) and of phase 20's (and 22's)
 SMALL_FWD_CASES = ((2, 128, True, None), (2, 128, False, None),
                    (1, 512, True, 200), (2, 200, False, None))
 MID_FWD_CASES = ((2, 512, True, None), (2, 512, False, None),
                  (1, 4096, True, 1024), (2, 200, False, None))
-# (B, S, start, pads, window, sinks) of #4 at head dims 96 and 80, ML 2048:
+# (B, S, start, pads, window, sinks) of #4 at head dims 96, 80 and 256, ML
+# 2048:
 # an engine admission after a prefix, generate's left-padded prefill, a
 # window with sinks, a ragged S with both
 MID_CACHE_CASES = ((1, 256, 128, [28], None, 0), (2, 512, 0, [0, 37], None, 0),
@@ -4833,11 +4887,11 @@ SERVE_DIMS = {
         step=(2, SMALL_STARTS, SMALL_PADS), timed_ML=SMALL_ML, verify=(5,),
         at=(64, 16, 8, (8, 512), (8, 512, 0, None), (8, 600, None), 640))
        for D, (Hq, Hkv) in SMALL_HEADS.items()},
-    # phase 20: at the models' own heads (MID_HEADS), timed at generate's
-    # fresh and left-padded prefills (B=2, S0=512) and a decode step of
-    # theirs (max_len 1024) and at the D = 128 rows' shapes
+    # phases 20 and 22: at the models' own heads (MID_HEADS, WIDE_HEADS),
+    # timed at generate's fresh and left-padded prefills (B=2, S0=512) and
+    # a decode step of theirs (max_len 1024) and at the D = 128 rows' shapes
     **{D: ServeDim(
-        D, Hq, Hkv, 2048, SEED + 91 + 4 * (D == 80),
+        D, Hq, Hkv, 2048, SEED + {96: 91, 80: 95, 256: 111}[D],
         groups=((MID_FWD_CASES, both_caches(
             MID_CACHE_CASES + DECODE_SPLIT_CASES
             + ((4, 1, DECODE_STARTS, DECODE_PADS, None, 0),))),),
@@ -4845,7 +4899,7 @@ SERVE_DIMS = {
         step=(2, [560, 523], [0, 37]), timed_ML=1024, verify=(5,),
         window=window, at=(128, 32, 8, (2, 512), (1, 256, 128, [28]),
                            (4, DECODE_STARTS, DECODE_PADS), 2048))
-       for D, (Hq, Hkv, window) in MID_HEADS.items()},
+       for D, (Hq, Hkv, window) in {**MID_HEADS, **WIDE_HEADS}.items()},
 }
 # the rows of each head dim and the TPU kernel each replaces
 SERVE_ROWS = {
@@ -5131,28 +5185,26 @@ def phase_mid_exact(torch, tl, tm, td, te, dev):
     return serve_exact(torch, tm, td, te, models, MID_HEADS, dev, SEED + 92)
 
 
-def phase_mid_serving(torch, tl, td, te, tfa, dev):
-    """Phase 20 (c), bf16, full depth: the Phi-3-mini-width and
-    H2O-Danube-width models (mid_models) through generate (B=2, S0=512, 16
-    new, max_len 1024: fresh, left-padded on a bf16 and on an int8 cache)
-    and a ServeEngine pass of three requests on two slots (buckets 256,
-    512); every kernel's launches read across each model's run equal to
-    what the path predicts (L a prefill, L a decode step, L an engine
-    admission: serve_launches, engine_steps) and nothing else launched. A
-    windowed config prefills through #4 (in the JAX package as here), so
-    Danube's fresh generate runs without its window: at these lengths,
-    under 4096, the same attention. Then, at head dim 100 (which no kernel
-    takes; 96 and 80 train in phase 21), a forward whose input requires
-    grad, triangular=True and the backward (rectangular and triangle)
-    raise ValueError naming it, with no launch. Returns ({96: launches, 80:
-    launches}, report)."""
-    g = torch.Generator().manual_seed(SEED + 93)
+def serve_paths(torch, tl, td, te, tfa, dev, models, seed):
+    """bf16 at full depth, each of ``models`` ({head dim: (name, config)})
+    through generate (B=2, S0=512, 16 new, max_len 1024: fresh, left-padded
+    on a bf16 and on an int8 cache) and a ServeEngine pass of three
+    requests on two slots (buckets 256, 512); every kernel's launches read
+    across each model's run equal to what the path predicts (L a prefill,
+    L a decode step, L an engine admission: serve_launches, engine_steps)
+    and nothing else launched. A windowed config prefills through #4 (in
+    the JAX package as here), so its fresh generate runs without its
+    window: at these lengths, under the window, the same attention.
+    Returns ({D: launches}, {D: report}: parameters, tokens/s, peak
+    memory)."""
+    g = torch.Generator().manual_seed(seed)
     B, S0, new, ml = 2, 512, 16, 1024
     news, slots = (8, 6, 5), 2
     launches, report = {}, {}
-    for D, cfg in mid_models(tl).items():
+    for D, (name, cfg) in models.items():
         check(cfg.head_dim == D, f"head dim {cfg.head_dim}, expected {D}")
         L = cfg.n_layers
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = tl.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
                                 dev)
@@ -5194,50 +5246,67 @@ def phase_mid_serving(torch, tl, td, te, tfa, dev):
         out = eng.run()
         torch.cuda.synchronize()
         rep["engine_tokens_per_s"] = sum(news) / (time.perf_counter() - t0)
+        rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         check([len(out[i]) for i in ids] == list(news),
               f"engine streams at head dim {D}: {[out[i] for i in ids]}")
         admissions, steps = engine_steps(slots, news)
         want["flash_cached"] = want.get("flash_cached", 0) + L * admissions
         want["flash_decode"] = want.get("flash_decode", 0) + L * steps
         launches[D] = dict(tfa.LAUNCHES)
-        print(f"head dim {D} ({'Phi-3-mini' if D == 96 else 'H2O-Danube'}"
-              f" width, {L} layers, bf16): launches {launches[D]}, "
-              f"predicted {want}; {json.dumps(rep)}")
-        for name, n in launches[D].items():
-            check(n == want.get(name, 0), f"{name}: {n} launches on the "
-                  f"head-dim-{D} path, predicted {want.get(name, 0)}")
+        print(f"head dim {D} ({name} width, {L} layers, bf16): launches "
+              f"{launches[D]}, predicted {want}; {json.dumps(rep)}")
+        for kernel, n in launches[D].items():
+            check(n == want.get(kernel, 0), f"{kernel}: {n} launches on the "
+                  f"head-dim-{D} path, predicted {want.get(kernel, 0)}")
         del params, eng
         torch.cuda.empty_cache()
+    return launches, report
 
-    # a head dim that no kernel takes: a training call is refused by name
-    # before any launch
-    gq = torch.Generator(dev).manual_seed(SEED + 94)
+
+def training_refused(torch, tfa, dev, D, Hq, Hkv, seed):
+    """At head dim D, which the backward and triangle kernels do not take,
+    a forward whose input requires grad, triangular=True and the backward
+    (rectangular and triangle) raise ValueError naming it, with no launch.
+    Returns the report's line."""
+    gq = torch.Generator(dev).manual_seed(seed)
     tfa.reset_launches()
-    for D, (Hq, Hkv) in ((100, (32, 8)),):
-        q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
-                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
-        lse = torch.zeros(1, Hq, 256, device=dev)
-        for what, fn in (
-                ("a forward that requires grad", lambda: tfa.flash_attention(
-                    q.clone().requires_grad_(), k, v)),
-                ("triangular=True", lambda: tfa.flash_attention(
-                    q, k, v, triangular=True)),
-                ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
-                    q, k, v, q, lse, q)),
-                ("triangular=True backward", lambda: tfa.flash_attention_bwd(
-                    q, k, v, q, lse, q, triangular=True))):
-            try:
-                fn()
-            except ValueError as e:
-                check(f"head dim {D}" in str(e), f"{what} at head dim {D}: "
-                      f"{e}")
-            else:
-                check(False, f"{what} ran at head dim {D}")
+    q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    lse = torch.zeros(1, Hq, 256, device=dev)
+    for what, fn in (
+            ("a forward that requires grad", lambda: tfa.flash_attention(
+                q.clone().requires_grad_(), k, v)),
+            ("triangular=True", lambda: tfa.flash_attention(
+                q, k, v, triangular=True)),
+            ("flash_attention_bwd", lambda: tfa.flash_attention_bwd(
+                q, k, v, q, lse, q)),
+            ("triangular=True backward", lambda: tfa.flash_attention_bwd(
+                q, k, v, q, lse, q, triangular=True))):
+        try:
+            fn()
+        except ValueError as e:
+            check(f"head dim {D}" in str(e), f"{what} at head dim {D}: {e}")
+        else:
+            check(False, f"{what} ran at head dim {D}")
     check(not any(tfa.LAUNCHES.values()),
-          f"a training launch at head dim 100: {tfa.LAUNCHES}")
-    report["refusals"] = ("head dim 100: a forward that requires grad, "
-                          "triangular=True, flash_attention_bwd, "
-                          "triangular=True backward")
+          f"a training launch at head dim {D}: {tfa.LAUNCHES}")
+    return (f"head dim {D}: a forward that requires grad, triangular=True, "
+            "flash_attention_bwd, triangular=True backward")
+
+
+def phase_mid_serving(torch, tl, td, te, tfa, dev):
+    """Phase 20 (c), bf16, full depth: the Phi-3-mini-width and
+    H2O-Danube-width models (mid_models) through serve_paths (Danube's
+    fresh generate without its window). Then, at head dim 100 (which no
+    kernel takes; 96 and 80 train in phase 21), a training call refused
+    by name before any launch (training_refused). Returns ({96: launches,
+    80: launches}, report)."""
+    models = {D: ("Phi-3-mini" if D == 96 else "H2O-Danube", cfg)
+              for D, cfg in mid_models(tl).items()}
+    launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
+                                   SEED + 93)
+    report["refusals"] = training_refused(torch, tfa, dev, 100, 32, 8,
+                                          SEED + 94)
     return launches, report
 
 
@@ -5311,6 +5380,85 @@ def phase_mid_train(torch, tl, tt, tfa, dev):
             check(n > 0, f"{name}: no launch at head dim {D}")
     print(f"head dims 96 and 80 in training: {json.dumps(report)}")
     return by_dim, report
+
+
+def wide_train_shape(torch, tfa, dev, D=256):
+    """Phase 22 (a): #1 at head dim D (under no_grad: the serving kernel)
+    at the D = 128 training row's pairs and heads (WIDE_TRAIN_SHAPE,
+    causal), in bf16 against its plain version (1e-2, lse 1e-4), timed
+    beside it, SDPA, the bound (4·D operations a pair·head) and the same
+    call at head dim 128 (``d128_ms``). Returns the entry
+    (``at_train_shape`` of the flash_fwd_d256 row)."""
+    import torch.nn.functional as F
+    B, S, Hq, Hkv = WIDE_TRAIN_SHAPE
+    g = torch.Generator(dev).manual_seed(SEED + 112)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    with torch.no_grad():
+        out, lse = tfa.flash_attention_with_lse(q, k, v)
+        ref, ref_lse = tfa.attention_plain(q, kh, vh, 0)
+        e = (out.float() - ref.float()).abs().max().item()
+        e_lse = (lse - ref_lse).abs().max().item()
+        del out, lse, ref, ref_lse
+        check(e <= TOL["bfloat16"] and e_lse <= 1e-4,
+              f"flash_fwd at head dim {D}, the training shape: "
+              f"{e:.3g}, lse {e_lse:.3g}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        q2, k2, v2 = (t[..., :128].contiguous() for t in (q, k, v))
+        r = {"shape": f"B={B} S={S} causal Hq={Hq} Hkv={Hkv} D={D} "
+                      "(no_grad)",
+             "d128_ms": time_ms(lambda: tfa.flash_attention_with_lse(
+                 q2, k2, v2), flush),
+             "max_abs_err": e, "lse_err": e_lse,
+             **timing(lambda: tfa.flash_attention_with_lse(q, k, v),
+                      lambda: tfa.attention_plain(q, kh, vh, 0),
+                      lambda: F.scaled_dot_product_attention(
+                          q.transpose(1, 2), kh, vh, is_causal=True,
+                          enable_gqa=True),
+                      work(B, S, Hq, Hkv, D, S, 0, None, None, 0, True, 2,
+                           2, False, True), flush)}
+    print(f"flash_fwd_d{D} at the training shape: {json.dumps(r)}")
+    return r
+
+
+def beside_d128(rows, by_name):
+    """Adds to each head-dim-256 row's ``at_d128_shape`` the D = 128 row's
+    time of the same call in this run (``by_name``: the D = 128 rows;
+    ``d128_ms``, its device time ``d128_device_ms``)."""
+    for r in rows:
+        if "at_d128_shape" in r:
+            ref = by_name[r["name"].rsplit("_d", 1)[0]]
+            r["at_d128_shape"].update(d128_ms=ref["ms"],
+                                      d128_device_ms=ref.get("device_ms"))
+
+
+def phase_wide_exact(torch, tl, tm, td, te, dev):
+    """Phase 22 (b): Gemma-2B's widths (wide_models) cut to 2 layers, f32
+    (the kernels' f32 instances), flash against dense on the card
+    (serve_exact: logits within 1e-4 on an f32 cache and 2e-2 on an int8
+    one, generate fresh, left-padded and on an int8 cache token-equal, a
+    ServeEngine pass with a shared prefix stream-equal)."""
+    models = tuple((f"{name} width, 2 layers", dataclasses.replace(
+        cfg, n_layers=2), tl.init_params, td.cached_forward)
+        for name, cfg in zip(("Gemma-2B",), wide_models(tl).values()))
+    return serve_exact(torch, tm, td, te, models, WIDE_HEADS, dev, SEED + 113)
+
+
+def phase_wide_serving(torch, tl, td, te, tfa, dev):
+    """Phase 22 (c), bf16, full depth: the Gemma-2B-width model
+    (wide_models, 18 layers) through serve_paths (generate fresh,
+    left-padded and on an int8 cache, a ServeEngine pass; launches equal
+    to the prediction, tokens/s, peak memory, parameters); then, at head
+    dim 256, which the backward and triangle kernels do not take, a
+    training call refused by name before any launch (training_refused).
+    Returns ({256: launches}, report)."""
+    models = {D: ("Gemma-2B", cfg) for D, cfg in wide_models(tl).items()}
+    launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
+                                   SEED + 114)
+    report["refusals"] = training_refused(torch, tfa, dev, 256, 8, 1,
+                                          SEED + 115)
+    return launches, report
 
 
 def main() -> int:
@@ -5570,6 +5718,21 @@ def main() -> int:
           f" s; head dims 96 and 80 training phase "
           f"{time.perf_counter() - t21:.1f} s")
     torch.cuda.empty_cache()
+    t22 = t0 = time.perf_counter()
+    wide_rows = serve_kernels(torch, tfa, td, dev, deferred, 256)
+    wide_fwd_train = wide_train_shape(torch, tfa, dev)
+    print(f"head dim 256 kernels {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_exact = phase_wide_exact(torch, tl, tm, td, te, dev)
+    print(f"head dim 256 exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide, wide_report = phase_wide_serving(torch, tl, td, te, tfa, dev)
+    wide_report["exact"] = wide_exact
+    print(f"head dim 256 serving {time.perf_counter() - t0:.1f} s; head "
+          f"dim 256 phase {time.perf_counter() - t22:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -5708,8 +5871,22 @@ def main() -> int:
             r["name"], {}))
         if int(D) in MID_HEADS:
             r["d128_ms"] = by_name[name]["ms"]
+    # the head-dim-256 instances: launches across phase 22's full-size
+    # run, ptxas of the timed ones; beside each timed call at the D = 128
+    # rows' shapes the D = 128 row's time of the same call in this run
+    serve_reports(wide_rows, serve_report[256])
+    beside_d128(wide_rows, by_name)
+    for r in wide_rows:
+        name = r["name"][:-len("_d256")]
+        r["launches"] = wide[256][name]
+        r["launches_by_path"] = {"d256_serving": wide[256][name]}
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        if name == "flash_fwd":
+            r["at_train_shape"] = wide_fwd_train
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   wide_fwd_train["max_abs_err"])
     rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
-        + mid_rows + mid_train_rows
+        + mid_rows + mid_train_rows + wide_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
@@ -5717,6 +5894,7 @@ def main() -> int:
           f"{json.dumps(small_train_report)}")
     print(f"head dims 96 and 80: {json.dumps(mid_report)}")
     print(f"head dims 96 and 80 in training: {json.dumps(mid_train_report)}")
+    print(f"head dim 256: {json.dumps(wide_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -24,9 +24,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_decode", "flash_decode_narrow",
-           "flash_decode_mid", "flash_bwd", "flash_bwd_mid", "flash_tri",
-           "flash_tri_narrow", "flash_tri_mid")
+SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_fwd_wide", "flash_decode",
+           "flash_decode_narrow", "flash_decode_mid", "flash_decode_wide",
+           "flash_bwd", "flash_bwd_mid", "flash_tri", "flash_tri_narrow",
+           "flash_tri_mid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -84,9 +85,11 @@ class FlashTriArgs(ctypes.Structure):
 ENTRIES = {
     "flash_fwd": ("flash_fwd", FlashArgs),
     "flash_fwd_mid": ("flash_fwd_mid", FlashArgs),
+    "flash_fwd_wide": ("flash_fwd_wide", FlashArgs),
     "flash_decode": ("flash_decode", FlashArgs),
     "flash_decode_narrow": ("flash_decode_narrow", FlashArgs),
     "flash_decode_mid": ("flash_decode_mid", FlashArgs),
+    "flash_decode_wide": ("flash_decode_wide", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dq_mid": ("flash_bwd_mid", FlashBwdArgs),
@@ -193,14 +196,22 @@ NARROW = ("flash_decode", "flash_fwd_tri", "flash_bwd_dq_tri",
 MID = ("flash_fwd", "flash_decode", "flash_bwd_dq", "flash_bwd_dkv",
        "flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri")
 MID_HEAD_DIMS = (80, 96)
+# the kernels whose head dim 256 lives in a source of its own
+# (csrc/flash_fwd_wide.cu, csrc/flash_decode_wide.cu): C entry
+# <kernel>_wide, the serving kernels alone
+WIDE = ("flash_fwd", "flash_decode")
+WIDE_HEAD_DIMS = (256,)
 
 
 def entry(kernel: str, head_dim: int) -> str:
     """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``,
-    ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16, or
-    ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96."""
+    ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16,
+    ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96, or
+    ``kernel + "_wide"`` for a kernel of WIDE at head dim 256."""
     if kernel in MID and head_dim in MID_HEAD_DIMS:
         return f"{kernel}_mid"
+    if kernel in WIDE and head_dim in WIDE_HEAD_DIMS:
+        return f"{kernel}_wide"
     return f"{kernel}_narrow" if kernel in NARROW and head_dim < 64 \
         else kernel
 

@@ -50,7 +50,8 @@
 // blocks (64 rows, ~128 operations per byte) want mma.sync or wgmma is
 // left open.
 //
-// Head dim 16, 32, 64, 80, 96 or 128 (the C entries refuse any other D).
+// Head dim 16, 32, 64, 80, 96, 128 or 256 (the C entries refuse any other
+// D).
 // A CTA keeps 128 threads at each: P V splits the block into RH = 128 / D
 // row groups of D threads (1 at D = 128, 2 at 64, 4 at 32, 8 at 16), group
 // g owning rows g, g + RH, ... of the unit and each of its threads one
@@ -59,7 +60,12 @@
 // 16, groups 4..7 (warps 2 and 3) own no row and idle through P V. At D =
 // 80 and 96, which do not divide 128, the block keeps D = 128's one group:
 // threads 0..D-1 own a column of every row, the other 48 or 32 idle
-// through P V (a block of D threads would cut the copies in flight). A
+// through P V (a block of D threads would cut the copies in flight). At D
+// = 256 (Gemma-2B's 8/1 heads of 256) the block keeps its 128 threads and
+// one row group, each thread owning CPT = 2 columns (t and t + 128) of
+// every row: a block of 256 threads would halve the registers a thread may
+// hold (two CTAs of 256 threads an SM at most under its launch bound) for
+// no more bytes in flight, and the unit's rows already fill the block. A
 // smaller block would cut the copies in flight a CTA, where this kernel is
 // bound by bytes. The score product (a thread a key column of the 64-key
 // tile against the rows of its half of the block) and the softmax (a warp
@@ -68,7 +74,8 @@
 //
 // This header holds the kernel, its merge and their launch for every head
 // dim; flash_decode.cu's C entry takes 64 and 128, flash_decode_narrow.cu's
-// 32 and 16, flash_decode_mid.cu's 80 and 96, so that nvcc processes build
+// 32 and 16, flash_decode_mid.cu's 80 and 96, flash_decode_wide.cu's 256,
+// so that nvcc processes build
 // the instances side by side (one source for all four of 16..128 took 87 s
 // to build for sm_90a, four times flash_fwd.cu's 20).
 #pragma once
@@ -84,7 +91,10 @@ constexpr int BK = fa::BK;           // keys a tile
 constexpr int THREADS = 128;
 constexpr int MAX_SPLITS = 32;       // ops/flash_attention.py DECODE_MAX_SPLITS
 
-// Shared memory of one instance: two ring stages, each a K and a V tile of
+// Shared memory of one instance: two ring stages (one for an f32 cache at
+// D = 256, whose two would take 266,240 bytes, past the 232,448 a block
+// may have: that instance loads each tile after the last one's products),
+// each a K and a V tile of
 // 64 rows padded to RB bytes (RB the least odd multiple of 16 past the row:
 // the 16-byte chunks that eight neighbouring lanes read from eight rows fall
 // in distinct banks; 16 bytes of padding, but 32 for the one-chunk int8 row
@@ -100,7 +110,8 @@ struct Layout {
   static constexpr int RB = 16 * ((CH + 1) | 1);
   static constexpr int TILE = BK * RB;
   static constexpr int STAGE = 2 * TILE + (kInt8 ? 2 * BK * 4 : 0);
-  static constexpr int Q = 2 * STAGE;
+  static constexpr int NSTAGE = sizeof(KT) == 4 && D > 128 ? 1 : 2;
+  static constexpr int Q = NSTAGE * STAGE;
   static constexpr int S = Q + R * D * 4;
   static constexpr int M = S + R * BK * 4;
   static constexpr int L = M + R * 4;
@@ -219,13 +230,14 @@ __device__ __forceinline__ Live live_tiles(int start, int pad, int first_s, int 
 // two, the split plan's about two an SM (_decode_splits), which leaves
 // ptxas 255 registers; without a bound (-DDECODE_MID_MIN_BLOCKS=0) it
 // spilled in 8 of those 60 instances (hack/torch_ptxas_variants.py
-// flash_decode_mid). 0 at the other head dims: no bound, the same SASS as
-// none given.
+// flash_decode_mid). The same bound at 256, whose two columns a thread
+// hold up to 128 accumulators (R = 64). 0 at the other head dims: no
+// bound, the same SASS as none given.
 #ifndef DECODE_MID_MIN_BLOCKS
 #define DECODE_MID_MIN_BLOCKS 2
 #endif
 template <int D>
-constexpr int DECODE_MIN_BLOCKS = D == 80 || D == 96 ? DECODE_MID_MIN_BLOCKS : 0;
+constexpr int DECODE_MIN_BLOCKS = D == 80 || D == 96 || D == 256 ? DECODE_MID_MIN_BLOCKS : 0;
 
 // One CTA: unit blockIdx.x (= ((b * Hkv + kvh) * row blocks + row block)),
 // share blockIdx.y of its live tiles.
@@ -234,10 +246,12 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
   // a thread owns one output column of every RH-th row: RH = 1 at D = 128
   // (and at 80 and 96, where threads D.. own none), 2 at D = 64, 4 at 32, 8
   // at 16 (rows t / D, t / D + RH, ...), NA rows; at R < RH the groups t /
-  // D >= R own none
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
-                "head dim 16, 32, 64, 80, 96 or 128");
-  constexpr int RH = THREADS / D;
+  // D >= R own none; at D = 256 RH = 1 and CPT = 2 columns, t and t + 128,
+  // of every row
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "head dim 16, 32, 64, 80, 96, 128 or 256");
+  constexpr int CPT = D > THREADS ? D / THREADS : 1;
+  constexpr int RH = D > THREADS ? 1 : THREADS / D;
   constexpr int NA = (R + RH - 1) / RH;
   using Ly = Layout<KT, D, R>;
   extern __shared__ __align__(16) char dsmem[];
@@ -282,9 +296,11 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
                     a.k_scale ? a.k_scale + b * a.sc_sb + kvh * a.sc_sh : nullptr,
                     a.v_scale ? a.v_scale + b * a.sc_sb + kvh * a.sc_sh : nullptr,
                     a.k_ss, a.v_ss, a.sc_ss, a.Sk};
-  float acc[NA];   // row rh + RH i in acc[i]
+  float acc[CPT][NA];   // row rh + RH i, column col + THREADS c in acc[c][i]
 #pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  for (int c = 0; c < CPT; ++c)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[c][i] = 0.f;
 
   if (i0 < i1) {
     load_stage<KT, D, R>(dsmem, src, live.at(i0));
@@ -302,11 +318,18 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
   const int kc = t & (BK - 1), rsel = t >> 6;          // QK: key column, row parity
   const int warp = t >> 5, lane = t & 31;
   for (int i = i0; i < i1; ++i) {
-    const char* stage = dsmem + ((i - i0) & 1) * Ly::STAGE;
+    const char* stage = dsmem + (Ly::NSTAGE == 2 ? ((i - i0) & 1) * Ly::STAGE : 0);
     const int kv0 = live.at(i) * BK;
+    if constexpr (Ly::NSTAGE == 1) {   // one stage: tile i once tile i - 1's readers are done
+      if (i > i0) {
+        __syncthreads();
+        load_stage<KT, D, R>(dsmem, src, live.at(i));
+        wg::copy_commit();
+      }
+    }
     wg::copy_wait<0>();
     __syncthreads();   // the tile is in; the other stage's, sS's and sC's readers are done
-    if (i + 1 < i1) {
+    if (Ly::NSTAGE == 2 && i + 1 < i1) {
       load_stage<KT, D, R>(dsmem + ((i + 1 - i0) & 1) * Ly::STAGE, src, live.at(i + 1));
       wg::copy_commit();
     }
@@ -373,24 +396,32 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
     }
     __syncthreads();
 
-    // acc += P V: this thread's column of its rows
+    // acc += P V: this thread's columns of its rows
     if (!owns) continue;
 #pragma unroll
-    for (int i = 0; i < NA; ++i) acc[i] *= sC[rh + RH * i];
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[c][i] *= sC[rh + RH * i];
     const char* vcol = stage + Ly::TILE + col * static_cast<int>(sizeof(KT));
 #pragma unroll 2
     for (int k = 0; k < BK; k += 4) {
-      float v[4];
+      float v[CPT][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        v[u] = fa::to_f32(*reinterpret_cast<const KT*>(vcol + (k + u) * Ly::RB));
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[c][u] = fa::to_f32(*reinterpret_cast<const KT*>(
+              vcol + (k + u) * Ly::RB + c * THREADS * static_cast<int>(sizeof(KT))));
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
         const float4 p = *reinterpret_cast<const float4*>(sS + (rh + RH * i) * BK + k);
-        acc[i] = fmaf(p.x, v[0], acc[i]);
-        acc[i] = fmaf(p.y, v[1], acc[i]);
-        acc[i] = fmaf(p.z, v[2], acc[i]);
-        acc[i] = fmaf(p.w, v[3], acc[i]);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          acc[c][i] = fmaf(p.x, v[c][0], acc[c][i]);
+          acc[c][i] = fmaf(p.y, v[c][1], acc[c][i]);
+          acc[c][i] = fmaf(p.z, v[c][2], acc[c][i]);
+          acc[c][i] = fmaf(p.w, v[c][3], acc[c][i]);
+        }
       }
     }
   }
@@ -404,9 +435,11 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
       const int r = rh + RH * i, rg = r0 + r;
       if (!owns || rg >= rows) break;
       const float l = sL[r];
-      fa::from_f32(out + b * a.o_sb + (rg / group) * a.o_ss + (kvh * group + rg % group) * a.o_sh +
-                       col,
-                   l > 0.f ? acc[i] / l : 0.f);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        fa::from_f32(out + b * a.o_sb + (rg / group) * a.o_ss +
+                         (kvh * group + rg % group) * a.o_sh + col + c * THREADS,
+                     l > 0.f ? acc[c][i] / l : 0.f);
     }
     return;
   }
@@ -415,7 +448,9 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
   float* ws = a.ws + (static_cast<long long>(unit) * a.splits + blockIdx.y) * R * (D + 2);
   if (i0 < i1 && owns) {
 #pragma unroll
-    for (int i = 0; i < NA; ++i) ws[(rh + RH * i) * D + col] = acc[i];
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) ws[(rh + RH * i) * D + col + c * THREADS] = acc[c][i];
   }
   if (t < R) {
     ws[R * D + 2 * t] = sM[t];
@@ -424,7 +459,8 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
 }
 
 // The merge of one row of a unit's partials (a block per (unit, row),
-// MERGE_THREADS<D>: a thread per column, and one whole warp at D = 16): one
+// MERGE_THREADS<D>: a thread per column, one whole warp at D = 16, and at
+// D = 256 128 threads of two columns each, t and t + 128): one
 // warp reads the row's (m_i, l_i) of the P <= 32 partials at once and forms
 // the weights w_i = 2^(m_i - M) / sum_j 2^(m_j - M) l_j, M the largest m_i;
 // then each thread of a column sums its column's P partials, issued
@@ -432,7 +468,7 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
 // gives zeros; an empty share's weight is 0 and its unwritten acc is
 // never used.
 template <int D>
-constexpr int MERGE_THREADS = D < 32 ? 32 : D;
+constexpr int MERGE_THREADS = D < 32 ? 32 : D > THREADS ? THREADS : D;
 
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(THREADS) flash_decode_merge_kernel(FlashArgs a) {
@@ -461,16 +497,24 @@ __global__ void __launch_bounds__(THREADS) flash_decode_merge_kernel(FlashArgs a
   if constexpr (D < 32) {
     if (t >= D) return;
   }
-  float o = 0.f;
+  constexpr int MC = D > THREADS ? D / THREADS : 1;   // columns t + THREADS c a thread
+  float o[MC];
+#pragma unroll
+  for (int c = 0; c < MC; ++c) o[c] = 0.f;
 #pragma unroll 8
   for (int i = 0; i < P; ++i) {
     const float w = sW[i];
-    const float x = ws[i * PART + r * D + t];
-    o = fmaf(w, w != 0.f ? x : 0.f, o);
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      const float x = ws[i * PART + r * D + t + c * THREADS];
+      o[c] = fmaf(w, w != 0.f ? x : 0.f, o[c]);
+    }
   }
-  fa::from_f32(static_cast<T*>(a.out) + b * a.o_sb + (rg / group) * a.o_ss +
-                   (kvh * group + rg % group) * a.o_sh + t,
-               o);
+#pragma unroll
+  for (int c = 0; c < MC; ++c)
+    fa::from_f32(static_cast<T*>(a.out) + b * a.o_sb + (rg / group) * a.o_ss +
+                     (kvh * group + rg % group) * a.o_sh + t + c * THREADS,
+                 o[c]);
 }
 
 template <typename T, typename KT, int D, int R>

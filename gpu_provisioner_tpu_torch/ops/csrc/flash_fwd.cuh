@@ -47,9 +47,9 @@
 //   - the f32 instances (the exactness instances, f32 or int8 cache)
 //     compute in f32 FMA from shared memory (fa::attend_tiles), int8
 //     dequantised per token there.
-// Every instance takes head dim 16, 32, 64, 80, 96 or 128 (flash_fwd.cu's
-// C entry 16, 32, 64 and 128, flash_fwd_mid.cu's 80 and 96; each refuses
-// any other D). At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q
+// Every instance takes head dim 16, 32, 64, 80, 96, 128 or 256
+// (flash_fwd.cu's C entry 16, 32, 64 and 128, flash_fwd_mid.cu's 80 and
+// 96, flash_fwd_wide.cu's 256; each refuses any other D). At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q
 // K^T takes 4 k-steps, O += P V is m64n64k16 into 32 floats a thread;
 // shared memory is 41 KB (bf16 cache) or 42 KB (int8 cache), so the D = 64
 // instances are built for four CTAs an SM (FWD_TC_BLOCKS: 128 registers a
@@ -67,6 +67,17 @@
 // a thread, of which the first D columns are stored; shared memory 80 KB
 // (bf16 cache) or 70 / 74 KB (int8 cache), two CTAs an SM. The f32
 // instances take every D as they are (8 lanes a row, D / 8 columns each).
+// At D = 256 (Gemma-2B's 8/1 heads of 256) a tensor-core CTA owns one half
+// of the output's columns (tc::out_cols; two CTAs a (batch * q-head,
+// query tile), side by side in the grid, so that the second reads K from
+// L2): S = Q K^T over the whole D in 16 k-steps on four-atom tiles, the
+// softmax as at every D, O += P V D = 128's m64n128k16 over the half's V
+// columns into its 64 floats a thread; half 0 writes lse. Both halves take
+// the same k-steps and round P the same way, so m, l and every column are
+// what one CTA would give; S and the K bytes are paid twice, about 1.5x
+// the work of one CTA (later work). Shared memory 129 KB (bf16 cache) or
+// 146 KB (int8: the whole int8 V tile copied, its half widened): one CTA
+// an SM.
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
 // flash_tri.cuh, behind triangular=True, on the same tile steps. Left for
@@ -142,21 +153,27 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
 
 // CTAs an SM the tensor-core instances are built for, by head dim (below
 // 64 as at 64, at 80 and 96 as at 128: the same accumulator and about the
-// same shared memory).
+// same shared memory; one at 256, whose shared memory holds one).
 template <int D>
-constexpr int FWD_TC_BLOCKS = D > 64 ? 2 : 4;
+constexpr int FWD_TC_BLOCKS = D > 128 ? 1 : D > 64 ? 2 : 4;
 
 // The bf16 instances on the tensor cores, a bf16 (KT = bf16) or an int8
 // (KT = int8_t) cache: one warpgroup per (batch * q-head, 64-query tile)
-// over the block's live key tiles; one tile spans the head dim D.
+// over the block's live key tiles, and at D = 256 per column half of it
+// (HALVES); one Q or K tile spans the head dim D, a V tile the CTA's DV
+// output columns.
 template <typename KT, int D>
 __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_kernel(FlashArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
+  constexpr int DV = tc::out_cols<D>;
+  constexpr int HALVES = D / DV;
   constexpr uint32_t TILE = wg::tile_bytes<D>();
   const uint32_t sQ = tc::tiles(), ring = sQ + TILE;
-  const int b = blockIdx.x / a.Hq;
-  const int h = blockIdx.x % a.Hq;
+  const unsigned bh = HALVES > 1 ? blockIdx.x / HALVES : blockIdx.x;
+  const int half = HALVES > 1 ? static_cast<int>(blockIdx.x % HALVES) : 0;
+  const int b = bh / a.Hq;
+  const int h = bh % a.Hq;
   const int kvh = h / (a.Hq / a.Hkv);
   const int q0 = tc::query_tile(a.causal) * E;
   const int start = a.starts ? a.starts[a.n_start > 1 ? b : 0] : a.start;
@@ -192,14 +209,14 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
   const KT* kb = static_cast<const KT*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const KT* vb = static_cast<const KT*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   if constexpr (std::is_same<KT, bf16>::value) {
-    tc::kv_walk<D>(ring, kb, vb, a.k_ss, a.v_ss, a.Sk, first, end, next,
-                   [&](uint32_t sK, int j) {
-                     tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
-                   });
+    tc::kv_walk<D, DV>(ring, kb, vb + half * DV, a.k_ss, a.v_ss, a.Sk, first, end, next,
+                       [&](uint32_t sK, int j) {
+                         tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, qpos0, j * E, sl2, mask);
+                       });
   } else {
     // the int8 cache: tiles and scales through the int8 stages after the
     // bf16 K/V pair at `ring`, widened into the pair before the products
-    const uint32_t stages = ring + 2 * TILE;
+    const uint32_t stages = ring + TILE + wg::tile_bytes<DV>();
     const float* ksb = a.k_scale + b * a.sc_sb + kvh * a.sc_sh;
     const float* vsb = a.v_scale + b * a.sc_sb + kvh * a.sc_sh;
     tc::ring_walk(
@@ -210,7 +227,7 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
         },
         [&](int st, int j) {
           const uint32_t stage = stages + st * tc::i8_stage_bytes<D>();
-          tc::i8_widen<D>(ring, stage);
+          tc::i8_widen<D>(ring, stage, half * DV);
           wg::fence_smem_to_async();
           __syncthreads();
           tc::fwd_tile_tc<D>(acc, m, l, sQ, ring, qpos0, j * E, sl2, mask,
@@ -220,9 +237,9 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
 
   float inv[2], lse[2];
   tc::fwd_final(m, l, inv, lse);
-  tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss, q0,
-                         a.Sq, inv);
-  if (a.lse != nullptr)
+  tc::store_bf16<ACC, DV>(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh + half * DV,
+                          a.o_ss, q0, a.Sq, inv);
+  if (a.lse != nullptr && half == 0)
     tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.Sq, q0, a.Sq);
 }
 
@@ -234,7 +251,7 @@ cudaError_t launch_tc(const FlashArgs& a, cudaStream_t stream) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(a.B * a.Hq, (a.Sq + tc::E - 1) / tc::E);
+  dim3 grid(a.B * a.Hq * (D / tc::out_cols<D>), (a.Sq + tc::E - 1) / tc::E);
   flash_fwd_tc_kernel<KT, D><<<grid, wg::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }

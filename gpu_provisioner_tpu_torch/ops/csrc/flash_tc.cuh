@@ -51,7 +51,16 @@
 // the register-A products stay D = 128's m64n128k16 into D = 128's
 // accumulator of 64 floats a thread, its columns D.. computed from the
 // zeroed pad and never stored; shared memory and CTAs an SM as at D = 128
-// (the forward's int8 stages smaller: 70 or 74 KB).
+// (the forward's int8 stages smaller: 70 or 74 KB). At D = 256 (Gemma-2B's
+// 8/1 heads of 256; the forward alone) the output's columns are split in
+// two halves of 128, one a CTA (out_cols): S = Q K^T over the whole D in 16
+// k-steps on four-atom Q and K tiles, the online softmax as at every D, and
+// O += P V over the half's 128 columns of V, D = 128's m64n128k16 into its
+// 64 floats a thread, so every register budget is D = 128's; both halves
+// compute S, m and l alike, so every column is what one CTA would give.
+// Shared memory: Q, two stages of K and a V half, 129 KB; with an int8
+// cache Q, the widened K and V half, two int8 stages, 146 KB; one CTA an
+// SM.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -93,9 +102,14 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Q; K and V in two stages / Q, dO; K and V in two stages / K, V; Q, dO in
 // two stages; lse, delta in two stages; each plus the slack that aligns the
 // first tile to a swizzle period
+// The output columns a forward CTA owns, and the width of the V tiles it
+// reads: D, or one half of D = 256's columns (the grid then has a CTA for
+// each half)
+template <int D>
+constexpr int out_cols = D > 128 ? 128 : D;
 template <int D>
 __host__ __device__ constexpr size_t fwd_tc_smem() {
-  return 5 * wg::tile_bytes<D>() + wg::ALIGN;
+  return 3 * wg::tile_bytes<D>() + 2 * wg::tile_bytes<out_cols<D>>() + wg::ALIGN;
 }
 template <int D>
 __host__ __device__ constexpr size_t dq_tc_smem() {
@@ -132,9 +146,10 @@ constexpr int DKV_TC_BLOCKS = D > 64 ? 2 : TC_DKV_BLOCKS_D64;
 // The floats a thread of an accumulator of 64 x (D rounded up to a whole
 // swizzle atom of 64 columns) (the forward's O, dQ, dK, dV): D / 2 at 64
 // and 128, D = 64's 32 below it, D = 128's 64 at 80 and 96 (the columns
-// past D are computed, never stored).
+// past D are computed, never stored), and at 256 D = 128's 64 again: the
+// forward's O over the CTA's half of the columns.
 template <int D>
-constexpr int acc_floats = D < 64 ? 32 : (D + 63) / 64 * 32;
+constexpr int acc_floats = D < 64 ? 32 : D > 128 ? 64 : (D + 63) / 64 * 32;
 
 // The query tile of a rectangular grid's block (blockIdx.y), the tiles
 // with the most key tiles first when `descending` (on a causal grid), so
@@ -292,22 +307,24 @@ __device__ __forceinline__ void ring_walk(int first, int end, Next next, Load lo
 }
 
 // ring_walk over bf16 K/V tiles of head dim D at `ring` (stage st: K at
-// ring + 2 st TILE, V after it; kb / vb at position 0 of the (batch, kv
-// head), rows at or past Sk zero-filled); step(sK, j) gets the stage's K
-// tile.
-template <int D = 128, typename Next, typename Step>
+// ring + st (TILE + VTILE), V after it; kb / vb at position 0 of the
+// (batch, kv head), rows at or past Sk zero-filled); step(sK, j) gets the
+// stage's K tile. The V tiles are DV columns wide (D, or the forward's
+// half at D = 256, vb then at the half's first column).
+template <int D = 128, int DV = D, typename Next, typename Step>
 __device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf16* vb,
                                         long long k_ss, long long v_ss, int Sk, int first,
                                         int end, Next next, Step step) {
   constexpr int TILE = wg::tile_bytes<D>();
+  constexpr int STAGE = TILE + wg::tile_bytes<DV>();
   ring_walk(
       first, end, next,
       [&](int st, int j) {
-        const uint32_t stage = ring + 2 * st * TILE;
+        const uint32_t stage = ring + st * STAGE;
         wg::load_tile<D>(stage, kb, k_ss, j * E, Sk);
-        wg::load_tile<D>(stage + TILE, vb, v_ss, j * E, Sk);
+        wg::load_tile<DV>(stage + TILE, vb, v_ss, j * E, Sk);
       },
-      [&](int st, int j) { step(ring + 2 * st * TILE, j); });
+      [&](int st, int j) { step(ring + st * STAGE, j); });
 }
 
 // ---- the int8 cache -------------------------------------------------------
@@ -326,10 +343,12 @@ template <int D>
 __host__ __device__ constexpr uint32_t i8_stage_bytes() {
   return 2 * i8_tile<D>() + 2 * E * sizeof(float);
 }
-// Q, the bf16 K/V pair, two int8 stages, the alignment slack
+// Q, the bf16 K/V pair (V the CTA's out_cols), two int8 stages, the
+// alignment slack
 template <int D>
 __host__ __device__ constexpr size_t fwd_i8_smem() {
-  return 3 * wg::tile_bytes<D>() + 2 * i8_stage_bytes<D>() + wg::ALIGN;
+  return 2 * wg::tile_bytes<D>() + wg::tile_bytes<out_cols<D>>() + 2 * i8_stage_bytes<D>() +
+         wg::ALIGN;
 }
 
 // Issues the copies of key tile rows k0 .. k0 + 63 of one (batch, kv head)
@@ -337,7 +356,8 @@ __host__ __device__ constexpr size_t fwd_i8_smem() {
 // into the int8 stage at `stage`: 64 * D / 16 16-byte chunks of each tile,
 // D / 32 a thread (at D = 16, where a row is one chunk, threads 0..63 copy
 // a K row each and threads 64..127 a V row; at D = 80 and 96, rows of 5 or
-// 6 chunks, the K and V tiles' chunks together, D / 16 a thread), and one
+// 6 chunks, the K and V tiles' chunks together, D / 16 a thread; at D =
+// 256 the whole V tile too, of which the CTA widens its half), and one
 // scale a thread. Not committed.
 template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
@@ -345,7 +365,7 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
   constexpr int CH = D / 16;                  // chunks a row
   constexpr int LOG_CH = wg::log2i(CH);
-  static_assert(D % 16 == 0 && D <= 128, "D = 16, 32, 64, 80, 96 or 128");
+  static_assert(D % 16 == 0 && D <= 256, "D = 16, 32, 64, 80, 96, 128 or 256");
   constexpr uint32_t TILE = i8_tile<D>();
   if constexpr ((1 << LOG_CH) != CH) {        // D = 80 or 96
 #pragma unroll
@@ -392,38 +412,71 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
                : "memory");
 }
 
+// Columns c0 .. c0 + W - 1 of the int8 tile at `src` (64 rows of D values)
+// widened, exactly, into the W-wide swizzled bf16 tile at `dst`
+// (wg::load_tile's layout): each thread W / 16 chunks of 8 values.
+template <int D, int W>
+__device__ __forceinline__ void i8_widen_cols(uint32_t dst, uint32_t src, int c0) {
+  constexpr int LOG_CH = wg::log2i(W / 8);   // log2 of the bf16 chunks a row, W / 8
+  static_assert((1 << LOG_CH) == W / 8, "whole swizzle atoms");
+  const char* in = reinterpret_cast<const char*>(floats_at(src)) + c0;
+  char* out = const_cast<char*>(reinterpret_cast<const char*>(floats_at(dst)));
+#pragma unroll
+  for (int it = 0; it < E * (W / 8) / wg::THREADS; ++it) {
+    const int i = threadIdx.x + it * wg::THREADS;
+    const int r = i >> LOG_CH, c = i & (W / 8 - 1);   // row, chunk of 8 values
+    const uint2 raw = *reinterpret_cast<const uint2*>(in + r * D + c * 8);
+    const uint32_t w[2] = {raw.x, raw.y};
+    uint32_t o[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint32_t x = w[h >> 1] >> (16 * (h & 1));
+      o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
+                           static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
+    }
+    *reinterpret_cast<uint4*>(out + (c >> 3) * wg::ATOM_BYTES + r * 128 +
+                              (((c & 7) ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // Widens the int8 stage's K and V tiles, exactly, into the swizzled bf16
 // tiles at sK and sK + TILE (wg::load_tile's layout): each thread D / 16
-// chunks of 8 values a tile. The caller publishes them (fence_smem_to_async,
-// then a barrier) before the products.
+// chunks of 8 values a tile; at D = 256 K whole and V's columns v0 .. v0 +
+// 127 alone (the CTA's half, i8_widen_cols). The caller publishes them
+// (fence_smem_to_async, then a barrier) before the products.
 template <int D>
-__device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage) {
-  constexpr int LOG_CH = wg::log2i(D / 8);   // log2 of the bf16 chunks a row, D / 8
-  constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
-  static_assert(wg::tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96 or 128");
-  const char* src = reinterpret_cast<const char*>(floats_at(stage));
-  char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
+__device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage, int v0 = 0) {
+  if constexpr (D > 128) {
+    i8_widen_cols<D, D>(sK, stage, 0);
+    i8_widen_cols<D, out_cols<D>>(sK + wg::tile_bytes<D>(), stage + i8_tile<D>(), v0);
+  } else {
+    constexpr int LOG_CH = wg::log2i(D / 8);   // log2 of the bf16 chunks a row, D / 8
+    constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
+    static_assert(wg::tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96 or 128");
+    const char* src = reinterpret_cast<const char*>(floats_at(stage));
+    char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
 #pragma unroll
-  for (int kv = 0; kv < 2; ++kv)
+    for (int kv = 0; kv < 2; ++kv)
 #pragma unroll
-    for (int it = 0; it < E * (D / 8) / wg::THREADS; ++it) {
-      const int i = threadIdx.x + it * wg::THREADS;
-      // row, chunk of 8 values along D
-      const int r = POW2 ? i >> LOG_CH : i / (D / 8), c = POW2 ? i & (D / 8 - 1) : i % (D / 8);
-      const uint2 raw =
-          *reinterpret_cast<const uint2*>(src + kv * i8_tile<D>() + r * D + c * 8);
-      const uint32_t w[2] = {raw.x, raw.y};
-      uint32_t o[4];
+      for (int it = 0; it < E * (D / 8) / wg::THREADS; ++it) {
+        const int i = threadIdx.x + it * wg::THREADS;
+        // row, chunk of 8 values along D
+        const int r = POW2 ? i >> LOG_CH : i / (D / 8), c = POW2 ? i & (D / 8 - 1) : i % (D / 8);
+        const uint2 raw =
+            *reinterpret_cast<const uint2*>(src + kv * i8_tile<D>() + r * D + c * 8);
+        const uint32_t w[2] = {raw.x, raw.y};
+        uint32_t o[4];
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const uint32_t x = w[h >> 1] >> (16 * (h & 1));
-        o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
-                             static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
+        for (int h = 0; h < 4; ++h) {
+          const uint32_t x = w[h >> 1] >> (16 * (h & 1));
+          o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
+                               static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
+        }
+        *reinterpret_cast<uint4*>(dst + kv * wg::tile_bytes<D>() + (c >> 3) * wg::ATOM_BYTES +
+                                  r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
       }
-      *reinterpret_cast<uint4*>(dst + kv * wg::tile_bytes<D>() + (c >> 3) * wg::ATOM_BYTES +
-                                r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
-          make_uint4(o[0], o[1], o[2], o[3]);
-    }
+  }
 }
 
 // Per-key-column factors of a forward step: none (a bf16 cache), or the int8

@@ -7,10 +7,10 @@
 // flash_bwd.cu's dQ are meant to use them too.
 //
 // A tile is 64 rows of D bf16 values (one row per query or key position),
-// D = 64 or 128 (below 64, see D = 32 or 16): D / 64 swizzle atoms of 64
-// rows x 64 columns (128 bytes a row), columns 0..63 in the first, 64..127
-// in the second (D = 128), 8 KB apart, each 1024-byte aligned: 8 KB at D =
-// 64, 16 KB at D = 128. Inside
+// D = 64, 128 or 256 (below 64, see D = 32 or 16): D / 64 swizzle atoms of
+// 64 rows x 64 columns (128 bytes a row), columns 0..63 in the first,
+// 64..127 in the second (D = 128), and so on, 8 KB apart, each 1024-byte
+// aligned: 8 KB at D = 64, 16 KB at D = 128, 32 KB at D = 256. Inside
 // an atom, row r lies at r * 128 bytes and its 16-byte chunk c (8 values)
 // at chunk c ^ (r % 8): the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B, and the one wgmma reads through a descriptor
@@ -27,6 +27,12 @@
 // P^T dO, dK += dS^T Q) stay D = 128's m64n128k16 over both atoms, their
 // columns D..127 computed from the zeros and never stored. Every
 // descriptor and wgmma shape is D = 128's.
+//
+// D = 256 (the forward alone): Q and K tiles of four atoms, whose K-major
+// product S = Q K^T takes 16 k-steps (desc_kmajor's k-step kk in atom kk /
+// 4); the forward's output is split into two column halves of 128, one a
+// CTA, so that O += P V stays D = 128's m64n128k16 over a V tile of the
+// half's 128 columns, a D = 128 tile (flash_tc.cuh's out_cols).
 //
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's
@@ -70,12 +76,12 @@ constexpr int ROWS = 64;                     // wgmma M; a tile's rows
 constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
 
-// A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64 and
-// two at D = 80 and 96.
+// A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64,
+// two at D = 80 and 96, four at D = 256.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128,
-                "a tile spans the head dim: 16, 32, 64, 80, 96 or 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "a tile spans the head dim: 16, 32, 64, 80, 96, 128 or 256");
   return D < 64 ? ATOM_BYTES : (D + 63) / 64 * ATOM_BYTES;
 }
 
@@ -307,7 +313,7 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
                                           int row0, int S) {
   constexpr int LOG_CH = log2i(D / 8);   // log2 of the chunks a row, D / 8
   constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
-  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96 or 128");
+  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96, 128 or 256");
 #pragma unroll
   for (int it = 0; it < ROWS * (D / 8) / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;

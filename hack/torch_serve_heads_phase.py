@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """One of chip_smoke.py's serving head-dim phases alone, on one GPU:
-phase 18 (head dims 32 and 16) or phase 20 (head dims 96 and 80).
+phase 18 (head dims 32 and 16), phase 20 (head dims 96 and 80) or phase
+22 (head dim 256).
 
-    python3 hack/torch_serve_heads_phase.py [--phase 18|20] [--json PATH]
+    python3 hack/torch_serve_heads_phase.py [--phase 18|20|22] [--json PATH]
 
 Builds the kernels (printing each source's nvcc seconds) and prints
-ptxas's registers and spills and the HGMMA count of the phase's
-tensor-core instances of the forward and of its timed decode instances,
+ptxas's registers and spills of every instance of the phase's forward
+and decode sources, and the HGMMA count of its tensor-core instances,
 then runs chip_smoke.py's functions of the phase in its order: #1/#2, #4
 on a bf16 and an int8 cache and #5 on both at each of its head dims
 against their plain versions and timed (``serve_kernels``); flash against
 dense in f32 (phase 18: the tiny preset, the fast bench_engine model and
 tiny-moe, ``phase_small_exact``; phase 20: the Phi-3-mini-width and
-H2O-Danube-width models at 2 layers, ``phase_mid_exact``); the bf16
+H2O-Danube-width models at 2 layers, ``phase_mid_exact``; phase 22: the
+Gemma-2B-width model at 2 layers, ``phase_wide_exact``); the bf16
 serving paths with their launches and the refusals
 (``phase_small_serving``: the fast bench_moe_decode and bench_engine
 twins, tiny and tiny-moe; ``phase_mid_serving``: both models at full
-depth); then the timed calls' device times. Prints each step's seconds;
+depth; ``phase_wide_serving``: Gemma-2B's width at 18 layers); then the
+timed calls' device times. Phase 22 also times #1 at the D = 128 training
+row's shape (``wide_train_shape``). Prints each step's seconds;
 with ``--json`` also writes the rows, the launches and the report there.
 Exits non-zero on any failed check, as chip_smoke.py does. Imports
 nothing of JAX.
@@ -35,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=(18, 20), default=18)
+    ap.add_argument("--phase", type=int, choices=(18, 20, 22), default=18)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -60,22 +64,37 @@ def main() -> None:
             torch, tl, tm, td, te, tms, bench, dev)
         serving = lambda: cs.phase_small_serving(   # noqa: E731
             torch, tl, tm, td, te, tfa, bench, dev)
-    else:
+    elif args.phase == 20:
         dims = cs.MID_HEADS
         exact = lambda: cs.phase_mid_exact(   # noqa: E731
             torch, tl, tm, td, te, dev)
         serving = lambda: cs.phase_mid_serving(   # noqa: E731
+            torch, tl, td, te, tfa, dev)
+    else:
+        dims = cs.WIDE_HEADS
+        exact = lambda: cs.phase_wide_exact(   # noqa: E731
+            torch, tl, tm, td, te, dev)
+        serving = lambda: cs.phase_wide_serving(   # noqa: E731
             torch, tl, td, te, tfa, dev)
     print(cs.card_line(), flush=True)
     t0 = time.perf_counter()
     logs = _cuda.build()
     print(f"build {time.perf_counter() - t0:.1f} s, a source "
           f"{json.dumps(_cuda.BUILD_SECONDS)}", flush=True)
+    for name in sorted({_cuda.entry(k, D) for D in dims
+                        for k in ("flash_fwd", "flash_decode")}):
+        for fn, info in cs.ptxas_info(logs.get(name, "")).items():
+            print(f"  {name}: {fn}: {info}")
     reports = {D: cs.serve_build_report(_cuda, tfa, logs, D) for D in dims}
     deferred = []
     t = t0 = time.perf_counter()
+    # phase 22's rows read beside the D = 128 rows of the same calls
+    ref = [] if args.phase != 22 else cs.serve_kernels(
+        torch, tfa, td, dev, deferred, 128)
     rows = [r for D in dims
             for r in cs.serve_kernels(torch, tfa, td, dev, deferred, D)]
+    if args.phase == 22:
+        rows[0]["at_train_shape"] = cs.wide_train_shape(torch, tfa, dev)
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     exact_report = exact()
@@ -89,6 +108,8 @@ def main() -> None:
     print(f"device times {time.perf_counter() - t:.1f} s", flush=True)
     for build_report in reports.values():
         cs.serve_reports(rows, build_report)
+    if ref:
+        cs.beside_d128(rows, {r["name"]: r for r in ref})
     for r in rows:
         name, D = r["name"].rsplit("_d", 1)
         r["launches"] = launches[int(D)][name]

@@ -18,12 +18,14 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
-96 and 128 (HEAD_DIMS): the forward, cached and decode kernels at each,
+96 and 128 (HEAD_DIMS), the serving kernels also at 256
+(SERVE_HEAD_DIMS): the forward, cached and decode kernels at each,
 the backward and triangle kernels at 128 and in the ``*_at_head_dim_64``,
 ``*_at_head_dims_32_and_16`` and ``*_at_head_dims_96_and_80`` tests, and
 autograd through them at 80 and 96
 (``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses
-head dim 100 before any launch).
+head dim 100 before any launch); at 256 a training call is refused before
+any launch (``test_head_dim_256_serves_and_refuses_training``).
 """
 
 import ctypes
@@ -50,8 +52,10 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of every kernel
+# the head dims of every kernel, and of the serving kernels (flash_fwd,
+# flash_decode) alone
 HEAD_DIMS = [16, 32, 64, 80, 96, 128]
+SERVE_HEAD_DIMS = HEAD_DIMS + [256]
 
 
 @pytest.fixture
@@ -95,7 +99,7 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
@@ -103,7 +107,8 @@ def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
                                  layout, D):
     """The forward (bf16: the tensor-core instance) against the plain
     version, at head dims 16, 32 (the D = 64 tile partly filled), 64, 80,
-    96 (the D = 128 tile partly filled) and 128. q contiguous, a strided
+    96 (the D = 128 tile partly filled), 128 and 256 (the output's column
+    halves). q contiguous, a strided
     view the
     kernels take as it is, or a view whose row stride is no whole number
     of 16-byte chunks: a direct bf16 launch refuses it (ValueError),
@@ -154,7 +159,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -198,7 +203,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -208,8 +213,9 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     among the CTAs the host plans, partials merged by a second launch)
     against the plain version, at the edge cases of the shares, at head
     dims 16, 32, 64 (the block's 8, 4 or 2 row groups on interleaved
-    rows), 80, 96 (one row group, D of the 128 threads owning a column)
-    and 128; one count on the int8 or the other counter."""
+    rows), 80, 96 (one row group, D of the 128 threads owning a column),
+    128 and 256 (each thread two columns; an f32 cache in one ring stage);
+    one count on the int8 or the other counter."""
     g = torch.Generator(dev).manual_seed(12)
     q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads,
                                   D=D)
@@ -224,7 +230,7 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
 def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
@@ -278,7 +284,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -433,6 +439,58 @@ def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
                                                triangular=True)):
         with pytest.raises(ValueError, match="head dim 100"):
+            fn()
+    assert not any(tfa.LAUNCHES.values())
+
+
+def test_head_dim_256_serves_and_refuses_training(dev):
+    """At head dim 256 (Gemma-2B's 8/1 heads) the serving kernels run:
+    the self-attention forward under no_grad (one flash_fwd launch), a
+    cached prefill and decode steps (S = 1 and 5) on a bf16 and an int8
+    cache, each within 1e-2 of the plain version in bf16 (lse within
+    1e-4); a forward whose input requires grad, triangular=True and the
+    backward (rectangular and triangle) raise ValueError naming head dim
+    256 before any launch (the backward and triangle kernels are not built
+    for it)."""
+    g = torch.Generator(dev).manual_seed(19)
+    D, Hq, Hkv, ML = 256, 8, 1, 1024
+    bf = torch.bfloat16
+    q, k, v = (_randn(g, 2, 256, h, D, dtype=bf, dev=dev)
+               for h in (Hq, Hkv, Hkv))
+    tfa.reset_launches()
+    with torch.no_grad():
+        out, lse = tfa.flash_attention_with_lse(q.clone().requires_grad_(),
+                                                k, v)
+    ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                       v.transpose(1, 2), 0)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {"flash_fwd": 1}
+    assert _err(out, ref) < TOL[bf] and _err(lse, ref_lse) < 1e-4
+    st = torch.tensor([700, 333], dtype=torch.int32, device=dev)
+    for int8 in (False, True):
+        qc, kc, vc, kw = _cache_inputs(g, dev, bf, 2, 128, ML, int8, [0, 37],
+                                       Hq=Hq, Hkv=Hkv, D=D)
+        tfa.reset_launches()
+        with torch.no_grad():
+            got = tfa.flash_attention_cached(qc, kc, vc, 256, **kw)
+            steps = [(S, tfa.flash_attention_decode(qc[:, :S], kc, vc, st,
+                                                     **kw)) for S in (1, 5)]
+        sfx = "_int8" if int8 else ""
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            "flash_cached" + sfx: 1, "flash_decode" + sfx: 2}
+        assert _err(got, tfa.attention_plain(qc, kc, vc, 256, **kw)[0]) \
+            < TOL[bf]
+        for S, o in steps:
+            assert _err(o, tfa.attention_plain(qc[:, :S], kc, vc, st,
+                                               **kw)[0]) < TOL[bf]
+    lse = torch.zeros(2, Hq, 256, device=dev)
+    tfa.reset_launches()
+    for fn in (lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
+               lambda: tfa.flash_attention(q, k, v, triangular=True),
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
+                                               triangular=True)):
+        with pytest.raises(ValueError, match="head dim 256"):
             fn()
     assert not any(tfa.LAUNCHES.values())
 

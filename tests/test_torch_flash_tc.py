@@ -17,8 +17,9 @@ No CUDA kernel runs here, so the tests hold:
   fold (int8 widened to bf16, scales on the score and P columns) against
   the same JAX functions in int8 mode; each at head dims 64, 128, 80 and
   96 (every kernel takes them; dQ's replay at 64, 80 and 96 is those
-  backward instances' arithmetic), the forward-only replays also at 16
-  and 32;
+  backward instances' arithmetic), the forward-only replays also at 16,
+  32 and 256 (at 256 each CTA computes one half of the output's columns
+  with the whole row's scores, m and l: the same arithmetic a column);
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -32,9 +33,12 @@ No CUDA kernel runs here, so the tests hold:
   kernel library built and no plain fallback; D = 32 and 16 reach
   ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
   and triangle kernels; D = 80 and 96 reach every kernel (their mid
-  entries), through autograd and ``triangular=True`` too; D = 8, 24, 48,
-  100 and 112 are refused by every kernel, each with a ValueError naming
-  the head dim.
+  entries), through autograd and ``triangular=True`` too; D = 256 reaches
+  ``flash_fwd`` and ``flash_decode`` (their wide entries) and is refused
+  by the backward and triangle kernels, through autograd and
+  ``triangular=True`` too, before any launch; D = 8, 24, 48, 100 and 112
+  are refused by every kernel, each with a ValueError naming the head
+  dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -104,9 +108,9 @@ def _rel(got, want):
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
              pytest.param(80, id="d80"), pytest.param(96, id="d96")]
 # the forward-only replays also at 32 and 16 (the D = 64 tile partly
-# filled)
+# filled) and at 256 (the output's column halves)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS]
+                 *HEAD_DIMS, pytest.param(256, id="d256")]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -616,6 +620,72 @@ def test_head_dims_80_and_96_reach_the_serving_kernels_alone(
         assert _cuda.entry(kernel, D) == kernel + "_mid"
         assert _cuda.ENTRIES[kernel + "_mid"][0] == "flash_tri_mid"
         assert _cuda.entry(kernel, 128) == kernel
+
+
+def test_head_dim_256_reaches_the_serving_kernels_alone(launches, no_build,
+                                                        tri_grid):
+    """At head dim 256 (Gemma-2B's 8/1 heads; here its MQA at 4/1):
+    flash_attention_with_lse and flash_attention under no_grad,
+    flash_attention_cached on a bf16 and an int8 cache, and
+    flash_attention_decode on both (S = 1 and S = 5) reach their launches
+    with D = 256 and the C entries of csrc/flash_fwd_wide.cu and
+    csrc/flash_decode_wide.cu; the backward and triangle kernels are not
+    built for it: a forward whose input requires grad, triangular=True
+    (forward, and with grad), flash_attention_bwd (rectangular and
+    triangle) and each direct backward or triangle launch raise ValueError
+    naming head dim 256 before any launch or grid query, no library built
+    and no plain fallback; every other kernel keeps its own entry at 256."""
+    D, S, Hq, Hkv, ML = 256, 128, 4, 1, 256
+    q, k, v = _bf16(50, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+    kc, vc = _bf16(51, (1, Hkv, ML, D), (1, Hkv, ML, D))
+    (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+    i8 = dict(k_scale=ks, v_scale=vs)
+    with torch.no_grad():
+        tfa.flash_attention_with_lse(q, k, v)
+        tfa.flash_attention(q.clone().requires_grad_(), k, v)
+        tfa.flash_attention_cached(q, kc, vc, 64)
+        tfa.flash_attention_cached(q, k8, v8, 64, **i8)
+        tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
+        tfa.flash_attention_decode(q[:, :5], k8, v8, 100, **i8)
+    assert [(kernel, a.D, a.kv_dtype) for kernel, a in launches] == [
+        ("flash_fwd", D, 1), ("flash_fwd", D, 1), ("flash_fwd", D, 1),
+        ("flash_fwd", D, 2), ("flash_decode", D, 1), ("flash_decode", D, 2)]
+    assert [_cuda.entry(kernel, a.D) for kernel, a in launches] == [
+        "flash_fwd_wide"] * 4 + ["flash_decode_wide"] * 2
+    for kernel in ("flash_fwd", "flash_decode"):
+        assert _cuda.ENTRIES[kernel + "_wide"][0] == kernel + "_wide"
+        assert _cuda.entry(kernel, 128) == kernel
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
+                   "flash_bwd_dq_tri", "flash_bwd_dkv_tri"):
+        assert _cuda.entry(kernel, D) == kernel
+
+    launches.clear()
+    lse = torch.zeros(1, Hq, S)
+    refused = {
+        "the backward kernels take": [
+            lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
+            lambda: tfa.flash_attention_with_lse(
+                q, k, v.clone().requires_grad_())],
+        "the triangle kernels take": [
+            lambda: tfa.flash_attention(q, k, v, triangular=True),
+            lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v,
+                                        triangular=True)],
+        "flash_bwd_dq takes": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q)],
+        "flash_bwd_dkv takes": [lambda: tfa._launch_bwd(
+            "flash_bwd_dkv", q, k, v, q, lse, lse, causal=True, scale=1.0)],
+        "flash_bwd_dq_tri takes": [lambda: tfa.flash_attention_bwd(
+            q, k, v, q, lse, q, triangular=True)],
+        "flash_fwd_tri takes": [lambda: tfa._launch_tri(
+            "flash_fwd_tri", q, k, v, scale=1.0)],
+        "flash_bwd_dkv_tri takes": [lambda: tfa._launch_tri(
+            "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
+            delta=lse)]}
+    for what, fns in refused.items():
+        for fn in fns:
+            with pytest.raises(ValueError, match=f"head dim {D}: {what}"):
+                fn()
+    assert launches == [] and tri_grid == []
 
 
 @pytest.mark.parametrize("D", [16, 32])
