@@ -375,14 +375,41 @@ Phases, each of which exits non-zero on a failed check:
    left-padded one on a bf16 and on an int8 cache and a ServeEngine pass,
    the launches read equal to the path's prediction (``d256_serving``),
    tokens/s, peak memory and the parameter count, then a forward that
-   requires grad, triangular=True and the backward at head dim 256 (whose
-   backward and triangle kernels are later work) refused, naming it,
-   before any launch.
+   requires grad, triangular=True and the backward at head dim 192 (a
+   multiple of 16 past 128 that no source builds) refused, naming it,
+   before any launch;
+23. head dim 256 in training (the D = 256 instances of #6/#7 and
+   #3/#8/#9, built from flash_bwd_wide.cu and flash_tri_wide.cu: the
+   register-A products in column halves of 128, dQ's two in one CTA, the
+   forward's and dK/dV's one a CTA, S and dP whole; the triangle's
+   forward and dK/dV rows one (batch, head, half) each): (a) in phase
+   1, the ptxas registers, spills and HGMMA of their five tensor-core
+   instances (every instance's ptxas with the build's); (b) at Gemma-2B's
+   8/1 heads and at the D = 128 training row's 16/8, #6/#7 (with #1's
+   forward) at mid_bwd_cases (causal, non-causal, a window of 1024, with
+   and without an lse cotangent, a ragged S), and #3/#8/#9 called directly
+   at 8/1 (small_tri_cases, S up to 4096), bf16 (1e-2) and f32 (1e-4;
+   gradients relative to the largest plain one), against their plain
+   versions, and triangular=True through the wrapper at (1, 4096) with
+   RESIDENT_KV_BUDGET lowered for the call; (c) in bf16 #1, #6 and #7
+   timed at the D = 128 training row's (8, 2048, 16/8) and the tri kernels
+   at (1, 32768, 8/4), beside their plain versions, SDPA's
+   torch.autograd.grad, the bound and the D = 128 row's time of the same
+   call (the ``*_d256`` rows of #6-#9, ``d128_ms``); (d) Gemma-2B's widths
+   cut to 2 layers, three f32 train steps flash against dense
+   (train_exact's wide gate); (e) bf16 with remat, f32 masters and AdamW
+   at full width and depth (18 layers) at WIDE_TRAIN_STEPS (1, 4096), a
+   warm-up and WIDE_STEPS steps, the loss falling, launches #1 2·18·steps
+   and #6/#7 18·steps and nothing else, peak memory (``d256_train``); (f)
+   a triangular=True forward and backward at (1, 32768) at Gemma's own
+   8/1 heads, where the natural budget takes flash_fwd_tri, against the
+   rectangular kernels and timed (``d256_long``), each path's launches
+   read alone.
 Phases 2, 16, 18, 20 and 22 check and time the serving kernels through
-one function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19
-and 21 the training kernels (train_kernels; phase_train_kernels at 19 and
-21); then the phase-2, 9, 10, 14, 16, 18, 20 and 22 rows' device times,
-the card line, the kernels line and, last, the device line.
+one function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19,
+21 and 23 the training kernels (train_kernels; phase_train_kernels at 19,
+21 and 23); then the phase-2, 9, 10, 14, 16, 18, 20 and 22 rows' device
+times, the card line, the kernels line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -5264,10 +5291,10 @@ def serve_paths(torch, tl, td, te, tfa, dev, models, seed):
 
 
 def training_refused(torch, tfa, dev, D, Hq, Hkv, seed):
-    """At head dim D, which the backward and triangle kernels do not take,
-    a forward whose input requires grad, triangular=True and the backward
-    (rectangular and triangle) raise ValueError naming it, with no launch.
-    Returns the report's line."""
+    """At head dim D, which no kernel takes, a forward whose input
+    requires grad, triangular=True and the backward (rectangular and
+    triangle) raise ValueError naming it, with no launch. Returns the
+    report's line."""
     gq = torch.Generator(dev).manual_seed(seed)
     tfa.reset_launches()
     q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
@@ -5450,15 +5477,71 @@ def phase_wide_serving(torch, tl, td, te, tfa, dev):
     (wide_models, 18 layers) through serve_paths (generate fresh,
     left-padded and on an int8 cache, a ServeEngine pass; launches equal
     to the prediction, tokens/s, peak memory, parameters); then, at head
-    dim 256, which the backward and triangle kernels do not take, a
-    training call refused by name before any launch (training_refused).
-    Returns ({256: launches}, report)."""
+    dim 192 (a multiple of 16 past 128 that no source builds; 256 trains
+    in phase 23), a training call refused by name before any launch
+    (training_refused). Returns ({256: launches}, report)."""
     models = {D: ("Gemma-2B", cfg) for D, cfg in wide_models(tl).items()}
     launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
                                    SEED + 114)
-    report["refusals"] = training_refused(torch, tfa, dev, 256, 8, 1,
+    report["refusals"] = training_refused(torch, tfa, dev, 192, 8, 1,
                                           SEED + 115)
     return launches, report
+
+
+# phase 23: head dim 256 in training, at the phase-22 model's heads
+# (WIDE_HEADS). #6/#7 checked as phase 21's at Gemma-2B's 8/1 heads and at
+# the D = 128 training row's 16/8; #3/#8/#9 and the wrapper's triangle at
+# S 4096 at 8/1; the bf16 training run at full width and depth (18 layers)
+# at (1, 4096): the f32 masters, gradients and AdamW moments of 3.03e9
+# parameters are ~48.5 GB, the f32 logits [4096, 256000] and their
+# gradient ~4.2 GB each; the long pass at (1, 32768) with Gemma's own 8/1
+# heads, where the natural budget takes flash_fwd_tri (at D = 256 in bf16
+# from S > 6144)
+WIDE_TRI_S = 4096
+WIDE_TRAIN_STEPS = (1, 4096)          # B, S of the bf16 training steps
+WIDE_STEPS = 5
+WIDE_LONG = (1, 32768, 8, 1)
+WIDE_TRAIN_SPECS = {
+    D: (Hq, Hkv, mid_bwd_cases(Hq, Hkv, window)
+        + mid_bwd_cases(*WIDE_TRAIN_SHAPE[2:], None),
+        small_tri_cases(Hq, Hkv, WIDE_TRI_S), WIDE_TRI_S, SEED + 120)
+    for D, (Hq, Hkv, window) in WIDE_HEADS.items()}
+
+
+def phase_wide_train_exact(torch, tl, tm, tt, dev):
+    """Phase 23 (d): Gemma-2B's widths (wide_models) cut to 2 layers,
+    three f32 train steps flash against dense (train_exact, wide: the
+    first step's gradients and params held)."""
+    models = tuple((f"{name} width, 2 layers",
+                    dataclasses.replace(cfg, n_layers=2), False)
+                   for name, cfg in zip(("Gemma-2B",),
+                                        wide_models(tl).values()))
+    return train_exact(torch, tm, tt, models, dev, SEED + 122, wide=True)
+
+
+def phase_wide_train(torch, tl, tt, tfa, dev):
+    """Phase 23 (e), (f): the main path at head dim 256, its launches
+    read alone: the Gemma-2B-width model (wide_models, 18 layers) trained
+    in bf16 (f32 masters, remat, AdamW) at WIDE_TRAIN_STEPS (``d256_train``:
+    a warm-up and WIDE_STEPS steps, the loss falling, #1 2·L·steps
+    launches and #6/#7 L·steps, peak memory), then a triangular=True pass
+    at WIDE_LONG (``d256_long``). Every one of #6, #7, #3, #8 and #9
+    launches. Returns ({256: {path: launches}}, report)."""
+    by_dim, report = {D: {} for D in WIDE_HEADS}, {}
+    for D, cfg in wide_models(tl).items():
+        check(cfg.head_dim == D, f"head dim {cfg.head_dim}, expected {D}")
+        by_dim[D][f"d{D}_train"], report[f"d{D}_train"] = train_steps(
+            torch, tt, tfa, cfg, f"Gemma-2B width ({cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {D}, {cfg.n_layers} layers)", dev,
+            WIDE_TRAIN_STEPS, WIDE_STEPS)
+        by_dim[D][f"d{D}_long"], report[f"d{D}_long"] = long_pass(
+            torch, tfa, dev, D, WIDE_LONG, SEED + 123)
+    for D, paths in by_dim.items():
+        for name in D64_TRAIN_ROWS:
+            n = sum(v.get(name, 0) for v in paths.values())
+            check(n > 0, f"{name}: no launch at head dim {D}")
+    print(f"head dim 256 in training: {json.dumps(report)}")
+    return by_dim, report
 
 
 def main() -> int:
@@ -5513,6 +5596,9 @@ def main() -> int:
     print("head dims 96 and 80 in training (phase 21):")
     mid_train_tc_report = tc_build_report(
         _cuda, logs, train_tc_kernels(_cuda, MID_HEADS))
+    print("head dim 256 in training (phase 23):")
+    wide_train_tc_report = tc_build_report(
+        _cuda, logs, train_tc_kernels(_cuda, WIDE_HEADS))
 
     t0 = time.perf_counter()
     deferred = []
@@ -5733,6 +5819,20 @@ def main() -> int:
     print(f"head dim 256 serving {time.perf_counter() - t0:.1f} s; head "
           f"dim 256 phase {time.perf_counter() - t22:.1f} s")
     torch.cuda.empty_cache()
+    t23 = t0 = time.perf_counter()
+    wide_train_fwd, wide_train_rows, wide_fwd_err = phase_train_kernels(
+        torch, tfa, _cuda, dev, WIDE_TRAIN_SPECS)
+    print(f"head dim 256 training kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wide_train_exact = phase_wide_train_exact(torch, tl, tm, tt, dev)
+    print(f"head dim 256 exact training {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_train, wide_train_report = phase_wide_train(torch, tl, tt, tfa, dev)
+    wide_train_report["exact"] = wide_train_exact
+    print(f"head dim 256 training paths {time.perf_counter() - t0:.1f} s; "
+          f"head dim 256 training phase {time.perf_counter() - t23:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
@@ -5859,17 +5959,17 @@ def main() -> int:
     # path's count at that head dim; at 96 and 80 also the D = 128 row's
     # time of the same call (phase 5's #6/#7, phase 8's tri rows)
     by_name = {r["name"]: r for r in rows}
-    train_paths = {**small_train, **mid_train}
-    for r in small_train_rows + mid_train_rows:
+    train_paths = {**small_train, **mid_train, **wide_train}
+    for r in small_train_rows + mid_train_rows + wide_train_rows:
         name, D = r["name"].rsplit("_d", 1)
         paths = train_paths[int(D)]
         r["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
         r["launches"] = paths[f"d{D}_long" if name.endswith("_tri")
                               else f"d{D}_train"][name]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
-        r.update({**small_train_tc_report, **mid_train_tc_report}.get(
-            r["name"], {}))
-        if int(D) in MID_HEADS:
+        r.update({**small_train_tc_report, **mid_train_tc_report,
+                  **wide_train_tc_report}.get(r["name"], {}))
+        if int(D) in MID_HEADS or int(D) in WIDE_HEADS:
             r["d128_ms"] = by_name[name]["ms"]
     # the head-dim-256 instances: launches across phase 22's full-size
     # run, ptxas of the timed ones; beside each timed call at the D = 128
@@ -5881,12 +5981,16 @@ def main() -> int:
         r["launches"] = wide[256][name]
         r["launches_by_path"] = {"d256_serving": wide[256][name]}
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
-        if name == "flash_fwd":
+        if name == "flash_fwd":     # and its training paths (phase 23)
             r["at_train_shape"] = wide_fwd_train
+            r["at_train_shape_with_lse"] = wide_train_fwd[256]
             r["max_abs_err"] = max(r["max_abs_err"],
-                                   wide_fwd_train["max_abs_err"])
+                                   wide_fwd_train["max_abs_err"],
+                                   wide_fwd_err[256])
+            r["launches_by_path"].update(
+                {k: v.get(name, 0) for k, v in wide_train[256].items()})
     rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
-        + mid_rows + mid_train_rows + wide_rows
+        + mid_rows + mid_train_rows + wide_rows + wide_train_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
@@ -5895,6 +5999,7 @@ def main() -> int:
     print(f"head dims 96 and 80: {json.dumps(mid_report)}")
     print(f"head dims 96 and 80 in training: {json.dumps(mid_train_report)}")
     print(f"head dim 256: {json.dumps(wide_report)}")
+    print(f"head dim 256 in training: {json.dumps(wide_train_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -18,10 +18,11 @@
 // The bf16 instances run on the tensor cores through flash_tc.cuh's tile
 // steps (wgmma on swizzled bf16 tiles, cp.async rings, one warpgroup a
 // block, tc::DQ_TC_BLOCKS and tc::DKV_TC_BLOCKS CTAs an SM: two from
-// D = 80 up), shared with flash_tri.cuh; the f32 instances are f32
-// FMA from shared memory, the exactness instances. Every instance takes
-// head dim 16, 32, 64, 80, 96 or 128 (flash_bwd.cu's C entries 16, 32, 64
-// and 128, flash_bwd_mid.cu's 80 and 96; each refuses any other D): at 32
+// D = 80 up, one at 256), shared with flash_tri.cuh; the f32 instances are
+// f32 FMA from shared memory, the exactness instances. Every instance takes
+// head dim 16, 32, 64, 80, 96, 128 or 256 (flash_bwd.cu's C entries 16, 32,
+// 64 and 128, flash_bwd_mid.cu's 80 and 96, flash_bwd_wide.cu's 256; each
+// refuses any other D): at 32
 // and 16 (the tiny presets' and the fast bench_engine model's heads) the
 // bf16 tiles are the D = 64 atom partly filled; at 80 and 96
 // (H2O-Danube-1.8B's and Phi-3-mini's heads) D = 128's two atoms, the
@@ -33,8 +34,21 @@
 // product's MN-major operand is no whole number of 128-byte swizzle
 // atoms). At both the pad is zeroed once at the kernel's start
 // (wg::zero_pad); the f32 instances take D / 8 columns a lane as at every
-// D. What the design does about the bound is to do only live work and no
-// redundant passes:
+// D. At 256 (Gemma-2B's 8/1 heads) the bf16 instances take S and dP (S^T
+// and dP^T) over the whole D in 16 k-steps on four-atom tiles, and split
+// the register-A products into column halves of 128, D = 128's m64n128k16
+// into its 64 floats (tc::half_at): dQ keeps both halves in one CTA (two
+// accumulators beside S and dP: 255 registers, no spill), dK/dV gives each
+// half a CTA of its own (tc::out_cols; two a (batch * kv head, key tile),
+// side by side in the grid), since dK's and dV's 2 x 128 floats beside
+// S^T and dP^T would pass 255 registers; both compute S^T and dP^T whole,
+// about 1.5x the tensor work of one CTA (later work). 193 and 194 KB of
+// shared memory, one CTA an SM. The f32 dQ at 256 walks
+// each 64-key tile as two of 32 keys (DQ_BK), so that its shared memory
+// (206 KB) fits the 227 KB a block may have; its f32 dQ and dK/dV hold 128
+// accumulator floats a thread (the exactness instances; ptxas's spills are
+// in PERF.md). What the design does about the bound is to do only live
+// work and no redundant passes:
 //   - dQ: one block per (batch * q-head, 64-row query tile) that loops over
 //     the live key tiles only (causal frontier, window band:
 //     fa::live_keys), the loop-bound counterpart of the TPU's sequential kv
@@ -79,8 +93,8 @@ constexpr int DKV_BQ = 64;     // dK/dV: query tile, 8 lanes x 8 columns
 
 template <int D>
 constexpr size_t dq_smem() {   // sQ, sdO [BR][D+1]; sK, sV [BK][D+1]; sdS [BR][BK+1]
-  return sizeof(float) * (2 * 16 * DQ_RPT * (D + 1) + 2 * fa::BK * (D + 1) +
-                          16 * DQ_RPT * (fa::BK + 1));
+  return sizeof(float) * (2 * 16 * DQ_RPT * (D + 1) + 2 * fa::DQ_BK<D> * (D + 1) +
+                          16 * DQ_RPT * (fa::DQ_BK<D> + 1));
 }
 
 template <int D>
@@ -91,7 +105,7 @@ constexpr size_t dkv_smem() {  // sK, sV [BKV][D+1]; sQ, sdO [BQ][D+1]; sP, sdS 
 
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs a) {
-  constexpr int RPT = DQ_RPT, BR = 16 * RPT, BK = fa::BK;
+  constexpr int RPT = DQ_RPT, BR = 16 * RPT, BK = fa::DQ_BK<D>;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + BR * (D + 1);
@@ -128,8 +142,8 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   const int2 keys = fa::live_keys(q0, min(q0 + BR, a.S) - 1, a.S, a.causal, a.window);
   for (int kv0 = keys.x / BK * BK; kv0 < keys.y; kv0 += BK)
-    fa::dq_tile<T, D, RPT>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb, a.k_ss,
-                           a.v_ss, kv0, a.S, a.causal, a.window, a.scale);
+    fa::dq_tile<T, D, RPT, BK>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb,
+                               a.k_ss, a.v_ss, kv0, a.S, a.causal, a.window, a.scale);
 
   T* dq = static_cast<T*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
@@ -200,21 +214,26 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
 }
 
 // The bf16 instance: one warpgroup per (batch * kv-head, 64-key tile) on the
-// tensor cores, over the 64-query tiles that hold the live query range;
-// one tile spans the head dim D.
+// tensor cores, and at D = 256 per column half of it (HALVES), over the
+// 64-query tiles that hold the live query range; one tile spans the head
+// dim D, dK and dV the CTA's DV columns.
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
     flash_bwd_dkv_tc_kernel(FlashBwdArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
+  constexpr int DV = tc::out_cols<D>;
+  constexpr int HALVES = D / DV;
   // below D = 64, and at 80 and 96, the chunks past D of K, V and both
   // Q/dO stages, published with the walk's first copies (if constexpr: at
   // D = 64 and 128 even the empty loop moved the compiled kernel's
   // registers)
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(tc::tiles() + i * wg::tile_bytes<D>());
-  const int b = blockIdx.x / a.Hkv;
-  const int kvh = blockIdx.x % a.Hkv;
+  const unsigned bh = HALVES > 1 ? blockIdx.x / HALVES : blockIdx.x;
+  const int half = HALVES > 1 ? static_cast<int>(blockIdx.x % HALVES) : 0;
+  const int b = bh / a.Hkv;
+  const int kvh = bh % a.Hkv;
   const int k0 = blockIdx.y * E;
   const long long rows = static_cast<long long>(b) * a.Hq * a.S;
   const tc::DkvSrc src{static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
@@ -231,14 +250,17 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   const int2 queries = fa::live_queries(k0, min(k0 + E, a.S) - 1, a.S, a.causal, a.window);
   const int qt1 = (queries.y + E - 1) / E;   // one past the last live query tile
   tc::dkv_walk_tc<D>(dk, dv, tc::tiles(), src, k0, qt1 - 1, qt1 - queries.x / E,
-                     tc::RectMask{a.S, a.causal, a.window});
-  tc::dkv_store<D>(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh, a.dk_ss,
-                   static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh, a.dv_ss, k0, a.S);
+                     tc::RectMask{a.S, a.causal, a.window}, half);
+  tc::dkv_store<D>(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh + half * DV,
+                   a.dk_ss,
+                   static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh + half * DV, a.dv_ss,
+                   k0, a.S);
 }
 
 // The bf16 dQ instance: one warpgroup per (batch * q-head, 64-query tile)
 // on the tensor cores, over the tiles that hold the live key range; one
-// tile spans the head dim D.
+// tile spans the head dim D (at 256 dQ in two column halves of
+// accumulator, tc::dq_acc).
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
     flash_bwd_dq_tc_kernel(FlashBwdArgs a) {
@@ -259,12 +281,11 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
   const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-  constexpr int ACC = tc::acc_floats<D>;
-  float lse2[2], delta[2], acc[ACC];
+  float lse2[2], delta[2];
+  tc::dq_acc<D> acc;
   bool live[2];
   tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
-#pragma unroll
-  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+  tc::zero(acc);
   const int2 keys = fa::live_keys(q0, min(q0 + E, a.S) - 1, a.S, a.causal, a.window);
   const tc::RectMask mask{a.S, a.causal, a.window};
   const float sl2 = a.scale * tc::kLog2e;
@@ -275,9 +296,7 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
                    tc::dq_tile_tc<D>(acc, sQ, sdO, sK, lse2, delta, live, q0, j * E, sl2,
                                      a.scale, mask);
                  });
-  const float one[2] = {1.f, 1.f};
-  tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss,
-                         q0, a.S, one);
+  tc::store_dq<D>(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0, a.S);
 }
 
 template <typename T, int D>
@@ -303,7 +322,8 @@ cudaError_t launch_dq(const FlashBwdArgs& a, cudaStream_t stream) {
 }
 
 // The grid flash_bwd_dkv launches: one block per (batch * kv head, tile of
-// keys), the tile 64 keys on the tensor cores (bf16) or 16 * DKV_KPT (f32).
+// keys), the tile 64 keys on the tensor cores (bf16) or 16 * DKV_KPT (f32);
+// launch_dkv gives each column half of it a block at D = 256 in bf16.
 template <typename T>
 dim3 dkv_grid(int B, int Hkv, int S) {
   constexpr int edge = std::is_same<T, __nv_bfloat16>::value ? tc::E : 16 * DKV_KPT;
@@ -325,7 +345,9 @@ cudaError_t launch_dkv(const FlashBwdArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   void* args[] = {const_cast<FlashBwdArgs*>(&a)};
-  e = cudaLaunchKernel(fn, dkv_grid<T>(a.B, a.Hkv, a.S), dim3(fa::NTHREADS), args, smem, stream);
+  dim3 grid = dkv_grid<T>(a.B, a.Hkv, a.S);
+  if constexpr (tensor_cores) grid.x *= D / tc::out_cols<D>;   // at D = 256 a block a half
+  e = cudaLaunchKernel(fn, grid, dim3(fa::NTHREADS), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

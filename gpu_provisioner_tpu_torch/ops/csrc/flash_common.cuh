@@ -373,47 +373,56 @@ __device__ __forceinline__ void load_rows(float* dst, int n, const T* base, long
   }
 }
 
-// One dQ tile of the backward (_bwd_dq_step): keys kv0 .. kv0 + BK - 1 of
+// The key tile of the f32 dQ step (dq_tile) at head dim D: BK, and at D =
+// 256 half of it, so that the step's f32 Q, dO, K and V rows fit in a
+// block's shared memory (206 KB; with 64 keys 273 KB, past the 227 KB a
+// block may have).
+template <int D>
+constexpr int DQ_BK = D > 128 ? BK / 2 : BK;
+
+// One dQ tile of the backward (_bwd_dq_step): keys kv0 .. kv0 + TK - 1 of
 // one (batch, kv head) (`kb` / `vb` at its first key) against the block's
 // 16 * RPT query rows, already in sQ / sdO with their lse and delta in
 // registers: S = Q K^T and dP = dO V^T for the thread's rows x columns,
 // dS = P o (dP - delta) * scale into sdS, acc += dS K. Self-attention at
-// positions 0..S-1 (no pads or sinks). Rows owned as in the forward.
-template <typename T, int D, int RPT>
+// positions 0..S-1 (no pads or sinks). Rows owned as in the forward; TK
+// keys (BK, or DQ_BK<D>), TK / 8 a lane.
+template <typename T, int D, int RPT, int TK = BK>
 __device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV, float* sdS,
                         float (&acc)[RPT][D / 8], const float (&lse)[RPT],
                         const float (&delta)[RPT], const int (&qpos)[RPT],
                         const bool (&valid)[RPT], const T* kb, const T* vb, long long k_ss,
                         long long v_ss, int kv0, int S, int causal, int window, float scale) {
+  constexpr int NC = TK / 8;
   const int lane_c = threadIdx.x & 7;
   const int rg = threadIdx.x >> 3;
   const int no_sinks = sink_bound(0, 0);
   __syncthreads();   // previous tile's sK / sV reads are done
-  load_rows<T, D>(sK, BK, kb, k_ss, kv0, S);
-  load_rows<T, D>(sV, BK, vb, v_ss, kv0, S);
+  load_rows<T, D>(sK, TK, kb, k_ss, kv0, S);
+  load_rows<T, D>(sV, TK, vb, v_ss, kv0, S);
   __syncthreads();
 
-  float s[RPT][8], dp[RPT][8];
+  float s[RPT][NC], dp[RPT][NC];
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) s[i][c] = dp[i][c] = 0.f;
   for (int d = 0; d < D; ++d) {
-    float qv[RPT], gv[RPT], kv[8], vv[8];
+    float qv[RPT], gv[RPT], kv[NC], vv[NC];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       qv[i] = sQ[(rg * RPT + i) * (D + 1) + d];
       gv[i] = sdO[(rg * RPT + i) * (D + 1) + d];
     }
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       kv[c] = sK[(lane_c + 8 * c) * (D + 1) + d];
       vv[c] = sV[(lane_c + 8 * c) * (D + 1) + d];
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NC; ++c) {
         s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
         dp[i][c] = fmaf(gv[i], vv[c], dp[i][c]);
       }
@@ -422,22 +431,22 @@ __device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV,
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int kp = kv0 + lane_c + 8 * c;
       const bool keep =
           valid[i] && kp < S && attendable(qpos[i], kp, causal, 0, window, no_sinks);
       const float p = p_from_lse(keep, s[i][c] * scale, lse[i]);
-      sdS[(rg * RPT + i) * (BK + 1) + lane_c + 8 * c] = p * (dp[i][c] - delta[i]) * scale;
+      sdS[(rg * RPT + i) * (TK + 1) + lane_c + 8 * c] = p * (dp[i][c] - delta[i]) * scale;
     }
   __syncwarp();   // a row group's dS is written and read by one warp
 
-  for (int kk = 0; kk < BK; ++kk) {
+  for (int kk = 0; kk < TK; ++kk) {
     float kr[D / 8];
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) kr[c] = sK[kk * (D + 1) + lane_c + 8 * c];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const float ds = sdS[(rg * RPT + i) * (BK + 1) + kk];
+      const float ds = sdS[(rg * RPT + i) * (TK + 1) + kk];
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) acc[i][c] = fmaf(ds, kr[c], acc[i][c]);
     }

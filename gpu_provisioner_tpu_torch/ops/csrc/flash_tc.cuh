@@ -32,7 +32,7 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// Every step is generic in the head dim D = 16, 32, 64, 80, 96 or 128, a template
+// Every step is generic in the head dim D = 16, 32, 64, 80, 96, 128 or 256, a template
 // parameter of its own (the accumulator holds acc_floats<D> floats a
 // thread): at D = 64 a tile is one swizzle atom, S = Q K^T (and dP = dO
 // V^T, S^T, dP^T) takes 4 k-steps, and the register-A products (O += P V,
@@ -52,15 +52,20 @@
 // accumulator of 64 floats a thread, its columns D.. computed from the
 // zeroed pad and never stored; shared memory and CTAs an SM as at D = 128
 // (the forward's int8 stages smaller: 70 or 74 KB). At D = 256 (Gemma-2B's
-// 8/1 heads of 256; the forward alone) the output's columns are split in
-// two halves of 128, one a CTA (out_cols): S = Q K^T over the whole D in 16
-// k-steps on four-atom Q and K tiles, the online softmax as at every D, and
-// O += P V over the half's 128 columns of V, D = 128's m64n128k16 into its
-// 64 floats a thread, so every register budget is D = 128's; both halves
+// 8/1 heads of 256) the output's columns are split in two halves of 128,
+// one a CTA (out_cols): S = Q K^T over the whole D in 16 k-steps on
+// four-atom Q and K tiles, the online softmax as at every D, and O += P V
+// over the half's 128 columns of V, D = 128's m64n128k16 into its 64
+// floats a thread, so every register budget is D = 128's; both halves
 // compute S, m and l alike, so every column is what one CTA would give.
 // Shared memory: Q, two stages of K and a V half, 129 KB; with an int8
 // cache Q, the widened K and V half, two int8 stages, 146 KB; one CTA an
-// SM.
+// SM. The dQ step at D = 256 keeps all 256 columns in one CTA: S = Q K^T
+// and dP = dO V^T whole (16 k-steps each), P and dS as at every D, then
+// dQ += dS K as two of D = 128's m64n128k16 products, one a column half of
+// the four-atom K tile read MN-major (the second two atoms in, half_at),
+// into two of D = 128's accumulators (dq_acc; 255 registers, no spill);
+// shared memory Q, dO and two K/V stages, 193 KB, one CTA an SM.
 //
 // dK/dV (FlashAttention-2/3's key-major backward). One warpgroup of 128
 // threads owns a 64-key tile of one (batch, kv head), the wgmma M: its K and
@@ -85,8 +90,16 @@
 // (two tiles), then two stages of Q, dO (four tiles), then two stages of 64
 // lse and 64 delta values (512 bytes each): 97 KB at D = 128, so two CTAs
 // an SM. Registers: dK and dV acc_floats<D> f32 each (D / 2 from 64 up),
-// S^T and dP^T 32 each, a thread.
+// S^T and dP^T 32 each, a thread. At D = 256 a CTA owns one column half of
+// dK and dV (the grid has a CTA for each half, as the forward's):
+// S^T and dP^T over the whole D (16 k-steps), P^T and dS^T rounded as at
+// every D, then dV += P^T dO and dK += dS^T Q over the half's 128 columns
+// of the four-atom dO and Q tiles (half_at), into D = 128's 64 floats
+// each; shared memory 194 KB, one CTA an SM. Both halves compute S^T and
+// dP^T alike, about 1.5x the work of one CTA (later work).
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -121,7 +134,8 @@ __host__ __device__ constexpr size_t dkv_tc_smem() {
 }
 
 // CTAs an SM the backward's tensor-core instances (flash_bwd.cuh's dQ and
-// dK/dV, flash_tri.cuh's dK/dV) are built for, by head dim: two at D = 128
+// dK/dV, flash_tri.cuh's dK/dV) are built for, by head dim: one at D = 256
+// (193 and 194 KB of shared memory); two at D = 128
 // and at 80 and 96 (D = 128's accumulators and shared memory: 97 KB for
 // dK/dV, so three would neither fit nor keep their registers); at D = 64 (and below it, with D = 64's accumulators and shared memory),
 // where a step holds half the accumulators and half the shared memory of
@@ -139,17 +153,31 @@ __host__ __device__ constexpr size_t dkv_tc_smem() {
 #define TC_DKV_BLOCKS_D64 3
 #endif
 template <int D>
-constexpr int DQ_TC_BLOCKS = D > 64 ? 2 : TC_DQ_BLOCKS_D64;
+constexpr int DQ_TC_BLOCKS = D > 128 ? 1 : D > 64 ? 2 : TC_DQ_BLOCKS_D64;
 template <int D>
-constexpr int DKV_TC_BLOCKS = D > 64 ? 2 : TC_DKV_BLOCKS_D64;
+constexpr int DKV_TC_BLOCKS = D > 128 ? 1 : D > 64 ? 2 : TC_DKV_BLOCKS_D64;
 
 // The floats a thread of an accumulator of 64 x (D rounded up to a whole
 // swizzle atom of 64 columns) (the forward's O, dQ, dK, dV): D / 2 at 64
 // and 128, D = 64's 32 below it, D = 128's 64 at 80 and 96 (the columns
-// past D are computed, never stored), and at 256 D = 128's 64 again: the
-// forward's O over the CTA's half of the columns.
+// past D are computed, never stored), and at 256 D = 128's 64 again: O,
+// dK or dV over the CTA's half of the columns, or one of dQ's two halves
+// (dq_acc).
 template <int D>
 constexpr int acc_floats = D < 64 ? 32 : D > 128 ? 64 : (D + 63) / 64 * 32;
+
+// Where column half `half` of a tile of head dim D starts, as the MN-major
+// B operand of a register-A product over out_cols<D> columns (dQ += dS K,
+// dV += P^T dO, dK += dS^T Q): the tile itself below D = 256; at 256 the
+// second half two atoms (16 KB) in, whose MN-major descriptor is then D =
+// 128's over atoms 2 and 3.
+template <int D>
+__device__ __forceinline__ uint32_t half_at(uint32_t tile, int half) {
+  if constexpr (D > 128)
+    return tile + half * wg::tile_bytes<out_cols<D>>();
+  else
+    return tile;
+}
 
 // The query tile of a rectangular grid's block (blockIdx.y), the tiles
 // with the most key tiles first when `descending` (on a causal grid), so
@@ -605,20 +633,36 @@ __device__ __forceinline__ void dq_rows(const float* lse, const float* delta, in
   }
 }
 
-// One dQ step (_bwd_dq_step): queries q0 .. q0 + 63 (Q, dO tiles at sQ, sdO;
-// their rows' dq_rows) against keys k0 .. k0 + 63 (K, V tiles at sK, sK +
-// TILE), the copies waited for and published; head dim D, acc_floats<D>
-// floats a thread. S = Q K^T and dP = dO V^T, P from lse while dP
-// finishes, dS = P (dP - delta) scale, acc += dS K with dS rounded to bf16.
-template <int D, typename Mask, int N>
-__device__ __forceinline__ void dq_tile_tc(float (&acc)[N], uint32_t sQ, uint32_t sdO,
-                                           uint32_t sK, const float (&lse2)[2],
-                                           const float (&delta)[2], const bool (&live)[2],
-                                           int q0, int k0, float sl2, float scale,
-                                           const Mask& mask) {
-  static_assert(N == acc_floats<D>, "the accumulator of head dim D");
+// dQ's f32 accumulator at head dim D: acc_floats<D> floats a thread, and at
+// D = 256 two of them, its column halves of 128, in one CTA (the dQ step's
+// second overload).
+template <int D>
+using dq_acc = std::conditional_t<(D > 128), float[2][acc_floats<D>], float[acc_floats<D>]>;
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[2][N]) {
+  zero(acc[0]);
+  zero(acc[1]);
+}
+
+// The first part of a dQ step (_bwd_dq_step): queries q0 .. q0 + 63 (Q, dO
+// tiles at sQ, sdO; their rows' dq_rows) against keys k0 .. k0 + 63 (K, V
+// tiles at sK, sK + TILE), the copies waited for and published: S = Q K^T
+// and dP = dO V^T, P from lse while dP finishes, dS = P (dP - delta) scale
+// into s (f32; the caller rounds it to bf16 for dS K).
+template <int D, typename Mask>
+__device__ __forceinline__ void dq_ds_tc(float (&s)[32], uint32_t sQ, uint32_t sdO, uint32_t sK,
+                                         const float (&lse2)[2], const float (&delta)[2],
+                                         const bool (&live)[2], int q0, int k0, float sl2,
+                                         float scale, const Mask& mask) {
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
-  float s[32], dp[32];
+  float dp[32];
   wg::fence();
   abt<D>(s, sQ, sK);
   wg::commit();
@@ -644,7 +688,66 @@ __device__ __forceinline__ void dq_tile_tc(float (&acc)[N], uint32_t sQ, uint32_
   wg::fence_regs(dp);
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * scale;
+}
+
+// One dQ step: dq_ds_tc, then acc += dS K with dS rounded to bf16 once
+// (K MN-major: one swizzled K tile is both B operands); head dim D,
+// acc_floats<D> floats a thread.
+template <int D, typename Mask, int N>
+__device__ __forceinline__ void dq_tile_tc(float (&acc)[N], uint32_t sQ, uint32_t sdO,
+                                           uint32_t sK, const float (&lse2)[2],
+                                           const float (&delta)[2], const bool (&live)[2],
+                                           int q0, int k0, float sl2, float scale,
+                                           const Mask& mask) {
+  static_assert(N == acc_floats<D>, "the accumulator of head dim D");
+  float s[32];
+  dq_ds_tc<D>(s, sQ, sdO, sK, lse2, delta, live, q0, k0, sl2, scale, mask);
   pv<false>(acc, s, sK);
+}
+
+// The dQ step at D = 256: both column halves of dQ in one CTA, each D =
+// 128's m64n128k16 over its half of the four-atom K tile (half_at), from
+// the same bf16 dS fragments. S and dP are computed once for all 256
+// columns (255 registers, no spill), where a CTA a half would compute
+// them twice for the same dQ, bit for bit.
+template <int D, typename Mask, int N>
+__device__ __forceinline__ void dq_tile_tc(float (&acc)[2][N], uint32_t sQ, uint32_t sdO,
+                                           uint32_t sK, const float (&lse2)[2],
+                                           const float (&delta)[2], const bool (&live)[2],
+                                           int q0, int k0, float sl2, float scale,
+                                           const Mask& mask) {
+  static_assert(D > 128 && N == acc_floats<D>, "dQ's column halves at head dim 256");
+  float s[32];
+  dq_ds_tc<D>(s, sQ, sdO, sK, lse2, delta, live, q0, k0, sl2, scale, mask);
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, a[kk]);
+  wg::fence();
+  pv_issue(acc[0], a, half_at<D>(sK, 0));
+  pv_issue(acc[1], a, half_at<D>(sK, 1));
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(acc[0]);
+  wg::fence_regs(acc[1]);
+  fence_frags(a);
+}
+
+// dQ's rows q0 + frag_row (+ 8) from the fragments, its first D columns, as
+// bf16 at `base` (row stride ld elements), rows at or past n left out; at
+// D = 256 both column halves.
+template <int D, int N>
+__device__ __forceinline__ void store_dq(const float (&acc)[N], bf16* base, long long ld, int q0,
+                                         int n) {
+  const float one[2] = {1.f, 1.f};
+  store_bf16<N, D>(acc, base, ld, q0, n, one);
+}
+
+template <int D, int N>
+__device__ __forceinline__ void store_dq(const float (&acc)[2][N], bf16* base, long long ld,
+                                         int q0, int n) {
+  const float one[2] = {1.f, 1.f};
+  store_bf16<N, 2 * N>(acc[0], base, ld, q0, n, one);
+  store_bf16<N, 2 * N>(acc[1], base + 2 * N, ld, q0, n, one);
 }
 
 // ---- dK/dV ----------------------------------------------------------------
@@ -686,11 +789,12 @@ __device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const 
 // stage + TILE; lse, delta at sL, sL + 64), the copies waited for and
 // published; head dim D, acc_floats<D> of dk's and dv's floats a thread.
 // Adds the step's P^T dO to dv and dS^T Q to dk (m64nNk16 over the 64
-// queries, N = max(D, 64)).
+// queries, N = max(D, 64); at D = 256 N = 128 over column half `half` of
+// dO and Q, half_at).
 template <int D, typename Mask, int N>
 __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             uint32_t stage, const float* sL, int k0, int q0,
-                                            float scale, const Mask& mask) {
+                                            float scale, const Mask& mask, int half = 0) {
   static_assert(N == acc_floats<D>, "the accumulator of head dim D");
   const uint32_t sV = sK + wg::tile_bytes<D>(), sQ = stage, sdO = stage + wg::tile_bytes<D>();
   const float* sD = sL + E;
@@ -709,19 +813,40 @@ __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint
   const float sl2 = scale * kLog2e;
   wg::wait<1>();
   wg::fence_regs(s);
+  if constexpr (D > 128) {
+    // the whole-tile test outside the per-element loop, as in fwd_tile_tc:
+    // with it inside, the rectangular instance at D = 256 spilled 4 bytes
+    // at 255 registers
+    if (full) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int c = col + wg::elem_col(e);
-    const float lse = sL[c];
-    const bool keep = (full || mask.keep(k0 + row + wg::elem_row(e), q0 + c)) &&
-                      lse > FA_NEG_INF / 2;
-    s[e] = keep ? exp2f(fmaf(s[e], sl2, -lse * kLog2e)) : 0.f;
+      for (int e = 0; e < 32; ++e) {
+        const float lse = sL[col + wg::elem_col(e)];
+        s[e] = lse > FA_NEG_INF / 2 ? exp2f(fmaf(s[e], sl2, -lse * kLog2e)) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int c = col + wg::elem_col(e);
+        const float lse = sL[c];
+        const bool keep = mask.keep(k0 + row + wg::elem_row(e), q0 + c) && lse > FA_NEG_INF / 2;
+        s[e] = keep ? exp2f(fmaf(s[e], sl2, -lse * kLog2e)) : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = col + wg::elem_col(e);
+      const float lse = sL[c];
+      const bool keep = (full || mask.keep(k0 + row + wg::elem_row(e), q0 + c)) &&
+                        lse > FA_NEG_INF / 2;
+      s[e] = keep ? exp2f(fmaf(s[e], sl2, -lse * kLog2e)) : 0.f;
+    }
   }
   uint32_t pa[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, pa[kk]);
   wg::fence();
-  pv_issue(dv, pa, sdO);     // dV += P^T dO, running while dS^T is formed
+  pv_issue(dv, pa, half_at<D>(sdO, half));   // dV += P^T dO, running while dS^T is formed
   wg::commit();
 
   wg::wait<1>();             // dP^T is done
@@ -732,7 +857,7 @@ __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wg::a_frag(dp, kk, dsa[kk]);
   wg::fence();
-  pv_issue(dk, dsa, sQ);     // dK += dS^T Q
+  pv_issue(dk, dsa, half_at<D>(sQ, half));   // dK += dS^T Q
   wg::commit();
   wg::wait<0>();
   fence_frags(pa);
@@ -745,12 +870,13 @@ __device__ __forceinline__ void dkv_tile_tc(float (&dk)[N], float (&dv)[N], uint
 // downward, the first at tile index qt0 and each next one below it (the
 // order in which the f32 sums came out most accurate), each for every q-head
 // of the group (innermost), through the two-stage ring; head dim D (below
-// 64 the caller zeroed the six tiles' pad). dk and dv accumulate; every
-// product is waited for on return.
+// 64 the caller zeroed the six tiles' pad; at 256 dk and dv hold column
+// half `half`). dk and dv accumulate; every product is waited for on
+// return.
 template <int D, typename Mask, int N>
 __device__ __forceinline__ void dkv_walk_tc(float (&dk)[N], float (&dv)[N], uint32_t sK,
                                             const DkvSrc& s, int k0, int qt0, int tiles,
-                                            const Mask& mask) {
+                                            const Mask& mask, int half = 0) {
   constexpr int TILE = wg::tile_bytes<D>();
   const int steps = tiles * s.group;
   if (steps <= 0) return;
@@ -773,20 +899,21 @@ __device__ __forceinline__ void dkv_walk_tc(float (&dk)[N], float (&dv)[N], uint
       wg::copy_commit();
     }
     dkv_tile_tc<D>(dk, dv, sK, ring + 2 * st * TILE, floats_at(stats + st * STAT_BYTES), k0,
-                (qt0 - i / s.group) * E, s.scale, mask);
+                (qt0 - i / s.group) * E, s.scale, mask, half);
   }
 }
 
 // Rows k0 + frag_row (+ 8) of dK and dV from the fragments, their first D
-// columns, as bf16, rows at or past S left out (`dkb` / `dvb` at position
-// 0 of the (batch, kv head), `*_ss` their position strides).
+// columns (at D = 256 the CTA's half's out_cols<D>, `dkb` / `dvb` at its
+// first column), as bf16, rows at or past S left out (`dkb` / `dvb` at
+// position 0 of the (batch, kv head), `*_ss` their position strides).
 template <int D, int N>
 __device__ __forceinline__ void dkv_store(const float (&dk)[N], const float (&dv)[N], bf16* dkb,
                                           long long dk_ss, bf16* dvb, long long dv_ss, int k0,
                                           int S) {
   const float one[2] = {1.f, 1.f};
-  store_bf16<N, D>(dk, dkb, dk_ss, k0, S, one);
-  store_bf16<N, D>(dv, dvb, dv_ss, k0, S, one);
+  store_bf16<N, out_cols<D>>(dk, dkb, dk_ss, k0, S, one);
+  store_bf16<N, out_cols<D>>(dv, dvb, dv_ss, k0, S, one);
 }
 
 }  // namespace tc

@@ -57,15 +57,23 @@
 // P^T and dS^T each rounded to bf16 once (flash_tc.cuh says why). Shared
 // memory at D = 128: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an
 // SM; at D = 64 41, 49 and 50 KB, the CTAs an SM the occupancy query's
-// (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96 or
-// 128: at 32 and 16 a bf16 tile is the D = 64 atom partly filled, with D =
+// (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96, 128
+// or 256: at 32 and 16 a bf16 tile is the D = 64 atom partly filled, with D =
 // 64's shared memory and accumulators; at 96 and 80 (Phi-3-mini's and
 // H2O-Danube-1.8B's heads) D = 128's two atoms, the second partly filled,
 // with D = 128's shared memory, accumulators and register-A products
 // (flash_bwd.cuh says why); at both the chunks past D are zeroed once a
 // CTA before its first segment (the persistent walk only rewrites the
-// first D / 8 chunks of a row). The workspace and the cut rows' partials
-// hold D columns. Bound:
+// first D / 8 chunks of a row). At 256 (Gemma-2B's 8/1 heads) a bf16
+// forward or dK/dV CTA owns one column half of its outputs, as
+// flash_fwd.cu's and flash_bwd.cuh's do (tc::out_cols, tc::half_at): each
+// (batch, head, half) is a row of the flat list of its own, the halves of
+// a (batch, head) side by side (H = 2 Hq for the forward, 2 Hkv for
+// dK/dV; kHalves), so the schedule is unchanged; dQ keeps both halves in
+// one CTA (tc::dq_acc), as flash_bwd.cuh's does; 129, 193 and 194 KB of
+// shared memory, one CTA an SM. The f32 dQ at 256 walks each 64-key tile
+// as two of 32 keys (fa::DQ_BK: 206 KB). The workspace and the cut rows'
+// partials hold the CTA's columns (D, or the half's 128). Bound:
 // operations, 4, 6 and 8 D per attended pair and q-head at 989 TFLOP/s
 // bf16 (2.22, 3.34 and 4.45 ms at S = 32768, Hq 8). Left for later: warp
 // specialisation (a producer warp issuing TMA, with setmaxnreg giving the
@@ -74,8 +82,9 @@
 //
 // This header holds the kernels, their launches and the C entries' bodies
 // for every head dim (HeadDims); flash_tri.cu's entries take 128 and 64,
-// flash_tri_narrow.cu's 32 and 16, flash_tri_mid.cu's 96 and 80, so that
-// three nvcc processes build them side by side (one source for all four took 23.8 s to build for sm_90a,
+// flash_tri_narrow.cu's 32 and 16, flash_tri_mid.cu's 96 and 80,
+// flash_tri_wide.cu's 256, so that four nvcc processes build them side by
+// side (one source for all four took 23.8 s to build for sm_90a,
 // flash_fwd.cu 17.0 s in the same build).
 #pragma once
 
@@ -104,14 +113,24 @@ __host__ __device__ constexpr int dkv_edge(int act_dtype) {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-// f32 workspace values per CTA, two slots of E rows each. With P CTAs:
-// forward o [2P][E][D] then lse [2P][E]; dQ [2P][E][D]; dK/dV dk [2P][E][D]
-// then dv [2P][E][D]. Each kernel finds its second array at 2 P E D.
+// The column halves a forward or dK/dV CTA of act type T takes at head dim
+// D (two for the bf16 instances at 256, one CTA a half: tc::out_cols; one
+// else; dQ keeps all D columns in one CTA), and the columns C it owns, D /
+// HALVES.
+template <typename T, int D>
+constexpr int kHalves = kTensorCores<T> ? D / tc::out_cols<D> : 1;
+
+// f32 workspace values per CTA, two slots of E rows each, of the C columns
+// a CTA owns (D, or the half's at D = 256 in bf16 for the forward and
+// dK/dV). With P CTAs: forward o [2P][E][C] then lse [2P][E]; dQ
+// [2P][E][D]; dK/dV dk [2P][E][C] then dv [2P][E][C]. Each kernel finds
+// its second array at 2 P E C.
 template <int D>
 constexpr long long ws_per_cta(int which, int act_dtype) {
-  return which == FWD  ? 2LL * FWD_E * (D + 1)
+  const int C = act_dtype == 1 ? tc::out_cols<D> : D;
+  return which == FWD  ? 2LL * FWD_E * (C + 1)
          : which == DQ ? 2LL * FWD_E * D
-                       : 4LL * dkv_edge(act_dtype) * D;
+                       : 4LL * dkv_edge(act_dtype) * C;
 }
 
 // _tri_decode: flat index t of a triangle -> row r and column c <= r (row r
@@ -241,18 +260,20 @@ __device__ __forceinline__ void lse_merge(float& o, float& L, float oi, float li
 
 // The forward's segments on the tensor cores: tc::fwd_tile_tc (flash_tc.cuh,
 // shared with flash_fwd.cu) over the segment's key tiles, the row stored
-// from the fragments, or its normalised f32 partial and lse into the slot.
+// from the fragments, or its normalised f32 partial and lse into the slot;
+// at D = 256 a row is one (batch, head, column half), its DV columns.
 template <int D>
 __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   using bf16 = __nv_bfloat16;
   constexpr int E = FWD_E;
+  constexpr int DV = tc::out_cols<D>, HALVES = D / DV;
   const uint32_t sQ = tc::tiles(), ring = sQ + wg::tile_bytes<D>();
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
-  const Tri tri = make_tri(a.S, E, a.Hq, a.B);
+  const Tri tri = make_tri(a.S, E, a.Hq * HALVES, a.B);
   const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
   const tc::TriMask mask{a.S};
-  float* ws_lse = a.ws + 2LL * a.ctas * E * D;
+  float* ws_lse = a.ws + 2LL * a.ctas * E * DV;
   // below D = 64, and at 80 and 96, the chunks past D of Q and both K/V
   // stages, once, published with the first segment's copies (if
   // constexpr: at D = 64 and 128 even the empty loop moved the compiled
@@ -264,7 +285,9 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   Walk walk(blockIdx.x, tri, a.ctas);
   Seg sg;
   while (walk.next(sg)) {
-    const int b = static_cast<int>(sg.bh / a.Hq), h = static_cast<int>(sg.bh % a.Hq);
+    const long long bh = HALVES > 1 ? sg.bh / HALVES : sg.bh;
+    const int half = HALVES > 1 ? static_cast<int>(sg.bh % HALVES) : 0;
+    const int b = static_cast<int>(bh / a.Hq), h = static_cast<int>(bh % a.Hq);
     const int kvh = h / group;
     const int q0 = sg.r * E;
     __syncthreads();   // the previous segment's products are done
@@ -273,28 +296,31 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
     float acc[ACC], m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
-    tc::kv_walk<D>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
-                   static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss,
-                   a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
-                   [&](uint32_t sK, int kj) {
-                     tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
-                   });
+    tc::kv_walk<D, DV>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
+                       static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh + half * DV,
+                       a.k_ss, a.v_ss, a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
+                       [&](uint32_t sK, int kj) {
+                         tc::fwd_tile_tc<D>(acc, m, l, sQ, sK, q0, kj * E, sl2, mask);
+                       });
 
-    // _finalize_out, then the row or its workspace slot
+    // _finalize_out, then the row or its workspace slot (both halves
+    // compute the same lse; half 0 writes it)
     float inv[2], lse[2];
     tc::fwd_final(m, l, inv, lse);
     if (sg.whole) {
-      tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh, a.o_ss,
-                             q0, a.S, inv);
-      tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.S, q0, a.S);
+      tc::store_bf16<ACC, DV>(acc, static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh +
+                                       half * DV,
+                              a.o_ss, q0, a.S, inv);
+      if (half == 0)
+        tc::store_rows(lse, a.lse + (static_cast<long long>(b) * a.Hq + h) * a.S, q0, a.S);
       continue;
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row + 8 * i;
-      float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * D + col;
+      float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * DV + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(o + 8 * j) =
             make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
       if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse[i];
@@ -302,9 +328,21 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   }
 }
 
+// A dQ segment's bookkeeping, parked in shared memory across its walk at D
+// = 256 (dq_tri_tc).
+struct Parked {
+  int whole, slot, b, h;
+};
+
+__device__ __forceinline__ Parked* parked() {
+  __shared__ Parked p;
+  return &p;
+}
+
 // dQ's segments on the tensor cores: tc::dq_tile_tc (shared with
 // flash_bwd.cuh) over the segment's key tiles, the row stored from the
-// fragments, or its f32 partial into the slot.
+// fragments, or its f32 partial into the slot (at D = 256 both column
+// halves of dQ, tc::dq_acc).
 template <int D>
 __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   using bf16 = __nv_bfloat16;
@@ -316,7 +354,6 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
   const float sl2 = a.scale * tc::kLog2e;
   const tc::TriMask mask{a.S};
-  const float one[2] = {1.f, 1.f};
   // below D = 64, and at 80 and 96, the chunks past D of Q, dO and both
   // K/V stages, once, published with the first segment's copies
   if constexpr (D % 64 != 0)
@@ -334,12 +371,17 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
                      a.S);
     wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh,
                      a.do_ss, q0, a.S);
+    // at D = 256 the row's bookkeeping waits out the walk in shared memory
+    // (held in registers beside dQ's two accumulators it spilled 12 bytes
+    // at 255); the walk's barriers publish it
+    if constexpr (D > 128)
+      if (threadIdx.x == 0) *parked() = Parked{sg.whole, sg.slot, b, h};
     const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-    float lse2[2], delta[2], acc[ACC];
+    float lse2[2], delta[2];
+    tc::dq_acc<D> acc;
     bool live[2];
     tc::dq_rows(a.lse + rows, a.delta + rows, q0, a.S, lse2, delta, live);
-#pragma unroll
-    for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+    tc::zero(acc);
     tc::kv_walk<D>(ring, static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
                    static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.k_ss, a.v_ss,
                    a.S, sg.c0, sg.c1 + 1, [](int j) { return j + 1; },
@@ -348,18 +390,38 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
                                        a.scale, mask);
                    });
 
-    if (sg.whole) {
-      tc::store_bf16<ACC, D>(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh,
-                             a.dq_ss, q0, a.S, one);
-      continue;
-    }
+    if constexpr (D > 128) {
+      const Parked seg = *parked();
+      if (seg.whole) {
+        tc::store_dq<D>(acc, static_cast<bf16*>(a.dq) + seg.b * a.dq_sb + seg.h * a.dq_sh,
+                        a.dq_ss, q0, a.S);
+        continue;
+      }
+      const int r0 = wg::frag_row(threadIdx.x), c0 = wg::frag_col(threadIdx.x);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float* o = a.ws + (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
+      for (int i = 0; i < 2; ++i) {   // both column halves, ACC / 4 float pairs each
+        float* o = a.ws + (static_cast<long long>(seg.slot) * E + r0 + 8 * i) * D + c0;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(o + 8 * j) =
-            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int j = 0; j < ACC / 4; ++j)
+            *reinterpret_cast<float2*>(o + p * (D / 2) + 8 * j) =
+                make_float2(acc[p][4 * j + 2 * i], acc[p][4 * j + 2 * i + 1]);
+      }
+    } else {
+      if (sg.whole) {
+        tc::store_dq<D>(acc, static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh, a.dq_ss, q0,
+                        a.S);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float* o = a.ws + (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(o + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
@@ -439,26 +501,30 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_kernel(FlashTriArg
     fwd_tri_fma<T, D>(a);
 }
 
+// Merges each cut row's pieces (at D = 256 in bf16 a row is one column
+// half of a (batch, head): its C columns, the lse written by half 0).
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_fixup(FlashTriArgs a) {
-  constexpr int E = FWD_E;
-  const Tri tri = make_tri(a.S, E, a.Hq, a.B);
+  constexpr int E = FWD_E, HALVES = kHalves<T, D>, C = D / HALVES;
+  const Tri tri = make_tri(a.S, E, a.Hq * HALVES, a.B);
   CutRow cr;
   if (!cut_row(blockIdx.x, tri, a.ctas, cr)) return;
-  const int b = static_cast<int>(cr.bh / a.Hq), h = static_cast<int>(cr.bh % a.Hq);
+  const long long bh = cr.bh / HALVES;
+  const int half = static_cast<int>(cr.bh % HALVES);
+  const int b = static_cast<int>(bh / a.Hq), h = static_cast<int>(bh % a.Hq);
   const int q0 = cr.r * E;
-  const float* ws_lse = a.ws + 2LL * a.ctas * E * D;
-  T* out = static_cast<T*>(a.out);
-  for (int idx = threadIdx.x; idx < E * D; idx += fa::NTHREADS) {
-    const int row = idx / D, d = idx % D;
+  const float* ws_lse = a.ws + 2LL * a.ctas * E * C;
+  T* out = static_cast<T*>(a.out) + half * C;
+  for (int idx = threadIdx.x; idx < E * C; idx += fa::NTHREADS) {
+    const int row = idx / C, d = idx % C;
     if (q0 + row >= a.S) continue;
     float o = 0.f, L = FA_NEG_INF;
     for_each_piece(blockIdx.x, cr, tri, a.ctas, [&](int slot) {
       const long long at = static_cast<long long>(slot) * E + row;
-      lse_merge(o, L, a.ws[at * D + d], ws_lse[at]);
+      lse_merge(o, L, a.ws[at * C + d], ws_lse[at]);
     });
     fa::from_f32(out + b * a.o_sb + (q0 + row) * a.o_ss + h * a.o_sh + d, o);
-    if (d == 0) a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + q0 + row] = L;
+    if (d == 0 && half == 0) a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + q0 + row] = L;
   }
 }
 
@@ -467,7 +533,7 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_tri_fixup(FlashTriArgs
 template <int D>
 constexpr size_t dq_smem() {   // sQ, sdO [E][D+1]; sK, sV [BK][D+1]; sdS [E][BK+1]
   return sizeof(float) *
-         (2 * FWD_E * (D + 1) + 2 * fa::BK * (D + 1) + FWD_E * (fa::BK + 1));
+         (2 * FWD_E * (D + 1) + 2 * fa::DQ_BK<D> * (D + 1) + FWD_E * (fa::DQ_BK<D> + 1));
 }
 
 template <typename T, int D>
@@ -477,8 +543,8 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
   float* sQ = smem;
   float* sdO = sQ + E * (D + 1);
   float* sK = sdO + E * (D + 1);
-  float* sV = sK + fa::BK * (D + 1);
-  float* sdS = sV + fa::BK * (D + 1);
+  float* sV = sK + fa::DQ_BK<D> * (D + 1);
+  float* sdS = sV + fa::DQ_BK<D> * (D + 1);
 
   const int lane_c = threadIdx.x & 7;
   const int rg = threadIdx.x >> 3;
@@ -511,9 +577,18 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
     }
     const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
     const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-    for (int kj = s.c0; kj <= s.c1; ++kj)
-      fa::dq_tile<T, D, RPT>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb, a.k_ss,
-                             a.v_ss, kj * fa::BK, a.S, /*causal=*/1, /*window=*/0, a.scale);
+    constexpr int TK = fa::DQ_BK<D>;
+    if constexpr (TK == fa::BK) {
+      for (int kj = s.c0; kj <= s.c1; ++kj)
+        fa::dq_tile<T, D, RPT>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb,
+                               a.k_ss, a.v_ss, kj * fa::BK, a.S, /*causal=*/1, /*window=*/0,
+                               a.scale);
+    } else {   // D = 256: each key tile as two of TK keys
+      for (int kv0 = s.c0 * fa::BK; kv0 < (s.c1 + 1) * fa::BK; kv0 += TK)
+        fa::dq_tile<T, D, RPT, TK>(sQ, sdO, sK, sV, sdS, acc, lse, delta, qpos, valid, kb, vb,
+                                   a.k_ss, a.v_ss, kv0, a.S, /*causal=*/1, /*window=*/0,
+                                   a.scale);
+    }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rg * RPT + i;
@@ -641,12 +716,14 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_kernel(FlashTr
 
 // The bf16 instance: a 64-key tile per segment on the tensor cores
 // (tc::dkv_walk_tc over the segment's query tiles, descending), the cut
-// rows' f32 partials stored from the fragments.
+// rows' f32 partials stored from the fragments; at D = 256 a row is one
+// (batch, kv head, column half), its DV columns.
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
     flash_bwd_dkv_tri_tc_kernel(FlashTriArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int E = tc::E;
+  constexpr int DV = tc::out_cols<D>, HALVES = D / DV;
   const uint32_t sK = tc::tiles();
   // below D = 64, and at 80 and 96, the chunks past D of K, V and both
   // Q/dO stages, once, published with the first segment's copies
@@ -655,14 +732,16 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   constexpr int ACC = tc::acc_floats<D>;
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
   const int group = a.Hq / a.Hkv;
-  const Tri tri = make_tri(a.S, E, a.Hkv, a.B);
-  float* ws_dv = a.ws + 2LL * a.ctas * E * D;
+  const Tri tri = make_tri(a.S, E, a.Hkv * HALVES, a.B);
+  float* ws_dv = a.ws + 2LL * a.ctas * E * DV;
   const tc::TriMask mask{a.S};
 
   Walk walk(blockIdx.x, tri, a.ctas);
   Seg sg;
   while (walk.next(sg)) {
-    const int b = static_cast<int>(sg.bh / a.Hkv), kvh = static_cast<int>(sg.bh % a.Hkv);
+    const long long bh = HALVES > 1 ? sg.bh / HALVES : sg.bh;
+    const int half = HALVES > 1 ? static_cast<int>(sg.bh % HALVES) : 0;
+    const int b = static_cast<int>(bh / a.Hkv), kvh = static_cast<int>(bh % a.Hkv);
     const int k0 = (tri.n - 1 - sg.r) * E;     // _tri_decode_rev: row r is kj = n - 1 - r
     const long long rows = static_cast<long long>(b) * a.Hq * a.S;
     const tc::DkvSrc src{static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh,
@@ -677,18 +756,19 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
     for (int e = 0; e < ACC; ++e) dk[e] = dv[e] = 0.f;
     __syncthreads();   // the previous segment's products are done
     // column c is qi = n - 1 - c: the segment's query tiles descend
-    tc::dkv_walk_tc<D>(dk, dv, sK, src, k0, tri.n - 1 - sg.c0, sg.c1 - sg.c0 + 1, mask);
+    tc::dkv_walk_tc<D>(dk, dv, sK, src, k0, tri.n - 1 - sg.c0, sg.c1 - sg.c0 + 1, mask, half);
     if (sg.whole) {
-      tc::dkv_store<D>(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh,
-                       a.dk_ss, static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh,
+      tc::dkv_store<D>(dk, dv, static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh + half * DV,
+                       a.dk_ss,
+                       static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh + half * DV,
                        a.dv_ss, k0, a.S);
       continue;
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const long long at = (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
+      const long long at = (static_cast<long long>(sg.slot) * E + row + 8 * i) * DV + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         *reinterpret_cast<float2*>(a.ws + at + 8 * j) =
             make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
         *reinterpret_cast<float2*>(ws_dv + at + 8 * j) =
@@ -700,25 +780,29 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
 
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_fixup(FlashTriArgs a) {
-  constexpr int E = dkv_edge(kTensorCores<T>);
-  const Tri tri = make_tri(a.S, E, a.Hkv, a.B);
+  constexpr int E = dkv_edge(kTensorCores<T>), HALVES = kHalves<T, D>, C = D / HALVES;
+  const Tri tri = make_tri(a.S, E, a.Hkv * HALVES, a.B);
   CutRow cr;
   if (!cut_row(blockIdx.x, tri, a.ctas, cr)) return;
-  const int b = static_cast<int>(cr.bh / a.Hkv), kvh = static_cast<int>(cr.bh % a.Hkv);
+  const long long bh = cr.bh / HALVES;
+  const int b = static_cast<int>(bh / a.Hkv), kvh = static_cast<int>(bh % a.Hkv);
+  const int c0 = static_cast<int>(cr.bh % HALVES) * C;   // the row's first column
   const int k0 = (tri.n - 1 - cr.r) * E;
-  const float* ws_dv = a.ws + 2LL * a.ctas * E * D;
-  for (int idx = threadIdx.x; idx < E * D; idx += fa::NTHREADS) {
-    const int row = idx / D, d = idx % D;
+  const float* ws_dv = a.ws + 2LL * a.ctas * E * C;
+  for (int idx = threadIdx.x; idx < E * C; idx += fa::NTHREADS) {
+    const int row = idx / C, d = idx % C;
     const int kp = k0 + row;
     if (kp >= a.S) continue;
     float sk = 0.f, sv = 0.f;
     for_each_piece(blockIdx.x, cr, tri, a.ctas, [&](int slot) {
-      const long long at = (static_cast<long long>(slot) * E + row) * D + d;
+      const long long at = (static_cast<long long>(slot) * E + row) * C + d;
       sk += a.ws[at];
       sv += ws_dv[at];
     });
-    fa::from_f32(static_cast<T*>(a.dk) + b * a.dk_sb + kp * a.dk_ss + kvh * a.dk_sh + d, sk);
-    fa::from_f32(static_cast<T*>(a.dv) + b * a.dv_sb + kp * a.dv_ss + kvh * a.dv_sh + d, sv);
+    fa::from_f32(static_cast<T*>(a.dk) + b * a.dk_sb + kp * a.dk_ss + kvh * a.dk_sh + c0 + d,
+                 sk);
+    fa::from_f32(static_cast<T*>(a.dv) + b * a.dv_sb + kp * a.dv_ss + kvh * a.dv_sh + c0 + d,
+                 sv);
   }
 }
 
@@ -791,7 +875,7 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
 
 // The two head dims one source builds an instance of every kernel at:
 // flash_tri.cu 128 and 64, flash_tri_narrow.cu 32 and 16, flash_tri_mid.cu
-// 96 and 80.
+// 96 and 80 (flash_tri_wide.cu 256 twice: one head dim).
 template <int D0, int D1>
 struct HeadDims {
   static constexpr bool has(int D) { return D == D0 || D == D1; }

@@ -64,18 +64,14 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 16, 32, 64, 80, 96 and 128 in every kernel (``_HEAD_DIMS``; at
-  32 and 16 the tensor-core tile is the 64-wide one partly filled, at 80
-  and 96 the 128-wide one, each from a source of its own: ``_cuda.entry``),
-  and 256 in the serving kernels alone (``_SERVE_HEAD_DIMS``: ``flash_fwd``
-  on self-attention and on a bf16 or int8 cache, ``flash_decode``; the
-  forward's output in two column halves of 128, one a CTA), not in the
-  backward and triangle kernels; on a CUDA tensor any other head dim raises
-  a ValueError naming it before a kernel is built or launched (no plain
-  fallback), and so, at 256, do ``triangular=True`` and a self-attention
-  input that requires grad (``_check_forward_only``: a training step must
-  not launch the forward and then fail in the backward), where the JAX
-  kernels take any head dim;
+- head dims 16, 32, 64, 80, 96, 128 and 256 in every kernel
+  (``_HEAD_DIMS``; at 32 and 16 the tensor-core tile is the 64-wide one
+  partly filled, at 80 and 96 the 128-wide one, at 256 the register-A
+  products in column halves of 128 (dQ's two in one CTA, the forward's and
+  dK/dV's one a CTA), each from a source of its own: ``_cuda.entry``); on
+  a CUDA tensor any other head dim raises a
+  ValueError naming it before a kernel is built or launched (no plain
+  fallback), where the JAX kernels take any head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -114,10 +110,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims every kernel is built for, and those of the serving kernels
-# (flash_fwd, flash_decode) alone
-_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-_SERVE_HEAD_DIMS = _HEAD_DIMS + (256,)
+# the head dims every kernel is built for
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 
 def reset_launches() -> None:
@@ -399,9 +393,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _SERVE_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_SERVE_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -553,7 +547,7 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cuh, flash_tri.cuh) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 16, 32, 64, 80, 96 or 128 (``_HEAD_DIMS``)
+    kernels' dtypes, head dim 16, 32, 64, 80, 96, 128 or 256 (``_HEAD_DIMS``)
     contiguous, GQA dividing; lse and delta, where given, contiguous
     float32 [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
@@ -833,26 +827,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     if not tiles:   # the dense result, as the JAX package gives
         return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
                                causal=causal, scale=scale, window=window)
-    if _on_card(q):
-        _check_forward_only(q, k, v, triangular)
     return _FlashAttention.apply(q, k, v, causal, scale, window, triangular)
-
-
-def _check_forward_only(q, k, v, triangular: bool) -> None:
-    """At a head dim that the serving kernels take and the backward and
-    triangle kernels do not (256), raises a ValueError naming it, before
-    any kernel is built or launched, for a call that would need those:
-    ``triangular=True``, or an input that requires grad."""
-    D = q.shape[-1]
-    if D in _HEAD_DIMS or D not in _SERVE_HEAD_DIMS:
-        return
-    if triangular:
-        raise ValueError(f"head dim {D}: the triangle kernels take head dims "
-                         f"{_HEAD_DIMS}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(f"head dim {D}: the backward kernels take head dims "
-                         f"{_HEAD_DIMS}; at {D} flash attention serves "
-                         "(call it under torch.no_grad())")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,

@@ -1,10 +1,16 @@
 // The tensor-core building blocks of ops/csrc/flash_wgmma.cuh on their own:
-// one warpgroup loads three 64 x 128 bf16 tiles A, B, V through the
-// swizzling cp.async loader (rows at or past `rows` zero-filled), then
+// one warpgroup loads three 64 x 128 bf16 tiles A, B, V and one 64 x 256
+// tile W (four atoms) through the swizzling cp.async loader (rows at or
+// past `rows` zero-filled), then
 //   s = A B^T        (m64n64k16, both K-major from shared memory)
 //   o = bf16(s) V    (m64n128k16, A from registers, V MN-major)
 //   g = bf16(s) B    (the same with B as the MN-major operand)
-// and writes s [64][64], o and g [64][128] in f32 through the fragment map.
+//   h = bf16(s) W    (two m64n128k16 products, one a column half of W read
+//                     MN-major from its first atom and two atoms in: the
+//                     backward's dS K, P^T dO and dS^T Q at head dim 256,
+//                     flash_tc.cuh's half_at)
+// and writes s [64][64], o and g [64][128], h [64][256] in f32 through the
+// fragment map.
 // Built and checked against torch.matmul by hack/torch_wgmma_check.py.
 #include <cuda_runtime.h>
 
@@ -14,13 +20,15 @@ namespace {
 
 __global__ void __launch_bounds__(wg::THREADS)
     wgmma_check_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b, const __nv_bfloat16* v,
-                       int rows, float* s_out, float* o_out, float* g_out) {
+                       const __nv_bfloat16* w, int rows, float* s_out, float* o_out,
+                       float* g_out, float* h_out) {
   extern __shared__ unsigned char smem[];
   const uint32_t sa = (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
-  const uint32_t sb = sa + wg::TILE_BYTES, sv = sb + wg::TILE_BYTES;
+  const uint32_t sb = sa + wg::TILE_BYTES, sv = sb + wg::TILE_BYTES, sw = sv + wg::TILE_BYTES;
   wg::load_tile(sa, a, 128, 0, rows);
   wg::load_tile(sb, b, 128, 0, rows);
   wg::load_tile(sv, v, 128, 0, rows);
+  wg::load_tile<256>(sw, w, 256, 0, rows);
   wg::copy_commit();
   wg::copy_wait<0>();
   wg::fence_smem_to_async();
@@ -57,20 +65,39 @@ __global__ void __launch_bounds__(wg::THREADS)
     o_out[at] = o[e];
     g_out[at] = g[e];
   }
+  // h's halves one at a time, into o's registers
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    wg::fence_regs(o);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n128k16_rs<1>(o, p[kk], wg::desc_mnmajor(sw + half * wg::tile_bytes<128>(), kk),
+                               kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(o);
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      h_out[(row + wg::elem_row(e)) * 256 + half * 128 + col + wg::elem_col(e)] = o[e];
+  }
 }
 
 }  // namespace
 
-// a, b, v: [64][128] bf16 on the card; s_out [64][64], o_out, g_out
-// [64][128] f32. Returns cudaGetLastError() after the launch.
-extern "C" int wgmma_check(const void* a, const void* b, const void* v, int rows, float* s_out,
-                           float* o_out, float* g_out, void* stream) {
-  const int smem = 3 * wg::TILE_BYTES + wg::ALIGN;
+// a, b, v: [64][128] bf16 on the card, w [64][256]; s_out [64][64], o_out,
+// g_out [64][128], h_out [64][256] f32. Returns cudaGetLastError() after the
+// launch.
+extern "C" int wgmma_check(const void* a, const void* b, const void* v, const void* w, int rows,
+                           float* s_out, float* o_out, float* g_out, float* h_out,
+                           void* stream) {
+  const int smem = 3 * wg::TILE_BYTES + wg::tile_bytes<256>() + wg::ALIGN;
   cudaError_t e =
       cudaFuncSetAttribute(wgmma_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   wgmma_check_kernel<<<1, wg::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const __nv_bfloat16*>(v), rows, s_out, o_out, g_out);
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(w), rows, s_out,
+      o_out, g_out, h_out);
   return static_cast<int>(cudaGetLastError());
 }

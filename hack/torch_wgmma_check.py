@@ -6,9 +6,12 @@ at a time, against torch.matmul on one GPU.
 
 Builds hack/torch_wgmma_check.cu (nvcc, sm_90a, the package's flags) into
 the git-ignored ops/_build/ and runs its one warpgroup on three random
-64 x 128 bf16 tiles A, B, V, loaded with rows at or past ``rows`` zero
-(64, then the ragged 50): s = A Bᵀ (both operands K-major), o = bf16(s) V
-and g = bf16(s) B (V and B as MN-major operands, A from registers). Each
+64 x 128 bf16 tiles A, B, V and one 64 x 256 tile W, loaded with rows at
+or past ``rows`` zero (64, then the ragged 50): s = A Bᵀ (both operands
+K-major), o = bf16(s) V and g = bf16(s) B (V and B as MN-major operands,
+A from registers), and h = bf16(s) W as two products over W's column
+halves, the second read MN-major two swizzle atoms in (the backward's
+register-A products at head dim 256). Each
 is held against the same product in f32 by torch.matmul on the card
 (relative to its largest value, 1e-5: the inputs are exact in bf16 and the
 products sum in f32; o and g take the kernel's s rounded to bf16). A wrong descriptor, swizzle or fragment map gives
@@ -50,7 +53,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = ctypes.CDLL(str(build(_cuda)))
     fn = lib.wgmma_check
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
@@ -58,23 +61,26 @@ def main() -> int:
     for rows in (64, 50):
         a, b, v = (torch.randn(64, 128, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
+        w = torch.randn(64, 256, generator=g, device=dev).to(torch.bfloat16)
         s = torch.empty(64, 64, device=dev)
         o, gg = torch.empty(64, 128, device=dev), torch.empty(64, 128, device=dev)
-        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), rows, s.data_ptr(),
-                o.data_ptr(), gg.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        h = torch.empty(64, 256, device=dev)
+        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), w.data_ptr(), rows,
+                s.data_ptr(), o.data_ptr(), gg.data_ptr(), h.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if rc != 0:
             print(f"torch_wgmma_check: launch failed with cudaError {rc}",
                   file=sys.stderr)
             return 1
-        af, bf, vf = (x.float() for x in (a, b, v))
-        for x in (af, bf, vf):
+        af, bf, vf, wf = (x.float() for x in (a, b, v, w))
+        for x in (af, bf, vf, wf):
             x[rows:] = 0.0
         s_ref = af @ bf.T
         p = s.to(torch.bfloat16).float()    # the kernel's own rounding of s
         errs = {}
         for name, got, want in (("s", s, s_ref), ("o", o, p @ vf),
-                                ("g", gg, p @ bf)):
+                                ("g", gg, p @ bf), ("h", h, p @ wf)):
             errs[name] = ((got - want).abs().max()
                           / want.abs().max()).item()
         miss = {n: e for n, e in errs.items() if not e <= TOL}

@@ -18,14 +18,15 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
-96 and 128 (HEAD_DIMS), the serving kernels also at 256
-(SERVE_HEAD_DIMS): the forward, cached and decode kernels at each,
-the backward and triangle kernels at 128 and in the ``*_at_head_dim_64``,
-``*_at_head_dims_32_and_16`` and ``*_at_head_dims_96_and_80`` tests, and
-autograd through them at 80 and 96
+96, 128 and 256 (HEAD_DIMS): the forward, cached and decode kernels at
+each, the backward and triangle kernels at 128 and in the
+``*_at_head_dim_64``, ``*_at_head_dims_32_and_16``,
+``*_at_head_dims_96_and_80`` and ``*_at_head_dim_256`` tests, and autograd
+through them at 80 and 96
 (``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses
-head dim 100 before any launch); at 256 a training call is refused before
-any launch (``test_head_dim_256_serves_and_refuses_training``).
+head dim 100 before any launch) and at 256
+(``test_head_dim_256_serves_and_refuses_training``, which refuses head
+dim 192, a multiple of 16 past 128 that no source builds).
 """
 
 import ctypes
@@ -52,10 +53,8 @@ from gpu_provisioner_tpu_torch.parallel import jobs, launch
 from chip_smoke import DECODE_SPLIT_CASES
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of every kernel, and of the serving kernels (flash_fwd,
-# flash_decode) alone
-HEAD_DIMS = [16, 32, 64, 80, 96, 128]
-SERVE_HEAD_DIMS = HEAD_DIMS + [256]
+# the head dims of every kernel
+HEAD_DIMS = [16, 32, 64, 80, 96, 128, 256]
 
 
 @pytest.fixture
@@ -99,7 +98,7 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
@@ -159,7 +158,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -203,7 +202,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -230,7 +229,7 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
 def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
@@ -284,7 +283,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -448,10 +447,13 @@ def test_head_dim_256_serves_and_refuses_training(dev):
     the self-attention forward under no_grad (one flash_fwd launch), a
     cached prefill and decode steps (S = 1 and 5) on a bf16 and an int8
     cache, each within 1e-2 of the plain version in bf16 (lse within
-    1e-4); a forward whose input requires grad, triangular=True and the
-    backward (rectangular and triangle) raise ValueError naming head dim
-    256 before any launch (the backward and triangle kernels are not built
-    for it)."""
+    1e-4); and so does a training call (the name is from when 256 only
+    served): autograd through flash_attention, rectangular and with
+    triangular=True, launches the forward and both backward kernels (their
+    triangle twins), within 1e-2 of the plain gradients; at head dim 192
+    (which no kernel takes) a forward that requires grad, triangular=True
+    and the backward (rectangular and triangle) raise ValueError naming it
+    before any launch."""
     g = torch.Generator(dev).manual_seed(19)
     D, Hq, Hkv, ML = 256, 8, 1, 1024
     bf = torch.bfloat16
@@ -483,6 +485,21 @@ def test_head_dim_256_serves_and_refuses_training(dev):
         for S, o in steps:
             assert _err(o, tfa.attention_plain(qc[:, :S], kc, vc, st,
                                                **kw)[0]) < TOL[bf]
+    dout = _randn(g, 2, 256, Hq, D, dtype=bf, dev=dev)
+    want = tfa.attention_bwd_plain(q, k, v, ref, ref_lse, dout)
+    for triangular, bwd in ((False, ("flash_bwd_dq", "flash_bwd_dkv")),
+                            (True, ("flash_bwd_dq_tri", "flash_bwd_dkv_tri"))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        tfa.reset_launches()
+        got = torch.autograd.grad(
+            tfa.flash_attention(*leaves, triangular=triangular), leaves, dout)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            "flash_fwd": 1, **dict.fromkeys(bwd, 1)}
+        for a, b in zip(got, want):
+            assert _rel(a, b) < TOL[bf]
+    q, k, v = (_randn(g, 2, 256, h, 192, dtype=bf, dev=dev)
+               for h in (Hq, Hkv, Hkv))
     lse = torch.zeros(2, Hq, 256, device=dev)
     tfa.reset_launches()
     for fn in (lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
@@ -490,7 +507,7 @@ def test_head_dim_256_serves_and_refuses_training(dev):
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
                                                triangular=True)):
-        with pytest.raises(ValueError, match="head dim 256"):
+        with pytest.raises(ValueError, match="head dim 192"):
             fn()
     assert not any(tfa.LAUNCHES.values())
 
@@ -749,6 +766,26 @@ def test_flash_bwd_matches_plain_at_head_dims_96_and_80(
     against attention_bwd_plain, with an lse cotangent, from the plain
     forward's out and lse."""
     _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, D, 12)
+
+
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dim 256: Gemma-2B's 8/1
+# heads causal, non-causal and with a window of 100, the D = 128 training
+# row's 16/8, and ragged S at GQA 4/1
+BWD_WIDE_CASES = [(1, 512, 8, 1, True, None), (1, 512, 8, 1, False, None),
+                  (2, 256, 8, 1, True, 100), (1, 512, 16, 8, True, None),
+                  (1, 333, 4, 1, True, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_WIDE_CASES)
+def test_flash_bwd_matches_plain_at_head_dim_256(dev, dtype, B, S, Hq, Hkv,
+                                                 causal, window):
+    """flash_bwd_dq and flash_bwd_dkv at head dim 256 (bf16: S and dP
+    over the whole D on four-atom tiles, dQ's two column halves of 128 in
+    one CTA, dK/dV's one a CTA; f32: dQ's key tiles as two of 32 keys)
+    against attention_bwd_plain, with an lse cotangent, from the plain
+    forward's out and lse."""
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 256, 13)
 
 
 @pytest.mark.parametrize("triangular", [False, True])
@@ -1012,6 +1049,17 @@ def test_tri_kernels_match_plain_at_head_dims_96_and_80(dev, dtype, B, S, Hq,
     atoms, the second partly filled and zeroed once a CTA; the cut rows'
     partials D columns) at TRI_CASES."""
     _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, D, 18)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dim_256(dev, dtype, B, S, Hq, Hkv,
+                                                 cot):
+    """The three tri kernels at head dim 256 (bf16: the forward's and
+    dK/dV's rows one (batch, head, column half) each, their cut rows'
+    partials the half's 128 columns, dQ's both halves; f32: dQ's key tiles
+    as two of 32 keys) at TRI_CASES."""
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 256, 19)
 
 
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):

@@ -16,10 +16,10 @@ No CUDA kernel runs here, so the tests hold:
   1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
   fold (int8 widened to bf16, scales on the score and P columns) against
   the same JAX functions in int8 mode; each at head dims 64, 128, 80 and
-  96 (every kernel takes them; dQ's replay at 64, 80 and 96 is those
-  backward instances' arithmetic), the forward-only replays also at 16,
-  32 and 256 (at 256 each CTA computes one half of the output's columns
-  with the whole row's scores, m and l: the same arithmetic a column);
+  96 and 256 (every kernel takes them; dQ's replay at 64, 80, 96 and 256
+  is those backward instances' arithmetic; at 256 each CTA computes one
+  half of the output's columns with the whole row's scores, m and l: the
+  same arithmetic a column), the forward-only replays also at 16 and 32;
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -33,12 +33,9 @@ No CUDA kernel runs here, so the tests hold:
   kernel library built and no plain fallback; D = 32 and 16 reach
   ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
   and triangle kernels; D = 80 and 96 reach every kernel (their mid
-  entries), through autograd and ``triangular=True`` too; D = 256 reaches
-  ``flash_fwd`` and ``flash_decode`` (their wide entries) and is refused
-  by the backward and triangle kernels, through autograd and
-  ``triangular=True`` too, before any launch; D = 8, 24, 48, 100 and 112
-  are refused by every kernel, each with a ValueError naming the head
-  dim.
+  entries), through autograd and ``triangular=True`` too, and so does D =
+  256 (its wide entries); D = 8, 24, 48, 100, 112 and 192 are refused by
+  every kernel, each with a ValueError naming the head dim.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -103,14 +100,17 @@ def _rel(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
-# the forward and dQ replays at head dims 64 and 128, and 80 and 96 (the D
-# = 128 tile partly filled: the same arithmetic on the first D columns)
+# the forward and dQ replays at head dims 64 and 128, 80 and 96 (the D =
+# 128 tile partly filled: the same arithmetic on the first D columns) and
+# 256 (the outputs' column halves: each CTA the same arithmetic on its
+# columns, the scores over the whole D)
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
-             pytest.param(80, id="d80"), pytest.param(96, id="d96")]
+             pytest.param(80, id="d80"), pytest.param(96, id="d96"),
+             pytest.param(256, id="d256")]
 # the forward-only replays also at 32 and 16 (the D = 64 tile partly
-# filled) and at 256 (the output's column halves)
+# filled)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS, pytest.param(256, id="d256")]
+                 *HEAD_DIMS]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -463,16 +463,19 @@ def test_head_dim_64_triangle_forward_raises_before_any_build(
     assert tri_grid == [("flash_fwd_tri", 64)]
 
 
-@pytest.mark.parametrize("D", [8, 24, 48, 100, 112])
+@pytest.mark.parametrize("D", [8, 24, 48, 100, 112, 192])
 def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
-    """Head dims other than 16, 32, 64, 80, 96 and 128 raise ValueError
-    naming the head dim in every kernel's wrapper (the forward on
+    """Head dims other than 16, 32, 64, 80, 96, 128 and 256 (192: a
+    multiple of 16 past 128 that no source builds) raise ValueError naming
+    the head dim in every kernel's wrapper (the forward on
     self-attention, a bf16 and an int8 cache, the decode, the backward and
     the triangle), each before any library is built; 16 and 32 reach their
     launches instead (test_head_dims_32_and_16_reach_the_serving_kernels
     and test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels),
     and so do 80 and 96 (test_head_dims_80_and_96_reach_the_serving_
-    kernels_alone, every kernel's)."""
+    kernels_alone, every kernel's) and 256
+    (test_head_dim_256_reaches_the_serving_kernels_alone, every
+    kernel's)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -624,17 +627,19 @@ def test_head_dims_80_and_96_reach_the_serving_kernels_alone(
 
 def test_head_dim_256_reaches_the_serving_kernels_alone(launches, no_build,
                                                         tri_grid):
-    """At head dim 256 (Gemma-2B's 8/1 heads; here its MQA at 4/1):
+    """At head dim 256 (Gemma-2B's 8/1 heads; here its MQA at 4/1), every
+    kernel (the name is from when only the serving kernels took it):
     flash_attention_with_lse and flash_attention under no_grad,
     flash_attention_cached on a bf16 and an int8 cache, and
     flash_attention_decode on both (S = 1 and S = 5) reach their launches
     with D = 256 and the C entries of csrc/flash_fwd_wide.cu and
-    csrc/flash_decode_wide.cu; the backward and triangle kernels are not
-    built for it: a forward whose input requires grad, triangular=True
-    (forward, and with grad), flash_attention_bwd (rectangular and
-    triangle) and each direct backward or triangle launch raise ValueError
-    naming head dim 256 before any launch or grid query, no library built
-    and no plain fallback; every other kernel keeps its own entry at 256."""
+    csrc/flash_decode_wide.cu; a self-attention whose input requires grad
+    then reaches the dQ and dK/dV launches through autograd (their triangle
+    twins with triangular=True, which ask the tri grid for head dim 256),
+    each at the C entry <kernel>_wide of csrc/flash_bwd_wide.cu or
+    csrc/flash_tri_wide.cu; and _launch_tri reaches all three triangle
+    entries with the grid and workspace asked for head dim 256; no library
+    built and no plain fallback."""
     D, S, Hq, Hkv, ML = 256, 128, 4, 1, 256
     q, k, v = _bf16(50, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(51, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -655,37 +660,42 @@ def test_head_dim_256_reaches_the_serving_kernels_alone(launches, no_build,
     for kernel in ("flash_fwd", "flash_decode"):
         assert _cuda.ENTRIES[kernel + "_wide"][0] == kernel + "_wide"
         assert _cuda.entry(kernel, 128) == kernel
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
-                   "flash_bwd_dq_tri", "flash_bwd_dkv_tri"):
-        assert _cuda.entry(kernel, D) == kernel
+
+    for triangular in (False, True):
+        launches.clear()
+        qg = q.clone().requires_grad_()
+        out = tfa.flash_attention(qg, k, v, triangular=triangular)
+        out.float().sum().backward()
+        bwd = (["flash_bwd_dq_tri", "flash_bwd_dkv_tri"] if triangular
+               else ["flash_bwd_dq", "flash_bwd_dkv"])
+        assert [(kernel, a.D, a.act_dtype) for kernel, a in launches] == [
+            ("flash_fwd", D, 1)] + [(kernel, D, 1) for kernel in bwd]
+        assert [_cuda.entry(kernel, D) for kernel, _ in launches] == [
+            kernel + "_wide" for kernel, _ in launches]
+        assert qg.grad is not None and qg.grad.shape == q.shape
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert _cuda.ENTRIES[kernel + "_wide"][0] == "flash_bwd_wide"
+        assert _cuda.entry(kernel, 128) == kernel
+    assert tri_grid == [(kernel, D) for kernel in
+                        ("flash_bwd_dq_tri", "flash_bwd_dkv_tri")]
 
     launches.clear()
+    tri_grid.clear()
     lse = torch.zeros(1, Hq, S)
-    refused = {
-        "the backward kernels take": [
-            lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
-            lambda: tfa.flash_attention_with_lse(
-                q, k, v.clone().requires_grad_())],
-        "the triangle kernels take": [
-            lambda: tfa.flash_attention(q, k, v, triangular=True),
-            lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v,
-                                        triangular=True)],
-        "flash_bwd_dq takes": [lambda: tfa.flash_attention_bwd(
-            q, k, v, q, lse, q)],
-        "flash_bwd_dkv takes": [lambda: tfa._launch_bwd(
-            "flash_bwd_dkv", q, k, v, q, lse, lse, causal=True, scale=1.0)],
-        "flash_bwd_dq_tri takes": [lambda: tfa.flash_attention_bwd(
-            q, k, v, q, lse, q, triangular=True)],
-        "flash_fwd_tri takes": [lambda: tfa._launch_tri(
-            "flash_fwd_tri", q, k, v, scale=1.0)],
-        "flash_bwd_dkv_tri takes": [lambda: tfa._launch_tri(
-            "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
-            delta=lse)]}
-    for what, fns in refused.items():
-        for fn in fns:
-            with pytest.raises(ValueError, match=f"head dim {D}: {what}"):
-                fn()
-    assert launches == [] and tri_grid == []
+    with torch.no_grad():
+        tfa._launch_tri("flash_fwd_tri", q, k, v, scale=D ** -0.5)
+        kw = dict(scale=D ** -0.5, dout=q, lse=lse, delta=lse)
+        tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+        tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    entries = ["flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"]
+    assert [kernel for kernel, _ in launches] == entries
+    assert tri_grid == [(kernel, D) for kernel in entries]
+    for kernel, a in launches:
+        assert (a.D, a.act_dtype, a.ctas) == (D, 1, 264)
+        assert a.ws_floats == 264 * 4 * 64 * D
+        assert _cuda.entry(kernel, D) == kernel + "_wide"
+        assert _cuda.ENTRIES[kernel + "_wide"][0] == "flash_tri_wide"
+        assert _cuda.entry(kernel, 128) == kernel
 
 
 @pytest.mark.parametrize("D", [16, 32])
