@@ -326,7 +326,9 @@ Phases, each of which exits non-zero on a failed check:
    of three requests on two slots, each head dim's launches read equal to
    the path's prediction (``d96_serving``, ``d80_serving``), then a
    forward that requires grad, triangular=True and the backward at head
-   dim 100 (which no kernel takes) refused, naming it, before any launch;
+   dim 100 (which the backward and triangle kernels do not take; the
+   serving kernels take it since phase 24) refused, naming it, before any
+   launch;
 21. head dims 96 and 80 in training (the D = 96 and 80 instances of #6/#7
    and #3/#8/#9, built from flash_bwd_mid.cu and flash_tri_mid.cu): (a) in
    phase 1, the ptxas registers, spills and HGMMA of their ten tensor-core
@@ -404,12 +406,39 @@ Phases, each of which exits non-zero on a failed check:
    a triangular=True forward and backward at (1, 32768) at Gemma's own
    8/1 heads, where the natural budget takes flash_fwd_tri, against the
    rectangular kernels and timed (``d256_long``), each path's launches
-   read alone.
-Phases 2, 16, 18, 20 and 22 check and time the serving kernels through
-one function of the head dim (serve_kernels, SERVE_DIMS), phases 17, 19,
-21 and 23 the training kernels (train_kernels; phase_train_kernels at 19,
-21 and 23); then the phase-2, 9, 10, 14, 16, 18, 20 and 22 rows' device
-times, the card line, the kernels line and, last, the device line.
+   read alone;
+24. head dim 100 in serving (OpenLLaMA-3B's 32/32 heads of 100: a row of
+   no whole number of 16-byte chunks; the D = 100 instances of #1/#2, #4
+   and #5, built from flash_fwd_pad.cu and flash_decode_pad.cu: D = 128's
+   tile partly filled, bf16 rows copied in 8-byte pieces and int8 rows in
+   4-byte ones, S = Q K^T in 7 k-steps, the stores cut at column 100):
+   (a) in phase 1, the ptxas registers, spills and HGMMA of the two
+   tensor-core instances and of the timed decode ones; (b) #1/#2, #4 on a
+   bf16 and an int8 cache and #5 on both at 32/32 heads of 100 (phase
+   20's cases), bf16 (1e-2) and f32 (1e-4), against their plain versions,
+   the bf16 calls timed at generate's shapes and at the D = 128 rows'
+   (``at_d128_shape`` with ``d128_ms``) beside SDPA (the kernels it ran:
+   ``library_kernels``, ``library_backend``) and the bound (the
+   ``*_d100`` rows); then every entry launched directly once more, in
+   bf16 and f32, on self-attention, a bf16, an f32 and an int8 cache and
+   the decode with one split and with its merge, its output a view of
+   rows 128 wide filled with a sentinel: columns 100..127 keep it and
+   columns below 100 agree with the plain version (``pad_stores``); (c)
+   in f32 at OpenLLaMA-3B's widths cut to 2 layers, flash against dense:
+   logits, generate, an int8 generate, a ServeEngine pass; (d) bf16 at
+   full depth (pad_models: 26 layers at dim 3200; random weights): a
+   fresh generate, a left-padded one on a bf16 and on an int8 cache and a
+   ServeEngine pass, the launches read equal to the path's prediction
+   (``d100_serving``), tokens/s, peak memory and the parameter count,
+   then a forward that requires grad, triangular=True and the backward at
+   head dim 100 refused, naming it, before any launch. Prints the phase's
+   seconds.
+Phases 2, 16, 18, 20, 22 and 24 check and time the serving kernels
+through one function of the head dim (serve_kernels, SERVE_DIMS), phases
+17, 19, 21 and 23 the training kernels (train_kernels;
+phase_train_kernels at 19, 21 and 23); then the phase-2, 9, 10, 14, 16,
+18, 20, 22 and 24 rows' device times, the card line, the kernels line
+and, last, the device line.
 """
 
 from __future__ import annotations
@@ -4859,13 +4888,33 @@ def wide_models(tl):
                                 norm_eps=1e-6, attn_impl="flash")}
 
 
+# phase 24: head dim 100 in serving. A Llama config at OpenLLaMA-3B's
+# widths (the Hugging Face config.json of openlm-research/open_llama_3b and
+# open_llama_3b_v2: hidden 3200, 26 layers, 32/32 heads of 100,
+# intermediate 8640, vocab 32000, max_position 2048, rms_norm_eps 1e-6,
+# rope_theta 10000), written out as a LlamaConfig literal, ~3.43e9
+# parameters (no file is fetched: the weights are seeded at random), served
+# through the D = 100 instances of #1/#2, #4 and #5 (flash_fwd_pad.cu,
+# flash_decode_pad.cu)
+PAD_HEADS = {100: (32, 32, None)}     # Hq, Hkv, window
+
+
+def pad_models(tl):
+    """{head dim: the full-size bf16 flash config at that head dim}."""
+    # openlm-research/open_llama_3b (config.json)
+    return {100: tl.LlamaConfig(vocab_size=32000, dim=3200, n_layers=26,
+                                n_heads=32, n_kv_heads=32, hidden_dim=8640,
+                                max_seq_len=2048, rope_theta=10000.0,
+                                norm_eps=1e-6, attn_impl="flash")}
+
+
 # the self-attention checks of phase 18's head dims (S=200 tiles for no JAX
 # block: the launch itself) and of phase 20's (and 22's)
 SMALL_FWD_CASES = ((2, 128, True, None), (2, 128, False, None),
                    (1, 512, True, 200), (2, 200, False, None))
 MID_FWD_CASES = ((2, 512, True, None), (2, 512, False, None),
                  (1, 4096, True, 1024), (2, 200, False, None))
-# (B, S, start, pads, window, sinks) of #4 at head dims 96, 80 and 256, ML
+# (B, S, start, pads, window, sinks) of #4 at head dims 96, 80, 256 and 100, ML
 # 2048:
 # an engine admission after a prefix, generate's left-padded prefill, a
 # window with sinks, a ragged S with both
@@ -4914,11 +4963,12 @@ SERVE_DIMS = {
         step=(2, SMALL_STARTS, SMALL_PADS), timed_ML=SMALL_ML, verify=(5,),
         at=(64, 16, 8, (8, 512), (8, 512, 0, None), (8, 600, None), 640))
        for D, (Hq, Hkv) in SMALL_HEADS.items()},
-    # phases 20 and 22: at the models' own heads (MID_HEADS, WIDE_HEADS),
-    # timed at generate's fresh and left-padded prefills (B=2, S0=512) and
-    # a decode step of theirs (max_len 1024) and at the D = 128 rows' shapes
+    # phases 20, 22 and 24: at the models' own heads (MID_HEADS,
+    # WIDE_HEADS, PAD_HEADS), timed at generate's fresh and left-padded
+    # prefills (B=2, S0=512) and a decode step of theirs (max_len 1024) and
+    # at the D = 128 rows' shapes
     **{D: ServeDim(
-        D, Hq, Hkv, 2048, SEED + {96: 91, 80: 95, 256: 111}[D],
+        D, Hq, Hkv, 2048, SEED + {96: 91, 80: 95, 256: 111, 100: 131}[D],
         groups=((MID_FWD_CASES, both_caches(
             MID_CACHE_CASES + DECODE_SPLIT_CASES
             + ((4, 1, DECODE_STARTS, DECODE_PADS, None, 0),))),),
@@ -4926,7 +4976,8 @@ SERVE_DIMS = {
         step=(2, [560, 523], [0, 37]), timed_ML=1024, verify=(5,),
         window=window, at=(128, 32, 8, (2, 512), (1, 256, 128, [28]),
                            (4, DECODE_STARTS, DECODE_PADS), 2048))
-       for D, (Hq, Hkv, window) in {**MID_HEADS, **WIDE_HEADS}.items()},
+       for D, (Hq, Hkv, window) in {**MID_HEADS, **WIDE_HEADS,
+                                    **PAD_HEADS}.items()},
 }
 # the rows of each head dim and the TPU kernel each replaces
 SERVE_ROWS = {
@@ -5291,10 +5342,10 @@ def serve_paths(torch, tl, td, te, tfa, dev, models, seed):
 
 
 def training_refused(torch, tfa, dev, D, Hq, Hkv, seed):
-    """At head dim D, which no kernel takes, a forward whose input
-    requires grad, triangular=True and the backward (rectangular and
-    triangle) raise ValueError naming it, with no launch. Returns the
-    report's line."""
+    """At head dim D, which the backward and triangle kernels do not take,
+    a forward whose input requires grad, triangular=True and the backward
+    (rectangular and triangle) raise ValueError naming it, with no launch.
+    Returns the report's line."""
     gq = torch.Generator(dev).manual_seed(seed)
     tfa.reset_launches()
     q, k, v = (torch.randn(1, 256, h, D, generator=gq, device=dev)
@@ -5324,10 +5375,11 @@ def training_refused(torch, tfa, dev, D, Hq, Hkv, seed):
 def phase_mid_serving(torch, tl, td, te, tfa, dev):
     """Phase 20 (c), bf16, full depth: the Phi-3-mini-width and
     H2O-Danube-width models (mid_models) through serve_paths (Danube's
-    fresh generate without its window). Then, at head dim 100 (which no
-    kernel takes; 96 and 80 train in phase 21), a training call refused
-    by name before any launch (training_refused). Returns ({96: launches,
-    80: launches}, report)."""
+    fresh generate without its window). Then, at head dim 100 (which the
+    training kernels do not take; the serving kernels take it since phase
+    24; 96 and 80 train in phase 21), a training call refused by name
+    before any launch (training_refused). Returns ({96: launches, 80:
+    launches}, report)."""
     models = {D: ("Phi-3-mini" if D == 96 else "H2O-Danube", cfg)
               for D, cfg in mid_models(tl).items()}
     launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
@@ -5450,9 +5502,9 @@ def wide_train_shape(torch, tfa, dev, D=256):
 
 
 def beside_d128(rows, by_name):
-    """Adds to each head-dim-256 row's ``at_d128_shape`` the D = 128 row's
-    time of the same call in this run (``by_name``: the D = 128 rows;
-    ``d128_ms``, its device time ``d128_device_ms``)."""
+    """Adds to each row's ``at_d128_shape`` (head dims 256 and 100) the D =
+    128 row's time of the same call in this run (``by_name``: the D = 128
+    rows; ``d128_ms``, its device time ``d128_device_ms``)."""
     for r in rows:
         if "at_d128_shape" in r:
             ref = by_name[r["name"].rsplit("_d", 1)[0]]
@@ -5486,6 +5538,153 @@ def phase_wide_serving(torch, tl, td, te, tfa, dev):
     report["refusals"] = training_refused(torch, tfa, dev, 192, 8, 1,
                                           SEED + 115)
     return launches, report
+
+
+# phase 24 (b): the stores of the D = 100 entries. Outputs are written into
+# a view of rows 128 wide filled with SENTINEL (exact in bf16 and f32, far
+# from any output of these inputs); the cases (row, S, start, max_len), B=2,
+# pads 0 and 37: the prefill at start 256 and decode blocks at per-row
+# starts on a cache of 512, whose planned splits are several (the merge
+# launch writes the output), and on a cache of 64, one tile, whose plan is
+# one split (the split kernel writes it)
+SENTINEL = 4096.0
+PAD_STORE_CASES = (("flash_cached", 128, 256, 512),
+                   ("flash_decode", 1, [300, 450], 512),
+                   ("flash_decode", 5, [300, 450], 512),
+                   ("flash_decode", 1, [40, 50], 64),
+                   ("flash_decode", 5, [40, 50], 64))
+
+
+def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
+    """Phase 24 (b): each C entry at head dim D launched directly
+    (tfa._launch, which counts no launch) in bf16 and in f32: flash_fwd on
+    causal self-attention (B=2, S=192, a ragged last query tile) and
+    PAD_STORE_CASES on a cache of the act dtype and on an int8 one, every
+    output ``out`` a [B, S, Hq, D] view of rows ``width`` wide filled with
+    SENTINEL. Fails unless columns D..width-1 keep the sentinel, the
+    columns below D agree with the plain version (bf16 1e-2, f32 1e-4) and
+    the decode ran with one split and with several. Returns {row: {dtype:
+    max|out - plain|}}."""
+    g = torch.Generator(dev).manual_seed(seed)
+    B = 2
+    errs: dict = {}
+    splits = set()
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def launch(row, dtype, what, q, k, v, start, **kw):
+        full = torch.full(q.shape[:3] + (width,), SENTINEL, dtype=dtype,
+                          device=dev)
+        kernel = "flash_decode" if row.startswith("flash_decode") \
+            else "flash_fwd"
+        if kernel == "flash_decode":
+            n = tfa._decode_plan(B, q.shape[1], Hq, Hkv, k.shape[2],
+                                 tfa._sm_count(dev))[2]
+            splits.add(n)
+            what += f" splits={n}"
+        tfa._launch(kernel, q, k, v, start, causal=True, scale=D ** -0.5,
+                    out=full[..., :D], **kw)
+        ref = tfa.attention_plain(q, k, v, start, **kw)[0]
+        torch.cuda.synchronize()
+        kept = bool((full[..., D:] == SENTINEL).all())
+        e = (full[..., :D].float() - ref.float()).abs().max().item()
+        tol = TOL[str(dtype).split(".")[1]]
+        print(f"{row} at head dim {D}, {dtype} {what}: columns {D}..{width - 1}"
+              f" kept the sentinel: {kept}; max|out-plain| {e:.3g} (tol {tol})")
+        check(kept, f"{row} at head dim {D} ({dtype} {what}) stored past "
+              f"column {D}")
+        check(e <= tol, f"{row} disagrees with plain at head dim {D}, "
+              f"{dtype} {what}: {e:.3g}")
+        by = errs.setdefault(row, {})
+        by[str(dtype)] = max(by.get(str(dtype), 0.0), e)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        S = 192
+        q, k, v = (rnd(B, S, h, D, dtype=dtype) for h in (Hq, Hkv, Hkv))
+        launch("flash_fwd", dtype, f"self-attention S={S}", q,
+               k.transpose(1, 2), v.transpose(1, 2), 0)
+        for int8 in (False, True):
+            for ml in sorted({c[3] for c in PAD_STORE_CASES}):
+                kc, vc = (rnd(B, Hkv, ml, D, dtype=dtype) for _ in range(2))
+                kw = {"pad_lens": torch.tensor([0, 37], dtype=torch.int32,
+                                               device=dev)}
+                if int8:
+                    (kc, kw["k_scale"]), (vc, kw["v_scale"]) = \
+                        td._quantize_kv(kc), td._quantize_kv(vc)
+                for row, S, start, case_ml in PAD_STORE_CASES:
+                    if case_ml != ml:
+                        continue
+                    st = (torch.tensor(start, dtype=torch.int32, device=dev)
+                          if isinstance(start, list) else start)
+                    launch(row + ("_int8" if int8 else ""), dtype,
+                           f"S={S} start={start} max_len={ml}",
+                           rnd(B, S, Hq, D, dtype=dtype), kc, vc, st, **kw)
+    check(1 in splits and max(splits) > 1, f"the decode's splits {splits}: "
+          "one split and several must both store")
+    return errs
+
+
+def phase_pad_exact(torch, tl, tm, td, te, dev):
+    """Phase 24 (c): OpenLLaMA-3B's widths (pad_models) cut to 2 layers,
+    f32 (the kernels' f32 instances), flash against dense on the card
+    (serve_exact: logits within 1e-4 on an f32 cache and 2e-2 on an int8
+    one, generate fresh, left-padded and on an int8 cache token-equal, a
+    ServeEngine pass with a shared prefix stream-equal)."""
+    models = tuple((f"{name} width, 2 layers", dataclasses.replace(
+        cfg, n_layers=2), tl.init_params, td.cached_forward)
+        for name, cfg in zip(("OpenLLaMA-3B",), pad_models(tl).values()))
+    return serve_exact(torch, tm, td, te, models, PAD_HEADS, dev, SEED + 133)
+
+
+def phase_pad_serving(torch, tl, td, te, tfa, dev):
+    """Phase 24 (d), bf16, full depth: the OpenLLaMA-3B-width model
+    (pad_models, 26 layers) through serve_paths (generate fresh,
+    left-padded and on an int8 cache, a ServeEngine pass; launches equal
+    to the prediction, tokens/s, peak memory, parameters); then, at head
+    dim 100, a training call refused by name before any launch
+    (training_refused: the backward and triangle kernels do not take it).
+    Returns ({100: launches}, report)."""
+    models = {D: ("OpenLLaMA-3B", cfg) for D, cfg in pad_models(tl).items()}
+    launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
+                                   SEED + 134)
+    report["refusals"] = training_refused(torch, tfa, dev, 100, 32, 32,
+                                          SEED + 135)
+    return launches, report
+
+
+def sdpa_backend(kernels):
+    """The scaled_dot_product_attention backend whose kernels these are
+    (the names one profiler session of the call recorded): cuDNN, flash,
+    memory-efficient, or math (plain matrix products and a softmax)."""
+    text = " ".join(kernels).lower()
+    if "cudnn" in text:
+        return "cudnn"
+    if "flash" in text:
+        return "flash"
+    if "fmha" in text or "efficient" in text:
+        return "efficient"
+    return "math"
+
+
+def library_backends(torch, deferred, rows):
+    """For each of ``rows`` with a library call in ``deferred``: the
+    kernels one profiler session of that call ran, the longest first
+    (``library_kernels``, names cut to 96 characters), and the SDPA
+    backend they are (``library_backend``). After device_times, as every
+    profiler session is."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=torch.device(
+        "cuda"))
+    for r, _, library, _ in deferred:
+        if library is None or not any(r is x for x in rows):
+            continue
+        kernels = profiled(library, flush, None, reps=2)
+        names = sorted(kernels, key=lambda k: -kernels[k][1])
+        r["library_kernels"] = [n[:96] for n in names[:4]]
+        r["library_backend"] = sdpa_backend(names)
+        print(f"{r['name']}: SDPA ran {r['library_backend']} "
+              f"({r['library_kernels']})")
+    del flush
 
 
 # phase 23: head dim 256 in training, at the phase-22 model's heads
@@ -5583,7 +5782,7 @@ def main() -> int:
         for fn, info in ptxas_info(log).items():
             print(f"  {name}: {fn}: {info}")
     serve_report = {}
-    for D in SERVE_DIMS:     # phases 2, 16, 18 and 20
+    for D in SERVE_DIMS:     # phases 2, 16, 18, 20, 22 and 24
         print(f"serving instances at head dim {D}:")
         serve_report[D] = serve_build_report(_cuda, tfa, logs, D)
     print("training instances at head dim 128:")
@@ -5833,8 +6032,24 @@ def main() -> int:
     print(f"head dim 256 training paths {time.perf_counter() - t0:.1f} s; "
           f"head dim 256 training phase {time.perf_counter() - t23:.1f} s")
     torch.cuda.empty_cache()
+    t24 = t0 = time.perf_counter()
+    pad_rows = serve_kernels(torch, tfa, td, dev, deferred, 100)
+    pad_store_errs = pad_stores(torch, tfa, td, dev, 100, 8, 4, SEED + 132)
+    print(f"head dim 100 kernels {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pad_exact = phase_pad_exact(torch, tl, tm, td, te, dev)
+    print(f"head dim 100 exact {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pad, pad_report = phase_pad_serving(torch, tl, td, te, tfa, dev)
+    pad_report.update(exact=pad_exact, stores=pad_store_errs)
+    print(f"head dim 100 serving {time.perf_counter() - t0:.1f} s; head "
+          f"dim 100 phase {time.perf_counter() - t24:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
+    library_backends(torch, deferred, pad_rows)
     print(f"device-time phase {time.perf_counter() - t0:.1f} s")
     for r in rows:      # the bench twins' shapes count in the worst errors
         if r["name"] in twin_worst:
@@ -5989,8 +6204,21 @@ def main() -> int:
                                    wide_fwd_err[256])
             r["launches_by_path"].update(
                 {k: v.get(name, 0) for k, v in wide_train[256].items()})
+    # the head-dim-100 instances: launches across phase 24's full-size
+    # run, ptxas of the timed ones, the D = 128 row's time beside each call
+    # at its shapes, the bf16 errors of the sentinel launches
+    serve_reports(pad_rows, serve_report[100])
+    beside_d128(pad_rows, by_name)
+    for r in pad_rows:
+        name = r["name"][:-len("_d100")]
+        r["launches"] = pad[100][name]
+        r["launches_by_path"] = {"d100_serving": pad[100][name]}
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        r["at_sentinel_stores"] = pad_store_errs[name]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               pad_store_errs[name]["torch.bfloat16"])
     rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
-        + mid_rows + mid_train_rows + wide_rows + wide_train_rows
+        + mid_rows + mid_train_rows + wide_rows + wide_train_rows + pad_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
@@ -6000,6 +6228,7 @@ def main() -> int:
     print(f"head dims 96 and 80 in training: {json.dumps(mid_train_report)}")
     print(f"head dim 256: {json.dumps(wide_report)}")
     print(f"head dim 256 in training: {json.dumps(wide_train_report)}")
+    print(f"head dim 100: {json.dumps(pad_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

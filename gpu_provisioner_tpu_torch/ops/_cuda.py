@@ -24,9 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_fwd_wide", "flash_decode",
-           "flash_decode_narrow", "flash_decode_mid", "flash_decode_wide",
-           "flash_bwd", "flash_bwd_mid", "flash_bwd_wide", "flash_tri",
+SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_fwd_pad", "flash_fwd_wide",
+           "flash_decode", "flash_decode_narrow", "flash_decode_mid",
+           "flash_decode_pad", "flash_decode_wide", "flash_bwd", "flash_bwd_mid", "flash_bwd_wide", "flash_tri",
            "flash_tri_narrow", "flash_tri_mid", "flash_tri_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -85,10 +85,12 @@ class FlashTriArgs(ctypes.Structure):
 ENTRIES = {
     "flash_fwd": ("flash_fwd", FlashArgs),
     "flash_fwd_mid": ("flash_fwd_mid", FlashArgs),
+    "flash_fwd_pad": ("flash_fwd_pad", FlashArgs),
     "flash_fwd_wide": ("flash_fwd_wide", FlashArgs),
     "flash_decode": ("flash_decode", FlashArgs),
     "flash_decode_narrow": ("flash_decode_narrow", FlashArgs),
     "flash_decode_mid": ("flash_decode_mid", FlashArgs),
+    "flash_decode_pad": ("flash_decode_pad", FlashArgs),
     "flash_decode_wide": ("flash_decode_wide", FlashArgs),
     "flash_bwd_dq": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
@@ -206,15 +208,23 @@ MID_HEAD_DIMS = (80, 96)
 # csrc/flash_tri_wide.cu): C entry <kernel>_wide, every kernel
 WIDE = MID
 WIDE_HEAD_DIMS = (256,)
+# the serving kernels whose head dim 100, a row of no whole number of 16-byte
+# chunks, lives in a source of its own (csrc/flash_fwd_pad.cu,
+# csrc/flash_decode_pad.cu): C entry <kernel>_pad
+PAD = ("flash_fwd", "flash_decode")
+PAD_HEAD_DIMS = (100,)
 
 
 def entry(kernel: str, head_dim: int) -> str:
     """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``,
     ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16,
-    ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96, or
+    ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96,
+    ``kernel + "_pad"`` for a kernel of PAD at head dim 100, or
     ``kernel + "_wide"`` for a kernel of WIDE at head dim 256."""
     if kernel in MID and head_dim in MID_HEAD_DIMS:
         return f"{kernel}_mid"
+    if kernel in PAD and head_dim in PAD_HEAD_DIMS:
+        return f"{kernel}_pad"
     if kernel in WIDE and head_dim in WIDE_HEAD_DIMS:
         return f"{kernel}_wide"
     return f"{kernel}_narrow" if kernel in NARROW and head_dim < 64 \

@@ -219,10 +219,22 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (16 * RPT * (D + 1) + BK * (D + 1) + BK * D + 16 * RPT * (BK + 1));
 }
 
+// The output columns lane_c + 8 c of a thread, c < NCOL<D> (D / 8, or 13 at
+// D = 100), and whether column lane_c + 8 c lies inside D (at D = 100 the
+// 13th is lanes 0..3's alone; the callers test it only where 8 does not
+// divide D, under if constexpr, so that the other instances keep their
+// code).
+template <int D>
+constexpr int NCOL = (D + 7) / 8;
+template <int D>
+__device__ __forceinline__ bool has_col(int lane_c, int c) {
+  return lane_c + 8 * c < D;
+}
+
 // Running softmax state of the rows a thread owns.
 template <int D, int RPT>
 struct RowState {
-  float acc[RPT][D / 8];
+  float acc[RPT][NCOL<D>];
   float m[RPT];
   float l[RPT];
   int qpos[RPT];   // query position of each row (ignored when !valid)
@@ -312,19 +324,24 @@ __device__ void attend_tiles(const float* sQ, float* sK, float* sV, float* sP,
       st.m[i] = m_new;
       st.l[i] = st.l[i] * corr + row_sum8(psum);
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) st.acc[i][c] *= corr;
+      for (int c = 0; c < NCOL<D>; ++c) st.acc[i][c] *= corr;
     }
     __syncwarp();   // a row group's P is written and read by one warp
 
     for (int kk = 0; kk < BK; ++kk) {
-      float vv[D / 8];
+      float vv[NCOL<D>];
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) vv[c] = sV[kk * D + lane_c + 8 * c];
+      for (int c = 0; c < NCOL<D>; ++c) {
+        if constexpr (D % 8 == 0)
+          vv[c] = sV[kk * D + lane_c + 8 * c];
+        else
+          vv[c] = has_col<D>(lane_c, c) ? sV[kk * D + lane_c + 8 * c] : 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const float p = sP[(rg * RPT + i) * (BK + 1) + kk];
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) st.acc[i][c] = fmaf(p, vv[c], st.acc[i][c]);
+        for (int c = 0; c < NCOL<D>; ++c) st.acc[i][c] = fmaf(p, vv[c], st.acc[i][c]);
       }
     }
   }
@@ -337,7 +354,7 @@ __device__ __forceinline__ void init_state(RowState<D, RPT>& st) {
     st.m[i] = FA_NEG_INF;
     st.l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) st.acc[i][c] = 0.f;
+    for (int c = 0; c < NCOL<D>; ++c) st.acc[i][c] = 0.f;
   }
 }
 
@@ -348,7 +365,7 @@ __device__ __forceinline__ float finalize_row(RowState<D, RPT>& st, int i) {
   const float l = st.l[i];
   if (l > 0.f) {
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) st.acc[i][c] /= l;
+    for (int c = 0; c < NCOL<D>; ++c) st.acc[i][c] /= l;
   }
   return l > 0.f ? st.m[i] + logf(l) : FA_NEG_INF;
 }

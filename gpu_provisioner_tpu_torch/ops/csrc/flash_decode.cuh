@@ -50,8 +50,8 @@
 // blocks (64 rows, ~128 operations per byte) want mma.sync or wgmma is
 // left open.
 //
-// Head dim 16, 32, 64, 80, 96, 128 or 256 (the C entries refuse any other
-// D).
+// Head dim 16, 32, 64, 80, 96, 100, 128 or 256 (the C entries refuse any
+// other D).
 // A CTA keeps 128 threads at each: P V splits the block into RH = 128 / D
 // row groups of D threads (1 at D = 128, 2 at 64, 4 at 32, 8 at 16), group
 // g owning rows g, g + RH, ... of the unit and each of its threads one
@@ -71,6 +71,13 @@
 // tile against the rows of its half of the block) and the softmax (a warp
 // a row) do not depend on D. A row is copied in 16-byte chunks: an int8 row
 // is 64 bytes at D = 64, one chunk at D = 16, 5 or 6 chunks at 80 or 96.
+// At D = 100 (OpenLLaMA-3B's 32/32 heads of 100; one row group, threads
+// 0..99 owning a column, as at 80 and 96) a cached row is 200 bytes in
+// bf16 and 100 in int8, no whole number of chunks, and a contiguous
+// cache's rows start on 8- or 4-byte boundaries only: the ring copies
+// them in pieces of 8 or 4 bytes (cp.async.ca; an f32 row of 400 bytes
+// stays 16-byte chunks), and the score product reads the row's whole
+// chunks and then its last 4 values alone (Layout::TAIL).
 //
 // This header holds the kernel, its merge and their launch for every head
 // dim; flash_decode.cu's C entry takes 64 and 128, flash_decode_narrow.cu's
@@ -95,18 +102,23 @@ constexpr int MAX_SPLITS = 32;       // ops/flash_attention.py DECODE_MAX_SPLITS
 // D = 256, whose two would take 266,240 bytes, past the 232,448 a block
 // may have: that instance loads each tile after the last one's products),
 // each a K and a V tile of
-// 64 rows padded to RB bytes (RB the least odd multiple of 16 past the row:
-// the 16-byte chunks that eight neighbouring lanes read from eight rows fall
-// in distinct banks; 16 bytes of padding, but 32 for the one-chunk int8 row
-// of D = 16)
+// 64 rows padded to RB bytes (RB the least odd multiple of 16 past the
+// row's whole chunks: the 16-byte chunks that eight neighbouring lanes read
+// from eight rows fall in distinct banks; 16 bytes of padding, but 32 for
+// the one-chunk int8 row of D = 16; at D = 100 208 bytes for a bf16 row of
+// 200, 112 for an int8 row of 100, 432 for an f32 row of 400)
 // plus, for int8, the tile's 64 k and 64 v scales; then Q (f32 [R][D]),
 // the scores / P (f32 [R][BK]), each row's running max, denominator and
 // rescale factor, and each row's query position.
 template <typename KT, int D, int R>
 struct Layout {
   static constexpr bool kInt8 = std::is_same<KT, int8_t>::value;
-  static constexpr int CH = D * static_cast<int>(sizeof(KT)) / 16;   // chunks a row
-  static constexpr int VPC = 16 / static_cast<int>(sizeof(KT));       // values a chunk
+  static constexpr int ROW = D * static_cast<int>(sizeof(KT));      // bytes a cached row
+  static constexpr int CH = ROW / 16;                                // its whole chunks
+  static constexpr int VPC = 16 / static_cast<int>(sizeof(KT));     // values a chunk
+  static constexpr int TAIL = ROW % 16;   // bytes past them: 8 (bf16) or 4 (int8) at D = 100
+  // the ring's copy: 16-byte chunks, or at D = 100 pieces of 8 or 4 bytes
+  static constexpr int CP = TAIL == 0 ? 16 : TAIL;
   static constexpr int RB = 16 * ((CH + 1) | 1);
   static constexpr int TILE = BK * RB;
   static constexpr int STAGE = 2 * TILE + (kInt8 ? 2 * BK * 4 : 0);
@@ -123,6 +135,12 @@ struct Layout {
 __device__ __forceinline__ void cp16(const void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_addr(dst)),
                "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp8(const void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(wg::smem_addr(dst)),
+               "l"(src), "r"(in ? 8 : 0)
                : "memory");
 }
 
@@ -158,6 +176,22 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&x)[16], int8_t) {
       x[4 * i + b] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
 }
 
+// The 4 values of a row's tail (Layout::TAIL: 8 bytes of bf16, 4 of int8)
+// as f32.
+__device__ __forceinline__ void unpack_tail(const char* p, float (&x)[4], __nv_bfloat16) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(u.x << 16);
+  x[1] = __uint_as_float(u.x & 0xffff0000u);
+  x[2] = __uint_as_float(u.y << 16);
+  x[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void unpack_tail(const char* p, float (&x)[4], int8_t) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) x[b] = static_cast<float>(static_cast<int8_t>((w >> (8 * b)) & 0xffu));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -187,14 +221,32 @@ template <typename KT, int D, int R>
 __device__ __forceinline__ void load_stage(char* stage, const Src<KT>& s, int j) {
   using Ly = Layout<KT, D, R>;
   const int kv0 = j * BK;
-  for (int i = threadIdx.x; i < BK * Ly::CH; i += THREADS) {
-    const int r = i / Ly::CH, c = i % Ly::CH;
-    const bool in = kv0 + r < s.Sk;
-    const long long row = in ? kv0 + r : 0;
-    cp16(stage + r * Ly::RB + c * 16, reinterpret_cast<const char*>(s.k + row * s.k_ss) + c * 16,
-         in);
-    cp16(stage + Ly::TILE + r * Ly::RB + c * 16,
-         reinterpret_cast<const char*>(s.v + row * s.v_ss) + c * 16, in);
+  if constexpr (Ly::CP != 16) {   // D = 100: pieces of 8 (bf16) or 4 (int8) bytes
+    constexpr int P = Ly::ROW / Ly::CP;   // pieces a row
+    for (int i = threadIdx.x; i < BK * P; i += THREADS) {
+      const int r = i / P, c = i % P;
+      const bool in = kv0 + r < s.Sk;
+      const long long row = in ? kv0 + r : 0;
+      const char* k = reinterpret_cast<const char*>(s.k + row * s.k_ss) + c * Ly::CP;
+      const char* v = reinterpret_cast<const char*>(s.v + row * s.v_ss) + c * Ly::CP;
+      if constexpr (Ly::CP == 8) {
+        cp8(stage + r * Ly::RB + c * 8, k, in);
+        cp8(stage + Ly::TILE + r * Ly::RB + c * 8, v, in);
+      } else {
+        cp4(stage + r * Ly::RB + c * 4, k, in);
+        cp4(stage + Ly::TILE + r * Ly::RB + c * 4, v, in);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < BK * Ly::CH; i += THREADS) {
+      const int r = i / Ly::CH, c = i % Ly::CH;
+      const bool in = kv0 + r < s.Sk;
+      const long long row = in ? kv0 + r : 0;
+      cp16(stage + r * Ly::RB + c * 16,
+           reinterpret_cast<const char*>(s.k + row * s.k_ss) + c * 16, in);
+      cp16(stage + Ly::TILE + r * Ly::RB + c * 16,
+           reinterpret_cast<const char*>(s.v + row * s.v_ss) + c * 16, in);
+    }
   }
   if constexpr (Ly::kInt8) {   // k scales then v scales, one a thread
     const int r = threadIdx.x & (BK - 1);
@@ -230,14 +282,15 @@ __device__ __forceinline__ Live live_tiles(int start, int pad, int first_s, int 
 // two, the split plan's about two an SM (_decode_splits), which leaves
 // ptxas 255 registers; without a bound (-DDECODE_MID_MIN_BLOCKS=0) it
 // spilled in 8 of those 60 instances (hack/torch_ptxas_variants.py
-// flash_decode_mid). The same bound at 256, whose two columns a thread
-// hold up to 128 accumulators (R = 64). 0 at the other head dims: no
-// bound, the same SASS as none given.
+// flash_decode_mid). The same bound at 100, and at 256, whose two columns
+// a thread hold up to 128 accumulators (R = 64). 0 at the other head dims:
+// no bound, the same SASS as none given.
 #ifndef DECODE_MID_MIN_BLOCKS
 #define DECODE_MID_MIN_BLOCKS 2
 #endif
 template <int D>
-constexpr int DECODE_MIN_BLOCKS = D == 80 || D == 96 || D == 256 ? DECODE_MID_MIN_BLOCKS : 0;
+constexpr int DECODE_MIN_BLOCKS =
+    D == 80 || D == 96 || D == 100 || D == 256 ? DECODE_MID_MIN_BLOCKS : 0;
 
 // One CTA: unit blockIdx.x (= ((b * Hkv + kvh) * row blocks + row block)),
 // share blockIdx.y of its live tiles.
@@ -248,8 +301,9 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
   // at 16 (rows t / D, t / D + RH, ...), NA rows; at R < RH the groups t /
   // D >= R own none; at D = 256 RH = 1 and CPT = 2 columns, t and t + 128,
   // of every row
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
-                "head dim 16, 32, 64, 80, 96, 128 or 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
+                    D == 256,
+                "head dim 16, 32, 64, 80, 96, 100, 128 or 256");
   constexpr int CPT = D > THREADS ? D / THREADS : 1;
   constexpr int RH = D > THREADS ? 1 : THREADS / D;
   constexpr int NA = (R + RH - 1) / RH;
@@ -356,6 +410,19 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
             s[i2] = fmaf(q4.z, kx[v + 2], s[i2]);
             s[i2] = fmaf(q4.w, kx[v + 3], s[i2]);
           }
+        }
+      }
+      if constexpr (Ly::TAIL != 0) {   // D = 100: the row's last 4 values
+        float kx[4];
+        unpack_tail(krow + Ly::CH * 16, kx, KT());
+#pragma unroll
+        for (int i2 = 0; i2 < R / 2; ++i2) {
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(sQ + (rsel + 2 * i2) * D + Ly::CH * Ly::VPC);
+          s[i2] = fmaf(q4.x, kx[0], s[i2]);
+          s[i2] = fmaf(q4.y, kx[1], s[i2]);
+          s[i2] = fmaf(q4.z, kx[2], s[i2]);
+          s[i2] = fmaf(q4.w, kx[3], s[i2]);
         }
       }
       const int kp = kv0 + kc;

@@ -200,11 +200,12 @@ __device__ __forceinline__ const float* floats_at(uint32_t addr) {
                                         (addr - wg::smem_addr(smem)));
 }
 
-// s = A B^T for one 64 x 64 tile (A, B both K-major): D / 16 k-steps.
+// s = A B^T for one 64 x 64 tile (A, B both K-major): D / 16 k-steps, 7
+// at D = 100 (the last over the zeroed pad from column 100).
 template <int D = 128>
 __device__ __forceinline__ void abt(float (&s)[32], uint32_t sa, uint32_t sb) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < (D + 15) / 16; ++kk)
     wg::mma_m64n64k16_ss<0>(s, wg::desc_kmajor(sa, kk), wg::desc_kmajor(sb, kk), kk > 0);
 }
 
@@ -249,11 +250,13 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 
 // Rows r0 + frag_row (+ 8) of a 64 x 2N accumulator (N floats a thread),
 // its first D columns (all of them by default), each times mul[i], as bf16
-// at `base` (row stride ld elements), rows at or past n left out.
+// at `base` (row stride ld elements), rows at or past n left out. At D =
+// 100 the last 8-column group is cut: columns 96..99 are stored and
+// 100..103, the next head's first columns in a [.., H, 100] row, are not.
 template <int N, int D = 2 * N>
 __device__ __forceinline__ void store_bf16(const float (&acc)[N], bf16* base, long long ld,
                                            int r0, int n, const float (&mul)[2]) {
-  static_assert(D % 8 == 0 && D <= 2 * N, "whole 8-column groups of the accumulator");
+  static_assert(D % 4 == 0 && D <= 2 * N, "whole column pairs of the accumulator");
   const int t = threadIdx.x, row = wg::frag_row(t), col = wg::frag_col(t);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -264,6 +267,12 @@ __device__ __forceinline__ void store_bf16(const float (&acc)[N], bf16* base, lo
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+    if constexpr (D % 8 != 0) {   // the cut group: its pairs below column D
+      constexpr int j = D / 8;
+      if (col < D % 8)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+    }
   }
 }
 
@@ -362,10 +371,18 @@ __device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf1
 // v scales. An int8 value is exact in bf16 (8 significant bits), so the
 // tiles widen without rounding into the swizzled bf16 K/V pair the products
 // read (i8_widen); k_scale multiplies score column j, v_scale P's column j
-// (ColScales).
+// (ColScales). A row's pitch in the stage is D bytes, and at D = 100 112:
+// seven 16-byte chunks, the last 12 bytes a pad zeroed once (i8_zero_pad).
+template <int D>
+__host__ __device__ constexpr int i8_pitch() {
+  return (D + 15) / 16 * 16;
+}
 template <int D>
 __host__ __device__ constexpr uint32_t i8_tile() {
-  return E * D;
+  if constexpr (D % 16 == 0)
+    return E * D;
+  else
+    return E * i8_pitch<D>();
 }
 template <int D>
 __host__ __device__ constexpr uint32_t i8_stage_bytes() {
@@ -385,17 +402,35 @@ __host__ __device__ constexpr size_t fwd_i8_smem() {
 // D / 32 a thread (at D = 16, where a row is one chunk, threads 0..63 copy
 // a K row each and threads 64..127 a V row; at D = 80 and 96, rows of 5 or
 // 6 chunks, the K and V tiles' chunks together, D / 16 a thread; at D =
-// 256 the whole V tile too, of which the CTA widens its half), and one
-// scale a thread. Not committed.
+// 256 the whole V tile too, of which the CTA widens its half; at D = 100,
+// rows 4-byte aligned, 25 pieces of 4 bytes a row, the K and V tiles'
+// together, 25 a thread, at the stage's pitch of 112), and one scale a
+// thread. Not committed.
 template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
                                          const float* ksb, const float* vsb, long long k_ss,
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
   constexpr int CH = D / 16;                  // chunks a row
   constexpr int LOG_CH = wg::log2i(CH);
-  static_assert(D % 16 == 0 && D <= 256, "D = 16, 32, 64, 80, 96, 128 or 256");
+  static_assert((D % 16 == 0 || D == 100) && D <= 256, "D = 16, 32, 64, 80, 96, 100, 128 or 256");
   constexpr uint32_t TILE = i8_tile<D>();
-  if constexpr ((1 << LOG_CH) != CH) {        // D = 80 or 96
+  if constexpr (D % 16 != 0) {                // D = 100
+    constexpr int P = D / 4;                  // pieces of 4 bytes a row
+    static_assert(2 * E * P % wg::THREADS == 0, "whole pieces a thread");
+#pragma unroll 5
+    for (int it = 0; it < 2 * E * P / wg::THREADS; ++it) {
+      const int i = threadIdx.x + it * wg::THREADS;
+      const int kv = i / (E * P), j = i % (E * P);
+      const int r = j / P, p = j % P;
+      const bool in = k0 + r < Sk;
+      const long long row = in ? k0 + r : 0;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stage + kv * TILE +
+                                                                          r * i8_pitch<D>() +
+                                                                          p * 4),
+                   "l"((kv ? vb + row * v_ss : kb + row * k_ss) + p * 4), "r"(in ? 4 : 0)
+                   : "memory");
+    }
+  } else if constexpr ((1 << LOG_CH) != CH) {   // D = 80 or 96
 #pragma unroll
     for (int it = 0; it < 2 * E * CH / wg::THREADS; ++it) {
       const int i = threadIdx.x + it * wg::THREADS;
@@ -440,6 +475,27 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
                : "memory");
 }
 
+// Zeroes the pad of every row of the int8 stage at `stage` (K and V
+// tiles), bytes D .. i8_pitch<D>() - 1, which i8_stage's copies never
+// write: at D = 100 its 12 bytes, so that i8_widen's last chunk reads zeros
+// past column 100; nothing where the pitch is D. Plain stores, published by
+// the ring's barrier before the stage is widened.
+template <int D>
+__device__ __forceinline__ void i8_zero_pad(uint32_t stage) {
+  constexpr int WORDS = (i8_pitch<D>() - D) / 4;   // 4-byte words of pad a row
+  if constexpr (WORDS > 0) {
+    static_assert(D % 4 == 0, "a pad of whole words");
+    for (int i = threadIdx.x; i < 2 * E * WORDS; i += wg::THREADS) {
+      const int kv = i / (E * WORDS), j = i % (E * WORDS);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stage + kv * i8_tile<D>() +
+                                                     j / WORDS * i8_pitch<D>() + D +
+                                                     j % WORDS * 4),
+                   "r"(0u)
+                   : "memory");
+    }
+  }
+}
+
 // Columns c0 .. c0 + W - 1 of the int8 tile at `src` (64 rows of D values)
 // widened, exactly, into the W-wide swizzled bf16 tile at `dst`
 // (wg::load_tile's layout): each thread W / 16 chunks of 8 values.
@@ -470,11 +526,37 @@ __device__ __forceinline__ void i8_widen_cols(uint32_t dst, uint32_t src, int c0
 // Widens the int8 stage's K and V tiles, exactly, into the swizzled bf16
 // tiles at sK and sK + TILE (wg::load_tile's layout): each thread D / 16
 // chunks of 8 values a tile; at D = 256 K whole and V's columns v0 .. v0 +
-// 127 alone (the CTA's half, i8_widen_cols). The caller publishes them
+// 127 alone (the CTA's half, i8_widen_cols); at D = 100 13 chunks a row at
+// the stage's pitch, the last one's columns 100..103 from the stage's
+// zeroed pad, so that they stay zero. The caller publishes them
 // (fence_smem_to_async, then a barrier) before the products.
 template <int D>
 __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage, int v0 = 0) {
-  if constexpr (D > 128) {
+  if constexpr (D % 8 != 0) {
+    constexpr int NCH = (D + 7) / 8;   // bf16 chunks a row, the last one cut
+    const char* src = reinterpret_cast<const char*>(floats_at(stage));
+    char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
+#pragma unroll
+    for (int it = 0; it < (2 * E * NCH + wg::THREADS - 1) / wg::THREADS; ++it) {
+      const int i = threadIdx.x + it * wg::THREADS;
+      if (i >= 2 * E * NCH) break;
+      const int kv = i / (E * NCH), j = i % (E * NCH);
+      const int r = j / NCH, c = j % NCH;   // row, chunk of 8 values along D
+      const uint2 raw = *reinterpret_cast<const uint2*>(src + kv * i8_tile<D>() +
+                                                        r * i8_pitch<D>() + c * 8);
+      const uint32_t w[2] = {raw.x, raw.y};
+      uint32_t o[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const uint32_t x = w[h >> 1] >> (16 * (h & 1));
+        o[h] = wg::pack_bf16(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
+                             static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
+      }
+      *reinterpret_cast<uint4*>(dst + kv * wg::tile_bytes<D>() + (c >> 3) * wg::ATOM_BYTES +
+                                r * 128 + (((c & 7) ^ (r & 7)) << 4)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (D > 128) {
     i8_widen_cols<D, D>(sK, stage, 0);
     i8_widen_cols<D, out_cols<D>>(sK + wg::tile_bytes<D>(), stage + i8_tile<D>(), v0);
   } else {

@@ -34,6 +34,17 @@
 // CTA, so that O += P V stays D = 128's m64n128k16 over a V tile of the
 // half's 128 columns, a D = 128 tile (flash_tc.cuh's out_cols).
 //
+// D = 100 (the serving kernels alone: flash_fwd's tensor-core instances):
+// D = 128's tile as at 80 and 96, but a row of 200 bytes is no whole number
+// of 16-byte chunks, and rows of a contiguous [.., 100] tensor start on
+// 8-byte boundaries only. load_tile copies a row in 25 pieces of 8 bytes
+// (4 values, cp.async.ca), each inside one 16-byte chunk: its place is the
+// chunk's swizzled place plus 0 or 8. Chunk 12 holds columns 96..99 (real)
+// and 100..103 (pad): zero_pad zeroes its upper half and chunks 13..15 of
+// the second atom, from column 100, and the copies never write there. S =
+// Q K^T takes 7 k-steps, the last over columns 96..111 of which a quarter
+// is real; the register-A products stay D = 128's, as at 80 and 96.
+//
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's
 // other chunks are zeroed once a buffer (zero_pad) and never written
@@ -77,11 +88,12 @@ constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
 
 // A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64,
-// two at D = 80 and 96, four at D = 256.
+// two at D = 80, 96 and 100, four at D = 256.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
-                "a tile spans the head dim: 16, 32, 64, 80, 96, 128 or 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
+                    D == 256,
+                "a tile spans the head dim: 16, 32, 64, 80, 96, 100, 128 or 256");
   return D < 64 ? ATOM_BYTES : (D + 63) / 64 * ATOM_BYTES;
 }
 
@@ -307,13 +319,32 @@ __device__ __forceinline__ void copy_wait() {
 // positions; 16-byte aligned) into the swizzled tile at `tile`: 64 * D / 8
 // chunks of 16 bytes, D / 16 per thread, neighbouring threads on
 // neighbouring chunks of a row. Rows at or past S are zero-filled (src-size
-// 0). Not committed.
+// 0). Not committed. At D = 100 (8-byte aligned rows) 64 * 25 pieces of 8
+// bytes instead, 12 or 13 a thread, each into its chunk's swizzled place.
 template <int D = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base, long long ld,
                                           int row0, int S) {
+  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96, 100, 128 or 256");
+  if constexpr (D % 8 != 0) {
+    static_assert(D % 4 == 0, "rows of whole 8-byte pieces");
+    constexpr int P = D / 4;   // pieces of 4 values a row
+#pragma unroll
+    for (int it = 0; it < (ROWS * P + THREADS - 1) / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      if (i >= ROWS * P) break;
+      const int r = i / P, p = i % P, c = p >> 1;   // row, piece, its chunk
+      const bool in = row0 + r < S;
+      const __nv_bfloat16* src = in ? base + (row0 + r) * ld + p * 4 : base;
+      const uint32_t dst =
+          tile + (c >> 3) * ATOM_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4) + (p & 1) * 8;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                   "r"(in ? 8 : 0)
+                   : "memory");
+    }
+    return;
+  }
   constexpr int LOG_CH = log2i(D / 8);   // log2 of the chunks a row, D / 8
   constexpr bool POW2 = (1 << LOG_CH) == D / 8;   // all but D = 80 and 96
-  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96, 128 or 256");
 #pragma unroll
   for (int it = 0; it < ROWS * (D / 8) / THREADS; ++it) {
     const int i = threadIdx.x + it * THREADS;
@@ -330,13 +361,31 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
 
 // Zeroes what load_tile leaves empty in every row of a tile at `tile`:
 // the chunks D / 8 .. 7 of a one-atom tile (D = 32 or 16), or the chunks
-// D / 8 - 8 .. 7 of a two-atom tile's second atom (D = 80 or 96); nothing
-// at D = 64 and 128. Plain stores: the caller publishes them to the tensor
-// cores (fence_smem_to_async, then a barrier) before the first product
-// reads the tile.
+// D / 8 - 8 .. 7 of a two-atom tile's second atom (D = 80 or 96), or at D
+// = 100 the upper half of that atom's chunk 4 (columns 100..103) and its
+// chunks 5..7; nothing at D = 64 and 128. Plain stores, never on a byte
+// that load_tile's copies write (those may still be in flight): the caller
+// publishes them to the tensor cores (fence_smem_to_async, then a barrier)
+// before the first product reads the tile.
 template <int D>
 __device__ __forceinline__ void zero_pad(uint32_t tile) {
-  if constexpr (D % 64 != 0) {
+  if constexpr (D % 8 != 0) {
+    static_assert(D % 8 == 4 && D > 64, "a second atom cut mid-chunk");
+    constexpr int CH = D / 8 % 8;   // the chunk cut at column D
+    constexpr int PAD = 8 - CH;     // it and the chunks after it: 4
+    const uint32_t atom = tile + (D / 64) * ATOM_BYTES;
+    for (int i = threadIdx.x; i < ROWS * PAD; i += THREADS) {
+      const int r = i / PAD, c = CH + i % PAD;
+      const uint32_t at = atom + r * 128 + ((c ^ (r & 7)) << 4);
+      if (c == CH)
+        asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(at + 8), "r"(0u), "r"(0u)
+                     : "memory");
+      else
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(0u), "r"(0u),
+                     "r"(0u), "r"(0u)
+                     : "memory");
+    }
+  } else if constexpr (D % 64 != 0) {
     constexpr int CH = D / 8 % 8;   // chunks of the last atom in use
     constexpr int PAD = 8 - CH;     // empty chunks a row: 4 or 6
     const uint32_t atom = tile + (D / 64) * ATOM_BYTES;

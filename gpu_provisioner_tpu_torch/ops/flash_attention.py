@@ -57,7 +57,8 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   the backward, where the JAX kernels keep them f32 (ROADMAP Queue C 12,
   14; an int8 cache widens exactly to bf16 with its scales on the score
   and P columns, Queue C 15); these kernels, and the decode kernel's K/V
-  ring in every dtype, need 16-byte aligned inputs (``_check_tc_copies``,
+  ring in every dtype, need inputs aligned to their copy width, 16 bytes
+  but at head dim 100 (``_copy_width``; ``_check_tc_copies``,
   a ValueError on a direct launch), and the model paths (the autograd
   forward and backward, ``flash_attention_cached``,
   ``flash_attention_decode``) copy an input or cotangent that is not
@@ -68,10 +69,17 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_HEAD_DIMS``; at 32 and 16 the tensor-core tile is the 64-wide one
   partly filled, at 80 and 96 the 128-wide one, at 256 the register-A
   products in column halves of 128 (dQ's two in one CTA, the forward's and
-  dK/dV's one a CTA), each from a source of its own: ``_cuda.entry``); on
-  a CUDA tensor any other head dim raises a
+  dK/dV's one a CTA), each from a source of its own: ``_cuda.entry``), and
+  100 in the serving kernels alone (``_SERVE_HEAD_DIMS``: ``flash_fwd`` on
+  self-attention and on a bf16 or int8 cache, ``flash_decode``; the
+  128-wide tile partly filled, rows of 100 values, no whole number of
+  16-byte chunks, copied in 8-byte pieces in bf16 and 4-byte pieces in
+  int8: ``_copy_width``); on a CUDA tensor any other head dim raises a
   ValueError naming it before a kernel is built or launched (no plain
-  fallback), where the JAX kernels take any head dim;
+  fallback), and so, at 100, do ``triangular=True`` and a self-attention
+  input that requires grad (``_check_forward_only``: a training step must
+  not launch the forward and then fail in the backward), where the JAX
+  kernels take any head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -110,8 +118,10 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims every kernel is built for
+# the head dims every kernel is built for, and those of the serving kernels
+# (flash_fwd, flash_decode) alone
 _HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+_SERVE_HEAD_DIMS = _HEAD_DIMS + (100,)
 
 
 def reset_launches() -> None:
@@ -372,11 +382,14 @@ def attention_plain(q, k, v, start, *, causal: bool = True,
 
 def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
             pad_lens=None, k_scale=None, v_scale=None, window=None,
-            sinks: int = 0, want_lse: bool = False):
+            sinks: int = 0, want_lse: bool = False, out=None):
     """Checks what the CUDA kernel takes, allocates the outputs and launches
     ``kernel`` on the current stream. k/v are head-major [B,Hkv,Sk,D] views
-    (any strides, head dim contiguous; the bf16 ``flash_fwd`` takes 16-byte
-    chunks of q, k and v, ``flash_decode`` of k and v: ``_check_tc_copies``).
+    (any strides, head dim contiguous; the bf16 ``flash_fwd`` takes pieces
+    of its copy width of q, k and v, ``flash_decode`` of k and v:
+    ``_check_tc_copies``). ``out``, where given, is the [B,S,Hq,D] output
+    in q's dtype (any strides, head dim contiguous; a view of wider rows,
+    say), which the kernel writes instead of a fresh tensor.
     ``flash_decode`` also gets its split plan (``_decode_plan``) and, with
     more than one split, the f32 workspace of its partials."""
     B, S, Hq, D = q.shape
@@ -393,9 +406,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _HEAD_DIMS:
+    if D not in _SERVE_HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_HEAD_DIMS}")
+                         f"{_SERVE_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -415,8 +428,12 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     _check_tc_copies(kernel, q=q, k=k, v=v)
-
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
+    if out is None:
+        out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
+    elif (tuple(out.shape) != (B, S, Hq, D) or out.dtype != q.dtype
+          or out.device != dev or out.stride(-1) != 1):
+        raise ValueError(f"out must be [B,S,Hq,D] {q.dtype} on {dev} with "
+                         "the head dim contiguous")
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
            if want_lse else None)
     a = _cuda.FlashArgs()
@@ -629,11 +646,12 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
     return outs[0] if len(outs) == 1 else outs
 
 
-# the kernels whose instances copy 16-byte chunks of the named inputs into
-# shared memory (cp.async): the bf16 tensor-core instances (flash_fwd with a
-# bf16 or an int8 cache; its f32 instances read element by element, any
-# row stride), and every instance of flash_decode (its K/V ring, in the
-# cache's dtype; it reads q element by element)
+# the kernels whose instances copy pieces of the named inputs into shared
+# memory (cp.async; 16-byte chunks, at head dim 100 smaller pieces:
+# _copy_width): the bf16 tensor-core instances (flash_fwd with a bf16 or
+# an int8 cache; its f32 instances read element by element, any row
+# stride), and every instance of flash_decode (its K/V ring, in the cache's
+# dtype; it reads q element by element)
 _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
               "flash_decode": ("k", "v"),
               "flash_bwd_dq": ("q", "k", "v", "dout"),
@@ -643,20 +661,38 @@ _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
               "flash_bwd_dkv": ("q", "k", "v", "dout")}
 
 
+def _copy_width(t) -> int | None:
+    """The bytes a kernel copies of ``t`` at a time (cp.async): the largest
+    of 16, 8 and 4 that divides a row of D values, so 16 at every head dim
+    but 100 and, at 100, 8 in bf16 (a row of 200 bytes), 4 in int8 (100)
+    and 16 in f32 (400); None where none divides the row (no kernel takes
+    that head dim)."""
+    row = t.shape[-1] * t.element_size()
+    return next((w for w in (16, 8, 4) if row % w == 0), None)
+
+
 def _tc_copy_fault(t, any_dtype: bool = False) -> str | None:
-    """Why a kernel cannot copy ``t`` in 16-byte chunks (rows of D values:
-    a 16-byte aligned base, batch, position and head strides of whole
-    chunks), or None when it can. Only bf16 is checked unless
-    ``any_dtype`` (f32 chunks hold 4 values, int8 chunks 16)."""
+    """Why a kernel cannot copy ``t`` in pieces of its copy width
+    (``_copy_width``; rows of D values: a base aligned to it, batch,
+    position and head strides of whole pieces), or None when it can. Only
+    bf16 is checked unless ``any_dtype`` (f32 chunks hold 4 values, int8
+    chunks 16). A contiguous tensor passes, and so does a per-layer slice
+    of the model's cache (``init_kv_cache``, with or without ``shard=``:
+    [L, B, Hkv, max_len, D] cut at one layer, its offset and strides whole
+    rows of D values)."""
     if t.dtype != torch.bfloat16 and not any_dtype:
         return None
-    if t.data_ptr() % 16:
-        return "is not 16-byte aligned"
-    chunk = 16 // t.element_size()
+    width = _copy_width(t)
+    if width is None:
+        return (f"rows of {t.shape[-1]} values are no whole number of "
+                "4-byte pieces")
+    if t.data_ptr() % width:
+        return f"is not {width}-byte aligned"
+    piece = width // t.element_size()
     sb, ss, sh = t.stride()[:3]
-    if sb % chunk or ss % chunk or sh % chunk:
-        return (f"strides {(sb, ss, sh)} are not multiples of {chunk} "
-                "elements (16 bytes)")
+    if sb % piece or ss % piece or sh % piece:
+        return (f"strides {(sb, ss, sh)} are not multiples of {piece} "
+                f"elements ({width} bytes)")
     return None
 
 
@@ -827,7 +863,26 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     if not tiles:   # the dense result, as the JAX package gives
         return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
                                causal=causal, scale=scale, window=window)
+    if _on_card(q):
+        _check_forward_only(q, k, v, triangular)
     return _FlashAttention.apply(q, k, v, causal, scale, window, triangular)
+
+
+def _check_forward_only(q, k, v, triangular: bool) -> None:
+    """At a head dim that the serving kernels take and the backward and
+    triangle kernels do not (100), raises a ValueError naming it, before
+    any kernel is built or launched, for a call that would need those:
+    ``triangular=True``, or an input that requires grad."""
+    D = q.shape[-1]
+    if D in _HEAD_DIMS or D not in _SERVE_HEAD_DIMS:
+        return
+    if triangular:
+        raise ValueError(f"head dim {D}: the triangle kernels take head dims "
+                         f"{_HEAD_DIMS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(f"head dim {D}: the backward kernels take head dims "
+                         f"{_HEAD_DIMS}; at {D} flash attention serves "
+                         "(call it under torch.no_grad())")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,

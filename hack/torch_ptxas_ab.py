@@ -15,8 +15,13 @@ mangled names taken without their anonymous namespace's per-build hash.
 Prints, per source of A, how many of A's kernels B builds with the same
 registers and spills and with the same SASS, then one line for every
 kernel whose registers or spills differ or that only one side has, and
-exits non-zero when a kernel of A differs in B in either (a kernel B adds
-is listed, not a failure). Imports nothing of JAX.
+one for every kernel of A whose SASS differs in B (its instruction
+counts on both sides and its first differing line), and exits non-zero
+when a kernel of A differs in B in either (a kernel B adds is listed, not
+a failure). ``--only s1,s2`` builds those sources alone. Imports nothing
+of JAX.
+
+    python3 hack/torch_ptxas_ab.py [--only flash_fwd,flash_fwd_mid] A B
 """
 
 from __future__ import annotations
@@ -51,31 +56,37 @@ def sass_by_kernel(text: str) -> dict:
     return {k: "\n".join(v) for k, v in out.items()}
 
 
-def child(root: str) -> int:
-    """Builds ``root``'s libraries into a temporary directory and prints
-    {"logs": nvcc's output, "sass": each library's SASS} as one JSON line."""
+def child(root: str, only: str = "") -> int:
+    """Builds ``root``'s libraries (those named in ``only``, comma
+    separated, or all) into a temporary directory and prints {"logs":
+    nvcc's output, "sass": each library's SASS} as one JSON line."""
     sys.path.insert(0, root)
     from gpu_provisioner_tpu_torch.ops import _cuda
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    names = [n for n in _cuda.SOURCES if not only or n in only.split(",")]
     with tempfile.TemporaryDirectory() as tmp:
         _cuda.BUILD_DIR = Path(tmp)
-        logs = _cuda.build()
+        logs = _cuda.build(names)
         sass = {src: subprocess.run([tool, "-sass", str(_cuda.lib_path(src))],
                                     capture_output=True, text=True,
                                     check=True).stdout
-                for src in _cuda.SOURCES}
+                for src in names}
     print(json.dumps({"logs": logs, "sass": sass}))
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        return child(sys.argv[2])
-    if len(sys.argv) != 3:
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":
+        return child(sys.argv[2], sys.argv[3])
+    args = sys.argv[1:]
+    only = ""
+    if args[:1] == ["--only"] and len(args) > 1:
+        only, args = args[1], args[2:]
+    if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    roots = [str(Path(r).resolve()) for r in sys.argv[1:]]
-    procs = [subprocess.Popen([sys.executable, __file__, "--child", r],
+    roots = [str(Path(r).resolve()) for r in args]
+    procs = [subprocess.Popen([sys.executable, __file__, "--child", r, only],
                               stdout=subprocess.PIPE, text=True)
              for r in roots]
     built = []
@@ -101,6 +112,15 @@ def main() -> int:
             if a.get(k) != b.get(k):
                 print(json.dumps({"kernel": k, "a": a.get(k),
                                   "b": b.get(k)}))
+        for k in sorted(sa):
+            if sb.get(k) != sa[k]:
+                la, lb = sa[k].splitlines(), (sb.get(k) or "").splitlines()
+                first = next((i for i, (x, y) in enumerate(zip(la, lb))
+                              if x != y), min(len(la), len(lb)))
+                print(json.dumps({"sass_differs": k, "lines_a": len(la),
+                                  "lines_b": len(lb), "first": first,
+                                  "a": la[first] if first < len(la) else None,
+                                  "b": lb[first] if first < len(lb) else None}))
         ok &= same == len(a) and same_sass == len(sa)
     return 0 if ok else 1
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """One of chip_smoke.py's serving head-dim phases alone, on one GPU:
-phase 18 (head dims 32 and 16), phase 20 (head dims 96 and 80) or phase
-22 (head dim 256).
+phase 18 (head dims 32 and 16), phase 20 (head dims 96 and 80), phase 22
+(head dim 256) or phase 24 (head dim 100).
 
-    python3 hack/torch_serve_heads_phase.py [--phase 18|20|22] [--json PATH]
+    python3 hack/torch_serve_heads_phase.py [--phase 18|20|22|24] [--json PATH]
 
 Builds the kernels (printing each source's nvcc seconds) and prints
 ptxas's registers and spills of every instance of the phase's forward
@@ -14,13 +14,19 @@ against their plain versions and timed (``serve_kernels``); flash against
 dense in f32 (phase 18: the tiny preset, the fast bench_engine model and
 tiny-moe, ``phase_small_exact``; phase 20: the Phi-3-mini-width and
 H2O-Danube-width models at 2 layers, ``phase_mid_exact``; phase 22: the
-Gemma-2B-width model at 2 layers, ``phase_wide_exact``); the bf16
+Gemma-2B-width model at 2 layers, ``phase_wide_exact``; phase 24: the
+OpenLLaMA-3B-width model at 2 layers, ``phase_pad_exact``); the bf16
 serving paths with their launches and the refusals
 (``phase_small_serving``: the fast bench_moe_decode and bench_engine
 twins, tiny and tiny-moe; ``phase_mid_serving``: both models at full
-depth; ``phase_wide_serving``: Gemma-2B's width at 18 layers); then the
+depth; ``phase_wide_serving``: Gemma-2B's width at 18 layers;
+``phase_pad_serving``: OpenLLaMA-3B's width at 26 layers); then the
 timed calls' device times. Phase 22 also times #1 at the D = 128 training
-row's shape (``wide_train_shape``). Prints each step's seconds;
+row's shape (``wide_train_shape``); phase 24 launches every D = 100 entry
+into a sentinel-filled view of rows 128 wide (``pad_stores``) and names
+the SDPA backend of its library calls (``library_backends``). Phases 22
+and 24 read their rows beside the D = 128 rows of the same calls. Prints
+each step's seconds;
 with ``--json`` also writes the rows, the launches and the report there.
 Exits non-zero on any failed check, as chip_smoke.py does. Imports
 nothing of JAX.
@@ -39,7 +45,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=(18, 20, 22), default=18)
+    ap.add_argument("--phase", type=int, choices=(18, 20, 22, 24),
+                    default=18)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -70,11 +77,17 @@ def main() -> None:
             torch, tl, tm, td, te, dev)
         serving = lambda: cs.phase_mid_serving(   # noqa: E731
             torch, tl, td, te, tfa, dev)
-    else:
+    elif args.phase == 22:
         dims = cs.WIDE_HEADS
         exact = lambda: cs.phase_wide_exact(   # noqa: E731
             torch, tl, tm, td, te, dev)
         serving = lambda: cs.phase_wide_serving(   # noqa: E731
+            torch, tl, td, te, tfa, dev)
+    else:
+        dims = cs.PAD_HEADS
+        exact = lambda: cs.phase_pad_exact(   # noqa: E731
+            torch, tl, tm, td, te, dev)
+        serving = lambda: cs.phase_pad_serving(   # noqa: E731
             torch, tl, td, te, tfa, dev)
     print(cs.card_line(), flush=True)
     t0 = time.perf_counter()
@@ -88,13 +101,17 @@ def main() -> None:
     reports = {D: cs.serve_build_report(_cuda, tfa, logs, D) for D in dims}
     deferred = []
     t = t0 = time.perf_counter()
-    # phase 22's rows read beside the D = 128 rows of the same calls
-    ref = [] if args.phase != 22 else cs.serve_kernels(
+    # phase 22's and 24's rows read beside the D = 128 rows of the same
+    # calls
+    ref = [] if args.phase < 22 else cs.serve_kernels(
         torch, tfa, td, dev, deferred, 128)
     rows = [r for D in dims
             for r in cs.serve_kernels(torch, tfa, td, dev, deferred, D)]
+    stores = None
     if args.phase == 22:
         rows[0]["at_train_shape"] = cs.wide_train_shape(torch, tfa, dev)
+    if args.phase == 24:
+        stores = cs.pad_stores(torch, tfa, td, dev, 100, 8, 4, cs.SEED + 132)
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     exact_report = exact()
@@ -105,6 +122,8 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t = time.perf_counter()
     cs.device_times(torch, tfa, deferred, dev)
+    if args.phase == 24:
+        cs.library_backends(torch, deferred, rows)
     print(f"device times {time.perf_counter() - t:.1f} s", flush=True)
     for build_report in reports.values():
         cs.serve_reports(rows, build_report)
@@ -117,7 +136,8 @@ def main() -> None:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"build": reports, "rows": rows, "launches": launches,
-             "report": report, "exact": exact_report}, default=str))
+             "report": report, "exact": exact_report, "stores": stores},
+            default=str))
     print(json.dumps({"kernels": rows}))
     print(f"phase {args.phase} ok")
 

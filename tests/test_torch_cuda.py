@@ -18,15 +18,18 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
-96, 128 and 256 (HEAD_DIMS): the forward, cached and decode kernels at
-each, the backward and triangle kernels at 128 and in the
-``*_at_head_dim_64``, ``*_at_head_dims_32_and_16``,
-``*_at_head_dims_96_and_80`` and ``*_at_head_dim_256`` tests, and autograd
-through them at 80 and 96
-(``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses
-head dim 100 before any launch) and at 256
+96, 128 and 256 (HEAD_DIMS), and the serving kernels at 100 too
+(SERVE_HEAD_DIMS): the forward, cached and decode kernels at each, the
+backward and triangle kernels at 128 and in the ``*_at_head_dim_64``,
+``*_at_head_dims_32_and_16``, ``*_at_head_dims_96_and_80`` and
+``*_at_head_dim_256`` tests, and autograd through them at 80 and 96
+(``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses a
+training call at head dim 100, which the backward and triangle kernels do
+not take, before any launch) and at 256
 (``test_head_dim_256_serves_and_refuses_training``, which refuses head
-dim 192, a multiple of 16 past 128 that no source builds).
+dim 192, a multiple of 16 past 128 that no source builds); at 100
+``test_head_dim_100_serves_and_refuses_training`` holds every serving
+kernel's stores inside the head's 100 columns (chip_smoke.pad_stores).
 """
 
 import ctypes
@@ -49,12 +52,15 @@ from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 from gpu_provisioner_tpu_torch.parallel import jobs, launch
 
-# the split decode schedule's edge cases, as chip_smoke.py runs them
-from chip_smoke import DECODE_SPLIT_CASES
+# the split decode schedule's edge cases, as chip_smoke.py runs them, and
+# its sentinel check of the head-dim-100 stores
+from chip_smoke import DECODE_SPLIT_CASES, pad_stores
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of every kernel
+# the head dims of every kernel, and those of the serving kernels
+# (forward, cached, decode) alone
 HEAD_DIMS = [16, 32, 64, 80, 96, 128, 256]
+SERVE_HEAD_DIMS = HEAD_DIMS + [100]
 
 
 @pytest.fixture
@@ -92,13 +98,14 @@ FWD_CASES = [(2, 256, 8, 2, True, None), (2, 256, 8, 2, False, None),
 def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
     """q [B, S, Hq, D] as a view of rows Hq·D + extra wide: extra 8 keeps
     every stride a whole number of 16-byte chunks in bf16, extra 4 does
-    not."""
+    not (at D = 100, whose bf16 rows are copied in 8-byte pieces, extra 2
+    does not)."""
     row = Hq * D + extra
     return _randn(g, B, S, row, dtype=dtype, dev=dev).as_strided(
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
@@ -106,16 +113,17 @@ def test_flash_fwd_matches_plain(dev, dtype, B, S, Hq, Hkv, causal, window,
                                  layout, D):
     """The forward (bf16: the tensor-core instance) against the plain
     version, at head dims 16, 32 (the D = 64 tile partly filled), 64, 80,
-    96 (the D = 128 tile partly filled), 128 and 256 (the output's column
-    halves). q contiguous, a strided
-    view the
-    kernels take as it is, or a view whose row stride is no whole number
-    of 16-byte chunks: a direct bf16 launch refuses it (ValueError),
-    flash_attention_with_lse copies it (_tc_layout) and matches."""
+    96, 100 (the D = 128 tile partly filled; at 100 rows copied in 8-byte
+    pieces), 128 and 256 (the output's column halves). q contiguous, a
+    strided view the kernels take as it is, or a view whose row stride is
+    no whole number of the kernel's copy pieces: a direct bf16 launch
+    refuses it (ValueError), flash_attention_with_lse copies it
+    (_tc_layout) and matches."""
     g = torch.Generator(dev).manual_seed(0)
+    off = 4 if D % 8 == 0 else 2
     q = (_randn(g, B, S, Hq, D, dtype=dtype, dev=dev)
          if layout == "contiguous" else
-         _q_view(g, B, S, Hq, 8 if layout == "strided" else 4, dtype, dev,
+         _q_view(g, B, S, Hq, 8 if layout == "strided" else off, dtype, dev,
                  D))
     k = _randn(g, B, S, Hkv, D, dtype=dtype, dev=dev)
     v = _randn(g, B, S, Hkv, D, dtype=dtype, dev=dev)
@@ -158,7 +166,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -202,7 +210,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -212,8 +220,9 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     among the CTAs the host plans, partials merged by a second launch)
     against the plain version, at the edge cases of the shares, at head
     dims 16, 32, 64 (the block's 8, 4 or 2 row groups on interleaved
-    rows), 80, 96 (one row group, D of the 128 threads owning a column),
-    128 and 256 (each thread two columns; an f32 cache in one ring stage);
+    rows), 80, 96, 100 (one row group, D of the 128 threads owning a
+    column; at 100 rows copied in 8- or 4-byte pieces), 128 and 256 (each
+    thread two columns; an f32 cache in one ring stage);
     one count on the int8 or the other counter."""
     g = torch.Generator(dev).manual_seed(12)
     q, kc, vc, kw = _cache_inputs(g, dev, dtype, B, S, 2048, int8, pads,
@@ -229,7 +238,7 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
 def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
@@ -283,7 +292,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -400,10 +409,10 @@ def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
     in bf16), and so does a training call: autograd through
     flash_attention, rectangular and with triangular=True, launches the
     forward and both backward kernels (their triangle twins), within 1e-2
-    of the plain gradients; at head dim 100 (which no kernel takes) a
-    forward that requires grad, triangular=True and the backward
-    (rectangular and triangle) raise ValueError naming it before any
-    launch."""
+    of the plain gradients; at head dim 100 (which the backward and
+    triangle kernels do not take) a forward that requires grad,
+    triangular=True and the backward (rectangular and triangle) raise
+    ValueError naming it before any launch."""
     g = torch.Generator(dev).manual_seed(17)
     q, k, v = (_randn(g, 1, 256, h, D, dtype=torch.bfloat16, dev=dev)
                for h in (4, 2, 2))
@@ -508,6 +517,68 @@ def test_head_dim_256_serves_and_refuses_training(dev):
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
                                                triangular=True)):
         with pytest.raises(ValueError, match="head dim 192"):
+            fn()
+    assert not any(tfa.LAUNCHES.values())
+
+
+def test_head_dim_100_serves_and_refuses_training(dev):
+    """At head dim 100 (OpenLLaMA-3B's 32/32 heads; here 8/8 and GQA 8/4)
+    the serving kernels run: the self-attention forward under no_grad (one
+    flash_fwd launch), a cached prefill and decode steps (S = 1 and 5) on a
+    cache of the act dtype and on an int8 one, each within its dtype's
+    tolerance of the plain version (lse within 1e-4), in bf16 and f32;
+    every entry's stores stay inside the head's 100 columns (each launched
+    with its output a view of rows 128 wide filled with a sentinel:
+    chip_smoke.pad_stores); a training call (a forward that requires grad,
+    triangular=True, the backward rectangular and triangle) raises
+    ValueError naming head dim 100 before any launch."""
+    g = torch.Generator(dev).manual_seed(20)
+    D, ML = 100, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Hkv in ((8, 8), (8, 4)):
+            q, k, v = (_randn(g, 2, 256, h, D, dtype=dtype, dev=dev)
+                       for h in (Hq, Hkv, Hkv))
+            tfa.reset_launches()
+            with torch.no_grad():
+                out, lse = tfa.flash_attention_with_lse(
+                    q.clone().requires_grad_(), k, v)
+            ref, ref_lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                               v.transpose(1, 2), 0)
+            torch.cuda.synchronize()
+            assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+                "flash_fwd": 1}
+            assert _err(out, ref) < TOL[dtype] and _err(lse, ref_lse) < 1e-4
+            st = torch.tensor([700, 333], dtype=torch.int32, device=dev)
+            for int8 in (False, True):
+                qc, kc, vc, kw = _cache_inputs(g, dev, dtype, 2, 128, ML,
+                                               int8, [0, 37], Hq=Hq,
+                                               Hkv=Hkv, D=D)
+                tfa.reset_launches()
+                with torch.no_grad():
+                    got = tfa.flash_attention_cached(qc, kc, vc, 256, **kw)
+                    steps = [(S, tfa.flash_attention_decode(
+                        qc[:, :S], kc, vc, st, **kw)) for S in (1, 5)]
+                sfx = "_int8" if int8 else ""
+                assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+                    "flash_cached" + sfx: 1, "flash_decode" + sfx: 2}
+                assert _err(got, tfa.attention_plain(qc, kc, vc, 256,
+                                                     **kw)[0]) < TOL[dtype]
+                for S, o in steps:
+                    assert _err(o, tfa.attention_plain(
+                        qc[:, :S], kc, vc, st, **kw)[0]) < TOL[dtype]
+    stores = pad_stores(torch, tfa, td, dev, D, 8, 4, 21)
+    assert set(stores) == {"flash_fwd", "flash_cached", "flash_cached_int8",
+                           "flash_decode", "flash_decode_int8"}
+    q, k, v = (_randn(g, 1, 256, h, D, dtype=torch.bfloat16, dev=dev)
+               for h in (8, 4, 4))
+    lse = torch.zeros(1, 8, 256, device=dev)
+    tfa.reset_launches()
+    for fn in (lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
+               lambda: tfa.flash_attention(q, k, v, triangular=True),
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
+               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
+                                               triangular=True)):
+        with pytest.raises(ValueError, match="head dim 100"):
             fn()
     assert not any(tfa.LAUNCHES.values())
 

@@ -19,7 +19,9 @@ No CUDA kernel runs here, so the tests hold:
   96 and 256 (every kernel takes them; dQ's replay at 64, 80, 96 and 256
   is those backward instances' arithmetic; at 256 each CTA computes one
   half of the output's columns with the whole row's scores, m and l: the
-  same arithmetic a column), the forward-only replays also at 16 and 32;
+  same arithmetic a column), the forward-only replays also at 16, 32 and
+  100 (the serving kernels' D = 128 tile partly filled, its row cut
+  mid-chunk: the same arithmetic on the first 100 columns);
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -34,13 +36,22 @@ No CUDA kernel runs here, so the tests hold:
   ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
   and triangle kernels; D = 80 and 96 reach every kernel (their mid
   entries), through autograd and ``triangular=True`` too, and so does D =
-  256 (its wide entries); D = 8, 24, 48, 100, 112 and 192 are refused by
-  every kernel, each with a ValueError naming the head dim.
+  256 (its wide entries); D = 100 reaches ``flash_fwd`` and
+  ``flash_decode`` alone (their pad entries), and a training call at 100
+  (an input that requires grad, ``triangular=True``, the backward) raises
+  naming it; D = 8, 24, 36, 48, 112 and 192 are refused by every kernel,
+  each with a ValueError naming the head dim;
+- the copy rule at head dim 100: a row of 100 values is copied in pieces
+  of 8 bytes in bf16, 4 in int8 and 16 in f32 (``_copy_width``); a bf16
+  view off the 8-byte width is refused by a direct launch and copied by
+  the model paths, a contiguous one and a layer of the model's cache are
+  taken as they are.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
 
 import ctypes
+import dataclasses
 import gc
 import importlib
 import importlib.util
@@ -53,6 +64,7 @@ import pytest
 import torch
 
 from gpu_provisioner_tpu_torch.models import decode as td
+from gpu_provisioner_tpu_torch.models import llama as tl
 from gpu_provisioner_tpu_torch.ops import _cuda
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
@@ -108,9 +120,9 @@ HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
              pytest.param(80, id="d80"), pytest.param(96, id="d96"),
              pytest.param(256, id="d256")]
 # the forward-only replays also at 32 and 16 (the D = 64 tile partly
-# filled)
+# filled) and at 100 (the serving kernels' D = 128 tile partly filled)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS]
+                 *HEAD_DIMS, pytest.param(100, id="d100")]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -463,19 +475,21 @@ def test_head_dim_64_triangle_forward_raises_before_any_build(
     assert tri_grid == [("flash_fwd_tri", 64)]
 
 
-@pytest.mark.parametrize("D", [8, 24, 48, 100, 112, 192])
+@pytest.mark.parametrize("D", [8, 24, 36, 48, 112, 192])
 def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
-    """Head dims other than 16, 32, 64, 80, 96, 128 and 256 (192: a
-    multiple of 16 past 128 that no source builds) raise ValueError naming
-    the head dim in every kernel's wrapper (the forward on
-    self-attention, a bf16 and an int8 cache, the decode, the backward and
-    the triangle), each before any library is built; 16 and 32 reach their
-    launches instead (test_head_dims_32_and_16_reach_the_serving_kernels
-    and test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels),
-    and so do 80 and 96 (test_head_dims_80_and_96_reach_the_serving_
-    kernels_alone, every kernel's) and 256
-    (test_head_dim_256_reaches_the_serving_kernels_alone, every
-    kernel's)."""
+    """Head dims other than 16, 32, 64, 80, 96, 100, 128 and 256 (192: a
+    multiple of 16 past 128 that no source builds; 36: a row cut
+    mid-chunk, 4 mod 8 as 100 is) raise ValueError naming the head dim in
+    every kernel's wrapper (the forward on self-attention, a bf16 and an
+    int8 cache, the decode, the backward and the triangle), each before
+    any library is built; 16 and 32 reach their launches instead
+    (test_head_dims_32_and_16_reach_the_serving_kernels and
+    test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels), and
+    so do 80 and 96 (test_head_dims_80_and_96_reach_the_serving_
+    kernels_alone, every kernel's), 256
+    (test_head_dim_256_reaches_the_serving_kernels_alone, every kernel's)
+    and 100, the serving kernels' alone
+    (test_head_dim_100_reaches_the_serving_kernels_alone)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -499,7 +513,7 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
         "flash_bwd_dkv_tri": [lambda: tfa._launch_tri(
             "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
             delta=lse)]}
-    assert D not in tfa._HEAD_DIMS
+    assert D not in tfa._SERVE_HEAD_DIMS
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -751,3 +765,146 @@ def test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels(
         assert _cuda.entry(kernel, 64) == kernel
     assert _cuda.entry("flash_bwd_dq", D) == "flash_bwd_dq"
     assert _cuda.entry("flash_bwd_dkv", D) == "flash_bwd_dkv"
+
+
+def test_head_dim_100_reaches_the_serving_kernels_alone(launches, no_build,
+                                                        tri_grid):
+    """At head dim 100 (OpenLLaMA-3B's 32/32 heads; here MHA 4/4 and GQA
+    4/2) the serving kernels alone: flash_attention_with_lse and
+    flash_attention under no_grad, flash_attention_cached on a bf16 and an
+    int8 cache, and flash_attention_decode on both (S = 1 and 5) reach
+    their launches with D = 100 and the C entries of csrc/flash_fwd_pad.cu
+    and csrc/flash_decode_pad.cu, the contiguous inputs as they are (rows of
+    200 and 100 bytes: 8- and 4-byte pieces); a training call (a forward
+    whose input requires grad, triangular=True, the backward rectangular
+    and triangle, each triangle entry) raises a ValueError naming head dim
+    100 before any library is built or any launch."""
+    D, S, ML = 100, 128, 256
+    for Hq, Hkv in ((4, 4), (4, 2)):
+        launches.clear()
+        q, k, v = _bf16(52, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
+        kc, vc = _bf16(53, (1, Hkv, ML, D), (1, Hkv, ML, D))
+        (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
+        i8 = dict(k_scale=ks, v_scale=vs)
+        with torch.no_grad():
+            tfa.flash_attention_with_lse(q, k, v)
+            tfa.flash_attention(q.clone().requires_grad_(), k, v)
+            tfa.flash_attention_cached(q, kc, vc, 64)
+            tfa.flash_attention_cached(q, k8, v8, 64, **i8)
+            tfa.flash_attention_decode(q[:, :1], kc, vc, 100)
+            tfa.flash_attention_decode(q[:, :5], k8, v8, 100, **i8)
+        assert [(kernel, a.D, a.kv_dtype, a.Hq, a.Hkv)
+                for kernel, a in launches] == [
+            ("flash_fwd", D, 1, Hq, Hkv)] * 3 + [
+            ("flash_fwd", D, 2, Hq, Hkv), ("flash_decode", D, 1, Hq, Hkv),
+            ("flash_decode", D, 2, Hq, Hkv)]
+        assert [_cuda.entry(kernel, a.D) for kernel, a in launches] == [
+            "flash_fwd_pad"] * 4 + ["flash_decode_pad"] * 2
+        (_, a), _, (_, c), (_, c8), (_, d), (_, d8) = launches
+        assert (a.q, a.k, a.v) == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert (a.q_ss, a.q_sh, a.k_ss, a.k_sh) == (Hq * D, D, Hkv * D, D)
+        assert (c.k, c.k_sh, c.k_ss) == (kc.data_ptr(), ML * D, D)
+        assert (c8.k, c8.v, d.k, d8.k) == (k8.data_ptr(), v8.data_ptr(),
+                                           kc.data_ptr(), k8.data_ptr())
+        assert (d.Sq, d8.Sq) == (1, 5)
+    for kernel in ("flash_fwd", "flash_decode"):
+        assert _cuda.ENTRIES[kernel + "_pad"][0] == kernel + "_pad"
+        assert _cuda.entry(kernel, 96) == kernel + "_mid"
+        assert _cuda.entry(kernel, 128) == kernel
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri"):
+        assert _cuda.entry(kernel, D) == kernel
+
+    launches.clear()
+    lse = torch.zeros(1, Hq, S)
+    qg = q.clone().requires_grad_()
+    kw = dict(scale=D ** -0.5, dout=q, lse=lse, delta=lse)
+    for fn, match in (
+            (lambda: tfa.flash_attention(qg, k, v), "the backward kernels"),
+            (lambda: tfa.flash_attention_with_lse(
+                q, k, v, triangular=True), "the triangle kernels"),
+            (lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
+             "flash_bwd_dq takes"),
+            (lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
+                                             triangular=True),
+             "flash_bwd_dq_tri takes"),
+            (lambda: tfa._launch_bwd("flash_bwd_dkv", q, k, v, q, lse, lse,
+                                     causal=True, scale=1.0),
+             "flash_bwd_dkv takes"),
+            (lambda: tfa._launch_tri("flash_fwd_tri", q, k, v, scale=1.0),
+             "flash_fwd_tri takes"),
+            (lambda: tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw),
+             "flash_bwd_dkv_tri takes")):
+        with pytest.raises(ValueError, match=f"head dim {D}: {match}"):
+            fn()
+    assert launches == [] and tri_grid == []
+    assert qg.grad is None
+
+
+def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
+                                                           no_build):
+    """The copy width at head dim 100 is 8 bytes in bf16, 4 in int8 and 16
+    in f32 (a row of 200, 100 and 400 bytes), and 16 at every head dim of
+    _HEAD_DIMS. A bf16 q at 100 whose row stride is off the 8-byte width
+    (Hq·100 + 2 values), or whose base is 4 bytes off it, is refused by a
+    direct flash_fwd launch (ValueError naming it) and copied by
+    flash_attention_with_lse into aligned storage (_tc_layout); a
+    contiguous one, and an int8 and a bf16 layer of the model's cache
+    (init_kv_cache), are taken as they are; an int8 cache whose position
+    stride is off the 4-byte width (102 values) is refused by a direct
+    flash_decode launch and copied by flash_attention_decode."""
+    D, S, Hq, Hkv, ML = 100, 128, 4, 4, 256
+    rows = {torch.bfloat16: 8, torch.int8: 4, torch.float32: 16}
+    for dtype, width in rows.items():
+        assert tfa._copy_width(torch.zeros(1, 1, 1, D, dtype=dtype)) == width
+        for d in tfa._HEAD_DIMS:
+            assert tfa._copy_width(torch.zeros(1, 1, 1, d, dtype=dtype)) == 16
+    (k, v) = _bf16(54, (1, S, Hkv, D), (1, S, Hkv, D))
+    row = Hq * D + 2
+    wide = _bf16(55, (1, S, row))[0]
+    strided = wide.as_strided((1, S, Hq, D), (S * row, row, D, 1))
+    flat = _bf16(56, (S * Hq * D + 2,))[0]
+    shifted = flat[2:].view(1, S, Hq, D)
+    assert shifted.data_ptr() % 8 == 4
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    with pytest.raises(ValueError, match=r"flash_fwd: q strides .* "
+                                         r"\(8 bytes\)"):
+        tfa._launch("flash_fwd", strided, kh, vh, 0, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="flash_fwd: q is not 8-byte "
+                                         "aligned"):
+        tfa._launch("flash_fwd", shifted, kh, vh, 0, causal=True, scale=1.0)
+    assert launches == []
+    with torch.no_grad():
+        for q in (strided, shifted):
+            tfa.flash_attention_with_lse(q, k, v)
+        tfa.flash_attention_with_lse(shifted.contiguous(), k, v)
+    (_, a), (_, b), (_, c) = launches
+    for got, q in ((a, strided), (b, shifted)):
+        assert got.q != q.data_ptr() and got.q % 16 == 0
+        assert (got.q_ss, got.q_sh) == (Hq * D, D)
+    assert c.q % 16 == 0 and c.q_ss == Hq * D
+
+    launches.clear()
+    cfg = tl.LlamaConfig(vocab_size=64, dim=Hq * D, n_layers=2, n_heads=Hq,
+                         n_kv_heads=Hkv, hidden_dim=64, dtype="bfloat16")
+    q1 = _bf16(57, (2, 1, Hq, D))[0]
+    for kv_dtype in ("auto", "int8"):
+        cache = td.init_kv_cache(dataclasses.replace(
+            cfg, kv_cache_dtype=kv_dtype), 2, ML, device="cpu")
+        kw = ({} if cache.k_scale is None else
+              dict(k_scale=cache.k_scale[1], v_scale=cache.v_scale[1]))
+        layer = cache.k[1]
+        assert tfa._tc_copy_fault(layer, any_dtype=True) is None
+        with torch.no_grad():
+            tfa.flash_attention_decode(q1, layer, cache.v[1], 64, **kw)
+        assert launches[-1][1].k == layer.data_ptr()
+    k8 = torch.zeros(2, Hkv, ML, D + 2, dtype=torch.int8)[..., :D]
+    sc = torch.ones(2, Hkv, ML, 1)
+    i8 = dict(k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match=r"flash_decode: k strides .* "
+                                         r"\(4 bytes\)"):
+        tfa._launch("flash_decode", q1, k8, k8, 64, causal=True, scale=1.0,
+                    **i8)
+    with torch.no_grad():
+        tfa.flash_attention_decode(q1, k8, k8, 64, **i8)
+    got = launches[-1][1]
+    assert got.k != k8.data_ptr() and (got.k_ss, got.k_sh) == (D, ML * D)
