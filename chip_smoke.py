@@ -9,7 +9,7 @@ Phases, each of which exits non-zero on a failed check:
    ptxas's registers and spills of the seven tensor-core (bf16) instances
    at head dim 128 (flash_fwd on bf16 K/V and on an int8 cache,
    flash_bwd_dq, flash_bwd_dkv and the three tri kernels; and at the other
-   head dims for phases 16 to 21) and the HGMMA instructions in their
+   head dims for phases 16 to 25) and the HGMMA instructions in their
    SASS (cuobjdump);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's head shapes (Hq 32, Hkv 8, D 128) in bf16 and f32 (the bf16
@@ -326,9 +326,9 @@ Phases, each of which exits non-zero on a failed check:
    of three requests on two slots, each head dim's launches read equal to
    the path's prediction (``d96_serving``, ``d80_serving``), then a
    forward that requires grad, triangular=True and the backward at head
-   dim 100 (which the backward and triangle kernels do not take; the
-   serving kernels take it since phase 24) refused, naming it, before any
-   launch;
+   dim 36 (a row cut mid-chunk, which no source builds; 100 was refused
+   here until phase 25 took it into training) refused, naming it, before
+   any launch;
 21. head dims 96 and 80 in training (the D = 96 and 80 instances of #6/#7
    and #3/#8/#9, built from flash_bwd_mid.cu and flash_tri_mid.cu): (a) in
    phase 1, the ptxas registers, spills and HGMMA of their ten tensor-core
@@ -431,12 +431,42 @@ Phases, each of which exits non-zero on a failed check:
    ServeEngine pass, the launches read equal to the path's prediction
    (``d100_serving``), tokens/s, peak memory and the parameter count,
    then a forward that requires grad, triangular=True and the backward at
-   head dim 100 refused, naming it, before any launch. Prints the phase's
+   head dim 36 refused, naming it, before any launch. Prints the phase's
+   seconds;
+25. head dim 100 in training (the D = 100 instances of #6/#7 and
+   #3/#8/#9, built from flash_bwd_pad.cu and flash_tri_pad.cu: D = 128's
+   tile partly filled, Q, dO, K and V rows copied in 8-byte pieces, the
+   K-major products in 7 k-steps, every store, to the outputs and to the
+   triangle's workspace, cut at column 100; the f32 instances 13 columns a
+   lane): (a) in phase 1, the ptxas registers, spills and HGMMA of their
+   five tensor-core instances; (b) at OpenLLaMA-3B's 32/32 heads and at
+   the D = 128 training row's 16/8, #6/#7 (with #1's forward) at
+   mid_bwd_cases, and #3/#8/#9 called directly at 32/32 (small_tri_cases,
+   S up to 4096), bf16 (1e-2) and f32 (1e-4; gradients relative to the
+   largest plain one), against their plain versions, and triangular=True
+   through the wrapper at (1, 4096) with RESIDENT_KV_BUDGET lowered for
+   the call; then #1, #6 and #7 timed at the D = 128 training row's (8,
+   2048, 16/8) and the tri kernels at (1, 32768, 8/4), beside their plain
+   versions, SDPA's torch.autograd.grad, the bound and the D = 128 row's
+   time of the same call (the ``*_d100`` rows of #6-#9, ``d128_ms``); (c)
+   the five entries launched directly in bf16 and f32 at (2, 200) and (2,
+   1000), 8/4 heads, each output a view of rows 128 wide filled with the
+   sentinel: columns 100..127 keep it and columns below 100 agree with the
+   plain versions (``pad_train_stores``, ``at_sentinel_stores``); (d)
+   OpenLLaMA-3B's widths cut to 2 layers, three f32 train steps flash
+   against dense (train_exact's wide gate); (e) bf16 with remat, f32
+   masters and AdamW at full width and depth (26 layers) at
+   PAD_TRAIN_STEPS (4, 2048), a warm-up and PAD_STEPS steps, the loss
+   falling, launches #1 2·26·steps and #6/#7 26·steps and nothing else,
+   peak memory (``d100_train``); (f) a triangular=True forward and
+   backward at (1, 32768) at the model's own 32/32 heads, where the natural
+   budget takes flash_fwd_tri, against the rectangular kernels and timed
+   (``d100_long``), each path's launches read alone. Prints the phase's
    seconds.
 Phases 2, 16, 18, 20, 22 and 24 check and time the serving kernels
 through one function of the head dim (serve_kernels, SERVE_DIMS), phases
-17, 19, 21 and 23 the training kernels (train_kernels;
-phase_train_kernels at 19, 21 and 23); then the phase-2, 9, 10, 14, 16,
+17, 19, 21, 23 and 25 the training kernels (train_kernels;
+phase_train_kernels at 19, 21, 23 and 25); then the phase-2, 9, 10, 14, 16,
 18, 20, 22 and 24 rows' device times, the card line, the kernels line
 and, last, the device line.
 """
@@ -5375,16 +5405,16 @@ def training_refused(torch, tfa, dev, D, Hq, Hkv, seed):
 def phase_mid_serving(torch, tl, td, te, tfa, dev):
     """Phase 20 (c), bf16, full depth: the Phi-3-mini-width and
     H2O-Danube-width models (mid_models) through serve_paths (Danube's
-    fresh generate without its window). Then, at head dim 100 (which the
-    training kernels do not take; the serving kernels take it since phase
-    24; 96 and 80 train in phase 21), a training call refused by name
+    fresh generate without its window). Then, at head dim 36 (a row cut
+    mid-chunk, 4 mod 8 as 100 is, which no source builds; 100 trains since
+    phase 25, 96 and 80 in phase 21), a training call refused by name
     before any launch (training_refused). Returns ({96: launches, 80:
     launches}, report)."""
     models = {D: ("Phi-3-mini" if D == 96 else "H2O-Danube", cfg)
               for D, cfg in mid_models(tl).items()}
     launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
                                    SEED + 93)
-    report["refusals"] = training_refused(torch, tfa, dev, 100, 32, 8,
+    report["refusals"] = training_refused(torch, tfa, dev, 36, 32, 8,
                                           SEED + 94)
     return launches, report
 
@@ -5555,6 +5585,40 @@ PAD_STORE_CASES = (("flash_cached", 128, 256, 512),
                    ("flash_decode", 5, [40, 50], 64))
 
 
+def sentinel_rows(torch, shape, dtype, dev, width=128):
+    """A [..., width] tensor of ``shape``'s leading dims filled with
+    SENTINEL, whose [..., :shape[-1]] view a launch writes (``out=``)."""
+    return torch.full(tuple(shape[:-1]) + (width,), SENTINEL, dtype=dtype,
+                      device=dev)
+
+
+def sentinel_held(torch, errs, row, D, dtype, what, fulls, refs, rel=False):
+    """Fails unless every tensor of ``fulls`` (sentinel_rows, written by one
+    launch of ``row`` at head dim D) kept the sentinel in its columns D..
+    and agrees in its first D columns with its plain ``refs`` (bf16 1e-2,
+    f32 1e-4; with ``rel`` relative to the largest plain value, as the
+    gradients are held). Keeps the worst error in errs[row][dtype] (and
+    its relative one under dtype + " rel")."""
+    torch.cuda.synchronize()
+    kept = all(bool((f[..., D:] == SENTINEL).all()) for f in fulls)
+    e = max((f[..., :D].float() - r.float()).abs().max().item()
+            for f, r in zip(fulls, refs))
+    r = max(((f[..., :D].float() - x.float()).abs().max()
+             / x.float().abs().max()).item() for f, x in zip(fulls, refs))
+    tol = TOL[str(dtype).split(".")[1]]
+    width = fulls[0].shape[-1]
+    print(f"{row} at head dim {D}, {dtype} {what}: columns {D}..{width - 1}"
+          f" kept the sentinel: {kept}; max|out-plain| {e:.3g} rel {r:.3g} "
+          f"(tol {tol}{', relative' if rel else ''})")
+    check(kept, f"{row} at head dim {D} ({dtype} {what}) stored past "
+          f"column {D}")
+    check((r if rel else e) <= tol, f"{row} disagrees with plain at head "
+          f"dim {D}, {dtype} {what}: {e:.3g} (rel {r:.3g})")
+    by = errs.setdefault(row, {})
+    by[str(dtype)] = max(by.get(str(dtype), 0.0), e)
+    by[f"{dtype} rel"] = max(by.get(f"{dtype} rel", 0.0), r)
+
+
 def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
     """Phase 24 (b): each C entry at head dim D launched directly
     (tfa._launch, which counts no launch) in bf16 and in f32: flash_fwd on
@@ -5563,8 +5627,8 @@ def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
     output ``out`` a [B, S, Hq, D] view of rows ``width`` wide filled with
     SENTINEL. Fails unless columns D..width-1 keep the sentinel, the
     columns below D agree with the plain version (bf16 1e-2, f32 1e-4) and
-    the decode ran with one split and with several. Returns {row: {dtype:
-    max|out - plain|}}."""
+    the decode ran with one split and with several (sentinel_held).
+    Returns {row: {dtype: max|out - plain|, ...}}."""
     g = torch.Generator(dev).manual_seed(seed)
     B = 2
     errs: dict = {}
@@ -5574,8 +5638,7 @@ def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     def launch(row, dtype, what, q, k, v, start, **kw):
-        full = torch.full(q.shape[:3] + (width,), SENTINEL, dtype=dtype,
-                          device=dev)
+        full = sentinel_rows(torch, q.shape, dtype, dev, width)
         kernel = "flash_decode" if row.startswith("flash_decode") \
             else "flash_fwd"
         if kernel == "flash_decode":
@@ -5586,18 +5649,7 @@ def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
         tfa._launch(kernel, q, k, v, start, causal=True, scale=D ** -0.5,
                     out=full[..., :D], **kw)
         ref = tfa.attention_plain(q, k, v, start, **kw)[0]
-        torch.cuda.synchronize()
-        kept = bool((full[..., D:] == SENTINEL).all())
-        e = (full[..., :D].float() - ref.float()).abs().max().item()
-        tol = TOL[str(dtype).split(".")[1]]
-        print(f"{row} at head dim {D}, {dtype} {what}: columns {D}..{width - 1}"
-              f" kept the sentinel: {kept}; max|out-plain| {e:.3g} (tol {tol})")
-        check(kept, f"{row} at head dim {D} ({dtype} {what}) stored past "
-              f"column {D}")
-        check(e <= tol, f"{row} disagrees with plain at head dim {D}, "
-              f"{dtype} {what}: {e:.3g}")
-        by = errs.setdefault(row, {})
-        by[str(dtype)] = max(by.get(str(dtype), 0.0), e)
+        sentinel_held(torch, errs, row, D, dtype, what, [full], [ref])
 
     for dtype in (torch.bfloat16, torch.float32):
         S = 192
@@ -5625,6 +5677,63 @@ def pad_stores(torch, tfa, td, dev, D, Hq, Hkv, seed, width=128):
     return errs
 
 
+def pad_train_stores(torch, tfa, dev, D, Hq, Hkv, seed, width=128):
+    """Phase 25 (c): the five training entries at head dim D launched
+    directly (tfa._launch_bwd, tfa._launch_tri) in bf16 and in f32 on
+    causal self-attention, B=2, at S=200 (a ragged last tile: the
+    triangle's rows, fewer tiles than its persistent CTAs, are cut into
+    pieces that its fixup launch merges and stores) and at S=1000, every
+    output (dQ, dK and dV, the triangle's out) a view of rows ``width``
+    wide filled with SENTINEL, from the plain forward's out and lse. Fails
+    unless columns D..width-1 keep the sentinel and the columns below D
+    agree with the plain versions (sentinel_held: the forward absolute, the
+    gradients relative to the largest plain value). Returns {row: {dtype:
+    max|out - plain|, dtype rel: relative}}."""
+    g = torch.Generator(dev).manual_seed(seed)
+    B, scale = 2, D ** -0.5
+    errs: dict = {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (200, 1000):
+            what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} causal"
+            q, dout = (rnd(B, S, Hq, D, dtype=dtype) for _ in range(2))
+            k, v = (rnd(B, S, Hkv, D, dtype=dtype) for _ in range(2))
+            out, lse = tfa.attention_plain(q, k.transpose(1, 2),
+                                           v.transpose(1, 2), 0)
+            lse = lse.contiguous()
+            delta = tfa._bwd_delta(out, dout, None).contiguous()
+            dq, dk, dv = tfa.attention_bwd_plain(q, k, v, out, lse, dout)
+            kw = dict(causal=True, scale=scale)
+            tri = dict(scale=scale, dout=dout, lse=lse, delta=delta)
+            for row, outs, refs, fn in (
+                    ("flash_bwd_dq", [q], [dq], lambda o: tfa._launch_bwd(
+                        "flash_bwd_dq", q, k, v, dout, lse, delta, **kw,
+                        out=o[0])),
+                    ("flash_bwd_dkv", [k, v], [dk, dv],
+                     lambda o: tfa._launch_bwd(
+                         "flash_bwd_dkv", q, k, v, dout, lse, delta, **kw,
+                         out=o)),
+                    ("flash_fwd_tri", [q], [out], lambda o: tfa._launch_tri(
+                        "flash_fwd_tri", q, k, v, scale=scale, out=o[0])),
+                    ("flash_bwd_dq_tri", [q], [dq],
+                     lambda o: tfa._launch_tri("flash_bwd_dq_tri", q, k, v,
+                                               **tri, out=o[0])),
+                    ("flash_bwd_dkv_tri", [k, v], [dk, dv],
+                     lambda o: tfa._launch_tri("flash_bwd_dkv_tri", q, k, v,
+                                               **tri, out=o))):
+                fulls = [sentinel_rows(torch, t.shape, dtype, dev, width)
+                         for t in outs]
+                fn(tuple(f[..., :D] for f in fulls))
+                sentinel_held(torch, errs, row, D, dtype, what, fulls, refs,
+                              rel=row != "flash_fwd_tri")
+            del q, dout, k, v, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return errs
+
+
 def phase_pad_exact(torch, tl, tm, td, te, dev):
     """Phase 24 (c): OpenLLaMA-3B's widths (pad_models) cut to 2 layers,
     f32 (the kernels' f32 instances), flash against dense on the card
@@ -5642,13 +5751,13 @@ def phase_pad_serving(torch, tl, td, te, tfa, dev):
     (pad_models, 26 layers) through serve_paths (generate fresh,
     left-padded and on an int8 cache, a ServeEngine pass; launches equal
     to the prediction, tokens/s, peak memory, parameters); then, at head
-    dim 100, a training call refused by name before any launch
-    (training_refused: the backward and triangle kernels do not take it).
-    Returns ({100: launches}, report)."""
+    dim 36 (which no source builds; 100 trains in phase 25), a training
+    call refused by name before any launch (training_refused). Returns
+    ({100: launches}, report)."""
     models = {D: ("OpenLLaMA-3B", cfg) for D, cfg in pad_models(tl).items()}
     launches, report = serve_paths(torch, tl, td, te, tfa, dev, models,
                                    SEED + 134)
-    report["refusals"] = training_refused(torch, tfa, dev, 100, 32, 32,
+    report["refusals"] = training_refused(torch, tfa, dev, 36, 32, 32,
                                           SEED + 135)
     return launches, report
 
@@ -5743,6 +5852,64 @@ def phase_wide_train(torch, tl, tt, tfa, dev):
     return by_dim, report
 
 
+# phase 25: head dim 100 in training, at the phase-24 model's heads
+# (PAD_HEADS). #6/#7 checked as phase 21's at OpenLLaMA-3B's 32/32 heads and
+# at the D = 128 training row's 16/8; #3/#8/#9 called directly and the
+# wrapper's triangle (the budget lowered: the natural one takes
+# flash_fwd_tri at D = 100 in bf16 only from S > 15728) at S 4096 at 32/32;
+# the five entries' stores against the sentinel (pad_train_stores); the
+# bf16 training run at full width and depth (26 layers) at (4, 2048), S the
+# model's max_position_embeddings: the f32 masters, gradients and AdamW
+# moments of 3.43e9 parameters are ~54.9 GB; the long pass at (1, 32768)
+# with the model's own 32/32 heads, where the natural budget takes
+# flash_fwd_tri
+PAD_TRI_S = 4096
+PAD_TRAIN_STEPS = (4, 2048)           # B, S of the bf16 training steps
+PAD_STEPS = 5
+PAD_LONG = (1, 32768, 32, 32)
+PAD_TRAIN_SPECS = {
+    D: (Hq, Hkv, mid_bwd_cases(Hq, Hkv, window)
+        + mid_bwd_cases(*WIDE_TRAIN_SHAPE[2:], None),
+        small_tri_cases(Hq, Hkv, PAD_TRI_S), PAD_TRI_S, SEED + 140)
+    for D, (Hq, Hkv, window) in PAD_HEADS.items()}
+
+
+def phase_pad_train_exact(torch, tl, tm, tt, dev):
+    """Phase 25 (d): OpenLLaMA-3B's widths (pad_models) cut to 2 layers,
+    three f32 train steps flash against dense (train_exact, wide: the
+    first step's gradients and params held)."""
+    models = tuple((f"{name} width, 2 layers",
+                    dataclasses.replace(cfg, n_layers=2), False)
+                   for name, cfg in zip(("OpenLLaMA-3B",),
+                                        pad_models(tl).values()))
+    return train_exact(torch, tm, tt, models, dev, SEED + 142, wide=True)
+
+
+def phase_pad_train(torch, tl, tt, tfa, dev):
+    """Phase 25 (e), (f): the main path at head dim 100, its launches
+    read alone: the OpenLLaMA-3B-width model (pad_models, 26 layers)
+    trained in bf16 (f32 masters, remat, AdamW) at PAD_TRAIN_STEPS
+    (``d100_train``: a warm-up and PAD_STEPS steps, the loss falling, #1
+    2·L·steps launches and #6/#7 L·steps, peak memory), then a
+    triangular=True pass at PAD_LONG (``d100_long``). Every one of #6, #7,
+    #3, #8 and #9 launches. Returns ({100: {path: launches}}, report)."""
+    by_dim, report = {D: {} for D in PAD_HEADS}, {}
+    for D, cfg in pad_models(tl).items():
+        check(cfg.head_dim == D, f"head dim {cfg.head_dim}, expected {D}")
+        by_dim[D][f"d{D}_train"], report[f"d{D}_train"] = train_steps(
+            torch, tt, tfa, cfg, f"OpenLLaMA-3B width ({cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {D}, {cfg.n_layers} layers)", dev,
+            PAD_TRAIN_STEPS, PAD_STEPS)
+        by_dim[D][f"d{D}_long"], report[f"d{D}_long"] = long_pass(
+            torch, tfa, dev, D, PAD_LONG, SEED + 143)
+    for D, paths in by_dim.items():
+        for name in D64_TRAIN_ROWS:
+            n = sum(v.get(name, 0) for v in paths.values())
+            check(n > 0, f"{name}: no launch at head dim {D}")
+    print(f"head dim 100 in training: {json.dumps(report)}")
+    return by_dim, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5798,6 +5965,9 @@ def main() -> int:
     print("head dim 256 in training (phase 23):")
     wide_train_tc_report = tc_build_report(
         _cuda, logs, train_tc_kernels(_cuda, WIDE_HEADS))
+    print("head dim 100 in training (phase 25):")
+    pad_train_tc_report = tc_build_report(
+        _cuda, logs, train_tc_kernels(_cuda, PAD_HEADS))
 
     t0 = time.perf_counter()
     deferred = []
@@ -6047,6 +6217,23 @@ def main() -> int:
     print(f"head dim 100 serving {time.perf_counter() - t0:.1f} s; head "
           f"dim 100 phase {time.perf_counter() - t24:.1f} s")
     torch.cuda.empty_cache()
+    t25 = t0 = time.perf_counter()
+    pad_train_fwd, pad_train_rows, pad_fwd_err = phase_train_kernels(
+        torch, tfa, _cuda, dev, PAD_TRAIN_SPECS)
+    pad_train_store_errs = pad_train_stores(torch, tfa, dev, 100, 8, 4,
+                                            SEED + 141)
+    print(f"head dim 100 training kernels {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pad_train_exact = phase_pad_train_exact(torch, tl, tm, tt, dev)
+    print(f"head dim 100 exact training {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pad_train, pad_train_report = phase_pad_train(torch, tl, tt, tfa, dev)
+    pad_train_report.update(exact=pad_train_exact,
+                            stores=pad_train_store_errs)
+    print(f"head dim 100 training paths {time.perf_counter() - t0:.1f} s; "
+          f"head dim 100 training phase {time.perf_counter() - t25:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     device_times(torch, tfa, deferred, dev)
     library_backends(torch, deferred, pad_rows)
@@ -6174,8 +6361,9 @@ def main() -> int:
     # path's count at that head dim; at 96 and 80 also the D = 128 row's
     # time of the same call (phase 5's #6/#7, phase 8's tri rows)
     by_name = {r["name"]: r for r in rows}
-    train_paths = {**small_train, **mid_train, **wide_train}
-    for r in small_train_rows + mid_train_rows + wide_train_rows:
+    train_paths = {**small_train, **mid_train, **wide_train, **pad_train}
+    for r in small_train_rows + mid_train_rows + wide_train_rows \
+            + pad_train_rows:
         name, D = r["name"].rsplit("_d", 1)
         paths = train_paths[int(D)]
         r["launches_by_path"] = {k: v.get(name, 0) for k, v in paths.items()}
@@ -6183,9 +6371,13 @@ def main() -> int:
                               else f"d{D}_train"][name]
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         r.update({**small_train_tc_report, **mid_train_tc_report,
-                  **wide_train_tc_report}.get(r["name"], {}))
-        if int(D) in MID_HEADS or int(D) in WIDE_HEADS:
+                  **wide_train_tc_report, **pad_train_tc_report}.get(
+                      r["name"], {}))
+        if int(D) in MID_HEADS or int(D) in WIDE_HEADS \
+                or int(D) in PAD_HEADS:
             r["d128_ms"] = by_name[name]["ms"]
+        if int(D) in PAD_HEADS:     # the sentinel stores (phase 25)
+            r["at_sentinel_stores"] = pad_train_store_errs[name]
     # the head-dim-256 instances: launches across phase 22's full-size
     # run, ptxas of the timed ones; beside each timed call at the D = 128
     # rows' shapes the D = 128 row's time of the same call in this run
@@ -6217,8 +6409,14 @@ def main() -> int:
         r["at_sentinel_stores"] = pad_store_errs[name]
         r["max_abs_err"] = max(r["max_abs_err"],
                                pad_store_errs[name]["torch.bfloat16"])
+        if name == "flash_fwd":     # and its training paths (phase 25)
+            r["at_train_shape"] = pad_train_fwd[100]
+            r["max_abs_err"] = max(r["max_abs_err"], pad_fwd_err[100])
+            r["launches_by_path"].update(
+                {k: v.get(name, 0) for k, v in pad_train[100].items()})
     rows += d64_rows + d64_train_rows + small_rows + small_train_rows \
-        + mid_rows + mid_train_rows + wide_rows + wide_train_rows + pad_rows
+        + mid_rows + mid_train_rows + wide_rows + wide_train_rows + pad_rows \
+        + pad_train_rows
     print(f"head dim 64: {json.dumps(d64_report)}")
     print(f"head dim 64 in training: {json.dumps(d64t_report)}")
     print(f"head dims 32 and 16: {json.dumps(small_report)}")
@@ -6229,6 +6427,7 @@ def main() -> int:
     print(f"head dim 256: {json.dumps(wide_report)}")
     print(f"head dim 256 in training: {json.dumps(wide_train_report)}")
     print(f"head dim 100: {json.dumps(pad_report)}")
+    print(f"head dim 100 in training: {json.dumps(pad_train_report)}")
     print(f"speculation: {json.dumps(spec_report)}; bench_speculative "
           f"{json.dumps(spec_twin)}")
     print(f"resumable training: {json.dumps(resumable_report)}")

@@ -26,8 +26,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_fwd", "flash_fwd_mid", "flash_fwd_pad", "flash_fwd_wide",
            "flash_decode", "flash_decode_narrow", "flash_decode_mid",
-           "flash_decode_pad", "flash_decode_wide", "flash_bwd", "flash_bwd_mid", "flash_bwd_wide", "flash_tri",
-           "flash_tri_narrow", "flash_tri_mid", "flash_tri_wide")
+           "flash_decode_pad", "flash_decode_wide", "flash_bwd",
+           "flash_bwd_mid", "flash_bwd_pad", "flash_bwd_wide", "flash_tri",
+           "flash_tri_narrow", "flash_tri_mid", "flash_tri_pad",
+           "flash_tri_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,6 +98,8 @@ ENTRIES = {
     "flash_bwd_dkv": ("flash_bwd", FlashBwdArgs),
     "flash_bwd_dq_mid": ("flash_bwd_mid", FlashBwdArgs),
     "flash_bwd_dkv_mid": ("flash_bwd_mid", FlashBwdArgs),
+    "flash_bwd_dq_pad": ("flash_bwd_pad", FlashBwdArgs),
+    "flash_bwd_dkv_pad": ("flash_bwd_pad", FlashBwdArgs),
     "flash_bwd_dq_wide": ("flash_bwd_wide", FlashBwdArgs),
     "flash_bwd_dkv_wide": ("flash_bwd_wide", FlashBwdArgs),
     "flash_fwd_tri": ("flash_tri", FlashTriArgs),
@@ -107,6 +111,9 @@ ENTRIES = {
     "flash_fwd_tri_mid": ("flash_tri_mid", FlashTriArgs),
     "flash_bwd_dq_tri_mid": ("flash_tri_mid", FlashTriArgs),
     "flash_bwd_dkv_tri_mid": ("flash_tri_mid", FlashTriArgs),
+    "flash_fwd_tri_pad": ("flash_tri_pad", FlashTriArgs),
+    "flash_bwd_dq_tri_pad": ("flash_tri_pad", FlashTriArgs),
+    "flash_bwd_dkv_tri_pad": ("flash_tri_pad", FlashTriArgs),
     "flash_fwd_tri_wide": ("flash_tri_wide", FlashTriArgs),
     "flash_bwd_dq_tri_wide": ("flash_tri_wide", FlashTriArgs),
     "flash_bwd_dkv_tri_wide": ("flash_tri_wide", FlashTriArgs),
@@ -208,10 +215,11 @@ MID_HEAD_DIMS = (80, 96)
 # csrc/flash_tri_wide.cu): C entry <kernel>_wide, every kernel
 WIDE = MID
 WIDE_HEAD_DIMS = (256,)
-# the serving kernels whose head dim 100, a row of no whole number of 16-byte
-# chunks, lives in a source of its own (csrc/flash_fwd_pad.cu,
-# csrc/flash_decode_pad.cu): C entry <kernel>_pad
-PAD = ("flash_fwd", "flash_decode")
+# the kernels whose head dim 100, a row of no whole number of 16-byte chunks,
+# lives in a source of its own (csrc/flash_fwd_pad.cu,
+# csrc/flash_decode_pad.cu, csrc/flash_bwd_pad.cu, csrc/flash_tri_pad.cu): C
+# entry <kernel>_pad, every kernel
+PAD = MID
 PAD_HEAD_DIMS = (100,)
 
 
@@ -234,9 +242,12 @@ def entry(kernel: str, head_dim: int) -> str:
 def _tri_library(head_dim: int) -> ctypes.CDLL:
     """The library whose flash_tri_ctas / flash_tri_ws_floats answer for
     ``head_dim``: flash_tri_narrow's at 32 and 16, flash_tri_mid's at 80
-    and 96, flash_tri_wide's at 256, flash_tri's else."""
+    and 96, flash_tri_pad's at 100, flash_tri_wide's at 256, flash_tri's
+    else."""
     if head_dim in MID_HEAD_DIMS:
         return library("flash_tri_mid")
+    if head_dim in PAD_HEAD_DIMS:
+        return library("flash_tri_pad")
     if head_dim in WIDE_HEAD_DIMS:
         return library("flash_tri_wide")
     return library("flash_tri_narrow" if head_dim < 64 else "flash_tri")
@@ -258,8 +269,8 @@ def tri_ctas(entry: str, act_dtype: int, head_dim: int,
     dtype ``act_dtype`` and head dim ``head_dim`` on the card
     ``device_index`` (the SM count times the blocks of its kernel that fit
     on one SM, from the ``flash_tri_ctas`` of csrc/flash_tri.cu, or of
-    flash_tri_narrow.cu at 32 and 16, flash_tri_mid.cu at 80 and 96 and
-    flash_tri_wide.cu at 256), cached."""
+    flash_tri_narrow.cu at 32 and 16, flash_tri_mid.cu at 80 and 96,
+    flash_tri_pad.cu at 100 and flash_tri_wide.cu at 256), cached."""
     key = (entry, act_dtype, head_dim, device_index)
     if key not in _TRI_CTAS:
         fn = _tri_library(head_dim).flash_tri_ctas

@@ -20,9 +20,9 @@
 // block, tc::DQ_TC_BLOCKS and tc::DKV_TC_BLOCKS CTAs an SM: two from
 // D = 80 up, one at 256), shared with flash_tri.cuh; the f32 instances are
 // f32 FMA from shared memory, the exactness instances. Every instance takes
-// head dim 16, 32, 64, 80, 96, 128 or 256 (flash_bwd.cu's C entries 16, 32,
-// 64 and 128, flash_bwd_mid.cu's 80 and 96, flash_bwd_wide.cu's 256; each
-// refuses any other D): at 32
+// head dim 16, 32, 64, 80, 96, 100, 128 or 256 (flash_bwd.cu's C entries 16,
+// 32, 64 and 128, flash_bwd_mid.cu's 80 and 96, flash_bwd_pad.cu's 100,
+// flash_bwd_wide.cu's 256; each refuses any other D): at 32
 // and 16 (the tiny presets' and the fast bench_engine model's heads) the
 // bf16 tiles are the D = 64 atom partly filled; at 80 and 96
 // (H2O-Danube-1.8B's and Phi-3-mini's heads) D = 128's two atoms, the
@@ -34,7 +34,15 @@
 // product's MN-major operand is no whole number of 128-byte swizzle
 // atoms). At both the pad is zeroed once at the kernel's start
 // (wg::zero_pad); the f32 instances take D / 8 columns a lane as at every
-// D. At 256 (Gemma-2B's 8/1 heads) the bf16 instances take S and dP (S^T
+// D. At 100 (OpenLLaMA-3B's 32/32 heads) the bf16 instances are 80's and
+// 96's, but a row of 200 bytes is no whole number of 16-byte chunks: Q,
+// dO, K and V rows are copied in 25 pieces of 8 bytes (wg::load_tile), the
+// pad zeroed from column 100 (the upper half of chunk 12 and chunks 13..15,
+// never a byte a copy writes), S and dP (S^T and dP^T) take 7 k-steps, the
+// last over columns 96..111 of which a quarter is real, and dQ, dK and dV
+// are stored cut at column 100 (tc::store_bf16: the next head's columns
+// follow in a row); the f32 instances give a lane 13 columns, the 13th
+// (96 + lane) lanes 0..3's alone (fa::NCOL, fa::has_col). At 256 (Gemma-2B's 8/1 heads) the bf16 instances take S and dP (S^T
 // and dP^T) over the whole D in 16 k-steps on four-atom tiles, and split
 // the register-A products into column halves of 128, D = 128's m64n128k16
 // into its 64 floats (tc::half_at): dQ keeps both halves in one CTA (two
@@ -125,7 +133,7 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
   fa::load_rows<T, D>(sdO, BR, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
                       a.do_ss, q0, a.S);
   const long long rows = ((long long)b * a.Hq + h) * a.S;
-  float lse[RPT], delta[RPT], acc[RPT][D / 8];
+  float lse[RPT], delta[RPT], acc[RPT][fa::NCOL<D>];
   int qpos[RPT];
   bool valid[RPT];
 #pragma unroll
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
     lse[i] = valid[i] ? a.lse[rows + qpos[i]] : FA_NEG_INF;
     delta[i] = valid[i] ? a.delta[rows + qpos[i]] : 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < fa::NCOL<D>; ++c) acc[i][c] = 0.f;
   }
 
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
@@ -151,7 +159,12 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dq_kernel(FlashBwdArgs
     if (!valid[i]) continue;
     T* o = dq + qpos[i] * a.dq_ss;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) fa::from_f32(o + lane_c + 8 * c, acc[i][c]);
+    for (int c = 0; c < fa::NCOL<D>; ++c) {
+      if constexpr (D % 8 == 0)
+        fa::from_f32(o + lane_c + 8 * c, acc[i][c]);
+      else if (fa::has_col<D>(lane_c, c))
+        fa::from_f32(o + lane_c + 8 * c, acc[i][c]);
+    }
   }
 }
 
@@ -179,13 +192,13 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
                       k0, a.S);
   fa::load_rows<T, D>(sV, BKV, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss,
                       k0, a.S);
-  float dk[KPT][D / 8], dv[KPT][D / 8];
+  float dk[KPT][fa::NCOL<D>], dv[KPT][fa::NCOL<D>];
   int kpos[KPT];
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     kpos[i] = k0 + rg * KPT + i;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < fa::NCOL<D>; ++c) dk[i][c] = dv[i][c] = 0.f;
   }
 
   const int2 queries = fa::live_queries(k0, min(k0 + BKV, a.S) - 1, a.S, a.causal, a.window);
@@ -206,7 +219,9 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_kernel(FlashBwdArg
   for (int i = 0; i < KPT; ++i) {
     if (kpos[i] >= a.S) continue;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < fa::NCOL<D>; ++c) {
+      if constexpr (D % 8 != 0)
+        if (!fa::has_col<D>(lane_c, c)) continue;
       fa::from_f32(dkb + kpos[i] * a.dk_ss + lane_c + 8 * c, dk[i][c]);
       fa::from_f32(dvb + kpos[i] * a.dv_ss + lane_c + 8 * c, dv[i][c]);
     }
@@ -224,10 +239,11 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   constexpr int E = tc::E;
   constexpr int DV = tc::out_cols<D>;
   constexpr int HALVES = D / DV;
-  // below D = 64, and at 80 and 96, the chunks past D of K, V and both
-  // Q/dO stages, published with the walk's first copies (if constexpr: at
-  // D = 64 and 128 even the empty loop moved the compiled kernel's
-  // registers)
+  // below D = 64, and at 80, 96 and 100, the chunks past D of K, V and
+  // both Q/dO stages (at 100 from column 100, the upper half of a chunk
+  // whose lower half the copies write), published with the walk's first
+  // copies (if constexpr: at D = 64 and 128 even the empty loop moved the
+  // compiled kernel's registers)
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(tc::tiles() + i * wg::tile_bytes<D>());
   const unsigned bh = HALVES > 1 ? blockIdx.x / HALVES : blockIdx.x;
@@ -276,8 +292,9 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
                    a.S);
   wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
                    q0, a.S);
-  // below D = 64, and at 80 and 96, the chunks past D of Q, dO and both K/V
-  // stages, published with the first key tile's copies
+  // below D = 64, and at 80, 96 and 100, the chunks past D of Q, dO and
+  // both K/V stages (at 100 from column 100: never a byte that the Q and dO
+  // copies in flight write), published with the first key tile's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
   const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;

@@ -406,7 +406,7 @@ constexpr int DQ_BK = D > 128 ? BK / 2 : BK;
 // keys (BK, or DQ_BK<D>), TK / 8 a lane.
 template <typename T, int D, int RPT, int TK = BK>
 __device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV, float* sdS,
-                        float (&acc)[RPT][D / 8], const float (&lse)[RPT],
+                        float (&acc)[RPT][NCOL<D>], const float (&lse)[RPT],
                         const float (&delta)[RPT], const int (&qpos)[RPT],
                         const bool (&valid)[RPT], const T* kb, const T* vb, long long k_ss,
                         long long v_ss, int kv0, int S, int causal, int window, float scale) {
@@ -458,14 +458,19 @@ __device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV,
   __syncwarp();   // a row group's dS is written and read by one warp
 
   for (int kk = 0; kk < TK; ++kk) {
-    float kr[D / 8];
+    float kr[NCOL<D>];
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) kr[c] = sK[kk * (D + 1) + lane_c + 8 * c];
+    for (int c = 0; c < NCOL<D>; ++c) {
+      if constexpr (D % 8 == 0)
+        kr[c] = sK[kk * (D + 1) + lane_c + 8 * c];
+      else
+        kr[c] = has_col<D>(lane_c, c) ? sK[kk * (D + 1) + lane_c + 8 * c] : 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const float ds = sdS[(rg * RPT + i) * (TK + 1) + kk];
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) acc[i][c] = fmaf(ds, kr[c], acc[i][c]);
+      for (int c = 0; c < NCOL<D>; ++c) acc[i][c] = fmaf(ds, kr[c], acc[i][c]);
     }
   }
 }
@@ -477,8 +482,8 @@ __device__ void dq_tile(const float* sQ, const float* sdO, float* sK, float* sV,
 // columns (lane_c + 8 * c, c < BQ / 8), then dV += P^T dO, dK += dS^T Q.
 template <typename T, int D, int KPT, int BQ>
 __device__ void dkv_tile(const float* sK, const float* sV, float* sQ, float* sdO, float* sP,
-                         float* sdS, float* sL, float* sDelta, float (&dk)[KPT][D / 8],
-                         float (&dv)[KPT][D / 8], const int (&kpos)[KPT], const T* qb,
+                         float* sdS, float* sL, float* sDelta, float (&dk)[KPT][NCOL<D>],
+                         float (&dv)[KPT][NCOL<D>], const int (&kpos)[KPT], const T* qb,
                          const T* gb, long long q_ss, long long do_ss, const float* lse_row,
                          const float* delta_row, int q0, int S, int causal, int window,
                          float scale) {
@@ -537,18 +542,24 @@ __device__ void dkv_tile(const float* sK, const float* sV, float* sQ, float* sdO
   __syncwarp();   // a row group's P / dS rows are written and read by one warp
 
   for (int qq = 0; qq < BQ; ++qq) {
-    float gr[D / 8], qr[D / 8];
+    float gr[NCOL<D>], qr[NCOL<D>];
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      gr[c] = sdO[qq * (D + 1) + lane_c + 8 * c];
-      qr[c] = sQ[qq * (D + 1) + lane_c + 8 * c];
+    for (int c = 0; c < NCOL<D>; ++c) {
+      if constexpr (D % 8 == 0) {
+        gr[c] = sdO[qq * (D + 1) + lane_c + 8 * c];
+        qr[c] = sQ[qq * (D + 1) + lane_c + 8 * c];
+      } else {
+        const bool in = has_col<D>(lane_c, c);
+        gr[c] = in ? sdO[qq * (D + 1) + lane_c + 8 * c] : 0.f;
+        qr[c] = in ? sQ[qq * (D + 1) + lane_c + 8 * c] : 0.f;
+      }
     }
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const float p = sP[(rg * KPT + i) * (BQ + 1) + qq];
       const float ds = sdS[(rg * KPT + i) * (BQ + 1) + qq];
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < NCOL<D>; ++c) {
         dv[i][c] = fmaf(p, gr[c], dv[i][c]);
         dk[i][c] = fmaf(ds, qr[c], dk[i][c]);
       }

@@ -32,8 +32,8 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// Every step is generic in the head dim D = 16, 32, 64, 80, 96, 128 or 256, a template
-// parameter of its own (the accumulator holds acc_floats<D> floats a
+// Every step is generic in the head dim D = 16, 32, 64, 80, 96, 100, 128 or
+// 256, a template parameter of its own (the accumulator holds acc_floats<D> floats a
 // thread): at D = 64 a tile is one swizzle atom, S = Q K^T (and dP = dO
 // V^T, S^T, dP^T) takes 4 k-steps, and the register-A products (O += P V,
 // dQ += dS K, dV += P^T dO, dK += dS^T Q) are m64n64k16 into 32 floats;
@@ -51,7 +51,11 @@
 // the register-A products stay D = 128's m64n128k16 into D = 128's
 // accumulator of 64 floats a thread, its columns D.. computed from the
 // zeroed pad and never stored; shared memory and CTAs an SM as at D = 128
-// (the forward's int8 stages smaller: 70 or 74 KB). At D = 256 (Gemma-2B's
+// (the forward's int8 stages smaller: 70 or 74 KB). At D = 100
+// (OpenLLaMA-3B's heads) the same, but a row's tiles are copied in 8-byte
+// pieces (wg::load_tile: the forward's Q and K/V ring, dQ's Q and dO,
+// dK/dV's K, V and Q/dO stages), the K-major products take 7 k-steps, and
+// every store is cut at column 100 (store_bf16). At D = 256 (Gemma-2B's
 // 8/1 heads of 256) the output's columns are split in two halves of 128,
 // one a CTA (out_cols): S = Q K^T over the whole D in 16 k-steps on
 // four-atom Q and K tiles, the online softmax as at every D, and O += P V
@@ -851,12 +855,37 @@ struct DkvSrc {
 // Issues the copies of one step's inputs into stage `stage` (Q, dO tiles
 // of head dim D) and `stats` (lse then delta of the 64 queries; zero past
 // S, where the masks keep nothing): queries q0 .. q0 + 63 of q-head h. Not
-// committed.
+// committed. At D = 100 the two tiles' 2 x 64 x 25 pieces of 8 bytes go
+// out together, 25 a thread, in loops of 5 (wg::load_tile's placement):
+// two load_tile<100> calls of 12 or 13 pieces a thread each took the
+// rectangular dK/dV kernel to 255 registers and 8 bytes of spill, this 236.
 template <int D>
 __device__ __forceinline__ void dkv_stage(uint32_t stage, uint32_t stats, const DkvSrc& s, int q0,
                                           int h) {
-  wg::load_tile<D>(stage, s.q + h * s.q_sh, s.q_ss, q0, s.S);
-  wg::load_tile<D>(stage + wg::tile_bytes<D>(), s.dout + h * s.do_sh, s.do_ss, q0, s.S);
+  if constexpr (D % 8 != 0) {
+    constexpr int P = D / 4;                       // pieces of 4 values a row
+    constexpr int TILE = wg::tile_bytes<D>();
+    static_assert(2 * E * P % wg::THREADS == 0, "whole pieces a thread");
+    const bf16* qb = s.q + h * s.q_sh;
+    const bf16* gb = s.dout + h * s.do_sh;
+#pragma unroll 5
+    for (int it = 0; it < 2 * E * P / wg::THREADS; ++it) {
+      const int i = threadIdx.x + it * wg::THREADS;
+      const int t = i / (E * P), j = i % (E * P);  // Q or dO, its piece
+      const int r = j / P, p = j % P, c = p >> 1;  // row, piece, its chunk
+      const bool in = q0 + r < s.S;
+      const long long row = in ? q0 + r : 0;
+      const bf16* src = (t ? gb + row * s.do_ss : qb + row * s.q_ss) + p * 4;
+      const uint32_t dst = stage + t * TILE + (c >> 3) * wg::ATOM_BYTES + r * 128 +
+                           (((c & 7) ^ (r & 7)) << 4) + (p & 1) * 8;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+                   "r"(in ? 8 : 0)
+                   : "memory");
+    }
+  } else {
+    wg::load_tile<D>(stage, s.q + h * s.q_sh, s.q_ss, q0, s.S);
+    wg::load_tile<D>(stage + wg::tile_bytes<D>(), s.dout + h * s.do_sh, s.do_ss, q0, s.S);
+  }
   const int i = threadIdx.x & (E - 1);
   const bool in = q0 + i < s.S;
   const float* src = (threadIdx.x < E ? s.lse : s.delta) + static_cast<long long>(h) * s.S +

@@ -57,14 +57,20 @@
 // P^T and dS^T each rounded to bf16 once (flash_tc.cuh says why). Shared
 // memory at D = 128: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an
 // SM; at D = 64 41, 49 and 50 KB, the CTAs an SM the occupancy query's
-// (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96, 128
-// or 256: at 32 and 16 a bf16 tile is the D = 64 atom partly filled, with D =
-// 64's shared memory and accumulators; at 96 and 80 (Phi-3-mini's and
-// H2O-Danube-1.8B's heads) D = 128's two atoms, the second partly filled,
-// with D = 128's shared memory, accumulators and register-A products
-// (flash_bwd.cuh says why); at both the chunks past D are zeroed once a
-// CTA before its first segment (the persistent walk only rewrites the
-// first D / 8 chunks of a row). At 256 (Gemma-2B's 8/1 heads) a bf16
+// (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96, 100,
+// 128 or 256: at 32 and 16 a bf16 tile is the D = 64 atom partly filled,
+// with D = 64's shared memory and accumulators; at 96, 80 and 100
+// (Phi-3-mini's, H2O-Danube-1.8B's and OpenLLaMA-3B's heads) D = 128's two
+// atoms, the second partly filled, with D = 128's shared memory,
+// accumulators and register-A products (flash_bwd.cuh says why); at each
+// the tile's pad is zeroed once a CTA before its first segment, and the
+// persistent walk's copies rewrite only a row's D columns: its first D / 8
+// chunks, and at 100, a row of 25 pieces of 8 bytes (wg::load_tile), the
+// lower half of chunk 12 too, whose upper half (columns 100..103) is pad.
+// At 100 every store of a row, to the output or to a workspace slot, is cut
+// at column 100 (the next head's, or the slot's next row's, columns follow
+// at once), and the f32 instances give a lane 13 columns, the 13th lanes
+// 0..3's alone (fa::NCOL, fa::has_col). At 256 (Gemma-2B's 8/1 heads) a bf16
 // forward or dK/dV CTA owns one column half of its outputs, as
 // flash_fwd.cu's and flash_bwd.cuh's do (tc::out_cols, tc::half_at): each
 // (batch, head, half) is a row of the flat list of its own, the halves of
@@ -83,7 +89,8 @@
 // This header holds the kernels, their launches and the C entries' bodies
 // for every head dim (HeadDims); flash_tri.cu's entries take 128 and 64,
 // flash_tri_narrow.cu's 32 and 16, flash_tri_mid.cu's 96 and 80,
-// flash_tri_wide.cu's 256, so that four nvcc processes build them side by
+// flash_tri_pad.cu's 100, flash_tri_wide.cu's 256, so that five nvcc
+// processes build them side by
 // side (one source for all four took 23.8 s to build for sm_90a,
 // flash_fwd.cu 17.0 s in the same build).
 #pragma once
@@ -274,8 +281,8 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
   const tc::TriMask mask{a.S};
   float* ws_lse = a.ws + 2LL * a.ctas * E * DV;
-  // below D = 64, and at 80 and 96, the chunks past D of Q and both K/V
-  // stages, once, published with the first segment's copies (if
+  // below D = 64, and at 80, 96 and 100, the chunks past D of Q and both
+  // K/V stages, once, published with the first segment's copies (if
   // constexpr: at D = 64 and 128 even the empty loop moved the compiled
   // kernel's registers)
   if constexpr (D % 64 != 0)
@@ -320,9 +327,14 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
       const int r = row + 8 * i;
       float* o = a.ws + (static_cast<long long>(sg.slot) * E + r) * DV + col;
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j)
+      for (int j = 0; j < (DV + 7) / 8; ++j) {
+        // at D = 100 the last group's pairs below column 100 alone: the
+        // slot's next row starts there
+        if constexpr (DV % 8 != 0)
+          if (j == DV / 8 && col >= DV % 8) continue;
         *reinterpret_cast<float2*>(o + 8 * j) =
             make_float2(acc[4 * j + 2 * i] * inv[i], acc[4 * j + 2 * i + 1] * inv[i]);
+      }
       if ((t & 3) == 0) ws_lse[static_cast<long long>(sg.slot) * E + r] = lse[i];
     }
   }
@@ -354,8 +366,8 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
   const float sl2 = a.scale * tc::kLog2e;
   const tc::TriMask mask{a.S};
-  // below D = 64, and at 80 and 96, the chunks past D of Q, dO and both
-  // K/V stages, once, published with the first segment's copies
+  // below D = 64, and at 80, 96 and 100, the chunks past D of Q, dO and
+  // both K/V stages, once, published with the first segment's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
   constexpr int ACC = tc::acc_floats<D>;
@@ -418,9 +430,13 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
       for (int i = 0; i < 2; ++i) {
         float* o = a.ws + (static_cast<long long>(sg.slot) * E + row + 8 * i) * D + col;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < (D + 7) / 8; ++j) {
+          // at D = 100 the last group's pairs below column 100 alone
+          if constexpr (D % 8 != 0)
+            if (j == D / 8 && col >= D % 8) continue;
           *reinterpret_cast<float2*>(o + 8 * j) =
               make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
       }
     }
   }
@@ -481,12 +497,20 @@ __device__ __forceinline__ void fwd_tri_fma(const FlashTriArgs& a) {
         if (!st.valid[i]) continue;
         T* o = out + b * a.o_sb + (q0 + r) * a.o_ss + h * a.o_sh;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) fa::from_f32(o + lane_c + 8 * c, st.acc[i][c]);
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
+          fa::from_f32(o + lane_c + 8 * c, st.acc[i][c]);
+        }
         if (lane_c == 0) a.lse[(static_cast<long long>(b) * a.Hq + h) * a.S + q0 + r] = lse;
       } else {
         float* o = a.ws + (static_cast<long long>(s.slot) * E + r) * D;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) o[lane_c + 8 * c] = st.acc[i][c];
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
+          o[lane_c + 8 * c] = st.acc[i][c];
+        }
         if (lane_c == 0) ws_lse[static_cast<long long>(s.slot) * E + r] = lse;
       }
     }
@@ -563,7 +587,7 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
     fa::load_rows<T, D>(sdO, E, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh,
                         a.do_ss, q0, a.S);
     const long long rows = (static_cast<long long>(b) * a.Hq + h) * a.S;
-    float lse[RPT], delta[RPT], acc[RPT][D / 8];
+    float lse[RPT], delta[RPT], acc[RPT][fa::NCOL<D>];
     int qpos[RPT];
     bool valid[RPT];
 #pragma unroll
@@ -573,7 +597,7 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
       lse[i] = valid[i] ? a.lse[rows + qpos[i]] : FA_NEG_INF;
       delta[i] = valid[i] ? a.delta[rows + qpos[i]] : 0.f;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+      for (int c = 0; c < fa::NCOL<D>; ++c) acc[i][c] = 0.f;
     }
     const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
     const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
@@ -596,11 +620,19 @@ __device__ __forceinline__ void dq_tri_fma(const FlashTriArgs& a) {
         if (!valid[i]) continue;
         T* o = static_cast<T*>(a.dq) + b * a.dq_sb + qpos[i] * a.dq_ss + h * a.dq_sh;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) fa::from_f32(o + lane_c + 8 * c, acc[i][c]);
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
+          fa::from_f32(o + lane_c + 8 * c, acc[i][c]);
+        }
       } else {
         float* o = a.ws + (static_cast<long long>(s.slot) * E + r) * D;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) o[lane_c + 8 * c] = acc[i][c];
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
+          o[lane_c + 8 * c] = acc[i][c];
+        }
       }
     }
   }
@@ -670,13 +702,13 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_kernel(FlashTr
                         k0, a.S);
     fa::load_rows<T, D>(sV, E, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss,
                         k0, a.S);
-    float dk[KPT][D / 8], dv[KPT][D / 8];
+    float dk[KPT][fa::NCOL<D>], dv[KPT][fa::NCOL<D>];
     int kpos[KPT];
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       kpos[i] = k0 + rg * KPT + i;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
+      for (int c = 0; c < fa::NCOL<D>; ++c) dk[i][c] = dv[i][c] = 0.f;
     }
     for (int c = s.c0; c <= s.c1; ++c) {
       const int q0 = (tri.n - 1 - c) * E;     // column c is qi = n - 1 - c
@@ -698,14 +730,18 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_bwd_dkv_tri_kernel(FlashTr
         T* okb = static_cast<T*>(a.dk) + b * a.dk_sb + kpos[i] * a.dk_ss + kvh * a.dk_sh;
         T* ovb = static_cast<T*>(a.dv) + b * a.dv_sb + kpos[i] * a.dv_ss + kvh * a.dv_sh;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
           fa::from_f32(okb + lane_c + 8 * c, dk[i][c]);
           fa::from_f32(ovb + lane_c + 8 * c, dv[i][c]);
         }
       } else {
         const long long at = (static_cast<long long>(s.slot) * E + r) * D;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < fa::NCOL<D>; ++c) {
+          if constexpr (D % 8 != 0)
+            if (!fa::has_col<D>(lane_c, c)) continue;
           a.ws[at + lane_c + 8 * c] = dk[i][c];
           ws_dv[at + lane_c + 8 * c] = dv[i][c];
         }
@@ -725,8 +761,8 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   constexpr int E = tc::E;
   constexpr int DV = tc::out_cols<D>, HALVES = D / DV;
   const uint32_t sK = tc::tiles();
-  // below D = 64, and at 80 and 96, the chunks past D of K, V and both
-  // Q/dO stages, once, published with the first segment's copies
+  // below D = 64, and at 80, 96 and 100, the chunks past D of K, V and
+  // both Q/dO stages, once, published with the first segment's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sK + i * wg::tile_bytes<D>());
   constexpr int ACC = tc::acc_floats<D>;
@@ -768,7 +804,10 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
     for (int i = 0; i < 2; ++i) {
       const long long at = (static_cast<long long>(sg.slot) * E + row + 8 * i) * DV + col;
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
+      for (int j = 0; j < (DV + 7) / 8; ++j) {
+        // at D = 100 the last group's pairs below column 100 alone
+        if constexpr (DV % 8 != 0)
+          if (j == DV / 8 && col >= DV % 8) continue;
         *reinterpret_cast<float2*>(a.ws + at + 8 * j) =
             make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
         *reinterpret_cast<float2*>(ws_dv + at + 8 * j) =
@@ -875,7 +914,8 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
 
 // The two head dims one source builds an instance of every kernel at:
 // flash_tri.cu 128 and 64, flash_tri_narrow.cu 32 and 16, flash_tri_mid.cu
-// 96 and 80 (flash_tri_wide.cu 256 twice: one head dim).
+// 96 and 80 (flash_tri_pad.cu 100 and flash_tri_wide.cu 256 twice: one head
+// dim).
 template <int D0, int D1>
 struct HeadDims {
   static constexpr bool has(int D) { return D == D0 || D == D1; }

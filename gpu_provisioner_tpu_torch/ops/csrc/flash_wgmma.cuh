@@ -34,7 +34,7 @@
 // CTA, so that O += P V stays D = 128's m64n128k16 over a V tile of the
 // half's 128 columns, a D = 128 tile (flash_tc.cuh's out_cols).
 //
-// D = 100 (the serving kernels alone: flash_fwd's tensor-core instances):
+// D = 100 (every kernel but the decode's, whose ring has its own copies):
 // D = 128's tile as at 80 and 96, but a row of 200 bytes is no whole number
 // of 16-byte chunks, and rows of a contiguous [.., 100] tensor start on
 // 8-byte boundaries only. load_tile copies a row in 25 pieces of 8 bytes
@@ -42,8 +42,9 @@
 // chunk's swizzled place plus 0 or 8. Chunk 12 holds columns 96..99 (real)
 // and 100..103 (pad): zero_pad zeroes its upper half and chunks 13..15 of
 // the second atom, from column 100, and the copies never write there. S =
-// Q K^T takes 7 k-steps, the last over columns 96..111 of which a quarter
-// is real; the register-A products stay D = 128's, as at 80 and 96.
+// Q K^T (and dP = dO V^T, S^T, dP^T) takes 7 k-steps, the last over
+// columns 96..111 of which a quarter is real; the register-A products stay
+// D = 128's, as at 80 and 96.
 //
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's

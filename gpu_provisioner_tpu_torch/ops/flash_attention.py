@@ -65,21 +65,16 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 16, 32, 64, 80, 96, 128 and 256 in every kernel
+- head dims 16, 32, 64, 80, 96, 100, 128 and 256 in every kernel
   (``_HEAD_DIMS``; at 32 and 16 the tensor-core tile is the 64-wide one
-  partly filled, at 80 and 96 the 128-wide one, at 256 the register-A
-  products in column halves of 128 (dQ's two in one CTA, the forward's and
-  dK/dV's one a CTA), each from a source of its own: ``_cuda.entry``), and
-  100 in the serving kernels alone (``_SERVE_HEAD_DIMS``: ``flash_fwd`` on
-  self-attention and on a bf16 or int8 cache, ``flash_decode``; the
-  128-wide tile partly filled, rows of 100 values, no whole number of
-  16-byte chunks, copied in 8-byte pieces in bf16 and 4-byte pieces in
-  int8: ``_copy_width``); on a CUDA tensor any other head dim raises a
+  partly filled, at 80, 96 and 100 the 128-wide one, at 256 the
+  register-A products in column halves of 128 (dQ's two in one CTA, the
+  forward's and dK/dV's one a CTA), each from a source of its own:
+  ``_cuda.entry``; at 100 a row is no whole number of 16-byte chunks and
+  is copied in 8-byte pieces in bf16 and 4-byte pieces in int8:
+  ``_copy_width``); on a CUDA tensor any other head dim raises a
   ValueError naming it before a kernel is built or launched (no plain
-  fallback), and so, at 100, do ``triangular=True`` and a self-attention
-  input that requires grad (``_check_forward_only``: a training step must
-  not launch the forward and then fail in the backward), where the JAX
-  kernels take any head dim;
+  fallback), where the JAX kernels take any head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
   per-q-head arrays and summing them after;
 - a plain launch counter per kernel, ``LAUNCHES``.
@@ -118,10 +113,8 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the head dims every kernel is built for, and those of the serving kernels
-# (flash_fwd, flash_decode) alone
-_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-_SERVE_HEAD_DIMS = _HEAD_DIMS + (100,)
+# the head dims every kernel is built for
+_HEAD_DIMS = (16, 32, 64, 80, 96, 100, 128, 256)
 
 
 def reset_launches() -> None:
@@ -406,9 +399,9 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     want_kv = torch.int8 if int8 else q.dtype
     if k.dtype != want_kv or v.dtype != want_kv:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype}; expected {want_kv}")
-    if D not in _SERVE_HEAD_DIMS:
+    if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}: {kernel} takes head dims "
-                         f"{_SERVE_HEAD_DIMS}")
+                         f"{_HEAD_DIMS}")
     if tuple(k.shape) != (B, Hkv, Sk, D) or k.shape != v.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -428,12 +421,7 @@ def _launch(kernel: str, q, k, v, start, *, causal: bool, scale: float,
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     _check_tc_copies(kernel, q=q, k=k, v=v)
-    if out is None:
-        out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)
-    elif (tuple(out.shape) != (B, S, Hq, D) or out.dtype != q.dtype
-          or out.device != dev or out.stride(-1) != 1):
-        raise ValueError(f"out must be [B,S,Hq,D] {q.dtype} on {dev} with "
-                         "the head dim contiguous")
+    out, = _outputs(out, 1, (B, S, Hq, D), q.dtype, dev)
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
            if want_lse else None)
     a = _cuda.FlashArgs()
@@ -500,6 +488,22 @@ def _decode_plan(B: int, S: int, Hq: int, Hkv: int, max_len: int,
     return R, units, _decode_splits(units, max_len, sms)
 
 
+def _outputs(out, n: int, shape: tuple, dtype, dev) -> tuple:
+    """A launch's ``n`` outputs of ``shape``: fresh tensors, or those the
+    caller gave (``out``: one tensor, or ``n``; any strides with the head
+    dim contiguous, a view of wider rows, say), checked."""
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dtype, device=dev)
+                     for _ in range(n))
+    outs = (out,) if isinstance(out, torch.Tensor) else tuple(out)
+    if len(outs) != n or any(
+            tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+            or t.stride(-1) != 1 for t in outs):
+        raise ValueError(f"out must be {n} of {list(shape)} {dtype} on "
+                         f"{dev} with the head dim contiguous")
+    return outs
+
+
 def _run(kernel: str, a, dev) -> None:
     """Launches ``kernel``'s C entry at the struct's head dim
     (``_cuda.entry``) with argument struct ``a`` on ``dev``'s current
@@ -564,9 +568,9 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cuh, flash_tri.cuh) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 16, 32, 64, 80, 96, 128 or 256 (``_HEAD_DIMS``)
-    contiguous, GQA dividing; lse and delta, where given, contiguous
-    float32 [B,Hq,S]. Raises naming ``kernel``."""
+    kernels' dtypes, head dim 16, 32, 64, 80, 96, 100, 128 or 256
+    (``_HEAD_DIMS``) contiguous, GQA dividing; lse and delta, where given,
+    contiguous float32 [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -605,13 +609,14 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
 
 
 def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
-                scale: float, window=None):
+                scale: float, window=None, out=None):
     """Checks what the backward kernels take, allocates ``kernel``'s outputs
     and launches it on the current stream: ``flash_bwd_dq`` → dq [B,S,Hq,D]
     in q's dtype, ``flash_bwd_dkv`` → (dk, dv) [B,S,Hkv,D] in k's. q/k/v/dout
-    token-major with the head dim contiguous (in bf16, ``flash_bwd_dkv``
-    takes 16-byte chunks: ``_check_tc_copies``); lse and delta [B,Hq,S]
-    f32."""
+    token-major with the head dim contiguous (in bf16 pieces of their copy
+    width: ``_check_tc_copies``); lse and delta [B,Hq,S] f32. ``out``, where
+    given, holds the outputs the kernel writes instead of fresh tensors
+    (``_outputs``)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -628,11 +633,10 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
         for ax, st in zip("bsh", t.stride()[:3]):
             setattr(a, f"{name}_s{ax}", st)
     if kernel == "flash_bwd_dq":
-        outs = (torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev),)
+        outs = _outputs(out, 1, (B, S, Hq, D), q.dtype, dev)
         names = ("dq",)
     else:
-        outs = tuple(torch.empty((B, S, Hkv, D), dtype=k.dtype, device=dev)
-                     for _ in range(2))
+        outs = _outputs(out, 2, (B, S, Hkv, D), k.dtype, dev)
         names = ("dk", "dv")
     for t, name in zip(outs, names):
         setattr(a, name, t.data_ptr())
@@ -719,16 +723,19 @@ def _tc_layout(t, any_dtype: bool = False):
 
 
 def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
-                delta=None):
+                delta=None, out=None):
     """Checks what the flattened-triangle kernels take (causal
-    self-attention, no window; in bf16 the 16-byte chunks the tensor-core
-    kernels copy, ``_check_tc_copies``), allocates ``kernel``'s outputs and
+    self-attention, no window; in bf16 the pieces the tensor-core kernels
+    copy, ``_check_tc_copies``), allocates ``kernel``'s outputs and
     its f32 workspace (two slots per CTA of the persistent grid; its size
     depends on the dtype and the head dim) and queues its main
     launch and its fixup on the current stream: ``flash_fwd_tri`` → (out
     [B,S,Hq,D], lse [B,Hq,S] f32), ``flash_bwd_dq_tri`` → dq,
     ``flash_bwd_dkv_tri`` → (dk, dv). q/k/v/dout token-major with the head
-    dim contiguous; lse and delta (the backward's) [B,Hq,S] f32."""
+    dim contiguous; lse and delta (the backward's) [B,Hq,S] f32. ``out``,
+    where given, holds the outputs the kernel writes instead of fresh
+    tensors (out, dq, or (dk, dv): ``_outputs``; the forward's lse is
+    fresh)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     dev = q.device
@@ -744,12 +751,12 @@ def _launch_tri(kernel: str, q, k, v, *, scale: float, dout=None, lse=None,
     a = _cuda.FlashTriArgs()
     if fwd:
         lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
-        outs = {"o": torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)}
+        outs = {"o": _outputs(out, 1, (B, S, Hq, D), q.dtype, dev)[0]}
     elif kernel == "flash_bwd_dq_tri":
-        outs = {"dq": torch.empty((B, S, Hq, D), dtype=q.dtype, device=dev)}
+        outs = {"dq": _outputs(out, 1, (B, S, Hq, D), q.dtype, dev)[0]}
     else:
-        outs = {n: torch.empty((B, S, Hkv, D), dtype=k.dtype, device=dev)
-                for n in ("dk", "dv")}
+        outs = dict(zip(("dk", "dv"), _outputs(out, 2, (B, S, Hkv, D),
+                                               k.dtype, dev)))
     for name, t in (("q", q), ("k", k), ("v", v), ("do", dout), *outs.items()):
         if t is None:
             continue
@@ -863,26 +870,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     if not tiles:   # the dense result, as the JAX package gives
         return attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), 0,
                                causal=causal, scale=scale, window=window)
-    if _on_card(q):
-        _check_forward_only(q, k, v, triangular)
     return _FlashAttention.apply(q, k, v, causal, scale, window, triangular)
-
-
-def _check_forward_only(q, k, v, triangular: bool) -> None:
-    """At a head dim that the serving kernels take and the backward and
-    triangle kernels do not (100), raises a ValueError naming it, before
-    any kernel is built or launched, for a call that would need those:
-    ``triangular=True``, or an input that requires grad."""
-    D = q.shape[-1]
-    if D in _HEAD_DIMS or D not in _SERVE_HEAD_DIMS:
-        return
-    if triangular:
-        raise ValueError(f"head dim {D}: the triangle kernels take head dims "
-                         f"{_HEAD_DIMS}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError(f"head dim {D}: the backward kernels take head dims "
-                         f"{_HEAD_DIMS}; at {D} flash attention serves "
-                         "(call it under torch.no_grad())")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = None,

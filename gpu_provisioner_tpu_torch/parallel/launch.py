@@ -8,17 +8,21 @@ rank's result. The ranks use this host's loopback interface, so gloo
 binds there (``GLOO_SOCKET_IFNAME=lo`` unless the caller set it).
 
 There is no fallback that hides a failure: a rank that raises, dies, or
-outlives ``timeout_s`` fails the call. The launcher then terminates the
-other ranks (which may wait in a collective for the failed one) and raises
-with every failed rank's traceback (a peer that lost the failed rank
-fails too, and either may report first).
+outlives ``timeout_s`` fails the call. The launcher then gives the other
+ranks a bounded grace to end by themselves (a peer that lost the failed
+rank fails too, and either may report first; a rank at low priority on a
+loaded host may wake late), terminates those still running (which may wait
+in a collective for the failed one) and raises naming every failed rank:
+its traceback, its exit code, or that the launcher stopped it.
 
-A rank imports ``fn``'s module and torch, nothing of the caller's module
-(pickled by reference, ``fn`` must live at the top level of an importable
-module: this package or the script that calls). On the CPU each rank runs
-torch on one thread, at the lowest scheduling priority (nice 19), so that a
-world of ranks computing flat out does not starve the host's other
-processes. On the card each rank drives card ``rank %
+The ranks pass a barrier once they have all joined the group, before any
+runs ``fn``, so that a rank that fails at once cannot fail a slower peer's
+join. A rank imports ``fn``'s module and torch, nothing of the caller's
+module (pickled by reference, ``fn`` must live at the top level of an
+importable module: this package or the script that calls). On the CPU each
+rank runs torch on one thread, at the lowest scheduling priority (nice 19),
+so that a world of ranks computing flat out does not starve the host's
+other processes. On the card each rank drives card ``rank %
 device_count``: all of them card 0 on a one-card machine (with gloo).
 Ranks must not build the kernels at once: the caller builds them first
 (``ops._cuda.build()``), and the ranks only load them.
@@ -39,6 +43,10 @@ from ..device import resolve_device
 
 
 _FLUSH_S = 2.0
+# after a failure, once its settle window has closed: the seconds the ranks
+# still running get to end by themselves before the launcher stops them
+# (only a failed launch waits, and a rank hung in a collective at most this)
+_GRACE_S = 10.0
 # a CPU world's ranks yield the host's cores to its other work first
 _CPU_NICE = 19
 
@@ -70,6 +78,10 @@ def _rank_main(rank, world, port, backend, device_type, timeout_s, work,
         dist.init_process_group(
             backend, init_method=f"tcp://localhost:{port}",
             world_size=world, rank=rank, timeout=timedelta(seconds=timeout_s))
+        # every rank has joined before any runs fn: a rank that fails at
+        # once and tears its group down would otherwise fail a slower
+        # peer's join, which would then report that and not its own fate
+        dist.barrier()
         results.put((rank, True, fn(*args)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -84,9 +96,13 @@ def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
     process group and returns [rank 0's result, rank 1's, ...] (each
     pickled back). ``device`` (default cuda; raises without a card) is the
     device type the ranks compute on. Raises RankError (every failed
-    rank's traceback) when a rank raises or dies, TimeoutError when the
-    ranks have not all returned within ``timeout_s``; either way every rank
-    is stopped first."""
+    rank's traceback, or its exit code, or that it was stopped) when a rank
+    raises or dies, TimeoutError when the ranks have not all returned
+    within ``timeout_s``; either way every rank is stopped first. After a
+    failure the ranks still running get ``_GRACE_S`` seconds from the close
+    of the settle window to end by themselves, each one that does then
+    named with its exit code or traceback, and each one that does not named
+    as stopped."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(device)
@@ -109,6 +125,7 @@ def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
     errors: dict = {}            # rank → what went wrong
     exited: dict = {}            # rank → when it was first seen gone
     settle = None                # after a failure: when to stop collecting
+    first_error = None           # when the first failure was seen
     deadline = time.monotonic() + timeout_s
 
     def take(rank, ok, payload):
@@ -141,24 +158,39 @@ def spawn_ranks(fn: Callable, world_size: int, *, backend: str, device=None,
                         errors[r] = (f"died with exit code {p.exitcode} and "
                                      "no result")
                         settle = settle or now + _FLUSH_S
+                        first_error = first_error or now
                 continue
             take(rank, ok, payload)
             if not ok:
                 # the others' errors follow (a peer that lost this rank
                 # fails too): collect them for a moment, then report all
-                settle = settle or time.monotonic() + _FLUSH_S
+                now = time.monotonic()
+                settle = settle or now + _FLUSH_S
+                first_error = first_error or now
         if errors:
-            # the window closed: what the pipe still holds, then every
-            # rank gone by now without a result, though its exit came too
-            # late in the window to pass the flush wait above
-            with contextlib.suppress(queue.Empty):
-                while True:
-                    take(*results.get(timeout=0.05))
+            # the window closed: the ranks still running get a grace to end
+            # by themselves, the pipe read meanwhile (a rank that put a
+            # result cannot exit before the pipe has taken it); then every
+            # rank gone without a result is named with its exit code, and
+            # every one still running as stopped
+            stop = time.monotonic() + _GRACE_S
+            while True:
+                running = [r for r, p in enumerate(procs) if r not in out
+                           and r not in errors and p.exitcode is None]
+                with contextlib.suppress(queue.Empty):
+                    while True:
+                        take(*results.get(timeout=0.05))
+                if not running or time.monotonic() >= stop:
+                    break
             for r, p in enumerate(procs):
-                if r not in out and r not in errors \
-                        and p.exitcode is not None:
-                    errors[r] = (f"died with exit code {p.exitcode} and no "
-                                 "result")
+                if r in out or r in errors:
+                    continue
+                errors[r] = (
+                    f"died with exit code {p.exitcode} and no result"
+                    if p.exitcode is not None else
+                    "stopped by the launcher, still running "
+                    f"{time.monotonic() - first_error:.1f} s after the "
+                    "first error")
             raise RankError("\n".join(f"rank {r} {e}"
                                       for r, e in sorted(errors.items())))
     finally:

@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
 """One of chip_smoke.py's training head-dim phases alone, on one GPU: phase
-21 (head dims 96 and 80 in training) or phase 23 (head dim 256 in
-training).
+21 (head dims 96 and 80 in training), phase 23 (head dim 256 in training)
+or phase 25 (head dim 100 in training).
 
-    python3 hack/torch_train_mid_heads_phase.py [--phase 21|23] [--json PATH]
+    python3 hack/torch_train_mid_heads_phase.py [--phase 21|23|25] \
+        [--json PATH]
 
 Builds the kernels (printing each source's nvcc seconds) and prints
 ptxas's registers and spills and the HGMMA count of the phase's
-tensor-core instances of the backward and triangle kernels (phase 23 also
-every instance of flash_bwd_wide.cu and flash_tri_wide.cu, the f32 ones
+tensor-core instances of the backward and triangle kernels (phases 23 and
+25 also every instance of their two sources, flash_bwd_wide.cu and
+flash_tri_wide.cu or flash_bwd_pad.cu and flash_tri_pad.cu, the f32 ones
 too), then runs chip_smoke.py's functions of the phase in its order:
 #6/#7 (with #1's forward) and #3/#8/#9 at the phase's heads (21:
 Phi-3-mini's 32/32 heads of 96 and H2O-Danube-1.8B's 32/8 of 80; 23:
-Gemma-2B's 8/1 of 256, #6/#7 also at 16/8) against their plain versions,
-the triangle through the wrapper with the budget lowered, and the bf16
-calls timed (``phase_train_kernels`` with ``MID_TRAIN_SPECS`` or
-``WIDE_TRAIN_SPECS``), the widths at 2 layers flash against dense over
-three f32 train steps (``phase_mid_train_exact``,
-``phase_wide_train_exact``), then the bf16 training paths and the
-triangular=True passes with their launches (``phase_mid_train``,
-``phase_wide_train``). Prints each step's seconds; with ``--json`` also
+Gemma-2B's 8/1 of 256, #6/#7 also at 16/8; 25: OpenLLaMA-3B's 32/32 of
+100, #6/#7 also at 16/8) against their plain versions, the triangle
+through the wrapper with the budget lowered, and the bf16 calls timed
+(``phase_train_kernels`` with ``MID_TRAIN_SPECS``, ``WIDE_TRAIN_SPECS``
+or ``PAD_TRAIN_SPECS``; at 25 then ``pad_train_stores``, the five entries'
+outputs against the sentinel), the widths at 2 layers flash against dense
+over three f32 train steps (``phase_mid_train_exact``,
+``phase_wide_train_exact``, ``phase_pad_train_exact``), then the bf16
+training paths and the triangular=True passes with their launches
+(``phase_mid_train``, ``phase_wide_train``, ``phase_pad_train``). Prints each step's seconds; with ``--json`` also
 writes the rows, the launches and the report there. Exits non-zero on any
 failed check, as chip_smoke.py does. Imports nothing of JAX.
 """
@@ -37,7 +41,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=(21, 23), default=21)
+    ap.add_argument("--phase", type=int, choices=(21, 23, 25), default=21)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
@@ -58,26 +62,31 @@ def main() -> None:
     logs = _cuda.build()
     print(f"build {time.perf_counter() - t0:.1f} s, a source "
           f"{json.dumps(_cuda.BUILD_SECONDS)}", flush=True)
-    wide = args.phase == 23
-    if wide:
-        for name in ("flash_bwd_wide", "flash_tri_wide"):
-            for fn, info in cs.ptxas_info(logs.get(name, "")).items():
-                print(f"  {name}: {fn}: {info}", flush=True)
-    tc = cs.tc_build_report(_cuda, logs, cs.train_tc_kernels(
-        _cuda, cs.WIDE_HEADS if wide else cs.MID_HEADS))
+    # the phase's heads, #6-#9 specs, exact and training functions, and the
+    # sources whose every instance is printed
+    heads, specs, exact_fn, train_fn, sources = {
+        21: (cs.MID_HEADS, cs.MID_TRAIN_SPECS, cs.phase_mid_train_exact,
+             cs.phase_mid_train, ()),
+        23: (cs.WIDE_HEADS, cs.WIDE_TRAIN_SPECS, cs.phase_wide_train_exact,
+             cs.phase_wide_train, ("flash_bwd_wide", "flash_tri_wide")),
+        25: (cs.PAD_HEADS, cs.PAD_TRAIN_SPECS, cs.phase_pad_train_exact,
+             cs.phase_pad_train, ("flash_bwd_pad", "flash_tri_pad"))}[
+                 args.phase]
+    for name in sources:
+        for fn, info in cs.ptxas_info(logs.get(name, "")).items():
+            print(f"  {name}: {fn}: {info}", flush=True)
+    tc = cs.tc_build_report(_cuda, logs, cs.train_tc_kernels(_cuda, heads))
     t = t0 = time.perf_counter()
-    fwd, rows, _ = cs.phase_train_kernels(
-        torch, tfa, _cuda, dev,
-        cs.WIDE_TRAIN_SPECS if wide else cs.MID_TRAIN_SPECS)
+    fwd, rows, _ = cs.phase_train_kernels(torch, tfa, _cuda, dev, specs)
+    stores = (cs.pad_train_stores(torch, tfa, dev, 100, 8, 4, cs.SEED + 141)
+              if args.phase == 25 else {})
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    exact = (cs.phase_wide_train_exact if wide else cs.phase_mid_train_exact)(
-        torch, tl, tm, tt, dev)
+    exact = exact_fn(torch, tl, tm, tt, dev)
     print(f"exact {time.perf_counter() - t:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    by_dim, report = (cs.phase_wide_train if wide else cs.phase_mid_train)(
-        torch, tl, tt, tfa, dev)
+    by_dim, report = train_fn(torch, tl, tt, tfa, dev)
     print(f"training paths {time.perf_counter() - t:.1f} s; phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for r in rows:
@@ -86,12 +95,15 @@ def main() -> None:
         r["launches"] = paths[f"d{D}_long" if name.endswith("_tri")
                               else f"d{D}_train"][name]
         r.update(tc.get(r["name"], {}))
+        if name in stores:
+            r["at_sentinel_stores"] = stores[name]
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"tc": tc, "build_seconds": _cuda.BUILD_SECONDS,
              "fwd_at_train_shape": fwd, "rows": rows, "launches": by_dim,
-             "report": report, "exact": exact}, default=str))
+             "report": report, "exact": exact, "stores": stores},
+            default=str))
     print(json.dumps({"kernels": rows}))
     print(f"phase {args.phase} ok")
 

@@ -15,7 +15,9 @@
 // only, copied in 8-byte pieces into D = 128's swizzled tile (load_tile<100>)
 // over shared memory filled with NaN first, the pad zeroed from column 100
 // (zero_pad<100>), then s = A B^T in 7 k-steps (the last over columns
-// 96..111, a quarter real) and o = bf16(s) V over both atoms, o's columns
+// 96..111, a quarter real), o = bf16(s) V and g = bf16(s) B over both
+// atoms (B, a K-major operand of s, read MN-major: the backward's dQ += dS
+// K, and dK += dS^T Q with the roles swapped), o's and g's columns
 // 100..127 written too (zero when the pad is).
 // Built and checked against torch.matmul by hack/torch_wgmma_check.py.
 #include <cuda_runtime.h>
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(wg::THREADS)
 __global__ void __launch_bounds__(wg::THREADS)
     wgmma_check_pad_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
                            const __nv_bfloat16* v, long long ld, int rows, float* s_out,
-                           float* o_out) {
+                           float* o_out, float* g_out) {
   extern __shared__ unsigned char smem[];
   constexpr int D = 100, TILE = wg::tile_bytes<D>();
   const uint32_t sa = (wg::smem_addr(smem) + wg::ALIGN - 1) & ~(wg::ALIGN - 1);
@@ -109,7 +111,7 @@ __global__ void __launch_bounds__(wg::THREADS)
   wg::fence_smem_to_async();
   __syncthreads();
 
-  float s[32] = {}, o[64] = {};
+  float s[32] = {}, o[64] = {}, g[64] = {};
   wg::fence();
 #pragma unroll
   for (int kk = 0; kk < (D + 15) / 16; ++kk)
@@ -123,30 +125,37 @@ __global__ void __launch_bounds__(wg::THREADS)
   wg::fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wg::mma_m64n128k16_rs<1>(o, p[kk], wg::desc_mnmajor(sv, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n128k16_rs<1>(g, p[kk], wg::desc_mnmajor(sb, kk), 1);
   wg::commit();
   wg::wait<0>();
   wg::fence_regs(o);
+  wg::fence_regs(g);
   const int row = wg::frag_row(threadIdx.x), col = wg::frag_col(threadIdx.x);
 #pragma unroll
   for (int e = 0; e < 32; ++e) s_out[(row + wg::elem_row(e)) * 64 + col + wg::elem_col(e)] = s[e];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) o_out[(row + wg::elem_row(e)) * 128 + col + wg::elem_col(e)] = o[e];
+  for (int e = 0; e < 64; ++e) {
+    o_out[(row + wg::elem_row(e)) * 128 + col + wg::elem_col(e)] = o[e];
+    g_out[(row + wg::elem_row(e)) * 128 + col + wg::elem_col(e)] = g[e];
+  }
 }
 
 }  // namespace
 
 // a, b, v: 64 rows of 100 bf16 on the card, `ld` elements apart (8-byte
-// aligned); s_out [64][64], o_out [64][128] f32. Returns cudaGetLastError()
-// after the launch.
+// aligned); s_out [64][64], o_out, g_out [64][128] f32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int wgmma_check_pad(const void* a, const void* b, const void* v, long long ld,
-                               int rows, float* s_out, float* o_out, void* stream) {
+                               int rows, float* s_out, float* o_out, float* g_out,
+                               void* stream) {
   const int smem = 3 * wg::tile_bytes<100>() + wg::ALIGN;
   cudaError_t e = cudaFuncSetAttribute(wgmma_check_pad_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   wgmma_check_pad_kernel<<<1, wg::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const __nv_bfloat16*>(v), ld, rows, s_out, o_out);
+      static_cast<const __nv_bfloat16*>(v), ld, rows, s_out, o_out, g_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,8 +15,9 @@ register-A products at head dim 256); then the pieces of head dim 100
 (``wgmma_check_pad``): 64 x 100 tiles whose rows start on 8-byte
 boundaries only (a buffer offset by 4 values), copied in 8-byte pieces
 over shared memory filled with NaN, the pad zeroed from column 100, s =
-A Bᵀ in 7 k-steps and o = bf16(s) V, whose columns 100..127 must be 0
-exactly. Each
+A Bᵀ in 7 k-steps, o = bf16(s) V and g = bf16(s) B (B read MN-major: the
+backward's dS K, Pᵀ dO and dSᵀ Q at head dim 100), whose columns 100..127
+must be 0 exactly. Each
 is held against the same product in f32 by torch.matmul on the card
 (relative to its largest value, 1e-5: the inputs are exact in bf16 and the
 products sum in f32; o and g take the kernel's s rounded to bf16). A wrong descriptor, swizzle or fragment map gives
@@ -94,7 +95,7 @@ def main() -> int:
                           "ok": not miss}))
     pad = lib.wgmma_check_pad
     pad.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] \
-        + [ctypes.c_void_p] * 3
+        + [ctypes.c_void_p] * 4
     pad.restype = ctypes.c_int
     for rows in (64, 50):
         D = 100
@@ -103,9 +104,10 @@ def main() -> int:
         a, b, v = (buf[i, 4:].view(64, D) for i in range(3))
         assert a.data_ptr() % 16 == 8
         s = torch.empty(64, 64, device=dev)
-        o = torch.empty(64, 128, device=dev)
+        o, gg = torch.empty(64, 128, device=dev), torch.empty(64, 128,
+                                                              device=dev)
         rc = pad(a.data_ptr(), b.data_ptr(), v.data_ptr(), D, rows,
-                 s.data_ptr(), o.data_ptr(),
+                 s.data_ptr(), o.data_ptr(), gg.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if rc != 0:
@@ -119,8 +121,9 @@ def main() -> int:
         p = s.to(torch.bfloat16).float()
         errs = {n: ((got - want).abs().max() / want.abs().max()).item()
                 for n, got, want in (("s_d100", s, s_ref),
-                                     ("o_d100", o[:, :D], p @ vf))}
-        pad_zero = bool((o[:, D:] == 0).all())
+                                     ("o_d100", o[:, :D], p @ vf),
+                                     ("g_d100", gg[:, :D], p @ bf))}
+        pad_zero = bool((o[:, D:] == 0).all() and (gg[:, D:] == 0).all())
         miss = {n: e for n, e in errs.items() if not e <= TOL}
         ok &= not miss and pad_zero
         print(json.dumps({"rows": rows, "head_dim": D, "rel_err": errs,

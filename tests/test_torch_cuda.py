@@ -18,18 +18,19 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
-96, 128 and 256 (HEAD_DIMS), and the serving kernels at 100 too
-(SERVE_HEAD_DIMS): the forward, cached and decode kernels at each, the
-backward and triangle kernels at 128 and in the ``*_at_head_dim_64``,
-``*_at_head_dims_32_and_16``, ``*_at_head_dims_96_and_80`` and
-``*_at_head_dim_256`` tests, and autograd through them at 80 and 96
+96, 128, 256 and 100 (HEAD_DIMS): the forward, cached and decode kernels
+at each, the backward and triangle kernels at 128 and in the
+``*_at_head_dim_64``, ``*_at_head_dims_32_and_16``,
+``*_at_head_dims_96_and_80``, ``*_at_head_dim_256`` and
+``*_at_head_dim_100`` tests, and autograd through them at 80 and 96
 (``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses a
-training call at head dim 100, which the backward and triangle kernels do
-not take, before any launch) and at 256
+training call at head dim 36, a row cut mid-chunk that no source builds,
+before any launch), at 256
 (``test_head_dim_256_serves_and_refuses_training``, which refuses head
-dim 192, a multiple of 16 past 128 that no source builds); at 100
-``test_head_dim_100_serves_and_refuses_training`` holds every serving
-kernel's stores inside the head's 100 columns (chip_smoke.pad_stores).
+dim 192, a multiple of 16 past 128 that no source builds) and at 100
+(``test_head_dim_100_serves_and_refuses_training``, whose name is from
+when 100 only served), where every entry's stores stay inside the head's
+100 columns (chip_smoke.pad_stores, chip_smoke.pad_train_stores).
 """
 
 import ctypes
@@ -53,14 +54,12 @@ from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 from gpu_provisioner_tpu_torch.parallel import jobs, launch
 
 # the split decode schedule's edge cases, as chip_smoke.py runs them, and
-# its sentinel check of the head-dim-100 stores
-from chip_smoke import DECODE_SPLIT_CASES, pad_stores
+# its sentinel checks of the head-dim-100 stores
+from chip_smoke import DECODE_SPLIT_CASES, pad_stores, pad_train_stores
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the head dims of every kernel, and those of the serving kernels
-# (forward, cached, decode) alone
-HEAD_DIMS = [16, 32, 64, 80, 96, 128, 256]
-SERVE_HEAD_DIMS = HEAD_DIMS + [100]
+# the head dims of every kernel
+HEAD_DIMS = [16, 32, 64, 80, 96, 128, 256, 100]
 
 
 @pytest.fixture
@@ -105,7 +104,7 @@ def _q_view(g, B, S, Hq, extra, dtype, dev, D=128):
         (B, S, Hq, D), (S * row, row, D, 1))
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", FWD_CASES)
 @pytest.mark.parametrize("layout", ["contiguous", "strided", "misaligned"])
@@ -166,7 +165,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,start,pads,int8,window,sinks", CASES)
 def test_cache_kernels_match_plain(dev, dtype, B, S, start, pads, int8,
@@ -210,7 +209,7 @@ def _cache_inputs(g, dev, dtype, B, S, ML, int8, pads, Hq=32, Hkv=8,
     return q, kc, vc, kw
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", DECODE_SPLIT_CASES)
@@ -238,7 +237,7 @@ def test_decode_split_schedule_matches_plain(dev, dtype, int8, B, S, start,
     assert _err(got, ref) < TOL[dtype]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("splits", [1, 3, 32])
 def test_decode_takes_any_split_count(dev, monkeypatch, splits, D):
     """The same decode at a forced split count: one split (the kernel
@@ -292,7 +291,7 @@ INT8_FWD_CASES = [(1, 128, 0, [40], None, 0), (2, 256, 300, [0, 100], None, 0),
                   (2, 100, [300, 1200], [5, 0], 512, 3)]
 
 
-@pytest.mark.parametrize("D", SERVE_HEAD_DIMS)
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("B,S,start,pads,window,sinks", INT8_FWD_CASES)
 def test_int8_cache_prefill_on_the_tensor_cores_matches_plain(
         dev, B, S, start, pads, window, sinks, D):
@@ -409,8 +408,8 @@ def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
     in bf16), and so does a training call: autograd through
     flash_attention, rectangular and with triangular=True, launches the
     forward and both backward kernels (their triangle twins), within 1e-2
-    of the plain gradients; at head dim 100 (which the backward and
-    triangle kernels do not take) a forward that requires grad,
+    of the plain gradients; at head dim 36 (a row cut mid-chunk, 4 mod 8
+    as 100 is, which no source builds) a forward that requires grad,
     triangular=True and the backward (rectangular and triangle) raise
     ValueError naming it before any launch."""
     g = torch.Generator(dev).manual_seed(17)
@@ -437,7 +436,7 @@ def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
             "flash_fwd": 1, **dict.fromkeys(bwd, 1)}
         for a, b in zip(got, want):
             assert _rel(a, b) < TOL[torch.bfloat16]
-    q, k, v = (_randn(g, 1, 256, h, 100, dtype=torch.bfloat16, dev=dev)
+    q, k, v = (_randn(g, 1, 256, h, 36, dtype=torch.bfloat16, dev=dev)
                for h in (4, 2, 2))
     lse = torch.zeros(1, 4, 256, device=dev)
     tfa.reset_launches()
@@ -446,7 +445,7 @@ def test_head_dims_80_and_96_serve_and_refuse_training(dev, D):
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
                lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
                                                triangular=True)):
-        with pytest.raises(ValueError, match="head dim 100"):
+        with pytest.raises(ValueError, match="head dim 36"):
             fn()
     assert not any(tfa.LAUNCHES.values())
 
@@ -526,12 +525,15 @@ def test_head_dim_100_serves_and_refuses_training(dev):
     the serving kernels run: the self-attention forward under no_grad (one
     flash_fwd launch), a cached prefill and decode steps (S = 1 and 5) on a
     cache of the act dtype and on an int8 one, each within its dtype's
-    tolerance of the plain version (lse within 1e-4), in bf16 and f32;
+    tolerance of the plain version (lse within 1e-4), in bf16 and f32; and
+    so does a training call (the name is from when 100 only served):
+    autograd through flash_attention, rectangular and with
+    triangular=True, launches the forward and both backward kernels (their
+    triangle twins), within its dtype's tolerance of the plain gradients;
     every entry's stores stay inside the head's 100 columns (each launched
-    with its output a view of rows 128 wide filled with a sentinel:
-    chip_smoke.pad_stores); a training call (a forward that requires grad,
-    triangular=True, the backward rectangular and triangle) raises
-    ValueError naming head dim 100 before any launch."""
+    with its output, or each of its outputs, a view of rows 128 wide filled
+    with a sentinel: chip_smoke.pad_stores for the serving entries,
+    chip_smoke.pad_train_stores for the backward and triangle ones)."""
     g = torch.Generator(dev).manual_seed(20)
     D, ML = 100, 1024
     for dtype in (torch.bfloat16, torch.float32):
@@ -548,6 +550,20 @@ def test_head_dim_100_serves_and_refuses_training(dev):
             assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
                 "flash_fwd": 1}
             assert _err(out, ref) < TOL[dtype] and _err(lse, ref_lse) < 1e-4
+            dout = _randn(g, 2, 256, Hq, D, dtype=dtype, dev=dev)
+            want = tfa.attention_bwd_plain(q, k, v, ref, ref_lse, dout)
+            for triangular, bwd in (
+                    (False, ("flash_bwd_dq", "flash_bwd_dkv")),
+                    (True, ("flash_bwd_dq_tri", "flash_bwd_dkv_tri"))):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                tfa.reset_launches()
+                got = torch.autograd.grad(tfa.flash_attention(
+                    *leaves, triangular=triangular), leaves, dout)
+                torch.cuda.synchronize()
+                assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+                    "flash_fwd": 1, **dict.fromkeys(bwd, 1)}
+                for a, b in zip(got, want):
+                    assert _rel(a, b) < TOL[dtype]
             st = torch.tensor([700, 333], dtype=torch.int32, device=dev)
             for int8 in (False, True):
                 qc, kc, vc, kw = _cache_inputs(g, dev, dtype, 2, 128, ML,
@@ -569,18 +585,9 @@ def test_head_dim_100_serves_and_refuses_training(dev):
     stores = pad_stores(torch, tfa, td, dev, D, 8, 4, 21)
     assert set(stores) == {"flash_fwd", "flash_cached", "flash_cached_int8",
                            "flash_decode", "flash_decode_int8"}
-    q, k, v = (_randn(g, 1, 256, h, D, dtype=torch.bfloat16, dev=dev)
-               for h in (8, 4, 4))
-    lse = torch.zeros(1, 8, 256, device=dev)
-    tfa.reset_launches()
-    for fn in (lambda: tfa.flash_attention(q.clone().requires_grad_(), k, v),
-               lambda: tfa.flash_attention(q, k, v, triangular=True),
-               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
-               lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
-                                               triangular=True)):
-        with pytest.raises(ValueError, match="head dim 100"):
-            fn()
-    assert not any(tfa.LAUNCHES.values())
+    stores = pad_train_stores(torch, tfa, dev, D, 8, 4, 22)
+    assert set(stores) == {"flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
+                           "flash_bwd_dq_tri", "flash_bwd_dkv_tri"}
 
 
 def test_engine_streams_equal_generate_on_the_card(dev):
@@ -859,6 +866,24 @@ def test_flash_bwd_matches_plain_at_head_dim_256(dev, dtype, B, S, Hq, Hkv,
     _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 256, 13)
 
 
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dim 100: OpenLLaMA-3B's
+# MHA causal and not, GQA 8/4 with a window of 100, ragged S at GQA 4/1
+BWD_PAD_CASES = [(1, 512, 8, 8, True, None), (1, 512, 8, 8, False, None),
+                 (2, 256, 8, 4, True, 100), (1, 333, 4, 1, True, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_PAD_CASES)
+def test_flash_bwd_matches_plain_at_head_dim_100(dev, dtype, B, S, Hq, Hkv,
+                                                 causal, window):
+    """flash_bwd_dq and flash_bwd_dkv at head dim 100 (bf16: D = 128's two
+    atoms, rows copied in 8-byte pieces, the pad zeroed from column 100, S
+    and dP in 7 k-steps, the stores cut at column 100; f32: a lane's 13th
+    column) against attention_bwd_plain, with an lse cotangent, from the
+    plain forward's out and lse."""
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 100, 14)
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 def test_backward_takes_a_cotangent_through_torch_cat(dev, triangular):
     """flash_attention's bf16 output through torch.cat beside a 12-wide
@@ -1131,6 +1156,17 @@ def test_tri_kernels_match_plain_at_head_dim_256(dev, dtype, B, S, Hq, Hkv,
     partials the half's 128 columns, dQ's both halves; f32: dQ's key tiles
     as two of 32 keys) at TRI_CASES."""
     _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 256, 19)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dim_100(dev, dtype, B, S, Hq, Hkv,
+                                                 cot):
+    """The three tri kernels at head dim 100 (bf16: D = 128's two atoms,
+    rows copied in 8-byte pieces, the pad zeroed once a CTA from column
+    100; the stores and the cut rows' partials 100 columns) at
+    TRI_CASES."""
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 100, 20)
 
 
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):

@@ -112,17 +112,17 @@ def _rel(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
-# the forward and dQ replays at head dims 64 and 128, 80 and 96 (the D =
-# 128 tile partly filled: the same arithmetic on the first D columns) and
-# 256 (the outputs' column halves: each CTA the same arithmetic on its
+# the forward and dQ replays at head dims 64 and 128, 80, 96 and 100 (the
+# D = 128 tile partly filled: the same arithmetic on the first D columns)
+# and 256 (the outputs' column halves: each CTA the same arithmetic on its
 # columns, the scores over the whole D)
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
              pytest.param(80, id="d80"), pytest.param(96, id="d96"),
-             pytest.param(256, id="d256")]
+             pytest.param(256, id="d256"), pytest.param(100, id="d100")]
 # the forward-only replays also at 32 and 16 (the D = 64 tile partly
-# filled) and at 100 (the serving kernels' D = 128 tile partly filled)
+# filled)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
-                 *HEAD_DIMS, pytest.param(100, id="d100")]
+                 *HEAD_DIMS]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -488,8 +488,8 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
     so do 80 and 96 (test_head_dims_80_and_96_reach_the_serving_
     kernels_alone, every kernel's), 256
     (test_head_dim_256_reaches_the_serving_kernels_alone, every kernel's)
-    and 100, the serving kernels' alone
-    (test_head_dim_100_reaches_the_serving_kernels_alone)."""
+    and 100 (test_head_dim_100_reaches_the_serving_kernels_alone, every
+    kernel's)."""
     S, Hq, Hkv, ML = 128, 4, 2, 256
     q, k, v = _bf16(43, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
     kc, vc = _bf16(44, (1, Hkv, ML, D), (1, Hkv, ML, D))
@@ -513,7 +513,7 @@ def test_other_head_dims_are_refused_by_every_kernel(launches, no_build, D):
         "flash_bwd_dkv_tri": [lambda: tfa._launch_tri(
             "flash_bwd_dkv_tri", q, k, v, scale=1.0, dout=q, lse=lse,
             delta=lse)]}
-    assert D not in tfa._SERVE_HEAD_DIMS
+    assert D not in tfa._HEAD_DIMS
     with torch.no_grad():
         for kernel, fns in calls.items():
             for fn in fns:
@@ -770,18 +770,24 @@ def test_head_dims_32_and_16_reach_the_backward_and_triangle_kernels(
 def test_head_dim_100_reaches_the_serving_kernels_alone(launches, no_build,
                                                         tri_grid):
     """At head dim 100 (OpenLLaMA-3B's 32/32 heads; here MHA 4/4 and GQA
-    4/2) the serving kernels alone: flash_attention_with_lse and
-    flash_attention under no_grad, flash_attention_cached on a bf16 and an
-    int8 cache, and flash_attention_decode on both (S = 1 and 5) reach
-    their launches with D = 100 and the C entries of csrc/flash_fwd_pad.cu
-    and csrc/flash_decode_pad.cu, the contiguous inputs as they are (rows of
-    200 and 100 bytes: 8- and 4-byte pieces); a training call (a forward
-    whose input requires grad, triangular=True, the backward rectangular
-    and triangle, each triangle entry) raises a ValueError naming head dim
-    100 before any library is built or any launch."""
+    4/2) every kernel (the name is from when only the serving kernels took
+    it): flash_attention_with_lse and flash_attention under no_grad,
+    flash_attention_cached on a bf16 and an int8 cache, and
+    flash_attention_decode on both (S = 1 and 5) reach their launches with
+    D = 100 and the C entries of csrc/flash_fwd_pad.cu and
+    csrc/flash_decode_pad.cu, the contiguous inputs as they are (rows of
+    200 and 100 bytes: 8- and 4-byte pieces); a self-attention whose input
+    requires grad then reaches the dQ and dK/dV launches through autograd
+    (their triangle twins with triangular=True, which ask the tri grid for
+    head dim 100), each at the C entry <kernel>_pad of
+    csrc/flash_bwd_pad.cu or csrc/flash_tri_pad.cu, with the contiguous
+    inputs and cotangent as they are; and _launch_tri reaches all three
+    triangle entries with the grid and workspace asked for head dim 100; no
+    library built and no plain fallback."""
     D, S, ML = 100, 128, 256
     for Hq, Hkv in ((4, 4), (4, 2)):
         launches.clear()
+        tri_grid.clear()
         q, k, v = _bf16(52, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
         kc, vc = _bf16(53, (1, Hkv, ML, D), (1, Hkv, ML, D))
         (k8, ks), (v8, vs) = td._quantize_kv(kc), td._quantize_kv(vc)
@@ -807,46 +813,63 @@ def test_head_dim_100_reaches_the_serving_kernels_alone(launches, no_build,
         assert (c8.k, c8.v, d.k, d8.k) == (k8.data_ptr(), v8.data_ptr(),
                                            kc.data_ptr(), k8.data_ptr())
         assert (d.Sq, d8.Sq) == (1, 5)
-    for kernel in ("flash_fwd", "flash_decode"):
-        assert _cuda.ENTRIES[kernel + "_pad"][0] == kernel + "_pad"
+
+        for triangular in (False, True):
+            launches.clear()
+            qg = q.clone().requires_grad_()
+            out = tfa.flash_attention(qg, k, v, triangular=triangular)
+            g = _bf16(58, (1, S, Hq, D))[0]
+            out.backward(g)
+            bwd = (["flash_bwd_dq_tri", "flash_bwd_dkv_tri"] if triangular
+                   else ["flash_bwd_dq", "flash_bwd_dkv"])
+            assert [(kernel, a.D, a.act_dtype, a.Hq, a.Hkv)
+                    for kernel, a in launches] == [
+                ("flash_fwd", D, 1, Hq, Hkv)] + [
+                (kernel, D, 1, Hq, Hkv) for kernel in bwd]
+            assert [_cuda.entry(kernel, D) for kernel, _ in launches] == [
+                kernel + "_pad" for kernel, _ in launches]
+            for _, a in launches[1:]:
+                assert (a.k, a.v) == (k.data_ptr(), v.data_ptr())
+                assert (a.do_ss, a.do_sh, a.k_ss) == (Hq * D, D, Hkv * D)
+            assert qg.grad is not None and qg.grad.shape == q.shape
+        assert tri_grid == [(kernel, D) for kernel in
+                            ("flash_bwd_dq_tri", "flash_bwd_dkv_tri")]
+    for kernel in ("flash_fwd", "flash_decode", "flash_bwd_dq",
+                   "flash_bwd_dkv"):
+        assert _cuda.ENTRIES[kernel + "_pad"][0] == (
+            kernel + "_pad" if kernel in ("flash_fwd", "flash_decode")
+            else "flash_bwd_pad")
         assert _cuda.entry(kernel, 96) == kernel + "_mid"
         assert _cuda.entry(kernel, 128) == kernel
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri"):
-        assert _cuda.entry(kernel, D) == kernel
 
     launches.clear()
+    tri_grid.clear()
     lse = torch.zeros(1, Hq, S)
-    qg = q.clone().requires_grad_()
-    kw = dict(scale=D ** -0.5, dout=q, lse=lse, delta=lse)
-    for fn, match in (
-            (lambda: tfa.flash_attention(qg, k, v), "the backward kernels"),
-            (lambda: tfa.flash_attention_with_lse(
-                q, k, v, triangular=True), "the triangle kernels"),
-            (lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q),
-             "flash_bwd_dq takes"),
-            (lambda: tfa.flash_attention_bwd(q, k, v, q, lse, q,
-                                             triangular=True),
-             "flash_bwd_dq_tri takes"),
-            (lambda: tfa._launch_bwd("flash_bwd_dkv", q, k, v, q, lse, lse,
-                                     causal=True, scale=1.0),
-             "flash_bwd_dkv takes"),
-            (lambda: tfa._launch_tri("flash_fwd_tri", q, k, v, scale=1.0),
-             "flash_fwd_tri takes"),
-            (lambda: tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw),
-             "flash_bwd_dkv_tri takes")):
-        with pytest.raises(ValueError, match=f"head dim {D}: {match}"):
-            fn()
-    assert launches == [] and tri_grid == []
-    assert qg.grad is None
+    with torch.no_grad():
+        tfa._launch_tri("flash_fwd_tri", q, k, v, scale=D ** -0.5)
+        kw = dict(scale=D ** -0.5, dout=q, lse=lse, delta=lse)
+        tfa._launch_tri("flash_bwd_dq_tri", q, k, v, **kw)
+        tfa._launch_tri("flash_bwd_dkv_tri", q, k, v, **kw)
+    entries = ["flash_fwd_tri", "flash_bwd_dq_tri", "flash_bwd_dkv_tri"]
+    assert [kernel for kernel, _ in launches] == entries
+    assert tri_grid == [(kernel, D) for kernel in entries]
+    for kernel, a in launches:
+        assert (a.D, a.act_dtype, a.ctas) == (D, 1, 264)
+        assert a.ws_floats == 264 * 4 * 64 * D
+        assert (a.q, a.k, a.v) == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert _cuda.entry(kernel, D) == kernel + "_pad"
+        assert _cuda.ENTRIES[kernel + "_pad"][0] == "flash_tri_pad"
+        assert _cuda.entry(kernel, 96) == kernel + "_mid"
+        assert _cuda.entry(kernel, 128) == kernel
 
 
 def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
                                                            no_build):
     """The copy width at head dim 100 is 8 bytes in bf16, 4 in int8 and 16
-    in f32 (a row of 200, 100 and 400 bytes), and 16 at every head dim of
-    _HEAD_DIMS. A bf16 q at 100 whose row stride is off the 8-byte width
-    (Hq·100 + 2 values), or whose base is 4 bytes off it, is refused by a
-    direct flash_fwd launch (ValueError naming it) and copied by
+    in f32 (a row of 200, 100 and 400 bytes), and 16 at every other head
+    dim of _HEAD_DIMS. A bf16 q at 100 whose row stride is off the 8-byte
+    width (Hq·100 + 2 values), or whose base is 4 bytes off it, is refused
+    by a direct flash_fwd launch (ValueError naming it) and copied by
     flash_attention_with_lse into aligned storage (_tc_layout); a
     contiguous one, and an int8 and a bf16 layer of the model's cache
     (init_kv_cache), are taken as they are; an int8 cache whose position
@@ -857,6 +880,8 @@ def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
     for dtype, width in rows.items():
         assert tfa._copy_width(torch.zeros(1, 1, 1, D, dtype=dtype)) == width
         for d in tfa._HEAD_DIMS:
+            if d == D:
+                continue
             assert tfa._copy_width(torch.zeros(1, 1, 1, d, dtype=dtype)) == 16
     (k, v) = _bf16(54, (1, S, Hkv, D), (1, S, Hkv, D))
     row = Hq * D + 2
