@@ -185,6 +185,17 @@ def layer_params(params: dict, layer: int) -> dict:
     return {k: v[layer] for k, v in params["blocks"].items()}
 
 
+def layer_list(params: dict) -> list:
+    """Every layer's slice of the stacked blocks (views, no copy), from one
+    ``unbind`` a stacked leaf. Under autograd its backward stacks the
+    layers' gradients once; a layer's ``v[layer]`` would have each layer's
+    backward fill a gradient the size of the whole stack with zeros and
+    add it to the others (L times the stack's bytes, twice)."""
+    blocks = params["blocks"]
+    return [dict(zip(blocks, vals))
+            for vals in zip(*(v.unbind(0) for v in blocks.values()))]
+
+
 def _rmsnorm(x, scale, eps):
     xf = x.float()
     rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
@@ -304,8 +315,9 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(params, tokens, cfg, tp)                          # [B, S, D]
+    layers = layer_list(params)
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
+        lp = layers[layer]
         if cfg.remat:
             x = checkpoint(_block, x, lp, cfg, positions, attn_fn, tp,
                            use_reentrant=False, preserve_rng_state=False)

@@ -16,8 +16,8 @@ differences:
 - ``default_optimizer(leaves, mu_dtype=None)`` takes the leaves (the
   callable-on-leaves convention of ``train_state_from``; pass
   ``functools.partial(default_optimizer, mu_dtype=torch.bfloat16)``). With
-  no ``mu_dtype`` it is ``torch.optim.AdamW`` (foreach); with one it is
-  ``AdamWMu``, which keeps optax's ``scale_by_adam(mu_dtype=)`` order;
+  no ``mu_dtype`` it is ``torch.optim.AdamW`` (a leaf at a time); with one
+  it is ``AdamWMu``, which keeps optax's ``scale_by_adam(mu_dtype=)`` order;
 - on a mesh (``make_mesh``: data, sequence and tensor parallelism over
   ``slice``, ``data``, ``seq`` and ``model``; the batch and the dense
   model are replicated over ``expert``; ``pipe`` > 1 takes the pipelined
@@ -148,9 +148,13 @@ class AdamWMu(torch.optim.Optimizer):
 def default_optimizer(leaves, mu_dtype: Optional[torch.dtype] = None
                       ) -> torch.optim.Optimizer:
     """The one default, optax.adamw(3e-4, weight_decay=0.1, mu_dtype=)'s
-    twin: torch's AdamW without ``mu_dtype``, else ``AdamWMu``."""
+    twin: torch's AdamW without ``mu_dtype``, else ``AdamWMu``. AdamW takes
+    its leaves one at a time (``foreach=False``, the path it takes on the
+    CPU by default): its foreach step holds an f32 temporary the size of
+    every leaf together, 4 bytes a parameter on top of the 16 of the state,
+    where this one holds a leaf's."""
     if mu_dtype is None:
-        return torch.optim.AdamW(leaves, **ADAMW)
+        return torch.optim.AdamW(leaves, foreach=False, **ADAMW)
     return AdamWMu(leaves, mu_dtype, **ADAMW)
 
 

@@ -215,19 +215,20 @@ MID_HEAD_DIMS = (80, 96)
 # csrc/flash_tri_wide.cu): C entry <kernel>_wide, every kernel
 WIDE = MID
 WIDE_HEAD_DIMS = (256,)
-# the kernels whose head dim 100, a row of no whole number of 16-byte chunks,
-# lives in a source of its own (csrc/flash_fwd_pad.cu,
+# the kernels whose head dims 100 and 120, D = 128's tile with a zeroed pad
+# inside its last k-step (at 100 a row of no whole number of 16-byte
+# chunks), live in sources of their own (csrc/flash_fwd_pad.cu,
 # csrc/flash_decode_pad.cu, csrc/flash_bwd_pad.cu, csrc/flash_tri_pad.cu): C
 # entry <kernel>_pad, every kernel
 PAD = MID
-PAD_HEAD_DIMS = (100,)
+PAD_HEAD_DIMS = (100, 120)
 
 
 def entry(kernel: str, head_dim: int) -> str:
     """The C entry that launches ``kernel`` at ``head_dim``: ``kernel``,
     ``kernel + "_narrow"`` for a kernel of NARROW at head dim 32 or 16,
     ``kernel + "_mid"`` for a kernel of MID at head dim 80 or 96,
-    ``kernel + "_pad"`` for a kernel of PAD at head dim 100, or
+    ``kernel + "_pad"`` for a kernel of PAD at head dim 100 or 120, or
     ``kernel + "_wide"`` for a kernel of WIDE at head dim 256."""
     if kernel in MID and head_dim in MID_HEAD_DIMS:
         return f"{kernel}_mid"
@@ -242,8 +243,8 @@ def entry(kernel: str, head_dim: int) -> str:
 def _tri_library(head_dim: int) -> ctypes.CDLL:
     """The library whose flash_tri_ctas / flash_tri_ws_floats answer for
     ``head_dim``: flash_tri_narrow's at 32 and 16, flash_tri_mid's at 80
-    and 96, flash_tri_pad's at 100, flash_tri_wide's at 256, flash_tri's
-    else."""
+    and 96, flash_tri_pad's at 100 and 120, flash_tri_wide's at 256,
+    flash_tri's else."""
     if head_dim in MID_HEAD_DIMS:
         return library("flash_tri_mid")
     if head_dim in PAD_HEAD_DIMS:
@@ -270,7 +271,8 @@ def tri_ctas(entry: str, act_dtype: int, head_dim: int,
     ``device_index`` (the SM count times the blocks of its kernel that fit
     on one SM, from the ``flash_tri_ctas`` of csrc/flash_tri.cu, or of
     flash_tri_narrow.cu at 32 and 16, flash_tri_mid.cu at 80 and 96,
-    flash_tri_pad.cu at 100 and flash_tri_wide.cu at 256), cached."""
+    flash_tri_pad.cu at 100 and 120 and flash_tri_wide.cu at 256),
+    cached."""
     key = (entry, act_dtype, head_dim, device_index)
     if key not in _TRI_CTAS:
         fn = _tri_library(head_dim).flash_tri_ctas

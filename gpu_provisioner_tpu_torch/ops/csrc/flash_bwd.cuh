@@ -20,9 +20,10 @@
 // block, tc::DQ_TC_BLOCKS and tc::DKV_TC_BLOCKS CTAs an SM: two from
 // D = 80 up, one at 256), shared with flash_tri.cuh; the f32 instances are
 // f32 FMA from shared memory, the exactness instances. Every instance takes
-// head dim 16, 32, 64, 80, 96, 100, 128 or 256 (flash_bwd.cu's C entries 16,
-// 32, 64 and 128, flash_bwd_mid.cu's 80 and 96, flash_bwd_pad.cu's 100,
-// flash_bwd_wide.cu's 256; each refuses any other D): at 32
+// head dim 16, 32, 64, 80, 96, 100, 120, 128 or 256 (flash_bwd.cu's C
+// entries 16, 32, 64 and 128, flash_bwd_mid.cu's 80 and 96,
+// flash_bwd_pad.cu's 100 and 120, flash_bwd_wide.cu's 256; each refuses
+// any other D): at 32
 // and 16 (the tiny presets' and the fast bench_engine model's heads) the
 // bf16 tiles are the D = 64 atom partly filled; at 80 and 96
 // (H2O-Danube-1.8B's and Phi-3-mini's heads) D = 128's two atoms, the
@@ -42,7 +43,13 @@
 // last over columns 96..111 of which a quarter is real, and dQ, dK and dV
 // are stored cut at column 100 (tc::store_bf16: the next head's columns
 // follow in a row); the f32 instances give a lane 13 columns, the 13th
-// (96 + lane) lanes 0..3's alone (fa::NCOL, fa::has_col). At 256 (Gemma-2B's 8/1 heads) the bf16 instances take S and dP (S^T
+// (96 + lane) lanes 0..3's alone (fa::NCOL, fa::has_col). At 120
+// (H2O-Danube3-4B's 32/8 heads) the bf16 instances are 80's and 96's, a
+// row exactly 15 chunks: Q, dO, K and V copied as D = 128's 16 chunks a
+// row, the 16th, the pad, zero-filled (wg::load_tile; the dK/dV stage's Q
+// and dO together, 16 a thread), S and dP (S^T and dP^T) in D = 128's 8
+// k-steps, every store 15 whole 8-column groups; the f32 instances 15
+// columns a lane. At 256 (Gemma-2B's 8/1 heads) the bf16 instances take S and dP (S^T
 // and dP^T) over the whole D in 16 k-steps on four-atom tiles, and split
 // the register-A products into column halves of 128, D = 128's m64n128k16
 // into its 64 floats (tc::half_at): dQ keeps both halves in one CTA (two
@@ -239,8 +246,8 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   constexpr int E = tc::E;
   constexpr int DV = tc::out_cols<D>;
   constexpr int HALVES = D / DV;
-  // below D = 64, and at 80, 96 and 100, the chunks past D of K, V and
-  // both Q/dO stages (at 100 from column 100, the upper half of a chunk
+  // below D = 64, and at 80, 96, 100 and 120, the chunks past D of K, V
+  // and both Q/dO stages (at 100 from column 100, the upper half of a chunk
   // whose lower half the copies write), published with the walk's first
   // copies (if constexpr: at D = 64 and 128 even the empty loop moved the
   // compiled kernel's registers)
@@ -292,8 +299,8 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DQ_TC_BLOCKS<D>)
                    a.S);
   wg::load_tile<D>(sdO, static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss,
                    q0, a.S);
-  // below D = 64, and at 80, 96 and 100, the chunks past D of Q, dO and
-  // both K/V stages (at 100 from column 100: never a byte that the Q and dO
+  // below D = 64, and at 80, 96, 100 and 120, the chunks past D of Q, dO
+  // and both K/V stages (at 100 from column 100: never a byte that the Q and dO
   // copies in flight write), published with the first key tile's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);

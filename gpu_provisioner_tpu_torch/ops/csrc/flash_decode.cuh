@@ -50,8 +50,8 @@
 // blocks (64 rows, ~128 operations per byte) want mma.sync or wgmma is
 // left open.
 //
-// Head dim 16, 32, 64, 80, 96, 100, 128 or 256 (the C entries refuse any
-// other D).
+// Head dim 16, 32, 64, 80, 96, 100, 120, 128 or 256 (the C entries refuse
+// any other D).
 // A CTA keeps 128 threads at each: P V splits the block into RH = 128 / D
 // row groups of D threads (1 at D = 128, 2 at 64, 4 at 32, 8 at 16), group
 // g owning rows g, g + RH, ... of the unit and each of its threads one
@@ -77,11 +77,17 @@
 // cache's rows start on 8- or 4-byte boundaries only: the ring copies
 // them in pieces of 8 or 4 bytes (cp.async.ca; an f32 row of 400 bytes
 // stays 16-byte chunks), and the score product reads the row's whole
-// chunks and then its last 4 values alone (Layout::TAIL).
+// chunks and then its last 4 values alone (Layout::TAIL). At D = 120
+// (H2O-Danube3-4B's 32/8 heads of 120; one row group, threads 0..119
+// owning a column) a bf16 row is 240 bytes, 15 whole chunks, and an f32
+// row 480, 30; an int8 row is 120 bytes, 7 chunks and 8 bytes: the ring
+// copies it in pieces of 8 bytes, and the score product reads its 7 whole
+// chunks and then its last 8 values (two float4s of q).
 //
 // This header holds the kernel, its merge and their launch for every head
 // dim; flash_decode.cu's C entry takes 64 and 128, flash_decode_narrow.cu's
-// 32 and 16, flash_decode_mid.cu's 80 and 96, flash_decode_wide.cu's 256,
+// 32 and 16, flash_decode_mid.cu's 80 and 96, flash_decode_pad.cu's 100
+// and 120, flash_decode_wide.cu's 256,
 // so that nvcc processes build
 // the instances side by side (one source for all four of 16..128 took 87 s
 // to build for sm_90a, four times flash_fwd.cu's 20).
@@ -106,7 +112,9 @@ constexpr int MAX_SPLITS = 32;       // ops/flash_attention.py DECODE_MAX_SPLITS
 // row's whole chunks: the 16-byte chunks that eight neighbouring lanes read
 // from eight rows fall in distinct banks; 16 bytes of padding, but 32 for
 // the one-chunk int8 row of D = 16; at D = 100 208 bytes for a bf16 row of
-// 200, 112 for an int8 row of 100, 432 for an f32 row of 400)
+// 200, 112 for an int8 row of 100, 432 for an f32 row of 400; at D = 120
+// 272 for a bf16 row of 240, 144 for an int8 row of 120, 496 for an f32
+// row of 480)
 // plus, for int8, the tile's 64 k and 64 v scales; then Q (f32 [R][D]),
 // the scores / P (f32 [R][BK]), each row's running max, denominator and
 // rescale factor, and each row's query position.
@@ -116,8 +124,10 @@ struct Layout {
   static constexpr int ROW = D * static_cast<int>(sizeof(KT));      // bytes a cached row
   static constexpr int CH = ROW / 16;                                // its whole chunks
   static constexpr int VPC = 16 / static_cast<int>(sizeof(KT));     // values a chunk
-  static constexpr int TAIL = ROW % 16;   // bytes past them: 8 (bf16) or 4 (int8) at D = 100
-  // the ring's copy: 16-byte chunks, or at D = 100 pieces of 8 or 4 bytes
+  // bytes past them: 8 (bf16) or 4 (int8) at D = 100, 8 (int8) at 120
+  static constexpr int TAIL = ROW % 16;
+  // the ring's copy: 16-byte chunks, or at D = 100 pieces of 8 or 4 bytes,
+  // at 120 (int8) of 8
   static constexpr int CP = TAIL == 0 ? 16 : TAIL;
   static constexpr int RB = 16 * ((CH + 1) | 1);
   static constexpr int TILE = BK * RB;
@@ -176,8 +186,8 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&x)[16], int8_t) {
       x[4 * i + b] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
 }
 
-// The 4 values of a row's tail (Layout::TAIL: 8 bytes of bf16, 4 of int8)
-// as f32.
+// The values of a row's tail (Layout::TAIL: 8 bytes of bf16 or 4 of int8
+// at D = 100, 8 of int8 at 120) as f32.
 __device__ __forceinline__ void unpack_tail(const char* p, float (&x)[4], __nv_bfloat16) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   x[0] = __uint_as_float(u.x << 16);
@@ -190,6 +200,16 @@ __device__ __forceinline__ void unpack_tail(const char* p, float (&x)[4], int8_t
   const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
   for (int b = 0; b < 4; ++b) x[b] = static_cast<float>(static_cast<int8_t>((w >> (8 * b)) & 0xffu));
+}
+
+__device__ __forceinline__ void unpack_tail(const char* p, float (&x)[8], int8_t) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      x[4 * i + b] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -221,7 +241,7 @@ template <typename KT, int D, int R>
 __device__ __forceinline__ void load_stage(char* stage, const Src<KT>& s, int j) {
   using Ly = Layout<KT, D, R>;
   const int kv0 = j * BK;
-  if constexpr (Ly::CP != 16) {   // D = 100: pieces of 8 (bf16) or 4 (int8) bytes
+  if constexpr (Ly::CP != 16) {   // pieces of 8 (bf16 at 100, int8 at 120) or 4 (int8 at 100) bytes
     constexpr int P = Ly::ROW / Ly::CP;   // pieces a row
     for (int i = threadIdx.x; i < BK * P; i += THREADS) {
       const int r = i / P, c = i % P;
@@ -282,28 +302,28 @@ __device__ __forceinline__ Live live_tiles(int start, int pad, int first_s, int 
 // two, the split plan's about two an SM (_decode_splits), which leaves
 // ptxas 255 registers; without a bound (-DDECODE_MID_MIN_BLOCKS=0) it
 // spilled in 8 of those 60 instances (hack/torch_ptxas_variants.py
-// flash_decode_mid). The same bound at 100, and at 256, whose two columns
-// a thread hold up to 128 accumulators (R = 64). 0 at the other head dims:
-// no bound, the same SASS as none given.
+// flash_decode_mid). The same bound at 100 and 120, and at 256, whose two
+// columns a thread hold up to 128 accumulators (R = 64). 0 at the other
+// head dims: no bound, the same SASS as none given.
 #ifndef DECODE_MID_MIN_BLOCKS
 #define DECODE_MID_MIN_BLOCKS 2
 #endif
 template <int D>
 constexpr int DECODE_MIN_BLOCKS =
-    D == 80 || D == 96 || D == 100 || D == 256 ? DECODE_MID_MIN_BLOCKS : 0;
+    D == 80 || D == 96 || D == 100 || D == 120 || D == 256 ? DECODE_MID_MIN_BLOCKS : 0;
 
 // One CTA: unit blockIdx.x (= ((b * Hkv + kvh) * row blocks + row block)),
 // share blockIdx.y of its live tiles.
 template <typename T, typename KT, int D, int R>
 __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_kernel(FlashArgs a) {
   // a thread owns one output column of every RH-th row: RH = 1 at D = 128
-  // (and at 80 and 96, where threads D.. own none), 2 at D = 64, 4 at 32, 8
+  // (and at 80, 96, 100 and 120, where threads D.. own none), 2 at D = 64, 4 at 32, 8
   // at 16 (rows t / D, t / D + RH, ...), NA rows; at R < RH the groups t /
   // D >= R own none; at D = 256 RH = 1 and CPT = 2 columns, t and t + 128,
   // of every row
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
-                    D == 256,
-                "head dim 16, 32, 64, 80, 96, 100, 128 or 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 120 ||
+                    D == 128 || D == 256,
+                "head dim 16, 32, 64, 80, 96, 100, 120, 128 or 256");
   constexpr int CPT = D > THREADS ? D / THREADS : 1;
   constexpr int RH = D > THREADS ? 1 : THREADS / D;
   constexpr int NA = (R + RH - 1) / RH;
@@ -412,17 +432,21 @@ __global__ void __launch_bounds__(THREADS, DECODE_MIN_BLOCKS<D>) flash_decode_ke
           }
         }
       }
-      if constexpr (Ly::TAIL != 0) {   // D = 100: the row's last 4 values
-        float kx[4];
+      if constexpr (Ly::TAIL != 0) {   // the row's last TV values: 4 at D = 100, 8 at 120
+        constexpr int TV = Ly::TAIL / static_cast<int>(sizeof(KT));
+        float kx[TV];
         unpack_tail(krow + Ly::CH * 16, kx, KT());
 #pragma unroll
         for (int i2 = 0; i2 < R / 2; ++i2) {
-          const float4 q4 =
-              *reinterpret_cast<const float4*>(sQ + (rsel + 2 * i2) * D + Ly::CH * Ly::VPC);
-          s[i2] = fmaf(q4.x, kx[0], s[i2]);
-          s[i2] = fmaf(q4.y, kx[1], s[i2]);
-          s[i2] = fmaf(q4.z, kx[2], s[i2]);
-          s[i2] = fmaf(q4.w, kx[3], s[i2]);
+#pragma unroll
+          for (int v = 0; v < TV; v += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(sQ + (rsel + 2 * i2) * D +
+                                                               Ly::CH * Ly::VPC + v);
+            s[i2] = fmaf(q4.x, kx[v], s[i2]);
+            s[i2] = fmaf(q4.y, kx[v + 1], s[i2]);
+            s[i2] = fmaf(q4.z, kx[v + 2], s[i2]);
+            s[i2] = fmaf(q4.w, kx[v + 3], s[i2]);
+          }
         }
       }
       const int kp = kv0 + kc;

@@ -47,10 +47,10 @@
 //   - the f32 instances (the exactness instances, f32 or int8 cache)
 //     compute in f32 FMA from shared memory (fa::attend_tiles), int8
 //     dequantised per token there.
-// Every instance takes head dim 16, 32, 64, 80, 96, 100, 128 or 256
+// Every instance takes head dim 16, 32, 64, 80, 96, 100, 120, 128 or 256
 // (flash_fwd.cu's C entry 16, 32, 64 and 128, flash_fwd_mid.cu's 80 and
-// 96, flash_fwd_pad.cu's 100, flash_fwd_wide.cu's 256; each refuses any
-// other D). At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q
+// 96, flash_fwd_pad.cu's 100 and 120, flash_fwd_wide.cu's 256; each
+// refuses any other D). At D = 64 a tensor-core tile is one swizzle atom (8 KB), S = Q
 // K^T takes 4 k-steps, O += P V is m64n64k16 into 32 floats a thread;
 // shared memory is 41 KB (bf16 cache) or 42 KB (int8 cache), so the D = 64
 // instances are built for four CTAs an SM (FWD_TC_BLOCKS: 128 registers a
@@ -90,6 +90,16 @@
 // widened 13 chunks a row. Shared memory 81 KB (bf16 cache) or 78 KB (int8
 // cache), two CTAs an SM. The f32 instances give the thread's 13th column
 // (lane + 96) to lanes 0..3 alone (fa::has_col).
+// At D = 120 (H2O-Danube3-4B's 32/8 heads of 120) a tile is D = 128's two
+// atoms as at 80 and 96, a bf16 row exactly 15 chunks, copied as D = 128's
+// 16 with the 16th, the pad, zero-filled (wg::load_tile,
+// wg::pad_zero_filled), S = Q K^T in D = 128's 8 k-steps, the store 15
+// whole 8-column groups; an int8 row of 120 bytes is copied in 8-byte
+// pieces into stage rows of a 128-byte pitch whose pad is zeroed once
+// (tc::i8_stage, tc::i8_zero_pad) and widened 16 chunks a row, the last
+// from that pad. Shared memory 80 KB
+// (bf16 cache) or 82 KB (int8 cache), two CTAs an SM; the f32 instances 15
+// columns a lane.
 // The persistent causal schedule (one flat list of live tiles in equal
 // shares per CTA, the counterpart of the TPU's _kernel_tri) lives in
 // flash_tri.cuh, behind triangular=True, on the same tile steps. Left for
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(fa::NTHREADS) flash_fwd_kernel(FlashArgs a) {
 }
 
 // CTAs an SM the tensor-core instances are built for, by head dim (below
-// 64 as at 64, at 80, 96 and 100 as at 128: the same accumulator and about
+// 64 as at 64, at 80, 96, 100 and 120 as at 128: the same accumulator and about
 // the same shared memory; one at 256, whose shared memory holds one).
 template <int D>
 constexpr int FWD_TC_BLOCKS = D > 128 ? 1 : D > 64 ? 2 : 4;
@@ -212,7 +222,7 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
 
   wg::load_tile<D>(sQ, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
                    a.Sq);
-  // below D = 64, and at 80, 96 and 100, the columns past D of Q and of every
+  // below D = 64, and at 80, 96, 100 and 120, the columns past D of Q and of every
   // K/V buffer (two ring stages, or the int8 path's widened pair),
   // published with the first tile's copies
   constexpr int BUFS = std::is_same<KT, bf16>::value ? 5 : 3;
@@ -236,7 +246,7 @@ __global__ void __launch_bounds__(wg::THREADS, FWD_TC_BLOCKS<D>) flash_fwd_tc_ke
     const uint32_t stages = ring + TILE + wg::tile_bytes<DV>();
     const float* ksb = a.k_scale + b * a.sc_sb + kvh * a.sc_sh;
     const float* vsb = a.v_scale + b * a.sc_sb + kvh * a.sc_sh;
-    if constexpr (tc::i8_pitch<D>() != D) {   // D = 100: the stages' row pads
+    if constexpr (tc::i8_pitch<D>() != D) {   // D = 100 and 120: the stages' row pads
       for (int st = 0; st < 2; ++st) tc::i8_zero_pad<D>(stages + st * tc::i8_stage_bytes<D>());
     }
     tc::ring_walk(

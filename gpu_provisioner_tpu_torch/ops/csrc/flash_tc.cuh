@@ -32,8 +32,8 @@
 // on the score and P columns (ColScales; Queue C 15): Q, the pair and two
 // int8 stages, 82 KB, two CTAs an SM.
 //
-// Every step is generic in the head dim D = 16, 32, 64, 80, 96, 100, 128 or
-// 256, a template parameter of its own (the accumulator holds acc_floats<D> floats a
+// Every step is generic in the head dim D = 16, 32, 64, 80, 96, 100, 120,
+// 128 or 256, a template parameter of its own (the accumulator holds acc_floats<D> floats a
 // thread): at D = 64 a tile is one swizzle atom, S = Q K^T (and dP = dO
 // V^T, S^T, dP^T) takes 4 k-steps, and the register-A products (O += P V,
 // dQ += dS K, dV += P^T dO, dK += dS^T Q) are m64n64k16 into 32 floats;
@@ -55,7 +55,14 @@
 // (OpenLLaMA-3B's heads) the same, but a row's tiles are copied in 8-byte
 // pieces (wg::load_tile: the forward's Q and K/V ring, dQ's Q and dO,
 // dK/dV's K, V and Q/dO stages), the K-major products take 7 k-steps, and
-// every store is cut at column 100 (store_bf16). At D = 256 (Gemma-2B's
+// every store is cut at column 100 (store_bf16). At D = 120
+// (H2O-Danube3-4B's heads) the same as at 80 and 96, a row exactly 15
+// chunks, copied as D = 128's 16 with the 16th zero-filled
+// (wg::pad_zero_filled: the copies write the pad, chunk 7 of the second
+// atom): the K-major products take D = 128's 8 k-steps, every store whole
+// 8-column groups, an int8 row of 120 bytes copied in 8-byte pieces at a
+// stage pitch of 128 and widened 16 chunks a row, the last from the zeroed
+// pitch pad. At D = 256 (Gemma-2B's
 // 8/1 heads of 256) the output's columns are split in two halves of 128,
 // one a CTA (out_cols): S = Q K^T over the whole D in 16 k-steps on
 // four-atom Q and K tiles, the online softmax as at every D, and O += P V
@@ -205,7 +212,7 @@ __device__ __forceinline__ const float* floats_at(uint32_t addr) {
 }
 
 // s = A B^T for one 64 x 64 tile (A, B both K-major): D / 16 k-steps, 7
-// at D = 100 (the last over the zeroed pad from column 100).
+// at D = 100 (the last over the zeroed pad from column 100), 8 at 120.
 template <int D = 128>
 __device__ __forceinline__ void abt(float (&s)[32], uint32_t sa, uint32_t sb) {
 #pragma unroll
@@ -376,7 +383,8 @@ __device__ __forceinline__ void kv_walk(uint32_t ring, const bf16* kb, const bf1
 // tiles widen without rounding into the swizzled bf16 K/V pair the products
 // read (i8_widen); k_scale multiplies score column j, v_scale P's column j
 // (ColScales). A row's pitch in the stage is D bytes, and at D = 100 112:
-// seven 16-byte chunks, the last 12 bytes a pad zeroed once (i8_zero_pad).
+// seven 16-byte chunks, the last 12 bytes a pad zeroed once (i8_zero_pad);
+// at D = 120 128, eight chunks, the last 8 bytes a pad.
 template <int D>
 __host__ __device__ constexpr int i8_pitch() {
   return (D + 15) / 16 * 16;
@@ -408,18 +416,22 @@ __host__ __device__ constexpr size_t fwd_i8_smem() {
 // 6 chunks, the K and V tiles' chunks together, D / 16 a thread; at D =
 // 256 the whole V tile too, of which the CTA widens its half; at D = 100,
 // rows 4-byte aligned, 25 pieces of 4 bytes a row, the K and V tiles'
-// together, 25 a thread, at the stage's pitch of 112), and one scale a
-// thread. Not committed.
+// together, 25 a thread, at the stage's pitch of 112; at D = 120, rows
+// 8-byte aligned, 15 pieces of 8 bytes a row, the K and V tiles' together,
+// 15 a thread, at the stage's pitch of 128), and one scale a thread. Not
+// committed.
 template <int D>
 __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const int8_t* vb,
                                          const float* ksb, const float* vsb, long long k_ss,
                                          long long v_ss, long long sc_ss, int k0, int Sk) {
   constexpr int CH = D / 16;                  // chunks a row
   constexpr int LOG_CH = wg::log2i(CH);
-  static_assert((D % 16 == 0 || D == 100) && D <= 256, "D = 16, 32, 64, 80, 96, 100, 128 or 256");
+  static_assert((D % 16 == 0 || D == 100 || D == 120) && D <= 256,
+                "D = 16, 32, 64, 80, 96, 100, 120, 128 or 256");
   constexpr uint32_t TILE = i8_tile<D>();
-  if constexpr (D % 16 != 0) {                // D = 100
-    constexpr int P = D / 4;                  // pieces of 4 bytes a row
+  if constexpr (D % 16 != 0) {                // D = 100 and 120
+    constexpr int PB = D % 8 == 0 ? 8 : 4;    // bytes a piece: 4 at 100, 8 at 120
+    constexpr int P = D / PB;                 // pieces a row
     static_assert(2 * E * P % wg::THREADS == 0, "whole pieces a thread");
 #pragma unroll 5
     for (int it = 0; it < 2 * E * P / wg::THREADS; ++it) {
@@ -428,10 +440,11 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
       const int r = j / P, p = j % P;
       const bool in = k0 + r < Sk;
       const long long row = in ? k0 + r : 0;
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(stage + kv * TILE +
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %3, %2;\n" ::"r"(stage + kv * TILE +
                                                                           r * i8_pitch<D>() +
-                                                                          p * 4),
-                   "l"((kv ? vb + row * v_ss : kb + row * k_ss) + p * 4), "r"(in ? 4 : 0)
+                                                                          p * PB),
+                   "l"((kv ? vb + row * v_ss : kb + row * k_ss) + p * PB), "r"(in ? PB : 0),
+                   "n"(PB)
                    : "memory");
     }
   } else if constexpr ((1 << LOG_CH) != CH) {   // D = 80 or 96
@@ -482,7 +495,8 @@ __device__ __forceinline__ void i8_stage(uint32_t stage, const int8_t* kb, const
 // Zeroes the pad of every row of the int8 stage at `stage` (K and V
 // tiles), bytes D .. i8_pitch<D>() - 1, which i8_stage's copies never
 // write: at D = 100 its 12 bytes, so that i8_widen's last chunk reads zeros
-// past column 100; nothing where the pitch is D. Plain stores, published by
+// past column 100 (at D = 120 its 8 bytes, widened into the bf16 tile's
+// pad chunk); nothing where the pitch is D. Plain stores, published by
 // the ring's barrier before the stage is widened.
 template <int D>
 __device__ __forceinline__ void i8_zero_pad(uint32_t stage) {
@@ -532,12 +546,16 @@ __device__ __forceinline__ void i8_widen_cols(uint32_t dst, uint32_t src, int c0
 // chunks of 8 values a tile; at D = 256 K whole and V's columns v0 .. v0 +
 // 127 alone (the CTA's half, i8_widen_cols); at D = 100 13 chunks a row at
 // the stage's pitch, the last one's columns 100..103 from the stage's
-// zeroed pad, so that they stay zero. The caller publishes them
+// zeroed pad, so that they stay zero; at D = 120 16 chunks a row at the
+// stage's pitch of 128, 16 a thread, the 16th (the bf16 tile's pad) from
+// the stage's zeroed pad (wg::pad_zero_filled). The caller publishes them
 // (fence_smem_to_async, then a barrier) before the products.
 template <int D>
 __device__ __forceinline__ void i8_widen(uint32_t sK, uint32_t stage, int v0 = 0) {
-  if constexpr (D % 8 != 0) {
-    constexpr int NCH = (D + 7) / 8;   // bf16 chunks a row, the last one cut
+  if constexpr (i8_pitch<D>() != D) {   // D = 100 and 120
+    // bf16 chunks a row: at 100 13, the last one cut; at 120 16, the last
+    // one the pad
+    constexpr int NCH = wg::pad_zero_filled<D>() ? 16 : (D + 7) / 8;
     const char* src = reinterpret_cast<const char*>(floats_at(stage));
     char* dst = const_cast<char*>(reinterpret_cast<const char*>(floats_at(sK)));
 #pragma unroll

@@ -58,9 +58,10 @@
 // memory at D = 128: 80 KB forward, 96 KB dQ, 97 KB dK/dV, so two CTAs an
 // SM; at D = 64 41, 49 and 50 KB, the CTAs an SM the occupancy query's
 // (flash_tri_ctas). Every instance takes head dim 16, 32, 64, 80, 96, 100,
-// 128 or 256: at 32 and 16 a bf16 tile is the D = 64 atom partly filled,
-// with D = 64's shared memory and accumulators; at 96, 80 and 100
-// (Phi-3-mini's, H2O-Danube-1.8B's and OpenLLaMA-3B's heads) D = 128's two
+// 120, 128 or 256: at 32 and 16 a bf16 tile is the D = 64 atom partly
+// filled, with D = 64's shared memory and accumulators; at 96, 80, 100 and
+// 120 (Phi-3-mini's, H2O-Danube-1.8B's, OpenLLaMA-3B's and
+// H2O-Danube3-4B's heads) D = 128's two
 // atoms, the second partly filled, with D = 128's shared memory,
 // accumulators and register-A products (flash_bwd.cuh says why); at each
 // the tile's pad is zeroed once a CTA before its first segment, and the
@@ -89,7 +90,7 @@
 // This header holds the kernels, their launches and the C entries' bodies
 // for every head dim (HeadDims); flash_tri.cu's entries take 128 and 64,
 // flash_tri_narrow.cu's 32 and 16, flash_tri_mid.cu's 96 and 80,
-// flash_tri_pad.cu's 100, flash_tri_wide.cu's 256, so that five nvcc
+// flash_tri_pad.cu's 120 and 100, flash_tri_wide.cu's 256, so that five nvcc
 // processes build them side by
 // side (one source for all four took 23.8 s to build for sm_90a,
 // flash_fwd.cu 17.0 s in the same build).
@@ -281,7 +282,7 @@ __device__ __forceinline__ void fwd_tri_tc(const FlashTriArgs& a) {
   const float sl2 = a.scale * tc::kLog2e;          // scores in log2 units
   const tc::TriMask mask{a.S};
   float* ws_lse = a.ws + 2LL * a.ctas * E * DV;
-  // below D = 64, and at 80, 96 and 100, the chunks past D of Q and both
+  // below D = 64, and at 80, 96, 100 and 120, the chunks past D of Q and both
   // K/V stages, once, published with the first segment's copies (if
   // constexpr: at D = 64 and 128 even the empty loop moved the compiled
   // kernel's registers)
@@ -366,7 +367,7 @@ __device__ __forceinline__ void dq_tri_tc(const FlashTriArgs& a) {
   const Tri tri = make_tri(a.S, E, a.Hq, a.B);
   const float sl2 = a.scale * tc::kLog2e;
   const tc::TriMask mask{a.S};
-  // below D = 64, and at 80, 96 and 100, the chunks past D of Q, dO and
+  // below D = 64, and at 80, 96, 100 and 120, the chunks past D of Q, dO and
   // both K/V stages, once, published with the first segment's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sQ + i * TILE);
@@ -761,7 +762,7 @@ __global__ void __launch_bounds__(wg::THREADS, tc::DKV_TC_BLOCKS<D>)
   constexpr int E = tc::E;
   constexpr int DV = tc::out_cols<D>, HALVES = D / DV;
   const uint32_t sK = tc::tiles();
-  // below D = 64, and at 80, 96 and 100, the chunks past D of K, V and
+  // below D = 64, and at 80, 96, 100 and 120, the chunks past D of K, V and
   // both Q/dO stages, once, published with the first segment's copies
   if constexpr (D % 64 != 0)
     for (int i = 0; i < 6; ++i) wg::zero_pad<D>(sK + i * wg::tile_bytes<D>());
@@ -914,8 +915,8 @@ cudaError_t launch(int which, const FlashTriArgs& a, cudaStream_t stream) {
 
 // The two head dims one source builds an instance of every kernel at:
 // flash_tri.cu 128 and 64, flash_tri_narrow.cu 32 and 16, flash_tri_mid.cu
-// 96 and 80 (flash_tri_pad.cu 100 and flash_tri_wide.cu 256 twice: one head
-// dim).
+// 96 and 80, flash_tri_pad.cu 120 and 100 (flash_tri_wide.cu 256 twice: one
+// head dim).
 template <int D0, int D1>
 struct HeadDims {
   static constexpr bool has(int D) { return D == D0 || D == D1; }

@@ -46,6 +46,18 @@
 // columns 96..111 of which a quarter is real; the register-A products stay
 // D = 128's, as at 80 and 96.
 //
+// D = 120 (every kernel but the decode's): D = 128's tile as at 80 and
+// 96, a row of 240 bytes exactly 15 16-byte chunks, whose 960 chunks a tile
+// do not split evenly over the warpgroup's 128 threads. load_tile copies
+// D = 128's 16 chunks a row instead, 8 a thread, the 16th (the second
+// atom's chunk 7, columns 120..127) zero-filled (src-size 0), so that the
+// copy itself writes the pad and zero_pad has nothing to do
+// (pad_zero_filled). The K-major products take D = 128's 8 k-steps, the
+// last over columns 112..127 of which half is real; the register-A
+// products stay D = 128's. Against 15 chunks a row in 7.5 copies a thread
+// (a guarded eighth), this took the kernels 4-12% less time on an H100
+// (hack/torch_decode_ab.py, hack/torch_train_mid_heads_phase.py).
+//
 // D = 32 or 16 (every kernel): the D = 64 tile, one atom, partly filled.
 // A row's D / 8 chunks (4 or 2) go to their swizzled places; the atom's
 // other chunks are zeroed once a buffer (zero_pad) and never written
@@ -89,18 +101,28 @@ constexpr int ATOM_BYTES = ROWS * 128;       // 64 rows x 128 bytes
 constexpr uint32_t ALIGN = 1024;             // a swizzle pattern's period
 
 // A tile of 64 rows of D bf16 values: D / 64 atoms, one below D = 64,
-// two at D = 80, 96 and 100, four at D = 256.
+// two at D = 80, 96, 100 and 120, four at D = 256.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 128 ||
-                    D == 256,
-                "a tile spans the head dim: 16, 32, 64, 80, 96, 100, 128 or 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 100 || D == 120 ||
+                    D == 128 || D == 256,
+                "a tile spans the head dim: 16, 32, 64, 80, 96, 100, 120, 128 or 256");
   return D < 64 ? ATOM_BYTES : (D + 63) / 64 * ATOM_BYTES;
 }
 
 // log2 of a power of two (the chunks a row, as shift counts)
 __host__ __device__ constexpr int log2i(int x) { return x <= 1 ? 0 : 1 + log2i(x / 2); }
 constexpr int TILE_BYTES = tile_bytes<128>();   // 64 x 128 bf16
+
+// Whether a tile's rows of whole 16-byte chunks (D / 8 of them) do not
+// split evenly over the warpgroup (D = 120: 960 chunks for 128 threads):
+// its copies then take D = 128's 16 chunks a row, the last ones
+// zero-filled, and so write the tile's pad themselves (load_tile and
+// flash_tc.cuh's i8_widen); zero_pad does nothing there.
+template <int D>
+__host__ __device__ constexpr bool pad_zero_filled() {
+  return D % 8 == 0 && ROWS * (D / 8) % THREADS != 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -320,12 +342,14 @@ __device__ __forceinline__ void copy_wait() {
 // positions; 16-byte aligned) into the swizzled tile at `tile`: 64 * D / 8
 // chunks of 16 bytes, D / 16 per thread, neighbouring threads on
 // neighbouring chunks of a row. Rows at or past S are zero-filled (src-size
-// 0). Not committed. At D = 100 (8-byte aligned rows) 64 * 25 pieces of 8
-// bytes instead, 12 or 13 a thread, each into its chunk's swizzled place.
+// 0). Not committed. At D = 120 D = 128's 16 chunks a row, 8 a thread, the
+// 16th zero-filled (pad_zero_filled). At D = 100 (8-byte aligned rows) 64
+// * 25 pieces of 8 bytes instead, 12 or 13 a thread, each into its chunk's
+// swizzled place.
 template <int D = 128>
 __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* base, long long ld,
                                           int row0, int S) {
-  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96, 100, 128 or 256");
+  static_assert(tile_bytes<D>() > 0, "D = 16, 32, 64, 80, 96, 100, 120, 128 or 256");
   if constexpr (D % 8 != 0) {
     static_assert(D % 4 == 0, "rows of whole 8-byte pieces");
     constexpr int P = D / 4;   // pieces of 4 values a row
@@ -340,6 +364,21 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
           tile + (c >> 3) * ATOM_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4) + (p & 1) * 8;
       asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                    "r"(in ? 8 : 0)
+                   : "memory");
+    }
+    return;
+  }
+  if constexpr (pad_zero_filled<D>()) {
+    static_assert(D > 64 && D < 128, "a row inside D = 128's 16 chunks");
+#pragma unroll
+    for (int it = 0; it < ROWS * 16 / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int r = i >> 4, c = i & 15;   // row, chunk of 8 values along D = 128
+      const bool in = row0 + r < S && c < D / 8;
+      const __nv_bfloat16* src = in ? base + (row0 + r) * ld + c * 8 : base;
+      const uint32_t dst = tile + (c >> 3) * ATOM_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                   "r"(in ? 16 : 0)
                    : "memory");
     }
     return;
@@ -364,7 +403,8 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* ba
 // the chunks D / 8 .. 7 of a one-atom tile (D = 32 or 16), or the chunks
 // D / 8 - 8 .. 7 of a two-atom tile's second atom (D = 80 or 96), or at D
 // = 100 the upper half of that atom's chunk 4 (columns 100..103) and its
-// chunks 5..7; nothing at D = 64 and 128. Plain stores, never on a byte
+// chunks 5..7; nothing at D = 64 and 128, nor at 120, whose copies write
+// the pad themselves (pad_zero_filled). Plain stores, never on a byte
 // that load_tile's copies write (those may still be in flight): the caller
 // publishes them to the tensor cores (fence_smem_to_async, then a barrier)
 // before the first product reads the tile.
@@ -386,7 +426,7 @@ __device__ __forceinline__ void zero_pad(uint32_t tile) {
                      "r"(0u), "r"(0u)
                      : "memory");
     }
-  } else if constexpr (D % 64 != 0) {
+  } else if constexpr (D % 64 != 0 && !pad_zero_filled<D>()) {
     constexpr int CH = D / 8 % 8;   // chunks of the last atom in use
     constexpr int PAD = 8 - CH;     // empty chunks a row: 4 or 6
     const uint32_t atom = tile + (D / 64) * ATOM_BYTES;

@@ -58,21 +58,23 @@ f32 FMA for every dtype. Deliberate differences from the JAX module:
   14; an int8 cache widens exactly to bf16 with its scales on the score
   and P columns, Queue C 15); these kernels, and the decode kernel's K/V
   ring in every dtype, need inputs aligned to their copy width, 16 bytes
-  but at head dim 100 (``_copy_width``; ``_check_tc_copies``,
+  but at head dim 100 and in int8 at 120 (``_copy_width``;
+  ``_check_tc_copies``,
   a ValueError on a direct launch), and the model paths (the autograd
   forward and backward, ``flash_attention_cached``,
   ``flash_attention_decode``) copy an input or cotangent that is not
   (``_tc_layout``), where the JAX kernels take any layout;
 - no block sizes: the CUDA kernels pick their own tiles, and the gates keep
   the JAX block rule (``_auto_block``);
-- head dims 16, 32, 64, 80, 96, 100, 128 and 256 in every kernel
+- head dims 16, 32, 64, 80, 96, 100, 120, 128 and 256 in every kernel
   (``_HEAD_DIMS``; at 32 and 16 the tensor-core tile is the 64-wide one
-  partly filled, at 80, 96 and 100 the 128-wide one, at 256 the
+  partly filled, at 80, 96, 100 and 120 the 128-wide one, at 256 the
   register-A products in column halves of 128 (dQ's two in one CTA, the
   forward's and dK/dV's one a CTA), each from a source of its own:
   ``_cuda.entry``; at 100 a row is no whole number of 16-byte chunks and
-  is copied in 8-byte pieces in bf16 and 4-byte pieces in int8:
-  ``_copy_width``); on a CUDA tensor any other head dim raises a
+  is copied in 8-byte pieces in bf16 and 4-byte pieces in int8, at 120 an
+  int8 row of 120 bytes in 8-byte pieces: ``_copy_width``); on a CUDA
+  tensor any other head dim raises a
   ValueError naming it before a kernel is built or launched (no plain
   fallback), where the JAX kernels take any head dim;
 - the dK/dV kernels fold GQA inside the block instead of writing f32
@@ -114,7 +116,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_cached": 0, "flash_cached_int8": 0,
 _ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the head dims every kernel is built for
-_HEAD_DIMS = (16, 32, 64, 80, 96, 100, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 80, 96, 100, 120, 128, 256)
 
 
 def reset_launches() -> None:
@@ -568,7 +570,7 @@ def _check_self_attention(kernel, q, k, v, dout=None, lse=None,
                           delta=None) -> None:
     """What the self-attention kernels (flash_bwd.cuh, flash_tri.cuh) take:
     q/k/v (and dout) token-major [B,S,H,D] on one device in one of the
-    kernels' dtypes, head dim 16, 32, 64, 80, 96, 100, 128 or 256
+    kernels' dtypes, head dim 16, 32, 64, 80, 96, 100, 120, 128 or 256
     (``_HEAD_DIMS``) contiguous, GQA dividing; lse and delta, where given,
     contiguous float32 [B,Hq,S]. Raises naming ``kernel``."""
     B, S, Hq, D = q.shape
@@ -651,8 +653,8 @@ def _launch_bwd(kernel: str, q, k, v, dout, lse, delta, *, causal: bool,
 
 
 # the kernels whose instances copy pieces of the named inputs into shared
-# memory (cp.async; 16-byte chunks, at head dim 100 smaller pieces:
-# _copy_width): the bf16 tensor-core instances (flash_fwd with a bf16 or
+# memory (cp.async; 16-byte chunks, at head dim 100 and in int8 at 120
+# smaller pieces: _copy_width): the bf16 tensor-core instances (flash_fwd with a bf16 or
 # an int8 cache; its f32 instances read element by element, any row
 # stride), and every instance of flash_decode (its K/V ring, in the cache's
 # dtype; it reads q element by element)
@@ -668,9 +670,10 @@ _TC_COPIED = {"flash_fwd": ("q", "k", "v"),
 def _copy_width(t) -> int | None:
     """The bytes a kernel copies of ``t`` at a time (cp.async): the largest
     of 16, 8 and 4 that divides a row of D values, so 16 at every head dim
-    but 100 and, at 100, 8 in bf16 (a row of 200 bytes), 4 in int8 (100)
-    and 16 in f32 (400); None where none divides the row (no kernel takes
-    that head dim)."""
+    but 100 and 120: at 100 8 in bf16 (a row of 200 bytes), 4 in int8
+    (100) and 16 in f32 (400), at 120 16 in bf16 (240) and f32 (480) and 8
+    in int8 (120); None where none divides the row (no kernel takes that
+    head dim)."""
     row = t.shape[-1] * t.element_size()
     return next((w for w in (16, 8, 4) if row % w == 0), None)
 

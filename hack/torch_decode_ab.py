@@ -13,8 +13,8 @@ ROOT in the order given (give them as A B B A to alternate).
 
 At the shapes of chip_smoke.py's timed rows (Hq 32 / Hkv 8, head dim 128;
 with ``--head-dim 64`` the bench_moe_decode model's Hq 16 / Hkv 8 of 64,
-which a checkout from before the head-dim-64 kernels refuses; with 96 or
-80 the D = 128 shapes at that head dim; a cache of
+which a checkout from before the head-dim-64 kernels refuses; with 96, 80
+or 120 the D = 128 shapes at that head dim; a cache of
 2048, bf16 activations, random normal inputs from a seed):
 ``flash_attention_decode`` at the engine's decode step (B=4, S=1, per-row
 starts 540/300/610/420, pads 12/0/100/56) on a bf16 and an int8 cache, and
@@ -51,9 +51,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs   # noqa: E402  (time_ms, device_ms, the rows' shapes)
 
 ML = 2048
-# head dim -> (Hq, Hkv); 96 and 80 at the D = 128 rows' heads
-HEADS = {128: (32, 8), 96: (32, 8), 80: (32, 8), 64: (16, 8)}
-PREFILL = {128: (2, 512), 96: (2, 512), 80: (2, 512), 64: (8, 512)}   # (B, S)
+# head dim -> (Hq, Hkv); 96, 80 and 120 at the D = 128 rows' heads
+HEADS = {128: (32, 8), 96: (32, 8), 80: (32, 8), 120: (32, 8),
+         64: (16, 8)}
+PREFILL = {128: (2, 512), 96: (2, 512), 80: (2, 512), 120: (2, 512),
+           64: (8, 512)}   # (B, S)
 SPLIT_SWEEP = (1, 2, 4, 9, 16, 32)   # forced split counts at the decode step
 
 

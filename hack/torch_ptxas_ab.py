@@ -11,7 +11,9 @@ libraries (its own ``_cuda.SOURCES``) from its own sources with its own
 runs together); the
 ``-Xptxas -v`` output is read per kernel, and each library's SASS
 (``cuobjdump -sass``, which ships with nvcc) is cut per kernel, the
-mangled names taken without their anonymous namespace's per-build hash.
+mangled names taken without their anonymous namespace's per-build hash
+and each line's runs of blanks read as one (cuobjdump aligns a library's
+columns to its widest instruction).
 Prints, per source of A, how many of A's kernels B builds with the same
 registers and spills and with the same SASS, then one line for every
 kernel whose registers or spills differ or that only one side has, and
@@ -45,14 +47,17 @@ def plain_name(mangled: str) -> str:
 
 
 def sass_by_kernel(text: str) -> dict:
-    """{plain kernel name: its SASS} of one ``cuobjdump -sass`` listing."""
+    """{plain kernel name: its SASS} of one ``cuobjdump -sass`` listing,
+    each line's runs of blanks as one (cuobjdump pads a library's columns to
+    its widest instruction, so a kernel's lines shift when the library gains
+    another kernel)."""
     out, cur = {}, None
     for line in text.splitlines():
         if "Function : " in line:
             cur = plain_name(line.split("Function : ", 1)[1].strip())
             out[cur] = []
         elif cur is not None:
-            out[cur].append(line.strip())
+            out[cur].append(" ".join(line.split()))
     return {k: "\n".join(v) for k, v in out.items()}
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """One of chip_smoke.py's serving head-dim phases alone, on one GPU:
 phase 18 (head dims 32 and 16), phase 20 (head dims 96 and 80), phase 22
-(head dim 256) or phase 24 (head dim 100).
+(head dim 256), phase 24 (head dim 100) or phase 26 (head dim 120).
 
-    python3 hack/torch_serve_heads_phase.py [--phase 18|20|22|24] [--json PATH]
+    python3 hack/torch_serve_heads_phase.py [--phase 18|20|22|24|26] \
+        [--json PATH]
 
 Builds the kernels (printing each source's nvcc seconds) and prints
 ptxas's registers and spills of every instance of the phase's forward
@@ -15,17 +16,21 @@ dense in f32 (phase 18: the tiny preset, the fast bench_engine model and
 tiny-moe, ``phase_small_exact``; phase 20: the Phi-3-mini-width and
 H2O-Danube-width models at 2 layers, ``phase_mid_exact``; phase 22: the
 Gemma-2B-width model at 2 layers, ``phase_wide_exact``; phase 24: the
-OpenLLaMA-3B-width model at 2 layers, ``phase_pad_exact``); the bf16
+OpenLLaMA-3B-width model at 2 layers, phase 26: the H2O-Danube3-4B-width
+model at 2 layers, ``phase_pad_exact`` at 100 or 120); the bf16
 serving paths with their launches and the refusals
 (``phase_small_serving``: the fast bench_moe_decode and bench_engine
 twins, tiny and tiny-moe; ``phase_mid_serving``: both models at full
 depth; ``phase_wide_serving``: Gemma-2B's width at 18 layers;
-``phase_pad_serving``: OpenLLaMA-3B's width at 26 layers); then the
-timed calls' device times. Phase 22 also times #1 at the D = 128 training
-row's shape (``wide_train_shape``); phase 24 launches every D = 100 entry
-into a sentinel-filled view of rows 128 wide (``pad_stores``) and names
-the SDPA backend of its library calls (``library_backends``). Phases 22
-and 24 read their rows beside the D = 128 rows of the same calls. Prints
+``phase_pad_serving``: OpenLLaMA-3B's width at 26 layers, then 36
+refused by every serving and training call, or H2O-Danube3-4B's width at
+24 layers, then 112 and 36); then the timed calls'
+device times. Phase 22 also times #1 at the D = 128 training row's shape
+(``wide_train_shape``); phases 24 and 26 launch every D = 100 or 120
+entry into a sentinel-filled view of rows 128 wide (``pad_stores``) and
+name the SDPA backend of their library calls (``library_backends``).
+Phases 22, 24 and 26 read their rows beside the D = 128 rows of the same
+calls. Prints
 each step's seconds;
 with ``--json`` also writes the rows, the launches and the report there.
 Exits non-zero on any failed check, as chip_smoke.py does. Imports
@@ -45,7 +50,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", type=int, choices=(18, 20, 22, 24),
+    ap.add_argument("--phase", type=int, choices=(18, 20, 22, 24, 26),
                     default=18)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
@@ -84,11 +89,12 @@ def main() -> None:
         serving = lambda: cs.phase_wide_serving(   # noqa: E731
             torch, tl, td, te, tfa, dev)
     else:
-        dims = cs.PAD_HEADS
+        D = {24: 100, 26: 120}[args.phase]
+        dims = {D: cs.PAD_HEADS[D]}
         exact = lambda: cs.phase_pad_exact(   # noqa: E731
-            torch, tl, tm, td, te, dev)
+            torch, tl, tm, td, te, dev, D)
         serving = lambda: cs.phase_pad_serving(   # noqa: E731
-            torch, tl, td, te, tfa, dev)
+            torch, tl, td, te, tfa, dev, D)
     print(cs.card_line(), flush=True)
     t0 = time.perf_counter()
     logs = _cuda.build()
@@ -101,8 +107,8 @@ def main() -> None:
     reports = {D: cs.serve_build_report(_cuda, tfa, logs, D) for D in dims}
     deferred = []
     t = t0 = time.perf_counter()
-    # phase 22's and 24's rows read beside the D = 128 rows of the same
-    # calls
+    # phase 22's, 24's and 26's rows read beside the D = 128 rows of the
+    # same calls
     ref = [] if args.phase < 22 else cs.serve_kernels(
         torch, tfa, td, dev, deferred, 128)
     rows = [r for D in dims
@@ -110,8 +116,10 @@ def main() -> None:
     stores = None
     if args.phase == 22:
         rows[0]["at_train_shape"] = cs.wide_train_shape(torch, tfa, dev)
-    if args.phase == 24:
-        stores = cs.pad_stores(torch, tfa, td, dev, 100, 8, 4, cs.SEED + 132)
+    if args.phase >= 24:
+        run = cs.PAD_RUNS[D]
+        stores = cs.pad_stores(torch, tfa, td, dev, D, *run.stores,
+                               run.seed + 132)
     print(f"kernels {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     exact_report = exact()
@@ -122,7 +130,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t = time.perf_counter()
     cs.device_times(torch, tfa, deferred, dev)
-    if args.phase == 24:
+    if args.phase >= 24:
         cs.library_backends(torch, deferred, rows)
     print(f"device times {time.perf_counter() - t:.1f} s", flush=True)
     for build_report in reports.values():

@@ -18,19 +18,22 @@ the f32 functions on the CPU replay, tests/test_torch_flash_tri.py and
 tests/test_torch_flash_tc.py); their cases add ragged S, windows with sinks
 and pads, per-row starts, GQA 4/1, strided inputs and a misaligned one that
 a direct launch refuses. Every kernel runs at head dims 16, 32, 64, 80,
-96, 128, 256 and 100 (HEAD_DIMS): the forward, cached and decode kernels
-at each, the backward and triangle kernels at 128 and in the
+96, 128, 256, 100 and 120 (HEAD_DIMS): the forward, cached and decode
+kernels at each, the backward and triangle kernels at 128 and in the
 ``*_at_head_dim_64``, ``*_at_head_dims_32_and_16``,
-``*_at_head_dims_96_and_80``, ``*_at_head_dim_256`` and
-``*_at_head_dim_100`` tests, and autograd through them at 80 and 96
+``*_at_head_dims_96_and_80``, ``*_at_head_dim_256``,
+``*_at_head_dim_100`` and ``*_at_head_dim_120`` tests, and autograd
+through them at 80 and 96
 (``test_head_dims_80_and_96_serve_and_refuse_training``, which refuses a
 training call at head dim 36, a row cut mid-chunk that no source builds,
 before any launch), at 256
 (``test_head_dim_256_serves_and_refuses_training``, which refuses head
 dim 192, a multiple of 16 past 128 that no source builds) and at 100
 (``test_head_dim_100_serves_and_refuses_training``, whose name is from
-when 100 only served), where every entry's stores stay inside the head's
-100 columns (chip_smoke.pad_stores, chip_smoke.pad_train_stores).
+when 100 only served) and 120
+(``test_head_dim_120_serves_trains_and_stores_inside_its_columns``),
+where every entry's stores stay inside the head's D columns
+(chip_smoke.pad_stores, chip_smoke.pad_train_stores).
 """
 
 import ctypes
@@ -534,10 +537,26 @@ def test_head_dim_100_serves_and_refuses_training(dev):
     with its output, or each of its outputs, a view of rows 128 wide filled
     with a sentinel: chip_smoke.pad_stores for the serving entries,
     chip_smoke.pad_train_stores for the backward and triangle ones)."""
-    g = torch.Generator(dev).manual_seed(20)
-    D, ML = 100, 1024
+    _serves_trains_and_stores_inside(dev, 100, ((8, 8), (8, 4)), (8, 4), 20)
+
+
+def test_head_dim_120_serves_trains_and_stores_inside_its_columns(dev):
+    """At head dim 120 (H2O-Danube3-4B's 32/8 heads; here GQA 8/2, its
+    group of 4, and 8/8) as at 100: the serving kernels and autograd
+    through the rectangular and triangle kernels within each dtype's
+    tolerance of the plain versions, and every entry's stores inside the
+    head's 120 columns (columns 120..127 of rows 128 wide keep the
+    sentinel)."""
+    _serves_trains_and_stores_inside(dev, 120, ((8, 2), (8, 8)), (8, 2), 23)
+
+
+def _serves_trains_and_stores_inside(dev, D, heads, store_heads, seed):
+    """The checks of the two tests above at head dim D, each (Hq, Hkv) of
+    ``heads``, the sentinel stores at ``store_heads``."""
+    g = torch.Generator(dev).manual_seed(seed)
+    ML = 1024
     for dtype in (torch.bfloat16, torch.float32):
-        for Hq, Hkv in ((8, 8), (8, 4)):
+        for Hq, Hkv in heads:
             q, k, v = (_randn(g, 2, 256, h, D, dtype=dtype, dev=dev)
                        for h in (Hq, Hkv, Hkv))
             tfa.reset_launches()
@@ -582,10 +601,10 @@ def test_head_dim_100_serves_and_refuses_training(dev):
                 for S, o in steps:
                     assert _err(o, tfa.attention_plain(
                         qc[:, :S], kc, vc, st, **kw)[0]) < TOL[dtype]
-    stores = pad_stores(torch, tfa, td, dev, D, 8, 4, 21)
+    stores = pad_stores(torch, tfa, td, dev, D, *store_heads, seed + 1)
     assert set(stores) == {"flash_fwd", "flash_cached", "flash_cached_int8",
                            "flash_decode", "flash_decode_int8"}
-    stores = pad_train_stores(torch, tfa, dev, D, 8, 4, 22)
+    stores = pad_train_stores(torch, tfa, dev, D, *store_heads, seed + 2)
     assert set(stores) == {"flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tri",
                            "flash_bwd_dq_tri", "flash_bwd_dkv_tri"}
 
@@ -884,6 +903,25 @@ def test_flash_bwd_matches_plain_at_head_dim_100(dev, dtype, B, S, Hq, Hkv,
     _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 100, 14)
 
 
+# (B, S, Hq, Hkv, causal, window) of #6/#7 at head dim 120: H2O-Danube3-4B's
+# group of 4 causal and not, MHA 8/8 with a window of 100, ragged S at GQA
+# 4/1
+BWD_P120_CASES = [(1, 512, 8, 2, True, None), (1, 512, 8, 2, False, None),
+                  (2, 256, 8, 8, True, 100), (1, 333, 4, 1, True, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window", BWD_P120_CASES)
+def test_flash_bwd_matches_plain_at_head_dim_120(dev, dtype, B, S, Hq, Hkv,
+                                                 causal, window):
+    """flash_bwd_dq and flash_bwd_dkv at head dim 120 (bf16: D = 128's two
+    atoms, rows of 15 chunks copied as 16, the 16th (the pad) zero-filled,
+    S and dP in 8 k-steps, the dK/dV stage's Q and dO chunks copied
+    together; f32: 15 columns a lane) against attention_bwd_plain, with an
+    lse cotangent, from the plain forward's out and lse."""
+    _bwd_against_plain(dev, dtype, B, S, Hq, Hkv, causal, window, 120, 15)
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 def test_backward_takes_a_cotangent_through_torch_cat(dev, triangular):
     """flash_attention's bf16 output through torch.cat beside a 12-wide
@@ -1167,6 +1205,16 @@ def test_tri_kernels_match_plain_at_head_dim_100(dev, dtype, B, S, Hq, Hkv,
     100; the stores and the cut rows' partials 100 columns) at
     TRI_CASES."""
     _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 100, 20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,cot", TRI_CASES)
+def test_tri_kernels_match_plain_at_head_dim_120(dev, dtype, B, S, Hq, Hkv,
+                                                 cot):
+    """The three tri kernels at head dim 120 (bf16: D = 128's two atoms,
+    rows of 15 chunks copied as 16, the pad zero-filled; the stores and the
+    cut rows' partials 120 columns) at TRI_CASES."""
+    _tri_against_plain(dev, dtype, B, S, Hq, Hkv, cot, 120, 21)
 
 
 def test_triangular_autograd_launches_where_tri_dispatch_says(dev):

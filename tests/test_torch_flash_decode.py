@@ -98,6 +98,18 @@ def test_split_schedule_edges_match_jax_decode_at_head_dim_32(
                   D=32)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,S,Hq,Hkv,start,pads,window,sinks", EDGE_CASES)
+def test_split_schedule_edges_match_jax_decode_at_head_dim_120(
+        B, S, Hq, Hkv, start, pads, window, sinks, int8):
+    """The same edges at head dim 120 (H2O-Danube3-4B's heads), where the
+    kernel's P V keeps D = 128's one row group (threads 0..119 owning a
+    column) and an int8 row of 120 bytes is copied in 8-byte pieces, its
+    score product 7 whole chunks and a tail of 8 values."""
+    _check_splits(B, S, Hq, Hkv, 512, start, pads, int8, window, sinks, 72,
+                  D=120)
+
+
 def _window_skips(kv0, min_qpos, window, pad, sinks):
     """fa::window_skips (csrc/flash_common.cuh), tile by tile."""
     if not window:

@@ -16,12 +16,12 @@ No CUDA kernel runs here, so the tests hold:
   1e-2 and 1e-4), dQ within 5e-3 of its largest value; the int8 cache's
   fold (int8 widened to bf16, scales on the score and P columns) against
   the same JAX functions in int8 mode; each at head dims 64, 128, 80 and
-  96 and 256 (every kernel takes them; dQ's replay at 64, 80, 96 and 256
-  is those backward instances' arithmetic; at 256 each CTA computes one
-  half of the output's columns with the whole row's scores, m and l: the
-  same arithmetic a column), the forward-only replays also at 16, 32 and
-  100 (the serving kernels' D = 128 tile partly filled, its row cut
-  mid-chunk: the same arithmetic on the first 100 columns);
+  96, 256, 100 and 120 (every kernel takes them; dQ's replay is those
+  backward instances' arithmetic; at 256 each CTA computes one half of the
+  output's columns with the whole row's scores, m and l: the same
+  arithmetic a column; at 100 and 120 D = 128's tile partly filled: the
+  same arithmetic on the first D columns), the forward-only replays also
+  at 16 and 32;
 - the launch path's layout rule: a strided bf16 q through
   ``flash_attention_with_lse`` or ``flash_attention_cached`` (a bf16 or an
   int8 cache) reaches the kernel as a copy that the tensor-core instances
@@ -36,16 +36,15 @@ No CUDA kernel runs here, so the tests hold:
   ``flash_fwd`` and ``flash_decode`` (its narrow entry) and the backward
   and triangle kernels; D = 80 and 96 reach every kernel (their mid
   entries), through autograd and ``triangular=True`` too, and so does D =
-  256 (its wide entries); D = 100 reaches ``flash_fwd`` and
-  ``flash_decode`` alone (their pad entries), and a training call at 100
-  (an input that requires grad, ``triangular=True``, the backward) raises
-  naming it; D = 8, 24, 36, 48, 112 and 192 are refused by every kernel,
-  each with a ValueError naming the head dim;
-- the copy rule at head dim 100: a row of 100 values is copied in pieces
-  of 8 bytes in bf16, 4 in int8 and 16 in f32 (``_copy_width``); a bf16
-  view off the 8-byte width is refused by a direct launch and copied by
-  the model paths, a contiguous one and a layer of the model's cache are
-  taken as they are.
+  256 (its wide entries), and so do D = 100 and 120 (their pad entries);
+  D = 8, 24, 36, 48, 112 and 192 are refused by every kernel, each with a
+  ValueError naming the head dim;
+- the copy rule at head dims 100 and 120: a row of 100 values is copied in
+  pieces of 8 bytes in bf16, 4 in int8 and 16 in f32, a row of 120 in 16
+  bytes in bf16 and f32 and 8 in int8 (``_copy_width``); a view off the
+  width is refused by a direct launch and copied by the model paths, a
+  contiguous one and a layer of the model's cache are taken as they
+  are.
 The launch itself is stood in (``_on_card``, ``_run``);
 tests/test_torch_cuda.py holds the kernels.
 """
@@ -112,13 +111,14 @@ def _rel(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
-# the forward and dQ replays at head dims 64 and 128, 80, 96 and 100 (the
-# D = 128 tile partly filled: the same arithmetic on the first D columns)
-# and 256 (the outputs' column halves: each CTA the same arithmetic on its
-# columns, the scores over the whole D)
+# the forward and dQ replays at head dims 64 and 128, 80, 96, 100 and 120
+# (the D = 128 tile partly filled: the same arithmetic on the first D
+# columns) and 256 (the outputs' column halves: each CTA the same arithmetic
+# on its columns, the scores over the whole D)
 HEAD_DIMS = [pytest.param(64, id="d64"), pytest.param(128, id="d128"),
              pytest.param(80, id="d80"), pytest.param(96, id="d96"),
-             pytest.param(256, id="d256"), pytest.param(100, id="d100")]
+             pytest.param(256, id="d256"), pytest.param(100, id="d100"),
+             pytest.param(120, id="d120")]
 # the forward-only replays also at 32 and 16 (the D = 64 tile partly
 # filled)
 FWD_HEAD_DIMS = [pytest.param(16, id="d16"), pytest.param(32, id="d32"),
@@ -784,8 +784,27 @@ def test_head_dim_100_reaches_the_serving_kernels_alone(launches, no_build,
     inputs and cotangent as they are; and _launch_tri reaches all three
     triangle entries with the grid and workspace asked for head dim 100; no
     library built and no plain fallback."""
-    D, S, ML = 100, 128, 256
-    for Hq, Hkv in ((4, 4), (4, 2)):
+    _reaches_the_pad_entries(launches, tri_grid, 100, ((4, 4), (4, 2)))
+
+
+def test_head_dim_120_reaches_every_kernel(launches, no_build, tri_grid):
+    """At head dim 120 (H2O-Danube3-4B's 32/8 heads; here GQA 4/1, its group
+    of 4, and 4/2) every kernel, as at 100: the serving calls reach
+    flash_fwd and flash_decode at the C entries of csrc/flash_fwd_pad.cu and
+    csrc/flash_decode_pad.cu with the contiguous inputs as they are (rows
+    of 240 and 120 bytes: 16-byte chunks in bf16, 8-byte pieces in int8),
+    autograd and triangular=True the backward and triangle entries of
+    csrc/flash_bwd_pad.cu and csrc/flash_tri_pad.cu, the tri grid and
+    workspace asked for head dim 120; no library built and no plain
+    fallback."""
+    _reaches_the_pad_entries(launches, tri_grid, 120, ((4, 1), (4, 2)))
+
+
+def _reaches_the_pad_entries(launches, tri_grid, D, heads):
+    """The checks of the two tests above at head dim D (a head dim of
+    _cuda.PAD_HEAD_DIMS) and each (Hq, Hkv) of ``heads``."""
+    S, ML = 128, 256
+    for Hq, Hkv in heads:
         launches.clear()
         tri_grid.clear()
         q, k, v = _bf16(52, (1, S, Hq, D), (1, S, Hkv, D), (1, S, Hkv, D))
@@ -867,7 +886,9 @@ def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
                                                            no_build):
     """The copy width at head dim 100 is 8 bytes in bf16, 4 in int8 and 16
     in f32 (a row of 200, 100 and 400 bytes), and 16 at every other head
-    dim of _HEAD_DIMS. A bf16 q at 100 whose row stride is off the 8-byte
+    dim of _HEAD_DIMS but 120 (whose int8 rows of 120 bytes take 8:
+    test_copy_rule_takes_int8_rows_of_120_bytes_in_8_byte_pieces). A bf16
+    q at 100 whose row stride is off the 8-byte
     width (Hq·100 + 2 values), or whose base is 4 bytes off it, is refused
     by a direct flash_fwd launch (ValueError naming it) and copied by
     flash_attention_with_lse into aligned storage (_tc_layout); a
@@ -880,7 +901,7 @@ def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
     for dtype, width in rows.items():
         assert tfa._copy_width(torch.zeros(1, 1, 1, D, dtype=dtype)) == width
         for d in tfa._HEAD_DIMS:
-            if d == D:
+            if d == D or (d, dtype) == (120, torch.int8):
                 continue
             assert tfa._copy_width(torch.zeros(1, 1, 1, d, dtype=dtype)) == 16
     (k, v) = _bf16(54, (1, S, Hkv, D), (1, S, Hkv, D))
@@ -927,6 +948,74 @@ def test_copy_rule_takes_rows_cut_mid_chunk_at_head_dim_100(launches,
     i8 = dict(k_scale=sc, v_scale=sc)
     with pytest.raises(ValueError, match=r"flash_decode: k strides .* "
                                          r"\(4 bytes\)"):
+        tfa._launch("flash_decode", q1, k8, k8, 64, causal=True, scale=1.0,
+                    **i8)
+    with torch.no_grad():
+        tfa.flash_attention_decode(q1, k8, k8, 64, **i8)
+    got = launches[-1][1]
+    assert got.k != k8.data_ptr() and (got.k_ss, got.k_sh) == (D, ML * D)
+
+
+def test_copy_rule_takes_int8_rows_of_120_bytes_in_8_byte_pieces(launches,
+                                                                 no_build):
+    """At head dim 120 the copy width is 16 bytes in bf16 and f32 (rows of
+    240 and 480 bytes, 15 and 30 whole chunks) and 8 in int8 (a row of 120
+    bytes). _tc_copy_fault takes a contiguous tensor and a layer of the
+    model's cache in every dtype; it names a bf16 view whose row stride is
+    off 16 bytes (Hq·120 + 4 values) or whose base is 8 bytes off, and an
+    int8 cache whose position stride is off 8 bytes (124 values) or whose
+    base is 4 bytes off, which a direct launch refuses and the model paths
+    copy into aligned storage."""
+    D, S, Hq, Hkv, ML = 120, 128, 4, 1, 256
+    rows = {torch.bfloat16: 16, torch.int8: 8, torch.float32: 16}
+    for dtype, width in rows.items():
+        t = torch.zeros(2, S, Hq, D, dtype=dtype)
+        assert tfa._copy_width(t) == width
+        assert tfa._tc_copy_fault(t, any_dtype=True) is None
+    (k, v) = _bf16(60, (1, S, Hkv, D), (1, S, Hkv, D))
+    row = Hq * D + 4
+    wide = _bf16(61, (1, S, row))[0]
+    strided = wide.as_strided((1, S, Hq, D), (S * row, row, D, 1))
+    flat = _bf16(62, (S * Hq * D + 4,))[0]
+    shifted = flat[4:].view(1, S, Hq, D)
+    assert shifted.data_ptr() % 16 == 8
+    assert "(16 bytes)" in tfa._tc_copy_fault(strided)
+    assert tfa._tc_copy_fault(shifted) == "is not 16-byte aligned"
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    with pytest.raises(ValueError, match=r"flash_fwd: q strides .* "
+                                         r"\(16 bytes\)"):
+        tfa._launch("flash_fwd", strided, kh, vh, 0, causal=True, scale=1.0)
+    assert launches == []
+    with torch.no_grad():
+        for q in (strided, shifted):
+            tfa.flash_attention_with_lse(q, k, v)
+    for (_, got), q in zip(launches, (strided, shifted)):
+        assert got.q != q.data_ptr() and got.q % 16 == 0
+        assert (got.q_ss, got.q_sh) == (Hq * D, D)
+
+    launches.clear()
+    cfg = tl.LlamaConfig(vocab_size=64, dim=Hq * D, n_layers=2, n_heads=Hq,
+                         n_kv_heads=Hkv, hidden_dim=64, dtype="bfloat16")
+    q1 = _bf16(63, (2, 1, Hq, D))[0]
+    for kv_dtype in ("auto", "int8"):
+        cache = td.init_kv_cache(dataclasses.replace(
+            cfg, kv_cache_dtype=kv_dtype), 2, ML, device="cpu")
+        kw = ({} if cache.k_scale is None else
+              dict(k_scale=cache.k_scale[1], v_scale=cache.v_scale[1]))
+        layer = cache.k[1]
+        assert tfa._tc_copy_fault(layer, any_dtype=True) is None
+        with torch.no_grad():
+            tfa.flash_attention_decode(q1, layer, cache.v[1], 64, **kw)
+        assert launches[-1][1].k == layer.data_ptr()
+    k8 = torch.zeros(2, Hkv, ML, D + 4, dtype=torch.int8)[..., :D]
+    off = torch.zeros(2 * Hkv * ML * D + 4, dtype=torch.int8)[4:].view(
+        2, Hkv, ML, D)
+    assert "(8 bytes)" in tfa._tc_copy_fault(k8, any_dtype=True)
+    assert tfa._tc_copy_fault(off, any_dtype=True) == "is not 8-byte aligned"
+    sc = torch.ones(2, Hkv, ML, 1)
+    i8 = dict(k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match=r"flash_decode: k strides .* "
+                                         r"\(8 bytes\)"):
         tfa._launch("flash_decode", q1, k8, k8, 64, causal=True, scale=1.0,
                     **i8)
     with torch.no_grad():

@@ -464,7 +464,9 @@ def _hack_module(name):
     pytest.param(4, 1, None, 256, id="4-1-d256"),
     pytest.param(4, 1, 160, 256, id="4-1-window-d256"),
     pytest.param(4, 4, None, 100, id="4-4-d100"),
-    pytest.param(4, 4, 160, 100, id="4-4-window-d100")])
+    pytest.param(4, 4, 160, 100, id="4-4-window-d100"),
+    pytest.param(4, 1, None, 120, id="4-1-d120"),
+    pytest.param(4, 1, 160, 120, id="4-1-window-d120")])
 def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
         monkeypatch, Hq, Hkv, window, D):
     """ROADMAP Queue C 12: the bf16 tensor-core kernels round P (as bf16
@@ -480,9 +482,10 @@ def test_tensor_core_rounding_stays_within_half_the_card_tolerance(
     rectangular flash_bwd_dkv's dK and dV, from the plain forward's out and
     lse, against the JAX rectangular kernels' VJP, within 5e-3; at head
     dims 128 and 64, 80 and 96 at H2O-Danube-1.8B's GQA group of 4 and
-    Phi-3-mini's of 1, 256 at Gemma-2B's multi-query group and 100 at
-    OpenLLaMA-3B's group of 1 (every head dim's kernels round at the same
-    points; at 256 each CTA on its column half)."""
+    Phi-3-mini's of 1, 256 at Gemma-2B's multi-query group, 100 at
+    OpenLLaMA-3B's group of 1 and 120 at H2O-Danube3-4B's of 4 (every head
+    dim's kernels round at the same points; at 256 each CTA on its column
+    half)."""
     replay = _hack_module("torch_tri_bf16_replay")
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
     S = 384

@@ -1,17 +1,23 @@
-"""The serving paths at head dim 100 against the JAX package, on the CPU.
+"""The serving paths at head dims 100 and 120 against the JAX package, on
+the CPU.
 
-On the card the forward, cached and decode kernels take head dim 100
-(csrc/flash_fwd_pad.cu, csrc/flash_decode_pad.cu: D = 128's tile partly
-filled, a row of 100 values, no whole number of 16-byte chunks, copied in
-8-byte pieces in bf16 and 4-byte pieces in int8), so a Llama config at
-OpenLLaMA-3B's widths (32/32 heads of 100) serves through them. Here the
-port's flash path (the kernels' plain versions, on CPU tensors) is held
-against the JAX package's (its Pallas kernels in interpret mode, as its
-own tests run them) at that head dim and OpenLLaMA's multi-head attention,
-4/4 heads (dim 400), f32, params carried across with params_from_numpy,
-2 layers:
-- each wrapper against its JAX twin on numpy-seeded inputs, at 4/4 and at
-  GQA 4/2: ``flash_attention_with_lse`` (out and lse within 1e-5),
+On the card the forward, cached and decode kernels take head dims 100 and
+120 (csrc/flash_fwd_pad.cu, csrc/flash_decode_pad.cu: D = 128's tile with
+a zeroed pad inside its last k-step; at 100 a row of no whole number of
+16-byte chunks, copied in 8-byte pieces in bf16 and 4-byte pieces in
+int8; at 120 a bf16 row of 15 chunks and an int8 row of 120 bytes in
+8-byte pieces), so Llama configs at OpenLLaMA-3B's widths (32/32 heads of
+100) and at H2O-Danube3-4B's (32/8 heads of 120) serve through them. Here
+the port's flash path (the kernels' plain versions, on CPU tensors) is
+held against the JAX package's (its Pallas kernels in interpret mode, as
+its own tests run them) at each head dim, f32, params carried across with
+params_from_numpy, 2 layers: OpenLLaMA's multi-head attention at 4/4 heads
+of 100 (dim 400), and Danube3's group of 4 at 4/1 heads of 120 (dim 480,
+its norm eps and rope theta). The tests' names are from when 100 was the
+one head dim here:
+- each wrapper against its JAX twin on numpy-seeded inputs, at 4/4 and
+  GQA 4/2 heads of 100 and at 4/1 and 4/2 heads of 120:
+  ``flash_attention_with_lse`` (out and lse within 1e-5),
   ``flash_attention_cached`` with pads, a window and sinks on an f32 and
   an int8 cache, ``flash_attention_decode`` at per-row starts, S = 1 and
   S = 5 (within 1e-5);
@@ -47,16 +53,21 @@ jfa = importlib.import_module("gpu_provisioner_tpu.ops.flash_attention")
 ATOL, ATOL_INT8, ATOL_OP = 1e-4, 2e-2, 1e-5
 
 # OpenLLaMA-3B's attention shape (head dim 100, multi-head) at 4 heads and
-# 2 layers (its norm eps)
+# 2 layers (its norm eps), and H2O-Danube3-4B's (head dim 120, a group of 4)
+# at 4/1 heads and 2 layers (its norm eps and rope theta)
 MODELS = {
     "openllama-d100": jl.LlamaConfig(
         vocab_size=256, dim=400, n_layers=2, n_heads=4, n_kv_heads=4,
         hidden_dim=512, max_seq_len=512, norm_eps=1e-6, dtype="float32",
         attn_impl="flash"),
+    "danube3-d120": jl.LlamaConfig(
+        vocab_size=256, dim=480, n_layers=2, n_heads=4, n_kv_heads=1,
+        hidden_dim=512, max_seq_len=512, norm_eps=1e-5, rope_theta=1e5,
+        dtype="float32", attn_impl="flash"),
 }
-# the wrappers at the model's heads and at GQA 4/2: (Hq, Hkv)
-HEADS = {"mha-4-4": (4, 4), "gqa-4-2": (4, 2)}
-D = 100
+# the wrappers at each model's heads and at GQA 4/2: (head dim, Hq, Hkv)
+HEADS = {"mha-4-4": (100, 4, 4), "gqa-4-2": (100, 4, 2),
+         "d120-gqa-4-1": (120, 4, 1), "d120-gqa-4-2": (120, 4, 2)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,7 +119,7 @@ def _normal(seed, *shapes):
 @pytest.mark.parametrize("heads", list(HEADS))
 def test_flash_attention_with_lse_matches_jax(heads):
     """Causal self-attention at S = 256 (blocks of 128): out and lse."""
-    Hq, Hkv = HEADS[heads]
+    D, Hq, Hkv = HEADS[heads]
     q, k, v = _normal(1, (2, 256, Hq, D), (2, 256, Hkv, D), (2, 256, Hkv, D))
     jout, jlse = jfa.flash_attention_with_lse(
         *(jnp.asarray(a) for a in (q, k, v)), block_q=128, block_k=128,
@@ -137,7 +148,7 @@ def test_cached_and_decode_wrappers_match_jax(heads, int8):
     256, left pads 0 and 30, a window of 96 with 4 sinks) and
     flash_attention_decode (per-row starts 200 and 61, pads 3 and 40, S = 1
     and S = 5, the same window and sinks) on an f32 or an int8 cache."""
-    Hq, Hkv = HEADS[heads]
+    D, Hq, Hkv = HEADS[heads]
     B, ML = 2, 256
     kc, vc, sc = _cache(2, B, Hkv, ML, D, int8)
     pads = np.array([0, 30], np.int32)

@@ -1,15 +1,19 @@
-"""The training paths at head dim 100 against the JAX package, on the CPU.
+"""The training paths at head dims 100 and 120 against the JAX package, on
+the CPU.
 
-On the card the backward and triangle kernels take head dim 100
-(csrc/flash_bwd_pad.cu, csrc/flash_tri_pad.cu: D = 128's tile partly
-filled, a row of 100 values, no whole number of 16-byte chunks, copied in
-8-byte pieces, every store cut at column 100), so a Llama config at
-OpenLLaMA-3B's widths (32/32 heads of 100) trains through them. Here the
-port's flash path (the kernels' plain versions, on CPU tensors) is held
-against the JAX package's (its Pallas kernels in interpret mode, as its
-own tests run them) at that head dim, at
-tests/test_torch_serve_pad_heads.py's MODELS (4/4 heads of 100, 2 layers,
-f32) and at GQA 4/2:
+On the card the backward and triangle kernels take head dims 100 and 120
+(csrc/flash_bwd_pad.cu, csrc/flash_tri_pad.cu: D = 128's tile with a
+zeroed pad inside its last k-step; at 100 a row of no whole number of
+16-byte chunks, copied in 8-byte pieces, every store cut at column 100; at
+120 a row of 15 chunks, every store 15 whole 8-column groups), so Llama
+configs at OpenLLaMA-3B's widths (32/32 heads of 100) and at
+H2O-Danube3-4B's (32/8 heads of 120) train through them. Here the port's
+flash path (the kernels' plain versions, on CPU tensors) is held against
+the JAX package's (its Pallas kernels in interpret mode, as its own tests
+run them) at each head dim, at tests/test_torch_serve_pad_heads.py's
+MODELS and HEADS (4/4 heads of 100 and 4/1 of 120, 2 layers, f32; each
+also at GQA 4/2). The tests' names are from when 100 was the one head dim
+here:
 - ``flash_attention_with_lse`` and its gradients against ``jax.vjp``:
   causal, non-causal and windowed, the JAX forward resident or streaming
   (RESIDENT_KV_BUDGET lowered to 0), with and without an lse cotangent:
@@ -44,7 +48,7 @@ from gpu_provisioner_tpu_torch.models import train as ttrain
 from gpu_provisioner_tpu_torch.models.convert import params_from_numpy
 from gpu_provisioner_tpu_torch.ops import flash_attention as tfa
 
-from tests.test_torch_serve_pad_heads import D, HEADS, MODELS
+from tests.test_torch_serve_pad_heads import HEADS, MODELS
 
 # the JAX ops package re-exports flash_attention, shadowing the module name
 jfa = importlib.import_module("gpu_provisioner_tpu.ops.flash_attention")
@@ -113,13 +117,13 @@ def _vjp_against_jax(q, k, v, g_out, g_lse, *, atol_out, atol_grad, **kw):
 @pytest.mark.parametrize("heads", list(HEADS))
 def test_flash_gradients_match_jax_vjp(monkeypatch, heads, causal, window,
                                        streaming, with_lse):
-    """Self-attention at S = 256, 4/4 and 4/2 heads: out, lse and dQ/dK/dV
-    against jax.vjp within 1e-4, the JAX forward resident or streaming
-    (its backward is the same kernels either way), an lse cotangent or
-    none."""
+    """Self-attention at S = 256, HEADS' head dims and heads: out, lse and
+    dQ/dK/dV against jax.vjp within 1e-4, the JAX forward resident or
+    streaming (its backward is the same kernels either way), an lse
+    cotangent or none."""
     if streaming:
         monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
-    Hq, Hkv = HEADS[heads]
+    D, Hq, Hkv = HEADS[heads]
     q, k, v, g_out, g_lse = _normal(1, (2, 256, Hq, D), (2, 256, Hkv, D),
                                     (2, 256, Hkv, D), (2, 256, Hq, D),
                                     (2, Hq, 256))
@@ -138,7 +142,7 @@ def test_triangular_matches_jax_triangular(monkeypatch, heads, with_lse):
     1e-4, with an lse cotangent or none."""
     monkeypatch.setattr(jfa, "RESIDENT_KV_BUDGET", 0)
     monkeypatch.setattr(tfa, "RESIDENT_KV_BUDGET", 0)
-    Hq, Hkv = HEADS[heads]
+    D, Hq, Hkv = HEADS[heads]
     q, k, v, g_out, g_lse = _normal(7, (1, 384, Hq, D), (1, 384, Hkv, D),
                                     (1, 384, Hkv, D), (1, 384, Hq, D),
                                     (1, Hq, 384))
@@ -161,10 +165,11 @@ def _named(tree):
 
 @pytest.mark.parametrize("model", list(TRAIN_MODELS))
 def test_loss_grads_and_train_step_match_jax(model):
-    """attn_impl="flash" at (2, 128), 4/4 and 4/2 heads: the loss and every
-    gradient against jax.value_and_grad (the JAX side runs its Pallas
-    backward in interpret mode, the port the plain versions of the kernels
-    that take head dim 100 on the card), then one make_train_step step
+    """attn_impl="flash" at (2, 128), each model at its heads and at GQA
+    4/2: the loss and every gradient against jax.value_and_grad (the JAX
+    side runs its Pallas backward in interpret mode, the port the plain
+    versions of the kernels that take head dims 100 and 120 on the card),
+    then one make_train_step step
     against the optax AdamW step from those gradients."""
     jcfg, jparams = TRAIN_MODELS[model], _params(model)
     tcfg = tl.LlamaConfig(**dataclasses.asdict(jcfg))
